@@ -1,0 +1,348 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (torchmpi_tpu_torch) on one NVIDIA H100.
+
+    python3 chip_smoke.py
+
+needs one CUDA card and the CUDA toolkit (nvcc), and nothing else of the
+JAX package.  In order it:
+
+1. prints the card's name and power limit (nvidia-smi);
+2. builds the three flash-attention kernels from ops/csrc with nvcc
+   (sm_90a, one compiler per source, in parallel) into build/torch_kernels/;
+3. kernel phase: at the flagship LM's attention shapes (B 4, T 2048, 16 q /
+   4 kv heads, head_dim 128, causal, window 1024, float32) runs each kernel
+   against its plain PyTorch version on the same seeded inputs, and times
+   kernel, plain version and, for the forward, PyTorch's
+   scaled_dot_product_attention with the same mask (the yardstick only);
+4. train phase: mpi.init() (NCCL, world of 1) and three data-parallel SGD
+   steps (lr 0.02) of the flagship TransformerLM at full width (embed 2048,
+   depth 8, GQA 16/4, head_dim 128, T 2048, vocab 32768, window 1024, RoPE,
+   bf16 compute, float32 parameters, batch 4) with attn_impl="flash"; every
+   kernel's launch count must be > 0 and the loss finite and falling; one
+   more, untimed step counts the host-device synchronizations of a step;
+5. consistency phase: one forward and backward of the same weights and
+   batch with attn_impl="local" (dense oracle) and "flash";
+6. prints the kernels' summary line, then {"ok": true, "device": ...}.
+
+Each phase prints one JSON line.  Any failed check raises and the script
+exits non-zero; it exits non-zero without a result when no card is visible
+or the package is missing.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import re
+import statistics
+import subprocess
+import sys
+import time
+import warnings
+
+SEED = 0
+# The flagship LM (bench.py stage B', dense loss of stage B).
+LM = dict(vocab=32768, embed=2048, depth=8, num_heads=16, head_dim=128,
+          num_kv_heads=4, max_len=2048, window=1024, pos_emb="rope")
+BATCH, SEQ, LR, STEPS = 4, 2048, 0.02, 3
+# H100 SXM peaks (NVIDIA data sheet): TF32 tensor-core rate, HBM3 rate.
+PEAK_TF32_FLOPS = 495e12
+PEAK_HBM_BYTES = 3.35e12
+KERNEL_RTOL = 1e-4      # f32 kernel vs plain: summation order differs
+CONSISTENCY_RTOL = 2e-2  # bf16 model: local vs flash attention
+
+SOURCES = {
+    "flash_fwd": ("torchmpi_tpu_torch/ops/csrc/flash_fwd.cu",
+                  "torchmpi_tpu/ops/flash.py:265"),
+    "flash_bwd_dq": ("torchmpi_tpu_torch/ops/csrc/flash_bwd_dq.cu",
+                     "torchmpi_tpu/ops/flash.py:358"),
+    "flash_bwd_dkv": ("torchmpi_tpu_torch/ops/csrc/flash_bwd_dkv.cu",
+                      "torchmpi_tpu/ops/flash.py:424"),
+}
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def time_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
+    """Median device time of one call of ``fn`` over ``iters`` calls, by
+    CUDA events, after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def nvidia_smi(query: str) -> str:
+    """First card's ``--query-gpu=<query>`` as nvidia-smi prints it."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def count_host_syncs(torch, fn) -> int:
+    """Host-device synchronizations inside one call of ``fn``: PyTorch's
+    sync debug mode warns at each one, and the warnings are counted."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchronizing CUDA operation" in str(w.message)
+               for w in caught)
+
+
+def ptxas_summary(log: str) -> dict:
+    """{"D<head_dim>": "registers; spills"} per kernel instantiation, from
+    nvcc's -Xptxas -v report."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"entry function '.*?ILi(\d+)E", ln)
+        if m:
+            cur = out.setdefault(f"D{m.group(1)}", [])
+        elif cur is not None and ("registers" in ln or "spill" in ln):
+            cur.append(ln.split("info    :")[-1].strip())
+    return {k: "; ".join(v) for k, v in out.items()}
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def kernel_phase(torch, flash, dev):
+    B, T, H, Hkv, D, W = (BATCH, SEQ, LM["num_heads"], LM["num_kv_heads"],
+                          LM["head_dim"], LM["window"])
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    q = torch.randn(B, T, H, D, generator=g, device=dev)
+    k = torch.randn(B, T, Hkv, D, generator=g, device=dev)
+    v = torch.randn(B, T, Hkv, D, generator=g, device=dev)
+    do = torch.randn(B, T, H, D, generator=g, device=dev)
+    kw = dict(scale=1.0 / math.sqrt(D), causal=True, window=W)
+
+    o, lse = flash.flash_fwd(q, k, v, **kw)
+    o_ref, lse_ref = flash.flash_fwd_plain(q, k, v, **kw)
+    dvec = torch.einsum("bqhd,bqhd->bhq", do, o).contiguous()
+    dq = flash.flash_bwd_dq(q, k, v, do, lse, dvec, **kw)
+    dq_ref = flash.flash_bwd_dq_plain(q, k, v, do, lse, dvec, **kw)
+    dk, dv = flash.flash_bwd_dkv(q, k, v, do, lse, dvec, **kw)
+    dk_ref, dv_ref = flash.flash_bwd_dkv_plain(q, k, v, do, lse, dvec, **kw)
+    torch.cuda.synchronize()
+
+    # Live (q, k) pairs of this mask, counted from the mask itself.
+    pos = torch.arange(T, device=dev)
+    live = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < W)
+    pairs = B * H * int(live.sum())
+    nbytes = lambda *ts: 4 * sum(t.numel() for t in ts)  # noqa: E731
+    work = {  # matmul flops (2 per multiply-add) and bytes moved
+        "flash_fwd": (4 * D * pairs, nbytes(q, k, v, o, lse)),
+        "flash_bwd_dq": (6 * D * pairs, nbytes(q, k, v, do, lse, dvec, dq)),
+        "flash_bwd_dkv": (8 * D * pairs,
+                          nbytes(q, k, v, do, lse, dvec, dk, dv)),
+    }
+    errs = {
+        "flash_fwd": (max_err(o, o_ref), float(o_ref.abs().max()),
+                      max_err(lse, lse_ref)),
+        "flash_bwd_dq": (max_err(dq, dq_ref), float(dq_ref.abs().max()),
+                         None),
+        "flash_bwd_dkv": (max(max_err(dk, dk_ref), max_err(dv, dv_ref)),
+                          max(float(dk_ref.abs().max()),
+                              float(dv_ref.abs().max())), None),
+    }
+    del o_ref, lse_ref, dq_ref, dk_ref, dv_ref
+
+    runs = {
+        "flash_fwd": (lambda: flash.flash_fwd(q, k, v, **kw),
+                      lambda: flash.flash_fwd_plain(q, k, v, **kw)),
+        "flash_bwd_dq": (
+            lambda: flash.flash_bwd_dq(q, k, v, do, lse, dvec, **kw),
+            lambda: flash.flash_bwd_dq_plain(q, k, v, do, lse, dvec, **kw)),
+        "flash_bwd_dkv": (
+            lambda: flash.flash_bwd_dkv(q, k, v, do, lse, dvec, **kw),
+            lambda: flash.flash_bwd_dkv_plain(q, k, v, do, lse, dvec, **kw)),
+    }
+    # Yardstick for the forward: one PyTorch call on the same inputs and
+    # mask (never used by the port).
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=live, scale=kw["scale"], enable_gqa=True)
+
+    sdpa_err = max_err(sdpa().transpose(1, 2), o)
+
+    rows = []
+    for name, (kern, plain) in runs.items():
+        err, ref_max, lse_err = errs[name]
+        flops, nb = work[name]
+        t_op, t_b = flops / PEAK_TF32_FLOPS * 1e3, nb / PEAK_HBM_BYTES * 1e3
+        row = {
+            "name": name, "route": "cuda", "source": SOURCES[name][0],
+            "replaces": SOURCES[name][1],
+            "max_abs_err": err, "tolerance": KERNEL_RTOL * ref_max,
+            "ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
+            "bound_ms": max(t_op, t_b),
+            "bound_by": "operations" if t_op >= t_b else "bytes",
+            "library_ms": (time_ms(torch, sdpa) if name == "flash_fwd"
+                           else None),
+            "flops": flops, "bytes": nb,
+        }
+        if lse_err is not None:
+            row["lse_max_abs_err"] = lse_err
+            row["sdpa_max_abs_err"] = sdpa_err
+        rows.append(row)
+    emit({"phase": "kernels", "shape": dict(B=B, T=T, H=H, Hkv=Hkv, D=D,
+                                            window=W, dtype="float32"),
+          "live_pairs": pairs, "launches_in_phase": dict(flash.LAUNCHES),
+          "kernels": rows})
+    for row in rows:
+        check(row["max_abs_err"] <= row["tolerance"],
+              f"{row['name']} max_abs_err {row['max_abs_err']} > "
+              f"{row['tolerance']}")
+    check(errs["flash_fwd"][2] <= KERNEL_RTOL * float(lse.abs().max()),
+          "flash_fwd lse disagrees with the plain version")
+    return rows
+
+
+def lm_loss(torch, model, tok):
+    """Stage B's dense loss: logits = x @ head, softmax cross-entropy of
+    each next token, mean."""
+    logits = model(tok)
+    V = logits.shape[-1]
+    return torch.nn.functional.cross_entropy(
+        logits[:, :-1].reshape(-1, V).float(), tok[:, 1:].reshape(-1))
+
+
+def train_phase(torch, mpi, flash, dev):
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    model = mpi.models.TransformerLM(**LM, attn_impl="flash",
+                                     dtype=torch.bfloat16, device=dev,
+                                     generator=g)
+    n_params = sum(p.numel() for p in model.parameters())
+    tok = torch.randint(0, LM["vocab"], (BATCH, SEQ), generator=g,
+                        device=dev)
+    opt = torch.optim.SGD(model.parameters(), lr=LR)
+    step = mpi.nn.data_parallel_step(
+        model, opt, lambda m, t: lm_loss(torch, m, t))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset_launches()
+    losses, step_ms = [], []
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        loss = step(tok)
+        losses.append(float(loss))  # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(flash.LAUNCHES)
+    med = statistics.median(step_ms)
+    peak = torch.cuda.max_memory_allocated()
+    # One more, untimed step: how often a step makes the host wait for the
+    # card (each wait drains the queue of work the host had run ahead on).
+    syncs = count_host_syncs(torch, lambda: step(tok))
+    emit({"phase": "train", "config": dict(LM, batch=BATCH, seq=SEQ, lr=LR,
+                                           dtype="bfloat16"),
+          "params": n_params, "losses": losses, "step_ms": step_ms,
+          "median_step_ms": med,
+          "tokens_per_s": BATCH * SEQ / (med / 1e3),
+          "peak_mem_bytes": peak, "host_syncs_per_step": syncs,
+          "launches": launches, "world_size": mpi.size(),
+          "backend": mpi.runtime.backend_name()})
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} never launched on the train path")
+    return model, tok, launches
+
+
+def consistency_phase(torch, mpi, model, tok, dev):
+    """Same weights and batch through attn_impl="local" and "flash"."""
+    local = mpi.models.TransformerLM(**LM, attn_impl="local",
+                                     dtype=torch.bfloat16, device=dev)
+    local.load_state_dict(model.state_dict())
+    out = {}
+    for name, m in (("flash", model), ("local", local)):
+        m.zero_grad(set_to_none=True)
+        loss = lm_loss(torch, m, tok)
+        loss.backward()
+        out[name] = (float(loss.detach()),
+                     {n: p.grad for n, p in m.named_parameters()})
+    lf, gf = out["flash"]
+    ll, gl = out["local"]
+    loss_rel = abs(lf - ll) / abs(ll)
+    grad_rel = max(float((gf[n].float() - gl[n].float()).norm()
+                         / gl[n].float().norm().clamp_min(1e-30))
+                   for n in gl)
+    emit({"phase": "consistency", "loss_flash": lf, "loss_local": ll,
+          "loss_rel_diff": loss_rel, "grad_max_rel_norm_diff": grad_rel,
+          "tolerance": CONSISTENCY_RTOL})
+    check(loss_rel <= CONSISTENCY_RTOL, f"loss differs by {loss_rel}")
+    check(grad_rel <= CONSISTENCY_RTOL, f"gradients differ by {grad_rel}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    try:
+        import torchmpi_tpu_torch as mpi
+        from torchmpi_tpu_torch.ops import _build, flash
+    except ImportError as e:
+        print(f"chip_smoke: the port is not importable here: {e}",
+              file=sys.stderr)
+        return 2
+    # Full float32 products in every plain reference (no TF32).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    card = nvidia_smi("name,power.limit")
+    print(card, flush=True)
+
+    t0 = time.perf_counter()
+    _build.build()
+    ptxas = {n: ptxas_summary(log) for n, log in _build.build_logs.items()}
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "dir": str(_build.BUILD_DIR), "ptxas": ptxas,
+          "card_uuid": nvidia_smi("uuid")})
+
+    dev = mpi.init()
+    try:
+        rows = kernel_phase(torch, flash, dev)
+        model, tok, launches = train_phase(torch, mpi, flash, dev)
+        consistency_phase(torch, mpi, model, tok, dev)
+    finally:
+        mpi.stop()
+
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    kernels = [{k: dict(row, launches=launches[row["name"]])[k] for k in keys}
+               for row in rows]
+    print(card, flush=True)
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

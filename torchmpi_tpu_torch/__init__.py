@@ -1,0 +1,44 @@
+"""torchmpi_tpu_torch — the PyTorch / CUDA port of torchmpi_tpu.
+
+The same shape as the JAX package, a communication library with a
+data-parallel integration layer on top, built on ``torch.distributed`` for
+an NVIDIA H100, with the JAX package's Pallas TPU kernels rewritten by hand
+as CUDA kernels (``ops/csrc``):
+
+    import torchmpi_tpu_torch as mpi
+    mpi.init()                              # NCCL on the card, world of 1
+    mpi.rank(), mpi.size()
+    mpi.allreduce(x)                        # sum over ranks
+    step = mpi.nn.data_parallel_step(model, optimizer, loss_fn)
+    loss = step(batch)                      # grads synced in fused buckets
+    mpi.stop()
+
+It imports nothing of JAX and nothing of ``torchmpi_tpu``.  Entry points run
+on the card unless the caller passes ``device="cpu"``.
+"""
+
+from .config import Config
+from .runtime import (
+    barrier,
+    config,
+    config_epoch,
+    effective_config,
+    init,
+    is_initialized,
+    local_rank,
+    rank,
+    size,
+    stop,
+)
+from . import collectives, fusion, selector
+from . import models, nn, ops, parallel, weights
+from .collectives import allreduce, allreduce_in_axis, broadcast
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Config", "init", "stop", "is_initialized", "rank", "size", "local_rank",
+    "barrier", "config", "config_epoch", "effective_config", "collectives",
+    "fusion", "selector", "models", "nn", "ops", "parallel", "weights",
+    "allreduce", "allreduce_in_axis", "broadcast", "__version__",
+]

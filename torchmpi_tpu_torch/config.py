@@ -1,0 +1,68 @@
+"""Runtime configuration for torchmpi_tpu_torch.
+
+The PyTorch counterpart of ``torchmpi_tpu/config.py``: one dataclass plus
+``TORCHMPI_TPU_*`` environment overrides, holding only the knobs the ported
+modules read.  Field names, defaults and environment variable names are the
+JAX package's, so one environment configures both.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+
+def _env_bool(name: str, default: bool) -> bool:
+    v = os.environ.get(name)
+    if v is None:
+        return default
+    return v.strip().lower() in ("1", "true", "yes", "on")
+
+
+def _env_int(name: str, default: int) -> int:
+    v = os.environ.get(name)
+    return int(v) if v is not None else default
+
+
+def _env_str(name: str, default: str) -> str:
+    return os.environ.get(name, default)
+
+
+@dataclasses.dataclass
+class Config:
+    """All runtime knobs of the port.
+
+    - ``backend``: default collective route.  ``"xla"`` is the stock route,
+      which here is the process group's own backend (NCCL on the card, gloo
+      on the CPU); ``"pallas"`` names the hand-written ring kernels, which
+      are not ported yet (selector.py raises for it).
+    - ``flash_prescale``: fold the attention scale into q once at the kernel
+      boundary; the backward puts it back on dq by the chain rule.
+    - ``fuse_max_bytes``: upper bound on one fused gradient bucket; leaves
+      group by dtype and each group splits into ceil(bytes / bound) buckets,
+      one collective each.  0 keeps one bucket per dtype group.
+    - ``gradsync_average``: gradient sync averages (True) or sums.
+    """
+
+    backend: str = "xla"
+    flash_prescale: bool = False
+    fuse_max_bytes: int = 32 * 1024 * 1024
+    gradsync_average: bool = True
+
+    @staticmethod
+    def from_env(**overrides) -> "Config":
+        """Build a Config from the environment (TORCHMPI_TPU_BACKEND,
+        TORCHMPI_TPU_FLASH_PRESCALE, TORCHMPI_TPU_FUSE_MAX_BYTES,
+        TORCHMPI_TPU_GRADSYNC_AVERAGE), then apply ``overrides``."""
+        cfg = Config(
+            backend=_env_str("TORCHMPI_TPU_BACKEND", "xla"),
+            flash_prescale=_env_bool("TORCHMPI_TPU_FLASH_PRESCALE", False),
+            fuse_max_bytes=_env_int("TORCHMPI_TPU_FUSE_MAX_BYTES",
+                                    32 * 1024 * 1024),
+            gradsync_average=_env_bool("TORCHMPI_TPU_GRADSYNC_AVERAGE", True),
+        )
+        for k, v in overrides.items():
+            if not hasattr(cfg, k):
+                raise ValueError(f"unknown config field {k!r}")
+            setattr(cfg, k, v)
+        return cfg

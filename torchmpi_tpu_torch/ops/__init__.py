@@ -1,0 +1,5 @@
+"""Hand-written Hopper kernels of the port and their plain PyTorch
+versions.  Importing this package builds nothing: a kernel is compiled the
+first time it is launched (see ``_build``)."""
+
+from . import flash  # noqa: F401
