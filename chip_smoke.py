@@ -7,22 +7,32 @@ needs one CUDA card and the CUDA toolkit (nvcc), and nothing else of the
 JAX package.  In order it:
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the three flash-attention kernels from ops/csrc with nvcc
-   (sm_90a, one compiler per source, in parallel) into build/torch_kernels/;
-3. kernel phase: at the flagship LM's attention shapes (B 4, T 2048, 16 q /
-   4 kv heads, head_dim 128, causal, window 1024, float32) runs each kernel
-   against its plain PyTorch version on the same seeded inputs, and times
-   kernel, plain version and, for the forward, PyTorch's
+2. builds the six kernels from ops/csrc with nvcc (sm_90a, one compiler per
+   source, in parallel) into build/torch_kernels/;
+3. kernel phases: at the flagship LM's attention shapes (B 4, T 2048, 16 q /
+   4 kv heads, head_dim 128, causal, window 1024, float32) runs each flash
+   kernel against its plain PyTorch version on the same seeded inputs, and
+   times kernel, plain version and, for the forward, PyTorch's
    scaled_dot_product_attention with the same mask (the yardstick only);
-4. train phase: mpi.init() (NCCL, world of 1) and three data-parallel SGD
-   steps (lr 0.02) of the flagship TransformerLM at full width (embed 2048,
-   depth 8, GQA 16/4, head_dim 128, T 2048, vocab 32768, window 1024, RoPE,
-   bf16 compute, float32 parameters, batch 4) with attn_impl="flash"; every
-   kernel's launch count must be > 0 and the loss finite and falling; one
-   more, untimed step counts the host-device synchronizations of a step;
-5. consistency phase: one forward and backward of the same weights and
-   batch with attn_impl="local" (dense oracle) and "flash";
-6. prints the kernels' summary line, then {"ok": true, "device": ...}.
+   then, at the flagship's LM-head shapes (N 4 x 2047 tokens, E 2048,
+   V 32768, bf16), the three fused linear + cross-entropy kernels the same
+   way, each also run twice and required bitwise equal, and the dense
+   two-call loss (bf16 x @ w, then cross_entropy; forward and backward) timed
+   beside them as context only;
+4. dense train phase (stage B): mpi.init() (NCCL, world of 1) and three
+   data-parallel SGD steps (lr 0.02) of the flagship TransformerLM at full
+   width and depth (embed 2048, depth 8, GQA 16/4, head_dim 128, T 2048,
+   vocab 32768, window 1024, RoPE, bf16 compute, float32 parameters,
+   batch 4) with attn_impl="flash" and the dense loss (f32 x @ head);
+5. fused train phase (stage B', the main path): the same steps with the
+   fused loss, fused_linear_cross_entropy(h.bf16, head.bf16, labels); every
+   kernel's launch count must be > 0 and the loss finite and falling; in
+   both train phases one more, untimed step counts the host-device
+   synchronizations of a step, which must be 0;
+6. consistency phases: one forward and backward of the same weights and
+   batch with attn_impl="local" (dense oracle) and "flash", and with the
+   dense and the fused loss;
+7. prints the kernels' summary line, then {"ok": true, "device": ...}.
 
 Each phase prints one JSON line.  Any failed check raises and the script
 exits non-zero; it exits non-zero without a result when no card is visible
@@ -46,11 +56,19 @@ SEED = 0
 LM = dict(vocab=32768, embed=2048, depth=8, num_heads=16, head_dim=128,
           num_kv_heads=4, max_len=2048, window=1024, pos_emb="rope")
 BATCH, SEQ, LR, STEPS = 4, 2048, 0.02, 3
-# H100 SXM peaks (NVIDIA data sheet): TF32 tensor-core rate, HBM3 rate.
+# The flagship's LM-head shapes: every token but the last of each row.
+HEAD_N = BATCH * (SEQ - 1)
+# H100 SXM peaks (NVIDIA data sheet): TF32 and bf16 dense tensor-core
+# rates, HBM3 rate.
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 KERNEL_RTOL = 1e-4      # f32 kernel vs plain: summation order differs
-CONSISTENCY_RTOL = 2e-2  # bf16 model: local vs flash attention
+# xent kernels: loss / lse are f32 sums in another order; dx / dW come out
+# in bf16, so one bf16 rounding of the largest element.
+XENT_STAT_RTOL = 1e-4
+XENT_GRAD_RTOL = 2.0 ** -7
+CONSISTENCY_RTOL = 2e-2  # bf16 model: local vs flash, dense vs fused loss
 
 SOURCES = {
     "flash_fwd": ("torchmpi_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -59,6 +77,12 @@ SOURCES = {
                      "torchmpi_tpu/ops/flash.py:358"),
     "flash_bwd_dkv": ("torchmpi_tpu_torch/ops/csrc/flash_bwd_dkv.cu",
                       "torchmpi_tpu/ops/flash.py:424"),
+    "xent_fwd": ("torchmpi_tpu_torch/ops/csrc/xent_fwd.cu",
+                 "torchmpi_tpu/ops/xent.py:35"),
+    "xent_bwd_dx": ("torchmpi_tpu_torch/ops/csrc/xent_bwd_dx.cu",
+                    "torchmpi_tpu/ops/xent.py:82"),
+    "xent_bwd_dw": ("torchmpi_tpu_torch/ops/csrc/xent_bwd_dw.cu",
+                    "torchmpi_tpu/ops/xent.py:114"),
 }
 
 
@@ -112,13 +136,17 @@ def count_host_syncs(torch, fn) -> int:
 
 
 def ptxas_summary(log: str) -> dict:
-    """{"D<head_dim>": "registers; spills"} per kernel instantiation, from
-    nvcc's -Xptxas -v report."""
+    """{"D<head_dim>" or "<kernel name>": "registers; spills"} per kernel
+    instantiation, from nvcc's -Xptxas -v report."""
     out, cur = {}, None
     for ln in log.splitlines():
-        m = re.search(r"entry function '.*?ILi(\d+)E", ln)
+        m = re.search(r"entry function '(.*?)'", ln)
         if m:
-            cur = out.setdefault(f"D{m.group(1)}", [])
+            d = re.search(r"ILi(\d+)E", m.group(1))
+            name = re.search(r"(?:flash|xent)_\w*?kernel", m.group(1))
+            key = f"D{d.group(1)}" if d else (name.group(0) if name
+                                              else m.group(1))
+            cur = out.setdefault(key, [])
         elif cur is not None and ("registers" in ln or "spill" in ln):
             cur.append(ln.split("info    :")[-1].strip())
     return {k: "; ".join(v) for k, v in out.items()}
@@ -221,6 +249,100 @@ def kernel_phase(torch, flash, dev):
     return rows
 
 
+def xent_kernel_phase(torch, xent, dev):
+    """The three fused linear + cross-entropy kernels at the flagship's
+    LM-head shapes, against their plain versions on the same inputs."""
+    N, E, V = HEAD_N, LM["embed"], LM["vocab"]
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    # h after the final LayerNorm is ~N(0, 1); the head is drawn as the
+    # model draws it; dl is the mean loss's 1/N.
+    x = torch.randn(N, E, generator=g, device=dev).bfloat16()
+    w = (torch.randn(E, V, generator=g, device=dev) / math.sqrt(E)).bfloat16()
+    labels = torch.randint(0, V, (N,), generator=g, device=dev)
+    dl = torch.full((N,), 1.0 / N, device=dev)
+
+    runs = {
+        "xent_fwd": (lambda: xent.xent_fwd(x, w, labels),
+                     lambda: xent.xent_fwd_plain(x, w, labels)),
+    }
+    loss, lse = runs["xent_fwd"][0]()
+    runs["xent_bwd_dx"] = (
+        lambda: xent.xent_bwd_dx(x, w, labels, lse, dl),
+        lambda: xent.xent_bwd_dx_plain(x, w, labels, lse, dl))
+    runs["xent_bwd_dw"] = (
+        lambda: xent.xent_bwd_dw(x, w, labels, lse, dl),
+        lambda: xent.xent_bwd_dw_plain(x, w, labels, lse, dl))
+    errs, bitwise = {}, {}
+    for name, (kern, plain) in runs.items():
+        out, again = kern(), kern()
+        ref = plain()
+        out, again, ref = ((t,) if torch.is_tensor(t) else t
+                           for t in (out, again, ref))
+        torch.cuda.synchronize()
+        bitwise[name] = all(torch.equal(a, b) for a, b in zip(out, again))
+        rtol = XENT_STAT_RTOL if name == "xent_fwd" else XENT_GRAD_RTOL
+        errs[name] = [(max_err(a, r), rtol * float(r.float().abs().max()))
+                      for a, r in zip(out, ref)]
+        del out, again, ref
+
+    nb = lambda *ts: sum(t.numel() * t.element_size()  # noqa: E731
+                         for t in ts)
+    lab32 = labels.to(torch.int32)
+    stats = nb(lab32, lse, dl)
+    work = {  # tensor-core flops (2 per multiply-add) and bytes moved
+        "xent_fwd": (2 * N * E * V, nb(x, w, lab32) + 2 * nb(lse)),
+        "xent_bwd_dx": (4 * N * E * V, nb(x, w) + stats + nb(x)),
+        "xent_bwd_dw": (4 * N * E * V, nb(x, w) + stats + nb(w)),
+    }
+    rows = []
+    for name, (kern, plain) in runs.items():
+        flops, nbytes = work[name]
+        t_op = flops / PEAK_BF16_FLOPS * 1e3
+        t_b = nbytes / PEAK_HBM_BYTES * 1e3
+        err = max(e for e, _ in errs[name])
+        tol = max(t for _, t in errs[name])
+        row = {
+            "name": name, "route": "cuda", "source": SOURCES[name][0],
+            "replaces": SOURCES[name][1],
+            "max_abs_err": err, "tolerance": tol,
+            "ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
+            "bound_ms": max(t_op, t_b),
+            "bound_by": "operations" if t_op >= t_b else "bytes",
+            "library_ms": None, "flops": flops, "bytes": nbytes,
+            "bitwise_repeat": bitwise[name],
+            "all_errs": errs[name],
+        }
+        rows.append(row)
+    emit({"phase": "xent_kernels", "shape": dict(N=N, E=E, V=V,
+                                                 dtype="bfloat16",
+                                                 bwd_chunk=xent.BWD_CHUNK),
+          "launches_in_phase": dict(xent.LAUNCHES), "kernels": rows})
+
+    # Context only: the dense two-call loss on the same inputs (a bf16
+    # product, then cross_entropy), forward and backward, beside the fused
+    # forward and backward (g formed once per chunk).  Neither is a
+    # yardstick of one kernel; the port never calls the dense pair.
+    def dense():
+        xs, ws = x.detach().requires_grad_(), w.detach().requires_grad_()
+        per_tok = torch.nn.functional.cross_entropy(
+            (xs @ ws).float(), labels, reduction="none")
+        per_tok.backward(dl)
+
+    def fused():
+        _, s = xent.xent_fwd(x, w, labels)
+        xent.xent_bwd(x, w, labels, s, dl)
+
+    emit({"phase": "xent_dense_context", "dense_fwd_bwd_ms": time_ms(
+        torch, dense, iters=5), "fused_fwd_bwd_ms": time_ms(torch, fused,
+                                                            iters=5)})
+    for row in rows:
+        check(row["max_abs_err"] <= row["tolerance"],
+              f"{row['name']} max_abs_err {row['max_abs_err']} > "
+              f"{row['tolerance']}")
+        check(row["bitwise_repeat"], f"{row['name']}: two calls differ")
+    return rows
+
+
 def lm_loss(torch, model, tok):
     """Stage B's dense loss: logits = x @ head, softmax cross-entropy of
     each next token, mean."""
@@ -230,7 +352,26 @@ def lm_loss(torch, model, tok):
         logits[:, :-1].reshape(-1, V).float(), tok[:, 1:].reshape(-1))
 
 
-def train_phase(torch, mpi, flash, dev):
+def fused_lm_loss(torch, mpi, model, tok):
+    """The fused loss of stage B' (bench.py :1706-1720): the final LayerNorm's
+    output and the head, both in bf16, through the fused linear +
+    cross-entropy kernels, mean over the next tokens."""
+    h, head = model(tok, return_prehead=True)
+    E = h.shape[-1]
+    return mpi.ops.fused_linear_cross_entropy(
+        h[:, :-1].reshape(-1, E).to(torch.bfloat16),
+        head.to(torch.bfloat16), tok[:, 1:].reshape(-1)).mean()
+
+
+LOSSES = {
+    "dense": lambda torch, mpi, m, t: lm_loss(torch, m, t),
+    "fused": fused_lm_loss,
+}
+
+
+def train_phase(torch, mpi, ops, dev, loss: str):
+    """Three timed DP steps of the flagship with the ``loss`` of LOSSES;
+    every kernel counter is set to 0 just before and read just after."""
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     model = mpi.models.TransformerLM(**LM, attn_impl="flash",
                                      dtype=torch.bfloat16, device=dev,
@@ -239,25 +380,27 @@ def train_phase(torch, mpi, flash, dev):
     tok = torch.randint(0, LM["vocab"], (BATCH, SEQ), generator=g,
                         device=dev)
     opt = torch.optim.SGD(model.parameters(), lr=LR)
+    loss_fn = LOSSES[loss]
     step = mpi.nn.data_parallel_step(
-        model, opt, lambda m, t: lm_loss(torch, m, t))
+        model, opt, lambda m, t: loss_fn(torch, mpi, m, t))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash.reset_launches()
+    for mod in ops.values():
+        mod.reset_launches()
     losses, step_ms = [], []
     for _ in range(STEPS):
         t0 = time.perf_counter()
-        loss = step(tok)
-        losses.append(float(loss))  # waits for the step
+        loss_v = step(tok)
+        losses.append(float(loss_v))  # waits for the step
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = dict(flash.LAUNCHES)
+    launches = {n: c for mod in ops.values() for n, c in mod.LAUNCHES.items()}
     med = statistics.median(step_ms)
     peak = torch.cuda.max_memory_allocated()
     # One more, untimed step: how often a step makes the host wait for the
     # card (each wait drains the queue of work the host had run ahead on).
     syncs = count_host_syncs(torch, lambda: step(tok))
-    emit({"phase": "train", "config": dict(LM, batch=BATCH, seq=SEQ, lr=LR,
-                                           dtype="bfloat16"),
+    emit({"phase": "train", "loss": loss,
+          "config": dict(LM, batch=BATCH, seq=SEQ, lr=LR, dtype="bfloat16"),
           "params": n_params, "losses": losses, "step_ms": step_ms,
           "median_step_ms": med,
           "tokens_per_s": BATCH * SEQ / (med / 1e3),
@@ -266,34 +409,54 @@ def train_phase(torch, mpi, flash, dev):
           "backend": mpi.runtime.backend_name()})
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} never launched on the train path")
+    check(syncs == 0, f"{syncs} host-device synchronizations in a step")
+    path = [n for n in launches if loss == "fused" or n.startswith("flash")]
+    for name in path:
+        check(launches[name] > 0, f"kernel {name} never launched on the "
+              f"{loss} train path")
     return model, tok, launches
 
 
+def _loss_and_grads(model, fn):
+    model.zero_grad(set_to_none=True)
+    loss = fn()
+    loss.backward()
+    return (float(loss.detach()),
+            {n: p.grad for n, p in model.named_parameters()})
+
+
+def _compare(name, a, b):
+    """Emit and check the loss and per-tensor gradient differences of two
+    (loss, grads) results; ``b`` is the reference."""
+    (la, ga), (lb, gb) = a, b
+    loss_rel = abs(la - lb) / abs(lb)
+    grad_rel = {n: float((ga[n].float() - gb[n].float()).norm()
+                         / gb[n].float().norm().clamp_min(1e-30))
+                for n in gb}
+    worst = max(grad_rel, key=grad_rel.get)
+    emit({"phase": "consistency", "compare": name, "loss_a": la,
+          "loss_b": lb, "loss_rel_diff": loss_rel,
+          "grad_max_rel_norm_diff": grad_rel[worst], "worst_grad": worst,
+          "head_grad_rel_norm_diff": grad_rel.get("head"),
+          "tolerance": CONSISTENCY_RTOL})
+    check(loss_rel <= CONSISTENCY_RTOL, f"{name}: loss differs by {loss_rel}")
+    check(grad_rel[worst] <= CONSISTENCY_RTOL,
+          f"{name}: gradient {worst} differs by {grad_rel[worst]}")
+
+
 def consistency_phase(torch, mpi, model, tok, dev):
-    """Same weights and batch through attn_impl="local" and "flash"."""
+    """Same weights and batch through attn_impl "flash" vs "local" (dense
+    loss), and through the fused vs the dense loss (flash attention)."""
     local = mpi.models.TransformerLM(**LM, attn_impl="local",
                                      dtype=torch.bfloat16, device=dev)
     local.load_state_dict(model.state_dict())
-    out = {}
-    for name, m in (("flash", model), ("local", local)):
-        m.zero_grad(set_to_none=True)
-        loss = lm_loss(torch, m, tok)
-        loss.backward()
-        out[name] = (float(loss.detach()),
-                     {n: p.grad for n, p in m.named_parameters()})
-    lf, gf = out["flash"]
-    ll, gl = out["local"]
-    loss_rel = abs(lf - ll) / abs(ll)
-    grad_rel = max(float((gf[n].float() - gl[n].float()).norm()
-                         / gl[n].float().norm().clamp_min(1e-30))
-                   for n in gl)
-    emit({"phase": "consistency", "loss_flash": lf, "loss_local": ll,
-          "loss_rel_diff": loss_rel, "grad_max_rel_norm_diff": grad_rel,
-          "tolerance": CONSISTENCY_RTOL})
-    check(loss_rel <= CONSISTENCY_RTOL, f"loss differs by {loss_rel}")
-    check(grad_rel <= CONSISTENCY_RTOL, f"gradients differ by {grad_rel}")
+    dense = _loss_and_grads(model, lambda: lm_loss(torch, model, tok))
+    _compare("flash vs local attention (dense loss)", dense,
+             _loss_and_grads(local, lambda: lm_loss(torch, local, tok)))
+    del local
+    fused = _loss_and_grads(model,
+                            lambda: fused_lm_loss(torch, mpi, model, tok))
+    _compare("fused (bf16 head) vs dense (f32 head) loss", fused, dense)
 
 
 def main() -> int:
@@ -305,7 +468,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         import torchmpi_tpu_torch as mpi
-        from torchmpi_tpu_torch.ops import _build, flash
+        from torchmpi_tpu_torch.ops import _build, flash, xent
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
@@ -324,10 +487,16 @@ def main() -> int:
           "dir": str(_build.BUILD_DIR), "ptxas": ptxas,
           "card_uuid": nvidia_smi("uuid")})
 
+    ops = {"flash": flash, "xent": xent}
     dev = mpi.init()
     try:
         rows = kernel_phase(torch, flash, dev)
-        model, tok, launches = train_phase(torch, mpi, flash, dev)
+        rows += xent_kernel_phase(torch, xent, dev)
+        model, _, _ = train_phase(torch, mpi, ops, dev, "dense")
+        del model
+        torch.cuda.empty_cache()
+        # The main path: stage B', the fused LM-head loss.
+        model, tok, launches = train_phase(torch, mpi, ops, dev, "fused")
         consistency_phase(torch, mpi, model, tok, dev)
     finally:
         mpi.stop()

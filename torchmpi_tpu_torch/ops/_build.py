@@ -24,7 +24,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+           "xent_fwd", "xent_bwd_dx", "xent_bwd_dw")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -111,3 +112,20 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _libs[name] = ctypes.CDLL(str(build([name])[name]))
         return lib
+
+
+def launch(name: str, symbol: str, argtypes, *args) -> None:
+    """Call the C launcher ``symbol`` of kernel ``name`` (argument types
+    ``argtypes``; it returns a CUDA error code) with ``args``; raise with
+    the error's text if the launch was refused."""
+    lib = load(name)
+    fn = getattr(lib, symbol)
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        lib.tm_error_string.argtypes = [ctypes.c_int]
+        lib.tm_error_string.restype = ctypes.c_char_p
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed: "
+                           f"{lib.tm_error_string(rc).decode()} ({rc})")

@@ -37,7 +37,7 @@ NEG_INF = -1e30
 
 # Kernel launches per wrapper since the last reset_launches(): a run can
 # show that its path went through the kernels.
-LAUNCHES = {name: 0 for name in _build.KERNELS}
+LAUNCHES = {name: 0 for name in _build.KERNELS if name.startswith("flash_")}
 
 # Head dims the kernels are instantiated for (flash_*.cu, the D switch).
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
@@ -189,25 +189,15 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, dvec, *, scale: float,
 # ---------------------------------------------------------------------------
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C launcher and pointer count of each kernel; after the pointers every
+# launcher takes B, Tq, Tkv, H, Hkv, D, scale, causal, window, q_offset,
+# kv_offset and the stream.
 _SIGNATURES = {
-    # pointers, then B, Tq, Tkv, H, Hkv, D, scale, causal, window,
-    # q_offset, kv_offset, stream
-    "flash_fwd": ("tm_flash_fwd", [_P] * 5),
-    "flash_bwd_dq": ("tm_flash_bwd_dq", [_P] * 7),
-    "flash_bwd_dkv": ("tm_flash_bwd_dkv", [_P] * 8),
+    "flash_fwd": ("tm_flash_fwd", 5),
+    "flash_bwd_dq": ("tm_flash_bwd_dq", 7),
+    "flash_bwd_dkv": ("tm_flash_bwd_dkv", 8),
 }
-
-
-def _kernel_fn(name: str):
-    lib = _build.load(name)
-    sym, ptrs = _SIGNATURES[name]
-    fn = getattr(lib, sym)
-    if fn.argtypes is None:
-        fn.argtypes = [*ptrs, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P]
-        fn.restype = _I
-        lib.tm_error_string.argtypes = [_I]
-        lib.tm_error_string.restype = ctypes.c_char_p
-    return lib, fn
+_SCALARS = [_I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P]
 
 
 def _launch(name: str, tensors, q, k, scale, causal, window, q_offset,
@@ -227,15 +217,12 @@ def _launch(name: str, tensors, q, k, scale, causal, window, q_offset,
     Tkv, Hkv = k.shape[1], k.shape[2]
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{name}: head_dim {D} not in {KERNEL_HEAD_DIMS}")
+    sym, n_ptrs = _SIGNATURES[name]
     with torch.cuda.device(dev):
-        lib, fn = _kernel_fn(name)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*[t.data_ptr() for t in tensors], B, Tq, Tkv, H, Hkv, D,
-                float(scale), int(causal), window or 0, q_offset, kv_offset,
-                stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed: "
-                           f"{lib.tm_error_string(rc).decode()} ({rc})")
+        _build.launch(name, sym, [_P] * n_ptrs + _SCALARS,
+                      *[t.data_ptr() for t in tensors], B, Tq, Tkv, H, Hkv,
+                      D, float(scale), int(causal), window or 0, q_offset,
+                      kv_offset, torch.cuda.current_stream(dev).cuda_stream)
     LAUNCHES[name] += 1
 
 
