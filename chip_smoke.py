@@ -7,8 +7,9 @@ needs one CUDA card and the CUDA toolkit (nvcc), and nothing else of the
 JAX package.  In order it:
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the six kernels from ops/csrc with nvcc (sm_90a, one compiler per
-   source, in parallel) into build/torch_kernels/;
+2. builds the kernels from ops/csrc with nvcc (sm_90a, one compiler per
+   source, in parallel) into build/torch_kernels/: ten kernels in seven
+   sources;
 3. kernel phases: at the flagship LM's attention shapes (B 4, T 2048, 16 q /
    4 kv heads, head_dim 128, causal, window 1024, float32) runs each flash
    kernel against its plain PyTorch version on the same seeded inputs, and
@@ -18,21 +19,34 @@ JAX package.  In order it:
    V 32768, bf16), the three fused linear + cross-entropy kernels the same
    way, each also run twice and required bitwise equal, and the dense
    two-call loss (bf16 x @ w, then cross_entropy; forward and backward) timed
-   beside them as context only;
+   beside them as context only; then the four ring-allreduce kernels on 4
+   ranks' float32 buffers on the card at the flagship's gradient bucket
+   (8,249,691 elements a rank), each under the chunk_bytes /
+   pallas_bidirectional config that maps the bucket onto it, bitwise
+   against the plain ring and against a repeat call, plus a bfloat16 and an
+   int32 pass at 300,001 elements;
 4. dense train phase (stage B): mpi.init() (NCCL, world of 1) and three
    data-parallel SGD steps (lr 0.02) of the flagship TransformerLM at full
    width and depth (embed 2048, depth 8, GQA 16/4, head_dim 128, T 2048,
    vocab 32768, window 1024, RoPE, bf16 compute, float32 parameters,
    batch 4) with attn_impl="flash" and the dense loss (f32 x @ head);
-5. fused train phase (stage B', the main path): the same steps with the
-   fused loss, fused_linear_cross_entropy(h.bf16, head.bf16, labels); every
-   kernel's launch count must be > 0 and the loss finite and falling; in
-   both train phases one more, untimed step counts the host-device
-   synchronizations of a step, which must be 0;
+5. fused train phase (stage B', the main path of the first two slices):
+   the same steps with the fused loss, fused_linear_cross_entropy(h.bf16,
+   head.bf16, labels); every kernel's launch count must be > 0 and the loss
+   finite and falling; in both train phases one more, untimed step counts
+   the host-device synchronizations of a step, which must be 0;
 6. consistency phases: one forward and backward of the same weights and
    batch with attn_impl="local" (dense oracle) and "flash", and with the
    dense and the fused loss;
-7. prints the kernels' summary line, then {"ok": true, "device": ...}.
+7. ring DP phase (the main path of the ring slice): the flagship as a DP
+   step of 4 ranks on the one card, each rank's gradients stacked
+   rank-major and synced by the fused rank-major allreduce under backend
+   "pallas" (59 buckets, one ring launch each); 3 steps under the default
+   config (row 8 of the kernel table), one each under the configs of rows
+   7, 11 and 12; every sync bitwise equal to the plain ring on the same
+   stacks, the first within 2e-2 (rel. L2) of the batch-4 gradients, the
+   loss falling, 0 host syncs in a step, all four ring kernels launched;
+8. prints the kernels' summary line, then {"ok": true, "device": ...}.
 
 Each phase prints one JSON line.  Any failed check raises and the script
 exits non-zero; it exits non-zero without a result when no card is visible
@@ -69,6 +83,22 @@ KERNEL_RTOL = 1e-4      # f32 kernel vs plain: summation order differs
 XENT_STAT_RTOL = 1e-4
 XENT_GRAD_RTOL = 2.0 ** -7
 CONSISTENCY_RTOL = 2e-2  # bf16 model: local vs flash, dense vs fused loss
+# The ring slice: RING_N ranks rank-major on the one card.  The flagship's
+# 486,731,776 float32 gradients cut by FusedSpec at fuse_max_bytes 32 MiB
+# give 59 buckets; the first one is the kernels' size.
+RING_N = 4
+FLAGSHIP_GRADS = 486_731_776
+RING_BUCKETS = 59
+RING_BUCKET = FLAGSHIP_GRADS // RING_BUCKETS  # linspace's first bucket
+# (chunk_bytes, pallas_bidirectional) that map the bucket onto each row.
+RING_CONFIGS = {
+    "ring_allreduce_chunked": (4 << 20, False),       # row 8, the default
+    "ring_allreduce_bidir_chunked": (1 << 20, True),  # row 7
+    "ring_allreduce": (16 << 20, False),              # row 11
+    "ring_allreduce_bidir": (16 << 20, True),         # row 12
+}
+RING_SMALL = 300_001  # elements per rank of the bf16 and int32 passes
+DP_RTOL = 2e-2  # synced mean vs the batch-4 gradients (bf16 model)
 
 SOURCES = {
     "flash_fwd": ("torchmpi_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -83,6 +113,15 @@ SOURCES = {
                     "torchmpi_tpu/ops/xent.py:82"),
     "xent_bwd_dw": ("torchmpi_tpu_torch/ops/csrc/xent_bwd_dw.cu",
                     "torchmpi_tpu/ops/xent.py:114"),
+    "ring_allreduce_bidir_chunked": (
+        "torchmpi_tpu_torch/ops/csrc/ring_allreduce.cu",
+        "torchmpi_tpu/ops/ring.py:534"),
+    "ring_allreduce_chunked": ("torchmpi_tpu_torch/ops/csrc/ring_allreduce.cu",
+                               "torchmpi_tpu/ops/ring.py:511"),
+    "ring_allreduce": ("torchmpi_tpu_torch/ops/csrc/ring_allreduce.cu",
+                       "torchmpi_tpu/ops/ring.py:265"),
+    "ring_allreduce_bidir": ("torchmpi_tpu_torch/ops/csrc/ring_allreduce.cu",
+                             "torchmpi_tpu/ops/ring.py:203"),
 }
 
 
@@ -136,14 +175,15 @@ def count_host_syncs(torch, fn) -> int:
 
 
 def ptxas_summary(log: str) -> dict:
-    """{"D<head_dim>" or "<kernel name>": "registers; spills"} per kernel
-    instantiation, from nvcc's -Xptxas -v report."""
+    """{"D<head_dim>", "<kernel name>" or "<kernel name><dtype>": "registers;
+    spills"} per kernel instantiation, from nvcc's -Xptxas -v report."""
     out, cur = {}, None
     for ln in log.splitlines():
         m = re.search(r"entry function '(.*?)'", ln)
         if m:
             d = re.search(r"ILi(\d+)E", m.group(1))
-            name = re.search(r"(?:flash|xent)_\w*?kernel", m.group(1))
+            name = re.search(r"(?:flash|xent|ring)_\w*?kernel(I\w+?E)?",
+                             m.group(1))
             key = f"D{d.group(1)}" if d else (name.group(0) if name
                                               else m.group(1))
             cur = out.setdefault(key, [])
@@ -459,6 +499,238 @@ def consistency_phase(torch, mpi, model, tok, dev):
     _compare("fused (bf16 head) vs dense (f32 head) loss", fused, dense)
 
 
+def ring_padded_elems(ring, name, L, plan):
+    """Elements per rank the row's kernel works on (its padding)."""
+    n, tile = RING_N, ring._TILE
+    if plan:
+        sub, C = plan
+        per_half = n * C * sub
+        return 2 * per_half if "bidir" in name else per_half
+    if "bidir" in name:
+        return sum(-(-h // (n * tile)) * n * tile for h in (L // 2, L - L // 2))
+    return -(-L // (n * tile)) * n * tile
+
+
+def ring_kernel_phase(torch, ring, dev):
+    """Rows 7, 8, 11 and 12: RING_N ranks rank-major on the card at the
+    flagship's gradient bucket, float32, each with the config that maps the
+    bucket onto it; each kernel against its plain version, bitwise, and
+    bitwise on a repeat call; then a bfloat16 and an int32 pass at a small
+    size."""
+    n, L = RING_N, RING_BUCKET
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    x = torch.randn(n, L, generator=g, device=dev)
+    small = {dt: (torch.randn(n, RING_SMALL, generator=g, device=dev).to(dt)
+                  if dt.is_floating_point else
+                  torch.randint(-2 ** 30, 2 ** 30, (n, RING_SMALL),
+                                generator=g, device=dev, dtype=dt))
+             for dt in (torch.bfloat16, torch.int32)}
+    rows = []
+    for name, (cb, bidir) in RING_CONFIGS.items():
+        picked, plan = ring.schedule(L, n, x.dtype, chunk_bytes=cb,
+                                     bidirectional=bidir)
+        check(picked == name, f"{name}: the config maps the bucket to "
+              f"{picked}")
+        kern = lambda: ring.WRAPPERS[name](x, *plan)  # noqa: E731
+        plain = lambda: ring.PLAINS[name](x, *plan)  # noqa: E731
+        out, again, ref = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        bitwise = torch.equal(out, ref) and torch.equal(out, again)
+        err = max_err(out, ref)
+        del out, again, ref
+        passes = {}
+        for dt, xs in small.items():
+            # chunk_bytes scaled with the size and the element, so that
+            # the small pass runs the same row.
+            scb = cb * RING_SMALL // L * xs.element_size() // 4
+            spicked, splan = ring.schedule(RING_SMALL, n, dt,
+                                           chunk_bytes=scb,
+                                           bidirectional=bidir)
+            check(spicked == name, f"{name} {dt}: small pass maps to "
+                  f"{spicked}")
+            a, b = ring.WRAPPERS[name](xs, *splan), ring.PLAINS[name](xs, *splan)
+            torch.cuda.synchronize()
+            passes[str(dt).split(".")[-1]] = torch.equal(a, b)
+        # Bounds.  The function reads every rank's buffer once and writes
+        # every rank's result once: 2 n L 4 bytes.  The ring schedule on
+        # one card moves more: per rank of S padded bytes, the staging copy
+        # 2 S, each of the n - 1 reduce steps 5 S / n (own chunk read, the
+        # peer's slot written, the slot read, own chunk read and written),
+        # each of the n - 1 gather steps 4 S / n.
+        S = 4 * ring_padded_elems(ring, name, L, plan)
+        fn_bytes = 2 * n * L * 4
+        ring_bytes = n * S * (2 + 9 * (n - 1) / n)
+        rows.append({
+            "name": name, "route": "cuda", "source": SOURCES[name][0],
+            "replaces": SOURCES[name][1], "max_abs_err": err,
+            "tolerance": 0.0, "bitwise": bitwise,
+            "small_passes_bitwise": passes,
+            "chunk_bytes": cb, "bidirectional": bidir,
+            "plan": ({"sub_elems": plan[0], "C": plan[1]} if plan
+                     else {"sub_elems": S // 4 // n, "C": 1}),
+            "ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
+            "bound_ms": fn_bytes / PEAK_HBM_BYTES * 1e3, "bound_by": "bytes",
+            "bytes": fn_bytes, "schedule_bytes": ring_bytes,
+            "schedule_bound_ms": ring_bytes / PEAK_HBM_BYTES * 1e3,
+            # No PyTorch call gives n ranks' buffers the ring's result on
+            # one card (NCCL needs a card per rank); the rank-axis sum is
+            # context only.
+            "library_ms": None,
+            "sum_ms": time_ms(torch, lambda: x.sum(0)),
+        })
+    emit({"phase": "ring_kernels", "ranks": n, "elems_per_rank": L,
+          "dtype": "float32", "small_elems_per_rank": RING_SMALL,
+          "launches_in_phase": dict(ring.LAUNCHES), "kernels": rows})
+    for row in rows:
+        check(row["bitwise"], f"{row['name']}: kernel != plain or repeat")
+        for dt, ok in row["small_passes_bitwise"].items():
+            check(ok, f"{row['name']} {dt}: kernel != plain")
+    return rows
+
+
+def plain_rank_major_sync(torch, mpi, ring, stacks, spec):
+    """The fused rank-major allreduce of ``stacks`` through the plain ring
+    (each bucket gathered, reduced by ``ring_allreduce_plain`` under the
+    active config, scattered back): what the kernels must give bitwise."""
+    fusion = mpi.fusion
+    for g in spec.groups:
+        for lo, hi in g.bounds:
+            buf = fusion.gather_bucket(stacks, g, lo, hi, rank_major=True)
+            fusion.scatter_bucket(ring.ring_allreduce_plain(buf, op="mean"),
+                                  stacks, g, lo, rank_major=True)
+
+
+def ring_dp_phase(torch, mpi, ops, dev):
+    """This slice's main path: the flagship as a DP step of RING_N ranks on
+    one card.  Rank r takes sequence r of the batch of 4 (the ranks run one
+    after another on the same weights), the gradients are stacked
+    rank-major, synced by the fused rank-major allreduce under backend
+    "pallas" (mean), and SGD steps.  3 steps under the default config (row
+    8), then one under each other row's config; each sync is held bitwise
+    to the plain ring on the same stacks, the first against the batch-4
+    gradients of the same weights; then one untimed step counts the host
+    syncs.  Every kernel counter is set to 0 just before and read just
+    after."""
+    ring = ops["ring"]
+    n = RING_N
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    model = mpi.models.TransformerLM(**LM, attn_impl="flash",
+                                     dtype=torch.bfloat16, device=dev,
+                                     generator=g)
+    tok = torch.randint(0, LM["vocab"], (BATCH, SEQ), generator=g,
+                        device=dev)
+    params = list(model.parameters())
+    opt = torch.optim.SGD(params, lr=LR)
+    spec = mpi.fusion.FusedSpec(params)
+    first = spec.groups[0].bounds[0]
+    check(spec.n_launches == RING_BUCKETS and first[1] - first[0]
+          == RING_BUCKET, f"flagship buckets {spec.n_launches}, first "
+          f"{first}")
+    stacks = [torch.empty((n, *p.shape), device=dev) for p in params]
+
+    def rank_grads():
+        losses = []
+        for r in range(n):
+            model.zero_grad(set_to_none=True)
+            loss = fused_lm_loss(torch, mpi, model, tok[r:r + 1])
+            loss.backward()
+            losses.append(loss.detach())
+            for st, p in zip(stacks, params):
+                st[r].copy_(p.grad)
+        model.zero_grad(set_to_none=True)
+        return torch.stack(losses).mean()
+
+    def sync():
+        mpi.fusion.fused_allreduce_rank_major_(stacks, spec=spec,
+                                               backend="pallas", op="mean")
+
+    def sgd():
+        for st, p in zip(stacks, params):
+            p.grad = st[0]
+        opt.step()
+        model.zero_grad(set_to_none=True)
+
+    torch.cuda.synchronize()
+    # The batch-4 gradients of the first step's weights (DP equality).
+    ref_loss = fused_lm_loss(torch, mpi, model, tok)
+    ref_loss.backward()
+    ref = [p.grad.clone() for p in params]
+    model.zero_grad(set_to_none=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    for mod in ops.values():
+        mod.reset_launches()
+    schedule = ["ring_allreduce_chunked"] * 3 + [
+        "ring_allreduce_bidir_chunked", "ring_allreduce",
+        "ring_allreduce_bidir"]
+    losses, sync_ms, bitwise, dp_rel = [], {}, {}, None
+    for step, name in enumerate(schedule):
+        cb, bidir = RING_CONFIGS[name]
+        mpi.set_config(chunk_bytes=cb, pallas_bidirectional=bidir)
+        losses.append(rank_grads())
+        before = [st.clone() for st in stacks]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        sync()
+        end.record()
+        plain_rank_major_sync(torch, mpi, ring, before, spec)
+        end.synchronize()
+        sync_ms.setdefault(name, []).append(start.elapsed_time(end))
+        bitwise.setdefault(name, []).append(
+            all(torch.equal(a, b) for a, b in zip(stacks, before)))
+        del before
+        if step == 0:
+            rel = [float((st[0] - r).norm() / r.norm().clamp_min(1e-30))
+                   for st, r in zip(stacks, ref)]
+            worst = max(range(len(rel)), key=rel.__getitem__)
+            dp_rel = (rel[worst], [nm for nm, _ in
+                                   model.named_parameters()][worst])
+            del ref
+        sgd()
+    mpi.set_config(chunk_bytes=RING_CONFIGS["ring_allreduce_chunked"][0],
+                   pallas_bidirectional=False)
+    launches = {nm: c for mod in ops.values() for nm, c in
+                mod.LAUNCHES.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+
+    def one_step():
+        rank_grads()
+        sync()
+        sgd()
+
+    # The step's own peak, without the verification copy of the stacks.
+    torch.cuda.reset_peak_memory_stats()
+    syncs = count_host_syncs(torch, one_step)
+    step_peak = torch.cuda.max_memory_allocated()
+    emit({"phase": "ring_dp", "ranks": n, "config": dict(
+        LM, batch=BATCH, seq=SEQ, lr=LR, dtype="bfloat16"),
+        "params": sum(p.numel() for p in params),
+        "buckets": spec.n_launches, "rows": schedule, "losses": losses,
+        "batch4_loss_step0": float(ref_loss.detach()),
+        "sync_ms": sync_ms,
+        "median_sync_ms": {k: statistics.median(v)
+                           for k, v in sync_ms.items()},
+        "bitwise_vs_plain": bitwise,
+        "dp_max_rel_l2_vs_batch4": dp_rel[0], "dp_worst_tensor": dp_rel[1],
+        "dp_tolerance": DP_RTOL, "peak_mem_bytes_with_check": peak,
+        "peak_mem_bytes_step": step_peak,
+        "stack_bytes": sum(st.numel() * 4 for st in stacks),
+        "host_syncs_per_step": syncs, "launches": launches})
+    check(all(all(v) for v in bitwise.values()),
+          f"a kernel sync differs from the plain ring: {bitwise}")
+    check(dp_rel[0] <= DP_RTOL, f"synced mean vs batch-4 gradients "
+          f"{dp_rel[0]} ({dp_rel[1]})")
+    check(all(math.isfinite(v) for v in losses), f"non-finite {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(syncs == 0, f"{syncs} host-device synchronizations in a step")
+    for name in RING_CONFIGS:
+        check(launches[name] > 0, f"kernel {name} never launched on the "
+              f"ring DP path")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -468,7 +740,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         import torchmpi_tpu_torch as mpi
-        from torchmpi_tpu_torch.ops import _build, flash, xent
+        from torchmpi_tpu_torch.ops import _build, flash, ring, xent
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
@@ -492,12 +764,20 @@ def main() -> int:
     try:
         rows = kernel_phase(torch, flash, dev)
         rows += xent_kernel_phase(torch, xent, dev)
+        rows += ring_kernel_phase(torch, ring, dev)
         model, _, _ = train_phase(torch, mpi, ops, dev, "dense")
         del model
         torch.cuda.empty_cache()
-        # The main path: stage B', the fused LM-head loss.
+        # The main path of slices 1 and 2: stage B', the fused LM-head loss.
         model, tok, launches = train_phase(torch, mpi, ops, dev, "fused")
         consistency_phase(torch, mpi, model, tok, dev)
+        del model
+        torch.cuda.empty_cache()
+        # The main path of slice 3: the DP step of RING_N ranks on the
+        # card, its gradients synced by the ring kernels.
+        ring_launches = ring_dp_phase(torch, mpi, dict(ops, ring=ring), dev)
+        launches.update({k: v for k, v in ring_launches.items()
+                         if k in ring.LAUNCHES})
     finally:
         mpi.stop()
 

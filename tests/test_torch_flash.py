@@ -16,11 +16,26 @@ import torch
 
 from torchmpi_tpu.ops import flash as jflash
 from torchmpi_tpu.parallel import sequence as jseq
+import torchmpi_tpu as jmpi
 import torchmpi_tpu_torch as tmpi
 from torchmpi_tpu_torch.ops import flash as tflash
 from torchmpi_tpu_torch.parallel import sequence as tseq
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _stopped_runtimes():
+    """Neither package's runtime left running by an earlier test file in
+    this worker: both sides of every comparison here read their default
+    Config (or the one a test sets up itself), and this module leaves
+    nothing running either."""
+    jmpi.stop()
+    tmpi.stop()
+    yield
+    jmpi.stop()
+    tmpi.stop()
+
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 

@@ -11,7 +11,8 @@ from torchmpi_tpu_torch import runtime, selector
 torch.set_num_threads(2)
 
 SHARED = ("backend", "flash_prescale", "fuse_max_bytes",
-          "gradsync_average")
+          "gradsync_average", "chunk_bytes", "custom_min_bytes",
+          "pallas_bidirectional")
 
 
 @pytest.fixture
@@ -29,10 +30,13 @@ def test_config_defaults_and_env_match_jax(monkeypatch):
     monkeypatch.setenv("TORCHMPI_TPU_FLASH_PRESCALE", "1")
     monkeypatch.setenv("TORCHMPI_TPU_FUSE_MAX_BYTES", "4096")
     monkeypatch.setenv("TORCHMPI_TPU_GRADSYNC_AVERAGE", "0")
+    monkeypatch.setenv("TORCHMPI_TPU_CHUNK_BYTES", "65536")
+    monkeypatch.setenv("TORCHMPI_TPU_CUSTOM_MIN_BYTES", "0")
     got, want = tmpi.Config.from_env(), jmpi.Config.from_env()
     for f in SHARED:
         assert getattr(got, f) == getattr(want, f), f
     assert got.fuse_max_bytes == 4096 and got.backend == "pallas"
+    assert (got.chunk_bytes, got.custom_min_bytes) == (65536, 0)
     with pytest.raises(ValueError):
         tmpi.Config.from_env(no_such_field=1)
 
@@ -69,15 +73,26 @@ def test_cuda_init_raises_without_a_card():
 
 
 def test_selector_routes_and_refuses(cpu_runtime):
-    assert "xla" in selector.available("allreduce")
-    with pytest.raises(NotImplementedError, match="queue B"):
-        selector.select("allreduce", "pallas")
+    """"pallas" routes to the ring (a world of one process returns a copy,
+    the ring of one member); an op without a ring falls back to "xla";
+    unknown backends and ops raise."""
+    impls = selector.available("allreduce")
+    assert sorted(impls) == ["pallas", "xla"]
+    assert selector.select("allreduce", "pallas") is impls["pallas"]
+    assert selector.select("broadcast", "pallas") is \
+        selector.available("broadcast")["xla"]
     with pytest.raises(ValueError):
         selector.select("allreduce", "hierarchical")
     with pytest.raises(ValueError):
         selector.select("alltoall", "xla")
-    with pytest.raises(NotImplementedError):
-        tmpi.allreduce(torch.ones(2), backend="pallas")
+    x = torch.arange(3.0)
+    for op in ("sum", "mean"):
+        y = tmpi.allreduce(x, op=op, backend="pallas")
+        assert torch.equal(y, x) and y.data_ptr() != x.data_ptr()
+    tmpi.set_config(backend="pallas", custom_min_bytes=0)
+    assert selector.select("allreduce", nbytes=4) is impls["pallas"]
+    tmpi.set_config(custom_min_bytes=64 * 1024)
+    assert selector.select("allreduce", nbytes=4) is impls["xla"]
 
 
 def test_collectives_on_one_rank(cpu_runtime):

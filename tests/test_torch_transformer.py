@@ -21,11 +21,26 @@ import torch
 
 from torchmpi_tpu.models import TransformerLM as JaxLM
 from torchmpi_tpu.models.transformer import apply_rope as jax_rope
+import torchmpi_tpu as jmpi
 import torchmpi_tpu_torch as tmpi
 from torchmpi_tpu_torch.models import Block, SPAttention, TransformerLM
 from torchmpi_tpu_torch.models.transformer import apply_rope
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _stopped_runtimes():
+    """Neither package's runtime left running by an earlier test file in
+    this worker: both sides of every comparison here read their default
+    Config (or the one a test sets up itself), and this module leaves
+    nothing running either."""
+    jmpi.stop()
+    tmpi.stop()
+    yield
+    jmpi.stop()
+    tmpi.stop()
+
 
 # depth 2, embed 64, vocab 128, T 64, RoPE + window + GQA.
 CFG = dict(vocab=128, embed=64, depth=2, num_heads=4, head_dim=16,

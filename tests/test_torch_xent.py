@@ -18,11 +18,26 @@ import torch
 
 from torchmpi_tpu.models import TransformerLM as JaxLM
 from torchmpi_tpu.ops.xent import fused_linear_cross_entropy as jax_xent
+import torchmpi_tpu as jmpi
 import torchmpi_tpu_torch as tmpi
 from torchmpi_tpu_torch.models import TransformerLM
 from torchmpi_tpu_torch.ops import xent
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _stopped_runtimes():
+    """Neither package's runtime left running by an earlier test file in
+    this worker: both sides of every comparison here read their default
+    Config (or the one a test sets up itself), and this module leaves
+    nothing running either."""
+    jmpi.stop()
+    tmpi.stop()
+    yield
+    jmpi.stop()
+    tmpi.stop()
+
 
 BLOCKS = dict(block_n=8, block_v=16)
 

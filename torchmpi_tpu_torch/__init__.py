@@ -9,6 +9,7 @@ as CUDA kernels (``ops/csrc``):
     mpi.init()                              # NCCL on the card, world of 1
     mpi.rank(), mpi.size()
     mpi.allreduce(x)                        # sum over ranks
+    mpi.allreduce_rank_major(xs, backend="pallas")  # xs[i] = rank i's, one card
     step = mpi.nn.data_parallel_step(model, optimizer, loss_fn)
     loss = step(batch)                      # grads synced in fused buckets
     mpi.stop()
@@ -27,18 +28,21 @@ from .runtime import (
     is_initialized,
     local_rank,
     rank,
+    set_config,
     size,
     stop,
 )
 from . import collectives, fusion, selector
 from . import models, nn, ops, parallel, weights
-from .collectives import allreduce, allreduce_in_axis, broadcast
+from .collectives import (allreduce, allreduce_in_axis, allreduce_rank_major,
+                          broadcast)
 
 __version__ = "0.1.0"
 
 __all__ = [
     "Config", "init", "stop", "is_initialized", "rank", "size", "local_rank",
-    "barrier", "config", "config_epoch", "effective_config", "collectives",
-    "fusion", "selector", "models", "nn", "ops", "parallel", "weights",
-    "allreduce", "allreduce_in_axis", "broadcast", "__version__",
+    "barrier", "config", "config_epoch", "effective_config", "set_config",
+    "collectives", "fusion", "selector", "models", "nn", "ops", "parallel",
+    "weights", "allreduce", "allreduce_in_axis", "allreduce_rank_major",
+    "broadcast", "__version__",
 ]

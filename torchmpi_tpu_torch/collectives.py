@@ -1,11 +1,13 @@
-"""Eager collectives on tensors: allreduce, broadcast, allreduce_in_axis.
+"""Eager collectives on tensors: allreduce, broadcast, allreduce_in_axis,
+allreduce_rank_major.
 
 The PyTorch counterpart of ``torchmpi_tpu/collectives.py``.  The JAX package
 drives every device from one controller, so its eager ``allreduce(x)`` takes
 a rank-major stack ``x[i]`` = rank i's tensor.  Here each rank is a process
 that holds its own tensor, the torch.distributed convention: ``allreduce(x)``
-returns the reduction of every rank's ``x``.  The calls are out of place:
-the caller's tensor is never modified.
+returns the reduction of every rank's ``x``.  ``allreduce_rank_major(xs)``
+is the JAX package's eager form: the n ranks' tensors stacked on one device.
+The calls are out of place: the caller's tensor is never modified.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 import torch.distributed as dist
 
 from . import runtime, selector
+from .ops import ring
 
 AxisNames = Union[str, Sequence[str], None]
 
@@ -45,8 +48,35 @@ def _stock_broadcast_(buf: torch.Tensor, *, root: int = 0) -> torch.Tensor:
     return buf
 
 
+def _ring_allreduce_(buf: torch.Tensor, *, op: str = "sum") -> torch.Tensor:
+    """The ring across processes: a world of one returns ``buf`` itself (the
+    ring of one member, JAX :926); a larger world raises."""
+    _check_op(op)
+    if dist.get_world_size() > 1:
+        raise NotImplementedError(
+            "backend 'pallas' across processes: the ring's peers would be "
+            "other processes' buffers, which needs CUDA IPC or symmetric "
+            "memory on two or more cards (ROADMAP queue B); the ring runs "
+            "rank-major on one card (allreduce_rank_major)")
+    return ring.ring_allreduce(buf[None], op=op)[0]
+
+
+def _stock_allreduce_rank_major(xs: torch.Tensor, *,
+                                op: str = "sum") -> torch.Tensor:
+    """The stock rank-major route: a sum over the rank axis in the stack's
+    dtype, divided for mean, on every rank's slice."""
+    _check_op(op)
+    out = xs.sum(0, dtype=xs.dtype)
+    if op == "mean":
+        out = out / xs.shape[0]
+    return out.expand_as(xs).clone()
+
+
 selector.register("allreduce", "xla", _stock_allreduce_)
+selector.register("allreduce", "pallas", _ring_allreduce_)
 selector.register("broadcast", "xla", _stock_broadcast_)
+selector.register("allreduce_rank_major", "xla", _stock_allreduce_rank_major)
+selector.register("allreduce_rank_major", "pallas", ring.ring_allreduce)
 
 
 def _check_tensor(x) -> torch.Tensor:
@@ -64,7 +94,30 @@ def allreduce(x: torch.Tensor, *, op: str = "sum",
     """Reference: ``mpi.allreduceTensor``.  Returns the sum (or mean) of
     every rank's ``x``."""
     x = _check_tensor(x)
-    return selector.select("allreduce", backend)(x.clone(), op=op)
+    impl = selector.select("allreduce", backend, nbytes=_nbytes(x))
+    return impl(x.clone(), op=op)
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def allreduce_rank_major(xs: torch.Tensor, *, op: str = "sum",
+                         backend: Optional[str] = None) -> torch.Tensor:
+    """The JAX package's eager ``allreduce`` (:772): ``xs[i]`` is rank i's
+    tensor, n = ``xs.shape[0]`` ranks, all on ``xs``'s device; every slice
+    of the result is the sum (or mean) over ranks.  ``backend="pallas"``
+    runs the ring kernels (``ops/ring.py``), ``"xla"`` a sum over the rank
+    axis; the cutover and fallback rules are the selector's, on one rank's
+    bytes."""
+    if not isinstance(xs, torch.Tensor):
+        raise TypeError(f"expected a torch.Tensor, got {type(xs).__name__}")
+    if xs.dim() < 1 or xs.shape[0] < 1:
+        raise ValueError(f"allreduce_rank_major: leading (rank) axis must "
+                         f"have length >= 1; got shape {tuple(xs.shape)}")
+    impl = selector.select("allreduce_rank_major", backend,
+                           nbytes=_nbytes(xs[0]))
+    return impl(xs, op=op)
 
 
 def broadcast(x: torch.Tensor, *, root: int = 0,

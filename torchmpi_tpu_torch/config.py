@@ -34,32 +34,48 @@ class Config:
 
     - ``backend``: default collective route.  ``"xla"`` is the stock route,
       which here is the process group's own backend (NCCL on the card, gloo
-      on the CPU); ``"pallas"`` names the hand-written ring kernels, which
-      are not ported yet (selector.py raises for it).
+      on the CPU); ``"pallas"`` names the hand-written ring kernels
+      (``ops/ring.py``, see selector.py for where they run).
     - ``flash_prescale``: fold the attention scale into q once at the kernel
       boundary; the backward puts it back on dq by the chain rule.
     - ``fuse_max_bytes``: upper bound on one fused gradient bucket; leaves
       group by dtype and each group splits into ceil(bytes / bound) buckets,
       one collective each.  0 keeps one bucket per dtype group.
     - ``gradsync_average``: gradient sync averages (True) or sums.
+    - ``chunk_bytes``: subchunk size of the chunked ring allreduce: when one
+      rank's per-ring-chunk payload (its bytes / n) exceeds it, the ring
+      streams subchunks of about this size through two comm slots.
+    - ``custom_min_bytes``: tensors smaller than this stay on the stock
+      route even when the config's backend is a custom one (an explicit
+      per-call backend bypasses the cutover).
+    - ``pallas_bidirectional``: the ring allreduce splits a tensor in two
+      halves that rotate in opposite directions.
     """
 
     backend: str = "xla"
     flash_prescale: bool = False
     fuse_max_bytes: int = 32 * 1024 * 1024
     gradsync_average: bool = True
+    chunk_bytes: int = 4 * 1024 * 1024
+    custom_min_bytes: int = 64 * 1024
+    pallas_bidirectional: bool = False
 
     @staticmethod
     def from_env(**overrides) -> "Config":
         """Build a Config from the environment (TORCHMPI_TPU_BACKEND,
         TORCHMPI_TPU_FLASH_PRESCALE, TORCHMPI_TPU_FUSE_MAX_BYTES,
-        TORCHMPI_TPU_GRADSYNC_AVERAGE), then apply ``overrides``."""
+        TORCHMPI_TPU_GRADSYNC_AVERAGE, TORCHMPI_TPU_CHUNK_BYTES,
+        TORCHMPI_TPU_CUSTOM_MIN_BYTES; ``pallas_bidirectional`` has none),
+        then apply ``overrides``."""
         cfg = Config(
             backend=_env_str("TORCHMPI_TPU_BACKEND", "xla"),
             flash_prescale=_env_bool("TORCHMPI_TPU_FLASH_PRESCALE", False),
             fuse_max_bytes=_env_int("TORCHMPI_TPU_FUSE_MAX_BYTES",
                                     32 * 1024 * 1024),
             gradsync_average=_env_bool("TORCHMPI_TPU_GRADSYNC_AVERAGE", True),
+            chunk_bytes=_env_int("TORCHMPI_TPU_CHUNK_BYTES", 4 * 1024 * 1024),
+            custom_min_bytes=_env_int("TORCHMPI_TPU_CUSTOM_MIN_BYTES",
+                                      64 * 1024),
         )
         for k, v in overrides.items():
             if not hasattr(cfg, k):

@@ -13,6 +13,12 @@ A bucket is gathered into its own buffer, reduced in place there and
 scattered back, so the extra memory is one bucket, not the whole group.
 Fusion never changes results: every element sees the same reduction as a
 per-tensor launch would give it.
+
+:func:`fused_allreduce_rank_major_` is the same over rank-major stacks
+(``stacks[i][r]`` = rank r's tensor i): the buckets are cut from one rank's
+tensors and gathered as [n, bucket] for one rank-major allreduce each, what
+the JAX package's ``synchronize_gradients`` -> ``fusion.fuse_tree`` does per
+bucket on its n-device mesh.
 """
 
 from __future__ import annotations
@@ -91,20 +97,27 @@ def _pieces(g: DtypeGroup, lo: int, hi: int):
             break
 
 
+def _flat(t: torch.Tensor, rank_major: bool) -> torch.Tensor:
+    return t.view(t.shape[0], -1) if rank_major else t.view(-1)
+
+
 def gather_bucket(tensors: Sequence[torch.Tensor], g: DtypeGroup, lo: int,
-                  hi: int) -> torch.Tensor:
-    """The group's elements [lo, hi) as one new flat tensor."""
-    parts = [tensors[g.indices[pos]].reshape(-1)[a:b]
+                  hi: int, *, rank_major: bool = False) -> torch.Tensor:
+    """The group's elements [lo, hi) as one new flat tensor ([n, hi - lo]
+    for rank-major stacks)."""
+    parts = [_flat(tensors[g.indices[pos]], rank_major)[..., a:b]
              for pos, a, b in _pieces(g, lo, hi)]
-    return torch.cat(parts) if len(parts) > 1 else parts[0].clone()
+    return torch.cat(parts, -1) if len(parts) > 1 else parts[0].clone()
 
 
 def scatter_bucket(flat: torch.Tensor, tensors: Sequence[torch.Tensor],
-                   g: DtypeGroup, lo: int) -> None:
+                   g: DtypeGroup, lo: int, *,
+                   rank_major: bool = False) -> None:
     """Write ``flat`` (the group's elements from ``lo``) back, in place."""
     off = 0
-    for pos, a, b in _pieces(g, lo, lo + flat.numel()):
-        tensors[g.indices[pos]].view(-1)[a:b].copy_(flat[off:off + b - a])
+    for pos, a, b in _pieces(g, lo, lo + flat.shape[-1]):
+        _flat(tensors[g.indices[pos]], rank_major)[..., a:b].copy_(
+            flat[..., off:off + b - a])
         off += b - a
 
 
@@ -112,9 +125,9 @@ def fused_(op_name: str, tensors: Sequence[torch.Tensor], *,
            spec: Optional[FusedSpec] = None, backend: Optional[str] = None,
            **params) -> int:
     """Run collective ``op_name`` ("allreduce" or "broadcast") over ``tensors``
-    in place, one launch per bucket.  Tensors must be contiguous.  Returns
-    the number of launches."""
-    impl = selector.select(op_name, backend)
+    in place, one launch per bucket; each bucket's implementation is the
+    selector's for its bytes.  Tensors must be contiguous.  Returns the
+    number of launches."""
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError("fused collectives need contiguous tensors")
@@ -125,5 +138,42 @@ def fused_(op_name: str, tensors: Sequence[torch.Tensor], *,
             if lo == hi:  # a group of empty tensors
                 continue
             buf = gather_bucket(tensors, g, lo, hi)
+            impl = selector.select(op_name, backend,
+                                   nbytes=buf.numel() * buf.element_size())
             scatter_bucket(impl(buf, **params), tensors, g, lo)
+    return spec.n_launches
+
+
+def fused_allreduce_rank_major_(stacks: Sequence[torch.Tensor], *,
+                                spec: Optional[FusedSpec] = None,
+                                backend: Optional[str] = None,
+                                op: str = "sum") -> int:
+    """Allreduce rank-major stacks ([n, ...] each, ``stacks[i][r]`` = rank
+    r's tensor i, all on one device) over the rank axis, in place, one
+    rank-major allreduce per bucket (``collectives.allreduce_rank_major``'s
+    routes; ``backend="pallas"`` is one ring launch per bucket).  The
+    buckets are ``FusedSpec``'s over one rank's tensors.  Stacks must be
+    contiguous; a mean needs floating stacks (its result is written back in
+    their dtype).  Returns the number of launches."""
+    if not stacks:
+        return 0
+    n = stacks[0].shape[0]
+    for t in stacks:
+        if not t.is_contiguous() or t.dim() < 1 or t.shape[0] != n:
+            raise ValueError(f"fused rank-major collectives need contiguous "
+                             f"[{n}, ...] stacks, got {tuple(t.shape)}")
+        if op == "mean" and not t.dtype.is_floating_point:
+            raise TypeError(f"a mean of {t.dtype} stacks is not written back "
+                            f"in place")
+    if spec is None:
+        spec = FusedSpec([t[0] for t in stacks])
+    for g in spec.groups:
+        for lo, hi in g.bounds:
+            if lo == hi:
+                continue
+            buf = gather_bucket(stacks, g, lo, hi, rank_major=True)
+            impl = selector.select(
+                "allreduce_rank_major", backend,
+                nbytes=(hi - lo) * buf.element_size())
+            scatter_bucket(impl(buf, op=op), stacks, g, lo, rank_major=True)
     return spec.n_launches

@@ -1,0 +1,364 @@
+"""Ring allreduce on Hopper: the "pallas" backend's four allreduce kernels.
+
+The PyTorch counterpart of the allreduce part of ``torchmpi_tpu/ops/ring.py``.
+The JAX package runs one ring member per TPU core and reaches its neighbours
+by remote DMA.  Here the ring members are ``n`` ranks whose buffers sit on
+one card, in a rank-major stack ``xs[i]`` = rank i's tensor (the JAX
+package's eager mode, ``torchmpi_tpu/collectives.py`` :772), and one kernel
+launch runs all of them: the peers are device pointers, so the same kernel
+and protocol serve peers over NVLink once their pointers are exchanged
+(ROADMAP queue B).
+
+Four CUDA kernels (``ops/csrc/ring_allreduce.cu``, one C launcher each)
+replace the four Pallas ones:
+
+- ``ring_allreduce`` (row 11): ``_ring_allreduce_kernel`` :265, one
+  direction, a whole ring chunk per step;
+- ``ring_allreduce_bidir`` (row 12): ``_ring_allreduce_bidir_kernel`` :203,
+  halves ``flat[:L//2]`` and ``flat[L//2:]`` in opposite directions;
+- ``ring_allreduce_chunked`` (row 8): ``_ring_allreduce_chunked_kernel``
+  :511, ring chunks streamed in C subchunks through two comm slots;
+- ``ring_allreduce_bidir_chunked`` (row 7):
+  ``_ring_allreduce_bidir_chunked_kernel`` :534, both.
+
+:func:`ring_allreduce` picks one as the JAX entry does (:926-955) from
+``Config.chunk_bytes`` and ``Config.pallas_bidirectional``.  The layouts are
+the JAX package's (``_pad_and_tile``, ``_chunk_plan``, the half split), and
+an element's ring chunk fixes the order of its adds, so each kernel, its
+plain PyTorch version here and the JAX kernels agree bitwise.  The TPU's
+``_effective_plan`` coarsens the plan only under its CPU interpreter; on a
+GPU the executed plan is always ``_chunk_plan``'s.
+
+Every wrapper takes its plain version when, and only when, the tensor it
+was given lies on the CPU; on a CUDA tensor it launches its kernel or
+raises.  Each wrapper call that launches adds one to ``LAUNCHES[name]``.
+The wrappers make no host-device synchronization.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
+
+import torch
+
+from . import _build
+from .. import runtime
+
+# The TPU kernels' tiling: one (8, 128) f32 tile; chunks are laid out
+# [rows, 128] with rows a multiple of 8, so every buffer pads to TILE.
+_LANES = 128
+_SUBLANES = 8
+_TILE = _LANES * _SUBLANES
+
+# Kernel names, in kernel-table order (rows 7, 8, 11, 12).
+KERNELS = ("ring_allreduce_bidir_chunked", "ring_allreduce_chunked",
+           "ring_allreduce", "ring_allreduce_bidir")
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+
+SUPPORTED_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+
+# Blocks a launch aims for per SM (each block owns one slice of every slot),
+# and the fewest elements a slice should hold.
+_BLOCKS_PER_SM = 2
+_MIN_SLICE = 2048
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# The static plan (the JAX package's functions, on Python ints)
+# ---------------------------------------------------------------------------
+
+
+def _step_indices(my: int, n: int, s: int, sign: int) -> Tuple[int, int]:
+    """(send chunk, recv chunk) of rank ``my`` at ring step ``s`` in
+    direction ``sign`` (+1 sends right, -1 left): the reduce-scatter phase
+    for ``s < n - 1``, the all-gather phase after (ring.py :147)."""
+    if s < n - 1:
+        return (my - sign * s) % n, (my - sign * (s + 1)) % n
+    t = s - (n - 1)
+    return (my + sign * (1 - t)) % n, (my - sign * t) % n
+
+
+def _pad_to(flat: torch.Tensor, total: int) -> torch.Tensor:
+    """``flat`` [n, L] zero-padded on the right to [n, total], contiguous."""
+    n, L = flat.shape
+    if total == L:
+        return flat.contiguous()
+    out = flat.new_zeros(n, total)
+    out[:, :L] = flat
+    return out
+
+
+def _pad_and_tile(flat: torch.Tensor, n: int):
+    """Each rank's row of ``flat`` [R, L] padded to a multiple of n * TILE
+    and tiled as [R, n, rows, 128] (ring.py :162, per rank); also returns
+    the pad."""
+    pad = (-flat.shape[1]) % (n * _TILE)
+    x = _pad_to(flat, flat.shape[1] + pad)
+    return x.reshape(x.shape[0], n, -1, _LANES), pad
+
+
+def _chunk_plan(nelems: int, n: int, dtype: torch.dtype, chunk_bytes: int):
+    """``(sub_elems, C)`` of one rank's ``nelems`` elements (ring.py :372):
+    the buffer pads to ``n * C * sub_elems`` and is viewed as [n ring
+    chunks, C subchunks, sub_elems]; ``C == 1`` means a ring chunk fits one
+    ``chunk_bytes`` slot and the resident kernels run."""
+    ebytes = dtype.itemsize
+    sub_elems = max(_TILE, (chunk_bytes // ebytes) // _TILE * _TILE)
+    per = -(-nelems // n)
+    C = max(1, -(-per // sub_elems))
+    if C > 1:
+        # Rebalance so the last subchunk isn't a sliver of padding.
+        sub_elems = -(-per // C)
+        sub_elems = -(-sub_elems // _TILE) * _TILE
+    return sub_elems, C
+
+
+def schedule(nelems: int, n: int, dtype: torch.dtype, *, chunk_bytes: int,
+             bidirectional: bool):
+    """(kernel name, plan arguments) the ring allreduce runs for ``n``
+    ranks of ``nelems`` elements each (the JAX entry's choice, :936-952): a
+    per-ring-chunk payload above ``chunk_bytes`` streams through a chunked
+    kernel, bidirectional when asked and the half plan is chunked too;
+    otherwise the resident bidirectional kernel when asked and the tensor
+    holds at least 2 n TILE elements; otherwise the resident kernel."""
+    sub_elems, C = _chunk_plan(nelems, n, dtype, chunk_bytes)
+    if C > 1:
+        half = _chunk_plan(-(-nelems // 2), n, dtype, chunk_bytes)
+        if bidirectional and half[1] > 1:
+            return "ring_allreduce_bidir_chunked", half
+        return "ring_allreduce_chunked", (sub_elems, C)
+    if bidirectional and nelems >= 2 * n * _TILE:
+        return "ring_allreduce_bidir", ()
+    return "ring_allreduce", ()
+
+
+# ---------------------------------------------------------------------------
+# The rows: padding, and the plain schedule
+# ---------------------------------------------------------------------------
+
+
+def _halves(flat: torch.Tensor, bidir: bool):
+    if not bidir:
+        return [flat]
+    half = flat.shape[1] // 2
+    return [flat[:, :half], flat[:, half:]]
+
+
+def _ring_plain(x: torch.Tensor, sign: int) -> torch.Tensor:
+    """The ring schedule step by step over a padded rank-major stack
+    [n, P]: at each step every rank's o[recv] takes its neighbour's
+    o[recv], added in the reduce-scatter phase and copied in the
+    all-gather phase.  A neighbour's chunk is never the one it updates in
+    the same step, so updating rank by rank in place is the simultaneous
+    step."""
+    n = x.shape[0]
+    o = x.clone().view(n, n, -1)
+    for s in range(2 * (n - 1)):
+        for r in range(n):
+            _, recv = _step_indices(r, n, s, sign)
+            src = o[(r - sign) % n, recv]
+            if s < n - 1:
+                o[r, recv] += src
+            else:
+                o[r, recv] = src
+    return o.view(n, -1)
+
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    # dtype, x, o, comm, flags, P, n, B, stream
+    "ring_allreduce": ("tm_ring_allreduce", [_I] + [_P] * 4 + [_LL, _I, _I,
+                                                                _P]),
+    # dtype, x1, x2, o1, o2, comm1, comm2, flags, P1, P2, n, B, stream
+    "ring_allreduce_bidir": ("tm_ring_allreduce_bidir",
+                             [_I] + [_P] * 7 + [_LL, _LL, _I, _I, _P]),
+    # dtype, x, o, comm, flags, P, E, C, n, B, stream
+    "ring_allreduce_chunked": ("tm_ring_allreduce_chunked",
+                               [_I] + [_P] * 4 + [_LL, _LL, _I, _I, _I, _P]),
+    # dtype, x1, x2, o1, o2, comm1, comm2, flags, P, E, C, n, B, stream
+    "ring_allreduce_bidir_chunked": (
+        "tm_ring_allreduce_bidir_chunked",
+        [_I] + [_P] * 7 + [_LL, _LL, _I, _I, _I, _P]),
+}
+
+
+def _blocks(dev: torch.device, n: int, dirs: int, slot: int) -> int:
+    """Blocks per (rank, direction): about _BLOCKS_PER_SM blocks on every
+    SM in all, and no slice below _MIN_SLICE elements."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return max(1, min(_BLOCKS_PER_SM * sms // (n * dirs), slot // _MIN_SLICE))
+
+
+def _launch(name: str, xs, C: int):
+    """Launch kernel ``name`` on the padded halves ``xs`` ([n, P] each, on
+    one card, P = n C slot) and return their outputs; raise on a refused
+    launch."""
+    x0 = xs[0]
+    dev, n = x0.device, x0.shape[0]
+    P = [x.shape[1] for x in xs]
+    slots = [p // (n * C) for p in P]
+    B = _blocks(dev, n, len(xs), min(slots))
+    outs = [torch.empty_like(x) for x in xs]
+    comms = [x.new_empty(n, 2, E) for x, E in zip(xs, slots)]
+    # Zeroed by the launcher on the stream, before the kernel.
+    flags = torch.empty(n * len(xs) * B * 3, dtype=torch.int32, device=dev)
+    if name == "ring_allreduce":
+        args = (xs[0], outs[0], comms[0], flags, P[0], n, B)
+    elif name == "ring_allreduce_bidir":
+        args = (*xs, *outs, *comms, flags, P[0], P[1], n, B)
+    elif name == "ring_allreduce_chunked":
+        args = (xs[0], outs[0], comms[0], flags, P[0], slots[0], C, n, B)
+    else:
+        args = (*xs, *outs, *comms, flags, P[0], slots[0], C, n, B)
+    sym, argtypes = _SIGNATURES[name]
+    vals = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(dev):
+        _build.launch("ring_allreduce", sym, argtypes,
+                      _DTYPE_CODE[x0.dtype], *vals,
+                      torch.cuda.current_stream(dev).cuda_stream)
+    LAUNCHES[name] += 1
+    return outs
+
+
+def _check(flat: torch.Tensor) -> None:
+    if flat.dim() != 2 or flat.shape[0] < 2:
+        raise ValueError(f"expected a rank-major stack [n >= 2, L], got "
+                         f"{tuple(flat.shape)}")
+    if flat.dtype not in SUPPORTED_DTYPES:
+        raise TypeError(f"ring allreduce supports float32 / bfloat16 / "
+                        f"int32, got {flat.dtype}")
+    if flat.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {flat.device}")
+
+
+def _run(name: str, flat: torch.Tensor, plan=(), *,
+         plain: bool) -> torch.Tensor:
+    """Row ``name`` on ``flat`` [n, L]: split into halves (bidirectional
+    rows), pad each, reduce (kernel, or the plain schedule), unpad,
+    rejoin."""
+    _check(flat)
+    n = flat.shape[0]
+    parts = _halves(flat, name.startswith("ring_allreduce_bidir"))
+    if plan:
+        # Chunked: both halves pad to the plan's n C sub_elems (:631, :679).
+        sub_elems, C = plan
+        xs = [_pad_to(p, n * C * sub_elems) for p in parts]
+    else:
+        # Resident: each half pads to a multiple of n TILE (:855, :951), and
+        # a slot is a whole ring chunk.
+        C = 1
+        xs = [_pad_and_tile(p, n)[0].reshape(n, -1) for p in parts]
+    if plain:
+        outs = [_ring_plain(x, sign) for x, sign in zip(xs, (1, -1))]
+    else:
+        outs = _launch(name, xs, C)
+    outs = [o[:, :p.shape[1]] for o, p in zip(outs, parts)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+# The four wrappers (kernel on CUDA tensors, plain version on CPU tensors)
+# and their plain versions (on any device).  ``flat`` is [n, L], rank i's
+# elements in row i; the result has the same shape and dtype.
+
+
+def allreduce_resident(flat):
+    """Row 11, ``ring_allreduce``."""
+    return _run("ring_allreduce", flat, plain=flat.device.type == "cpu")
+
+
+def allreduce_resident_plain(flat):
+    return _run("ring_allreduce", flat, plain=True)
+
+
+def allreduce_bidir_resident(flat):
+    """Row 12, ``ring_allreduce_bidir``."""
+    return _run("ring_allreduce_bidir", flat,
+                plain=flat.device.type == "cpu")
+
+
+def allreduce_bidir_resident_plain(flat):
+    return _run("ring_allreduce_bidir", flat, plain=True)
+
+
+def allreduce_chunked(flat, sub_elems: int, C: int):
+    """Row 8, ``ring_allreduce_chunked``."""
+    return _run("ring_allreduce_chunked", flat, (sub_elems, C),
+                plain=flat.device.type == "cpu")
+
+
+def allreduce_chunked_plain(flat, sub_elems: int, C: int):
+    return _run("ring_allreduce_chunked", flat, (sub_elems, C), plain=True)
+
+
+def allreduce_bidir_chunked(flat, sub_elems: int, C: int):
+    """Row 7, ``ring_allreduce_bidir_chunked``."""
+    return _run("ring_allreduce_bidir_chunked", flat, (sub_elems, C),
+                plain=flat.device.type == "cpu")
+
+
+def allreduce_bidir_chunked_plain(flat, sub_elems: int, C: int):
+    return _run("ring_allreduce_bidir_chunked", flat, (sub_elems, C),
+                plain=True)
+
+
+WRAPPERS = {
+    "ring_allreduce_bidir_chunked": allreduce_bidir_chunked,
+    "ring_allreduce_chunked": allreduce_chunked,
+    "ring_allreduce": allreduce_resident,
+    "ring_allreduce_bidir": allreduce_bidir_resident,
+}
+PLAINS = {
+    "ring_allreduce_bidir_chunked": allreduce_bidir_chunked_plain,
+    "ring_allreduce_chunked": allreduce_chunked_plain,
+    "ring_allreduce": allreduce_resident_plain,
+    "ring_allreduce_bidir": allreduce_bidir_resident_plain,
+}
+
+
+# ---------------------------------------------------------------------------
+# The entry point
+# ---------------------------------------------------------------------------
+
+
+def _allreduce(xs: torch.Tensor, op: str, rows) -> torch.Tensor:
+    if op not in ("sum", "mean"):
+        raise KeyError(f"ring allreduce does not support op {op!r}")
+    n = xs.shape[0]
+    if n == 1:
+        out = xs.clone()
+    else:
+        if xs.dtype not in SUPPORTED_DTYPES:
+            raise TypeError(f"ring allreduce supports float32 / bfloat16 / "
+                            f"int32, got {xs.dtype} (use the xla backend "
+                            f"for other dtypes)")
+        flat = xs.reshape(n, -1)
+        cfg = runtime.effective_config()
+        name, plan = schedule(flat.shape[1], n, xs.dtype,
+                              chunk_bytes=cfg.chunk_bytes,
+                              bidirectional=cfg.pallas_bidirectional)
+        out = rows[name](flat, *plan).reshape(xs.shape)
+    if op == "mean":
+        out = out / n
+    return out
+
+
+def ring_allreduce(xs: torch.Tensor, *, op: str = "sum") -> torch.Tensor:
+    """Allreduce over the leading (rank) axis of ``xs`` [n, ...]: every
+    slice of the result is the sum (or mean, ``out / n`` as in JAX, so an
+    int32 mean is float32) over ranks.  The selector's ``"pallas"``
+    implementation of the rank-major allreduce; the kernel is chosen by
+    :func:`schedule` from the active Config.  A ring of one returns a copy
+    (:926)."""
+    return _allreduce(xs, op, WRAPPERS)
+
+
+def ring_allreduce_plain(xs: torch.Tensor, *, op: str = "sum"):
+    """:func:`ring_allreduce` through the plain versions, on any device."""
+    return _allreduce(xs, op, PLAINS)

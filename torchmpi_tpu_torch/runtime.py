@@ -106,6 +106,18 @@ def stop() -> None:
         _state.config_epoch += 1
 
 
+def set_config(**overrides) -> None:
+    """Switch knobs of the running runtime (reference: the torchmpi_set_*
+    setters; the JAX package's ``set_config``).  Bumps the config epoch."""
+    with _state.lock:
+        _require_init()
+        for k in overrides:
+            if not hasattr(_state.config, k):
+                raise ValueError(f"unknown config field {k!r}")
+        _state.config = dataclasses.replace(_state.config, **overrides)
+        _state.config_epoch += 1
+
+
 def is_initialized() -> bool:
     return _state.initialized
 
@@ -133,7 +145,8 @@ def backend_name() -> str:
 
 
 def config_epoch() -> int:
-    """Monotonic counter of configuration changes (init and stop bump it)."""
+    """Monotonic counter of configuration changes (init, set_config and
+    stop bump it)."""
     return _state.config_epoch
 
 

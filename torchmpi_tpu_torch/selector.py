@@ -1,19 +1,26 @@
-"""Collective implementation selector (stock route only).
+"""Collective implementation selector.
 
 The PyTorch counterpart of ``torchmpi_tpu/selector.py``: a table from
-(op, backend name) to an implementation.  The port has one route so far:
+(op, backend name) to an implementation, and the JAX package's rules for
+picking one (``select`` :86-150, without its "hierarchical" and "auto"
+routes, which belong to modules not ported yet).  Backends:
 
-- ``"xla"``: the stock route, which here is the process group's own backend
-  (NCCL on the card, gloo on the CPU), the way the reference's stock route
-  was NCCL/MPI.
-- ``"pallas"``: the hand-written ring collectives.  Their CUDA counterparts
-  are ROADMAP queue B (rows 7-14 of PERF.md's kernel table); until they
-  land, asking for them raises ``NotImplementedError``.
+- ``"xla"``: the stock route.  Across processes it is the process group's
+  own backend (NCCL on the card, gloo on the CPU), the way the reference's
+  stock route was NCCL/MPI; over a rank-major stack it is a sum over the
+  rank axis.
+- ``"pallas"``: the hand-written ring kernels (``ops/ring.py``).  They run
+  rank-major, every rank's buffer on one card.  Across processes their
+  peers would be other processes' buffers, reached through CUDA IPC or
+  symmetric memory on two or more cards (ROADMAP queue B): a world of one
+  process returns a copy, a larger one raises.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional
+
+BACKENDS = ("xla", "pallas")
 
 _REGISTRY: Dict[str, Dict[str, Callable]] = {}
 
@@ -29,22 +36,33 @@ def available(op: Optional[str] = None) -> Dict:
     return {k: sorted(v) for k, v in _REGISTRY.items()}
 
 
-def select(op: str, backend: Optional[str] = None) -> Callable:
-    """The implementation of ``op`` on ``backend`` (default: the active
-    Config's ``backend``)."""
-    if backend is None:
-        from . import runtime
+def select(op: str, backend: Optional[str] = None, *,
+           nbytes: Optional[int] = None) -> Callable:
+    """The implementation of ``op``.
 
-        backend = runtime.effective_config().backend
-    if backend == "pallas":
-        raise NotImplementedError(
-            f"backend 'pallas' ({op}): the ring-collective kernels are not "
-            "ported to CUDA yet (ROADMAP queue B); use backend='xla'")
+    ``backend`` None takes the active Config's ``backend``; a per-call
+    backend is explicit.  A custom backend falls back to ``"xla"`` when the
+    payload (``nbytes``, one rank's bytes) is below
+    ``Config.custom_min_bytes`` and the backend was not explicit, and when
+    it has no implementation of ``op``."""
+    from . import runtime
+
+    cfg = runtime.effective_config()
+    explicit = backend is not None
+    name = backend if explicit else cfg.backend
+    if name not in BACKENDS:
+        raise ValueError(f"unknown backend {name!r} (ported: {BACKENDS})")
     impls = _REGISTRY.get(op)
     if impls is None:
         raise ValueError(f"unknown collective {op!r} "
                          f"(known: {sorted(_REGISTRY)})")
-    if backend not in impls:
-        raise ValueError(f"collective {op!r} has no backend {backend!r} "
+    if name != "xla":
+        if (not explicit and nbytes is not None
+                and nbytes < cfg.custom_min_bytes):
+            name = "xla"
+        elif name not in impls:
+            name = "xla"
+    if name not in impls:
+        raise ValueError(f"collective {op!r} has no backend {name!r} "
                          f"(available: {sorted(impls)})")
-    return impls[backend]
+    return impls[name]
