@@ -8,8 +8,8 @@ JAX package.  In order it:
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the kernels from ops/csrc with nvcc (sm_90a, one compiler per
-   source, in parallel) into build/torch_kernels/: ten kernels in seven
-   sources;
+   source, in parallel) into build/torch_kernels/: fourteen kernels in
+   eight sources;
 3. kernel phases: at the flagship LM's attention shapes (B 4, T 2048, 16 q /
    4 kv heads, head_dim 128, causal, window 1024, float32) runs each flash
    kernel against its plain PyTorch version on the same seeded inputs, and
@@ -24,7 +24,12 @@ JAX package.  In order it:
    (8,249,691 elements a rank), each under the chunk_bytes /
    pallas_bidirectional config that maps the bucket onto it, bitwise
    against the plain ring and against a repeat call, plus a bfloat16 and an
-   int32 pass at 300,001 elements;
+   int32 pass at 300,001 elements; then the four ring reduce-scatter and
+   all-gather kernels at the flagship's ZeRO shapes (4 ranks, the
+   reduce-scatter of 486,731,776 float32 a rank, the all-gather of the
+   121,682,944-element shards) under chunk_bytes 4 MiB (the streamed rows)
+   and 512 MiB (the resident rows), the same way, with the stock
+   rank-major routes timed beside them;
 4. dense train phase (stage B): mpi.init() (NCCL, world of 1) and three
    data-parallel SGD steps (lr 0.02) of the flagship TransformerLM at full
    width and depth (embed 2048, depth 8, GQA 16/4, head_dim 128, T 2048,
@@ -46,7 +51,18 @@ JAX package.  In order it:
    7, 11 and 12; every sync bitwise equal to the plain ring on the same
    stacks, the first within 2e-2 (rel. L2) of the batch-4 gradients, the
    loss falling, 0 host syncs in a step, all four ring kernels launched;
-8. prints the kernels' summary line, then {"ok": true, "device": ...}.
+8. ZeRO phase (the main path of the ZeRO slice): the flagship as ZeRO data
+   parallelism of 4 ranks on the one card with Adam (lr 1e-3): the 4 ranks'
+   gradients in one [4, 486,731,776] stack, 3 ZeRO-1 steps under the
+   default config (rows 9 and 10), 1 under chunk_bytes 512 MiB (rows 13 and
+   14), 2 ZeRO-3 steps (gather_params, then update3); every reduce-scatter
+   and all-gather bitwise equal to the plain ring, the gathered ranks
+   equal, each ZeRO-3 update equal to a ZeRO-1 update on the same stack,
+   the first ZeRO-1 step within 1e-4 (rel. L2 of the updates) of a
+   replicated Adam step from the same state (every step's gap reported),
+   the loss falling, 0 host syncs in a step, all
+   four kernels launched;
+9. prints the kernels' summary line, then {"ok": true, "device": ...}.
 
 Each phase prints one JSON line.  Any failed check raises and the script
 exits non-zero; it exits non-zero without a result when no card is visible
@@ -99,6 +115,20 @@ RING_CONFIGS = {
 }
 RING_SMALL = 300_001  # elements per rank of the bf16 and int32 passes
 DP_RTOL = 2e-2  # synced mean vs the batch-4 gradients (bf16 model)
+# The ZeRO slice: the flagship's 486,731,776 float32 parameters (a multiple
+# of 4, no padding) sharded over RING_N ranks, 121,682,944 a rank.  The
+# chunk_bytes that map the reduce-scatter of the whole gradient stack and
+# the all-gather of the shards onto each row: 4 MiB (the default) plans C =
+# 117 subchunks, 512 MiB holds a ring chunk in one slot.
+ZERO_SHARD = FLAGSHIP_GRADS // RING_N
+ZERO_CONFIGS = {"chunked": 4 << 20, "resident": 512 << 20}
+ZERO_ROWS = {
+    "chunked": ("ring_reduce_scatter_chunked", "ring_all_gather_chunked"),
+    "resident": ("ring_reduce_scatter", "ring_all_gather"),
+}
+ZERO_SMALL = 300_000  # elements per rank of the bf16 and int32 passes
+ZERO_LR = 1e-3  # Adam, as benchmarks/memory_bench.py :58
+ZERO_RTOL = 1e-4  # ZeRO-1 vs replicated Adam: rel. L2 of the updates
 
 SOURCES = {
     "flash_fwd": ("torchmpi_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -122,6 +152,14 @@ SOURCES = {
                        "torchmpi_tpu/ops/ring.py:265"),
     "ring_allreduce_bidir": ("torchmpi_tpu_torch/ops/csrc/ring_allreduce.cu",
                              "torchmpi_tpu/ops/ring.py:203"),
+    "ring_reduce_scatter_chunked": ("torchmpi_tpu_torch/ops/csrc/ring_rs_ag.cu",
+                                    "torchmpi_tpu/ops/ring.py:707"),
+    "ring_all_gather_chunked": ("torchmpi_tpu_torch/ops/csrc/ring_rs_ag.cu",
+                                "torchmpi_tpu/ops/ring.py:733"),
+    "ring_reduce_scatter": ("torchmpi_tpu_torch/ops/csrc/ring_rs_ag.cu",
+                            "torchmpi_tpu/ops/ring.py:310"),
+    "ring_all_gather": ("torchmpi_tpu_torch/ops/csrc/ring_rs_ag.cu",
+                        "torchmpi_tpu/ops/ring.py:342"),
 }
 
 
@@ -572,17 +610,121 @@ def ring_kernel_phase(torch, ring, dev):
             "bound_ms": fn_bytes / PEAK_HBM_BYTES * 1e3, "bound_by": "bytes",
             "bytes": fn_bytes, "schedule_bytes": ring_bytes,
             "schedule_bound_ms": ring_bytes / PEAK_HBM_BYTES * 1e3,
-            # No PyTorch call gives n ranks' buffers the ring's result on
-            # one card (NCCL needs a card per rank); the rank-axis sum is
-            # context only.
-            "library_ms": None,
-            "sum_ms": time_ms(torch, lambda: x.sum(0)),
+            # The stock rank-major route computes the same function: the
+            # rank-axis sum, copied to every rank.
+            "library_ms": time_ms(torch, lambda: x.sum(0).expand_as(x).clone()),
         })
     emit({"phase": "ring_kernels", "ranks": n, "elems_per_rank": L,
           "dtype": "float32", "small_elems_per_rank": RING_SMALL,
           "launches_in_phase": dict(ring.LAUNCHES), "kernels": rows})
     for row in rows:
         check(row["bitwise"], f"{row['name']}: kernel != plain or repeat")
+        for dt, ok in row["small_passes_bitwise"].items():
+            check(ok, f"{row['name']} {dt}: kernel != plain")
+    return rows
+
+
+def ring_rs_ag_kernel_phase(torch, ring, dev):
+    """Rows 9, 10, 13 and 14: RING_N ranks rank-major on the card at the
+    flagship's ZeRO shapes, float32: the reduce-scatter of every rank's
+    486,731,776 gradients and the all-gather of the 121,682,944-element
+    shards, each row under the chunk_bytes that maps it; each kernel
+    against its plain version and a repeat call, bitwise; then a bfloat16
+    and an int32 pass at a small size."""
+    n = RING_N
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    small = {dt: (torch.randn(n, ZERO_SMALL, generator=g, device=dev).to(dt)
+                  if dt.is_floating_point else
+                  torch.randint(-2 ** 30, 2 ** 30, (n, ZERO_SMALL),
+                                generator=g, device=dev, dtype=dt))
+             for dt in (torch.bfloat16, torch.int32)}
+
+    def plan_of(name, L, dtype, cb):
+        if name.startswith("ring_reduce_scatter"):
+            return ring.schedule_reduce_scatter(L, n, dtype, chunk_bytes=cb)
+        return ring.schedule_all_gather(L, n, dtype, chunk_bytes=cb)
+
+    rows = []
+    for mode, cb in ZERO_CONFIGS.items():
+        for name in ZERO_ROWS[mode]:
+            rs = name.startswith("ring_reduce_scatter")
+            L = FLAGSHIP_GRADS if rs else ZERO_SHARD
+            x = torch.randn(n, L, generator=g, device=dev)
+            picked, plan = plan_of(name, L, x.dtype, cb)
+            check(picked == name, f"{name}: chunk_bytes {cb} maps to "
+                  f"{picked}")
+            kern = lambda: ring.WRAPPERS[name](x, *plan)  # noqa: E731
+            plain = lambda: ring.PLAINS[name](x, *plan)  # noqa: E731
+            out, again = kern(), kern()
+            torch.cuda.synchronize()
+            repeat = torch.equal(out, again)
+            del again
+            ref = plain()
+            bitwise = torch.equal(out, ref) and repeat
+            err = max_err(out, ref)
+            del ref
+            rows_equal = rs or all(torch.equal(out[r], out[0])
+                                   for r in range(1, n))
+            del out
+            passes = {}
+            for dt, xs in small.items():
+                # A small pass runs the same row: chunk_bytes scaled with
+                # the size and the element; the all-gather takes shards.
+                m = ZERO_SMALL if rs else ZERO_SMALL // n
+                scb = cb * m // L * xs.element_size() // 4
+                xs = xs if rs else xs[:, :m].contiguous()
+                spicked, splan = plan_of(name, m, dt, scb)
+                check(spicked == name, f"{name} {dt}: small pass maps to "
+                      f"{spicked}")
+                a, b = ring.WRAPPERS[name](xs, *splan), ring.PLAINS[name](
+                    xs, *splan)
+                torch.cuda.synchronize()
+                passes[str(dt).split(".")[-1]] = torch.equal(a, b)
+            # Bounds.  The function reads every rank's input once and
+            # writes every rank's output once: reduce-scatter n L in, n L/n
+            # out; all-gather n L in, n n L out (4-byte elements).  The
+            # schedule on one card moves more (ring_rs_ag.cu): per rank of
+            # S input bytes the reduce-scatter's staging 2 S, n - 1 steps of
+            # 5 S / n and the copy-out 2 S / n; the all-gather of an S-byte
+            # shard 2 S plus 4 S a step.
+            S = 4 * L
+            if rs:
+                fn_bytes = 4 * (n * L + L)
+                sched_bytes = n * S * (2 + (5 * (n - 1) + 2) / n)
+                library = lambda: x.view(n, n, -1).sum(0)  # noqa: E731
+            else:
+                fn_bytes = 4 * (n * L + n * n * L)
+                sched_bytes = n * S * (2 + 4 * (n - 1))
+                library = lambda: x.unsqueeze(0).expand(  # noqa: E731
+                    n, n, L).clone()
+            rows.append({
+                "name": name, "route": "cuda", "source": SOURCES[name][0],
+                "replaces": SOURCES[name][1], "max_abs_err": err,
+                "tolerance": 0.0, "bitwise": bitwise,
+                "all_gather_rows_equal": rows_equal,
+                "small_passes_bitwise": passes, "chunk_bytes": cb,
+                "elems_per_rank": L,
+                "plan": dict(zip(("sub_elems", "C"), ring._slots(
+                    L // n if rs else L, plan))),
+                "ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
+                "bound_ms": fn_bytes / PEAK_HBM_BYTES * 1e3,
+                "bound_by": "bytes", "bytes": fn_bytes,
+                "schedule_bytes": sched_bytes,
+                "schedule_bound_ms": sched_bytes / PEAK_HBM_BYTES * 1e3,
+                # The stock rank-major route: the rank-axis sum of the
+                # [rank, tile] view / a copy of the stack per rank.
+                "library_ms": time_ms(torch, library),
+            })
+            del x
+            torch.cuda.empty_cache()
+    emit({"phase": "ring_rs_ag_kernels", "ranks": n, "dtype": "float32",
+          "small_elems_per_rank": ZERO_SMALL,
+          "launches_in_phase": {k: ring.LAUNCHES[k] for k in
+                                ZERO_ROWS["chunked"] + ZERO_ROWS["resident"]},
+          "kernels": rows})
+    for row in rows:
+        check(row["bitwise"], f"{row['name']}: kernel != plain or repeat")
+        check(row["all_gather_rows_equal"], f"{row['name']}: ranks differ")
         for dt, ok in row["small_passes_bitwise"].items():
             check(ok, f"{row['name']} {dt}: kernel != plain")
     return rows
@@ -728,6 +870,259 @@ def ring_dp_phase(torch, mpi, ops, dev):
     for name in RING_CONFIGS:
         check(launches[name] > 0, f"kernel {name} never launched on the "
               f"ring DP path")
+    return launches, {k: statistics.median(v) for k, v in sync_ms.items()}
+
+
+def tap_rank_major_routes(torch, mpi, ring, log):
+    """Wrap the selector's "pallas" routes of the rank-major reduce-scatter
+    and all-gather for the checked steps of the ZeRO path: each call runs
+    the route (the kernels) between two CUDA events, then the plain ring
+    on the same input, and appends to ``log`` whether the two agree
+    bitwise (and, for the all-gather, whether every rank's slice is the
+    same).  Returns the function that restores the plain routes."""
+    sel = mpi.selector
+
+    def wrap(verb, route, plain):
+        def tapped(xs, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = route(xs, **kw)
+            end.record()
+            entry = {"verb": verb, "events": (start, end),
+                     "label": log.label,
+                     "bitwise": torch.equal(out, plain(xs, **kw))}
+            if verb == "all_gather":
+                entry["rows_equal"] = all(torch.equal(out[r], out[0])
+                                          for r in range(1, out.shape[0]))
+            log.append(entry)
+            return out
+        return tapped
+
+    routes = {"reduce_scatter_rank_major": (
+        "reduce_scatter", ring.ring_reduce_scatter,
+        ring.ring_reduce_scatter_plain),
+        "allgather_rank_major": ("all_gather", ring.ring_all_gather,
+                                 ring.ring_all_gather_plain)}
+    for op, (verb, route, plain) in routes.items():
+        sel.register(op, "pallas", wrap(verb, route, plain))
+
+    def restore():
+        for op, (_, route, _) in routes.items():
+            sel.register(op, "pallas", route)
+    return restore
+
+
+class TapLog(list):
+    label = ""
+
+
+def zero_dp_phase(torch, mpi, ops, dev, ring_sync_ms):
+    """This slice's main path: the flagship as ZeRO data parallelism of
+    RING_N ranks on one card.  Rank r takes sequence r of the batch of 4;
+    its gradients go into its row of one [4, 486,731,776] float32 stack
+    (fusion.rank_major_buffers), and zero.update_rank_major (ZeRO-1) or
+    zero.gather_params_rank_major + update3_rank_major (ZeRO-3) step with
+    Adam (lr 1e-3) under backend "pallas": 3 ZeRO-1 steps under the default
+    config (rows 9 + 10), 1 under the resident config (rows 13 + 14), then
+    2 ZeRO-3 steps.  Every reduce-scatter and all-gather is held bitwise to
+    the plain ring on the same input; the first ZeRO-1 step to a
+    replicated step from the same parameters, state and stack (fused ring
+    allreduce mean, Adam on the full tensors; the later steps' gaps are
+    reported); each ZeRO-3 update to a ZeRO-1 update on the same stack;
+    then one untimed ZeRO-1 step counts the host syncs.  Every kernel
+    counter is set to 0 just before the main path and read just after;
+    the checks' own launches are taken out."""
+    ring = ops["ring"]
+    zero, fusion = mpi.parallel.zero, mpi.fusion
+    n = RING_N
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    model = mpi.models.TransformerLM(**LM, attn_impl="flash",
+                                     dtype=torch.bfloat16, device=dev,
+                                     generator=g)
+    tok = torch.randint(0, LM["vocab"], (BATCH, SEQ), generator=g,
+                        device=dev)
+    params = list(model.parameters())
+    spec = zero.flat_spec(params, n_shards=n)
+    check(len(spec.groups) == 1 and spec.padded == FLAGSHIP_GRADS
+          and spec.shard == ZERO_SHARD,
+          f"flagship shard layout {spec.padded} / {spec.shard}")
+    flats, views = fusion.rank_major_buffers(spec, n, device=dev)
+    tx = mpi.optim.adam(ZERO_LR)
+    state = zero.init_rank_major(params, tx, n)
+
+    def rank_grads():
+        losses = []
+        for r in range(n):
+            model.zero_grad(set_to_none=True)
+            loss = fused_lm_loss(torch, mpi, model, tok[r:r + 1])
+            loss.backward()
+            losses.append(loss.detach())
+            for v, p in zip(views, params):
+                v[r].copy_(p.grad)
+        model.zero_grad(set_to_none=True)
+        return torch.stack(losses).mean()
+
+    def load(new):
+        with torch.no_grad():
+            for p, v in zip(params, new):
+                p.copy_(v)
+
+    def zero1(state):
+        new, state = zero.update_rank_major(params, flats, state, tx,
+                                            backend="pallas")
+        load(new)
+        return state
+
+    rows = ZERO_ROWS["chunked"] + ZERO_ROWS["resident"]
+
+    def counts():
+        return {k: ring.LAUNCHES[k] for k in rows}
+
+    @torch.no_grad()
+    def replicated_rel(p0, prev):
+        """Per-tensor rel. L2 of the ZeRO-1 update against a replicated
+        step from the same parameters, optimizer state and gradient stack:
+        the mean by the fused ring allreduce, Adam on the full tensors.  One
+        unpadded dtype group: the [n, shard] state read flat is the
+        replicated state."""
+        p1 = fusion.flatten_tree(params, spec)
+        buf = flats[0].clone()
+        fusion.fused_allreduce_rank_major_([buf], backend="pallas",
+                                           op="mean")
+        upd, _ = tx.update(buf[0], type(prev)(*(
+            t.reshape(-1) if torch.is_tensor(t) else t for t in prev)))
+        del buf
+        d_zero = fusion.unflatten_tree(p1 - p0, spec)
+        d_rep = fusion.unflatten_tree(upd, spec)
+        rel = [float((a - b).norm() / b.norm().clamp_min(1e-30))
+               for a, b in zip(d_zero, d_rep)]
+        worst = max(range(len(rel)), key=rel.__getitem__)
+        return rel[worst], [nm for nm, _ in model.named_parameters()][worst]
+
+    log = TapLog()
+    restore = tap_rank_major_routes(torch, mpi, ring, log)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in ops.values():
+        mod.reset_launches()
+    excluded = dict.fromkeys(rows, 0)
+    schedule = ["zero1 chunked"] * 3 + ["zero1 resident"] + ["zero3 chunked"] * 2
+    losses, step_ms, rep, z3_eq_z1 = [], {}, [], []
+    try:
+        shards = None
+        for i, label in enumerate(schedule):
+            stage, mode = label.split()
+            mpi.set_config(chunk_bytes=ZERO_CONFIGS[mode])
+            log.label = label
+            t0 = time.perf_counter()
+            if stage == "zero1":
+                losses.append(rank_grads())
+                p0 = fusion.flatten_tree(params, spec).detach()
+                prev, state = state, zero1(state)
+            else:
+                if shards is None:
+                    shards = zero.shard_params_rank_major(params, n)
+                load(zero.gather_params_rank_major(shards, spec,
+                                                   backend="pallas"))
+                losses.append(rank_grads())
+                new_shards, new_state = zero.update3_rank_major(
+                    shards, flats, state, tx, spec=spec, backend="pallas")
+            torch.cuda.synchronize()
+            step_ms.setdefault(label, []).append(
+                (time.perf_counter() - t0) * 1e3)
+            before = counts()
+            log.label = "check"
+            if stage == "zero1":
+                rep.append(replicated_rel(p0, prev))
+                del p0, prev
+            if stage == "zero3":
+                # ZeRO-1 from the same parameters, state and stack.
+                z1_new, z1_state = zero.update_rank_major(
+                    params, flats, state, tx, backend="pallas")
+                z3_eq_z1.append(
+                    torch.equal(fusion.local_shards(z1_new, spec),
+                                new_shards)
+                    and torch.equal(z1_state.mu, new_state.mu)
+                    and torch.equal(z1_state.nu, new_state.nu))
+                del z1_new, z1_state
+                shards, state = new_shards, new_state
+                del new_shards, new_state
+            for k, v in counts().items():
+                excluded[k] += v - before[k]
+        log.label = "zero3 final gather"
+        load(zero.gather_params_rank_major(shards, spec, backend="pallas"))
+    finally:
+        restore()
+        mpi.set_config(chunk_bytes=ZERO_CONFIGS["chunked"])
+    launches = {k: v - excluded[k] for k, v in counts().items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    main = [e for e in log if e["label"] != "check"]
+    leg_ms = {}
+    for e in main:
+        leg_ms.setdefault(e["label"], {}).setdefault(e["verb"], []).append(
+            e["events"][0].elapsed_time(e["events"][1]))
+
+    def one_step():
+        nonlocal state
+        rank_grads()
+        state = zero1(state)
+
+    # One step without the verification taps, timed on the host clock, and
+    # its own peak; then one more, untimed, counts the host syncs.
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    one_step()
+    torch.cuda.synchronize()
+    plain_step_ms = (time.perf_counter() - t0) * 1e3
+    step_peak = torch.cuda.max_memory_allocated()
+    syncs = count_host_syncs(torch, one_step)
+    state_bytes = sum(t.numel() * t.element_size() for t in state
+                      if torch.is_tensor(t)) // n
+    emit({"phase": "zero_dp", "ranks": n, "optimizer": f"adam({ZERO_LR})",
+          "config": dict(LM, batch=BATCH, seq=SEQ, dtype="bfloat16"),
+          "params": sum(p.numel() for p in params), "shard": spec.shard,
+          "steps": schedule, "losses": losses,
+          "step_ms_with_check": step_ms, "zero1_step_ms": plain_step_ms,
+          "leg_ms": leg_ms,
+          "median_leg_ms": {lb: {v: statistics.median(t)
+                                 for v, t in d.items()}
+                            for lb, d in leg_ms.items()},
+          "ring_dp_median_sync_ms": ring_sync_ms,
+          "bitwise_vs_plain": all(e["bitwise"] for e in log),
+          "n_collectives_checked": len(log),
+          "all_gather_rows_equal": all(e.get("rows_equal", True)
+                                       for e in log),
+          "zero3_equals_zero1": z3_eq_z1,
+          "replicated_max_rel_l2": [r[0] for r in rep],
+          "replicated_worst_tensor": [r[1] for r in rep],
+          "replicated_tolerance": ZERO_RTOL,
+          "opt_state_bytes_per_rank": state_bytes,
+          "opt_state_bytes_replicated": 2 * spec.padded * 4,
+          "zero3_param_shard_bytes": spec.shard * 4,
+          "grad_stack_bytes": sum(f.numel() * f.element_size()
+                                  for f in flats),
+          "peak_mem_bytes_with_check": peak,
+          "peak_mem_bytes_step": step_peak,
+          "host_syncs_per_step": syncs, "launches": launches,
+          "check_launches": excluded})
+    check(all(e["bitwise"] for e in log)
+          and len(main) == 2 * len(schedule) + 1,
+          "a ZeRO reduce-scatter or all-gather differs from the plain ring")
+    check(all(e.get("rows_equal", True) for e in log),
+          "the all-gathered ranks differ")
+    check(len(z3_eq_z1) == 2 and all(z3_eq_z1),
+          "a ZeRO-3 update differs from the ZeRO-1 update")
+    # Held on the first step; later steps are reported: Adam's moments
+    # carry the sums' rounding forward, so the gap grows with the count.
+    check(rep[0][0] <= ZERO_RTOL, f"ZeRO-1 vs replicated Adam: {rep}")
+    check(all(math.isfinite(v) for v in losses), f"non-finite {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(syncs == 0, f"{syncs} host-device synchronizations in a step")
+    for name in rows:
+        check(launches[name] > 0, f"kernel {name} never launched on the "
+              f"ZeRO path")
     return launches
 
 
@@ -765,6 +1160,7 @@ def main() -> int:
         rows = kernel_phase(torch, flash, dev)
         rows += xent_kernel_phase(torch, xent, dev)
         rows += ring_kernel_phase(torch, ring, dev)
+        rows += ring_rs_ag_kernel_phase(torch, ring, dev)
         model, _, _ = train_phase(torch, mpi, ops, dev, "dense")
         del model
         torch.cuda.empty_cache()
@@ -775,9 +1171,15 @@ def main() -> int:
         torch.cuda.empty_cache()
         # The main path of slice 3: the DP step of RING_N ranks on the
         # card, its gradients synced by the ring kernels.
-        ring_launches = ring_dp_phase(torch, mpi, dict(ops, ring=ring), dev)
+        ring_launches, ring_sync_ms = ring_dp_phase(
+            torch, mpi, dict(ops, ring=ring), dev)
         launches.update({k: v for k, v in ring_launches.items()
-                         if k in ring.LAUNCHES})
+                         if k in RING_CONFIGS})
+        torch.cuda.empty_cache()
+        # The main path of slice 4: ZeRO-1 / ZeRO-3 of RING_N ranks on the
+        # card, its reduce-scatters and all-gathers on the ring kernels.
+        launches.update(zero_dp_phase(torch, mpi, dict(ops, ring=ring), dev,
+                                      ring_sync_ms))
     finally:
         mpi.stop()
 

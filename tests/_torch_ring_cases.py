@@ -1,5 +1,6 @@
-"""Shared cases of tests/test_torch_ring.py and tests/test_torch_ring_wide.py:
-the port's ring allreduce against the JAX package's ring kernels.
+"""Shared cases of the port's ring tests (tests/test_torch_ring*.py): the
+port's ring allreduce, reduce-scatter and all-gather against the JAX
+package's ring kernels.
 
 The JAX side runs ``ring.ring_allreduce`` under ``shard_map`` on an n-device
 sub-mesh of the 8-device CPU mesh, its Pallas kernels in interpret mode (as
@@ -34,6 +35,8 @@ DTYPES = {"f32": (np.float32, torch.float32),
           "i32": (np.int32, torch.int32)}
 KERNELS = ("ring_allreduce", "ring_allreduce_bidir", "ring_allreduce_chunked",
            "ring_allreduce_bidir_chunked")
+RS_AG_KERNELS = ("ring_reduce_scatter", "ring_reduce_scatter_chunked",
+                 "ring_all_gather", "ring_all_gather_chunked")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -75,6 +78,27 @@ def jax_allreduce(x, op="sum"):
                                         NamedSharding(mesh, P("ring")))))
 
 
+def jax_reduce_scatter(x):
+    """x [n, k, ...] through the JAX ring reduce-scatter on the first n CPU
+    devices: [n, k / n, ...]."""
+    return _jax_ring(lambda v: jring.ring_reduce_scatter(v, ("ring",)), x)
+
+
+def jax_all_gather(x):
+    """x [n, ...] through the JAX ring all-gather: [n, n, ...]."""
+    return _jax_ring(lambda v: jring.ring_all_gather(v, ("ring",)), x)
+
+
+def _jax_ring(fn, x):
+    n = x.shape[0]
+    mesh = Mesh(np.array(jax.devices()[:n]), ("ring",))
+    body = jax.jit(shard_map(lambda xs: fn(xs[0])[None], mesh=mesh,
+                             in_specs=P("ring"), out_specs=P("ring"),
+                             check_vma=False))
+    return np.asarray(body(jax.device_put(jnp.asarray(x),
+                                          NamedSharding(mesh, P("ring")))))
+
+
 def to_torch(x):
     if x.dtype == jnp.bfloat16:
         return torch.from_numpy(x.view(np.int16).copy()).view(torch.bfloat16)
@@ -91,10 +115,12 @@ def bits(a):
 
 
 def stack(n, L, dtype, seed):
+    """Seeded [n, L] (or [n, *L] for a tuple L) of ``dtype``."""
+    shape = (n,) + (tuple(L) if isinstance(L, tuple) else (L,))
     rng = np.random.RandomState(seed)
     if dtype == np.int32:
-        return rng.randint(-1000, 1000, size=(n, L)).astype(np.int32)
-    return np.asarray(jnp.asarray(rng.randn(n, L).astype(np.float32),
+        return rng.randint(-1000, 1000, size=shape).astype(np.int32)
+    return np.asarray(jnp.asarray(rng.randn(*shape).astype(np.float32),
                                   dtype))
 
 
@@ -160,4 +186,54 @@ def check_parity(kernel, n, dtype_name, *, op="sum", seed=0):
                                   err_msg=f"{kernel} n={n} {dtype_name} {op}")
     if dtype_name == "i32" and op == "sum":
         np.testing.assert_array_equal(want[0], x.sum(0))
+    return plan
+
+
+def rs_ag_case(kernel, n, dtype, ragged):
+    """(elements of one ring chunk, chunk_bytes) for which the schedule
+    picks ``kernel`` with a plan the interpreter runs uncoarsened (its cap
+    on the n - 1 steps' iterations, ring.py :410): ragged chunks are off
+    every padding boundary.  Chunks stay within 12 KB: on 8-rank rings the
+    Pallas interpreter wedges (no progress, no error) once a ring chunk
+    pads to 16 KB (4096 float32), which no real lowering does."""
+    if kernel.endswith("_chunked"):
+        sub = SMALL_CHUNK // np.dtype(dtype).itemsize
+        C = min(3, max(2, jring._INTERPRET_MAX_ITERS // (n - 1)))
+        return C * sub - (3 if ragged else 0), SMALL_CHUNK
+    return (2 * TILE + 5 if ragged else 2 * TILE), 4 << 20
+
+
+def check_rs_ag_parity(kernel, n, dtype_name, *, seed=0):
+    """Run ``kernel``'s case for (n, dtype) through both packages' entry
+    points and hold the port bitwise to JAX; float32 and int32 take ragged
+    chunks, bfloat16 one on the padding boundary."""
+    npdt, tdt = DTYPES[dtype_name]
+    per, cb = rs_ag_case(kernel, n, npdt, ragged=dtype_name != "bf16")
+    configure(chunk_bytes=cb)
+    rs = kernel.startswith("ring_reduce_scatter")
+    if rs:
+        picked, plan = tring.schedule_reduce_scatter(n * per, n, tdt,
+                                                     chunk_bytes=cb)
+    else:
+        picked, plan = tring.schedule_all_gather(per, n, tdt, chunk_bytes=cb)
+    assert picked == kernel, (dtype_name, per)
+    # Both JAX entries plan on the n ranks' n * per elements (:1030, :1076).
+    planned = n * per
+    x = stack(n, n * per if rs else per, npdt, seed=seed)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", jring.RingInterpretCoarseningWarning)
+        assert jring._effective_plan(planned, n, npdt, cb, True,
+                                     steps=n - 1) == \
+            tring._chunk_plan(planned, n, tdt, cb)
+        want = jax_reduce_scatter(x) if rs else jax_all_gather(x)
+    got = (tring.ring_reduce_scatter if rs else tring.ring_all_gather)(
+        to_torch(x))
+    assert got.shape == want.shape
+    assert str(got.dtype).split(".")[-1] == np.dtype(want.dtype).name
+    np.testing.assert_array_equal(bits(got), bits(want),
+                                  err_msg=f"{kernel} n={n} {dtype_name}")
+    if dtype_name == "i32":
+        expect = (x.reshape(n, n, per).sum(0) if rs
+                  else np.broadcast_to(x, (n,) + x.shape))
+        np.testing.assert_array_equal(want, expect)
     return plan

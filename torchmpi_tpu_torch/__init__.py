@@ -10,8 +10,10 @@ as CUDA kernels (``ops/csrc``):
     mpi.rank(), mpi.size()
     mpi.allreduce(x)                        # sum over ranks
     mpi.allreduce_rank_major(xs, backend="pallas")  # xs[i] = rank i's, one card
+    mpi.reduce_scatter(x), mpi.allgather(x)   # this rank's tile / the stack
     step = mpi.nn.data_parallel_step(model, optimizer, loss_fn)
     loss = step(batch)                      # grads synced in fused buckets
+    new_params, state = mpi.parallel.zero.update(params, grads, state, tx)
     mpi.stop()
 
 It imports nothing of JAX and nothing of ``torchmpi_tpu``.  Entry points run
@@ -33,9 +35,11 @@ from .runtime import (
     stop,
 )
 from . import collectives, fusion, selector
-from . import models, nn, ops, parallel, weights
-from .collectives import (allreduce, allreduce_in_axis, allreduce_rank_major,
-                          broadcast)
+from . import models, nn, ops, optim, parallel, weights
+from .collectives import (allgather, allgather_in_axis, allgather_rank_major,
+                          allreduce, allreduce_in_axis, allreduce_rank_major,
+                          broadcast, reduce_scatter, reduce_scatter_in_axis,
+                          reduce_scatter_rank_major)
 
 __version__ = "0.1.0"
 
@@ -43,6 +47,8 @@ __all__ = [
     "Config", "init", "stop", "is_initialized", "rank", "size", "local_rank",
     "barrier", "config", "config_epoch", "effective_config", "set_config",
     "collectives", "fusion", "selector", "models", "nn", "ops", "parallel",
-    "weights", "allreduce", "allreduce_in_axis", "allreduce_rank_major",
-    "broadcast", "__version__",
+    "weights", "optim", "allreduce", "allreduce_in_axis",
+    "allreduce_rank_major", "reduce_scatter", "reduce_scatter_in_axis",
+    "reduce_scatter_rank_major", "allgather", "allgather_in_axis",
+    "allgather_rank_major", "broadcast", "__version__",
 ]

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+from typing import Optional
 
 
 def _env_bool(name: str, default: bool) -> bool:
@@ -42,6 +43,8 @@ class Config:
       group by dtype and each group splits into ceil(bytes / bound) buckets,
       one collective each.  0 keeps one bucket per dtype group.
     - ``gradsync_average``: gradient sync averages (True) or sums.
+    - ``gradsync_compress``: on-the-wire gradient compression of ZeRO's
+      reduce-scatter leg: None (off) or ``"bf16"``.
     - ``chunk_bytes``: subchunk size of the chunked ring allreduce: when one
       rank's per-ring-chunk payload (its bytes / n) exceeds it, the ring
       streams subchunks of about this size through two comm slots.
@@ -56,6 +59,7 @@ class Config:
     flash_prescale: bool = False
     fuse_max_bytes: int = 32 * 1024 * 1024
     gradsync_average: bool = True
+    gradsync_compress: Optional[str] = None
     chunk_bytes: int = 4 * 1024 * 1024
     custom_min_bytes: int = 64 * 1024
     pallas_bidirectional: bool = False
@@ -64,7 +68,8 @@ class Config:
     def from_env(**overrides) -> "Config":
         """Build a Config from the environment (TORCHMPI_TPU_BACKEND,
         TORCHMPI_TPU_FLASH_PRESCALE, TORCHMPI_TPU_FUSE_MAX_BYTES,
-        TORCHMPI_TPU_GRADSYNC_AVERAGE, TORCHMPI_TPU_CHUNK_BYTES,
+        TORCHMPI_TPU_GRADSYNC_AVERAGE, TORCHMPI_TPU_GRADSYNC_COMPRESS,
+        TORCHMPI_TPU_CHUNK_BYTES,
         TORCHMPI_TPU_CUSTOM_MIN_BYTES; ``pallas_bidirectional`` has none),
         then apply ``overrides``."""
         cfg = Config(
@@ -73,6 +78,8 @@ class Config:
             fuse_max_bytes=_env_int("TORCHMPI_TPU_FUSE_MAX_BYTES",
                                     32 * 1024 * 1024),
             gradsync_average=_env_bool("TORCHMPI_TPU_GRADSYNC_AVERAGE", True),
+            gradsync_compress=(
+                os.environ.get("TORCHMPI_TPU_GRADSYNC_COMPRESS") or None),
             chunk_bytes=_env_int("TORCHMPI_TPU_CHUNK_BYTES", 4 * 1024 * 1024),
             custom_min_bytes=_env_int("TORCHMPI_TPU_CUSTOM_MIN_BYTES",
                                       64 * 1024),
@@ -82,3 +89,20 @@ class Config:
                 raise ValueError(f"unknown config field {k!r}")
             setattr(cfg, k, v)
         return cfg
+
+
+def wire_compress(value, *, site: str) -> Optional[str]:
+    """A wire-compression knob made canonical (the JAX package's
+    ``gradsync._wire_compress`` -> ``compress.validate_wire`` with
+    ``allowed=("bf16",)``): None, "none", "off" or "" mean uncompressed and
+    give None; otherwise the value must name "bf16" (any case) or this
+    raises."""
+    if value is None:
+        return None
+    v = str(value).strip().lower()
+    if v in ("none", "off", ""):
+        return None
+    if v != "bf16":
+        raise ValueError(f"{site}: unknown compression {value!r} "
+                         f"(allowed: bf16 or none)")
+    return v

@@ -19,10 +19,22 @@ per-tensor launch would give it.
 tensors and gathered as [n, bucket] for one rank-major allreduce each, what
 the JAX package's ``synchronize_gradients`` -> ``fusion.fuse_tree`` does per
 bucket on its n-device mesh.
+
+``FusedSpec(tensors, n_shards)`` is also ZeRO's shard layout (the JAX
+package's, ``fusion.py`` :169-177): each dtype group is laid out flat and
+zero-padded to a multiple of ``n_shards``, shard i of the list is every
+group's extent i, promoted to one dtype and concatenated group-major
+(:func:`local_shard`), which is exactly what one reduce-scatter per group
+in its own dtype hands rank i.  :func:`group_flat`, :func:`flatten_tree`,
+:func:`unflatten_tree`, :func:`local_shard` and :func:`unflatten_shards` are
+the JAX functions on tensor lists; :func:`local_shards`,
+:func:`group_flats` and :func:`rank_major_buffers` are their rank-major
+forms.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -33,13 +45,16 @@ from . import runtime, selector
 
 class DtypeGroup:
     """One dtype's slice of a :class:`FusedSpec`: which tensors (positions
-    in the input list), their element counts, and the bucket bounds."""
+    in the input list), their shapes and element counts, the bucket bounds,
+    and the shard layout (``padded`` elements, ``shard`` per rank)."""
 
-    __slots__ = ("dtype", "indices", "sizes", "total", "bounds")
+    __slots__ = ("dtype", "indices", "shapes", "sizes", "total", "bounds",
+                 "padded", "shard")
 
     def __init__(self, dtype: torch.dtype):
         self.dtype = dtype
         self.indices: List[int] = []
+        self.shapes: List[torch.Size] = []
         self.sizes: List[int] = []
         self.total = 0
         self.bounds: List[Tuple[int, int]] = []
@@ -51,13 +66,20 @@ class DtypeGroup:
 
 class FusedSpec:
     """Static fusion layout of a list of tensors (group-major, first-seen
-    dtype order, byte-bounded element buckets)."""
+    dtype order, byte-bounded element buckets), and its shard layout over
+    ``n_shards`` ranks: each group padded to ``padded``, a multiple of
+    ``n_shards``, of which each rank owns ``shard``; the promoted view
+    (``dtype``, ``padded``, ``shard``) is the groups' concatenation."""
 
-    def __init__(self, tensors: Sequence[torch.Tensor], *,
+    def __init__(self, tensors: Sequence[torch.Tensor], n_shards: int = 1, *,
                  max_bytes: Optional[int] = None):
         if max_bytes is None:
             max_bytes = runtime.effective_config().fuse_max_bytes
         self.n_tensors = len(tensors)
+        self.n_shards = int(n_shards)
+        self.dtypes = [t.dtype for t in tensors]
+        self.dtype = (functools.reduce(torch.promote_types, self.dtypes)
+                      if tensors else torch.float32)
         by_dtype = {}
         self.groups: List[DtypeGroup] = []
         for i, t in enumerate(tensors):
@@ -66,8 +88,15 @@ class FusedSpec:
                 g = by_dtype[t.dtype] = DtypeGroup(t.dtype)
                 self.groups.append(g)
             g.indices.append(i)
+            g.shapes.append(t.shape)
             g.sizes.append(t.numel())
             g.total += t.numel()
+        n = self.n_shards
+        for g in self.groups:
+            g.padded = max(n, -(-g.total // n) * n)
+            g.shard = g.padded // n
+        self.padded = sum(g.padded for g in self.groups) or n
+        self.shard = self.padded // n
         for g in self.groups:
             k = 1
             if max_bytes and max_bytes > 0:
@@ -177,3 +206,106 @@ def fused_allreduce_rank_major_(stacks: Sequence[torch.Tensor], *,
                 nbytes=(hi - lo) * buf.element_size())
             scatter_bucket(impl(buf, op=op), stacks, g, lo, rank_major=True)
     return spec.n_launches
+
+
+# ---------------------------------------------------------------------------
+# ZeRO shard layout (the JAX package's :218, :419-476, on tensor lists)
+# ---------------------------------------------------------------------------
+
+
+def group_flat(tensors: Sequence[torch.Tensor], g: DtypeGroup, *,
+               pad: bool = False, rank_major: bool = False) -> torch.Tensor:
+    """``g``'s tensors concatenated flat in their own dtype, optionally
+    zero-padded to ``g.padded`` (:218); rank-major stacks [n, ...] give
+    [n, total or padded]."""
+    parts = [tensors[i].reshape(tensors[i].shape[0], -1) if rank_major
+             else tensors[i].reshape(-1) for i in g.indices]
+    if pad and g.padded > g.total:
+        parts.append(parts[0].new_zeros(*parts[0].shape[:-1],
+                                        g.padded - g.total))
+    return torch.cat(parts, -1) if len(parts) > 1 else parts[0].clone()
+
+
+def group_flats(stacks: Sequence[torch.Tensor],
+                spec: FusedSpec) -> List[torch.Tensor]:
+    """The padded group flats [n, g.padded] of rank-major stacks, one per
+    dtype group: ZeRO's rank-major gradient input."""
+    return [group_flat(stacks, g, pad=True, rank_major=True)
+            for g in spec.groups]
+
+
+def rank_major_buffers(spec: FusedSpec, n: int, *, device="cuda"):
+    """Zeroed group flats [n, g.padded] (one per dtype group) and, for each
+    tensor of the spec, its [n, *shape] view into them: a rank writes its
+    gradients through the views and the flats are ZeRO's rank-major
+    gradient input with no copy (the padding stays zero).  On the card
+    unless ``device`` says otherwise."""
+    flats = [torch.zeros(n, g.padded, dtype=g.dtype, device=device)
+             for g in spec.groups]
+    views: List[Optional[torch.Tensor]] = [None] * spec.n_tensors
+    for g, flat in zip(spec.groups, flats):
+        off = 0
+        for i, shape, size in zip(g.indices, g.shapes, g.sizes):
+            views[i] = flat[:, off:off + size].view(n, *shape)
+            off += size
+    return flats, views
+
+
+def flatten_tree(tensors: Sequence[torch.Tensor],
+                 spec: FusedSpec) -> torch.Tensor:
+    """Every tensor in one flat vector promoted to ``spec.dtype``,
+    group-major, each group zero-padded to ``g.padded`` (:419)."""
+    parts = [group_flat(tensors, g, pad=True).to(spec.dtype)
+             for g in spec.groups]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _unpack(gf: torch.Tensor, g: DtypeGroup, spec: FusedSpec,
+            out: List) -> None:
+    off = 0
+    for i, shape, size in zip(g.indices, g.shapes, g.sizes):
+        out[i] = gf[off:off + size].reshape(shape).to(spec.dtypes[i])
+        off += size
+
+
+def unflatten_tree(flat: torch.Tensor, spec: FusedSpec) -> List[torch.Tensor]:
+    """Inverse of :func:`flatten_tree`: each tensor sliced out, reshaped and
+    cast back to its dtype, padding dropped (:430)."""
+    out: List = [None] * spec.n_tensors
+    off = 0
+    for g in spec.groups:
+        _unpack(flat[off:off + g.padded], g, spec, out)
+        off += g.padded
+    return out
+
+
+def local_shard(tensors: Sequence[torch.Tensor], spec: FusedSpec,
+                index: int) -> torch.Tensor:
+    """Rank ``index``'s flat promoted shard [spec.shard]: every group's
+    extent ``index``, concatenated in group order (:446) -- the ZeRO shard
+    linearization."""
+    return local_shards(tensors, spec)[index]
+
+
+def local_shards(tensors: Sequence[torch.Tensor],
+                 spec: FusedSpec) -> torch.Tensor:
+    """Every rank's :func:`local_shard` of the same tensors, stacked
+    rank-major: [n_shards, spec.shard]."""
+    parts = [group_flat(tensors, g, pad=True).to(spec.dtype).view(
+        spec.n_shards, g.shard) for g in spec.groups]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, 1)
+
+
+def unflatten_shards(flat: torch.Tensor,
+                     spec: FusedSpec) -> List[torch.Tensor]:
+    """The tensors from the rank-order concatenation of every rank's
+    :func:`local_shard` (``flat``, ``spec.n_shards * spec.shard``
+    elements): each group's extents regrouped into its padded flat, then
+    unflattened (:460)."""
+    rows = flat.reshape(spec.n_shards, spec.shard)
+    out: List = [None] * spec.n_tensors
+    col = 0
+    for g in spec.groups:
+        _unpack(rows[:, col:col + g.shard].reshape(-1), g, spec, out)
+        col += g.shard
+    return out

@@ -72,21 +72,13 @@ struct Args {
   int n, C, D, B;
 };
 
-__device__ __forceinline__ int mod(int a, int n) { return ((a % n) + n) % n; }
-
-// Start of slice b of a slot of E elements split B ways, a multiple of 8
-// elements (16-byte aligned for every dtype here).
-__device__ __forceinline__ long long slice_start(long long E, int B, int b) {
-  return b >= B ? E : (E * b / B) / 8 * 8;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(tmr::kThreads)
 ring_allreduce_kernel(Args a) {
   const int b = blockIdx.x, r = blockIdx.y, dd = blockIdx.z;
   const Dir d = a.d[dd];
   const int n = a.n, C = a.C;
-  const int right = mod(r + d.sign, n), left = mod(r - d.sign, n);
+  const int right = tmr::mod(r + d.sign, n), left = tmr::mod(r - d.sign, n);
   auto flags_of = [&](int rank) {
     return a.flags + ((static_cast<long long>(rank) * a.D + dd) * a.B + b) * 3;
   };
@@ -95,8 +87,8 @@ ring_allreduce_kernel(Args a) {
   unsigned* to_left = flags_of(left);
 
   const long long E = d.E;
-  const long long lo = slice_start(E, a.B, b);
-  const long long len = slice_start(E, a.B, b + 1) - lo;
+  const long long lo = tmr::slice_start(E, a.B, b);
+  const long long len = tmr::slice_start(E, a.B, b + 1) - lo;
   T* o = static_cast<T*>(d.o) + r * d.P + lo;
   const T* x = static_cast<const T*>(d.x) + r * d.P + lo;
   const T* slot_in = static_cast<const T*>(d.comm) + 2 * E * r + lo;
@@ -110,12 +102,12 @@ ring_allreduce_kernel(Args a) {
   auto chunk_of = [&](int s, bool recv) {
     int send_idx, recv_idx;
     if (s < n - 1) {
-      send_idx = mod(r - d.sign * s, n);
-      recv_idx = mod(r - d.sign * (s + 1), n);
+      send_idx = tmr::mod(r - d.sign * s, n);
+      recv_idx = tmr::mod(r - d.sign * (s + 1), n);
     } else {
       const int t = s - (n - 1);
-      send_idx = mod(r + d.sign * (1 - t), n);
-      recv_idx = mod(r - d.sign * t, n);
+      send_idx = tmr::mod(r + d.sign * (1 - t), n);
+      recv_idx = tmr::mod(r - d.sign * t, n);
     }
     return recv ? recv_idx : send_idx;
   };
@@ -155,28 +147,9 @@ ring_allreduce_kernel(Args a) {
 
 template <typename T>
 int launch_typed(Args a, cudaStream_t st) {
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, ring_allreduce_kernel<T>, tmr::kThreads, 0);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (!coop) return static_cast<int>(cudaErrorNotSupported);
-  const long long blocks = static_cast<long long>(a.B) * a.n * a.D;
-  if (blocks > static_cast<long long>(per_sm) * sms)
-    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  e = cudaMemsetAsync(a.flags, 0,
-                      sizeof(unsigned) * 3 * static_cast<size_t>(blocks), st);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  void* params[] = {&a};
-  e = cudaLaunchCooperativeKernel(
-      (const void*)ring_allreduce_kernel<T>, dim3(a.B, a.n, a.D),
-      dim3(tmr::kThreads), params, 0, st);
-  return static_cast<int>(e);
+  return tmr::coop_launch(ring_allreduce_kernel<T>, dim3(a.B, a.n, a.D), a,
+                          a.flags, 3 * static_cast<size_t>(a.B) * a.n * a.D,
+                          st);
 }
 
 // dtype: 0 float32, 1 bfloat16, 2 int32.

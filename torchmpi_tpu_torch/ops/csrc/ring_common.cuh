@@ -1,5 +1,5 @@
-// ring_common.cuh: the flag protocol and the element work shared by the ring
-// allreduce kernels (ring_allreduce.cu).
+// ring_common.cuh: the flag protocol, the element work and the cooperative
+// launch shared by the ring kernels (ring_allreduce.cu, ring_rs_ag.cu).
 //
 // The TPU kernels (torchmpi_tpu/ops/ring.py) move a ring chunk with a remote
 // DMA into the right neighbour's comm slot and count it on a DMA semaphore;
@@ -163,6 +163,49 @@ __device__ __forceinline__ void add_from_peer(T* __restrict__ acc,
     a4[i] = Elem<T>::add4(a4[i], __ldcg(s4 + i));
   for (long long i = nv * V + threadIdx.x; i < len; i += blockDim.x)
     acc[i] = Elem<T>::add(acc[i], __ldcg(slot + i));
+}
+
+// ---------------------------------------------------------------------------
+// Ring arithmetic and the launch
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ int mod(int a, int n) { return ((a % n) + n) % n; }
+
+// Start of slice b of a slot of E elements split B ways, a multiple of 8
+// elements (16-byte aligned for every dtype here).
+__device__ __forceinline__ long long slice_start(long long E, int B, int b) {
+  return b >= B ? E : (E * b / B) / 8 * 8;
+}
+
+// Cooperative launch of ``kernel(args)`` on grid ``grid`` after zeroing
+// ``nflags`` flag words on the stream: every block of the grid is resident
+// at once, so a spin can never starve the block it waits for.  A grid larger
+// than the card holds together is refused (cudaErrorCooperativeLaunchTooLarge),
+// never shrunk.  Returns a CUDA error code.
+template <typename Args>
+int coop_launch(void (*kernel)(Args), dim3 grid, Args args, unsigned* flags,
+                size_t nflags, cudaStream_t st) {
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, 0);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (!coop) return static_cast<int>(cudaErrorNotSupported);
+  const long long blocks =
+      static_cast<long long>(grid.x) * grid.y * grid.z;
+  if (blocks > static_cast<long long>(per_sm) * sms)
+    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  e = cudaMemsetAsync(flags, 0, sizeof(unsigned) * nflags, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  void* params[] = {&args};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), grid,
+                                  dim3(kThreads), params, 0, st);
+  return static_cast<int>(e);
 }
 
 }  // namespace tmr

@@ -1,16 +1,15 @@
-"""Ring allreduce on Hopper: the "pallas" backend's four allreduce kernels.
+"""Ring collectives on Hopper: the "pallas" backend's eight ring kernels.
 
-The PyTorch counterpart of the allreduce part of ``torchmpi_tpu/ops/ring.py``.
-The JAX package runs one ring member per TPU core and reaches its neighbours
-by remote DMA.  Here the ring members are ``n`` ranks whose buffers sit on
-one card, in a rank-major stack ``xs[i]`` = rank i's tensor (the JAX
-package's eager mode, ``torchmpi_tpu/collectives.py`` :772), and one kernel
-launch runs all of them: the peers are device pointers, so the same kernel
-and protocol serve peers over NVLink once their pointers are exchanged
-(ROADMAP queue B).
+The PyTorch counterpart of ``torchmpi_tpu/ops/ring.py``.  The JAX package
+runs one ring member per TPU core and reaches its neighbours by remote DMA.
+Here the ring members are ``n`` ranks whose buffers sit on one card, in a
+rank-major stack ``xs[i]`` = rank i's tensor (the JAX package's eager mode,
+``torchmpi_tpu/collectives.py`` :772), and one kernel launch runs all of
+them: the peers are device pointers, so the same kernels and protocol serve
+peers over NVLink once their pointers are exchanged (ROADMAP queue B).
 
 Four CUDA kernels (``ops/csrc/ring_allreduce.cu``, one C launcher each)
-replace the four Pallas ones:
+replace the four Pallas allreduce kernels:
 
 - ``ring_allreduce`` (row 11): ``_ring_allreduce_kernel`` :265, one
   direction, a whole ring chunk per step;
@@ -21,13 +20,25 @@ replace the four Pallas ones:
 - ``ring_allreduce_bidir_chunked`` (row 7):
   ``_ring_allreduce_bidir_chunked_kernel`` :534, both.
 
-:func:`ring_allreduce` picks one as the JAX entry does (:926-955) from
-``Config.chunk_bytes`` and ``Config.pallas_bidirectional``.  The layouts are
-the JAX package's (``_pad_and_tile``, ``_chunk_plan``, the half split), and
-an element's ring chunk fixes the order of its adds, so each kernel, its
-plain PyTorch version here and the JAX kernels agree bitwise.  The TPU's
-``_effective_plan`` coarsens the plan only under its CPU interpreter; on a
-GPU the executed plan is always ``_chunk_plan``'s.
+Four more (``ops/csrc/ring_rs_ag.cu``) replace the reduce-scatter and
+all-gather kernels that ZeRO's legs run:
+
+- ``ring_reduce_scatter`` (row 13): ``_ring_reduce_scatter_kernel`` :310;
+- ``ring_reduce_scatter_chunked`` (row 9):
+  ``_ring_reduce_scatter_chunked_kernel`` :707;
+- ``ring_all_gather`` (row 14): ``_ring_all_gather_kernel`` :342;
+- ``ring_all_gather_chunked`` (row 10): ``_ring_all_gather_chunked_kernel``
+  :733.
+
+:func:`ring_allreduce`, :func:`ring_reduce_scatter` and
+:func:`ring_all_gather` pick a kernel as the JAX entries do (:926-955,
+:1030-1036, :1076-1079) from ``Config.chunk_bytes`` (and
+``Config.pallas_bidirectional`` for the allreduce).  The layouts are the
+JAX package's (``_pad_and_tile``, ``_chunk_plan``, the half split, the
+per-chunk padding), and an element's ring chunk fixes the order of its adds,
+so each kernel, its plain PyTorch version here and the JAX kernels agree
+bitwise.  The TPU's ``_effective_plan`` coarsens the plan only under its
+CPU interpreter; on a GPU the executed plan is always ``_chunk_plan``'s.
 
 Every wrapper takes its plain version when, and only when, the tensor it
 was given lies on the CPU; on a CUDA tensor it launches its kernel or
@@ -51,9 +62,11 @@ _LANES = 128
 _SUBLANES = 8
 _TILE = _LANES * _SUBLANES
 
-# Kernel names, in kernel-table order (rows 7, 8, 11, 12).
+# Kernel names, in kernel-table order (rows 7-14).
 KERNELS = ("ring_allreduce_bidir_chunked", "ring_allreduce_chunked",
-           "ring_allreduce", "ring_allreduce_bidir")
+           "ring_reduce_scatter_chunked", "ring_all_gather_chunked",
+           "ring_allreduce", "ring_allreduce_bidir", "ring_reduce_scatter",
+           "ring_all_gather")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
@@ -139,6 +152,43 @@ def schedule(nelems: int, n: int, dtype: torch.dtype, *, chunk_bytes: int,
     return "ring_allreduce", ()
 
 
+def _rs_step_indices(my: int, n: int, s: int) -> Tuple[int, int]:
+    """(send chunk, recv chunk) of rank ``my`` at step ``s`` of the
+    reduce-scatter: the classic ring shifted by one, so that rank i ends
+    owning ring chunk i (ring.py :430)."""
+    return (my - s - 1) % n, (my - s - 2) % n
+
+
+def _ag_step_indices(my: int, n: int, t: int) -> Tuple[int, int]:
+    """(send chunk, recv chunk) of rank ``my`` at step ``t`` of the
+    all-gather: the forward schedule, the allreduce's reduce-phase formula
+    (ring.py :349-366, :749-756)."""
+    return _step_indices(my, n, t, +1)
+
+
+def schedule_reduce_scatter(nelems: int, n: int, dtype: torch.dtype, *,
+                            chunk_bytes: int):
+    """(kernel name, plan arguments) of the ring reduce-scatter of ``n``
+    ranks' ``nelems`` elements each (the JAX entry's choice, :1030-1036):
+    a ring chunk above one ``chunk_bytes`` slot streams through the
+    chunked kernel, otherwise the resident kernel runs."""
+    sub_elems, C = _chunk_plan(nelems, n, dtype, chunk_bytes)
+    if C > 1:
+        return "ring_reduce_scatter_chunked", (sub_elems, C)
+    return "ring_reduce_scatter", ()
+
+
+def schedule_all_gather(nelems: int, n: int, dtype: torch.dtype, *,
+                        chunk_bytes: int):
+    """(kernel name, plan arguments) of the ring all-gather of ``n``
+    shards of ``nelems`` elements: planned on the gathered ``n * nelems``
+    elements (:1076), chunked when that plan is (:1079)."""
+    sub_elems, C = _chunk_plan(nelems * n, n, dtype, chunk_bytes)
+    if C > 1:
+        return "ring_all_gather_chunked", (sub_elems, C)
+    return "ring_all_gather", ()
+
+
 # ---------------------------------------------------------------------------
 # The rows: padding, and the plain schedule
 # ---------------------------------------------------------------------------
@@ -186,6 +236,18 @@ _SIGNATURES = {
     "ring_allreduce_bidir_chunked": (
         "tm_ring_allreduce_bidir_chunked",
         [_I] + [_P] * 7 + [_LL, _LL, _I, _I, _I, _P]),
+    # dtype, x, w, out, comm, flags, per, E, [C,] n, B, stream
+    "ring_reduce_scatter": ("tm_ring_reduce_scatter",
+                            [_I] + [_P] * 5 + [_LL, _LL, _I, _I, _P]),
+    "ring_reduce_scatter_chunked": (
+        "tm_ring_reduce_scatter_chunked",
+        [_I] + [_P] * 5 + [_LL, _LL, _I, _I, _I, _P]),
+    # dtype, x, out, comm, flags, per, E, [C,] n, B, stream
+    "ring_all_gather": ("tm_ring_all_gather",
+                        [_I] + [_P] * 4 + [_LL, _LL, _I, _I, _P]),
+    "ring_all_gather_chunked": ("tm_ring_all_gather_chunked",
+                                [_I] + [_P] * 4 + [_LL, _LL, _I, _I, _I,
+                                                   _P]),
 }
 
 
@@ -217,14 +279,19 @@ def _launch(name: str, xs, C: int):
         args = (xs[0], outs[0], comms[0], flags, P[0], slots[0], C, n, B)
     else:
         args = (*xs, *outs, *comms, flags, P[0], slots[0], C, n, B)
+    _call("ring_allreduce", name, args, x0)
+    return outs
+
+
+def _call(lib: str, name: str, args, x: torch.Tensor) -> None:
+    """Call row ``name``'s C launcher (in library ``lib``) with ``args`` on
+    the current stream of ``x``'s card, and count the launch."""
     sym, argtypes = _SIGNATURES[name]
     vals = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(dev):
-        _build.launch("ring_allreduce", sym, argtypes,
-                      _DTYPE_CODE[x0.dtype], *vals,
-                      torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(x.device):
+        _build.launch(lib, sym, argtypes, _DTYPE_CODE[x.dtype], *vals,
+                      torch.cuda.current_stream(x.device).cuda_stream)
     LAUNCHES[name] += 1
-    return outs
 
 
 def _check(flat: torch.Tensor) -> None:
@@ -232,7 +299,7 @@ def _check(flat: torch.Tensor) -> None:
         raise ValueError(f"expected a rank-major stack [n >= 2, L], got "
                          f"{tuple(flat.shape)}")
     if flat.dtype not in SUPPORTED_DTYPES:
-        raise TypeError(f"ring allreduce supports float32 / bfloat16 / "
+        raise TypeError(f"the ring kernels support float32 / bfloat16 / "
                         f"int32, got {flat.dtype}")
     if flat.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {flat.device}")
@@ -308,23 +375,187 @@ def allreduce_bidir_chunked_plain(flat, sub_elems: int, C: int):
                 plain=True)
 
 
+# ---------------------------------------------------------------------------
+# Reduce-scatter and all-gather rows
+# ---------------------------------------------------------------------------
+
+
+def _slots(per: int, plan) -> Tuple[int, int]:
+    """(E, C) of ring chunks of ``per`` elements: a chunked row's plan
+    (each chunk padded to C sub_elems, :765-767, :799-801), or one slot of
+    ``per`` padded to TILE for a resident row (:1037-1041, :1087-1091)."""
+    E, C = plan if plan else (-(-per // _TILE) * _TILE, 1)
+    if not (plan and C < 2) and (C - 1) * E < per <= C * E:
+        return E, C
+    raise ValueError(f"plan (sub_elems {E}, C {C}) does not fit ring chunks "
+                     f"of {per} elements")
+
+
+def _pad_chunks(x: torch.Tensor, total: int) -> torch.Tensor:
+    """``x`` [R, m, per] zero-padded on the right to a new [R, m, total]."""
+    out = x.new_zeros(*x.shape[:2], total)
+    out[..., :x.shape[2]] = x
+    return out
+
+
+def _rs_plain(w: torch.Tensor) -> torch.Tensor:
+    """The reduce-scatter schedule step by step over padded chunks ``w``
+    [n, n, P] (updated in place): at step s every rank's w[recv] takes its
+    left neighbour's w[recv] added to it.  No rank updates at step s a
+    chunk that some rank reads at step s, so updating rank by rank is the
+    simultaneous step.  Returns each rank's own chunk, [n, P]."""
+    n = w.shape[0]
+    for s in range(n - 1):
+        for r in range(n):
+            _, recv = _rs_step_indices(r, n, s)
+            w[r, recv] += w[(r - 1) % n, recv]
+    idx = torch.arange(n, device=w.device)
+    return w[idx, idx]
+
+
+def _ag_plain(x: torch.Tensor) -> torch.Tensor:
+    """The all-gather schedule step by step over padded shards ``x`` [n, P]:
+    rank r's shard goes to o[r, r], then at step t every rank's o[recv] is
+    copied from its left neighbour's.  Returns o [n, n, P]."""
+    n = x.shape[0]
+    o = x.new_zeros(n, *x.shape)
+    idx = torch.arange(n, device=x.device)
+    o[idx, idx] = x
+    for t in range(n - 1):
+        for r in range(n):
+            _, recv = _ag_step_indices(r, n, t)
+            o[r, recv] = o[(r - 1) % n, recv]
+    return o
+
+
+def _launch_rs_ag(name: str, x: torch.Tensor, per: int, E: int, C: int):
+    """Launch row ``name`` on ``x`` (reduce-scatter: [n, n per] inputs;
+    all-gather: [n, per] shards, on one card) and return its output;
+    raise on a refused launch."""
+    n = x.shape[0]
+    B = _blocks(x.device, n, 1, E)
+    comm = x.new_empty(n, 2, E)
+    # Zeroed by the launcher on the stream, before the kernel.
+    flags = torch.empty(n * B * 3, dtype=torch.int32, device=x.device)
+    if name.startswith("ring_reduce_scatter"):
+        out = x.new_empty(n, per)
+        args = (x, torch.empty_like(x), out, comm, flags, per, E)
+    else:
+        out = x.new_empty(n, n, per)
+        args = (x, out, comm, flags, per, E)
+    args += ((C,) if C > 1 else ()) + (n, B)
+    _call("ring_rs_ag", name, args, x)
+    return out
+
+
+def _run_rs(name: str, flat: torch.Tensor, plan=(), *,
+            plain: bool) -> torch.Tensor:
+    """Row ``name`` on ``flat`` [n, L], rank r's elements in row r, L a
+    multiple of n: returns [n, L / n], row r the sum over ranks of ring
+    chunk r.  The plain version pads each chunk as the TPU does; the kernel
+    stores no padding (zeros add nothing)."""
+    _check(flat)
+    n, L = flat.shape
+    if L % n:
+        raise ValueError(f"reduce_scatter needs a length divisible by the "
+                         f"{n} ranks, got {L}")
+    per = L // n
+    if per == 0:
+        return flat.new_empty(n, 0)
+    E, C = _slots(per, plan)
+    if plain:
+        return _rs_plain(_pad_chunks(flat.reshape(n, n, per), C * E))[:, :per]
+    return _launch_rs_ag(name, flat.contiguous(), per, E, C)
+
+
+def _run_ag(name: str, shards: torch.Tensor, plan=(), *,
+            plain: bool) -> torch.Tensor:
+    """Row ``name`` on ``shards`` [n, L], rank r's shard in row r: returns
+    [n, n, L], every rank's slice the stack of all shards."""
+    _check(shards)
+    n, per = shards.shape
+    if per == 0:
+        return shards.new_empty(n, n, 0)
+    E, C = _slots(per, plan)
+    if plain:
+        return _ag_plain(_pad_to(shards, C * E))[..., :per]
+    return _launch_rs_ag(name, shards.contiguous(), per, E, C)
+
+
+def reduce_scatter_resident(flat):
+    """Row 13, ``ring_reduce_scatter``."""
+    return _run_rs("ring_reduce_scatter", flat,
+                   plain=flat.device.type == "cpu")
+
+
+def reduce_scatter_resident_plain(flat):
+    return _run_rs("ring_reduce_scatter", flat, plain=True)
+
+
+def reduce_scatter_chunked(flat, sub_elems: int, C: int):
+    """Row 9, ``ring_reduce_scatter_chunked``."""
+    return _run_rs("ring_reduce_scatter_chunked", flat, (sub_elems, C),
+                   plain=flat.device.type == "cpu")
+
+
+def reduce_scatter_chunked_plain(flat, sub_elems: int, C: int):
+    return _run_rs("ring_reduce_scatter_chunked", flat, (sub_elems, C),
+                   plain=True)
+
+
+def all_gather_resident(shards):
+    """Row 14, ``ring_all_gather``."""
+    return _run_ag("ring_all_gather", shards,
+                   plain=shards.device.type == "cpu")
+
+
+def all_gather_resident_plain(shards):
+    return _run_ag("ring_all_gather", shards, plain=True)
+
+
+def all_gather_chunked(shards, sub_elems: int, C: int):
+    """Row 10, ``ring_all_gather_chunked``."""
+    return _run_ag("ring_all_gather_chunked", shards, (sub_elems, C),
+                   plain=shards.device.type == "cpu")
+
+
+def all_gather_chunked_plain(shards, sub_elems: int, C: int):
+    return _run_ag("ring_all_gather_chunked", shards, (sub_elems, C),
+                   plain=True)
+
+
 WRAPPERS = {
     "ring_allreduce_bidir_chunked": allreduce_bidir_chunked,
     "ring_allreduce_chunked": allreduce_chunked,
+    "ring_reduce_scatter_chunked": reduce_scatter_chunked,
+    "ring_all_gather_chunked": all_gather_chunked,
     "ring_allreduce": allreduce_resident,
     "ring_allreduce_bidir": allreduce_bidir_resident,
+    "ring_reduce_scatter": reduce_scatter_resident,
+    "ring_all_gather": all_gather_resident,
 }
 PLAINS = {
     "ring_allreduce_bidir_chunked": allreduce_bidir_chunked_plain,
     "ring_allreduce_chunked": allreduce_chunked_plain,
+    "ring_reduce_scatter_chunked": reduce_scatter_chunked_plain,
+    "ring_all_gather_chunked": all_gather_chunked_plain,
     "ring_allreduce": allreduce_resident_plain,
     "ring_allreduce_bidir": allreduce_bidir_resident_plain,
+    "ring_reduce_scatter": reduce_scatter_resident_plain,
+    "ring_all_gather": all_gather_resident_plain,
 }
 
 
 # ---------------------------------------------------------------------------
 # The entry point
 # ---------------------------------------------------------------------------
+
+
+def _check_entry_dtype(xs: torch.Tensor, what: str) -> None:
+    if xs.dtype not in SUPPORTED_DTYPES:
+        raise TypeError(f"ring {what} supports float32 / bfloat16 / int32, "
+                        f"got {xs.dtype} (use the xla backend for other "
+                        f"dtypes)")
 
 
 def _allreduce(xs: torch.Tensor, op: str, rows) -> torch.Tensor:
@@ -334,10 +565,7 @@ def _allreduce(xs: torch.Tensor, op: str, rows) -> torch.Tensor:
     if n == 1:
         out = xs.clone()
     else:
-        if xs.dtype not in SUPPORTED_DTYPES:
-            raise TypeError(f"ring allreduce supports float32 / bfloat16 / "
-                            f"int32, got {xs.dtype} (use the xla backend "
-                            f"for other dtypes)")
+        _check_entry_dtype(xs, "allreduce")
         flat = xs.reshape(n, -1)
         cfg = runtime.effective_config()
         name, plan = schedule(flat.shape[1], n, xs.dtype,
@@ -362,3 +590,63 @@ def ring_allreduce(xs: torch.Tensor, *, op: str = "sum") -> torch.Tensor:
 def ring_allreduce_plain(xs: torch.Tensor, *, op: str = "sum"):
     """:func:`ring_allreduce` through the plain versions, on any device."""
     return _allreduce(xs, op, PLAINS)
+
+
+def _reduce_scatter(xs: torch.Tensor, op: str, rows) -> torch.Tensor:
+    if op != "sum":
+        raise KeyError(f"ring reduce_scatter supports sum, not {op!r}")
+    n = xs.shape[0]
+    if xs.dim() < 2 or xs.shape[1] % n:
+        raise ValueError(f"reduce_scatter needs [n, k, ...] with k divisible "
+                         f"by the {n} ranks, got {tuple(xs.shape)}")
+    if n == 1:
+        return xs.clone()
+    _check_entry_dtype(xs, "reduce_scatter")
+    flat = xs.reshape(n, -1)
+    name, plan = schedule_reduce_scatter(
+        flat.shape[1], n, xs.dtype,
+        chunk_bytes=runtime.effective_config().chunk_bytes)
+    return rows[name](flat, *plan).reshape(n, xs.shape[1] // n,
+                                           *xs.shape[2:])
+
+
+def ring_reduce_scatter(xs: torch.Tensor, *, op: str = "sum") -> torch.Tensor:
+    """Reduce-scatter over the leading (rank) axis of ``xs`` [n, k, ...], k
+    divisible by n: slice r of the result [n, k / n, ...] is rank r's tile
+    of the sum over ranks (``lax.psum_scatter(tiled=True)``, sum only, JAX
+    :994).  The selector's ``"pallas"`` implementation of the rank-major
+    reduce-scatter; the kernel is chosen by :func:`schedule_reduce_scatter`
+    from the active Config.  A ring of one returns a copy (:1028)."""
+    return _reduce_scatter(xs, op, WRAPPERS)
+
+
+def ring_reduce_scatter_plain(xs: torch.Tensor, *, op: str = "sum"):
+    """:func:`ring_reduce_scatter` through the plain versions, on any
+    device."""
+    return _reduce_scatter(xs, op, PLAINS)
+
+
+def _all_gather(shards: torch.Tensor, rows) -> torch.Tensor:
+    n = shards.shape[0]
+    if n == 1:
+        return shards[:, None].clone()
+    _check_entry_dtype(shards, "all_gather")
+    flat = shards.reshape(n, -1)
+    name, plan = schedule_all_gather(
+        flat.shape[1], n, shards.dtype,
+        chunk_bytes=runtime.effective_config().chunk_bytes)
+    return rows[name](flat, *plan).reshape(n, *shards.shape)
+
+
+def ring_all_gather(shards: torch.Tensor) -> torch.Tensor:
+    """All-gather over the leading (rank) axis of ``shards`` [n, ...]: every
+    slice of the result [n, n, ...] is the stack of all ranks' shards
+    (``lax.all_gather(tiled=False)``, JAX :1063).  The selector's
+    ``"pallas"`` implementation of the rank-major all-gather; the kernel is
+    chosen by :func:`schedule_all_gather` from the active Config."""
+    return _all_gather(shards, WRAPPERS)
+
+
+def ring_all_gather_plain(shards: torch.Tensor) -> torch.Tensor:
+    """:func:`ring_all_gather` through the plain versions, on any device."""
+    return _all_gather(shards, PLAINS)

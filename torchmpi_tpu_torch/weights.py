@@ -1,4 +1,5 @@
-"""Load a JAX ``TransformerLM`` parameter tree into the port's module.
+"""Load a JAX ``TransformerLM`` parameter tree, or its ZeRO shards and
+optimizer state, into the port's module.
 
 The flax tree of ``torchmpi_tpu.models.TransformerLM`` holds
 ``Embed_0/embedding`` [V, E], ``pos_embed/embedding`` (learned positions),
@@ -8,14 +9,26 @@ Dense kernels are [in, out]; the attention projections are DenseGeneral
 kernels [E, H, D] (q), [E, 2, Hkv, D] (kv, with k at index 0 of axis 1) and
 [E, 3, H, D] (qkv).  PyTorch's ``nn.Linear`` keeps [out, in], so every kernel
 is flattened to two axes and transposed; biases are flattened.
+
+ZeRO state (:func:`from_flax_zero_shards`, :func:`from_optax_zero_state`):
+the JAX package's ZeRO flattens the flax tree in its leaf order (dict keys
+sorted at every level) into one flat vector per dtype group, each padded to
+a multiple of the n ranks, and rank i holds every group's extent i
+(``fusion.local_shard``).  The converters undo that layout on numpy
+arrays, map each leaf as above, and lay the port's parameters
+(``model.named_parameters()`` order, [out, in] kernels) out again as the
+port's ZeRO shards [n, shard] (``fusion.local_shards``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
+
+from . import fusion
+from .optim import AdamState, TraceState
 
 
 def _linear(node: Mapping, prefix: str, out: Dict[str, np.ndarray]) -> None:
@@ -72,3 +85,88 @@ def from_flax_params(params: Mapping,
         out[name] = torch.tensor(arr, dtype=torch.float32,
                                  device=ref.device)
     return out
+
+
+def _flax_leaves(tree: Mapping, path: Tuple[str, ...] = ()
+                 ) -> List[Tuple[Tuple[str, ...], np.ndarray]]:
+    """(path, array) of every leaf, in the JAX leaf order of a nested dict
+    (keys sorted at every level)."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, Mapping):
+            out += _flax_leaves(v, path + (k,))
+        else:
+            out.append((path + (k,), np.asarray(v)))
+    return out
+
+
+def _unflatten_flax(flat: np.ndarray, params: Mapping, n_shards: int):
+    """The flax tree (nested dicts of numpy arrays) held by the JAX ZeRO
+    shards ``flat`` (rank-order concatenation, [n * shard] or [n, shard])
+    of ``params``' layout: dtype groups in first-seen leaf order, each padded
+    to a multiple of ``n_shards`` (JAX ``FusedSpec``,
+    ``fusion.unflatten_shards``)."""
+    leaves = _flax_leaves(params)
+    groups: Dict[np.dtype, List[int]] = {}
+    for i, (_, a) in enumerate(leaves):
+        groups.setdefault(a.dtype, []).append(i)
+    pads = {dt: max(n_shards, -(-sum(leaves[i][1].size for i in idx)
+                                // n_shards) * n_shards)
+            for dt, idx in groups.items()}
+    shard = sum(pads.values()) // n_shards
+    rows = np.asarray(flat).reshape(n_shards, shard)
+    tree: Dict = {}
+    col = 0
+    for dt, idx in groups.items():
+        g = pads[dt] // n_shards
+        gf = rows[:, col:col + g].reshape(-1)
+        col += g
+        off = 0
+        for i in idx:
+            path, a = leaves[i]
+            node = tree
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = gf[off:off + a.size].reshape(a.shape).astype(
+                a.dtype)
+            off += a.size
+    return tree
+
+
+def from_flax_zero_shards(flat, params: Mapping, model: torch.nn.Module,
+                          n_shards: int) -> torch.Tensor:
+    """The port's ZeRO shards [n_shards, shard] (float32, on the model's
+    device) of the values in the JAX ZeRO shards ``flat`` of the flax tree
+    ``params`` (as ``zero.shard_params`` returns them, or a parameter-shaped
+    optimizer-state leaf such as Adam's ``mu``).  The shards follow the
+    port's layout: ``model.named_parameters()`` order, [out, in]
+    kernels."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    state = from_flax_params(_unflatten_flax(flat, params, n_shards), model)
+    tensors = [state[name] for name, _ in model.named_parameters()]
+    return fusion.local_shards(tensors,
+                               fusion.FusedSpec(tensors, n_shards,
+                                                max_bytes=0))
+
+
+def from_optax_zero_state(state, params: Mapping, model: torch.nn.Module,
+                          n_shards: int):
+    """The port's ``optim`` state over [n_shards, shard] shards from the
+    optax state of the JAX package's ZeRO (``zero.init`` / ``zero.update``
+    over the flat shards of ``params``): Adam's ``(count, mu, nu)`` becomes
+    an :class:`AdamState`, a momentum ``trace`` a :class:`TraceState`.
+    ``state`` is the optax state with numpy or JAX leaves (``optax.adam``
+    and ``optax.sgd`` chain it with an empty state, which is skipped)."""
+    parts = state if isinstance(state, (tuple, list)) else (state,)
+    for part in parts:
+        if hasattr(part, "mu") and hasattr(part, "nu"):
+            return AdamState(
+                int(np.asarray(part.count)),
+                from_flax_zero_shards(part.mu, params, model, n_shards),
+                from_flax_zero_shards(part.nu, params, model, n_shards))
+        if hasattr(part, "trace"):
+            return TraceState(
+                from_flax_zero_shards(part.trace, params, model, n_shards))
+    raise ValueError(f"no Adam or momentum state in {type(state).__name__}")
