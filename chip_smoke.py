@@ -9,7 +9,7 @@ JAX package.  In order it:
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the kernels from ops/csrc with nvcc (sm_90a, one compiler per
    source, in parallel) into build/torch_kernels/: fourteen kernels in
-   eight sources;
+   nine sources;
 3. kernel phases: at the flagship LM's attention shapes (B 4, T 2048, 16 q /
    4 kv heads, head_dim 128, causal, window 1024, float32) runs each flash
    kernel against its plain PyTorch version on the same seeded inputs, and
@@ -21,10 +21,12 @@ JAX package.  In order it:
    two-call loss (bf16 x @ w, then cross_entropy; forward and backward) timed
    beside them as context only; then the four ring-allreduce kernels on 4
    ranks' float32 buffers on the card at the flagship's gradient bucket
-   (8,249,691 elements a rank), each under the chunk_bytes /
-   pallas_bidirectional config that maps the bucket onto it, bitwise
-   against the plain ring and against a repeat call, plus a bfloat16 and an
-   int32 pass at 300,001 elements; then the four ring reduce-scatter and
+   (8,249,691 elements a rank, rows 16 bytes apart as the fused sync lays
+   a bucket out), each under the chunk_bytes / pallas_bidirectional config
+   that maps the bucket onto it, bitwise against the plain ring and
+   against a repeat call, plus a bfloat16 and an int32 pass at 300,001
+   elements (row 8, a direct reduction, also against its own fold and on
+   contiguous rows, its element path); then the four ring reduce-scatter and
    all-gather kernels at the flagship's ZeRO shapes (4 ranks, the
    reduce-scatter of 486,731,776 float32 a rank, the all-gather of the
    121,682,944-element shards) under chunk_bytes 4 MiB (the streamed rows)
@@ -50,7 +52,9 @@ JAX package.  In order it:
    config (row 8 of the kernel table), one each under the configs of rows
    7, 11 and 12; every sync bitwise equal to the plain ring on the same
    stacks, the first within 2e-2 (rel. L2) of the batch-4 gradients, the
-   loss falling, 0 host syncs in a step, all four ring kernels launched;
+   loss falling, 0 host syncs in a step, all four ring kernels launched,
+   every row-8 launch on its 16-byte path; then one more sync's device
+   time by kernel (torch.profiler);
 8. ZeRO phase (the main path of the ZeRO slice): the flagship as ZeRO data
    parallelism of 4 ranks on the one card with Adam (lr 1e-3): the 4 ranks'
    gradients in one [4, 486,731,776] stack, 3 ZeRO-1 steps under the
@@ -60,8 +64,9 @@ JAX package.  In order it:
    equal, each ZeRO-3 update equal to a ZeRO-1 update on the same stack,
    the first ZeRO-1 step within 1e-4 (rel. L2 of the updates) of a
    replicated Adam step from the same state (every step's gap reported),
-   the loss falling, 0 host syncs in a step, all
-   four kernels launched;
+   the loss falling, 0 host syncs in a step, all four kernels launched,
+   every row-9 launch on its 16-byte path; the peak device memory of each
+   leg, and one more update's device time by kernel (torch.profiler);
 9. prints the kernels' summary line, then {"ok": true, "device": ...}.
 
 Each phase prints one JSON line.  Any failed check raises and the script
@@ -127,6 +132,15 @@ ZERO_ROWS = {
     "resident": ("ring_reduce_scatter", "ring_all_gather"),
 }
 ZERO_SMALL = 300_000  # elements per rank of the bf16 and int32 passes
+# Recorded constants, not measured here: the times and figures of the
+# ring-walking kernels the two direct rows (ring_direct.cu) replaced, at the
+# same shapes and by the same time_ms (PERF.md's kernel table and section
+# 5, H100 80GB HBM3 at 700 W).  The output prints them under ring_recorded_*
+# keys (earlier_ms in the kernel rows).
+RING_RECORDED_MS = {"ring_allreduce_chunked": 0.731,
+                    "ring_reduce_scatter_chunked": 23.480}
+RING_RECORDED_DP_SYNC_MS = 60.5
+RING_RECORDED_ZERO_PEAK_GB = 33.20
 ZERO_LR = 1e-3  # Adam, as benchmarks/memory_bench.py :58
 ZERO_RTOL = 1e-4  # ZeRO-1 vs replicated Adam: rel. L2 of the updates
 
@@ -146,13 +160,13 @@ SOURCES = {
     "ring_allreduce_bidir_chunked": (
         "torchmpi_tpu_torch/ops/csrc/ring_allreduce.cu",
         "torchmpi_tpu/ops/ring.py:534"),
-    "ring_allreduce_chunked": ("torchmpi_tpu_torch/ops/csrc/ring_allreduce.cu",
+    "ring_allreduce_chunked": ("torchmpi_tpu_torch/ops/csrc/ring_direct.cu",
                                "torchmpi_tpu/ops/ring.py:511"),
     "ring_allreduce": ("torchmpi_tpu_torch/ops/csrc/ring_allreduce.cu",
                        "torchmpi_tpu/ops/ring.py:265"),
     "ring_allreduce_bidir": ("torchmpi_tpu_torch/ops/csrc/ring_allreduce.cu",
                              "torchmpi_tpu/ops/ring.py:203"),
-    "ring_reduce_scatter_chunked": ("torchmpi_tpu_torch/ops/csrc/ring_rs_ag.cu",
+    "ring_reduce_scatter_chunked": ("torchmpi_tpu_torch/ops/csrc/ring_direct.cu",
                                     "torchmpi_tpu/ops/ring.py:707"),
     "ring_all_gather_chunked": ("torchmpi_tpu_torch/ops/csrc/ring_rs_ag.cu",
                                 "torchmpi_tpu/ops/ring.py:733"),
@@ -190,6 +204,27 @@ def time_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def device_breakdown(torch, fn, top: int = 8) -> dict:
+    """Device time of one call of ``fn`` by kernel name (torch.profiler):
+    the total and the ``top`` largest names with their call counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        t = getattr(e, "cuda_time_total", 0.0) if t is None else t
+        if t > 0:
+            rows.append((e.key[:100], e.count, t / 1e3))
+    rows.sort(key=lambda r: -r[2])
+    return {"total_ms": sum(r[2] for r in rows),
+            "top": [{"kernel": k, "calls": c, "ms": ms}
+                    for k, c, ms in rows[:top]]}
+
+
 def nvidia_smi(query: str) -> str:
     """First card's ``--query-gpu=<query>`` as nvidia-smi prints it."""
     return subprocess.run(
@@ -220,7 +255,7 @@ def ptxas_summary(log: str) -> dict:
         m = re.search(r"entry function '(.*?)'", ln)
         if m:
             d = re.search(r"ILi(\d+)E", m.group(1))
-            name = re.search(r"(?:flash|xent|ring)_\w*?kernel(I\w+?E)?",
+            name = re.search(r"(?:flash|xent|ring)_\w*?kernel(I\w*?EE)?",
                              m.group(1))
             key = f"D{d.group(1)}" if d else (name.group(0) if name
                                               else m.group(1))
@@ -554,14 +589,24 @@ def ring_kernel_phase(torch, ring, dev):
     flagship's gradient bucket, float32, each with the config that maps the
     bucket onto it; each kernel against its plain version, bitwise, and
     bitwise on a repeat call; then a bfloat16 and an int32 pass at a small
-    size."""
+    size.  The buffers' rows sit 16 bytes apart, as the fused rank-major
+    sync lays a bucket out (fusion.gather_bucket); row 8 is also run on
+    contiguous rows, which its kernel reads element by element."""
     n, L = RING_N, RING_BUCKET
+
+    def rows16(t):
+        """[n, m] on rows padded to 16 bytes (a view)."""
+        v = 16 // t.element_size()
+        out = t.new_empty(n, -(-t.shape[1] // v) * v)[:, :t.shape[1]]
+        return out.copy_(t)
+
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
-    x = torch.randn(n, L, generator=g, device=dev)
-    small = {dt: (torch.randn(n, RING_SMALL, generator=g, device=dev).to(dt)
-                  if dt.is_floating_point else
-                  torch.randint(-2 ** 30, 2 ** 30, (n, RING_SMALL),
-                                generator=g, device=dev, dtype=dt))
+    x = rows16(torch.randn(n, L, generator=g, device=dev))
+    small = {dt: rows16(torch.randn(n, RING_SMALL, generator=g,
+                                    device=dev).to(dt)
+                        if dt.is_floating_point else
+                        torch.randint(-2 ** 30, 2 ** 30, (n, RING_SMALL),
+                                      generator=g, device=dev, dtype=dt))
              for dt in (torch.bfloat16, torch.int32)}
     rows = []
     for name, (cb, bidir) in RING_CONFIGS.items():
@@ -571,10 +616,31 @@ def ring_kernel_phase(torch, ring, dev):
               f"{picked}")
         kern = lambda: ring.WRAPPERS[name](x, *plan)  # noqa: E731
         plain = lambda: ring.PLAINS[name](x, *plan)  # noqa: E731
+        direct = name in ring.DIRECT
+        vec0 = dict(ring.VECTOR_LAUNCHES)
         out, again, ref = kern(), kern(), plain()
         torch.cuda.synchronize()
         bitwise = torch.equal(out, ref) and torch.equal(out, again)
         err = max_err(out, ref)
+        extra = {"design": "ring"}
+        if direct:
+            # The direct kernel: its own torch fold, its 16-byte path, and
+            # contiguous rows (the element path) beside it.
+            vec = ring.VECTOR_LAUNCHES[name] - vec0[name]
+            xc = x.contiguous()
+            elem = ring.WRAPPERS[name](xc, *plan)
+            torch.cuda.synchronize()
+            extra = {
+                "design": "direct", "vector_launches": vec,
+                "launches_checked": 2,
+                "fold_bitwise": torch.equal(
+                    out, ring.allreduce_direct_plain(x, *plan)),
+                "element_path_bitwise": torch.equal(elem, ref) and (
+                    ring.VECTOR_LAUNCHES[name] - vec0[name] == vec),
+                "element_path_ms": time_ms(torch, lambda: ring.WRAPPERS[
+                    name](xc, *plan)),
+                "earlier_ms": RING_RECORDED_MS[name]}
+            del xc, elem
         del out, again, ref
         passes = {}
         for dt, xs in small.items():
@@ -594,10 +660,12 @@ def ring_kernel_phase(torch, ring, dev):
         # one card moves more: per rank of S padded bytes, the staging copy
         # 2 S, each of the n - 1 reduce steps 5 S / n (own chunk read, the
         # peer's slot written, the slot read, own chunk read and written),
-        # each of the n - 1 gather steps 4 S / n.
+        # each of the n - 1 gather steps 4 S / n.  A direct row moves the
+        # function's bytes.
         S = 4 * ring_padded_elems(ring, name, L, plan)
         fn_bytes = 2 * n * L * 4
-        ring_bytes = n * S * (2 + 9 * (n - 1) / n)
+        ring_bytes = fn_bytes if direct else n * S * (2 + 9 * (n - 1) / n)
+        ms = time_ms(torch, kern)
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name][0],
             "replaces": SOURCES[name][1], "max_abs_err": err,
@@ -606,13 +674,15 @@ def ring_kernel_phase(torch, ring, dev):
             "chunk_bytes": cb, "bidirectional": bidir,
             "plan": ({"sub_elems": plan[0], "C": plan[1]} if plan
                      else {"sub_elems": S // 4 // n, "C": 1}),
-            "ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
+            "ms": ms, "plain_ms": time_ms(torch, plain),
             "bound_ms": fn_bytes / PEAK_HBM_BYTES * 1e3, "bound_by": "bytes",
-            "bytes": fn_bytes, "schedule_bytes": ring_bytes,
+            "bytes": fn_bytes, "achieved_tb_s": fn_bytes / ms / 1e9,
+            "schedule_bytes": ring_bytes,
             "schedule_bound_ms": ring_bytes / PEAK_HBM_BYTES * 1e3,
             # The stock rank-major route computes the same function: the
             # rank-axis sum, copied to every rank.
             "library_ms": time_ms(torch, lambda: x.sum(0).expand_as(x).clone()),
+            **extra,
         })
     emit({"phase": "ring_kernels", "ranks": n, "elems_per_rank": L,
           "dtype": "float32", "small_elems_per_rank": RING_SMALL,
@@ -621,7 +691,21 @@ def ring_kernel_phase(torch, ring, dev):
         check(row["bitwise"], f"{row['name']}: kernel != plain or repeat")
         for dt, ok in row["small_passes_bitwise"].items():
             check(ok, f"{row['name']} {dt}: kernel != plain")
+        check_direct(row)
     return rows
+
+
+def check_direct(row) -> None:
+    """A direct row's extra checks: its fold, its element path, and every
+    launch on the main path's aligned rows on the 16-byte path."""
+    if row["design"] != "direct":
+        return
+    check(row["fold_bitwise"], f"{row['name']}: kernel != its torch fold")
+    check(row.get("element_path_bitwise", True),
+          f"{row['name']}: element path != plain ring")
+    check(row["vector_launches"] == row["launches_checked"],
+          f"{row['name']}: {row['vector_launches']} of "
+          f"{row['launches_checked']} launches on the 16-byte path")
 
 
 def ring_rs_ag_kernel_phase(torch, ring, dev):
@@ -655,6 +739,8 @@ def ring_rs_ag_kernel_phase(torch, ring, dev):
                   f"{picked}")
             kern = lambda: ring.WRAPPERS[name](x, *plan)  # noqa: E731
             plain = lambda: ring.PLAINS[name](x, *plan)  # noqa: E731
+            direct = name in ring.DIRECT
+            vec0 = ring.VECTOR_LAUNCHES.get(name, 0)
             out, again = kern(), kern()
             torch.cuda.synchronize()
             repeat = torch.equal(out, again)
@@ -663,6 +749,17 @@ def ring_rs_ag_kernel_phase(torch, ring, dev):
             bitwise = torch.equal(out, ref) and repeat
             err = max_err(out, ref)
             del ref
+            extra = {"design": "ring"}
+            if direct:
+                # The direct kernel: its own torch fold and its 16-byte
+                # path (the flats are aligned as allocated).
+                extra = {
+                    "design": "direct",
+                    "vector_launches": ring.VECTOR_LAUNCHES[name] - vec0,
+                    "launches_checked": 2,
+                    "fold_bitwise": torch.equal(
+                        out, ring.reduce_scatter_direct_plain(x)),
+                    "earlier_ms": RING_RECORDED_MS[name]}
             rows_equal = rs or all(torch.equal(out[r], out[0])
                                    for r in range(1, n))
             del out
@@ -686,17 +783,20 @@ def ring_rs_ag_kernel_phase(torch, ring, dev):
             # schedule on one card moves more (ring_rs_ag.cu): per rank of
             # S input bytes the reduce-scatter's staging 2 S, n - 1 steps of
             # 5 S / n and the copy-out 2 S / n; the all-gather of an S-byte
-            # shard 2 S plus 4 S a step.
+            # shard 2 S plus 4 S a step.  A direct row moves the function's
+            # bytes.
             S = 4 * L
             if rs:
                 fn_bytes = 4 * (n * L + L)
-                sched_bytes = n * S * (2 + (5 * (n - 1) + 2) / n)
+                sched_bytes = (fn_bytes if direct else
+                               n * S * (2 + (5 * (n - 1) + 2) / n))
                 library = lambda: x.view(n, n, -1).sum(0)  # noqa: E731
             else:
                 fn_bytes = 4 * (n * L + n * n * L)
                 sched_bytes = n * S * (2 + 4 * (n - 1))
                 library = lambda: x.unsqueeze(0).expand(  # noqa: E731
                     n, n, L).clone()
+            ms = time_ms(torch, kern)
             rows.append({
                 "name": name, "route": "cuda", "source": SOURCES[name][0],
                 "replaces": SOURCES[name][1], "max_abs_err": err,
@@ -706,14 +806,16 @@ def ring_rs_ag_kernel_phase(torch, ring, dev):
                 "elems_per_rank": L,
                 "plan": dict(zip(("sub_elems", "C"), ring._slots(
                     L // n if rs else L, plan))),
-                "ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
+                "ms": ms, "plain_ms": time_ms(torch, plain),
                 "bound_ms": fn_bytes / PEAK_HBM_BYTES * 1e3,
                 "bound_by": "bytes", "bytes": fn_bytes,
+                "achieved_tb_s": fn_bytes / ms / 1e9,
                 "schedule_bytes": sched_bytes,
                 "schedule_bound_ms": sched_bytes / PEAK_HBM_BYTES * 1e3,
                 # The stock rank-major route: the rank-axis sum of the
                 # [rank, tile] view / a copy of the stack per rank.
                 "library_ms": time_ms(torch, library),
+                **extra,
             })
             del x
             torch.cuda.empty_cache()
@@ -727,6 +829,7 @@ def ring_rs_ag_kernel_phase(torch, ring, dev):
         check(row["all_gather_rows_equal"], f"{row['name']}: ranks differ")
         for dt, ok in row["small_passes_bitwise"].items():
             check(ok, f"{row['name']} {dt}: kernel != plain")
+        check_direct(row)
     return rows
 
 
@@ -834,6 +937,8 @@ def ring_dp_phase(torch, mpi, ops, dev):
                    pallas_bidirectional=False)
     launches = {nm: c for mod in ops.values() for nm, c in
                 mod.LAUNCHES.items()}
+    row8 = "ring_allreduce_chunked"
+    row8_vector = ring.VECTOR_LAUNCHES[row8]
     peak = torch.cuda.max_memory_allocated()
     losses = [float(v) for v in losses]
 
@@ -842,6 +947,8 @@ def ring_dp_phase(torch, mpi, ops, dev):
         sync()
         sgd()
 
+    # Where one sync's device time goes, by kernel (after the main path).
+    breakdown = device_breakdown(torch, sync)
     # The step's own peak, without the verification copy of the stacks.
     torch.cuda.reset_peak_memory_stats()
     syncs = count_host_syncs(torch, one_step)
@@ -854,6 +961,9 @@ def ring_dp_phase(torch, mpi, ops, dev):
         "sync_ms": sync_ms,
         "median_sync_ms": {k: statistics.median(v)
                            for k, v in sync_ms.items()},
+        "ring_recorded_median_sync_ms": {row8: RING_RECORDED_DP_SYNC_MS},
+        "sync_device_breakdown": breakdown,
+        "row8_launches_on_16_byte_path": row8_vector,
         "bitwise_vs_plain": bitwise,
         "dp_max_rel_l2_vs_batch4": dp_rel[0], "dp_worst_tensor": dp_rel[1],
         "dp_tolerance": DP_RTOL, "peak_mem_bytes_with_check": peak,
@@ -870,6 +980,8 @@ def ring_dp_phase(torch, mpi, ops, dev):
     for name in RING_CONFIGS:
         check(launches[name] > 0, f"kernel {name} never launched on the "
               f"ring DP path")
+    check(row8_vector == launches[row8], f"{row8}: {row8_vector} of "
+          f"{launches[row8]} launches on the 16-byte path")
     return launches, {k: statistics.median(v) for k, v in sync_ms.items()}
 
 
@@ -879,11 +991,15 @@ def tap_rank_major_routes(torch, mpi, ring, log):
     the route (the kernels) between two CUDA events, then the plain ring
     on the same input, and appends to ``log`` whether the two agree
     bitwise (and, for the all-gather, whether every rank's slice is the
-    same).  Returns the function that restores the plain routes."""
+    same), and the peak device memory while the route ran (the peak so far
+    is kept in ``log.peak``).  Returns the function that restores the plain
+    routes."""
     sel = mpi.selector
 
     def wrap(verb, route, plain):
         def tapped(xs, **kw):
+            log.peak = max(log.peak, torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -891,6 +1007,7 @@ def tap_rank_major_routes(torch, mpi, ring, log):
             end.record()
             entry = {"verb": verb, "events": (start, end),
                      "label": log.label,
+                     "peak_bytes": torch.cuda.max_memory_allocated(),
                      "bitwise": torch.equal(out, plain(xs, **kw))}
             if verb == "all_gather":
                 entry["rows_equal"] = all(torch.equal(out[r], out[0])
@@ -915,6 +1032,7 @@ def tap_rank_major_routes(torch, mpi, ring, log):
 
 class TapLog(list):
     label = ""
+    peak = 0
 
 
 def zero_dp_phase(torch, mpi, ops, dev, ring_sync_ms):
@@ -1056,13 +1174,18 @@ def zero_dp_phase(torch, mpi, ops, dev, ring_sync_ms):
         restore()
         mpi.set_config(chunk_bytes=ZERO_CONFIGS["chunked"])
     launches = {k: v - excluded[k] for k, v in counts().items()}
-    peak = torch.cuda.max_memory_allocated()
+    row9 = "ring_reduce_scatter_chunked"
+    # Every launch of the phase, the checks' included.
+    row9_launches = (ring.LAUNCHES[row9], ring.VECTOR_LAUNCHES[row9])
+    peak = max(log.peak, torch.cuda.max_memory_allocated())
     losses = [float(v) for v in losses]
     main = [e for e in log if e["label"] != "check"]
-    leg_ms = {}
+    leg_ms, leg_peak = {}, {}
     for e in main:
         leg_ms.setdefault(e["label"], {}).setdefault(e["verb"], []).append(
             e["events"][0].elapsed_time(e["events"][1]))
+        d = leg_peak.setdefault(e["label"], {})
+        d[e["verb"]] = max(d.get(e["verb"], 0), e["peak_bytes"])
 
     def one_step():
         nonlocal state
@@ -1078,6 +1201,13 @@ def zero_dp_phase(torch, mpi, ops, dev, ring_sync_ms):
     plain_step_ms = (time.perf_counter() - t0) * 1e3
     step_peak = torch.cuda.max_memory_allocated()
     syncs = count_host_syncs(torch, one_step)
+
+    def update():
+        nonlocal state
+        state = zero1(state)
+
+    # Where one ZeRO-1 update's device time goes (the legs, Adam, copies).
+    breakdown = device_breakdown(torch, update)
     state_bytes = sum(t.numel() * t.element_size() for t in state
                       if torch.is_tensor(t)) // n
     emit({"phase": "zero_dp", "ranks": n, "optimizer": f"adam({ZERO_LR})",
@@ -1089,6 +1219,8 @@ def zero_dp_phase(torch, mpi, ops, dev, ring_sync_ms):
           "median_leg_ms": {lb: {v: statistics.median(t)
                                  for v, t in d.items()}
                             for lb, d in leg_ms.items()},
+          "leg_peak_mem_bytes": leg_peak,
+          "update_device_breakdown": breakdown,
           "ring_dp_median_sync_ms": ring_sync_ms,
           "bitwise_vs_plain": all(e["bitwise"] for e in log),
           "n_collectives_checked": len(log),
@@ -1105,8 +1237,11 @@ def zero_dp_phase(torch, mpi, ops, dev, ring_sync_ms):
                                   for f in flats),
           "peak_mem_bytes_with_check": peak,
           "peak_mem_bytes_step": step_peak,
+          "ring_recorded_peak_mem_gb_step": RING_RECORDED_ZERO_PEAK_GB,
           "host_syncs_per_step": syncs, "launches": launches,
-          "check_launches": excluded})
+          "check_launches": excluded,
+          "row9_launches_on_16_byte_path": {"all": row9_launches[0],
+                                            "vector": row9_launches[1]}})
     check(all(e["bitwise"] for e in log)
           and len(main) == 2 * len(schedule) + 1,
           "a ZeRO reduce-scatter or all-gather differs from the plain ring")
@@ -1123,6 +1258,9 @@ def zero_dp_phase(torch, mpi, ops, dev, ring_sync_ms):
     for name in rows:
         check(launches[name] > 0, f"kernel {name} never launched on the "
               f"ZeRO path")
+    check(row9_launches[0] == row9_launches[1],
+          f"{row9}: {row9_launches[1]} of {row9_launches[0]} launches on "
+          f"the 16-byte path")
     return launches
 
 

@@ -5,6 +5,9 @@
   loss and updated parameters, float32, rtol 1e-4.
 - The fused bucket layout equals the JAX package's ``FusedSpec`` and
   round-trips.
+- ``synchronize_gradients`` under ``gradsync_compress="bf16"`` equals the
+  JAX package's bitwise: on one rank, and on 2 gloo ranks holding other
+  gradients each against JAX on 2 devices.
 - A DP step on 2 gloo ranks (spawned processes) equals the single-rank
   step on the full batch.
 """
@@ -21,6 +24,8 @@ import numpy as np
 import optax
 import pytest
 import torch
+from jax import shard_map
+from jax.sharding import Mesh, PartitionSpec as P
 
 import torchmpi_tpu as jmpi
 from torchmpi_tpu import fusion as jfusion
@@ -140,6 +145,63 @@ def test_fused_collectives_on_one_rank(port_runtime):
         tfusion.fused_("allreduce", [torch.zeros(4, 4).t()], op="sum")
 
 
+def test_bf16_compressed_sync_matches_jax(flat_runtime, port_runtime):
+    """``Config(gradsync_compress="bf16")``: the port's synchronize_gradients
+    casts to bf16, syncs and casts back as JAX's does.  Every one of the 8
+    JAX devices holds the same gradients, as the port's one rank does, so
+    the means agree and the comparison is bitwise: the 8-way bf16 sum of
+    equal values and its division by 8 round as the one-rank mean does."""
+    mesh = flat_runtime
+    rng = np.random.RandomState(5)
+    grads = [rng.randn(37, 11).astype(np.float32),
+             rng.randn(301).astype(np.float32),
+             rng.randn(5, 3).astype(np.float16)]
+    jmpi.set_config(gradsync_compress="bf16")
+    specs = tuple(P() for _ in grads)
+
+    def sync(*gs):
+        return tuple(jmpi.nn.synchronize_gradients(list(gs),
+                                                   mesh.axis_names))
+
+    want = jax.jit(shard_map(sync, mesh=mesh, in_specs=specs,
+                             out_specs=specs, check_vma=False))(*grads)
+
+    def port_sync(**kw):
+        params = [torch.nn.Parameter(torch.zeros(g.shape,
+                                                 dtype=_torch_dtype(g)))
+                  for g in grads]
+        for p, g in zip(params, grads):
+            p.grad = torch.from_numpy(g.copy())
+        tmpi.nn.synchronize_gradients(params, **kw)
+        return [p.grad for p in params]
+
+    tmpi.set_config(gradsync_compress="bf16")
+    for w, got, g in zip(want, port_sync(), grads):
+        assert got.dtype == _torch_dtype(g)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(w))
+        assert not np.array_equal(got.numpy(), g)  # bf16 rounding applied
+    # An explicit compress="none" overrides the config: exact gradients.
+    for got, g in zip(port_sync(compress="none"), grads):
+        np.testing.assert_array_equal(got.numpy(), g)
+    with pytest.raises(ValueError, match="synchronize_gradients"):
+        port_sync(compress="int3")
+
+
+def _torch_dtype(a):
+    return torch.from_numpy(a[:0].copy()).dtype
+
+
+# Per-rank gradients of the 2-rank bf16 sync: (seed, [(shape, dtype)]);
+# each array is [2, *shape], row r rank r's gradient.
+BF16_GRADS = (6, [((37, 11), "float32"), ((301,), "float32"),
+                  ((5, 3), "float16")])
+
+
+def _rank_grads(seed, shapes, world):
+    rng = np.random.RandomState(seed)
+    return [(rng.randn(world, *s) * 3).astype(d) for s, d in shapes]
+
+
 # One rank of the 2-process DP run.  Rank 1 starts from other weights, so
 # the run also shows that data_parallel_step broadcasts rank 0's first.
 WORKER = textwrap.dedent("""
@@ -173,9 +235,21 @@ WORKER = textwrap.dedent("""
               for _ in range(steps)]
     summed = mpi.allreduce(torch.tensor([float(rank + 1)]))
     bcast = mpi.broadcast(torch.tensor([float(rank + 5)]), root=1)
+
+    # The bf16-compressed gradient sync on other gradients on each rank.
+    gseed, gshapes = {bf16_grads}
+    rng = np.random.RandomState(gseed)
+    grads = [(rng.randn(world, *s) * 3).astype(d) for s, d in gshapes]
+    params = [torch.nn.Parameter(torch.from_numpy(g[rank] * 0))
+              for g in grads]
+    for p, g in zip(params, grads):
+        p.grad = torch.from_numpy(g[rank].copy())
+    mpi.set_config(gradsync_compress="bf16")
+    mpi.nn.synchronize_gradients(params)
+    bf16 = {{f"bf16_sync_{{i}}": p.grad.numpy() for i, p in enumerate(params)}}
     if rank == 0:
         np.savez(out, losses=np.array(losses), summed=summed.numpy(),
-                 bcast=bcast.numpy(),
+                 bcast=bcast.numpy(), **bf16,
                  **{{k: v.numpy() for k, v in model.state_dict().items()}})
     mpi.barrier()
     mpi.stop()
@@ -193,7 +267,8 @@ def two_rank_run(tmp_path_factory):
         env.pop(k, None)
     procs = [subprocess.Popen(
         [sys.executable, "-c", WORKER.format(
-            repo=REPO, args=(r, 2, port, out, CFG, LR, 2))],
+            repo=REPO, args=(r, 2, port, out, CFG, LR, 2),
+            bf16_grads=BF16_GRADS)],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(2)]
     logs = []
@@ -224,3 +299,32 @@ def test_two_gloo_ranks_equal_one_rank_on_the_full_batch(two_rank_run,
                                    rtol=1e-5, atol=1e-6, err_msg=name)
     assert two_rank_run["summed"].tolist() == [3.0]
     assert two_rank_run["bcast"].tolist() == [6.0]
+
+
+def test_two_gloo_ranks_bf16_sync_matches_jax(two_rank_run, flat_runtime):
+    """``gradsync_compress="bf16"`` across 2 gloo ranks that hold other
+    gradients each equals JAX's synchronize_gradients on 2 devices fed the
+    same per-rank gradients, bitwise: a bf16 add of the two ranks' bf16
+    gradients (one add, so its order cannot differ), then the mean's
+    division by 2 (exact in bf16), cast back to each gradient's dtype.  A
+    sync in the gradients' own dtype, cast to bf16 after, differs."""
+    mesh = Mesh(np.array(jax.devices()[:2]), ("dp",))
+    grads = _rank_grads(*BF16_GRADS, world=2)
+    jmpi.set_config(gradsync_compress="bf16")
+    specs = tuple(P("dp") for _ in grads)
+
+    def sync(*gs):
+        out = jmpi.nn.synchronize_gradients([g[0] for g in gs], ("dp",))
+        return tuple(g[None] for g in out)
+
+    want = jax.jit(shard_map(sync, mesh=mesh, in_specs=specs,
+                             out_specs=specs, check_vma=False))(*grads)
+    for i, (w, g) in enumerate(zip(want, grads)):
+        got = two_rank_run[f"bf16_sync_{i}"]
+        assert got.dtype == g.dtype
+        w = np.asarray(w)
+        np.testing.assert_array_equal(w[0], w[1])
+        np.testing.assert_array_equal(got, w[0])
+        late = torch.from_numpy(g.mean(0, dtype=np.float32)).to(
+            torch.bfloat16).to(_torch_dtype(g)).numpy()
+        assert not np.array_equal(got, late)

@@ -1,0 +1,91 @@
+"""The add order of the direct ring rows (rows 8 and 9 of the kernel
+table, ``ops/csrc/ring_direct.cu``) on the CPU.
+
+The CUDA kernels do not walk the ring: they load every rank's value of an
+element and add the values in the order the ring would have.  Their plain
+versions, ``ring.allreduce_direct_plain`` and
+``ring.reduce_scatter_direct_plain``, are torch folds in that order; here
+they are held bitwise to the ring's own plain versions (the step-by-step
+schedules), chunked and resident, over ring sizes, dtypes, ragged and
+aligned lengths, plans and a row-padded (strided) input.  The ring's plain
+versions are held bitwise to the JAX kernels by tests/test_torch_ring*.py,
+and the kernels to the plain versions on the card by the ``gpu``-marked
+tests/test_torch_ring_kernels.py and tests/test_torch_ring_rs_ag_kernels.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from torchmpi_tpu_torch.ops import ring
+
+torch.set_num_threads(2)
+
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "i32": torch.int32}
+# Elements a rank: ragged (against every plan's padding) and aligned.
+LENGTHS = (20_000, 77_777, 65_536)
+# chunk_bytes of f32 (scaled by the element size, so that every dtype gets
+# the same plans): chunked plans of C 2 to 38 at these lengths.
+CHUNK_BYTES = (4096, 8192)
+
+
+def _stack(n, L, dtype, seed, pad=0):
+    """[n, L] rank-major, numpy-seeded; with ``pad`` the rows sit ``L +
+    pad`` elements apart (a view of a wider buffer)."""
+    rng = np.random.RandomState(seed)
+    if dtype == torch.int32:
+        a = rng.randint(-2 ** 30, 2 ** 30, (n, L + pad)).astype(np.int32)
+        x = torch.from_numpy(a)
+    else:
+        x = torch.from_numpy(rng.randn(n, L + pad).astype(np.float32))
+        x = x.to(dtype)
+    return x[:, :L]
+
+
+@pytest.mark.parametrize("L", LENGTHS)
+@pytest.mark.parametrize("row", ["allreduce", "reduce_scatter"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("n", [2, 3, 4, 5, 8])
+def test_direct_order_equals_the_ring(n, dtype, row, L):
+    dt = DTYPES[dtype]
+    if row == "reduce_scatter":
+        L -= L % n
+    for pad in (0, 3):
+        x = _stack(n, L, dt, seed=n * 1000 + L + pad, pad=pad)
+        xc = x.contiguous()
+        if row == "allreduce":
+            got_all = []
+            for cb in CHUNK_BYTES:
+                cb = cb * dt.itemsize // 4
+                name, plan = ring.schedule(L, n, dt, chunk_bytes=cb,
+                                           bidirectional=False)
+                assert name == "ring_allreduce_chunked", (n, L, cb)
+                got = ring.allreduce_direct_plain(x, *plan)
+                assert torch.equal(got, ring.allreduce_chunked_plain(xc,
+                                                                     *plan))
+                got_all.append(got)
+            # Resident: one ring chunk of the padded P / n elements.
+            P = -(-L // (n * ring._TILE)) * n * ring._TILE
+            got = ring.allreduce_direct_plain(x, P // n, 1)
+            assert torch.equal(got, ring.allreduce_resident_plain(xc))
+            got_all.append(got)
+            # Every rank holds the same sum.
+            for g in got_all:
+                assert all(torch.equal(g[r], g[0]) for r in range(n))
+        else:
+            got = ring.reduce_scatter_direct_plain(x)
+            assert got.shape == (n, L // n) and got.dtype == dt
+            for cb in CHUNK_BYTES:
+                cb = cb * dt.itemsize // 4
+                name, plan = ring.schedule_reduce_scatter(L, n, dt,
+                                                          chunk_bytes=cb)
+                assert name == "ring_reduce_scatter_chunked", (n, L, cb)
+                assert torch.equal(got, ring.reduce_scatter_chunked_plain(
+                    xc, *plan))
+            assert torch.equal(got, ring.reduce_scatter_resident_plain(xc))
+        if dt == torch.int32:
+            want = xc.sum(0, dtype=torch.int32)
+            if row == "allreduce":
+                assert torch.equal(got[0], want)
+            else:
+                assert torch.equal(got.reshape(-1), want)

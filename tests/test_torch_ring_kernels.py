@@ -9,7 +9,10 @@ on its own:
 
 n ranks' buffers sit on the one card, rank-major; one launch runs the whole
 ring.  The kernels add in the schedule's order, as the plain versions do, so
-every comparison is bitwise, for float32, bfloat16 and int32.  The CPU
+every comparison is bitwise, for float32, bfloat16 and int32.  Row 8
+(``ring_allreduce_chunked``) walks no ring: its kernel (ring_direct.cu)
+folds every rank's value of an element in the ring's order, on a 16-byte
+path where the rows are aligned and element by element otherwise.  The CPU
 parity of the plain versions with the JAX package is tests/test_torch_ring.py.
 """
 
@@ -89,6 +92,41 @@ def test_kernel_bitwise_equals_plain(cuda, name, L, chunk_bytes, n):
         assert torch.equal(got, again), f"{name} n={n} {dtype}: repeat"
         if dtype == torch.int32:
             assert torch.equal(got[0], x.sum(0, dtype=torch.int32))
+
+
+# Row 8 is a direct reduction (ring_direct.cu): (L, row padding in
+# elements or "align" for 16 bytes).  Odd contiguous rows take the element
+# path; rows padded to 16 bytes take the 16-byte path, L odd with an
+# element tail.  11 ranks take two rounds of loads in flight (8, then 3).
+DIRECT_CASES = [(1, 0), (40_001, 0), (40_001, "align"), (65_536, 0)]
+
+
+@pytest.mark.parametrize("n", [2, 3, 4, 8, 11])
+@pytest.mark.parametrize("L,pad", DIRECT_CASES, ids=lambda v: str(v))
+def test_direct_allreduce_paths(cuda, n, L, pad):
+    name = "ring_allreduce_chunked"
+    for i, dtype in enumerate(DTYPES):
+        v = 16 // dtype.itemsize
+        width = -(-L // v) * v if pad == "align" else L + pad
+        x = _stack(cuda, n, width, dtype, seed=n * 10 + i)[:, :L]
+        plan = ring._chunk_plan(max(L, 2 * n * 1024), n, dtype,
+                                4096 * dtype.itemsize // 4)
+        vector = (x.stride(0) * dtype.itemsize) % 16 == 0
+        before = dict(ring.LAUNCHES), dict(ring.VECTOR_LAUNCHES)
+        got = ring.allreduce_chunked(x, *plan)
+        again = ring.allreduce_chunked(x, *plan)
+        want = ring.allreduce_chunked_plain(x, *plan)
+        torch.cuda.synchronize()
+        assert ring.LAUNCHES[name] == before[0][name] + 2
+        assert ring.VECTOR_LAUNCHES[name] == before[1][name] + 2 * vector
+        assert got.shape == x.shape and got.dtype == dtype
+        assert torch.equal(got, want), f"n={n} L={L} {dtype}"
+        assert torch.equal(got, again), f"n={n} L={L} {dtype}: repeat"
+        assert torch.equal(got, ring.allreduce_direct_plain(x, *plan))
+    # An empty rank launches nothing.
+    before = ring.LAUNCHES[name]
+    got = ring.allreduce_chunked(torch.ones(n, 0, device=cuda), 1024, 2)
+    assert got.shape == (n, 0) and ring.LAUNCHES[name] == before
 
 
 def test_entry_point_schedules_every_row(cuda):

@@ -11,7 +11,11 @@ on its own:
 n ranks' buffers sit on the one card, rank-major; one launch runs the whole
 ring.  The reduce-scatter adds in the schedule's order, as the plain
 version does, and the all-gather only copies, so every comparison is
-bitwise, for float32, bfloat16 and int32.  The CPU parity of the plain
+bitwise, for float32, bfloat16 and int32.  Row 9
+(``ring_reduce_scatter_chunked``) walks no ring: its kernel
+(ring_direct.cu) folds every rank's value of an element in the ring's
+order, on a 16-byte path where the rows are aligned and element by element
+otherwise.  The CPU parity of the plain
 versions with the JAX package is tests/test_torch_ring_rs_ag.py.
 """
 
@@ -101,6 +105,45 @@ def test_kernel_bitwise_equals_plain(cuda, name, per, chunk_bytes, n):
                 0, dtype=torch.int32))
         if not rs:
             assert torch.equal(got, x.expand(n, n, per))
+
+
+# Row 9 is a direct reduction (ring_direct.cu): (elements of one ring
+# chunk, row padding in elements or "align" for 16 bytes).  An odd chunk
+# takes the element path, as do rows padded by one element; aligned rows
+# take the 16-byte path.  11 ranks take two rounds of loads in flight
+# (8, then 3).  (A chunked plan needs a chunk longer than one 1024-element
+# subchunk, so the least one here is 1025.)
+DIRECT_CASES = [(1025, 0), (3000, 0), (3000, 1), (3000, "align"),
+                (250_000, 0)]
+
+
+@pytest.mark.parametrize("n", [2, 3, 4, 8, 11])
+@pytest.mark.parametrize("per,pad", DIRECT_CASES, ids=lambda v: str(v))
+def test_direct_reduce_scatter_paths(cuda, n, per, pad):
+    name = "ring_reduce_scatter_chunked"
+    for i, dtype in enumerate(DTYPES):
+        v = 16 // dtype.itemsize
+        L = n * per
+        width = -(-L // v) * v + v if pad == "align" else L + pad
+        x = _stack(cuda, (n, width), dtype, seed=n * 10 + i)[:, :L]
+        plan = _plan(name, n, per, dtype, 4096)
+        vector = ((x.stride(0) * dtype.itemsize) % 16 == 0
+                  and (per * dtype.itemsize) % 16 == 0)
+        before = dict(ring.LAUNCHES), dict(ring.VECTOR_LAUNCHES)
+        got = ring.reduce_scatter_chunked(x, *plan)
+        again = ring.reduce_scatter_chunked(x, *plan)
+        want = ring.reduce_scatter_chunked_plain(x, *plan)
+        torch.cuda.synchronize()
+        assert ring.LAUNCHES[name] == before[0][name] + 2
+        assert ring.VECTOR_LAUNCHES[name] == before[1][name] + 2 * vector
+        assert got.shape == (n, per) and got.dtype == dtype
+        assert torch.equal(got, want), f"n={n} per={per} {dtype}"
+        assert torch.equal(got, again), f"n={n} per={per} {dtype}: repeat"
+        assert torch.equal(got, ring.reduce_scatter_direct_plain(x))
+    # An empty rank launches nothing.
+    before = ring.LAUNCHES[name]
+    got = ring.reduce_scatter_chunked(torch.ones(n, 0, device=cuda), 1024, 2)
+    assert got.shape == (n, 0) and ring.LAUNCHES[name] == before
 
 
 def test_entry_points_schedule_every_row(cuda):

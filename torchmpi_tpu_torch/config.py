@@ -43,8 +43,9 @@ class Config:
       group by dtype and each group splits into ceil(bytes / bound) buckets,
       one collective each.  0 keeps one bucket per dtype group.
     - ``gradsync_average``: gradient sync averages (True) or sums.
-    - ``gradsync_compress``: on-the-wire gradient compression of ZeRO's
-      reduce-scatter leg: None (off) or ``"bf16"``.
+    - ``gradsync_compress``: on-the-wire gradient compression of the
+      gradient sync (``synchronize_gradients``, so ``data_parallel_step``)
+      and of ZeRO's reduce-scatter leg: None (off) or ``"bf16"``.
     - ``chunk_bytes``: subchunk size of the chunked ring allreduce: when one
       rank's per-ring-chunk payload (its bytes / n) exceeds it, the ring
       streams subchunks of about this size through two comm slots.

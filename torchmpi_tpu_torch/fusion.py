@@ -133,10 +133,22 @@ def _flat(t: torch.Tensor, rank_major: bool) -> torch.Tensor:
 def gather_bucket(tensors: Sequence[torch.Tensor], g: DtypeGroup, lo: int,
                   hi: int, *, rank_major: bool = False) -> torch.Tensor:
     """The group's elements [lo, hi) as one new flat tensor ([n, hi - lo]
-    for rank-major stacks)."""
+    for rank-major stacks).  A rank-major bucket is a view whose rows start
+    16 bytes apart (the row stride rounded up), so that every rank's row is
+    as aligned as the allocation and a kernel can read all of them in
+    16-byte vectors."""
     parts = [_flat(tensors[g.indices[pos]], rank_major)[..., a:b]
              for pos, a, b in _pieces(g, lo, hi)]
-    return torch.cat(parts, -1) if len(parts) > 1 else parts[0].clone()
+    if not rank_major:
+        return torch.cat(parts, -1) if len(parts) > 1 else parts[0].clone()
+    n, m = parts[0].shape[0], hi - lo
+    per16 = max(1, 16 // parts[0].element_size())
+    buf = parts[0].new_empty(n, -(-m // per16) * per16)[:, :m]
+    off = 0
+    for p in parts:
+        buf[:, off:off + p.shape[1]].copy_(p)
+        off += p.shape[1]
+    return buf
 
 
 def scatter_bucket(flat: torch.Tensor, tensors: Sequence[torch.Tensor],

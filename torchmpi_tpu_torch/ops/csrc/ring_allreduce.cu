@@ -2,18 +2,18 @@
 // buffers are device pointers, (n - 1) reduce-scatter steps then (n - 1)
 // all-gather steps; float32, bfloat16 and int32.
 //
-// Replaces the four TPU allreduce kernels of torchmpi_tpu/ops/ring.py, one C
+// Replaces three TPU allreduce kernels of torchmpi_tpu/ops/ring.py, one C
 // launcher each:
 //   tm_ring_allreduce               _ring_allreduce_kernel :265 (pallas_call
 //                                   :831), one direction, a whole ring chunk
 //                                   per step;
 //   tm_ring_allreduce_bidir         _ring_allreduce_bidir_kernel :203 (:859),
 //                                   two halves in opposite directions;
-//   tm_ring_allreduce_chunked       _ring_allreduce_chunked_kernel :511
-//                                   (:686) through _chunked_pipeline :439,
-//                                   one direction, subchunks of ~chunk_bytes;
 //   tm_ring_allreduce_bidir_chunked _ring_allreduce_bidir_chunked_kernel :534
-//                                   (:642), both.
+//                                   (:642) through _chunked_pipeline :439,
+//                                   both halves, subchunks of ~chunk_bytes.
+// The fourth, the one-direction chunked _ring_allreduce_chunked_kernel :511
+// (row 8), is a direct reduction in the ring's add order (ring_direct.cu).
 //
 // Layout (the TPU kernels'): rank r's work buffer o_r is its padded input,
 // viewed [n ring chunks, C subchunks, E elements]; C = 1 for the resident
@@ -198,16 +198,6 @@ extern "C" int tm_ring_allreduce_bidir(int dtype, const void* x1,
   Args a{{dir(x1, o1, comm1, P1, P1 / n, +1),
           dir(x2, o2, comm2, P2, P2 / n, -1)},
          flags, n, 1, 2, B};
-  return launch(dtype, a, stream);
-}
-
-// Row 8: one direction, C subchunks of E elements per ring chunk.
-extern "C" int tm_ring_allreduce_chunked(int dtype, const void* x, void* o,
-                                         void* comm, unsigned* flags,
-                                         long long P, long long E, int C,
-                                         int n, int B, void* stream) {
-  if (C < 2) return static_cast<int>(cudaErrorInvalidValue);
-  Args a{{dir(x, o, comm, P, E, +1), {}}, flags, n, C, 1, B};
   return launch(dtype, a, stream);
 }
 

@@ -1,0 +1,266 @@
+// ring_direct: the chunked ring allreduce and the chunked ring reduce-scatter
+// as direct reductions in the ring's add order, over n ranks whose buffers
+// are device pointers; float32, bfloat16 and int32.
+//
+// Replaces two TPU kernels of torchmpi_tpu/ops/ring.py, one C launcher each:
+//   tm_ring_allreduce_direct       _ring_allreduce_chunked_kernel :511
+//                                  (pallas_call :686), row 8;
+//   tm_ring_reduce_scatter_direct  _ring_reduce_scatter_chunked_kernel :707
+//                                  (pallas_call :772), row 9.
+//
+// The TPU kernels move a ring chunk hop by hop with remote DMAs.  On one
+// card (and across the cards of an NVSwitch node, where every GPU reaches
+// every peer directly) a hop is two trips through device memory, so these
+// kernels do not walk the ring: they load every rank's value of an element
+// and fold them in the order the ring would have added them.  An element's
+// ring chunk fixes that order (ops/ring.py, _ring_plain and _rs_plain):
+//   allreduce, chunk c = [c CE, (c + 1) CE) of the padded layout, CE = C E
+//   from the plan: x_c, x_{c+1}, ..., x_{c+n-1} (ranks mod n), a left fold,
+//   written to every rank;
+//   reduce-scatter, chunk c = [c per, (c + 1) per): x_{c+1}, ..., x_{c+n-1},
+//   x_c, written to rank c only.
+// Each add is Elem<T>'s (ring_common.cuh: float32, bfloat16 rounded after
+// every add, int32 wrapping), so the result is bitwise the ring kernels',
+// the plain versions' and the JAX kernels'.  The padding the TPU layout adds
+// is never read or written: zeros would only be added to zeros.
+//
+// One kernel, grid (B, n): blockIdx.y is the ring chunk, and the B blocks
+// of a chunk share its units in a grid-stride loop.  Every thread issues
+// up to kInFlight ranks' loads of its unit before the first add that
+// consumes them.  A unit is a 16-byte vector when every source and
+// destination row, the row strides and the chunk length are 16-byte
+// aligned (the fused sync's buckets and ZeRO's flats are), the chunk's
+// last elements (fewer than one vector) then taken one by one; otherwise
+// a unit is one element.  Loads go through the read-only path, stores are
+// plain: evict-first loads and stores (__ldcs / __stcs) timed slower at
+// the flagship's shapes on an H100.
+//
+// What bounds it: bytes.  Every input element is read once and every
+// output element written once, which is the function's own traffic:
+// 2 n L itemsize for the allreduce of n ranks' L elements, (n + 1) n per
+// itemsize for the reduce-scatter.  The ring schedule on one card moved
+// 4.4 and 5 times as much (ring_allreduce.cu, ring_rs_ag.cu).  A version
+// whose 16-byte loads were TMA bulk copies into shared-memory stages on
+// mbarriers gained a few percent at the kernel, under 1% of the gradient
+// sync, for three times the code, so this one stays.
+
+#include <mutex>
+#include <vector>
+
+#include "ring_common.cuh"
+
+namespace {
+
+constexpr int kBlocksPerSm = 4;
+
+struct Args {
+  const void* x;  // [n, ldx]: rank r's L elements at x + r ldx
+  void* o;        // allreduce: [n, ldo], every rank's sum; RS: [n, ldo]
+  long long ldx, ldo;
+  long long L;    // elements a rank holds
+  long long seg;  // elements of one ring chunk (CE, or per)
+  int n;
+};
+
+// Loads: 16-byte vectors through the read-only path; single elements are
+// plain loads.
+__device__ __forceinline__ uint4 ld(const uint4* p) { return __ldg(p); }
+template <typename U>
+__device__ __forceinline__ U ld(const U* p) { return *p; }
+
+template <typename T>
+__device__ __forceinline__ uint4 add(uint4 a, uint4 b) {
+  return tmr::Elem<T>::add4(a, b);
+}
+template <typename T>
+__device__ __forceinline__ T add(T a, T b) {
+  return tmr::Elem<T>::add(a, b);
+}
+
+// The left fold of ranks first, first + 1, ..., first + n - 1 (mod n) of
+// unit ``off`` (a vector or an element) of their rows; up to kInFlight
+// loads are issued before the adds that consume them.
+template <typename T, typename U, int kInFlight>
+__device__ __forceinline__ U fold(const T* __restrict__ x, long long ldx,
+                                  long long off, int first, int n) {
+  U acc{};
+  for (int base = 0; base < n; base += kInFlight) {
+    U v[kInFlight];
+#pragma unroll
+    for (int k = 0; k < kInFlight; ++k) {
+      if (base + k < n) {
+        int r = first + base + k;
+        if (r >= n) r -= n;
+        v[k] = ld(reinterpret_cast<const U*>(x + r * ldx) + off);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kInFlight; ++k)
+      if (base + k < n) acc = base + k == 0 ? v[k] : add<T>(acc, v[k]);
+  }
+  return acc;
+}
+
+// Units [lo, hi) of ring chunk c: fold, then store to every rank's row
+// (allreduce) or to rank c's row (reduce-scatter).  ``U`` is uint4 on the
+// 16-byte path, T otherwise; offsets count units.
+template <typename T, typename U, bool kScatter, int kInFlight>
+__device__ __forceinline__ void reduce_units(const Args& a, int c,
+                                             long long src, long long dst,
+                                             long long lo, long long hi) {
+  const T* x = static_cast<const T*>(a.x);
+  T* o = static_cast<T*>(a.o);
+  const int n = a.n;
+  const int first = kScatter ? (c + 1 == n ? 0 : c + 1) : c;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long j = lo + static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       j < hi; j += stride) {
+    const U acc = fold<T, U, kInFlight>(x, a.ldx, src + j, first, n);
+    if (kScatter) {
+      reinterpret_cast<U*>(o + c * a.ldo)[dst + j] = acc;
+    } else {
+#pragma unroll 4
+      for (int r = 0; r < n; ++r)
+        reinterpret_cast<U*>(o + r * a.ldo)[dst + j] = acc;
+    }
+  }
+}
+
+template <typename T, bool kVec, bool kScatter, int kInFlight>
+__global__ void __launch_bounds__(tmr::kThreads)
+ring_direct_kernel(Args a) {
+  const int c = blockIdx.y;
+  const long long s0 = c * a.seg;
+  const long long len = a.L - s0 < a.seg ? a.L - s0 : a.seg;
+  if (len <= 0) return;
+  // The chunk's first element in the destination row.
+  const long long d0 = kScatter ? 0 : s0;
+  if (kVec) {
+    constexpr int V = 16 / sizeof(T);
+    const long long nv = len / V;
+    reduce_units<T, uint4, kScatter, kInFlight>(a, c, s0 / V, d0 / V, 0,
+                                                nv);
+    reduce_units<T, T, kScatter, kInFlight>(a, c, s0, d0, nv * V, len);
+  } else {
+    reduce_units<T, T, kScatter, kInFlight>(a, c, s0, d0, 0, len);
+  }
+}
+
+using Kernel = void (*)(Args);
+
+template <typename T, bool kScatter>
+Kernel pick(bool vec, int n) {
+  if (vec)
+    return n <= 4 ? ring_direct_kernel<T, true, kScatter, 4>
+                  : ring_direct_kernel<T, true, kScatter, 8>;
+  return n <= 4 ? ring_direct_kernel<T, false, kScatter, 4>
+                : ring_direct_kernel<T, false, kScatter, 8>;
+}
+
+// Resident blocks of ``kernel`` on the current card: about kBlocksPerSm on
+// every SM (as many as its registers allow).  Looked up once per (card,
+// kernel): the lookups cost more host time than a small launch.
+int resident_blocks(Kernel kernel, long long* blocks) {
+  struct Entry {
+    int dev;
+    Kernel kernel;
+    long long blocks;
+  };
+  static std::mutex mu;
+  static std::vector<Entry> cache;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Entry& c : cache)
+    if (c.dev == dev && c.kernel == kernel) {
+      *blocks = c.blocks;
+      return 0;
+    }
+  int sms = 0, per_sm = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      tmr::kThreads, 0);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (per_sm > kBlocksPerSm) per_sm = kBlocksPerSm;
+  *blocks = static_cast<long long>(per_sm) * sms;
+  cache.push_back(Entry{dev, kernel, *blocks});
+  return 0;
+}
+
+// Grid (B, n): the card's resident blocks shared by the n chunks, and no
+// more blocks for a chunk than it has units for.
+int run(Kernel kernel, const Args& a, long long units, cudaStream_t st) {
+  long long resident = 0;
+  const int e = resident_blocks(kernel, &resident);
+  if (e != 0) return e;
+  long long B = (resident + a.n - 1) / a.n;
+  const long long need = (units + tmr::kThreads - 1) / tmr::kThreads;
+  if (B > need) B = need;
+  if (B < 1) B = 1;
+  kernel<<<dim3(static_cast<unsigned>(B), a.n), tmr::kThreads, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kScatter>
+int launch_typed(const Args& a, int* vec_out, cudaStream_t st) {
+  constexpr uintptr_t sz = sizeof(T);
+  const uintptr_t mis =
+      reinterpret_cast<uintptr_t>(a.x) | reinterpret_cast<uintptr_t>(a.o) |
+      static_cast<uintptr_t>(a.ldx) * sz | static_cast<uintptr_t>(a.ldo) * sz |
+      static_cast<uintptr_t>(a.seg) * sz;
+  const bool vec = (mis & 15) == 0;
+  *vec_out = vec ? 1 : 0;
+  // Units of the longest chunk (the first), a vector's tail included.
+  const long long len = a.seg < a.L ? a.seg : a.L;
+  return run(pick<T, kScatter>(vec, a.n), a, vec ? len / (16 / sz) + 1 : len,
+             st);
+}
+
+// dtype: 0 float32, 1 bfloat16, 2 int32.
+int launch(int dtype, bool scatter, const Args& a, int* vec_out,
+           void* stream) {
+  if (a.n < 2 || a.n > 65535 || a.L < 1 || a.seg < 1 || a.ldx < 0 ||
+      a.L > static_cast<long long>(a.n) * a.seg || vec_out == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype * 2 + (scatter ? 1 : 0)) {
+    case 0: return launch_typed<float, false>(a, vec_out, st);
+    case 1: return launch_typed<float, true>(a, vec_out, st);
+    case 2: return launch_typed<__nv_bfloat16, false>(a, vec_out, st);
+    case 3: return launch_typed<__nv_bfloat16, true>(a, vec_out, st);
+    case 4: return launch_typed<int, false>(a, vec_out, st);
+    case 5: return launch_typed<int, true>(a, vec_out, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// Row 8: x [n, L] (row stride ldx) -> o [n, L] (row stride ldo >= L), every
+// row the sum; ring chunks of CE elements (CE = C sub_elems of the plan,
+// L <= n CE).  *vec is set to 1 when the 16-byte path ran.
+extern "C" int tm_ring_allreduce_direct(int dtype, const void* x,
+                                        long long ldx, void* o,
+                                        long long ldo, long long L,
+                                        long long CE, int n, int* vec,
+                                        void* stream) {
+  if (ldo < L) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(dtype, false, Args{x, o, ldx, ldo, L, CE, n}, vec, stream);
+}
+
+// Row 9: x [n, n per] (row stride ldx) -> out [n, per] (row stride
+// ldo >= per), row c the sum of every rank's chunk c.  The flagship's ZeRO
+// flats ([n, 486,731,776] f32, per 121,682,944) are 16-byte aligned as
+// allocated, so they take the 16-byte path.
+extern "C" int tm_ring_reduce_scatter_direct(int dtype, const void* x,
+                                             long long ldx, void* out,
+                                             long long ldo, long long per,
+                                             int n, int* vec, void* stream) {
+  if (ldo < per || per < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(dtype, true, Args{x, out, ldx, ldo, n * per, per, n}, vec,
+                stream);
+}

@@ -2,17 +2,17 @@
 // whose buffers are device pointers, (n - 1) steps each; float32, bfloat16
 // and int32.
 //
-// Replaces the four TPU kernels of torchmpi_tpu/ops/ring.py that ZeRO's
+// Replaces three TPU kernels of torchmpi_tpu/ops/ring.py that ZeRO's
 // gradient and parameter legs run, one C launcher each:
 //   tm_ring_reduce_scatter          _ring_reduce_scatter_kernel :310
 //                                   (pallas_call :1045), a whole ring chunk
 //                                   per step;
-//   tm_ring_reduce_scatter_chunked  _ring_reduce_scatter_chunked_kernel :707
-//                                   (:772) through _chunked_pipeline :439,
-//                                   subchunks of ~chunk_bytes;
 //   tm_ring_all_gather              _ring_all_gather_kernel :342 (:1097);
 //   tm_ring_all_gather_chunked      _ring_all_gather_chunked_kernel :733
-//                                   (:806).
+//                                   (:806) through _chunked_pipeline :439,
+//                                   subchunks of ~chunk_bytes.
+// The fourth, the chunked _ring_reduce_scatter_chunked_kernel :707 (row 9),
+// is a direct reduction in the ring's add order (ring_direct.cu).
 //
 // Layout.  Rank r's ring chunk j holds ``per`` elements, viewed as C
 // subchunks of E elements (C E >= per > (C - 1) E; C = 1 and E >= per for
@@ -195,15 +195,6 @@ extern "C" int tm_ring_reduce_scatter(int dtype, const void* x, void* w,
                                       int B, void* stream) {
   return launch(dtype, true, false,
                 Args{x, w, out, comm, flags, per, E, n, 1, B}, stream);
-}
-
-// Row 9: as row 13 with C subchunks of E elements per ring chunk.
-extern "C" int tm_ring_reduce_scatter_chunked(
-    int dtype, const void* x, void* w, void* out, void* comm,
-    unsigned* flags, long long per, long long E, int C, int n, int B,
-    void* stream) {
-  return launch(dtype, true, true,
-                Args{x, w, out, comm, flags, per, E, n, C, B}, stream);
 }
 
 // Row 14: shards x [n, per] -> out [n, n, per], slots of E >= per elements.

@@ -8,27 +8,34 @@ rank-major stack ``xs[i]`` = rank i's tensor (the JAX package's eager mode,
 them: the peers are device pointers, so the same kernels and protocol serve
 peers over NVLink once their pointers are exchanged (ROADMAP queue B).
 
-Four CUDA kernels (``ops/csrc/ring_allreduce.cu``, one C launcher each)
-replace the four Pallas allreduce kernels:
+Three CUDA kernels (``ops/csrc/ring_allreduce.cu``, one C launcher each)
+walk the ring as the Pallas allreduce kernels do:
 
 - ``ring_allreduce`` (row 11): ``_ring_allreduce_kernel`` :265, one
   direction, a whole ring chunk per step;
 - ``ring_allreduce_bidir`` (row 12): ``_ring_allreduce_bidir_kernel`` :203,
   halves ``flat[:L//2]`` and ``flat[L//2:]`` in opposite directions;
-- ``ring_allreduce_chunked`` (row 8): ``_ring_allreduce_chunked_kernel``
-  :511, ring chunks streamed in C subchunks through two comm slots;
 - ``ring_allreduce_bidir_chunked`` (row 7):
-  ``_ring_allreduce_bidir_chunked_kernel`` :534, both.
+  ``_ring_allreduce_bidir_chunked_kernel`` :534, both halves, ring chunks
+  streamed in C subchunks through two comm slots.
 
-Four more (``ops/csrc/ring_rs_ag.cu``) replace the reduce-scatter and
+Three more (``ops/csrc/ring_rs_ag.cu``) walk it for the reduce-scatter and
 all-gather kernels that ZeRO's legs run:
 
 - ``ring_reduce_scatter`` (row 13): ``_ring_reduce_scatter_kernel`` :310;
-- ``ring_reduce_scatter_chunked`` (row 9):
-  ``_ring_reduce_scatter_chunked_kernel`` :707;
 - ``ring_all_gather`` (row 14): ``_ring_all_gather_kernel`` :342;
 - ``ring_all_gather_chunked`` (row 10): ``_ring_all_gather_chunked_kernel``
   :733.
+
+The two rows of the default path that lose the most time to the hops are
+direct reductions (``ops/csrc/ring_direct.cu``): every rank's value of an
+element is loaded and the values are added in the order the ring would
+have added them, so each input is read once and each output written once:
+
+- ``ring_allreduce_chunked`` (row 8): ``_ring_allreduce_chunked_kernel``
+  :511;
+- ``ring_reduce_scatter_chunked`` (row 9):
+  ``_ring_reduce_scatter_chunked_kernel`` :707.
 
 :func:`ring_allreduce`, :func:`ring_reduce_scatter` and
 :func:`ring_all_gather` pick a kernel as the JAX entries do (:926-955,
@@ -43,7 +50,8 @@ CPU interpreter; on a GPU the executed plan is always ``_chunk_plan``'s.
 Every wrapper takes its plain version when, and only when, the tensor it
 was given lies on the CPU; on a CUDA tensor it launches its kernel or
 raises.  Each wrapper call that launches adds one to ``LAUNCHES[name]``.
-The wrappers make no host-device synchronization.
+``VECTOR_LAUNCHES`` counts the direct rows' launches that took their
+16-byte path.  The wrappers make no host-device synchronization.
 """
 
 from __future__ import annotations
@@ -68,6 +76,9 @@ KERNELS = ("ring_allreduce_bidir_chunked", "ring_allreduce_chunked",
            "ring_allreduce", "ring_allreduce_bidir", "ring_reduce_scatter",
            "ring_all_gather")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+# The direct rows (ring_direct.cu), and their launches on the 16-byte path.
+DIRECT = ("ring_allreduce_chunked", "ring_reduce_scatter_chunked")
+VECTOR_LAUNCHES: Dict[str, int] = {name: 0 for name in DIRECT}
 
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
@@ -79,8 +90,9 @@ _MIN_SLICE = 2048
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, VECTOR_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -222,6 +234,7 @@ def _ring_plain(x: torch.Tensor, sign: int) -> torch.Tensor:
 
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_PI = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # dtype, x, o, comm, flags, P, n, B, stream
     "ring_allreduce": ("tm_ring_allreduce", [_I] + [_P] * 4 + [_LL, _I, _I,
@@ -229,19 +242,21 @@ _SIGNATURES = {
     # dtype, x1, x2, o1, o2, comm1, comm2, flags, P1, P2, n, B, stream
     "ring_allreduce_bidir": ("tm_ring_allreduce_bidir",
                              [_I] + [_P] * 7 + [_LL, _LL, _I, _I, _P]),
-    # dtype, x, o, comm, flags, P, E, C, n, B, stream
-    "ring_allreduce_chunked": ("tm_ring_allreduce_chunked",
-                               [_I] + [_P] * 4 + [_LL, _LL, _I, _I, _I, _P]),
+    # dtype, x, ldx, o, ldo, L, CE, n, vec, stream
+    "ring_allreduce_chunked": ("tm_ring_allreduce_direct",
+                               [_I, _P, _LL, _P, _LL, _LL, _LL, _I, _PI,
+                                _P]),
     # dtype, x1, x2, o1, o2, comm1, comm2, flags, P, E, C, n, B, stream
     "ring_allreduce_bidir_chunked": (
         "tm_ring_allreduce_bidir_chunked",
         [_I] + [_P] * 7 + [_LL, _LL, _I, _I, _I, _P]),
-    # dtype, x, w, out, comm, flags, per, E, [C,] n, B, stream
+    # dtype, x, w, out, comm, flags, per, E, n, B, stream
     "ring_reduce_scatter": ("tm_ring_reduce_scatter",
                             [_I] + [_P] * 5 + [_LL, _LL, _I, _I, _P]),
-    "ring_reduce_scatter_chunked": (
-        "tm_ring_reduce_scatter_chunked",
-        [_I] + [_P] * 5 + [_LL, _LL, _I, _I, _I, _P]),
+    # dtype, x, ldx, out, ldo, per, n, vec, stream
+    "ring_reduce_scatter_chunked": ("tm_ring_reduce_scatter_direct",
+                                    [_I, _P, _LL, _P, _LL, _LL, _I, _PI,
+                                     _P]),
     # dtype, x, out, comm, flags, per, E, [C,] n, B, stream
     "ring_all_gather": ("tm_ring_all_gather",
                         [_I] + [_P] * 4 + [_LL, _LL, _I, _I, _P]),
@@ -275,8 +290,6 @@ def _launch(name: str, xs, C: int):
         args = (xs[0], outs[0], comms[0], flags, P[0], n, B)
     elif name == "ring_allreduce_bidir":
         args = (*xs, *outs, *comms, flags, P[0], P[1], n, B)
-    elif name == "ring_allreduce_chunked":
-        args = (xs[0], outs[0], comms[0], flags, P[0], slots[0], C, n, B)
     else:
         args = (*xs, *outs, *comms, flags, P[0], slots[0], C, n, B)
     _call("ring_allreduce", name, args, x0)
@@ -294,6 +307,21 @@ def _call(lib: str, name: str, args, x: torch.Tensor) -> None:
     LAUNCHES[name] += 1
 
 
+def _launch_direct(name: str, x: torch.Tensor, out: torch.Tensor,
+                   ldo: int, *sizes: int) -> torch.Tensor:
+    """Launch direct row ``name`` (ring_direct.cu) from ``x`` [n, L] into
+    ``out`` (its rows ``ldo`` elements apart), and return ``out``; count
+    the launch, and whether it took the 16-byte path.  ``x`` may have any
+    row stride; its elements must be unit-strided or are copied so."""
+    if x.stride(1) != 1 and x.shape[1] > 1:
+        x = x.contiguous()
+    vec = ctypes.c_int(0)
+    _call("ring_direct", name, (x, x.stride(0), out, ldo, *sizes, x.shape[0],
+                                ctypes.byref(vec)), x)
+    VECTOR_LAUNCHES[name] += vec.value
+    return out
+
+
 def _check(flat: torch.Tensor) -> None:
     if flat.dim() != 2 or flat.shape[0] < 2:
         raise ValueError(f"expected a rank-major stack [n >= 2, L], got "
@@ -307,12 +335,26 @@ def _check(flat: torch.Tensor) -> None:
 
 def _run(name: str, flat: torch.Tensor, plan=(), *,
          plain: bool) -> torch.Tensor:
-    """Row ``name`` on ``flat`` [n, L]: split into halves (bidirectional
-    rows), pad each, reduce (kernel, or the plain schedule), unpad,
-    rejoin."""
+    """Row ``name`` on ``flat`` [n, L]: a direct row's kernel reads the
+    unpadded rows; otherwise split into halves (bidirectional rows), pad
+    each, reduce (kernel, or the plain schedule), unpad, rejoin."""
     _check(flat)
-    n = flat.shape[0]
+    n, L = flat.shape
     parts = _halves(flat, name.startswith("ring_allreduce_bidir"))
+    if plan and not (plan[0] > 0 and plan[1] > 0 and max(
+            p.shape[1] for p in parts) <= n * plan[0] * plan[1]):
+        raise ValueError(f"plan (sub_elems {plan[0]}, C {plan[1]}) does not "
+                         f"fit {n} ranks of {L} elements")
+    if name in DIRECT and not plain:
+        if L == 0:
+            return flat.new_empty(n, 0)
+        # Rows 16 bytes apart, so that an aligned input takes the 16-byte
+        # path; the result is the [n, L] view.
+        v = 16 // flat.element_size()
+        ldo = -(-L // v) * v
+        out = flat.new_empty(n, ldo)
+        return _launch_direct(name, flat, out, ldo, L,
+                              plan[0] * plan[1])[:, :L]
     if plan:
         # Chunked: both halves pad to the plan's n C sub_elems (:631, :679).
         sub_elems, C = plan
@@ -465,6 +507,8 @@ def _run_rs(name: str, flat: torch.Tensor, plan=(), *,
     E, C = _slots(per, plan)
     if plain:
         return _rs_plain(_pad_chunks(flat.reshape(n, n, per), C * E))[:, :per]
+    if name in DIRECT:
+        return _launch_direct(name, flat, flat.new_empty(n, per), per, per)
     return _launch_rs_ag(name, flat.contiguous(), per, E, C)
 
 
@@ -522,6 +566,49 @@ def all_gather_chunked(shards, sub_elems: int, C: int):
 def all_gather_chunked_plain(shards, sub_elems: int, C: int):
     return _run_ag("ring_all_gather_chunked", shards, (sub_elems, C),
                    plain=True)
+
+
+# The direct rows' order as torch folds (tests and chip_smoke.py hold them
+# to the ring's plain versions; the main path never runs them).
+
+
+def _fold(x: torch.Tensor, first: int) -> torch.Tensor:
+    """Rows first, first + 1, ..., first + n - 1 (mod n) of ``x`` [n, m],
+    added left to right in x's dtype."""
+    n = x.shape[0]
+    acc = x[first % n].clone()
+    for k in range(1, n):
+        acc = acc + x[(first + k) % n]
+    return acc
+
+
+def allreduce_direct_plain(flat, sub_elems: int, C: int):
+    """Row 8's function in ring_direct.cu's order: each element of ring
+    chunk c (``[c C sub_elems, (c + 1) C sub_elems)``) is the fold of ranks
+    c, c + 1, ..., c + n - 1, on every rank; ``flat`` [n, L] unpadded."""
+    _check(flat)
+    n, L = flat.shape
+    ce = sub_elems * C
+    out = torch.empty_like(flat)
+    for c in range(n):
+        lo, hi = c * ce, min(L, (c + 1) * ce)
+        if lo < hi:
+            out[:, lo:hi] = _fold(flat[:, lo:hi], c)
+    return out
+
+
+def reduce_scatter_direct_plain(flat):
+    """Row 9's function in ring_direct.cu's order: rank c's chunk is the
+    fold of every rank's chunk c in the order c + 1, ..., c + n - 1, c
+    (whatever the plan, which only pads the chunks)."""
+    _check(flat)
+    n, L = flat.shape
+    if L % n:
+        raise ValueError(f"reduce_scatter needs a length divisible by the "
+                         f"{n} ranks, got {L}")
+    per = L // n
+    chunks = flat.reshape(n, n, per)
+    return torch.stack([_fold(chunks[:, c], c + 1) for c in range(n)])
 
 
 WRAPPERS = {

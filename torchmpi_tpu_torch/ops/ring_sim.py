@@ -2,8 +2,10 @@
 
 The port's own numpy copy of the JAX package's ``ops/ring_sim.py`` (the
 port imports nothing of that package).  It executes the slot / ack
-protocol of the chunked ring kernels in ``ops/csrc/ring_allreduce.cu``
-(rows 7 and 8 of the kernel table, the TPU's ``_chunked_pipeline``) in
+protocol of the TPU's chunked ring kernels (``_chunked_pipeline``), which
+``ops/csrc/ring_allreduce.cu`` and ``ring_rs_ag.cu`` run for rows 7 and 10
+of the kernel table (rows 8 and 9 are direct reductions on the card,
+``ring_direct.cu``, and walk no ring) in
 pure numpy: one state machine per rank running the same iteration
 sequence as a kernel block (issue -> pipelined next-issue -> wait ->
 combine/copy -> writeback -> ack), with no iteration cap, driven by an

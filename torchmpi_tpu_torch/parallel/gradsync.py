@@ -17,6 +17,7 @@ from typing import Callable, Iterable, List, Optional, Union
 import torch
 
 from .. import collectives, fusion, runtime
+from ..config import wire_compress
 
 Params = Union[torch.nn.Module, Iterable[torch.Tensor]]
 
@@ -38,18 +39,34 @@ def synchronize_parameters(params: Params, *, root: int = 0,
 
 
 def synchronize_gradients(params: Params, *, op: Optional[str] = None,
-                          backend: Optional[str] = None) -> Params:
+                          backend: Optional[str] = None,
+                          compress: Optional[str] = None) -> Params:
     """Allreduce the ``.grad`` of every parameter across the world, in
     place (reference: ``mpinn.synchronizeGradients``).
 
     ``op`` defaults to mean when ``Config.gradsync_average`` (the reference
     summed, then divided by ``mpi.size()``).  The gradients ride the fused
     collectives (``Config.fuse_max_bytes``): dtype-grouped buckets, one
-    allreduce each.  Parameters without a gradient are skipped."""
+    allreduce each.  Parameters without a gradient are skipped.
+
+    ``compress="bf16"`` (default ``Config.gradsync_compress``) reduces in
+    bfloat16, as the JAX package does (:296-299, :372-382): every gradient
+    is cast to bf16, the bf16 copies sync as their own dtype group, and the
+    result is cast back into ``.grad`` in the gradient's dtype."""
+    cfg = runtime.effective_config()
     if op is None:
-        op = "mean" if runtime.effective_config().gradsync_average else "sum"
+        op = "mean" if cfg.gradsync_average else "sum"
+    if compress is None:
+        compress = cfg.gradsync_compress
+    compress = wire_compress(compress, site="synchronize_gradients")
     grads = [p.grad for p in _param_list(params) if p.grad is not None]
-    fusion.fused_("allreduce", grads, backend=backend, op=op)
+    if compress == "bf16":
+        wire = [g.to(torch.bfloat16) for g in grads]
+        fusion.fused_("allreduce", wire, backend=backend, op=op)
+        for g, w in zip(grads, wire):
+            g.copy_(w)
+    else:
+        fusion.fused_("allreduce", grads, backend=backend, op=op)
     return params
 
 
