@@ -12,9 +12,12 @@ JAX package.  In order it:
    nine sources;
 3. kernel phases: at the flagship LM's attention shapes (B 4, T 2048, 16 q /
    4 kv heads, head_dim 128, causal, window 1024, float32) runs each flash
-   kernel against its plain PyTorch version on the same seeded inputs, and
-   times kernel, plain version and, for the forward, PyTorch's
-   scaled_dot_product_attention with the same mask (the yardstick only);
+   kernel against its plain PyTorch version on the same seeded inputs (the
+   dK/dV kernel also run twice and required bitwise equal), and times
+   kernel, plain version and, as the yardstick only, PyTorch's
+   scaled_dot_product_attention with the same mask: its forward beside the
+   forward kernel, one autograd backward through it (dq, dk and dv
+   together) beside each of the two backward kernels;
    then, at the flagship's LM-head shapes (N 4 x 2047 tokens, E 2048,
    V 32768, bf16), the three fused linear + cross-entropy kernels the same
    way, each also run twice and required bitwise equal, and the dense
@@ -29,8 +32,8 @@ JAX package.  In order it:
    contiguous rows, its element path); then the four ring reduce-scatter and
    all-gather kernels at the flagship's ZeRO shapes (4 ranks, the
    reduce-scatter of 486,731,776 float32 a rank, the all-gather of the
-   121,682,944-element shards) under chunk_bytes 4 MiB (the streamed rows)
-   and 512 MiB (the resident rows), the same way, with the stock
+   121,682,944-element shards) under chunk_bytes 4 MiB (rows 9 and 10,
+   direct) and 512 MiB (the resident rows), the same way, with the stock
    rank-major routes timed beside them;
 4. dense train phase (stage B): mpi.init() (NCCL, world of 1) and three
    data-parallel SGD steps (lr 0.02) of the flagship TransformerLM at full
@@ -65,8 +68,9 @@ JAX package.  In order it:
    the first ZeRO-1 step within 1e-4 (rel. L2 of the updates) of a
    replicated Adam step from the same state (every step's gap reported),
    the loss falling, 0 host syncs in a step, all four kernels launched,
-   every row-9 launch on its 16-byte path; the peak device memory of each
-   leg, and one more update's device time by kernel (torch.profiler);
+   every row-9 and row-10 launch on its 16-byte path; the peak device
+   memory of each leg, and one more update's device time by kernel
+   (torch.profiler);
 9. prints the kernels' summary line, then {"ok": true, "device": ...}.
 
 Each phase prints one JSON line.  Any failed check raises and the script
@@ -133,12 +137,15 @@ ZERO_ROWS = {
 }
 ZERO_SMALL = 300_000  # elements per rank of the bf16 and int32 passes
 # Recorded constants, not measured here: the times and figures of the
-# ring-walking kernels the two direct rows (ring_direct.cu) replaced, at the
-# same shapes and by the same time_ms (PERF.md's kernel table and section
-# 5, H100 80GB HBM3 at 700 W).  The output prints them under ring_recorded_*
-# keys (earlier_ms in the kernel rows).
+# kernels that the redesigned rows replaced (the ring-walking kernels of
+# rows 8, 9 and 10, the f32-FMA dK/dV kernel of row 3), at the same shapes
+# and by the same time_ms (PERF.md's kernel table and section 5, H100 80GB
+# HBM3 at 700 W).  The output prints them under ring_recorded_* keys
+# (earlier_ms in the kernel rows).
 RING_RECORDED_MS = {"ring_allreduce_chunked": 0.731,
-                    "ring_reduce_scatter_chunked": 23.480}
+                    "ring_reduce_scatter_chunked": 23.480,
+                    "ring_all_gather_chunked": 14.340}
+FLASH_RECORDED_MS = {"flash_bwd_dkv": 6.005}
 RING_RECORDED_DP_SYNC_MS = 60.5
 RING_RECORDED_ZERO_PEAK_GB = 33.20
 ZERO_LR = 1e-3  # Adam, as benchmarks/memory_bench.py :58
@@ -168,7 +175,7 @@ SOURCES = {
                              "torchmpi_tpu/ops/ring.py:203"),
     "ring_reduce_scatter_chunked": ("torchmpi_tpu_torch/ops/csrc/ring_direct.cu",
                                     "torchmpi_tpu/ops/ring.py:707"),
-    "ring_all_gather_chunked": ("torchmpi_tpu_torch/ops/csrc/ring_rs_ag.cu",
+    "ring_all_gather_chunked": ("torchmpi_tpu_torch/ops/csrc/ring_direct.cu",
                                 "torchmpi_tpu/ops/ring.py:733"),
     "ring_reduce_scatter": ("torchmpi_tpu_torch/ops/csrc/ring_rs_ag.cu",
                             "torchmpi_tpu/ops/ring.py:310"),
@@ -285,8 +292,11 @@ def kernel_phase(torch, flash, dev):
     dq = flash.flash_bwd_dq(q, k, v, do, lse, dvec, **kw)
     dq_ref = flash.flash_bwd_dq_plain(q, k, v, do, lse, dvec, **kw)
     dk, dv = flash.flash_bwd_dkv(q, k, v, do, lse, dvec, **kw)
+    dk2, dv2 = flash.flash_bwd_dkv(q, k, v, do, lse, dvec, **kw)
     dk_ref, dv_ref = flash.flash_bwd_dkv_plain(q, k, v, do, lse, dvec, **kw)
     torch.cuda.synchronize()
+    dkv_bitwise = torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    del dk2, dv2
 
     # Live (q, k) pairs of this mask, counted from the mask itself.
     pos = torch.arange(T, device=dev)
@@ -320,14 +330,28 @@ def kernel_phase(torch, flash, dev):
             lambda: flash.flash_bwd_dkv(q, k, v, do, lse, dvec, **kw),
             lambda: flash.flash_bwd_dkv_plain(q, k, v, do, lse, dvec, **kw)),
     }
-    # Yardstick for the forward: one PyTorch call on the same inputs and
-    # mask (never used by the port).
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    # Yardsticks (never used by the port): one PyTorch call on the same
+    # inputs and mask for the forward, and one autograd backward through
+    # that call for the backward kernels.  No PyTorch call computes dq or
+    # dk / dv alone: the backward's time is for all three, so it compares
+    # with rows 2 and 3 together.
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
     def sdpa():
         return torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=live, scale=kw["scale"], enable_gqa=True)
 
-    sdpa_err = max_err(sdpa().transpose(1, 2), o)
+    with torch.no_grad():
+        sdpa_err = max_err(sdpa().transpose(1, 2), o)
+    sdpa_out, do_t = sdpa(), do.transpose(1, 2)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(sdpa_out, (qt, kt, vt), do_t,
+                                   retain_graph=True)
+
+    library_ms = {"flash_fwd": time_ms(torch, torch.no_grad()(sdpa))}
+    library_ms["flash_bwd_dq"] = library_ms["flash_bwd_dkv"] = time_ms(
+        torch, sdpa_bwd)
 
     rows = []
     for name, (kern, plain) in runs.items():
@@ -341,14 +365,19 @@ def kernel_phase(torch, flash, dev):
             "ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
             "bound_ms": max(t_op, t_b),
             "bound_by": "operations" if t_op >= t_b else "bytes",
-            "library_ms": (time_ms(torch, sdpa) if name == "flash_fwd"
-                           else None),
+            "library_ms": library_ms[name],
+            "library_call": ("sdpa forward" if name == "flash_fwd" else
+                             "sdpa backward: dq + dk + dv together"),
             "flops": flops, "bytes": nb,
         }
         if lse_err is not None:
             row["lse_max_abs_err"] = lse_err
             row["sdpa_max_abs_err"] = sdpa_err
+        if name == "flash_bwd_dkv":
+            row["bitwise_repeat"] = dkv_bitwise
+            row["earlier_ms"] = FLASH_RECORDED_MS[name]
         rows.append(row)
+    del sdpa_out, qt, kt, vt
     emit({"phase": "kernels", "shape": dict(B=B, T=T, H=H, Hkv=Hkv, D=D,
                                             window=W, dtype="float32"),
           "live_pairs": pairs, "launches_in_phase": dict(flash.LAUNCHES),
@@ -359,6 +388,7 @@ def kernel_phase(torch, flash, dev):
               f"{row['tolerance']}")
     check(errs["flash_fwd"][2] <= KERNEL_RTOL * float(lse.abs().max()),
           "flash_fwd lse disagrees with the plain version")
+    check(dkv_bitwise, "flash_bwd_dkv: two calls differ")
     return rows
 
 
@@ -682,6 +712,7 @@ def ring_kernel_phase(torch, ring, dev):
             # The stock rank-major route computes the same function: the
             # rank-axis sum, copied to every rank.
             "library_ms": time_ms(torch, lambda: x.sum(0).expand_as(x).clone()),
+            "library_call": "x.sum(0) copied to every rank",
             **extra,
         })
     emit({"phase": "ring_kernels", "ranks": n, "elems_per_rank": L,
@@ -751,14 +782,16 @@ def ring_rs_ag_kernel_phase(torch, ring, dev):
             del ref
             extra = {"design": "ring"}
             if direct:
-                # The direct kernel: its own torch fold and its 16-byte
-                # path (the flats are aligned as allocated).
+                # The direct kernel: its own torch fold (copy for the
+                # all-gather) and its 16-byte path (the flats and shards
+                # are aligned as allocated).
+                fold = (ring.reduce_scatter_direct_plain if rs
+                        else ring.all_gather_direct_plain)
                 extra = {
                     "design": "direct",
                     "vector_launches": ring.VECTOR_LAUNCHES[name] - vec0,
                     "launches_checked": 2,
-                    "fold_bitwise": torch.equal(
-                        out, ring.reduce_scatter_direct_plain(x)),
+                    "fold_bitwise": torch.equal(out, fold(x)),
                     "earlier_ms": RING_RECORDED_MS[name]}
             rows_equal = rs or all(torch.equal(out[r], out[0])
                                    for r in range(1, n))
@@ -791,11 +824,14 @@ def ring_rs_ag_kernel_phase(torch, ring, dev):
                 sched_bytes = (fn_bytes if direct else
                                n * S * (2 + (5 * (n - 1) + 2) / n))
                 library = lambda: x.view(n, n, -1).sum(0)  # noqa: E731
+                library_call = "x.view(n, n, -1).sum(0)"
             else:
                 fn_bytes = 4 * (n * L + n * n * L)
-                sched_bytes = n * S * (2 + 4 * (n - 1))
+                sched_bytes = (fn_bytes if direct else
+                               n * S * (2 + 4 * (n - 1)))
                 library = lambda: x.unsqueeze(0).expand(  # noqa: E731
                     n, n, L).clone()
+                library_call = "shards expanded to every rank, copied"
             ms = time_ms(torch, kern)
             rows.append({
                 "name": name, "route": "cuda", "source": SOURCES[name][0],
@@ -815,6 +851,7 @@ def ring_rs_ag_kernel_phase(torch, ring, dev):
                 # The stock rank-major route: the rank-axis sum of the
                 # [rank, tile] view / a copy of the stack per rank.
                 "library_ms": time_ms(torch, library),
+                "library_call": library_call,
                 **extra,
             })
             del x
@@ -1174,9 +1211,11 @@ def zero_dp_phase(torch, mpi, ops, dev, ring_sync_ms):
         restore()
         mpi.set_config(chunk_bytes=ZERO_CONFIGS["chunked"])
     launches = {k: v - excluded[k] for k, v in counts().items()}
-    row9 = "ring_reduce_scatter_chunked"
-    # Every launch of the phase, the checks' included.
-    row9_launches = (ring.LAUNCHES[row9], ring.VECTOR_LAUNCHES[row9])
+    # Every launch of the direct rows in the phase, the checks' included,
+    # and those on the 16-byte path.
+    vector = {nm: {"all": ring.LAUNCHES[nm],
+                   "vector": ring.VECTOR_LAUNCHES[nm]}
+              for nm in ZERO_ROWS["chunked"]}
     peak = max(log.peak, torch.cuda.max_memory_allocated())
     losses = [float(v) for v in losses]
     main = [e for e in log if e["label"] != "check"]
@@ -1240,8 +1279,7 @@ def zero_dp_phase(torch, mpi, ops, dev, ring_sync_ms):
           "ring_recorded_peak_mem_gb_step": RING_RECORDED_ZERO_PEAK_GB,
           "host_syncs_per_step": syncs, "launches": launches,
           "check_launches": excluded,
-          "row9_launches_on_16_byte_path": {"all": row9_launches[0],
-                                            "vector": row9_launches[1]}})
+          "launches_on_16_byte_path": vector})
     check(all(e["bitwise"] for e in log)
           and len(main) == 2 * len(schedule) + 1,
           "a ZeRO reduce-scatter or all-gather differs from the plain ring")
@@ -1258,9 +1296,9 @@ def zero_dp_phase(torch, mpi, ops, dev, ring_sync_ms):
     for name in rows:
         check(launches[name] > 0, f"kernel {name} never launched on the "
               f"ZeRO path")
-    check(row9_launches[0] == row9_launches[1],
-          f"{row9}: {row9_launches[1]} of {row9_launches[0]} launches on "
-          f"the 16-byte path")
+    for name, c in vector.items():
+        check(c["all"] == c["vector"], f"{name}: {c['vector']} of "
+              f"{c['all']} launches on the 16-byte path")
     return launches
 
 
@@ -1321,10 +1359,13 @@ def main() -> int:
     finally:
         mpi.stop()
 
+    # library_call says what library_ms timed: for rows 2 and 3 it is one
+    # backward that computes dq, dk and dv together.
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    kernels = [{k: dict(row, launches=launches[row["name"]])[k] for k in keys}
-               for row in rows]
+    kernels = [{**{k: dict(row, launches=launches[row["name"]])[k]
+                   for k in keys},
+                "library_call": row.get("library_call")} for row in rows]
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

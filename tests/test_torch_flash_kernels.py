@@ -43,6 +43,18 @@ CASES = [
     (2, 96, 160, 8, 2, 128, True, 40, 64, 0),       # offsets, Tq != Tkv
     (1, 257, 257, 4, 4, 128, True, 1, 0, 0),        # window 1: diagonal
     (1, 33, 70, 2, 2, 64, True, None, 0, 20),       # rows with no key
+    # flash_bwd_dkv's tiles: 64 keys a block, 32 q rows a step, mma tiles
+    # of 16 keys x 8 rows or columns, k-steps of 8.  Lengths one short of
+    # and one past each tile edge, a GQA group of 8 on one kv head, D 16
+    # (one pair of k-steps), non-causal blocks (never masked but at the
+    # ragged edge), and offsets, at every head dim.
+    (1, 45, 77, 8, 1, 16, False, None, 0, 0),
+    (1, 33, 65, 4, 2, 32, False, None, 0, 0),
+    (2, 31, 63, 8, 1, 128, True, None, 40, 0),
+    (2, 100, 130, 8, 1, 64, True, None, 30, 0),
+    (1, 96, 96, 4, 4, 16, True, 17, 5, 5),
+    (1, 64, 64, 2, 1, 128, True, 40, 0, 0),
+    (1, 160, 200, 8, 1, 64, False, None, 0, 0),
 ]
 
 
@@ -71,12 +83,38 @@ def test_kernels_match_plain(cuda, case):
     dq = flash.flash_bwd_dq(q, k, v, do, lse, dvec, **kw)
     _close(dq, flash.flash_bwd_dq_plain(q, k, v, do, lse, dvec, **kw), "dq")
     dk, dv = flash.flash_bwd_dkv(q, k, v, do, lse, dvec, **kw)
+    dk2, dv2 = flash.flash_bwd_dkv(q, k, v, do, lse, dvec, **kw)
     dk_ref, dv_ref = flash.flash_bwd_dkv_plain(q, k, v, do, lse, dvec, **kw)
     _close(dk, dk_ref, "dk")
     _close(dv, dv_ref, "dv")
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2), "two calls differ"
     torch.cuda.synchronize()
-    assert all(flash.LAUNCHES[n] == before[n] + 1 for n in before)
+    twice = {"flash_bwd_dkv": 2}
+    assert all(flash.LAUNCHES[n] == before[n] + twice.get(n, 1)
+               for n in before)
     assert torch.isfinite(o).all() and torch.isfinite(dq).all()
+
+
+def _bwd_inputs(dev, B, Tq, Tkv, H, Hkv, D, kw, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, Tq, H, D, generator=g, device=dev)
+    k = torch.randn(B, Tkv, Hkv, D, generator=g, device=dev)
+    v = torch.randn(B, Tkv, Hkv, D, generator=g, device=dev)
+    do = torch.randn(B, Tq, H, D, generator=g, device=dev)
+    o, lse = flash.flash_fwd_plain(q, k, v, **kw)
+    dvec = torch.einsum("bqhd,bqhd->bhq", do, o).contiguous()
+    return q, k, v, do, lse, dvec
+
+
+def test_bwd_dkv_rejects_unaligned_rows(cuda):
+    """The dK/dV kernel copies rows in 16-byte pieces: a contiguous q that
+    starts 4 bytes into its storage is refused, not read misaligned."""
+    kw = dict(scale=0.25, causal=True)
+    q, k, v, do, lse, dvec = _bwd_inputs(cuda, 1, 8, 8, 2, 2, 16, kw, 5)
+    shifted = torch.empty(q.numel() + 1, device=cuda)[1:].view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="aligned"):
+        flash.flash_bwd_dkv(shifted, k, v, do, lse, dvec, **kw)
 
 
 def test_autograd_matches_dense_oracle(cuda):

@@ -1,4 +1,4 @@
-"""The add order of the direct ring rows (rows 8 and 9 of the kernel
+"""The add order of the direct ring rows (rows 8, 9 and 10 of the kernel
 table, ``ops/csrc/ring_direct.cu``) on the CPU.
 
 The CUDA kernels do not walk the ring: they load every rank's value of an
@@ -7,7 +7,11 @@ versions, ``ring.allreduce_direct_plain`` and
 ``ring.reduce_scatter_direct_plain``, are torch folds in that order; here
 they are held bitwise to the ring's own plain versions (the step-by-step
 schedules), chunked and resident, over ring sizes, dtypes, ragged and
-aligned lengths, plans and a row-padded (strided) input.  The ring's plain
+aligned lengths, plans and a row-padded (strided) input.  Row 10, the
+all-gather, adds nothing: its kernel stores each shard to every rank, and
+its torch form ``ring.all_gather_direct_plain`` (the shards expanded to
+[n, n, per]) is held bitwise to the ring's step-by-step all-gather on
+padded and unpadded plans.  The ring's plain
 versions are held bitwise to the JAX kernels by tests/test_torch_ring*.py,
 and the kernels to the plain versions on the card by the ``gpu``-marked
 tests/test_torch_ring_kernels.py and tests/test_torch_ring_rs_ag_kernels.py.
@@ -89,3 +93,31 @@ def test_direct_order_equals_the_ring(n, dtype, row, L):
                 assert torch.equal(got[0], want)
             else:
                 assert torch.equal(got.reshape(-1), want)
+
+
+# Shard lengths of the all-gather: 4096 fills its plan (C 4 of 1024, no
+# padding), 5000 and 20_001 pad the last subchunk.
+GATHER_LENGTHS = (4096, 5000, 20_001)
+
+
+@pytest.mark.parametrize("per", GATHER_LENGTHS)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("n", [2, 3, 4, 5, 8, 11])
+def test_direct_gather_equals_the_ring(n, dtype, per):
+    dt = DTYPES[dtype]
+    name, plan = ring.schedule_all_gather(per, n, dt,
+                                          chunk_bytes=4096 * dt.itemsize // 4)
+    assert name == "ring_all_gather_chunked", (n, per)
+    E, C = plan
+    assert (C * E == per) == (per == 4096), plan
+    for pad in (0, 3):
+        x = _stack(n, per, dt, seed=n * 100 + per + pad, pad=pad)
+        got = ring.all_gather_direct_plain(x)
+        assert got.shape == (n, n, per) and got.dtype == dt
+        assert got.is_contiguous()
+        assert torch.equal(got, ring.all_gather_chunked_plain(
+            x.contiguous(), *plan))
+        assert torch.equal(got, ring.all_gather_resident_plain(
+            x.contiguous()))
+        for r in range(n):
+            assert torch.equal(got[r], x)

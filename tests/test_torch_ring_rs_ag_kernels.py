@@ -11,12 +11,13 @@ on its own:
 n ranks' buffers sit on the one card, rank-major; one launch runs the whole
 ring.  The reduce-scatter adds in the schedule's order, as the plain
 version does, and the all-gather only copies, so every comparison is
-bitwise, for float32, bfloat16 and int32.  Row 9
-(``ring_reduce_scatter_chunked``) walks no ring: its kernel
-(ring_direct.cu) folds every rank's value of an element in the ring's
-order, on a 16-byte path where the rows are aligned and element by element
-otherwise.  The CPU parity of the plain
-versions with the JAX package is tests/test_torch_ring_rs_ag.py.
+bitwise, for float32, bfloat16 and int32.  Rows 9 and 10
+(``ring_reduce_scatter_chunked``, ``ring_all_gather_chunked``) walk no
+ring: their kernel (ring_direct.cu) folds every rank's value of an element
+in the ring's order, or stores each shard to every rank, on a 16-byte path
+where the rows are aligned and element by element otherwise.  The CPU
+parity of the plain versions with the JAX package is
+tests/test_torch_ring_rs_ag.py.
 """
 
 import pytest
@@ -144,6 +145,37 @@ def test_direct_reduce_scatter_paths(cuda, n, per, pad):
     before = ring.LAUNCHES[name]
     got = ring.reduce_scatter_chunked(torch.ones(n, 0, device=cuda), 1024, 2)
     assert got.shape == (n, 0) and ring.LAUNCHES[name] == before
+
+
+@pytest.mark.parametrize("n", [2, 3, 4, 8, 11])
+@pytest.mark.parametrize("per,pad", DIRECT_CASES, ids=lambda v: str(v))
+def test_direct_all_gather_paths(cuda, n, per, pad):
+    """Row 10 (ring_direct.cu's gather): an odd shard, or shards one
+    element apart, take the element path; aligned shards of aligned length
+    the 16-byte path."""
+    name = "ring_all_gather_chunked"
+    for i, dtype in enumerate(DTYPES):
+        v = 16 // dtype.itemsize
+        width = -(-per // v) * v + v if pad == "align" else per + pad
+        x = _stack(cuda, (n, width), dtype, seed=n * 20 + i)[:, :per]
+        plan = _plan(name, n, per, dtype, 4096)
+        vector = ((x.stride(0) * dtype.itemsize) % 16 == 0
+                  and (per * dtype.itemsize) % 16 == 0)
+        before = dict(ring.LAUNCHES), dict(ring.VECTOR_LAUNCHES)
+        got = ring.all_gather_chunked(x, *plan)
+        again = ring.all_gather_chunked(x, *plan)
+        want = ring.all_gather_chunked_plain(x, *plan)
+        torch.cuda.synchronize()
+        assert ring.LAUNCHES[name] == before[0][name] + 2
+        assert ring.VECTOR_LAUNCHES[name] == before[1][name] + 2 * vector
+        assert got.shape == (n, n, per) and got.dtype == dtype
+        assert torch.equal(got, want), f"n={n} per={per} {dtype}"
+        assert torch.equal(got, again), f"n={n} per={per} {dtype}: repeat"
+        assert torch.equal(got, ring.all_gather_direct_plain(x))
+    # An empty shard launches nothing.
+    before = ring.LAUNCHES[name]
+    got = ring.all_gather_chunked(torch.ones(n, 0, device=cuda), 1024, 2)
+    assert got.shape == (n, n, 0) and ring.LAUNCHES[name] == before
 
 
 def test_entry_points_schedule_every_row(cuda):

@@ -50,6 +50,21 @@ __device__ __forceinline__ bool block_live(const Band& b, int q_first, int bq,
   return live;
 }
 
+// Does that block hold NO masked score (JAX's _block_full)?  Then the
+// mask is the identity and a kernel may skip it: every key inside the kv
+// length, in the causal past of the block's first q row, and (window)
+// inside the window of its last q row.
+__device__ __forceinline__ bool block_full(const Band& b, int q_first, int bq,
+                                           int k_first, int bk) {
+  const int k_last = k_first + (bk - 1);
+  bool full = k_last < b.kv_offset + b.kv_len;
+  if (b.causal) {
+    full = full && k_last <= q_first;
+    if (b.window > 0) full = full && q_first + (bq - 1) - k_first < b.window;
+  }
+  return full;
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));

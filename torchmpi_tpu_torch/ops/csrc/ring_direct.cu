@@ -1,12 +1,15 @@
-// ring_direct: the chunked ring allreduce and the chunked ring reduce-scatter
-// as direct reductions in the ring's add order, over n ranks whose buffers
-// are device pointers; float32, bfloat16 and int32.
+// ring_direct: the chunked ring allreduce, reduce-scatter and all-gather as
+// direct reductions and copies, in the ring's add order, over n ranks whose
+// buffers are device pointers; float32, bfloat16 and int32.
 //
-// Replaces two TPU kernels of torchmpi_tpu/ops/ring.py, one C launcher each:
+// Replaces three TPU kernels of torchmpi_tpu/ops/ring.py, one C launcher
+// each:
 //   tm_ring_allreduce_direct       _ring_allreduce_chunked_kernel :511
 //                                  (pallas_call :686), row 8;
 //   tm_ring_reduce_scatter_direct  _ring_reduce_scatter_chunked_kernel :707
-//                                  (pallas_call :772), row 9.
+//                                  (pallas_call :772), row 9;
+//   tm_ring_all_gather_direct      _ring_all_gather_chunked_kernel :733
+//                                  (pallas_call :806), row 10.
 //
 // The TPU kernels move a ring chunk hop by hop with remote DMAs.  On one
 // card (and across the cards of an NVSwitch node, where every GPU reaches
@@ -22,24 +25,29 @@
 // Each add is Elem<T>'s (ring_common.cuh: float32, bfloat16 rounded after
 // every add, int32 wrapping), so the result is bitwise the ring kernels',
 // the plain versions' and the JAX kernels'.  The padding the TPU layout adds
-// is never read or written: zeros would only be added to zeros.
+// is never read or written: zeros would only be added to zeros.  The
+// all-gather adds nothing: chunk s is rank s's shard, loaded once and stored
+// to slice s of every rank's output (_ag_plain's result), so it is bitwise
+// for any dtype.
 //
-// One kernel, grid (B, n): blockIdx.y is the ring chunk, and the B blocks
-// of a chunk share its units in a grid-stride loop.  Every thread issues
-// up to kInFlight ranks' loads of its unit before the first add that
-// consumes them.  A unit is a 16-byte vector when every source and
-// destination row, the row strides and the chunk length are 16-byte
-// aligned (the fused sync's buckets and ZeRO's flats are), the chunk's
-// last elements (fewer than one vector) then taken one by one; otherwise
-// a unit is one element.  Loads go through the read-only path, stores are
-// plain: evict-first loads and stores (__ldcs / __stcs) timed slower at
-// the flagship's shapes on an H100.
+// One kernel, grid (B, n): blockIdx.y is the ring chunk (the all-gather's
+// source rank), and the B blocks of a chunk share its units in a
+// grid-stride loop.  Every thread issues up to kInFlight ranks' loads of
+// its unit before the first add that consumes them.  A unit is a 16-byte
+// vector when every source and destination row, the row strides and the
+// chunk length are 16-byte aligned (the fused sync's buckets and ZeRO's
+// flats and shards are), the chunk's last elements (fewer than one vector)
+// then taken one by one; otherwise a unit is one element.  Loads go
+// through the read-only path, stores are plain: evict-first loads and
+// stores (__ldcs / __stcs) timed slower at the flagship's shapes on an
+// H100.
 //
 // What bounds it: bytes.  Every input element is read once and every
 // output element written once, which is the function's own traffic:
 // 2 n L itemsize for the allreduce of n ranks' L elements, (n + 1) n per
-// itemsize for the reduce-scatter.  The ring schedule on one card moved
-// 4.4 and 5 times as much (ring_allreduce.cu, ring_rs_ag.cu).  A version
+// itemsize for the reduce-scatter, (n + n^2) per itemsize for the
+// all-gather of n shards of per.  The ring schedule on one card moved
+// 2.8 to 5 times as much (ring_allreduce.cu, ring_rs_ag.cu).  A version
 // whose 16-byte loads were TMA bulk copies into shared-memory stages on
 // mbarriers gained a few percent at the kernel, under 1% of the gradient
 // sync, for three times the code, so this one stays.
@@ -53,11 +61,14 @@ namespace {
 
 constexpr int kBlocksPerSm = 4;
 
+// What a launch computes.
+enum Mode { kAllreduce, kScatter, kGather };
+
 struct Args {
-  const void* x;  // [n, ldx]: rank r's L elements at x + r ldx
-  void* o;        // allreduce: [n, ldo], every rank's sum; RS: [n, ldo]
+  const void* x;  // [n, ldx]: rank r's elements at x + r ldx
+  void* o;        // [n, ldo]: rank r's output row at o + r ldo
   long long ldx, ldo;
-  long long L;    // elements a rank holds
+  long long L;    // elements of a rank's input row (AG: of its output row)
   long long seg;  // elements of one ring chunk (CE, or per)
   int n;
 };
@@ -102,22 +113,27 @@ __device__ __forceinline__ U fold(const T* __restrict__ x, long long ldx,
 }
 
 // Units [lo, hi) of ring chunk c: fold, then store to every rank's row
-// (allreduce) or to rank c's row (reduce-scatter).  ``U`` is uint4 on the
+// (allreduce) or to rank c's row (reduce-scatter); the all-gather loads
+// rank c's unit and stores it to every rank's row.  ``U`` is uint4 on the
 // 16-byte path, T otherwise; offsets count units.
-template <typename T, typename U, bool kScatter, int kInFlight>
+template <typename T, typename U, Mode kMode, int kInFlight>
 __device__ __forceinline__ void reduce_units(const Args& a, int c,
                                              long long src, long long dst,
                                              long long lo, long long hi) {
   const T* x = static_cast<const T*>(a.x);
   T* o = static_cast<T*>(a.o);
   const int n = a.n;
-  const int first = kScatter ? (c + 1 == n ? 0 : c + 1) : c;
+  const int first = kMode == kScatter ? (c + 1 == n ? 0 : c + 1) : c;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long j = lo + static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
        j < hi; j += stride) {
-    const U acc = fold<T, U, kInFlight>(x, a.ldx, src + j, first, n);
-    if (kScatter) {
+    U acc;
+    if constexpr (kMode == kGather)
+      acc = ld(reinterpret_cast<const U*>(x + c * a.ldx) + src + j);
+    else
+      acc = fold<T, U, kInFlight>(x, a.ldx, src + j, first, n);
+    if constexpr (kMode == kScatter) {
       reinterpret_cast<U*>(o + c * a.ldo)[dst + j] = acc;
     } else {
 #pragma unroll 4
@@ -127,35 +143,41 @@ __device__ __forceinline__ void reduce_units(const Args& a, int c,
   }
 }
 
-template <typename T, bool kVec, bool kScatter, int kInFlight>
+template <typename T, bool kVec, Mode kMode, int kInFlight>
 __global__ void __launch_bounds__(tmr::kThreads)
 ring_direct_kernel(Args a) {
   const int c = blockIdx.y;
   const long long s0 = c * a.seg;
   const long long len = a.L - s0 < a.seg ? a.L - s0 : a.seg;
   if (len <= 0) return;
-  // The chunk's first element in the destination row.
-  const long long d0 = kScatter ? 0 : s0;
+  // The chunk's first element in the source row (the all-gather's source
+  // row is the shard itself) and in the destination row.
+  const long long x0 = kMode == kGather ? 0 : s0;
+  const long long d0 = kMode == kScatter ? 0 : s0;
   if (kVec) {
     constexpr int V = 16 / sizeof(T);
     const long long nv = len / V;
-    reduce_units<T, uint4, kScatter, kInFlight>(a, c, s0 / V, d0 / V, 0,
-                                                nv);
-    reduce_units<T, T, kScatter, kInFlight>(a, c, s0, d0, nv * V, len);
+    reduce_units<T, uint4, kMode, kInFlight>(a, c, x0 / V, d0 / V, 0, nv);
+    reduce_units<T, T, kMode, kInFlight>(a, c, x0, d0, nv * V, len);
   } else {
-    reduce_units<T, T, kScatter, kInFlight>(a, c, s0, d0, 0, len);
+    reduce_units<T, T, kMode, kInFlight>(a, c, x0, d0, 0, len);
   }
 }
 
 using Kernel = void (*)(Args);
 
-template <typename T, bool kScatter>
+template <typename T, Mode kMode>
 Kernel pick(bool vec, int n) {
-  if (vec)
-    return n <= 4 ? ring_direct_kernel<T, true, kScatter, 4>
-                  : ring_direct_kernel<T, true, kScatter, 8>;
-  return n <= 4 ? ring_direct_kernel<T, false, kScatter, 4>
-                : ring_direct_kernel<T, false, kScatter, 8>;
+  if constexpr (kMode == kGather) {  // one load a unit: none kept in flight
+    return vec ? ring_direct_kernel<T, true, kMode, 1>
+               : ring_direct_kernel<T, false, kMode, 1>;
+  } else {
+    if (vec)
+      return n <= 4 ? ring_direct_kernel<T, true, kMode, 4>
+                    : ring_direct_kernel<T, true, kMode, 8>;
+    return n <= 4 ? ring_direct_kernel<T, false, kMode, 4>
+                  : ring_direct_kernel<T, false, kMode, 8>;
+  }
 }
 
 // Resident blocks of ``kernel`` on the current card: about kBlocksPerSm on
@@ -205,7 +227,7 @@ int run(Kernel kernel, const Args& a, long long units, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool kScatter>
+template <typename T, Mode kMode>
 int launch_typed(const Args& a, int* vec_out, cudaStream_t st) {
   constexpr uintptr_t sz = sizeof(T);
   const uintptr_t mis =
@@ -216,24 +238,26 @@ int launch_typed(const Args& a, int* vec_out, cudaStream_t st) {
   *vec_out = vec ? 1 : 0;
   // Units of the longest chunk (the first), a vector's tail included.
   const long long len = a.seg < a.L ? a.seg : a.L;
-  return run(pick<T, kScatter>(vec, a.n), a, vec ? len / (16 / sz) + 1 : len,
+  return run(pick<T, kMode>(vec, a.n), a, vec ? len / (16 / sz) + 1 : len,
              st);
 }
 
 // dtype: 0 float32, 1 bfloat16, 2 int32.
-int launch(int dtype, bool scatter, const Args& a, int* vec_out,
-           void* stream) {
+int launch(int dtype, Mode mode, const Args& a, int* vec_out, void* stream) {
   if (a.n < 2 || a.n > 65535 || a.L < 1 || a.seg < 1 || a.ldx < 0 ||
       a.L > static_cast<long long>(a.n) * a.seg || vec_out == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype * 2 + (scatter ? 1 : 0)) {
-    case 0: return launch_typed<float, false>(a, vec_out, st);
-    case 1: return launch_typed<float, true>(a, vec_out, st);
-    case 2: return launch_typed<__nv_bfloat16, false>(a, vec_out, st);
-    case 3: return launch_typed<__nv_bfloat16, true>(a, vec_out, st);
-    case 4: return launch_typed<int, false>(a, vec_out, st);
-    case 5: return launch_typed<int, true>(a, vec_out, st);
+  switch (dtype * 3 + static_cast<int>(mode)) {
+    case 0: return launch_typed<float, kAllreduce>(a, vec_out, st);
+    case 1: return launch_typed<float, kScatter>(a, vec_out, st);
+    case 2: return launch_typed<float, kGather>(a, vec_out, st);
+    case 3: return launch_typed<__nv_bfloat16, kAllreduce>(a, vec_out, st);
+    case 4: return launch_typed<__nv_bfloat16, kScatter>(a, vec_out, st);
+    case 5: return launch_typed<__nv_bfloat16, kGather>(a, vec_out, st);
+    case 6: return launch_typed<int, kAllreduce>(a, vec_out, st);
+    case 7: return launch_typed<int, kScatter>(a, vec_out, st);
+    case 8: return launch_typed<int, kGather>(a, vec_out, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -249,7 +273,8 @@ extern "C" int tm_ring_allreduce_direct(int dtype, const void* x,
                                         long long CE, int n, int* vec,
                                         void* stream) {
   if (ldo < L) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(dtype, false, Args{x, o, ldx, ldo, L, CE, n}, vec, stream);
+  return launch(dtype, kAllreduce, Args{x, o, ldx, ldo, L, CE, n}, vec,
+                stream);
 }
 
 // Row 9: x [n, n per] (row stride ldx) -> out [n, per] (row stride
@@ -261,6 +286,19 @@ extern "C" int tm_ring_reduce_scatter_direct(int dtype, const void* x,
                                              long long ldo, long long per,
                                              int n, int* vec, void* stream) {
   if (ldo < per || per < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(dtype, true, Args{x, out, ldx, ldo, n * per, per, n}, vec,
-                stream);
+  return launch(dtype, kScatter, Args{x, out, ldx, ldo, n * per, per, n},
+                vec, stream);
+}
+
+// Row 10: shards x [n, per] (row stride ldx) -> out [n, n, per], contiguous,
+// every rank's slice the stack of the shards.  The flagship's ZeRO shards
+// (121,682,944 f32) and their output are 16-byte aligned as allocated, so
+// they take the 16-byte path.
+extern "C" int tm_ring_all_gather_direct(int dtype, const void* x,
+                                         long long ldx, void* out,
+                                         long long per, int n, int* vec,
+                                         void* stream) {
+  if (per < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(dtype, kGather, Args{x, out, ldx, n * per, n * per, per, n},
+                vec, stream);
 }

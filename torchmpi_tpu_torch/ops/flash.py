@@ -14,8 +14,9 @@ kernel or raises.  Each launch adds one to ``LAUNCHES[name]``.
 Layouts are the JAX package's: q ``[B, Tq, H, D]``, k / v
 ``[B, Tkv, Hkv, D]`` with ``Hkv`` dividing ``H`` (GQA: q head ``h`` reads kv
 head ``h // (H // Hkv)``, the ``jnp.repeat`` layout), lse ``[B, H, Tq]``.
-The kernels take float32, contiguous tensors: the model casts q / k / v to
-float32 before attention (``models/transformer.py``), as the JAX model does.
+The kernels take float32, contiguous tensors (the dK/dV kernel also
+16-byte aligned ones): the model casts q / k / v to float32 before
+attention (``models/transformer.py``), as the JAX model does.
 Masked scores are the finite ``NEG_INF``; a row with no valid key yields
 output 0 and lse ``+1e30``, never NaN.
 """
@@ -279,6 +280,10 @@ def flash_bwd_dkv(q, k, v, do, lse, dvec, *, scale: float, causal: bool,
               kv_offset=kv_offset)
     if _device_kind(q) == "cpu":
         return flash_bwd_dkv_plain(q, k, v, do, lse, dvec, **kw)
+    # The kernel copies q / k / v / do in 16-byte pieces (cp.async).
+    if any(t.data_ptr() % 16 for t in (q, k, v, do)):
+        raise ValueError("flash_bwd_dkv: the kernel takes q, k, v and do "
+                         "16-byte aligned")
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     if k.numel():

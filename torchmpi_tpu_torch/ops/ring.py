@@ -19,23 +19,25 @@ walk the ring as the Pallas allreduce kernels do:
   ``_ring_allreduce_bidir_chunked_kernel`` :534, both halves, ring chunks
   streamed in C subchunks through two comm slots.
 
-Three more (``ops/csrc/ring_rs_ag.cu``) walk it for the reduce-scatter and
-all-gather kernels that ZeRO's legs run:
+Two more (``ops/csrc/ring_rs_ag.cu``) walk it for the resident
+reduce-scatter and all-gather kernels that ZeRO's legs run under a
+``chunk_bytes`` that holds a whole ring chunk:
 
 - ``ring_reduce_scatter`` (row 13): ``_ring_reduce_scatter_kernel`` :310;
-- ``ring_all_gather`` (row 14): ``_ring_all_gather_kernel`` :342;
-- ``ring_all_gather_chunked`` (row 10): ``_ring_all_gather_chunked_kernel``
-  :733.
+- ``ring_all_gather`` (row 14): ``_ring_all_gather_kernel`` :342.
 
-The two rows of the default path that lose the most time to the hops are
-direct reductions (``ops/csrc/ring_direct.cu``): every rank's value of an
-element is loaded and the values are added in the order the ring would
-have added them, so each input is read once and each output written once:
+The three rows of the default path do not walk the ring
+(``ops/csrc/ring_direct.cu``): every rank's value of an element is loaded
+and the values are added in the order the ring would have added them, or,
+for the all-gather, each shard is loaded once and stored to every rank, so
+each input is read once and each output written once:
 
 - ``ring_allreduce_chunked`` (row 8): ``_ring_allreduce_chunked_kernel``
   :511;
 - ``ring_reduce_scatter_chunked`` (row 9):
-  ``_ring_reduce_scatter_chunked_kernel`` :707.
+  ``_ring_reduce_scatter_chunked_kernel`` :707;
+- ``ring_all_gather_chunked`` (row 10): ``_ring_all_gather_chunked_kernel``
+  :733.
 
 :func:`ring_allreduce`, :func:`ring_reduce_scatter` and
 :func:`ring_all_gather` pick a kernel as the JAX entries do (:926-955,
@@ -77,7 +79,8 @@ KERNELS = ("ring_allreduce_bidir_chunked", "ring_allreduce_chunked",
            "ring_all_gather")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 # The direct rows (ring_direct.cu), and their launches on the 16-byte path.
-DIRECT = ("ring_allreduce_chunked", "ring_reduce_scatter_chunked")
+DIRECT = ("ring_allreduce_chunked", "ring_reduce_scatter_chunked",
+          "ring_all_gather_chunked")
 VECTOR_LAUNCHES: Dict[str, int] = {name: 0 for name in DIRECT}
 
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
@@ -257,12 +260,12 @@ _SIGNATURES = {
     "ring_reduce_scatter_chunked": ("tm_ring_reduce_scatter_direct",
                                     [_I, _P, _LL, _P, _LL, _LL, _I, _PI,
                                      _P]),
-    # dtype, x, out, comm, flags, per, E, [C,] n, B, stream
+    # dtype, x, out, comm, flags, per, E, n, B, stream
     "ring_all_gather": ("tm_ring_all_gather",
                         [_I] + [_P] * 4 + [_LL, _LL, _I, _I, _P]),
-    "ring_all_gather_chunked": ("tm_ring_all_gather_chunked",
-                                [_I] + [_P] * 4 + [_LL, _LL, _I, _I, _I,
-                                                   _P]),
+    # dtype, x, ldx, out, per, n, vec, stream
+    "ring_all_gather_chunked": ("tm_ring_all_gather_direct",
+                                [_I, _P, _LL, _P, _LL, _I, _PI, _P]),
 }
 
 
@@ -308,15 +311,16 @@ def _call(lib: str, name: str, args, x: torch.Tensor) -> None:
 
 
 def _launch_direct(name: str, x: torch.Tensor, out: torch.Tensor,
-                   ldo: int, *sizes: int) -> torch.Tensor:
+                   *sizes: int) -> torch.Tensor:
     """Launch direct row ``name`` (ring_direct.cu) from ``x`` [n, L] into
-    ``out`` (its rows ``ldo`` elements apart), and return ``out``; count
-    the launch, and whether it took the 16-byte path.  ``x`` may have any
-    row stride; its elements must be unit-strided or are copied so."""
+    ``out``, its launcher's size arguments ``sizes`` (after x, its row
+    stride and out), and return ``out``; count the launch, and whether it
+    took the 16-byte path.  ``x`` may have any row stride; its elements
+    must be unit-strided or are copied so."""
     if x.stride(1) != 1 and x.shape[1] > 1:
         x = x.contiguous()
     vec = ctypes.c_int(0)
-    _call("ring_direct", name, (x, x.stride(0), out, ldo, *sizes, x.shape[0],
+    _call("ring_direct", name, (x, x.stride(0), out, *sizes, x.shape[0],
                                 ctypes.byref(vec)), x)
     VECTOR_LAUNCHES[name] += vec.value
     return out
@@ -470,10 +474,10 @@ def _ag_plain(x: torch.Tensor) -> torch.Tensor:
     return o
 
 
-def _launch_rs_ag(name: str, x: torch.Tensor, per: int, E: int, C: int):
-    """Launch row ``name`` on ``x`` (reduce-scatter: [n, n per] inputs;
-    all-gather: [n, per] shards, on one card) and return its output;
-    raise on a refused launch."""
+def _launch_rs_ag(name: str, x: torch.Tensor, per: int, E: int):
+    """Launch resident row ``name`` on ``x`` (reduce-scatter: [n, n per]
+    inputs; all-gather: [n, per] shards, on one card; slots of E elements)
+    and return its output; raise on a refused launch."""
     n = x.shape[0]
     B = _blocks(x.device, n, 1, E)
     comm = x.new_empty(n, 2, E)
@@ -481,11 +485,10 @@ def _launch_rs_ag(name: str, x: torch.Tensor, per: int, E: int, C: int):
     flags = torch.empty(n * B * 3, dtype=torch.int32, device=x.device)
     if name.startswith("ring_reduce_scatter"):
         out = x.new_empty(n, per)
-        args = (x, torch.empty_like(x), out, comm, flags, per, E)
+        args = (x, torch.empty_like(x), out, comm, flags, per, E, n, B)
     else:
         out = x.new_empty(n, n, per)
-        args = (x, out, comm, flags, per, E)
-    args += ((C,) if C > 1 else ()) + (n, B)
+        args = (x, out, comm, flags, per, E, n, B)
     _call("ring_rs_ag", name, args, x)
     return out
 
@@ -509,7 +512,7 @@ def _run_rs(name: str, flat: torch.Tensor, plan=(), *,
         return _rs_plain(_pad_chunks(flat.reshape(n, n, per), C * E))[:, :per]
     if name in DIRECT:
         return _launch_direct(name, flat, flat.new_empty(n, per), per, per)
-    return _launch_rs_ag(name, flat.contiguous(), per, E, C)
+    return _launch_rs_ag(name, flat.contiguous(), per, E)
 
 
 def _run_ag(name: str, shards: torch.Tensor, plan=(), *,
@@ -523,7 +526,9 @@ def _run_ag(name: str, shards: torch.Tensor, plan=(), *,
     E, C = _slots(per, plan)
     if plain:
         return _ag_plain(_pad_to(shards, C * E))[..., :per]
-    return _launch_rs_ag(name, shards.contiguous(), per, E, C)
+    if name in DIRECT:
+        return _launch_direct(name, shards, shards.new_empty(n, n, per), per)
+    return _launch_rs_ag(name, shards.contiguous(), per, E)
 
 
 def reduce_scatter_resident(flat):
@@ -568,8 +573,9 @@ def all_gather_chunked_plain(shards, sub_elems: int, C: int):
                    plain=True)
 
 
-# The direct rows' order as torch folds (tests and chip_smoke.py hold them
-# to the ring's plain versions; the main path never runs them).
+# The direct rows' order as torch folds, and the direct gather as a torch
+# copy (tests and chip_smoke.py hold them to the ring's plain versions; the
+# main path never runs them).
 
 
 def _fold(x: torch.Tensor, first: int) -> torch.Tensor:
@@ -609,6 +615,15 @@ def reduce_scatter_direct_plain(flat):
     per = L // n
     chunks = flat.reshape(n, n, per)
     return torch.stack([_fold(chunks[:, c], c + 1) for c in range(n)])
+
+
+def all_gather_direct_plain(shards):
+    """Row 10's function as ring_direct.cu computes it: slice s of every
+    rank's output is rank s's shard (``shards`` [n, per] expanded to [n, n,
+    per]; whatever the plan, which only pads the chunks)."""
+    _check(shards)
+    n, per = shards.shape
+    return shards.expand(n, n, per).clone()
 
 
 WRAPPERS = {
