@@ -12,8 +12,8 @@ JAX package.  In order it:
    nine sources;
 3. kernel phases: at the flagship LM's attention shapes (B 4, T 2048, 16 q /
    4 kv heads, head_dim 128, causal, window 1024, float32) runs each flash
-   kernel against its plain PyTorch version on the same seeded inputs (the
-   dK/dV kernel also run twice and required bitwise equal), and times
+   kernel against its plain PyTorch version on the same seeded inputs (each
+   also run twice and required bitwise equal), and times
    kernel, plain version and, as the yardstick only, PyTorch's
    scaled_dot_product_attention with the same mask: its forward beside the
    forward kernel, one autograd backward through it (dq, dk and dv
@@ -138,14 +138,15 @@ ZERO_ROWS = {
 ZERO_SMALL = 300_000  # elements per rank of the bf16 and int32 passes
 # Recorded constants, not measured here: the times and figures of the
 # kernels that the redesigned rows replaced (the ring-walking kernels of
-# rows 8, 9 and 10, the f32-FMA dK/dV kernel of row 3), at the same shapes
-# and by the same time_ms (PERF.md's kernel table and section 5, H100 80GB
-# HBM3 at 700 W).  The output prints them under ring_recorded_* keys
+# rows 8, 9 and 10, the f32-FMA flash kernels of rows 1, 2 and 3), at the
+# same shapes and by the same time_ms (PERF.md's kernel table and section
+# 5, H100 80GB HBM3 at 700 W).  The output prints them under ring_recorded_* keys
 # (earlier_ms in the kernel rows).
 RING_RECORDED_MS = {"ring_allreduce_chunked": 0.731,
                     "ring_reduce_scatter_chunked": 23.480,
                     "ring_all_gather_chunked": 14.340}
-FLASH_RECORDED_MS = {"flash_bwd_dkv": 6.005}
+FLASH_RECORDED_MS = {"flash_fwd": 3.215, "flash_bwd_dq": 4.212,
+                     "flash_bwd_dkv": 6.005}
 RING_RECORDED_DP_SYNC_MS = 60.5
 RING_RECORDED_ZERO_PEAK_GB = 33.20
 ZERO_LR = 1e-3  # Adam, as benchmarks/memory_bench.py :58
@@ -287,16 +288,23 @@ def kernel_phase(torch, flash, dev):
     kw = dict(scale=1.0 / math.sqrt(D), causal=True, window=W)
 
     o, lse = flash.flash_fwd(q, k, v, **kw)
+    o2, lse2 = flash.flash_fwd(q, k, v, **kw)
     o_ref, lse_ref = flash.flash_fwd_plain(q, k, v, **kw)
     dvec = torch.einsum("bqhd,bqhd->bhq", do, o).contiguous()
     dq = flash.flash_bwd_dq(q, k, v, do, lse, dvec, **kw)
+    dq2 = flash.flash_bwd_dq(q, k, v, do, lse, dvec, **kw)
     dq_ref = flash.flash_bwd_dq_plain(q, k, v, do, lse, dvec, **kw)
     dk, dv = flash.flash_bwd_dkv(q, k, v, do, lse, dvec, **kw)
     dk2, dv2 = flash.flash_bwd_dkv(q, k, v, do, lse, dvec, **kw)
     dk_ref, dv_ref = flash.flash_bwd_dkv_plain(q, k, v, do, lse, dvec, **kw)
     torch.cuda.synchronize()
-    dkv_bitwise = torch.equal(dk, dk2) and torch.equal(dv, dv2)
-    del dk2, dv2
+    # Every flash kernel is deterministic: a second call gives the same bits.
+    bitwise = {
+        "flash_fwd": torch.equal(o, o2) and torch.equal(lse, lse2),
+        "flash_bwd_dq": torch.equal(dq, dq2),
+        "flash_bwd_dkv": torch.equal(dk, dk2) and torch.equal(dv, dv2),
+    }
+    del o2, lse2, dq2, dk2, dv2
 
     # Live (q, k) pairs of this mask, counted from the mask itself.
     pos = torch.arange(T, device=dev)
@@ -373,9 +381,8 @@ def kernel_phase(torch, flash, dev):
         if lse_err is not None:
             row["lse_max_abs_err"] = lse_err
             row["sdpa_max_abs_err"] = sdpa_err
-        if name == "flash_bwd_dkv":
-            row["bitwise_repeat"] = dkv_bitwise
-            row["earlier_ms"] = FLASH_RECORDED_MS[name]
+        row["bitwise_repeat"] = bitwise[name]
+        row["earlier_ms"] = FLASH_RECORDED_MS[name]
         rows.append(row)
     del sdpa_out, qt, kt, vt
     emit({"phase": "kernels", "shape": dict(B=B, T=T, H=H, Hkv=Hkv, D=D,
@@ -386,9 +393,9 @@ def kernel_phase(torch, flash, dev):
         check(row["max_abs_err"] <= row["tolerance"],
               f"{row['name']} max_abs_err {row['max_abs_err']} > "
               f"{row['tolerance']}")
+        check(row["bitwise_repeat"], f"{row['name']}: two calls differ")
     check(errs["flash_fwd"][2] <= KERNEL_RTOL * float(lse.abs().max()),
           "flash_fwd lse disagrees with the plain version")
-    check(dkv_bitwise, "flash_bwd_dkv: two calls differ")
     return rows
 
 

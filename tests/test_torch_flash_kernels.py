@@ -55,6 +55,20 @@ CASES = [
     (1, 96, 96, 4, 4, 16, True, 17, 5, 5),
     (1, 64, 64, 2, 1, 128, True, 40, 0, 0),
     (1, 160, 200, 8, 1, 64, False, None, 0, 0),
+    # flash_fwd's and flash_bwd_dq's tiles: 128 q rows a block, as 4 heads
+    # x 32 rows (a group divisible by 4), 2 x 64 (by 2) or 1 x 128, 16 rows
+    # a warp; kv blocks of 64 keys (forward) and 32 keys (dQ); mma tiles of
+    # 8.  Lengths one short of and one past each tile edge, at every head
+    # dim, with a GQA group of 8 and with offsets.
+    (1, 127, 129, 8, 1, 16, True, None, 5, 0),
+    (1, 129, 63, 8, 1, 32, True, 40, 64, 0),
+    (1, 65, 127, 16, 2, 64, True, None, 60, 3),
+    (2, 33, 65, 8, 1, 128, False, None, 0, 0),
+    (1, 63, 33, 8, 1, 128, True, 24, 30, 0),
+    (1, 17, 31, 8, 1, 16, True, None, 14, 0),
+    (1, 129, 129, 2, 2, 64, True, None, 0, 0),
+    (1, 127, 95, 4, 2, 32, True, 50, 0, 30),
+    (2, 15, 97, 24, 3, 128, True, None, 90, 0),
 ]
 
 
@@ -76,12 +90,16 @@ def test_kernels_match_plain(cuda, case):
               q_offset=qo, kv_offset=ko)
     before = dict(flash.LAUNCHES)
     o, lse = flash.flash_fwd(q, k, v, **kw)
+    o2, lse2 = flash.flash_fwd(q, k, v, **kw)
     o_ref, lse_ref = flash.flash_fwd_plain(q, k, v, **kw)
     _close(o, o_ref, "o")
     _close(lse, lse_ref, "lse")
+    assert torch.equal(o, o2) and torch.equal(lse, lse2), "two fwd differ"
     dvec = torch.einsum("bqhd,bqhd->bhq", do, o).contiguous()
     dq = flash.flash_bwd_dq(q, k, v, do, lse, dvec, **kw)
+    dq2 = flash.flash_bwd_dq(q, k, v, do, lse, dvec, **kw)
     _close(dq, flash.flash_bwd_dq_plain(q, k, v, do, lse, dvec, **kw), "dq")
+    assert torch.equal(dq, dq2), "two dq calls differ"
     dk, dv = flash.flash_bwd_dkv(q, k, v, do, lse, dvec, **kw)
     dk2, dv2 = flash.flash_bwd_dkv(q, k, v, do, lse, dvec, **kw)
     dk_ref, dv_ref = flash.flash_bwd_dkv_plain(q, k, v, do, lse, dvec, **kw)
@@ -89,9 +107,8 @@ def test_kernels_match_plain(cuda, case):
     _close(dv, dv_ref, "dv")
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2), "two calls differ"
     torch.cuda.synchronize()
-    twice = {"flash_bwd_dkv": 2}
-    assert all(flash.LAUNCHES[n] == before[n] + twice.get(n, 1)
-               for n in before)
+    twice = {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+    assert all(flash.LAUNCHES[n] == before[n] + twice[n] for n in before)
     assert torch.isfinite(o).all() and torch.isfinite(dq).all()
 
 
@@ -106,15 +123,40 @@ def _bwd_inputs(dev, B, Tq, Tkv, H, Hkv, D, kw, seed):
     return q, k, v, do, lse, dvec
 
 
+def _shifted(t):
+    """A contiguous copy of t that starts 4 bytes into its storage."""
+    out = torch.empty(t.numel() + 1, device=t.device)[1:].view(t.shape)
+    return out.copy_(t)
+
+
 def test_bwd_dkv_rejects_unaligned_rows(cuda):
     """The dK/dV kernel copies rows in 16-byte pieces: a contiguous q that
     starts 4 bytes into its storage is refused, not read misaligned."""
     kw = dict(scale=0.25, causal=True)
     q, k, v, do, lse, dvec = _bwd_inputs(cuda, 1, 8, 8, 2, 2, 16, kw, 5)
-    shifted = torch.empty(q.numel() + 1, device=cuda)[1:].view(q.shape)
-    shifted.copy_(q)
     with pytest.raises(ValueError, match="aligned"):
-        flash.flash_bwd_dkv(shifted, k, v, do, lse, dvec, **kw)
+        flash.flash_bwd_dkv(_shifted(q), k, v, do, lse, dvec, **kw)
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_fwd_rejects_unaligned_rows(cuda, which):
+    """The forward copies q, k and v rows in 16-byte pieces too."""
+    kw = dict(scale=0.25, causal=True)
+    qkv = dict(zip("qkv", _bwd_inputs(cuda, 1, 8, 8, 2, 2, 16, kw, 6)[:3]))
+    qkv[which] = _shifted(qkv[which])
+    with pytest.raises(ValueError, match="aligned"):
+        flash.flash_fwd(qkv["q"], qkv["k"], qkv["v"], **kw)
+
+
+@pytest.mark.parametrize("which", ["q", "do"])
+def test_bwd_dq_rejects_unaligned_rows(cuda, which):
+    """The dQ kernel copies q, k, v and dO rows in 16-byte pieces."""
+    kw = dict(scale=0.25, causal=True)
+    args = dict(zip(("q", "k", "v", "do", "lse", "dvec"),
+                    _bwd_inputs(cuda, 1, 8, 8, 2, 2, 16, kw, 7)))
+    args[which] = _shifted(args[which])
+    with pytest.raises(ValueError, match="aligned"):
+        flash.flash_bwd_dq(*args.values(), **kw)
 
 
 def test_autograd_matches_dense_oracle(cuda):

@@ -33,7 +33,8 @@
 // nearest) and x_lo = x - x_hi (the mma reads its top 19 bits), and
 // a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi in f32, so the result keeps f32's
 // accuracy (TF32 alone keeps ~3 digits; the kernel is held to 1e-4 of the
-// f32 plain version).  The split is made as each fragment is loaded.  The
+// f32 plain version).  The split (kNearest; split, FragA / FragB and mma3
+// live in flash_common.cuh) is made as each fragment is loaded.  The
 // tensor cores' f32 accumulation does not round to nearest, and a long sum
 // kept in an mma accumulator drifts (to 4e-5 of the result at the
 // flagship's shapes), so they sum only short runs, two k-steps (16 terms)
@@ -62,120 +63,21 @@
 
 namespace {
 
+using tmf::cp_async4;
+using tmf::cp_async_commit;
+using tmf::cp_async_wait;
+using tmf::FragA;
+using tmf::FragB;
+using tmf::ldsm4;
+using tmf::load_tile;
+using tmf::mma3;
+using tmf::pitch;
+using tmf::swz;
+
 constexpr int BKV = 64;                 // keys per block
 constexpr int BQ = 32;                  // q rows per inner step
 constexpr int NWARP = tmf::NT / 32;     // 8
 constexpr int TP = BQ + 4;              // pitch of the P^T / dP^T tiles
-
-// Row pitch (floats) of the swizzled [rows][D] tiles: the swizzle XORs
-// column bits 2-4, so a row spans at least 32 floats.
-template <int D>
-__host__ __device__ constexpr int pitch() {
-  return D < 32 ? 32 : D;
-}
-
-// Offset of element (r, c) in a swizzled tile: 16-byte groups of row r
-// permuted by r's low three bits.
-template <int D>
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * pitch<D>() + (c ^ (((r & 3) << 3) | (r & 4)));
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !full.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(full ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-// Rows [t0, t0 + rows) of a [T, stride] source into a swizzled tile; rows
-// past T read as zero (the ragged edge).
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          long stride, int t0, int rows,
-                                          int T) {
-  constexpr int G = D / 4;  // 16-byte groups a row
-  for (int idx = threadIdx.x; idx < rows * G; idx += tmf::NT) {
-    const int r = idx / G, c = (idx % G) * 4, t = t0 + r;
-    cp_async16(dst + swz<D>(r, c), src + (t < T ? (long)t * stride + c : 0),
-               t < T);
-  }
-}
-
-// Four 8 x 4 blocks of 32-bit words from shared memory (ldmatrix.x4 of
-// 8 x 8 16-bit matrices): lane l gives the address of row l % 8 of block
-// l / 8, and gets word l % 4 of row l / 4 of each block.
-__device__ __forceinline__ void ldsm4(float (&x)[4], const float* p) {
-  unsigned r[4];
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-#pragma unroll
-  for (int i = 0; i < 4; ++i) x[i] = __uint_as_float(r[i]);
-}
-
-// x = hi + lo: hi TF32 (an f32 bit pattern with the low 13 bits clear), lo
-// the f32 rest, of which the mma reads the top 19 bits.
-__device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// An A fragment (16 x 8, row-major) and a B fragment (8 x 8, k-major) of
-// m16n8k8, each as its hi and lo TF32 parts.
-struct FragA {
-  unsigned hi[4], lo[4];
-  __device__ __forceinline__ void set(const float (&x)[4]) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) split(x[i], hi[i], lo[i]);
-  }
-};
-struct FragB {
-  unsigned hi[2], lo[2];
-  __device__ __forceinline__ void set(float x0, float x1) {
-    split(x0, hi[0], lo[0]);
-    split(x1, hi[1], lo[1]);
-  }
-};
-
-__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4],
-                                    const unsigned (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += a b in the three-product form, small terms first.
-__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
-                                     const FragB& b) {
-  mma(d, a.lo, b.hi);
-  mma(d, a.hi, b.lo);
-  mma(d, a.hi, b.hi);
-}
 
 template <int D>
 struct Smem {

@@ -14,9 +14,10 @@ kernel or raises.  Each launch adds one to ``LAUNCHES[name]``.
 Layouts are the JAX package's: q ``[B, Tq, H, D]``, k / v
 ``[B, Tkv, Hkv, D]`` with ``Hkv`` dividing ``H`` (GQA: q head ``h`` reads kv
 head ``h // (H // Hkv)``, the ``jnp.repeat`` layout), lse ``[B, H, Tq]``.
-The kernels take float32, contiguous tensors (the dK/dV kernel also
-16-byte aligned ones): the model casts q / k / v to float32 before
-attention (``models/transformer.py``), as the JAX model does.
+The kernels take float32, contiguous tensors whose q / k / v (and dO)
+start 16-byte aligned (they copy rows in 16-byte pieces): the model casts
+q / k / v to float32 before attention (``models/transformer.py``), as the
+JAX model does.
 Masked scores are the finite ``NEG_INF``; a row with no valid key yields
 output 0 and lse ``+1e30``, never NaN.
 """
@@ -227,6 +228,14 @@ def _launch(name: str, tensors, q, k, scale, causal, window, q_offset,
     LAUNCHES[name] += 1
 
 
+def _check_aligned(name: str, tensors) -> None:
+    """The kernels copy q / k / v / do rows in 16-byte pieces (cp.async):
+    a tensor that starts elsewhere is refused, not read misaligned."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        names = ", ".join(("q", "k", "v", "do")[:len(tensors)])
+        raise ValueError(f"{name}: the kernel takes {names} 16-byte aligned")
+
+
 def _device_kind(t: torch.Tensor) -> str:
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {t.device}")
@@ -243,6 +252,7 @@ def flash_fwd(q, k, v, *, scale: float, causal: bool,
               kv_offset=kv_offset)
     if _device_kind(q) == "cpu":
         return flash_fwd_plain(q, k, v, **kw)
+    _check_aligned("flash_fwd", (q, k, v))
     B, Tq, H, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
@@ -262,6 +272,7 @@ def flash_bwd_dq(q, k, v, do, lse, dvec, *, scale: float, causal: bool,
               kv_offset=kv_offset)
     if _device_kind(q) == "cpu":
         return flash_bwd_dq_plain(q, k, v, do, lse, dvec, **kw)
+    _check_aligned("flash_bwd_dq", (q, k, v, do))
     dq = torch.empty_like(q)
     if q.numel():
         _launch("flash_bwd_dq", (q, k, v, do, lse, dvec, dq), q, k, **kw)
@@ -280,10 +291,7 @@ def flash_bwd_dkv(q, k, v, do, lse, dvec, *, scale: float, causal: bool,
               kv_offset=kv_offset)
     if _device_kind(q) == "cpu":
         return flash_bwd_dkv_plain(q, k, v, do, lse, dvec, **kw)
-    # The kernel copies q / k / v / do in 16-byte pieces (cp.async).
-    if any(t.data_ptr() % 16 for t in (q, k, v, do)):
-        raise ValueError("flash_bwd_dkv: the kernel takes q, k, v and do "
-                         "16-byte aligned")
+    _check_aligned("flash_bwd_dkv", (q, k, v, do))
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     if k.numel():
