@@ -20,7 +20,12 @@ JAX package.  In order it:
    together) beside each of the two backward kernels;
    then, at the flagship's LM-head shapes (N 4 x 2047 tokens, E 2048,
    V 32768, bf16), the three fused linear + cross-entropy kernels the same
-   way, each also run twice and required bitwise equal, and the dense
+   way, each also run twice and required bitwise equal (rows 5 and 6 on
+   their wgmma route, which the route counters must show, with one bf16
+   torch.matmul at each product's shape timed beside them as context), the
+   backward as the step runs it (xent_bwd: g once per chunk, dx and dW;
+   against the plain versions, bitwise against rows 5 and 6 and a repeat,
+   timed also in one chunk), and the dense
    two-call loss (bf16 x @ w, then cross_entropy; forward and backward) timed
    beside them as context only; then the four ring-allreduce kernels on 4
    ranks' float32 buffers on the card at the flagship's gradient bucket
@@ -42,7 +47,8 @@ JAX package.  In order it:
    batch 4) with attn_impl="flash" and the dense loss (f32 x @ head);
 5. fused train phase (stage B', the main path of the first two slices):
    the same steps with the fused loss, fused_linear_cross_entropy(h.bf16,
-   head.bf16, labels); every kernel's launch count must be > 0 and the loss
+   head.bf16, labels); every kernel's launch count must be > 0, every
+   backward launch of the head on the wgmma route, and the loss
    finite and falling; in both train phases one more, untimed step counts
    the host-device synchronizations of a step, which must be 0;
 6. consistency phases: one forward and backward of the same weights and
@@ -57,7 +63,8 @@ JAX package.  In order it:
    stacks, the first within 2e-2 (rel. L2) of the batch-4 gradients, the
    loss falling, 0 host syncs in a step, all four ring kernels launched,
    every row-8 launch on its 16-byte path; then one more sync's device
-   time by kernel (torch.profiler);
+   time by kernel (torch.profiler) and 3 more whole steps on the host's
+   clock;
 8. ZeRO phase (the main path of the ZeRO slice): the flagship as ZeRO data
    parallelism of 4 ranks on the one card with Adam (lr 1e-3): the 4 ranks'
    gradients in one [4, 486,731,776] stack, 3 ZeRO-1 steps under the
@@ -138,7 +145,8 @@ ZERO_ROWS = {
 ZERO_SMALL = 300_000  # elements per rank of the bf16 and int32 passes
 # Recorded constants, not measured here: the times and figures of the
 # kernels that the redesigned rows replaced (the ring-walking kernels of
-# rows 8, 9 and 10, the f32-FMA flash kernels of rows 1, 2 and 3), at the
+# rows 8, 9 and 10, the f32-FMA flash kernels of rows 1, 2 and 3, the
+# cp.async / wmma backward of the fused loss, rows 5 and 6), at the
 # same shapes and by the same time_ms (PERF.md's kernel table and section
 # 5, H100 80GB HBM3 at 700 W).  The output prints them under ring_recorded_* keys
 # (earlier_ms in the kernel rows).
@@ -147,6 +155,8 @@ RING_RECORDED_MS = {"ring_allreduce_chunked": 0.731,
                     "ring_all_gather_chunked": 14.340}
 FLASH_RECORDED_MS = {"flash_fwd": 3.215, "flash_bwd_dq": 4.212,
                      "flash_bwd_dkv": 6.005}
+# The wmma-product kernels of rows 5 and 6 (PERF.md's kernel table).
+XENT_RECORDED_MS = {"xent_bwd_dx": 12.665, "xent_bwd_dw": 14.460}
 RING_RECORDED_DP_SYNC_MS = 60.5
 RING_RECORDED_ZERO_PEAK_GB = 33.20
 ZERO_LR = 1e-3  # Adam, as benchmarks/memory_bench.py :58
@@ -256,8 +266,9 @@ def count_host_syncs(torch, fn) -> int:
 
 
 def ptxas_summary(log: str) -> dict:
-    """{"D<head_dim>", "<kernel name>" or "<kernel name><dtype>": "registers;
-    spills"} per kernel instantiation, from nvcc's -Xptxas -v report."""
+    """{"D<head_dim>", "<kernel name>", "<kernel name><dtype>" or
+    "wgmma<epilogue>": "registers; spills"} per kernel instantiation, from
+    nvcc's -Xptxas -v report."""
     out, cur = {}, None
     for ln in log.splitlines():
         m = re.search(r"entry function '(.*?)'", ln)
@@ -265,8 +276,11 @@ def ptxas_summary(log: str) -> dict:
             d = re.search(r"ILi(\d+)E", m.group(1))
             name = re.search(r"(?:flash|xent|ring)_\w*?kernel(I\w*?EE)?",
                              m.group(1))
-            key = f"D{d.group(1)}" if d else (name.group(0) if name
-                                              else m.group(1))
+            epi = re.search(r"gemm_kernelI\w*?\d([A-Z][a-z][A-Za-z]*Epi)E",
+                            m.group(1))
+            key = (f"D{d.group(1)}" if d else
+                   f"wgmma<{epi.group(1)}>" if epi else
+                   name.group(0) if name else m.group(1))
             cur = out.setdefault(key, [])
         elif cur is not None and ("registers" in ln or "spill" in ln):
             cur.append(ln.split("info    :")[-1].strip())
@@ -444,6 +458,7 @@ def xent_kernel_phase(torch, xent, dev):
         "xent_bwd_dx": (4 * N * E * V, nb(x, w) + stats + nb(x)),
         "xent_bwd_dw": (4 * N * E * V, nb(x, w) + stats + nb(w)),
     }
+    route_counts = {n: dict(c) for n, c in xent.ROUTE_LAUNCHES.items()}
     rows = []
     for name, (kern, plain) in runs.items():
         flops, nbytes = work[name]
@@ -463,10 +478,41 @@ def xent_kernel_phase(torch, xent, dev):
             "all_errs": errs[name],
         }
         rows.append(row)
+    # Context only, timed after the kernels: one torch.matmul of bf16
+    # operands at each product's shape (z = x W, g W^T, x^T g); the port
+    # never calls them, and no single PyTorch call computes a row's
+    # function (library_ms is null).
+    gb = xent._grad_plain(x, w, labels, lse, dl).bfloat16()
+    matmul_ms = {"z": time_ms(torch, lambda: torch.matmul(x, w)),
+                 "g_wT": time_ms(torch, lambda: torch.matmul(gb, w.t())),
+                 "xT_g": time_ms(torch, lambda: torch.matmul(x.t(), gb))}
+    del gb
+    products = {"xent_bwd_dx": ("z", "g_wT"), "xent_bwd_dw": ("z", "xT_g")}
+    for row in rows:
+        name = row["name"]
+        if name in XENT_RECORDED_MS:
+            row.update(design="wgmma", route_launches=route_counts[name],
+                       earlier_ms=XENT_RECORDED_MS[name],
+                       matmul_ms={p: matmul_ms[p] for p in products[name]})
+    step_form = xent_step_form(torch, xent, x, w, labels, lse, dl,
+                               matmul_ms, nb(x, w) + stats + nb(x, w))
     emit({"phase": "xent_kernels", "shape": dict(N=N, E=E, V=V,
                                                  dtype="bfloat16",
                                                  bwd_chunk=xent.BWD_CHUNK),
-          "launches_in_phase": dict(xent.LAUNCHES), "kernels": rows})
+          "launches_in_phase": dict(xent.LAUNCHES),
+          "route_launches_in_phase": {n: dict(c) for n, c in
+                                      xent.ROUTE_LAUNCHES.items()},
+          "kernels": rows, "step_form": step_form})
+    for name in XENT_RECORDED_MS:
+        counts = route_counts[name]
+        check(counts["wgmma"] > 0 and counts["wmma"] == 0,
+              f"{name} at the flagship shapes left the wgmma route: "
+              f"{counts}")
+    check(step_form["max_abs_err"] <= step_form["tolerance"],
+          f"xent_bwd step form max_abs_err {step_form['max_abs_err']} > "
+          f"{step_form['tolerance']}")
+    check(step_form["bitwise_repeat"] and step_form["bitwise_rows_5_6"],
+          "xent_bwd step form: two calls differ, or differ from rows 5, 6")
 
     # Context only: the dense two-call loss on the same inputs (a bf16
     # product, then cross_entropy), forward and backward, beside the fused
@@ -491,6 +537,54 @@ def xent_kernel_phase(torch, xent, dev):
               f"{row['tolerance']}")
         check(row["bitwise_repeat"], f"{row['name']}: two calls differ")
     return rows
+
+
+def xent_step_form(torch, xent, x, w, labels, lse, dl, matmul_ms, nbytes):
+    """The backward as the step runs it: xent_bwd (g formed once per chunk,
+    dx and dW from it), against the plain versions, against rows 5 and 6's
+    own outputs (the same g, so the same bits) and a repeat call; timed at
+    BWD_CHUNK and, as context for the chunk size, in one chunk."""
+    N, E = x.shape
+    V = w.shape[1]
+    dx, dw = xent.xent_bwd(x, w, labels, lse, dl)
+    again = xent.xent_bwd(x, w, labels, lse, dl)
+    rows_5_6 = (xent.xent_bwd_dx(x, w, labels, lse, dl),
+                xent.xent_bwd_dw(x, w, labels, lse, dl))
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in zip((dx, dw), again))
+    same = all(torch.equal(a, b) for a, b in zip((dx, dw), rows_5_6))
+    del again, rows_5_6
+    errs = []
+    for got, plain in ((dx, xent.xent_bwd_dx_plain),
+                       (dw, xent.xent_bwd_dw_plain)):
+        ref = plain(x, w, labels, lse, dl)
+        errs.append((max_err(got, ref),
+                     XENT_GRAD_RTOL * float(ref.float().abs().max())))
+        del ref
+    del dx, dw
+    flops = 6 * N * E * V
+    t_op = flops / PEAK_BF16_FLOPS * 1e3
+    t_b = nbytes / PEAK_HBM_BYTES * 1e3
+
+    def run():
+        xent.xent_bwd(x, w, labels, lse, dl)
+
+    ms = time_ms(torch, run)
+    chunk = xent.BWD_CHUNK
+    try:
+        xent.BWD_CHUNK = N
+        one_chunk_ms = time_ms(torch, run)
+    finally:
+        xent.BWD_CHUNK = chunk
+    return {"name": "xent_bwd", "what": "g once per chunk, dx and dW",
+            "ms": ms, "bound_ms": max(t_op, t_b),
+            "bound_by": "operations" if t_op >= t_b else "bytes",
+            "flops": flops, "bytes": nbytes,
+            "max_abs_err": max(e for e, _ in errs),
+            "tolerance": max(t for _, t in errs), "all_errs": errs,
+            "bitwise_repeat": bitwise, "bitwise_rows_5_6": same,
+            "matmul_ms": sum(matmul_ms.values()),
+            "bwd_chunk": chunk, "one_chunk_ms": one_chunk_ms}
 
 
 def lm_loss(torch, model, tok):
@@ -544,6 +638,7 @@ def train_phase(torch, mpi, ops, dev, loss: str):
         losses.append(float(loss_v))  # waits for the step
         step_ms.append((time.perf_counter() - t0) * 1e3)
     launches = {n: c for mod in ops.values() for n, c in mod.LAUNCHES.items()}
+    routes = {n: dict(c) for n, c in ops["xent"].ROUTE_LAUNCHES.items()}
     med = statistics.median(step_ms)
     peak = torch.cuda.max_memory_allocated()
     # One more, untimed step: how often a step makes the host wait for the
@@ -555,7 +650,8 @@ def train_phase(torch, mpi, ops, dev, loss: str):
           "median_step_ms": med,
           "tokens_per_s": BATCH * SEQ / (med / 1e3),
           "peak_mem_bytes": peak, "host_syncs_per_step": syncs,
-          "launches": launches, "world_size": mpi.size(),
+          "launches": launches, "xent_route_launches": routes,
+          "world_size": mpi.size(),
           "backend": mpi.runtime.backend_name()})
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
@@ -564,6 +660,11 @@ def train_phase(torch, mpi, ops, dev, loss: str):
     for name in path:
         check(launches[name] > 0, f"kernel {name} never launched on the "
               f"{loss} train path")
+    if loss == "fused":
+        for name, counts in routes.items():
+            check(counts == {"wgmma": launches[name], "wmma": 0},
+                  f"{name}: stage B' backward launches off the wgmma "
+                  f"route: {counts} of {launches[name]}")
     return model, tok, launches
 
 
@@ -991,8 +1092,17 @@ def ring_dp_phase(torch, mpi, ops, dev):
         sync()
         sgd()
 
-    # Where one sync's device time goes, by kernel (after the main path).
+    # Where one sync's device time goes, by kernel (after the main path);
+    # then the whole step (4 ranks' forward and backward, the sync, SGD)
+    # on the host's clock, 3 more steps under the default config.
     breakdown = device_breakdown(torch, sync)
+    step_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
     # The step's own peak, without the verification copy of the stacks.
     torch.cuda.reset_peak_memory_stats()
     syncs = count_host_syncs(torch, one_step)
@@ -1006,7 +1116,8 @@ def ring_dp_phase(torch, mpi, ops, dev):
         "median_sync_ms": {k: statistics.median(v)
                            for k, v in sync_ms.items()},
         "ring_recorded_median_sync_ms": {row8: RING_RECORDED_DP_SYNC_MS},
-        "sync_device_breakdown": breakdown,
+        "sync_device_breakdown": breakdown, "step_ms": step_ms,
+        "median_step_ms": statistics.median(step_ms),
         "row8_launches_on_16_byte_path": row8_vector,
         "bitwise_vs_plain": bitwise,
         "dp_max_rel_l2_vs_batch4": dp_rel[0], "dp_worst_tensor": dp_rel[1],

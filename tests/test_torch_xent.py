@@ -278,10 +278,15 @@ def test_cpu_wrappers_take_the_plain_versions():
 def _fake_launch(calls):
     """A stand-in for ``xent._launch`` that records each launch and does
     the kernel's work in torch (on the chunk it was handed, with the C
-    entry points' make_g / first / last semantics)."""
+    entry points' make_g / first / last semantics; the route flag, last,
+    is recorded)."""
 
     def launch(name, dev, *a):
-        calls.append((name, a[-3:] if name == "xent_bwd_dw" else a[-1:]))
+        if name == "xent_bwd_dw":
+            calls.append((name, a[-4:-1], a[-1]))
+        else:
+            calls.append((name, a[-2:-1] if name == "xent_bwd_dx" else a[-1:],
+                          a[-1]))
         if name == "xent_fwd":
             x, w, lab, part, loss, lse, N, E, V, splits = a
             l_, s_ = xent.xent_fwd_plain(x, w, lab)
@@ -290,13 +295,13 @@ def _fake_launch(calls):
             return
         x, w, lab, lse, dl, g = a[:6]
         rows = x.shape[0]
-        if (name == "xent_bwd_dx" and a[-1]) or (name == "xent_bwd_dw"
-                                                 and a[-3]):
+        if (name == "xent_bwd_dx" and a[-2]) or (name == "xent_bwd_dw"
+                                                 and a[-4]):
             g[:rows] = xent._grad_plain(x, w, lab, lse, dl).bfloat16()
         if name == "xent_bwd_dx":
             a[6].copy_((g[:rows].float() @ w.float().t()).to(x.dtype))
             return
-        acc, dw, first, last = a[6], a[7], a[-2], a[-1]
+        acc, dw, first, last = a[6], a[7], a[-3], a[-2]
         s = x.float().t() @ g[:rows].float()
         if not first:
             s = acc + s
@@ -325,10 +330,18 @@ def test_chunked_backward_schedule(monkeypatch, chunk):
     monkeypatch.setattr(xent, "_launch", _fake_launch(calls))
     monkeypatch.setattr(xent, "BWD_CHUNK", chunk)
     before = dict(xent.LAUNCHES)
+    routes_before = {n: dict(c) for n, c in xent.ROUTE_LAUNCHES.items()}
     dx, dw = xent._bwd_cuda(x, w, lab, lse, dl, True, True)
     # One count per kernel per wrapper call, however many chunks.
     assert {n: xent.LAUNCHES[n] - before[n] for n in before} == {
         "xent_fwd": 0, "xent_bwd_dx": 1, "xent_bwd_dw": 1}
+    # Every chunk of the call takes one route, and the call counts once on
+    # it.
+    assert len({c[2] for c in calls}) == 1
+    route = "wgmma" if calls[0][2] else "wmma"
+    for n, counts in xent.ROUTE_LAUNCHES.items():
+        assert {r: counts[r] - routes_before[n][r] for r in counts} == {
+            r: int(r == route) for r in xent.ROUTES}
     n_chunks = -(-N // chunk)
     assert [c[0] for c in calls] == ["xent_bwd_dx", "xent_bwd_dw"] * n_chunks
     # dx forms g (make_g 1); dW reads it (make_g 0); first / last flags.

@@ -60,8 +60,19 @@ def _run_all(x, w, labels, dl):
 
 # (N, E, V): ragged N and V against the 128 x 128 tiles; E 40 and 36 are
 # not multiples of the 32-deep step, and E 36 / V 333 are not multiples of
-# 8 (the loaders' element-wise path); N 2500 spans two backward chunks.
-CASES = [(300, 64, 1000), (77, 40, 333), (129, 36, 256), (2500, 64, 520)]
+# 8 (the loaders' element-wise path, and the backward's wmma route); N 2500
+# spans two backward chunks.  On the backward's wgmma route (E and V
+# multiples of 8): E at the flagship's width with V a multiple of 8 but not
+# of the 256-wide tile; three backward chunks with a ragged last one; the
+# smallest TMA box (64 x 8 x 8, one box holds every operand).
+CASES = [(300, 64, 1000), (77, 40, 333), (129, 36, 256), (2500, 64, 520),
+         (1000, 2048, 4104), (4100, 128, 2056), (64, 8, 8)]
+
+# The backward's route for each shape of CASES (xent._route).
+ROUTES = {(300, 64, 1000): "wgmma", (77, 40, 333): "wmma",
+          (129, 36, 256): "wmma", (2500, 64, 520): "wgmma",
+          (1000, 2048, 4104): "wgmma", (4100, 128, 2056): "wgmma",
+          (64, 8, 8): "wgmma"}
 
 
 @pytest.mark.parametrize("N,E,V", CASES, ids=lambda v: str(v))
@@ -86,6 +97,50 @@ def test_kernels_match_plain(cuda, N, E, V):
     assert xent.LAUNCHES["xent_fwd"] == before["xent_fwd"] + 1
     for name in ("xent_bwd_dx", "xent_bwd_dw"):
         assert xent.LAUNCHES[name] == before[name] + 2
+
+
+@pytest.mark.parametrize("N,E,V", CASES, ids=lambda v: str(v))
+def test_backward_launches_count_on_their_route(cuda, N, E, V):
+    """Each backward wrapper call counts one launch on the route its shape
+    takes, and none on the other."""
+    x, w, labels, dl = _inputs(cuda, N, E, V, seed=N + E)
+    _, lse = xent.xent_fwd(x, w, labels)
+    before = {n: dict(c) for n, c in xent.ROUTE_LAUNCHES.items()}
+    xent.xent_bwd_dx(x, w, labels, lse, dl)
+    xent.xent_bwd_dw(x, w, labels, lse, dl)
+    xent.xent_bwd(x, w, labels, lse, dl)
+    torch.cuda.synchronize()
+    route = ROUTES[(N, E, V)]
+    for name, counts in xent.ROUTE_LAUNCHES.items():
+        assert {r: counts[r] - before[name][r] for r in counts} == {
+            r: 2 * int(r == route) for r in xent.ROUTES}, name
+
+
+def test_offset_base_takes_the_wmma_route(cuda):
+    """x 8 bytes off a 16-byte boundary (a slice of a larger buffer): TMA
+    cannot read it, so the backward takes the wmma route and agrees with
+    the plain versions; a launch that asks the wgmma route for it is
+    refused and raises."""
+    N, E, V = 300, 64, 1000
+    x, w, labels, dl = _inputs(cuda, N, E, V, seed=8)
+    buf = torch.empty(N * E + 4, dtype=torch.bfloat16, device=cuda)
+    xo = buf[4:].view(N, E)
+    xo.copy_(x)
+    assert xo.data_ptr() % 16 == 8 and xo.is_contiguous()
+    _, lse = xent.xent_fwd(xo, w, labels)
+    before = {n: dict(c) for n, c in xent.ROUTE_LAUNCHES.items()}
+    dx, dw = xent.xent_bwd(xo, w, labels, lse, dl)
+    torch.cuda.synchronize()
+    for name, counts in xent.ROUTE_LAUNCHES.items():
+        assert counts["wmma"] == before[name]["wmma"] + 1, name
+        assert counts["wgmma"] == before[name]["wgmma"], name
+    _close(dx, xent.xent_bwd_dx_plain(x, w, labels, lse, dl), GRAD_RTOL, "dx")
+    _close(dw, xent.xent_bwd_dw_plain(x, w, labels, lse, dl), GRAD_RTOL, "dW")
+    lab32 = labels.to(torch.int32)
+    g = torch.empty(N, V, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(RuntimeError):
+        xent._launch("xent_bwd_dx", cuda, xo, w, lab32, lse, dl, g,
+                     torch.empty_like(x), N, E, V, 1, 1)
 
 
 def test_two_calls_are_bitwise_equal(cuda):

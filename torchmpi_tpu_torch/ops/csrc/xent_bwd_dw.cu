@@ -6,24 +6,43 @@
 // launched by pallas_call in _xent_vjp's backward, :330).
 //
 // What bounds it: recomputing z = x . W and the product x^T . g, 4 rows E V
-// flops per chunk against the bf16 operands, so operations.
+// flops per chunk against the bf16 operands, so operations (at 2048 rows,
+// E 2048, V 32768: 0.55 TFLOP against 144 MB of operands and 512 MB of f32
+// accumulator traffic a middle chunk).
 //
 // Design: the TPU kernel carries an [E, block_v] f32 accumulator across the
 // token blocks (4 MiB at 2048 x 512): far more than an SM holds.  Here the
 // token axis is cut into chunks by the wrapper (ops/xent.py), and the f32
 // accumulator is the TPU's own f32 out_shape (:332), a [E, V] buffer in
 // device memory.  Per chunk this library runs, in stream order:
-//   (a) xent_grad_kernel (xent_common.cuh), when make_g: g for the chunk,
-//       rounded to bf16 (x's dtype, as at :140) into the [rows, V] workspace;
-//   (b) xent_dw_kernel: one block per [128 x 128] tile of dW forms x^T . g
-//       over the chunk's rows on the tensor cores (x read as the col-major A
-//       operand) and adds it to the accumulator: the first chunk writes it,
-//       later chunks add to it, and the last chunk writes bf16(sum) to dW
-//       instead (:145).
+//   (a) when make_g, g for the chunk, rounded to bf16 (x's dtype, as at
+//       :140) into the [rows, V] workspace;
+//   (b) one block per tile of dW forms x^T . g over the chunk's rows on the
+//       tensor cores and adds it to the accumulator: the first chunk writes
+//       it, later chunks add to it, and the last chunk writes bf16(sum) to
+//       dW instead (:145).
 // The chunks run in order on one stream and every element is summed by one
 // block, so the result is deterministic: no atomics.
+//
+// Two routes, chosen by the caller (ops/xent.py _route) from the shapes and
+// addresses, never by a failed launch:
+//   wgmma (E and V multiples of 8, 16-byte aligned bases): (a) is
+//     tmw::launch_grad and (b) dw_wgmma, the warp-specialised
+//     wgmma.mma_async product of xent_wgmma.cuh on TMA-loaded tiles; (b)
+//     takes A = x^T (x [rows, E] read MN-major) and B = g [rows, V]
+//     (MN-major), so neither is transposed in memory, in 128 x 256 tiles of
+//     dW, and adds to the accumulator from the registers.  ptxas (the build
+//     line of chip_smoke.py, nvcc 12.9), for both of its wgmma kernels:
+//     168 registers a thread at launch, which setmaxnreg moves to 40 in
+//     the producer and 232 in the consumers (128 of them the accumulator
+//     fragment), no spills; 128 bytes of static and 197,632 of dynamic
+//     shared memory, so one block an SM.
+//   wmma (any other shape): (a) tmx::xent_grad_kernel and (b)
+//     xent_dw_kernel, on mma_tile (xent_common.cuh).
+// A refused route (wgmma asked for operands it cannot read) returns an
+// error: nothing falls back.
 
-#include "xent_common.cuh"
+#include "xent_wgmma.cuh"
 
 namespace {
 
@@ -52,21 +71,90 @@ xent_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
   }
 }
 
+// acc (+)= the wgmma accumulators, or dW = bf16(acc + them) on the last
+// chunk.  The accumulator's reads go out in groups of G before the group's
+// stores: the compiler cannot tell that the stores miss the later reads,
+// and would otherwise wait out one device-memory round trip per pair.
+struct DwEpi {
+  float* acc;
+  bf16* dw;
+  int E, V;
+  bool first, last;
+  static constexpr int G = 16;
+  __device__ __forceinline__ void operator()(const float (&d)[tmw::ACC], int r0,
+                                             int c0) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int e = r0 + 8 * h;
+      if (e >= E) continue;
+      float* arow = acc + (long)e * V;
+      bf16* drow = dw + (long)e * V;
+#pragma unroll
+      for (int j0 = 0; j0 < tmw::ACC / 4; j0 += G) {
+        float2 a[G];
+#pragma unroll
+        for (int i = 0; i < G; ++i) {
+          const int v = c0 + 8 * (j0 + i);  // even, and V is a multiple of 8
+          a[i] = (!first && v < V) ? *reinterpret_cast<const float2*>(arow + v)
+                                   : make_float2(0.f, 0.f);
+        }
+#pragma unroll
+        for (int i = 0; i < G; ++i) {
+          const int v = c0 + 8 * (j0 + i), j = j0 + i;
+          if (v >= V) continue;
+          const float d0 = d[4 * j + 2 * h], d1 = d[4 * j + 2 * h + 1];
+          const float2 s = first ? make_float2(d0, d1)
+                                 : make_float2(a[i].x + d0, a[i].y + d1);
+          if (last)
+            *reinterpret_cast<__nv_bfloat162*>(drow + v) =
+                __floats2bfloat162_rn(s.x, s.y);
+          else
+            *reinterpret_cast<float2*>(arow + v) = s;
+        }
+      }
+    }
+  }
+};
+
+cudaError_t dw_wgmma(const bf16* x, const bf16* g, float* acc, bf16* dw,
+                     int rows, int E, int V, bool first, bool last,
+                     cudaStream_t st) {
+  CUtensorMap tx, tg;
+  cudaError_t e = tmw::make_map(&tx, x, rows, E);
+  if (e == cudaSuccess) e = tmw::make_map(&tg, g, rows, V);
+  if (e != cudaSuccess) return e;
+  return tmw::launch_gemm<true, true>(tx, tg, E, V, rows,
+                                      DwEpi{acc, dw, E, V, first, last}, st);
+}
+
 }  // namespace
 
 // One chunk: x [rows, E], labels / lse / dl [rows] (pointers at the chunk's
 // first row), w [E, V], g [rows, V] workspace, acc [E, V] f32 (unused when
 // the chunk is both first and last), dw [E, V]; bf16 except labels (int32)
 // and lse / dl / acc (f32); contiguous, on the device.  make_g: form g first
-// (else read the workspace as it is).  Returns the CUDA error code.
+// (else read the workspace as it is).  wgmma: take the wgmma route (E and V
+// multiples of 8, x, w, g, acc and dw 16-byte aligned, else the launch is
+// refused), else the wmma route.  Returns the CUDA error code.
 extern "C" int tm_xent_bwd_dw(const bf16* x, const bf16* w, const int* labels,
                               const float* lse, const float* dl, bf16* g,
                               float* acc, bf16* dw, int rows, int E, int V,
-                              int make_g, int first, int last, void* stream) {
+                              int make_g, int first, int last, int wgmma,
+                              void* stream) {
   if (rows <= 0 || E <= 0 || V <= 0) return (int)cudaErrorInvalidValue;
   if (!(first && last) && acc == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
+  if (wgmma) {
+    if (!(tmw::tma_ok(x, E) && tmw::tma_ok(w, V) && tmw::tma_ok(g, V) &&
+          tmw::tma_ok(acc, V) && tmw::tma_ok(dw, V)))
+      return (int)cudaErrorInvalidValue;
+    if (make_g) {
+      e = tmw::launch_grad(x, w, labels, lse, dl, g, rows, E, V, st);
+      if (e != cudaSuccess) return (int)e;
+    }
+    return (int)dw_wgmma(x, g, acc, dw, rows, E, V, first != 0, last != 0, st);
+  }
   if (make_g) {
     e = tmx::launch_grad(x, w, labels, lse, dl, g, rows, E, V, st);
     if (e != cudaSuccess) return (int)e;

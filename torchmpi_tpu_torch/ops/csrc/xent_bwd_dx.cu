@@ -6,24 +6,43 @@
 // launched by pallas_call in _xent_vjp's backward, :310).
 //
 // What bounds it: recomputing z = x . W and the product g . W^T, 4 rows E V
-// flops per chunk against the bf16 operands, so operations.
+// flops per chunk against the bf16 operands, so operations (at 2048 rows,
+// E 2048, V 32768: 0.55 TFLOP against 264 MB a chunk).
 //
 // Design: the TPU kernel carries a [block_n, E] f32 accumulator across the
 // vocab blocks (512 KB at 64 x 2048): more than an SM holds.  So the wrapper
 // (ops/xent.py) walks the tokens in chunks of up to 2048 rows, and per chunk
 // this library runs two kernels in stream order:
-//   (a) xent_grad_kernel (xent_common.cuh), when make_g: z for the chunk on
-//       the tensor cores, then g = (exp(z - lse) - onehot) . dl rounded to
-//       bf16 into the [rows, V] workspace, W's dtype as at :106;
-//   (b) xent_dx_kernel: dx[chunk] = g . W^T, a bf16 tensor-core product with
-//       f32 accumulators over the whole vocab inside the block (W read as
-//       the col-major B operand), cast to x's dtype at the end (:111).
+//   (a) when make_g, g for the chunk: z = x . W on the tensor cores, then
+//       g = (exp(z - lse) - onehot) . dl rounded to bf16 into the [rows, V]
+//       workspace, W's dtype as at :106;
+//   (b) dx[chunk] = g . W^T, a bf16 tensor-core product with f32
+//       accumulators over the whole vocab inside the block, cast to x's
+//       dtype at the end (:111).
 // With make_g = 0, (b) reads the g that a previous launch left in the
 // workspace: the autograd backward forms g once per chunk and hands it to
 // both this kernel and xent_bwd_dw.  No atomics: every dx element is
 // summed by one block in one order.
+//
+// Two routes, chosen by the caller (ops/xent.py _route) from the shapes and
+// addresses, never by a failed launch:
+//   wgmma (E and V multiples of 8, 16-byte aligned bases): (a) is
+//     tmw::launch_grad and (b) dx_wgmma, both the warp-specialised
+//     wgmma.mma_async product of xent_wgmma.cuh on TMA-loaded tiles; (b)
+//     takes A = g [rows, V] and B = W read as [N = E, K = V], both K-major,
+//     in 128 x 256 tiles (a 2048 x 2048 chunk is 128 blocks on 132 SMs),
+//     and casts the accumulators to bf16 in registers.  ptxas (the build
+//     line of chip_smoke.py, nvcc 12.9), for both of its wgmma kernels:
+//     168 registers a thread at launch, which setmaxnreg moves to 40 in
+//     the producer and 232 in the consumers (128 of them the accumulator
+//     fragment), no spills; 128 bytes of static and 197,632 of dynamic
+//     shared memory, so one block an SM.
+//   wmma (any other shape): (a) tmx::xent_grad_kernel and (b)
+//     xent_dx_kernel, on mma_tile (xent_common.cuh).
+// A refused route (wgmma asked for operands it cannot read) returns an
+// error: nothing falls back.
 
-#include "xent_common.cuh"
+#include "xent_wgmma.cuh"
 
 namespace {
 
@@ -47,19 +66,61 @@ xent_dx_kernel(const bf16* __restrict__ g, const bf16* __restrict__ w,
   }
 }
 
+// dx = bf16(acc) on the wgmma accumulators.
+struct DxEpi {
+  bf16* dx;
+  int rows, E;
+  __device__ __forceinline__ void operator()(const float (&d)[tmw::ACC], int r0,
+                                             int c0) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 8 * h;
+      if (row >= rows) continue;
+#pragma unroll
+      for (int j = 0; j < tmw::ACC / 4; ++j) {
+        const int col = c0 + 8 * j;  // even, and E is a multiple of 8
+        if (col < E)
+          *reinterpret_cast<__nv_bfloat162*>(dx + (long)row * E + col) =
+              __floats2bfloat162_rn(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+};
+
+cudaError_t dx_wgmma(const bf16* g, const bf16* w, bf16* dx, int rows, int E,
+                     int V, cudaStream_t st) {
+  CUtensorMap tg, tw;
+  cudaError_t e = tmw::make_map(&tg, g, rows, V);
+  if (e == cudaSuccess) e = tmw::make_map(&tw, w, E, V);
+  if (e != cudaSuccess) return e;
+  return tmw::launch_gemm<false, false>(tg, tw, rows, E, V, DxEpi{dx, rows, E}, st);
+}
+
 }  // namespace
 
 // One chunk: x [rows, E], labels / lse / dl [rows], dx [rows, E] (pointers
 // at the chunk's first row), w [E, V], g [rows, V] workspace; bf16 except
 // labels (int32) and lse / dl (f32); contiguous, on the device.  make_g: form
-// g first (else read the workspace as it is).  Returns the CUDA error code.
+// g first (else read the workspace as it is).  wgmma: take the wgmma route
+// (E and V multiples of 8, x, w, g and dx 16-byte aligned, else the launch
+// is refused), else the wmma route.  Returns the CUDA error code.
 extern "C" int tm_xent_bwd_dx(const bf16* x, const bf16* w, const int* labels,
                               const float* lse, const float* dl, bf16* g,
                               bf16* dx, int rows, int E, int V, int make_g,
-                              void* stream) {
+                              int wgmma, void* stream) {
   if (rows <= 0 || E <= 0 || V <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
+  if (wgmma) {
+    if (!(tmw::tma_ok(x, E) && tmw::tma_ok(w, V) && tmw::tma_ok(g, V) &&
+          tmw::tma_ok(dx, E)))
+      return (int)cudaErrorInvalidValue;
+    if (make_g) {
+      e = tmw::launch_grad(x, w, labels, lse, dl, g, rows, E, V, st);
+      if (e != cudaSuccess) return (int)e;
+    }
+    return (int)dx_wgmma(g, w, dx, rows, E, V, st);
+  }
   if (make_g) {
     e = tmx::launch_grad(x, w, labels, lse, dl, g, rows, E, V, st);
     if (e != cudaSuccess) return (int)e;

@@ -2,12 +2,13 @@
 
 The PyTorch counterpart of ``torchmpi_tpu/ops/xent.py``.  Three CUDA
 kernels (``ops/csrc/xent_fwd.cu``, ``xent_bwd_dx.cu``, ``xent_bwd_dw.cu``,
-sharing ``xent_common.cuh``) replace the three Pallas TPU kernels
-(``_xent_fwd_kernel`` :35, ``_xent_bwd_dx_kernel`` :82,
-``_xent_bwd_dw_kernel`` :114).  They compute ``softmax_xent(x @ w, labels)``
-per token, and its gradients, without the [tokens, vocab] logits in device
-memory.  Each has a plain PyTorch version here, written in dense torch ops
-with the kernels' conventions:
+sharing ``xent_common.cuh``, the backward also ``xent_wgmma.cuh``)
+replace the three Pallas TPU kernels (``_xent_fwd_kernel`` :35,
+``_xent_bwd_dx_kernel`` :82, ``_xent_bwd_dw_kernel`` :114).  They
+compute ``softmax_xent(x @ w, labels)`` per token, and its gradients,
+without the [tokens, vocab] logits in device memory.  Each has a plain
+PyTorch version here, written in dense torch ops with the kernels'
+conventions:
 
 - a label of -1, or any label outside [0, V), never matches: its logit
   term is 0;
@@ -50,6 +51,11 @@ KERNELS = ("xent_fwd", "xent_bwd_dx", "xent_bwd_dw")
 # show that its path went through the kernels.
 LAUNCHES = {name: 0 for name in KERNELS}
 
+# The backward kernels' launches per route (see _route).
+ROUTES = ("wgmma", "wmma")
+ROUTE_LAUNCHES = {name: {r: 0 for r in ROUTES}
+                  for name in ("xent_bwd_dx", "xent_bwd_dw")}
+
 # Token rows per backward chunk: the g workspace is BWD_CHUNK x V bf16
 # (128 MiB at V 32768).
 BWD_CHUNK = 2048
@@ -62,6 +68,18 @@ _BM, _BN, _FWD_BLOCKS = 128, 128, 512
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for counts in ROUTE_LAUNCHES.values():
+        for r in counts:
+            counts[r] = 0
+
+
+def _route(E: int, V: int, *ptrs: Optional[int]) -> str:
+    """The backward kernels' route for x [., E], w [E, V] and operands at
+    device addresses ``ptrs`` (None: no operand): ``"wgmma"`` when TMA can
+    read and write them, i.e. E and V are multiples of 8 (16-byte row
+    pitches) and every address is 16-byte aligned; else ``"wmma"``."""
+    aligned = all(p is None or p % 16 == 0 for p in ptrs)
+    return "wgmma" if E % 8 == 0 and V % 8 == 0 and aligned else "wmma"
 
 
 def _check(x, w, labels) -> None:
@@ -140,11 +158,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # x, w, labels, part, loss, lse, N, E, V, splits, stream
     "xent_fwd": ("tm_xent_fwd", [_P] * 6 + [_I] * 4 + [_P]),
-    # x, w, labels, lse, dl, g, dx, rows, E, V, make_g, stream
-    "xent_bwd_dx": ("tm_xent_bwd_dx", [_P] * 7 + [_I] * 4 + [_P]),
+    # x, w, labels, lse, dl, g, dx, rows, E, V, make_g, wgmma, stream
+    "xent_bwd_dx": ("tm_xent_bwd_dx", [_P] * 7 + [_I] * 5 + [_P]),
     # x, w, labels, lse, dl, g, acc, dw, rows, E, V, make_g, first, last,
-    # stream
-    "xent_bwd_dw": ("tm_xent_bwd_dw", [_P] * 8 + [_I] * 6 + [_P]),
+    # wgmma, stream
+    "xent_bwd_dw": ("tm_xent_bwd_dw", [_P] * 8 + [_I] * 7 + [_P]),
 }
 
 
@@ -208,7 +226,8 @@ def xent_fwd(x, w, labels):
 def _bwd_cuda(x, w, labels, lse, dl, want_dx: bool, want_dw: bool):
     """(dx or None, dW or None) on the card, chunk by chunk; with both
     wanted, g is formed once per chunk (by the dx launch) and read by the
-    dW launch."""
+    dW launch.  Every chunk takes the route ``_route`` picks for the
+    call."""
     lab, lse, dl = _cuda_operands("xent_bwd", x, w, labels, lse, dl)
     N, E = x.shape
     V = w.shape[1]
@@ -226,17 +245,22 @@ def _bwd_cuda(x, w, labels, lse, dl, want_dx: bool, want_dw: bool):
     g = torch.empty(C, V, dtype=torch.bfloat16, device=dev)
     acc = (torch.empty(E, V, dtype=torch.float32, device=dev)
            if want_dw and N > C else None)
+    route = _route(E, V, *(t.data_ptr() for t in (x, w, g, dx, acc, dw)
+                           if t is not None))
+    tma = int(route == "wgmma")
     for c0 in range(0, N, C):
         c1 = min(N, c0 + C)
         rows = c1 - c0
         chunk = (x[c0:c1], w, lab[c0:c1], lse[c0:c1], dl[c0:c1], g)
         if want_dx:
-            _launch("xent_bwd_dx", dev, *chunk, dx[c0:c1], rows, E, V, 1)
+            _launch("xent_bwd_dx", dev, *chunk, dx[c0:c1], rows, E, V, 1,
+                    tma)
         if want_dw:
             _launch("xent_bwd_dw", dev, *chunk, acc, dw, rows, E, V,
-                    int(not want_dx), int(c0 == 0), int(c1 == N))
+                    int(not want_dx), int(c0 == 0), int(c1 == N), tma)
     for name, wanted in (("xent_bwd_dx", want_dx), ("xent_bwd_dw", want_dw)):
         LAUNCHES[name] += int(wanted)
+        ROUTE_LAUNCHES[name][route] += int(wanted)
     return dx, dw
 
 
