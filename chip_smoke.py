@@ -20,7 +20,7 @@ JAX package.  In order it:
    together) beside each of the two backward kernels;
    then, at the flagship's LM-head shapes (N 4 x 2047 tokens, E 2048,
    V 32768, bf16), the three fused linear + cross-entropy kernels the same
-   way, each also run twice and required bitwise equal (rows 5 and 6 on
+   way, each also run twice and required bitwise equal (rows 4, 5 and 6 on
    their wgmma route, which the route counters must show, with one bf16
    torch.matmul at each product's shape timed beside them as context), the
    backward as the step runs it (xent_bwd: g once per chunk, dx and dW;
@@ -33,9 +33,10 @@ JAX package.  In order it:
    a bucket out), each under the chunk_bytes / pallas_bidirectional config
    that maps the bucket onto it, bitwise against the plain ring and
    against a repeat call, plus a bfloat16 and an int32 pass at 300,001
-   elements (row 8, a direct reduction, also against its own fold and on
-   contiguous rows, its element path); then the four ring reduce-scatter and
-   all-gather kernels at the flagship's ZeRO shapes (4 ranks, the
+   elements (rows 8 and 7, direct reductions, also against their own folds
+   and on contiguous rows, their element path); then the four ring
+   reduce-scatter and all-gather kernels at the flagship's ZeRO shapes (4
+   ranks, the
    reduce-scatter of 486,731,776 float32 a rank, the all-gather of the
    121,682,944-element shards) under chunk_bytes 4 MiB (rows 9 and 10,
    direct) and 512 MiB (the resident rows), the same way, with the stock
@@ -48,9 +49,9 @@ JAX package.  In order it:
 5. fused train phase (stage B', the main path of the first two slices):
    the same steps with the fused loss, fused_linear_cross_entropy(h.bf16,
    head.bf16, labels); every kernel's launch count must be > 0, every
-   backward launch of the head on the wgmma route, and the loss
-   finite and falling; in both train phases one more, untimed step counts
-   the host-device synchronizations of a step, which must be 0;
+   launch of the head (forward and backward) on the wgmma route, and the
+   loss finite and falling; in both train phases one more, untimed step
+   counts the host-device synchronizations of a step, which must be 0;
 6. consistency phases: one forward and backward of the same weights and
    batch with attn_impl="local" (dense oracle) and "flash", and with the
    dense and the fused loss;
@@ -62,7 +63,8 @@ JAX package.  In order it:
    7, 11 and 12; every sync bitwise equal to the plain ring on the same
    stacks, the first within 2e-2 (rel. L2) of the batch-4 gradients, the
    loss falling, 0 host syncs in a step, all four ring kernels launched,
-   every row-8 launch on its 16-byte path; then one more sync's device
+   every row-8 and row-7 launch on its 16-byte path; then one more sync's
+   device
    time by kernel (torch.profiler) and 3 more whole steps on the host's
    clock;
 8. ZeRO phase (the main path of the ZeRO slice): the flagship as ZeRO data
@@ -145,18 +147,20 @@ ZERO_ROWS = {
 ZERO_SMALL = 300_000  # elements per rank of the bf16 and int32 passes
 # Recorded constants, not measured here: the times and figures of the
 # kernels that the redesigned rows replaced (the ring-walking kernels of
-# rows 8, 9 and 10, the f32-FMA flash kernels of rows 1, 2 and 3, the
-# cp.async / wmma backward of the fused loss, rows 5 and 6), at the
+# rows 7, 8, 9 and 10, the f32-FMA flash kernels of rows 1, 2 and 3, the
+# cp.async / wmma kernels of the fused loss, rows 4, 5 and 6), at the
 # same shapes and by the same time_ms (PERF.md's kernel table and section
-# 5, H100 80GB HBM3 at 700 W).  The output prints them under ring_recorded_* keys
-# (earlier_ms in the kernel rows).
-RING_RECORDED_MS = {"ring_allreduce_chunked": 0.731,
+# 5, H100 80GB HBM3 at 700 W).  The output prints them under
+# ring_recorded_* keys (earlier_ms in the kernel rows).
+RING_RECORDED_MS = {"ring_allreduce_bidir_chunked": 1.042,
+                    "ring_allreduce_chunked": 0.731,
                     "ring_reduce_scatter_chunked": 23.480,
                     "ring_all_gather_chunked": 14.340}
 FLASH_RECORDED_MS = {"flash_fwd": 3.215, "flash_bwd_dq": 4.212,
                      "flash_bwd_dkv": 6.005}
-# The wmma-product kernels of rows 5 and 6 (PERF.md's kernel table).
-XENT_RECORDED_MS = {"xent_bwd_dx": 12.665, "xent_bwd_dw": 14.460}
+# The wmma-product kernels of rows 4, 5 and 6 (PERF.md's kernel table).
+XENT_RECORDED_MS = {"xent_fwd": 7.083, "xent_bwd_dx": 12.665,
+                    "xent_bwd_dw": 14.460}
 RING_RECORDED_DP_SYNC_MS = 60.5
 RING_RECORDED_ZERO_PEAK_GB = 33.20
 ZERO_LR = 1e-3  # Adam, as benchmarks/memory_bench.py :58
@@ -176,7 +180,7 @@ SOURCES = {
     "xent_bwd_dw": ("torchmpi_tpu_torch/ops/csrc/xent_bwd_dw.cu",
                     "torchmpi_tpu/ops/xent.py:114"),
     "ring_allreduce_bidir_chunked": (
-        "torchmpi_tpu_torch/ops/csrc/ring_allreduce.cu",
+        "torchmpi_tpu_torch/ops/csrc/ring_direct.cu",
         "torchmpi_tpu/ops/ring.py:534"),
     "ring_allreduce_chunked": ("torchmpi_tpu_torch/ops/csrc/ring_direct.cu",
                                "torchmpi_tpu/ops/ring.py:511"),
@@ -487,7 +491,8 @@ def xent_kernel_phase(torch, xent, dev):
                  "g_wT": time_ms(torch, lambda: torch.matmul(gb, w.t())),
                  "xT_g": time_ms(torch, lambda: torch.matmul(x.t(), gb))}
     del gb
-    products = {"xent_bwd_dx": ("z", "g_wT"), "xent_bwd_dw": ("z", "xT_g")}
+    products = {"xent_fwd": ("z",), "xent_bwd_dx": ("z", "g_wT"),
+                "xent_bwd_dw": ("z", "xT_g")}
     for row in rows:
         name = row["name"]
         if name in XENT_RECORDED_MS:
@@ -663,8 +668,8 @@ def train_phase(torch, mpi, ops, dev, loss: str):
     if loss == "fused":
         for name, counts in routes.items():
             check(counts == {"wgmma": launches[name], "wmma": 0},
-                  f"{name}: stage B' backward launches off the wgmma "
-                  f"route: {counts} of {launches[name]}")
+                  f"{name}: stage B' head launches off the wgmma route: "
+                  f"{counts} of {launches[name]}")
     return model, tok, launches
 
 
@@ -728,9 +733,15 @@ def ring_kernel_phase(torch, ring, dev):
     bucket onto it; each kernel against its plain version, bitwise, and
     bitwise on a repeat call; then a bfloat16 and an int32 pass at a small
     size.  The buffers' rows sit 16 bytes apart, as the fused rank-major
-    sync lays a bucket out (fusion.gather_bucket); row 8 is also run on
-    contiguous rows, which its kernel reads element by element."""
+    sync lays a bucket out (fusion.gather_bucket); the direct rows (8, 7)
+    are also run on contiguous rows, which their kernel reads element by
+    element."""
     n, L = RING_N, RING_BUCKET
+    # The direct rows' torch folds, in their kernels' order.
+    folds = {
+        "ring_allreduce_chunked": ring.allreduce_direct_plain,
+        "ring_allreduce_bidir_chunked": ring.allreduce_bidir_direct_plain,
+    }
 
     def rows16(t):
         """[n, m] on rows padded to 16 bytes (a view)."""
@@ -771,8 +782,7 @@ def ring_kernel_phase(torch, ring, dev):
             extra = {
                 "design": "direct", "vector_launches": vec,
                 "launches_checked": 2,
-                "fold_bitwise": torch.equal(
-                    out, ring.allreduce_direct_plain(x, *plan)),
+                "fold_bitwise": torch.equal(out, folds[name](x, *plan)),
                 "element_path_bitwise": torch.equal(elem, ref) and (
                     ring.VECTOR_LAUNCHES[name] - vec0[name] == vec),
                 "element_path_ms": time_ms(torch, lambda: ring.WRAPPERS[
@@ -1083,7 +1093,9 @@ def ring_dp_phase(torch, mpi, ops, dev):
     launches = {nm: c for mod in ops.values() for nm, c in
                 mod.LAUNCHES.items()}
     row8 = "ring_allreduce_chunked"
-    row8_vector = ring.VECTOR_LAUNCHES[row8]
+    direct_vector = {nm: {"all": launches[nm],
+                          "vector": ring.VECTOR_LAUNCHES[nm]}
+                     for nm in RING_CONFIGS if nm in ring.DIRECT}
     peak = torch.cuda.max_memory_allocated()
     losses = [float(v) for v in losses]
 
@@ -1118,7 +1130,7 @@ def ring_dp_phase(torch, mpi, ops, dev):
         "ring_recorded_median_sync_ms": {row8: RING_RECORDED_DP_SYNC_MS},
         "sync_device_breakdown": breakdown, "step_ms": step_ms,
         "median_step_ms": statistics.median(step_ms),
-        "row8_launches_on_16_byte_path": row8_vector,
+        "launches_on_16_byte_path": direct_vector,
         "bitwise_vs_plain": bitwise,
         "dp_max_rel_l2_vs_batch4": dp_rel[0], "dp_worst_tensor": dp_rel[1],
         "dp_tolerance": DP_RTOL, "peak_mem_bytes_with_check": peak,
@@ -1135,8 +1147,9 @@ def ring_dp_phase(torch, mpi, ops, dev):
     for name in RING_CONFIGS:
         check(launches[name] > 0, f"kernel {name} never launched on the "
               f"ring DP path")
-    check(row8_vector == launches[row8], f"{row8}: {row8_vector} of "
-          f"{launches[row8]} launches on the 16-byte path")
+    for nm, c in direct_vector.items():
+        check(c["vector"] == c["all"], f"{nm}: {c['vector']} of "
+              f"{c['all']} launches on the 16-byte path")
     return launches, {k: statistics.median(v) for k, v in sync_ms.items()}
 
 

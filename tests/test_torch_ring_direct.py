@@ -1,13 +1,16 @@
-"""The add order of the direct ring rows (rows 8, 9 and 10 of the kernel
-table, ``ops/csrc/ring_direct.cu``) on the CPU.
+"""The add order of the direct ring rows (rows 7, 8, 9 and 10 of the
+kernel table, ``ops/csrc/ring_direct.cu``) on the CPU.
 
 The CUDA kernels do not walk the ring: they load every rank's value of an
 element and add the values in the order the ring would have.  Their plain
-versions, ``ring.allreduce_direct_plain`` and
+versions, ``ring.allreduce_direct_plain``,
+``ring.allreduce_bidir_direct_plain`` and
 ``ring.reduce_scatter_direct_plain``, are torch folds in that order; here
 they are held bitwise to the ring's own plain versions (the step-by-step
 schedules), chunked and resident, over ring sizes, dtypes, ragged and
-aligned lengths, plans and a row-padded (strided) input.  Row 10, the
+aligned lengths, plans and a row-padded (strided) input.  Row 7's second
+half runs the schedule in the other rotation, so its chunks fold ranks c,
+c - 1, ..., c - n + 1.  Row 10, the
 all-gather, adds nothing: its kernel stores each shard to every rank, and
 its torch form ``ring.all_gather_direct_plain`` (the shards expanded to
 [n, n, per]) is held bitwise to the ring's step-by-step all-gather on
@@ -93,6 +96,43 @@ def test_direct_order_equals_the_ring(n, dtype, row, L):
                 assert torch.equal(got[0], want)
             else:
                 assert torch.equal(got.reshape(-1), want)
+
+
+# Row 7 also at 40,003 elements: the second half starts at element 20,001,
+# off every dtype's 16-byte boundary (the kernel peels it to the boundary;
+# the fold's order does not depend on it).
+BIDIR_LENGTHS = LENGTHS + (40_003,)
+
+
+@pytest.mark.parametrize("L", BIDIR_LENGTHS)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("n", [2, 3, 4, 5, 8])
+def test_bidir_direct_order_equals_the_ring(n, dtype, L):
+    dt = DTYPES[dtype]
+    chunked = 0
+    for pad in (0, 3):
+        x = _stack(n, L, dt, seed=n * 1000 + L + pad + 7, pad=pad)
+        xc = x.contiguous()
+        for cb in CHUNK_BYTES:
+            cb = cb * dt.itemsize // 4
+            # The half plan; where its halves are chunked (C > 1) it is the
+            # plan the schedule gives row 7.  A one-chunk plan (8 KiB at the
+            # smallest L and n >= 5) still fixes an order to hold.
+            plan = ring._chunk_plan(-(-L // 2), n, dt, cb)
+            if plan[1] > 1:
+                chunked += 1
+                assert ring.schedule(L, n, dt, chunk_bytes=cb,
+                                     bidirectional=True) == (
+                    "ring_allreduce_bidir_chunked", plan)
+            got = ring.allreduce_bidir_direct_plain(x, *plan)
+            assert got.shape == x.shape and got.dtype == dt
+            assert torch.equal(got, ring.allreduce_bidir_chunked_plain(
+                xc, *plan)), (n, L, cb, pad)
+            # Every rank holds the same sum.
+            assert all(torch.equal(got[r], got[0]) for r in range(n))
+        if dt == torch.int32:
+            assert torch.equal(got[0], xc.sum(0, dtype=torch.int32))
+    assert chunked >= 2
 
 
 # Shard lengths of the all-gather: 4096 fills its plan (C 4 of 1024, no

@@ -9,10 +9,12 @@ on its own:
 
 n ranks' buffers sit on the one card, rank-major; one launch runs the whole
 ring.  The kernels add in the schedule's order, as the plain versions do, so
-every comparison is bitwise, for float32, bfloat16 and int32.  Row 8
-(``ring_allreduce_chunked``) walks no ring: its kernel (ring_direct.cu)
-folds every rank's value of an element in the ring's order, on a 16-byte
-path where the rows are aligned and element by element otherwise.  The CPU
+every comparison is bitwise, for float32, bfloat16 and int32.  Rows 8
+(``ring_allreduce_chunked``) and 7 (``ring_allreduce_bidir_chunked``) walk
+no ring: their kernel (ring_direct.cu) folds every rank's value of an
+element in the ring's order (row 7's second half in the other rotation's),
+on a 16-byte path where the rows are aligned and element by element
+otherwise.  The CPU
 parity of the plain versions with the JAX package is tests/test_torch_ring.py.
 """
 
@@ -126,6 +128,46 @@ def test_direct_allreduce_paths(cuda, n, L, pad):
     # An empty rank launches nothing.
     before = ring.LAUNCHES[name]
     got = ring.allreduce_chunked(torch.ones(n, 0, device=cuda), 1024, 2)
+    assert got.shape == (n, 0) and ring.LAUNCHES[name] == before
+
+
+# Row 7 on the same kernel: (L, row padding).  On 16-byte rows, L 40,003
+# puts the second half's first element (20,001) off the boundary for every
+# dtype, so its chunks peel their first elements; L 40,001 splits at
+# 20,000, on it.  11 ranks take two rounds of loads in flight; L 1 leaves
+# the first half empty.
+BIDIR_DIRECT_CASES = [(1, 0), (40_001, 0), (40_003, "align"),
+                      (40_001, "align"), (65_536, 0)]
+
+
+@pytest.mark.parametrize("n", [2, 3, 4, 8, 11])
+@pytest.mark.parametrize("L,pad", BIDIR_DIRECT_CASES, ids=lambda v: str(v))
+def test_direct_bidir_allreduce_paths(cuda, n, L, pad):
+    name = "ring_allreduce_bidir_chunked"
+    for i, dtype in enumerate(DTYPES):
+        v = 16 // dtype.itemsize
+        width = -(-L // v) * v if pad == "align" else L + pad
+        x = _stack(cuda, n, width, dtype, seed=n * 10 + i + 5)[:, :L]
+        plan = ring._chunk_plan(max(-(-L // 2), 2 * n * 1024), n, dtype,
+                                4096 * dtype.itemsize // 4)
+        assert plan[1] > 1
+        vector = (x.stride(0) * dtype.itemsize) % 16 == 0
+        before = dict(ring.LAUNCHES), dict(ring.VECTOR_LAUNCHES)
+        got = ring.allreduce_bidir_chunked(x, *plan)
+        again = ring.allreduce_bidir_chunked(x, *plan)
+        want = ring.allreduce_bidir_chunked_plain(x, *plan)
+        torch.cuda.synchronize()
+        assert ring.LAUNCHES[name] == before[0][name] + 2
+        assert ring.VECTOR_LAUNCHES[name] == before[1][name] + 2 * vector
+        assert got.shape == x.shape and got.dtype == dtype
+        assert torch.equal(got, want), f"n={n} L={L} {dtype}"
+        assert torch.equal(got, again), f"n={n} L={L} {dtype}: repeat"
+        assert torch.equal(got, ring.allreduce_bidir_direct_plain(x, *plan))
+        if dtype == torch.int32:
+            assert torch.equal(got[0], x.sum(0, dtype=torch.int32))
+    before = ring.LAUNCHES[name]
+    got = ring.allreduce_bidir_chunked(torch.ones(n, 0, device=cuda), 1024,
+                                       2)
     assert got.shape == (n, 0) and ring.LAUNCHES[name] == before
 
 

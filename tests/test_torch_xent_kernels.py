@@ -51,6 +51,16 @@ def _inputs(dev, N, E, V, seed, x_scale=1.0):
     return x, w, labels, dl
 
 
+def _offset(x):
+    """x's copy 8 bytes off a 16-byte boundary: TMA cannot read it, so
+    every kernel takes the wmma route."""
+    buf = torch.empty(x.numel() + 4, dtype=x.dtype, device=x.device)
+    xo = buf[4:].view(x.shape)
+    xo.copy_(x)
+    assert xo.data_ptr() % 16 == 8
+    return xo
+
+
 def _run_all(x, w, labels, dl):
     loss, lse = xent.xent_fwd(x, w, labels)
     return (loss, lse, xent.xent_bwd_dx(x, w, labels, lse, dl),
@@ -68,7 +78,8 @@ def _run_all(x, w, labels, dl):
 CASES = [(300, 64, 1000), (77, 40, 333), (129, 36, 256), (2500, 64, 520),
          (1000, 2048, 4104), (4100, 128, 2056), (64, 8, 8)]
 
-# The backward's route for each shape of CASES (xent._route).
+# The route of each shape of CASES (xent._route), the forward's and the
+# backward's alike: every operand here is allocated, so 16-byte aligned.
 ROUTES = {(300, 64, 1000): "wgmma", (77, 40, 333): "wmma",
           (129, 36, 256): "wmma", (2500, 64, 520): "wgmma",
           (1000, 2048, 4104): "wgmma", (4100, 128, 2056): "wgmma",
@@ -111,24 +122,66 @@ def test_backward_launches_count_on_their_route(cuda, N, E, V):
     xent.xent_bwd(x, w, labels, lse, dl)
     torch.cuda.synchronize()
     route = ROUTES[(N, E, V)]
-    for name, counts in xent.ROUTE_LAUNCHES.items():
+    for name in ("xent_bwd_dx", "xent_bwd_dw"):
+        counts = xent.ROUTE_LAUNCHES[name]
         assert {r: counts[r] - before[name][r] for r in counts} == {
             r: 2 * int(r == route) for r in xent.ROUTES}, name
 
 
+@pytest.mark.parametrize("N,E,V", CASES, ids=lambda v: str(v))
+def test_forward_launches_count_on_their_route(cuda, N, E, V):
+    """Each forward call counts one launch on the route its shape takes,
+    and none on the other."""
+    x, w, labels, _ = _inputs(cuda, N, E, V, seed=N + 3 * E)
+    before = dict(xent.ROUTE_LAUNCHES["xent_fwd"])
+    xent.xent_fwd(x, w, labels)
+    xent.xent_fwd(x, w, labels)
+    torch.cuda.synchronize()
+    route = ROUTES[(N, E, V)]
+    counts = xent.ROUTE_LAUNCHES["xent_fwd"]
+    assert {r: counts[r] - before[r] for r in counts} == {
+        r: 2 * int(r == route) for r in xent.ROUTES}
+
+
+# The forward's wgmma route (one 128 x 256 tile of z a block, its (m, l, t)
+# folded from the accumulators): ragged V against the 256-column tile,
+# ragged N against the 128-row tile, the smallest box, V below one tile,
+# and the flagship's shape.
+FWD_WGMMA_CASES = [(1000, 2048, 4104), (300, 64, 1000), (64, 8, 8),
+                   (129, 64, 200), (8188, 2048, 32768)]
+
+
+@pytest.mark.parametrize("N,E,V", FWD_WGMMA_CASES, ids=lambda v: str(v))
+def test_forward_wgmma_route_matches_plain(cuda, N, E, V):
+    x, w, labels, _ = _inputs(cuda, N, E, V, seed=2 * N + V)
+    # Labels at the last column, at the 256-column tile's edges, in the
+    # quad's other lanes (columns 1, 2, 9), -1 and past V.
+    edges = [V - 1, 0, 1, 2, 9, min(255, V - 1), min(256, V - 1),
+             min(257, V - 1), V, V + 5, -1]
+    labels[:len(edges)] = torch.tensor(edges, device=cuda)
+    before = dict(xent.ROUTE_LAUNCHES["xent_fwd"])
+    loss, lse = xent.xent_fwd(x, w, labels)
+    loss2, lse2 = xent.xent_fwd(x, w, labels)
+    torch.cuda.synchronize()
+    assert xent.ROUTE_LAUNCHES["xent_fwd"] == {
+        "wgmma": before["wgmma"] + 2, "wmma": before["wmma"]}
+    ref_loss, ref_lse = xent.xent_fwd_plain(x, w, labels)
+    _close(loss, ref_loss, STAT_RTOL, "loss")
+    _close(lse, ref_lse, STAT_RTOL, "lse")
+    assert torch.equal(loss, loss2) and torch.equal(lse, lse2)
+
+
 def test_offset_base_takes_the_wmma_route(cuda):
     """x 8 bytes off a 16-byte boundary (a slice of a larger buffer): TMA
-    cannot read it, so the backward takes the wmma route and agrees with
-    the plain versions; a launch that asks the wgmma route for it is
-    refused and raises."""
+    cannot read it, so the forward and the backward take the wmma route and
+    agree with the plain versions; a launch that asks the wgmma route for
+    it is refused and raises."""
     N, E, V = 300, 64, 1000
     x, w, labels, dl = _inputs(cuda, N, E, V, seed=8)
-    buf = torch.empty(N * E + 4, dtype=torch.bfloat16, device=cuda)
-    xo = buf[4:].view(N, E)
-    xo.copy_(x)
-    assert xo.data_ptr() % 16 == 8 and xo.is_contiguous()
-    _, lse = xent.xent_fwd(xo, w, labels)
+    xo = _offset(x)
+    assert xo.is_contiguous()
     before = {n: dict(c) for n, c in xent.ROUTE_LAUNCHES.items()}
+    _, lse = xent.xent_fwd(xo, w, labels)
     dx, dw = xent.xent_bwd(xo, w, labels, lse, dl)
     torch.cuda.synchronize()
     for name, counts in xent.ROUTE_LAUNCHES.items():
@@ -141,6 +194,10 @@ def test_offset_base_takes_the_wmma_route(cuda):
     with pytest.raises(RuntimeError):
         xent._launch("xent_bwd_dx", cuda, xo, w, lab32, lse, dl, g,
                      torch.empty_like(x), N, E, V, 1, 1)
+    part = torch.empty(3, -(-V // 256), N, device=cuda)
+    with pytest.raises(RuntimeError):
+        xent._launch("xent_fwd", cuda, xo, w, lab32, part, torch.empty_like(
+            lse), torch.empty_like(lse), N, E, V, part.shape[1], 1)
 
 
 def test_two_calls_are_bitwise_equal(cuda):
@@ -151,10 +208,16 @@ def test_two_calls_are_bitwise_equal(cuda):
         assert torch.equal(a, b)
 
 
-def test_extreme_logits(cuda):
-    """Logits in the hundreds: the online lse stays finite and agrees."""
+@pytest.mark.parametrize("route", ["wgmma", "wmma"])
+def test_extreme_logits(cuda, route):
+    """Logits in the hundreds: the lse stays finite and agrees, on either
+    route."""
     x, w, labels, dl = _inputs(cuda, 200, 64, 640, seed=4, x_scale=60.0)
+    if route == "wmma":
+        x = _offset(x)
+    before = dict(xent.ROUTE_LAUNCHES["xent_fwd"])
     loss, lse = xent.xent_fwd(x, w, labels)
+    assert xent.ROUTE_LAUNCHES["xent_fwd"][route] == before[route] + 1
     ref_loss, ref_lse = xent.xent_fwd_plain(x, w, labels)
     assert torch.isfinite(loss).all() and float(ref_lse.abs().max()) > 100
     _close(loss, ref_loss, STAT_RTOL, "loss")

@@ -2,23 +2,19 @@
 // buffers are device pointers, (n - 1) reduce-scatter steps then (n - 1)
 // all-gather steps; float32, bfloat16 and int32.
 //
-// Replaces three TPU allreduce kernels of torchmpi_tpu/ops/ring.py, one C
+// Replaces two TPU allreduce kernels of torchmpi_tpu/ops/ring.py, one C
 // launcher each:
-//   tm_ring_allreduce               _ring_allreduce_kernel :265 (pallas_call
-//                                   :831), one direction, a whole ring chunk
-//                                   per step;
-//   tm_ring_allreduce_bidir         _ring_allreduce_bidir_kernel :203 (:859),
-//                                   two halves in opposite directions;
-//   tm_ring_allreduce_bidir_chunked _ring_allreduce_bidir_chunked_kernel :534
-//                                   (:642) through _chunked_pipeline :439,
-//                                   both halves, subchunks of ~chunk_bytes.
-// The fourth, the one-direction chunked _ring_allreduce_chunked_kernel :511
-// (row 8), is a direct reduction in the ring's add order (ring_direct.cu).
+//   tm_ring_allreduce        _ring_allreduce_kernel :265 (pallas_call :831),
+//                            one direction, a whole ring chunk per step;
+//   tm_ring_allreduce_bidir  _ring_allreduce_bidir_kernel :203 (:859), two
+//                            halves in opposite directions.
+// The two chunked ones, _ring_allreduce_chunked_kernel :511 (row 8) and
+// _ring_allreduce_bidir_chunked_kernel :534 (row 7), are direct reductions
+// in the ring's add order (ring_direct.cu).
 //
 // Layout (the TPU kernels'): rank r's work buffer o_r is its padded input,
-// viewed [n ring chunks, C subchunks, E elements]; C = 1 for the resident
-// kernels, whose slot is a whole ring chunk.  Each rank has two comm slots
-// of E elements per direction.  At step s rank r sends chunk send_idx to its
+// viewed [n ring chunks, E elements]: a slot is a whole ring chunk.  Each
+// rank has two comm slots of E elements per direction.  At step s rank r sends chunk send_idx to its
 // neighbour in the direction and receives chunk recv_idx from the other
 // neighbour (_step_indices :147): o_r[recv] = o_r[recv] + slot in the
 // reduce-scatter phase, o_r[recv] = slot in the all-gather phase.  An
@@ -26,16 +22,13 @@
 // bitwise the TPU kernels' and the plain versions' (ops/ring.py).
 //
 // Protocol (ring_common.cuh; the TPU's slot and ack protocol, which the
-// port's ops/ring_sim.py models): iteration k = s * C + c uses slot k % 2.
-// Before issuing iteration k >= 2 the sender waits until the neighbour has
-// acknowledged iteration k - 2 (ack >= k - 1); it stores its part of
-// o[send_idx, c] into the neighbour's slot and release-increments the
+// port's ops/ring_sim.py models at C = 1): step k uses slot k % 2.  Before
+// issuing step k >= 2 the sender waits until the neighbour has
+// acknowledged step k - 2 (ack >= k - 1); it stores its part of
+// o[send_idx] into the neighbour's slot and release-increments the
 // neighbour's recv[slot].  The receiver acquire-waits until
 // recv[slot] >= k / 2 + 1, combines, and increments its left neighbour's
-// ack.  The chunked kernels issue iteration k + 1 before waiting for k
-// (_chunked_pipeline's order; safe because C > 1 puts the writeback that
-// k + 1 forwards at least one iteration back); the resident ones do not.
-// Every block drains to ack == K before it exits.
+// ack.  Every block drains to ack == K before it exits.
 //
 // Grid (B, n, directions): each slot is split into B slices, and block b of
 // rank r owns slice b of every chunk of r's buffer, stages it (o = x, the
@@ -62,14 +55,14 @@ struct Dir {
   void* o;         // [n, P] work buffer = output
   void* comm;      // [n, 2, E] comm slots
   long long P;     // elements per rank in this direction's half
-  long long E;     // elements per slot: P / (n C)
+  long long E;     // elements per slot: P / n
   int sign;        // +1 sends right, -1 sends left
 };
 
 struct Args {
   Dir d[2];
   unsigned* flags;  // [n][D][B][3]: recv slot 0, recv slot 1, ack
-  int n, C, D, B;
+  int n, D, B;
 };
 
 template <typename T>
@@ -77,7 +70,7 @@ __global__ void __launch_bounds__(tmr::kThreads)
 ring_allreduce_kernel(Args a) {
   const int b = blockIdx.x, r = blockIdx.y, dd = blockIdx.z;
   const Dir d = a.d[dd];
-  const int n = a.n, C = a.C;
+  const int n = a.n;
   const int right = tmr::mod(r + d.sign, n), left = tmr::mod(r - d.sign, n);
   auto flags_of = [&](int rank) {
     return a.flags + ((static_cast<long long>(rank) * a.D + dd) * a.B + b) * 3;
@@ -94,11 +87,11 @@ ring_allreduce_kernel(Args a) {
   const T* slot_in = static_cast<const T*>(d.comm) + 2 * E * r + lo;
   T* slot_out = static_cast<T*>(d.comm) + 2 * E * right + lo;
 
-  for (int j = 0; j < n * C; ++j)
+  for (int j = 0; j < n; ++j)
     tmr::copy<T, false>(o + j * E, x + j * E, len);
   __syncthreads();
 
-  const int K = 2 * (n - 1) * C;
+  const int K = 2 * (n - 1);
   auto chunk_of = [&](int s, bool recv) {
     int send_idx, recv_idx;
     if (s < n - 1) {
@@ -111,36 +104,18 @@ ring_allreduce_kernel(Args a) {
     }
     return recv ? recv_idx : send_idx;
   };
-  auto issue = [&](int k) {
-    const int s = k / C, c = k % C;
+  for (int k = 0; k < K; ++k) {
     if (k >= 2) tmr::wait_geq(mine + 2, static_cast<unsigned>(k - 1));
     tmr::copy<T, false>(slot_out + (k & 1) * E,
-                        o + (static_cast<long long>(chunk_of(s, false)) * C + c) * E,
-                        len);
+                        o + static_cast<long long>(chunk_of(k, false)) * E, len);
     tmr::signal(to_right + (k & 1));
-  };
-  auto receive = [&](int k) {
-    const int s = k / C, c = k % C;
     tmr::wait_geq(mine + (k & 1), static_cast<unsigned>(k / 2 + 1));
-    T* dst = o + (static_cast<long long>(chunk_of(s, true)) * C + c) * E;
-    if (s < n - 1)
+    T* dst = o + static_cast<long long>(chunk_of(k, true)) * E;
+    if (k < n - 1)
       tmr::add_from_peer<T>(dst, slot_in + (k & 1) * E, len);
     else
       tmr::copy<T, true>(dst, slot_in + (k & 1) * E, len);
     tmr::signal(to_left + 2);
-  };
-
-  if (C > 1) {
-    issue(0);
-    for (int k = 0; k < K; ++k) {
-      if (k + 1 < K) issue(k + 1);
-      receive(k);
-    }
-  } else {
-    for (int k = 0; k < K; ++k) {
-      issue(k);
-      receive(k);
-    }
   }
   tmr::wait_geq(mine + 2, static_cast<unsigned>(K));
 }
@@ -154,11 +129,11 @@ int launch_typed(Args a, cudaStream_t st) {
 
 // dtype: 0 float32, 1 bfloat16, 2 int32.
 int launch(int dtype, Args a, void* stream) {
-  if (a.n < 2 || a.C < 1 || a.B < 1 || a.D < 1 || a.D > 2)
+  if (a.n < 2 || a.B < 1 || a.D < 1 || a.D > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   for (int i = 0; i < a.D; ++i) {
     const Dir& d = a.d[i];
-    if (d.E < 1 || d.P != d.E * a.n * a.C)
+    if (d.E < 1 || d.P != d.E * a.n)
       return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -182,7 +157,7 @@ extern "C" int tm_ring_allreduce(int dtype, const void* x, void* o,
                                  void* comm, unsigned* flags, long long P,
                                  int n, int B, void* stream) {
   if (n < 1 || P % n) return static_cast<int>(cudaErrorInvalidValue);
-  Args a{{dir(x, o, comm, P, P / n, +1), {}}, flags, n, 1, 1, B};
+  Args a{{dir(x, o, comm, P, P / n, +1), {}}, flags, n, 1, B};
   return launch(dtype, a, stream);
 }
 
@@ -197,17 +172,6 @@ extern "C" int tm_ring_allreduce_bidir(int dtype, const void* x1,
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{{dir(x1, o1, comm1, P1, P1 / n, +1),
           dir(x2, o2, comm2, P2, P2 / n, -1)},
-         flags, n, 1, 2, B};
-  return launch(dtype, a, stream);
-}
-
-// Row 7: both halves padded to the same plan, rotating right and left.
-extern "C" int tm_ring_allreduce_bidir_chunked(
-    int dtype, const void* x1, const void* x2, void* o1, void* o2,
-    void* comm1, void* comm2, unsigned* flags, long long P, long long E,
-    int C, int n, int B, void* stream) {
-  if (C < 2) return static_cast<int>(cudaErrorInvalidValue);
-  Args a{{dir(x1, o1, comm1, P, E, +1), dir(x2, o2, comm2, P, E, -1)},
-         flags, n, C, 2, B};
+         flags, n, 2, B};
   return launch(dtype, a, stream);
 }

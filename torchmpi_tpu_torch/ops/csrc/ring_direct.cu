@@ -1,9 +1,12 @@
-// ring_direct: the chunked ring allreduce, reduce-scatter and all-gather as
-// direct reductions and copies, in the ring's add order, over n ranks whose
-// buffers are device pointers; float32, bfloat16 and int32.
+// ring_direct: the chunked ring allreduces (one direction and both), the
+// chunked reduce-scatter and the chunked all-gather as direct reductions
+// and copies, in the ring's add order, over n ranks whose buffers are
+// device pointers; float32, bfloat16 and int32.
 //
-// Replaces three TPU kernels of torchmpi_tpu/ops/ring.py, one C launcher
+// Replaces four TPU kernels of torchmpi_tpu/ops/ring.py, one C launcher
 // each:
+//   tm_ring_allreduce_bidir_direct _ring_allreduce_bidir_chunked_kernel :534
+//                                  (pallas_call :642), row 7;
 //   tm_ring_allreduce_direct       _ring_allreduce_chunked_kernel :511
 //                                  (pallas_call :686), row 8;
 //   tm_ring_reduce_scatter_direct  _ring_reduce_scatter_chunked_kernel :707
@@ -20,6 +23,10 @@
 //   allreduce, chunk c = [c CE, (c + 1) CE) of the padded layout, CE = C E
 //   from the plan: x_c, x_{c+1}, ..., x_{c+n-1} (ranks mod n), a left fold,
 //   written to every rank;
+//   bidirectional allreduce, the halves [0, h) and [h, L), h = L / 2, each
+//   in chunks of the half plan's CE: half 1 as the allreduce, half 2 the
+//   same schedule rotating the other way (:546, my -> -my), so chunk c of
+//   it folds x_c, x_{c-1}, ..., x_{c-n+1};
 //   reduce-scatter, chunk c = [c per, (c + 1) per): x_{c+1}, ..., x_{c+n-1},
 //   x_c, written to rank c only.
 // Each add is Elem<T>'s (ring_common.cuh: float32, bfloat16 rounded after
@@ -30,16 +37,22 @@
 // to slice s of every rank's output (_ag_plain's result), so it is bitwise
 // for any dtype.
 //
-// One kernel, grid (B, n): blockIdx.y is the ring chunk (the all-gather's
-// source rank), and the B blocks of a chunk share its units in a
-// grid-stride loop.  Every thread issues up to kInFlight ranks' loads of
-// its unit before the first add that consumes them.  A unit is a 16-byte
-// vector when every source and destination row, the row strides and the
-// chunk length are 16-byte aligned (the fused sync's buckets and ZeRO's
-// flats and shards are), the chunk's last elements (fewer than one vector)
-// then taken one by one; otherwise a unit is one element.  Loads go
-// through the read-only path, stores are plain: evict-first loads and
-// stores (__ldcs / __stcs) timed slower at the flagship's shapes on an
+// One kernel, grid (B, n) (bidirectional: (B, 2 n), chunks n to 2 n - 1 in
+// half 2): blockIdx.y is the ring chunk (the all-gather's source rank), and
+// the B blocks of a chunk share its units in a grid-stride loop.  Every
+// thread issues up to kInFlight ranks' loads of its unit before the first
+// add that consumes them.  A unit is a 16-byte vector when every source
+// and destination row, the row strides and the chunk length are 16-byte
+// aligned (the fused sync's buckets and ZeRO's flats and shards are), the
+// chunk's last elements (fewer than one vector) then taken one by one;
+// otherwise a unit is one element.  Half 2 starts at element h of the
+// rows, which an odd half leaves off a 16-byte boundary (the flagship's
+// bucket of 8,249,691 elements: h = 4,124,845); its chunks then take their
+// first elements, up to 16 / itemsize - 1, one by one, and vectors from
+// the boundary on.  A launch counts on the 16-byte path (*vec = 1, the
+// wrapper's VECTOR_LAUNCHES) when the bulk of every chunk ran on vectors.
+// Loads go through the read-only path, stores are plain: evict-first loads
+// and stores (__ldcs / __stcs) timed slower at the flagship's shapes on an
 // H100.
 //
 // What bounds it: bytes.  Every input element is read once and every
@@ -47,7 +60,8 @@
 // 2 n L itemsize for the allreduce of n ranks' L elements, (n + 1) n per
 // itemsize for the reduce-scatter, (n + n^2) per itemsize for the
 // all-gather of n shards of per.  The ring schedule on one card moved
-// 2.8 to 5 times as much (ring_allreduce.cu, ring_rs_ag.cu).  A version
+// 2.8 to 5 times as much (ring_allreduce.cu, ring_rs_ag.cu, and row 7's
+// ring-walking kernel before it became a direct reduction).  A version
 // whose 16-byte loads were TMA bulk copies into shared-memory stages on
 // mbarriers gained a few percent at the kernel, under 1% of the gradient
 // sync, for three times the code, so this one stays.
@@ -62,7 +76,7 @@ namespace {
 constexpr int kBlocksPerSm = 4;
 
 // What a launch computes.
-enum Mode { kAllreduce, kScatter, kGather };
+enum Mode { kAllreduce, kScatter, kGather, kBidir };
 
 struct Args {
   const void* x;  // [n, ldx]: rank r's elements at x + r ldx
@@ -70,6 +84,7 @@ struct Args {
   long long ldx, ldo;
   long long L;    // elements of a rank's input row (AG: of its output row)
   long long seg;  // elements of one ring chunk (CE, or per)
+  long long h;    // kBidir: half 1 is [0, h), half 2 [h, L); else 0
   int n;
 };
 
@@ -88,20 +103,21 @@ __device__ __forceinline__ T add(T a, T b) {
   return tmr::Elem<T>::add(a, b);
 }
 
-// The left fold of ranks first, first + 1, ..., first + n - 1 (mod n) of
-// unit ``off`` (a vector or an element) of their rows; up to kInFlight
-// loads are issued before the adds that consume them.
+// The left fold of ranks first, first + step, ..., first + (n - 1) step
+// (mod n; step is +1 or -1) of unit ``off`` (a vector or an element) of
+// their rows; up to kInFlight loads are issued before the adds that
+// consume them.
 template <typename T, typename U, int kInFlight>
 __device__ __forceinline__ U fold(const T* __restrict__ x, long long ldx,
-                                  long long off, int first, int n) {
+                                  long long off, int first, int step, int n) {
   U acc{};
   for (int base = 0; base < n; base += kInFlight) {
     U v[kInFlight];
 #pragma unroll
     for (int k = 0; k < kInFlight; ++k) {
       if (base + k < n) {
-        int r = first + base + k;
-        if (r >= n) r -= n;
+        int r = first + step * (base + k);
+        r = r >= n ? r - n : (r < 0 ? r + n : r);
         v[k] = ld(reinterpret_cast<const U*>(x + r * ldx) + off);
       }
     }
@@ -112,18 +128,19 @@ __device__ __forceinline__ U fold(const T* __restrict__ x, long long ldx,
   return acc;
 }
 
-// Units [lo, hi) of ring chunk c: fold, then store to every rank's row
-// (allreduce) or to rank c's row (reduce-scatter); the all-gather loads
-// rank c's unit and stores it to every rank's row.  ``U`` is uint4 on the
-// 16-byte path, T otherwise; offsets count units.
+// Units [lo, hi) of ring chunk c: fold from rank ``first`` in direction
+// ``step``, then store to every rank's row (allreduce) or to rank c's row
+// (reduce-scatter); the all-gather loads rank c's unit and stores it to
+// every rank's row.  ``U`` is uint4 on the 16-byte path, T otherwise;
+// offsets count units.
 template <typename T, typename U, Mode kMode, int kInFlight>
-__device__ __forceinline__ void reduce_units(const Args& a, int c,
-                                             long long src, long long dst,
-                                             long long lo, long long hi) {
+__device__ __forceinline__ void reduce_units(const Args& a, int c, int first,
+                                             int step, long long src,
+                                             long long dst, long long lo,
+                                             long long hi) {
   const T* x = static_cast<const T*>(a.x);
   T* o = static_cast<T*>(a.o);
   const int n = a.n;
-  const int first = kMode == kScatter ? (c + 1 == n ? 0 : c + 1) : c;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long j = lo + static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
@@ -132,7 +149,7 @@ __device__ __forceinline__ void reduce_units(const Args& a, int c,
     if constexpr (kMode == kGather)
       acc = ld(reinterpret_cast<const U*>(x + c * a.ldx) + src + j);
     else
-      acc = fold<T, U, kInFlight>(x, a.ldx, src + j, first, n);
+      acc = fold<T, U, kInFlight>(x, a.ldx, src + j, first, step, n);
     if constexpr (kMode == kScatter) {
       reinterpret_cast<U*>(o + c * a.ldo)[dst + j] = acc;
     } else {
@@ -146,21 +163,44 @@ __device__ __forceinline__ void reduce_units(const Args& a, int c,
 template <typename T, bool kVec, Mode kMode, int kInFlight>
 __global__ void __launch_bounds__(tmr::kThreads)
 ring_direct_kernel(Args a) {
-  const int c = blockIdx.y;
+  const int n = a.n;
+  int c = blockIdx.y, step = 1;
+  long long base = 0, L = a.L;
+  if constexpr (kMode == kBidir) {
+    if (c < n) {
+      L = a.h;
+    } else {  // half 2, the other rotation
+      c -= n;
+      step = -1;
+      base = a.h;
+      L = a.L - a.h;
+    }
+  }
   const long long s0 = c * a.seg;
-  const long long len = a.L - s0 < a.seg ? a.L - s0 : a.seg;
+  const long long len = L - s0 < a.seg ? L - s0 : a.seg;
   if (len <= 0) return;
   // The chunk's first element in the source row (the all-gather's source
   // row is the shard itself) and in the destination row.
-  const long long x0 = kMode == kGather ? 0 : s0;
-  const long long d0 = kMode == kScatter ? 0 : s0;
+  const long long x0 = kMode == kGather ? 0 : base + s0;
+  const long long d0 = kMode == kScatter ? 0 : base + s0;
+  const int first = kMode == kScatter ? (c + 1 == n ? 0 : c + 1) : c;
   if (kVec) {
     constexpr int V = 16 / sizeof(T);
-    const long long nv = len / V;
-    reduce_units<T, uint4, kMode, kInFlight>(a, c, x0 / V, d0 / V, 0, nv);
-    reduce_units<T, T, kMode, kInFlight>(a, c, x0, d0, nv * V, len);
+    // Half 2's elements up to the first 16-byte boundary, one by one
+    // (x0 == d0 there; every other chunk starts on a boundary).
+    long long head = 0;
+    if constexpr (kMode == kBidir) {
+      head = (V - x0 % V) % V;
+      if (head > len) head = len;
+      reduce_units<T, T, kMode, kInFlight>(a, c, first, step, x0, d0, 0, head);
+    }
+    const long long nv = (len - head) / V;
+    reduce_units<T, uint4, kMode, kInFlight>(a, c, first, step, (x0 + head) / V,
+                                             (d0 + head) / V, 0, nv);
+    reduce_units<T, T, kMode, kInFlight>(a, c, first, step, x0, d0,
+                                         head + nv * V, len);
   } else {
-    reduce_units<T, T, kMode, kInFlight>(a, c, x0, d0, 0, len);
+    reduce_units<T, T, kMode, kInFlight>(a, c, first, step, x0, d0, 0, len);
   }
 }
 
@@ -213,17 +253,18 @@ int resident_blocks(Kernel kernel, long long* blocks) {
   return 0;
 }
 
-// Grid (B, n): the card's resident blocks shared by the n chunks, and no
-// more blocks for a chunk than it has units for.
-int run(Kernel kernel, const Args& a, long long units, cudaStream_t st) {
+// Grid (B, chunks): the card's resident blocks shared by the chunks, and
+// no more blocks for a chunk than it has units for.
+int run(Kernel kernel, const Args& a, int chunks, long long units,
+        cudaStream_t st) {
   long long resident = 0;
   const int e = resident_blocks(kernel, &resident);
   if (e != 0) return e;
-  long long B = (resident + a.n - 1) / a.n;
+  long long B = (resident + chunks - 1) / chunks;
   const long long need = (units + tmr::kThreads - 1) / tmr::kThreads;
   if (B > need) B = need;
   if (B < 1) B = 1;
-  kernel<<<dim3(static_cast<unsigned>(B), a.n), tmr::kThreads, 0, st>>>(a);
+  kernel<<<dim3(static_cast<unsigned>(B), chunks), tmr::kThreads, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -236,28 +277,39 @@ int launch_typed(const Args& a, int* vec_out, cudaStream_t st) {
       static_cast<uintptr_t>(a.seg) * sz;
   const bool vec = (mis & 15) == 0;
   *vec_out = vec ? 1 : 0;
-  // Units of the longest chunk (the first), a vector's tail included.
-  const long long len = a.seg < a.L ? a.seg : a.L;
-  return run(pick<T, kMode>(vec, a.n), a, vec ? len / (16 / sz) + 1 : len,
-             st);
+  // Units of the longest chunk (the first of the longer half), a vector's
+  // head and tail included.
+  const long long half = kMode == kBidir ? a.L - a.h : a.L;
+  const long long len = a.seg < half ? a.seg : half;
+  return run(pick<T, kMode>(vec, a.n), a, kMode == kBidir ? 2 * a.n : a.n,
+             vec ? len / (16 / sz) + (kMode == kBidir ? 2 : 1) : len, st);
+}
+
+template <typename T>
+int launch_mode(Mode mode, const Args& a, int* vec_out, cudaStream_t st) {
+  switch (mode) {
+    case kAllreduce: return launch_typed<T, kAllreduce>(a, vec_out, st);
+    case kScatter: return launch_typed<T, kScatter>(a, vec_out, st);
+    case kGather: return launch_typed<T, kGather>(a, vec_out, st);
+    case kBidir: return launch_typed<T, kBidir>(a, vec_out, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // dtype: 0 float32, 1 bfloat16, 2 int32.
 int launch(int dtype, Mode mode, const Args& a, int* vec_out, void* stream) {
-  if (a.n < 2 || a.n > 65535 || a.L < 1 || a.seg < 1 || a.ldx < 0 ||
-      a.L > static_cast<long long>(a.n) * a.seg || vec_out == nullptr)
+  const long long chunks = mode == kBidir ? 2LL * a.n : a.n;
+  // The longer half (the whole row outside kBidir) must fit n chunks.
+  const long long span = a.L - a.h;
+  if (a.n < 2 || chunks > 65535 || a.L < 1 || a.seg < 1 || a.ldx < 0 ||
+      a.h < 0 || a.h > span || span > static_cast<long long>(a.n) * a.seg ||
+      vec_out == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype * 3 + static_cast<int>(mode)) {
-    case 0: return launch_typed<float, kAllreduce>(a, vec_out, st);
-    case 1: return launch_typed<float, kScatter>(a, vec_out, st);
-    case 2: return launch_typed<float, kGather>(a, vec_out, st);
-    case 3: return launch_typed<__nv_bfloat16, kAllreduce>(a, vec_out, st);
-    case 4: return launch_typed<__nv_bfloat16, kScatter>(a, vec_out, st);
-    case 5: return launch_typed<__nv_bfloat16, kGather>(a, vec_out, st);
-    case 6: return launch_typed<int, kAllreduce>(a, vec_out, st);
-    case 7: return launch_typed<int, kScatter>(a, vec_out, st);
-    case 8: return launch_typed<int, kGather>(a, vec_out, st);
+  switch (dtype) {
+    case 0: return launch_mode<float>(mode, a, vec_out, st);
+    case 1: return launch_mode<__nv_bfloat16>(mode, a, vec_out, st);
+    case 2: return launch_mode<int>(mode, a, vec_out, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -273,7 +325,22 @@ extern "C" int tm_ring_allreduce_direct(int dtype, const void* x,
                                         long long CE, int n, int* vec,
                                         void* stream) {
   if (ldo < L) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(dtype, kAllreduce, Args{x, o, ldx, ldo, L, CE, n}, vec,
+  return launch(dtype, kAllreduce, Args{x, o, ldx, ldo, L, CE, 0, n}, vec,
+                stream);
+}
+
+// Row 7: x [n, L] (row stride ldx) -> o [n, L] (row stride ldo >= L), every
+// row the sum; the halves [0, L / 2) and [L / 2, L) in ring chunks of CE
+// elements each (CE = C sub_elems of the half plan, L - L / 2 <= n CE),
+// half 1 in row 8's order, half 2 in the other rotation's.  *vec is set to
+// 1 when the 16-byte path ran (half 2 peeled to its first boundary).
+extern "C" int tm_ring_allreduce_bidir_direct(int dtype, const void* x,
+                                              long long ldx, void* o,
+                                              long long ldo, long long L,
+                                              long long CE, int n, int* vec,
+                                              void* stream) {
+  if (ldo < L) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(dtype, kBidir, Args{x, o, ldx, ldo, L, CE, L / 2, n}, vec,
                 stream);
 }
 
@@ -286,7 +353,7 @@ extern "C" int tm_ring_reduce_scatter_direct(int dtype, const void* x,
                                              long long ldo, long long per,
                                              int n, int* vec, void* stream) {
   if (ldo < per || per < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(dtype, kScatter, Args{x, out, ldx, ldo, n * per, per, n},
+  return launch(dtype, kScatter, Args{x, out, ldx, ldo, n * per, per, 0, n},
                 vec, stream);
 }
 
@@ -299,6 +366,6 @@ extern "C" int tm_ring_all_gather_direct(int dtype, const void* x,
                                          long long per, int n, int* vec,
                                          void* stream) {
   if (per < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(dtype, kGather, Args{x, out, ldx, n * per, n * per, per, n},
-                vec, stream);
+  return launch(dtype, kGather,
+                Args{x, out, ldx, n * per, n * per, per, 0, n}, vec, stream);
 }

@@ -3,10 +3,9 @@
 // tile loader that masks ragged edges, and the kernel that recomputes the
 // logits' gradient g.  The backward recomputes p = exp(z - lse) against the
 // forward's lse, as the TPU kernels take z from one dot_general with f32
-// accumulation (torchmpi_tpu/ops/xent.py:47, :93, :127).  The forward forms
-// z here (mma_tile); the backward forms it here on its wmma route and in
-// xent_wgmma.cuh on its wgmma route, summing the same exact bf16 products
-// in another f32 order.  That reaches p as ~1e-6 relative, far below g's
+// accumulation (torchmpi_tpu/ops/xent.py:47, :93, :127).  Each kernel
+// forms z here (mma_tile) on its wmma route and in xent_wgmma.cuh on its
+// wgmma route, summing the same exact bf16 products in another f32 order.  That reaches p as ~1e-6 relative, far below g's
 // bf16 rounding (2^-8): the kernels need not see bitwise the same logits.
 //
 // The product: nvcuda::wmma bf16 16x16x16 fragments with f32 accumulators
@@ -14,11 +13,10 @@
 // the tile computes the TPU kernel's function (preferred_element_type f32);
 // only the order of the f32 sums differs.  Block tile BM x BN = 128 x 128,
 // depth BK = 32, 8 warps of 32 x 64 each (2 x 4 fragments), operand tiles
-// double-buffered in shared memory through cp.async.  The forward runs on
-// it; the backward on every shape whose operands TMA cannot read (E or V
-// not a multiple of 8, or a base not 16-byte aligned).  Every other
-// backward shape takes xent_wgmma.cuh's wgmma.mma_async product on
-// TMA-loaded tiles.
+// double-buffered in shared memory through cp.async.  The three kernels
+// run on it for every shape whose operands TMA cannot read (E or V not a
+// multiple of 8, or a base not 16-byte aligned); every other shape takes
+// xent_wgmma.cuh's wgmma.mma_async product on TMA-loaded tiles.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -6,22 +6,41 @@
 //
 // What bounds it: 2 N E V flops of the product against N E + E V bf16
 // operands (at N 8188, E 2048, V 32768: 1.1 TFLOP against 168 MB), so it is
-// bound by operations; the product runs on the tensor cores (mma_tile in
-// xent_common.cuh), and the softmax statistics ride in its epilogue.
+// bound by operations; the product runs on the tensor cores, and the
+// softmax statistics ride in its epilogue.
 //
 // Design: the TPU walks the vocab blocks of one token block in order on one
-// core, carrying (m, l, t) in scratch.  Here a block owns BM = 128 token rows
-// and one of `splits` contiguous runs of vocab tiles (BN = 128 columns each),
-// so that N / 128 x splits blocks fill the 132 SMs.  Per vocab tile it forms
-// z = x . W on the tensor cores into shared memory, then one warp per 16 rows
-// folds the tile into the row's running max m, denominator l, and label logit
-// t (picked up when the label's column passes, as at :69-72).  Columns past V
-// are masked to NEG_INF (:57); a label outside [0, V) never matches (t = 0).
-// Each block writes its partial (m, l, t); a second, per-row kernel merges
-// the splits in order, so the result does not depend on block timing, and
-// writes lse = m + log(max(l, 1e-37)) and loss = lse - t (:76-78).
+// core, carrying (m, l, t) in scratch.  Here blocks own tiles of z = x . W,
+// and each writes per-row partials (m, l, t) of its columns: the tile's max
+// m, l = sum of exp(z - m) over its columns, and the label's logit t when
+// the label's column is among them, else 0 (as at :66-69).  Columns past V
+// are masked (:57: NEG_INF, whose exp is 0, so they are left out of m and
+// l); a label outside [0, V) never matches (t = 0).  A second, per-row
+// kernel merges the partials in column order, so the result does not
+// depend on block timing, and writes lse = m + log(max(l, 1e-37)) and loss
+// = lse - t (:73-78).
+//
+// Two routes, chosen by the caller (ops/xent.py _route) from the shapes and
+// addresses, never by a failed launch:
+//   wgmma (E and V multiples of 8, x and W 16-byte aligned): one
+//     tmw::gemm_kernel per 128 x 256 tile of z (xent_wgmma.cuh: TMA-fed,
+//     warp-specialised wgmma.mma_async, A = x K-major, B = W MN-major, the
+//     g kernel's product), its accumulators folded in registers by StatEpi:
+//     a row's 256 columns sit in the 4 lanes of a quad, so each thread
+//     folds its 64 values in a fixed order and two xor shuffles finish the
+//     row; one partial per row and 256-column tile, ceil(V / 256) of them.
+//     ptxas (the build line of chip_smoke.py, nvcc 12.9): 168 registers a
+//     thread at launch and no spills, as the g kernel's.
+//   wmma (any other shape): a block of tmx::NT threads owns BM = 128 token
+//     rows and one of `splits` contiguous runs of vocab tiles (BN = 128
+//     columns each), so that N / 128 x splits blocks fill the 132 SMs.  Per
+//     vocab tile it forms z on the tensor cores into shared memory
+//     (mma_tile, xent_common.cuh), then one warp per 16 rows folds the tile
+//     into the row's running (m, l, t).
+// A refused route (wgmma asked for operands it cannot read) returns an
+// error: nothing falls back.
 
-#include "xent_common.cuh"
+#include "xent_wgmma.cuh"
 
 namespace {
 
@@ -92,6 +111,59 @@ xent_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   }
 }
 
+// The wgmma route's partials: (m, l, t) of each row over the block's 256
+// columns, into part[3][nt][N] at tile blockIdx.y.  Every lane of the warp
+// runs the shuffles (rows past N only skip the store).  The column mask is
+// tested only in the ragged last tile (`all`: every column below V); tested
+// per element in every tile it made the whole forward 14-36% slower on an
+// H100 (scripts/torch_xent_fwd_variants.py).
+struct StatEpi {
+  const int* labels;
+  float* part;
+  int N, V, nt;
+  __device__ __forceinline__ void operator()(const float (&d)[tmw::ACC], int r0,
+                                             int c0) const {
+    const long o0 = (long)blockIdx.y * N, stride = (long)nt * N;
+    const bool all = (int)(blockIdx.y + 1) * tmw::BN <= V;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 8 * h;
+      const int lab = row < N ? labels[row] : -1;
+      float m = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < tmw::ACC / 4; ++j) {
+        const int col = c0 + 8 * j;
+        if (all || col < V) m = fmaxf(m, d[4 * j + 2 * h]);
+        if (all || col + 1 < V) m = fmaxf(m, d[4 * j + 2 * h + 1]);
+      }
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      float l = 0.f, t = 0.f;
+#pragma unroll
+      for (int j = 0; j < tmw::ACC / 4; ++j) {
+        const int col = c0 + 8 * j;
+        if (all || col < V) {
+          l += expf(d[4 * j + 2 * h] - m);
+          if (lab == col) t = d[4 * j + 2 * h];
+        }
+        if (all || col + 1 < V) {
+          l += expf(d[4 * j + 2 * h + 1] - m);
+          if (lab == col + 1) t = d[4 * j + 2 * h + 1];
+        }
+      }
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      t += __shfl_xor_sync(0xffffffffu, t, 1);  // one lane of the quad holds t
+      t += __shfl_xor_sync(0xffffffffu, t, 2);
+      if (row < N && (threadIdx.x & 3) == 0) {
+        part[o0 + row] = m;
+        part[stride + o0 + row] = l;
+        part[2 * stride + o0 + row] = t;
+      }
+    }
+  }
+};
+
 __global__ void xent_fwd_merge_kernel(const float* __restrict__ part,
                                       float* __restrict__ loss,
                                       float* __restrict__ lse, int N,
@@ -115,19 +187,35 @@ __global__ void xent_fwd_merge_kernel(const float* __restrict__ part,
 }  // namespace
 
 // x [N, E] bf16, w [E, V] bf16, labels [N] int32, part [3, splits, N] f32
-// (workspace), loss / lse [N] f32; all contiguous, on the device.  Returns
-// the CUDA error code of the launches (0 on success).
+// (workspace), loss / lse [N] f32; all contiguous, on the device.  wgmma:
+// take the wgmma route (E and V multiples of 8, x and w 16-byte aligned,
+// splits = ceil(V / 256), else the launch is refused), else the wmma route.
+// Returns the CUDA error code of the launches (0 on success).
 extern "C" int tm_xent_fwd(const bf16* x, const bf16* w, const int* labels,
                            float* part, float* loss, float* lse, int N, int E,
-                           int V, int splits, void* stream) {
-  if (N <= 0 || V <= 0 || splits <= 0) return (int)cudaErrorInvalidValue;
+                           int V, int splits, int wgmma, void* stream) {
+  if (N <= 0 || E <= 0 || V <= 0 || splits <= 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = tmx::allow_smem(reinterpret_cast<const void*>(xent_fwd_kernel));
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((N + BM - 1) / BM, splits);
-  xent_fwd_kernel<<<grid, tmx::NT, tmx::SMEM_BYTES, st>>>(
-      x, w, labels, part, N, E, V, splits, tmx::vec_ok(x, E), tmx::vec_ok(w, V));
-  e = cudaGetLastError();
+  cudaError_t e;
+  if (wgmma) {
+    if (!(tmw::tma_ok(x, E) && tmw::tma_ok(w, V)) ||
+        splits != (V + tmw::BN - 1) / tmw::BN)
+      return (int)cudaErrorInvalidValue;
+    CUtensorMap tx, tw;
+    e = tmw::make_map(&tx, x, N, E);
+    if (e == cudaSuccess) e = tmw::make_map(&tw, w, E, V);
+    if (e == cudaSuccess)
+      e = tmw::launch_gemm<false, true>(tx, tw, N, V, E,
+                                        StatEpi{labels, part, N, V, splits}, st);
+  } else {
+    e = tmx::allow_smem(reinterpret_cast<const void*>(xent_fwd_kernel));
+    if (e != cudaSuccess) return (int)e;
+    dim3 grid((N + BM - 1) / BM, splits);
+    xent_fwd_kernel<<<grid, tmx::NT, tmx::SMEM_BYTES, st>>>(
+        x, w, labels, part, N, E, V, splits, tmx::vec_ok(x, E), tmx::vec_ok(w, V));
+    e = cudaGetLastError();
+  }
   if (e != cudaSuccess) return (int)e;
   xent_fwd_merge_kernel<<<(N + 255) / 256, 256, 0, st>>>(part, loss, lse, N, splits);
   return (int)cudaGetLastError();

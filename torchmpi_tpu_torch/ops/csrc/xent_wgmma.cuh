@@ -1,4 +1,4 @@
-// The Hopper product of the fused loss's backward (xent_bwd_dx.cu,
+// The Hopper product of the fused loss (xent_fwd.cu, xent_bwd_dx.cu,
 // xent_bwd_dw.cu): a warp-specialised wgmma GEMM fed by TMA, with the
 // epilogue run on the accumulators in registers, and the kernel that forms
 // the logits' gradient g on it.
@@ -26,7 +26,8 @@
 // [K = E, N = V] for g, and g as [K = rows, N = V] for dW): wgmma takes
 // bf16 operands of either kind from shared memory (its trans-a / trans-b
 // flags).  TMA fills a box's part outside the tensor with zeros, which
-// covers the ragged M, N and K edges; the epilogues mask their stores.
+// covers the ragged M, N and K edges; the epilogues mask their stores
+// (and the forward's statistics the zero columns past V).
 //
 // The TMA path needs every row pitch a multiple of 16 bytes and 16-byte
 // aligned bases: E and V multiples of 8 (tma_ok, mirrored by the

@@ -8,16 +8,13 @@ rank-major stack ``xs[i]`` = rank i's tensor (the JAX package's eager mode,
 them: the peers are device pointers, so the same kernels and protocol serve
 peers over NVLink once their pointers are exchanged (ROADMAP queue B).
 
-Three CUDA kernels (``ops/csrc/ring_allreduce.cu``, one C launcher each)
+Two CUDA kernels (``ops/csrc/ring_allreduce.cu``, one C launcher each)
 walk the ring as the Pallas allreduce kernels do:
 
 - ``ring_allreduce`` (row 11): ``_ring_allreduce_kernel`` :265, one
   direction, a whole ring chunk per step;
 - ``ring_allreduce_bidir`` (row 12): ``_ring_allreduce_bidir_kernel`` :203,
-  halves ``flat[:L//2]`` and ``flat[L//2:]`` in opposite directions;
-- ``ring_allreduce_bidir_chunked`` (row 7):
-  ``_ring_allreduce_bidir_chunked_kernel`` :534, both halves, ring chunks
-  streamed in C subchunks through two comm slots.
+  halves ``flat[:L//2]`` and ``flat[L//2:]`` in opposite directions.
 
 Two more (``ops/csrc/ring_rs_ag.cu``) walk it for the resident
 reduce-scatter and all-gather kernels that ZeRO's legs run under a
@@ -26,12 +23,15 @@ reduce-scatter and all-gather kernels that ZeRO's legs run under a
 - ``ring_reduce_scatter`` (row 13): ``_ring_reduce_scatter_kernel`` :310;
 - ``ring_all_gather`` (row 14): ``_ring_all_gather_kernel`` :342.
 
-The three rows of the default path do not walk the ring
-(``ops/csrc/ring_direct.cu``): every rank's value of an element is loaded
-and the values are added in the order the ring would have added them, or,
-for the all-gather, each shard is loaded once and stored to every rank, so
-each input is read once and each output written once:
+The chunked rows do not walk the ring (``ops/csrc/ring_direct.cu``):
+every rank's value of an element is loaded and the values are added in the
+order the ring would have added them, or, for the all-gather, each shard is
+loaded once and stored to every rank, so each input is read once and each
+output written once:
 
+- ``ring_allreduce_bidir_chunked`` (row 7):
+  ``_ring_allreduce_bidir_chunked_kernel`` :534, the halves ``flat[:L//2]``
+  and ``flat[L//2:]`` in the two rotations' orders;
 - ``ring_allreduce_chunked`` (row 8): ``_ring_allreduce_chunked_kernel``
   :511;
 - ``ring_reduce_scatter_chunked`` (row 9):
@@ -52,8 +52,10 @@ CPU interpreter; on a GPU the executed plan is always ``_chunk_plan``'s.
 Every wrapper takes its plain version when, and only when, the tensor it
 was given lies on the CPU; on a CUDA tensor it launches its kernel or
 raises.  Each wrapper call that launches adds one to ``LAUNCHES[name]``.
-``VECTOR_LAUNCHES`` counts the direct rows' launches that took their
-16-byte path.  The wrappers make no host-device synchronization.
+``VECTOR_LAUNCHES`` counts the direct rows' launches whose bulk took
+their 16-byte path (row 7's second half may start off a 16-byte boundary:
+its first elements are taken one by one).  The wrappers make no
+host-device synchronization.
 """
 
 from __future__ import annotations
@@ -78,9 +80,10 @@ KERNELS = ("ring_allreduce_bidir_chunked", "ring_allreduce_chunked",
            "ring_allreduce", "ring_allreduce_bidir", "ring_reduce_scatter",
            "ring_all_gather")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
-# The direct rows (ring_direct.cu), and their launches on the 16-byte path.
-DIRECT = ("ring_allreduce_chunked", "ring_reduce_scatter_chunked",
-          "ring_all_gather_chunked")
+# The direct rows (ring_direct.cu), and their launches whose bulk ran on
+# 16-byte vectors.
+DIRECT = ("ring_allreduce_bidir_chunked", "ring_allreduce_chunked",
+          "ring_reduce_scatter_chunked", "ring_all_gather_chunked")
 VECTOR_LAUNCHES: Dict[str, int] = {name: 0 for name in DIRECT}
 
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
@@ -249,10 +252,9 @@ _SIGNATURES = {
     "ring_allreduce_chunked": ("tm_ring_allreduce_direct",
                                [_I, _P, _LL, _P, _LL, _LL, _LL, _I, _PI,
                                 _P]),
-    # dtype, x1, x2, o1, o2, comm1, comm2, flags, P, E, C, n, B, stream
-    "ring_allreduce_bidir_chunked": (
-        "tm_ring_allreduce_bidir_chunked",
-        [_I] + [_P] * 7 + [_LL, _LL, _I, _I, _I, _P]),
+    "ring_allreduce_bidir_chunked": ("tm_ring_allreduce_bidir_direct",
+                                     [_I, _P, _LL, _P, _LL, _LL, _LL, _I,
+                                      _PI, _P]),
     # dtype, x, w, out, comm, flags, per, E, n, B, stream
     "ring_reduce_scatter": ("tm_ring_reduce_scatter",
                             [_I] + [_P] * 5 + [_LL, _LL, _I, _I, _P]),
@@ -276,14 +278,14 @@ def _blocks(dev: torch.device, n: int, dirs: int, slot: int) -> int:
     return max(1, min(_BLOCKS_PER_SM * sms // (n * dirs), slot // _MIN_SLICE))
 
 
-def _launch(name: str, xs, C: int):
-    """Launch kernel ``name`` on the padded halves ``xs`` ([n, P] each, on
-    one card, P = n C slot) and return their outputs; raise on a refused
-    launch."""
+def _launch(name: str, xs):
+    """Launch resident row ``name`` on the padded halves ``xs`` ([n, P]
+    each, on one card, a slot of P / n) and return their outputs; raise on
+    a refused launch."""
     x0 = xs[0]
     dev, n = x0.device, x0.shape[0]
     P = [x.shape[1] for x in xs]
-    slots = [p // (n * C) for p in P]
+    slots = [p // n for p in P]
     B = _blocks(dev, n, len(xs), min(slots))
     outs = [torch.empty_like(x) for x in xs]
     comms = [x.new_empty(n, 2, E) for x, E in zip(xs, slots)]
@@ -291,10 +293,8 @@ def _launch(name: str, xs, C: int):
     flags = torch.empty(n * len(xs) * B * 3, dtype=torch.int32, device=dev)
     if name == "ring_allreduce":
         args = (xs[0], outs[0], comms[0], flags, P[0], n, B)
-    elif name == "ring_allreduce_bidir":
-        args = (*xs, *outs, *comms, flags, P[0], P[1], n, B)
     else:
-        args = (*xs, *outs, *comms, flags, P[0], slots[0], C, n, B)
+        args = (*xs, *outs, *comms, flags, P[0], P[1], n, B)
     _call("ring_allreduce", name, args, x0)
     return outs
 
@@ -366,12 +366,11 @@ def _run(name: str, flat: torch.Tensor, plan=(), *,
     else:
         # Resident: each half pads to a multiple of n TILE (:855, :951), and
         # a slot is a whole ring chunk.
-        C = 1
         xs = [_pad_and_tile(p, n)[0].reshape(n, -1) for p in parts]
     if plain:
         outs = [_ring_plain(x, sign) for x, sign in zip(xs, (1, -1))]
     else:
-        outs = _launch(name, xs, C)
+        outs = _launch(name, xs)
     outs = [o[:, :p.shape[1]] for o, p in zip(outs, parts)]
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
@@ -578,14 +577,24 @@ def all_gather_chunked_plain(shards, sub_elems: int, C: int):
 # main path never runs them).
 
 
-def _fold(x: torch.Tensor, first: int) -> torch.Tensor:
-    """Rows first, first + 1, ..., first + n - 1 (mod n) of ``x`` [n, m],
-    added left to right in x's dtype."""
+def _fold(x: torch.Tensor, first: int, step: int = 1) -> torch.Tensor:
+    """Rows first, first + step, ..., first + (n - 1) step (mod n) of ``x``
+    [n, m], added left to right in x's dtype."""
     n = x.shape[0]
     acc = x[first % n].clone()
     for k in range(1, n):
-        acc = acc + x[(first + k) % n]
+        acc = acc + x[(first + step * k) % n]
     return acc
+
+
+def _fold_chunks(out, flat, lo0: int, hi0: int, ce: int, step: int) -> None:
+    """``out[:, lo0:hi0]`` = every ring chunk c (``[lo0 + c ce, lo0 + (c +
+    1) ce)``, clipped to hi0) of ``flat`` folded from rank c in direction
+    ``step``."""
+    for c in range(flat.shape[0]):
+        lo, hi = lo0 + c * ce, min(hi0, lo0 + (c + 1) * ce)
+        if lo < hi:
+            out[:, lo:hi] = _fold(flat[:, lo:hi], c, step)
 
 
 def allreduce_direct_plain(flat, sub_elems: int, C: int):
@@ -593,13 +602,22 @@ def allreduce_direct_plain(flat, sub_elems: int, C: int):
     chunk c (``[c C sub_elems, (c + 1) C sub_elems)``) is the fold of ranks
     c, c + 1, ..., c + n - 1, on every rank; ``flat`` [n, L] unpadded."""
     _check(flat)
-    n, L = flat.shape
-    ce = sub_elems * C
     out = torch.empty_like(flat)
-    for c in range(n):
-        lo, hi = c * ce, min(L, (c + 1) * ce)
-        if lo < hi:
-            out[:, lo:hi] = _fold(flat[:, lo:hi], c)
+    _fold_chunks(out, flat, 0, flat.shape[1], sub_elems * C, 1)
+    return out
+
+
+def allreduce_bidir_direct_plain(flat, sub_elems: int, C: int):
+    """Row 7's function in ring_direct.cu's order: the halves ``[0, L //
+    2)`` and ``[L // 2, L)``, each in ring chunks of C sub_elems (the half
+    plan), chunk c of half 1 the fold of ranks c, c + 1, ..., c + n - 1 and
+    chunk c of half 2 the fold of ranks c, c - 1, ..., c - n + 1 (the other
+    rotation), on every rank; ``flat`` [n, L] unpadded."""
+    _check(flat)
+    L = flat.shape[1]
+    out = torch.empty_like(flat)
+    _fold_chunks(out, flat, 0, L // 2, sub_elems * C, 1)
+    _fold_chunks(out, flat, L // 2, L, sub_elems * C, -1)
     return out
 
 

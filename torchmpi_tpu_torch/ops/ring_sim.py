@@ -2,11 +2,11 @@
 
 The port's own numpy copy of the JAX package's ``ops/ring_sim.py`` (the
 port imports nothing of that package).  It executes the slot / ack
-protocol of the TPU's chunked ring kernels (``_chunked_pipeline``), which
-``ops/csrc/ring_allreduce.cu`` and ``ring_rs_ag.cu`` run for rows 7 and 10
-of the kernel table (rows 8 and 9 are direct reductions on the card,
-``ring_direct.cu``, and walk no ring) in
-pure numpy: one state machine per rank running the same iteration
+protocol of the TPU's chunked ring kernels (``_chunked_pipeline``) in
+pure numpy (on the card the chunked rows 7-10 are direct reductions and
+copies, ``ring_direct.cu``, and walk no ring; the resident kernels of
+``ops/csrc/ring_allreduce.cu`` and ``ring_rs_ag.cu`` run the protocol at
+C = 1): one state machine per rank running the same iteration
 sequence as a kernel block (issue -> pipelined next-issue -> wait ->
 combine/copy -> writeback -> ack), with no iteration cap, driven by an
 arbitrary scheduler (randomized or adversarial interleavings).

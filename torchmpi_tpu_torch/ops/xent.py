@@ -2,7 +2,7 @@
 
 The PyTorch counterpart of ``torchmpi_tpu/ops/xent.py``.  Three CUDA
 kernels (``ops/csrc/xent_fwd.cu``, ``xent_bwd_dx.cu``, ``xent_bwd_dw.cu``,
-sharing ``xent_common.cuh``, the backward also ``xent_wgmma.cuh``)
+sharing ``xent_common.cuh`` and ``xent_wgmma.cuh``)
 replace the three Pallas TPU kernels (``_xent_fwd_kernel`` :35,
 ``_xent_bwd_dx_kernel`` :82, ``_xent_bwd_dw_kernel`` :114).  They
 compute ``softmax_xent(x @ w, labels)`` per token, and its gradients,
@@ -32,7 +32,12 @@ The backward walks the tokens in chunks of ``BWD_CHUNK`` rows, one launch
 of each backward kernel per chunk, with a [chunk, V] bf16 workspace for g
 and an [E, V] float32 accumulator for dW
 (the TPU kernel's own float32 ``out_shape``): memory O(chunk), never
-O(N V).  The wrappers make no host-device synchronization.
+O(N V).  The forward writes per-row partial statistics, (m, l, t) of each
+row over each 256-column tile on the ``wgmma`` route (3 x ceil(V / 256) x
+N float32, 12.6 MB at the flagship), and merges them in a second kernel.
+Every call takes the route ``_route`` picks from its shapes and addresses,
+counted in ``ROUTE_LAUNCHES``.  The wrappers make no host-device
+synchronization.
 """
 
 from __future__ import annotations
@@ -51,18 +56,20 @@ KERNELS = ("xent_fwd", "xent_bwd_dx", "xent_bwd_dw")
 # show that its path went through the kernels.
 LAUNCHES = {name: 0 for name in KERNELS}
 
-# The backward kernels' launches per route (see _route).
+# Each kernel's launches per route (see _route).
 ROUTES = ("wgmma", "wmma")
-ROUTE_LAUNCHES = {name: {r: 0 for r in ROUTES}
-                  for name in ("xent_bwd_dx", "xent_bwd_dw")}
+ROUTE_LAUNCHES = {name: {r: 0 for r in ROUTES} for name in KERNELS}
 
 # Token rows per backward chunk: the g workspace is BWD_CHUNK x V bf16
 # (128 MiB at V 32768).
 BWD_CHUNK = 2048
 
-# The forward kernel's tiles (xent_common.cuh BM, BN) and the number of
-# blocks it aims for: the vocab is split until (N / BM) x splits reaches it.
+# The forward's wmma route: its tiles (xent_common.cuh BM, BN) and the
+# number of blocks it aims for: the vocab is split until (N / BM) x splits
+# reaches it.  Its wgmma route writes one partial per 256-column tile
+# (xent_wgmma.cuh BN).
 _BM, _BN, _FWD_BLOCKS = 128, 128, 512
+_WGMMA_BN = 256
 
 
 def reset_launches() -> None:
@@ -74,7 +81,7 @@ def reset_launches() -> None:
 
 
 def _route(E: int, V: int, *ptrs: Optional[int]) -> str:
-    """The backward kernels' route for x [., E], w [E, V] and operands at
+    """The kernels' route for x [., E], w [E, V] and operands at
     device addresses ``ptrs`` (None: no operand): ``"wgmma"`` when TMA can
     read and write them, i.e. E and V are multiples of 8 (16-byte row
     pitches) and every address is 16-byte aligned; else ``"wmma"``."""
@@ -156,8 +163,8 @@ def xent_bwd_dw_plain(x, w, labels, lse, dl):
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # x, w, labels, part, loss, lse, N, E, V, splits, stream
-    "xent_fwd": ("tm_xent_fwd", [_P] * 6 + [_I] * 4 + [_P]),
+    # x, w, labels, part, loss, lse, N, E, V, splits, wgmma, stream
+    "xent_fwd": ("tm_xent_fwd", [_P] * 6 + [_I] * 5 + [_P]),
     # x, w, labels, lse, dl, g, dx, rows, E, V, make_g, wgmma, stream
     "xent_bwd_dx": ("tm_xent_bwd_dx", [_P] * 7 + [_I] * 5 + [_P]),
     # x, w, labels, lse, dl, g, acc, dw, rows, E, V, make_g, first, last,
@@ -196,7 +203,8 @@ def _cuda_operands(name, x, w, labels, *stats):
 
 
 def _fwd_splits(n: int, v: int) -> int:
-    """Vocab runs of the forward grid: enough blocks to fill the card."""
+    """Vocab runs of the forward's wmma grid: enough blocks to fill the
+    card."""
     row_blocks = -(-n // _BM)
     tiles = -(-v // _BN)
     return max(1, min(tiles, -(-_FWD_BLOCKS // row_blocks)))
@@ -214,12 +222,15 @@ def xent_fwd(x, w, labels):
     loss = torch.empty(N, dtype=torch.float32, device=x.device)
     lse = torch.empty_like(loss)
     if N:
-        splits = _fwd_splits(N, V)
+        route = _route(E, V, x.data_ptr(), w.data_ptr())
+        splits = (-(-V // _WGMMA_BN) if route == "wgmma"
+                  else _fwd_splits(N, V))
         part = torch.empty(3, splits, N, dtype=torch.float32,
                            device=x.device)
         _launch("xent_fwd", x.device, x, w, lab, part, loss, lse, N, E, V,
-                splits)
+                splits, int(route == "wgmma"))
         LAUNCHES["xent_fwd"] += 1
+        ROUTE_LAUNCHES["xent_fwd"][route] += 1
     return loss, lse
 
 
