@@ -13,7 +13,8 @@ JAX package.  In order it:
 3. kernel phases: at the flagship LM's attention shapes (B 4, T 2048, 16 q /
    4 kv heads, head_dim 128, causal, window 1024, float32) runs each flash
    kernel against its plain PyTorch version on the same seeded inputs (each
-   also run twice and required bitwise equal), and times
+   also run twice and required bitwise equal; a small pass at head dims 8
+   and 96, which the wrappers zero-pad to the kernels' 16 and 128), and times
    kernel, plain version and, as the yardstick only, PyTorch's
    scaled_dot_product_attention with the same mask: its forward beside the
    forward kernel, one autograd backward through it (dq, dk and dv
@@ -33,8 +34,11 @@ JAX package.  In order it:
    a bucket out), each under the chunk_bytes / pallas_bidirectional config
    that maps the bucket onto it, bitwise against the plain ring and
    against a repeat call, plus a bfloat16 and an int32 pass at 300,001
-   elements (rows 8 and 7, direct reductions, also against their own folds
-   and on contiguous rows, their element path); then the four ring
+   elements (rows 8, 7, 11 and 12, all direct reductions, also against
+   their own folds and on contiguous rows, their element path; row 12 also
+   at 16,385 elements, where its halves fold in ring chunks of different
+   lengths; row 11 also timed at 300,001 elements under the default
+   chunk_bytes, which maps that size onto it); then the four ring
    reduce-scatter and all-gather kernels at the flagship's ZeRO shapes (4
    ranks, the
    reduce-scatter of 486,731,776 float32 a rank, the all-gather of the
@@ -63,7 +67,7 @@ JAX package.  In order it:
    7, 11 and 12; every sync bitwise equal to the plain ring on the same
    stacks, the first within 2e-2 (rel. L2) of the batch-4 gradients, the
    loss falling, 0 host syncs in a step, all four ring kernels launched,
-   every row-8 and row-7 launch on its 16-byte path; then one more sync's
+   every launch of the four on its 16-byte path; then one more sync's
    device
    time by kernel (torch.profiler) and 3 more whole steps on the host's
    clock;
@@ -132,6 +136,13 @@ RING_CONFIGS = {
     "ring_allreduce_bidir": (16 << 20, True),         # row 12
 }
 RING_SMALL = 300_001  # elements per rank of the bf16 and int32 passes
+# Row 12 at 16,385 elements a rank: its halves (8,192 and 8,193) pad to
+# ring chunks of 2,048 and 3,072 elements for RING_N ranks.
+RING_UNEQUAL_HALVES = 16_385
+# The flash kernels at head dims they are not built for (zero-padded by the
+# wrappers): (B, T, H, Hkv, window), causal.
+FLASH_PAD_SHAPE = (1, 256, 4, 2, 64)
+FLASH_PAD_HEAD_DIMS = (8, 96)
 DP_RTOL = 2e-2  # synced mean vs the batch-4 gradients (bf16 model)
 # The ZeRO slice: the flagship's 486,731,776 float32 parameters (a multiple
 # of 4, no padding) sharded over RING_N ranks, 121,682,944 a rank.  The
@@ -147,7 +158,7 @@ ZERO_ROWS = {
 ZERO_SMALL = 300_000  # elements per rank of the bf16 and int32 passes
 # Recorded constants, not measured here: the times and figures of the
 # kernels that the redesigned rows replaced (the ring-walking kernels of
-# rows 7, 8, 9 and 10, the f32-FMA flash kernels of rows 1, 2 and 3, the
+# rows 7-12, the f32-FMA flash kernels of rows 1, 2 and 3, the
 # cp.async / wmma kernels of the fused loss, rows 4, 5 and 6), at the
 # same shapes and by the same time_ms (PERF.md's kernel table and section
 # 5, H100 80GB HBM3 at 700 W).  The output prints them under
@@ -155,7 +166,9 @@ ZERO_SMALL = 300_000  # elements per rank of the bf16 and int32 passes
 RING_RECORDED_MS = {"ring_allreduce_bidir_chunked": 1.042,
                     "ring_allreduce_chunked": 0.731,
                     "ring_reduce_scatter_chunked": 23.480,
-                    "ring_all_gather_chunked": 14.340}
+                    "ring_all_gather_chunked": 14.340,
+                    "ring_allreduce": 0.708,
+                    "ring_allreduce_bidir": 0.925}
 FLASH_RECORDED_MS = {"flash_fwd": 3.215, "flash_bwd_dq": 4.212,
                      "flash_bwd_dkv": 6.005}
 # The wmma-product kernels of rows 4, 5 and 6 (PERF.md's kernel table).
@@ -184,9 +197,9 @@ SOURCES = {
         "torchmpi_tpu/ops/ring.py:534"),
     "ring_allreduce_chunked": ("torchmpi_tpu_torch/ops/csrc/ring_direct.cu",
                                "torchmpi_tpu/ops/ring.py:511"),
-    "ring_allreduce": ("torchmpi_tpu_torch/ops/csrc/ring_allreduce.cu",
+    "ring_allreduce": ("torchmpi_tpu_torch/ops/csrc/ring_direct.cu",
                        "torchmpi_tpu/ops/ring.py:265"),
-    "ring_allreduce_bidir": ("torchmpi_tpu_torch/ops/csrc/ring_allreduce.cu",
+    "ring_allreduce_bidir": ("torchmpi_tpu_torch/ops/csrc/ring_direct.cu",
                              "torchmpi_tpu/ops/ring.py:203"),
     "ring_reduce_scatter_chunked": ("torchmpi_tpu_torch/ops/csrc/ring_direct.cu",
                                     "torchmpi_tpu/ops/ring.py:707"),
@@ -414,7 +427,57 @@ def kernel_phase(torch, flash, dev):
         check(row["bitwise_repeat"], f"{row['name']}: two calls differ")
     check(errs["flash_fwd"][2] <= KERNEL_RTOL * float(lse.abs().max()),
           "flash_fwd lse disagrees with the plain version")
+    flash_pad_pass(torch, flash, dev)
     return rows
+
+
+def flash_pad_pass(torch, flash, dev):
+    """The three flash kernels at head dims they are not built for
+    (FLASH_PAD_HEAD_DIMS; the wrappers zero-pad q / k / v / dO to the next
+    kernel head dim and slice the outputs back) against their plain
+    versions, within the flash tolerance; the launches are counted."""
+    B, T, H, Hkv, W = FLASH_PAD_SHAPE
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    out = []
+    for D in FLASH_PAD_HEAD_DIMS:
+        q, do = (torch.randn(B, T, H, D, generator=g, device=dev)
+                 for _ in range(2))
+        k, v = (torch.randn(B, T, Hkv, D, generator=g, device=dev)
+                for _ in range(2))
+        kw = dict(scale=1.0 / math.sqrt(D), causal=True, window=W)
+        before = dict(flash.LAUNCHES)
+        o, lse = flash.flash_fwd(q, k, v, **kw)
+        dvec = torch.einsum("bqhd,bqhd->bhq", do, o).contiguous()
+        got = {"flash_fwd": (o, lse),
+               "flash_bwd_dq": (flash.flash_bwd_dq(q, k, v, do, lse, dvec,
+                                                   **kw),),
+               "flash_bwd_dkv": flash.flash_bwd_dkv(q, k, v, do, lse, dvec,
+                                                    **kw)}
+        launches = {n: flash.LAUNCHES[n] - before[n] for n in before}
+        want = {"flash_fwd": flash.flash_fwd_plain(q, k, v, **kw),
+                "flash_bwd_dq": (flash.flash_bwd_dq_plain(
+                    q, k, v, do, lse, dvec, **kw),),
+                "flash_bwd_dkv": flash.flash_bwd_dkv_plain(
+                    q, k, v, do, lse, dvec, **kw)}
+        torch.cuda.synchronize()
+        for name in got:
+            err = max(max_err(a, b) for a, b in zip(got[name], want[name]))
+            tol = KERNEL_RTOL * max(float(b.abs().max()) for b in want[name])
+            out.append({"name": name, "head_dim": D,
+                        "kernel_head_dim": flash.kernel_head_dim(D),
+                        "shape_ok": all(a.shape == b.shape for a, b in zip(
+                            got[name], want[name])),
+                        "max_abs_err": err, "tolerance": tol,
+                        "launches": launches[name]})
+    emit({"phase": "flash_head_dim_pad",
+          "shape": dict(zip(("B", "T", "H", "Hkv", "window"),
+                            FLASH_PAD_SHAPE)), "kernels": out})
+    for r in out:
+        check(r["shape_ok"] and r["max_abs_err"] <= r["tolerance"],
+              f"{r['name']} at head dim {r['head_dim']}: max_abs_err "
+              f"{r['max_abs_err']} > {r['tolerance']}")
+        check(r["launches"] == 1, f"{r['name']} at head dim "
+              f"{r['head_dim']}: {r['launches']} launches")
 
 
 def xent_kernel_phase(torch, xent, dev):
@@ -715,33 +778,17 @@ def consistency_phase(torch, mpi, model, tok, dev):
     _compare("fused (bf16 head) vs dense (f32 head) loss", fused, dense)
 
 
-def ring_padded_elems(ring, name, L, plan):
-    """Elements per rank the row's kernel works on (its padding)."""
-    n, tile = RING_N, ring._TILE
-    if plan:
-        sub, C = plan
-        per_half = n * C * sub
-        return 2 * per_half if "bidir" in name else per_half
-    if "bidir" in name:
-        return sum(-(-h // (n * tile)) * n * tile for h in (L // 2, L - L // 2))
-    return -(-L // (n * tile)) * n * tile
-
-
-def ring_kernel_phase(torch, ring, dev):
+def ring_kernel_phase(torch, mpi, ring, dev):
     """Rows 7, 8, 11 and 12: RING_N ranks rank-major on the card at the
     flagship's gradient bucket, float32, each with the config that maps the
-    bucket onto it; each kernel against its plain version, bitwise, and
-    bitwise on a repeat call; then a bfloat16 and an int32 pass at a small
-    size.  The buffers' rows sit 16 bytes apart, as the fused rank-major
-    sync lays a bucket out (fusion.gather_bucket); the direct rows (8, 7)
-    are also run on contiguous rows, which their kernel reads element by
-    element."""
+    bucket onto it; each kernel against its plain version and its own torch
+    fold, bitwise, and bitwise on a repeat call; then a bfloat16 and an
+    int32 pass at a small size.  The buffers' rows sit 16 bytes apart, as
+    the fused rank-major sync lays a bucket out (fusion.gather_bucket); the
+    rows are also run on contiguous rows, which their kernel reads element
+    by element.  Then row 12 where its halves' ring chunks differ, and row
+    11 at a small size under the default config."""
     n, L = RING_N, RING_BUCKET
-    # The direct rows' torch folds, in their kernels' order.
-    folds = {
-        "ring_allreduce_chunked": ring.allreduce_direct_plain,
-        "ring_allreduce_bidir_chunked": ring.allreduce_bidir_direct_plain,
-    }
 
     def rows16(t):
         """[n, m] on rows padded to 16 bytes (a view)."""
@@ -765,31 +812,27 @@ def ring_kernel_phase(torch, ring, dev):
               f"{picked}")
         kern = lambda: ring.WRAPPERS[name](x, *plan)  # noqa: E731
         plain = lambda: ring.PLAINS[name](x, *plan)  # noqa: E731
-        direct = name in ring.DIRECT
         vec0 = dict(ring.VECTOR_LAUNCHES)
         out, again, ref = kern(), kern(), plain()
         torch.cuda.synchronize()
         bitwise = torch.equal(out, ref) and torch.equal(out, again)
         err = max_err(out, ref)
-        extra = {"design": "ring"}
-        if direct:
-            # The direct kernel: its own torch fold, its 16-byte path, and
-            # contiguous rows (the element path) beside it.
-            vec = ring.VECTOR_LAUNCHES[name] - vec0[name]
-            xc = x.contiguous()
-            elem = ring.WRAPPERS[name](xc, *plan)
-            torch.cuda.synchronize()
-            extra = {
-                "design": "direct", "vector_launches": vec,
-                "launches_checked": 2,
-                "fold_bitwise": torch.equal(out, folds[name](x, *plan)),
-                "element_path_bitwise": torch.equal(elem, ref) and (
-                    ring.VECTOR_LAUNCHES[name] - vec0[name] == vec),
-                "element_path_ms": time_ms(torch, lambda: ring.WRAPPERS[
-                    name](xc, *plan)),
-                "earlier_ms": RING_RECORDED_MS[name]}
-            del xc, elem
-        del out, again, ref
+        # The direct kernel: its own torch fold, its 16-byte path, and
+        # contiguous rows (the element path) beside it.
+        vec = ring.VECTOR_LAUNCHES[name] - vec0[name]
+        xc = x.contiguous()
+        elem = ring.WRAPPERS[name](xc, *plan)
+        torch.cuda.synchronize()
+        extra = {
+            "design": "direct", "vector_launches": vec,
+            "launches_checked": 2,
+            "fold_bitwise": torch.equal(out, ring.FOLDS[name](x, *plan)),
+            "element_path_bitwise": torch.equal(elem, ref) and (
+                ring.VECTOR_LAUNCHES[name] - vec0[name] == vec),
+            "element_path_ms": time_ms(torch, lambda: ring.WRAPPERS[
+                name](xc, *plan)),
+            "earlier_ms": RING_RECORDED_MS[name]}
+        del xc, elem, out, again, ref
         passes = {}
         for dt, xs in small.items():
             # chunk_bytes scaled with the size and the element, so that
@@ -803,16 +846,10 @@ def ring_kernel_phase(torch, ring, dev):
             a, b = ring.WRAPPERS[name](xs, *splan), ring.PLAINS[name](xs, *splan)
             torch.cuda.synchronize()
             passes[str(dt).split(".")[-1]] = torch.equal(a, b)
-        # Bounds.  The function reads every rank's buffer once and writes
-        # every rank's result once: 2 n L 4 bytes.  The ring schedule on
-        # one card moves more: per rank of S padded bytes, the staging copy
-        # 2 S, each of the n - 1 reduce steps 5 S / n (own chunk read, the
-        # peer's slot written, the slot read, own chunk read and written),
-        # each of the n - 1 gather steps 4 S / n.  A direct row moves the
-        # function's bytes.
-        S = 4 * ring_padded_elems(ring, name, L, plan)
+        # Bound.  The function reads every rank's buffer once and writes
+        # every rank's result once: 2 n L 4 bytes, which is what a direct
+        # row moves (the ring schedule on one card moved 4.4 times that).
         fn_bytes = 2 * n * L * 4
-        ring_bytes = fn_bytes if direct else n * S * (2 + 9 * (n - 1) / n)
         ms = time_ms(torch, kern)
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name][0],
@@ -820,19 +857,38 @@ def ring_kernel_phase(torch, ring, dev):
             "tolerance": 0.0, "bitwise": bitwise,
             "small_passes_bitwise": passes,
             "chunk_bytes": cb, "bidirectional": bidir,
-            "plan": ({"sub_elems": plan[0], "C": plan[1]} if plan
-                     else {"sub_elems": S // 4 // n, "C": 1}),
+            "chunk_elems": ring._chunk_lengths(name, n, L, plan),
             "ms": ms, "plain_ms": time_ms(torch, plain),
             "bound_ms": fn_bytes / PEAK_HBM_BYTES * 1e3, "bound_by": "bytes",
             "bytes": fn_bytes, "achieved_tb_s": fn_bytes / ms / 1e9,
-            "schedule_bytes": ring_bytes,
-            "schedule_bound_ms": ring_bytes / PEAK_HBM_BYTES * 1e3,
+            "schedule_bytes": fn_bytes,
             # The stock rank-major route computes the same function: the
             # rank-axis sum, copied to every rank.
             "library_ms": time_ms(torch, lambda: x.sum(0).expand_as(x).clone()),
             "library_call": "x.sum(0) copied to every rank",
             **extra,
         })
+    del x
+    # Row 12 where its halves pad to ring chunks of different lengths, and
+    # row 11 at a small size on the default config's route.
+    unequal = {}
+    for dt in (torch.float32, torch.bfloat16, torch.int32):
+        xs = rows16(small[dt][:, :RING_UNEQUAL_HALVES]
+                    if dt in small else torch.randn(
+                        n, RING_UNEQUAL_HALVES, generator=g, device=dev))
+        name = "ring_allreduce_bidir"
+        a, b = ring.WRAPPERS[name](xs), ring.WRAPPERS[name](xs)
+        torch.cuda.synchronize()
+        unequal[str(dt).split(".")[-1]] = (
+            torch.equal(a, ring.PLAINS[name](xs)) and torch.equal(a, b)
+            and torch.equal(a, ring.FOLDS[name](xs)))
+    ce = ring._chunk_lengths("ring_allreduce_bidir", n, RING_UNEQUAL_HALVES)
+    emit({"phase": "ring_unequal_halves", "name": "ring_allreduce_bidir",
+          "ranks": n, "elems_per_rank": RING_UNEQUAL_HALVES,
+          "chunk_elems": ce, "bitwise_vs_plain_fold_repeat": unequal})
+    check(ce[0] != ce[1], f"row 12's halves at {RING_UNEQUAL_HALVES}: {ce}")
+    check(all(unequal.values()), f"row 12 with unequal halves: {unequal}")
+    default_small = ring_default_small(torch, mpi, ring, dev, rows16)
     emit({"phase": "ring_kernels", "ranks": n, "elems_per_rank": L,
           "dtype": "float32", "small_elems_per_rank": RING_SMALL,
           "launches_in_phase": dict(ring.LAUNCHES), "kernels": rows})
@@ -841,7 +897,43 @@ def ring_kernel_phase(torch, ring, dev):
         for dt, ok in row["small_passes_bitwise"].items():
             check(ok, f"{row['name']} {dt}: kernel != plain")
         check_direct(row)
+    check(default_small["bitwise"], "row 11 on the default config != plain")
     return rows
+
+
+def ring_default_small(torch, mpi, ring, dev, rows16):
+    """Row 11 where the default config runs it: RING_SMALL float32 elements
+    a rank (rows 16 bytes apart) under the default chunk_bytes, whose ring
+    chunk fits one slot; its time beside the stock route's, on a line of
+    its own, each also as device time alone (torch.profiler), since at
+    this size the host's launch path can take longer than the device."""
+    n = RING_N
+    cb = mpi.runtime.effective_config().chunk_bytes
+    name, plan = ring.schedule(RING_SMALL, n, torch.float32, chunk_bytes=cb,
+                               bidirectional=False)
+    check(name == "ring_allreduce" and not plan,
+          f"{RING_SMALL} f32 a rank under chunk_bytes {cb} maps to {name}")
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    x = rows16(torch.randn(n, RING_SMALL, generator=g, device=dev))
+    vec0 = ring.VECTOR_LAUNCHES[name]
+    out = ring.WRAPPERS[name](x)
+    fn_bytes = 2 * n * RING_SMALL * 4
+    kern = lambda: ring.WRAPPERS[name](x)  # noqa: E731
+    library = lambda: x.sum(0).expand_as(x).clone()  # noqa: E731
+    line = {"phase": "ring_default_small", "name": name, "ranks": n,
+            "elems_per_rank": RING_SMALL, "chunk_bytes": cb,
+            "chunk_elems": ring._chunk_lengths(name, n, RING_SMALL),
+            "bitwise": torch.equal(out, ring.PLAINS[name](x)),
+            "vector": ring.VECTOR_LAUNCHES[name] - vec0 == 1,
+            "ms": time_ms(torch, kern),
+            "device_ms": device_breakdown(torch, kern)["total_ms"],
+            "library_ms": time_ms(torch, library),
+            "library_device_ms": device_breakdown(torch, library)["total_ms"],
+            "library_call": "x.sum(0) copied to every rank",
+            "bound_ms": fn_bytes / PEAK_HBM_BYTES * 1e3}
+    emit(line)
+    check(line["vector"], "row 11 on the default config off the 16-byte path")
+    return line
 
 
 def check_direct(row) -> None:
@@ -1466,7 +1558,7 @@ def main() -> int:
     try:
         rows = kernel_phase(torch, flash, dev)
         rows += xent_kernel_phase(torch, xent, dev)
-        rows += ring_kernel_phase(torch, ring, dev)
+        rows += ring_kernel_phase(torch, mpi, ring, dev)
         rows += ring_rs_ag_kernel_phase(torch, ring, dev)
         model, _, _ = train_phase(torch, mpi, ops, dev, "dense")
         del model

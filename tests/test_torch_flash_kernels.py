@@ -69,6 +69,13 @@ CASES = [
     (1, 129, 129, 2, 2, 64, True, None, 0, 0),
     (1, 127, 95, 4, 2, 32, True, 50, 0, 30),
     (2, 15, 97, 24, 3, 128, True, None, 90, 0),
+    # Head dims the kernels are not built for: the wrappers zero-pad them
+    # to the next kernel head dim (8 -> 16, 24 -> 32, 48 -> 64, 96 -> 128).
+    (1, 64, 64, 2, 2, 8, False, None, 0, 0),
+    (2, 100, 130, 4, 2, 8, True, 24, 30, 0),
+    (1, 129, 129, 4, 1, 24, True, None, 0, 0),
+    (1, 96, 160, 8, 2, 48, True, 40, 64, 0),
+    (2, 127, 95, 4, 2, 96, True, 50, 0, 30),
 ]
 
 
@@ -180,6 +187,38 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                         causal=True)
     with pytest.raises(ValueError):
         flash.flash_fwd(q.transpose(1, 2), q, q, scale=1.0, causal=True)
-    with pytest.raises(ValueError):
-        qq = torch.randn(1, 8, 2, 24, device=cuda)
+    # Past the largest kernel head dim: refused, by the kernel's name.
+    qq = torch.randn(1, 8, 2, 160, device=cuda)
+    with pytest.raises(ValueError, match="flash_fwd: head_dim 160"):
         flash.flash_fwd(qq, qq, qq, scale=1.0, causal=True)
+    lse = torch.zeros(1, 2, 8, device=cuda)
+    for fn in (flash.flash_bwd_dq, flash.flash_bwd_dkv):
+        with pytest.raises(ValueError, match=f"{fn.__name__}: head_dim 160"):
+            fn(qq, qq, qq, qq, lse, lse, scale=1.0, causal=True)
+
+
+def test_transformer_step_at_head_dim_8(cuda):
+    """TransformerLM(head_dim=8, attn_impl="flash"), the JAX package's tiny
+    bench shape: a forward and backward on the card through the padded
+    kernels, against the dense-attention model on the same weights."""
+    from torchmpi_tpu_torch.models import TransformerLM
+
+    cfg = dict(vocab=128, embed=32, depth=2, num_heads=4, head_dim=8,
+               num_kv_heads=2, max_len=64, window=24, pos_emb="rope")
+    g = torch.Generator(device=cuda).manual_seed(4)
+    tok = torch.randint(0, 128, (2, 64), generator=g, device=cuda)
+    models = [TransformerLM(**cfg, attn_impl=impl, device=cuda, generator=g)
+              for impl in ("flash", "local")]
+    models[1].load_state_dict(models[0].state_dict())
+    grads = []
+    for impl, model in zip(("flash", "local"), models):
+        before = dict(flash.LAUNCHES)
+        logits = model(tok)
+        logits.float().square().mean().backward()
+        torch.cuda.synchronize()
+        launched = any(flash.LAUNCHES[n] > before[n] for n in before)
+        assert launched == (impl == "flash")
+        assert torch.isfinite(logits).all()
+        grads.append({n: p.grad for n, p in model.named_parameters()})
+    for name, want in grads[1].items():
+        _close(grads[0][name], want, name)

@@ -1,5 +1,5 @@
-"""The add order of the direct ring rows (rows 7, 8, 9 and 10 of the
-kernel table, ``ops/csrc/ring_direct.cu``) on the CPU.
+"""The add order of the direct ring rows (rows 7-12 of the kernel table,
+``ops/csrc/ring_direct.cu``) on the CPU.
 
 The CUDA kernels do not walk the ring: they load every rank's value of an
 element and add the values in the order the ring would have.  Their plain
@@ -8,9 +8,12 @@ versions, ``ring.allreduce_direct_plain``,
 ``ring.reduce_scatter_direct_plain``, are torch folds in that order; here
 they are held bitwise to the ring's own plain versions (the step-by-step
 schedules), chunked and resident, over ring sizes, dtypes, ragged and
-aligned lengths, plans and a row-padded (strided) input.  Row 7's second
-half runs the schedule in the other rotation, so its chunks fold ranks c,
-c - 1, ..., c - n + 1.  Row 10, the
+aligned lengths, plans and a row-padded (strided) input.  The second half
+of rows 7 and 12 runs the schedule in the other rotation, so its chunks
+fold ranks c, c - 1, ..., c - n + 1; row 12's halves pad apart, so each
+folds in ring chunks of its own length.  The wrappers' launch arguments
+(the chunk lengths of rows 7, 8, 11 and 12) are checked through a stand-in
+for the launch that folds as the kernel does.  Row 10, the
 all-gather, adds nothing: its kernel stores each shard to every rank, and
 its torch form ``ring.all_gather_direct_plain`` (the shards expanded to
 [n, n, per]) is held bitwise to the ring's step-by-step all-gather on
@@ -75,6 +78,7 @@ def test_direct_order_equals_the_ring(n, dtype, row, L):
             P = -(-L // (n * ring._TILE)) * n * ring._TILE
             got = ring.allreduce_direct_plain(x, P // n, 1)
             assert torch.equal(got, ring.allreduce_resident_plain(xc))
+            assert torch.equal(got, ring.allreduce_resident_direct_plain(x))
             got_all.append(got)
             # Every rank holds the same sum.
             for g in got_all:
@@ -133,6 +137,102 @@ def test_bidir_direct_order_equals_the_ring(n, dtype, L):
         if dt == torch.int32:
             assert torch.equal(got[0], xc.sum(0, dtype=torch.int32))
     assert chunked >= 2
+
+
+def _resident_ce(m, n):
+    """A resident half's ring chunk: m padded to a multiple of n TILE,
+    over n."""
+    return -(-m // (n * 1024)) * 1024
+
+
+# Row 12: L 16,385 pads its halves (8,192 and 8,193) apart for 4 and 8
+# ranks; 40,003 starts half 2 off every dtype's 16-byte boundary.
+RESIDENT_BIDIR_LENGTHS = (16_385, 40_003, 65_536, 77_777)
+
+
+@pytest.mark.parametrize("L", RESIDENT_BIDIR_LENGTHS)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("n", [2, 3, 4, 5, 8])
+def test_bidir_resident_fold_equals_the_ring(n, dtype, L):
+    dt = DTYPES[dtype]
+    ce1, ce2 = _resident_ce(L // 2, n), _resident_ce(L - L // 2, n)
+    if L == 16_385 and n in (4, 8):
+        assert ce1 != ce2, (n, ce1, ce2)
+    assert ring.schedule(L, n, dt, chunk_bytes=4 << 20,
+                         bidirectional=True) == ("ring_allreduce_bidir", ())
+    for pad in (0, 3):
+        x = _stack(n, L, dt, seed=n * 1000 + L + pad + 11, pad=pad)
+        want = ring.allreduce_bidir_resident_plain(x.contiguous())
+        got = ring.allreduce_bidir_fold(x, ce1, ce2)
+        assert got.shape == x.shape and got.dtype == dt
+        assert torch.equal(got, want), (n, L, pad)
+        assert torch.equal(ring.allreduce_bidir_resident_direct_plain(x),
+                           want)
+        assert all(torch.equal(got[r], got[0]) for r in range(n))
+        if dt == torch.int32:
+            assert torch.equal(got[0], x.sum(0, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("n", [2, 3, 4, 5, 8])
+def test_row7_fold_is_the_two_length_fold_with_equal_lengths(n, dtype):
+    dt = DTYPES[dtype]
+    L = 40_003
+    x = _stack(n, L, dt, seed=n + 31, pad=3)
+    plan = ring._chunk_plan(-(-L // 2), n, dt, 4096 * dt.itemsize // 4)
+    assert plan[1] > 1
+    ce = plan[0] * plan[1]
+    got = ring.allreduce_bidir_fold(x, ce, ce)
+    assert torch.equal(got, ring.allreduce_bidir_direct_plain(x, *plan))
+    assert torch.equal(got, ring.allreduce_bidir_chunked_plain(
+        x.contiguous(), *plan))
+
+
+def _folding_call(log):
+    """A stand-in for ``ring._call`` on the direct allreduce rows: records
+    the launcher's arguments and folds as ring_direct.cu does with them."""
+    def call(lib, name, args, x):
+        assert lib == "ring_direct"
+        xs, ldx, out, ldo, L, *ces, n, _ = args
+        assert xs is x and ldx == x.stride(0) and ldo == out.shape[1]
+        assert n == x.shape[0] and L == x.shape[1]
+        log.append((name, tuple(ces)))
+        if len(ces) == 2:
+            out[:, :L] = ring.allreduce_bidir_fold(x, *ces)
+        else:
+            out[:, :L] = ring.allreduce_direct_plain(x, ces[0], 1)
+    return call
+
+
+@pytest.mark.parametrize("L", [16_385, 40_003])
+@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("name", ["ring_allreduce", "ring_allreduce_bidir",
+                                  "ring_allreduce_chunked",
+                                  "ring_allreduce_bidir_chunked"])
+def test_wrapper_launch_arguments(monkeypatch, name, n, L):
+    """What the wrappers pass the launcher on a CUDA tensor: the chunked
+    rows the plan's C sub_elems (row 7 twice), row 11 the padded P / n,
+    row 12 each half's own; with the launch standing in as a fold, the
+    kernel path's result is the plain ring's, bitwise."""
+    log = []
+    monkeypatch.setattr(ring, "_call", _folding_call(log))
+    dt = torch.float32
+    x = _stack(n, L, dt, seed=n * 7 + L, pad=3)
+    bidir = "bidir" in name
+    cb = 4 << 20 if "chunked" not in name else 4096
+    picked, plan = ring.schedule(L, n, dt, chunk_bytes=cb,
+                                 bidirectional=bidir)
+    assert picked == name
+    got = ring._run(name, x, plan, plain=False)
+    assert torch.equal(got, ring.PLAINS[name](x, *plan))
+    if plan:
+        want = (plan[0] * plan[1],) * (2 if bidir else 1)
+    elif bidir:
+        want = (_resident_ce(L // 2, n), _resident_ce(L - L // 2, n))
+    else:
+        want = (_resident_ce(L, n),)
+    assert log == [(name, want)]
+    assert torch.equal(got, ring.FOLDS[name](x, *plan))
 
 
 # Shard lengths of the all-gather: 4096 fills its plan (C 4 of 1024, no

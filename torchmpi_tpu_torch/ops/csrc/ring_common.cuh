@@ -1,5 +1,6 @@
 // ring_common.cuh: the flag protocol, the element work and the cooperative
-// launch shared by the ring kernels (ring_allreduce.cu, ring_rs_ag.cu).
+// launch of the ring-walking kernels (ring_rs_ag.cu); ring_direct.cu uses
+// its Elem<T> adds.
 //
 // The TPU kernels (torchmpi_tpu/ops/ring.py) move a ring chunk with a remote
 // DMA into the right neighbour's comm slot and count it on a DMA semaphore;

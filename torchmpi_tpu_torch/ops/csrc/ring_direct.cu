@@ -1,14 +1,19 @@
-// ring_direct: the chunked ring allreduces (one direction and both), the
-// chunked reduce-scatter and the chunked all-gather as direct reductions
-// and copies, in the ring's add order, over n ranks whose buffers are
-// device pointers; float32, bfloat16 and int32.
+// ring_direct: the ring allreduces (chunked and resident, one direction
+// and both), the chunked reduce-scatter and the chunked all-gather as
+// direct reductions and copies, in the ring's add order, over n ranks whose
+// buffers are device pointers; float32, bfloat16 and int32.
 //
-// Replaces four TPU kernels of torchmpi_tpu/ops/ring.py, one C launcher
-// each:
+// Replaces six TPU kernels of torchmpi_tpu/ops/ring.py, one C launcher
+// for each kind (an allreduce's launcher serves its chunked and its
+// resident kernel, which differ only in the ring chunk's length):
 //   tm_ring_allreduce_bidir_direct _ring_allreduce_bidir_chunked_kernel :534
-//                                  (pallas_call :642), row 7;
+//                                  (pallas_call :642), row 7, and
+//                                  _ring_allreduce_bidir_kernel :203
+//                                  (pallas_call :859), row 12;
 //   tm_ring_allreduce_direct       _ring_allreduce_chunked_kernel :511
-//                                  (pallas_call :686), row 8;
+//                                  (pallas_call :686), row 8, and
+//                                  _ring_allreduce_kernel :265
+//                                  (pallas_call :831), row 11;
 //   tm_ring_reduce_scatter_direct  _ring_reduce_scatter_chunked_kernel :707
 //                                  (pallas_call :772), row 9;
 //   tm_ring_all_gather_direct      _ring_all_gather_chunked_kernel :733
@@ -21,12 +26,16 @@
 // and fold them in the order the ring would have added them.  An element's
 // ring chunk fixes that order (ops/ring.py, _ring_plain and _rs_plain):
 //   allreduce, chunk c = [c CE, (c + 1) CE) of the padded layout, CE = C E
-//   from the plan: x_c, x_{c+1}, ..., x_{c+n-1} (ranks mod n), a left fold,
-//   written to every rank;
-//   bidirectional allreduce, the halves [0, h) and [h, L), h = L / 2, each
-//   in chunks of the half plan's CE: half 1 as the allreduce, half 2 the
-//   same schedule rotating the other way (:546, my -> -my), so chunk c of
-//   it folds x_c, x_{c-1}, ..., x_{c-n+1};
+//   from the plan (chunked), or the padded P / n, P = L rounded up to a
+//   multiple of n TILE (resident, one slot a ring chunk): x_c, x_{c+1},
+//   ..., x_{c+n-1} (ranks mod n), a left fold, written to every rank;
+//   bidirectional allreduce, the halves [0, h) and [h, L), h = L / 2, half
+//   1 in chunks of CE1 and half 2 of CE2: half 1 as the allreduce, half 2
+//   the same schedule rotating the other way (:546, my -> -my), so chunk c
+//   of it folds x_c, x_{c-1}, ..., x_{c-n+1}.  The chunked kernel pads both
+//   halves to one plan (CE1 = CE2); the resident kernel pads each half on
+//   its own to a multiple of n TILE, so CE1 and CE2 can differ (L 16,385,
+//   n 4: 2048 and 3072);
 //   reduce-scatter, chunk c = [c per, (c + 1) per): x_{c+1}, ..., x_{c+n-1},
 //   x_c, written to rank c only.
 // Each add is Elem<T>'s (ring_common.cuh: float32, bfloat16 rounded after
@@ -42,7 +51,7 @@
 // the B blocks of a chunk share its units in a grid-stride loop.  Every
 // thread issues up to kInFlight ranks' loads of its unit before the first
 // add that consumes them.  A unit is a 16-byte vector when every source
-// and destination row, the row strides and the chunk length are 16-byte
+// and destination row, the row strides and the chunk lengths are 16-byte
 // aligned (the fused sync's buckets and ZeRO's flats and shards are), the
 // chunk's last elements (fewer than one vector) then taken one by one;
 // otherwise a unit is one element.  Half 2 starts at element h of the
@@ -59,9 +68,10 @@
 // output element written once, which is the function's own traffic:
 // 2 n L itemsize for the allreduce of n ranks' L elements, (n + 1) n per
 // itemsize for the reduce-scatter, (n + n^2) per itemsize for the
-// all-gather of n shards of per.  The ring schedule on one card moved
-// 2.8 to 5 times as much (ring_allreduce.cu, ring_rs_ag.cu, and row 7's
-// ring-walking kernel before it became a direct reduction).  A version
+// all-gather of n shards of per.  The ring schedule on one card moves 2.8
+// to 5 times as much (ring_rs_ag.cu, and the ring-walking allreduce
+// kernels these replaced; at n = 4 the allreduce's schedule moved
+// n S (2 + 9 (n - 1) / n) for S padded bytes a rank, 4.4 times).  A version
 // whose 16-byte loads were TMA bulk copies into shared-memory stages on
 // mbarriers gained a few percent at the kernel, under 1% of the gradient
 // sync, for three times the code, so this one stays.
@@ -82,9 +92,10 @@ struct Args {
   const void* x;  // [n, ldx]: rank r's elements at x + r ldx
   void* o;        // [n, ldo]: rank r's output row at o + r ldo
   long long ldx, ldo;
-  long long L;    // elements of a rank's input row (AG: of its output row)
-  long long seg;  // elements of one ring chunk (CE, or per)
-  long long h;    // kBidir: half 1 is [0, h), half 2 [h, L); else 0
+  long long L;     // elements of a rank's input row (AG: of its output row)
+  long long seg;   // elements of one ring chunk (CE, or per; kBidir: CE1)
+  long long seg2;  // kBidir: half 2's ring chunk, CE2; else seg
+  long long h;     // kBidir: half 1 is [0, h), half 2 [h, L); else 0
   int n;
 };
 
@@ -165,7 +176,7 @@ __global__ void __launch_bounds__(tmr::kThreads)
 ring_direct_kernel(Args a) {
   const int n = a.n;
   int c = blockIdx.y, step = 1;
-  long long base = 0, L = a.L;
+  long long base = 0, L = a.L, seg = a.seg;
   if constexpr (kMode == kBidir) {
     if (c < n) {
       L = a.h;
@@ -174,10 +185,11 @@ ring_direct_kernel(Args a) {
       step = -1;
       base = a.h;
       L = a.L - a.h;
+      seg = a.seg2;
     }
   }
-  const long long s0 = c * a.seg;
-  const long long len = L - s0 < a.seg ? L - s0 : a.seg;
+  const long long s0 = c * seg;
+  const long long len = L - s0 < seg ? L - s0 : seg;
   if (len <= 0) return;
   // The chunk's first element in the source row (the all-gather's source
   // row is the shard itself) and in the destination row.
@@ -274,13 +286,14 @@ int launch_typed(const Args& a, int* vec_out, cudaStream_t st) {
   const uintptr_t mis =
       reinterpret_cast<uintptr_t>(a.x) | reinterpret_cast<uintptr_t>(a.o) |
       static_cast<uintptr_t>(a.ldx) * sz | static_cast<uintptr_t>(a.ldo) * sz |
-      static_cast<uintptr_t>(a.seg) * sz;
+      static_cast<uintptr_t>(a.seg) * sz | static_cast<uintptr_t>(a.seg2) * sz;
   const bool vec = (mis & 15) == 0;
   *vec_out = vec ? 1 : 0;
-  // Units of the longest chunk (the first of the longer half), a vector's
-  // head and tail included.
-  const long long half = kMode == kBidir ? a.L - a.h : a.L;
-  const long long len = a.seg < half ? a.seg : half;
+  // Units of the longest chunk (the first of either half), a vector's head
+  // and tail included.
+  const long long h1 = a.seg < a.h ? a.seg : a.h;
+  const long long h2 = a.seg2 < a.L - a.h ? a.seg2 : a.L - a.h;
+  const long long len = kMode == kBidir && h1 > h2 ? h1 : h2;
   return run(pick<T, kMode>(vec, a.n), a, kMode == kBidir ? 2 * a.n : a.n,
              vec ? len / (16 / sz) + (kMode == kBidir ? 2 : 1) : len, st);
 }
@@ -299,11 +312,13 @@ int launch_mode(Mode mode, const Args& a, int* vec_out, cudaStream_t st) {
 // dtype: 0 float32, 1 bfloat16, 2 int32.
 int launch(int dtype, Mode mode, const Args& a, int* vec_out, void* stream) {
   const long long chunks = mode == kBidir ? 2LL * a.n : a.n;
-  // The longer half (the whole row outside kBidir) must fit n chunks.
+  // Each half (the whole row outside kBidir, where h = 0 and seg2 = seg)
+  // must fit n of its chunks.
   const long long span = a.L - a.h;
-  if (a.n < 2 || chunks > 65535 || a.L < 1 || a.seg < 1 || a.ldx < 0 ||
-      a.h < 0 || a.h > span || span > static_cast<long long>(a.n) * a.seg ||
-      vec_out == nullptr)
+  if (a.n < 2 || chunks > 65535 || a.L < 1 || a.seg < 1 || a.seg2 < 1 ||
+      a.ldx < 0 || a.h < 0 || a.h > span ||
+      a.h > static_cast<long long>(a.n) * a.seg ||
+      span > static_cast<long long>(a.n) * a.seg2 || vec_out == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
@@ -316,32 +331,35 @@ int launch(int dtype, Mode mode, const Args& a, int* vec_out, void* stream) {
 
 }  // namespace
 
-// Row 8: x [n, L] (row stride ldx) -> o [n, L] (row stride ldo >= L), every
-// row the sum; ring chunks of CE elements (CE = C sub_elems of the plan,
-// L <= n CE).  *vec is set to 1 when the 16-byte path ran.
+// Rows 8 and 11: x [n, L] (row stride ldx) -> o [n, L] (row stride
+// ldo >= L), every row the sum; ring chunks of CE elements (row 8: CE = C
+// sub_elems of the plan; row 11: the padded P / n; L <= n CE).  *vec is
+// set to 1 when the 16-byte path ran.
 extern "C" int tm_ring_allreduce_direct(int dtype, const void* x,
                                         long long ldx, void* o,
                                         long long ldo, long long L,
                                         long long CE, int n, int* vec,
                                         void* stream) {
   if (ldo < L) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(dtype, kAllreduce, Args{x, o, ldx, ldo, L, CE, 0, n}, vec,
-                stream);
+  return launch(dtype, kAllreduce, Args{x, o, ldx, ldo, L, CE, CE, 0, n},
+                vec, stream);
 }
 
-// Row 7: x [n, L] (row stride ldx) -> o [n, L] (row stride ldo >= L), every
-// row the sum; the halves [0, L / 2) and [L / 2, L) in ring chunks of CE
-// elements each (CE = C sub_elems of the half plan, L - L / 2 <= n CE),
-// half 1 in row 8's order, half 2 in the other rotation's.  *vec is set to
-// 1 when the 16-byte path ran (half 2 peeled to its first boundary).
+// Rows 7 and 12: x [n, L] (row stride ldx) -> o [n, L] (row stride
+// ldo >= L), every row the sum; the halves [0, L / 2) and [L / 2, L) in
+// ring chunks of CE1 and CE2 elements (row 7: both C sub_elems of the half
+// plan; row 12: each half's own padded length / n; L / 2 <= n CE1,
+// L - L / 2 <= n CE2), half 1 in row 8's order, half 2 in the other
+// rotation's.  *vec is set to 1 when the 16-byte path ran (half 2 peeled
+// to its first boundary).
 extern "C" int tm_ring_allreduce_bidir_direct(int dtype, const void* x,
                                               long long ldx, void* o,
                                               long long ldo, long long L,
-                                              long long CE, int n, int* vec,
-                                              void* stream) {
+                                              long long CE1, long long CE2,
+                                              int n, int* vec, void* stream) {
   if (ldo < L) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(dtype, kBidir, Args{x, o, ldx, ldo, L, CE, L / 2, n}, vec,
-                stream);
+  return launch(dtype, kBidir, Args{x, o, ldx, ldo, L, CE1, CE2, L / 2, n},
+                vec, stream);
 }
 
 // Row 9: x [n, n per] (row stride ldx) -> out [n, per] (row stride
@@ -353,8 +371,8 @@ extern "C" int tm_ring_reduce_scatter_direct(int dtype, const void* x,
                                              long long ldo, long long per,
                                              int n, int* vec, void* stream) {
   if (ldo < per || per < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(dtype, kScatter, Args{x, out, ldx, ldo, n * per, per, 0, n},
-                vec, stream);
+  return launch(dtype, kScatter,
+                Args{x, out, ldx, ldo, n * per, per, per, 0, n}, vec, stream);
 }
 
 // Row 10: shards x [n, per] (row stride ldx) -> out [n, n, per], contiguous,
@@ -367,5 +385,6 @@ extern "C" int tm_ring_all_gather_direct(int dtype, const void* x,
                                          void* stream) {
   if (per < 1) return static_cast<int>(cudaErrorInvalidValue);
   return launch(dtype, kGather,
-                Args{x, out, ldx, n * per, n * per, per, 0, n}, vec, stream);
+                Args{x, out, ldx, n * per, n * per, per, per, 0, n}, vec,
+                stream);
 }

@@ -30,8 +30,8 @@
 // (the forward schedule of :349-366 and :749-756).  Each kernel is bitwise
 // the TPU kernels' and the plain versions' (ops/ring.py).
 //
-// Protocol (ring_common.cuh; that of ring_allreduce.cu, which the port's
-// ops/ring_sim.py models): step k uses comm slot k % 2.  Before sending at
+// Protocol (ring_common.cuh; the TPU's slot and ack protocol, which the
+// port's ops/ring_sim.py models): step k uses comm slot k % 2.  Before sending at
 // step k >= 2 a block waits until its neighbour has acknowledged step
 // k - 2; it stores its part of the chunk into the neighbour's slot and
 // release-increments the neighbour's recv flag.  The receiver

@@ -17,7 +17,11 @@ head ``h // (H // Hkv)``, the ``jnp.repeat`` layout), lse ``[B, H, Tq]``.
 The kernels take float32, contiguous tensors whose q / k / v (and dO)
 start 16-byte aligned (they copy rows in 16-byte pieces): the model casts
 q / k / v to float32 before attention (``models/transformer.py``), as the
-JAX model does.
+JAX model does.  They are built for head dims 16, 32, 64 and 128; the
+wrappers take any D up to 128 by zero-padding q / k / v / dO to the next
+of those (the scale is an argument, taken from the true D, so the zero
+columns add nothing to q . k, and v's give output columns that are sliced
+off).  A larger D raises: it needs tiles of its own.
 Masked scores are the finite ``NEG_INF``; a row with no valid key yields
 output 0 and lse ``+1e30``, never NaN.
 """
@@ -41,7 +45,8 @@ NEG_INF = -1e30
 # show that its path went through the kernels.
 LAUNCHES = {name: 0 for name in _build.KERNELS if name.startswith("flash_")}
 
-# Head dims the kernels are instantiated for (flash_*.cu, the D switch).
+# Head dims the kernels are instantiated for (flash_*.cu, the D switch);
+# any other D up to the largest runs zero-padded to the next of them.
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 
 
@@ -217,8 +222,6 @@ def _launch(name: str, tensors, q, k, scale, causal, window, q_offset,
             raise ValueError(f"{name}: the kernel takes contiguous tensors")
     B, Tq, H, D = q.shape
     Tkv, Hkv = k.shape[1], k.shape[2]
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {D} not in {KERNEL_HEAD_DIMS}")
     sym, n_ptrs = _SIGNATURES[name]
     with torch.cuda.device(dev):
         _build.launch(name, sym, [_P] * n_ptrs + _SCALARS,
@@ -234,6 +237,35 @@ def _check_aligned(name: str, tensors) -> None:
     if any(t.data_ptr() % 16 for t in tensors):
         names = ", ".join(("q", "k", "v", "do")[:len(tensors)])
         raise ValueError(f"{name}: the kernel takes {names} 16-byte aligned")
+
+
+def kernel_head_dim(D: int, name: str = "flash") -> int:
+    """The head dim the kernels run ``D`` at: the least of
+    KERNEL_HEAD_DIMS that holds it.  Raises for a larger D, which needs
+    tiles of its own (ROADMAP queue B, variant 4)."""
+    for d in KERNEL_HEAD_DIMS:
+        if D <= d:
+            return d
+    raise ValueError(f"{name}: head_dim {D} > {KERNEL_HEAD_DIMS[-1]}, the "
+                     f"largest the kernels are built for "
+                     f"({KERNEL_HEAD_DIMS}); a larger head dim needs its own "
+                     f"tiling")
+
+
+def pad_head_dim(name: str, *ts: torch.Tensor):
+    """``ts`` (q, k, v, dO) with the last dim zero-padded to
+    :func:`kernel_head_dim` of it, each a new contiguous tensor, or the
+    tensors themselves when D is a kernel head dim."""
+    D = ts[0].shape[-1]
+    Dk = kernel_head_dim(D, name)
+    if Dk == D:
+        return ts
+    return tuple(torch.nn.functional.pad(t, (0, Dk - D)) for t in ts)
+
+
+def _unpad(t: torch.Tensor, D: int) -> torch.Tensor:
+    """An output of the padded kernels cut back to head dim ``D``."""
+    return t if t.shape[-1] == D else t[..., :D].contiguous()
 
 
 def _device_kind(t: torch.Tensor) -> str:
@@ -252,13 +284,14 @@ def flash_fwd(q, k, v, *, scale: float, causal: bool,
               kv_offset=kv_offset)
     if _device_kind(q) == "cpu":
         return flash_fwd_plain(q, k, v, **kw)
+    B, Tq, H, D = q.shape
+    q, k, v = pad_head_dim("flash_fwd", q, k, v)
     _check_aligned("flash_fwd", (q, k, v))
-    B, Tq, H, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
     if q.numel():
         _launch("flash_fwd", (q, k, v, o, lse), q, k, **kw)
-    return o, lse
+    return _unpad(o, D), lse
 
 
 def flash_bwd_dq(q, k, v, do, lse, dvec, *, scale: float, causal: bool,
@@ -272,11 +305,13 @@ def flash_bwd_dq(q, k, v, do, lse, dvec, *, scale: float, causal: bool,
               kv_offset=kv_offset)
     if _device_kind(q) == "cpu":
         return flash_bwd_dq_plain(q, k, v, do, lse, dvec, **kw)
+    D = q.shape[-1]
+    q, k, v, do = pad_head_dim("flash_bwd_dq", q, k, v, do)
     _check_aligned("flash_bwd_dq", (q, k, v, do))
     dq = torch.empty_like(q)
     if q.numel():
         _launch("flash_bwd_dq", (q, k, v, do, lse, dvec, dq), q, k, **kw)
-    return dq
+    return _unpad(dq, D)
 
 
 def flash_bwd_dkv(q, k, v, do, lse, dvec, *, scale: float, causal: bool,
@@ -291,12 +326,14 @@ def flash_bwd_dkv(q, k, v, do, lse, dvec, *, scale: float, causal: bool,
               kv_offset=kv_offset)
     if _device_kind(q) == "cpu":
         return flash_bwd_dkv_plain(q, k, v, do, lse, dvec, **kw)
+    D = q.shape[-1]
+    q, k, v, do = pad_head_dim("flash_bwd_dkv", q, k, v, do)
     _check_aligned("flash_bwd_dkv", (q, k, v, do))
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     if k.numel():
         _launch("flash_bwd_dkv", (q, k, v, do, lse, dvec, dk, dv), q, k, **kw)
-    return dk, dv
+    return _unpad(dk, D), _unpad(dv, D)
 
 
 # ---------------------------------------------------------------------------

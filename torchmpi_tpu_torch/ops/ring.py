@@ -8,23 +8,15 @@ rank-major stack ``xs[i]`` = rank i's tensor (the JAX package's eager mode,
 them: the peers are device pointers, so the same kernels and protocol serve
 peers over NVLink once their pointers are exchanged (ROADMAP queue B).
 
-Two CUDA kernels (``ops/csrc/ring_allreduce.cu``, one C launcher each)
-walk the ring as the Pallas allreduce kernels do:
-
-- ``ring_allreduce`` (row 11): ``_ring_allreduce_kernel`` :265, one
-  direction, a whole ring chunk per step;
-- ``ring_allreduce_bidir`` (row 12): ``_ring_allreduce_bidir_kernel`` :203,
-  halves ``flat[:L//2]`` and ``flat[L//2:]`` in opposite directions.
-
-Two more (``ops/csrc/ring_rs_ag.cu``) walk it for the resident
-reduce-scatter and all-gather kernels that ZeRO's legs run under a
-``chunk_bytes`` that holds a whole ring chunk:
+Two CUDA kernels (``ops/csrc/ring_rs_ag.cu``) walk the ring for the
+resident reduce-scatter and all-gather kernels that ZeRO's legs run under
+a ``chunk_bytes`` that holds a whole ring chunk:
 
 - ``ring_reduce_scatter`` (row 13): ``_ring_reduce_scatter_kernel`` :310;
 - ``ring_all_gather`` (row 14): ``_ring_all_gather_kernel`` :342.
 
-The chunked rows do not walk the ring (``ops/csrc/ring_direct.cu``):
-every rank's value of an element is loaded and the values are added in the
+The other rows do not walk the ring (``ops/csrc/ring_direct.cu``): every
+rank's value of an element is loaded and the values are added in the
 order the ring would have added them, or, for the all-gather, each shard is
 loaded once and stored to every rank, so each input is read once and each
 output written once:
@@ -37,7 +29,12 @@ output written once:
 - ``ring_reduce_scatter_chunked`` (row 9):
   ``_ring_reduce_scatter_chunked_kernel`` :707;
 - ``ring_all_gather_chunked`` (row 10): ``_ring_all_gather_chunked_kernel``
-  :733.
+  :733;
+- ``ring_allreduce`` (row 11): ``_ring_allreduce_kernel`` :265, row 8's
+  fold with one ring chunk of the padded ``P / n`` elements;
+- ``ring_allreduce_bidir`` (row 12): ``_ring_allreduce_bidir_kernel`` :203,
+  row 7's fold with each half's ring chunk that half's own padded length
+  over n (the halves pad apart, so the two lengths can differ).
 
 :func:`ring_allreduce`, :func:`ring_reduce_scatter` and
 :func:`ring_all_gather` pick a kernel as the JAX entries do (:926-955,
@@ -53,9 +50,9 @@ Every wrapper takes its plain version when, and only when, the tensor it
 was given lies on the CPU; on a CUDA tensor it launches its kernel or
 raises.  Each wrapper call that launches adds one to ``LAUNCHES[name]``.
 ``VECTOR_LAUNCHES`` counts the direct rows' launches whose bulk took
-their 16-byte path (row 7's second half may start off a 16-byte boundary:
-its first elements are taken one by one).  The wrappers make no
-host-device synchronization.
+their 16-byte path (the second half of rows 7 and 12 may start off a
+16-byte boundary: its first elements are taken one by one).  The wrappers
+make no host-device synchronization.
 """
 
 from __future__ import annotations
@@ -83,7 +80,8 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 # The direct rows (ring_direct.cu), and their launches whose bulk ran on
 # 16-byte vectors.
 DIRECT = ("ring_allreduce_bidir_chunked", "ring_allreduce_chunked",
-          "ring_reduce_scatter_chunked", "ring_all_gather_chunked")
+          "ring_reduce_scatter_chunked", "ring_all_gather_chunked",
+          "ring_allreduce", "ring_allreduce_bidir")
 VECTOR_LAUNCHES: Dict[str, int] = {name: 0 for name in DIRECT}
 
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
@@ -241,20 +239,17 @@ def _ring_plain(x: torch.Tensor, sign: int) -> torch.Tensor:
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _PI = ctypes.POINTER(ctypes.c_int)
+# dtype, x, ldx, o, ldo, L, CE, n, vec, stream
+_ALLREDUCE = ("tm_ring_allreduce_direct",
+              [_I, _P, _LL, _P, _LL, _LL, _LL, _I, _PI, _P])
+# dtype, x, ldx, o, ldo, L, CE1, CE2, n, vec, stream
+_BIDIR = ("tm_ring_allreduce_bidir_direct",
+          [_I, _P, _LL, _P, _LL, _LL, _LL, _LL, _I, _PI, _P])
 _SIGNATURES = {
-    # dtype, x, o, comm, flags, P, n, B, stream
-    "ring_allreduce": ("tm_ring_allreduce", [_I] + [_P] * 4 + [_LL, _I, _I,
-                                                                _P]),
-    # dtype, x1, x2, o1, o2, comm1, comm2, flags, P1, P2, n, B, stream
-    "ring_allreduce_bidir": ("tm_ring_allreduce_bidir",
-                             [_I] + [_P] * 7 + [_LL, _LL, _I, _I, _P]),
-    # dtype, x, ldx, o, ldo, L, CE, n, vec, stream
-    "ring_allreduce_chunked": ("tm_ring_allreduce_direct",
-                               [_I, _P, _LL, _P, _LL, _LL, _LL, _I, _PI,
-                                _P]),
-    "ring_allreduce_bidir_chunked": ("tm_ring_allreduce_bidir_direct",
-                                     [_I, _P, _LL, _P, _LL, _LL, _LL, _I,
-                                      _PI, _P]),
+    "ring_allreduce": _ALLREDUCE,
+    "ring_allreduce_chunked": _ALLREDUCE,
+    "ring_allreduce_bidir": _BIDIR,
+    "ring_allreduce_bidir_chunked": _BIDIR,
     # dtype, x, w, out, comm, flags, per, E, n, B, stream
     "ring_reduce_scatter": ("tm_ring_reduce_scatter",
                             [_I] + [_P] * 5 + [_LL, _LL, _I, _I, _P]),
@@ -276,27 +271,6 @@ def _blocks(dev: torch.device, n: int, dirs: int, slot: int) -> int:
     SM in all, and no slice below _MIN_SLICE elements."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return max(1, min(_BLOCKS_PER_SM * sms // (n * dirs), slot // _MIN_SLICE))
-
-
-def _launch(name: str, xs):
-    """Launch resident row ``name`` on the padded halves ``xs`` ([n, P]
-    each, on one card, a slot of P / n) and return their outputs; raise on
-    a refused launch."""
-    x0 = xs[0]
-    dev, n = x0.device, x0.shape[0]
-    P = [x.shape[1] for x in xs]
-    slots = [p // n for p in P]
-    B = _blocks(dev, n, len(xs), min(slots))
-    outs = [torch.empty_like(x) for x in xs]
-    comms = [x.new_empty(n, 2, E) for x, E in zip(xs, slots)]
-    # Zeroed by the launcher on the stream, before the kernel.
-    flags = torch.empty(n * len(xs) * B * 3, dtype=torch.int32, device=dev)
-    if name == "ring_allreduce":
-        args = (xs[0], outs[0], comms[0], flags, P[0], n, B)
-    else:
-        args = (*xs, *outs, *comms, flags, P[0], P[1], n, B)
-    _call("ring_allreduce", name, args, x0)
-    return outs
 
 
 def _call(lib: str, name: str, args, x: torch.Tensor) -> None:
@@ -337,11 +311,31 @@ def _check(flat: torch.Tensor) -> None:
         raise ValueError(f"unsupported device {flat.device}")
 
 
+def _resident_chunk(m: int, n: int) -> int:
+    """Elements of one ring chunk of a resident row's ``m`` elements a
+    rank: the padded P / n, P = m rounded up to a multiple of n TILE (:162),
+    at least one TILE."""
+    return max(1, -(-m // (n * _TILE))) * _TILE
+
+
+def _chunk_lengths(name: str, n: int, L: int, plan=()) -> Tuple[int, ...]:
+    """The ring-chunk lengths allreduce row ``name`` folds ``n`` ranks' L
+    elements by, one per half: a chunked row's C sub_elems (both halves of
+    row 7 pad to one plan), a resident row's padded P / n (row 12's halves
+    pad apart, so their lengths can differ)."""
+    bidir = name.startswith("ring_allreduce_bidir")
+    if plan:
+        return (plan[0] * plan[1],) * (2 if bidir else 1)
+    if bidir:
+        return _resident_chunk(L // 2, n), _resident_chunk(L - L // 2, n)
+    return (_resident_chunk(L, n),)
+
+
 def _run(name: str, flat: torch.Tensor, plan=(), *,
          plain: bool) -> torch.Tensor:
-    """Row ``name`` on ``flat`` [n, L]: a direct row's kernel reads the
-    unpadded rows; otherwise split into halves (bidirectional rows), pad
-    each, reduce (kernel, or the plain schedule), unpad, rejoin."""
+    """Row ``name`` on ``flat`` [n, L]: the kernel reads the unpadded
+    rows; the plain version splits into halves (bidirectional rows), pads
+    each, runs the ring schedule, unpads and rejoins."""
     _check(flat)
     n, L = flat.shape
     parts = _halves(flat, name.startswith("ring_allreduce_bidir"))
@@ -349,7 +343,7 @@ def _run(name: str, flat: torch.Tensor, plan=(), *,
             p.shape[1] for p in parts) <= n * plan[0] * plan[1]):
         raise ValueError(f"plan (sub_elems {plan[0]}, C {plan[1]}) does not "
                          f"fit {n} ranks of {L} elements")
-    if name in DIRECT and not plain:
+    if not plain:
         if L == 0:
             return flat.new_empty(n, 0)
         # Rows 16 bytes apart, so that an aligned input takes the 16-byte
@@ -358,7 +352,7 @@ def _run(name: str, flat: torch.Tensor, plan=(), *,
         ldo = -(-L // v) * v
         out = flat.new_empty(n, ldo)
         return _launch_direct(name, flat, out, ldo, L,
-                              plan[0] * plan[1])[:, :L]
+                              *_chunk_lengths(name, n, L, plan))[:, :L]
     if plan:
         # Chunked: both halves pad to the plan's n C sub_elems (:631, :679).
         sub_elems, C = plan
@@ -367,11 +361,8 @@ def _run(name: str, flat: torch.Tensor, plan=(), *,
         # Resident: each half pads to a multiple of n TILE (:855, :951), and
         # a slot is a whole ring chunk.
         xs = [_pad_and_tile(p, n)[0].reshape(n, -1) for p in parts]
-    if plain:
-        outs = [_ring_plain(x, sign) for x, sign in zip(xs, (1, -1))]
-    else:
-        outs = _launch(name, xs)
-    outs = [o[:, :p.shape[1]] for o, p in zip(outs, parts)]
+    outs = [_ring_plain(x, sign)[:, :p.shape[1]]
+            for x, sign, p in zip(xs, (1, -1), parts)]
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
@@ -573,8 +564,8 @@ def all_gather_chunked_plain(shards, sub_elems: int, C: int):
 
 
 # The direct rows' order as torch folds, and the direct gather as a torch
-# copy (tests and chip_smoke.py hold them to the ring's plain versions; the
-# main path never runs them).
+# copy (tests and chip_smoke.py hold them to the ring's plain versions and
+# the kernels to them; the main path never runs them).
 
 
 def _fold(x: torch.Tensor, first: int, step: int = 1) -> torch.Tensor:
@@ -607,18 +598,41 @@ def allreduce_direct_plain(flat, sub_elems: int, C: int):
     return out
 
 
-def allreduce_bidir_direct_plain(flat, sub_elems: int, C: int):
-    """Row 7's function in ring_direct.cu's order: the halves ``[0, L //
-    2)`` and ``[L // 2, L)``, each in ring chunks of C sub_elems (the half
-    plan), chunk c of half 1 the fold of ranks c, c + 1, ..., c + n - 1 and
-    chunk c of half 2 the fold of ranks c, c - 1, ..., c - n + 1 (the other
-    rotation), on every rank; ``flat`` [n, L] unpadded."""
+def allreduce_bidir_fold(flat, ce1: int, ce2: int):
+    """The two-direction order of ring_direct.cu: the halves ``[0, L //
+    2)`` and ``[L // 2, L)`` in ring chunks of ``ce1`` and ``ce2``
+    elements, chunk c of half 1 the fold of ranks c, c + 1, ..., c + n - 1
+    and chunk c of half 2 the fold of ranks c, c - 1, ..., c - n + 1 (the
+    other rotation), on every rank; ``flat`` [n, L] unpadded."""
     _check(flat)
     L = flat.shape[1]
     out = torch.empty_like(flat)
-    _fold_chunks(out, flat, 0, L // 2, sub_elems * C, 1)
-    _fold_chunks(out, flat, L // 2, L, sub_elems * C, -1)
+    _fold_chunks(out, flat, 0, L // 2, ce1, 1)
+    _fold_chunks(out, flat, L // 2, L, ce2, -1)
     return out
+
+
+def allreduce_bidir_direct_plain(flat, sub_elems: int, C: int):
+    """Row 7's function in ring_direct.cu's order: both halves in ring
+    chunks of C sub_elems (the half plan)."""
+    return allreduce_bidir_fold(flat, sub_elems * C, sub_elems * C)
+
+
+def allreduce_resident_direct_plain(flat):
+    """Row 11's function in ring_direct.cu's order: row 8's fold in one
+    ring chunk of the padded P / n elements."""
+    _check(flat)
+    n, L = flat.shape
+    return allreduce_direct_plain(flat, _resident_chunk(L, n), 1)
+
+
+def allreduce_bidir_resident_direct_plain(flat):
+    """Row 12's function in ring_direct.cu's order: the two-direction
+    fold, each half in one ring chunk of its own padded length / n."""
+    _check(flat)
+    n, L = flat.shape
+    return allreduce_bidir_fold(flat, *_chunk_lengths("ring_allreduce_bidir",
+                                                      n, L))
 
 
 def reduce_scatter_direct_plain(flat):
@@ -653,6 +667,13 @@ WRAPPERS = {
     "ring_allreduce_bidir": allreduce_bidir_resident,
     "ring_reduce_scatter": reduce_scatter_resident,
     "ring_all_gather": all_gather_resident,
+}
+# The direct allreduce rows' torch folds, called as their wrappers are.
+FOLDS = {
+    "ring_allreduce_bidir_chunked": allreduce_bidir_direct_plain,
+    "ring_allreduce_chunked": allreduce_direct_plain,
+    "ring_allreduce": allreduce_resident_direct_plain,
+    "ring_allreduce_bidir": allreduce_bidir_resident_direct_plain,
 }
 PLAINS = {
     "ring_allreduce_bidir_chunked": allreduce_bidir_chunked_plain,

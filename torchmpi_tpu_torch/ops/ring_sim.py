@@ -3,10 +3,11 @@
 The port's own numpy copy of the JAX package's ``ops/ring_sim.py`` (the
 port imports nothing of that package).  It executes the slot / ack
 protocol of the TPU's chunked ring kernels (``_chunked_pipeline``) in
-pure numpy (on the card the chunked rows 7-10 are direct reductions and
-copies, ``ring_direct.cu``, and walk no ring; the resident kernels of
-``ops/csrc/ring_allreduce.cu`` and ``ring_rs_ag.cu`` run the protocol at
-C = 1): one state machine per rank running the same iteration
+pure numpy (on the card the allreduce rows 7, 8, 11 and 12 and the
+chunked rows 9 and 10 are direct reductions and copies,
+``ring_direct.cu``, and walk no ring; the resident reduce-scatter and
+all-gather of ``ops/csrc/ring_rs_ag.cu`` run the protocol at C = 1): one
+state machine per rank running the same iteration
 sequence as a kernel block (issue -> pipelined next-issue -> wait ->
 combine/copy -> writeback -> ack), with no iteration cap, driven by an
 arbitrary scheduler (randomized or adversarial interleavings).
