@@ -9,7 +9,7 @@ JAX package.  In order it:
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the kernels from ops/csrc with nvcc (sm_90a, one compiler per
    source, in parallel) into build/torch_kernels/: fourteen kernels in
-   nine sources;
+   seven libraries;
 3. kernel phases: at the flagship LM's attention shapes (B 4, T 2048, 16 q /
    4 kv heads, head_dim 128, causal, window 1024, float32) runs each flash
    kernel against its plain PyTorch version on the same seeded inputs (each
@@ -28,7 +28,10 @@ JAX package.  In order it:
    against the plain versions, bitwise against rows 5 and 6 and a repeat,
    timed also in one chunk), and the dense
    two-call loss (bf16 x @ w, then cross_entropy; forward and backward) timed
-   beside them as context only; then the four ring-allreduce kernels on 4
+   beside them as context only; the same three kernels on float32 operands
+   (the tf32x3 route: within 1e-4 of the plain float32 versions, bitwise on
+   a repeat, one float32 torch.matmul of each product as context); then
+   the four ring-allreduce kernels on 4
    ranks' float32 buffers on the card at the flagship's gradient bucket
    (8,249,691 elements a rank, rows 16 bytes apart as the fused sync lays
    a bucket out), each under the chunk_bytes / pallas_bidirectional config
@@ -42,9 +45,9 @@ JAX package.  In order it:
    reduce-scatter and all-gather kernels at the flagship's ZeRO shapes (4
    ranks, the
    reduce-scatter of 486,731,776 float32 a rank, the all-gather of the
-   121,682,944-element shards) under chunk_bytes 4 MiB (rows 9 and 10,
-   direct) and 512 MiB (the resident rows), the same way, with the stock
-   rank-major routes timed beside them;
+   121,682,944-element shards) under chunk_bytes 4 MiB (rows 9 and 10)
+   and 512 MiB (the resident rows 13 and 14), all four direct, the same
+   way, with the stock rank-major routes timed beside them;
 4. dense train phase (stage B): mpi.init() (NCCL, world of 1) and three
    data-parallel SGD steps (lr 0.02) of the flagship TransformerLM at full
    width and depth (embed 2048, depth 8, GQA 16/4, head_dim 128, T 2048,
@@ -54,8 +57,10 @@ JAX package.  In order it:
    the same steps with the fused loss, fused_linear_cross_entropy(h.bf16,
    head.bf16, labels); every kernel's launch count must be > 0, every
    launch of the head (forward and backward) on the wgmma route, and the
-   loss finite and falling; in both train phases one more, untimed step
-   counts the host-device synchronizations of a step, which must be 0;
+   loss finite and falling; then the same fused steps at the model's
+   default float32 (the head's every launch on the tf32x3 route); in every
+   train phase one more, untimed step counts the host-device
+   synchronizations of a step, which must be 0;
 6. consistency phases: one forward and backward of the same weights and
    batch with attn_impl="local" (dense oracle) and "flash", and with the
    dense and the fused loss;
@@ -81,8 +86,8 @@ JAX package.  In order it:
    the first ZeRO-1 step within 1e-4 (rel. L2 of the updates) of a
    replicated Adam step from the same state (every step's gap reported),
    the loss falling, 0 host syncs in a step, all four kernels launched,
-   every row-9 and row-10 launch on its 16-byte path; the peak device
-   memory of each leg, and one more update's device time by kernel
+   every launch of the four on its 16-byte path; the peak device memory
+   of each leg, and one more update's device time by kernel
    (torch.profiler);
 9. prints the kernels' summary line, then {"ok": true, "device": ...}.
 
@@ -117,9 +122,12 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 KERNEL_RTOL = 1e-4      # f32 kernel vs plain: summation order differs
 # xent kernels: loss / lse are f32 sums in another order; dx / dW come out
-# in bf16, so one bf16 rounding of the largest element.
+# in bf16, so one bf16 rounding of the largest element; on float32
+# operands (the tf32x3 route) g is not rounded and the three-product form
+# keeps f32's accuracy, so dx / dW are held as loss and lse are.
 XENT_STAT_RTOL = 1e-4
 XENT_GRAD_RTOL = 2.0 ** -7
+XENT_F32_GRAD_RTOL = 1e-4
 CONSISTENCY_RTOL = 2e-2  # bf16 model: local vs flash, dense vs fused loss
 # The ring slice: RING_N ranks rank-major on the one card.  The flagship's
 # 486,731,776 float32 gradients cut by FusedSpec at fuse_max_bytes 32 MiB
@@ -158,7 +166,7 @@ ZERO_ROWS = {
 ZERO_SMALL = 300_000  # elements per rank of the bf16 and int32 passes
 # Recorded constants, not measured here: the times and figures of the
 # kernels that the redesigned rows replaced (the ring-walking kernels of
-# rows 7-12, the f32-FMA flash kernels of rows 1, 2 and 3, the
+# rows 7-14, the f32-FMA flash kernels of rows 1, 2 and 3, the
 # cp.async / wmma kernels of the fused loss, rows 4, 5 and 6), at the
 # same shapes and by the same time_ms (PERF.md's kernel table and section
 # 5, H100 80GB HBM3 at 700 W).  The output prints them under
@@ -168,7 +176,9 @@ RING_RECORDED_MS = {"ring_allreduce_bidir_chunked": 1.042,
                     "ring_reduce_scatter_chunked": 23.480,
                     "ring_all_gather_chunked": 14.340,
                     "ring_allreduce": 0.708,
-                    "ring_allreduce_bidir": 0.925}
+                    "ring_allreduce_bidir": 0.925,
+                    "ring_reduce_scatter": 18.970,
+                    "ring_all_gather": 10.518}
 FLASH_RECORDED_MS = {"flash_fwd": 3.215, "flash_bwd_dq": 4.212,
                      "flash_bwd_dkv": 6.005}
 # The wmma-product kernels of rows 4, 5 and 6 (PERF.md's kernel table).
@@ -205,9 +215,9 @@ SOURCES = {
                                     "torchmpi_tpu/ops/ring.py:707"),
     "ring_all_gather_chunked": ("torchmpi_tpu_torch/ops/csrc/ring_direct.cu",
                                 "torchmpi_tpu/ops/ring.py:733"),
-    "ring_reduce_scatter": ("torchmpi_tpu_torch/ops/csrc/ring_rs_ag.cu",
+    "ring_reduce_scatter": ("torchmpi_tpu_torch/ops/csrc/ring_direct.cu",
                             "torchmpi_tpu/ops/ring.py:310"),
-    "ring_all_gather": ("torchmpi_tpu_torch/ops/csrc/ring_rs_ag.cu",
+    "ring_all_gather": ("torchmpi_tpu_torch/ops/csrc/ring_direct.cu",
                         "torchmpi_tpu/ops/ring.py:342"),
 }
 
@@ -655,6 +665,93 @@ def xent_step_form(torch, xent, x, w, labels, lse, dl, matmul_ms, nbytes):
             "bwd_chunk": chunk, "one_chunk_ms": one_chunk_ms}
 
 
+def xent_f32_phase(torch, xent, dev):
+    """Rows 4, 5 and 6 on float32 operands (the tf32x3 route) at the
+    flagship's LM-head shapes: each kernel against its plain float32
+    version on the same inputs and a repeat call, every launch on
+    tf32x3; timed beside its plain version, its bound (the function's
+    operations at TF32 peak; `issued_flops` is the three-product form's
+    three times that) and, as context, one float32 torch.matmul (no TF32)
+    of each product."""
+    N, E, V = HEAD_N, LM["embed"], LM["vocab"]
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    x = torch.randn(N, E, generator=g, device=dev)
+    w = torch.randn(E, V, generator=g, device=dev) / math.sqrt(E)
+    labels = torch.randint(0, V, (N,), generator=g, device=dev)
+    dl = torch.full((N,), 1.0 / N, device=dev)
+    before = {n: dict(c) for n, c in xent.ROUTE_LAUNCHES.items()}
+    _, lse = xent.xent_fwd(x, w, labels)
+    runs = {
+        "xent_fwd": (lambda: xent.xent_fwd(x, w, labels),
+                     lambda: xent.xent_fwd_plain(x, w, labels)),
+        "xent_bwd_dx": (lambda: xent.xent_bwd_dx(x, w, labels, lse, dl),
+                        lambda: xent.xent_bwd_dx_plain(x, w, labels, lse,
+                                                       dl)),
+        "xent_bwd_dw": (lambda: xent.xent_bwd_dw(x, w, labels, lse, dl),
+                        lambda: xent.xent_bwd_dw_plain(x, w, labels, lse,
+                                                       dl)),
+    }
+    nb = lambda *ts: sum(t.numel() * t.element_size()  # noqa: E731
+                         for t in ts)
+    stats = nb(labels.to(torch.int32), lse, dl)
+    # The function's products (2 flops a multiply-add) at TF32 peak, as
+    # the flash rows count theirs; the three-product form issues 3x that.
+    work = {"xent_fwd": (2 * N * E * V, nb(x, w) + stats),
+            "xent_bwd_dx": (4 * N * E * V, nb(x, w) + stats + nb(x)),
+            "xent_bwd_dw": (4 * N * E * V, nb(x, w) + stats + nb(w))}
+    gf = xent._grad_plain(x, w, labels, lse, dl)
+    matmul_ms = {"z": time_ms(torch, lambda: torch.matmul(x, w)),
+                 "g_wT": time_ms(torch, lambda: torch.matmul(gf, w.t())),
+                 "xT_g": time_ms(torch, lambda: torch.matmul(x.t(), gf))}
+    del gf
+    products = {"xent_fwd": ("z",), "xent_bwd_dx": ("z", "g_wT"),
+                "xent_bwd_dw": ("z", "xT_g")}
+    rows = []
+    for name, (kern, plain) in runs.items():
+        out, again = kern(), kern()
+        ref = plain()
+        out, again, ref = ((t,) if torch.is_tensor(t) else t
+                           for t in (out, again, ref))
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip(out, again))
+        rtol = XENT_STAT_RTOL if name == "xent_fwd" else XENT_F32_GRAD_RTOL
+        errs = [(max_err(a, r), rtol * float(r.float().abs().max()))
+                for a, r in zip(out, ref)]
+        dtypes = sorted({str(t.dtype) for t in out})
+        del out, again, ref
+        flops, nbytes = work[name]
+        t_op = flops / PEAK_TF32_FLOPS * 1e3
+        t_b = nbytes / PEAK_HBM_BYTES * 1e3
+        rows.append({
+            "name": f"{name}[tf32x3]", "route": "cuda",
+            "source": SOURCES[name][0], "replaces": SOURCES[name][1],
+            "max_abs_err": max(e for e, _ in errs),
+            "tolerance": max(t for _, t in errs), "all_errs": errs,
+            "ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
+            "bound_ms": max(t_op, t_b),
+            "bound_by": "operations" if t_op >= t_b else "bytes",
+            "library_ms": None, "flops": flops, "issued_flops": 3 * flops,
+            "bytes": nbytes,
+            "bitwise_repeat": bitwise, "out_dtypes": dtypes,
+            "matmul_ms": {p: matmul_ms[p] for p in products[name]}})
+    counts = {n: {r: c[r] - before[n][r] for r in c}
+              for n, c in xent.ROUTE_LAUNCHES.items()}
+    emit({"phase": "xent_f32", "shape": dict(N=N, E=E, V=V, dtype="float32",
+                                             bwd_chunk=xent.BWD_CHUNK),
+          "route_launches_in_phase": counts, "kernels": rows})
+    for name, c in counts.items():
+        check(c["tf32x3"] > 0 and c["tf32x3"] == sum(c.values()),
+              f"{name} on float32 operands off the tf32x3 route: {c}")
+    for row in rows:
+        check(row["max_abs_err"] <= row["tolerance"],
+              f"{row['name']} max_abs_err {row['max_abs_err']} > "
+              f"{row['tolerance']}")
+        check(row["bitwise_repeat"], f"{row['name']}: two calls differ")
+        check(row["out_dtypes"] == ["torch.float32"],
+              f"{row['name']}: outputs {row['out_dtypes']}")
+    return rows
+
+
 def lm_loss(torch, model, tok):
     """Stage B's dense loss: logits = x @ head, softmax cross-entropy of
     each next token, mean."""
@@ -664,37 +761,42 @@ def lm_loss(torch, model, tok):
         logits[:, :-1].reshape(-1, V).float(), tok[:, 1:].reshape(-1))
 
 
-def fused_lm_loss(torch, mpi, model, tok):
+def fused_lm_loss(torch, mpi, model, tok, dtype=None):
     """The fused loss of stage B' (bench.py :1706-1720): the final LayerNorm's
-    output and the head, both in bf16, through the fused linear +
-    cross-entropy kernels, mean over the next tokens."""
+    output and the head, both in ``dtype`` (bf16 by default; float32 takes
+    the tf32x3 route), through the fused linear + cross-entropy kernels,
+    mean over the next tokens."""
+    dtype = dtype or torch.bfloat16
     h, head = model(tok, return_prehead=True)
     E = h.shape[-1]
     return mpi.ops.fused_linear_cross_entropy(
-        h[:, :-1].reshape(-1, E).to(torch.bfloat16),
-        head.to(torch.bfloat16), tok[:, 1:].reshape(-1)).mean()
+        h[:, :-1].reshape(-1, E).to(dtype), head.to(dtype),
+        tok[:, 1:].reshape(-1)).mean()
 
 
 LOSSES = {
-    "dense": lambda torch, mpi, m, t: lm_loss(torch, m, t),
+    "dense": lambda torch, mpi, m, t, dtype: lm_loss(torch, m, t),
     "fused": fused_lm_loss,
 }
 
 
-def train_phase(torch, mpi, ops, dev, loss: str):
-    """Three timed DP steps of the flagship with the ``loss`` of LOSSES;
-    every kernel counter is set to 0 just before and read just after."""
+def train_phase(torch, mpi, ops, dev, loss: str, dtype=None):
+    """Three timed DP steps of the flagship with the ``loss`` of LOSSES at
+    compute ``dtype`` (bf16 by default); every kernel counter is set to 0
+    just before and read just after.  With the fused loss every launch of
+    the head must take the route of ``dtype``: wgmma for bf16, tf32x3 for
+    float32."""
+    dtype = dtype or torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    model = mpi.models.TransformerLM(**LM, attn_impl="flash",
-                                     dtype=torch.bfloat16, device=dev,
-                                     generator=g)
+    model = mpi.models.TransformerLM(**LM, attn_impl="flash", dtype=dtype,
+                                     device=dev, generator=g)
     n_params = sum(p.numel() for p in model.parameters())
     tok = torch.randint(0, LM["vocab"], (BATCH, SEQ), generator=g,
                         device=dev)
     opt = torch.optim.SGD(model.parameters(), lr=LR)
     loss_fn = LOSSES[loss]
     step = mpi.nn.data_parallel_step(
-        model, opt, lambda m, t: loss_fn(torch, mpi, m, t))
+        model, opt, lambda m, t: loss_fn(torch, mpi, m, t, dtype))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for mod in ops.values():
@@ -713,7 +815,8 @@ def train_phase(torch, mpi, ops, dev, loss: str):
     # card (each wait drains the queue of work the host had run ahead on).
     syncs = count_host_syncs(torch, lambda: step(tok))
     emit({"phase": "train", "loss": loss,
-          "config": dict(LM, batch=BATCH, seq=SEQ, lr=LR, dtype="bfloat16"),
+          "config": dict(LM, batch=BATCH, seq=SEQ, lr=LR,
+                         dtype=str(dtype).split(".")[-1]),
           "params": n_params, "losses": losses, "step_ms": step_ms,
           "median_step_ms": med,
           "tokens_per_s": BATCH * SEQ / (med / 1e3),
@@ -729,11 +832,13 @@ def train_phase(torch, mpi, ops, dev, loss: str):
         check(launches[name] > 0, f"kernel {name} never launched on the "
               f"{loss} train path")
     if loss == "fused":
+        route = "tf32x3" if dtype == torch.float32 else "wgmma"
         for name, counts in routes.items():
-            check(counts == {"wgmma": launches[name], "wmma": 0},
-                  f"{name}: stage B' head launches off the wgmma route: "
+            check(counts == {r: launches[name] * (r == route)
+                             for r in ops["xent"].ROUTES},
+                  f"{name}: stage B' head launches off the {route} route: "
                   f"{counts} of {launches[name]}")
-    return model, tok, launches
+    return model, tok, launches, routes
 
 
 def _loss_and_grads(model, fn):
@@ -939,8 +1044,6 @@ def ring_default_small(torch, mpi, ring, dev, rows16):
 def check_direct(row) -> None:
     """A direct row's extra checks: its fold, its element path, and every
     launch on the main path's aligned rows on the 16-byte path."""
-    if row["design"] != "direct":
-        return
     check(row["fold_bitwise"], f"{row['name']}: kernel != its torch fold")
     check(row.get("element_path_bitwise", True),
           f"{row['name']}: element path != plain ring")
@@ -980,8 +1083,7 @@ def ring_rs_ag_kernel_phase(torch, ring, dev):
                   f"{picked}")
             kern = lambda: ring.WRAPPERS[name](x, *plan)  # noqa: E731
             plain = lambda: ring.PLAINS[name](x, *plan)  # noqa: E731
-            direct = name in ring.DIRECT
-            vec0 = ring.VECTOR_LAUNCHES.get(name, 0)
+            vec0 = ring.VECTOR_LAUNCHES[name]
             out, again = kern(), kern()
             torch.cuda.synchronize()
             repeat = torch.equal(out, again)
@@ -990,19 +1092,17 @@ def ring_rs_ag_kernel_phase(torch, ring, dev):
             bitwise = torch.equal(out, ref) and repeat
             err = max_err(out, ref)
             del ref
-            extra = {"design": "ring"}
-            if direct:
-                # The direct kernel: its own torch fold (copy for the
-                # all-gather) and its 16-byte path (the flats and shards
-                # are aligned as allocated).
-                fold = (ring.reduce_scatter_direct_plain if rs
-                        else ring.all_gather_direct_plain)
-                extra = {
-                    "design": "direct",
-                    "vector_launches": ring.VECTOR_LAUNCHES[name] - vec0,
-                    "launches_checked": 2,
-                    "fold_bitwise": torch.equal(out, fold(x)),
-                    "earlier_ms": RING_RECORDED_MS[name]}
+            # The direct kernel: its own torch fold (copy for the
+            # all-gather) and its 16-byte path (the flats and shards are
+            # aligned as allocated).
+            fold = (ring.reduce_scatter_direct_plain if rs
+                    else ring.all_gather_direct_plain)
+            extra = {
+                "design": "direct",
+                "vector_launches": ring.VECTOR_LAUNCHES[name] - vec0,
+                "launches_checked": 2,
+                "fold_bitwise": torch.equal(out, fold(x)),
+                "earlier_ms": RING_RECORDED_MS[name]}
             rows_equal = rs or all(torch.equal(out[r], out[0])
                                    for r in range(1, n))
             del out
@@ -1022,23 +1122,14 @@ def ring_rs_ag_kernel_phase(torch, ring, dev):
                 passes[str(dt).split(".")[-1]] = torch.equal(a, b)
             # Bounds.  The function reads every rank's input once and
             # writes every rank's output once: reduce-scatter n L in, n L/n
-            # out; all-gather n L in, n n L out (4-byte elements).  The
-            # schedule on one card moves more (ring_rs_ag.cu): per rank of
-            # S input bytes the reduce-scatter's staging 2 S, n - 1 steps of
-            # 5 S / n and the copy-out 2 S / n; the all-gather of an S-byte
-            # shard 2 S plus 4 S a step.  A direct row moves the function's
-            # bytes.
-            S = 4 * L
+            # out; all-gather n L in, n n L out (4-byte elements).  A
+            # direct row moves just these bytes (schedule_bytes).
             if rs:
                 fn_bytes = 4 * (n * L + L)
-                sched_bytes = (fn_bytes if direct else
-                               n * S * (2 + (5 * (n - 1) + 2) / n))
                 library = lambda: x.view(n, n, -1).sum(0)  # noqa: E731
                 library_call = "x.view(n, n, -1).sum(0)"
             else:
                 fn_bytes = 4 * (n * L + n * n * L)
-                sched_bytes = (fn_bytes if direct else
-                               n * S * (2 + 4 * (n - 1)))
                 library = lambda: x.unsqueeze(0).expand(  # noqa: E731
                     n, n, L).clone()
                 library_call = "shards expanded to every rank, copied"
@@ -1056,8 +1147,7 @@ def ring_rs_ag_kernel_phase(torch, ring, dev):
                 "bound_ms": fn_bytes / PEAK_HBM_BYTES * 1e3,
                 "bound_by": "bytes", "bytes": fn_bytes,
                 "achieved_tb_s": fn_bytes / ms / 1e9,
-                "schedule_bytes": sched_bytes,
-                "schedule_bound_ms": sched_bytes / PEAK_HBM_BYTES * 1e3,
+                "schedule_bytes": fn_bytes,
                 # The stock rank-major route: the rank-axis sum of the
                 # [rank, tile] view / a copy of the stack per rank.
                 "library_ms": time_ms(torch, library),
@@ -1187,7 +1277,7 @@ def ring_dp_phase(torch, mpi, ops, dev):
     row8 = "ring_allreduce_chunked"
     direct_vector = {nm: {"all": launches[nm],
                           "vector": ring.VECTOR_LAUNCHES[nm]}
-                     for nm in RING_CONFIGS if nm in ring.DIRECT}
+                     for nm in RING_CONFIGS}
     peak = torch.cuda.max_memory_allocated()
     losses = [float(v) for v in losses]
 
@@ -1434,11 +1524,10 @@ def zero_dp_phase(torch, mpi, ops, dev, ring_sync_ms):
         restore()
         mpi.set_config(chunk_bytes=ZERO_CONFIGS["chunked"])
     launches = {k: v - excluded[k] for k, v in counts().items()}
-    # Every launch of the direct rows in the phase, the checks' included,
-    # and those on the 16-byte path.
+    # Every launch of the four rows in the phase, the checks' included, and
+    # those on the 16-byte path.
     vector = {nm: {"all": ring.LAUNCHES[nm],
-                   "vector": ring.VECTOR_LAUNCHES[nm]}
-              for nm in ZERO_ROWS["chunked"]}
+                   "vector": ring.VECTOR_LAUNCHES[nm]} for nm in rows}
     peak = max(log.peak, torch.cuda.max_memory_allocated())
     losses = [float(v) for v in losses]
     main = [e for e in log if e["label"] != "check"]
@@ -1558,14 +1647,23 @@ def main() -> int:
     try:
         rows = kernel_phase(torch, flash, dev)
         rows += xent_kernel_phase(torch, xent, dev)
+        rows += xent_f32_phase(torch, xent, dev)
         rows += ring_kernel_phase(torch, mpi, ring, dev)
         rows += ring_rs_ag_kernel_phase(torch, ring, dev)
-        model, _, _ = train_phase(torch, mpi, ops, dev, "dense")
+        model, _, _, _ = train_phase(torch, mpi, ops, dev, "dense")
         del model
         torch.cuda.empty_cache()
         # The main path of slices 1 and 2: stage B', the fused LM-head loss.
-        model, tok, launches = train_phase(torch, mpi, ops, dev, "fused")
+        model, tok, launches, _ = train_phase(torch, mpi, ops, dev, "fused")
         consistency_phase(torch, mpi, model, tok, dev)
+        del model
+        torch.cuda.empty_cache()
+        # The main path of the float32 head (slice 11): stage B' at the
+        # model's default float32, the head on the tf32x3 route.
+        model, _, _, routes = train_phase(torch, mpi, ops, dev, "fused",
+                                          torch.float32)
+        launches.update({f"{n}[tf32x3]": c["tf32x3"]
+                         for n, c in routes.items()})
         del model
         torch.cuda.empty_cache()
         # The main path of slice 3: the DP step of RING_N ranks on the

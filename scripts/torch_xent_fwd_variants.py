@@ -98,6 +98,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from torchmpi_tpu_torch.ops import xent
 
+    wgmma = xent.ROUTES.index("wgmma")  # the launchers' route code
+
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -139,7 +141,7 @@ def main() -> int:
             def run():
                 rc = fn(x.data_ptr(), w.data_ptr(), lab.data_ptr(),
                         part.data_ptr(), loss.data_ptr(), lse.data_ptr(), N,
-                        E, V, nt, 1, torch.cuda.current_stream().cuda_stream)
+                        E, V, nt, wgmma, torch.cuda.current_stream().cuda_stream)
                 if rc:
                     raise RuntimeError(f"{name}: CUDA error {rc}")
 
@@ -153,7 +155,7 @@ def main() -> int:
 
         def dx_launch(make_g):
             xent._launch("xent_bwd_dx", dev, x, w, lab, lse, dl, gw, dx, N, E,
-                         V, make_g, 1)
+                         V, make_g, wgmma)
 
         out["g_ms"].append(time_ms(lambda: dx_launch(1), 10)
                            - time_ms(lambda: dx_launch(0), 10))

@@ -1,4 +1,4 @@
-"""The add order of the direct ring rows (rows 7-12 of the kernel table,
+"""The add order of the direct ring rows (rows 7-14 of the kernel table,
 ``ops/csrc/ring_direct.cu``) on the CPU.
 
 The CUDA kernels do not walk the ring: they load every rank's value of an
@@ -12,8 +12,9 @@ aligned lengths, plans and a row-padded (strided) input.  The second half
 of rows 7 and 12 runs the schedule in the other rotation, so its chunks
 fold ranks c, c - 1, ..., c - n + 1; row 12's halves pad apart, so each
 folds in ring chunks of its own length.  The wrappers' launch arguments
-(the chunk lengths of rows 7, 8, 11 and 12) are checked through a stand-in
-for the launch that folds as the kernel does.  Row 10, the
+(the chunk lengths of rows 7, 8, 11 and 12; rows 13 and 14 the same
+launcher and arguments as rows 9 and 10) are checked through a stand-in
+for the launch that folds or copies as the kernel does.  Row 10, the
 all-gather, adds nothing: its kernel stores each shard to every rank, and
 its torch form ``ring.all_gather_direct_plain`` (the shards expanded to
 [n, n, per]) is held bitwise to the ring's step-by-step all-gather on
@@ -261,3 +262,62 @@ def test_direct_gather_equals_the_ring(n, dtype, per):
             x.contiguous()))
         for r in range(n):
             assert torch.equal(got[r], x)
+
+
+def _scatter_gather_call(log):
+    """A stand-in for ``ring._call`` on the reduce-scatter and all-gather
+    rows: records the launcher and its size arguments, and folds (or
+    copies) as ring_direct.cu does with them."""
+    def call(lib, name, args, x):
+        assert lib == "ring_direct"
+        sym = ring._SIGNATURES[name][0]
+        if name.startswith("ring_reduce_scatter"):
+            xs, ldx, out, ldo, per, n, _ = args
+            assert ldo == out.stride(0)
+            out[:, :per] = ring.reduce_scatter_direct_plain(xs[:, :n * per])
+            sizes = (ldx, ldo, per, n)
+        else:
+            xs, ldx, out, per, n, _ = args
+            assert out.is_contiguous() and out.shape == (n, n, per)
+            out.copy_(ring.all_gather_direct_plain(xs[:, :per]))
+            sizes = (ldx, per, n)
+        assert xs is x and ldx == x.stride(0) and n == x.shape[0]
+        log.append((sym, sizes))
+    return call
+
+
+# Elements of one ring chunk (reduce-scatter) or one shard (all-gather):
+# odd, so neither a TILE nor a 16-byte multiple.
+SCATTER_GATHER_PER = 20_001
+
+
+@pytest.mark.parametrize("pad", [0, 3])
+@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("verb", ["reduce_scatter", "all_gather"])
+def test_scatter_gather_launch_arguments(monkeypatch, verb, n, pad):
+    """Rows 9 and 13 (10 and 14) on a CUDA tensor, the launch standing in
+    as the kernel's fold (copy): the chunked and the resident row call the
+    same launcher with the same arguments, and each gives the plain ring's
+    result bitwise, on contiguous and on row-padded inputs."""
+    log = []
+    monkeypatch.setattr(ring, "_call", _scatter_gather_call(log))
+    dt = torch.float32
+    per = SCATTER_GATHER_PER
+    rs = verb == "reduce_scatter"
+    x = _stack(n, n * per if rs else per, dt, seed=n * 13 + pad, pad=pad)
+    schedule = (ring.schedule_reduce_scatter if rs
+                else ring.schedule_all_gather)
+    for name, cb in ((f"ring_{verb}_chunked", 4096), (f"ring_{verb}",
+                                                       4 << 20)):
+        picked, plan = schedule(x.shape[1], n, dt, chunk_bytes=cb)
+        assert picked == name and bool(plan) == name.endswith("_chunked")
+        got = ring._run_rs(name, x, plan, plain=False) if rs else \
+            ring._run_ag(name, x, plan, plain=False)
+        assert torch.equal(got, ring.PLAINS[name](x.contiguous(), *plan))
+        fold = (ring.reduce_scatter_direct_plain if rs
+                else ring.all_gather_direct_plain)
+        assert torch.equal(got, fold(x))
+    assert len(log) == 2 and log[0] == log[1], log
+    sym = ("tm_ring_reduce_scatter_direct" if rs
+           else "tm_ring_all_gather_direct")
+    assert log[0][0] == sym

@@ -11,11 +11,13 @@ on its own:
 n ranks' buffers sit on the one card, rank-major; one launch runs the whole
 ring.  The reduce-scatter adds in the schedule's order, as the plain
 version does, and the all-gather only copies, so every comparison is
-bitwise, for float32, bfloat16 and int32.  Rows 9 and 10
-(``ring_reduce_scatter_chunked``, ``ring_all_gather_chunked``) walk no
-ring: their kernel (ring_direct.cu) folds every rank's value of an element
-in the ring's order, or stores each shard to every rank, on a 16-byte path
-where the rows are aligned and element by element otherwise.  The CPU
+bitwise, for float32, bfloat16 and int32.  No row walks the ring: the
+kernel (ring_direct.cu) folds every rank's value of an element in the
+ring's order, or stores each shard to every rank, on a 16-byte path where
+the rows are aligned and element by element otherwise.  The resident rows
+13 and 14 (``ring_reduce_scatter``, ``ring_all_gather``) make the launch
+of the chunked rows 9 and 10, whose plans only pad the chunks, so they
+take any number of ranks.  The CPU
 parity of the plain versions with the JAX package is
 tests/test_torch_ring_rs_ag.py.
 """
@@ -108,32 +110,35 @@ def test_kernel_bitwise_equals_plain(cuda, name, per, chunk_bytes, n):
             assert torch.equal(got, x.expand(n, n, per))
 
 
-# Row 9 is a direct reduction (ring_direct.cu): (elements of one ring
-# chunk, row padding in elements or "align" for 16 bytes).  An odd chunk
+# Rows 9 and 13 are direct reductions (ring_direct.cu): (elements of one
+# ring chunk, row padding in elements or "align" for 16 bytes).  An odd chunk
 # takes the element path, as do rows padded by one element; aligned rows
 # take the 16-byte path.  11 ranks take two rounds of loads in flight
 # (8, then 3).  (A chunked plan needs a chunk longer than one 1024-element
 # subchunk, so the least one here is 1025.)
 DIRECT_CASES = [(1025, 0), (3000, 0), (3000, 1), (3000, "align"),
                 (250_000, 0)]
+# The chunk_bytes that map every case onto the chunked or the resident row.
+ROW_CHUNK_BYTES = {"chunked": 4096, "resident": 4 << 20}
 
 
+@pytest.mark.parametrize("row", list(ROW_CHUNK_BYTES))
 @pytest.mark.parametrize("n", [2, 3, 4, 8, 11])
 @pytest.mark.parametrize("per,pad", DIRECT_CASES, ids=lambda v: str(v))
-def test_direct_reduce_scatter_paths(cuda, n, per, pad):
-    name = "ring_reduce_scatter_chunked"
+def test_direct_reduce_scatter_paths(cuda, n, per, pad, row):
+    name = "ring_reduce_scatter" + ("_chunked" if row == "chunked" else "")
     for i, dtype in enumerate(DTYPES):
         v = 16 // dtype.itemsize
         L = n * per
         width = -(-L // v) * v + v if pad == "align" else L + pad
         x = _stack(cuda, (n, width), dtype, seed=n * 10 + i)[:, :L]
-        plan = _plan(name, n, per, dtype, 4096)
+        plan = _plan(name, n, per, dtype, ROW_CHUNK_BYTES[row])
         vector = ((x.stride(0) * dtype.itemsize) % 16 == 0
                   and (per * dtype.itemsize) % 16 == 0)
         before = dict(ring.LAUNCHES), dict(ring.VECTOR_LAUNCHES)
-        got = ring.reduce_scatter_chunked(x, *plan)
-        again = ring.reduce_scatter_chunked(x, *plan)
-        want = ring.reduce_scatter_chunked_plain(x, *plan)
+        got = ring.WRAPPERS[name](x, *plan)
+        again = ring.WRAPPERS[name](x, *plan)
+        want = ring.PLAINS[name](x, *plan)
         torch.cuda.synchronize()
         assert ring.LAUNCHES[name] == before[0][name] + 2
         assert ring.VECTOR_LAUNCHES[name] == before[1][name] + 2 * vector
@@ -143,28 +148,30 @@ def test_direct_reduce_scatter_paths(cuda, n, per, pad):
         assert torch.equal(got, ring.reduce_scatter_direct_plain(x))
     # An empty rank launches nothing.
     before = ring.LAUNCHES[name]
-    got = ring.reduce_scatter_chunked(torch.ones(n, 0, device=cuda), 1024, 2)
+    got = ring.WRAPPERS[name](torch.ones(n, 0, device=cuda),
+                              *((1024, 2) if row == "chunked" else ()))
     assert got.shape == (n, 0) and ring.LAUNCHES[name] == before
 
 
+@pytest.mark.parametrize("row", list(ROW_CHUNK_BYTES))
 @pytest.mark.parametrize("n", [2, 3, 4, 8, 11])
 @pytest.mark.parametrize("per,pad", DIRECT_CASES, ids=lambda v: str(v))
-def test_direct_all_gather_paths(cuda, n, per, pad):
-    """Row 10 (ring_direct.cu's gather): an odd shard, or shards one
-    element apart, take the element path; aligned shards of aligned length
-    the 16-byte path."""
-    name = "ring_all_gather_chunked"
+def test_direct_all_gather_paths(cuda, n, per, pad, row):
+    """Rows 10 and 14 (ring_direct.cu's gather): an odd shard, or shards
+    one element apart, take the element path; aligned shards of aligned
+    length the 16-byte path."""
+    name = "ring_all_gather" + ("_chunked" if row == "chunked" else "")
     for i, dtype in enumerate(DTYPES):
         v = 16 // dtype.itemsize
         width = -(-per // v) * v + v if pad == "align" else per + pad
         x = _stack(cuda, (n, width), dtype, seed=n * 20 + i)[:, :per]
-        plan = _plan(name, n, per, dtype, 4096)
+        plan = _plan(name, n, per, dtype, ROW_CHUNK_BYTES[row])
         vector = ((x.stride(0) * dtype.itemsize) % 16 == 0
                   and (per * dtype.itemsize) % 16 == 0)
         before = dict(ring.LAUNCHES), dict(ring.VECTOR_LAUNCHES)
-        got = ring.all_gather_chunked(x, *plan)
-        again = ring.all_gather_chunked(x, *plan)
-        want = ring.all_gather_chunked_plain(x, *plan)
+        got = ring.WRAPPERS[name](x, *plan)
+        again = ring.WRAPPERS[name](x, *plan)
+        want = ring.PLAINS[name](x, *plan)
         torch.cuda.synchronize()
         assert ring.LAUNCHES[name] == before[0][name] + 2
         assert ring.VECTOR_LAUNCHES[name] == before[1][name] + 2 * vector
@@ -174,7 +181,8 @@ def test_direct_all_gather_paths(cuda, n, per, pad):
         assert torch.equal(got, ring.all_gather_direct_plain(x))
     # An empty shard launches nothing.
     before = ring.LAUNCHES[name]
-    got = ring.all_gather_chunked(torch.ones(n, 0, device=cuda), 1024, 2)
+    got = ring.WRAPPERS[name](torch.ones(n, 0, device=cuda),
+                              *((1024, 2) if row == "chunked" else ()))
     assert got.shape == (n, n, 0) and ring.LAUNCHES[name] == before
 
 
@@ -228,9 +236,15 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         ring.all_gather_chunked(torch.ones(4, 5000, device=cuda), 1024, 2)
     with pytest.raises(ValueError, match="does not fit"):
         ring.reduce_scatter_chunked(torch.ones(4, 4000, device=cuda), 1024, 1)
-    # More ranks than the card can keep resident together (a block each):
-    # refused, never shrunk or serialized.
+    # More ranks than the card keeps resident at once: rows 13 and 14 walk
+    # no ring, so they compute as any other ring does.
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     n = 4 * sms + 1
-    with pytest.raises(RuntimeError, match="launch"):
-        ring.all_gather_resident(torch.ones(n, 1, device=cuda))
+    # (Their step-by-step plain versions would take n^2 small launches;
+    # the copy and the int32 sum, which wraps in any order, stand in.)
+    shards = _stack(cuda, (n, 3), torch.float32, seed=n)
+    assert torch.equal(ring.all_gather_resident(shards),
+                       shards.expand(n, n, 3))
+    flat = _stack(cuda, (n, 2 * n), torch.int32, seed=n + 1)
+    assert torch.equal(ring.reduce_scatter_resident(flat),
+                       flat.view(n, n, 2).sum(0, dtype=torch.int32))

@@ -278,7 +278,7 @@ def test_cpu_wrappers_take_the_plain_versions():
 def _fake_launch(calls):
     """A stand-in for ``xent._launch`` that records each launch and does
     the kernel's work in torch (on the chunk it was handed, with the C
-    entry points' make_g / first / last semantics; the route flag, last,
+    entry points' make_g / first / last semantics; the route code, last,
     is recorded)."""
 
     def launch(name, dev, *a):
@@ -288,7 +288,7 @@ def _fake_launch(calls):
             calls.append((name, a[-2:-1] if name == "xent_bwd_dx" else a[-1:],
                           a[-1]))
         if name == "xent_fwd":
-            x, w, lab, part, loss, lse, N, E, V, splits, wgmma = a
+            x, w, lab, part, loss, lse, N, E, V, splits, route = a
             l_, s_ = xent.xent_fwd_plain(x, w, lab)
             loss.copy_(l_)
             lse.copy_(s_)
@@ -338,7 +338,7 @@ def test_chunked_backward_schedule(monkeypatch, chunk):
     # Every chunk of the call takes one route, and the call counts once on
     # it for each backward kernel (the forward's count does not move).
     assert len({c[2] for c in calls}) == 1
-    route = "wgmma" if calls[0][2] else "wmma"
+    route = xent.ROUTES[calls[0][2]]
     for n, counts in xent.ROUTE_LAUNCHES.items():
         assert {r: counts[r] - routes_before[n][r] for r in counts} == {
             r: int(r == route and n != "xent_fwd") for r in xent.ROUTES}

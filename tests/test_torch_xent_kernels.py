@@ -10,9 +10,11 @@ on its own:
 
 The CPU parity of the plain versions with the JAX package is
 tests/test_torch_xent.py.  Tolerances: loss and lse within 1e-4 of the
-largest |reference| (float32 sums in another order); dx and dW, which come
-out in bf16, within 2^-7 of the largest |reference| (one bf16 rounding of
-the largest element).
+largest |reference| (float32 sums in another order); on bfloat16 operands
+dx and dW, which come out in bf16, within 2^-7 of the largest |reference|
+(one bf16 rounding of the largest element); on float32 operands (the
+``tf32x3`` route) dx and dW within 1e-4 of the largest |reference| as
+well: g is not rounded, and the three-product form keeps f32's accuracy.
 """
 
 import pytest
@@ -24,8 +26,12 @@ torch.set_num_threads(2)
 
 pytestmark = pytest.mark.gpu
 
+# The launchers' route code of the wgmma route.
+WGMMA = xent.ROUTES.index("wgmma")
+
 STAT_RTOL = 1e-4
 GRAD_RTOL = 2.0 ** -7
+F32_GRAD_RTOL = 1e-4
 
 
 @pytest.fixture
@@ -42,22 +48,24 @@ def _close(got, want, rtol, what):
     assert err <= tol, f"{what}: max abs err {err} > {tol}"
 
 
-def _inputs(dev, N, E, V, seed, x_scale=1.0):
+def _inputs(dev, N, E, V, seed, x_scale=1.0, dtype=torch.bfloat16):
     g = torch.Generator(device=dev).manual_seed(seed)
-    x = (torch.randn(N, E, generator=g, device=dev) * x_scale).bfloat16()
-    w = (torch.randn(E, V, generator=g, device=dev) / E ** 0.5).bfloat16()
+    x = (torch.randn(N, E, generator=g, device=dev) * x_scale).to(dtype)
+    w = (torch.randn(E, V, generator=g, device=dev) / E ** 0.5).to(dtype)
     labels = torch.randint(0, V, (N,), generator=g, device=dev)
     dl = torch.randn(N, generator=g, device=dev)
     return x, w, labels, dl
 
 
-def _offset(x):
-    """x's copy 8 bytes off a 16-byte boundary: TMA cannot read it, so
-    every kernel takes the wmma route."""
-    buf = torch.empty(x.numel() + 4, dtype=x.dtype, device=x.device)
-    xo = buf[4:].view(x.shape)
+def _offset(x, nbytes=8):
+    """x's copy ``nbytes`` off a 16-byte boundary: TMA cannot read it, so
+    every bf16 kernel takes the wmma route, and no loader reads it by
+    16-byte vectors."""
+    k = nbytes // x.element_size()
+    buf = torch.empty(x.numel() + k, dtype=x.dtype, device=x.device)
+    xo = buf[k:].view(x.shape)
     xo.copy_(x)
-    assert xo.data_ptr() % 16 == 8
+    assert xo.data_ptr() % 16 == nbytes
     return xo
 
 
@@ -164,7 +172,8 @@ def test_forward_wgmma_route_matches_plain(cuda, N, E, V):
     loss2, lse2 = xent.xent_fwd(x, w, labels)
     torch.cuda.synchronize()
     assert xent.ROUTE_LAUNCHES["xent_fwd"] == {
-        "wgmma": before["wgmma"] + 2, "wmma": before["wmma"]}
+        "wgmma": before["wgmma"] + 2, "wmma": before["wmma"],
+        "tf32x3": before["tf32x3"]}
     ref_loss, ref_lse = xent.xent_fwd_plain(x, w, labels)
     _close(loss, ref_loss, STAT_RTOL, "loss")
     _close(lse, ref_lse, STAT_RTOL, "lse")
@@ -193,11 +202,11 @@ def test_offset_base_takes_the_wmma_route(cuda):
     g = torch.empty(N, V, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(RuntimeError):
         xent._launch("xent_bwd_dx", cuda, xo, w, lab32, lse, dl, g,
-                     torch.empty_like(x), N, E, V, 1, 1)
+                     torch.empty_like(x), N, E, V, 1, WGMMA)
     part = torch.empty(3, -(-V // 256), N, device=cuda)
     with pytest.raises(RuntimeError):
         xent._launch("xent_fwd", cuda, xo, w, lab32, part, torch.empty_like(
-            lse), torch.empty_like(lse), N, E, V, part.shape[1], 1)
+            lse), torch.empty_like(lse), N, E, V, part.shape[1], WGMMA)
 
 
 def test_two_calls_are_bitwise_equal(cuda):
@@ -249,8 +258,8 @@ def test_autograd_matches_dense_loss(cuda):
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     x, w, labels, dl = _inputs(cuda, 16, 32, 64, seed=6)
-    with pytest.raises(TypeError):  # float32 operands: no fallback
-        xent.xent_fwd(x.float(), w.float(), labels)
+    with pytest.raises(TypeError):  # mixed operands: nothing is cast
+        xent.xent_fwd(x.float(), w, labels)
     with pytest.raises(TypeError):
         xent.xent_fwd(x, w.half(), labels)
     with pytest.raises(ValueError):  # non-contiguous w
@@ -260,5 +269,106 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):  # tensors on two devices
         xent.xent_fwd(x, w, labels.cpu())
     _, lse = xent.xent_fwd(x, w, labels)
-    with pytest.raises(TypeError):
-        xent.xent_bwd_dw(x.float(), w.float(), labels, lse, dl)
+    with pytest.raises(TypeError):  # float16 operands: no kernel takes them
+        xent.xent_bwd_dw(x.half(), w.half(), labels, lse, dl)
+    # A route code outside xent.ROUTES: refused, nothing falls back.
+    part = torch.empty(3, 1, 16, device=cuda)
+    with pytest.raises(RuntimeError):
+        xent._launch("xent_fwd", cuda, x, w, labels.to(torch.int32), part,
+                     torch.empty_like(lse), torch.empty_like(lse), 16, 32,
+                     64, 1, len(xent.ROUTES))
+
+
+# The tf32x3 route (float32 x and w, any shape): the JAX test's shape
+# (tests/test_xent.py), a ragged one, E and V not multiples of 4 (no row
+# of x or w starts on a 16-byte boundary: the loaders' element path), a
+# wgmma shape of the bf16 cases, and the flagship's head.
+F32_CASES = [(64, 8, 16), (129, 64, 200), (129, 63, 201),
+             (1000, 2048, 4104), (8188, 2048, 32768)]
+
+
+@pytest.mark.parametrize("N,E,V", F32_CASES, ids=lambda v: str(v))
+def test_float32_kernels_match_plain(cuda, N, E, V):
+    """The three kernels on float32 operands: within 1e-4 of the largest
+    |reference| of the plain float32 versions, dx and dW in float32, two
+    calls bitwise, every launch on the tf32x3 route."""
+    x, w, labels, dl = _inputs(cuda, N, E, V, seed=N + 7 * V,
+                               dtype=torch.float32)
+    edges = [V - 1, 0, min(127, V - 1), min(128, V - 1), V, -1]
+    labels[:len(edges)] = torch.tensor(edges, device=cuda)
+    before = {n: dict(c) for n, c in xent.ROUTE_LAUNCHES.items()}
+    first = _run_all(x, w, labels, dl)
+    second = _run_all(x, w, labels, dl)
+    torch.cuda.synchronize()
+    for name, counts in xent.ROUTE_LAUNCHES.items():
+        n = 2 if name == "xent_fwd" else 4
+        assert {r: counts[r] - before[name][r] for r in counts} == {
+            r: n * int(r == "tf32x3") for r in xent.ROUTES}, name
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    loss, lse, dx, dw, dx2, dw2 = first
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    assert dx.dtype == dw.dtype == torch.float32
+    ref_loss, ref_lse = xent.xent_fwd_plain(x, w, labels)
+    _close(loss, ref_loss, STAT_RTOL, "loss")
+    _close(lse, ref_lse, STAT_RTOL, "lse")
+    _close(dx, xent.xent_bwd_dx_plain(x, w, labels, lse, dl), F32_GRAD_RTOL,
+           "dx")
+    _close(dw, xent.xent_bwd_dw_plain(x, w, labels, lse, dl), F32_GRAD_RTOL,
+           "dW")
+
+
+@pytest.mark.parametrize("N,E,V", F32_CASES, ids=lambda v: str(v))
+def test_float32_autograd_matches_dense_loss(cuda, N, E, V):
+    """fused_linear_cross_entropy on float32 x and w, and its gradients,
+    against the dense float32 loss (x @ w, then cross_entropy) on the same
+    inputs, every launch on the tf32x3 route."""
+    x, w, labels, _ = _inputs(cuda, N, E, V, seed=N + 5 * V,
+                              dtype=torch.float32)
+    wgt = torch.rand(N, device=cuda)
+    before = {n: dict(c) for n, c in xent.ROUTE_LAUNCHES.items()}
+    grads = []
+    for fused in (True, False):
+        xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+        if fused:
+            loss = xent.fused_linear_cross_entropy(xs, ws, labels)
+        else:
+            loss = torch.nn.functional.cross_entropy(xs @ ws, labels,
+                                                     reduction="none")
+        (loss * wgt).sum().backward()
+        grads.append((loss.detach(), xs.grad, ws.grad))
+    torch.cuda.synchronize()
+    for name, counts in xent.ROUTE_LAUNCHES.items():
+        assert {r: counts[r] - before[name][r] for r in counts} == {
+            r: int(r == "tf32x3") for r in xent.ROUTES}, name
+    for a, b, what in zip(*grads, ("loss", "dx", "dW")):
+        assert a.dtype == torch.float32
+        _close(a, b, STAT_RTOL if what == "loss" else F32_GRAD_RTOL, what)
+
+
+@pytest.mark.parametrize("which", ["x", "w"])
+def test_float32_offset_base_takes_the_element_path(cuda, which):
+    """float32 x or w 4 bytes off a 16-byte boundary (a slice of a larger
+    buffer), E and V multiples of 4: the tf32x3 kernels read that operand
+    element by element and agree with the plain versions within 1e-4,
+    every launch on tf32x3."""
+    N, E, V = 300, 64, 1000
+    x, w, labels, dl = _inputs(cuda, N, E, V, seed=11, dtype=torch.float32)
+    if which == "x":
+        x = _offset(x, 4)
+    else:
+        w = _offset(w, 4)
+    before = {n: dict(c) for n, c in xent.ROUTE_LAUNCHES.items()}
+    loss, lse = xent.xent_fwd(x, w, labels)
+    dx, dw = xent.xent_bwd(x, w, labels, lse, dl)
+    torch.cuda.synchronize()
+    for name, counts in xent.ROUTE_LAUNCHES.items():
+        assert {r: counts[r] - before[name][r] for r in counts} == {
+            r: int(r == "tf32x3") for r in xent.ROUTES}, name
+    ref_loss, ref_lse = xent.xent_fwd_plain(x, w, labels)
+    _close(loss, ref_loss, STAT_RTOL, "loss")
+    _close(lse, ref_lse, STAT_RTOL, "lse")
+    _close(dx, xent.xent_bwd_dx_plain(x, w, labels, lse, dl), F32_GRAD_RTOL,
+           "dx")
+    _close(dw, xent.xent_bwd_dw_plain(x, w, labels, lse, dl), F32_GRAD_RTOL,
+           "dW")

@@ -25,8 +25,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-           "xent_fwd", "xent_bwd_dx", "xent_bwd_dw", "ring_rs_ag",
-           "ring_direct")
+           "xent_fwd", "xent_bwd_dx", "xent_bwd_dw", "ring_direct")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,11 +1,11 @@
 // ring_direct: the ring allreduces (chunked and resident, one direction
-// and both), the chunked reduce-scatter and the chunked all-gather as
-// direct reductions and copies, in the ring's add order, over n ranks whose
-// buffers are device pointers; float32, bfloat16 and int32.
+// and both), the reduce-scatters and the all-gathers (chunked and
+// resident) as direct reductions and copies, in the ring's add order, over
+// n ranks whose buffers are device pointers; float32, bfloat16 and int32.
 //
-// Replaces six TPU kernels of torchmpi_tpu/ops/ring.py, one C launcher
-// for each kind (an allreduce's launcher serves its chunked and its
-// resident kernel, which differ only in the ring chunk's length):
+// Replaces the eight ring kernels of torchmpi_tpu/ops/ring.py, one C
+// launcher for each kind (a launcher serves a chunked and a resident
+// kernel, which differ only in the ring chunk's length):
 //   tm_ring_allreduce_bidir_direct _ring_allreduce_bidir_chunked_kernel :534
 //                                  (pallas_call :642), row 7, and
 //                                  _ring_allreduce_bidir_kernel :203
@@ -15,9 +15,15 @@
 //                                  _ring_allreduce_kernel :265
 //                                  (pallas_call :831), row 11;
 //   tm_ring_reduce_scatter_direct  _ring_reduce_scatter_chunked_kernel :707
-//                                  (pallas_call :772), row 9;
+//                                  (pallas_call :772), row 9, and
+//                                  _ring_reduce_scatter_kernel :310
+//                                  (pallas_call :1045), row 13;
 //   tm_ring_all_gather_direct      _ring_all_gather_chunked_kernel :733
-//                                  (pallas_call :806), row 10.
+//                                  (pallas_call :806), row 10, and
+//                                  _ring_all_gather_kernel :342
+//                                  (pallas_call :1097), row 14.
+// The reduce-scatter's and the all-gather's plans only pad the ring chunks,
+// and zeros add nothing, so rows 13 and 14 make rows 9's and 10's launch.
 //
 // The TPU kernels move a ring chunk hop by hop with remote DMAs.  On one
 // card (and across the cards of an NVSwitch node, where every GPU reaches
@@ -39,8 +45,8 @@
 //   reduce-scatter, chunk c = [c per, (c + 1) per): x_{c+1}, ..., x_{c+n-1},
 //   x_c, written to rank c only.
 // Each add is Elem<T>'s (ring_common.cuh: float32, bfloat16 rounded after
-// every add, int32 wrapping), so the result is bitwise the ring kernels',
-// the plain versions' and the JAX kernels'.  The padding the TPU layout adds
+// every add, int32 wrapping), so the result is bitwise the ring
+// schedule's (the plain versions') and the JAX kernels'.  The padding the TPU layout adds
 // is never read or written: zeros would only be added to zeros.  The
 // all-gather adds nothing: chunk s is rank s's shard, loaded once and stored
 // to slice s of every rank's output (_ag_plain's result), so it is bitwise
@@ -68,10 +74,10 @@
 // output element written once, which is the function's own traffic:
 // 2 n L itemsize for the allreduce of n ranks' L elements, (n + 1) n per
 // itemsize for the reduce-scatter, (n + n^2) per itemsize for the
-// all-gather of n shards of per.  The ring schedule on one card moves 2.8
-// to 5 times as much (ring_rs_ag.cu, and the ring-walking allreduce
-// kernels these replaced; at n = 4 the allreduce's schedule moved
-// n S (2 + 9 (n - 1) / n) for S padded bytes a rank, 4.4 times).  A version
+// all-gather of n shards of per.  The ring schedule on one card moved 2.8
+// to 5 times as much (the ring-walking kernels these replaced; at n = 4
+// the allreduce's schedule moved n S (2 + 9 (n - 1) / n) for S padded
+// bytes a rank, 4.4 times).  A version
 // whose 16-byte loads were TMA bulk copies into shared-memory stages on
 // mbarriers gained a few percent at the kernel, under 1% of the gradient
 // sync, for three times the code, so this one stays.
@@ -362,7 +368,7 @@ extern "C" int tm_ring_allreduce_bidir_direct(int dtype, const void* x,
                 vec, stream);
 }
 
-// Row 9: x [n, n per] (row stride ldx) -> out [n, per] (row stride
+// Rows 9 and 13: x [n, n per] (row stride ldx) -> out [n, per] (row stride
 // ldo >= per), row c the sum of every rank's chunk c.  The flagship's ZeRO
 // flats ([n, 486,731,776] f32, per 121,682,944) are 16-byte aligned as
 // allocated, so they take the 16-byte path.
@@ -375,8 +381,8 @@ extern "C" int tm_ring_reduce_scatter_direct(int dtype, const void* x,
                 Args{x, out, ldx, ldo, n * per, per, per, 0, n}, vec, stream);
 }
 
-// Row 10: shards x [n, per] (row stride ldx) -> out [n, n, per], contiguous,
-// every rank's slice the stack of the shards.  The flagship's ZeRO shards
+// Rows 10 and 14: shards x [n, per] (row stride ldx) -> out [n, n, per],
+// contiguous, every rank's slice the stack of the shards.  The flagship's ZeRO shards
 // (121,682,944 f32) and their output are 16-byte aligned as allocated, so
 // they take the 16-byte path.
 extern "C" int tm_ring_all_gather_direct(int dtype, const void* x,

@@ -1,6 +1,7 @@
 // xent_bwd_dw: the weight gradient of the fused linear + cross-entropy,
-// dW += x^T . g, for one chunk of token rows; bf16 operands, f32
-// accumulation across chunks, dW in bf16 after the last chunk.
+// dW += x^T . g, for one chunk of token rows; bf16 or float32 operands, f32
+// accumulation across chunks, dW in the operands' dtype after the last
+// chunk.
 //
 // Replaces the TPU kernel _xent_bwd_dw_kernel (torchmpi_tpu/ops/xent.py:114,
 // launched by pallas_call in _xent_vjp's backward, :330).
@@ -8,15 +9,16 @@
 // What bounds it: recomputing z = x . W and the product x^T . g, 4 rows E V
 // flops per chunk against the bf16 operands, so operations (at 2048 rows,
 // E 2048, V 32768: 0.55 TFLOP against 144 MB of operands and 512 MB of f32
-// accumulator traffic a middle chunk).
+// accumulator traffic a middle chunk; on float32 operands the three-product
+// form issues 3 x the flops in TF32).
 //
 // Design: the TPU kernel carries an [E, block_v] f32 accumulator across the
 // token blocks (4 MiB at 2048 x 512): far more than an SM holds.  Here the
 // token axis is cut into chunks by the wrapper (ops/xent.py), and the f32
 // accumulator is the TPU's own f32 out_shape (:332), a [E, V] buffer in
 // device memory.  Per chunk this library runs, in stream order:
-//   (a) when make_g, g for the chunk, rounded to bf16 (x's dtype, as at
-//       :140) into the [rows, V] workspace;
+//   (a) when make_g, g for the chunk in x's dtype (as at :140: rounded for
+//       bf16) into the [rows, V] workspace;
 //   (b) one block per tile of dW forms x^T . g over the chunk's rows on the
 //       tensor cores and adds it to the accumulator: the first chunk writes
 //       it, later chunks add to it, and the last chunk writes bf16(sum) to
@@ -24,8 +26,8 @@
 // The chunks run in order on one stream and every element is summed by one
 // block, so the result is deterministic: no atomics.
 //
-// Two routes, chosen by the caller (ops/xent.py _route) from the shapes and
-// addresses, never by a failed launch:
+// Three routes, chosen by the caller (ops/xent.py _route) from the dtype,
+// the shapes and the addresses, never by a failed launch:
 //   wgmma (E and V multiples of 8, 16-byte aligned bases): (a) is
 //     tmw::launch_grad and (b) dw_wgmma, the warp-specialised
 //     wgmma.mma_async product of xent_wgmma.cuh on TMA-loaded tiles; (b)
@@ -37,8 +39,11 @@
 //     the producer and 232 in the consumers (128 of them the accumulator
 //     fragment), no spills; 128 bytes of static and 197,632 of dynamic
 //     shared memory, so one block an SM.
-//   wmma (any other shape): (a) tmx::xent_grad_kernel and (b)
-//     xent_dw_kernel, on mma_tile (xent_common.cuh).
+//   wmma (any other bf16 shape): (a) tmx::xent_grad_kernel and (b)
+//     xent_dw_kernel, on mma_tile (xent_common.cuh);
+//   tf32x3 (float32 operands, any shape): the same two kernels on
+//     mma_tile<float>, TF32 fragments in the three-product form, g kept in
+//     float32.
 // A refused route (wgmma asked for operands it cannot read) returns an
 // error: nothing falls back.
 
@@ -52,23 +57,43 @@ using tmx::CP;
 using tmx::bf16;
 
 // Grid (ceil(E / BM), ceil(V / BN)).
+template <class T>
 __global__ void __launch_bounds__(tmx::NT)
-xent_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
-               float* __restrict__ acc, bf16* __restrict__ dw, int rows, int E,
+xent_dw_kernel(const T* __restrict__ x, const T* __restrict__ g,
+               float* __restrict__ acc, T* __restrict__ dw, int rows, int E,
                int V, bool first, bool last, bool vx, bool vg) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   // A[m = e, k = r] = x[r, e]: x is the col-major [rows, E] A operand.
-  tmx::mma_tile<true, false>(smem, x, E, g, V, E, V, rows, m0, n0, vx, vg);
+  tmx::mma_tile<T, true, false>(smem, x, E, g, V, E, V, rows, m0, n0, vx, vg);
   const float* cs = reinterpret_cast<const float*>(smem);
   for (int idx = threadIdx.x; idx < BM * BN; idx += tmx::NT) {
     const int r = idx / BN, c = idx % BN, e = m0 + r, v = n0 + c;
     if (e >= E || v >= V) continue;
     const long o = (long)e * V + v;
     const float s = first ? cs[r * CP + c] : acc[o] + cs[r * CP + c];
-    if (last) dw[o] = __float2bfloat16(s);
+    if (last) dw[o] = tmx::from_f32<T>(s);
     else acc[o] = s;
   }
+}
+
+// (a) when make_g, then (b), on mma_tile<T>: the wmma and tf32x3 routes.
+template <class T>
+cudaError_t dw_mma(const T* x, const T* w, const int* labels, const float* lse,
+                   const float* dl, T* g, float* acc, T* dw, int rows, int E,
+                   int V, bool make_g, bool first, bool last, cudaStream_t st) {
+  cudaError_t e;
+  if (make_g) {
+    e = tmx::launch_grad(x, w, labels, lse, dl, g, rows, E, V, st);
+    if (e != cudaSuccess) return e;
+  }
+  e = tmx::allow_smem(reinterpret_cast<const void*>(xent_dw_kernel<T>));
+  if (e != cudaSuccess) return e;
+  dim3 grid((E + BM - 1) / BM, (V + BN - 1) / BN);
+  xent_dw_kernel<T><<<grid, tmx::NT, tmx::SMEM_BYTES, st>>>(
+      x, g, acc, dw, rows, E, V, first, last, tmx::vec_ok(x, E),
+      tmx::vec_ok(g, V));
+  return cudaGetLastError();
 }
 
 // acc (+)= the wgmma accumulators, or dW = bf16(acc + them) on the last
@@ -131,39 +156,40 @@ cudaError_t dw_wgmma(const bf16* x, const bf16* g, float* acc, bf16* dw,
 
 // One chunk: x [rows, E], labels / lse / dl [rows] (pointers at the chunk's
 // first row), w [E, V], g [rows, V] workspace, acc [E, V] f32 (unused when
-// the chunk is both first and last), dw [E, V]; bf16 except labels (int32)
-// and lse / dl / acc (f32); contiguous, on the device.  make_g: form g first
-// (else read the workspace as it is).  wgmma: take the wgmma route (E and V
-// multiples of 8, x, w, g, acc and dw 16-byte aligned, else the launch is
-// refused), else the wmma route.  Returns the CUDA error code.
-extern "C" int tm_xent_bwd_dw(const bf16* x, const bf16* w, const int* labels,
-                              const float* lse, const float* dl, bf16* g,
-                              float* acc, bf16* dw, int rows, int E, int V,
-                              int make_g, int first, int last, int wgmma,
+// the chunk is both first and last), dw [E, V]; x, w, g and dw of the
+// route's dtype (tmx::Route: 0 wgmma and 1 wmma bfloat16, 2 tf32x3
+// float32), labels int32, lse / dl / acc f32; contiguous, on the device.
+// make_g: form g first (else read the workspace as it is).  The wgmma
+// route needs E and V multiples of 8 and x, w, g, acc and dw 16-byte
+// aligned, else the launch is refused.  Returns the CUDA error code.
+extern "C" int tm_xent_bwd_dw(const void* x, const void* w, const int* labels,
+                              const float* lse, const float* dl, void* g,
+                              float* acc, void* dw, int rows, int E, int V,
+                              int make_g, int first, int last, int route,
                               void* stream) {
-  if (rows <= 0 || E <= 0 || V <= 0) return (int)cudaErrorInvalidValue;
+  if (rows <= 0 || E <= 0 || V <= 0 || route < tmx::kWgmma ||
+      route > tmx::kTf32x3)
+    return (int)cudaErrorInvalidValue;
   if (!(first && last) && acc == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (wgmma) {
-    if (!(tmw::tma_ok(x, E) && tmw::tma_ok(w, V) && tmw::tma_ok(g, V) &&
-          tmw::tma_ok(acc, V) && tmw::tma_ok(dw, V)))
-      return (int)cudaErrorInvalidValue;
-    if (make_g) {
-      e = tmw::launch_grad(x, w, labels, lse, dl, g, rows, E, V, st);
-      if (e != cudaSuccess) return (int)e;
-    }
-    return (int)dw_wgmma(x, g, acc, dw, rows, E, V, first != 0, last != 0, st);
-  }
+  if (route == tmx::kTf32x3)
+    return (int)dw_mma(static_cast<const float*>(x), static_cast<const float*>(w),
+                       labels, lse, dl, static_cast<float*>(g), acc,
+                       static_cast<float*>(dw), rows, E, V, make_g != 0,
+                       first != 0, last != 0, st);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* wb = static_cast<const bf16*>(w);
+  bf16* gb = static_cast<bf16*>(g);
+  bf16* dwb = static_cast<bf16*>(dw);
+  if (route == tmx::kWmma)
+    return (int)dw_mma(xb, wb, labels, lse, dl, gb, acc, dwb, rows, E, V,
+                       make_g != 0, first != 0, last != 0, st);
+  if (!(tmw::tma_ok(x, E) && tmw::tma_ok(w, V) && tmw::tma_ok(g, V) &&
+        tmw::tma_ok(acc, V) && tmw::tma_ok(dw, V)))
+    return (int)cudaErrorInvalidValue;
   if (make_g) {
-    e = tmx::launch_grad(x, w, labels, lse, dl, g, rows, E, V, st);
+    const cudaError_t e = tmw::launch_grad(xb, wb, labels, lse, dl, gb, rows, E, V, st);
     if (e != cudaSuccess) return (int)e;
   }
-  e = tmx::allow_smem(reinterpret_cast<const void*>(xent_dw_kernel));
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((E + BM - 1) / BM, (V + BN - 1) / BN);
-  xent_dw_kernel<<<grid, tmx::NT, tmx::SMEM_BYTES, st>>>(
-      x, g, acc, dw, rows, E, V, first != 0, last != 0, tmx::vec_ok(x, E),
-      tmx::vec_ok(g, V));
-  return (int)cudaGetLastError();
+  return (int)dw_wgmma(xb, gb, acc, dwb, rows, E, V, first != 0, last != 0, st);
 }

@@ -1,31 +1,32 @@
 // xent_bwd_dx: the input gradient of the fused linear + cross-entropy,
-// dx = g . W^T, for one chunk of token rows; bf16 operands, f32
-// accumulation, dx in bf16.
+// dx = g . W^T, for one chunk of token rows; bf16 or float32 operands, f32
+// accumulation, dx in the operands' dtype.
 //
 // Replaces the TPU kernel _xent_bwd_dx_kernel (torchmpi_tpu/ops/xent.py:82,
 // launched by pallas_call in _xent_vjp's backward, :310).
 //
 // What bounds it: recomputing z = x . W and the product g . W^T, 4 rows E V
 // flops per chunk against the bf16 operands, so operations (at 2048 rows,
-// E 2048, V 32768: 0.55 TFLOP against 264 MB a chunk).
+// E 2048, V 32768: 0.55 TFLOP against 264 MB a chunk; on float32 operands
+// the three-product form issues 3 x that in TF32 against twice the bytes).
 //
 // Design: the TPU kernel carries a [block_n, E] f32 accumulator across the
 // vocab blocks (512 KB at 64 x 2048): more than an SM holds.  So the wrapper
 // (ops/xent.py) walks the tokens in chunks of up to 2048 rows, and per chunk
 // this library runs two kernels in stream order:
 //   (a) when make_g, g for the chunk: z = x . W on the tensor cores, then
-//       g = (exp(z - lse) - onehot) . dl rounded to bf16 into the [rows, V]
-//       workspace, W's dtype as at :106;
-//   (b) dx[chunk] = g . W^T, a bf16 tensor-core product with f32
-//       accumulators over the whole vocab inside the block, cast to x's
-//       dtype at the end (:111).
+//       g = (exp(z - lse) - onehot) . dl in W's dtype (as at :106: rounded
+//       for bf16) into the [rows, V] workspace;
+//   (b) dx[chunk] = g . W^T, a tensor-core product with f32 accumulators
+//       over the whole vocab inside the block, cast to x's dtype at the end
+//       (:111).
 // With make_g = 0, (b) reads the g that a previous launch left in the
 // workspace: the autograd backward forms g once per chunk and hands it to
 // both this kernel and xent_bwd_dw.  No atomics: every dx element is
 // summed by one block in one order.
 //
-// Two routes, chosen by the caller (ops/xent.py _route) from the shapes and
-// addresses, never by a failed launch:
+// Three routes, chosen by the caller (ops/xent.py _route) from the dtype,
+// the shapes and the addresses, never by a failed launch:
 //   wgmma (E and V multiples of 8, 16-byte aligned bases): (a) is
 //     tmw::launch_grad and (b) dx_wgmma, both the warp-specialised
 //     wgmma.mma_async product of xent_wgmma.cuh on TMA-loaded tiles; (b)
@@ -37,8 +38,11 @@
 //     the producer and 232 in the consumers (128 of them the accumulator
 //     fragment), no spills; 128 bytes of static and 197,632 of dynamic
 //     shared memory, so one block an SM.
-//   wmma (any other shape): (a) tmx::xent_grad_kernel and (b)
-//     xent_dx_kernel, on mma_tile (xent_common.cuh).
+//   wmma (any other bf16 shape): (a) tmx::xent_grad_kernel and (b)
+//     xent_dx_kernel, on mma_tile (xent_common.cuh);
+//   tf32x3 (float32 operands, any shape): the same two kernels on
+//     mma_tile<float>, TF32 fragments in the three-product form, g kept in
+//     float32.
 // A refused route (wgmma asked for operands it cannot read) returns an
 // error: nothing falls back.
 
@@ -52,18 +56,37 @@ using tmx::CP;
 using tmx::bf16;
 
 // Grid (ceil(rows / BM), ceil(E / BN)).
+template <class T>
 __global__ void __launch_bounds__(tmx::NT)
-xent_dx_kernel(const bf16* __restrict__ g, const bf16* __restrict__ w,
-               bf16* __restrict__ dx, int rows, int E, int V, bool vg, bool vw) {
+xent_dx_kernel(const T* __restrict__ g, const T* __restrict__ w,
+               T* __restrict__ dx, int rows, int E, int V, bool vg, bool vw) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   // B[k = v, n = e] = W[e, v]: W is the col-major [E, V] B operand.
-  tmx::mma_tile<false, true>(smem, g, V, w, V, rows, E, V, m0, n0, vg, vw);
+  tmx::mma_tile<T, false, true>(smem, g, V, w, V, rows, E, V, m0, n0, vg, vw);
   const float* cs = reinterpret_cast<const float*>(smem);
   for (int idx = threadIdx.x; idx < BM * BN; idx += tmx::NT) {
     const int r = idx / BN, c = idx % BN, row = m0 + r, col = n0 + c;
-    if (row < rows && col < E) dx[(long)row * E + col] = __float2bfloat16(cs[r * CP + c]);
+    if (row < rows && col < E) dx[(long)row * E + col] = tmx::from_f32<T>(cs[r * CP + c]);
   }
+}
+
+// (a) when make_g, then (b), on mma_tile<T>: the wmma and tf32x3 routes.
+template <class T>
+cudaError_t dx_mma(const T* x, const T* w, const int* labels, const float* lse,
+                   const float* dl, T* g, T* dx, int rows, int E, int V,
+                   bool make_g, cudaStream_t st) {
+  cudaError_t e;
+  if (make_g) {
+    e = tmx::launch_grad(x, w, labels, lse, dl, g, rows, E, V, st);
+    if (e != cudaSuccess) return e;
+  }
+  e = tmx::allow_smem(reinterpret_cast<const void*>(xent_dx_kernel<T>));
+  if (e != cudaSuccess) return e;
+  dim3 grid((rows + BM - 1) / BM, (E + BN - 1) / BN);
+  xent_dx_kernel<T><<<grid, tmx::NT, tmx::SMEM_BYTES, st>>>(
+      g, w, dx, rows, E, V, tmx::vec_ok(g, V), tmx::vec_ok(w, V));
+  return cudaGetLastError();
 }
 
 // dx = bf16(acc) on the wgmma accumulators.
@@ -99,36 +122,37 @@ cudaError_t dx_wgmma(const bf16* g, const bf16* w, bf16* dx, int rows, int E,
 }  // namespace
 
 // One chunk: x [rows, E], labels / lse / dl [rows], dx [rows, E] (pointers
-// at the chunk's first row), w [E, V], g [rows, V] workspace; bf16 except
-// labels (int32) and lse / dl (f32); contiguous, on the device.  make_g: form
-// g first (else read the workspace as it is).  wgmma: take the wgmma route
-// (E and V multiples of 8, x, w, g and dx 16-byte aligned, else the launch
-// is refused), else the wmma route.  Returns the CUDA error code.
-extern "C" int tm_xent_bwd_dx(const bf16* x, const bf16* w, const int* labels,
-                              const float* lse, const float* dl, bf16* g,
-                              bf16* dx, int rows, int E, int V, int make_g,
-                              int wgmma, void* stream) {
-  if (rows <= 0 || E <= 0 || V <= 0) return (int)cudaErrorInvalidValue;
+// at the chunk's first row), w [E, V], g [rows, V] workspace; x, w, g and
+// dx of the route's dtype (tmx::Route: 0 wgmma and 1 wmma bfloat16, 2
+// tf32x3 float32), labels int32, lse / dl f32; contiguous, on the device.
+// make_g: form g first (else read the workspace as it is).  The wgmma
+// route needs E and V multiples of 8 and x, w, g and dx 16-byte aligned,
+// else the launch is refused.  Returns the CUDA error code.
+extern "C" int tm_xent_bwd_dx(const void* x, const void* w, const int* labels,
+                              const float* lse, const float* dl, void* g,
+                              void* dx, int rows, int E, int V, int make_g,
+                              int route, void* stream) {
+  if (rows <= 0 || E <= 0 || V <= 0 || route < tmx::kWgmma ||
+      route > tmx::kTf32x3)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (wgmma) {
-    if (!(tmw::tma_ok(x, E) && tmw::tma_ok(w, V) && tmw::tma_ok(g, V) &&
-          tmw::tma_ok(dx, E)))
-      return (int)cudaErrorInvalidValue;
-    if (make_g) {
-      e = tmw::launch_grad(x, w, labels, lse, dl, g, rows, E, V, st);
-      if (e != cudaSuccess) return (int)e;
-    }
-    return (int)dx_wgmma(g, w, dx, rows, E, V, st);
-  }
+  if (route == tmx::kTf32x3)
+    return (int)dx_mma(static_cast<const float*>(x), static_cast<const float*>(w),
+                       labels, lse, dl, static_cast<float*>(g),
+                       static_cast<float*>(dx), rows, E, V, make_g != 0, st);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* wb = static_cast<const bf16*>(w);
+  bf16* gb = static_cast<bf16*>(g);
+  bf16* dxb = static_cast<bf16*>(dx);
+  if (route == tmx::kWmma)
+    return (int)dx_mma(xb, wb, labels, lse, dl, gb, dxb, rows, E, V,
+                       make_g != 0, st);
+  if (!(tmw::tma_ok(x, E) && tmw::tma_ok(w, V) && tmw::tma_ok(g, V) &&
+        tmw::tma_ok(dx, E)))
+    return (int)cudaErrorInvalidValue;
   if (make_g) {
-    e = tmx::launch_grad(x, w, labels, lse, dl, g, rows, E, V, st);
+    const cudaError_t e = tmw::launch_grad(xb, wb, labels, lse, dl, gb, rows, E, V, st);
     if (e != cudaSuccess) return (int)e;
   }
-  e = tmx::allow_smem(reinterpret_cast<const void*>(xent_dx_kernel));
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((rows + BM - 1) / BM, (E + BN - 1) / BN);
-  xent_dx_kernel<<<grid, tmx::NT, tmx::SMEM_BYTES, st>>>(
-      g, w, dx, rows, E, V, tmx::vec_ok(g, V), tmx::vec_ok(w, V));
-  return (int)cudaGetLastError();
+  return (int)dx_wgmma(gb, wb, dxb, rows, E, V, st);
 }

@@ -1,5 +1,5 @@
 // xent_fwd: per-token softmax cross-entropy of x . W without the logits in
-// device memory; bf16 operands, f32 loss and lse.
+// device memory; bf16 or float32 operands, f32 loss and lse.
 //
 // Replaces the TPU kernel _xent_fwd_kernel (torchmpi_tpu/ops/xent.py:35,
 // launched by pallas_call in _fused_xent_fwd, :231).
@@ -7,7 +7,9 @@
 // What bounds it: 2 N E V flops of the product against N E + E V bf16
 // operands (at N 8188, E 2048, V 32768: 1.1 TFLOP against 168 MB), so it is
 // bound by operations; the product runs on the tensor cores, and the
-// softmax statistics ride in its epilogue.
+// softmax statistics ride in its epilogue.  On float32 operands the
+// three-product form issues 3 x 2 N E V TF32 flops against twice the bytes,
+// still bound by operations.
 //
 // Design: the TPU walks the vocab blocks of one token block in order on one
 // core, carrying (m, l, t) in scratch.  Here blocks own tiles of z = x . W,
@@ -20,8 +22,8 @@
 // depend on block timing, and writes lse = m + log(max(l, 1e-37)) and loss
 // = lse - t (:73-78).
 //
-// Two routes, chosen by the caller (ops/xent.py _route) from the shapes and
-// addresses, never by a failed launch:
+// Three routes, chosen by the caller (ops/xent.py _route) from the dtype,
+// the shapes and the addresses, never by a failed launch:
 //   wgmma (E and V multiples of 8, x and W 16-byte aligned): one
 //     tmw::gemm_kernel per 128 x 256 tile of z (xent_wgmma.cuh: TMA-fed,
 //     warp-specialised wgmma.mma_async, A = x K-major, B = W MN-major, the
@@ -31,12 +33,14 @@
 //     row; one partial per row and 256-column tile, ceil(V / 256) of them.
 //     ptxas (the build line of chip_smoke.py, nvcc 12.9): 168 registers a
 //     thread at launch and no spills, as the g kernel's.
-//   wmma (any other shape): a block of tmx::NT threads owns BM = 128 token
-//     rows and one of `splits` contiguous runs of vocab tiles (BN = 128
-//     columns each), so that N / 128 x splits blocks fill the 132 SMs.  Per
-//     vocab tile it forms z on the tensor cores into shared memory
+//   wmma (any other bf16 shape): a block of tmx::NT threads owns BM = 128
+//     token rows and one of `splits` contiguous runs of vocab tiles (BN =
+//     128 columns each), so that N / 128 x splits blocks fill the 132 SMs.
+//     Per vocab tile it forms z on the tensor cores into shared memory
 //     (mma_tile, xent_common.cuh), then one warp per 16 rows folds the tile
 //     into the row's running (m, l, t).
+//   tf32x3 (float32 x and W, any shape): the wmma route's grid and fold on
+//     mma_tile<float>, TF32 fragments in the three-product form.
 // A refused route (wgmma asked for operands it cannot read) returns an
 // error: nothing falls back.
 
@@ -51,8 +55,9 @@ using tmx::NEG_INF;
 using tmx::bf16;
 
 // part: [3][splits][N] f32 = (m, l, t) of each split.
+template <class T>
 __global__ void __launch_bounds__(tmx::NT)
-xent_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+xent_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
                 const int* __restrict__ labels, float* __restrict__ part, int N,
                 int E, int V, int splits, bool vx, bool vw) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -76,7 +81,7 @@ xent_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 
   for (int j = j0; j < j1; ++j) {
     const int n0 = j * BN;
-    tmx::mma_tile<false, false>(smem, x, E, w, V, N, V, E, m0, n0, vx, vw);
+    tmx::mma_tile<T, false, false>(smem, x, E, w, V, N, V, E, m0, n0, vx, vw);
     for (int rr = 0; rr < BM / 8; ++rr) {  // warp `warp` owns 16 rows
       const int r = warp * (BM / 8) + rr;
       float z[BN / 32];
@@ -184,37 +189,51 @@ __global__ void xent_fwd_merge_kernel(const float* __restrict__ part,
   loss[row] = ls - t;
 }
 
+template <class T>
+cudaError_t launch_fwd(const T* x, const T* w, const int* labels, float* part,
+                       int N, int E, int V, int splits, cudaStream_t st) {
+  cudaError_t e = tmx::allow_smem(reinterpret_cast<const void*>(xent_fwd_kernel<T>));
+  if (e != cudaSuccess) return e;
+  dim3 grid((N + BM - 1) / BM, splits);
+  xent_fwd_kernel<T><<<grid, tmx::NT, tmx::SMEM_BYTES, st>>>(
+      x, w, labels, part, N, E, V, splits, tmx::vec_ok(x, E), tmx::vec_ok(w, V));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// x [N, E] bf16, w [E, V] bf16, labels [N] int32, part [3, splits, N] f32
-// (workspace), loss / lse [N] f32; all contiguous, on the device.  wgmma:
-// take the wgmma route (E and V multiples of 8, x and w 16-byte aligned,
-// splits = ceil(V / 256), else the launch is refused), else the wmma route.
-// Returns the CUDA error code of the launches (0 on success).
-extern "C" int tm_xent_fwd(const bf16* x, const bf16* w, const int* labels,
+// x [N, E], w [E, V] of the route's dtype (tmx::Route: 0 wgmma and 1 wmma
+// bfloat16, 2 tf32x3 float32), labels [N] int32, part [3, splits, N] f32
+// (workspace), loss / lse [N] f32; all contiguous, on the device.  The
+// wgmma route needs E and V multiples of 8, x and w 16-byte aligned and
+// splits = ceil(V / 256), else the launch is refused.  Returns the CUDA
+// error code of the launches (0 on success).
+extern "C" int tm_xent_fwd(const void* x, const void* w, const int* labels,
                            float* part, float* loss, float* lse, int N, int E,
-                           int V, int splits, int wgmma, void* stream) {
-  if (N <= 0 || E <= 0 || V <= 0 || splits <= 0)
+                           int V, int splits, int route, void* stream) {
+  if (N <= 0 || E <= 0 || V <= 0 || splits <= 0 || route < tmx::kWgmma ||
+      route > tmx::kTf32x3)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (wgmma) {
+  if (route == tmx::kTf32x3) {
+    e = launch_fwd(static_cast<const float*>(x), static_cast<const float*>(w),
+                   labels, part, N, E, V, splits, st);
+  } else if (route == tmx::kWgmma) {
     if (!(tmw::tma_ok(x, E) && tmw::tma_ok(w, V)) ||
         splits != (V + tmw::BN - 1) / tmw::BN)
       return (int)cudaErrorInvalidValue;
+    const bf16* xb = static_cast<const bf16*>(x);
+    const bf16* wb = static_cast<const bf16*>(w);
     CUtensorMap tx, tw;
-    e = tmw::make_map(&tx, x, N, E);
-    if (e == cudaSuccess) e = tmw::make_map(&tw, w, E, V);
+    e = tmw::make_map(&tx, xb, N, E);
+    if (e == cudaSuccess) e = tmw::make_map(&tw, wb, E, V);
     if (e == cudaSuccess)
       e = tmw::launch_gemm<false, true>(tx, tw, N, V, E,
                                         StatEpi{labels, part, N, V, splits}, st);
   } else {
-    e = tmx::allow_smem(reinterpret_cast<const void*>(xent_fwd_kernel));
-    if (e != cudaSuccess) return (int)e;
-    dim3 grid((N + BM - 1) / BM, splits);
-    xent_fwd_kernel<<<grid, tmx::NT, tmx::SMEM_BYTES, st>>>(
-        x, w, labels, part, N, E, V, splits, tmx::vec_ok(x, E), tmx::vec_ok(w, V));
-    e = cudaGetLastError();
+    e = launch_fwd(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+                   labels, part, N, E, V, splits, st);
   }
   if (e != cudaSuccess) return (int)e;
   xent_fwd_merge_kernel<<<(N + 255) / 256, 256, 0, st>>>(part, loss, lse, N, splits);

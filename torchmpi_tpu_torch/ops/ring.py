@@ -5,21 +5,14 @@ runs one ring member per TPU core and reaches its neighbours by remote DMA.
 Here the ring members are ``n`` ranks whose buffers sit on one card, in a
 rank-major stack ``xs[i]`` = rank i's tensor (the JAX package's eager mode,
 ``torchmpi_tpu/collectives.py`` :772), and one kernel launch runs all of
-them: the peers are device pointers, so the same kernels and protocol serve
-peers over NVLink once their pointers are exchanged (ROADMAP queue B).
+them: the peers are device pointers, so the same kernels serve peers over
+NVLink once their pointers are exchanged (ROADMAP queue B).
 
-Two CUDA kernels (``ops/csrc/ring_rs_ag.cu``) walk the ring for the
-resident reduce-scatter and all-gather kernels that ZeRO's legs run under
-a ``chunk_bytes`` that holds a whole ring chunk:
-
-- ``ring_reduce_scatter`` (row 13): ``_ring_reduce_scatter_kernel`` :310;
-- ``ring_all_gather`` (row 14): ``_ring_all_gather_kernel`` :342.
-
-The other rows do not walk the ring (``ops/csrc/ring_direct.cu``): every
-rank's value of an element is loaded and the values are added in the
-order the ring would have added them, or, for the all-gather, each shard is
-loaded once and stored to every rank, so each input is read once and each
-output written once:
+No kernel walks the ring (``ops/csrc/ring_direct.cu``): every rank's
+value of an element is loaded and the values are added in the order the
+ring would have added them, or, for the all-gathers, each shard is loaded
+once and stored to every rank, so each input is read once and each output
+written once:
 
 - ``ring_allreduce_bidir_chunked`` (row 7):
   ``_ring_allreduce_bidir_chunked_kernel`` :534, the halves ``flat[:L//2]``
@@ -34,7 +27,12 @@ output written once:
   fold with one ring chunk of the padded ``P / n`` elements;
 - ``ring_allreduce_bidir`` (row 12): ``_ring_allreduce_bidir_kernel`` :203,
   row 7's fold with each half's ring chunk that half's own padded length
-  over n (the halves pad apart, so the two lengths can differ).
+  over n (the halves pad apart, so the two lengths can differ);
+- ``ring_reduce_scatter`` (row 13): ``_ring_reduce_scatter_kernel`` :310,
+  row 9's launch: its resident plan only pads the chunks, and zeros add
+  nothing;
+- ``ring_all_gather`` (row 14): ``_ring_all_gather_kernel`` :342, row 10's
+  launch.
 
 :func:`ring_allreduce`, :func:`ring_reduce_scatter` and
 :func:`ring_all_gather` pick a kernel as the JAX entries do (:926-955,
@@ -49,8 +47,8 @@ CPU interpreter; on a GPU the executed plan is always ``_chunk_plan``'s.
 Every wrapper takes its plain version when, and only when, the tensor it
 was given lies on the CPU; on a CUDA tensor it launches its kernel or
 raises.  Each wrapper call that launches adds one to ``LAUNCHES[name]``.
-``VECTOR_LAUNCHES`` counts the direct rows' launches whose bulk took
-their 16-byte path (the second half of rows 7 and 12 may start off a
+``VECTOR_LAUNCHES`` counts the launches whose bulk took their 16-byte
+path (the second half of rows 7 and 12 may start off a
 16-byte boundary: its first elements are taken one by one).  The wrappers
 make no host-device synchronization.
 """
@@ -77,20 +75,11 @@ KERNELS = ("ring_allreduce_bidir_chunked", "ring_allreduce_chunked",
            "ring_allreduce", "ring_allreduce_bidir", "ring_reduce_scatter",
            "ring_all_gather")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
-# The direct rows (ring_direct.cu), and their launches whose bulk ran on
-# 16-byte vectors.
-DIRECT = ("ring_allreduce_bidir_chunked", "ring_allreduce_chunked",
-          "ring_reduce_scatter_chunked", "ring_all_gather_chunked",
-          "ring_allreduce", "ring_allreduce_bidir")
-VECTOR_LAUNCHES: Dict[str, int] = {name: 0 for name in DIRECT}
+# The launches whose bulk ran on 16-byte vectors.
+VECTOR_LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
-
-# Blocks a launch aims for per SM (each block owns one slice of every slot),
-# and the fewest elements a slice should hold.
-_BLOCKS_PER_SM = 2
-_MIN_SLICE = 2048
 
 
 def reset_launches() -> None:
@@ -245,32 +234,21 @@ _ALLREDUCE = ("tm_ring_allreduce_direct",
 # dtype, x, ldx, o, ldo, L, CE1, CE2, n, vec, stream
 _BIDIR = ("tm_ring_allreduce_bidir_direct",
           [_I, _P, _LL, _P, _LL, _LL, _LL, _LL, _I, _PI, _P])
+# dtype, x, ldx, out, ldo, per, n, vec, stream
+_SCATTER = ("tm_ring_reduce_scatter_direct",
+            [_I, _P, _LL, _P, _LL, _LL, _I, _PI, _P])
+# dtype, x, ldx, out, per, n, vec, stream
+_GATHER = ("tm_ring_all_gather_direct", [_I, _P, _LL, _P, _LL, _I, _PI, _P])
 _SIGNATURES = {
     "ring_allreduce": _ALLREDUCE,
     "ring_allreduce_chunked": _ALLREDUCE,
     "ring_allreduce_bidir": _BIDIR,
     "ring_allreduce_bidir_chunked": _BIDIR,
-    # dtype, x, w, out, comm, flags, per, E, n, B, stream
-    "ring_reduce_scatter": ("tm_ring_reduce_scatter",
-                            [_I] + [_P] * 5 + [_LL, _LL, _I, _I, _P]),
-    # dtype, x, ldx, out, ldo, per, n, vec, stream
-    "ring_reduce_scatter_chunked": ("tm_ring_reduce_scatter_direct",
-                                    [_I, _P, _LL, _P, _LL, _LL, _I, _PI,
-                                     _P]),
-    # dtype, x, out, comm, flags, per, E, n, B, stream
-    "ring_all_gather": ("tm_ring_all_gather",
-                        [_I] + [_P] * 4 + [_LL, _LL, _I, _I, _P]),
-    # dtype, x, ldx, out, per, n, vec, stream
-    "ring_all_gather_chunked": ("tm_ring_all_gather_direct",
-                                [_I, _P, _LL, _P, _LL, _I, _PI, _P]),
+    "ring_reduce_scatter": _SCATTER,
+    "ring_reduce_scatter_chunked": _SCATTER,
+    "ring_all_gather": _GATHER,
+    "ring_all_gather_chunked": _GATHER,
 }
-
-
-def _blocks(dev: torch.device, n: int, dirs: int, slot: int) -> int:
-    """Blocks per (rank, direction): about _BLOCKS_PER_SM blocks on every
-    SM in all, and no slice below _MIN_SLICE elements."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return max(1, min(_BLOCKS_PER_SM * sms // (n * dirs), slot // _MIN_SLICE))
 
 
 def _call(lib: str, name: str, args, x: torch.Tensor) -> None:
@@ -464,25 +442,6 @@ def _ag_plain(x: torch.Tensor) -> torch.Tensor:
     return o
 
 
-def _launch_rs_ag(name: str, x: torch.Tensor, per: int, E: int):
-    """Launch resident row ``name`` on ``x`` (reduce-scatter: [n, n per]
-    inputs; all-gather: [n, per] shards, on one card; slots of E elements)
-    and return its output; raise on a refused launch."""
-    n = x.shape[0]
-    B = _blocks(x.device, n, 1, E)
-    comm = x.new_empty(n, 2, E)
-    # Zeroed by the launcher on the stream, before the kernel.
-    flags = torch.empty(n * B * 3, dtype=torch.int32, device=x.device)
-    if name.startswith("ring_reduce_scatter"):
-        out = x.new_empty(n, per)
-        args = (x, torch.empty_like(x), out, comm, flags, per, E, n, B)
-    else:
-        out = x.new_empty(n, n, per)
-        args = (x, out, comm, flags, per, E, n, B)
-    _call("ring_rs_ag", name, args, x)
-    return out
-
-
 def _run_rs(name: str, flat: torch.Tensor, plan=(), *,
             plain: bool) -> torch.Tensor:
     """Row ``name`` on ``flat`` [n, L], rank r's elements in row r, L a
@@ -500,9 +459,7 @@ def _run_rs(name: str, flat: torch.Tensor, plan=(), *,
     E, C = _slots(per, plan)
     if plain:
         return _rs_plain(_pad_chunks(flat.reshape(n, n, per), C * E))[:, :per]
-    if name in DIRECT:
-        return _launch_direct(name, flat, flat.new_empty(n, per), per, per)
-    return _launch_rs_ag(name, flat.contiguous(), per, E)
+    return _launch_direct(name, flat, flat.new_empty(n, per), per, per)
 
 
 def _run_ag(name: str, shards: torch.Tensor, plan=(), *,
@@ -516,9 +473,7 @@ def _run_ag(name: str, shards: torch.Tensor, plan=(), *,
     E, C = _slots(per, plan)
     if plain:
         return _ag_plain(_pad_to(shards, C * E))[..., :per]
-    if name in DIRECT:
-        return _launch_direct(name, shards, shards.new_empty(n, n, per), per)
-    return _launch_rs_ag(name, shards.contiguous(), per, E)
+    return _launch_direct(name, shards, shards.new_empty(n, n, per), per)
 
 
 def reduce_scatter_resident(flat):

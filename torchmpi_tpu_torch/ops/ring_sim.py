@@ -3,14 +3,14 @@
 The port's own numpy copy of the JAX package's ``ops/ring_sim.py`` (the
 port imports nothing of that package).  It executes the slot / ack
 protocol of the TPU's chunked ring kernels (``_chunked_pipeline``) in
-pure numpy (on the card the allreduce rows 7, 8, 11 and 12 and the
-chunked rows 9 and 10 are direct reductions and copies,
-``ring_direct.cu``, and walk no ring; the resident reduce-scatter and
-all-gather of ``ops/csrc/ring_rs_ag.cu`` run the protocol at C = 1): one
-state machine per rank running the same iteration
-sequence as a kernel block (issue -> pipelined next-issue -> wait ->
-combine/copy -> writeback -> ack), with no iteration cap, driven by an
-arbitrary scheduler (randomized or adversarial interleavings).
+pure numpy.  No kernel of the port runs the protocol: on the card all
+eight ring rows (7-14) are direct reductions and copies
+(``ops/csrc/ring_direct.cu``) and walk no ring; the simulator holds the
+TPU schedule whose add order they follow.  One state machine per rank
+runs the same iteration sequence as a kernel block (issue -> pipelined
+next-issue -> wait -> combine/copy -> writeback -> ack), with no
+iteration cap, driven by an arbitrary scheduler (randomized or
+adversarial interleavings).
 
 The simulator is stricter than the hardware in three ways:
 

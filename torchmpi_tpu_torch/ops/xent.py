@@ -13,10 +13,10 @@ conventions:
 - a label of -1, or any label outside [0, V), never matches: its logit
   term is 0;
 - the backward reads a non-finite lse as 0 (:302);
-- g = (exp(z - lse) - onehot) * dl is rounded to the operands' dtype
-  before the dx and dW products, where the TPU kernels round it (:106,
-  :140); the products accumulate in float32, dx and dW come out in x's and
-  w's dtypes.
+- g = (exp(z - lse) - onehot) * dl is cast to the operands' dtype before
+  the dx and dW products, where the TPU kernels cast it (:106, :140):
+  rounded for bf16, kept for float32; the products accumulate in float32,
+  dx and dW come out in x's and w's dtypes.
 
 The TPU pads rows to its token block (lse +1e30, label -1, :300-303) and
 vocab columns to its vocab block (masked to ``NEG_INF``, :57); the CUDA
@@ -25,19 +25,19 @@ no padding, so neither convention shows in a result.
 
 Every kernel wrapper takes its plain version when, and only when, the
 tensors it was given lie on the CPU; on CUDA tensors it launches the kernel
-or raises.  The kernels take bfloat16 x and w (the stage B' loss casts
-both); float32 CUDA tensors raise.  Each wrapper call that launches a
-kernel adds one to ``LAUNCHES[name]``, however many chunks it launches.
-The backward walks the tokens in chunks of ``BWD_CHUNK`` rows, one launch
-of each backward kernel per chunk, with a [chunk, V] bf16 workspace for g
-and an [E, V] float32 accumulator for dW
-(the TPU kernel's own float32 ``out_shape``): memory O(chunk), never
-O(N V).  The forward writes per-row partial statistics, (m, l, t) of each
-row over each 256-column tile on the ``wgmma`` route (3 x ceil(V / 256) x
-N float32, 12.6 MB at the flagship), and merges them in a second kernel.
-Every call takes the route ``_route`` picks from its shapes and addresses,
-counted in ``ROUTE_LAUNCHES``.  The wrappers make no host-device
-synchronization.
+or raises.  The kernels take x and w both bfloat16 (the stage B' loss
+casts both) or both float32 (the model's default dtype); mixed or other
+dtypes raise.  Each wrapper call that launches a kernel adds one to
+``LAUNCHES[name]``, however many chunks it launches.  The backward walks
+the tokens in chunks of ``BWD_CHUNK`` rows, one launch of each backward
+kernel per chunk, with a [chunk, V] workspace for g in w's dtype and an
+[E, V] float32 accumulator for dW (the TPU kernel's own float32
+``out_shape``): memory O(chunk), never O(N V).  The forward writes
+per-row partial statistics, (m, l, t) of each row over each 256-column
+tile on the ``wgmma`` route (3 x ceil(V / 256) x N float32, 12.6 MB at
+the flagship), and merges them in a second kernel.  Every call takes the
+route ``_route`` picks from its dtype, shapes and addresses, counted in
+``ROUTE_LAUNCHES``.  The wrappers make no host-device synchronization.
 """
 
 from __future__ import annotations
@@ -56,13 +56,17 @@ KERNELS = ("xent_fwd", "xent_bwd_dx", "xent_bwd_dw")
 # show that its path went through the kernels.
 LAUNCHES = {name: 0 for name in KERNELS}
 
-# Each kernel's launches per route (see _route).
-ROUTES = ("wgmma", "wmma")
+# Each kernel's launches per route (see _route).  A route's index here is
+# its code in the C launchers (xent_common.cuh tmx::Route).
+ROUTES = ("wgmma", "wmma", "tf32x3")
 ROUTE_LAUNCHES = {name: {r: 0 for r in ROUTES} for name in KERNELS}
 
-# Token rows per backward chunk: the g workspace is BWD_CHUNK x V bf16
-# (128 MiB at V 32768).
+# Token rows per backward chunk: the g workspace is BWD_CHUNK x V in w's
+# dtype (128 MiB of bf16 at V 32768, 256 MiB of float32).
 BWD_CHUNK = 2048
+
+# The operand dtypes the kernels take (x and w both of one).
+_DTYPES = (torch.float32, torch.bfloat16)
 
 # The forward's wmma route: its tiles (xent_common.cuh BM, BN) and the
 # number of blocks it aims for: the vocab is split until (N / BM) x splits
@@ -80,11 +84,16 @@ def reset_launches() -> None:
             counts[r] = 0
 
 
-def _route(E: int, V: int, *ptrs: Optional[int]) -> str:
-    """The kernels' route for x [., E], w [E, V] and operands at
-    device addresses ``ptrs`` (None: no operand): ``"wgmma"`` when TMA can
-    read and write them, i.e. E and V are multiples of 8 (16-byte row
-    pitches) and every address is 16-byte aligned; else ``"wmma"``."""
+def _route(E: int, V: int, *ptrs: Optional[int], dtype: torch.dtype) -> str:
+    """The kernels' route for x [., E] and w [E, V] of ``dtype`` and
+    operands at device addresses ``ptrs`` (None: no operand):
+    ``"tf32x3"`` for float32, whatever the shapes and addresses (the
+    ``wmma`` product on TF32 fragments in the three-product form); for
+    bfloat16 ``"wgmma"`` when TMA can read and write the operands, i.e. E
+    and V are multiples of 8 (16-byte row pitches) and every address is
+    16-byte aligned; else ``"wmma"``."""
+    if dtype == torch.float32:
+        return "tf32x3"
     aligned = all(p is None or p % 16 == 0 for p in ptrs)
     return "wgmma" if E % 8 == 0 and V % 8 == 0 and aligned else "wmma"
 
@@ -163,12 +172,12 @@ def xent_bwd_dw_plain(x, w, labels, lse, dl):
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # x, w, labels, part, loss, lse, N, E, V, splits, wgmma, stream
+    # x, w, labels, part, loss, lse, N, E, V, splits, route, stream
     "xent_fwd": ("tm_xent_fwd", [_P] * 6 + [_I] * 5 + [_P]),
-    # x, w, labels, lse, dl, g, dx, rows, E, V, make_g, wgmma, stream
+    # x, w, labels, lse, dl, g, dx, rows, E, V, make_g, route, stream
     "xent_bwd_dx": ("tm_xent_bwd_dx", [_P] * 7 + [_I] * 5 + [_P]),
     # x, w, labels, lse, dl, g, acc, dw, rows, E, V, make_g, first, last,
-    # wgmma, stream
+    # route, stream
     "xent_bwd_dw": ("tm_xent_bwd_dw", [_P] * 8 + [_I] * 7 + [_P]),
 }
 
@@ -185,17 +194,19 @@ def _launch(name: str, dev: torch.device, *args) -> None:
 
 
 def _cuda_operands(name, x, w, labels, *stats):
-    """The kernels' operands on x's card: bf16 x and w as they are (raise
-    otherwise), labels cast to int32 and stats to float32 on the device."""
+    """The kernels' operands on x's card: x and w as they are, both
+    bfloat16 or both float32 (raise on mixed or other dtypes: nothing is
+    cast behind the caller's back), labels cast to int32 and stats to
+    float32 on the device."""
     dev = x.device
     for t in (w, labels, *stats):
         if t.device != dev:
             raise ValueError(f"{name}: all tensors must be on {dev}, got "
                              f"{t.device}")
+    if x.dtype != w.dtype or x.dtype not in _DTYPES:
+        raise TypeError(f"{name}: the kernel takes x and w both bfloat16 or "
+                        f"both float32, got {x.dtype} and {w.dtype}")
     for t in (x, w):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: the kernel takes bfloat16 x and w, got "
-                            f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: the kernel takes contiguous x and w")
     return (labels.to(torch.int32).contiguous(),
@@ -222,13 +233,13 @@ def xent_fwd(x, w, labels):
     loss = torch.empty(N, dtype=torch.float32, device=x.device)
     lse = torch.empty_like(loss)
     if N:
-        route = _route(E, V, x.data_ptr(), w.data_ptr())
+        route = _route(E, V, x.data_ptr(), w.data_ptr(), dtype=x.dtype)
         splits = (-(-V // _WGMMA_BN) if route == "wgmma"
                   else _fwd_splits(N, V))
         part = torch.empty(3, splits, N, dtype=torch.float32,
                            device=x.device)
         _launch("xent_fwd", x.device, x, w, lab, part, loss, lse, N, E, V,
-                splits, int(route == "wgmma"))
+                splits, ROUTES.index(route))
         LAUNCHES["xent_fwd"] += 1
         ROUTE_LAUNCHES["xent_fwd"][route] += 1
     return loss, lse
@@ -253,22 +264,22 @@ def _bwd_cuda(x, w, labels, lse, dl, want_dx: bool, want_dw: bool):
     if N == 0:
         return dx, dw
     C = min(BWD_CHUNK, N)
-    g = torch.empty(C, V, dtype=torch.bfloat16, device=dev)
+    g = torch.empty(C, V, dtype=w.dtype, device=dev)
     acc = (torch.empty(E, V, dtype=torch.float32, device=dev)
            if want_dw and N > C else None)
     route = _route(E, V, *(t.data_ptr() for t in (x, w, g, dx, acc, dw)
-                           if t is not None))
-    tma = int(route == "wgmma")
+                           if t is not None), dtype=x.dtype)
+    code = ROUTES.index(route)
     for c0 in range(0, N, C):
         c1 = min(N, c0 + C)
         rows = c1 - c0
         chunk = (x[c0:c1], w, lab[c0:c1], lse[c0:c1], dl[c0:c1], g)
         if want_dx:
             _launch("xent_bwd_dx", dev, *chunk, dx[c0:c1], rows, E, V, 1,
-                    tma)
+                    code)
         if want_dw:
             _launch("xent_bwd_dw", dev, *chunk, acc, dw, rows, E, V,
-                    int(not want_dx), int(c0 == 0), int(c1 == N), tma)
+                    int(not want_dx), int(c0 == 0), int(c1 == N), code)
     for name, wanted in (("xent_bwd_dx", want_dx), ("xent_bwd_dw", want_dw)):
         LAUNCHES[name] += int(wanted)
         ROUTE_LAUNCHES[name][route] += int(wanted)
