@@ -89,7 +89,26 @@ JAX package.  In order it:
    every launch of the four on its 16-byte path; the peak device memory
    of each leg, and one more update's device time by kernel
    (torch.profiler);
-9. prints the kernels' summary line, then {"ok": true, "device": ...}.
+9. ResNet-50 phase (the main path of the CNN slice): ResNet-50 at full
+   width and depth (224 x 224, 1000 classes, bf16 compute, float32
+   parameters) as the BatchNorm DP recipe
+   (recipes.make_bn_dp_train_step_rank_major) of 4 ranks on the one card,
+   64 images a rank, SGD lr 0.01 momentum 0.9, backend "pallas", batches
+   from synthetic_image_classification through prefetch_to_device: 3
+   replicated steps with every gradient bucket (row 8) and the BatchNorm
+   statistics (row 11) bitwise equal to the plain ring, 3 timed by CUDA
+   events (step ms, img/s, peak memory), one counting host syncs (0), one
+   profiled by part (convolutions, batch norm, ring rows, copies), then a
+   ZeRO-1 and a ZeRO-3 step from the same state and batch as a replicated
+   one (rows 9 and 10 bitwise equal to the plain ring, ZeRO-1's update
+   within 1e-4 of the replicated one), every launch of rows 8 and 11 on
+   the 16-byte path (ZeRO's 6,389,258-element shard is not a multiple of
+   16 bytes: rows 9 and 10 take their element path there);
+10. CNN examples phase: the port's mnist_sequential, mnist_allreduce and
+   cifar_resnet20 (ZeRO 0 and 3) in-process as a world of one on the
+   card, each to its accuracy bar (MNIST > 0.9, CIFAR > 0.85);
+11. prints the kernels' summary line (each kernel's launches summed over
+   the main paths, and by path), then {"ok": true, "device": ...}.
 
 Each phase prints one JSON line.  Any failed check raises and the script
 exits non-zero; it exits non-zero without a result when no card is visible
@@ -188,6 +207,42 @@ RING_RECORDED_DP_SYNC_MS = 60.5
 RING_RECORDED_ZERO_PEAK_GB = 33.20
 ZERO_LR = 1e-3  # Adam, as benchmarks/memory_bench.py :58
 ZERO_RTOL = 1e-4  # ZeRO-1 vs replicated Adam: rel. L2 of the updates
+# The CNN slice: ResNet-50 (BASELINE config 3, examples/imagenet_resnet50.py's
+# card line: 224 x 224, 1000 classes, bf16 compute, a batch of 256) as R50_N
+# ranks rank-major on the one card, R50_BATCH images a rank, SGD as the
+# examples' defaults.  Its 25,557,032 float32 gradients cut into 4 buckets
+# of about 6.39 M a rank at fuse_max_bytes 32 MiB (row 8 at the default 4
+# MiB chunk_bytes); its BatchNorm statistics, 53,120 float32, sync as one
+# bucket on row 11; its ZeRO-1 / ZeRO-3 legs are rows 9 and 10.
+R50_N, R50_BATCH, R50_IMAGE, R50_CLASSES = 4, 64, 224, 1000
+R50_LR, R50_MOMENTUM = 0.01, 0.9
+R50_PARAMS, R50_STATS, R50_BUCKETS = 25_557_032, 53_120, 4
+R50_ROWS = ("ring_allreduce_chunked", "ring_allreduce",
+            "ring_reduce_scatter_chunked", "ring_all_gather_chunked")
+# The replicated sync's rows, whose every launch must take the 16-byte
+# path (the fused sync's buckets are 16-byte aligned).  ZeRO's shard,
+# 6,389,258 float32, is not a multiple of 16 bytes, so rows 9 and 10 run
+# their element path on it (reported).
+R50_VECTOR_ROWS = ("ring_allreduce_chunked", "ring_allreduce")
+R50_CHECKED_STEPS = R50_TIMED_STEPS = 3
+R50_ZERO_RTOL = 1e-4  # ZeRO-1 vs replicated SGD: rel. L2 of the updates
+# Where a step's device time goes: the first pattern a kernel's name
+# matches names its part.
+STEP_PARTS = (
+    ("ring rows", r"ring_direct"),
+    ("batch norm", r"batch_?norm|bn_fw|bn_bw"),
+    ("pooling", r"pool"),
+    ("convolutions", r"conv|xmma|implicit|dgrad|wgrad|fprop|gemm|cutlass|"
+                     r"nhwc|nchw"),
+    ("copies and casts", r"copy|Copy|Memcpy|CatArray|cat_"),
+    ("reductions", r"reduce"),
+    ("elementwise", r"elementwise|vectorized"),
+)
+# The examples run in-process, a world of one on the card, to their
+# accuracy bars (MNIST > 0.9, CIFAR > 0.85; each raises below it).
+CNN_EXAMPLES = (("mnist_sequential", (), 0.9), ("mnist_allreduce", (), 0.9),
+                ("cifar_resnet20", ("--zero", "0"), 0.85),
+                ("cifar_resnet20", ("--zero", "3"), 0.85))
 
 SOURCES = {
     "flash_fwd": ("torchmpi_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -249,9 +304,9 @@ def time_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_breakdown(torch, fn, top: int = 8) -> dict:
-    """Device time of one call of ``fn`` by kernel name (torch.profiler):
-    the total and the ``top`` largest names with their call counts."""
+def profile_rows(torch, fn) -> list:
+    """(kernel name, calls, device ms) of one call of ``fn``
+    (torch.profiler), largest first."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -263,8 +318,14 @@ def device_breakdown(torch, fn, top: int = 8) -> dict:
         t = getattr(e, "device_time_total", None)
         t = getattr(e, "cuda_time_total", 0.0) if t is None else t
         if t > 0:
-            rows.append((e.key[:100], e.count, t / 1e3))
-    rows.sort(key=lambda r: -r[2])
+            rows.append((e.key, e.count, t / 1e3))
+    return sorted(rows, key=lambda r: -r[2])
+
+
+def device_breakdown(torch, fn, top: int = 8) -> dict:
+    """Device time of one call of ``fn`` by kernel name (torch.profiler):
+    the total and the ``top`` largest names with their call counts."""
+    rows = [(k[:100], c, ms) for k, c, ms in profile_rows(torch, fn)]
     return {"total_ms": sum(r[2] for r in rows),
             "top": [{"kernel": k, "calls": c, "ms": ms}
                     for k, c, ms in rows[:top]]}
@@ -1335,15 +1396,18 @@ def ring_dp_phase(torch, mpi, ops, dev):
     return launches, {k: statistics.median(v) for k, v in sync_ms.items()}
 
 
-def tap_rank_major_routes(torch, mpi, ring, log):
-    """Wrap the selector's "pallas" routes of the rank-major reduce-scatter
-    and all-gather for the checked steps of the ZeRO path: each call runs
-    the route (the kernels) between two CUDA events, then the plain ring
-    on the same input, and appends to ``log`` whether the two agree
-    bitwise (and, for the all-gather, whether every rank's slice is the
-    same), and the peak device memory while the route ran (the peak so far
-    is kept in ``log.peak``).  Returns the function that restores the plain
-    routes."""
+def tap_rank_major_routes(torch, mpi, ring, log,
+                          ops=("reduce_scatter_rank_major",
+                               "allgather_rank_major")):
+    """Wrap the selector's "pallas" routes of the rank-major ``ops``
+    (reduce-scatter and all-gather for the checked steps of the ZeRO path;
+    the allreduce too on the ResNet-50 path): each call runs the route (the
+    kernels) between two CUDA events, then the plain ring on the same
+    input, and appends to ``log`` whether the two agree bitwise (and, for
+    the all-gather, whether every rank's slice is the same), the rows the
+    route launched, its elements a rank, and the peak device memory while
+    the route ran (the peak so far is kept in ``log.peak``).  Returns the
+    function that restores the plain routes."""
     sel = mpi.selector
 
     def wrap(verb, route, plain):
@@ -1352,11 +1416,14 @@ def tap_rank_major_routes(torch, mpi, ring, log):
             torch.cuda.reset_peak_memory_stats()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            before = dict(ring.LAUNCHES)
             start.record()
             out = route(xs, **kw)
             end.record()
             entry = {"verb": verb, "events": (start, end),
-                     "label": log.label,
+                     "label": log.label, "elems": xs[0].numel(),
+                     "rows": [k for k, v in ring.LAUNCHES.items()
+                              if v != before[k]],
                      "peak_bytes": torch.cuda.max_memory_allocated(),
                      "bitwise": torch.equal(out, plain(xs, **kw))}
             if verb == "all_gather":
@@ -1370,7 +1437,10 @@ def tap_rank_major_routes(torch, mpi, ring, log):
         "reduce_scatter", ring.ring_reduce_scatter,
         ring.ring_reduce_scatter_plain),
         "allgather_rank_major": ("all_gather", ring.ring_all_gather,
-                                 ring.ring_all_gather_plain)}
+                                 ring.ring_all_gather_plain),
+        "allreduce_rank_major": ("allreduce", ring.ring_allreduce,
+                                 ring.ring_allreduce_plain)}
+    routes = {op: routes[op] for op in ops}
     for op, (verb, route, plain) in routes.items():
         sel.register(op, "pallas", wrap(verb, route, plain))
 
@@ -1614,6 +1684,240 @@ def zero_dp_phase(torch, mpi, ops, dev, ring_sync_ms):
     return launches
 
 
+def step_profile(torch, fn, top: int = 15) -> dict:
+    """Device time of one call of ``fn`` (torch.profiler) by part of the
+    step (``STEP_PARTS``: the first pattern a kernel's name matches) and
+    the ``top`` largest kernels with their call counts."""
+    rows = profile_rows(torch, fn)
+    parts = {name: {"ms": 0.0, "calls": 0} for name, _ in STEP_PARTS}
+    parts["other"] = {"ms": 0.0, "calls": 0}
+    for key, calls, ms in rows:
+        part = next((name for name, pat in STEP_PARTS
+                     if re.search(pat, key)), "other")
+        parts[part]["ms"] += ms
+        parts[part]["calls"] += calls
+    return {"total_ms": sum(r[2] for r in rows), "parts": parts,
+            "top": [{"kernel": k[:120], "calls": c, "ms": ms}
+                    for k, c, ms in rows[:top]]}
+
+
+def resnet50_dp_phase(torch, mpi, ops, dev):
+    """The CNN slice's main path: ResNet-50 at full width and depth as a
+    BatchNorm DP recipe of R50_N ranks rank-major on the card
+    (recipes.make_bn_dp_train_step_rank_major, backend "pallas", SGD),
+    batches from synthetic_image_classification through
+    prefetch_to_device.  Three replicated steps with every allreduce (the
+    gradient buckets on row 8, the BatchNorm statistics on row 11) held
+    bitwise to the plain ring on the same stacks; three more timed by CUDA
+    events; one counting the host syncs; one profiled by part; then one
+    ZeRO-1 and one ZeRO-3 step from the same state and batch as one more
+    replicated step (cuDNN's deterministic algorithms for the three, so
+    they differ only in the sync), their reduce-scatters and all-gathers
+    (rows 9, 10) bitwise to the plain ring, ZeRO-1's update within
+    R50_ZERO_RTOL of the replicated one; every launch of rows 8 and 11 on
+    the 16-byte path.  Every kernel counter is set to 0
+    just before the main path and read just after; the replicated
+    reference step's launches are taken out."""
+    from torchmpi_tpu_torch.utils import data as dutil
+    from torchmpi_tpu_torch.utils.input_pipeline import prefetch_to_device
+
+    ring = ops["ring"]
+    recipes, zero, fusion = mpi.recipes, mpi.parallel.zero, mpi.fusion
+    n, b = R50_N, R50_BATCH
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    model = mpi.models.ResNet50(num_classes=R50_CLASSES,
+                                dtype=torch.bfloat16, device=dev,
+                                generator=g)
+    params, stats = recipes.bn_state(model)
+    spec = fusion.FusedSpec(params)
+    check(sum(p.numel() for p in params) == R50_PARAMS
+          and sum(t.numel() for t in stats) == R50_STATS
+          and spec.n_launches == R50_BUCKETS,
+          f"ResNet-50 layout: {sum(p.numel() for p in params)} params, "
+          f"{sum(t.numel() for t in stats)} statistics, "
+          f"{spec.n_launches} buckets")
+    tx = mpi.optim.sgd(R50_LR, momentum=R50_MOMENTUM)
+    opt = [tx.init(p) for p in params]
+    step = recipes.make_bn_dp_train_step_rank_major(model, tx, n,
+                                                    backend="pallas")
+    t0 = time.perf_counter()
+    X, Y = dutil.synthetic_image_classification(
+        2 * n * b, image_shape=(R50_IMAGE, R50_IMAGE, 3),
+        num_classes=R50_CLASSES, seed=SEED)
+    data_s = time.perf_counter() - t0
+    n_batches = R50_CHECKED_STEPS + R50_TIMED_STEPS + 3
+    it = prefetch_to_device(dutil.batches(X, Y, n * b, steps=n_batches,
+                                          seed=SEED), depth=2, device=dev)
+
+    def batch():
+        xb, yb = next(it)   # NHWC on the card: NCHW in channels-last
+        return xb.permute(0, 3, 1, 2), yb
+
+    def one_step(xb, yb):
+        nonlocal params, opt, stats
+        params, opt, stats, loss = step(params, opt, stats, xb, yb)
+        return loss
+
+    def counts():
+        return {k: ring.LAUNCHES[k] for k in R50_ROWS}
+
+    log = TapLog()
+    losses = []
+    torch.cuda.synchronize()
+    for mod in ops.values():
+        mod.reset_launches()
+    restore = tap_rank_major_routes(torch, mpi, ring, log,
+                                    ops=("allreduce_rank_major",))
+    try:
+        log.label = "replicated"
+        for _ in range(R50_CHECKED_STEPS):
+            losses.append(one_step(*batch()))
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for _ in range(R50_TIMED_STEPS):
+        xb, yb = batch()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(one_step(xb, yb))
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated()
+    xb, yb = batch()
+    syncs = count_host_syncs(torch, lambda: losses.append(one_step(xb, yb)))
+    xb, yb = batch()
+    profile = step_profile(torch, lambda: losses.append(one_step(xb, yb)))
+
+    # ZeRO-1 and ZeRO-3 from the replicated state: the momentum traces as
+    # [n, shard] shards; the same parameters, statistics and batch.
+    zspec = zero.flat_spec(params, n_shards=n)
+    zstate = mpi.optim.TraceState(
+        fusion.local_shards([s.trace for s in opt], zspec))
+    template = [torch.empty_like(p, device="meta") for p in params]
+    step1 = recipes.make_bn_dp_train_step_rank_major(
+        model, tx, n, backend="pallas", zero=1)
+    step3 = recipes.make_bn_dp_train_step_rank_major(
+        model, tx, n, backend="pallas", zero=3, params_template=template)
+    xb, yb = batch()
+    restore = tap_rank_major_routes(torch, mpi, ring, log, ops=(
+        "reduce_scatter_rank_major", "allgather_rank_major",
+        "allreduce_rank_major"))
+    torch.backends.cudnn.deterministic = True
+    try:
+        log.label = "check"
+        before = counts()
+        p_rep, _, _, l_rep = step(params, opt, stats, xb, yb)
+        excluded = {k: v - before[k] for k, v in counts().items()}
+        log.label = "zero1"
+        p_z1, s_z1, st_z1, l_z1 = step1(params, zstate, stats, xb, yb)
+        log.label = "zero3"
+        shards = zero.shard_params_rank_major(params, n)
+        p_z3, s_z3, st_z3, l_z3 = step3(shards, zstate, stats, xb, yb)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        restore()
+    launches = {k: v - excluded[k] for k, v in counts().items()}
+    vector = {k: {"all": ring.LAUNCHES[k], "vector": ring.VECTOR_LAUNCHES[k]}
+              for k in R50_ROWS}
+    losses += [l_z1, l_z3]
+    with torch.no_grad():
+        rel = [float(((a - p) - (r - p)).norm()
+                     / (r - p).norm().clamp_min(1e-30))
+               for a, r, p in zip(p_z1, p_rep, params)]
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    z3_eq_z1 = (torch.equal(fusion.local_shards(p_z1, zspec), p_z3)
+                and torch.equal(s_z1.trace, s_z3.trace)
+                and all(torch.equal(a, c) for a, c in zip(st_z1, st_z3)))
+    losses = [float(v) for v in losses]
+    by_row = {}
+    for e in log:
+        for row in e["rows"]:
+            d = by_row.setdefault(f"{e['label']} {row}", {
+                "calls": 0, "elems": set(), "bitwise": True})
+            d["calls"] += 1
+            d["elems"].add(e["elems"])
+            d["bitwise"] = d["bitwise"] and e["bitwise"]
+    by_row = {k: dict(v, elems=sorted(v["elems"])) for k, v in by_row.items()}
+    med = statistics.median(step_ms)
+    emit({"phase": "resnet50_dp", "ranks": n, "batch_per_rank": b,
+          "config": {"model": "ResNet50", "image": R50_IMAGE,
+                     "classes": R50_CLASSES, "dtype": "bfloat16",
+                     "params": "float32", "optimizer":
+                     f"sgd({R50_LR}, momentum={R50_MOMENTUM})",
+                     "backend": "pallas", "memory_format": "channels_last"},
+          "params": R50_PARAMS, "batch_stats": R50_STATS,
+          "buckets": spec.n_launches,
+          "bucket_elems": [hi - lo for gr in spec.groups
+                           for lo, hi in gr.bounds],
+          "data_seconds": data_s, "losses": losses,
+          "step_ms": step_ms, "median_step_ms": med,
+          "img_per_s": n * b * 1e3 / med, "peak_mem_bytes": peak,
+          "host_syncs_per_step": syncs, "step_device_profile": profile,
+          "syncs_by_row": by_row,
+          "bitwise_vs_plain": all(e["bitwise"] for e in log),
+          "n_collectives_checked": len(log),
+          "all_gather_rows_equal": all(e.get("rows_equal", True)
+                                       for e in log),
+          "zero1_vs_replicated_max_rel_l2": rel[worst],
+          "zero1_worst_tensor": [nm for nm, _ in
+                                 model.named_parameters()][worst],
+          "zero1_tolerance": R50_ZERO_RTOL,
+          "zero3_equals_zero1": z3_eq_z1,
+          "launches": launches, "check_launches": excluded,
+          "launches_on_16_byte_path": vector,
+          "zero_shard_elems": zspec.shard})
+    grad_rows = {tuple(e["rows"]) for e in log if e["verb"] == "allreduce"
+                 and e["elems"] != R50_STATS}
+    stat_rows = {tuple(e["rows"]) for e in log if e["verb"] == "allreduce"
+                 and e["elems"] == R50_STATS}
+    check(all(e["bitwise"] for e in log) and len(log) == (
+        R50_CHECKED_STEPS + 1) * (R50_BUCKETS + 1) + 2 * 2 + 2,
+          f"a ResNet-50 sync differs from the plain ring ({len(log)} "
+          f"checked): {by_row}")
+    check(grad_rows == {("ring_allreduce_chunked",)}
+          and stat_rows == {("ring_allreduce",)},
+          f"gradient syncs on {grad_rows}, statistics on {stat_rows}")
+    check(all(e.get("rows_equal", True) for e in log),
+          "the all-gathered ranks differ")
+    check(rel[worst] <= R50_ZERO_RTOL,
+          f"ZeRO-1 vs replicated: {rel[worst]} ({worst})")
+    check(all(math.isfinite(v) for v in losses), f"non-finite {losses}")
+    check(syncs == 0, f"{syncs} host-device synchronizations in a step")
+    for name in R50_ROWS:
+        check(launches[name] > 0, f"kernel {name} never launched on the "
+              f"ResNet-50 path")
+    for name in R50_VECTOR_ROWS:
+        check(vector[name]["all"] == vector[name]["vector"],
+              f"{name}: {vector[name]} launches on the 16-byte path")
+    return launches
+
+
+def cnn_examples_phase(torch):
+    """The port's three main-path examples (and CIFAR under ZeRO-3) run
+    in-process as a world of one on the card, each to its accuracy bar."""
+    import importlib
+
+    runs = []
+    for name, argv, bar in CNN_EXAMPLES:
+        mod = importlib.import_module(f"torchmpi_tpu_torch.examples.{name}")
+        t0 = time.perf_counter()
+        out = mod.main(["--device", "cuda", *argv])
+        runs.append({"example": name, "argv": list(argv), "bar": bar,
+                     "accuracy": out["accuracy"],
+                     "img_per_s": out["img_per_s"],
+                     "losses": out["losses"],
+                     "seconds": time.perf_counter() - t0})
+        torch.cuda.empty_cache()
+    emit({"phase": "cnn_examples", "runs": runs})
+    for r in runs:
+        check(r["accuracy"] > r["bar"], f"{r['example']} {r['argv']}: "
+              f"accuracy {r['accuracy']} <= {r['bar']}")
+
+
 def main() -> int:
     import torch
 
@@ -1677,6 +1981,14 @@ def main() -> int:
         # card, its reduce-scatters and all-gathers on the ring kernels.
         launches.update(zero_dp_phase(torch, mpi, dict(ops, ring=ring), dev,
                                       ring_sync_ms))
+        torch.cuda.empty_cache()
+        # The main path of slice 12: ResNet-50 as the BatchNorm DP recipe of
+        # RING_N ranks on the card, its syncs on rows 8 and 11 and its ZeRO
+        # legs on rows 9 and 10; then the CNN examples to their bars.
+        r50_launches = resnet50_dp_phase(torch, mpi, dict(ops, ring=ring),
+                                         dev)
+        torch.cuda.empty_cache()
+        cnn_examples_phase(torch)
     finally:
         mpi.stop()
 
@@ -1684,8 +1996,17 @@ def main() -> int:
     # backward that computes dq, dk and dv together.
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    kernels = [{**{k: dict(row, launches=launches[row["name"]])[k]
-                   for k in keys},
+    # launches: every main path's count of the kernel; by path beside it.
+    def by_path(name):
+        earlier = ("ring_dp" if name in RING_CONFIGS else
+                   "zero_dp" if name.startswith("ring") else "train")
+        return {earlier: launches[name],
+                **({"resnet50_dp": r50_launches[name]}
+                   if name in r50_launches else {})}
+
+    kernels = [{**{k: dict(row, launches=sum(by_path(
+                    row["name"]).values()))[k] for k in keys},
+                "launches_by_path": by_path(row["name"]),
                 "library_call": row.get("library_call")} for row in rows]
     print(card, flush=True)
     emit({"kernels": kernels})

@@ -14,6 +14,7 @@ as CUDA kernels (``ops/csrc``):
     step = mpi.nn.data_parallel_step(model, optimizer, loss_fn)
     loss = step(batch)                      # grads synced in fused buckets
     new_params, state = mpi.parallel.zero.update(params, grads, state, tx)
+    step = mpi.recipes.make_bn_dp_train_step(resnet, tx, zero=1)  # BN models
     mpi.stop()
 
 It imports nothing of JAX and nothing of ``torchmpi_tpu``.  Entry points run
@@ -36,6 +37,7 @@ from .runtime import (
 )
 from . import collectives, fusion, selector
 from . import models, nn, ops, optim, parallel, weights
+from . import recipes, utils
 from .collectives import (allgather, allgather_in_axis, allgather_rank_major,
                           allreduce, allreduce_in_axis, allreduce_rank_major,
                           broadcast, reduce_scatter, reduce_scatter_in_axis,
@@ -47,7 +49,7 @@ __all__ = [
     "Config", "init", "stop", "is_initialized", "rank", "size", "local_rank",
     "barrier", "config", "config_epoch", "effective_config", "set_config",
     "collectives", "fusion", "selector", "models", "nn", "ops", "parallel",
-    "weights", "optim", "allreduce", "allreduce_in_axis",
+    "weights", "optim", "recipes", "utils", "allreduce", "allreduce_in_axis",
     "allreduce_rank_major", "reduce_scatter", "reduce_scatter_in_axis",
     "reduce_scatter_rank_major", "allgather", "allgather_in_axis",
     "allgather_rank_major", "broadcast", "__version__",

@@ -54,6 +54,11 @@ class Config:
       per-call backend bypasses the cutover).
     - ``pallas_bidirectional``: the ring allreduce splits a tensor in two
       halves that rotate in opposite directions.
+    - ``gradsync_overlap`` ("off" | "auto"), ``analysis`` and ``obs``
+      ("off" | ...): the JAX package's backprop-overlapped gradient sync,
+      static collective analysis and telemetry.  Their modules are not
+      ported (ROADMAP queue A, items 3 b, 11 and 10); the recipes
+      refuse any value but "off" by the item's name.
     """
 
     backend: str = "xla"
@@ -64,15 +69,19 @@ class Config:
     chunk_bytes: int = 4 * 1024 * 1024
     custom_min_bytes: int = 64 * 1024
     pallas_bidirectional: bool = False
+    gradsync_overlap: str = "off"
+    analysis: str = "off"
+    obs: str = "off"
 
     @staticmethod
     def from_env(**overrides) -> "Config":
         """Build a Config from the environment (TORCHMPI_TPU_BACKEND,
         TORCHMPI_TPU_FLASH_PRESCALE, TORCHMPI_TPU_FUSE_MAX_BYTES,
         TORCHMPI_TPU_GRADSYNC_AVERAGE, TORCHMPI_TPU_GRADSYNC_COMPRESS,
-        TORCHMPI_TPU_CHUNK_BYTES,
-        TORCHMPI_TPU_CUSTOM_MIN_BYTES; ``pallas_bidirectional`` has none),
-        then apply ``overrides``."""
+        TORCHMPI_TPU_CHUNK_BYTES, TORCHMPI_TPU_CUSTOM_MIN_BYTES,
+        TORCHMPI_TPU_GRADSYNC_OVERLAP, TORCHMPI_TPU_ANALYSIS,
+        TORCHMPI_TPU_OBS; ``pallas_bidirectional`` has none), then apply
+        ``overrides``."""
         cfg = Config(
             backend=_env_str("TORCHMPI_TPU_BACKEND", "xla"),
             flash_prescale=_env_bool("TORCHMPI_TPU_FLASH_PRESCALE", False),
@@ -84,6 +93,10 @@ class Config:
             chunk_bytes=_env_int("TORCHMPI_TPU_CHUNK_BYTES", 4 * 1024 * 1024),
             custom_min_bytes=_env_int("TORCHMPI_TPU_CUSTOM_MIN_BYTES",
                                       64 * 1024),
+            gradsync_overlap=_env_str("TORCHMPI_TPU_GRADSYNC_OVERLAP",
+                                      "off"),
+            analysis=_env_str("TORCHMPI_TPU_ANALYSIS", "off"),
+            obs=_env_str("TORCHMPI_TPU_OBS", "off"),
         )
         for k, v in overrides.items():
             if not hasattr(cfg, k):

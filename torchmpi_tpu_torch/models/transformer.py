@@ -34,19 +34,9 @@ from torch import nn
 
 from ..ops.flash import _gqa_group, flash_attention_grad
 from ..parallel.sequence import reference_attention
+from .layers import Dense, check_device
 
 _LATER_IMPLS = ("ring", "ring_flash", "ulysses", "ulysses_flash")
-
-
-def _check_device(device) -> torch.device:
-    """The device a module builds its parameters on; the card unless the
-    caller asks for the CPU, and never the CPU in the card's place."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device={device!r}: no CUDA device is visible; pass "
-            "device='cpu' to build the module on the CPU")
-    return dev
 
 
 def apply_rope(x: torch.Tensor, pos: torch.Tensor, *,
@@ -70,28 +60,13 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, *,
                      dim=-1).to(x.dtype)
 
 
-class Dense(nn.Linear):
-    """``nn.Linear`` with flax's dtype promotion: float32 parameters, the
-    product (input, weight and bias) computed in ``dtype``."""
-
-    def __init__(self, in_features: int, out_features: int, *,
-                 dtype: torch.dtype = torch.float32, device="cuda"):
-        super().__init__(in_features, out_features,
-                         device=_check_device(device))
-        self.dtype = dtype
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
-                        self.bias.to(self.dtype))
-
-
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm(dtype=float32)``: statistics in float32,
     epsilon 1e-6, variance as E[x^2] - E[x]^2 clipped at 0."""
 
     def __init__(self, dim: int, *, eps: float = 1e-6, device="cuda"):
         super().__init__()
-        device = _check_device(device)
+        device = check_device(device)
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(dim, device=device))
         self.bias = nn.Parameter(torch.zeros(dim, device=device))
@@ -216,7 +191,7 @@ class TransformerLM(nn.Module):
                 "are later slices of the port (ROADMAP queue A, item 8)")
         if pos_emb not in ("learned", "rope"):
             raise ValueError(f"unknown pos_emb {pos_emb!r}")
-        device = _check_device(device)
+        device = check_device(device)
         self.vocab, self.embed_dim, self.dtype = vocab, embed, dtype
         self.pos_emb = pos_emb
         self.embed = nn.Embedding(vocab, embed, device=device)

@@ -1,5 +1,6 @@
 """Load a JAX ``TransformerLM`` parameter tree, or its ZeRO shards and
-optimizer state, into the port's module.
+optimizer state, into the port's module; and a JAX CNN's variables
+(LeNet, AlexNet, ResNet) into the port's CNN (:func:`from_flax_cnn`).
 
 The flax tree of ``torchmpi_tpu.models.TransformerLM`` holds
 ``Embed_0/embedding`` [V, E], ``pos_embed/embedding`` (learned positions),
@@ -22,6 +23,7 @@ port's ZeRO shards [n, shard] (``fusion.local_shards``).
 
 from __future__ import annotations
 
+import re
 from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
@@ -170,3 +172,64 @@ def from_optax_zero_state(state, params: Mapping, model: torch.nn.Module,
             return TraceState(
                 from_flax_zero_shards(part.trace, params, model, n_shards))
     raise ValueError(f"no Adam or momentum state in {type(state).__name__}")
+
+
+# flax module name -> the port's submodule name (models/resnet.py, lenet.py,
+# alexnet.py): Conv_k -> conv{k}, BatchNorm_k -> bn{k}, Dense_k -> dense{k},
+# BasicBlock_i / BottleneckBlock_i -> blocks.{i}; others keep their names.
+_CNN_MODULES = ((re.compile(r"Conv_(\d+)$"), "conv{}"),
+                (re.compile(r"BatchNorm_(\d+)$"), "bn{}"),
+                (re.compile(r"Dense_(\d+)$"), "dense{}"),
+                (re.compile(r"(?:Basic|Bottleneck)Block_(\d+)$"),
+                 "blocks.{}"))
+_CNN_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
+               "mean": "running_mean", "var": "running_var"}
+
+
+def _cnn_module(name: str) -> str:
+    for pat, fmt in _CNN_MODULES:
+        m = pat.match(name)
+        if m:
+            return fmt.format(m.group(1))
+    return name
+
+
+def _cnn_leaf(leaf: str, a: np.ndarray) -> np.ndarray:
+    """A flax CNN leaf in the port's layout: conv kernels HWIO -> OIHW,
+    Dense kernels [in, out] -> [out, in] (the port flattens in flax's HWC
+    order, so no row permutation), everything else as it is."""
+    if leaf == "kernel":
+        return a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+    return a
+
+
+def from_flax_cnn(variables: Mapping,
+                  model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """A ``state_dict`` for ``model`` (a port ``LeNet``, ``AlexNet`` or
+    ``ResNet``) holding a JAX CNN's ``{"params", "batch_stats"}`` (numpy or
+    JAX arrays; ``batch_stats`` only for models with BatchNorm): conv
+    kernels HWIO -> OIHW, Dense kernels transposed, BN ``scale`` / ``bias``
+    -> ``weight`` / ``bias`` and ``mean`` / ``var`` -> the running buffers.
+    Tensors are float32 on the model's device.  Raises if a name or shape
+    does not match the model."""
+    flat: Dict[str, np.ndarray] = {}
+    for coll in ("params", "batch_stats"):
+        for path, a in _flax_leaves(variables.get(coll, {})):
+            name = ".".join([_cnn_module(p) for p in path[:-1]]
+                            + [_CNN_LEAVES.get(path[-1], path[-1])])
+            flat[name] = _cnn_leaf(path[-1], a)
+    want = model.state_dict()
+    if set(flat) != set(want):
+        raise ValueError(
+            "flax variables do not match the model: missing "
+            f"{sorted(set(want) - set(flat))}, unexpected "
+            f"{sorted(set(flat) - set(want))}")
+    out = {}
+    for name, ref in want.items():
+        arr = flat[name]
+        if tuple(arr.shape) != tuple(ref.shape):
+            raise ValueError(f"{name}: flax shape {tuple(arr.shape)} vs "
+                             f"model shape {tuple(ref.shape)}")
+        out[name] = torch.tensor(np.ascontiguousarray(arr),
+                                 dtype=torch.float32, device=ref.device)
+    return out
