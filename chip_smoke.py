@@ -104,10 +104,36 @@ JAX package.  In order it:
    within 1e-4 of the replicated one), every launch of rows 8 and 11 on
    the 16-byte path (ZeRO's 6,389,258-element shard is not a multiple of
    16 bytes: rows 9 and 10 take their element path there);
-10. CNN examples phase: the port's mnist_sequential, mnist_allreduce and
-   cifar_resnet20 (ZeRO 0 and 3) in-process as a world of one on the
-   card, each to its accuracy bar (MNIST > 0.9, CIFAR > 0.85);
-11. prints the kernels' summary line (each kernel's launches summed over
+10. async verbs phase: the nine collective verbs of 4 ranks rank-major
+   on the card (float32 at 8,249,691 elements a rank, int32 and bfloat16
+   at 300,001; the tiling verbs rounded up to a multiple of 4) against
+   their closed forms computed on the CPU, bitwise; staged equal to
+   direct; every async handle (direct, on the side stream, and staged)
+   equal to its synchronous call; async_.allreduce on the ring bitwise
+   equal to the synchronous ring call and launched on the side stream;
+   donate=True releasing the input's bytes before wait(); wait_all's
+   order and a failed handle (an indivisible scatter) done and raising on
+   each wait; the nine process-world verbs and their async_in_axis forms
+   over NCCL in the world of one;
+11. overlap phase (the main path of the async slice): the ResNet-50 step
+   of phase 9 with overlap="auto": the last rank's backward fires each
+   reverse-parameter-order bucket (at most 32 MiB) from tensor hooks onto
+   the ring (rows 8 and 11) on a side stream; 3 steps with every bucket
+   and the statistics bitwise equal to the plain ring, the buckets on the
+   side stream; the synced gradients bitwise equal to the plain ring on
+   the overlap layout and within 1e-6 (rel. L2) of the non-overlapped
+   sync of the same stacks; 3 steps timed by CUDA events in turns with 3
+   non-overlapped ones (reported, no bar), one counting host syncs (0),
+   one of each profiled by CUDA stream; a ZeRO-1 presynced step within
+   1e-4 of a replicated one (row 10 bitwise), a replicated step with 4
+   buckets and no overlap, every bucket bitwise; every launch of rows 8
+   and 11 on the 16-byte path;
+12. CNN examples phase: the port's mnist_sequential, mnist_allreduce,
+   cifar_resnet20 (ZeRO 0 and 3) and mnist_async_allreduce (4 buckets in
+   the world of one; overlapped, 4 ranks rank-major on the ring)
+   in-process on the card, each to its accuracy bar (MNIST > 0.9, CIFAR
+   > 0.85);
+13. prints the kernels' summary line (each kernel's launches summed over
    the main paths, and by path), then {"ok": true, "device": ...}.
 
 Each phase prints one JSON line.  Any failed check raises and the script
@@ -240,9 +266,41 @@ STEP_PARTS = (
 )
 # The examples run in-process, a world of one on the card, to their
 # accuracy bars (MNIST > 0.9, CIFAR > 0.85; each raises below it).
-CNN_EXAMPLES = (("mnist_sequential", (), 0.9), ("mnist_allreduce", (), 0.9),
-                ("cifar_resnet20", ("--zero", "0"), 0.85),
-                ("cifar_resnet20", ("--zero", "3"), 0.85))
+# (example, argv, bar, Config knobs set around the run): the async example
+# bucketed (a world of one on NCCL, 4 buckets) and overlapped (4 ranks
+# rank-major on the ring, the buckets fired from the backward hooks).
+CNN_EXAMPLES = (("mnist_sequential", (), 0.9, {}),
+                ("mnist_allreduce", (), 0.9, {}),
+                ("cifar_resnet20", ("--zero", "0"), 0.85, {}),
+                ("cifar_resnet20", ("--zero", "3"), 0.85, {}),
+                ("mnist_async_allreduce", (), 0.9, {}),
+                ("mnist_async_allreduce", ("--devices", "4", "--backend",
+                                           "pallas"), 0.9,
+                 {"gradsync_overlap": "auto"}))
+# The async slice: ASYNC_N ranks rank-major on the card, float32 at the
+# flagship's gradient bucket and int32 / bfloat16 at 300,001 elements a
+# rank (the verbs that tile a rank's tensor over the ranks, rounded up to
+# a multiple of ASYNC_N); each verb's parameters.
+ASYNC_N = 4
+ASYNC_SIZES = {"float32": RING_BUCKET, "int32": RING_SMALL,
+               "bfloat16": RING_SMALL}
+ASYNC_TILED = ("reduce_scatter", "scatter", "alltoall")
+ASYNC_PARAMS = {"allreduce": {"op": "sum"}, "broadcast": {"root": 1},
+                "reduce": {"root": 2, "op": "mean"}, "allgather": {},
+                "reduce_scatter": {}, "gather": {"root": 3},
+                "scatter": {"root": 1}, "sendreceive": {"src": 3, "dst": 0},
+                "alltoall": {}}
+WORLD_VERBS = ("reduce", "gather", "scatter", "sendreceive", "alltoall")
+# The overlap slice: ResNet-50 as resnet50_dp runs it, the sync fired from
+# the backward hooks (overlap="auto"): reverse-parameter-order buckets of
+# at most overlap_bucket_bytes (32 MiB, fuse_max_bytes' power of two), the
+# allreduces of the last rank's backward on a side stream; rows 8 and 11
+# from the hooks, 11 also for the statistics, 10 for the ZeRO-1
+# (presynced) all-gather.
+OV_ROWS = ("ring_allreduce_chunked", "ring_all_gather_chunked",
+           "ring_allreduce")
+OV_VECTOR_ROWS = ("ring_allreduce_chunked", "ring_allreduce")
+OV_FUSED_RTOL = 1e-6  # overlap layout vs the 32 MiB fused layout, rel. L2
 
 SOURCES = {
     "flash_fwd": ("torchmpi_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -1405,7 +1463,8 @@ def tap_rank_major_routes(torch, mpi, ring, log,
     kernels) between two CUDA events, then the plain ring on the same
     input, and appends to ``log`` whether the two agree bitwise (and, for
     the all-gather, whether every rank's slice is the same), the rows the
-    route launched, its elements a rank, and the peak device memory while
+    route launched, its elements a rank, the stream it ran on, and the peak
+    device memory while
     the route ran (the peak so far is kept in ``log.peak``).  Returns the
     function that restores the plain routes."""
     sel = mpi.selector
@@ -1422,6 +1481,7 @@ def tap_rank_major_routes(torch, mpi, ring, log,
             end.record()
             entry = {"verb": verb, "events": (start, end),
                      "label": log.label, "elems": xs[0].numel(),
+                     "stream": torch.cuda.current_stream().cuda_stream,
                      "rows": [k for k, v in ring.LAUNCHES.items()
                               if v != before[k]],
                      "peak_bytes": torch.cuda.max_memory_allocated(),
@@ -1896,18 +1956,548 @@ def resnet50_dp_phase(torch, mpi, ops, dev):
     return launches
 
 
-def cnn_examples_phase(torch):
-    """The port's three main-path examples (and CIFAR under ZeRO-3) run
-    in-process as a world of one on the card, each to its accuracy bar."""
+def closed_form(torch, verb, xs, root=0, op="sum", src=0, dst=1):
+    """Rank-major ``verb`` of ``xs`` [n, ...] as the JAX package's host
+    closed forms define it (``_host_staged``), in plain torch: sums as a
+    left fold over the ranks in the stack's dtype, a mean as the sum over
+    n (float32 for integers), non-root slices unchanged by reduce and
+    zeros for gather, alltoall tiled along the leading dim."""
+    n = xs.shape[0]
+
+    def reduced():
+        acc = xs[0].clone()
+        for r in range(1, n):
+            acc = acc + xs[r]
+        return acc / n if op == "mean" else acc
+
+    if verb == "allreduce":
+        red = reduced()
+        return torch.stack([red] * n)
+    if verb == "broadcast":
+        return torch.stack([xs[root]] * n)
+    if verb == "reduce":
+        red = reduced()
+        return torch.stack([red if r == root else xs[r].to(red.dtype)
+                            for r in range(n)])
+    if verb == "allgather":
+        return torch.stack([xs] * n)
+    if verb == "reduce_scatter":
+        return reduced().reshape(n, -1)
+    if verb == "gather":
+        return torch.stack([xs if r == root else torch.zeros_like(xs)
+                            for r in range(n)])
+    if verb == "scatter":
+        return xs[root].reshape(n, -1).clone()
+    if verb == "sendreceive":
+        return torch.stack([xs[src] if r == dst else xs[r]
+                            for r in range(n)])
+    if verb == "alltoall":
+        pieces = xs.reshape(n, n, -1)
+        return torch.stack([pieces[:, i].reshape(-1) for i in range(n)])
+    raise ValueError(verb)
+
+
+def async_verbs_phase(torch, mpi, ring, dev):
+    """The async slice's verbs: ASYNC_N ranks rank-major on the card, the
+    nine verbs at each dtype of ASYNC_SIZES against their closed forms
+    computed on the CPU (bitwise), staged equal to direct (bitwise, dtype
+    included), every async handle (direct on the side stream and staged)
+    equal to its synchronous call; ``async_.allreduce`` under "pallas"
+    bitwise equal to the synchronous ring call and launched on the side
+    stream; ``donate=True`` releasing the input's bytes before ``wait()``;
+    ``wait_all``'s order and a failed handle (an indivisible scatter) done
+    and raising on each wait; then the nine process-world verbs and their
+    ``async_in_axis`` forms over NCCL in the world of one."""
+    coll = mpi.collectives
+    n = ASYNC_N
+    g = torch.Generator().manual_seed(SEED + 9)
+    results, dtypes = {}, {}
+    t0 = time.perf_counter()
+    for name, size in ASYNC_SIZES.items():
+        dtype = getattr(torch, name)
+        for verb, params in ASYNC_PARAMS.items():
+            L = -(-size // n) * n if verb in ASYNC_TILED else size
+            if dtype == torch.int32:
+                host = torch.randint(-1000, 1000, (n, L), generator=g,
+                                     dtype=torch.int32)
+            else:
+                host = torch.randn(n, L, generator=g).to(dtype)
+            xs = host.to(dev)
+            want = closed_form(torch, verb, host, **params)
+            fn = getattr(mpi, f"{verb}_rank_major")
+            direct = fn(xs, **params)
+            staged = fn(xs, staged=True, **params)
+            h_direct = getattr(mpi.async_, verb)(xs, **params)
+            h_staged = getattr(mpi.async_, verb)(xs, staged=True, **params)
+            outs = mpi.wait_all([h_direct, h_staged])
+            key = f"{verb}_{name}"
+            results[key] = {
+                "closed_form": torch.equal(direct.cpu(), want),
+                "staged": (staged.dtype == direct.dtype
+                           and torch.equal(staged, direct)),
+                "async_direct": torch.equal(outs[0], direct),
+                "async_staged": torch.equal(outs[1], direct),
+                "elems": L}
+            dtypes[key] = str(direct.dtype)
+            del xs, direct, staged, outs, h_direct, h_staged
+    verbs_s = time.perf_counter() - t0
+
+    # async_.allreduce on the ring: on the side stream, bitwise as sync.
+    xs = torch.randn(n, RING_BUCKET, generator=g).to(dev)
+    route = mpi.selector.available("allreduce_rank_major")["pallas"]
+    streams = []
+
+    def spy(x, **kw):
+        streams.append(torch.cuda.current_stream().cuda_stream)
+        return route(x, **kw)
+
+    mpi.selector.register("allreduce_rank_major", "pallas", spy)
+    before = dict(ring.LAUNCHES)
+    try:
+        h = mpi.async_.allreduce(xs, backend="pallas")
+        a = h.wait()
+    finally:
+        mpi.selector.register("allreduce_rank_major", "pallas", route)
+    ring_rows = [k for k, v in ring.LAUNCHES.items() if v != before[k]]
+    b = mpi.allreduce_rank_major(xs, backend="pallas")
+    caller = torch.cuda.current_stream().cuda_stream
+    side = coll.side_stream(dev).cuda_stream
+    ms_sync = time_ms(torch, lambda: mpi.allreduce_rank_major(
+        xs, backend="pallas"), iters=5)
+    ms_async = time_ms(torch, lambda: mpi.async_.allreduce(
+        xs, backend="pallas").wait(), iters=5)
+    ms_staged = time_ms(torch, lambda: mpi.async_.allreduce(
+        xs, staged=True).wait(), iters=3, warmup=1)
+    ring_ok = {"bitwise": torch.equal(a, b), "streams": streams,
+               "caller": caller, "side": side, "rows": ring_rows}
+
+    # donate: the input's bytes leave the card once staged, before wait().
+    x = torch.randn(n, RING_BUCKET, generator=g).to(dev)
+    ref = mpi.allreduce_rank_major(x)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    h = mpi.async_.allreduce(x, staged=True, donate=True)
+    t1 = time.monotonic()
+    while not h.done and time.monotonic() - t1 < 120:
+        time.sleep(0.001)
+    dropped = mem0 - torch.cuda.memory_allocated()
+    donated = {"input_bytes": x.numel() * x.element_size(),
+               "dropped_before_wait": dropped, "done": h.done,
+               "equal": torch.equal(h.wait(), ref),
+               "storage_left": x.untyped_storage().size()}
+    del x, ref
+
+    # wait_all order and a failed handle.
+    ys = [torch.full((n, 1000), float(i), device=dev) for i in range(5)]
+    hs = [mpi.async_.allreduce(y, staged=i % 2 == 1)
+          for i, y in enumerate(ys)]
+    order = all(torch.equal(o, closed_form(torch, "allreduce", y.cpu())
+                            .to(dev))
+                for o, y in zip(mpi.wait_all(hs), ys))
+    bad = mpi.async_.scatter(torch.ones(n, 7, device=dev))
+    errors = []
+    for _ in range(2):
+        try:
+            bad.wait()
+        except ValueError as e:
+            errors.append(str(e))
+    failed = {"done": bad.done, "raised_each_wait": len(errors) == 2}
+
+    # The process world of one over NCCL: every verb and its async form.
+    x1 = torch.randn(RING_SMALL - 1, generator=g).to(dev)
+    world = {}
+    for verb in coll.VERBS:
+        params = ({"src": 0, "dst": 0} if verb == "sendreceive" else
+                  {"op": "mean"} if verb == "reduce" else {})
+        want = closed_form(torch, verb, x1.cpu()[None], **params)[0]
+        got = getattr(mpi, verb)(x1, **params)
+        h = getattr(mpi.async_in_axis, verb)(x1, **params)
+        world[verb] = {"sync": torch.equal(got.cpu(), want),
+                       "async": torch.equal(h.wait(), got),
+                       "done": h.done}
+    emit({"phase": "async_verbs", "ranks": n,
+          "sizes": {k: v for k, v in ASYNC_SIZES.items()},
+          "verbs": results, "dtypes": dtypes, "verbs_seconds": verbs_s,
+          "ring_async": ring_ok, "allreduce_pallas_ms": ms_sync,
+          "async_allreduce_pallas_ms": ms_async,
+          "async_staged_allreduce_xla_ms": ms_staged, "donate": donated,
+          "wait_all_in_order": order, "failed_handle": failed,
+          "world_of_one": world})
+    for key, r in results.items():
+        check(all(r[k] for k in ("closed_form", "staged", "async_direct",
+                                 "async_staged")), f"{key}: {r}")
+    check(ring_ok["bitwise"] and streams and all(
+        st == side != caller for st in streams) and ring_rows,
+          f"async ring allreduce: {ring_ok}")
+    check(donated["done"] and donated["equal"]
+          and donated["storage_left"] == 0
+          and donated["input_bytes"] <= dropped
+          < donated["input_bytes"] + (2 << 20),
+          f"donate: {donated}")
+    check(order and failed["done"] and failed["raised_each_wait"],
+          f"wait_all order {order}, failed handle {failed}")
+    check(all(all(v.values()) for v in world.values()),
+          f"process-world verbs: {world}")
+
+
+def stream_profile(torch, fn) -> dict:
+    """Device time of one call of ``fn`` by CUDA stream, from
+    torch.profiler's trace: each stream's kernel and copy time and busy
+    span, and how much of the other streams' busy time fell while the
+    busiest stream (the compute stream) was busy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "overlap_trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    os.remove(path)
+    spans = {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and \
+                "dur" in e:
+            st = (e.get("args") or {}).get("stream")
+            spans.setdefault(st, []).append((e["ts"], e["ts"] + e["dur"]))
+
+    def merged(iv):
+        out = []
+        for a, b in sorted(iv):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+
+    def length(iv):
+        return sum(b - a for a, b in iv)
+
+    def overlap(p, q):
+        i = j = 0
+        tot = 0.0
+        while i < len(p) and j < len(q):
+            lo, hi = max(p[i][0], q[j][0]), min(p[i][1], q[j][1])
+            tot += max(0.0, hi - lo)
+            if p[i][1] < q[j][1]:
+                i += 1
+            else:
+                j += 1
+        return tot
+
+    busy = {st: merged(iv) for st, iv in spans.items()}
+    if not busy:
+        return {"streams": {}}
+    main = max(busy, key=lambda st: length(busy[st]))
+    return {"main_stream": main, "streams": {
+        str(st): {"ops": len(spans[st]),
+                  "device_ms": sum(b - a for a, b in spans[st]) / 1e3,
+                  "busy_ms": length(busy[st]) / 1e3,
+                  "concurrent_with_main_ms": (
+                      None if st == main else
+                      overlap(busy[st], busy[main]) / 1e3)}
+        for st in busy}}
+
+
+def overlap_dp_phase(torch, mpi, ops, dev):
+    """The overlap slice's main path: ResNet-50 as resnet50_dp runs it
+    (R50_N ranks rank-major, R50_BATCH images a rank, 224 x 224, bf16,
+    SGD, backend "pallas", prefetch_to_device), with overlap="auto": the
+    last rank's backward fires each reverse-parameter-order bucket's ring
+    allreduce from the tensor hooks on the side stream.  Three steps with
+    every bucket (rows 8 / 11) and the statistics (row 11) held bitwise to
+    the plain ring on the same input, the buckets on the side stream and
+    the statistics on the caller's; one overlapped gradient computation
+    whose synced gradients are bitwise the plain ring on the overlap
+    layout and within OV_FUSED_RTOL (rel. L2 per tensor) of the
+    non-overlapped 32 MiB sync of the same stacks; steps timed by CUDA
+    events in turns with non-overlapped ones; one counting host syncs
+    (0); one of each profiled by stream; a ZeRO-1 presynced step within
+    R50_ZERO_RTOL of a replicated one (row 10 bitwise); a replicated step
+    with n_buckets=4 and no overlap, every bucket bitwise the plain ring.
+    Every launch of rows 8 and 11 on the 16-byte path.  The counters are
+    set to 0 just before and read just after; the launches of the
+    non-overlapped steps and comparisons are taken out."""
+    from torchmpi_tpu_torch.utils import data as dutil
+    from torchmpi_tpu_torch.utils.input_pipeline import prefetch_to_device
+
+    ring = ops["ring"]
+    recipes, zero, fusion = mpi.recipes, mpi.parallel.zero, mpi.fusion
+    gs, sel = mpi.parallel.gradsync, mpi.selector
+    n, b = R50_N, R50_BATCH
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    model = mpi.models.ResNet50(num_classes=R50_CLASSES,
+                                dtype=torch.bfloat16, device=dev,
+                                generator=g)
+    params, stats = recipes.bn_state(model)
+    tx = mpi.optim.sgd(R50_LR, momentum=R50_MOMENTUM)
+    opt = [tx.init(p) for p in params]
+    bound = gs.overlap_bucket_bytes()
+    firing = gs.assign_overlap_buckets(params, bound)
+    bucket_elems = [sum(params[i].numel() for i in bk) for bk in firing]
+    chunk_bytes = mpi.effective_config().chunk_bytes
+    bucket_rows = [ring.schedule(m, n, torch.float32,
+                                 chunk_bytes=chunk_bytes,
+                                 bidirectional=False)[0]
+                   for m in bucket_elems]
+    step_ov = recipes.make_bn_dp_train_step_rank_major(
+        model, tx, n, backend="pallas", overlap="auto")
+    step_plain = recipes.make_bn_dp_train_step_rank_major(
+        model, tx, n, backend="pallas")
+    X, Y = dutil.synthetic_image_classification(
+        2 * n * b, image_shape=(R50_IMAGE, R50_IMAGE, 3),
+        num_classes=R50_CLASSES, seed=SEED + 1)
+    n_batches = 3 + 1 + 2 * R50_TIMED_STEPS + 1 + 2 + 1 + 1
+    it = prefetch_to_device(dutil.batches(X, Y, n * b, steps=n_batches,
+                                          seed=SEED + 1), depth=2,
+                            device=dev)
+
+    def batch():
+        xb, yb = next(it)
+        return xb.permute(0, 3, 1, 2), yb
+
+    def run(step, xb, yb):
+        nonlocal params, opt, stats
+        params, opt, stats, loss = step(params, opt, stats, xb, yb)
+        return loss
+
+    def counts():
+        return {k: ring.LAUNCHES[k] for k in ring.KERNELS}
+
+    excluded = {k: 0 for k in ring.KERNELS}
+
+    def not_counted(fn):
+        before = counts()
+        out = fn()
+        for k, v in counts().items():
+            excluded[k] += v - before[k]
+        return out
+
+    side = mpi.collectives.side_stream(dev).cuda_stream
+    caller = torch.cuda.current_stream().cuda_stream
+    log, losses = TapLog(), []
+    torch.cuda.synchronize()
+    for mod in ops.values():
+        mod.reset_launches()
+    restore = tap_rank_major_routes(torch, mpi, ring, log,
+                                    ops=("allreduce_rank_major",))
+    try:
+        log.label = "overlap"
+        for _ in range(3):
+            losses.append(run(step_ov, *batch()))
+    finally:
+        restore()
+
+    # One overlapped gradient computation, its buckets' inputs kept: the
+    # synced stacks against the plain ring on the overlap layout (bitwise)
+    # and against the non-overlapped fused sync of the same stacks.
+    loss_of = recipes._loss_of(model, False)
+    route = sel.available("allreduce_rank_major")["pallas"]
+    kept = []
+
+    def keep(xs, **kw):
+        kept.append(xs.clone())
+        return route(xs, **kw)
+
+    xb, yb = batch()
+    vag = gs.make_overlapped_grad_fn_rank_major(
+        lambda leaves, x, y: loss_of(leaves, stats, x, y), params, n,
+        backend="pallas", has_aux=True)
+    sel.register("allreduce_rank_major", "pallas", keep)
+    try:
+        _, synced = vag(params, xb, yb)
+    finally:
+        sel.register("allreduce_rank_major", "pallas", route)
+    raw = [p.new_zeros((n, *p.shape)) for p in params]
+    for bk, buf in zip(firing, kept):
+        fusion.scatter_bucket(buf, raw, fusion.bucket_group(params, bk), 0,
+                              rank_major=True)
+    plain_ov = [t.clone() for t in raw]
+    for bk in firing:
+        grp = fusion.bucket_group(params, bk)
+        buf = fusion.gather_bucket(plain_ov, grp, 0, grp.total,
+                                   rank_major=True)
+        fusion.scatter_bucket(ring.ring_allreduce_plain(buf, op="mean"),
+                              plain_ov, grp, 0, rank_major=True)
+    fused = [t.clone() for t in raw]
+    not_counted(lambda: gs.synchronize_gradients_rank_major(
+        fused, backend="pallas"))
+    with torch.no_grad():
+        ov_bitwise = all(torch.equal(a, c) for a, c in zip(synced, plain_ov))
+        rel = [float((a - c).float().norm()
+                     / c.float().norm().clamp_min(1e-30))
+               for a, c in zip(synced, fused)]
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    del kept, raw, plain_ov, fused, synced
+
+    # Timed steps, overlapped and not, in turns.
+    step_ms = {"overlap": [], "plain": []}
+    peak = {"overlap": 0, "plain": 0}
+    for i in range(R50_TIMED_STEPS):
+        order = ("overlap", "plain") if i % 2 == 0 else ("plain", "overlap")
+        for label in order:
+            xb, yb = batch()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+
+            def timed():
+                start.record()
+                losses.append(run(step_ov if label == "overlap"
+                                  else step_plain, xb, yb))
+                end.record()
+                end.synchronize()
+            if label == "overlap":
+                timed()
+            else:
+                not_counted(timed)
+            step_ms[label].append(start.elapsed_time(end))
+            peak[label] = max(peak[label], torch.cuda.max_memory_allocated())
+    xb, yb = batch()
+    syncs = count_host_syncs(torch, lambda: losses.append(
+        run(step_ov, xb, yb)))
+    xb, yb = batch()
+    prof_ov = stream_profile(torch, lambda: losses.append(
+        run(step_ov, xb, yb)))
+    xb, yb = batch()
+    prof_plain = not_counted(lambda: stream_profile(
+        torch, lambda: losses.append(run(step_plain, xb, yb))))
+    launches_ov = {k: v - excluded[k] for k, v in counts().items()}
+    vector = {k: {"all": ring.LAUNCHES[k], "vector": ring.VECTOR_LAUNCHES[k]}
+              for k in OV_VECTOR_ROWS}
+
+    # ZeRO-1 presynced from the replicated state, beside a replicated step
+    # on the same batch (cuDNN's deterministic algorithms for both); then a
+    # replicated step with 4 buckets and no overlap.
+    zspec = zero.flat_spec(params, n_shards=n)
+    zstate = mpi.optim.TraceState(
+        fusion.local_shards([s.trace for s in opt], zspec))
+    step1 = recipes.make_bn_dp_train_step_rank_major(
+        model, tx, n, backend="pallas", zero=1, overlap="auto")
+    step_b4 = recipes.make_bn_dp_train_step_rank_major(
+        model, tx, n, backend="pallas", n_buckets=4)
+    xb, yb = batch()
+    restore = tap_rank_major_routes(torch, mpi, ring, log, ops=(
+        "allgather_rank_major", "allreduce_rank_major"))
+    torch.backends.cudnn.deterministic = True
+    try:
+        log.label = "replicated"
+        p_rep, _, _, l_rep = not_counted(
+            lambda: step_plain(params, opt, stats, xb, yb))
+        log.label = "zero1_presynced"
+        before = counts()
+        p_z1, _, _, l_z1 = step1(params, zstate, stats, xb, yb)
+        z1_launches = {k: v - before[k] for k, v in counts().items()}
+        log.label = "buckets4"
+        xb, yb = batch()
+        _, _, _, l_b4 = not_counted(
+            lambda: step_b4(params, opt, stats, xb, yb))
+    finally:
+        torch.backends.cudnn.deterministic = False
+        restore()
+    launches = {k: launches_ov[k] + z1_launches[k] for k in OV_ROWS}
+    losses += [l_rep, l_z1, l_b4]
+    with torch.no_grad():
+        zrel = [float(((a - p) - (r - p)).norm()
+                      / (r - p).norm().clamp_min(1e-30))
+                for a, r, p in zip(p_z1, p_rep, params)]
+    zworst = max(range(len(zrel)), key=zrel.__getitem__)
+    losses = [float(v) for v in losses]
+    by_label = {}
+    for e in log:
+        d = by_label.setdefault(e["label"], {
+            "calls": 0, "bitwise": True, "rows": set(), "streams": set(),
+            "elems": []})
+        d["calls"] += 1
+        d["bitwise"] = d["bitwise"] and e["bitwise"]
+        d["rows"].update(e["rows"])
+        d["streams"].add("side" if e["stream"] == side else
+                         "caller" if e["stream"] == caller else "other")
+        d["elems"].append(e["elems"])
+    by_label = {k: dict(v, rows=sorted(v["rows"]),
+                        streams=sorted(v["streams"]))
+                for k, v in by_label.items()}
+    med = {k: statistics.median(v) for k, v in step_ms.items()}
+    emit({"phase": "overlap_dp", "ranks": n, "batch_per_rank": b,
+          "config": {"model": "ResNet50", "image": R50_IMAGE,
+                     "classes": R50_CLASSES, "dtype": "bfloat16",
+                     "params": "float32", "optimizer":
+                     f"sgd({R50_LR}, momentum={R50_MOMENTUM})",
+                     "backend": "pallas", "overlap": "auto"},
+          "overlap_bucket_bytes": bound, "buckets": len(firing),
+          "bucket_elems": bucket_elems, "bucket_rows": bucket_rows,
+          "losses": losses, "step_ms": step_ms, "median_step_ms": med,
+          "img_per_s": {k: n * b * 1e3 / v for k, v in med.items()},
+          "peak_mem_bytes": peak, "host_syncs_per_step": syncs,
+          "stream_profile": {"overlap": prof_ov, "plain": prof_plain},
+          "syncs_by_label": by_label,
+          "overlap_layout_bitwise_vs_plain_ring": ov_bitwise,
+          "vs_fused_sync_max_rel_l2": rel[worst],
+          "vs_fused_sync_worst_tensor": [nm for nm, _ in
+                                         model.named_parameters()][worst],
+          "vs_fused_sync_tolerance": OV_FUSED_RTOL,
+          "zero1_presynced_vs_replicated_max_rel_l2": zrel[zworst],
+          "zero1_tolerance": R50_ZERO_RTOL,
+          "launches": launches, "launches_on_16_byte_path": vector,
+          "side_stream": side, "caller_stream": caller})
+    ov = by_label["overlap"]
+    check(all(e["bitwise"] and e.get("rows_equal", True) for e in log),
+          f"an overlap_dp sync differs from the plain ring: {by_label}")
+    grad_entries = [e for e in log if e["label"] == "overlap"
+                    and e["elems"] != R50_STATS]
+    check([e["elems"] for e in grad_entries] == bucket_elems * 3
+          and all(e["stream"] == side != caller for e in grad_entries)
+          and all(e["stream"] == caller for e in log
+                  if e["label"] == "overlap" and e["elems"] == R50_STATS)
+          and ov["calls"] == 3 * (len(firing) + 1),
+          f"overlap buckets {bucket_elems}: {ov}")
+    check({r for e in grad_entries for r in e["rows"]}
+          == set(bucket_rows), f"bucket rows {bucket_rows}: {ov}")
+    check(ov_bitwise, "overlapped gradients differ from the plain ring on "
+          "the overlap layout")
+    check(rel[worst] <= OV_FUSED_RTOL,
+          f"overlap vs the fused sync: {rel[worst]} ({worst})")
+    check(by_label["buckets4"]["calls"] == 5,
+          f"n_buckets=4: {by_label['buckets4']}")
+    check(zrel[zworst] <= R50_ZERO_RTOL,
+          f"ZeRO-1 presynced vs replicated: {zrel[zworst]} ({zworst})")
+    check(syncs == 0, f"{syncs} host-device synchronizations in a step")
+    check(all(math.isfinite(v) for v in losses), f"non-finite {losses}")
+    for name in OV_ROWS:
+        check(launches[name] > 0, f"kernel {name} never launched on the "
+              f"overlap path")
+    for name in OV_VECTOR_ROWS:
+        check(vector[name]["all"] == vector[name]["vector"],
+              f"{name}: {vector[name]} launches on the 16-byte path")
+    return launches
+
+
+def cnn_examples_phase(torch, mpi):
+    """The port's main-path examples (CIFAR also under ZeRO-3, the async
+    example bucketed and overlapped) run in-process on the card, each to
+    its accuracy bar."""
     import importlib
 
     runs = []
-    for name, argv, bar in CNN_EXAMPLES:
+    for name, argv, bar, knobs in CNN_EXAMPLES:
         mod = importlib.import_module(f"torchmpi_tpu_torch.examples.{name}")
         t0 = time.perf_counter()
-        out = mod.main(["--device", "cuda", *argv])
+        before = {k: getattr(mpi.config(), k) for k in knobs}
+        mpi.set_config(**knobs)
+        try:
+            out = mod.main(["--device", "cuda", *argv])
+        finally:
+            mpi.set_config(**before)
+        check(out.get("overlap", False) == bool(knobs),
+              f"{name}: overlap {out.get('overlap')} under {knobs}")
         runs.append({"example": name, "argv": list(argv), "bar": bar,
-                     "accuracy": out["accuracy"],
+                     "config": knobs, "accuracy": out["accuracy"],
                      "img_per_s": out["img_per_s"],
                      "losses": out["losses"],
                      "seconds": time.perf_counter() - t0})
@@ -1988,7 +2578,15 @@ def main() -> int:
         r50_launches = resnet50_dp_phase(torch, mpi, dict(ops, ring=ring),
                                          dev)
         torch.cuda.empty_cache()
-        cnn_examples_phase(torch)
+        # The main paths of slice 13: the nine verbs, staged and async, of
+        # RING_N ranks on the card and across the NCCL world of one; then
+        # ResNet-50 with its sync fired from the backward hooks on a side
+        # stream (rows 8 and 11), ZeRO-1 presynced (row 10).
+        async_verbs_phase(torch, mpi, ring, dev)
+        torch.cuda.empty_cache()
+        ov_launches = overlap_dp_phase(torch, mpi, dict(ops, ring=ring), dev)
+        torch.cuda.empty_cache()
+        cnn_examples_phase(torch, mpi)
     finally:
         mpi.stop()
 
@@ -2002,7 +2600,9 @@ def main() -> int:
                    "zero_dp" if name.startswith("ring") else "train")
         return {earlier: launches[name],
                 **({"resnet50_dp": r50_launches[name]}
-                   if name in r50_launches else {})}
+                   if name in r50_launches else {}),
+                **({"overlap_dp": ov_launches[name]}
+                   if name in ov_launches else {})}
 
     kernels = [{**{k: dict(row, launches=sum(by_path(
                     row["name"]).values()))[k] for k in keys},

@@ -173,6 +173,43 @@ def test_resnet50_matches_flax_small_input():
                    rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("kind", ["basic", "bottleneck"])
+@pytest.mark.parametrize("size", [1, 2])
+def test_block_projects_where_flax_does(kind, size):
+    """A stride-2 residual block with equal channels, training mode: on a
+    1 x 1 map it keeps its shape, flax's init has no projection and
+    applies none, and ``from_flax_cnn`` drops the port's; on a 2 x 2 map
+    both project.  Outputs within the file's tolerance."""
+    from functools import partial
+
+    import flax.linen as fnn
+
+    from torchmpi_tpu.models import resnet as jresnet
+    from torchmpi_tpu_torch.models import resnet as tresnet
+
+    filters, expansion = (8, 1) if kind == "basic" else (4, 4)
+    ch = filters * expansion
+    jcls = jresnet.BasicBlock if kind == "basic" else jresnet.BottleneckBlock
+    jm = jcls(filters=filters, strides=(2, 2), act=fnn.relu,
+              conv=partial(fnn.Conv, use_bias=False, padding="SAME"),
+              norm=partial(fnn.BatchNorm, use_running_average=False,
+                           momentum=0.9, epsilon=1e-5))
+    v = _init(jm, (1, size, size, ch), seed=5)
+    assert ("conv_proj" in v["params"]) == (size > 1)
+    tcls = tresnet.BasicBlock if kind == "basic" else tresnet.BottleneckBlock
+    block = tcls(ch, filters, (2, 2),
+                 conv=partial(layers.Conv2d, use_bias=False, device="cpu"),
+                 norm=partial(layers.BatchNorm, momentum=0.9, eps=1e-5,
+                              device="cpu"))
+    block.load_state_dict(tweights.from_flax_cnn(v, block))
+    assert hasattr(block, "conv_proj") == (size > 1)
+    x = _images(4, size, ch, seed=6)
+    got = block(_nchw(x), train=True)
+    want, _ = jm.apply(v, x, mutable=["batch_stats"])
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).detach().numpy(),
+                               np.asarray(want), rtol=1e-4, atol=1e-5)
+
+
 def test_alexnet_matches_flax_eval():
     """AlexNet at 224 x 224 with ``train=False`` (dropout masks cannot
     match JAX's, so parity runs without them): the 11 x 11 / 4 conv pads

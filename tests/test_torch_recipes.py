@@ -16,6 +16,9 @@ against the JAX package's ``recipes.make_bn_dp_train_step`` on the CPU.
   against 1 rank on the full batch.
 - ``remat=True`` equal to ``remat=False``, with the running statistics
   updated once.
+- ``overlap="auto"`` (ZeRO 0/1/3, both backends) and ``n_buckets=4``
+  against JAX's recipe with the same options, and on the 2 gloo
+  processes.
 - Options that are not ported raise naming their ROADMAP item.
 """
 
@@ -94,9 +97,13 @@ def _assert_close(got, want, what, rtol=1e-4, atol=1e-5):
                                atol=atol, err_msg=what)
 
 
-@pytest.mark.parametrize("zero,backend", [
-    (0, "xla"), (1, "xla"), (3, "xla"), (0, "pallas")])
-def test_rank_major_recipe_matches_jax(zero, backend):
+@pytest.mark.parametrize("zero,backend,overlap,n_buckets", [
+    (0, "xla", "off", None), (1, "xla", "off", None),
+    (3, "xla", "off", None), (0, "pallas", "off", None),
+    (0, "xla", "auto", None), (1, "xla", "auto", None),
+    (3, "xla", "auto", None), (0, "pallas", "auto", None),
+    (0, "xla", "off", 4)])
+def test_rank_major_recipe_matches_jax(zero, backend, overlap, n_buckets):
     mesh = Mesh(np.array(jax.devices()[:N]), AXES)
     jm = JResNet20()
     v = jax.jit(lambda k, x: jm.init(k, x, train=False))(
@@ -105,7 +112,8 @@ def test_rank_major_recipe_matches_jax(zero, backend):
     jtx = optax.sgd(LR, momentum=MOMENTUM)
     j_step = jrecipes.make_bn_dp_train_step(
         jm, jtx, mesh=mesh, backend=backend, donate=False, zero=zero,
-        params_template=j_params if zero == 3 else None)
+        params_template=j_params if zero == 3 else None, overlap=overlap,
+        n_buckets=n_buckets)
     if zero == 0:
         jp, jo, js = jrecipes.replicate_bn_state(
             j_params, jtx.init(j_params), j_stats, mesh=mesh)
@@ -123,7 +131,8 @@ def test_rank_major_recipe_matches_jax(zero, backend):
     template = [p.clone() for p in params]
     t_step = recipes.make_bn_dp_train_step_rank_major(
         model, ttx, N, backend=backend, zero=zero,
-        params_template=template if zero == 3 else None)
+        params_template=template if zero == 3 else None, overlap=overlap,
+        n_buckets=n_buckets)
     if zero == 0:
         opt = [ttx.init(p) for p in params]
     else:
@@ -194,32 +203,42 @@ def test_remat_equals_no_remat_and_updates_stats_once():
 
 
 def test_unported_options_are_refused():
+    """What stays unported raises by its item (analysis, telemetry); the
+    ported overlap and bucket options build (their numbers are held to
+    JAX above), and ``Config.gradsync_overlap="auto"`` turns the overlap
+    on: the same step as ``overlap="auto"``, bitwise."""
     model = ResNet20(device="cpu")
     tx = toptim.sgd(LR)
     build = recipes.make_bn_dp_train_step_rank_major
-    with pytest.raises(NotImplementedError, match="queue A, item 3 b"):
-        build(model, tx, 2, overlap="auto")
-    with pytest.raises(NotImplementedError, match="queue A, item 3 c"):
-        build(model, tx, 2, n_buckets=4)
-    with pytest.raises(NotImplementedError, match="queue A, item 3 b"):
-        recipes.make_bn_dp_train_step(model, tx, overlap="auto")
     build(model, tx, 2, n_buckets=1, overlap="off")
+    build(model, tx, 2, n_buckets=4)
+    recipes.make_bn_dp_train_step(model, tx, overlap="auto")
     with pytest.raises(ValueError, match="overlap"):
         build(model, tx, 2, overlap="sometimes")
     with pytest.raises(ValueError, match="params_template"):
         build(model, tx, 2, zero=3)
     with pytest.raises(ValueError, match="zero must be"):
         build(model, tx, 2, zero=2)
-    for field, item in (("gradsync_overlap", "3 b"), ("analysis", "11"),
-                        ("obs", "10")):
-        tmpi.set_config(**{field: "auto" if field == "gradsync_overlap"
-                           else "warn"})
+    for field, item in (("analysis", "11"), ("obs", "10")):
+        tmpi.set_config(**{field: "warn"})
         try:
             with pytest.raises(NotImplementedError,
                                match=f"queue A, item {item}"):
                 build(model, tx, 2)
         finally:
             tmpi.set_config(**{field: "off"})
+    x, y = _batch(8, seed=7)
+    outs = []
+    for overlap, cfg in (("auto", "off"), (None, "auto")):
+        tmpi.set_config(gradsync_overlap=cfg)
+        try:
+            params, stats = recipes.bn_state(model)
+            step = build(model, tx, 2, overlap=overlap)
+        finally:
+            tmpi.set_config(gradsync_overlap="off")
+        outs.append(step(params, [tx.init(p) for p in params], stats,
+                         _nchw(x), torch.from_numpy(y)))
+    assert all(torch.equal(a, b) for a, b in zip(outs[0][0], outs[1][0]))
     step = build(model, tx, 3)
     params, stats = recipes.bn_state(model)
     x, y = _batch(4)
@@ -280,17 +299,19 @@ RECIPE_WORKER = textwrap.dedent("""
     from torchmpi_tpu_torch.parallel import zero as pzero
 
     rank, out = {rank}, {out!r}
+    CASES = {cases!r}
     mpi.init(device="cpu", init_method="tcp://localhost:{port}", rank=rank,
              world_size=2)
     res = {{}}
-    for level in (0, 1, 3):
+    for level, overlap, n_buckets in CASES:
         model = ResNet20(device="cpu")
         tx = optim.sgd(0.1, momentum=0.9)
         params, stats = recipes.bn_state(model)
         template = [p.clone() for p in params]
         step = recipes.make_bn_dp_train_step(
             model, tx, zero=level,
-            params_template=template if level == 3 else None)
+            params_template=template if level == 3 else None,
+            overlap=overlap, n_buckets=n_buckets)
         if level == 0:
             params, opt, stats = recipes.replicate_bn_state(
                 params, [tx.init(p) for p in params], stats)
@@ -308,9 +329,10 @@ RECIPE_WORKER = textwrap.dedent("""
                 params, opt, stats, x, torch.from_numpy(y[lo:lo + 4]))
         if level == 3:
             params = pzero.unshard_params(params, template)
+        key = f"z{{level}}_{{overlap}}_{{n_buckets}}"
         for j, t in enumerate(list(params) + list(stats)):
-            res[f"z{{level}}_{{j}}"] = t.numpy()
-        res[f"z{{level}}_loss"] = loss.numpy()
+            res[f"{{key}}_{{j}}"] = t.numpy()
+        res[f"{{key}}_loss"] = loss.numpy()
     if rank == 0:
         np.savez(out, **res)
     mpi.barrier()
@@ -318,18 +340,30 @@ RECIPE_WORKER = textwrap.dedent("""
 """)
 
 
+# (zero, overlap, n_buckets) of the process-world recipe runs.
+RECIPE_CASES = [(0, "off", None), (1, "off", None), (3, "off", None),
+                (0, "auto", None), (1, "auto", None), (3, "auto", None),
+                (0, "off", 4)]
+
+
 def test_two_gloo_processes_match_rank_major(tmp_path):
+    """The process-world recipe on 2 gloo ranks, ZeRO 0/1/3, with and
+    without the overlapped sync and with 4 buckets, against the
+    rank-major run of the same cases (held to JAX above)."""
     out = str(tmp_path / "rank0.npz")
-    _run_workers(RECIPE_WORKER.replace("{out!r}", repr(out)), 2)
+    _run_workers(RECIPE_WORKER.replace("{out!r}", repr(out)).replace(
+        "{cases!r}", repr(RECIPE_CASES)), 2)
     got = np.load(out)
-    for level in (0, 1, 3):
+    for level, overlap, n_buckets in RECIPE_CASES:
+        key = f"z{level}_{overlap}_{n_buckets}"
         model = ResNet20(device="cpu")
         tx = toptim.sgd(0.1, momentum=0.9)
         params, stats = recipes.bn_state(model)
         template = [p.clone() for p in params]
         step = recipes.make_bn_dp_train_step_rank_major(
             model, tx, 2, zero=level,
-            params_template=template if level == 3 else None)
+            params_template=template if level == 3 else None,
+            overlap=overlap, n_buckets=n_buckets)
         if level == 0:
             opt = [tx.init(p) for p in params]
         else:
@@ -342,12 +376,12 @@ def test_two_gloo_processes_match_rank_major(tmp_path):
                                             torch.from_numpy(y))
         if level == 3:
             params = tzero.unshard_params_rank_major(params, template)
-        np.testing.assert_allclose(got[f"z{level}_loss"], loss.numpy(),
+        np.testing.assert_allclose(got[f"{key}_loss"], loss.numpy(),
                                    rtol=1e-6)
         for j, t in enumerate(list(params) + list(stats)):
-            np.testing.assert_allclose(got[f"z{level}_{j}"], t.numpy(),
+            np.testing.assert_allclose(got[f"{key}_{j}"], t.numpy(),
                                        rtol=1e-5, atol=1e-6,
-                                       err_msg=f"zero={level} tensor {j}")
+                                       err_msg=f"{key} tensor {j}")
 
 
 # One rank of the 2-process LeNet run: nn.data_parallel_step with SGD,

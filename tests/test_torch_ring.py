@@ -100,7 +100,7 @@ def test_selector_rules():
         with pytest.raises(ValueError):
             tsel.select("allreduce", "hierarchical")
         with pytest.raises(ValueError):
-            tsel.select("alltoall", "xla")
+            tsel.select("fused_reduce_scatter", "xla")
         # Through the collective: below the cutover the stock route runs
         # (no ring arithmetic), above it the ring; both give the sum.
         x = to_torch(stack(4, 300, np.float32, seed=3))

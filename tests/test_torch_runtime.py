@@ -84,7 +84,9 @@ def test_selector_routes_and_refuses(cpu_runtime):
     with pytest.raises(ValueError):
         selector.select("allreduce", "hierarchical")
     with pytest.raises(ValueError):
-        selector.select("alltoall", "xla")
+        selector.select("fused_reduce_scatter", "xla")
+    assert selector.select("alltoall", "pallas") is \
+        selector.available("alltoall")["xla"]
     x = torch.arange(3.0)
     for op in ("sum", "mean"):
         y = tmpi.allreduce(x, op=op, backend="pallas")

@@ -516,11 +516,49 @@ def test_small_lm_zero1_slice_matches_jax():
                                    rtol=1e-4, atol=1e-6, err_msg=name)
 
 
+def test_presynced_update_slices_the_synced_gradients():
+    """``presynced=True`` (the overlap schedule's form) on gradients that
+    are already the mean over ranks equals the reduce-scatter update on
+    the raw ones, bitwise (the stock route's rank-axis fold either way),
+    for ZeRO-1 and ZeRO-3; the process world of one likewise (the module's
+    runtime)."""
+    params = [torch.from_numpy(p) for p in _params()]
+    tx = toptim.adam(1e-3)
+    n = 2
+    spec = tzero.flat_spec(params, n_shards=n)
+    rng = np.random.RandomState(5)
+    raw = [torch.from_numpy(rng.randn(n, *p.shape).astype(np.float32))
+           for p in params]
+    synced = [((r[0] + r[1]) / n).expand_as(r).contiguous() for r in raw]
+    flats = tfusion.group_flats(raw, spec)
+    flats_synced = tfusion.group_flats(synced, spec)
+    state = tzero.init_rank_major(params, tx, n)
+    p_a, s_a = tzero.update_rank_major(params, flats, state, tx)
+    p_b, s_b = tzero.update_rank_major(params, flats_synced, state, tx,
+                                       presynced=True)
+    assert all(torch.equal(a, b) for a, b in zip(p_a, p_b))
+    assert torch.equal(s_a.mu, s_b.mu) and torch.equal(s_a.nu, s_b.nu)
+    shards = tzero.shard_params_rank_major(params, n)
+    q_a, _ = tzero.update3_rank_major(shards, flats, state, tx, spec=spec)
+    q_b, _ = tzero.update3_rank_major(shards, flats_synced, state, tx,
+                                      spec=spec, presynced=True)
+    assert torch.equal(q_a, q_b)
+    one = [s[0] for s in synced]
+    state1 = tzero.init(params, tx)
+    p_c, _ = tzero.update(params, one, state1, tx)
+    p_d, _ = tzero.update(params, one, state1, tx, presynced=True)
+    assert all(torch.equal(a, b) for a, b in zip(p_c, p_d))
+    spec1 = tzero.flat_spec(params)
+    shard1 = tzero.shard_params(params)
+    r_c, _ = tzero.update3(shard1, one, state1, tx, spec=spec1)
+    r_d, _ = tzero.update3(shard1, one, state1, tx, spec=spec1,
+                           presynced=True)
+    assert torch.equal(r_c, r_d)
+
+
 def test_unported_options_are_refused():
     params = [torch.from_numpy(p) for p in _params()]
     tx = toptim.sgd(0.1)
-    with pytest.raises(NotImplementedError, match="queue A, item 3"):
-        tzero.update(params, params, None, tx, presynced=True)
     with pytest.raises(NotImplementedError, match="queue A, item 4"):
         tzero.update3(params[0], params, None, tx, spec=None,
                       dcn_residuals=())

@@ -11,8 +11,11 @@ as CUDA kernels (``ops/csrc``):
     mpi.allreduce(x)                        # sum over ranks
     mpi.allreduce_rank_major(xs, backend="pallas")  # xs[i] = rank i's, one card
     mpi.reduce_scatter(x), mpi.allgather(x)   # this rank's tile / the stack
+    h = mpi.async_.allreduce(xs); h.wait()  # on a side stream; wait_all(hs)
     step = mpi.nn.data_parallel_step(model, optimizer, loss_fn)
     loss = step(batch)                      # grads synced in fused buckets
+    vag = mpi.nn.make_overlapped_grad_fn(loss_fn, params)
+    loss, grads = vag(params, *batch)       # synced from backward hooks
     new_params, state = mpi.parallel.zero.update(params, grads, state, tx)
     step = mpi.recipes.make_bn_dp_train_step(resnet, tx, zero=1)  # BN models
     mpi.stop()
@@ -38,10 +41,16 @@ from .runtime import (
 from . import collectives, fusion, selector
 from . import models, nn, ops, optim, parallel, weights
 from . import recipes, utils
-from .collectives import (allgather, allgather_in_axis, allgather_rank_major,
-                          allreduce, allreduce_in_axis, allreduce_rank_major,
-                          broadcast, reduce_scatter, reduce_scatter_in_axis,
-                          reduce_scatter_rank_major)
+from .collectives import (  # noqa: F401
+    AsyncHandle, PeerTimeoutError, allgather, allgather_in_axis,
+    allgather_rank_major, allreduce, allreduce_in_axis, allreduce_rank_major,
+    alltoall, alltoall_in_axis, alltoall_rank_major, async_, async_in_axis,
+    broadcast, broadcast_in_axis, broadcast_rank_major, gather,
+    gather_in_axis, gather_rank_major, reduce, reduce_in_axis,
+    reduce_rank_major, reduce_scatter, reduce_scatter_in_axis,
+    reduce_scatter_rank_major, scatter, scatter_in_axis, scatter_rank_major,
+    sendreceive, sendreceive_in_axis, sendreceive_rank_major, sync_handle,
+    wait_all)
 
 __version__ = "0.1.0"
 
@@ -49,8 +58,8 @@ __all__ = [
     "Config", "init", "stop", "is_initialized", "rank", "size", "local_rank",
     "barrier", "config", "config_epoch", "effective_config", "set_config",
     "collectives", "fusion", "selector", "models", "nn", "ops", "parallel",
-    "weights", "optim", "recipes", "utils", "allreduce", "allreduce_in_axis",
-    "allreduce_rank_major", "reduce_scatter", "reduce_scatter_in_axis",
-    "reduce_scatter_rank_major", "allgather", "allgather_in_axis",
-    "allgather_rank_major", "broadcast", "__version__",
-]
+    "weights", "optim", "recipes", "utils", "__version__",
+    "AsyncHandle", "PeerTimeoutError", "async_", "async_in_axis",
+    "sync_handle", "wait_all",
+] + [f"{verb}{form}" for verb in collectives.VERBS
+     for form in ("", "_in_axis", "_rank_major")]

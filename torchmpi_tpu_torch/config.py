@@ -54,11 +54,27 @@ class Config:
       per-call backend bypasses the cutover).
     - ``pallas_bidirectional``: the ring allreduce splits a tensor in two
       halves that rotate in opposite directions.
-    - ``gradsync_overlap`` ("off" | "auto"), ``analysis`` and ``obs``
-      ("off" | ...): the JAX package's backprop-overlapped gradient sync,
-      static collective analysis and telemetry.  Their modules are not
-      ported (ROADMAP queue A, items 3 b, 11 and 10); the recipes
-      refuse any value but "off" by the item's name.
+    - ``staged``: the rank-major verbs take the host-staged path (device
+      -> pinned host -> reduction or routing on the host -> device), the
+      reference's staged collectives; off (direct) by default.
+    - ``gradsync_buckets``: buckets of the bucketed gradient allreduce;
+      1 (the default) rides the fused collectives (``fuse_max_bytes``),
+      more cut each dtype group by its byte share (``FusedSpec``'s
+      ``n_buckets``).
+    - ``gradsync_barrier``: the JAX package's optimization-barrier chain
+      between buckets.  Each bucket here is its own launch, issued in
+      order, which is what the chain buys against XLA's combiner, so both
+      values give the same bits.
+    - ``gradsync_overlap`` ("off" | "auto"): "auto" makes the recipes
+      compute gradients through ``gradsync.make_overlapped_grad_fn``,
+      each bucket's allreduce fired from the backward as its gradients
+      arrive.
+    - ``gradsync_overlap_bytes``: the byte bound of one overlap bucket; 0
+      takes ``fuse_max_bytes`` rounded down to a power of two.
+    - ``analysis`` and ``obs`` ("off" | ...): the JAX package's static
+      collective analysis and telemetry.  Their modules are not ported
+      (ROADMAP queue A, items 11 and 10); the recipes refuse any value
+      but "off" by the item's name.
     """
 
     backend: str = "xla"
@@ -69,7 +85,11 @@ class Config:
     chunk_bytes: int = 4 * 1024 * 1024
     custom_min_bytes: int = 64 * 1024
     pallas_bidirectional: bool = False
+    staged: bool = False
+    gradsync_buckets: int = 1
+    gradsync_barrier: bool = False
     gradsync_overlap: str = "off"
+    gradsync_overlap_bytes: int = 0
     analysis: str = "off"
     obs: str = "off"
 
@@ -79,7 +99,9 @@ class Config:
         TORCHMPI_TPU_FLASH_PRESCALE, TORCHMPI_TPU_FUSE_MAX_BYTES,
         TORCHMPI_TPU_GRADSYNC_AVERAGE, TORCHMPI_TPU_GRADSYNC_COMPRESS,
         TORCHMPI_TPU_CHUNK_BYTES, TORCHMPI_TPU_CUSTOM_MIN_BYTES,
-        TORCHMPI_TPU_GRADSYNC_OVERLAP, TORCHMPI_TPU_ANALYSIS,
+        TORCHMPI_TPU_STAGED, TORCHMPI_TPU_GRADSYNC_BUCKETS,
+        TORCHMPI_TPU_GRADSYNC_OVERLAP, TORCHMPI_TPU_GRADSYNC_OVERLAP_BYTES,
+        TORCHMPI_TPU_GRADSYNC_BARRIER, TORCHMPI_TPU_ANALYSIS,
         TORCHMPI_TPU_OBS; ``pallas_bidirectional`` has none), then apply
         ``overrides``."""
         cfg = Config(
@@ -93,8 +115,14 @@ class Config:
             chunk_bytes=_env_int("TORCHMPI_TPU_CHUNK_BYTES", 4 * 1024 * 1024),
             custom_min_bytes=_env_int("TORCHMPI_TPU_CUSTOM_MIN_BYTES",
                                       64 * 1024),
+            staged=_env_bool("TORCHMPI_TPU_STAGED", False),
+            gradsync_buckets=_env_int("TORCHMPI_TPU_GRADSYNC_BUCKETS", 1),
             gradsync_overlap=_env_str("TORCHMPI_TPU_GRADSYNC_OVERLAP",
                                       "off"),
+            gradsync_overlap_bytes=_env_int(
+                "TORCHMPI_TPU_GRADSYNC_OVERLAP_BYTES", 0),
+            gradsync_barrier=_env_bool("TORCHMPI_TPU_GRADSYNC_BARRIER",
+                                       False),
             analysis=_env_str("TORCHMPI_TPU_ANALYSIS", "off"),
             obs=_env_str("TORCHMPI_TPU_OBS", "off"),
         )

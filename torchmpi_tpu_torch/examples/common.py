@@ -9,9 +9,10 @@ examples run as a world of one process, or one rank per process under
 takes its slice of every global batch.  ``--devices N`` (N >= 2) runs N
 ranks rank-major on the one device instead, the port's form of the JAX
 examples' N simulated devices (``--backend pallas`` then runs the ring
-kernels).  Flags whose machinery is not ported raise naming their ROADMAP
-item: ``--dcn`` and ``--backend hierarchical`` (queue A, item 4),
-``--buckets`` other than 1 (item 3 c).
+kernels).  ``--buckets`` sets ``Config.gradsync_buckets`` (the bucketed
+gradient allreduce).  Flags whose machinery is not ported raise naming
+their ROADMAP item: ``--dcn`` and ``--backend hierarchical`` (queue A,
+item 4).
 
 Short runs (under 60 steps) stop before convergence, so the accuracy bar
 of each example holds from 60 steps on (JAX ``mnist_allreduce.py`` :155).
@@ -47,7 +48,8 @@ def parse_args(description: str, argv: Optional[Sequence[str]] = None,
     p.add_argument("--backend", type=str, default=None,
                    choices=[None, "xla", "hierarchical", "pallas"])
     p.add_argument("--buckets", type=int, default=None,
-                   help="gradient allreduce buckets: not ported")
+                   help="gradient allreduce buckets (Config.gradsync_"
+                        "buckets)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
@@ -60,10 +62,6 @@ def parse_args(description: str, argv: Optional[Sequence[str]] = None,
         raise NotImplementedError(
             "--dcn / --backend hierarchical: the two-level collectives are "
             "not ported yet (ROADMAP queue A, item 4)")
-    if args.buckets not in (None, 1):
-        raise NotImplementedError(
-            "--buckets: the bucketed gradient allreduce is not ported yet "
-            "(ROADMAP queue A, item 3 c)")
     if args.devices == 1:
         args.devices = 0
     return args
@@ -73,20 +71,25 @@ def parse_args(description: str, argv: Optional[Sequence[str]] = None,
 def runtime(args) -> Iterator[torch.device]:
     """The runtime on ``args.device`` for the example's duration: started
     here (and stopped at the end) unless the caller already started it;
-    ``--backend`` applied as the JAX examples apply it."""
+    ``--backend`` and ``--buckets`` applied as the JAX examples apply
+    them (the knobs restored at the end in a runtime the caller owns)."""
     started = not mpi.is_initialized()
     dev = mpi.init(device=args.device)
     before = mpi.config()
+    knobs = {}
     if args.backend:
-        mpi.set_config(backend=args.backend, custom_min_bytes=0)
+        knobs.update(backend=args.backend, custom_min_bytes=0)
+    if args.buckets is not None:
+        knobs.update(gradsync_buckets=args.buckets)
+    if knobs:
+        mpi.set_config(**knobs)
     try:
         yield dev
     finally:
         if started:
             mpi.stop()
-        elif args.backend:
-            mpi.set_config(backend=before.backend,
-                           custom_min_bytes=before.custom_min_bytes)
+        elif knobs:
+            mpi.set_config(**{k: getattr(before, k) for k in knobs})
 
 
 def local_slice(xb: np.ndarray, yb: np.ndarray, *, rank_major: bool):

@@ -14,10 +14,15 @@ One rank per process:
   ``python -m torchmpi_tpu_torch.examples.mnist_allreduce --devices 4
   --backend pallas``
 
-``--eager-loss`` (the host-staged loss allreduce) and ``--restart-loop``
-(checkpointed restarts) are not ported and raise by name.
+``--eager-loss`` reduces each step's logging loss through the host-staged
+rank-major allreduce (``backend="host"``) and prints a LOSS-DIGEST line;
+``--restart-loop`` (checkpointed restarts) is not ported and raises by
+name.
 """
 
+import hashlib
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -31,15 +36,13 @@ def main(argv=None):
     args = common.parse_args(
         __doc__, argv,
         eager_loss=dict(action="store_true",
-                        help="host-staged loss allreduce: not ported"),
+                        help="reduce the logging loss through the host-"
+                             "staged rank-major allreduce; prints "
+                             "LOSS-DIGEST"),
         restart_loop=dict(action="store_true",
                           help="checkpointed restart loop: not ported"),
         save_every={"type": int, "default": 10,
                     "help": "checkpoint cadence (--restart-loop only)"})
-    if args.eager_loss:
-        raise NotImplementedError(
-            "--eager-loss: the host-staged collectives (staged=True) are not "
-            "ported yet (ROADMAP queue A, item 2)")
     if args.restart_loop:
         raise NotImplementedError(
             "--restart-loop: the restart and watchdog layers are not ported "
@@ -65,21 +68,35 @@ def main(argv=None):
         X, Y = dutil.synthetic_mnist(4096, seed=args.seed)
         timer = common.StepTimer(dev)
         timer.start()
-        losses = []
+        losses, eager = [], []
         for i, (xb, yb) in enumerate(
                 dutil.batches(X, Y, args.batch_size, steps=args.steps,
                               seed=args.seed)):
             xb, yb = common.local_slice(xb, yb, rank_major=bool(n))
             loss = step(*common.to_device(xb, yb, dev))
             timer.tick()
+            if args.eager_loss:
+                # The replicated loss through the host-staged rank-major
+                # allreduce (JAX examples/mnist_allreduce.py :93-102).
+                loss = mpi.allreduce_rank_major(
+                    loss.float().reshape(1, 1).expand(max(1, n), 1),
+                    op="mean", backend="host")[0, 0]
+                eager.append(float(loss))
             if i % 20 == 0 or i == args.steps - 1:
                 losses.append(float(loss))
                 print(f"step {i:4d}  loss {losses[-1]:.4f}")
         rate = timer.rate(args.batch_size)
         acc = common.evaluate(model, X[:1024], Y[:1024], dev)
         print(f"final accuracy {acc:.3f}  ({rate:.0f} img/s)")
+    out = {"losses": losses, "accuracy": acc, "img_per_s": rate}
+    if args.eager_loss:
+        # Every loss that crossed the staged path, in step order.
+        out["loss_digest"] = hashlib.blake2b(
+            np.asarray(eager, np.float32).tobytes(),
+            digest_size=16).hexdigest()
+        print(f"LOSS-DIGEST {out['loss_digest']}")
     common.check_accuracy(acc, 0.9, args.steps, "data-parallel MNIST")
-    return {"losses": losses, "accuracy": acc, "img_per_s": rate}
+    return out
 
 
 if __name__ == "__main__":

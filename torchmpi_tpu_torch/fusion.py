@@ -64,15 +64,27 @@ class DtypeGroup:
         return self.total * torch.empty((), dtype=self.dtype).element_size()
 
 
+def _proportional_buckets(groups: Sequence[DtypeGroup], k: int) -> List[int]:
+    """About ``k`` buckets spread over the groups by their byte share, at
+    least one each (a one-group list gets exactly ``k``): JAX :121."""
+    tot = sum(g.nbytes for g in groups) or 1
+    return [max(1, min(max(1, g.total), round(k * g.nbytes / tot)))
+            for g in groups]
+
+
 class FusedSpec:
     """Static fusion layout of a list of tensors (group-major, first-seen
-    dtype order, byte-bounded element buckets), and its shard layout over
-    ``n_shards`` ranks: each group padded to ``padded``, a multiple of
-    ``n_shards``, of which each rank owns ``shard``; the promoted view
-    (``dtype``, ``padded``, ``shard``) is the groups' concatenation."""
+    dtype order, element buckets), and its shard layout over ``n_shards``
+    ranks: each group padded to ``padded``, a multiple of ``n_shards``, of
+    which each rank owns ``shard``; the promoted view (``dtype``,
+    ``padded``, ``shard``) is the groups' concatenation.  The buckets are
+    byte-bounded (``max_bytes``, default ``Config.fuse_max_bytes``) or,
+    with ``n_buckets``, count-driven: about that many, spread over the
+    groups by byte share (``Config.gradsync_buckets``, JAX :146-190)."""
 
     def __init__(self, tensors: Sequence[torch.Tensor], n_shards: int = 1, *,
-                 max_bytes: Optional[int] = None):
+                 max_bytes: Optional[int] = None,
+                 n_buckets: Optional[int] = None):
         if max_bytes is None:
             max_bytes = runtime.effective_config().fuse_max_bytes
         self.n_tensors = len(tensors)
@@ -97,10 +109,14 @@ class FusedSpec:
             g.shard = g.padded // n
         self.padded = sum(g.padded for g in self.groups) or n
         self.shard = self.padded // n
-        for g in self.groups:
-            k = 1
-            if max_bytes and max_bytes > 0:
-                k = max(1, min(max(1, g.total), -(-g.nbytes // max_bytes)))
+        if n_buckets is not None:
+            ks = _proportional_buckets(self.groups, max(1, int(n_buckets)))
+        elif max_bytes and max_bytes > 0:
+            ks = [max(1, min(max(1, g.total), -(-g.nbytes // max_bytes)))
+                  for g in self.groups]
+        else:
+            ks = [1] * len(self.groups)
+        for g, k in zip(self.groups, ks):
             edges = np.linspace(0, g.total, k + 1).astype(int)
             g.bounds = [(int(edges[i]), int(edges[i + 1]))
                         for i in range(k) if edges[i] < edges[i + 1]]
@@ -111,6 +127,25 @@ class FusedSpec:
     def n_launches(self) -> int:
         """Collectives one fused call issues for this list."""
         return sum(len(g.bounds) for g in self.groups)
+
+
+def bucket_group(tensors: Sequence[torch.Tensor],
+                 indices: Sequence[int]) -> DtypeGroup:
+    """One bucket of tensors of one dtype (positions ``indices`` in
+    ``tensors``, flat in that order) as a one-bucket :class:`DtypeGroup`,
+    for :func:`gather_bucket` / :func:`scatter_bucket`: an overlap bucket
+    of ``gradsync.assign_overlap_buckets``."""
+    g = DtypeGroup(tensors[indices[0]].dtype)
+    for i in indices:
+        t = tensors[i]
+        if t.dtype != g.dtype:
+            raise TypeError(f"a bucket mixes {g.dtype} and {t.dtype}")
+        g.indices.append(i)
+        g.shapes.append(t.shape)
+        g.sizes.append(t.numel())
+        g.total += t.numel()
+    g.bounds = [(0, g.total)]
+    return g
 
 
 def _pieces(g: DtypeGroup, lo: int, hi: int):

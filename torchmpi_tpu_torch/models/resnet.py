@@ -9,9 +9,11 @@ the JAX model:
 - convs have no bias and "SAME" padding; each BatchNorm has momentum 0.9
   and epsilon 1e-5, and the last one of each block starts with scale 0;
 - the projection ``conv_proj`` / ``norm_proj`` applies where the block
-  changes the shape; the port decides it when the block is built (the
-  channels change or the stride is not 1), which is flax's run-time test
-  for every input larger than 1 x 1;
+  changes the shape, decided at run time as flax decides it
+  (``residual.shape != y.shape``).  A block builds it wherever it may be
+  needed (the channels change or the stride is not 1); on a 1 x 1 map a
+  stride-2 block with equal channels keeps its shape, flax's init leaves
+  the projection out, and ``weights.from_flax_cnn`` drops the port's;
 - the global mean is over H, W (:111) and the classifier runs in float32
   (:112); under ``dtype=torch.bfloat16`` parameters and statistics stay
   float32 and the convs and norms compute in bf16.
@@ -37,6 +39,19 @@ from .layers import (BatchNorm, Conv2d, Dense, check_device, init_flax,
                      max_pool)
 
 
+def _project(block: nn.Module, x: torch.Tensor, y: torch.Tensor,
+             ra: bool) -> torch.Tensor:
+    """The residual of ``block``: ``x`` projected where its shape is not
+    ``y``'s (flax's ``residual.shape != y.shape``, :40, :67), else ``x``."""
+    if x.shape == y.shape:
+        return x
+    if not hasattr(block, "conv_proj"):
+        raise ValueError(f"residual {tuple(x.shape)} vs {tuple(y.shape)} "
+                         f"needs the projection this block was loaded "
+                         f"without")
+    return block.norm_proj(block.conv_proj(x), ra)
+
+
 class BasicBlock(nn.Module):
     """3 x 3 + 3 x 3 residual block (ResNet-18/20/34 style)."""
 
@@ -59,9 +74,7 @@ class BasicBlock(nn.Module):
         ra = not train
         y = self.act(self.bn0(self.conv0(x), ra))
         y = self.bn1(self.conv1(y), ra)
-        if hasattr(self, "conv_proj"):
-            x = self.norm_proj(self.conv_proj(x), ra)
-        return self.act(x + y)
+        return self.act(_project(self, x, y, ra) + y)
 
 
 class BottleneckBlock(nn.Module):
@@ -89,9 +102,7 @@ class BottleneckBlock(nn.Module):
         y = self.act(self.bn0(self.conv0(x), ra))
         y = self.act(self.bn1(self.conv1(y), ra))
         y = self.bn2(self.conv2(y), ra)
-        if hasattr(self, "conv_proj"):
-            x = self.norm_proj(self.conv_proj(x), ra)
-        return self.act(x + y)
+        return self.act(_project(self, x, y, ra) + y)
 
 
 class ResNet(nn.Module):

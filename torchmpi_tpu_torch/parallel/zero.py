@@ -32,9 +32,12 @@ tensors; the optimizer is an ``optim`` ``(init, update)`` pair.  Like the
 JAX functions, every entry returns new tensors and records no autograd
 graph.
 
-Not ported yet, and refused by name: ``presynced`` (the backprop-overlap
-schedule, ROADMAP queue A 3) and the error-feedback DCN leg
-(``dcn_residuals`` / ``dcn_compress``, queue A 4).  The JAX package's
+``presynced=True`` is the backprop-overlap mode (JAX :210-241,
+:472-482): the gradients arrive already reduced
+(``gradsync.make_overlapped_grad_fn``, ``op`` and ``compress`` applied
+there), so the reduce-scatter leg becomes a local slice of this rank's
+shard.  Not ported yet, and refused by name: the error-feedback DCN leg
+(``dcn_residuals`` / ``dcn_compress``, ROADMAP queue A 4).  The JAX package's
 guard, telemetry and static-analysis hooks and its planner cache belong to
 modules the port does not have yet (queue A 5, 10, 11).
 """
@@ -56,11 +59,7 @@ def _world(axis_names) -> int:
     return runtime.size()
 
 
-def _refuse_unported(presynced: bool, dcn_residuals, dcn_compress) -> None:
-    if presynced:
-        raise NotImplementedError(
-            "zero presynced=True: the backprop-overlap schedule is not "
-            "ported yet (ROADMAP queue A, item 3)")
+def _refuse_unported(dcn_residuals, dcn_compress) -> None:
     if dcn_residuals is not None or dcn_compress is not None:
         raise NotImplementedError(
             "zero dcn_residuals / dcn_compress: the error-feedback DCN leg "
@@ -153,11 +152,14 @@ def update(params: Tensors, grads: Tensors, opt_state,
     allreduce-then-``tx`` replicated DP.  ``op`` defaults to mean when
     ``Config.gradsync_average``; ``compress="bf16"`` (default
     ``Config.gradsync_compress``) narrows the gradient reduce-scatter, the
-    parameter all-gather stays full precision."""
-    _refuse_unported(presynced, dcn_residuals, dcn_compress)
+    parameter all-gather stays full precision.  ``presynced=True``: the
+    ``grads`` are already reduced across the world, and this rank slices
+    its shard of them instead of reduce-scattering."""
+    _refuse_unported(dcn_residuals, dcn_compress)
     op, compress = _resolve(op, compress)
     spec = flat_spec(params, axis_names)
-    g_shard = _process_shard_grads(grads, spec, op, compress, backend)
+    g_shard = (fusion.local_shard(grads, spec, runtime.rank()) if presynced
+               else _process_shard_grads(grads, spec, op, compress, backend))
     p_shard = fusion.local_shard(params, spec, runtime.rank())
     updates, new_state = tx.update(g_shard, opt_state, p_shard)
     p_shard = optim.apply_updates(p_shard, updates)
@@ -182,11 +184,13 @@ def update3(p_shard: torch.Tensor, grads: Tensors, opt_state,
             presynced: bool = False, dcn_residuals=None,
             dcn_compress: Optional[str] = None):
     """One ZeRO-3 step on this rank: as :func:`update` without the
-    all-gather.  Returns ``(new_p_shard, new_opt_state)``; the parameters
-    stay sharded until the next :func:`gather_params`."""
-    _refuse_unported(presynced, dcn_residuals, dcn_compress)
+    all-gather (``presynced`` likewise).  Returns ``(new_p_shard,
+    new_opt_state)``; the parameters stay sharded until the next
+    :func:`gather_params`."""
+    _refuse_unported(dcn_residuals, dcn_compress)
     op, compress = _resolve(op, compress)
-    g_shard = _process_shard_grads(grads, spec, op, compress, backend)
+    g_shard = (fusion.local_shard(grads, spec, runtime.rank()) if presynced
+               else _process_shard_grads(grads, spec, op, compress, backend))
     updates, new_state = tx.update(g_shard, opt_state, p_shard)
     return optim.apply_updates(p_shard, updates), new_state
 
@@ -221,7 +225,27 @@ def init_rank_major(params: Tensors, tx: optim.GradientTransformation,
     return tx.init(shard_params_rank_major(params, n))
 
 
-def _rank_major_shard_grads(grad_flats, spec, op, compress, backend):
+def _presynced_shards(grad_flats: Sequence[torch.Tensor],
+                      spec: fusion.FusedSpec) -> torch.Tensor:
+    """Every rank's shard [n, spec.shard] of already-reduced group flats
+    [n, g.padded]: rank r's slice r of each group, promoted to
+    ``spec.dtype`` and concatenated group-major (a local slice, no
+    communication)."""
+    n = spec.n_shards
+    rows = torch.arange(n, device=grad_flats[0].device)
+    parts = []
+    for g, flat in zip(spec.groups, grad_flats, strict=True):
+        if flat.shape[-1] != g.padded:
+            raise ValueError(f"group flat of {flat.shape[-1]} elements, the "
+                             f"spec's {g.dtype} group pads to {g.padded}")
+        parts.append(flat.view(n, n, g.shard)[rows, rows].to(spec.dtype))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, -1)
+
+
+def _rank_major_shard_grads(grad_flats, spec, op, compress, backend,
+                            presynced=False):
+    if presynced:
+        return _presynced_shards(grad_flats, spec)
     return _reduce_scatter_grads(
         grad_flats, spec, op=op, compress=compress,
         reduce_scatter=lambda f: collectives.reduce_scatter_rank_major(
@@ -233,15 +257,19 @@ def update_rank_major(params: Tensors, grad_flats: Sequence[torch.Tensor],
                       opt_state, tx: optim.GradientTransformation, *,
                       op: Optional[str] = None,
                       backend: Optional[str] = None,
-                      compress: Optional[str] = None):
+                      compress: Optional[str] = None,
+                      presynced: bool = False):
     """:func:`update` for n ranks on one device: ``params`` the replicated
     list, ``grad_flats`` the n ranks' gradients as group flats
     [n, g.padded], ``opt_state`` over the [n, shard] stack.  Returns
     ``(new_params, new_opt_state)``; the new parameters are rank 0's slice
-    of the all-gather (every rank's is the same)."""
+    of the all-gather (every rank's is the same).  ``presynced=True``:
+    every rank's row already holds the reduced gradients, and rank r
+    slices its shard r of them."""
     op, compress = _resolve(op, compress)
     spec = flat_spec(params, n_shards=grad_flats[0].shape[0])
-    g_shard = _rank_major_shard_grads(grad_flats, spec, op, compress, backend)
+    g_shard = _rank_major_shard_grads(grad_flats, spec, op, compress, backend,
+                                      presynced)
     p_shard = fusion.local_shards(params, spec)
     updates, new_state = tx.update(g_shard, opt_state, p_shard)
     p_shard = optim.apply_updates(p_shard, updates)
@@ -264,11 +292,14 @@ def update3_rank_major(p_shards: torch.Tensor,
                        tx: optim.GradientTransformation, *,
                        spec: fusion.FusedSpec, op: Optional[str] = None,
                        backend: Optional[str] = None,
-                       compress: Optional[str] = None):
-    """:func:`update3` for n ranks on one device: ``p_shards`` [n, shard].
-    Returns ``(new_p_shards, new_opt_state)``."""
+                       compress: Optional[str] = None,
+                       presynced: bool = False):
+    """:func:`update3` for n ranks on one device: ``p_shards`` [n, shard]
+    (``presynced`` as in :func:`update_rank_major`).  Returns
+    ``(new_p_shards, new_opt_state)``."""
     op, compress = _resolve(op, compress)
-    g_shard = _rank_major_shard_grads(grad_flats, spec, op, compress, backend)
+    g_shard = _rank_major_shard_grads(grad_flats, spec, op, compress, backend,
+                                      presynced)
     updates, new_state = tx.update(g_shard, opt_state, p_shards)
     return optim.apply_updates(p_shards, updates), new_state
 

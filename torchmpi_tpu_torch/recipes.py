@@ -32,10 +32,15 @@ Two forms, as ``parallel/zero.py`` has:
   ``fusion.fused_allreduce_rank_major_`` / ``zero.*_rank_major``, and the
   ranks' new statistics, stacked [n, C], are averaged on the same route.
 
-Not ported yet, and refused by name: ``overlap="auto"`` or
-``Config.gradsync_overlap`` (ROADMAP queue A, item 3 b), ``n_buckets``
-other than None or 1 (item 3 c), and a ``Config.analysis`` or
-``Config.obs`` other than "off" (items 11 and 10).
+``overlap="auto"`` (default ``Config.gradsync_overlap``) takes the
+gradients through the backprop-overlapped sync
+(``gradsync.make_overlapped_grad_fn``, its rank-major form for the
+rank-major step): each bucket's allreduce fires from the backward, the
+gradients come back reduced, and ZeRO runs ``presynced=True``.
+``n_buckets`` (default ``Config.gradsync_buckets``) buckets the replicated
+sync (JAX :35, :78-83, :117-140); with overlap or ZeRO it does not apply.
+Not ported yet, and refused by name: a ``Config.analysis`` or
+``Config.obs`` other than "off" (ROADMAP queue A, items 11 and 10).
 """
 
 from __future__ import annotations
@@ -54,21 +59,14 @@ from .parallel import zero as pzero
 Tensors = Sequence[torch.Tensor]
 
 
-def _refuse_unported(n_buckets: Optional[int], overlap: Optional[str]):
+def _overlap_on(overlap: Optional[str]) -> bool:
+    """Whether the step overlaps its sync (``overlap``, default
+    ``Config.gradsync_overlap``); refuses the layers not ported yet."""
     cfg = runtime.effective_config()
     if overlap is None:
         overlap = cfg.gradsync_overlap
     if overlap not in ("off", "auto"):
         raise ValueError(f"overlap must be off|auto, got {overlap!r}")
-    if overlap == "auto":
-        raise NotImplementedError(
-            "overlap='auto': the backprop-overlapped gradient sync is not "
-            "ported yet (ROADMAP queue A, item 3 b)")
-    if n_buckets not in (None, 1):
-        raise NotImplementedError(
-            f"n_buckets={n_buckets}: the bucketed gradient allreduce "
-            "(Config.gradsync_buckets) is not ported yet (ROADMAP queue A, "
-            "item 3 c)")
     if cfg.analysis != "off":
         raise NotImplementedError(
             f"Config.analysis={cfg.analysis!r}: the static collective "
@@ -77,6 +75,7 @@ def _refuse_unported(n_buckets: Optional[int], overlap: Optional[str]):
         raise NotImplementedError(
             f"Config.obs={cfg.obs!r}: the telemetry layer is not ported yet "
             "(ROADMAP queue A, item 10)")
+    return overlap == "auto"
 
 
 def _check_zero(zero, params_template):
@@ -91,16 +90,17 @@ def _check_zero(zero, params_template):
     return zero
 
 
-def _local_step(model: torch.nn.Module, remat: bool) -> Callable:
-    """``(params, batch_stats, images, labels) -> (loss, grads,
-    new_batch_stats)`` of one rank: the forward in training mode through
-    ``functional_call`` (rematerialized in the backward with ``remat``),
-    the mean cross-entropy, its gradients with respect to ``params``."""
+def _loss_of(model: torch.nn.Module, remat: bool) -> Callable:
+    """``(leaves, batch_stats, images, labels) -> (loss, new_batch_stats)``
+    of one rank: the forward in training mode through ``functional_call``
+    on the parameter ``leaves`` (rematerialized in the backward with
+    ``remat``), the mean cross-entropy.  The new statistics are the
+    forward's; a rematerialized forward writes the same values again,
+    from the same starting statistics."""
     names = [n for n, _ in model.named_parameters()]
     stat_names = layers.batch_stats_names(model)
 
-    def run(params, batch_stats, images, labels):
-        leaves = [p.detach().requires_grad_() for p in params]
+    def loss_fn(leaves, batch_stats, images, labels):
         tensors = dict(zip(names, leaves, strict=True))
         tensors.update(zip(stat_names, batch_stats, strict=True))
 
@@ -111,12 +111,23 @@ def _local_step(model: torch.nn.Module, remat: bool) -> Callable:
         logits = (checkpoint(forward, images, use_reentrant=False)
                   if remat else forward(images))
         loss = F.cross_entropy(logits.float(), labels.long())
+        return loss, layers.new_batch_stats(model)
+
+    return loss_fn
+
+
+def _local_step(loss_fn: Callable) -> Callable:
+    """``(params, batch_stats, images, labels) -> (loss, grads,
+    new_batch_stats)`` of one rank: ``loss_fn`` (:func:`_loss_of`) and its
+    gradients with respect to ``params``."""
+
+    def run(params, batch_stats, images, labels):
+        leaves = [p.detach().requires_grad_() for p in params]
+        loss, new_stats = loss_fn(leaves, batch_stats, images, labels)
         # Contiguous for the fused collectives: a channels-last input gives
         # channels-last conv weight gradients.
         grads = [g.contiguous() for g in torch.autograd.grad(loss, leaves)]
-        # Read after the backward: a rematerialized forward wrote the same
-        # values again, from the same starting statistics.
-        return loss.detach(), grads, layers.new_batch_stats(model)
+        return loss.detach(), grads, new_stats
 
     return run
 
@@ -139,28 +150,41 @@ def make_bn_dp_train_step(model: torch.nn.Module,
                           overlap: Optional[str] = None) -> Callable:
     """The data-parallel step of this process's rank (JAX :24): local
     gradients on this rank's batch, synced across the world
-    (:func:`gradsync.synchronize_gradient_tensors`, or ``zero.update`` /
-    ``zero.update3`` for ``zero=1`` / ``3``), the new running statistics
-    averaged with the fused allreduce (op "mean", ``backend``), the loss
-    averaged.  ``remat`` recomputes the forward in the backward
-    (``torch.utils.checkpoint``)."""
-    _refuse_unported(n_buckets, overlap)
+    (:func:`gradsync.synchronize_gradient_tensors` with ``n_buckets``, or
+    ``zero.update`` / ``zero.update3`` for ``zero=1`` / ``3``), the new
+    running statistics averaged with the fused allreduce (op "mean",
+    ``backend``), the loss averaged.  ``overlap="auto"`` takes the
+    gradients through ``gradsync.make_overlapped_grad_fn`` (already
+    synced; ZeRO ``presynced``).  ``remat`` recomputes the forward in the
+    backward (``torch.utils.checkpoint``)."""
+    overlap_on = _overlap_on(overlap)
     zero = _check_zero(zero, params_template)
     spec3 = (pzero.flat_spec(list(params_template)) if zero == 3 else None)
-    local = _local_step(model, remat)
+    loss_fn = _loss_of(model, remat)
+    local = _local_step(loss_fn)
 
     def step(params, opt_state, batch_stats, images, labels):
         full = (pzero.gather_params(params, spec3, backend=backend)
                 if zero == 3 else list(params))
-        loss, grads, new_stats = local(full, batch_stats, images, labels)
+        if overlap_on:
+            vag = gradsync.make_overlapped_grad_fn(
+                lambda leaves, x, y: loss_fn(leaves, batch_stats, x, y),
+                full, backend=backend, has_aux=True)
+            (loss, new_stats), grads = vag(full, images, labels)
+        else:
+            loss, grads, new_stats = local(full, batch_stats, images, labels)
         if zero == 3:
-            params, opt_state = pzero.update3(params, grads, opt_state, tx,
-                                              spec=spec3, backend=backend)
+            params, opt_state = pzero.update3(
+                params, grads, opt_state, tx, spec=spec3, backend=backend,
+                presynced=overlap_on)
         elif zero == 1:
             params, opt_state = pzero.update(full, grads, opt_state, tx,
-                                             backend=backend)
+                                             backend=backend,
+                                             presynced=overlap_on)
         else:
-            gradsync.synchronize_gradient_tensors(grads, backend=backend)
+            if not overlap_on:
+                gradsync.synchronize_gradient_tensors(
+                    grads, backend=backend, n_buckets=n_buckets)
             params, opt_state = _tx_update(tx, grads, opt_state, full)
         fusion.fused_("allreduce", new_stats, backend=backend, op="mean")
         loss = collectives.allreduce_in_axis(loss, op="mean")
@@ -187,12 +211,17 @@ def make_bn_dp_train_step_rank_major(model: torch.nn.Module,
     loss the mean of the ranks'.  ``opt_state`` is ``[tx.init(p) for p in
     params]`` (one state serves every rank) or
     ``zero.init_rank_major(params, tx, n)``; for ``zero=3`` ``params`` is
-    the [n, shard] stack of ``zero.shard_params_rank_major``."""
-    _refuse_unported(n_buckets, overlap)
+    the [n, shard] stack of ``zero.shard_params_rank_major``.
+    ``overlap="auto"`` runs the ranks through
+    ``gradsync.make_overlapped_grad_fn_rank_major``: the last rank's
+    backward fires each bucket's allreduce on a side stream, and ZeRO
+    takes the synced stacks ``presynced``."""
+    overlap_on = _overlap_on(overlap)
     zero = _check_zero(zero, params_template)
     spec3 = (pzero.flat_spec(list(params_template), n_shards=n)
              if zero == 3 else None)
-    local = _local_step(model, remat)
+    loss_fn = _loss_of(model, remat)
+    local = _local_step(loss_fn)
 
     def step(params, opt_state, batch_stats, images, labels):
         if images.shape[0] % n or labels.shape[0] != images.shape[0]:
@@ -212,23 +241,36 @@ def make_bn_dp_train_step_rank_major(model: torch.nn.Module,
             stacks = [p.new_empty((n, *p.shape)) for p in full]
         stat_stacks = [s.new_empty((n, *s.shape)) for s in batch_stats]
         losses = []
-        for r in range(n):
-            loss, grads, new_stats = local(full, batch_stats, xs[r], ys[r])
+        if overlap_on:
+            vag = gradsync.make_overlapped_grad_fn_rank_major(
+                lambda leaves, x, y: loss_fn(leaves, batch_stats, x, y),
+                full, n, backend=backend, has_aux=True)
+            outs, stacks = vag(full, images, labels, stacks=stacks)
+        else:
+            outs = []
+            for r in range(n):
+                loss, grads, new_stats = local(full, batch_stats, xs[r],
+                                               ys[r])
+                outs.append((loss, new_stats))
+                for st, g in zip(stacks, grads, strict=True):
+                    st[r].copy_(g)
+                del grads
+        for r, (loss, new_stats) in enumerate(outs):
             losses.append(loss)
-            for st, g in zip(stacks, grads, strict=True):
-                st[r].copy_(g)
             for st, s in zip(stat_stacks, new_stats, strict=True):
                 st[r].copy_(s)
-            del grads, new_stats
         if zero == 3:
             params, opt_state = pzero.update3_rank_major(
-                params, flats, opt_state, tx, spec=spec3, backend=backend)
+                params, flats, opt_state, tx, spec=spec3, backend=backend,
+                presynced=overlap_on)
         elif zero == 1:
             params, opt_state = pzero.update_rank_major(
-                full, flats, opt_state, tx, backend=backend)
+                full, flats, opt_state, tx, backend=backend,
+                presynced=overlap_on)
         else:
-            gradsync.synchronize_gradients_rank_major(stacks,
-                                                      backend=backend)
+            if not overlap_on:
+                gradsync.synchronize_gradients_rank_major(
+                    stacks, backend=backend, n_buckets=n_buckets)
             params, opt_state = _tx_update(tx, [st[0] for st in stacks],
                                            opt_state, full)
         fusion.fused_allreduce_rank_major_(stat_stacks, backend=backend,

@@ -210,14 +210,22 @@ def from_flax_cnn(variables: Mapping,
     JAX arrays; ``batch_stats`` only for models with BatchNorm): conv
     kernels HWIO -> OIHW, Dense kernels transposed, BN ``scale`` / ``bias``
     -> ``weight`` / ``bias`` and ``mean`` / ``var`` -> the running buffers.
-    Tensors are float32 on the model's device.  Raises if a name or shape
-    does not match the model."""
+    Tensors are float32 on the model's device.  A residual block whose
+    flax tree has no ``conv_proj`` / ``norm_proj`` (flax's init left it
+    out: the block kept its input's shape there) loses the port's, so the
+    model's parameters are the tree's.  Raises if a name or shape does not
+    match the model."""
     flat: Dict[str, np.ndarray] = {}
     for coll in ("params", "batch_stats"):
         for path, a in _flax_leaves(variables.get(coll, {})):
             name = ".".join([_cnn_module(p) for p in path[:-1]]
                             + [_CNN_LEAVES.get(path[-1], path[-1])])
             flat[name] = _cnn_leaf(path[-1], a)
+    for mname, mod in list(model.named_modules()):
+        pre = f"{mname}." if mname else ""
+        if hasattr(mod, "conv_proj") and not any(
+                k.startswith(f"{pre}conv_proj.") for k in flat):
+            del mod.conv_proj, mod.norm_proj
     want = model.state_dict()
     if set(flat) != set(want):
         raise ValueError(
