@@ -29,8 +29,12 @@ JAX package.  In order it:
    timed also in one chunk), and the dense
    two-call loss (bf16 x @ w, then cross_entropy; forward and backward) timed
    beside them as context only; the same three kernels on float32 operands
-   (the tf32x3 route: within 1e-4 of the plain float32 versions, bitwise on
-   a repeat, one float32 torch.matmul of each product as context); then
+   (the forward on the tf32x3 route, the backward on wgmma_tf32, the TF32
+   wgmma product in the three-product form: within 1e-4 of the plain
+   float32 versions, bitwise on a repeat, the backward's parent route
+   tf32x3 checked on the same inputs and timed in turns with it, the step
+   form on both routes, one float32 torch.matmul of each product as
+   context); then
    the four ring-allreduce kernels on 4
    ranks' float32 buffers on the card at the flagship's gradient bucket
    (8,249,691 elements a rank, rows 16 bytes apart as the fused sync lays
@@ -58,7 +62,9 @@ JAX package.  In order it:
    head.bf16, labels); every kernel's launch count must be > 0, every
    launch of the head (forward and backward) on the wgmma route, and the
    loss finite and falling; then the same fused steps at the model's
-   default float32 (the head's every launch on the tf32x3 route); in every
+   default float32 (every forward launch of the head on the tf32x3 route,
+   every backward launch on wgmma_tf32; one more step's head profiled by
+   part: the g, dx and dW kernels and the K-major copies); in every
    train phase one more, untimed step counts the host-device
    synchronizations of a step, which must be 0;
 6. consistency phases: one forward and backward of the same weights and
@@ -229,6 +235,25 @@ FLASH_RECORDED_MS = {"flash_fwd": 3.215, "flash_bwd_dq": 4.212,
 # The wmma-product kernels of rows 4, 5 and 6 (PERF.md's kernel table).
 XENT_RECORDED_MS = {"xent_fwd": 7.083, "xent_bwd_dx": 12.665,
                     "xent_bwd_dw": 14.460}
+# The float32 head's route per kernel: the forward stays on tf32x3, the
+# backward takes the TF32 wgmma product (PERF.md rows 4 f32, 5 f32, 6 f32).
+XENT_F32_ROUTES = {"xent_fwd": "tf32x3", "xent_bwd_dx": "wgmma_tf32",
+                   "xent_bwd_dw": "wgmma_tf32"}
+# The float32 backward's recorded tf32x3 times (PR 12's table, the same
+# shapes and time_ms); the phase also times that route in this run.
+XENT_F32_RECORDED_MS = {"xent_bwd_dx": 77.314, "xent_bwd_dw": 75.352}
+# The float32 head's kernels in a step's profile: the first pattern a
+# kernel's name matches names its part.
+XENT_F32_PARTS = (
+    ("g (GradF32Epi)", r"GradF32Epi"),
+    ("dx (DxF32Epi)", r"DxF32Epi"),
+    ("dW (DwF32Epi)", r"DwF32Epi"),
+    ("K-major copies (tf32_split_kernel)", r"tf32_split_kernel"),
+    ("forward (xent_fwd_kernel<float>, merge)",
+     r"xent_fwd_kernel<float>|xent_fwd_merge_kernel"),
+    ("tf32x3 backward (xent_grad / dx / dw_kernel<float>)",
+     r"xent_(grad|dx|dw)_kernel<float>"),
+)
 RING_RECORDED_DP_SYNC_MS = 60.5
 RING_RECORDED_ZERO_PEAK_GB = 33.20
 ZERO_LR = 1e-3  # Adam, as benchmarks/memory_bench.py :58
@@ -422,11 +447,15 @@ def ptxas_summary(log: str) -> dict:
             d = re.search(r"ILi(\d+)E", m.group(1))
             name = re.search(r"(?:flash|xent|ring)_\w*?kernel(I\w*?EE)?",
                              m.group(1))
-            epi = re.search(r"gemm_kernelI\w*?\d([A-Z][a-z][A-Za-z]*Epi)E",
+            epi = re.search(r"gemm_kernelI\w*?\d([A-Z][a-z][A-Za-z0-9]*Epi)E",
                             m.group(1))
+            tf32 = re.search(r"gemm_tf32_kernelI\w*?\d([A-Z][A-Za-z0-9]*Epi)E",
+                             m.group(1))
             key = (f"D{d.group(1)}" if d else
+                   f"wgmma_tf32<{tf32.group(1)}>" if tf32 else
                    f"wgmma<{epi.group(1)}>" if epi else
-                   name.group(0) if name else m.group(1))
+                   "tf32_split_kernel" if "tf32_split_kernel" in m.group(1)
+                   else name.group(0) if name else m.group(1))
             cur = out.setdefault(key, [])
         elif cur is not None and ("registers" in ln or "spill" in ln):
             cur.append(ln.split("info    :")[-1].strip())
@@ -784,14 +813,40 @@ def xent_step_form(torch, xent, x, w, labels, lse, dl, matmul_ms, nbytes):
             "bwd_chunk": chunk, "one_chunk_ms": one_chunk_ms}
 
 
+class forced_route:
+    """Within the block, every float32 call of ``xent`` takes ``route``:
+    the parent's tf32x3 route timed beside the new one on the same inputs
+    (a measurement here; the port always takes ``xent._route``'s)."""
+
+    def __init__(self, torch, xent, route):
+        self.torch, self.xent, self.route = torch, xent, route
+
+    def __enter__(self):
+        real = self.real = self.xent._route
+
+        def route(*a, dtype, **kw):
+            return (self.route if dtype == self.torch.float32
+                    else real(*a, dtype=dtype, **kw))
+
+        self.xent._route = route
+
+    def __exit__(self, *exc):
+        self.xent._route = self.real
+
+
 def xent_f32_phase(torch, xent, dev):
-    """Rows 4, 5 and 6 on float32 operands (the tf32x3 route) at the
-    flagship's LM-head shapes: each kernel against its plain float32
-    version on the same inputs and a repeat call, every launch on
-    tf32x3; timed beside its plain version, its bound (the function's
-    operations at TF32 peak; `issued_flops` is the three-product form's
-    three times that) and, as context, one float32 torch.matmul (no TF32)
-    of each product."""
+    """Rows 4, 5 and 6 on float32 operands at the flagship's LM-head shapes:
+    the forward on tf32x3, the backward on wgmma_tf32 (the TF32 wgmma
+    product in the three-product form); each kernel against its plain
+    float32 version on the same inputs and a repeat call, every launch on
+    its route, and W's K-major copies (tf32_split_kernel) bitwise to the
+    plain split; then the backward's parent route, tf32x3, on the same
+    inputs, checked as well; the two routes timed in turns (wgmma_tf32,
+    tf32x3, tf32x3, wgmma_tf32), beside the plain version, the bound (the
+    function's operations at TF32 peak), the three-product floor
+    (`issued_flops`, three times that, at TF32 peak) and, as context, one
+    float32 torch.matmul (no TF32) of each product; and the backward as
+    the step runs it (xent_bwd, g once per chunk) on both routes."""
     N, E, V = HEAD_N, LM["embed"], LM["vocab"]
     g = torch.Generator(device=dev).manual_seed(SEED + 7)
     x = torch.randn(N, E, generator=g, device=dev)
@@ -825,42 +880,103 @@ def xent_f32_phase(torch, xent, dev):
     del gf
     products = {"xent_fwd": ("z",), "xent_bwd_dx": ("z", "g_wT"),
                 "xent_bwd_dw": ("z", "xT_g")}
-    rows = []
-    for name, (kern, plain) in runs.items():
+
+    def check_run(name, kern, plain):
         out, again = kern(), kern()
         ref = plain()
         out, again, ref = ((t,) if torch.is_tensor(t) else t
                            for t in (out, again, ref))
         torch.cuda.synchronize()
-        bitwise = all(torch.equal(a, b) for a, b in zip(out, again))
         rtol = XENT_STAT_RTOL if name == "xent_fwd" else XENT_F32_GRAD_RTOL
-        errs = [(max_err(a, r), rtol * float(r.float().abs().max()))
-                for a, r in zip(out, ref)]
-        dtypes = sorted({str(t.dtype) for t in out})
-        del out, again, ref
+        return {"all_errs": [(max_err(a, r), rtol * float(
+                    r.float().abs().max())) for a, r in zip(out, ref)],
+                "bitwise_repeat": all(torch.equal(a, b)
+                                      for a, b in zip(out, again)),
+                "out_dtypes": sorted({str(t.dtype) for t in out})}
+
+    # Every kernel on its own route first: those launches are counted.
+    checks = {name: check_run(name, kern, plain)
+              for name, (kern, plain) in runs.items()}
+    torch.cuda.synchronize()
+    counts = {n: {r: c[r] - before[n][r] for r in c}
+              for n, c in xent.ROUTE_LAUNCHES.items()}
+    # The wgmma_tf32 route's K-major copies of W (tf32_split_kernel)
+    # against the plain split, bit for bit.
+    ops = dict(zip(xent.TF32_OPS, xent._tf32_workspace(
+        w, min(xent.TF32_CHUNK, N), True, True)))
+    w_lo = xent.tf32_split_plain(w)[1]
+    split_bitwise = (torch.equal(ops["wt"], w.t())
+                     and torch.equal(ops["wt_lo"], w_lo.t())
+                     and torch.equal(ops["w_lo"], w_lo))
+    del ops, w_lo
+    rows, parent = [], {}
+    for name, (kern, plain) in runs.items():
+        res = checks[name]
         flops, nbytes = work[name]
         t_op = flops / PEAK_TF32_FLOPS * 1e3
         t_b = nbytes / PEAK_HBM_BYTES * 1e3
-        rows.append({
-            "name": f"{name}[tf32x3]", "route": "cuda",
+        row = {
+            "name": f"{name}[{XENT_F32_ROUTES[name]}]", "route": "cuda",
             "source": SOURCES[name][0], "replaces": SOURCES[name][1],
-            "max_abs_err": max(e for e, _ in errs),
-            "tolerance": max(t for _, t in errs), "all_errs": errs,
-            "ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
+            "max_abs_err": max(e for e, _ in res["all_errs"]),
+            "tolerance": max(t for _, t in res["all_errs"]), **res,
+            "plain_ms": time_ms(torch, plain),
             "bound_ms": max(t_op, t_b),
             "bound_by": "operations" if t_op >= t_b else "bytes",
+            "three_product_floor_ms": 3 * t_op,
             "library_ms": None, "flops": flops, "issued_flops": 3 * flops,
             "bytes": nbytes,
-            "bitwise_repeat": bitwise, "out_dtypes": dtypes,
-            "matmul_ms": {p: matmul_ms[p] for p in products[name]}})
-    counts = {n: {r: c[r] - before[n][r] for r in c}
-              for n, c in xent.ROUTE_LAUNCHES.items()}
+            "matmul_ms": {p: matmul_ms[p] for p in products[name]}}
+        if name == "xent_fwd":
+            row["ms"] = time_ms(torch, kern)
+        else:
+            # The parent's route on the same inputs: checked, then the two
+            # routes timed in turns.
+            with forced_route(torch, xent, "tf32x3"):
+                parent[name] = check_run(name, kern, plain)
+            turns = {"wgmma_tf32": [], "tf32x3": []}
+            for route in ("wgmma_tf32", "tf32x3", "tf32x3", "wgmma_tf32"):
+                with forced_route(torch, xent, route):
+                    turns[route].append(time_ms(torch, kern, iters=5))
+            row.update(ms=statistics.median(turns["wgmma_tf32"]),
+                       turns_ms=turns,
+                       tf32x3_ms=statistics.median(turns["tf32x3"]),
+                       earlier_ms=XENT_F32_RECORDED_MS[name],
+                       tf32x3_check=parent[name])
+        rows.append(row)
+    # The backward as the float32 step runs it: g once per chunk, on both
+    # routes in turns; bound and floor of its three products.
+    step = {"wgmma_tf32": [], "tf32x3": []}
+    for route in ("wgmma_tf32", "tf32x3", "tf32x3", "wgmma_tf32"):
+        with forced_route(torch, xent, route):
+            step[route].append(time_ms(
+                torch, lambda: xent.xent_bwd(x, w, labels, lse, dl),
+                iters=5))
+    step_form = {"name": "xent_bwd", "what": "g once per chunk, dx and dW",
+                 "turns_ms": step,
+                 "ms": statistics.median(step["wgmma_tf32"]),
+                 "tf32x3_ms": statistics.median(step["tf32x3"]),
+                 "bound_ms": 6 * N * E * V / PEAK_TF32_FLOPS * 1e3,
+                 "three_product_floor_ms":
+                     18 * N * E * V / PEAK_TF32_FLOPS * 1e3}
+    # The K-major copies' bytes a call of the step form at TF32_CHUNK rows:
+    # W^T, its lo part and W's (once a call); x's lo part, x^T and its lo
+    # part, g's lo part, g^T and its lo part (one chunk's, reused).
+    C = min(xent.TF32_CHUNK, N)
+    copies = {"per_call": 3 * E * V * 4,
+              "per_chunk": (3 * C * E + 3 * C * V) * 4}
     emit({"phase": "xent_f32", "shape": dict(N=N, E=E, V=V, dtype="float32",
-                                             bwd_chunk=xent.BWD_CHUNK),
-          "route_launches_in_phase": counts, "kernels": rows})
+                                             bwd_chunk=xent.BWD_CHUNK,
+                                             tf32_chunk=xent.TF32_CHUNK),
+          "route_launches_in_checks": counts, "kernels": rows,
+          "step_form": step_form, "copy_bytes": copies,
+          "split_bitwise": split_bitwise})
+    check(split_bitwise, "tf32_split_kernel's copies of W differ from "
+          "the plain split")
     for name, c in counts.items():
-        check(c["tf32x3"] > 0 and c["tf32x3"] == sum(c.values()),
-              f"{name} on float32 operands off the tf32x3 route: {c}")
+        route = XENT_F32_ROUTES[name]
+        check(c[route] > 0 and c[route] == sum(c.values()),
+              f"{name} on float32 operands off the {route} route: {c}")
     for row in rows:
         check(row["max_abs_err"] <= row["tolerance"],
               f"{row['name']} max_abs_err {row['max_abs_err']} > "
@@ -868,7 +984,25 @@ def xent_f32_phase(torch, xent, dev):
         check(row["bitwise_repeat"], f"{row['name']}: two calls differ")
         check(row["out_dtypes"] == ["torch.float32"],
               f"{row['name']}: outputs {row['out_dtypes']}")
+    for name, res in parent.items():
+        check(all(e <= t for e, t in res["all_errs"])
+              and res["bitwise_repeat"],
+              f"{name}[tf32x3] on the same inputs: {res}")
     return rows
+
+
+def head_f32_profile(torch, fn) -> dict:
+    """The float32 head's device time in one call of ``fn`` (a step) by
+    part (XENT_F32_PARTS), from torch.profiler."""
+    parts = {}
+    for key, calls, ms in profile_rows(torch, fn):
+        for part, pat in XENT_F32_PARTS:
+            if re.search(pat, key):
+                p = parts.setdefault(part, {"ms": 0.0, "calls": 0})
+                p["ms"] += ms
+                p["calls"] += calls
+                break
+    return {"parts": parts, "head_ms": sum(p["ms"] for p in parts.values())}
 
 
 def lm_loss(torch, model, tok):
@@ -903,8 +1037,9 @@ def train_phase(torch, mpi, ops, dev, loss: str, dtype=None):
     """Three timed DP steps of the flagship with the ``loss`` of LOSSES at
     compute ``dtype`` (bf16 by default); every kernel counter is set to 0
     just before and read just after.  With the fused loss every launch of
-    the head must take the route of ``dtype``: wgmma for bf16, tf32x3 for
-    float32."""
+    the head must take the route of ``dtype``: wgmma for bf16; for
+    float32 tf32x3 in the forward and wgmma_tf32 in the backward, whose
+    device time by part one more step's profile reports."""
     dtype = dtype or torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     model = mpi.models.TransformerLM(**LM, attn_impl="flash", dtype=dtype,
@@ -933,6 +1068,8 @@ def train_phase(torch, mpi, ops, dev, loss: str, dtype=None):
     # One more, untimed step: how often a step makes the host wait for the
     # card (each wait drains the queue of work the host had run ahead on).
     syncs = count_host_syncs(torch, lambda: step(tok))
+    f32_head = (head_f32_profile(torch, lambda: step(tok))
+                if loss == "fused" and dtype == torch.float32 else None)
     emit({"phase": "train", "loss": loss,
           "config": dict(LM, batch=BATCH, seq=SEQ, lr=LR,
                          dtype=str(dtype).split(".")[-1]),
@@ -941,6 +1078,7 @@ def train_phase(torch, mpi, ops, dev, loss: str, dtype=None):
           "tokens_per_s": BATCH * SEQ / (med / 1e3),
           "peak_mem_bytes": peak, "host_syncs_per_step": syncs,
           "launches": launches, "xent_route_launches": routes,
+          **({"head_device_profile": f32_head} if f32_head else {}),
           "world_size": mpi.size(),
           "backend": mpi.runtime.backend_name()})
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
@@ -951,8 +1089,9 @@ def train_phase(torch, mpi, ops, dev, loss: str, dtype=None):
         check(launches[name] > 0, f"kernel {name} never launched on the "
               f"{loss} train path")
     if loss == "fused":
-        route = "tf32x3" if dtype == torch.float32 else "wgmma"
         for name, counts in routes.items():
+            route = (XENT_F32_ROUTES[name] if dtype == torch.float32
+                     else "wgmma")
             check(counts == {r: launches[name] * (r == route)
                              for r in ops["xent"].ROUTES},
                   f"{name}: stage B' head launches off the {route} route: "
@@ -2552,12 +2691,13 @@ def main() -> int:
         consistency_phase(torch, mpi, model, tok, dev)
         del model
         torch.cuda.empty_cache()
-        # The main path of the float32 head (slice 11): stage B' at the
-        # model's default float32, the head on the tf32x3 route.
+        # The main path of the float32 head (slices 11 and 14): stage B' at
+        # the model's default float32, the forward on the tf32x3 route and
+        # the backward on wgmma_tf32.
         model, _, _, routes = train_phase(torch, mpi, ops, dev, "fused",
                                           torch.float32)
-        launches.update({f"{n}[tf32x3]": c["tf32x3"]
-                         for n, c in routes.items()})
+        launches.update({f"{n}[{r}]": routes[n][r]
+                         for n, r in XENT_F32_ROUTES.items()})
         del model
         torch.cuda.empty_cache()
         # The main path of slice 3: the DP step of RING_N ranks on the

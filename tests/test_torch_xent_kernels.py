@@ -13,8 +13,9 @@ tests/test_torch_xent.py.  Tolerances: loss and lse within 1e-4 of the
 largest |reference| (float32 sums in another order); on bfloat16 operands
 dx and dW, which come out in bf16, within 2^-7 of the largest |reference|
 (one bf16 rounding of the largest element); on float32 operands (the
-``tf32x3`` route) dx and dW within 1e-4 of the largest |reference| as
-well: g is not rounded, and the three-product form keeps f32's accuracy.
+``wgmma_tf32`` and ``tf32x3`` routes) dx and dW within 1e-4 of the largest
+|reference| as well: g is not rounded, and the three-product form keeps
+f32's accuracy.
 """
 
 import pytest
@@ -26,8 +27,9 @@ torch.set_num_threads(2)
 
 pytestmark = pytest.mark.gpu
 
-# The launchers' route code of the wgmma route.
+# The launchers' route codes of the wgmma and wgmma_tf32 routes.
 WGMMA = xent.ROUTES.index("wgmma")
+WGMMA_TF32 = xent.ROUTES.index("wgmma_tf32")
 
 STAT_RTOL = 1e-4
 GRAD_RTOL = 2.0 ** -7
@@ -173,7 +175,7 @@ def test_forward_wgmma_route_matches_plain(cuda, N, E, V):
     torch.cuda.synchronize()
     assert xent.ROUTE_LAUNCHES["xent_fwd"] == {
         "wgmma": before["wgmma"] + 2, "wmma": before["wmma"],
-        "tf32x3": before["tf32x3"]}
+        "tf32x3": before["tf32x3"], "wgmma_tf32": before["wgmma_tf32"]}
     ref_loss, ref_lse = xent.xent_fwd_plain(x, w, labels)
     _close(loss, ref_loss, STAT_RTOL, "loss")
     _close(lse, ref_lse, STAT_RTOL, "lse")
@@ -279,19 +281,30 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
                      64, 1, len(xent.ROUTES))
 
 
-# The tf32x3 route (float32 x and w, any shape): the JAX test's shape
-# (tests/test_xent.py), a ragged one, E and V not multiples of 4 (no row
-# of x or w starts on a 16-byte boundary: the loaders' element path), a
-# wgmma shape of the bf16 cases, and the flagship's head.
+# Float32 x and w: the JAX test's shape (tests/test_xent.py), a ragged
+# one, E and V not multiples of 4 (no row of x or w starts on a 16-byte
+# boundary: the loaders' element path), a wgmma shape of the bf16 cases,
+# and the flagship's head.  The forward takes tf32x3 at every shape; the
+# backward wgmma_tf32 where E and V are multiples of 4 (every operand here
+# is allocated, so 16-byte aligned), else tf32x3.
 F32_CASES = [(64, 8, 16), (129, 64, 200), (129, 63, 201),
              (1000, 2048, 4104), (8188, 2048, 32768)]
+
+
+def _f32_route(name, E, V):
+    if name == "xent_fwd" or E % 4 or V % 4:
+        return "tf32x3"
+    return "wgmma_tf32"
 
 
 @pytest.mark.parametrize("N,E,V", F32_CASES, ids=lambda v: str(v))
 def test_float32_kernels_match_plain(cuda, N, E, V):
     """The three kernels on float32 operands: within 1e-4 of the largest
     |reference| of the plain float32 versions, dx and dW in float32, two
-    calls bitwise, every launch on the tf32x3 route."""
+    calls bitwise, dx and dW from a g each launch forms alone bitwise equal
+    to those from the g formed once for both, every launch on its route
+    (the forward on tf32x3, the backward on wgmma_tf32 where TMA can read
+    the operands)."""
     x, w, labels, dl = _inputs(cuda, N, E, V, seed=N + 7 * V,
                                dtype=torch.float32)
     edges = [V - 1, 0, min(127, V - 1), min(128, V - 1), V, -1]
@@ -303,7 +316,7 @@ def test_float32_kernels_match_plain(cuda, N, E, V):
     for name, counts in xent.ROUTE_LAUNCHES.items():
         n = 2 if name == "xent_fwd" else 4
         assert {r: counts[r] - before[name][r] for r in counts} == {
-            r: n * int(r == "tf32x3") for r in xent.ROUTES}, name
+            r: n * int(r == _f32_route(name, E, V)) for r in xent.ROUTES}, name
     for a, b in zip(first, second):
         assert torch.equal(a, b)
     loss, lse, dx, dw, dx2, dw2 = first
@@ -322,7 +335,7 @@ def test_float32_kernels_match_plain(cuda, N, E, V):
 def test_float32_autograd_matches_dense_loss(cuda, N, E, V):
     """fused_linear_cross_entropy on float32 x and w, and its gradients,
     against the dense float32 loss (x @ w, then cross_entropy) on the same
-    inputs, every launch on the tf32x3 route."""
+    inputs, every launch on its route."""
     x, w, labels, _ = _inputs(cuda, N, E, V, seed=N + 5 * V,
                               dtype=torch.float32)
     wgt = torch.rand(N, device=cuda)
@@ -340,7 +353,7 @@ def test_float32_autograd_matches_dense_loss(cuda, N, E, V):
     torch.cuda.synchronize()
     for name, counts in xent.ROUTE_LAUNCHES.items():
         assert {r: counts[r] - before[name][r] for r in counts} == {
-            r: int(r == "tf32x3") for r in xent.ROUTES}, name
+            r: int(r == _f32_route(name, E, V)) for r in xent.ROUTES}, name
     for a, b, what in zip(*grads, ("loss", "dx", "dW")):
         assert a.dtype == torch.float32
         _close(a, b, STAT_RTOL if what == "loss" else F32_GRAD_RTOL, what)
@@ -372,3 +385,98 @@ def test_float32_offset_base_takes_the_element_path(cuda, which):
            "dx")
     _close(dw, xent.xent_bwd_dw_plain(x, w, labels, lse, dl), F32_GRAD_RTOL,
            "dW")
+
+
+# The wgmma_tf32 route at ragged shapes: N not a multiple of the 128-row
+# tile, V not a multiple of 128 or 256, E and V multiples of 4 but not of
+# 8 (no bf16 TMA route there), two chunks with a short last one (N 2500),
+# and a last chunk of 4 rows (N 4100, whose transposed copies' pitch is 4).
+TF32_RAGGED = [(300, 64, 1000), (77, 40, 332), (2500, 64, 520),
+               (4100, 128, 2056)]
+
+
+@pytest.mark.parametrize("N,E,V", TF32_RAGGED, ids=lambda v: str(v))
+def test_wgmma_tf32_route_matches_plain(cuda, N, E, V):
+    """The float32 backward on wgmma_tf32 at ragged shapes: dx and dW
+    within 1e-4 of the largest |reference| of the plain float32 versions,
+    two calls bitwise, dx and dW from a g each launch forms alone bitwise
+    equal to those from the g formed once for both, every backward launch
+    on wgmma_tf32."""
+    x, w, labels, dl = _inputs(cuda, N, E, V, seed=3 * N + V,
+                               dtype=torch.float32)
+    edges = [V - 1, 0, min(127, V - 1), min(128, V - 1), V, -1]
+    labels[:len(edges)] = torch.tensor(edges, device=cuda)
+    _, lse = xent.xent_fwd(x, w, labels)
+    before = {n: dict(c) for n, c in xent.ROUTE_LAUNCHES.items()}
+    dx = xent.xent_bwd_dx(x, w, labels, lse, dl)
+    dw = xent.xent_bwd_dw(x, w, labels, lse, dl)
+    once = xent.xent_bwd(x, w, labels, lse, dl)
+    again = xent.xent_bwd(x, w, labels, lse, dl)
+    torch.cuda.synchronize()
+    for name in ("xent_bwd_dx", "xent_bwd_dw"):
+        counts = xent.ROUTE_LAUNCHES[name]
+        assert {r: counts[r] - before[name][r] for r in counts} == {
+            r: 3 * int(r == "wgmma_tf32") for r in xent.ROUTES}, name
+    assert torch.equal(dx, once[0]) and torch.equal(dw, once[1])
+    assert torch.equal(once[0], again[0]) and torch.equal(once[1], again[1])
+    assert dx.dtype == dw.dtype == torch.float32
+    _close(dx, xent.xent_bwd_dx_plain(x, w, labels, lse, dl), F32_GRAD_RTOL,
+           "dx")
+    _close(dw, xent.xent_bwd_dw_plain(x, w, labels, lse, dl), F32_GRAD_RTOL,
+           "dW")
+
+
+# Float32 shapes whose row pitches TMA cannot read: E or V not a multiple
+# of 4 (V odd; V 2 mod 4; E 2 mod 4).
+F32_ODD_PITCH = [(77, 40, 333), (129, 36, 254), (129, 38, 256)]
+
+
+@pytest.mark.parametrize("N,E,V", F32_ODD_PITCH, ids=lambda v: str(v))
+def test_float32_odd_pitch_takes_tf32x3(cuda, N, E, V):
+    """A float32 backward whose operands TMA cannot read takes tf32x3,
+    counted, and agrees with the plain versions within 1e-4."""
+    x, w, labels, dl = _inputs(cuda, N, E, V, seed=N * V + E,
+                               dtype=torch.float32)
+    _, lse = xent.xent_fwd(x, w, labels)
+    before = {n: dict(c) for n, c in xent.ROUTE_LAUNCHES.items()}
+    dx, dw = xent.xent_bwd(x, w, labels, lse, dl)
+    torch.cuda.synchronize()
+    for name in ("xent_bwd_dx", "xent_bwd_dw"):
+        counts = xent.ROUTE_LAUNCHES[name]
+        assert {r: counts[r] - before[name][r] for r in counts} == {
+            r: int(r == "tf32x3") for r in xent.ROUTES}, name
+    _close(dx, xent.xent_bwd_dx_plain(x, w, labels, lse, dl), F32_GRAD_RTOL,
+           "dx")
+    _close(dw, xent.xent_bwd_dw_plain(x, w, labels, lse, dl), F32_GRAD_RTOL,
+           "dW")
+
+
+def test_wgmma_tf32_launch_is_refused_without_its_operands(cuda):
+    """A launch that asks the wgmma_tf32 route for operands TMA cannot read
+    (x 4 bytes off), or without the K-major copies it needs, is refused
+    and raises: nothing falls back."""
+    N, E, V = 300, 64, 1000
+    x, w, labels, dl = _inputs(cuda, N, E, V, seed=12, dtype=torch.float32)
+    _, lse = xent.xent_fwd(x, w, labels)
+    lab32 = labels.to(torch.int32)
+    ops = xent._tf32_workspace(w, N, True, True)
+    xent._launch("xent_split", cuda, x, *ops[:3], N, E, xent._tf32_pitch(N))
+    g = torch.empty(N, V, device=cuda)
+    dx = torch.empty_like(x)
+    args = (lab32, lse, dl, g, dx, N, E, V, 1, WGMMA_TF32)
+    xent._launch("xent_bwd_dx", cuda, x, w, *args, ops=ops)  # accepted
+    torch.cuda.synchronize()
+    _close(dx, xent.xent_bwd_dx_plain(x, w, labels, lse, dl), F32_GRAD_RTOL,
+           "dx")
+    with pytest.raises(RuntimeError):
+        xent._launch("xent_bwd_dx", cuda, _offset(x, 4), w, *args, ops=ops)
+    with pytest.raises(RuntimeError):
+        xent._launch("xent_bwd_dx", cuda, x, w, *args)
+    no_wt = [None if k == "wt" else t for k, t in zip(xent.TF32_OPS, ops)]
+    with pytest.raises(RuntimeError):
+        xent._launch("xent_bwd_dx", cuda, x, w, *args, ops=no_wt)
+    with pytest.raises(RuntimeError):
+        xent._launch("xent_bwd_dw", cuda, x, w, lab32, lse, dl, g, None,
+                     torch.empty_like(w), N, E, V, 1, 1, 1, WGMMA_TF32,
+                     ops=[None if k == "gt" else t
+                          for k, t in zip(xent.TF32_OPS, ops)])

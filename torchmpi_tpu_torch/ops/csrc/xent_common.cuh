@@ -28,13 +28,18 @@
 //     in f32 on the CUDA cores.  f32 tiles hold twice the bytes of bf16
 //     ones, so BK is halved to 16 (rather than sizing the shared memory per
 //     type): every kernel keeps one SMEM_BYTES and the operand tiles still
-//     fit under the staged output tile.  TF32 wgmma would take K-major
-//     operands only, and the forward's and dx's W is MN-major as stored, so
-//     the f32 operands stay on wmma.
+//     fit under the staged output tile.  TF32 wgmma takes K-major operands
+//     only, and W is MN-major as stored for the product z = x . W; the
+//     backward's wgmma_tf32 route (xent_wgmma.cuh gemm_tf32_kernel) runs
+//     on K-major copies the wrapper makes (W^T, x^T and the lo parts), so
+//     this product keeps the float32 forward and the backward calls whose
+//     operands TMA cannot read.
 // The bf16 kernels run on it for every shape whose operands TMA cannot read
 // (E or V not a multiple of 8, or a base not 16-byte aligned); every other
 // bf16 shape takes xent_wgmma.cuh's wgmma.mma_async product on TMA-loaded
-// tiles.  Every float32 shape runs on it.
+// tiles.  The float32 forward runs on it at every shape, the float32
+// backward where E or V is not a multiple of 4 or a base is not 16-byte
+// aligned.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -338,8 +343,9 @@ inline cudaError_t launch_grad(const T* x, const T* w, const int* labels,
 }
 
 // The route code of the C launchers, ops/xent.py ROUTES' order: wgmma and
-// wmma take bfloat16 operands, tf32x3 float32 ones.
-enum Route { kWgmma = 0, kWmma = 1, kTf32x3 = 2 };
+// wmma take bfloat16 operands, tf32x3 and wgmma_tf32 (the backward only)
+// float32 ones.
+enum Route { kWgmma = 0, kWmma = 1, kTf32x3 = 2, kWgmmaTf32 = 3 };
 
 }  // namespace tmx
 

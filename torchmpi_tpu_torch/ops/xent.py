@@ -37,7 +37,13 @@ per-row partial statistics, (m, l, t) of each row over each 256-column
 tile on the ``wgmma`` route (3 x ceil(V / 256) x N float32, 12.6 MB at
 the flagship), and merges them in a second kernel.  Every call takes the
 route ``_route`` picks from its dtype, shapes and addresses, counted in
-``ROUTE_LAUNCHES``.  The wrappers make no host-device synchronization.
+``ROUTE_LAUNCHES``.  On the backward's ``wgmma_tf32`` route (float32) the
+wrapper also makes the K-major copies that TF32 ``wgmma`` needs, with
+their lo parts (``tf32_split_plain``): W^T and W's lo parts once per call
+(3 x E x V float32, 805 MB at the flagship), x^T and x's per chunk, and
+g's lo part and g^T per chunk as the g kernel writes them (3 x chunk x V,
+403 MB in that route's chunks of ``TF32_CHUNK`` rows).  The wrappers make
+no host-device synchronization.
 """
 
 from __future__ import annotations
@@ -58,12 +64,18 @@ LAUNCHES = {name: 0 for name in KERNELS}
 
 # Each kernel's launches per route (see _route).  A route's index here is
 # its code in the C launchers (xent_common.cuh tmx::Route).
-ROUTES = ("wgmma", "wmma", "tf32x3")
+ROUTES = ("wgmma", "wmma", "tf32x3", "wgmma_tf32")
 ROUTE_LAUNCHES = {name: {r: 0 for r in ROUTES} for name in KERNELS}
 
 # Token rows per backward chunk: the g workspace is BWD_CHUNK x V in w's
 # dtype (128 MiB of bf16 at V 32768, 256 MiB of float32).
 BWD_CHUNK = 2048
+# Token rows per chunk on the wgmma_tf32 route, whose chunk also holds g's
+# lo part, g^T and its lo part (3 x TF32_CHUNK x V float32): 1024 keeps
+# the float32 flagship step's peak 1.1 GB above the tf32x3 route's, where
+# 2048 put it 1.66 GB above (H100, chip_smoke.py's float32 train line);
+# dx's grid at 1024 rows is 8 x 16 = 128 blocks of 128 x 128.
+TF32_CHUNK = 1024
 
 # The operand dtypes the kernels take (x and w both of one).
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -84,17 +96,22 @@ def reset_launches() -> None:
             counts[r] = 0
 
 
-def _route(E: int, V: int, *ptrs: Optional[int], dtype: torch.dtype) -> str:
+def _route(E: int, V: int, *ptrs: Optional[int], dtype: torch.dtype,
+           backward: bool = False) -> str:
     """The kernels' route for x [., E] and w [E, V] of ``dtype`` and
-    operands at device addresses ``ptrs`` (None: no operand):
-    ``"tf32x3"`` for float32, whatever the shapes and addresses (the
-    ``wmma`` product on TF32 fragments in the three-product form); for
-    bfloat16 ``"wgmma"`` when TMA can read and write the operands, i.e. E
-    and V are multiples of 8 (16-byte row pitches) and every address is
-    16-byte aligned; else ``"wmma"``."""
-    if dtype == torch.float32:
-        return "tf32x3"
+    operands at device addresses ``ptrs`` (None: no operand), in the
+    forward or the ``backward``.  bfloat16: ``"wgmma"`` when TMA can read
+    and write the operands, i.e. E and V are multiples of 8 (16-byte row
+    pitches) and every address is 16-byte aligned; else ``"wmma"``.
+    float32: the backward takes ``"wgmma_tf32"`` (TF32 ``wgmma`` in the
+    three-product form on K-major copies) when E and V are multiples of 4
+    (16-byte row pitches) and every address is 16-byte aligned; the
+    forward, and every other backward, ``"tf32x3"`` (the ``wmma`` product
+    on TF32 fragments in the three-product form)."""
     aligned = all(p is None or p % 16 == 0 for p in ptrs)
+    if dtype == torch.float32:
+        tma = backward and E % 4 == 0 and V % 4 == 0 and aligned
+        return "wgmma_tf32" if tma else "tf32x3"
     return "wgmma" if E % 8 == 0 and V % 8 == 0 and aligned else "wmma"
 
 
@@ -166,30 +183,53 @@ def xent_bwd_dw_plain(x, w, labels, lse, dl):
     return (x.float().t() @ g.float()).to(w.dtype)
 
 
+def tf32_split_plain(x):
+    """(hi, lo) of float32 ``x`` in the truncating split of the
+    ``wgmma_tf32`` route: hi = x with its low 13 bits cleared (the TF32
+    value the tensor core reads from x's float32 bits), lo = x - hi, exact
+    (x = hi + lo), |lo| < 2^-10 |x| for normal x.  The kernel's copies
+    hold x itself as hi and this lo (xent_wgmma.cuh ``tf32_lo``)."""
+    hi = (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+    return hi, x - hi
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# The wgmma_tf32 route's K-major copies, in the backward launchers' order
+# (xent_wgmma.cuh tmw::Tf32Ops); the other routes pass them as null.
+TF32_OPS = ("x_lo", "xt", "xt_lo", "wt", "wt_lo", "w_lo", "g_lo", "gt",
+            "gt_lo")
 _SIGNATURES = {
     # x, w, labels, part, loss, lse, N, E, V, splits, route, stream
-    "xent_fwd": ("tm_xent_fwd", [_P] * 6 + [_I] * 5 + [_P]),
-    # x, w, labels, lse, dl, g, dx, rows, E, V, make_g, route, stream
-    "xent_bwd_dx": ("tm_xent_bwd_dx", [_P] * 7 + [_I] * 5 + [_P]),
+    "xent_fwd": ("xent_fwd", "tm_xent_fwd", [_P] * 6 + [_I] * 5 + [_P]),
+    # x, w, labels, lse, dl, g, dx, rows, E, V, make_g, route, TF32_OPS,
+    # stream
+    "xent_bwd_dx": ("xent_bwd_dx", "tm_xent_bwd_dx",
+                    [_P] * 7 + [_I] * 5 + [_P] * 10),
     # x, w, labels, lse, dl, g, acc, dw, rows, E, V, make_g, first, last,
-    # route, stream
-    "xent_bwd_dw": ("tm_xent_bwd_dw", [_P] * 8 + [_I] * 7 + [_P]),
+    # route, TF32_OPS, stream
+    "xent_bwd_dw": ("xent_bwd_dw", "tm_xent_bwd_dw",
+                    [_P] * 8 + [_I] * 7 + [_P] * 10),
+    # src, lo, hi_t, lo_t, R, C, ldt, stream: the K-major copies of one
+    # float32 operand (the dx library's copy of the kernel)
+    "xent_split": ("xent_bwd_dx", "tm_xent_split", [_P] * 4 + [_I] * 3 + [_P]),
 }
 
 
-def _launch(name: str, dev: torch.device, *args) -> None:
+def _launch(name: str, dev: torch.device, *args, ops=None) -> None:
     """Launch kernel ``name`` with ``args`` (tensors as device pointers,
     None as a null pointer, ints as ints) on the current stream of ``dev``;
-    raise on a refused launch."""
-    sym, argtypes = _SIGNATURES[name]
+    raise on a refused launch.  The backward launchers also take ``ops``,
+    the wgmma_tf32 route's copies in ``TF32_OPS`` order (null without)."""
+    lib, sym, argtypes = _SIGNATURES[name]
+    if name in ("xent_bwd_dx", "xent_bwd_dw"):
+        args += tuple(ops) if ops is not None else (None,) * len(TF32_OPS)
     vals = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(dev):
-        _build.launch(name, sym, argtypes, *vals,
+        _build.launch(lib, sym, argtypes, *vals,
                       torch.cuda.current_stream(dev).cuda_stream)
 
 
@@ -245,11 +285,46 @@ def xent_fwd(x, w, labels):
     return loss, lse
 
 
+def _tf32_pitch(rows: int) -> int:
+    """Row pitch of a chunk's transposed copies (x^T, g^T and their lo
+    parts, [E or V, pitch]): rows rounded up to 4 float32, the 16 bytes
+    TMA needs (xent_wgmma.cuh ``tf32_pitch``).  A shorter last chunk
+    packs its copies at its own pitch at the start of the buffers."""
+    return -(-rows // 4) * 4
+
+
+def _tf32_workspace(w, C: int, want_dx: bool, want_dw: bool) -> list:
+    """The ``wgmma_tf32`` route's K-major copies for chunks of up to ``C``
+    rows, in ``TF32_OPS`` order, None where the call needs none: x_lo [C,
+    E] (the g kernel's A operand), W^T and its lo part [V, E] (its B
+    operand), W's lo part [E, V] (dx's B operand), g's lo part [C, V]
+    (dx's A operand), x^T, g^T and their lo parts [E or V, pitch] (dW's
+    operands).  W's copies are made here, once per call; x's are made
+    per chunk, g's by the launch that forms g."""
+    E, V = w.shape
+    ldt = _tf32_pitch(C)
+
+    def new(*shape):
+        return torch.empty(*shape, dtype=torch.float32, device=w.device)
+
+    ops = dict(x_lo=new(C, E), wt=new(V, E), wt_lo=new(V, E),
+               w_lo=new(E, V) if want_dx else None,
+               g_lo=new(C, V) if want_dx else None,
+               xt=new(E, ldt) if want_dw else None,
+               xt_lo=new(E, ldt) if want_dw else None,
+               gt=new(V, ldt) if want_dw else None,
+               gt_lo=new(V, ldt) if want_dw else None)
+    _launch("xent_split", w.device, w, ops["w_lo"], ops["wt"], ops["wt_lo"],
+            E, V, E)
+    return [ops[k] for k in TF32_OPS]
+
+
 def _bwd_cuda(x, w, labels, lse, dl, want_dx: bool, want_dw: bool):
     """(dx or None, dW or None) on the card, chunk by chunk; with both
     wanted, g is formed once per chunk (by the dx launch) and read by the
     dW launch.  Every chunk takes the route ``_route`` picks for the
-    call."""
+    call; on ``wgmma_tf32`` the chunk's x copies are made before its
+    launches, and W's once before the first."""
     lab, lse, dl = _cuda_operands("xent_bwd", x, w, labels, lse, dl)
     N, E = x.shape
     V = w.shape[1]
@@ -263,23 +338,32 @@ def _bwd_cuda(x, w, labels, lse, dl, want_dx: bool, want_dw: bool):
         dw = torch.empty_like(w)
     if N == 0:
         return dx, dw
-    C = min(BWD_CHUNK, N)
-    g = torch.empty(C, V, dtype=w.dtype, device=dev)
+    route = _route(E, V, *(t.data_ptr() for t in (x, w, dx, dw)
+                           if t is not None), dtype=x.dtype, backward=True)
+    code = ROUTES.index(route)
+    C = min(TF32_CHUNK if route == "wgmma_tf32" else BWD_CHUNK, N)
     acc = (torch.empty(E, V, dtype=torch.float32, device=dev)
            if want_dw and N > C else None)
-    route = _route(E, V, *(t.data_ptr() for t in (x, w, g, dx, acc, dw)
-                           if t is not None), dtype=x.dtype)
-    code = ROUTES.index(route)
+    ops = (_tf32_workspace(w, C, want_dx, want_dw)
+           if route == "wgmma_tf32" else None)
+    # The g workspace (dW alone on wgmma_tf32 forms only g^T: none).
+    g = (torch.empty(C, V, dtype=w.dtype, device=dev)
+         if ops is None or want_dx else None)
+    kw = {} if ops is None else {"ops": ops}
     for c0 in range(0, N, C):
         c1 = min(N, c0 + C)
         rows = c1 - c0
+        if ops is not None:
+            _launch("xent_split", dev, x[c0:c1], *ops[:3], rows, E,
+                    _tf32_pitch(rows))
         chunk = (x[c0:c1], w, lab[c0:c1], lse[c0:c1], dl[c0:c1], g)
         if want_dx:
             _launch("xent_bwd_dx", dev, *chunk, dx[c0:c1], rows, E, V, 1,
-                    code)
+                    code, **kw)
         if want_dw:
             _launch("xent_bwd_dw", dev, *chunk, acc, dw, rows, E, V,
-                    int(not want_dx), int(c0 == 0), int(c1 == N), code)
+                    int(not want_dx), int(c0 == 0), int(c1 == N), code,
+                    **kw)
     for name, wanted in (("xent_bwd_dx", want_dx), ("xent_bwd_dw", want_dw)):
         LAUNCHES[name] += int(wanted)
         ROUTE_LAUNCHES[name][route] += int(wanted)
