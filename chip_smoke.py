@@ -29,12 +29,11 @@ JAX package.  In order it:
    timed also in one chunk), and the dense
    two-call loss (bf16 x @ w, then cross_entropy; forward and backward) timed
    beside them as context only; the same three kernels on float32 operands
-   (the forward on the tf32x3 route, the backward on wgmma_tf32, the TF32
-   wgmma product in the three-product form: within 1e-4 of the plain
-   float32 versions, bitwise on a repeat, the backward's parent route
-   tf32x3 checked on the same inputs and timed in turns with it, the step
-   form on both routes, one float32 torch.matmul of each product as
-   context); then
+   (all three on wgmma_tf32, the TF32 wgmma product in the three-product
+   form: within 1e-4 of the plain float32 versions, bitwise on a repeat,
+   each kernel's parent route tf32x3 checked on the same inputs and timed
+   in turns with it, the step form on both routes, one float32
+   torch.matmul of each product as context); then
    the four ring-allreduce kernels on 4
    ranks' float32 buffers on the card at the flagship's gradient bucket
    (8,249,691 elements a rank, rows 16 bytes apart as the fused sync lays
@@ -52,8 +51,9 @@ JAX package.  In order it:
    121,682,944-element shards) under chunk_bytes 4 MiB (rows 9 and 10)
    and 512 MiB (the resident rows 13 and 14), all four direct, the same
    way, with the stock rank-major routes timed beside them;
-4. dense train phase (stage B): mpi.init() (NCCL, world of 1) and three
-   data-parallel SGD steps (lr 0.02) of the flagship TransformerLM at full
+4. dense train phase (stage B): mpi.init() (NCCL, world of 1), one
+   untimed warm-up and eight timed data-parallel SGD steps (lr 0.02;
+   median and spread) of the flagship TransformerLM at full
    width and depth (embed 2048, depth 8, GQA 16/4, head_dim 128, T 2048,
    vocab 32768, window 1024, RoPE, bf16 compute, float32 parameters,
    batch 4) with attn_impl="flash" and the dense loss (f32 x @ head);
@@ -62,14 +62,15 @@ JAX package.  In order it:
    head.bf16, labels); every kernel's launch count must be > 0, every
    launch of the head (forward and backward) on the wgmma route, and the
    loss finite and falling; then the same fused steps at the model's
-   default float32 (every forward launch of the head on the tf32x3 route,
-   every backward launch on wgmma_tf32; one more step's head profiled by
-   part: the g, dx and dW kernels and the K-major copies); in every
-   train phase one more, untimed step counts the host-device
-   synchronizations of a step, which must be 0;
-6. consistency phases: one forward and backward of the same weights and
-   batch with attn_impl="local" (dense oracle) and "flash", and with the
-   dense and the fused loss;
+   default float32 (every launch of the head, forward and backward, on
+   wgmma_tf32; one more step's head profiled by part: the forward, the g,
+   dx and dW kernels and the backward's K-major copies); in every train
+   phase one more, untimed step counts the host-device synchronizations
+   of a step, which must be 0, and in the fused ones one more step's
+   device time is profiled by part and kernel;
+6. consistency phases: one forward and backward of the flagship's seed
+   weights and batch with attn_impl="local" (dense oracle) and "flash",
+   and with the dense and the fused loss;
 7. ring DP phase (the main path of the ring slice): the flagship as a DP
    step of 4 ranks on the one card, each rank's gradients stacked
    rank-major and synced by the fused rank-major allreduce under backend
@@ -102,8 +103,9 @@ JAX package.  In order it:
    64 images a rank, SGD lr 0.01 momentum 0.9, backend "pallas", batches
    from synthetic_image_classification through prefetch_to_device: 3
    replicated steps with every gradient bucket (row 8) and the BatchNorm
-   statistics (row 11) bitwise equal to the plain ring, 3 timed by CUDA
-   events (step ms, img/s, peak memory), one counting host syncs (0), one
+   statistics (row 11) bitwise equal to the plain ring, 8 timed by CUDA
+   events (median and spread of step ms, img/s, peak memory), one
+   counting host syncs (0), one
    profiled by part (convolutions, batch norm, ring rows, copies), then a
    ZeRO-1 and a ZeRO-3 step from the same state and batch as a replicated
    one (rows 9 and 10 bitwise equal to the plain ring, ZeRO-1's update
@@ -128,7 +130,7 @@ JAX package.  In order it:
    and the statistics bitwise equal to the plain ring, the buckets on the
    side stream; the synced gradients bitwise equal to the plain ring on
    the overlap layout and within 1e-6 (rel. L2) of the non-overlapped
-   sync of the same stacks; 3 steps timed by CUDA events in turns with 3
+   sync of the same stacks; 8 steps timed by CUDA events in turns with 8
    non-overlapped ones (reported, no bar), one counting host syncs (0),
    one of each profiled by CUDA stream; a ZeRO-1 presynced step within
    1e-4 of a replicated one (row 10 bitwise), a replicated step with 4
@@ -163,7 +165,11 @@ SEED = 0
 # The flagship LM (bench.py stage B', dense loss of stage B).
 LM = dict(vocab=32768, embed=2048, depth=8, num_heads=16, head_dim=128,
           num_kv_heads=4, max_len=2048, window=1024, pos_emb="rope")
-BATCH, SEQ, LR, STEPS = 4, 2048, 0.02, 3
+BATCH, SEQ, LR = 4, 2048, 0.02
+# An LM train phase: one untimed warm-up step, then TIMED_STEPS on the
+# host's clock (median and spread: three steps could not tell a 4% change
+# from the spread on an untouched path).
+TIMED_STEPS = 8
 # The flagship's LM-head shapes: every token but the last of each row.
 HEAD_N = BATCH * (SEQ - 1)
 # H100 SXM peaks (NVIDIA data sheet): TF32 and bf16 dense tensor-core
@@ -174,8 +180,9 @@ PEAK_HBM_BYTES = 3.35e12
 KERNEL_RTOL = 1e-4      # f32 kernel vs plain: summation order differs
 # xent kernels: loss / lse are f32 sums in another order; dx / dW come out
 # in bf16, so one bf16 rounding of the largest element; on float32
-# operands (the tf32x3 route) g is not rounded and the three-product form
-# keeps f32's accuracy, so dx / dW are held as loss and lse are.
+# operands (the wgmma_tf32 and tf32x3 routes) g is not rounded and the
+# three-product form keeps f32's accuracy, so dx / dW are held as loss and
+# lse are.
 XENT_STAT_RTOL = 1e-4
 XENT_GRAD_RTOL = 2.0 ** -7
 XENT_F32_GRAD_RTOL = 1e-4
@@ -235,22 +242,28 @@ FLASH_RECORDED_MS = {"flash_fwd": 3.215, "flash_bwd_dq": 4.212,
 # The wmma-product kernels of rows 4, 5 and 6 (PERF.md's kernel table).
 XENT_RECORDED_MS = {"xent_fwd": 7.083, "xent_bwd_dx": 12.665,
                     "xent_bwd_dw": 14.460}
-# The float32 head's route per kernel: the forward stays on tf32x3, the
-# backward takes the TF32 wgmma product (PERF.md rows 4 f32, 5 f32, 6 f32).
-XENT_F32_ROUTES = {"xent_fwd": "tf32x3", "xent_bwd_dx": "wgmma_tf32",
+# The float32 head's route per kernel: all three on the TF32 wgmma
+# product (PERF.md rows 4 f32, 5 f32, 6 f32).
+XENT_F32_ROUTES = {"xent_fwd": "wgmma_tf32", "xent_bwd_dx": "wgmma_tf32",
                    "xent_bwd_dw": "wgmma_tf32"}
-# The float32 backward's recorded tf32x3 times (PR 12's table, the same
-# shapes and time_ms); the phase also times that route in this run.
-XENT_F32_RECORDED_MS = {"xent_bwd_dx": 77.314, "xent_bwd_dw": 75.352}
+# The float32 head's recorded tf32x3 times (PERF.md's kernel table, the
+# same shapes and time_ms); the phase also times that route in this run.
+XENT_F32_RECORDED_MS = {"xent_fwd": 41.837, "xent_bwd_dx": 77.314,
+                        "xent_bwd_dw": 75.352}
 # The float32 head's kernels in a step's profile: the first pattern a
-# kernel's name matches names its part.
+# kernel's name matches names its part.  The forward's copies write W^T
+# and its lo part (tf32_split_kernel<false, true>) and x's lo part
+# (<true, false>); the step's backward wants dx and dW, so its copies
+# write all three (<true, true>).
 XENT_F32_PARTS = (
+    ("forward (StatF32Epi, merge, its copies)",
+     r"StatF32Epi|xent_fwd_merge_kernel|"
+     r"tf32_split_kernel<(false, true|true, false)>"),
     ("g (GradF32Epi)", r"GradF32Epi"),
     ("dx (DxF32Epi)", r"DxF32Epi"),
     ("dW (DwF32Epi)", r"DwF32Epi"),
     ("K-major copies (tf32_split_kernel)", r"tf32_split_kernel"),
-    ("forward (xent_fwd_kernel<float>, merge)",
-     r"xent_fwd_kernel<float>|xent_fwd_merge_kernel"),
+    ("tf32x3 forward (xent_fwd_kernel<float>)", r"xent_fwd_kernel<float>"),
     ("tf32x3 backward (xent_grad / dx / dw_kernel<float>)",
      r"xent_(grad|dx|dw)_kernel<float>"),
 )
@@ -275,7 +288,8 @@ R50_ROWS = ("ring_allreduce_chunked", "ring_allreduce",
 # 6,389,258 float32, is not a multiple of 16 bytes, so rows 9 and 10 run
 # their element path on it (reported).
 R50_VECTOR_ROWS = ("ring_allreduce_chunked", "ring_allreduce")
-R50_CHECKED_STEPS = R50_TIMED_STEPS = 3
+R50_CHECKED_STEPS = 3
+R50_TIMED_STEPS = 8  # median and spread (the step spreads 148-327 ms)
 R50_ZERO_RTOL = 1e-4  # ZeRO-1 vs replicated SGD: rel. L2 of the updates
 # Where a step's device time goes: the first pattern a kernel's name
 # matches names its part.
@@ -285,6 +299,17 @@ STEP_PARTS = (
     ("pooling", r"pool"),
     ("convolutions", r"conv|xmma|implicit|dgrad|wgrad|fprop|gemm|cutlass|"
                      r"nhwc|nchw"),
+    ("copies and casts", r"copy|Copy|Memcpy|CatArray|cat_"),
+    ("reductions", r"reduce"),
+    ("elementwise", r"elementwise|vectorized"),
+)
+# The same for an LM step: the port's kernels (the head's in namespaces
+# tmw / tmx), then cuBLAS's products (the projections and the MLP; its
+# Hopper kernels are named nvjet_* or *gemm*), then the rest.
+LM_STEP_PARTS = (
+    ("flash kernels", r"flash_\w*kernel"),
+    ("fused-loss head", r"tmw::|tmx::|xent_"),
+    ("matmuls (cuBLAS)", r"nvjet|gemm|xmma|cutlass|cublas"),
     ("copies and casts", r"copy|Copy|Memcpy|CatArray|cat_"),
     ("reductions", r"reduce"),
     ("elementwise", r"elementwise|vectorized"),
@@ -824,9 +849,9 @@ class forced_route:
     def __enter__(self):
         real = self.real = self.xent._route
 
-        def route(*a, dtype, **kw):
+        def route(*a, dtype):
             return (self.route if dtype == self.torch.float32
-                    else real(*a, dtype=dtype, **kw))
+                    else real(*a, dtype=dtype))
 
         self.xent._route = route
 
@@ -835,12 +860,12 @@ class forced_route:
 
 
 def xent_f32_phase(torch, xent, dev):
-    """Rows 4, 5 and 6 on float32 operands at the flagship's LM-head shapes:
-    the forward on tf32x3, the backward on wgmma_tf32 (the TF32 wgmma
-    product in the three-product form); each kernel against its plain
-    float32 version on the same inputs and a repeat call, every launch on
-    its route, and W's K-major copies (tf32_split_kernel) bitwise to the
-    plain split; then the backward's parent route, tf32x3, on the same
+    """Rows 4, 5 and 6 on float32 operands at the flagship's LM-head shapes,
+    all three on wgmma_tf32 (the TF32 wgmma product in the three-product
+    form); each kernel against its plain float32 version on the same
+    inputs and a repeat call, every launch on its route, and the forward's
+    and the backward's K-major copies (tf32_split_kernel) bitwise to the
+    plain split; then each kernel's parent route, tf32x3, on the same
     inputs, checked as well; the two routes timed in turns (wgmma_tf32,
     tf32x3, tf32x3, wgmma_tf32), beside the plain version, the bound (the
     function's operations at TF32 peak), the three-product floor
@@ -900,15 +925,21 @@ def xent_f32_phase(torch, xent, dev):
     torch.cuda.synchronize()
     counts = {n: {r: c[r] - before[n][r] for r in c}
               for n, c in xent.ROUTE_LAUNCHES.items()}
-    # The wgmma_tf32 route's K-major copies of W (tf32_split_kernel)
-    # against the plain split, bit for bit.
+    # The wgmma_tf32 route's K-major copies (tf32_split_kernel): the
+    # backward's of W, then the forward's of W and x, against the plain
+    # split, bit for bit.
     ops = dict(zip(xent.TF32_OPS, xent._tf32_workspace(
         w, min(xent.TF32_CHUNK, N), True, True)))
     w_lo = xent.tf32_split_plain(w)[1]
     split_bitwise = (torch.equal(ops["wt"], w.t())
                      and torch.equal(ops["wt_lo"], w_lo.t())
                      and torch.equal(ops["w_lo"], w_lo))
-    del ops, w_lo
+    del ops
+    x_lo, wt, wt_lo = xent._fwd_tf32_copies(x, w)
+    split_bitwise = split_bitwise and (
+        torch.equal(wt, w.t()) and torch.equal(wt_lo, w_lo.t())
+        and torch.equal(x_lo, xent.tf32_split_plain(x)[1]))
+    del x_lo, wt, wt_lo, w_lo
     rows, parent = [], {}
     for name, (kern, plain) in runs.items():
         res = checks[name]
@@ -927,22 +958,19 @@ def xent_f32_phase(torch, xent, dev):
             "library_ms": None, "flops": flops, "issued_flops": 3 * flops,
             "bytes": nbytes,
             "matmul_ms": {p: matmul_ms[p] for p in products[name]}}
-        if name == "xent_fwd":
-            row["ms"] = time_ms(torch, kern)
-        else:
-            # The parent's route on the same inputs: checked, then the two
-            # routes timed in turns.
-            with forced_route(torch, xent, "tf32x3"):
-                parent[name] = check_run(name, kern, plain)
-            turns = {"wgmma_tf32": [], "tf32x3": []}
-            for route in ("wgmma_tf32", "tf32x3", "tf32x3", "wgmma_tf32"):
-                with forced_route(torch, xent, route):
-                    turns[route].append(time_ms(torch, kern, iters=5))
-            row.update(ms=statistics.median(turns["wgmma_tf32"]),
-                       turns_ms=turns,
-                       tf32x3_ms=statistics.median(turns["tf32x3"]),
-                       earlier_ms=XENT_F32_RECORDED_MS[name],
-                       tf32x3_check=parent[name])
+        # The parent's route on the same inputs: checked, then the two
+        # routes timed in turns.
+        with forced_route(torch, xent, "tf32x3"):
+            parent[name] = check_run(name, kern, plain)
+        turns = {"wgmma_tf32": [], "tf32x3": []}
+        for route in ("wgmma_tf32", "tf32x3", "tf32x3", "wgmma_tf32"):
+            with forced_route(torch, xent, route):
+                turns[route].append(time_ms(torch, kern, iters=5))
+        row.update(ms=statistics.median(turns["wgmma_tf32"]),
+                   turns_ms=turns,
+                   tf32x3_ms=statistics.median(turns["tf32x3"]),
+                   earlier_ms=XENT_F32_RECORDED_MS[name],
+                   tf32x3_check=parent[name])
         rows.append(row)
     # The backward as the float32 step runs it: g once per chunk, on both
     # routes in turns; bound and floor of its three products.
@@ -961,18 +989,20 @@ def xent_f32_phase(torch, xent, dev):
                      18 * N * E * V / PEAK_TF32_FLOPS * 1e3}
     # The K-major copies' bytes a call of the step form at TF32_CHUNK rows:
     # W^T, its lo part and W's (once a call); x's lo part, x^T and its lo
-    # part, g's lo part, g^T and its lo part (one chunk's, reused).
+    # part, g's lo part, g^T and its lo part (one chunk's, reused); and a
+    # forward's: W^T, its lo part and x's lo part.
     C = min(xent.TF32_CHUNK, N)
     copies = {"per_call": 3 * E * V * 4,
-              "per_chunk": (3 * C * E + 3 * C * V) * 4}
+              "per_chunk": (3 * C * E + 3 * C * V) * 4,
+              "forward_per_call": (2 * E * V + N * E) * 4}
     emit({"phase": "xent_f32", "shape": dict(N=N, E=E, V=V, dtype="float32",
                                              bwd_chunk=xent.BWD_CHUNK,
                                              tf32_chunk=xent.TF32_CHUNK),
           "route_launches_in_checks": counts, "kernels": rows,
           "step_form": step_form, "copy_bytes": copies,
           "split_bitwise": split_bitwise})
-    check(split_bitwise, "tf32_split_kernel's copies of W differ from "
-          "the plain split")
+    check(split_bitwise, "tf32_split_kernel's copies of W or x differ "
+          "from the plain split")
     for name, c in counts.items():
         route = XENT_F32_ROUTES[name]
         check(c[route] > 0 and c[route] == sum(c.values()),
@@ -1017,8 +1047,8 @@ def lm_loss(torch, model, tok):
 def fused_lm_loss(torch, mpi, model, tok, dtype=None):
     """The fused loss of stage B' (bench.py :1706-1720): the final LayerNorm's
     output and the head, both in ``dtype`` (bf16 by default; float32 takes
-    the tf32x3 route), through the fused linear + cross-entropy kernels,
-    mean over the next tokens."""
+    the wgmma_tf32 route), through the fused linear + cross-entropy
+    kernels, mean over the next tokens."""
     dtype = dtype or torch.bfloat16
     h, head = model(tok, return_prehead=True)
     E = h.shape[-1]
@@ -1033,20 +1063,29 @@ LOSSES = {
 }
 
 
-def train_phase(torch, mpi, ops, dev, loss: str, dtype=None):
-    """Three timed DP steps of the flagship with the ``loss`` of LOSSES at
-    compute ``dtype`` (bf16 by default); every kernel counter is set to 0
-    just before and read just after.  With the fused loss every launch of
-    the head must take the route of ``dtype``: wgmma for bf16; for
-    float32 tf32x3 in the forward and wgmma_tf32 in the backward, whose
-    device time by part one more step's profile reports."""
-    dtype = dtype or torch.bfloat16
+def flagship(torch, mpi, dev, dtype):
+    """The flagship TransformerLM (flash attention, compute ``dtype``) at
+    its seed weights, and its batch of tokens."""
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     model = mpi.models.TransformerLM(**LM, attn_impl="flash", dtype=dtype,
                                      device=dev, generator=g)
-    n_params = sum(p.numel() for p in model.parameters())
     tok = torch.randint(0, LM["vocab"], (BATCH, SEQ), generator=g,
                         device=dev)
+    return model, tok
+
+
+def train_phase(torch, mpi, ops, dev, loss: str, dtype=None):
+    """One untimed warm-up and TIMED_STEPS timed DP steps of the flagship
+    with the ``loss`` of LOSSES at compute ``dtype`` (bf16 by default),
+    reported as their median and spread; every kernel counter is set to 0
+    just before and read just after.  With the fused loss every launch of
+    the head must take the route of ``dtype``: wgmma for bf16, wgmma_tf32
+    for float32, whose head's device time by part one more step's profile
+    reports; and one more step's device time by part and kernel
+    (step_profile)."""
+    dtype = dtype or torch.bfloat16
+    model, tok = flagship(torch, mpi, dev, dtype)
+    n_params = sum(p.numel() for p in model.parameters())
     opt = torch.optim.SGD(model.parameters(), lr=LR)
     loss_fn = LOSSES[loss]
     step = mpi.nn.data_parallel_step(
@@ -1056,11 +1095,12 @@ def train_phase(torch, mpi, ops, dev, loss: str, dtype=None):
     for mod in ops.values():
         mod.reset_launches()
     losses, step_ms = [], []
-    for _ in range(STEPS):
+    for i in range(1 + TIMED_STEPS):
         t0 = time.perf_counter()
         loss_v = step(tok)
         losses.append(float(loss_v))  # waits for the step
-        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i:  # the first is the warm-up
+            step_ms.append((time.perf_counter() - t0) * 1e3)
     launches = {n: c for mod in ops.values() for n, c in mod.LAUNCHES.items()}
     routes = {n: dict(c) for n, c in ops["xent"].ROUTE_LAUNCHES.items()}
     med = statistics.median(step_ms)
@@ -1070,15 +1110,20 @@ def train_phase(torch, mpi, ops, dev, loss: str, dtype=None):
     syncs = count_host_syncs(torch, lambda: step(tok))
     f32_head = (head_f32_profile(torch, lambda: step(tok))
                 if loss == "fused" and dtype == torch.float32 else None)
+    profile = (step_profile(torch, lambda: step(tok),
+                            step_parts=LM_STEP_PARTS)
+               if loss == "fused" else None)
     emit({"phase": "train", "loss": loss,
           "config": dict(LM, batch=BATCH, seq=SEQ, lr=LR,
                          dtype=str(dtype).split(".")[-1]),
-          "params": n_params, "losses": losses, "step_ms": step_ms,
-          "median_step_ms": med,
+          "params": n_params, "losses": losses, "warmup_steps": 1,
+          "step_ms": step_ms, "median_step_ms": med,
+          "min_step_ms": min(step_ms), "max_step_ms": max(step_ms),
           "tokens_per_s": BATCH * SEQ / (med / 1e3),
           "peak_mem_bytes": peak, "host_syncs_per_step": syncs,
           "launches": launches, "xent_route_launches": routes,
           **({"head_device_profile": f32_head} if f32_head else {}),
+          **({"step_device_profile": profile} if profile else {}),
           "world_size": mpi.size(),
           "backend": mpi.runtime.backend_name()})
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
@@ -1096,7 +1141,7 @@ def train_phase(torch, mpi, ops, dev, loss: str, dtype=None):
                              for r in ops["xent"].ROUTES},
                   f"{name}: stage B' head launches off the {route} route: "
                   f"{counts} of {launches[name]}")
-    return model, tok, launches, routes
+    return launches, routes
 
 
 def _loss_and_grads(model, fn):
@@ -1126,9 +1171,12 @@ def _compare(name, a, b):
           f"{name}: gradient {worst} differs by {grad_rel[worst]}")
 
 
-def consistency_phase(torch, mpi, model, tok, dev):
-    """Same weights and batch through attn_impl "flash" vs "local" (dense
-    loss), and through the fused vs the dense loss (flash attention)."""
+def consistency_phase(torch, mpi, dev):
+    """The flagship's seed weights and batch (those every train phase
+    starts from, so the comparison does not depend on how many steps a
+    train phase takes) through attn_impl "flash" vs "local" (dense loss),
+    and through the fused vs the dense loss (flash attention)."""
+    model, tok = flagship(torch, mpi, dev, torch.bfloat16)
     local = mpi.models.TransformerLM(**LM, attn_impl="local",
                                      dtype=torch.bfloat16, device=dev)
     local.load_state_dict(model.state_dict())
@@ -1883,15 +1931,15 @@ def zero_dp_phase(torch, mpi, ops, dev, ring_sync_ms):
     return launches
 
 
-def step_profile(torch, fn, top: int = 15) -> dict:
+def step_profile(torch, fn, top: int = 15, step_parts=STEP_PARTS) -> dict:
     """Device time of one call of ``fn`` (torch.profiler) by part of the
-    step (``STEP_PARTS``: the first pattern a kernel's name matches) and
+    step (``step_parts``: the first pattern a kernel's name matches) and
     the ``top`` largest kernels with their call counts."""
     rows = profile_rows(torch, fn)
-    parts = {name: {"ms": 0.0, "calls": 0} for name, _ in STEP_PARTS}
+    parts = {name: {"ms": 0.0, "calls": 0} for name, _ in step_parts}
     parts["other"] = {"ms": 0.0, "calls": 0}
     for key, calls, ms in rows:
-        part = next((name for name, pat in STEP_PARTS
+        part = next((name for name, pat in step_parts
                      if re.search(pat, key)), "other")
         parts[part]["ms"] += ms
         parts[part]["calls"] += calls
@@ -1907,8 +1955,9 @@ def resnet50_dp_phase(torch, mpi, ops, dev):
     batches from synthetic_image_classification through
     prefetch_to_device.  Three replicated steps with every allreduce (the
     gradient buckets on row 8, the BatchNorm statistics on row 11) held
-    bitwise to the plain ring on the same stacks; three more timed by CUDA
-    events; one counting the host syncs; one profiled by part; then one
+    bitwise to the plain ring on the same stacks; R50_TIMED_STEPS more
+    timed by CUDA events (median and spread); one counting the host
+    syncs; one profiled by part; then one
     ZeRO-1 and one ZeRO-3 step from the same state and batch as one more
     replicated step (cuDNN's deterministic algorithms for the three, so
     they differ only in the sync), their reduce-scatters and all-gathers
@@ -2054,6 +2103,7 @@ def resnet50_dp_phase(torch, mpi, ops, dev):
                            for lo, hi in gr.bounds],
           "data_seconds": data_s, "losses": losses,
           "step_ms": step_ms, "median_step_ms": med,
+          "min_step_ms": min(step_ms), "max_step_ms": max(step_ms),
           "img_per_s": n * b * 1e3 / med, "peak_mem_bytes": peak,
           "host_syncs_per_step": syncs, "step_device_profile": profile,
           "syncs_by_row": by_row,
@@ -2683,22 +2733,19 @@ def main() -> int:
         rows += xent_f32_phase(torch, xent, dev)
         rows += ring_kernel_phase(torch, mpi, ring, dev)
         rows += ring_rs_ag_kernel_phase(torch, ring, dev)
-        model, _, _, _ = train_phase(torch, mpi, ops, dev, "dense")
-        del model
+        train_phase(torch, mpi, ops, dev, "dense")
         torch.cuda.empty_cache()
         # The main path of slices 1 and 2: stage B', the fused LM-head loss.
-        model, tok, launches, _ = train_phase(torch, mpi, ops, dev, "fused")
-        consistency_phase(torch, mpi, model, tok, dev)
-        del model
+        launches, _ = train_phase(torch, mpi, ops, dev, "fused")
         torch.cuda.empty_cache()
-        # The main path of the float32 head (slices 11 and 14): stage B' at
-        # the model's default float32, the forward on the tf32x3 route and
-        # the backward on wgmma_tf32.
-        model, _, _, routes = train_phase(torch, mpi, ops, dev, "fused",
-                                          torch.float32)
+        consistency_phase(torch, mpi, dev)
+        torch.cuda.empty_cache()
+        # The main path of the float32 head (slices 11, 14 and 15): stage B'
+        # at the model's default float32, the forward and the backward on
+        # wgmma_tf32.
+        _, routes = train_phase(torch, mpi, ops, dev, "fused", torch.float32)
         launches.update({f"{n}[{r}]": routes[n][r]
                          for n, r in XENT_F32_ROUTES.items()})
-        del model
         torch.cuda.empty_cache()
         # The main path of slice 3: the DP step of RING_N ranks on the
         # card, its gradients synced by the ring kernels.

@@ -7,7 +7,8 @@ its time on the card: variants of its wgmma epilogue timed side by side.
 needs one CUDA card and nvcc.  It compiles four versions of the port's
 ``torchmpi_tpu_torch/ops/csrc/xent_fwd.cu`` (nvcc, sm_90a, the port's own
 flags) into ``build/torch_kernels/variants/``, each differing only in the
-``StatEpi`` epilogue that folds the 128 x 256 tile of z = x . W:
+``StatFold`` epilogue that folds the 128 x 256 tile of z = x . W (as
+``StatEpi``; the float32 route's ``StatF32Epi`` shares the fold):
 
 - ``committed``: the source as it is;
 - ``masked``: the column mask tested for every element of every tile;
@@ -40,14 +41,14 @@ N, E, V = 8188, 2048, 32768
 def variants(src: str) -> dict:
     """{name: source} of the epilogue variants of xent_fwd.cu."""
     i0 = src.index("  __device__ __forceinline__ void operator()",
-                   src.index("struct StatEpi"))
+                   src.index("struct StatFold"))
     i1 = src.index("\n};\n", i0)
     body = src[i0:i1]
     product_only = '''  __device__ __forceinline__ void operator()(
-      const float (&d)[tmw::ACC], int r0, int c0) const {
+      const float (&d)[NACC], int r0, int c0) const {
     float s = 0.f;
 #pragma unroll
-    for (int i = 0; i < tmw::ACC; ++i) s += d[i];
+    for (int i = 0; i < NACC; ++i) s += d[i];
     if (r0 < N && (threadIdx.x & 3) == 0) part[(long)blockIdx.y * N + r0] = s;
   }'''
     no_exp = body
@@ -134,14 +135,15 @@ def main() -> int:
     for _ in range(args.rounds):
         for name, so in libs.items():
             fn = ctypes.CDLL(so).tm_xent_fwd
-            fn.argtypes = [P] * 6 + [I] * 5 + [P]
+            fn.argtypes = [P] * 6 + [I] * 5 + [P] * 4
             part = torch.empty(3, nt, N, device=dev)
             loss, lse = torch.empty(N, device=dev), torch.empty(N, device=dev)
 
             def run():
                 rc = fn(x.data_ptr(), w.data_ptr(), lab.data_ptr(),
                         part.data_ptr(), loss.data_ptr(), lse.data_ptr(), N,
-                        E, V, nt, wgmma, torch.cuda.current_stream().cuda_stream)
+                        E, V, nt, wgmma, None, None, None,
+                        torch.cuda.current_stream().cuda_stream)
                 if rc:
                     raise RuntimeError(f"{name}: CUDA error {rc}")
 

@@ -391,20 +391,27 @@ def _fwd_split_model(x, w, labels, splits, BM=8, BN=16):
     return lse - part[2].sum(dim=0), lse
 
 
-@pytest.mark.parametrize("splits", [1, 3, 4, 5])
-def test_forward_split_merge_matches_plain(splits):
+@pytest.mark.parametrize("splits,V,BN", [
+    pytest.param(1, 70, 16, id="1"), pytest.param(3, 70, 16, id="3"),
+    pytest.param(4, 70, 16, id="4"), pytest.param(5, 70, 16, id="5"),
+    pytest.param(3, 300, 128, id="tf32-tiles-V300"),
+    pytest.param(2, 256, 128, id="tf32-tiles-V256")])
+def test_forward_split_merge_matches_plain(splits, V, BN):
     """The split-and-merge of the forward kernel gives the plain loss and
     lse (rtol = atol = 2e-5; f32 sums in another order), with ragged N
     and V, labels -1 and past V, and splits that leave one run short or
     empty (5 tiles over 4 splits).  5 splits of the 5 tiles is the wgmma
     route's form: one partial (m, l, t) per tile, the ragged last tile's
-    columns past V left out, merged in tile order."""
-    N, E, V = 21, 16, 70
+    columns past V left out, merged in tile order.  The wgmma_tf32
+    route's form is one partial per 128-column tile: three at V 300 (the
+    last of 44 columns), two at V 256 (no ragged tile)."""
+    N, E = 21, 16
     x = torch.from_numpy(_rand((N, E), 40, 1.0))
     w = torch.from_numpy(_rand((E, V), 41, 1.0))
     lab = torch.from_numpy(_labels(N, V, 42))
     lab[0], lab[1], lab[2] = -1, V + 1, V - 1
-    got = _fwd_split_model(x, w, lab, splits)
+    assert splits == -(-V // BN) or BN == 16
+    got = _fwd_split_model(x, w, lab, splits, BN=BN)
     want = xent.xent_fwd_plain(x, w, lab)
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-5,

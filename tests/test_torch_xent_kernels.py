@@ -219,13 +219,22 @@ def test_two_calls_are_bitwise_equal(cuda):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("route", ["wgmma", "wmma"])
+@pytest.mark.parametrize("route", ["wgmma", "wmma", "wgmma_tf32", "tf32x3"])
 def test_extreme_logits(cuda, route):
-    """Logits in the hundreds: the lse stays finite and agrees, on either
-    route."""
-    x, w, labels, dl = _inputs(cuda, 200, 64, 640, seed=4, x_scale=60.0)
-    if route == "wmma":
-        x = _offset(x)
+    """Logits in the hundreds: the lse stays finite and agrees, on every
+    route (the float32 ones on float32 operands, x 4 bytes off for
+    tf32x3).  On float32 operands dx is held end to end, from the
+    kernels' own lse against the plain dx from the plain lse: the forward
+    and the backward form z in one order, so their softmax agrees with
+    itself, while z itself is off the plain float32 z by about 1e-6 of
+    |z|, which a plain dx taken at the kernel's lse turns into an error
+    of about that times |z| in dx (scripts/torch_xent_f32_accuracy.py
+    measures both forms against float64)."""
+    f32 = route in ("wgmma_tf32", "tf32x3")
+    x, w, labels, dl = _inputs(cuda, 200, 64, 640, seed=4, x_scale=60.0,
+                               dtype=torch.float32 if f32 else torch.bfloat16)
+    if route in ("wmma", "tf32x3"):
+        x = _offset(x, 4 if f32 else 8)
     before = dict(xent.ROUTE_LAUNCHES["xent_fwd"])
     loss, lse = xent.xent_fwd(x, w, labels)
     assert xent.ROUTE_LAUNCHES["xent_fwd"][route] == before[route] + 1
@@ -234,7 +243,8 @@ def test_extreme_logits(cuda, route):
     _close(loss, ref_loss, STAT_RTOL, "loss")
     _close(lse, ref_lse, STAT_RTOL, "lse")
     _close(xent.xent_bwd_dx(x, w, labels, lse, dl),
-           xent.xent_bwd_dx_plain(x, w, labels, lse, dl), GRAD_RTOL, "dx")
+           xent.xent_bwd_dx_plain(x, w, labels, ref_lse if f32 else lse, dl),
+           F32_GRAD_RTOL if f32 else GRAD_RTOL, "dx")
 
 
 def test_autograd_matches_dense_loss(cuda):
@@ -284,27 +294,35 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 # Float32 x and w: the JAX test's shape (tests/test_xent.py), a ragged
 # one, E and V not multiples of 4 (no row of x or w starts on a 16-byte
 # boundary: the loaders' element path), a wgmma shape of the bf16 cases,
-# and the flagship's head.  The forward takes tf32x3 at every shape; the
-# backward wgmma_tf32 where E and V are multiples of 4 (every operand here
-# is allocated, so 16-byte aligned), else tf32x3.
+# and the flagship's head.  The forward and the backward take wgmma_tf32
+# where E and V are multiples of 4 (every operand here is allocated, so
+# 16-byte aligned), else tf32x3.
 F32_CASES = [(64, 8, 16), (129, 64, 200), (129, 63, 201),
              (1000, 2048, 4104), (8188, 2048, 32768)]
+# The wgmma_tf32 route at ragged shapes: N not a multiple of the 128-row
+# tile, V not a multiple of 128 or 256, E and V multiples of 4 but not of
+# 8 (no bf16 TMA route there), two chunks with a short last one (N 2500),
+# and a last chunk of 4 rows (N 4100, whose transposed copies' pitch is 4).
+TF32_RAGGED = [(300, 64, 1000), (77, 40, 332), (2500, 64, 520),
+               (4100, 128, 2056)]
+# Float32 shapes whose row pitches TMA cannot read: E or V not a multiple
+# of 4 (V odd; V 2 mod 4; E 2 mod 4).
+F32_ODD_PITCH = [(77, 40, 333), (129, 36, 254), (129, 38, 256)]
 
 
 def _f32_route(name, E, V):
-    if name == "xent_fwd" or E % 4 or V % 4:
-        return "tf32x3"
-    return "wgmma_tf32"
+    return "tf32x3" if E % 4 or V % 4 else "wgmma_tf32"
 
 
-@pytest.mark.parametrize("N,E,V", F32_CASES, ids=lambda v: str(v))
+@pytest.mark.parametrize("N,E,V", F32_CASES + TF32_RAGGED + F32_ODD_PITCH,
+                         ids=lambda v: str(v))
 def test_float32_kernels_match_plain(cuda, N, E, V):
     """The three kernels on float32 operands: within 1e-4 of the largest
     |reference| of the plain float32 versions, dx and dW in float32, two
     calls bitwise, dx and dW from a g each launch forms alone bitwise equal
     to those from the g formed once for both, every launch on its route
-    (the forward on tf32x3, the backward on wgmma_tf32 where TMA can read
-    the operands)."""
+    (wgmma_tf32 where TMA can read the operands, forward and backward,
+    else tf32x3)."""
     x, w, labels, dl = _inputs(cuda, N, E, V, seed=N + 7 * V,
                                dtype=torch.float32)
     edges = [V - 1, 0, min(127, V - 1), min(128, V - 1), V, -1]
@@ -331,7 +349,8 @@ def test_float32_kernels_match_plain(cuda, N, E, V):
            "dW")
 
 
-@pytest.mark.parametrize("N,E,V", F32_CASES, ids=lambda v: str(v))
+@pytest.mark.parametrize("N,E,V", F32_CASES + TF32_RAGGED + F32_ODD_PITCH,
+                         ids=lambda v: str(v))
 def test_float32_autograd_matches_dense_loss(cuda, N, E, V):
     """fused_linear_cross_entropy on float32 x and w, and its gradients,
     against the dense float32 loss (x @ w, then cross_entropy) on the same
@@ -387,14 +406,6 @@ def test_float32_offset_base_takes_the_element_path(cuda, which):
            "dW")
 
 
-# The wgmma_tf32 route at ragged shapes: N not a multiple of the 128-row
-# tile, V not a multiple of 128 or 256, E and V multiples of 4 but not of
-# 8 (no bf16 TMA route there), two chunks with a short last one (N 2500),
-# and a last chunk of 4 rows (N 4100, whose transposed copies' pitch is 4).
-TF32_RAGGED = [(300, 64, 1000), (77, 40, 332), (2500, 64, 520),
-               (4100, 128, 2056)]
-
-
 @pytest.mark.parametrize("N,E,V", TF32_RAGGED, ids=lambda v: str(v))
 def test_wgmma_tf32_route_matches_plain(cuda, N, E, V):
     """The float32 backward on wgmma_tf32 at ragged shapes: dx and dW
@@ -426,22 +437,18 @@ def test_wgmma_tf32_route_matches_plain(cuda, N, E, V):
            "dW")
 
 
-# Float32 shapes whose row pitches TMA cannot read: E or V not a multiple
-# of 4 (V odd; V 2 mod 4; E 2 mod 4).
-F32_ODD_PITCH = [(77, 40, 333), (129, 36, 254), (129, 38, 256)]
-
-
 @pytest.mark.parametrize("N,E,V", F32_ODD_PITCH, ids=lambda v: str(v))
 def test_float32_odd_pitch_takes_tf32x3(cuda, N, E, V):
-    """A float32 backward whose operands TMA cannot read takes tf32x3,
-    counted, and agrees with the plain versions within 1e-4."""
+    """A float32 forward and backward whose operands TMA cannot read take
+    tf32x3, counted, and agree with the plain versions within 1e-4."""
     x, w, labels, dl = _inputs(cuda, N, E, V, seed=N * V + E,
                                dtype=torch.float32)
-    _, lse = xent.xent_fwd(x, w, labels)
     before = {n: dict(c) for n, c in xent.ROUTE_LAUNCHES.items()}
+    loss, lse = xent.xent_fwd(x, w, labels)
     dx, dw = xent.xent_bwd(x, w, labels, lse, dl)
     torch.cuda.synchronize()
-    for name in ("xent_bwd_dx", "xent_bwd_dw"):
+    _close(loss, xent.xent_fwd_plain(x, w, labels)[0], STAT_RTOL, "loss")
+    for name in xent.KERNELS:
         counts = xent.ROUTE_LAUNCHES[name]
         assert {r: counts[r] - before[name][r] for r in counts} == {
             r: int(r == "tf32x3") for r in xent.ROUTES}, name
@@ -452,9 +459,10 @@ def test_float32_odd_pitch_takes_tf32x3(cuda, N, E, V):
 
 
 def test_wgmma_tf32_launch_is_refused_without_its_operands(cuda):
-    """A launch that asks the wgmma_tf32 route for operands TMA cannot read
-    (x 4 bytes off), or without the K-major copies it needs, is refused
-    and raises: nothing falls back."""
+    """A launch, backward or forward, that asks the wgmma_tf32 route for
+    operands TMA cannot read (x 4 bytes off), or without the K-major
+    copies it needs, or (the forward) with partials not one per 128-column
+    tile, is refused and raises: nothing falls back."""
     N, E, V = 300, 64, 1000
     x, w, labels, dl = _inputs(cuda, N, E, V, seed=12, dtype=torch.float32)
     _, lse = xent.xent_fwd(x, w, labels)
@@ -480,3 +488,24 @@ def test_wgmma_tf32_launch_is_refused_without_its_operands(cuda):
                      torch.empty_like(w), N, E, V, 1, 1, 1, WGMMA_TF32,
                      ops=[None if k == "gt" else t
                           for k, t in zip(xent.TF32_OPS, ops)])
+    # The forward: accepted with its copies and ceil(V / 128) partials;
+    # refused for x off alignment, without a copy, or with other splits.
+    fops = xent._fwd_tf32_copies(x, w)
+    nt = -(-V // 128)
+    part = torch.empty(3, nt + 1, N, device=cuda)
+    loss, lse2 = torch.empty_like(lse), torch.empty_like(lse)
+    fargs = (lab32, part, loss, lse2, N, E, V)
+    xent._launch("xent_fwd", cuda, x, w, *fargs, nt, WGMMA_TF32, ops=fops)
+    torch.cuda.synchronize()
+    _close(lse2, lse, STAT_RTOL, "lse")
+    with pytest.raises(RuntimeError):
+        xent._launch("xent_fwd", cuda, _offset(x, 4), w, *fargs, nt,
+                     WGMMA_TF32, ops=fops)
+    with pytest.raises(RuntimeError):
+        xent._launch("xent_fwd", cuda, x, w, *fargs, nt, WGMMA_TF32)
+    with pytest.raises(RuntimeError):
+        xent._launch("xent_fwd", cuda, x, w, *fargs, nt, WGMMA_TF32,
+                     ops=[fops[0], None, fops[2]])
+    with pytest.raises(RuntimeError):
+        xent._launch("xent_fwd", cuda, x, w, *fargs, nt + 1, WGMMA_TF32,
+                     ops=fops)

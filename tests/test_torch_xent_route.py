@@ -5,15 +5,16 @@
 and V multiples of 8, and every operand's base 16-byte aligned), the
 ``cp.async`` / ``wmma`` product (any other bfloat16 call), the TF32
 ``wgmma`` product in the three-product form ``wgmma_tf32`` (a float32
-backward whose row pitches are multiples of 16 bytes, E and V multiples of
-4, and whose bases are 16-byte aligned) or the ``wmma`` TF32
-three-product form ``tf32x3`` (the float32 forward, and every other
-float32 backward): the forward from x's and w's addresses, the backward
-from those of every operand it reads or writes.  It is a pure function of
-the dtype, the shapes and the addresses, so it is held here without a card
-or a compiler; the wrappers' launch arguments (route flag, dtype code, the
-g workspace's dtype, the ``wgmma_tf32`` route's K-major copies and their
-lo parts) are held with the launches replaced by torch stand-ins; the
+call whose row pitches are multiples of 16 bytes, E and V multiples of 4,
+and whose bases are 16-byte aligned) or the ``wmma`` TF32 three-product
+form ``tf32x3`` (every other float32 call), the same in the forward and
+the backward: the forward from x's and w's addresses, the backward from
+those of every operand it reads or writes.  It is a pure function of the
+dtype, the shapes and the addresses, so it is held here without a card or
+a compiler; the wrappers' launch arguments (route flag, dtype code, the g
+workspace's dtype, the ``wgmma_tf32`` route's K-major copies and their lo
+parts, forward and backward) are held with the launches replaced by torch
+stand-ins; the
 truncating split and the three-product form are held to numpy; the card
 tests (tests/test_torch_xent_kernels.py) check that the launches follow
 the route.  No JAX.
@@ -87,9 +88,11 @@ def test_cpu_wrappers_count_no_route():
                for c in counts.values())
 
 
-# (N, E, V, x offset in elements): the forward's launch on each route.
+# (N, E, V, x offset in elements): the forward's launch on each route; an
+# offset of 4 elements is 8 bytes off in bfloat16 and 16 bytes (aligned)
+# in float32, one is off in both.
 FWD_CASES = [(21, 16, 40, 0), (300, 64, 1000, 0), (64, 8, 8, 0),
-             (21, 36, 333, 0), (40, 64, 520, 4)]
+             (21, 36, 333, 0), (40, 64, 520, 4), (40, 64, 520, 1)]
 
 
 @pytest.mark.parametrize("N,E,V,off", FWD_CASES, ids=lambda v: str(v))
@@ -134,17 +137,16 @@ def test_forward_launch_follows_its_route(monkeypatch, N, E, V, off):
 @pytest.mark.parametrize("E,V,ptrs,route", ROUTE_CASES,
                          ids=lambda v: str(v))
 def test_float32_takes_tf32x3_whatever_its_alignment(E, V, ptrs, route):
-    """The float32 forward takes ``tf32x3`` whatever its alignment; the
-    float32 backward takes ``wgmma_tf32`` exactly when E and V are
-    multiples of 4 and every base is 16-byte aligned, else ``tf32x3``."""
-    assert xent._route(E, V, *ptrs, dtype=torch.float32) == "tf32x3"
+    """Float32 takes ``wgmma_tf32`` exactly when E and V are multiples of
+    4 and every base is 16-byte aligned, else ``tf32x3``; the rule has no
+    direction (the forward's addresses are x's and w's, the backward's
+    every operand's).  Where bfloat16 takes ``wgmma``, float32 takes
+    ``wgmma_tf32``."""
     tma = (E % 4 == 0 and V % 4 == 0
            and all(p is None or p % 16 == 0 for p in ptrs))
-    assert xent._route(E, V, *ptrs, dtype=torch.float32, backward=True) == (
+    assert xent._route(E, V, *ptrs, dtype=torch.float32) == (
         "wgmma_tf32" if tma else "tf32x3")
-    # The bfloat16 rule does not depend on the direction.
-    assert xent._route(E, V, *ptrs, dtype=torch.bfloat16,
-                       backward=True) == route
+    assert route == "wmma" or tma
 
 
 def _split_work(a):
@@ -224,18 +226,20 @@ def _chunk_work(name, dev, *a, ops=None):
 @pytest.mark.parametrize("N,E,V,off", FWD_CASES, ids=lambda v: str(v))
 def test_launches_carry_the_route(monkeypatch, N, E, V, off, dtype):
     """Forward and backward on CUDA tensors, the launch standing in as
-    torch: float32 x and w take ``tf32x3`` in the forward (the wmma grid's
-    splits, route code 2) and their address route in the backward
-    (``wgmma_tf32``, code 3, or ``tf32x3``); bfloat16 their address route
-    (code 0 or 1) in both; the backward's g workspace is w's dtype
-    (float32 g is never rounded) and holds one chunk; each wrapper counts
-    one launch on its route; the results agree with the plain versions."""
+    torch: float32 x and w take their address route in both directions
+    (``wgmma_tf32``, code 3, with ceil(V / 128) partials in the forward
+    and two ``xent_split`` launches before it, W's at pitch E and then x's
+    lo part; or ``tf32x3``, code 2, the wmma grid's splits, null copies);
+    bfloat16 theirs (code 0 or 1) in both; the backward's g workspace is
+    w's dtype (float32 g is never rounded) and holds one chunk; each
+    wrapper counts one launch on its route; the results agree with the
+    plain versions."""
     calls, splits_made = [], []
 
     def launch(name, dev, *a, ops=None):
         if name == "xent_fwd":
             x, w, lab, part, loss, lse, n, e, v, splits, code = a
-            calls.append((name, splits, code))
+            calls.append((name, splits, code, ops is None))
             l_, s_ = xent.xent_fwd_plain(x, w, lab)
             loss.copy_(l_)
             lse.copy_(s_)
@@ -261,31 +265,36 @@ def test_launches_carry_the_route(monkeypatch, N, E, V, off, dtype):
     dl = torch.randn(N, generator=g)
     f32 = dtype == torch.float32
     route = xent._route(E, V, x.data_ptr(), w.data_ptr(), dtype=dtype)
-    assert (route == "tf32x3") == f32
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    if f32:
+        assert route == ("wgmma_tf32" if E % 4 == 0 and V % 4 == 0
+                         and aligned else "tf32x3")
+    else:
+        assert route in ("wgmma", "wmma")
+    code = xent.ROUTES.index(route)
     xent.reset_launches()
     loss, lse = xent.xent_fwd(x, w, lab)
-    splits = -(-V // 256) if route == "wgmma" else xent._fwd_splits(N, V)
-    assert calls == [("xent_fwd", splits, xent.ROUTES.index(route))]
+    splits = {"wgmma": -(-V // 256), "wgmma_tf32": -(-V // 128)}.get(
+        route, xent._fwd_splits(N, V))
+    assert calls == [("xent_fwd", splits, code, route != "wgmma_tf32")]
+    tf32 = route == "wgmma_tf32"
+    assert splits_made == ([(E, V, E), (N, E, 0)] if tf32 else [])
     dx, dw = xent.xent_bwd(x, w, lab, lse, dl)
-    broute = xent._route(E, V, x.data_ptr(), w.data_ptr(), dtype=dtype,
-                         backward=True)
-    assert (broute == "wgmma_tf32") == (
-        f32 and E % 4 == 0 and V % 4 == 0 and x.data_ptr() % 16 == 0)
     chunks = -(-N // 16)
     assert calls[1:] == [
-        (name, dtype, (min(16, N), V), xent.ROUTES.index(broute))
+        (name, dtype, (min(16, N), V), code)
         for _ in range(chunks) for name in ("xent_bwd_dx", "xent_bwd_dw")]
-    # wgmma_tf32: W's copies once (pitch E), then x's per chunk.
+    # wgmma_tf32: the forward's copies, then the backward's: W's once
+    # (pitch E), then x's per chunk.
     rows = [min(16, N - c0) for c0 in range(0, N, 16)]
-    assert splits_made == ([(E, V, E)] + [(r, E, xent._tf32_pitch(r))
-                                          for r in rows]
-                           if broute == "wgmma_tf32" else [])
+    assert splits_made == ([(E, V, E), (N, E, 0), (E, V, E)]
+                           + [(r, E, xent._tf32_pitch(r)) for r in rows]
+                           if tf32 else [])
     assert dx.dtype == dw.dtype == dtype
     for name in xent.KERNELS:
-        r = route if name == "xent_fwd" else broute
         assert xent.LAUNCHES[name] == 1
         assert xent.ROUTE_LAUNCHES[name] == {
-            k: int(k == r) for k in xent.ROUTES}, name
+            k: int(k == route) for k in xent.ROUTES}, name
     want = xent.xent_fwd_plain(x, w, lab)
     assert torch.equal(loss, want[0]) and torch.equal(lse, want[1])
     # The chunks sum dW in another f32 order than one product (float32:
@@ -402,6 +411,83 @@ def test_wgmma_tf32_launch_arguments(monkeypatch, N, E, V, chunk, want):
         err = float((got - want_).abs().max())
         assert got.dtype == torch.float32
         assert err <= 1e-5 * float(want_.abs().max()), (plain.__name__, err)
+
+
+def _stat_fold(z, lab, tile):
+    """(m, l, t) of each row of z [N, V] over each ``tile``-column tile,
+    [3, ceil(V / tile), N], as the wgmma routes' epilogue writes them:
+    columns past V left out, t the label's logit in its tile, else 0."""
+    N, V = z.shape
+    nt = -(-V // tile)
+    zp = torch.full((N, nt * tile), xent.NEG_INF)
+    zp[:, :V] = z
+    zt = zp.view(N, nt, tile)
+    m = zt.max(dim=2).values
+    l = torch.exp(zt - m[..., None]).sum(dim=2)
+    cols = torch.arange(nt * tile).view(nt, tile)
+    hit = (lab.long()[:, None, None] == cols[None]) & (cols < V)[None]
+    t = torch.where(hit, zt, torch.zeros_like(zt)).sum(dim=2)
+    return torch.stack([m, l, t]).transpose(1, 2)
+
+
+# (N, E, V): the forward on wgmma_tf32 at a ragged N (37 rows, not a
+# multiple of the 128-row tile), V a multiple of 4 but not of 128 (300:
+# three tiles, the last of 44 columns), and one row.
+TF32_FWD_CASES = [(37, 12, 256), (130, 16, 300), (1, 8, 132)]
+
+
+@pytest.mark.parametrize("N,E,V", TF32_FWD_CASES, ids=lambda v: str(v))
+def test_wgmma_tf32_forward_launch_arguments(monkeypatch, N, E, V):
+    """The float32 forward on the wgmma_tf32 route, its launches standing
+    in as torch: two ``xent_split`` launches before the forward's, W's
+    (no lo part, W^T and its lo part at pitch E) and then x's (its lo
+    part, no transposes); the forward's launch gets route code 3, the
+    copies bit for bit (x's lo part, W^T, W^T's lo part), a [3,
+    ceil(V / 128), N] workspace and splits = ceil(V / 128); the partials
+    folded per 128-column tile from the copies and merged give the plain
+    loss and lse within 1e-5 of their largest magnitude."""
+    seen = []
+
+    def launch(name, dev, *a, ops=None):
+        if name == "xent_split":
+            src, lo, hi_t, lo_t, R, C, ldt = a
+            seen.append((name, tuple(src.shape), lo is None, hi_t is None,
+                         lo_t is None, R, C, ldt))
+            return _split_work(a)
+        x, w, lab, part, loss, lse, n, e, v, splits, code = a
+        x_lo, wt, wt_lo = ops
+        seen.append((name, tuple(part.shape), (n, e, v), splits, code))
+        low = lambda t: xent.tf32_split_plain(t)[1]  # noqa: E731
+        assert torch.equal(x_lo, low(x)) and torch.equal(wt, w.t())
+        assert torch.equal(wt_lo, low(w).t())
+        part.copy_(_stat_fold(x @ wt.t(), lab, 128))
+        m = part[0].max(dim=0).values
+        s_ = m + torch.log(torch.clamp(
+            (part[1] * torch.exp(part[0] - m)).sum(dim=0), min=1e-37))
+        lse.copy_(s_)
+        loss.copy_(s_ - part[2].sum(dim=0))
+
+    monkeypatch.setattr(xent, "_launch", launch)
+    monkeypatch.setattr(xent, "_device_kind", lambda t: "cuda")
+    rng = np.random.default_rng(N * V + E)
+    x = torch.from_numpy(rng.standard_normal((N, E), np.float32))
+    w = torch.from_numpy(rng.standard_normal((E, V), np.float32)
+                         / np.sqrt(E, dtype=np.float32))
+    lab = torch.from_numpy(rng.integers(-1, V + 1, N))
+    lab[-1] = V - 1
+    xent.reset_launches()
+    loss, lse = xent.xent_fwd(x, w, lab)
+    nt = -(-V // 128)
+    assert seen == [
+        ("xent_split", (E, V), True, False, False, E, V, E),
+        ("xent_split", (N, E), False, True, True, N, E, 0),
+        ("xent_fwd", (3, nt, N), (N, E, V), nt,
+         xent.ROUTES.index("wgmma_tf32"))]
+    assert xent.ROUTE_LAUNCHES["xent_fwd"] == {
+        r: int(r == "wgmma_tf32") for r in xent.ROUTES}
+    for got, want in zip((loss, lse), xent.xent_fwd_plain(x, w, lab)):
+        err = float((got - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), err
 
 
 # Value families for the split: normal, wide exponents, and the edges

@@ -343,8 +343,7 @@ inline cudaError_t launch_grad(const T* x, const T* w, const int* labels,
 }
 
 // The route code of the C launchers, ops/xent.py ROUTES' order: wgmma and
-// wmma take bfloat16 operands, tf32x3 and wgmma_tf32 (the backward only)
-// float32 ones.
+// wmma take bfloat16 operands, tf32x3 and wgmma_tf32 float32 ones.
 enum Route { kWgmma = 0, kWmma = 1, kTf32x3 = 2, kWgmmaTf32 = 3 };
 
 }  // namespace tmx

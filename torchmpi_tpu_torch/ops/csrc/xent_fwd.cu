@@ -8,8 +8,10 @@
 // operands (at N 8188, E 2048, V 32768: 1.1 TFLOP against 168 MB), so it is
 // bound by operations; the product runs on the tensor cores, and the
 // softmax statistics ride in its epilogue.  On float32 operands the
-// three-product form issues 3 x 2 N E V TF32 flops against twice the bytes,
-// still bound by operations.
+// three-product form issues 3 x 2 N E V TF32 flops against twice the bytes
+// (plus, on wgmma_tf32, the K-major copies: W^T and its lo part, x's lo
+// part, 2 E V + N E float32 written and read once), still bound by
+// operations.
 //
 // Design: the TPU walks the vocab blocks of one token block in order on one
 // core, carrying (m, l, t) in scratch.  Here blocks own tiles of z = x . W,
@@ -22,9 +24,9 @@
 // depend on block timing, and writes lse = m + log(max(l, 1e-37)) and loss
 // = lse - t (:73-78).
 //
-// Three routes, chosen by the caller (ops/xent.py _route) from the dtype,
+// Four routes, chosen by the caller (ops/xent.py _route) from the dtype,
 // the shapes and the addresses, never by a failed launch:
-//   wgmma (E and V multiples of 8, x and W 16-byte aligned): one
+//   wgmma (bf16; E and V multiples of 8, x and W 16-byte aligned): one
 //     tmw::gemm_kernel per 128 x 256 tile of z (xent_wgmma.cuh: TMA-fed,
 //     warp-specialised wgmma.mma_async, A = x K-major, B = W MN-major, the
 //     g kernel's product), its accumulators folded in registers by StatEpi:
@@ -33,16 +35,24 @@
 //     row; one partial per row and 256-column tile, ceil(V / 256) of them.
 //     ptxas (the build line of chip_smoke.py, nvcc 12.9): 168 registers a
 //     thread at launch and no spills, as the g kernel's.
+//   wgmma_tf32 (float32; E and V multiples of 4, x and W 16-byte aligned):
+//     one tmw::gemm_tf32_kernel per 128 x 128 tile of z, the float32 g
+//     kernel's product (TF32 wgmma in the three-product form on K-major hi
+//     and lo tiles, a fresh partial sum every 128 of depth), A = (x, x_lo),
+//     B = (W^T, W^T's lo part), copies the wrapper makes per call; its
+//     fragment folded by StatF32Epi, StatEpi's fold on 128 columns (32
+//     values a thread a row); one partial per row and 128-column tile,
+//     ceil(V / 128) of them.
 //   wmma (any other bf16 shape): a block of tmx::NT threads owns BM = 128
 //     token rows and one of `splits` contiguous runs of vocab tiles (BN =
 //     128 columns each), so that N / 128 x splits blocks fill the 132 SMs.
 //     Per vocab tile it forms z on the tensor cores into shared memory
 //     (mma_tile, xent_common.cuh), then one warp per 16 rows folds the tile
 //     into the row's running (m, l, t).
-//   tf32x3 (float32 x and W, any shape): the wmma route's grid and fold on
-//     mma_tile<float>, TF32 fragments in the three-product form.
-// A refused route (wgmma asked for operands it cannot read) returns an
-// error: nothing falls back.
+//   tf32x3 (any other float32 shape or address): the wmma route's grid and
+//     fold on mma_tile<float>, TF32 fragments in the three-product form.
+// A refused route (a TMA route asked for operands it cannot read) returns
+// an error: nothing falls back.
 
 #include "xent_wgmma.cuh"
 
@@ -116,27 +126,32 @@ xent_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-// The wgmma route's partials: (m, l, t) of each row over the block's 256
-// columns, into part[3][nt][N] at tile blockIdx.y.  Every lane of the warp
-// runs the shuffles (rows past N only skip the store).  The column mask is
-// tested only in the ragged last tile (`all`: every column below V); tested
-// per element in every tile it made the whole forward 14-36% slower on an
-// H100 (scripts/torch_xent_fwd_variants.py).
-struct StatEpi {
+// The partials of the wgmma routes: (m, l, t) of each row over the block's
+// TILE columns, into part[3][nt][N] at tile blockIdx.y, from the consumer
+// thread's NACC-register fragment (wgmma_256's layout: d[4 j + 2 h + c] is
+// row r0 + 8 h, column c0 + 8 j + c, so a row's TILE columns sit in the 4
+// lanes of a quad).  Each thread folds its NACC / 2 values of each of its
+// two rows in a fixed order, and two xor shuffles finish the row.  Every
+// lane of the warp runs the shuffles (rows past N only skip the store).
+// The column mask is tested only in the ragged last tile (`all`: every
+// column below V); tested per element in every tile it made the bf16
+// forward 14-36% slower on an H100 (scripts/torch_xent_fwd_variants.py).
+template <int NACC, int TILE>
+struct StatFold {
   const int* labels;
   float* part;
   int N, V, nt;
-  __device__ __forceinline__ void operator()(const float (&d)[tmw::ACC], int r0,
+  __device__ __forceinline__ void operator()(const float (&d)[NACC], int r0,
                                              int c0) const {
     const long o0 = (long)blockIdx.y * N, stride = (long)nt * N;
-    const bool all = (int)(blockIdx.y + 1) * tmw::BN <= V;
+    const bool all = (int)(blockIdx.y + 1) * TILE <= V;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = r0 + 8 * h;
       const int lab = row < N ? labels[row] : -1;
       float m = NEG_INF;
 #pragma unroll
-      for (int j = 0; j < tmw::ACC / 4; ++j) {
+      for (int j = 0; j < NACC / 4; ++j) {
         const int col = c0 + 8 * j;
         if (all || col < V) m = fmaxf(m, d[4 * j + 2 * h]);
         if (all || col + 1 < V) m = fmaxf(m, d[4 * j + 2 * h + 1]);
@@ -145,7 +160,7 @@ struct StatEpi {
       m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
       float l = 0.f, t = 0.f;
 #pragma unroll
-      for (int j = 0; j < tmw::ACC / 4; ++j) {
+      for (int j = 0; j < NACC / 4; ++j) {
         const int col = c0 + 8 * j;
         if (all || col < V) {
           l += expf(d[4 * j + 2 * h] - m);
@@ -168,6 +183,12 @@ struct StatEpi {
     }
   }
 };
+
+// The wgmma route's fold: 128 x 256 bf16-product tiles, 128 accumulators a
+// consumer thread.
+struct StatEpi : StatFold<tmw::ACC, tmw::BN> {};
+// The wgmma_tf32 route's fold: 128 x 128 TF32-product tiles, 64.
+struct StatF32Epi : StatFold<tmw::TACC, tmw::TBN> {};
 
 __global__ void xent_fwd_merge_kernel(const float* __restrict__ part,
                                       float* __restrict__ loss,
@@ -203,22 +224,35 @@ cudaError_t launch_fwd(const T* x, const T* w, const int* labels, float* part,
 }  // namespace
 
 // x [N, E], w [E, V] of the route's dtype (tmx::Route: 0 wgmma and 1 wmma
-// bfloat16, 2 tf32x3 float32), labels [N] int32, part [3, splits, N] f32
-// (workspace), loss / lse [N] f32; all contiguous, on the device.  The
-// wgmma route needs E and V multiples of 8, x and w 16-byte aligned and
-// splits = ceil(V / 256), else the launch is refused.  Returns the CUDA
+// bfloat16, 2 tf32x3 and 3 wgmma_tf32 float32), labels [N] int32, part [3,
+// splits, N] f32 (workspace), loss / lse [N] f32; on wgmma_tf32 also the
+// K-major copies x_lo [N, E] and wt, wt_lo [V, E] (tm_xent_split makes
+// them; w itself is not read there), null on the other routes; all
+// contiguous, on the device.  The wgmma route needs E and V multiples of
+// 8, x and w 16-byte aligned and splits = ceil(V / 256); wgmma_tf32 needs
+// x, x_lo, wt and wt_lo readable by TMA at pitch E (tmw::tma_ok_f32) and
+// splits = ceil(V / 128); else the launch is refused.  Returns the CUDA
 // error code of the launches (0 on success).
 extern "C" int tm_xent_fwd(const void* x, const void* w, const int* labels,
                            float* part, float* loss, float* lse, int N, int E,
-                           int V, int splits, int route, void* stream) {
+                           int V, int splits, int route, const float* x_lo,
+                           const float* wt, const float* wt_lo, void* stream) {
   if (N <= 0 || E <= 0 || V <= 0 || splits <= 0 || route < tmx::kWgmma ||
-      route > tmx::kTf32x3)
+      route > tmx::kWgmmaTf32)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (route == tmx::kTf32x3) {
     e = launch_fwd(static_cast<const float*>(x), static_cast<const float*>(w),
                    labels, part, N, E, V, splits, st);
+  } else if (route == tmx::kWgmmaTf32) {
+    if (!(tmw::tma_ok_f32(x, E) && tmw::tma_ok_f32(x_lo, E) &&
+          tmw::tma_ok_f32(wt, E) && tmw::tma_ok_f32(wt_lo, E)) ||
+        splits != (V + tmw::TBN - 1) / tmw::TBN)
+      return (int)cudaErrorInvalidValue;
+    e = tmw::launch_gemm_tf32(static_cast<const float*>(x), x_lo, E, wt, wt_lo,
+                              E, N, V, E,
+                              StatF32Epi{{labels, part, N, V, splits}}, st);
   } else if (route == tmx::kWgmma) {
     if (!(tmw::tma_ok(x, E) && tmw::tma_ok(w, V)) ||
         splits != (V + tmw::BN - 1) / tmw::BN)
@@ -230,7 +264,7 @@ extern "C" int tm_xent_fwd(const void* x, const void* w, const int* labels,
     if (e == cudaSuccess) e = tmw::make_map(&tw, wb, E, V);
     if (e == cudaSuccess)
       e = tmw::launch_gemm<false, true>(tx, tw, N, V, E,
-                                        StatEpi{labels, part, N, V, splits}, st);
+                                        StatEpi{{labels, part, N, V, splits}}, st);
   } else {
     e = launch_fwd(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
                    labels, part, N, E, V, splits, st);

@@ -36,8 +36,8 @@
 //
 // Below it, gemm_tf32_kernel: the same warp-specialised skeleton for
 // float32 operands (TF32 wgmma in the three-product form on K-major hi and
-// lo tiles, the backward's wgmma_tf32 route), the kernel that makes its
-// K-major copies, and the float32 g kernel on it.
+// lo tiles, the wgmma_tf32 route of the forward and the backward), the
+// kernel that makes its K-major copies, and the float32 g kernel on it.
 //
 // Tensor maps are encoded on the host at each launch with
 // cuTensorMapEncodeTiled, reached through the runtime's driver entry point
@@ -394,12 +394,12 @@ inline cudaError_t launch_grad(const bf16* x, const bf16* w, const int* labels,
 // ---------------------------------------------------------------------------
 //
 // gemm_tf32_kernel is gemm_kernel's sibling for float32 operands (the
-// backward's wgmma_tf32 route).  Each operand comes as two K-major
-// [rows, K] matrices: hi, the float32 values themselves, and lo = x -
-// trunc_tf32(x) (x with its low 13 bits cleared), which the wrapper
-// prepares in device memory (tf32_split_kernel).  The tensor core reads a
-// float32 as TF32 by ignoring those 13 bits, so hi is read as
-// trunc_tf32(x), and
+// wgmma_tf32 route: the forward's statistics, the g, dx and dW products).
+// Each operand comes as two K-major [rows, K] matrices: hi, the float32
+// values themselves, and lo = x - trunc_tf32(x) (x with its low 13 bits
+// cleared), which the wrapper prepares in device memory
+// (tf32_split_kernel).  The tensor core reads a float32 as TF32 by
+// ignoring those 13 bits, so hi is read as trunc_tf32(x), and
 //   a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi,
 // issued in that order, misses only a_lo b_lo and the TF32 truncation of
 // lo: under 2^-19 |a b| (flash_common.cuh, kTruncate), where TF32 alone
@@ -609,12 +609,15 @@ __device__ __forceinline__ float tf32_lo(float x) {
 }
 
 // The K-major copies of one float32 operand src [R, C] (row-major): lo
-// [R, C] = tf32_lo(src), hi_t [C, ldt] = src^T and lo_t [C, ldt] =
-// tf32_lo(src)^T, each written only where its pointer is not null (the
+// [R, C] = tf32_lo(src) (LO), hi_t [C, ldt] = src^T and lo_t [C, ldt] =
+// tf32_lo(src)^T (T; each written only where its pointer is not null; the
 // transposed copies' columns R..ldt-1 are left as they are: no TMA map
 // reaches them).  A 32 x 32 tile a block, transposed through shared memory
 // so both the reads and the writes are coalesced.  Grid (ceil(C / 32),
-// ceil(R / 32)), 32 x 8 threads.
+// ceil(R / 32)), 32 x 8 threads.  LO and T are template flags, so that a
+// profile tells the forward's copies (W^T and its lo part: T alone; x's lo
+// part: LO alone) from the backward's in the step, which write both.
+template <bool LO, bool T>
 __global__ void __launch_bounds__(256)
 tf32_split_kernel(const float* __restrict__ src, float* __restrict__ lo,
                   float* __restrict__ hi_t, float* __restrict__ lo_t, int R,
@@ -627,11 +630,11 @@ tf32_split_kernel(const float* __restrict__ src, float* __restrict__ lo,
     float v = 0.f;
     if (r < R && c < C) {
       v = src[(long)r * C + c];
-      if (lo) lo[(long)r * C + c] = tf32_lo(v);
+      if (LO) lo[(long)r * C + c] = tf32_lo(v);
     }
     tile[i][tx] = v;
   }
-  if (hi_t == nullptr && lo_t == nullptr) return;
+  if (!T) return;
   __syncthreads();
   for (int i = ty; i < 32; i += 8) {
     const int c = c0 + i, r = r0 + tx;
@@ -645,11 +648,15 @@ tf32_split_kernel(const float* __restrict__ src, float* __restrict__ lo,
 inline cudaError_t launch_split(const float* src, float* lo, float* hi_t,
                                 float* lo_t, int R, int C, int ldt,
                                 cudaStream_t st) {
-  if (src == nullptr || R <= 0 || C <= 0 || (R + 31) / 32 > 65535 ||
-      ((hi_t || lo_t) && ldt < R))
+  const bool t = hi_t != nullptr || lo_t != nullptr;
+  if (src == nullptr || (lo == nullptr && !t) || R <= 0 || C <= 0 ||
+      (R + 31) / 32 > 65535 || (t && ldt < R))
     return cudaErrorInvalidValue;
+  const auto kernel = !lo ? tf32_split_kernel<false, true>
+                      : t ? tf32_split_kernel<true, true>
+                          : tf32_split_kernel<true, false>;
   const dim3 grid((C + 31) / 32, (R + 31) / 32), block(32, 8);
-  tf32_split_kernel<<<grid, block, 0, st>>>(src, lo, hi_t, lo_t, R, C, ldt);
+  kernel<<<grid, block, 0, st>>>(src, lo, hi_t, lo_t, R, C, ldt);
   return cudaGetLastError();
 }
 
@@ -740,7 +747,7 @@ inline cudaError_t launch_grad_tf32(const float* x, const float* x_lo,
 
 // The K-major copies of a float32 operand for the wgmma_tf32 route
 // (tmw::tf32_split_kernel): src [R, C]; lo [R, C], hi_t / lo_t [C, ldt],
-// each nullable.  Returns the CUDA error code.
+// each nullable, at least one given.  Returns the CUDA error code.
 extern "C" int tm_xent_split(const float* src, float* lo, float* hi_t,
                              float* lo_t, int R, int C, int ldt, void* stream) {
   return (int)tmw::launch_split(src, lo, hi_t, lo_t, R, C, ldt,

@@ -35,15 +35,18 @@ kernel per chunk, with a [chunk, V] workspace for g in w's dtype and an
 ``out_shape``): memory O(chunk), never O(N V).  The forward writes
 per-row partial statistics, (m, l, t) of each row over each 256-column
 tile on the ``wgmma`` route (3 x ceil(V / 256) x N float32, 12.6 MB at
-the flagship), and merges them in a second kernel.  Every call takes the
-route ``_route`` picks from its dtype, shapes and addresses, counted in
-``ROUTE_LAUNCHES``.  On the backward's ``wgmma_tf32`` route (float32) the
-wrapper also makes the K-major copies that TF32 ``wgmma`` needs, with
-their lo parts (``tf32_split_plain``): W^T and W's lo parts once per call
-(3 x E x V float32, 805 MB at the flagship), x^T and x's per chunk, and
-g's lo part and g^T per chunk as the g kernel writes them (3 x chunk x V,
-403 MB in that route's chunks of ``TF32_CHUNK`` rows).  The wrappers make
-no host-device synchronization.
+the flagship) and each 128-column tile on ``wgmma_tf32`` (25 MB), and
+merges them in a second kernel.  Every call takes the route ``_route``
+picks from its dtype, shapes and addresses, counted in
+``ROUTE_LAUNCHES``.  On the ``wgmma_tf32`` route (float32) the wrappers
+also make the K-major copies that TF32 ``wgmma`` needs, with their lo
+parts (``tf32_split_plain``).  The forward makes W^T and its lo part and
+x's lo part (2 x E x V + N x E float32, 604 MB at the flagship), freed
+when it returns.  The backward makes its own: W^T and W's lo parts once
+per call (3 x E x V float32, 805 MB), x^T and x's per chunk, and g's lo
+part and g^T per chunk as the g kernel writes them (3 x chunk x V, 403
+MB in that route's chunks of ``TF32_CHUNK`` rows).  The wrappers make no
+host-device synchronization.
 """
 
 from __future__ import annotations
@@ -83,9 +86,12 @@ _DTYPES = (torch.float32, torch.bfloat16)
 # The forward's wmma route: its tiles (xent_common.cuh BM, BN) and the
 # number of blocks it aims for: the vocab is split until (N / BM) x splits
 # reaches it.  Its wgmma route writes one partial per 256-column tile
-# (xent_wgmma.cuh BN).
+# (xent_wgmma.cuh BN), its wgmma_tf32 route one per 128-column tile (TBN).
 _BM, _BN, _FWD_BLOCKS = 128, 128, 512
-_WGMMA_BN = 256
+_TILE_COLS = {"wgmma": 256, "wgmma_tf32": 128}
+# Rows of one split launch: its grid holds ceil(rows / 32) <= 65535 blocks
+# down (xent_wgmma.cuh launch_split).
+_SPLIT_ROWS = 65535 * 32
 
 
 def reset_launches() -> None:
@@ -96,21 +102,19 @@ def reset_launches() -> None:
             counts[r] = 0
 
 
-def _route(E: int, V: int, *ptrs: Optional[int], dtype: torch.dtype,
-           backward: bool = False) -> str:
+def _route(E: int, V: int, *ptrs: Optional[int], dtype: torch.dtype) -> str:
     """The kernels' route for x [., E] and w [E, V] of ``dtype`` and
-    operands at device addresses ``ptrs`` (None: no operand), in the
-    forward or the ``backward``.  bfloat16: ``"wgmma"`` when TMA can read
+    operands at device addresses ``ptrs`` (None: no operand), the same in
+    the forward and the backward.  bfloat16: ``"wgmma"`` when TMA can read
     and write the operands, i.e. E and V are multiples of 8 (16-byte row
     pitches) and every address is 16-byte aligned; else ``"wmma"``.
-    float32: the backward takes ``"wgmma_tf32"`` (TF32 ``wgmma`` in the
-    three-product form on K-major copies) when E and V are multiples of 4
-    (16-byte row pitches) and every address is 16-byte aligned; the
-    forward, and every other backward, ``"tf32x3"`` (the ``wmma`` product
-    on TF32 fragments in the three-product form)."""
+    float32: ``"wgmma_tf32"`` (TF32 ``wgmma`` in the three-product form on
+    K-major copies) when E and V are multiples of 4 (16-byte row pitches)
+    and every address is 16-byte aligned; else ``"tf32x3"`` (the ``wmma``
+    product on TF32 fragments in the three-product form)."""
     aligned = all(p is None or p % 16 == 0 for p in ptrs)
     if dtype == torch.float32:
-        tma = backward and E % 4 == 0 and V % 4 == 0 and aligned
+        tma = E % 4 == 0 and V % 4 == 0 and aligned
         return "wgmma_tf32" if tma else "tf32x3"
     return "wgmma" if E % 8 == 0 and V % 8 == 0 and aligned else "wmma"
 
@@ -199,12 +203,15 @@ def tf32_split_plain(x):
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # The wgmma_tf32 route's K-major copies, in the backward launchers' order
-# (xent_wgmma.cuh tmw::Tf32Ops); the other routes pass them as null.
+# (xent_wgmma.cuh tmw::Tf32Ops), and those of the forward's launcher; the
+# other routes pass them as null.
 TF32_OPS = ("x_lo", "xt", "xt_lo", "wt", "wt_lo", "w_lo", "g_lo", "gt",
             "gt_lo")
+TF32_FWD_OPS = ("x_lo", "wt", "wt_lo")
 _SIGNATURES = {
-    # x, w, labels, part, loss, lse, N, E, V, splits, route, stream
-    "xent_fwd": ("xent_fwd", "tm_xent_fwd", [_P] * 6 + [_I] * 5 + [_P]),
+    # x, w, labels, part, loss, lse, N, E, V, splits, route, TF32_FWD_OPS,
+    # stream
+    "xent_fwd": ("xent_fwd", "tm_xent_fwd", [_P] * 6 + [_I] * 5 + [_P] * 4),
     # x, w, labels, lse, dl, g, dx, rows, E, V, make_g, route, TF32_OPS,
     # stream
     "xent_bwd_dx": ("xent_bwd_dx", "tm_xent_bwd_dx",
@@ -222,11 +229,13 @@ _SIGNATURES = {
 def _launch(name: str, dev: torch.device, *args, ops=None) -> None:
     """Launch kernel ``name`` with ``args`` (tensors as device pointers,
     None as a null pointer, ints as ints) on the current stream of ``dev``;
-    raise on a refused launch.  The backward launchers also take ``ops``,
-    the wgmma_tf32 route's copies in ``TF32_OPS`` order (null without)."""
+    raise on a refused launch.  The forward and backward launchers also
+    take ``ops``, the wgmma_tf32 route's copies in ``TF32_FWD_OPS`` or
+    ``TF32_OPS`` order (null without)."""
     lib, sym, argtypes = _SIGNATURES[name]
-    if name in ("xent_bwd_dx", "xent_bwd_dw"):
-        args += tuple(ops) if ops is not None else (None,) * len(TF32_OPS)
+    names = {"xent_fwd": TF32_FWD_OPS, "xent_bwd_dx": TF32_OPS,
+             "xent_bwd_dw": TF32_OPS}.get(name, ())
+    args += tuple(ops) if ops is not None else (None,) * len(names)
     vals = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(dev):
         _build.launch(lib, sym, argtypes, *vals,
@@ -261,9 +270,30 @@ def _fwd_splits(n: int, v: int) -> int:
     return max(1, min(tiles, -(-_FWD_BLOCKS // row_blocks)))
 
 
+def _fwd_tf32_copies(x, w) -> list:
+    """The forward's K-major copies on the ``wgmma_tf32`` route, in
+    ``TF32_FWD_OPS`` order: x's lo part [N, E] and W^T and its lo part
+    [V, E], made by two ``xent_split`` launches (W's at pitch E, then x's
+    lo part, no transposes; x in slabs of ``_SPLIT_ROWS`` rows)."""
+    (N, E), V = x.shape, w.shape[1]
+    dev = x.device
+    x_lo = torch.empty(N, E, dtype=torch.float32, device=dev)
+    wt = torch.empty(V, E, dtype=torch.float32, device=dev)
+    wt_lo = torch.empty_like(wt)
+    _launch("xent_split", dev, w, None, wt, wt_lo, E, V, E)
+    for r0 in range(0, N, _SPLIT_ROWS):
+        r1 = min(N, r0 + _SPLIT_ROWS)
+        _launch("xent_split", dev, x[r0:r1], x_lo[r0:r1], None, None,
+                r1 - r0, E, 0)
+    return [x_lo, wt, wt_lo]
+
+
 def xent_fwd(x, w, labels):
     """(loss [N], lse [N]) float32 — the ``xent_fwd`` kernel on CUDA
-    tensors, its plain version on CPU tensors."""
+    tensors, its plain version on CPU tensors.  One partial (m, l, t) a
+    row per 256-column tile on ``wgmma``, per 128-column tile on
+    ``wgmma_tf32`` (whose K-major copies are made here and freed on
+    return), per run of ``_fwd_splits`` tiles on the other routes."""
     _check(x, w, labels)
     if _device_kind(x) == "cpu":
         return xent_fwd_plain(x, w, labels)
@@ -274,12 +304,14 @@ def xent_fwd(x, w, labels):
     lse = torch.empty_like(loss)
     if N:
         route = _route(E, V, x.data_ptr(), w.data_ptr(), dtype=x.dtype)
-        splits = (-(-V // _WGMMA_BN) if route == "wgmma"
+        splits = (-(-V // _TILE_COLS[route]) if route in _TILE_COLS
                   else _fwd_splits(N, V))
         part = torch.empty(3, splits, N, dtype=torch.float32,
                            device=x.device)
+        kw = ({"ops": _fwd_tf32_copies(x, w)} if route == "wgmma_tf32"
+              else {})
         _launch("xent_fwd", x.device, x, w, lab, part, loss, lse, N, E, V,
-                splits, ROUTES.index(route))
+                splits, ROUTES.index(route), **kw)
         LAUNCHES["xent_fwd"] += 1
         ROUTE_LAUNCHES["xent_fwd"][route] += 1
     return loss, lse
@@ -339,7 +371,7 @@ def _bwd_cuda(x, w, labels, lse, dl, want_dx: bool, want_dw: bool):
     if N == 0:
         return dx, dw
     route = _route(E, V, *(t.data_ptr() for t in (x, w, dx, dw)
-                           if t is not None), dtype=x.dtype, backward=True)
+                           if t is not None), dtype=x.dtype)
     code = ROUTES.index(route)
     C = min(TF32_CHUNK if route == "wgmma_tf32" else BWD_CHUNK, N)
     acc = (torch.empty(E, V, dtype=torch.float32, device=dev)
