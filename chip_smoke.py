@@ -136,12 +136,35 @@ JAX package.  In order it:
    1e-4 of a replicated one (row 10 bitwise), a replicated step with 4
    buckets and no overlap, every bucket bitwise; every launch of rows 8
    and 11 on the 16-byte path;
-12. CNN examples phase: the port's mnist_sequential, mnist_allreduce,
+12. FSDP phase (the main path of the FSDP slice): the flagship as FSDP
+   of 4 ranks rank-major on the card (recipes.make_fsdp_train_step_rank_major,
+   backend "pallas", Adam lr 1e-3, the fused loss): every leaf sharded
+   on its largest dim (17 of 116 on dim 1 in torch's layout), gathered
+   per leaf on rows 10 / 14, the gradients reduce-scattered as one tree in
+   the tile-interleaved layout on rows 9 / 13; a warm-up step and one
+   under chunk_bytes 512 MiB checked (every gather and bucket bitwise
+   against the plain ring, the fused reduce-scatter against per leaf, the
+   update within 1e-4 of replicated Adam), 3 timed by CUDA events, one
+   for peak memory, one counting host syncs (0), one profiled by part,
+   the layout copies timed alone; persistent bytes a rank <= 0.26 of
+   replicated; then the process-world form at world one (NCCL) equal to
+   the rank-major form at n = 1;
+13. tree verbs phase: collectives_bench.py's 64-leaf float32 / bfloat16
+   tree at 1 and 16 MiB, allreduce_in_axis and reduce_scatter_in_axis
+   across the NCCL world of one and the rank-major fused reduce-scatter of
+   4 ranks on "pallas", per leaf (64 launches) and fused (2), bitwise
+   equal, timed;
+14. bus-bandwidth phase: the allreduce (rows 11 / 12 at 64 KiB-16 MiB,
+   8 / 7 at 64 MiB a rank, and the stock route) and the allgather (rows
+   14 / 10, stock) of 4 ranks rank-major, ms, algbw and busbw
+   (collectives_bench.py's formulas), each against the plain ring; the
+   hops are device copies on one card;
+15. CNN examples phase: the port's mnist_sequential, mnist_allreduce,
    cifar_resnet20 (ZeRO 0 and 3) and mnist_async_allreduce (4 buckets in
    the world of one; overlapped, 4 ranks rank-major on the ring)
    in-process on the card, each to its accuracy bar (MNIST > 0.9, CIFAR
    > 0.85);
-13. prints the kernels' summary line (each kernel's launches summed over
+16. prints the kernels' summary line (each kernel's launches summed over
    the main paths, and by path), then {"ok": true, "device": ...}.
 
 Each phase prints one JSON line.  Any failed check raises and the script
@@ -351,6 +374,31 @@ OV_ROWS = ("ring_allreduce_chunked", "ring_all_gather_chunked",
            "ring_allreduce")
 OV_VECTOR_ROWS = ("ring_allreduce_chunked", "ring_allreduce")
 OV_FUSED_RTOL = 1e-6  # overlap layout vs the 32 MiB fused layout, rel. L2
+# The FSDP slice: the flagship as FSDP of RING_N ranks rank-major with Adam
+# (lr 1e-3, as zero_dp): every leaf of the flagship divides by 4, so all
+# 116 are sharded (kv, mlp_out and head on dim 1 in torch's layout).  One
+# untimed warm-up step and one under the resident chunk_bytes are checked
+# (every gather and reduce-scatter bucket against the plain ring, the
+# fused reduce-scatter against per leaf); FSDP_TIMED_STEPS between them
+# are timed.  Persistent bytes a rank (parameters, Adam's moments) against
+# replicated: 0.25 with every leaf sharded.
+FSDP_ROWS = ("ring_reduce_scatter_chunked", "ring_all_gather_chunked",
+             "ring_reduce_scatter", "ring_all_gather")
+FSDP_TIMED_STEPS = 3
+FSDP_PERSISTENT_MAX = 0.26
+FSDP_STEP_PARTS = (("ring rows", r"ring_direct"),) + LM_STEP_PARTS
+# The tree verbs: collectives_bench.py's _pytree_mode tree (:79-87): 64
+# leaves alternating float32 and bfloat16, max(8, bytes / 64 / 4) elements
+# each, at two of its sizes.
+TREE_LEAVES = 64
+TREE_SIZES = (1_048_576, 16_777_216)
+# The bus-bandwidth table (collectives_bench.py :808-947): 4 ranks'
+# buffers on the one card, so a "hop" is a copy in device memory.
+BUSBW_SIZES = (65_536, 1_048_576, 16_777_216, 67_108_864)
+BUSBW_HOPS = "device copies on one card, not NVLink"
+BUSBW_ROWS = ("ring_allreduce_chunked", "ring_allreduce_bidir_chunked",
+              "ring_allreduce", "ring_allreduce_bidir")
+BUSBW_STOCK_RTOL = 1e-5  # the stock left fold vs the ring's add order
 
 SOURCES = {
     "flash_fwd": ("torchmpi_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -1652,8 +1700,10 @@ def tap_rank_major_routes(torch, mpi, ring, log,
     the all-gather, whether every rank's slice is the same), the rows the
     route launched, its elements a rank, the stream it ran on, and the peak
     device memory while
-    the route ran (the peak so far is kept in ``log.peak``).  Returns the
-    function that restores the plain routes."""
+    the route ran (the peak so far is kept in ``log.peak``).  While
+    ``log.check`` is False the calls are timed and not compared (their
+    ``bitwise`` is None).  Returns the function that restores the plain
+    routes."""
     sel = mpi.selector
 
     def wrap(verb, route, plain):
@@ -1672,8 +1722,9 @@ def tap_rank_major_routes(torch, mpi, ring, log,
                      "rows": [k for k, v in ring.LAUNCHES.items()
                               if v != before[k]],
                      "peak_bytes": torch.cuda.max_memory_allocated(),
-                     "bitwise": torch.equal(out, plain(xs, **kw))}
-            if verb == "all_gather":
+                     "bitwise": (torch.equal(out, plain(xs, **kw))
+                                 if log.check else None)}
+            if verb == "all_gather" and log.check:
                 entry["rows_equal"] = all(torch.equal(out[r], out[0])
                                           for r in range(1, out.shape[0]))
             log.append(entry)
@@ -1700,6 +1751,7 @@ def tap_rank_major_routes(torch, mpi, ring, log,
 class TapLog(list):
     label = ""
     peak = 0
+    check = True  # compare each call with the plain ring (else time only)
 
 
 def zero_dp_phase(torch, mpi, ops, dev, ring_sync_ms):
@@ -2697,6 +2749,408 @@ def cnn_examples_phase(torch, mpi):
               f"accuracy {r['accuracy']} <= {r['bar']}")
 
 
+def fsdp_dp_phase(torch, mpi, ops, dev):
+    """The FSDP slice's main path: the flagship as FSDP of RING_N ranks on
+    one card (recipes.make_fsdp_train_step_rank_major, backend "pallas",
+    Adam lr 1e-3, the fused loss), rank r taking sequence r of the batch of
+    4.  One untimed warm-up step and one under the resident chunk_bytes are
+    checked: every all-gather and every reduce-scatter bucket against the
+    plain ring on the same input (tap_rank_major_routes), every fused
+    reduce-scatter against the per-leaf one of the same stacks, and the
+    warm-up's update against a replicated step from the same parameters,
+    state and gradient stacks (the fused ring allreduce mean, Adam on the
+    full tensors).  FSDP_TIMED_STEPS between them are timed by CUDA
+    events, the gathers and reduce-scatters by the tap's events.  Then one
+    step's peak memory, one counting the host syncs, one profiled by part.
+    Then the process-world form at world one (NCCL) against the rank-major
+    form at n = 1 from the same parameters and batch.  Every kernel
+    counter is set to 0 just before the main path and read just after; the
+    checks' own ring launches are taken out."""
+    ring = ops["ring"]
+    recipes, fusion = mpi.recipes, mpi.fusion
+    n = RING_N
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    model = mpi.models.TransformerLM(**LM, attn_impl="flash",
+                                     dtype=torch.bfloat16, device=dev,
+                                     generator=g)
+    tok = torch.randint(0, LM["vocab"], (BATCH, SEQ), generator=g,
+                        device=dev)
+    full = [p.detach() for p in model.parameters()]
+    names = [nm for nm, _ in model.named_parameters()]
+    tx = mpi.optim.adam(ZERO_LR)
+
+    def loss_fn(apply_fn, params, xb, yb):
+        """fused_lm_loss on the gathered parameters: xb = yb = tokens."""
+        h, head = apply_fn(params, xb, return_prehead=True)
+        E = h.shape[-1]
+        return mpi.ops.fused_linear_cross_entropy(
+            h[:, :-1].reshape(-1, E).to(torch.bfloat16),
+            head.to(torch.bfloat16), yb[:, 1:].reshape(-1)).mean()
+
+    step, params, state = recipes.make_fsdp_train_step_rank_major(
+        model, tx, full, n, backend="pallas", loss_fn=loss_fn)
+    dims = step.dims
+    full_bytes = sum(p.numel() * p.element_size() for p in full)
+
+    def rank_bytes():
+        return sum(t.numel() * t.element_size() // (n if d is not None
+                                                      else 1)
+                   for d, p, s in zip(dims, params, state)
+                   for t in (p, s.mu, s.nu))
+
+    persistent = rank_bytes() / (3 * full_bytes)
+    sharded = [i for i, d in enumerate(dims) if d is not None]
+    fuse0 = mpi.config().fuse_max_bytes
+
+    log = TapLog()
+    excluded = dict.fromkeys(ring.KERNELS, 0)
+    captured, fused_eq = {}, []
+
+    def exclude(before):
+        for k in ring.KERNELS:
+            excluded[k] += ring.LAUNCHES[k] - before[k]
+
+    plain_rs = fusion.fused_reduce_scatter_rank_major
+
+    def checked_rs(stacks, **kw):
+        """The step's fused reduce-scatter; in a checked step also the
+        per-leaf one of the same stacks (bitwise), the first step's stacks
+        kept for the replicated comparison."""
+        out = plain_rs(stacks, **kw)
+        if log.check:
+            label, log.label = log.label, "check"
+            before = dict(ring.LAUNCHES)
+            mpi.set_config(fuse_max_bytes=0)
+            try:
+                per_leaf = plain_rs(stacks, **kw)
+            finally:
+                mpi.set_config(fuse_max_bytes=fuse0)
+            fused_eq.append(all(torch.equal(a, b)
+                                for a, b in zip(out, per_leaf)))
+            del per_leaf
+            exclude(before)
+            log.label = label
+            if label == "warm-up":
+                captured["stacks"] = list(stacks)
+        return out
+
+    @torch.no_grad()
+    def replicated_rel():
+        """Per-leaf rel. L2 of the first step's update against a replicated
+        step from the same parameters, state and gradient stacks: the mean
+        by the fused ring allreduce, Adam on the full tensors."""
+        before = dict(ring.LAUNCHES)
+        new_full = recipes.fsdp_unshard_rank_major(params, dims)
+        rel = []
+        for i, st in zip(sharded, captured.pop("stacks")):
+            buf = st.clone()
+            fusion.fused_allreduce_rank_major_([buf], backend="pallas",
+                                               op="mean")
+            g = buf[0].movedim(0, dims[i])
+            u, _ = tx.update(g, tx.init(full[i]))
+            d_rep = mpi.optim.apply_updates(full[i], u) - full[i]
+            d_fsdp = new_full[i] - full[i]
+            rel.append(float((d_fsdp - d_rep).norm()
+                             / d_rep.norm().clamp_min(1e-30)))
+            del buf, g, u, d_rep, d_fsdp
+        del new_full
+        exclude(before)
+        worst = max(range(len(rel)), key=rel.__getitem__)
+        return rel[worst], names[sharded[worst]]
+
+    restore = tap_rank_major_routes(torch, mpi, ring, log)
+    fusion.fused_reduce_scatter_rank_major = checked_rs
+    torch.cuda.synchronize()
+    for mod in ops.values():
+        mod.reset_launches()
+    schedule = (["warm-up"] + [f"timed {i}" for i in range(FSDP_TIMED_STEPS)]
+                + ["resident"])
+    losses, step_ms, rep = [], [], None
+    try:
+        for label in schedule:
+            mpi.set_config(chunk_bytes=ZERO_CONFIGS[
+                "resident" if label == "resident" else "chunked"])
+            log.label, log.check = label, not label.startswith("timed")
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            params, state, loss = step(params, state, tok, tok)
+            end.record()
+            losses.append(loss)
+            if label == "warm-up":
+                rep = replicated_rel()
+            end.synchronize()
+            if label.startswith("timed"):
+                step_ms.append(start.elapsed_time(end))
+    finally:
+        restore()
+        fusion.fused_reduce_scatter_rank_major = plain_rs
+        mpi.set_config(chunk_bytes=ZERO_CONFIGS["chunked"])
+    launches = {k: v for mod in ops.values() for k, v in mod.LAUNCHES.items()}
+    for k in ring.KERNELS:
+        launches[k] -= excluded[k]
+    vector = {k: {"all": ring.LAUNCHES[k], "vector": ring.VECTOR_LAUNCHES[k]}
+              for k in FSDP_ROWS}
+    losses = [float(v) for v in losses]
+    checked = [e for e in log if e["bitwise"] is not None]
+    per_step = {}
+    for e in log:
+        if e["label"].startswith("timed"):
+            d = per_step.setdefault(e["label"], {})
+            d[e["verb"]] = d.get(e["verb"], 0.0) + e["events"][0].elapsed_time(
+                e["events"][1])
+    leg_ms = {v: statistics.median(d[v] for d in per_step.values())
+              for v in ("all_gather", "reduce_scatter")}
+    calls = {v: sum(e["verb"] == v for e in log
+                    if e["label"] == "timed 0")
+             for v in ("all_gather", "reduce_scatter")}
+
+    def one_step():
+        nonlocal params, state
+        params, state, _ = step(params, state, tok, tok)
+
+    torch.cuda.reset_peak_memory_stats()
+    one_step()
+    torch.cuda.synchronize()
+    step_peak = torch.cuda.max_memory_allocated()
+    syncs = count_host_syncs(torch, one_step)
+    profile = step_profile(torch, one_step, step_parts=FSDP_STEP_PARTS)
+    # The step's layout copies alone, on the same shapes: each dim-1 leaf's
+    # shards to the tile layout, its gathered leaf and its gradient shards
+    # back (step.layout_copy_bytes).
+    moved = [(p, d) for p, d in zip(params, dims) if d]
+    tiles = [p.movedim(d + 1, 1).contiguous() for p, d in moved]
+
+    def layout_copies():
+        for (p, d), t in zip(moved, tiles):
+            p.movedim(d + 1, 1).contiguous()
+            t.reshape(-1, *t.shape[2:]).movedim(0, d).contiguous()
+            t.movedim(1, d + 1).contiguous()
+
+    layout_ms = time_ms(torch, layout_copies)
+    del tiles
+    persistent_after = rank_bytes() / (3 * full_bytes)
+
+    # The process-world form at world one (NCCL) against the rank-major
+    # form at n = 1: the same parameters and the whole batch.
+    wstep, wp, ws = recipes.make_fsdp_train_step(model, tx, full,
+                                                 loss_fn=loss_fn)
+    wp, ws, wloss = wstep(wp, ws, tok, tok)
+    rstep, rp, rs = recipes.make_fsdp_train_step_rank_major(
+        model, tx, full, 1, loss_fn=loss_fn)
+    rp, rs, rloss = rstep(rp, rs, tok, tok)
+    world_rel, world_bitwise = 0.0, True
+    with torch.no_grad():
+        for p0, a, b in zip(full, wp, rp):
+            b = b[0] if b.dim() > a.dim() else b
+            world_bitwise &= bool(torch.equal(a, b))
+            d = (b - p0).norm().clamp_min(1e-30)
+            world_rel = max(world_rel, float((a - b).norm() / d))
+    world_loss_equal = bool(torch.equal(wloss, rloss))
+    del wstep, wp, ws, rstep, rp, rs
+
+    med = statistics.median(step_ms)
+    emit({"phase": "fsdp_dp", "ranks": n, "optimizer": f"adam({ZERO_LR})",
+          "config": dict(LM, batch=BATCH, seq=SEQ, dtype="bfloat16"),
+          "leaves": len(full), "sharded_leaves": len(sharded),
+          "replicated_leaves": [nm for nm, d in zip(names, dims)
+                                if d is None],
+          "dim1_leaves": sum(d == 1 for d in dims),
+          "steps": schedule, "losses": losses,
+          "step_ms": step_ms, "median_step_ms": med,
+          "min_step_ms": min(step_ms), "max_step_ms": max(step_ms),
+          "tokens_per_s": BATCH * SEQ / (med / 1e3),
+          "gather_ms_per_step": leg_ms["all_gather"],
+          "reduce_scatter_ms_per_step": leg_ms["reduce_scatter"],
+          "calls_per_step": calls,
+          "layout_copy_bytes_per_step": step.layout_copy_bytes,
+          "layout_copy_ms_per_step": layout_ms,
+          "step_device_profile": profile,
+          "peak_mem_bytes_step": step_peak,
+          "peak_mem_bytes_with_check": max(log.peak,
+                                           torch.cuda.max_memory_allocated()),
+          "persistent_vs_replicated": persistent,
+          "persistent_vs_replicated_after": persistent_after,
+          "persistent_bytes_per_rank": rank_bytes(),
+          "replicated_bytes": 3 * full_bytes,
+          "bitwise_vs_plain": all(e["bitwise"] for e in checked),
+          "n_collectives_checked": len(checked),
+          "all_gather_rows_equal": all(e.get("rows_equal", True)
+                                       for e in checked),
+          "fused_rs_equals_per_leaf": fused_eq,
+          "replicated_max_rel_l2": rep[0], "replicated_worst_leaf": rep[1],
+          "replicated_tolerance": ZERO_RTOL,
+          "world_one_loss_equal": world_loss_equal,
+          "world_one_updates_bitwise": world_bitwise,
+          "world_one_max_rel_l2": world_rel,
+          "host_syncs_per_step": syncs, "launches": launches,
+          "check_launches": {k: v for k, v in excluded.items() if v},
+          "launches_on_16_byte_path": vector})
+    # A checked step: a gather a sharded leaf, a fused reduce-scatter a
+    # bucket, and the per-leaf check's reduce-scatter a leaf.
+    check(calls["all_gather"] == len(sharded)
+          and calls["reduce_scatter"] < len(sharded)
+          and len(checked) == 2 * (2 * len(sharded)
+                                   + calls["reduce_scatter"]),
+          f"FSDP collectives: {calls} a step, {len(checked)} checked")
+    check(all(e["bitwise"] for e in checked),
+          "an FSDP gather or reduce-scatter differs from the plain ring")
+    check(all(e.get("rows_equal", True) for e in checked),
+          "the all-gathered ranks differ")
+    check(len(fused_eq) == 2 and all(fused_eq),
+          "the fused reduce-scatter differs from the per-leaf one")
+    check(rep[0] <= ZERO_RTOL, f"FSDP vs replicated Adam: {rep}")
+    check(persistent <= FSDP_PERSISTENT_MAX
+          and persistent_after <= FSDP_PERSISTENT_MAX,
+          f"persistent bytes {persistent} / {persistent_after} of "
+          f"replicated")
+    check(all(math.isfinite(v) for v in losses), f"non-finite {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(syncs == 0, f"{syncs} host-device synchronizations in a step")
+    check(world_loss_equal and world_rel <= ZERO_RTOL,
+          f"the world-one step vs rank-major n = 1: loss equal "
+          f"{world_loss_equal}, updates {world_rel}")
+    for name in FSDP_ROWS + tuple(SOURCES)[:6]:
+        check(launches[name] > 0, f"kernel {name} never launched on the "
+              f"FSDP path")
+    return launches
+
+
+def tree_verbs_phase(torch, mpi, ring, dev):
+    """The in-axis verbs over a tree (collectives_bench.py's _pytree_mode
+    tree) per leaf (fuse_max_bytes 0) and fused (the default): the
+    process-world allreduce and reduce-scatter across the NCCL world of
+    one, and the rank-major fused reduce-scatter of RING_N ranks on
+    "pallas".  Launches counted at the selector's implementation calls, ms
+    by CUDA events; fused and per leaf held bitwise equal."""
+    fusion, sel = mpi.fusion, mpi.selector
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    fuse0 = mpi.config().fuse_max_bytes
+    rows, bitwise = [], {}
+    for nbytes in TREE_SIZES:
+        per_leaf = max(8, nbytes // TREE_LEAVES // 4)
+        dts = [torch.float32 if i % 2 == 0 else torch.bfloat16
+               for i in range(TREE_LEAVES)]
+        tree = {f"p{i:03d}": torch.randn(per_leaf, generator=g,
+                                         device=dev).to(dt)
+                for i, dt in enumerate(dts)}
+        stacks = [torch.randn(RING_N, per_leaf, generator=g,
+                              device=dev).to(dt) for dt in dts]
+        tree_bytes = sum(t.numel() * t.element_size() for t in tree.values())
+        cases = (
+            ("allreduce_in_axis", "allreduce", "xla",
+             lambda: list(mpi.allreduce_in_axis(tree).values())),
+            ("reduce_scatter_in_axis", "reduce_scatter", "xla",
+             lambda: list(mpi.reduce_scatter_in_axis(tree).values())),
+            ("reduce_scatter_rank_major", "reduce_scatter_rank_major",
+             "pallas", lambda: fusion.fused_reduce_scatter_rank_major(
+                 stacks, backend="pallas")))
+        for name, op, backend, fn in cases:
+            outs = {}
+            for mode, max_bytes in (("per-leaf", 0), ("fused", fuse0)):
+                mpi.set_config(fuse_max_bytes=max_bytes)
+                impl, calls = sel.available(op)[backend], []
+
+                def counted(*a, _impl=impl, **k):
+                    calls.append(1)
+                    return _impl(*a, **k)
+
+                sel.register(op, backend, counted)
+                try:
+                    before = dict(ring.LAUNCHES)
+                    out = fn()
+                    launched = [k for k, v in ring.LAUNCHES.items()
+                                if v != before[k]]
+                finally:
+                    sel.register(op, backend, impl)
+                outs[mode] = out
+                rows.append({"verb": name, "mode": mode, "bytes": nbytes,
+                             "tree_bytes": tree_bytes,
+                             "leaves": TREE_LEAVES,
+                             "fuse_max_bytes": max_bytes,
+                             "launches": len(calls), "rows": launched,
+                             "ms": time_ms(torch, fn)})
+            mpi.set_config(fuse_max_bytes=fuse0)
+            bitwise[f"{name} {nbytes}"] = all(
+                torch.equal(a, b) for a, b in zip(outs["per-leaf"],
+                                                  outs["fused"]))
+            del outs
+    emit({"phase": "tree_verbs", "ranks_rank_major": RING_N,
+          "world": mpi.size(), "rows": rows,
+          "fused_equals_per_leaf": bitwise})
+    check(all(bitwise.values()), f"fused differs from per leaf: {bitwise}")
+    for r in rows:
+        want = TREE_LEAVES if r["mode"] == "per-leaf" else 2
+        check(r["launches"] == want, f"{r['verb']} {r['mode']} "
+              f"{r['bytes']}: {r['launches']} launches, not {want}")
+
+
+def allreduce_busbw_phase(torch, mpi, ring, dev):
+    """The allreduce bus-bandwidth table (collectives_bench.py :808-947,
+    metrics.allreduce_bus_bandwidth): RING_N ranks rank-major on the card
+    at BUSBW_SIZES bytes a rank; the allreduce on "pallas" with
+    pallas_bidirectional off and on and on the stock route, the allgather
+    on "pallas" and the stock route.  Each: ms (median of 10 by CUDA
+    events), the row it launched, algbw (algo bytes / time: the size, n x
+    size for the allgather) and busbw (the allreduce's algbw x 2(n-1)/n;
+    the allgather's as collectives_bench.py reports it, its algbw); each
+    result against the plain ring (bitwise; the stock allreduce's left
+    fold within BUSBW_STOCK_RTOL).  A failing call fails the run.  Every
+    kernel counter is set to 0 just before and read just after."""
+    n = RING_N
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    lines = []
+    ring.reset_launches()
+    for nbytes in BUSBW_SIZES:
+        x = torch.rand(n, nbytes // 4, generator=g, device=dev)
+        for op, backend, bidir in (("allreduce", "pallas", False),
+                                   ("allreduce", "pallas", True),
+                                   ("allreduce", "xla", False),
+                                   ("allgather", "pallas", False),
+                                   ("allgather", "xla", False)):
+            mpi.set_config(pallas_bidirectional=bidir)
+            verb = getattr(mpi, f"{op}_rank_major")
+
+            def fn(verb=verb, backend=backend):
+                return verb(x, backend=backend)
+
+            before = dict(ring.LAUNCHES)
+            out = fn()
+            launched = [k for k, v in ring.LAUNCHES.items()
+                        if v != before[k]]
+            plain = (ring.ring_allreduce_plain(x) if op == "allreduce"
+                     else ring.ring_all_gather_plain(x))
+            exact = bool(torch.equal(out, plain))
+            err = float((out - plain).abs().max() / plain.abs().max())
+            del out, plain
+            ms = time_ms(torch, fn)
+            algbw = nbytes * (n if op == "allgather" else 1) / ms / 1e6
+            lines.append({
+                "op": op, "backend": backend, "bidirectional": bidir,
+                "bytes": nbytes, "ranks": n, "rows": launched, "ms": ms,
+                "algbw_GBs": algbw,
+                "busbw_GBs": (algbw * 2 * (n - 1) / n if op == "allreduce"
+                              else algbw),
+                "bitwise_vs_plain_ring": exact, "max_rel_err": err,
+                "hops": BUSBW_HOPS})
+        mpi.set_config(pallas_bidirectional=False)
+        del x
+    launches = dict(ring.LAUNCHES)
+    emit({"phase": "allreduce_busbw", "hops": BUSBW_HOPS, "rows": lines,
+          "launches": launches})
+    for r in lines:
+        stock_fold = r["op"] == "allreduce" and r["backend"] == "xla"
+        check(r["bitwise_vs_plain_ring"] or (
+            stock_fold and r["max_rel_err"] <= BUSBW_STOCK_RTOL),
+            f"{r['op']} {r['backend']} {r['bytes']}: against the plain "
+            f"ring {r['max_rel_err']}")
+        check(r["backend"] == "xla" or len(r["rows"]) == 1,
+              f"{r['op']} {r['bytes']}: rows {r['rows']}")
+    for name in BUSBW_ROWS:
+        check(launches[name] > 0, f"{name} never launched in the table")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2773,6 +3227,16 @@ def main() -> int:
         torch.cuda.empty_cache()
         ov_launches = overlap_dp_phase(torch, mpi, dict(ops, ring=ring), dev)
         torch.cuda.empty_cache()
+        # The main path of slice 16: the flagship as FSDP of RING_N ranks on
+        # the card (rows 1-6 in the ranks' steps, 9, 10, 13 and 14 for the
+        # gathers and the gradient reduce-scatter); the tree verbs; the
+        # allreduce bus-bandwidth table (rows 7, 8, 11, 12; 10 and 14).
+        fsdp_launches = fsdp_dp_phase(torch, mpi, dict(ops, ring=ring), dev)
+        torch.cuda.empty_cache()
+        tree_verbs_phase(torch, mpi, ring, dev)
+        torch.cuda.empty_cache()
+        busbw_launches = allreduce_busbw_phase(torch, mpi, ring, dev)
+        torch.cuda.empty_cache()
         cnn_examples_phase(torch, mpi)
     finally:
         mpi.stop()
@@ -2789,7 +3253,11 @@ def main() -> int:
                 **({"resnet50_dp": r50_launches[name]}
                    if name in r50_launches else {}),
                 **({"overlap_dp": ov_launches[name]}
-                   if name in ov_launches else {})}
+                   if name in ov_launches else {}),
+                **({"fsdp_dp": fsdp_launches[name]}
+                   if fsdp_launches.get(name) else {}),
+                **({"allreduce_busbw": busbw_launches[name]}
+                   if busbw_launches.get(name) else {})}
 
     kernels = [{**{k: dict(row, launches=sum(by_path(
                     row["name"]).values()))[k] for k in keys},

@@ -1,6 +1,6 @@
 """The port's examples (torchmpi_tpu_torch/examples/) on the CPU: each
 ``main`` runs a few steps as a world of one (gloo), or rank-major with
-``--devices 2``, and its loss falls; ``mnist_async_allreduce``'s
+``--devices 2`` (``mnist_fsdp`` with 4), and its loss falls; ``mnist_async_allreduce``'s
 overlapped run equals its bucketed one, and ``--eager-loss`` reduces the
 loss through the staged path; the flags whose machinery is not ported
 raise naming their ROADMAP item.  The full-length runs to the JAX
@@ -50,10 +50,11 @@ def _main(name, argv):
     ("mnist_async_allreduce", ["--steps", "21", "--batch-size", "64"]),
     ("mnist_async_allreduce", ["--steps", "21", "--batch-size", "64",
                                "--devices", "2", "--backend", "pallas"]),
+    ("mnist_fsdp", ["--steps", "10", "--devices", "4"]),
 ], ids=["sequential", "allreduce", "allreduce-rank-major", "cifar",
         "cifar-zero3", "cifar-zero1-rank-major", "resnet50",
         "cifar-buckets-rank-major", "async-buckets",
-        "async-buckets-rank-major"])
+        "async-buckets-rank-major", "fsdp-rank-major"])
 def test_example_runs_and_loss_falls(name, argv):
     out = _main(name, argv)
     losses = out["losses"]
@@ -100,7 +101,7 @@ def test_unported_flags_raise_by_name(name, argv, item):
 @pytest.mark.slow
 @pytest.mark.parametrize("name,argv", [
     ("mnist_sequential", []), ("mnist_allreduce", []),
-    ("mnist_async_allreduce", []),
+    ("mnist_async_allreduce", []), ("mnist_fsdp", ["--devices", "4"]),
     ("cifar_resnet20", []), ("cifar_resnet20", ["--zero", "3"])])
 def test_example_converges(name, argv):
     """The full-length default runs to their accuracy bars (each raises

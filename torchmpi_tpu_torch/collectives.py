@@ -51,7 +51,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 import torch
 import torch.distributed as dist
 
-from . import runtime, selector
+from . import _tree, fusion, runtime, selector
 from .ops import ring
 
 AxisNames = Union[str, Sequence[str], None]
@@ -532,18 +532,54 @@ def _world_axes(verb: str, axis_names: AxisNames) -> None:
                 "(ROADMAP queue A, item 1)")
 
 
+def _leaf_tensor(x):
+    """A tree's leaf for a verb: a Python number becomes a 0-d tensor on
+    the runtime's device, as a JAX verb takes it as an array."""
+    if isinstance(x, (bool, int, float)):
+        runtime._require_init()
+        return torch.as_tensor(x, device=runtime.device())
+    return x
+
+
+def _tree_in_axis(verb: str, fn: Callable, tree, kw: dict):
+    """In-axis ``verb`` over every leaf of ``tree`` (JAX :376-386): fused
+    by dtype group and bucket for allreduce, reduce and broadcast, in the
+    tile-interleaved layout for reduce_scatter, else per leaf."""
+    leaves, treedef = _tree.flatten(tree)
+    for x in leaves:
+        if isinstance(x, torch.Tensor):
+            _check_tensor(x)
+    params = {k: v for k, v in kw.items() if k != "backend"}
+    fused = None
+    if verb in fusion.ELEMENTWISE_OPS:
+        fused = fusion.maybe_fuse(verb, tree, backend=kw.get("backend"),
+                                  **params)
+    elif verb == "reduce_scatter":
+        fused = fusion.maybe_fuse_reduce_scatter(
+            tree, backend=kw.get("backend"), **params)
+    if fused is not None:
+        return fused
+    return _tree.unflatten(treedef, [fn(_leaf_tensor(x), **kw)
+                                     for x in leaves])
+
+
 def _in_axis(verb: str):
     """The in-step form of process-world ``verb`` over the world axes
-    (JAX :410-447)."""
+    (JAX :365-447): one tensor as :func:`verb` takes it, or a tree (dict,
+    list, tuple) of them."""
     fn = globals()[verb]
 
-    def in_axis(x: torch.Tensor, axis_names: AxisNames = None, **kw):
+    def in_axis(x, axis_names: AxisNames = None, **kw):
         _world_axes(f"{verb}_in_axis", axis_names)
-        return fn(x, **kw)
+        if isinstance(x, torch.Tensor):
+            return fn(x, **kw)
+        return _tree_in_axis(verb, fn, x, kw)
 
     in_axis.__name__ = in_axis.__qualname__ = f"{verb}_in_axis"
     in_axis.__doc__ = (f"The in-step ``{verb}`` over the world axes: "
-                       f":func:`{verb}`.")
+                       f":func:`{verb}` on one tensor, or on every tensor "
+                       f"of a tree (dict, list, tuple), fused as the JAX "
+                       f"package fuses it (``fusion``).")
     return in_axis
 
 

@@ -20,6 +20,15 @@ tensors and gathered as [n, bucket] for one rank-major allreduce each, what
 the JAX package's ``synchronize_gradients`` -> ``fusion.fuse_tree`` does per
 bucket on its n-device mesh.
 
+The in-axis verbs take trees (dicts, lists, tuples of tensors; JAX
+``collectives._in_axis`` :376-386): :func:`maybe_fuse` runs allreduce,
+reduce and broadcast fused over a tree's tensors, and
+:func:`maybe_fuse_reduce_scatter` the reduce-scatter in the JAX package's
+tile-interleaved layout (:func:`fused_reduce_scatter`); each returns None
+where the JAX package goes per tensor.  :func:`fused_reduce_scatter_rank_major`
+is the same reduce-scatter over rank-major stacks, the FSDP recipe's
+gradient reduce-scatter.
+
 ``FusedSpec(tensors, n_shards)`` is also ZeRO's shard layout (the JAX
 package's, ``fusion.py`` :169-177): each dtype group is laid out flat and
 zero-padded to a multiple of ``n_shards``, shard i of the list is every
@@ -40,7 +49,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import runtime, selector
+from . import _tree, runtime, selector
 
 
 class DtypeGroup:
@@ -49,7 +58,7 @@ class DtypeGroup:
     and the shard layout (``padded`` elements, ``shard`` per rank)."""
 
     __slots__ = ("dtype", "indices", "shapes", "sizes", "total", "bounds",
-                 "padded", "shard")
+                 "padded", "shard", "leaf_buckets")
 
     def __init__(self, dtype: torch.dtype):
         self.dtype = dtype
@@ -58,6 +67,7 @@ class DtypeGroup:
         self.sizes: List[int] = []
         self.total = 0
         self.bounds: List[Tuple[int, int]] = []
+        self.leaf_buckets: List[List[int]] = []
 
     @property
     def nbytes(self) -> int:
@@ -122,11 +132,31 @@ class FusedSpec:
                         for i in range(k) if edges[i] < edges[i + 1]]
             if not g.bounds:
                 g.bounds = [(0, g.total)]
+        # Whole-tensor buckets for the tile-interleaved reduce-scatter, where
+        # a bound inside a tensor would break its tiles: first fit in tensor
+        # order against the same byte bound (JAX :191-204).
+        limit = max_bytes if max_bytes and max_bytes > 0 else 0
+        for g in self.groups:
+            itemsize = torch.empty((), dtype=g.dtype).element_size()
+            buckets, acc = [[]], 0
+            for pos, size in enumerate(g.sizes):
+                b = size * itemsize
+                if buckets[-1] and limit and acc + b > limit:
+                    buckets.append([])
+                    acc = 0
+                buckets[-1].append(pos)
+                acc += b
+            g.leaf_buckets = buckets
 
     @property
     def n_launches(self) -> int:
         """Collectives one fused call issues for this list."""
         return sum(len(g.bounds) for g in self.groups)
+
+    @property
+    def n_reduce_scatter_launches(self) -> int:
+        """Collectives one fused tile-interleaved reduce-scatter issues."""
+        return sum(len(g.leaf_buckets) for g in self.groups)
 
 
 def bucket_group(tensors: Sequence[torch.Tensor],
@@ -253,6 +283,172 @@ def fused_allreduce_rank_major_(stacks: Sequence[torch.Tensor], *,
                 nbytes=(hi - lo) * buf.element_size())
             scatter_bucket(impl(buf, op=op), stacks, g, lo, rank_major=True)
     return spec.n_launches
+
+
+# ---------------------------------------------------------------------------
+# In-axis verbs over trees (the JAX package's :99, :244-414)
+# ---------------------------------------------------------------------------
+
+# The in-axis verbs whose result is elementwise and keeps each tensor's
+# shape: a concatenation's result is the concatenation of the tensors'
+# results.  reduce_scatter has the tile-interleaved layout below; the other
+# verbs change shapes and go per tensor.
+ELEMENTWISE_OPS = ("allreduce", "reduce", "broadcast")
+
+
+def _all_tensors(leaves) -> bool:
+    return all(isinstance(t, torch.Tensor) for t in leaves)
+
+
+def elementwise_spec(op_name: str, leaves: Sequence) -> Optional[FusedSpec]:
+    """The fused layout of in-axis ``op_name`` over ``leaves``, or None for
+    the per-tensor path (JAX ``maybe_fuse`` :317): fusion off
+    (``Config.fuse_max_bytes`` 0), not an elementwise verb, fewer than two
+    leaves, a leaf that is not a tensor, or buckets that would not cut the
+    launches."""
+    max_bytes = runtime.effective_config().fuse_max_bytes
+    if max_bytes <= 0 or op_name not in ELEMENTWISE_OPS:
+        return None
+    if len(leaves) < 2 or not _all_tensors(leaves):
+        return None
+    spec = FusedSpec(leaves, max_bytes=max_bytes)
+    return spec if spec.n_launches < spec.n_tensors else None
+
+
+def fuse_tree(op_name: str, tree, *, spec: Optional[FusedSpec] = None,
+              backend: Optional[str] = None, **params):
+    """Process-world ``op_name`` over every tensor of ``tree``, one
+    selector-routed launch per (dtype group x bucket), out of place (JAX
+    :244).  Each group is copied into one buffer, on which the verbs'
+    in-place implementations work; the result tensors are views of the
+    reduced buffers, in the dtype the verb gives (float32 for an integer
+    mean, as per tensor)."""
+    leaves, treedef = _tree.flatten(tree)
+    if spec is None:
+        spec = FusedSpec(leaves)
+    out: List = [None] * spec.n_tensors
+    for g in spec.groups:
+        flat = group_flat(leaves, g)
+        parts = []
+        for lo, hi in g.bounds:
+            impl = selector.select(op_name, backend,
+                                   nbytes=(hi - lo) * flat.element_size())
+            parts.append(impl(flat[lo:hi], **params))
+        gout = parts[0] if len(parts) == 1 else torch.cat(parts)
+        off = 0
+        for i, shape, size in zip(g.indices, g.shapes, g.sizes):
+            out[i] = gout[off:off + size].reshape(shape)
+            off += size
+    return _tree.unflatten(treedef, out)
+
+
+def maybe_fuse(op_name: str, tree, *, backend: Optional[str] = None,
+               **params):
+    """``tree``'s fused in-axis ``op_name`` (:func:`fuse_tree`), or None for
+    the per-tensor path (:func:`elementwise_spec`)."""
+    spec = elementwise_spec(op_name, _tree.leaves(tree))
+    if spec is None:
+        return None
+    return fuse_tree(op_name, tree, spec=spec, backend=backend, **params)
+
+
+def reduce_scatter_spec(leaves: Sequence, n: int) -> Optional[FusedSpec]:
+    """The fused tile-interleaved layout of a reduce-scatter of ``leaves``
+    over ``n`` ranks, or None for the per-tensor path (JAX
+    ``maybe_fuse_reduce_scatter`` :341): fusion off, fewer than two leaves,
+    a leaf that is not a tensor, a leading dim that ``n`` does not divide,
+    or buckets that would not cut the launches."""
+    max_bytes = runtime.effective_config().fuse_max_bytes
+    if max_bytes <= 0 or len(leaves) < 2 or not _all_tensors(leaves):
+        return None
+    if n <= 0 or any(t.dim() < 1 or t.shape[0] % n for t in leaves):
+        return None
+    spec = FusedSpec(leaves, max_bytes=max_bytes)
+    return (spec if spec.n_reduce_scatter_launches < spec.n_tensors
+            else None)
+
+
+def _tile_shapes(g: DtypeGroup, bucket: Sequence[int], n: int):
+    """(position in the tree, tile elements, tile shape) of each tensor of
+    a reduce-scatter bucket."""
+    for pos in bucket:
+        shape = g.shapes[pos]
+        yield (g.indices[pos], g.sizes[pos] // n,
+               (shape[0] // n,) + tuple(shape[1:]))
+
+
+def fused_reduce_scatter(tree, *, spec: FusedSpec, n: int,
+                         backend: Optional[str] = None, op: str = "sum"):
+    """The process-world reduce-scatter of every tensor of ``tree`` over
+    ``n`` ranks, one launch per whole-tensor bucket, in the tile-interleaved
+    layout (JAX :379): each tensor viewed as its n tiles
+    (``reshape(n, -1)``) and a bucket concatenated along the tile axis, so
+    that rank i's extent is ``[tensor0 tile i | tensor1 tile i | ...]``,
+    bit for bit the per-tensor results."""
+    leaves, treedef = _tree.flatten(tree)
+    out: List = [None] * spec.n_tensors
+    for g in spec.groups:
+        for bucket in g.leaf_buckets:
+            tiles = [leaves[g.indices[pos]].reshape(n, -1) for pos in bucket]
+            flat = (tiles[0] if len(tiles) == 1
+                    else torch.cat(tiles, 1)).reshape(-1)
+            impl = selector.select("reduce_scatter", backend,
+                                   nbytes=flat.numel() * flat.element_size())
+            shard = impl(flat, op=op)
+            off = 0
+            for i, ts, shape in _tile_shapes(g, bucket, n):
+                out[i] = shard[off:off + ts].reshape(shape)
+                off += ts
+    return _tree.unflatten(treedef, out)
+
+
+def maybe_fuse_reduce_scatter(tree, *, backend: Optional[str] = None,
+                              op: str = "sum"):
+    """``tree``'s fused process-world reduce-scatter
+    (:func:`fused_reduce_scatter`), or None for the per-tensor path
+    (:func:`reduce_scatter_spec` over the world's ranks)."""
+    n = runtime.size()
+    spec = reduce_scatter_spec(_tree.leaves(tree), n)
+    if spec is None:
+        return None
+    return fused_reduce_scatter(tree, spec=spec, n=n, backend=backend, op=op)
+
+
+def fused_reduce_scatter_rank_major(stacks: Sequence[torch.Tensor], *,
+                                    backend: Optional[str] = None,
+                                    op: str = "sum") -> List[torch.Tensor]:
+    """The rank-major reduce-scatter of every stack (``stacks[i]`` [n, k,
+    ...] = the n ranks' tensor i, k divisible by n): slice r of result i
+    [n, k / n, ...] is rank r's tile of the sum over ranks.  Fused as
+    :func:`fused_reduce_scatter` lays a bucket out, with the rank axis in
+    front: each stack viewed as [n, n, -1] (rank, tile, tile elements) and a
+    bucket concatenated along the last axis, one ``reduce_scatter_rank_major``
+    launch per bucket (``backend="pallas"``: one ring launch); per stack
+    where :func:`reduce_scatter_spec` says so."""
+    if not stacks:
+        return []
+    n = stacks[0].shape[0]
+    spec = reduce_scatter_spec([t[0] for t in stacks], n)
+    if spec is None:
+        return [selector.select(
+            "reduce_scatter_rank_major", backend,
+            nbytes=t[0].numel() * t.element_size())(t, op=op)
+            for t in stacks]
+    out: List = [None] * spec.n_tensors
+    for g in spec.groups:
+        for bucket in g.leaf_buckets:
+            tiles = [stacks[g.indices[pos]].reshape(n, n, -1)
+                     for pos in bucket]
+            buf = (tiles[0] if len(tiles) == 1
+                   else torch.cat(tiles, 2)).reshape(n, -1)
+            impl = selector.select("reduce_scatter_rank_major", backend,
+                                   nbytes=buf[0].numel() * buf.element_size())
+            shard = impl(buf, op=op).reshape(n, -1)
+            off = 0
+            for i, ts, shape in _tile_shapes(g, bucket, n):
+                out[i] = shard[:, off:off + ts].reshape(n, *shape)
+                off += ts
+    return out
 
 
 # ---------------------------------------------------------------------------

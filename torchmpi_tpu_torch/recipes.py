@@ -41,6 +41,15 @@ gradients come back reduced, and ZeRO runs ``presynced=True``.
 sync (JAX :35, :78-83, :117-140); with overlap or ZeRO it does not apply.
 Not ported yet, and refused by name: a ``Config.analysis`` or
 ``Config.obs`` other than "off" (ROADMAP queue A, items 11 and 10).
+
+FSDP (JAX :188-281): :func:`fsdp_specs` names each parameter's shard dim,
+and :func:`make_fsdp_train_step` / :func:`make_fsdp_train_step_rank_major`
+keep the parameters and the optimizer state sharded per parameter.  JAX's
+compiler inserts the gathers and the gradient reduce-scatters; here the
+step issues them: every sharded leaf gathered at the top of the step
+(once, not layer by layer: ROADMAP queue C note 15), the gradients
+reduce-scattered as one tree in the tile-interleaved layout of
+``fusion``, ``tx`` applied to the shards.
 """
 
 from __future__ import annotations
@@ -51,7 +60,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from . import collectives, fusion, optim, runtime
+from . import _tree, collectives, fusion, optim, runtime
 from .models import layers
 from .parallel import gradsync
 from .parallel import zero as pzero
@@ -67,6 +76,11 @@ def _overlap_on(overlap: Optional[str]) -> bool:
         overlap = cfg.gradsync_overlap
     if overlap not in ("off", "auto"):
         raise ValueError(f"overlap must be off|auto, got {overlap!r}")
+    _refuse_unported(cfg)
+    return overlap == "auto"
+
+
+def _refuse_unported(cfg) -> None:
     if cfg.analysis != "off":
         raise NotImplementedError(
             f"Config.analysis={cfg.analysis!r}: the static collective "
@@ -75,7 +89,6 @@ def _overlap_on(overlap: Optional[str]) -> bool:
         raise NotImplementedError(
             f"Config.obs={cfg.obs!r}: the telemetry layer is not ported yet "
             "(ROADMAP queue A, item 10)")
-    return overlap == "auto"
 
 
 def _check_zero(zero, params_template):
@@ -279,6 +292,281 @@ def make_bn_dp_train_step_rank_major(model: torch.nn.Module,
                 torch.stack(losses).mean())
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# FSDP: parameters and optimizer state sharded per parameter (JAX :188-281)
+# ---------------------------------------------------------------------------
+
+
+def fsdp_specs(params, n: int):
+    """Per leaf of ``params`` (any tree of tensors, or of anything with a
+    ``shape``), the dim FSDP shards over ``n`` ranks: the largest dim that is
+    at least ``n`` and divisible by ``n``, the first of equal ones; None (the
+    leaf is replicated) where there is none.  JAX :188, which takes a mesh
+    where this takes ``n`` and returns a ``PartitionSpec`` where this
+    returns the dim."""
+
+    def leaf_dim(leaf):
+        shape = tuple(getattr(leaf, "shape", ()))
+        for i in sorted(range(len(shape)), key=lambda i: -shape[i]):
+            if shape[i] >= n and shape[i] % n == 0:
+                return i
+        return None
+
+    return _tree.map(leaf_dim, params)
+
+
+def _apply_of(model: torch.nn.Module, remat: bool) -> Callable:
+    """``apply_fn(params, *args, **kwargs)``: the model called functionally
+    on ``params``, the list of its full parameters in ``named_parameters()``
+    order; with ``remat`` the forward is recomputed in the backward
+    (``torch.utils.checkpoint``, JAX's ``jax.checkpoint``)."""
+    names = [n for n, _ in model.named_parameters()]
+
+    def apply_fn(params, *args, **kwargs):
+        tensors = dict(zip(names, params, strict=True))
+
+        def forward(*a):
+            return torch.func.functional_call(model, tensors, a, kwargs)
+
+        return (checkpoint(forward, *args, use_reentrant=False) if remat
+                else forward(*args))
+
+    return apply_fn
+
+
+def _classifier_loss(apply_fn: Callable, params, images, labels):
+    """The default FSDP objective: the mean softmax cross-entropy of the
+    logits against integer labels (JAX :251-255)."""
+    return F.cross_entropy(apply_fn(params, images).float(), labels.long())
+
+
+def _donated(old, new):
+    """``new``'s values written into ``old``'s tensors (a tensor, or a state
+    tuple whose other fields are taken from ``new``): the memory that
+    JAX's buffer donation reuses."""
+    if isinstance(old, torch.Tensor):
+        return old.copy_(new)
+    return type(old)(*(o.copy_(v) if isinstance(o, torch.Tensor) else v
+                       for o, v in zip(old, new, strict=True)))
+
+
+def _fsdp_step(model, tx, dims, n: int, lead: int, *, gather, local_grads,
+               reduce_scatter, allreduce_mean, loss_fn, remat, donate):
+    """The FSDP step shared by both forms (``lead`` rank axes in front of
+    a shard: 1 rank-major, 0 in the process world): gather every sharded
+    leaf, the ranks' gradients (``local_grads``, in the tile layout), the
+    gradient reduce-scatter (sum, then / n: the mean over ranks, as XLA's
+    reduce-scatter of the global mean's gradient gives it), the replicated
+    leaves' allreduce (mean), then ``tx`` on the shards (in place under
+    ``donate``)."""
+    apply_fn = _apply_of(model, remat)
+    loss_fn = loss_fn or _classifier_loss
+    sharded = [i for i, d in enumerate(dims) if d is not None]
+    replicated = [i for i, d in enumerate(dims) if d is None]
+
+    def step(params, opt_state, xb, yb):
+        full = [gather(p, d) for p, d in zip(params, dims)]
+        loss, tiles = local_grads(
+            lambda leaves, x, y: loss_fn(apply_fn, leaves, x, y), full, xb,
+            yb)
+        del full
+        grads: List = [None] * len(dims)
+        for i, t in zip(sharded, reduce_scatter([tiles[i] for i in sharded])):
+            grads[i] = t.movedim(lead, dims[i] + lead).contiguous().div_(n)
+        for i, g in zip(replicated,
+                        allreduce_mean([tiles[i] for i in replicated])):
+            grads[i] = g
+        del tiles
+        new_params, new_state = [], []
+        for p, s, g in zip(params, opt_state, grads, strict=True):
+            u, ns = tx.update(g, s, p)
+            np_ = optim.apply_updates(p, u)
+            if donate:
+                np_, ns = p.copy_(np_), _donated(s, ns)
+            new_params.append(np_)
+            new_state.append(ns)
+        return new_params, new_state, loss
+
+    return step
+
+
+def _tile_view(t: torch.Tensor, d: Optional[int], lead: int) -> torch.Tensor:
+    """``t`` with its shard dim ``d`` (counted after ``lead`` leading dims)
+    moved to position ``lead``, contiguous: the tile layout a reduce-scatter
+    or all-gather splits on its first dim.  A copy where d is not 0 (or
+    ``t`` is not contiguous)."""
+    return t.movedim(lead + d, lead).contiguous()
+
+
+def make_fsdp_train_step_rank_major(model: torch.nn.Module,
+                                    tx: optim.GradientTransformation,
+                                    params: Tensors, n: int, *,
+                                    backend: Optional[str] = None,
+                                    remat: bool = False, donate: bool = True,
+                                    loss_fn: Optional[Callable] = None):
+    """FSDP of ``n`` ranks on one device (JAX :214): returns ``(step,
+    params, opt_state)``, the parameters and optimizer state already
+    sharded per leaf (:func:`fsdp_specs`).  ``params`` is the model's full
+    parameter list (``named_parameters()`` order); a sharded leaf becomes
+    the stack [n, *shard_shape] of the ranks' shards (rank r's is chunk r
+    along the leaf's dim), a replicated leaf one tensor that every rank
+    shares; ``opt_state`` is ``tx.init`` of each.
+
+    ``step(params, opt_state, xb, yb) -> (params, opt_state, loss)``: each
+    sharded leaf gathered by ``allgather_rank_major`` (its dim moved to the
+    front and back; one copy of the ranks' identical results kept), rank r
+    taking the r-th of n equal slices of the global batch through the model
+    (``torch.func.functional_call``), the gradients stacked rank-major and
+    reduce-scattered as one tree (``fusion.fused_reduce_scatter_rank_major``:
+    one launch per bucket) and averaged, the replicated leaves' gradients
+    averaged by ``fusion.fused_allreduce_rank_major_``, ``tx`` applied to the
+    shards; the loss is the mean of the ranks'.  ``loss_fn(apply_fn, params,
+    xb, yb)`` replaces the default mean cross-entropy of the logits
+    against integer labels; ``apply_fn(params, *args, **kwargs)`` calls the
+    model on a list of full tensors.  ``donate`` (default) updates the
+    shard and state tensors in place; False returns new ones.  The global
+    batch must split in n equal slices: the mean of the ranks' means is the
+    global mean only then.  ``step.dims`` holds the shard dims (for
+    :func:`fsdp_unshard_rank_major`) and ``step.layout_copy_bytes`` the
+    bytes a step copies only to move a dim other than 0 to the front."""
+    _refuse_unported(runtime.effective_config())
+    params = [p.detach() for p in params]
+    dims = fsdp_specs(params, n)
+    shards = [p.clone() if d is None else torch.stack(p.chunk(n, d))
+              for p, d in zip(params, dims)]
+    opt_state = [tx.init(s) for s in shards]
+
+    def gather(p, d):
+        if d is None:
+            return p
+        out = collectives.allgather_rank_major(_tile_view(p, d, 1),
+                                               backend=backend)
+        # Every rank's gathered leaf is the same: keep one, free the rest.
+        full = out[0].reshape(-1, *out.shape[3:])
+        return full.movedim(0, d).clone(memory_format=torch.contiguous_format)
+
+    def local_grads(objective, full, xb, yb):
+        if xb.shape[0] % n or yb.shape[0] != xb.shape[0]:
+            raise ValueError(f"a global batch of {xb.shape[0]} inputs and "
+                             f"{yb.shape[0]} labels does not split over "
+                             f"{n} ranks")
+        # Slices keep the batch's memory format (a channels-last batch
+        # stays channels-last), so each rank runs as a process would.
+        xs, ys = xb.chunk(n), yb.chunk(n)
+        # Each leaf's gradient stack in the tile layout: its shard dim in
+        # front, so that the reduce-scatter splits it.
+        tiles = [p.new_empty((n, *_moved(p.shape, d))) for p, d in
+                 zip(full, dims)]
+        losses = []
+        for r in range(n):
+            leaves = [p.detach().requires_grad_() for p in full]
+            loss = objective(leaves, xs[r], ys[r])
+            for t, g, d in zip(tiles, torch.autograd.grad(loss, leaves),
+                               dims):
+                t[r].copy_(g if not d else g.movedim(d, 0))
+            losses.append(loss.detach())
+        return torch.stack(losses).mean(), tiles
+
+    def allreduce_mean(stacks):
+        fusion.fused_allreduce_rank_major_(stacks, backend=backend,
+                                           op="mean")
+        return [st[0] for st in stacks]
+
+    step = _fsdp_step(
+        model, tx, dims, n, 1, gather=gather, local_grads=local_grads,
+        reduce_scatter=lambda ts: fusion.fused_reduce_scatter_rank_major(
+            ts, backend=backend, op="sum"),
+        allreduce_mean=allreduce_mean, loss_fn=loss_fn, remat=remat,
+        donate=donate)
+    step.dims = dims
+    step.layout_copy_bytes = _copy_bytes(params, dims, 1)
+    return step, shards, opt_state
+
+
+def make_fsdp_train_step(model: torch.nn.Module,
+                         tx: optim.GradientTransformation, params: Tensors,
+                         *, backend: Optional[str] = None,
+                         remat: bool = False, donate: bool = True,
+                         loss_fn: Optional[Callable] = None):
+    """FSDP across the process world (JAX :214), this process one rank: as
+    :func:`make_fsdp_train_step_rank_major`, but each process holds its own
+    shard of every sharded leaf (chunk ``rank()`` along its dim) and passes
+    its own slice of the global batch.  Each sharded leaf is gathered by
+    ``allgather_in_axis``, the gradients of the sharded leaves go through
+    one ``reduce_scatter_in_axis`` of a tree (fused in the
+    tile-interleaved layout), those of the replicated leaves through one
+    ``allreduce_in_axis`` (mean), and the loss is averaged."""
+    _refuse_unported(runtime.effective_config())
+    n, rank = runtime.size(), runtime.rank()
+    params = [p.detach() for p in params]
+    dims = fsdp_specs(params, n)
+    shards = [(p if d is None else p.chunk(n, d)[rank]).clone(
+        memory_format=torch.contiguous_format) for p, d in zip(params, dims)]
+    opt_state = [tx.init(s) for s in shards]
+
+    def local_grads(objective, full, xb, yb):
+        leaves = [p.detach().requires_grad_() for p in full]
+        loss = objective(leaves, xb, yb)
+        tiles = [g if d is None else _tile_view(g, d, 0)
+                 for g, d in zip(torch.autograd.grad(loss, leaves), dims)]
+        return collectives.allreduce_in_axis(loss.detach(), op="mean"), tiles
+
+    step = _fsdp_step(
+        model, tx, dims, n, 0,
+        gather=lambda p, d: p if d is None else _gather_world(p, d, backend),
+        local_grads=local_grads,
+        reduce_scatter=lambda ts: collectives.reduce_scatter_in_axis(
+            ts, backend=backend),
+        allreduce_mean=lambda gs: collectives.allreduce_in_axis(
+            gs, op="mean", backend=backend),
+        loss_fn=loss_fn, remat=remat, donate=donate)
+    step.dims = dims
+    step.layout_copy_bytes = _copy_bytes(params, dims, n)
+    return step, shards, opt_state
+
+
+def _gather_world(p: torch.Tensor, d: int, backend: Optional[str]):
+    """The full leaf from every process's shard ``p`` (sharded on ``d``):
+    the process-world all-gather of its tile layout, moved back."""
+    out = collectives.allgather_in_axis(_tile_view(p, d, 0), backend=backend)
+    return out.reshape(-1, *out.shape[2:]).movedim(0, d).contiguous()
+
+
+def _moved(shape, d: Optional[int]) -> Tuple[int, ...]:
+    """``shape`` with dim ``d`` moved to the front (unchanged for None)."""
+    shape = tuple(shape)
+    if not d:
+        return shape
+    return (shape[d],) + shape[:d] + shape[d + 1:]
+
+
+def _copy_bytes(params: Tensors, dims, k: int) -> int:
+    """Bytes a step copies only because a leaf is sharded on a dim other
+    than 0: its shards moved to the tile layout, the gathered leaf moved
+    back, its gradient shards moved back.  A shard copy moves 1/k of the
+    leaf: k = 1 rank-major, where it moves every rank's shard, n in the
+    process world."""
+    return sum(p.numel() * p.element_size() * (k + 2) // k
+               for p, d in zip(params, dims) if d)
+
+
+def fsdp_unshard_rank_major(params: Tensors, dims) -> List[torch.Tensor]:
+    """The full parameters from rank-major FSDP ``params`` (``dims`` =
+    ``step.dims``): the shards concatenated along each leaf's dim.  JAX
+    reads its sharded global arrays directly; this is the port's form."""
+    return [p.clone() if d is None else torch.cat(p.unbind(0), d)
+            for p, d in zip(params, dims)]
+
+
+def fsdp_unshard(params: Tensors, dims, *,
+                 backend: Optional[str] = None) -> List[torch.Tensor]:
+    """The full parameters from this process's FSDP ``params`` (``dims`` =
+    ``step.dims``), gathered from every rank: a collective, every process
+    calls it."""
+    return [p.clone() if d is None else _gather_world(p, d, backend)
+            for p, d in zip(params, dims)]
 
 
 def bn_state(model: torch.nn.Module) -> Tuple[List[torch.Tensor],
