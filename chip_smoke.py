@@ -399,6 +399,27 @@ BUSBW_HOPS = "device copies on one card, not NVLink"
 BUSBW_ROWS = ("ring_allreduce_chunked", "ring_allreduce_bidir_chunked",
               "ring_allreduce", "ring_allreduce_bidir")
 BUSBW_STOCK_RTOL = 1e-5  # the stock left fold vs the ring's add order
+# The two-level slice: BASELINE config 5 (multi-slice ResNet-50, the
+# hierarchical allreduce): resnet50_dp's model, batch and optimizer, its
+# R50_N ranks as a HIER_DCN x R50_N / HIER_DCN (dcn x ici) grid on the one
+# card, so both levels are device copies, not NVLink or a network.
+# (a) backend "hierarchical" under the default dcn_chunk_bytes (4 MiB: the
+# 4 fused buckets' 12.8 MB ici shards run in 4 chunks): every sync bitwise
+# to the same call unchunked and within HIER_FLAT_RTOL (rel. L2) of the
+# flat stock allreduce; (b) HIER_EF_SYNCS int8 error-feedback syncs of one
+# step's gradient stacks, each bitwise to the plain composition and within
+# the codec's bound; (c) backend "pallas" on the grid (rows 8 and 11 per
+# node, rows 9 and 10 under ZeRO); (d) the NCCL world of one warning once.
+HIER_DCN = 2
+HIER_CHECKED_STEPS = 3
+HIER_TIMED_STEPS = 8
+HIER_FLAT_RTOL = 1e-6
+HIER_EF_SYNCS = 3
+HIER_CHUNKS = 4
+HIER_LEGS = ("hier/ici_reduce_scatter", "hier/dcn_allreduce",
+             "hier/ici_all_gather")
+HIER_ROWS = R50_ROWS
+HIER_HOPS = "device copies on one card, not NVLink or a network"
 
 SOURCES = {
     "flash_fwd": ("torchmpi_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -2197,6 +2218,332 @@ def resnet50_dp_phase(torch, mpi, ops, dev):
     return launches
 
 
+def leg_profile(torch, fn, legs=HIER_LEGS) -> dict:
+    """Device time of one call of ``fn`` by two-level leg: the kernels
+    launched inside each ``record_function`` range of ``legs``
+    (torch.profiler, CPU and CUDA activities), and the call's total."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {leg: {"ms": 0.0, "calls": 0} for leg in legs}
+    total = 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        t = getattr(e, "cuda_time_total", 0.0) if t is None else t
+        if e.key in out:
+            out[e.key] = {"ms": t / 1e3, "calls": e.count}
+        self_t = getattr(e, "self_device_time_total", None)
+        self_t = (getattr(e, "self_cuda_time_total", 0.0) if self_t is None
+                  else self_t)
+        total += self_t / 1e3
+    return {"legs": out, "step_device_ms": total}
+
+
+def ef_plain(torch, stacks, residual, n_dcn):
+    """The int8 error-feedback sync of rank-major gradient ``stacks`` as
+    its plain composition, written out here: each rank's gradients flat,
+    each node's ici ranks folded into their shards (rank (d, t) holding
+    tile t), the residual added, each shard scaled by its own amax / 127
+    (amax times the float32 1/127) and rounded half to even, the decoded
+    shards summed over dcn in node
+    order.  Returns (synced [L], new residual [n, c], the float32 sum the
+    codec quantized, the scales [n_dcn, n_ici], the amaxes)."""
+    n = stacks[0].shape[0]
+    n_ici = n // n_dcn
+    flat = torch.cat([s.reshape(n, -1) for s in stacks], 1)
+    L = flat.shape[1]
+    c = -(-L // n_ici)
+    x = torch.zeros(n, c * n_ici, device=flat.device, dtype=flat.dtype)
+    x[:, :L] = flat
+    x = x.reshape(n_dcn, n_ici, n_ici, c)
+    shards = x[:, 0].clone()
+    for i in range(1, n_ici):
+        shards += x[:, i]
+    y = shards.float() + residual.reshape(n_dcn, n_ici, c)
+    amax = y.abs().amax(-1)
+    # amax times 1/127 rounded to float32: the JAX package's amax / 127 as
+    # XLA compiles it.
+    inv = float(torch.tensor(1.0 / 127.0, dtype=torch.float32))
+    scale = torch.clamp_min(amax * inv, 1e-30)
+    q = torch.clamp(torch.round(y / scale[..., None]), -127.0, 127.0)
+    dec = q * scale[..., None]
+    tot = dec[0].clone()
+    exact = y[0].clone()
+    for d in range(1, n_dcn):
+        tot = tot + dec[d]
+        exact = exact + y[d]
+    return (tot.reshape(-1)[:L], (y - dec).reshape(n, c),
+            exact.reshape(-1)[:L], scale, amax)
+
+
+def hier_dp_phase(torch, mpi, ops, dev):
+    """This slice's main path: BASELINE config 5, ResNet-50 at full width
+    and depth as resnet50_dp runs it (R50_N ranks rank-major, R50_BATCH
+    images a rank, SGD), the ranks a HIER_DCN x R50_N / HIER_DCN (dcn x
+    ici) grid (Config.dcn_size).
+
+    (a) backend "hierarchical": HIER_CHECKED_STEPS steps in which every
+    allreduce (the gradient buckets and the BatchNorm statistics) is held
+    bitwise to the same call under dcn_chunk_bytes=0 and within
+    HIER_FLAT_RTOL of the flat stock allreduce; HIER_TIMED_STEPS timed by
+    CUDA events; one counting host syncs; one profiled by leg.
+    (b) HIER_EF_SYNCS synchronize_gradients_rank_major(residuals=...,
+    dcn_compress="int8") of one step's gradient stacks, each bitwise to
+    the plain composition (ef_plain), the residuals updated, |synced -
+    exact| within the codec's bound; the wire bytes.
+    (c) backend "pallas" on the grid: HIER_CHECKED_STEPS replicated steps
+    and one ZeRO-1 and one ZeRO-3 step, every ring call bitwise to the
+    plain ring's composition on the same grid (tap_rank_major_routes).
+    (d) the NCCL world of one: backend "hierarchical" warns once and runs
+    the stock route.  Every kernel counter is set to 0 just before the
+    phase and read just after; both levels are device copies on one card
+    (HIER_HOPS)."""
+    from torchmpi_tpu_torch.utils import data as dutil
+    from torchmpi_tpu_torch.utils.input_pipeline import prefetch_to_device
+
+    ring = ops["ring"]
+    recipes, zero, fusion = mpi.recipes, mpi.parallel.zero, mpi.fusion
+    hier, gs, sel = (mpi.parallel.hierarchical, mpi.parallel.gradsync,
+                     mpi.selector)
+    n, b = R50_N, R50_BATCH
+    mpi.set_config(dcn_size=HIER_DCN)
+    grid = mpi.runtime.grid(n)
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    model = mpi.models.ResNet50(num_classes=R50_CLASSES,
+                                dtype=torch.bfloat16, device=dev,
+                                generator=g)
+    params, stats = recipes.bn_state(model)
+    spec = fusion.FusedSpec(params)
+    tx = mpi.optim.sgd(R50_LR, momentum=R50_MOMENTUM)
+    opt = [tx.init(p) for p in params]
+    step = recipes.make_bn_dp_train_step_rank_major(
+        model, tx, n, backend="hierarchical")
+    X, Y = dutil.synthetic_image_classification(
+        2 * n * b, image_shape=(R50_IMAGE, R50_IMAGE, 3),
+        num_classes=R50_CLASSES, seed=SEED + 1)
+    n_batches = 2 * HIER_CHECKED_STEPS + HIER_TIMED_STEPS + 6
+    it = prefetch_to_device(dutil.batches(X, Y, n * b, steps=n_batches,
+                                          seed=SEED + 1), depth=2,
+                            device=dev)
+
+    def batch():
+        xb, yb = next(it)
+        return xb.permute(0, 3, 1, 2), yb
+
+    def one_step(st, xb, yb):
+        nonlocal params, opt, stats
+        params, opt, stats, loss = st(params, opt, stats, xb, yb)
+        return loss
+
+    torch.cuda.synchronize()
+    for mod in ops.values():
+        mod.reset_launches()
+    # (a) the hierarchical route, tapped during the checked steps.
+    route = hier.hier_allreduce_rank_major
+    log = []
+
+    def tapped(xs, op="sum"):
+        out = route(xs, op=op)
+        mpi.set_config(dcn_chunk_bytes=0)
+        try:
+            whole = route(xs, op=op)
+        finally:
+            mpi.set_config(dcn_chunk_bytes=4 << 20)
+        flat = mpi.collectives._stock_allreduce_rank_major(xs, op=op)
+        diff = (out.float() - flat.float()).norm()
+        log.append({"elems": xs[0].numel(), "chunks": hier.chunk_count(
+            xs[0].numel(), xs.element_size(), grid[1]),
+            "bitwise_vs_unchunked": bool(torch.equal(out, whole)),
+            "rel_l2_vs_flat": float(diff / flat.float().norm().clamp_min(
+                1e-30))})
+        return out
+
+    sel.register("allreduce_rank_major", "hierarchical", tapped)
+    losses = []
+    try:
+        for _ in range(HIER_CHECKED_STEPS):
+            losses.append(one_step(step, *batch()))
+    finally:
+        sel.register("allreduce_rank_major", "hierarchical", route)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for _ in range(HIER_TIMED_STEPS):
+        xb, yb = batch()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(one_step(step, xb, yb))
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated()
+    xb, yb = batch()
+    syncs = count_host_syncs(torch, lambda: losses.append(
+        one_step(step, xb, yb)))
+    xb, yb = batch()
+    legs = leg_profile(torch, lambda: losses.append(one_step(step, xb, yb)))
+
+    # (b) int8 error feedback on one step's gradient stacks.
+    local = recipes._local_step(recipes._loss_of(model, False))
+    xb, yb = batch()
+    xs, ys = xb.reshape(n, -1, *xb.shape[1:]), yb.reshape(n, -1)
+    stacks = [p.new_empty((n, *p.shape)) for p in params]
+    for r in range(n):
+        _, grads, _ = local(params, stats, xs[r], ys[r])
+        for st, gr in zip(stacks, grads):
+            st[r].copy_(gr)
+        del grads
+    res = gs.init_dcn_residuals(params, n=n)
+    ef = []
+    for _ in range(HIER_EF_SYNCS):
+        synced = [st.clone() for st in stacks]
+        want, want_res, exact, scale, amax = ef_plain(torch, stacks, res[0],
+                                                      grid[0])
+        _, new_res = gs.synchronize_gradients_rank_major(
+            synced, op="sum", residuals=res, dcn_compress="int8")
+        got = torch.cat([t.reshape(n, -1) for t in synced], 1)
+        ulp = lambda t: torch.abs(torch.nextafter(  # noqa: E731
+            t.abs(), torch.full_like(t, float("inf"))) - t.abs())
+        def per_element(per_tile):
+            return per_tile[:, None].expand(grid[1], res[0].shape[1]) \
+                .reshape(-1)[:exact.numel()]
+
+        bound = (per_element((scale / 2 + amax * 2.0 ** -23).sum(0))
+                 + ulp(want) + ulp(exact))
+        # Without the roundings of y / scale and of the decode products.
+        half = per_element((scale / 2).sum(0)) + ulp(exact)
+        err = (want - exact).abs()
+        ef.append({
+            "bitwise_vs_plain": bool(all(torch.equal(got[r], want)
+                                         for r in range(n))),
+            "residual_bitwise": bool(torch.equal(new_res[0], want_res)),
+            "residual_changed": bool(not torch.equal(new_res[0], res[0])),
+            "max_abs_err": float(err.max()),
+            "max_err_over_bound": float((err / bound).max()),
+            "max_err_over_half_scales_and_ulp": float((err / half).max()),
+            "within_bound": bool((err <= bound).all())})
+        res = new_res
+    from torchmpi_tpu_torch import compress as codec
+
+    shard = res[0].shape[1]
+    wire = {"shard_elems_per_rank": shard,
+            "int8_bytes_per_rank": codec.wire_nbytes_of(shard, "int8"),
+            "float32_bytes_per_rank": shard * 4}
+    del stacks, synced, got
+
+    # (c) the ring kernels on the grid: replicated, ZeRO-1, ZeRO-3.
+    step_p = recipes.make_bn_dp_train_step_rank_major(model, tx, n,
+                                                      backend="pallas")
+    rlog = TapLog()
+    restore = tap_rank_major_routes(torch, mpi, ring, rlog, ops=(
+        "reduce_scatter_rank_major", "allgather_rank_major",
+        "allreduce_rank_major"))
+    zspec = zero.flat_spec(params, n_shards=n)
+    template = [torch.empty_like(p, device="meta") for p in params]
+    torch.backends.cudnn.deterministic = True
+    try:
+        rlog.label = "replicated"
+        for _ in range(HIER_CHECKED_STEPS):
+            losses.append(one_step(step_p, *batch()))
+        zstate = mpi.optim.TraceState(
+            fusion.local_shards([s.trace for s in opt], zspec))
+        xb, yb = batch()
+        rlog.label = "zero1"
+        step1 = recipes.make_bn_dp_train_step_rank_major(
+            model, tx, n, backend="pallas", zero=1)
+        p_z1, _, _, l_z1 = step1(params, zstate, stats, xb, yb)
+        rlog.label = "zero3"
+        step3 = recipes.make_bn_dp_train_step_rank_major(
+            model, tx, n, backend="pallas", zero=3,
+            params_template=template)
+        p_z3, _, _, l_z3 = step3(zero.shard_params_rank_major(params, n),
+                                 zstate, stats, xb, yb)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        restore()
+    losses += [l_z1, l_z3]
+    z3_eq_z1 = bool(torch.equal(fusion.local_shards(p_z1, zspec), p_z3))
+    launches = {k: ring.LAUNCHES[k] for k in HIER_ROWS}
+    vector = {k: {"all": ring.LAUNCHES[k],
+                  "vector": ring.VECTOR_LAUNCHES[k]} for k in HIER_ROWS}
+    rows_by_label = {}
+    for e in rlog:
+        for row in e["rows"]:
+            d = rows_by_label.setdefault(f"{e['label']} {row}",
+                                         {"calls": 0, "bitwise": True})
+            d["calls"] += 1
+            d["bitwise"] = d["bitwise"] and e["bitwise"]
+
+    # (d) the NCCL world of one.
+    sel._warned_fallbacks.discard(("allreduce", "hierarchical"))
+    x = torch.randn(1 << 20, generator=g, device=dev)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        one = [mpi.allreduce(x, backend="hierarchical") for _ in range(2)]
+    warned = [str(w.message) for w in caught
+              if issubclass(w.category, RuntimeWarning)
+              and "hierarchical" in str(w.message)]
+    fallback_ok = all(torch.equal(o, mpi.allreduce(x)) for o in one)
+    mpi.set_config(dcn_size=None)
+
+    losses = [float(v) for v in losses]
+    med = statistics.median(step_ms)
+    emit({"phase": "hier_dp", "ranks": n, "grid": {"dcn": grid[0],
+                                                   "ici": grid[1]},
+          "batch_per_rank": b, "hops": HIER_HOPS,
+          "config": {"model": "ResNet50", "image": R50_IMAGE,
+                     "classes": R50_CLASSES, "dtype": "bfloat16",
+                     "params": "float32", "optimizer":
+                     f"sgd({R50_LR}, momentum={R50_MOMENTUM})",
+                     "backend": "hierarchical", "dcn_chunk_bytes": 4 << 20,
+                     "memory_format": "channels_last"},
+          "buckets": spec.n_launches, "losses": losses,
+          "hier_syncs": log,
+          "step_ms": step_ms, "median_step_ms": med,
+          "min_step_ms": min(step_ms), "max_step_ms": max(step_ms),
+          "img_per_s": n * b * 1e3 / med, "peak_mem_bytes": peak,
+          "host_syncs_per_step": syncs, "leg_profile": legs,
+          "ef_int8": ef, "ef_wire": wire,
+          "pallas_rows": rows_by_label,
+          "pallas_bitwise_vs_plain": all(e["bitwise"] for e in rlog),
+          "pallas_collectives_checked": len(rlog),
+          "zero3_equals_zero1": z3_eq_z1,
+          "launches": launches, "launches_on_16_byte_path": vector,
+          "world_of_one_warnings": warned,
+          "world_of_one_stock_result": fallback_ok})
+    check(len(log) == HIER_CHECKED_STEPS * (R50_BUCKETS + 1),
+          f"{len(log)} hierarchical syncs checked")
+    check(all(e["bitwise_vs_unchunked"] for e in log),
+          f"a chunked hierarchical sync differs from the unchunked: {log}")
+    check(all(e["rel_l2_vs_flat"] <= HIER_FLAT_RTOL for e in log),
+          f"hierarchical vs flat: {log}")
+    check(max(e["chunks"] for e in log) == HIER_CHUNKS,
+          f"the gradient buckets ran in {[e['chunks'] for e in log]} chunks")
+    check(all(e["bitwise_vs_plain"] and e["residual_bitwise"]
+              and e["residual_changed"] and e["within_bound"] for e in ef),
+          f"int8 error feedback: {ef}")
+    check(all(e["bitwise"] for e in rlog) and len(rlog) > 0,
+          f"a ring call on the grid differs from the plain ring: "
+          f"{rows_by_label}")
+    check(z3_eq_z1, "ZeRO-3 differs from ZeRO-1 on the grid")
+    for name in HIER_ROWS:
+        check(launches[name] > 0, f"kernel {name} never launched on the "
+              f"two-level path")
+    for name in R50_VECTOR_ROWS:
+        check(vector[name]["all"] == vector[name]["vector"],
+              f"{name}: {vector[name]} launches on the 16-byte path")
+    check(len(warned) == 1 and fallback_ok,
+          f"world of one: {warned}, stock result {fallback_ok}")
+    check(all(math.isfinite(v) for v in losses), f"non-finite {losses}")
+    check(syncs == 0, f"{syncs} host-device synchronizations in a step")
+    return launches
+
+
 def closed_form(torch, verb, xs, root=0, op="sum", src=0, dst=1):
     """Rank-major ``verb`` of ``xs`` [n, ...] as the JAX package's host
     closed forms define it (``_host_staged``), in plain torch: sums as a
@@ -3237,6 +3584,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         busbw_launches = allreduce_busbw_phase(torch, mpi, ring, dev)
         torch.cuda.empty_cache()
+        # The main path of slice 17: BASELINE config 5, ResNet-50 on a
+        # 2 x 2 (dcn x ici) grid of the 4 ranks, hierarchical, int8 error
+        # feedback, and the ring kernels per node (rows 8-11).
+        hier_launches = hier_dp_phase(torch, mpi, dict(ops, ring=ring), dev)
+        torch.cuda.empty_cache()
         cnn_examples_phase(torch, mpi)
     finally:
         mpi.stop()
@@ -3257,7 +3609,9 @@ def main() -> int:
                 **({"fsdp_dp": fsdp_launches[name]}
                    if fsdp_launches.get(name) else {}),
                 **({"allreduce_busbw": busbw_launches[name]}
-                   if busbw_launches.get(name) else {})}
+                   if busbw_launches.get(name) else {}),
+                **({"hier_dp": hier_launches[name]}
+                   if hier_launches.get(name) else {})}
 
     kernels = [{**{k: dict(row, launches=sum(by_path(
                     row["name"]).values()))[k] for k in keys},

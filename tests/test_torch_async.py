@@ -166,8 +166,9 @@ def test_async_in_axis_deferred_wait():
                                                else {}))
           for v in tcoll.VERBS]
     assert len(tmpi.wait_all(hs)) == len(tcoll.VERBS)
+    assert torch.equal(tmpi.async_in_axis.allreduce(x, "ici").wait(), x)
     with pytest.raises(NotImplementedError, match="queue A, item 1"):
-        tmpi.async_in_axis.allreduce(x, "ici")
+        tmpi.async_in_axis.allreduce(x, "tp").wait()
 
 
 def test_timeout_raises_peer_timeout_error():

@@ -170,12 +170,42 @@ def test_bucket_count_exceeding_elements():
 
 
 def test_ef_options_raise_by_name():
-    for kw in ({"residuals": [torch.zeros(1)]}, {"dcn_compress": "int8"}):
-        with pytest.raises(NotImplementedError, match="queue A, item 4"):
-            tgs.synchronize_gradients_rank_major([torch.ones(2, 3)], **kw)
-    with pytest.raises(NotImplementedError, match="queue A, item 4"):
-        tgs.make_overlapped_grad_fn(lambda p: p[0].sum(), [torch.ones(2)],
-                                    residuals=True)
+    """The error-feedback options run (they raised before the two-level
+    world was ported): on this flat grid ``residuals`` warns once, syncs
+    plainly and hands the state back; ``dcn_compress`` alone is the plain
+    sync; the overlapped builder degrades the same way.  Without a codec,
+    residual state raises by its JAX message."""
+    tsel._warned_fallbacks.clear()
+    for kw in ({"residuals": [torch.zeros(2, 2)], "dcn_compress": "int8"},
+               {"dcn_compress": "int8"}):
+        x = [torch.ones(2, 3)]
+        with pytest.warns(RuntimeWarning, match="flat world") if \
+                "residuals" in kw else _no_warning():
+            got = tgs.synchronize_gradients_rank_major(x, op="sum", **kw)
+        assert torch.equal(x[0], torch.full((2, 3), 2.0))
+        if "residuals" in kw:
+            assert got[1] is kw["residuals"]
+    with pytest.raises(ValueError, match="no DCN codec active"):
+        tgs.synchronize_gradients_rank_major([torch.ones(2, 3)],
+                                             residuals=[torch.zeros(2, 2)])
+    vag = tgs.make_overlapped_grad_fn(lambda p: p[0].sum(), [torch.ones(2)],
+                                      residuals=True, dcn_compress="int8")
+    state = [torch.zeros(2)]
+    loss, (grads, new_state) = vag([torch.ones(2)], state)
+    assert float(loss) == 2.0 and torch.equal(grads[0], torch.ones(2))
+    assert new_state is state
+
+
+class _no_warning:
+    def __enter__(self):
+        import warnings
+
+        self.ctx = warnings.catch_warnings()
+        self.ctx.__enter__()
+        warnings.simplefilter("error", RuntimeWarning)
+
+    def __exit__(self, *exc):
+        self.ctx.__exit__(*exc)
 
 
 def _mixed_loss(leaves, x, y):

@@ -98,7 +98,12 @@ def test_selector_rules():
         assert tsel.select("broadcast", "pallas") is \
             tsel.available("broadcast")["xla"]
         with pytest.raises(ValueError):
-            tsel.select("allreduce", "hierarchical")
+            tsel.select("allreduce", "nccl")
+        with pytest.warns(RuntimeWarning, match="flat world"):
+            tsel._warned_fallbacks.discard(("allreduce_rank_major",
+                                            "hierarchical"))
+            assert tsel.select("allreduce_rank_major", "hierarchical",
+                               ranks=4) is stock
         with pytest.raises(ValueError):
             tsel.select("fused_reduce_scatter", "xla")
         # Through the collective: below the cutover the stock route runs

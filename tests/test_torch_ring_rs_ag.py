@@ -183,7 +183,9 @@ def test_selector_routes():
         assert torch.equal(tmpi.reduce_scatter_in_axis(xs[0]), xs[0])
         assert torch.equal(tmpi.allgather_in_axis(xs[0], ("dcn", "ici")),
                            xs[0][None])
+        assert torch.equal(tmpi.allgather_in_axis(xs[0], "ici"),
+                           xs[0][None])
         with pytest.raises(NotImplementedError, match="queue A"):
-            tmpi.allgather_in_axis(xs[0], "ici")
+            tmpi.allgather_in_axis(xs[0], "tp")
     finally:
         configure(backend="xla", custom_min_bytes=64 * 1024)

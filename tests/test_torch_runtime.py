@@ -77,12 +77,16 @@ def test_selector_routes_and_refuses(cpu_runtime):
     the ring of one member); an op without a ring falls back to "xla";
     unknown backends and ops raise."""
     impls = selector.available("allreduce")
-    assert sorted(impls) == ["pallas", "xla"]
+    assert sorted(impls) == ["hierarchical", "pallas", "xla"]
     assert selector.select("allreduce", "pallas") is impls["pallas"]
     assert selector.select("broadcast", "pallas") is \
         selector.available("broadcast")["xla"]
     with pytest.raises(ValueError):
-        selector.select("allreduce", "hierarchical")
+        selector.select("allreduce", "nccl")
+    # A world of one process is a flat grid: "hierarchical" falls back.
+    selector._warned_fallbacks.discard(("allreduce", "hierarchical"))
+    with pytest.warns(RuntimeWarning, match="flat world"):
+        assert selector.select("allreduce", "hierarchical") is impls["xla"]
     with pytest.raises(ValueError):
         selector.select("fused_reduce_scatter", "xla")
     assert selector.select("alltoall", "pallas") is \
@@ -106,8 +110,9 @@ def test_collectives_on_one_rank(cpu_runtime):
     assert torch.equal(tmpi.allreduce_in_axis(x, ("dcn", "ici"), op="mean"),
                        x)
     assert torch.equal(tmpi.allreduce_in_axis(x, None), x)
+    assert torch.equal(tmpi.allreduce_in_axis(x, "ici"), x)
     with pytest.raises(NotImplementedError):
-        tmpi.allreduce_in_axis(x, "ici")
+        tmpi.allreduce_in_axis(x, "tp")
     with pytest.raises(ValueError):
         tmpi.allreduce(x, op="max")
     with pytest.raises(TypeError):

@@ -163,8 +163,11 @@ def test_world_of_one_verbs():
     assert torch.equal(tmpi.alltoall(x, split_axis=1, concat_axis=0), x)
     assert torch.equal(tmpi.broadcast_in_axis(x, ("dcn", "ici")), x)
     assert torch.equal(tmpi.gather_in_axis(x, ("ici", "dcn")), x[None])
+    # One axis of the (1, 1) grid: that axis's group of one.
+    assert torch.equal(tmpi.reduce_in_axis(x, "ici"), x)
+    assert torch.equal(tmpi.allgather_in_axis(x, "dcn"), x[None])
     with pytest.raises(NotImplementedError, match="queue A, item 1"):
-        tmpi.reduce_in_axis(x, "ici")
+        tmpi.reduce_in_axis(x, "tp")
     i = torch.arange(6, dtype=torch.int32)
     assert tmpi.reduce(i, op="mean").dtype == torch.float32
     assert tmpi.allreduce(i, op="mean").dtype == torch.float32

@@ -44,6 +44,7 @@ from torchmpi_tpu.models import TransformerLM as JaxLM
 from torchmpi_tpu.ops import ring as jring
 from torchmpi_tpu.parallel import zero as jzero
 import torchmpi_tpu_torch as tmpi
+from torchmpi_tpu_torch import selector as tsel
 from torchmpi_tpu_torch import fusion as tfusion
 from torchmpi_tpu_torch import optim as toptim
 from torchmpi_tpu_torch import weights as tweights
@@ -557,13 +558,29 @@ def test_presynced_update_slices_the_synced_gradients():
 
 
 def test_unported_options_are_refused():
+    """The options once refused run now: ``dcn_residuals`` in this world of
+    one process (a flat grid) is the plain leg, warned once, the residuals
+    handed back; ``flat_spec`` over one axis shards over that axis (one
+    rank here).  A name that is no world axis still raises by queue A
+    item 1, and residuals without a codec by the JAX message."""
     params = [torch.from_numpy(p) for p in _params()]
     tx = toptim.sgd(0.1)
-    with pytest.raises(NotImplementedError, match="queue A, item 4"):
-        tzero.update3(params[0], params, None, tx, spec=None,
-                      dcn_residuals=())
+    spec = tzero.flat_spec(params)
+    shard = tzero.shard_params(params)
+    res = tzero.init_dcn_residuals(params)
+    tsel._warned_fallbacks.clear()
+    with pytest.warns(RuntimeWarning, match="flat world"):
+        got = tzero.update3(shard, params, tx.init(shard), tx, spec=spec,
+                            dcn_residuals=res, dcn_compress="int8")
+    plain = tzero.update3(shard, params, tx.init(shard), tx, spec=spec)
+    assert len(got) == 3 and got[2] is res
+    assert torch.equal(got[0], plain[0])
+    with pytest.raises(ValueError, match="no DCN codec active"):
+        tzero.update3(shard, params, None, tx, spec=spec, dcn_residuals=res)
+    assert tzero.flat_spec(params, "ici").n_shards == 1
+    assert torch.equal(tzero.shard_params(params, "dcn"), shard)
     with pytest.raises(NotImplementedError, match="queue A, item 1"):
-        tzero.flat_spec(params, "ici")
+        tzero.flat_spec(params, "tp")
 
 
 def test_rank_major_buffers_default_to_the_card():

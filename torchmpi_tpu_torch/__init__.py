@@ -18,6 +18,7 @@ as CUDA kernels (``ops/csrc``):
     loss, grads = vag(params, *batch)       # synced from backward hooks
     new_params, state = mpi.parallel.zero.update(params, grads, state, tx)
     step = mpi.recipes.make_bn_dp_train_step(resnet, tx, zero=1)  # BN models
+    mpi.allreduce_rank_major(xs, backend="hierarchical")  # dcn x ici grid
     mpi.stop()
 
 It imports nothing of JAX and nothing of ``torchmpi_tpu``.  Entry points run

@@ -17,7 +17,12 @@ tensor is never modified.
 Every verb is registered under ``"xla"`` (the process group's own backend
 across processes, the closed form over a rank-major stack); allreduce,
 reduce_scatter and allgather also under ``"pallas"``, the ring kernels, as
-in the JAX package (:297; ``ops/ring.py`` :966, :1118-1119).  The
+in the JAX package (:297; ``ops/ring.py`` :966, :1118-1119); six under
+``"hierarchical"`` (``parallel/hierarchical.py``).  The world is the
+(dcn, ici) grid of ``runtime.py``: the in-axis verbs span both axes, or
+one of them (``"dcn"`` or ``"ici"``: this process's subgroup), and the
+rank-major verbs take ``axis_names`` the same way, over the sub-stacks of
+the grid of n.  The
 rank-major closed forms are the JAX package's ``_host_staged`` (:497-560):
 non-root slices unchanged by ``reduce``, zeros for ``gather``, ``scatter``
 raising on an indivisible leading dim, ``alltoall`` tiled over
@@ -56,7 +61,7 @@ from .ops import ring
 
 AxisNames = Union[str, Sequence[str], None]
 
-# The JAX package's world mesh axes; in the port both name the world group.
+# The JAX package's world mesh axes, the port's grid (runtime.py).
 WORLD_AXES = ("dcn", "ici")
 
 
@@ -134,13 +139,20 @@ def _issue(async_op: bool, works: List, finish: Callable):
     return pending if async_op else pending.wait()
 
 
+def _global(group, r: int) -> int:
+    """Global rank of member ``r`` of ``group`` (None: the world)."""
+    return r if group is None else dist.get_global_rank(group, r)
+
+
 def _stock_allreduce_(buf: torch.Tensor, *, op: str = "sum",
-                      async_op: bool = False):
-    """In place on ``buf``: SUM over the world, then divide for mean (gloo
-    has no AVG, and one rule on both backends keeps them alike)."""
+                      async_op: bool = False, group=None):
+    """In place on ``buf``: SUM over the world (or ``group``), then divide
+    for mean (gloo has no AVG, and one rule on both backends keeps them
+    alike)."""
     _check_op(op)
-    n = dist.get_world_size()
-    work = dist.all_reduce(buf, op=dist.ReduceOp.SUM, async_op=True)
+    n = dist.get_world_size(group)
+    work = dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group,
+                           async_op=True)
 
     def finish():
         if op != "mean":
@@ -152,104 +164,115 @@ def _stock_allreduce_(buf: torch.Tensor, *, op: str = "sum",
 
 
 def _stock_broadcast_(buf: torch.Tensor, *, root: int = 0,
-                      async_op: bool = False):
-    return _issue(async_op, [dist.broadcast(buf, src=root, async_op=True)],
+                      async_op: bool = False, group=None):
+    return _issue(async_op, [dist.broadcast(buf, src=_global(group, root),
+                                            group=group, async_op=True)],
                   lambda: buf)
 
 
 def _stock_reduce(x: torch.Tensor, *, root: int = 0, op: str = "sum",
-                  async_op: bool = False):
+                  async_op: bool = False, group=None):
     """Rank ``root`` gets the sum (or mean) of every rank's ``x``; every
     other rank keeps its own (MPI_Reduce), in the result's dtype."""
     _check_op(op)
-    n = dist.get_world_size()
+    n = dist.get_world_size(group)
+    me = dist.get_rank(group)
     buf = x.clone()
-    work = dist.reduce(buf, dst=root, op=dist.ReduceOp.SUM, async_op=True)
+    work = dist.reduce(buf, dst=_global(group, root), op=dist.ReduceOp.SUM,
+                       group=group, async_op=True)
 
     def finish():
-        out = buf if dist.get_rank() == root else x.clone()
+        out = buf if me == root else x.clone()
         if op == "mean":
-            return _mean_of(out, n) if dist.get_rank() == root else (
+            return _mean_of(out, n) if me == root else (
                 out if out.is_floating_point() else out.float())
         return out
     return _issue(async_op, [work], finish)
 
 
 def _stock_reduce_scatter(x: torch.Tensor, *, op: str = "sum",
-                          async_op: bool = False):
+                          async_op: bool = False, group=None):
     """This rank's tile of the sum over the world (the process group's
     reduce-scatter, tiled like ``lax.psum_scatter(tiled=True)``)."""
     _check_sum(op)
-    n = dist.get_world_size()
+    n = dist.get_world_size(group)
     _check_tiles(x, n)
     out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
-    work = _reduce_scatter_single(out, x.contiguous(), async_op=True)
+    work = _reduce_scatter_single(out, x.contiguous(), group=group,
+                                  async_op=True)
     return _issue(async_op, [work], lambda: out)
 
 
-def _stock_allgather(x: torch.Tensor, *, async_op: bool = False):
+def _stock_allgather(x: torch.Tensor, *, async_op: bool = False,
+                     group=None):
     """The stack [n, ...] of every rank's ``x``; gathered into one flat
     buffer, the layout both NCCL and gloo take."""
-    n = dist.get_world_size()
+    n = dist.get_world_size(group)
     out = x.new_empty(n * x.numel())
-    work = _all_gather_single(out, x.contiguous().view(-1), async_op=True)
+    work = _all_gather_single(out, x.contiguous().view(-1), group=group,
+                              async_op=True)
     return _issue(async_op, [work],
                   lambda: out.view((n,) + tuple(x.shape)))
 
 
 def _stock_gather(x: torch.Tensor, *, root: int = 0,
-                  async_op: bool = False):
+                  async_op: bool = False, group=None):
     """Rank ``root`` gets the stack [n, ...] of every rank's ``x``; the
     other ranks get zeros of that shape (the JAX package's defined analog
     of MPI's untouched non-root buffers)."""
-    n = dist.get_world_size()
+    n = dist.get_world_size(group)
     out = x.new_zeros((n,) + tuple(x.shape))
-    gather_list = (list(out.unbind(0)) if dist.get_rank() == root
+    gather_list = (list(out.unbind(0)) if dist.get_rank(group) == root
                    else None)
-    work = dist.gather(x.contiguous(), gather_list, dst=root, async_op=True)
+    work = dist.gather(x.contiguous(), gather_list,
+                       dst=_global(group, root), group=group, async_op=True)
     return _issue(async_op, [work], lambda: out)
 
 
 def _stock_scatter(x: torch.Tensor, *, root: int = 0,
-                   async_op: bool = False):
+                   async_op: bool = False, group=None):
     """Rank i gets tile i of rank ``root``'s ``x`` [k, ...] (k divisible by
     the world size): [k / n, ...] (MPI_Scatter)."""
-    n = dist.get_world_size()
+    n = dist.get_world_size(group)
     _check_tiles(x, n, "scatter")
     out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
-    tiles = (list(x.contiguous().chunk(n)) if dist.get_rank() == root
+    tiles = (list(x.contiguous().chunk(n)) if dist.get_rank(group) == root
              else None)
-    work = dist.scatter(out, tiles, src=root, async_op=True)
+    work = dist.scatter(out, tiles, src=_global(group, root), group=group,
+                        async_op=True)
     return _issue(async_op, [work], lambda: out)
 
 
 def _stock_sendreceive(x: torch.Tensor, *, src: int, dst: int,
-                       async_op: bool = False):
+                       async_op: bool = False, group=None):
     """Rank ``dst`` gets rank ``src``'s ``x``; every other rank keeps its
     own (``mpi.sendreceiveTensor``)."""
-    rank = dist.get_rank()
+    rank = dist.get_rank(group)
     if src == dst or rank not in (src, dst):
         out = x.clone()
         return _issue(async_op, [], lambda: out)
     if rank == src:
         out = x.clone()
-        return _issue(async_op, [dist.isend(out, dst)], lambda: out)
+        return _issue(async_op, [dist.isend(out, _global(group, dst))],
+                      lambda: out)
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
-    return _issue(async_op, [dist.irecv(out, src)], lambda: out)
+    return _issue(async_op, [dist.irecv(out, _global(group, src))],
+                  lambda: out)
 
 
 def _stock_alltoall(x: torch.Tensor, *, split_axis: int = 0,
-                    concat_axis: int = 0, async_op: bool = False):
+                    concat_axis: int = 0, async_op: bool = False,
+                    group=None):
     """Rank i gets every rank's i-th piece of ``x`` split n ways along
     ``split_axis``, concatenated in rank order along ``concat_axis``
     (the tiled ``lax.all_to_all``)."""
-    n = dist.get_world_size()
+    n = dist.get_world_size(group)
     if x.shape[split_axis] % n:
         raise ValueError(f"alltoall needs dim {split_axis} divisible by the "
                          f"group size {n}, got shape {tuple(x.shape)}")
     send = torch.stack(x.chunk(n, dim=split_axis))
     recv = torch.empty_like(send)
-    work = dist.all_to_all_single(recv, send, async_op=True)
+    work = dist.all_to_all_single(recv, send, group=group, async_op=True)
     return _issue(async_op, [work],
                   lambda: torch.cat(recv.unbind(0), dim=concat_axis))
 
@@ -261,10 +284,11 @@ _all_gather_single = getattr(dist, "all_gather_single", None) or \
     dist.all_gather_into_tensor
 
 
-def _ring_world_of_one(rank_major_verb: str) -> None:
-    """The ring across processes runs only in a world of one process (the
-    ring of one member, JAX :926, :1028, :1092); a larger world raises."""
-    if dist.get_world_size() > 1:
+def _ring_world_of_one(rank_major_verb: str, group=None) -> None:
+    """The ring across processes runs only in a world (or group) of one
+    process (the ring of one member, JAX :926, :1028, :1092); a larger one
+    raises."""
+    if dist.get_world_size(group) > 1:
         raise NotImplementedError(
             "backend 'pallas' across processes: the ring's peers would be "
             "other processes' buffers, which needs CUDA IPC or symmetric "
@@ -272,19 +296,21 @@ def _ring_world_of_one(rank_major_verb: str) -> None:
             f"rank-major on one card ({rank_major_verb})")
 
 
-def _ring_allreduce_(buf: torch.Tensor, *, op: str = "sum") -> torch.Tensor:
+def _ring_allreduce_(buf: torch.Tensor, *, op: str = "sum",
+                     group=None) -> torch.Tensor:
     _check_op(op)
-    _ring_world_of_one("allreduce_rank_major")
+    _ring_world_of_one("allreduce_rank_major", group)
     return ring.ring_allreduce(buf[None], op=op)[0]
 
 
-def _ring_reduce_scatter(x: torch.Tensor, *, op: str = "sum") -> torch.Tensor:
-    _ring_world_of_one("reduce_scatter_rank_major")
+def _ring_reduce_scatter(x: torch.Tensor, *, op: str = "sum",
+                         group=None) -> torch.Tensor:
+    _ring_world_of_one("reduce_scatter_rank_major", group)
     return ring.ring_reduce_scatter(x[None], op=op)[0]
 
 
-def _ring_allgather(x: torch.Tensor) -> torch.Tensor:
-    _ring_world_of_one("allgather_rank_major")
+def _ring_allgather(x: torch.Tensor, *, group=None) -> torch.Tensor:
+    _ring_world_of_one("allgather_rank_major", group)
     return ring.ring_all_gather(x[None])[0]
 
 
@@ -441,14 +467,24 @@ def _nbytes(x: torch.Tensor) -> int:
 
 
 def _world(verb: str, x, backend: Optional[str], params: dict, *,
-           async_op: bool = False):
+           async_op: bool = False, axis: Optional[str] = None,
+           owned: bool = False):
     """Process-world ``verb`` on this rank's ``x``: the selector's
-    implementation for its bytes (the in-place ones on a copy).  With
-    ``async_op`` the process group's work in flight (a :class:`_Pending`),
-    or the result of an implementation that has no asynchronous form."""
+    implementation for its bytes (the in-place ones on a copy, unless the
+    caller ``owned`` ``x``).  ``axis`` ("dcn" or "ici") runs it on that
+    axis's subgroup (an axis of one member computes the closed form here;
+    the hierarchical backend spans both axes, so it falls back there).
+    With ``async_op`` the process group's work in flight (a
+    :class:`_Pending`), or the result of an implementation that has no
+    asynchronous form."""
     x = _check_tensor(x)
-    impl = selector.select(verb, backend, nbytes=_nbytes(x))
-    arg = x.clone() if verb in _IN_PLACE else x
+    impl = selector.select(verb, backend, nbytes=_nbytes(x),
+                           n_dcn=None if axis is None else 1)
+    if axis is not None:
+        if runtime.grid()[0 if axis == "dcn" else 1] == 1:
+            return CLOSED_FORMS[verb](x[None], **params)[0]
+        params = dict(params, group=runtime.group(axis))
+    arg = x.clone() if verb in _IN_PLACE and not owned else x
     if async_op and impl is _WORLD_STOCK[verb]:
         return impl(arg, async_op=True, **params)
     return impl(arg, **params)
@@ -519,17 +555,22 @@ def alltoall(x: torch.Tensor, *, split_axis: int = 0, concat_axis: int = 0,
                   {"split_axis": split_axis, "concat_axis": concat_axis})
 
 
-def _world_axes(verb: str, axis_names: AxisNames) -> None:
-    """The JAX package's in-axis verbs span named mesh axes; the port's
-    only group is the world, so ``axis_names`` must be None or all of the
-    world axes."""
-    if axis_names is not None:
-        axes = (axis_names,) if isinstance(axis_names, str) else tuple(
-            axis_names)
-        if sorted(axes) != sorted(WORLD_AXES):
-            raise NotImplementedError(
-                f"{verb} over {axes}: sub-communicators are not ported yet "
-                "(ROADMAP queue A, item 1)")
+def _world_axes(verb: str, axis_names: AxisNames) -> Optional[str]:
+    """The axis an in-axis verb spans: None for the world (``axis_names``
+    None or both world axes), else "dcn" or "ici".  Other communicators
+    (``push_communicator``) are not ported yet (ROADMAP queue A, item
+    1)."""
+    if axis_names is None:
+        return None
+    axes = (axis_names,) if isinstance(axis_names, str) else tuple(
+        axis_names)
+    if sorted(axes) == sorted(WORLD_AXES):
+        return None
+    if len(axes) == 1 and axes[0] in WORLD_AXES:
+        return axes[0]
+    raise NotImplementedError(
+        f"{verb} over {axes}: the world axes are {WORLD_AXES}; other "
+        f"communicators are not ported yet (ROADMAP queue A, item 1)")
 
 
 def _leaf_tensor(x):
@@ -541,7 +582,7 @@ def _leaf_tensor(x):
     return x
 
 
-def _tree_in_axis(verb: str, fn: Callable, tree, kw: dict):
+def _tree_in_axis(verb: str, tree, kw: dict, axis: Optional[str]):
     """In-axis ``verb`` over every leaf of ``tree`` (JAX :376-386): fused
     by dtype group and bucket for allreduce, reduce and broadcast, in the
     tile-interleaved layout for reduce_scatter, else per leaf."""
@@ -549,37 +590,41 @@ def _tree_in_axis(verb: str, fn: Callable, tree, kw: dict):
     for x in leaves:
         if isinstance(x, torch.Tensor):
             _check_tensor(x)
+    backend = kw.get("backend")
     params = {k: v for k, v in kw.items() if k != "backend"}
     fused = None
     if verb in fusion.ELEMENTWISE_OPS:
-        fused = fusion.maybe_fuse(verb, tree, backend=kw.get("backend"),
+        fused = fusion.maybe_fuse(verb, tree, backend=backend, axis=axis,
                                   **params)
     elif verb == "reduce_scatter":
         fused = fusion.maybe_fuse_reduce_scatter(
-            tree, backend=kw.get("backend"), **params)
+            tree, backend=backend, axis=axis, **params)
     if fused is not None:
         return fused
-    return _tree.unflatten(treedef, [fn(_leaf_tensor(x), **kw)
-                                     for x in leaves])
+    return _tree.unflatten(treedef, [
+        _world(verb, _leaf_tensor(x), backend, params, axis=axis)
+        for x in leaves])
 
 
 def _in_axis(verb: str):
-    """The in-step form of process-world ``verb`` over the world axes
-    (JAX :365-447): one tensor as :func:`verb` takes it, or a tree (dict,
-    list, tuple) of them."""
-    fn = globals()[verb]
+    """The in-step form of process-world ``verb`` over the world axes or
+    one of them (JAX :365-447): one tensor as :func:`verb` takes it, or a
+    tree (dict, list, tuple) of them."""
 
-    def in_axis(x, axis_names: AxisNames = None, **kw):
-        _world_axes(f"{verb}_in_axis", axis_names)
+    def in_axis(x, axis_names: AxisNames = None, *,
+                backend: Optional[str] = None, **params):
+        axis = _world_axes(f"{verb}_in_axis", axis_names)
         if isinstance(x, torch.Tensor):
-            return fn(x, **kw)
-        return _tree_in_axis(verb, fn, x, kw)
+            return _world(verb, x, backend, params, axis=axis)
+        return _tree_in_axis(verb, x, dict(params, backend=backend), axis)
 
     in_axis.__name__ = in_axis.__qualname__ = f"{verb}_in_axis"
-    in_axis.__doc__ = (f"The in-step ``{verb}`` over the world axes: "
-                       f":func:`{verb}` on one tensor, or on every tensor "
-                       f"of a tree (dict, list, tuple), fused as the JAX "
-                       f"package fuses it (``fusion``).")
+    in_axis.__doc__ = (f"The in-step ``{verb}`` over the world axes, or over "
+                       f"one of them (``axis_names`` \"dcn\" or \"ici\": "
+                       f"this process's subgroup): :func:`{verb}` on one "
+                       f"tensor, or on every tensor of a tree (dict, list, "
+                       f"tuple), fused as the JAX package fuses it "
+                       f"(``fusion``).")
     return in_axis
 
 
@@ -613,7 +658,7 @@ def _rank_major(verb: str, xs, backend: Optional[str]):
     selector's rules on one rank's bytes)."""
     _check_stack(verb, xs)
     return selector.select(f"{verb}_rank_major", backend,
-                           nbytes=_nbytes(xs[0]))
+                           nbytes=_nbytes(xs[0]), ranks=xs.shape[0])
 
 
 def _staged_requested(backend: Optional[str],
@@ -651,9 +696,33 @@ def _place(out: torch.Tensor, device: torch.device) -> torch.Tensor:
         else out
 
 
+def _axis_view(xs: torch.Tensor, axis: str) -> torch.Tensor:
+    """``xs`` [n, ...] as [groups, members, ...] of ``axis`` on the grid of
+    n (dcn-major ranks): the nodes' ici ranks for "ici", the ranks sharing
+    an ici index for "dcn"."""
+    n_dcn, n_ici = runtime.grid(xs.shape[0])
+    v = xs.reshape(n_dcn, n_ici, *xs.shape[1:])
+    return v.transpose(0, 1) if axis == "dcn" else v
+
+
+def _from_axis_view(out: torch.Tensor, axis: str) -> torch.Tensor:
+    """The inverse of :func:`_axis_view` on a result [groups, members,
+    ...]: [n, ...] in global rank order."""
+    if axis == "dcn":
+        out = out.transpose(0, 1)
+    return out.reshape(-1, *out.shape[2:])
+
+
 def _eager(verb: str, xs, backend: Optional[str], staged: Optional[bool],
-           params: dict) -> torch.Tensor:
+           params: dict, axis_names: AxisNames = None) -> torch.Tensor:
     _check_stack(verb, xs)
+    axis = _world_axes(f"{verb}_rank_major", axis_names)
+    if axis is not None:
+        v = _axis_view(xs, axis)
+        with runtime.flat_grid():
+            outs = [_eager(verb, v[g], backend, staged, params)
+                    for g in range(v.shape[0])]
+        return _from_axis_view(torch.stack(outs), axis)
     if _staged_requested(backend, staged):
         return _place(_host_compute(verb, _to_host(xs), params, xs.device),
                       xs.device)
@@ -662,89 +731,104 @@ def _eager(verb: str, xs, backend: Optional[str], staged: Optional[bool],
 
 def allreduce_rank_major(xs: torch.Tensor, *, op: str = "sum",
                          backend: Optional[str] = None,
-                         staged: Optional[bool] = None) -> torch.Tensor:
+                         staged: Optional[bool] = None,
+                         axis_names: AxisNames = None) -> torch.Tensor:
     """The JAX package's eager ``allreduce`` (:772): ``xs[i]`` is rank i's
     tensor, n = ``xs.shape[0]`` ranks, all on ``xs``'s device; every slice
     of the result is the sum (or mean) over ranks.  ``backend="pallas"``
     runs the ring kernels (``ops/ring.py``), ``"xla"`` the left fold over
-    the rank axis; the cutover and fallback rules are the selector's, on
-    one rank's bytes.  ``staged`` (default ``Config.staged``) stages
-    through host memory."""
-    return _eager("allreduce", xs, backend, staged, {"op": op})
+    the rank axis, ``"hierarchical"`` the two-level verb
+    (``parallel/hierarchical.py``); the cutover and fallback rules are the
+    selector's, on one rank's bytes.  ``staged`` (default
+    ``Config.staged``) stages through host memory.
+
+    Every rank-major verb takes ``axis_names`` as the in-axis verbs do:
+    "ici" or "dcn" runs it over each group of that axis of the grid of n
+    (``runtime.grid``), one level each, the result in global rank
+    order."""
+    return _eager("allreduce", xs, backend, staged, {"op": op}, axis_names)
 
 
 def broadcast_rank_major(xs: torch.Tensor, *, root: int = 0,
                          backend: Optional[str] = None,
-                         staged: Optional[bool] = None) -> torch.Tensor:
+                         staged: Optional[bool] = None,
+                         axis_names: AxisNames = None) -> torch.Tensor:
     """The JAX package's eager ``broadcast`` (:781): every slice is
     ``xs[root]``."""
-    return _eager("broadcast", xs, backend, staged, {"root": root})
+    return _eager("broadcast", xs, backend, staged, {"root": root}, axis_names)
 
 
 def reduce_rank_major(xs: torch.Tensor, *, root: int = 0, op: str = "sum",
                       backend: Optional[str] = None,
-                      staged: Optional[bool] = None) -> torch.Tensor:
+                      staged: Optional[bool] = None,
+                      axis_names: AxisNames = None) -> torch.Tensor:
     """The JAX package's eager ``reduce`` (:789): slice ``root`` is the sum
     (or mean) over ranks, the other slices unchanged (float32 for an
     integer mean)."""
-    return _eager("reduce", xs, backend, staged, {"root": root, "op": op})
+    return _eager("reduce", xs, backend, staged, {"root": root, "op": op}, axis_names)
 
 
 def reduce_scatter_rank_major(xs: torch.Tensor, *, op: str = "sum",
                               backend: Optional[str] = None,
-                              staged: Optional[bool] = None) -> torch.Tensor:
+                              staged: Optional[bool] = None,
+                              axis_names: AxisNames = None) -> torch.Tensor:
     """The JAX package's eager ``reduce_scatter`` (:806): ``xs[i]`` [k, ...]
     is rank i's tensor, k divisible by the n ranks; slice i of the result
     [n, k / n, ...] is tile i of the sum over ranks.  ``backend="pallas"``
     runs the ring reduce-scatter kernels, ``"xla"`` the left fold over the
     rank axis, tiled."""
-    return _eager("reduce_scatter", xs, backend, staged, {"op": op})
+    return _eager("reduce_scatter", xs, backend, staged, {"op": op}, axis_names)
 
 
 def allgather_rank_major(shards: torch.Tensor, *,
                          backend: Optional[str] = None,
-                         staged: Optional[bool] = None) -> torch.Tensor:
+                         staged: Optional[bool] = None,
+                         axis_names: AxisNames = None) -> torch.Tensor:
     """The JAX package's eager ``allgather`` (:797): ``shards[i]`` is rank
     i's tensor; every slice of the result [n, n, ...] is the stack of all
     of them.  ``backend="pallas"`` runs the ring all-gather kernels,
     ``"xla"`` a copy of the stack per rank."""
-    return _eager("allgather", shards, backend, staged, {})
+    return _eager("allgather", shards, backend, staged, {}, axis_names)
 
 
 def gather_rank_major(xs: torch.Tensor, *, root: int = 0,
                       backend: Optional[str] = None,
-                      staged: Optional[bool] = None) -> torch.Tensor:
+                      staged: Optional[bool] = None,
+                      axis_names: AxisNames = None) -> torch.Tensor:
     """The JAX package's eager ``gather`` (:815): slice ``root`` of the
     result [n, n, ...] is the stack, the other slices zeros."""
-    return _eager("gather", xs, backend, staged, {"root": root})
+    return _eager("gather", xs, backend, staged, {"root": root}, axis_names)
 
 
 def scatter_rank_major(xs: torch.Tensor, *, root: int = 0,
                        backend: Optional[str] = None,
-                       staged: Optional[bool] = None) -> torch.Tensor:
+                       staged: Optional[bool] = None,
+                       axis_names: AxisNames = None) -> torch.Tensor:
     """The JAX package's eager ``scatter`` (:824): slice i of the result
     [n, k / n, ...] is tile i of ``xs[root]`` [k, ...]; an indivisible k
     raises ValueError."""
-    return _eager("scatter", xs, backend, staged, {"root": root})
+    return _eager("scatter", xs, backend, staged, {"root": root}, axis_names)
 
 
 def sendreceive_rank_major(xs: torch.Tensor, *, src: int, dst: int,
                            backend: Optional[str] = None,
-                           staged: Optional[bool] = None) -> torch.Tensor:
+                           staged: Optional[bool] = None,
+                           axis_names: AxisNames = None) -> torch.Tensor:
     """The JAX package's eager ``sendreceive`` (:834): slice ``dst`` is
     ``xs[src]``, the others unchanged."""
     return _eager("sendreceive", xs, backend, staged,
-                  {"src": src, "dst": dst})
+                  {"src": src, "dst": dst}, axis_names)
 
 
 def alltoall_rank_major(xs: torch.Tensor, *, split_axis: int = 0,
                         concat_axis: int = 0, backend: Optional[str] = None,
-                        staged: Optional[bool] = None) -> torch.Tensor:
+                        staged: Optional[bool] = None,
+                        axis_names: AxisNames = None) -> torch.Tensor:
     """The JAX package's eager ``alltoall`` (:843): slice i is every rank's
     i-th piece of its tensor split n ways along ``split_axis``,
     concatenated in rank order along ``concat_axis``."""
     return _eager("alltoall", xs, backend, staged,
-                  {"split_axis": split_axis, "concat_axis": concat_axis})
+                  {"split_axis": split_axis, "concat_axis": concat_axis}, axis_names)
 
 
 # ---------------------------------------------------------------------------
@@ -997,9 +1081,9 @@ def _async_world(verb: str, x, axis_names: AxisNames = None, *,
     """Dispatch process-world ``verb`` and return its handle: the process
     group's ``async_op=True`` work (an implementation with no asynchronous
     form, the ring in a world of one, runs at once)."""
-    _world_axes(f"async_in_axis.{verb}", axis_names)
+    axis = _world_axes(f"async_in_axis.{verb}", axis_names)
     try:
-        got = _world(verb, x, backend, params, async_op=True)
+        got = _world(verb, x, backend, params, async_op=True, axis=axis)
     except Exception as e:  # noqa: BLE001 - a failed handle is done
         return AsyncHandle(op=verb, error=e)
     if isinstance(got, _Pending):

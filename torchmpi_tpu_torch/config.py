@@ -71,6 +71,22 @@ class Config:
       arrive.
     - ``gradsync_overlap_bytes``: the byte bound of one overlap bucket; 0
       takes ``fuse_max_bytes`` rounded down to a power of two.
+    - ``dcn_size`` / ``ici_size``: the two-level world's outer (inter-node,
+      "dcn") and inner (intra-node, "ici") sizes (runtime.py says how they
+      factor the process world and a rank-major stack); None = auto.
+    - ``hierarchical``: route the verbs that have one through the
+      ``"hierarchical"`` backend (``parallel/hierarchical.py``) whatever
+      ``backend`` says: reduce-scatter over ici, allreduce over dcn,
+      all-gather over ici (the reference's torchmpi_set_hierarchical_
+      collectives).
+    - ``dcn_chunk_bytes``: chunk bound of the hierarchical allreduce: when
+      one rank's ici-scattered shard exceeds it, the tensor is cut into up
+      to 16 chunks whose dcn legs pipeline behind the next chunk's ici
+      leg; 0 keeps one chunk.  Bitwise the same result either way.
+    - ``dcn_compress`` ("off" | "bf16" | "int8" | "fp8"): the wire codec of
+      the dcn leg (``compress.py``); "off" never imports the codec module.
+    - ``dcn_compress_min_bytes``: a dcn leg (the ici-scattered shard)
+      below this crosses uncompressed.
     - ``analysis`` and ``obs`` ("off" | ...): the JAX package's static
       collective analysis and telemetry.  Their modules are not ported
       (ROADMAP queue A, items 11 and 10); the recipes refuse any value
@@ -90,6 +106,12 @@ class Config:
     gradsync_barrier: bool = False
     gradsync_overlap: str = "off"
     gradsync_overlap_bytes: int = 0
+    dcn_size: Optional[int] = None
+    ici_size: Optional[int] = None
+    hierarchical: bool = False
+    dcn_chunk_bytes: int = 4 * 1024 * 1024
+    dcn_compress: str = "off"
+    dcn_compress_min_bytes: int = 64 * 1024
     analysis: str = "off"
     obs: str = "off"
 
@@ -101,7 +123,10 @@ class Config:
         TORCHMPI_TPU_CHUNK_BYTES, TORCHMPI_TPU_CUSTOM_MIN_BYTES,
         TORCHMPI_TPU_STAGED, TORCHMPI_TPU_GRADSYNC_BUCKETS,
         TORCHMPI_TPU_GRADSYNC_OVERLAP, TORCHMPI_TPU_GRADSYNC_OVERLAP_BYTES,
-        TORCHMPI_TPU_GRADSYNC_BARRIER, TORCHMPI_TPU_ANALYSIS,
+        TORCHMPI_TPU_GRADSYNC_BARRIER, TORCHMPI_TPU_DCN_SIZE,
+        TORCHMPI_TPU_ICI_SIZE, TORCHMPI_TPU_HIERARCHICAL,
+        TORCHMPI_TPU_DCN_CHUNK_BYTES, TORCHMPI_TPU_DCN_COMPRESS,
+        TORCHMPI_TPU_DCN_COMPRESS_MIN_BYTES, TORCHMPI_TPU_ANALYSIS,
         TORCHMPI_TPU_OBS; ``pallas_bidirectional`` has none), then apply
         ``overrides``."""
         cfg = Config(
@@ -123,9 +148,20 @@ class Config:
                 "TORCHMPI_TPU_GRADSYNC_OVERLAP_BYTES", 0),
             gradsync_barrier=_env_bool("TORCHMPI_TPU_GRADSYNC_BARRIER",
                                        False),
+            hierarchical=_env_bool("TORCHMPI_TPU_HIERARCHICAL", False),
+            dcn_chunk_bytes=_env_int("TORCHMPI_TPU_DCN_CHUNK_BYTES",
+                                     4 * 1024 * 1024),
+            dcn_compress=_env_str("TORCHMPI_TPU_DCN_COMPRESS", "off"),
+            dcn_compress_min_bytes=_env_int(
+                "TORCHMPI_TPU_DCN_COMPRESS_MIN_BYTES", 64 * 1024),
             analysis=_env_str("TORCHMPI_TPU_ANALYSIS", "off"),
             obs=_env_str("TORCHMPI_TPU_OBS", "off"),
         )
+        for name, field in (("TORCHMPI_TPU_ICI_SIZE", "ici_size"),
+                            ("TORCHMPI_TPU_DCN_SIZE", "dcn_size")):
+            v = os.environ.get(name)
+            if v is not None:
+                setattr(cfg, field, int(v))
         for k, v in overrides.items():
             if not hasattr(cfg, k):
                 raise ValueError(f"unknown config field {k!r}")
@@ -135,16 +171,12 @@ class Config:
 
 def wire_compress(value, *, site: str) -> Optional[str]:
     """A wire-compression knob made canonical (the JAX package's
-    ``gradsync._wire_compress`` -> ``compress.validate_wire`` with
-    ``allowed=("bf16",)``): None, "none", "off" or "" mean uncompressed and
-    give None; otherwise the value must name "bf16" (any case) or this
-    raises."""
-    if value is None:
+    ``gradsync._wire_compress``): None, "none", "off" or "" mean
+    uncompressed and give None without importing the codec module;
+    anything else goes through ``compress.validate_wire`` with
+    ``allowed=("bf16",)``."""
+    if value is None or value in ("none", "off", ""):
         return None
-    v = str(value).strip().lower()
-    if v in ("none", "off", ""):
-        return None
-    if v != "bf16":
-        raise ValueError(f"{site}: unknown compression {value!r} "
-                         f"(allowed: bf16 or none)")
-    return v
+    from . import compress
+
+    return compress.validate_wire(value, allowed=("bf16",), site=site)

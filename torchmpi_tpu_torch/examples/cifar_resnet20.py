@@ -8,8 +8,10 @@ the ranks with the same collective route as the gradients
 Run: ``python -m torchmpi_tpu_torch.examples.cifar_resnet20 --steps 60``
 (``--device cpu`` on the CPU; ``--zero 1`` shards the optimizer state,
 ``--zero 3`` also the parameters between steps; ``--devices 4 --backend
-pallas`` runs 4 ranks rank-major on one card over the ring kernels;
-``torchrun --nproc-per-node N -m ...`` one rank per process).
+pallas`` runs 4 ranks rank-major on one card over the ring kernels, with
+``--dcn 2`` as a 2 x 2 two-level grid, ``--backend hierarchical`` over
+the two-level verbs; ``torchrun --nproc-per-node N -m ...`` one rank per
+process).
 """
 
 import torch

@@ -9,10 +9,13 @@ examples run as a world of one process, or one rank per process under
 takes its slice of every global batch.  ``--devices N`` (N >= 2) runs N
 ranks rank-major on the one device instead, the port's form of the JAX
 examples' N simulated devices (``--backend pallas`` then runs the ring
-kernels).  ``--buckets`` sets ``Config.gradsync_buckets`` (the bucketed
-gradient allreduce).  Flags whose machinery is not ported raise naming
-their ROADMAP item: ``--dcn`` and ``--backend hierarchical`` (queue A,
-item 4).
+kernels).  ``--dcn D`` sets ``Config.dcn_size``: the N rank-major ranks
+(or the processes under ``torchrun``) form a D x N / D two-level grid
+(``runtime.grid``), and ``--backend hierarchical`` runs the two-level
+verbs over it (``parallel/hierarchical.py``; on a flat grid it warns and
+runs the stock route), ``--backend pallas`` the ring over each node's ici
+ranks.  ``--buckets`` sets ``Config.gradsync_buckets`` (the bucketed
+gradient allreduce).
 
 Short runs (under 60 steps) stop before convergence, so the accuracy bar
 of each example holds from 60 steps on (JAX ``mnist_allreduce.py`` :155).
@@ -40,7 +43,8 @@ def parse_args(description: str, argv: Optional[Sequence[str]] = None,
                    help="N ranks rank-major on the one device (0 = one "
                         "rank per process)")
     p.add_argument("--dcn", type=int, default=None,
-                   help="outer (inter-node) axis size: not ported")
+                   help="outer (inter-node) axis size of the two-level "
+                        "grid (Config.dcn_size)")
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--batch-size", type=int, default=256)
     p.add_argument("--lr", type=float, default=0.01)
@@ -58,10 +62,6 @@ def parse_args(description: str, argv: Optional[Sequence[str]] = None,
     if defaults:
         p.set_defaults(**defaults)
     args = p.parse_args(argv)
-    if args.dcn is not None or args.backend == "hierarchical":
-        raise NotImplementedError(
-            "--dcn / --backend hierarchical: the two-level collectives are "
-            "not ported yet (ROADMAP queue A, item 4)")
     if args.devices == 1:
         args.devices = 0
     return args
@@ -71,12 +71,17 @@ def parse_args(description: str, argv: Optional[Sequence[str]] = None,
 def runtime(args) -> Iterator[torch.device]:
     """The runtime on ``args.device`` for the example's duration: started
     here (and stopped at the end) unless the caller already started it;
-    ``--backend`` and ``--buckets`` applied as the JAX examples apply
-    them (the knobs restored at the end in a runtime the caller owns)."""
+    ``--dcn``, ``--backend`` and ``--buckets`` applied as the JAX examples
+    apply them (the knobs restored at the end in a runtime the caller
+    owns; there ``--dcn`` factors the rank-major ranks only, the process
+    world's grid being the one its ``init`` built)."""
     started = not mpi.is_initialized()
-    dev = mpi.init(device=args.device)
+    dev = mpi.init(device=args.device, **(
+        {} if args.dcn is None else {"dcn_size": args.dcn}))
     before = mpi.config()
     knobs = {}
+    if args.dcn is not None:
+        knobs.update(dcn_size=args.dcn)
     if args.backend:
         knobs.update(backend=args.backend, custom_min_bytes=0)
     if args.buckets is not None:

@@ -13,7 +13,9 @@ Run (CPU, small): ``python -m torchmpi_tpu_torch.examples.imagenet_resnet50
                --device cpu --steps 3 --batch-size 4 --image-size 32
                --num-classes 10``
 ``--zero`` shards the optimizer state (ZeRO-1); ``--devices 4 --backend
-pallas`` runs 4 ranks rank-major on one card over the ring kernels.
+pallas`` runs 4 ranks rank-major on one card over the ring kernels, and
+``--dcn 2`` makes them a 2 x 2 two-level grid (BASELINE config 5 with
+``--backend hierarchical``).
 """
 
 import time

@@ -13,6 +13,9 @@ One rank per process:
 4 ranks rank-major on one card, gradients synced by the ring kernels:
   ``python -m torchmpi_tpu_torch.examples.mnist_allreduce --devices 4
   --backend pallas``
+Hierarchical two-level allreduce over an emulated 2-node grid:
+  ``python -m torchmpi_tpu_torch.examples.mnist_allreduce --devices 8
+  --dcn 2 --backend hierarchical``
 
 ``--eager-loss`` reduces each step's logging loss through the host-staged
 rank-major allreduce (``backend="host"``) and prints a LOSS-DIGEST line;

@@ -280,7 +280,7 @@ def fused_allreduce_rank_major_(stacks: Sequence[torch.Tensor], *,
             buf = gather_bucket(stacks, g, lo, hi, rank_major=True)
             impl = selector.select(
                 "allreduce_rank_major", backend,
-                nbytes=(hi - lo) * buf.element_size())
+                nbytes=(hi - lo) * buf.element_size(), ranks=n)
             scatter_bucket(impl(buf, op=op), stacks, g, lo, rank_major=True)
     return spec.n_launches
 
@@ -316,13 +316,16 @@ def elementwise_spec(op_name: str, leaves: Sequence) -> Optional[FusedSpec]:
 
 
 def fuse_tree(op_name: str, tree, *, spec: Optional[FusedSpec] = None,
-              backend: Optional[str] = None, **params):
-    """Process-world ``op_name`` over every tensor of ``tree``, one
-    selector-routed launch per (dtype group x bucket), out of place (JAX
-    :244).  Each group is copied into one buffer, on which the verbs'
-    in-place implementations work; the result tensors are views of the
-    reduced buffers, in the dtype the verb gives (float32 for an integer
-    mean, as per tensor)."""
+              backend: Optional[str] = None, axis: Optional[str] = None,
+              **params):
+    """Process-world ``op_name`` over every tensor of ``tree`` (over the
+    world, or over ``axis``'s subgroup), one selector-routed launch per
+    (dtype group x bucket), out of place (JAX :244).  Each group is copied
+    into one buffer, on which the verbs' in-place implementations work;
+    the result tensors are views of the reduced buffers, in the dtype the
+    verb gives (float32 for an integer mean, as per tensor)."""
+    from . import collectives
+
     leaves, treedef = _tree.flatten(tree)
     if spec is None:
         spec = FusedSpec(leaves)
@@ -331,9 +334,8 @@ def fuse_tree(op_name: str, tree, *, spec: Optional[FusedSpec] = None,
         flat = group_flat(leaves, g)
         parts = []
         for lo, hi in g.bounds:
-            impl = selector.select(op_name, backend,
-                                   nbytes=(hi - lo) * flat.element_size())
-            parts.append(impl(flat[lo:hi], **params))
+            parts.append(collectives._world(op_name, flat[lo:hi], backend,
+                                            params, axis=axis, owned=True))
         gout = parts[0] if len(parts) == 1 else torch.cat(parts)
         off = 0
         for i, shape, size in zip(g.indices, g.shapes, g.sizes):
@@ -343,13 +345,14 @@ def fuse_tree(op_name: str, tree, *, spec: Optional[FusedSpec] = None,
 
 
 def maybe_fuse(op_name: str, tree, *, backend: Optional[str] = None,
-               **params):
+               axis: Optional[str] = None, **params):
     """``tree``'s fused in-axis ``op_name`` (:func:`fuse_tree`), or None for
     the per-tensor path (:func:`elementwise_spec`)."""
     spec = elementwise_spec(op_name, _tree.leaves(tree))
     if spec is None:
         return None
-    return fuse_tree(op_name, tree, spec=spec, backend=backend, **params)
+    return fuse_tree(op_name, tree, spec=spec, backend=backend, axis=axis,
+                     **params)
 
 
 def reduce_scatter_spec(leaves: Sequence, n: int) -> Optional[FusedSpec]:
@@ -378,13 +381,17 @@ def _tile_shapes(g: DtypeGroup, bucket: Sequence[int], n: int):
 
 
 def fused_reduce_scatter(tree, *, spec: FusedSpec, n: int,
-                         backend: Optional[str] = None, op: str = "sum"):
+                         backend: Optional[str] = None, op: str = "sum",
+                         axis: Optional[str] = None):
     """The process-world reduce-scatter of every tensor of ``tree`` over
     ``n`` ranks, one launch per whole-tensor bucket, in the tile-interleaved
     layout (JAX :379): each tensor viewed as its n tiles
     (``reshape(n, -1)``) and a bucket concatenated along the tile axis, so
     that rank i's extent is ``[tensor0 tile i | tensor1 tile i | ...]``,
-    bit for bit the per-tensor results."""
+    bit for bit the per-tensor results.  ``axis`` runs it over that axis's
+    subgroup, of ``n`` ranks."""
+    from . import collectives
+
     leaves, treedef = _tree.flatten(tree)
     out: List = [None] * spec.n_tensors
     for g in spec.groups:
@@ -392,9 +399,8 @@ def fused_reduce_scatter(tree, *, spec: FusedSpec, n: int,
             tiles = [leaves[g.indices[pos]].reshape(n, -1) for pos in bucket]
             flat = (tiles[0] if len(tiles) == 1
                     else torch.cat(tiles, 1)).reshape(-1)
-            impl = selector.select("reduce_scatter", backend,
-                                   nbytes=flat.numel() * flat.element_size())
-            shard = impl(flat, op=op)
+            shard = collectives._world("reduce_scatter", flat, backend,
+                                       {"op": op}, axis=axis)
             off = 0
             for i, ts, shape in _tile_shapes(g, bucket, n):
                 out[i] = shard[off:off + ts].reshape(shape)
@@ -403,15 +409,18 @@ def fused_reduce_scatter(tree, *, spec: FusedSpec, n: int,
 
 
 def maybe_fuse_reduce_scatter(tree, *, backend: Optional[str] = None,
-                              op: str = "sum"):
+                              op: str = "sum", axis: Optional[str] = None):
     """``tree``'s fused process-world reduce-scatter
     (:func:`fused_reduce_scatter`), or None for the per-tensor path
-    (:func:`reduce_scatter_spec` over the world's ranks)."""
-    n = runtime.size()
+    (:func:`reduce_scatter_spec` over the ranks of the world or of
+    ``axis``)."""
+    n = (runtime.size() if axis is None
+         else runtime.grid()[0 if axis == "dcn" else 1])
     spec = reduce_scatter_spec(_tree.leaves(tree), n)
     if spec is None:
         return None
-    return fused_reduce_scatter(tree, spec=spec, n=n, backend=backend, op=op)
+    return fused_reduce_scatter(tree, spec=spec, n=n, backend=backend, op=op,
+                                axis=axis)
 
 
 def fused_reduce_scatter_rank_major(stacks: Sequence[torch.Tensor], *,
@@ -432,7 +441,7 @@ def fused_reduce_scatter_rank_major(stacks: Sequence[torch.Tensor], *,
     if spec is None:
         return [selector.select(
             "reduce_scatter_rank_major", backend,
-            nbytes=t[0].numel() * t.element_size())(t, op=op)
+            nbytes=t[0].numel() * t.element_size(), ranks=n)(t, op=op)
             for t in stacks]
     out: List = [None] * spec.n_tensors
     for g in spec.groups:
@@ -442,7 +451,8 @@ def fused_reduce_scatter_rank_major(stacks: Sequence[torch.Tensor], *,
             buf = (tiles[0] if len(tiles) == 1
                    else torch.cat(tiles, 2)).reshape(n, -1)
             impl = selector.select("reduce_scatter_rank_major", backend,
-                                   nbytes=buf[0].numel() * buf.element_size())
+                                   nbytes=buf[0].numel() * buf.element_size(),
+                                   ranks=n)
             shard = impl(buf, op=op).reshape(n, -1)
             off = 0
             for i, ts, shape in _tile_shapes(g, bucket, n):

@@ -37,7 +37,14 @@ written once:
 :func:`ring_allreduce`, :func:`ring_reduce_scatter` and
 :func:`ring_all_gather` pick a kernel as the JAX entries do (:926-955,
 :1030-1036, :1076-1079) from ``Config.chunk_bytes`` (and
-``Config.pallas_bidirectional`` for the allreduce).  The layouts are the
+``Config.pallas_bidirectional`` for the allreduce).  On a two-level grid
+(``Config.dcn_size``, ``runtime.grid``) they compose as the JAX entries
+do over (dcn, ici) axes, the ring over the last axis only: the
+allreduce rings over each slice's ici ranks and folds the slices, the
+reduce-scatter folds over dcn first and rings over ici on each slice's
+tile, the all-gather rings over ici and gathers over dcn.  Each slice's
+ring is one launch on its rows of the stack (a contiguous sub-stack, or
+rows at a stride), so a call launches its kernel once per slice.  The layouts are the
 JAX package's (``_pad_and_tile``, ``_chunk_plan``, the half split, the
 per-chunk padding), and an element's ring chunk fixes the order of its adds,
 so each kernel, its plain PyTorch version here and the JAX kernels agree
@@ -654,20 +661,42 @@ def _check_entry_dtype(xs: torch.Tensor, what: str) -> None:
                         f"dtypes)")
 
 
+def _fold_dcn(parts) -> torch.Tensor:
+    """The dcn level's sum (the JAX entries' ``lax.psum`` over the outer
+    axis): a left fold of the slices' results in slice order."""
+    acc = parts[0].clone()
+    for p in parts[1:]:
+        acc += p
+    return acc
+
+
+def _ring_of(xs: torch.Tensor, rows) -> torch.Tensor:
+    """The one-level ring allreduce of ``xs`` [m, ...] over its m ranks."""
+    m = xs.shape[0]
+    if m == 1:
+        return xs.clone()
+    _check_entry_dtype(xs, "allreduce")
+    flat = xs.reshape(m, -1)
+    cfg = runtime.effective_config()
+    name, plan = schedule(flat.shape[1], m, xs.dtype,
+                          chunk_bytes=cfg.chunk_bytes,
+                          bidirectional=cfg.pallas_bidirectional)
+    return rows[name](flat, *plan).reshape(xs.shape)
+
+
 def _allreduce(xs: torch.Tensor, op: str, rows) -> torch.Tensor:
     if op not in ("sum", "mean"):
         raise KeyError(f"ring allreduce does not support op {op!r}")
     n = xs.shape[0]
-    if n == 1:
-        out = xs.clone()
+    n_dcn, n_ici = runtime.grid(n)
+    if n_dcn == 1:
+        out = _ring_of(xs, rows)
     else:
-        _check_entry_dtype(xs, "allreduce")
-        flat = xs.reshape(n, -1)
-        cfg = runtime.effective_config()
-        name, plan = schedule(flat.shape[1], n, xs.dtype,
-                              chunk_bytes=cfg.chunk_bytes,
-                              bidirectional=cfg.pallas_bidirectional)
-        out = rows[name](flat, *plan).reshape(xs.shape)
+        # The ring over each slice's ici ranks, then the dcn fold (JAX
+        # :909-960: the ring over the last axis, psum over the outer).
+        v = xs.reshape(n_dcn, n_ici, *xs.shape[1:])
+        tot = _fold_dcn([_ring_of(v[d], rows) for d in range(n_dcn)])
+        out = tot.expand(n_dcn, *tot.shape).reshape(xs.shape)
     if op == "mean":
         out = out / n
     return out
@@ -688,6 +717,21 @@ def ring_allreduce_plain(xs: torch.Tensor, *, op: str = "sum"):
     return _allreduce(xs, op, PLAINS)
 
 
+def _rs_of(xs: torch.Tensor, rows) -> torch.Tensor:
+    """The one-level ring reduce-scatter of ``xs`` [m, k, ...] over its m
+    ranks: [m, k / m, ...]."""
+    m = xs.shape[0]
+    if m == 1:
+        return xs.clone()
+    _check_entry_dtype(xs, "reduce_scatter")
+    flat = xs.reshape(m, -1)
+    name, plan = schedule_reduce_scatter(
+        flat.shape[1], m, xs.dtype,
+        chunk_bytes=runtime.effective_config().chunk_bytes)
+    return rows[name](flat, *plan).reshape(m, xs.shape[1] // m,
+                                           *xs.shape[2:])
+
+
 def _reduce_scatter(xs: torch.Tensor, op: str, rows) -> torch.Tensor:
     if op != "sum":
         raise KeyError(f"ring reduce_scatter supports sum, not {op!r}")
@@ -695,15 +739,17 @@ def _reduce_scatter(xs: torch.Tensor, op: str, rows) -> torch.Tensor:
     if xs.dim() < 2 or xs.shape[1] % n:
         raise ValueError(f"reduce_scatter needs [n, k, ...] with k divisible "
                          f"by the {n} ranks, got {tuple(xs.shape)}")
-    if n == 1:
-        return xs.clone()
-    _check_entry_dtype(xs, "reduce_scatter")
-    flat = xs.reshape(n, -1)
-    name, plan = schedule_reduce_scatter(
-        flat.shape[1], n, xs.dtype,
-        chunk_bytes=runtime.effective_config().chunk_bytes)
-    return rows[name](flat, *plan).reshape(n, xs.shape[1] // n,
-                                           *xs.shape[2:])
+    n_dcn, n_ici = runtime.grid(n)
+    if n_dcn == 1:
+        return _rs_of(xs, rows)
+    # The dcn psum_scatter first, then the ring over each slice's ici
+    # ranks on its tile (JAX :994-1023): rank d * n_ici + i ends with
+    # global tile d * n_ici + i.
+    v = xs.reshape(n_dcn, n_ici, *xs.shape[1:])
+    y = _fold_dcn([v[d] for d in range(n_dcn)])
+    kd = xs.shape[1] // n_dcn
+    return torch.cat([_rs_of(y[:, d * kd:(d + 1) * kd], rows)
+                      for d in range(n_dcn)])
 
 
 def ring_reduce_scatter(xs: torch.Tensor, *, op: str = "sum") -> torch.Tensor:
@@ -722,16 +768,34 @@ def ring_reduce_scatter_plain(xs: torch.Tensor, *, op: str = "sum"):
     return _reduce_scatter(xs, op, PLAINS)
 
 
-def _all_gather(shards: torch.Tensor, rows) -> torch.Tensor:
-    n = shards.shape[0]
-    if n == 1:
+def _ag_of(shards: torch.Tensor, rows) -> torch.Tensor:
+    """The one-level ring all-gather of ``shards`` [m, ...] over its m
+    ranks: [m, m, ...]."""
+    m = shards.shape[0]
+    if m == 1:
         return shards[:, None].clone()
     _check_entry_dtype(shards, "all_gather")
-    flat = shards.reshape(n, -1)
+    flat = shards.reshape(m, -1)
     name, plan = schedule_all_gather(
-        flat.shape[1], n, shards.dtype,
+        flat.shape[1], m, shards.dtype,
         chunk_bytes=runtime.effective_config().chunk_bytes)
-    return rows[name](flat, *plan).reshape(n, *shards.shape)
+    return rows[name](flat, *plan).reshape(m, *shards.shape)
+
+
+def _all_gather(shards: torch.Tensor, rows) -> torch.Tensor:
+    n = shards.shape[0]
+    n_dcn, n_ici = runtime.grid(n)
+    if n_dcn == 1:
+        return _ag_of(shards, rows)
+    # The ring over each slice's ici ranks, then the dcn gather (JAX
+    # :1063-1113): every rank ends with the stack in global rank order.
+    v = shards.reshape(n_dcn, n_ici, *shards.shape[1:])
+    per = torch.stack([_ag_of(v[d], rows) for d in range(n_dcn)])
+    # per[d', i] is slice d''s stack as ici rank i holds it; rank (d, i)
+    # gathers per[:, i] over dcn.
+    mine = per.transpose(0, 1).reshape(n_ici, n, *shards.shape[1:])
+    return mine.expand(n_dcn, *mine.shape).reshape(n, n,
+                                                   *shards.shape[1:])
 
 
 def ring_all_gather(shards: torch.Tensor) -> torch.Tensor:

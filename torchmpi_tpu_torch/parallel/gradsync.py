@@ -17,9 +17,17 @@ form: a tensor hook on every parameter leaf, each reverse-parameter-order
 bucket's allreduce launched from the backward as the bucket's last
 gradient arrives, in firing order (:func:`make_overlapped_grad_fn`; its
 rank-major form launches on a side stream,
-:func:`make_overlapped_grad_fn_rank_major`).  The error-feedback DCN leg
-(``residuals`` / ``dcn_compress``) waits for the two-level collectives
-(ROADMAP queue A, item 4) and raises by that name.
+:func:`make_overlapped_grad_fn_rank_major`).
+
+The error-feedback dcn leg (JAX :119-200, :243-360, :454-625): with
+``residuals`` (state from :func:`init_dcn_residuals`, or
+:func:`init_overlap_dcn_residuals` for the overlapped form) each bucket
+runs the two-level allreduce of ``compress.ef_bucket_allreduce``, its dcn
+shard quantized by ``dcn_compress`` (default ``Config.dcn_compress``)
+after the residual is added back, and the new quantization error comes
+back as the next step's state.  On a flat world (one dcn member) there is
+no dcn leg: the call warns once, runs the plain sync and hands the
+residuals back unchanged.
 """
 
 from __future__ import annotations
@@ -50,13 +58,6 @@ def synchronize_parameters(params: Params, *, root: int = 0,
     return params
 
 
-def _refuse_ef(residuals, dcn_compress, site: str) -> None:
-    if residuals or dcn_compress is not None:
-        raise NotImplementedError(
-            f"{site}: residuals / dcn_compress, the error-feedback DCN leg, "
-            "waits for the two-level collectives (ROADMAP queue A, item 4)")
-
-
 def _resolve(op: Optional[str], compress: Optional[str], site: str):
     """``op`` and ``compress`` with the Config's defaults (mean when
     ``gradsync_average``; ``gradsync_compress``)."""
@@ -68,15 +69,118 @@ def _resolve(op: Optional[str], compress: Optional[str], site: str):
     return op, wire_compress(compress, site=site)
 
 
-def _sync_(grads: List[torch.Tensor], fused_allreduce_: Callable, *,
+def init_dcn_residuals(params_template: Params, axis_names=None, *,
+                       n: Optional[int] = None,
+                       n_buckets: Optional[int] = None,
+                       device=None) -> List[torch.Tensor]:
+    """Zeroed error-feedback state for :func:`synchronize_gradients` with
+    a quantized dcn leg (JAX :119): one float32 accumulator per gradient
+    bucket (``FusedSpec(n_buckets=)``, default ``Config.gradsync_buckets``),
+    the bucket's ici-scattered extent long: [shard] for this process's
+    rank, [n, shard] for a rank-major stack of ``n`` ranks (the template is
+    one rank's parameters).  Thread it through the steps like optimizer
+    state."""
+    from .. import compress as _codec
+
+    _codec.ef_axes(axis_names)
+    template = _param_list(params_template)
+    if n_buckets is None:
+        n_buckets = runtime.effective_config().gradsync_buckets
+    spec = fusion.FusedSpec(template, n_buckets=max(1, n_buckets))
+    return _codec.init_residuals(
+        _codec.expected_shards([hi - lo for g in spec.groups
+                                for lo, hi in g.bounds], runtime.grid(n)[1]),
+        n, device=device if device is not None else template[0].device)
+
+
+def _dcn_ef_allreduce_(grads: List[torch.Tensor], *, op: str, n_buckets: int,
+                       codec: str, residuals, n: Optional[int]):
+    """The error-feedback two-level sync, in place (JAX :159): per dtype
+    group bucket (``FusedSpec(n_buckets=)``), ``compress.ef_bucket_allreduce``
+    (its rank-major form for stacks of ``n``).  Returns the new residuals
+    in the old ones' shapes."""
+    from .. import compress
+
+    rank_major = n is not None
+    spec = fusion.FusedSpec([t[0] for t in grads] if rank_major else grads,
+                            n_buckets=max(1, n_buckets))
+    shard_lens = compress.expected_shards(
+        [hi - lo for g in spec.groups for lo, hi in g.bounds],
+        runtime.grid(n)[1])
+    res_list = compress.check_residuals(
+        residuals, shard_lens, site="synchronize_gradients",
+        layout="the gradient bucket layout", n=n,
+        init_hint="gradsync.init_dcn_residuals(params, ...) using the "
+                  "SAME n_buckets/tree")
+    reduce = (compress.ef_bucket_allreduce_rank_major if rank_major
+              else compress.ef_bucket_allreduce)
+    min_bytes = runtime.effective_config().dcn_compress_min_bytes
+    new_res, k = [], 0
+    for g in spec.groups:
+        for lo, hi in g.bounds:
+            buf = fusion.gather_bucket(grads, g, lo, hi,
+                                       rank_major=rank_major)
+            red, nr = reduce(buf, codec, res_list[k], op=op,
+                             min_bytes=min_bytes)
+            fusion.scatter_bucket(red.to(buf.dtype), grads, g, lo,
+                                  rank_major=rank_major)
+            new_res.append(nr)
+            k += 1
+    return new_res
+
+
+def _ef_route(residuals, dcn_compress, *, site: str, backend, compress,
+              barrier, n: Optional[int], op_name: str = "allreduce"):
+    """The codec of an EF call, or None where the world is flat (the
+    degradation warned once, JAX :320-345); raises on the knobs the fixed
+    two-level schedule does not take (explicit ``backend`` / ``compress``
+    / ``barrier=True``)."""
+    from .. import compress as _codec
+    from .. import selector as _sel
+    from ..config import wire_compress
+
+    if barrier:
+        raise ValueError(
+            f"{site}: barrier= does not combine with error-feedback "
+            f"residuals — the EF schedule orders its own collectives")
+    codec = _codec.resolve_ef(dcn_compress, runtime.effective_config(),
+                              site=site, backend=backend,
+                              explicit_compress=compress is not None,
+                              compress=wire_compress(compress, site=site))
+    if runtime.grid(n)[0] <= 1:
+        _sel._note_fallback(op_name, "dcn-" + codec,
+                            "flat world (n_dcn <= 1)",
+                            target="the plain sync path")
+        return None
+    return codec
+
+
+def _sync_(grads: List[torch.Tensor], *, backend: Optional[str],
            op: Optional[str], compress: Optional[str],
            n_buckets: Optional[int], barrier: Optional[bool], residuals,
-           dcn_compress, rank_major: bool) -> None:
-    """``fused_allreduce_(tensors, op, spec)`` on ``grads`` in place, with
-    the Config's defaults for ``op``, ``compress`` and ``n_buckets``:
+           dcn_compress, rank_major: bool):
+    """The fused allreduce of ``grads`` (``fusion.fused_`` across
+    processes, ``fusion.fused_allreduce_rank_major_`` on stacks) in place,
+    with the Config's defaults for ``op``, ``compress`` and ``n_buckets``:
     ``n_buckets`` <= 1 rides the fused buckets (``fuse_max_bytes``), more
-    the count-driven ``FusedSpec(n_buckets=)`` (JAX :204-240, :294)."""
-    _refuse_ef(residuals, dcn_compress, "synchronize_gradients")
+    the count-driven ``FusedSpec(n_buckets=)`` (JAX :204-240, :294).  With
+    ``residuals``, the error-feedback sync (or, on a flat world, the plain
+    one), returning the new residuals."""
+    if residuals is not None:
+        n = grads[0].shape[0] if rank_major and grads else None
+        codec = _ef_route(residuals, dcn_compress,
+                          site="synchronize_gradients", backend=backend,
+                          compress=compress, barrier=barrier, n=n)
+        if codec is None:
+            _sync_(grads, backend=backend, op=op, compress=compress,
+                   n_buckets=n_buckets, barrier=None, residuals=None,
+                   dcn_compress=None, rank_major=rank_major)
+            return residuals
+        op, _ = _resolve(op, None, "synchronize_gradients")
+        if n_buckets is None:
+            n_buckets = runtime.effective_config().gradsync_buckets
+        return _dcn_ef_allreduce_(grads, op=op, n_buckets=n_buckets,
+                                  codec=codec, residuals=residuals, n=n)
     op, compress = _resolve(op, compress, "synchronize_gradients")
     if n_buckets is None:
         n_buckets = runtime.effective_config().gradsync_buckets
@@ -86,10 +190,15 @@ def _sync_(grads: List[torch.Tensor], fused_allreduce_: Callable, *,
     if n_buckets > 1 and wire:
         spec = fusion.FusedSpec([t[0] for t in wire] if rank_major else wire,
                                 n_buckets=n_buckets)
-    fused_allreduce_(wire, op, spec)
+    if rank_major:
+        fusion.fused_allreduce_rank_major_(wire, spec=spec, backend=backend,
+                                           op=op)
+    else:
+        fusion.fused_("allreduce", wire, spec=spec, backend=backend, op=op)
     if compress == "bf16":
         for g, w in zip(grads, wire):
             g.copy_(w)
+    return None
 
 
 def synchronize_gradients(params: Params, *, op: Optional[str] = None,
@@ -97,7 +206,7 @@ def synchronize_gradients(params: Params, *, op: Optional[str] = None,
                           compress: Optional[str] = None,
                           n_buckets: Optional[int] = None,
                           barrier: Optional[bool] = None, residuals=None,
-                          dcn_compress: Optional[str] = None) -> Params:
+                          dcn_compress: Optional[str] = None):
     """Allreduce the ``.grad`` of every parameter across the world, in
     place (reference: ``mpinn.synchronizeGradients``).
 
@@ -119,12 +228,21 @@ def synchronize_gradients(params: Params, *, op: Optional[str] = None,
     bfloat16, as the JAX package does (:296-299, :372-382): every gradient
     is cast to bf16, the bf16 copies sync as their own dtype group, and the
     result is cast back into ``.grad`` in the gradient's dtype.
-    ``residuals`` / ``dcn_compress`` raise (ROADMAP queue A, item 4)."""
-    synchronize_gradient_tensors(
+
+    ``residuals`` (state from :func:`init_dcn_residuals`) takes the
+    error-feedback dcn path (JAX :243-360): one ``FusedSpec(n_buckets=)``
+    bucket at a time, reduce-scatter over ici, the shard plus its residual
+    quantized by ``dcn_compress`` (default ``Config.dcn_compress``, which
+    must not be off) across dcn, all-gather over ici; returns ``(params,
+    new_residuals)``.  Its schedule is fixed: an explicit ``backend=``,
+    ``compress=`` or ``barrier=True`` raises.  On a flat world it warns
+    once, runs the plain sync and returns the residuals unchanged.
+    Without ``residuals`` it returns ``params``."""
+    new_res = synchronize_gradient_tensors(
         [p.grad for p in _param_list(params) if p.grad is not None],
         op=op, backend=backend, compress=compress, n_buckets=n_buckets,
         barrier=barrier, residuals=residuals, dcn_compress=dcn_compress)
-    return params
+    return params if residuals is None else (params, new_res)
 
 
 def synchronize_gradient_tensors(grads: Sequence[torch.Tensor], *,
@@ -134,13 +252,13 @@ def synchronize_gradient_tensors(grads: Sequence[torch.Tensor], *,
                                  n_buckets: Optional[int] = None,
                                  barrier: Optional[bool] = None,
                                  residuals=None,
-                                 dcn_compress: Optional[str] = None) -> None:
+                                 dcn_compress: Optional[str] = None):
     """:func:`synchronize_gradients` on the gradient tensors themselves
-    (the JAX function's pytree of gradients), in place."""
-    _sync_(list(grads), lambda ts, op, spec: fusion.fused_(
-        "allreduce", ts, spec=spec, backend=backend, op=op), op=op,
-        compress=compress, n_buckets=n_buckets, barrier=barrier,
-        residuals=residuals, dcn_compress=dcn_compress, rank_major=False)
+    (the JAX function's pytree of gradients), in place; with ``residuals``
+    returns the new residuals."""
+    return _sync_(list(grads), backend=backend, op=op, compress=compress,
+                  n_buckets=n_buckets, barrier=barrier, residuals=residuals,
+                  dcn_compress=dcn_compress, rank_major=False)
 
 
 def synchronize_gradients_rank_major(stacks: Sequence[torch.Tensor], *,
@@ -150,17 +268,20 @@ def synchronize_gradients_rank_major(stacks: Sequence[torch.Tensor], *,
                                      n_buckets: Optional[int] = None,
                                      barrier: Optional[bool] = None,
                                      residuals=None,
-                                     dcn_compress: Optional[str] = None
-                                     ) -> None:
+                                     dcn_compress: Optional[str] = None):
     """:func:`synchronize_gradients` for n ranks on one device, in place:
     ``stacks[i][r]`` is rank r's gradient i ([n, ...] each), synced by
     ``fusion.fused_allreduce_rank_major_`` (``backend="pallas"``: one ring
-    launch per bucket), the same defaults, buckets and compression."""
-    _sync_(list(stacks), lambda ts, op, spec:
-           fusion.fused_allreduce_rank_major_(ts, spec=spec, backend=backend,
-                                              op=op), op=op,
-           compress=compress, n_buckets=n_buckets, barrier=barrier,
-           residuals=residuals, dcn_compress=dcn_compress, rank_major=True)
+    launch per bucket, one per node on a two-level grid), the same
+    defaults, buckets and compression.  With ``residuals`` ([n, shard]
+    buffers of :func:`init_dcn_residuals` with ``n``) the error-feedback
+    path on the grid of n; returns ``(stacks, new_residuals)``."""
+    stacks = list(stacks)
+    new_res = _sync_(stacks, backend=backend, op=op, compress=compress,
+                     n_buckets=n_buckets, barrier=barrier,
+                     residuals=residuals, dcn_compress=dcn_compress,
+                     rank_major=True)
+    return None if residuals is None else (stacks, new_res)
 
 
 # ---------------------------------------------------------------------------
@@ -265,9 +386,7 @@ def _backward_with_hooks(loss_fn: Callable, leaves: List[torch.Tensor],
     return loss.detach()
 
 
-def _overlap_setup(params_template, op, compress, max_bytes, residuals,
-                   dcn_compress, site):
-    _refuse_ef(residuals, dcn_compress, site)
+def _overlap_setup(params_template, op, compress, max_bytes, site):
     op, compress = _resolve(op, compress, site)
     template = list(params_template)
     if not template:
@@ -277,6 +396,56 @@ def _overlap_setup(params_template, op, compress, max_bytes, residuals,
     firing = assign_overlap_buckets(template, max_bytes)
     groups = [fusion.bucket_group(template, b) for b in firing]
     return op, compress, template, firing, groups
+
+
+def init_overlap_dcn_residuals(params_template: Sequence[torch.Tensor],
+                               axis_names=None, *,
+                               max_bytes: Optional[int] = None,
+                               n: Optional[int] = None,
+                               device=None) -> List[torch.Tensor]:
+    """Zeroed error-feedback state for :func:`make_overlapped_grad_fn`
+    (``residuals=True``) and its rank-major form (JAX :536): one float32
+    accumulator per firing-order overlap bucket
+    (:func:`assign_overlap_buckets`), shaped as :func:`init_dcn_residuals`
+    shapes them."""
+    from .. import compress as _codec
+
+    _codec.ef_axes(axis_names)
+    template = list(params_template)
+    if max_bytes is None:
+        max_bytes = overlap_bucket_bytes()
+    firing = assign_overlap_buckets(template, max_bytes)
+    return _codec.init_residuals(
+        _codec.expected_shards([sum(template[i].numel() for i in b)
+                                for b in firing], runtime.grid(n)[1]),
+        n, device=device if device is not None else template[0].device)
+
+
+def _ef_vag(vag: Callable, codec: Optional[str], template, firing, n,
+            site: str) -> Callable:
+    """The EF calling convention around ``vag(params, res_list, *batch,
+    **kw)``: ``(params, residual_state, *batch) -> (out, (grads,
+    new_residuals))``; the state checked against the firing buckets (or
+    handed back unchanged where ``codec`` is None, the flat world)."""
+    from .. import compress as _codec
+
+    want = _codec.expected_shards([sum(template[i].numel() for i in b)
+                                   for b in firing], runtime.grid(n)[1])
+
+    def wrapped(params, residual_state, *batch, **kw):
+        if codec is None:
+            out, grads = vag(params, None, *batch, **kw)
+            return out, (grads, residual_state)
+        res_list = _codec.check_residuals(
+            residual_state, want, site=site, n=n,
+            layout="the overlap bucket layout",
+            init_hint="gradsync.init_overlap_dcn_residuals(template, "
+                      "...) using the SAME template/max_bytes")
+        new_res = list(res_list)
+        out, grads = vag(params, new_res, *batch, **kw)
+        return out, (grads, new_res)
+
+    return wrapped
 
 
 def _check_params(params, template, site) -> List[torch.Tensor]:
@@ -318,15 +487,26 @@ def make_overlapped_grad_fn(loss_fn: Callable,
     zeros; its bucket fires after the backward.  ``op`` / ``compress``
     default as :func:`synchronize_gradients`, whose results these equal
     elementwise: bitwise where the sum over ranks does not depend on the
-    bucket layout (gloo with 2 ranks).  ``residuals`` / ``dcn_compress``
-    raise (ROADMAP queue A, item 4)."""
-    collectives._world_axes("make_overlapped_grad_fn", axis_names)
-    op, compress, template, firing, groups = _overlap_setup(
-        params_template, op, compress, max_bytes, residuals, dcn_compress,
-        "make_overlapped_grad_fn")
+    bucket layout (gloo with 2 ranks).
 
-    def vag(params, *batch):
-        params = _check_params(params, template, "make_overlapped_grad_fn")
+    ``residuals=True`` (JAX :680-800) makes each bucket's sync the
+    error-feedback two-level allreduce (``compress.ef_bucket_allreduce``,
+    run as the bucket fires) and ``vag(params, residual_state, *batch) ->
+    (out, (grads, new_residuals))``, the state from
+    :func:`init_overlap_dcn_residuals`; an explicit ``backend=`` /
+    ``compress=`` raises.  On a flat world it warns once and runs the plain
+    schedule, the residuals handed back unchanged."""
+    collectives._world_axes("make_overlapped_grad_fn", axis_names)
+    site = "make_overlapped_grad_fn"
+    codec = (_ef_route(True, dcn_compress, site=site, backend=backend,
+                       compress=compress, barrier=None, n=None)
+             if residuals else None)
+    op, compress, template, firing, groups = _overlap_setup(
+        params_template, op, None if residuals else compress, max_bytes,
+        site)
+
+    def vag(params, res_list, *batch):
+        params = _check_params(params, template, site)
         leaves = [p.detach().requires_grad_() for p in params]
         grads: List[Optional[torch.Tensor]] = [None] * len(leaves)
         pending = []
@@ -341,6 +521,15 @@ def make_overlapped_grad_fn(loss_fn: Callable,
                         leaves[i], memory_format=torch.contiguous_format)
             g = groups[k]
             flat = fusion.gather_bucket(grads, g, 0, g.total)
+            if codec is not None:
+                from .. import compress as _codec
+
+                red, res_list[k] = _codec.ef_bucket_allreduce(
+                    flat, codec, res_list[k], op=op,
+                    min_bytes=runtime.effective_config()
+                    .dcn_compress_min_bytes)
+                pending.append((g, flat.dtype, red))
+                return
             wire = flat.to(torch.bfloat16) if compress == "bf16" else flat
             pending.append((g, flat.dtype, collectives.async_in_axis
                             .allreduce(wire, op=op, backend=backend)))
@@ -348,15 +537,18 @@ def make_overlapped_grad_fn(loss_fn: Callable,
         out = _backward_with_hooks(loss_fn, leaves, batch, has_aux, firing,
                                    on_grad, fire)
         synced: List[Optional[torch.Tensor]] = [None] * len(leaves)
-        for g, dtype, handle in pending:
-            red = handle.wait().to(dtype)
+        for g, dtype, got in pending:
+            red = (got if isinstance(got, torch.Tensor)
+                   else got.wait()).to(dtype)
             off = 0
             for i, shape, size in zip(g.indices, g.shapes, g.sizes):
                 synced[i] = red[off:off + size].view(shape)
                 off += size
         return out, synced
 
-    return vag
+    if residuals:
+        return _ef_vag(vag, codec, template, firing, None, site)
+    return lambda params, *batch: vag(params, None, *batch)
 
 
 def make_overlapped_grad_fn_rank_major(loss_fn: Callable,
@@ -393,14 +585,25 @@ def make_overlapped_grad_fn_rank_major(loss_fn: Callable,
     stock route is bitwise equal to :func:`synchronize_gradients_rank_major`
     (the rank-axis left fold is elementwise); the ring folds an element in
     an order set by its ring chunk, so under ``"pallas"`` it is bitwise
-    equal to the plain ring on these buckets."""
-    op, compress, template, firing, groups = _overlap_setup(
-        params_template, op, compress, max_bytes, residuals, dcn_compress,
-        "make_overlapped_grad_fn_rank_major")
+    equal to the plain ring on these buckets.
 
-    def vag(params, *batch, stacks: Optional[List[torch.Tensor]] = None):
-        params = _check_params(params, template,
-                               "make_overlapped_grad_fn_rank_major")
+    ``residuals=True``: each bucket runs
+    ``compress.ef_bucket_allreduce_rank_major`` on the grid of n, and
+    ``vag(params, residual_state, *batch, stacks=None) -> (outs, (stacks,
+    new_residuals))`` with [n, shard] state from
+    :func:`init_overlap_dcn_residuals` (``n=n``); flat grids as in
+    :func:`make_overlapped_grad_fn`."""
+    site = "make_overlapped_grad_fn_rank_major"
+    codec = (_ef_route(True, dcn_compress, site=site, backend=backend,
+                       compress=compress, barrier=None, n=n)
+             if residuals else None)
+    op, compress, template, firing, groups = _overlap_setup(
+        params_template, op, None if residuals else compress, max_bytes,
+        site)
+
+    def vag(params, res_list, *batch,
+            stacks: Optional[List[torch.Tensor]] = None):
+        params = _check_params(params, template, site)
         if stacks is None:
             stacks = [p.new_zeros((n, *p.shape)) for p in params]
         parts = [b.reshape(n, -1, *b.shape[1:]) for b in batch]
@@ -423,14 +626,26 @@ def make_overlapped_grad_fn_rank_major(loss_fn: Callable,
             stacks[i][n - 1].copy_(grad)
             got[i] = True
 
-        def reduce_bucket(g):
+        def reduce_bucket(k, g):
             buf = fusion.gather_bucket(stacks, g, 0, g.total,
                                        rank_major=True)
-            wire = buf.to(torch.bfloat16) if compress == "bf16" else buf
-            impl = selector.select("allreduce_rank_major", backend,
-                                   nbytes=g.total * wire.element_size())
-            red = impl(wire, op=op).to(buf.dtype)
-            fusion.scatter_bucket(red, stacks, g, 0, rank_major=True)
+            if codec is not None:
+                from .. import compress as _codec
+
+                red, res_list[k] = _codec.ef_bucket_allreduce_rank_major(
+                    buf, codec, res_list[k], op=op,
+                    min_bytes=runtime.effective_config()
+                    .dcn_compress_min_bytes)
+                if side is not None:
+                    res_list[k].record_stream(side)
+            else:
+                wire = buf.to(torch.bfloat16) if compress == "bf16" else buf
+                impl = selector.select("allreduce_rank_major", backend,
+                                       nbytes=g.total * wire.element_size(),
+                                       ranks=n)
+                red = impl(wire, op=op)
+            fusion.scatter_bucket(red.to(buf.dtype), stacks, g, 0,
+                                  rank_major=True)
 
         def fire(k):
             g = groups[k]
@@ -438,11 +653,11 @@ def make_overlapped_grad_fn_rank_major(loss_fn: Callable,
                 if not got[i]:
                     stacks[i][n - 1].zero_()
             if side is None:
-                reduce_bucket(g)
+                reduce_bucket(k, g)
                 return
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
-                reduce_bucket(g)
+                reduce_bucket(k, g)
             for i in g.indices:
                 stacks[i].record_stream(side)
 
@@ -454,7 +669,13 @@ def make_overlapped_grad_fn_rank_major(loss_fn: Callable,
             torch.cuda.current_stream(dev).wait_stream(side)
         return outs, stacks
 
-    return vag
+    if residuals:
+        return _ef_vag(vag, codec, template, firing, n, site)
+
+    def plain(params, *batch, stacks: Optional[List[torch.Tensor]] = None):
+        return vag(params, None, *batch, stacks=stacks)
+
+    return plain
 
 
 def accumulate_gradients(loss_fn: Callable[..., torch.Tensor],

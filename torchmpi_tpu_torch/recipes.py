@@ -39,6 +39,11 @@ rank-major step): each bucket's allreduce fires from the backward, the
 gradients come back reduced, and ZeRO runs ``presynced=True``.
 ``n_buckets`` (default ``Config.gradsync_buckets``) buckets the replicated
 sync (JAX :35, :78-83, :117-140); with overlap or ZeRO it does not apply.
+``backend`` routes every sync bucket by bucket through the selector, so
+``"hierarchical"`` (or ``Config.hierarchical``) runs the two-level
+allreduce on the grid of ``Config.dcn_size`` and ``"pallas"`` there the
+ring over each node's ici ranks (JAX ``examples/imagenet_resnet50.py``
+:37-56 under ``--dcn``).
 Not ported yet, and refused by name: a ``Config.analysis`` or
 ``Config.obs`` other than "off" (ROADMAP queue A, items 11 and 10).
 

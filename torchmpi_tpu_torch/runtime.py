@@ -6,6 +6,27 @@ process group: NCCL when the runtime's device is the card, gloo when the
 caller asks for the CPU.  Launched without a launcher (no ``RANK`` /
 ``WORLD_SIZE`` in the environment and no explicit arguments), the world is
 this one process, rendezvousing with itself on a free localhost port.
+
+The world is a two-level grid (``dcn``, ``ici``), as the JAX package's
+world mesh (``runtime._build_world_mesh``, ``WORLD_AXES``): ``ici`` the
+intra-node level (NVLink on the card), ``dcn`` the inter-node level
+(InfiniBand or Ethernet), global rank ``d * n_ici + i``, dcn-major.
+
+- The process world: ``Config.dcn_size`` / ``Config.ici_size`` set the grid
+  over the ``WORLD_SIZE`` processes.  Unset, ``dcn`` is the node count,
+  ``WORLD_SIZE / LOCAL_WORLD_SIZE`` when the launcher sets both and that
+  divides, else 1: the JAX package's auto rule (one process per host
+  there, one process per card here, so the processes of one node share
+  its NVLink).  A world of one process is the grid (1, 1) whatever the
+  fields say: they then factor the rank-major stacks only.  When ``dcn``
+  is above 1, :func:`init` creates the subgroups with ``dist.new_group``,
+  in the same order on every rank: one ``ici`` group per node (ranks
+  ``d * n_ici .. d * n_ici + n_ici - 1``), one ``dcn`` group per ici index
+  (the ranks that share it); :func:`group` returns them.
+- A rank-major stack of ``n`` ranks on one card: ``n`` factors as
+  ``dcn_size x n // dcn_size`` (:func:`grid`), unset meaning 1; a size that
+  does not divide ``n`` raises ValueError with the JAX package's
+  messages.
 """
 
 from __future__ import annotations
@@ -14,7 +35,7 @@ import dataclasses
 import os
 import socket
 import threading
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -30,6 +51,8 @@ class _State:
         self.config_epoch = 0
         self.device = torch.device("cpu")
         self.owns_group = False
+        self.grid = (1, 1)
+        self.groups: Dict[str, list] = {}
 
 
 _state = _State()
@@ -39,6 +62,51 @@ def _free_port() -> int:
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]
+
+
+def _factor(n: int, dcn: Optional[int], ici: Optional[int]
+            ) -> Tuple[int, int]:
+    """(dcn, ici) of ``n`` ranks from the topology fields (None = 1 dcn),
+    with the JAX package's messages (``_build_world_mesh`` :106-125)."""
+    if dcn is None and ici is None:
+        dcn = 1
+    if dcn is None:
+        if n % ici != 0:
+            raise ValueError(f"ici_size={ici} does not divide device count "
+                             f"{n}")
+        dcn = n // ici
+    elif ici is None:
+        if n % dcn != 0:
+            raise ValueError(f"dcn_size={dcn} does not divide device count "
+                             f"{n}")
+        ici = n // dcn
+    if dcn * ici != n:
+        raise ValueError(f"mesh shape dcn={dcn} x ici={ici} != device count "
+                         f"{n}")
+    return dcn, ici
+
+
+def _world_grid(cfg: Config, world: int) -> Tuple[int, int]:
+    """The process world's (dcn, ici): the topology fields, else the node
+    count (``WORLD_SIZE / LOCAL_WORLD_SIZE``) when it divides, else 1."""
+    if world == 1:
+        return 1, 1
+    dcn, ici = cfg.dcn_size, cfg.ici_size
+    if dcn is None and ici is None:
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", "0") or 0)
+        nodes = world // local if local > 0 and world % local == 0 else 1
+        dcn = nodes if nodes > 1 else 1
+    return _factor(world, dcn, ici)
+
+
+def _make_groups(dcn: int, ici: int) -> Dict[str, list]:
+    """Every rank creates every subgroup, in the same order: the ici
+    groups (one per node), then the dcn groups (one per ici index)."""
+    groups = {"ici": [dist.new_group([d * ici + i for i in range(ici)])
+                      for d in range(dcn)]}
+    groups["dcn"] = [dist.new_group([d * ici + i for d in range(dcn)])
+                     for i in range(ici)]
+    return groups
 
 
 def init(config: Optional[Config] = None, *, device: str = "cuda",
@@ -87,6 +155,14 @@ def init(config: Optional[Config] = None, *, device: str = "cuda",
                 "nccl" if dev.type == "cuda" else "gloo",
                 init_method=init_method, rank=rank, world_size=world_size)
             owns = True
+        try:
+            grid = _world_grid(cfg, dist.get_world_size())
+        except ValueError:
+            if owns:
+                dist.destroy_process_group()
+            raise
+        _state.groups = _make_groups(*grid) if grid[0] > 1 else {}
+        _state.grid = grid
         _state.config = cfg
         _state.device = dev
         _state.owns_group = owns
@@ -103,12 +179,17 @@ def stop() -> None:
             dist.destroy_process_group()
         _state.initialized = False
         _state.owns_group = False
+        _state.grid = (1, 1)
+        _state.groups = {}
         _state.config_epoch += 1
 
 
 def set_config(**overrides) -> None:
     """Switch knobs of the running runtime (reference: the torchmpi_set_*
-    setters; the JAX package's ``set_config``).  Bumps the config epoch."""
+    setters; the JAX package's ``set_config``).  Bumps the config epoch.
+    The process world's grid stays the one :func:`init` built; a new
+    ``dcn_size`` / ``ici_size`` factors the rank-major stacks from here
+    on."""
     with _state.lock:
         _require_init()
         for k in overrides:
@@ -167,6 +248,68 @@ def size() -> int:
     """Process count (reference: ``mpi.size()``)."""
     _require_init()
     return dist.get_world_size()
+
+
+def grid(n: Optional[int] = None) -> Tuple[int, int]:
+    """(n_dcn, n_ici): of a rank-major stack of ``n`` ranks, from the
+    active Config's ``dcn_size`` / ``ici_size`` (unset: (1, n)); of the
+    process world when ``n`` is None."""
+    if n is None:
+        _require_init()
+        return _state.grid
+    if getattr(_flat, "on", False):
+        return 1, int(n)
+    cfg = effective_config()
+    return _factor(int(n), cfg.dcn_size, cfg.ici_size)
+
+
+_flat = threading.local()
+
+
+class flat_grid:
+    """Within this context (this thread), :func:`grid` factors every
+    rank-major stack as one level, (1, n): the sub-stacks of one axis and
+    the legs of the two-level verbs are one-level groups."""
+
+    def __enter__(self):
+        self.before = getattr(_flat, "on", False)
+        _flat.on = True
+        return self
+
+    def __exit__(self, *exc):
+        _flat.on = self.before
+
+
+def dcn_size() -> int:
+    """The process world's outer (inter-node) size."""
+    return grid()[0]
+
+
+def ici_size() -> int:
+    """The process world's inner (intra-node) size."""
+    return grid()[1]
+
+
+def axis_index(axis: str) -> int:
+    """This process's index along ``axis`` ("dcn" or "ici")."""
+    n_ici = ici_size()
+    r = rank()
+    return r // n_ici if axis == "dcn" else r % n_ici
+
+
+def group(axis: str):
+    """The process group of ``axis`` that holds this process: this node's
+    ranks for "ici", the ranks sharing this ici index for "dcn", None (the
+    world's default group) for both.  An axis of size 1 has no group:
+    None there means this process alone (callers compute locally)."""
+    _require_init()
+    if axis not in ("dcn", "ici"):
+        raise ValueError(f"unknown axis {axis!r} (the world axes are "
+                         f"'dcn' and 'ici')")
+    if not _state.groups:
+        return None
+    d, i = axis_index("dcn"), axis_index("ici")
+    return _state.groups[axis][d if axis == "ici" else i]
 
 
 def local_rank() -> int:

@@ -2,8 +2,8 @@
 
 The PyTorch counterpart of ``torchmpi_tpu/selector.py``: a table from
 (op, backend name) to an implementation, and the JAX package's rules for
-picking one (``select`` :86-150, without its "hierarchical" and "auto"
-routes, which belong to modules not ported yet).  Backends:
+picking one (``select`` :86-150, without its "auto" route, which belongs
+to the tuning plans not ported yet).  Backends:
 
 - ``"xla"``: the stock route.  Across processes it is the process group's
   own backend (NCCL on the card, gloo on the CPU), the way the reference's
@@ -13,14 +13,23 @@ routes, which belong to modules not ported yet).  Backends:
   rank-major, every rank's buffer on one card.  Across processes their
   peers would be other processes' buffers, reached through CUDA IPC or
   symmetric memory on two or more cards (ROADMAP queue B): a world of one
-  process returns a copy, a larger one raises.
+  process returns a copy, a larger one raises.  On a two-level world
+  (``Config.dcn_size``) the rank-major ring runs over each node's ici
+  ranks and the dcn level is folded around it (``ops/ring.py``).
+- ``"hierarchical"``: the two-level verbs (``parallel/hierarchical.py``):
+  reduce-scatter over ici, allreduce over dcn, all-gather over ici for the
+  allreduce, and node leaders first for the others.  ``Config.hierarchical``
+  picks it over ``Config.backend`` (JAX ``collectives._config_backend``
+  :305-315).  On a flat world (one dcn member) it falls back to ``"xla"``
+  with one ``RuntimeWarning`` per (op, backend) (JAX :136-142, :159).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import warnings
+from typing import Callable, Dict, Optional, Set, Tuple
 
-BACKENDS = ("xla", "pallas")
+BACKENDS = ("xla", "pallas", "hierarchical")
 
 _REGISTRY: Dict[str, Dict[str, Callable]] = {}
 
@@ -36,20 +45,58 @@ def available(op: Optional[str] = None) -> Dict:
     return {k: sorted(v) for k, v in _REGISTRY.items()}
 
 
+# (op, backend) pairs already warned about in this process: one warning per
+# pair, so a loop that degrades on every call does not repeat it.
+_warned_fallbacks: Set[Tuple[str, str]] = set()
+
+
+def _note_fallback(op: str, backend: str, reason: str, *,
+                   target: str = "'xla'") -> None:
+    """One ``RuntimeWarning`` per (op, backend) that a requested backend
+    degraded to ``target`` (JAX :159, without the telemetry counter, which
+    waits for the obs layer, ROADMAP queue A, item 10)."""
+    key = (op, backend)
+    if key in _warned_fallbacks:
+        return
+    _warned_fallbacks.add(key)
+    warnings.warn(
+        f"collective {op!r}: {backend!r} requested but degraded to {target} "
+        f"({reason}); check dcn_size if a two-level topology was intended",
+        RuntimeWarning, stacklevel=4)
+
+
+def _n_dcn(op: str, ranks: Optional[int]) -> int:
+    """The dcn size the call spans: the grid of a rank-major stack of
+    ``ranks`` (or of the Config's ``dcn_size`` when not given), the
+    process world's otherwise."""
+    from . import runtime
+
+    if op.endswith("_rank_major"):
+        if ranks is not None:
+            return runtime.grid(ranks)[0]
+        return runtime.effective_config().dcn_size or 1
+    return runtime.grid()[0] if runtime.is_initialized() else 1
+
+
 def select(op: str, backend: Optional[str] = None, *,
-           nbytes: Optional[int] = None) -> Callable:
+           nbytes: Optional[int] = None, ranks: Optional[int] = None,
+           n_dcn: Optional[int] = None) -> Callable:
     """The implementation of ``op``.
 
-    ``backend`` None takes the active Config's ``backend``; a per-call
-    backend is explicit.  A custom backend falls back to ``"xla"`` when the
+    ``backend`` None takes the active Config's: ``"hierarchical"`` when
+    ``Config.hierarchical``, else ``Config.backend``; a per-call backend
+    is explicit.  A custom backend falls back to ``"xla"`` when the
     payload (``nbytes``, one rank's bytes) is below
     ``Config.custom_min_bytes`` and the backend was not explicit, and when
-    it has no implementation of ``op``."""
+    it has no implementation of ``op``.  ``"hierarchical"`` falls back,
+    with a warning, where the call spans one dcn member: ``n_dcn``, else
+    the grid of a rank-major stack of ``ranks`` or of the process world."""
     from . import runtime
 
     cfg = runtime.effective_config()
     explicit = backend is not None
-    name = backend if explicit else cfg.backend
+    name = backend if explicit else (
+        "hierarchical" if cfg.hierarchical else cfg.backend)
     if name not in BACKENDS:
         raise ValueError(f"unknown backend {name!r} (ported: {BACKENDS})")
     impls = _REGISTRY.get(op)
@@ -59,6 +106,10 @@ def select(op: str, backend: Optional[str] = None, *,
     if name != "xla":
         if (not explicit and nbytes is not None
                 and nbytes < cfg.custom_min_bytes):
+            name = "xla"
+        elif name == "hierarchical" and (
+                _n_dcn(op, ranks) if n_dcn is None else n_dcn) <= 1:
+            _note_fallback(op, name, "flat world (n_dcn <= 1)")
             name = "xla"
         elif name not in impls:
             name = "xla"
