@@ -2221,7 +2221,10 @@ def resnet50_dp_phase(torch, mpi, ops, dev):
 def leg_profile(torch, fn, legs=HIER_LEGS) -> dict:
     """Device time of one call of ``fn`` by two-level leg: the kernels
     launched inside each ``record_function`` range of ``legs``
-    (torch.profiler, CPU and CUDA activities), and the call's total."""
+    (torch.profiler, CPU and CUDA activities), and the call's total: the
+    device events' own time, so that a kernel is not counted again under
+    the host operator that launched it."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2236,10 +2239,8 @@ def leg_profile(torch, fn, legs=HIER_LEGS) -> dict:
         t = getattr(e, "cuda_time_total", 0.0) if t is None else t
         if e.key in out:
             out[e.key] = {"ms": t / 1e3, "calls": e.count}
-        self_t = getattr(e, "self_device_time_total", None)
-        self_t = (getattr(e, "self_cuda_time_total", 0.0) if self_t is None
-                  else self_t)
-        total += self_t / 1e3
+        elif e.device_type == DeviceType.CUDA:
+            total += t / 1e3
     return {"legs": out, "step_device_ms": total}
 
 
@@ -2346,11 +2347,11 @@ def hier_dp_phase(torch, mpi, ops, dev):
     route = hier.hier_allreduce_rank_major
     log = []
 
-    def tapped(xs, op="sum"):
-        out = route(xs, op=op)
+    def tapped(xs, op="sum", *, n_dcn):
+        out = route(xs, op=op, n_dcn=n_dcn)
         mpi.set_config(dcn_chunk_bytes=0)
         try:
-            whole = route(xs, op=op)
+            whole = route(xs, op=op, n_dcn=n_dcn)
         finally:
             mpi.set_config(dcn_chunk_bytes=4 << 20)
         flat = mpi.collectives._stock_allreduce_rank_major(xs, op=op)

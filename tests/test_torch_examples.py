@@ -60,12 +60,14 @@ def _main(name, argv):
                          "pallas"]),
     ("cifar_resnet20", ["--steps", "10", "--batch-size", "32",
                         "--devices", "4", "--dcn", "2"]),
+    ("mnist_allreduce", ["--steps", "10", "--batch-size", "64",
+                         "--dcn", "2", "--backend", "pallas"]),
 ], ids=["sequential", "allreduce", "allreduce-rank-major", "cifar",
         "cifar-zero3", "cifar-zero1-rank-major", "resnet50",
         "cifar-buckets-rank-major", "async-buckets",
         "async-buckets-rank-major", "fsdp-rank-major",
         "allreduce-hierarchical-dcn2", "allreduce-pallas-dcn2",
-        "cifar-dcn2"])
+        "cifar-dcn2", "allreduce-pallas-dcn2-process-world"])
 def test_example_runs_and_loss_falls(name, argv):
     out = _main(name, argv)
     losses = out["losses"]

@@ -194,14 +194,26 @@ def test_flat_grid_warns_once_and_runs_stock():
     assert torch.equal(c, x[1].expand(4, 6))
 
 
+@pytest.mark.parametrize("verb", ["allreduce", "reduce_scatter",
+                                  "allgather"])
+def test_process_world_of_one_ring_under_dcn(verb):
+    """The process world of one under ``dcn_size=2`` (this module's
+    runtime): the "pallas" ring of one member returns this rank's data, as
+    with no topology set; the grid factors the rank-major stacks only."""
+    x = torch.arange(24.0).reshape(8, 3)
+    got = getattr(tmpi, verb)(x, backend="pallas")
+    assert torch.equal(got, x[None] if verb == "allgather" else x)
+
+
 def test_config_hierarchical_picks_the_backend():
     """``Config.hierarchical`` routes over ``Config.backend`` (JAX
     collectives.py :305-315): the same bits as an explicit backend."""
     x = torch.randn(N, 300, generator=torch.Generator().manual_seed(2))
     tmpi.set_config(hierarchical=True, backend="pallas", custom_min_bytes=0)
     try:
-        assert tsel.select("allreduce_rank_major", ranks=N) is \
-            thier.hier_allreduce_rank_major
+        impl = tsel.select("allreduce_rank_major", ranks=N)
+        assert impl.func is thier.hier_allreduce_rank_major
+        assert impl.keywords == {"n_dcn": DCN}
         got = tmpi.allreduce_rank_major(x)
     finally:
         tmpi.set_config(hierarchical=False, backend="xla",
@@ -245,7 +257,7 @@ def test_two_level_pallas_matches_jax_ring(verb, dtype, length):
                 calls.append((nm, a[0].shape[0])), f(*a))[1])(fn, name)
         got = {"allreduce": tring.ring_allreduce,
                "reduce_scatter": tring.ring_reduce_scatter,
-               "all_gather": tring.ring_all_gather}[verb](t)
+               "all_gather": tring.ring_all_gather}[verb](t, n_dcn=DCN)
     finally:
         tring.WRAPPERS.update(plain)
     want = _jax_ring(verb, x)

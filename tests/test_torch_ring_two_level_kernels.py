@@ -7,8 +7,9 @@ on its own:
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_ring_two_level_kernels.py -q
 
-With ``Config.dcn_size`` set, ``ring_allreduce`` / ``ring_reduce_scatter`` /
-``ring_all_gather`` ring over each node's ici ranks (one launch of the row
+On ``n_dcn`` nodes (the selector passes the world's, ``Config.dcn_size``),
+``ring_allreduce`` / ``ring_reduce_scatter`` / ``ring_all_gather`` ring over
+each node's ici ranks (one launch of the row
 per node, on the node's rows of the stack) and fold or gather the dcn
 level around it (ROADMAP queue B variant 3).  Each call is held bitwise to
 the same composition through the plain versions, its launches counted
@@ -71,16 +72,15 @@ CASES = [
                          ids=lambda v: str(v))
 def test_two_level_rows_bitwise_and_one_launch_per_node(
         cuda, verb, n_dcn, n, L, chunk_bytes, row, dtype):
-    mpi.set_config(dcn_size=n_dcn,
-                   chunk_bytes=chunk_bytes * torch.empty(
+    mpi.set_config(chunk_bytes=chunk_bytes * torch.empty(
                        (), dtype=dtype).element_size() // 4)
     x = _stack(cuda, n, L, dtype, seed=L + n)
     fn = getattr(ring, f"ring_{verb}")
     plain = getattr(ring, f"ring_{verb}_plain")
     ring.reset_launches()
-    got = fn(x)
+    got = fn(x, n_dcn=n_dcn)
     launched = {k: v for k, v in ring.LAUNCHES.items() if v}
-    want = plain(x)
+    want = plain(x, n_dcn=n_dcn)
     assert launched == {row: n_dcn}, launched
     assert torch.equal(got, want)
     if verb == "allreduce" and L * x.element_size() % 16 == 0:
@@ -95,7 +95,7 @@ def test_fused_sync_on_the_grid(cuda):
                    fuse_max_bytes=4 << 20)
     stacks = [_stack(cuda, 4, L, torch.float32, seed=L)
               for L in (700_000, 1_300_001, 5)]
-    want = [ring.ring_allreduce_plain(s.reshape(4, -1), op="mean")
+    want = [ring.ring_allreduce_plain(s.reshape(4, -1), op="mean", n_dcn=2)
             for s in stacks]
     ring.reset_launches()
     spec = mpi.fusion.FusedSpec([s[0] for s in stacks])

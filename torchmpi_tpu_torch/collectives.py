@@ -319,12 +319,12 @@ def _ring_allgather(x: torch.Tensor, *, group=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _fold_ranks(xs: torch.Tensor) -> torch.Tensor:
-    """The sum over the rank axis of ``xs`` [n, ...] in its dtype, as a
-    left fold in rank order: elementwise adds, so the same bits on every
-    device and in every bucket layout."""
+def _fold_ranks(xs) -> torch.Tensor:
+    """The sum over the rank axis of ``xs`` [n, ...] (or of a sequence of n
+    tensors) in its dtype, as a left fold in rank order: elementwise adds,
+    so the same bits on every device and in every bucket layout."""
     acc = xs[0].clone()
-    for r in range(1, xs.shape[0]):
+    for r in range(1, len(xs)):
         acc += xs[r]
     return acc
 
@@ -445,6 +445,12 @@ selector.register("allreduce_rank_major", "pallas", ring.ring_allreduce)
 selector.register("reduce_scatter_rank_major", "pallas",
                   ring.ring_reduce_scatter)
 selector.register("allgather_rank_major", "pallas", ring.ring_all_gather)
+# The hierarchical backend's rank-major data movement: on one device it has
+# no levels, so it is the stock closed form (the two-level allreduce and
+# reduce, whose fold order and mean differ, are parallel/hierarchical.py's).
+for _verb in ("broadcast", "allgather", "gather", "scatter"):
+    selector.register(f"{_verb}_rank_major", "hierarchical",
+                      CLOSED_FORMS[_verb])
 
 
 # ---------------------------------------------------------------------------
@@ -653,12 +659,15 @@ def _check_stack(verb: str, xs) -> torch.Tensor:
     return xs
 
 
-def _rank_major(verb: str, xs, backend: Optional[str]):
+def _rank_major(verb: str, xs, backend: Optional[str],
+                n_dcn: Optional[int] = None):
     """The implementation of rank-major ``verb`` for ``xs`` [n, ...] (the
-    selector's rules on one rank's bytes)."""
+    selector's rules on one rank's bytes), on ``n_dcn`` nodes (None: the
+    world's grid of n)."""
     _check_stack(verb, xs)
     return selector.select(f"{verb}_rank_major", backend,
-                           nbytes=_nbytes(xs[0]), ranks=xs.shape[0])
+                           nbytes=_nbytes(xs[0]), ranks=xs.shape[0],
+                           n_dcn=n_dcn)
 
 
 def _staged_requested(backend: Optional[str],
@@ -714,19 +723,20 @@ def _from_axis_view(out: torch.Tensor, axis: str) -> torch.Tensor:
 
 
 def _eager(verb: str, xs, backend: Optional[str], staged: Optional[bool],
-           params: dict, axis_names: AxisNames = None) -> torch.Tensor:
+           params: dict, axis_names: AxisNames = None,
+           n_dcn: Optional[int] = None) -> torch.Tensor:
     _check_stack(verb, xs)
     axis = _world_axes(f"{verb}_rank_major", axis_names)
     if axis is not None:
+        # Each group of one axis is a one-level stack.
         v = _axis_view(xs, axis)
-        with runtime.flat_grid():
-            outs = [_eager(verb, v[g], backend, staged, params)
-                    for g in range(v.shape[0])]
+        outs = [_eager(verb, v[g], backend, staged, params, n_dcn=1)
+                for g in range(v.shape[0])]
         return _from_axis_view(torch.stack(outs), axis)
     if _staged_requested(backend, staged):
         return _place(_host_compute(verb, _to_host(xs), params, xs.device),
                       xs.device)
-    return _rank_major(verb, xs, backend)(xs, **params)
+    return _rank_major(verb, xs, backend, n_dcn)(xs, **params)
 
 
 def allreduce_rank_major(xs: torch.Tensor, *, op: str = "sum",

@@ -38,7 +38,8 @@ written once:
 :func:`ring_all_gather` pick a kernel as the JAX entries do (:926-955,
 :1030-1036, :1076-1079) from ``Config.chunk_bytes`` (and
 ``Config.pallas_bidirectional`` for the allreduce).  On a two-level grid
-(``Config.dcn_size``, ``runtime.grid``) they compose as the JAX entries
+(``n_dcn`` nodes, which the selector passes for the world's grid,
+``Config.dcn_size``) they compose as the JAX entries
 do over (dcn, ici) axes, the ring over the last axis only: the
 allreduce rings over each slice's ici ranks and folds the slices, the
 reduce-scatter folds over dcn first and rings over ici on each slice's
@@ -661,13 +662,12 @@ def _check_entry_dtype(xs: torch.Tensor, what: str) -> None:
                         f"dtypes)")
 
 
-def _fold_dcn(parts) -> torch.Tensor:
-    """The dcn level's sum (the JAX entries' ``lax.psum`` over the outer
-    axis): a left fold of the slices' results in slice order."""
-    acc = parts[0].clone()
-    for p in parts[1:]:
-        acc += p
-    return acc
+def _ici_of(n: int, n_dcn: int) -> int:
+    """The ici size of a stack of ``n`` ranks on ``n_dcn`` nodes."""
+    if n_dcn < 1 or n % n_dcn:
+        raise ValueError(f"dcn_size={n_dcn} does not divide device count "
+                         f"{n}")
+    return n // n_dcn
 
 
 def _ring_of(xs: torch.Tensor, rows) -> torch.Tensor:
@@ -684,37 +684,41 @@ def _ring_of(xs: torch.Tensor, rows) -> torch.Tensor:
     return rows[name](flat, *plan).reshape(xs.shape)
 
 
-def _allreduce(xs: torch.Tensor, op: str, rows) -> torch.Tensor:
+def _allreduce(xs: torch.Tensor, op: str, n_dcn: int, rows) -> torch.Tensor:
     if op not in ("sum", "mean"):
         raise KeyError(f"ring allreduce does not support op {op!r}")
     n = xs.shape[0]
-    n_dcn, n_ici = runtime.grid(n)
+    n_ici = _ici_of(n, n_dcn)
     if n_dcn == 1:
         out = _ring_of(xs, rows)
     else:
+        from ..collectives import _fold_ranks
+
         # The ring over each slice's ici ranks, then the dcn fold (JAX
         # :909-960: the ring over the last axis, psum over the outer).
         v = xs.reshape(n_dcn, n_ici, *xs.shape[1:])
-        tot = _fold_dcn([_ring_of(v[d], rows) for d in range(n_dcn)])
+        tot = _fold_ranks([_ring_of(v[d], rows) for d in range(n_dcn)])
         out = tot.expand(n_dcn, *tot.shape).reshape(xs.shape)
     if op == "mean":
         out = out / n
     return out
 
 
-def ring_allreduce(xs: torch.Tensor, *, op: str = "sum") -> torch.Tensor:
+def ring_allreduce(xs: torch.Tensor, *, op: str = "sum",
+                   n_dcn: int = 1) -> torch.Tensor:
     """Allreduce over the leading (rank) axis of ``xs`` [n, ...]: every
     slice of the result is the sum (or mean, ``out / n`` as in JAX, so an
-    int32 mean is float32) over ranks.  The selector's ``"pallas"``
-    implementation of the rank-major allreduce; the kernel is chosen by
-    :func:`schedule` from the active Config.  A ring of one returns a copy
-    (:926)."""
-    return _allreduce(xs, op, WRAPPERS)
+    int32 mean is float32) over ranks, the ranks on ``n_dcn`` nodes.  The
+    selector's ``"pallas"`` implementation of the rank-major allreduce; the
+    kernel is chosen by :func:`schedule` from the active Config.  A ring of
+    one returns a copy (:926)."""
+    return _allreduce(xs, op, n_dcn, WRAPPERS)
 
 
-def ring_allreduce_plain(xs: torch.Tensor, *, op: str = "sum"):
+def ring_allreduce_plain(xs: torch.Tensor, *, op: str = "sum",
+                         n_dcn: int = 1):
     """:func:`ring_allreduce` through the plain versions, on any device."""
-    return _allreduce(xs, op, PLAINS)
+    return _allreduce(xs, op, n_dcn, PLAINS)
 
 
 def _rs_of(xs: torch.Tensor, rows) -> torch.Tensor:
@@ -732,40 +736,45 @@ def _rs_of(xs: torch.Tensor, rows) -> torch.Tensor:
                                            *xs.shape[2:])
 
 
-def _reduce_scatter(xs: torch.Tensor, op: str, rows) -> torch.Tensor:
+def _reduce_scatter(xs: torch.Tensor, op: str, n_dcn: int,
+                    rows) -> torch.Tensor:
     if op != "sum":
         raise KeyError(f"ring reduce_scatter supports sum, not {op!r}")
     n = xs.shape[0]
     if xs.dim() < 2 or xs.shape[1] % n:
         raise ValueError(f"reduce_scatter needs [n, k, ...] with k divisible "
                          f"by the {n} ranks, got {tuple(xs.shape)}")
-    n_dcn, n_ici = runtime.grid(n)
+    n_ici = _ici_of(n, n_dcn)
     if n_dcn == 1:
         return _rs_of(xs, rows)
+    from ..collectives import _fold_ranks
+
     # The dcn psum_scatter first, then the ring over each slice's ici
     # ranks on its tile (JAX :994-1023): rank d * n_ici + i ends with
     # global tile d * n_ici + i.
-    v = xs.reshape(n_dcn, n_ici, *xs.shape[1:])
-    y = _fold_dcn([v[d] for d in range(n_dcn)])
+    y = _fold_ranks(xs.reshape(n_dcn, n_ici, *xs.shape[1:]))
     kd = xs.shape[1] // n_dcn
     return torch.cat([_rs_of(y[:, d * kd:(d + 1) * kd], rows)
                       for d in range(n_dcn)])
 
 
-def ring_reduce_scatter(xs: torch.Tensor, *, op: str = "sum") -> torch.Tensor:
+def ring_reduce_scatter(xs: torch.Tensor, *, op: str = "sum",
+                        n_dcn: int = 1) -> torch.Tensor:
     """Reduce-scatter over the leading (rank) axis of ``xs`` [n, k, ...], k
     divisible by n: slice r of the result [n, k / n, ...] is rank r's tile
     of the sum over ranks (``lax.psum_scatter(tiled=True)``, sum only, JAX
-    :994).  The selector's ``"pallas"`` implementation of the rank-major
-    reduce-scatter; the kernel is chosen by :func:`schedule_reduce_scatter`
-    from the active Config.  A ring of one returns a copy (:1028)."""
-    return _reduce_scatter(xs, op, WRAPPERS)
+    :994), the ranks on ``n_dcn`` nodes.  The selector's ``"pallas"``
+    implementation of the rank-major reduce-scatter; the kernel is chosen
+    by :func:`schedule_reduce_scatter` from the active Config.  A ring of
+    one returns a copy (:1028)."""
+    return _reduce_scatter(xs, op, n_dcn, WRAPPERS)
 
 
-def ring_reduce_scatter_plain(xs: torch.Tensor, *, op: str = "sum"):
+def ring_reduce_scatter_plain(xs: torch.Tensor, *, op: str = "sum",
+                              n_dcn: int = 1):
     """:func:`ring_reduce_scatter` through the plain versions, on any
     device."""
-    return _reduce_scatter(xs, op, PLAINS)
+    return _reduce_scatter(xs, op, n_dcn, PLAINS)
 
 
 def _ag_of(shards: torch.Tensor, rows) -> torch.Tensor:
@@ -782,9 +791,9 @@ def _ag_of(shards: torch.Tensor, rows) -> torch.Tensor:
     return rows[name](flat, *plan).reshape(m, *shards.shape)
 
 
-def _all_gather(shards: torch.Tensor, rows) -> torch.Tensor:
+def _all_gather(shards: torch.Tensor, n_dcn: int, rows) -> torch.Tensor:
     n = shards.shape[0]
-    n_dcn, n_ici = runtime.grid(n)
+    n_ici = _ici_of(n, n_dcn)
     if n_dcn == 1:
         return _ag_of(shards, rows)
     # The ring over each slice's ici ranks, then the dcn gather (JAX
@@ -798,15 +807,17 @@ def _all_gather(shards: torch.Tensor, rows) -> torch.Tensor:
                                                    *shards.shape[1:])
 
 
-def ring_all_gather(shards: torch.Tensor) -> torch.Tensor:
+def ring_all_gather(shards: torch.Tensor, *, n_dcn: int = 1) -> torch.Tensor:
     """All-gather over the leading (rank) axis of ``shards`` [n, ...]: every
     slice of the result [n, n, ...] is the stack of all ranks' shards
-    (``lax.all_gather(tiled=False)``, JAX :1063).  The selector's
-    ``"pallas"`` implementation of the rank-major all-gather; the kernel is
-    chosen by :func:`schedule_all_gather` from the active Config."""
-    return _all_gather(shards, WRAPPERS)
+    (``lax.all_gather(tiled=False)``, JAX :1063), the ranks on ``n_dcn``
+    nodes.  The selector's ``"pallas"`` implementation of the rank-major
+    all-gather; the kernel is chosen by :func:`schedule_all_gather` from
+    the active Config."""
+    return _all_gather(shards, n_dcn, WRAPPERS)
 
 
-def ring_all_gather_plain(shards: torch.Tensor) -> torch.Tensor:
+def ring_all_gather_plain(shards: torch.Tensor, *,
+                          n_dcn: int = 1) -> torch.Tensor:
     """:func:`ring_all_gather` through the plain versions, on any device."""
-    return _all_gather(shards, PLAINS)
+    return _all_gather(shards, n_dcn, PLAINS)

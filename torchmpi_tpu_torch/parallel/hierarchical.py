@@ -29,12 +29,16 @@ two from ``collectives._chain_gather`` / ``_chain_scatter``.
 
 Each verb has two forms: across processes (``hier_<verb>(x, ...)``, this
 rank's tensor, on ``runtime.group("ici")`` / ``runtime.group("dcn")``), and
-rank-major (``hier_<verb>_rank_major(xs, ...)``, the n ranks' tensors
-stacked on one device in global rank order ``d * n_ici + i``, the grid
-``runtime.grid(n)``), where the legs are the same folds and copies on the
-stack.  Each leg runs inside a ``torch.profiler.record_function`` range
-(``hier/ici_reduce_scatter``, ``hier/dcn_allreduce``,
-``hier/ici_all_gather``), so a profile attributes the device time by leg.
+rank-major (the n ranks' tensors stacked on one device in global rank
+order ``d * n_ici + i`` on ``n_dcn`` nodes, which the selector passes).
+On one device the data movement has no levels, so the rank-major
+broadcast, allgather, gather and scatter are the stock closed forms
+(``collectives.py`` registers them); ``hier_allreduce_rank_major`` and
+``hier_reduce_rank_major`` are here, since their fold order and mean
+differ from the stock ones.  Each leg runs inside a
+``torch.profiler.record_function`` range (``hier/ici_reduce_scatter``,
+``hier/dcn_allreduce``, ``hier/ici_all_gather``), so a profile attributes
+the device time by leg.
 The verbs register with the selector as backend ``"hierarchical"``; on a
 flat world the selector falls back to ``"xla"`` with a warning.
 """
@@ -120,15 +124,16 @@ def _extreme(xs: torch.Tensor, dim: int, op: str) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def hier_allreduce_rank_major(xs: torch.Tensor, *,
-                              op: str = "sum") -> torch.Tensor:
+def hier_allreduce_rank_major(xs: torch.Tensor, *, op: str = "sum",
+                              n_dcn: int) -> torch.Tensor:
     """Every slice the sum (or mean, max, min) over the n ranks of ``xs``
-    [n, ...]: per chunk, each node's ici ranks folded into their shards
-    (the reduce-scatter), the shards folded over dcn (or the codec's
-    decoded sum), the result copied to every rank (the all-gather)."""
+    [n, ...] on ``n_dcn`` nodes: per chunk, each node's ici ranks folded
+    into their shards (the reduce-scatter), the shards folded over dcn (or
+    the codec's decoded sum), the result copied to every rank (the
+    all-gather)."""
     _check_op(op)
     n = xs.shape[0]
-    n_dcn, n_ici = runtime.grid(n)
+    n_ici = n // n_dcn
     if op in ("max", "min"):
         v = xs.reshape(n_dcn, n_ici, *xs.shape[1:])
         red = _extreme(_extreme(v, 1, op), 0, op)
@@ -157,24 +162,14 @@ def hier_allreduce_rank_major(xs: torch.Tensor, *,
     return out / n if op == "mean" else out
 
 
-def hier_broadcast_rank_major(xs: torch.Tensor, *,
-                              root: int = 0) -> torch.Tensor:
-    """Every slice ``xs[root]``: over dcn to the node leaders, then over
-    ici."""
-    n_dcn, n_ici = runtime.grid(xs.shape[0])
-    v = xs.reshape(n_dcn, n_ici, *xs.shape[1:])
-    leaders = v[root // n_ici, root % n_ici].expand(n_dcn, *xs.shape[1:])
-    return leaders[:, None].expand(n_dcn, n_ici,
-                                   *xs.shape[1:]).reshape(xs.shape).clone()
-
-
 def hier_reduce_rank_major(xs: torch.Tensor, *, root: int = 0,
-                           op: str = "sum") -> torch.Tensor:
-    """Slice ``root`` the reduction over ranks, inner (ici) first then
-    outer (dcn); a mean is the mean over ici, then over dcn (JAX :228);
-    the other slices unchanged (float32 for an integer mean)."""
+                           op: str = "sum", n_dcn: int) -> torch.Tensor:
+    """Slice ``root`` the reduction over the ranks on ``n_dcn`` nodes,
+    inner (ici) first then outer (dcn); a mean is the mean over ici, then
+    over dcn (JAX :228); the other slices unchanged (float32 for an
+    integer mean)."""
     _check_op(op)
-    n_dcn, n_ici = runtime.grid(xs.shape[0])
+    n_ici = xs.shape[0] // n_dcn
     v = xs.reshape(n_dcn, n_ici, *xs.shape[1:])
     if op in ("max", "min"):
         total = _extreme(_extreme(v, 1, op), 0, op)
@@ -188,35 +183,6 @@ def hier_reduce_rank_major(xs: torch.Tensor, *, root: int = 0,
     out = xs.to(total.dtype, copy=True)
     out[root] = total
     return out
-
-
-def hier_allgather_rank_major(shards: torch.Tensor) -> torch.Tensor:
-    """Every slice the stack [n, ...] of all shards: gathered over ici,
-    then over dcn, in global rank order."""
-    n = shards.shape[0]
-    # Every node's ici stack, gathered over dcn in node order, is the
-    # stack in global rank order.
-    return shards.expand(n, *shards.shape).clone()
-
-
-def hier_gather_rank_major(xs: torch.Tensor, *,
-                           root: int = 0) -> torch.Tensor:
-    """Slice ``root`` the stack [n, ...] (over ici to the node leaders,
-    then over dcn), the other slices zeros."""
-    out = xs.new_zeros((xs.shape[0],) + tuple(xs.shape))
-    out[root] = xs
-    return out
-
-
-def hier_scatter_rank_major(xs: torch.Tensor, *,
-                            root: int = 0) -> torch.Tensor:
-    """Slice i tile i of ``xs[root]`` [k, ...] (each node's block over dcn,
-    then the tiles over ici); k must divide by n."""
-    n = xs.shape[0]
-    if xs.dim() < 2 or xs.shape[1] % n:
-        raise ValueError(f"scatter needs leading dim divisible by group "
-                         f"size: {tuple(xs.shape[1:])} over {n}")
-    return xs[root].reshape(n, xs.shape[1] // n, *xs.shape[2:]).clone()
 
 
 # ---------------------------------------------------------------------------
@@ -364,5 +330,6 @@ def hier_scatter(x: torch.Tensor, *, root: int = 0) -> torch.Tensor:
 for _verb in ("allreduce", "broadcast", "reduce", "allgather", "gather",
               "scatter"):
     selector.register(_verb, "hierarchical", globals()[f"hier_{_verb}"])
+for _verb in ("allreduce", "reduce"):
     selector.register(f"{_verb}_rank_major", "hierarchical",
                       globals()[f"hier_{_verb}_rank_major"])

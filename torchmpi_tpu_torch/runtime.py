@@ -26,7 +26,11 @@ intra-node level (NVLink on the card), ``dcn`` the inter-node level
 - A rank-major stack of ``n`` ranks on one card: ``n`` factors as
   ``dcn_size x n // dcn_size`` (:func:`grid`), unset meaning 1; a size that
   does not divide ``n`` raises ValueError with the JAX package's
-  messages.
+  messages.  This is the grid of the calls that span the world (the
+  rank-major verbs, the fused syncs, the recipes): a sub-stack of one axis,
+  a leg of a two-level verb and the process world's ring of one member
+  are one-level, since the selector passes their dcn size (1) down
+  explicitly.
 """
 
 from __future__ import annotations
@@ -251,33 +255,16 @@ def size() -> int:
 
 
 def grid(n: Optional[int] = None) -> Tuple[int, int]:
-    """(n_dcn, n_ici): of a rank-major stack of ``n`` ranks, from the
-    active Config's ``dcn_size`` / ``ici_size`` (unset: (1, n)); of the
-    process world when ``n`` is None."""
+    """(n_dcn, n_ici): of the world's rank-major stack of ``n`` ranks, from
+    the active Config's ``dcn_size`` / ``ici_size`` (unset: (1, n)); of the
+    process world when ``n`` is None.  The selector and the recipes read it
+    for the calls that span the world, and pass the dcn size down to the
+    two-level routes (``selector.TWO_LEVEL``)."""
     if n is None:
         _require_init()
         return _state.grid
-    if getattr(_flat, "on", False):
-        return 1, int(n)
     cfg = effective_config()
     return _factor(int(n), cfg.dcn_size, cfg.ici_size)
-
-
-_flat = threading.local()
-
-
-class flat_grid:
-    """Within this context (this thread), :func:`grid` factors every
-    rank-major stack as one level, (1, n): the sub-stacks of one axis and
-    the legs of the two-level verbs are one-level groups."""
-
-    def __enter__(self):
-        self.before = getattr(_flat, "on", False)
-        _flat.on = True
-        return self
-
-    def __exit__(self, *exc):
-        _flat.on = self.before
 
 
 def dcn_size() -> int:

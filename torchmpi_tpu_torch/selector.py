@@ -22,16 +22,33 @@ to the tuning plans not ported yet).  Backends:
   picks it over ``Config.backend`` (JAX ``collectives._config_backend``
   :305-315).  On a flat world (one dcn member) it falls back to ``"xla"``
   with one ``RuntimeWarning`` per (op, backend) (JAX :136-142, :159).
+
+The rank-major routes that run on the two-level grid (:data:`TWO_LEVEL`)
+take the grid's dcn size as the keyword ``n_dcn``; :func:`select` binds
+the call's when it is above 1, so no layer below reads the topology.
 """
 
 from __future__ import annotations
 
+import functools
 import warnings
 from typing import Callable, Dict, Optional, Set, Tuple
 
 BACKENDS = ("xla", "pallas", "hierarchical")
 
 _REGISTRY: Dict[str, Dict[str, Callable]] = {}
+
+# The (op, backend) routes whose implementation takes the dcn size of the
+# call's grid as ``n_dcn``: the two-level "pallas" ring (ops/ring.py) and
+# the hierarchical verbs whose fold order or mean differ from the stock
+# closed forms (parallel/hierarchical.py).
+TWO_LEVEL = frozenset({
+    ("allreduce_rank_major", "pallas"),
+    ("reduce_scatter_rank_major", "pallas"),
+    ("allgather_rank_major", "pallas"),
+    ("allreduce_rank_major", "hierarchical"),
+    ("reduce_rank_major", "hierarchical"),
+})
 
 
 def register(op: str, backend: str, fn: Callable) -> None:
@@ -90,7 +107,9 @@ def select(op: str, backend: Optional[str] = None, *,
     ``Config.custom_min_bytes`` and the backend was not explicit, and when
     it has no implementation of ``op``.  ``"hierarchical"`` falls back,
     with a warning, where the call spans one dcn member: ``n_dcn``, else
-    the grid of a rank-major stack of ``ranks`` or of the process world."""
+    the grid of a rank-major stack of ``ranks`` or of the process world.
+    A :data:`TWO_LEVEL` route on more than one dcn member comes with that
+    dcn size bound to its ``n_dcn`` (the routes' default is one level)."""
     from . import runtime
 
     cfg = runtime.effective_config()
@@ -116,4 +135,8 @@ def select(op: str, backend: Optional[str] = None, *,
     if name not in impls:
         raise ValueError(f"collective {op!r} has no backend {name!r} "
                          f"(available: {sorted(impls)})")
+    if (op, name) in TWO_LEVEL:
+        n_dcn = _n_dcn(op, ranks) if n_dcn is None else n_dcn
+        if n_dcn > 1:
+            return functools.partial(impls[name], n_dcn=n_dcn)
     return impls[name]
