@@ -9,7 +9,9 @@ JAX package.  In order it:
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the kernels from ops/csrc with nvcc (sm_90a, one compiler per
    source, in parallel) into build/torch_kernels/: fourteen kernels in
-   seven libraries;
+   seven libraries; beside them, with g++, the parameter server's and the
+   async writer's host libraries (torchmpi_tpu_torch/csrc) into
+   build/torch_host/;
 3. kernel phases: at the flagship LM's attention shapes (B 4, T 2048, 16 q /
    4 kv heads, head_dim 128, causal, window 1024, float32) runs each flash
    kernel against its plain PyTorch version on the same seeded inputs (each
@@ -159,12 +161,34 @@ JAX package.  In order it:
    14 / 10, stock) of 4 ranks rank-major, ms, algbw and busbw
    (collectives_bench.py's formulas), each against the plain ring; the
    hops are device copies on one card;
-15. CNN examples phase: the port's mnist_sequential, mnist_allreduce,
+15. two-level phase (hier_dp, the main path of the two-level slice):
+   ResNet-50 of phase 9 with its 4 ranks as a dcn 2 x ici 2 grid,
+   backend "hierarchical", int8 error feedback, the ring per node;
+16. parameter-server phase (downpour_ps, the main path of the
+   parameter-server slice): BASELINE config 4, AlexNet async downpour at
+   full width (224 x 224, 1000 classes, 62,378,344 float32 parameters, a
+   249.5 MB flat vector), 2 worker threads on their own streams sharing
+   one client of a 4-shard server, batch 128 a worker, Adam lr 3e-4, axpy
+   pushes at alpha 1/2, a fetch every 5 steps adopted a step later;
+   checks (a)-(e) first (three pushes of one worker equal to a numpy
+   float32 fold, bitwise; receive() bitwise on the card; two pushes back
+   to back and two threads' pushes their bitwise sums; an elastic
+   exchange equal to the server's formula in numpy), then a warm-up step,
+   10 timed steps a worker with nothing watching (img/s, step ms, the
+   push and fetch split, the server's cycle costs; peak memory; no kernel
+   of the table), 5 watched (the card's busy share, torch.profiler over
+   the window; host syncs: one event wait a push, none else) and 2 while
+   checkpoint.save_async writes a fresh
+   center and worker 0's Adam state (f: restored bitwise after; write
+   seconds and MB/s);
+17. examples phase: the port's mnist_sequential, mnist_allreduce,
    cifar_resnet20 (ZeRO 0 and 3) and mnist_async_allreduce (4 buckets in
-   the world of one; overlapped, 4 ranks rank-major on the ring)
-   in-process on the card, each to its accuracy bar (MNIST > 0.9, CIFAR
-   > 0.85);
-16. prints the kernels' summary line (each kernel's launches summed over
+   the world of one; overlapped, 4 ranks rank-major on the ring), then
+   mnist_downpour, mnist_easgd, alexnet_downpour (their defaults) and
+   checkpoint_resume in-process on the card, each to its bar (MNIST >
+   0.9, CIFAR > 0.85, AlexNet > 2 / 10, the resumed run's final loss
+   below its loss at the crash);
+18. prints the kernels' summary line (each kernel's launches summed over
    the main paths, and by path), then {"ok": true, "device": ...}.
 
 Each phase prints one JSON line.  Any failed check raises and the script
@@ -420,6 +444,36 @@ HIER_LEGS = ("hier/ici_reduce_scatter", "hier/dcn_allreduce",
              "hier/ici_all_gather")
 HIER_ROWS = R50_ROWS
 HIER_HOPS = "device copies on one card, not NVLink or a network"
+# The parameter-server slice: BASELINE config 4 (AlexNet async downpour,
+# examples/alexnet_downpour.py's full configuration): AlexNet at 224 x 224,
+# 1000 classes, dropout 0, float32, 62,378,344 parameters (a 249.5 MB flat
+# vector), PS_WORKERS worker threads on their own streams sharing one
+# client, PS_BATCH images a worker, PS_SHARDS shards, Adam lr PS_LR a
+# worker, pushes with the axpy rule at alpha 1 / PS_WORKERS, a fetch every
+# PS_FETCH_EVERY steps adopted one step later.  The data:
+# synthetic_image_classification(PS_IMAGES) at 224 x 224 x 3, 616 MB on
+# the host, copied to the card once.  Segments of steps a worker: one
+# untimed warm-up, PS_TIMED_STEPS timed (nothing watching), PS_PROBE_STEPS
+# (one whole fetch period) under torch.profiler for the card's busy share
+# and under the sync debug mode and an event-wait count for the host
+# syncs, PS_CKPT_STEPS while a checkpoint of the center and worker 0's
+# Adam state is written.  The server is host threads behind loopback TCP
+# on the card's machine.
+PS_WORKERS, PS_SHARDS, PS_BATCH = 2, 4, 128
+PS_IMAGE, PS_CLASSES, PS_IMAGES = 224, 1000, 1024
+PS_LR, PS_FETCH_EVERY = 3e-4, 5
+PS_PARAMS = 62_378_344
+PS_TIMED_STEPS, PS_PROBE_STEPS, PS_CKPT_STEPS = 10, PS_FETCH_EVERY, 2
+PS_CHECK_PUSHES = 3
+PS_ELASTIC_ALPHA = 0.3
+PS_TRANSPORT = "loopback TCP to server threads on the same host"
+# The parameter-server and checkpoint examples, in-process on the card at
+# their defaults, to their bars: (example, argv, bar); checkpoint_resume's
+# bar is its own (the resumed run's final loss below its loss at the
+# crash, raised inside main).
+PS_EXAMPLES = (("mnist_downpour", (), 0.9), ("mnist_easgd", (), 0.9),
+               ("alexnet_downpour", (), 2.0 / 10),
+               ("checkpoint_resume", (), None))
 
 SOURCES = {
     "flash_fwd": ("torchmpi_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -3069,12 +3123,13 @@ def overlap_dp_phase(torch, mpi, ops, dev):
 
 def cnn_examples_phase(torch, mpi):
     """The port's main-path examples (CIFAR also under ZeRO-3, the async
-    example bucketed and overlapped) run in-process on the card, each to
-    its accuracy bar."""
+    example bucketed and overlapped; the parameter-server and checkpoint
+    examples) run in-process on the card, each to its bar."""
     import importlib
 
     runs = []
-    for name, argv, bar, knobs in CNN_EXAMPLES:
+    ps_runs = [(name, argv, bar, {}) for name, argv, bar in PS_EXAMPLES]
+    for name, argv, bar, knobs in CNN_EXAMPLES + tuple(ps_runs):
         mod = importlib.import_module(f"torchmpi_tpu_torch.examples.{name}")
         t0 = time.perf_counter()
         before = {k: getattr(mpi.config(), k) for k in knobs}
@@ -3086,15 +3141,24 @@ def cnn_examples_phase(torch, mpi):
         check(out.get("overlap", False) == bool(knobs),
               f"{name}: overlap {out.get('overlap')} under {knobs}")
         runs.append({"example": name, "argv": list(argv), "bar": bar,
-                     "config": knobs, "accuracy": out["accuracy"],
-                     "img_per_s": out["img_per_s"],
+                     "config": knobs, "accuracy": out.get("accuracy"),
+                     "img_per_s": out.get("img_per_s"),
                      "losses": out["losses"],
+                     **({"ops_served": out["ops_served"]}
+                        if "ops_served" in out else {}),
+                     **({"pre_crash": out["pre_crash"], "final":
+                         out["final"], "resume_step": out["resume_step"]}
+                        if "final" in out else {}),
                      "seconds": time.perf_counter() - t0})
         torch.cuda.empty_cache()
     emit({"phase": "cnn_examples", "runs": runs})
     for r in runs:
-        check(r["accuracy"] > r["bar"], f"{r['example']} {r['argv']}: "
-              f"accuracy {r['accuracy']} <= {r['bar']}")
+        if r["bar"] is None:  # checkpoint_resume: final below pre-crash
+            check(r["final"] < r["pre_crash"], f"{r['example']}: final "
+                  f"loss {r['final']} >= {r['pre_crash']} at the crash")
+        else:
+            check(r["accuracy"] > r["bar"], f"{r['example']} {r['argv']}: "
+                  f"accuracy {r['accuracy']} <= {r['bar']}")
 
 
 def fsdp_dp_phase(torch, mpi, ops, dev):
@@ -3499,6 +3563,469 @@ def allreduce_busbw_phase(torch, mpi, ring, dev):
     return launches
 
 
+
+def device_busy(torch, prof, window_s: float) -> dict:
+    """The card's busy share of a profiled window: the union of the device
+    events' intervals (kernels and copies, all streams) over the window,
+    and the copies' own device ms.  None where the profiler recorded no
+    device event."""
+    # The profiler's raw events: building its FunctionEvent tree for
+    # thousands of kernels would take seconds.
+    spans, copy_ns = [], 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        lo, hi = e.start_ns(), e.end_ns()
+        if hi > lo:
+            spans.append((lo, hi))
+            if "Memcpy" in e.name() or "Memset" in e.name():
+                copy_ns += hi - lo
+    if not spans:
+        return {"busy_share": None, "device_events": 0}
+    spans.sort()
+    busy, (cur_lo, cur_hi) = 0, spans[0]
+    for lo, hi in spans[1:]:
+        if lo > cur_hi:
+            busy += cur_hi - cur_lo
+            cur_lo, cur_hi = lo, hi
+        else:
+            cur_hi = max(cur_hi, hi)
+    busy += cur_hi - cur_lo
+    return {"busy_share": busy / 1e9 / window_s, "busy_ms": busy / 1e6,
+            "copies_ms": copy_ns / 1e6, "device_events": len(spans)}
+
+
+class PSWorker:
+    """One downpour worker of the phase: examples/alexnet_downpour.py's
+    ``downpour_step`` (Adam, an axpy push at alpha 1 / PS_WORKERS, a
+    prefetch at step s adopted at s + 1) on batches gathered on the card
+    from the data copied there once (the example copies each batch from
+    the host, a host sync a step)."""
+
+    def __init__(self, torch, mpi, model, ps, X, Y, seed, alpha):
+        import numpy as np
+
+        self.model, self.ps = model, ps
+        self.X, self.Y, self.alpha = X, Y, alpha
+        self.names, self.params = zip(*model.named_parameters())
+        self.tx = mpi.optim.adam(PS_LR)
+        # Every step's batch indices, drawn up front and copied to the card
+        # once: a host-made index tensor copied in each step would be a
+        # host sync of its own.
+        draws = (PS_CHECK_PUSHES + 1 + PS_TIMED_STEPS + PS_PROBE_STEPS
+                 + PS_CKPT_STEPS)
+        self.idx = torch.from_numpy(np.random.RandomState(seed).randint(
+            0, PS_IMAGES, size=(draws, PS_BATCH))).to(X.device)
+        self.draws = 0
+        self.reset()
+
+    def reset(self):
+        """Adam from zero, no fetch in flight, the step count at 0."""
+        self.states = [self.tx.init(p.detach()) for p in self.params]
+        self.fetch, self.step, self.last_push = None, 0, None
+        self.losses, self.step_s, self.record = [], [], None
+
+    def run_step(self):
+        from torchmpi_tpu_torch.examples.alexnet_downpour import \
+            downpour_step
+
+        t0 = time.perf_counter()
+        idx = self.idx[self.draws]
+        self.draws += 1
+        x = self.X.index_select(0, idx).permute(0, 3, 1, 2)
+        y = self.Y.index_select(0, idx)
+        loss, self.last_push, ups, self.fetch = downpour_step(
+            self.model, self.names, self.params, self.tx, self.states,
+            self.ps, x, y, self.alpha, self.fetch, self.step, PS_FETCH_EVERY)
+        if self.record is not None:
+            self.record.append(ups)
+        self.losses.append(loss)
+        self.step += 1
+        self.step_s.append(time.perf_counter() - t0)
+
+
+def _flat_host(torch, mpi, tree):
+    """A tree's flat float32 vector as numpy, for the checks."""
+    return mpi.utils.tree.flatten_f32(tree)[0].cpu().numpy()
+
+
+def _bits_equal(a, b) -> bool:
+    import numpy as np
+
+    return a.shape == b.shape and bool(np.array_equal(a.view(np.uint32),
+                                                      b.view(np.uint32)))
+
+
+def ps_fold_check(torch, mpi, ps, worker, params0) -> int:
+    """Checks (a) and (b) of downpour_ps at full width: one worker,
+    PS_CHECK_PUSHES pushes; the center is the numpy float32 fold c +=
+    alpha * u (two roundings), and receive() gives it back bitwise on the
+    card.  Raises on a mismatch; the center is reset to params0 at the
+    end."""
+    import numpy as np
+
+    worker.record = []
+    for _ in range(PS_CHECK_PUSHES):
+        worker.run_step()
+    worker.last_push.wait()
+    alpha = np.float32(worker.alpha)
+    want = _flat_host(torch, mpi, params0)
+    for u in worker.record:
+        want = want + alpha * _flat_host(torch, mpi, u)
+    got = ps.receive().wait()
+    check(next(iter(got.values())).is_cuda, "receive() left the card")
+    check(_bits_equal(_flat_host(torch, mpi, got), want),
+          "(a)/(b) the center is not the float32 fold of the pushes")
+    worker.record = None
+    ps.send(params0, rule="copy").wait()
+    return PS_CHECK_PUSHES
+
+
+def ps_transport_checks(torch, mpi, ps, params0, dev) -> dict:
+    """Checks (c)-(e) of downpour_ps at full width; each raises on a
+    mismatch.  The center is reset to params0 at the end."""
+    import numpy as np
+
+    from torchmpi_tpu_torch.examples import common
+
+    out = {}
+    c0 = _flat_host(torch, mpi, params0)
+    # (c) two pushes back to back from one thread: their bitwise sum.
+    g = torch.Generator(dev).manual_seed(SEED + 41)
+    rand = [{n: torch.randn(p.shape, device=dev, generator=g)
+             for n, p in params0.items()} for _ in range(4)]
+    ps.send(params0, rule="zero").wait()
+    h1, h2 = ps.send(rand[0], rule="add"), ps.send(rand[1], rule="add")
+    h1.wait()
+    h2.wait()
+    u0, u1 = _flat_host(torch, mpi, rand[0]), _flat_host(torch, mpi, rand[1])
+    check(_bits_equal(_flat_host(torch, mpi, ps.receive().wait()), u0 + u1),
+          "(c) back-to-back pushes are not their bitwise sum")
+    # (d) two threads pushing concurrently through the one client, each on
+    # its own stream: the bitwise sum of both (from zero, in either order).
+    ps.send(params0, rule="zero").wait()
+    torch.cuda.synchronize(dev)
+    common.run_workers(lambda i: ps.send(rand[2 + i], rule="add").wait(), 2,
+                       dev)
+    u2, u3 = _flat_host(torch, mpi, rand[2]), _flat_host(torch, mpi, rand[3])
+    check(_bits_equal(_flat_host(torch, mpi, ps.receive().wait()), u2 + u3),
+          "(d) concurrent pushes of two threads are not their bitwise sum")
+    # (e) one elastic exchange against the server's formula in numpy.
+    ps.send(params0, rule="copy").wait()
+    p = {n: params0[n] + rand[0][n] * 1e-2 for n in params0}
+    a = np.float32(PS_ELASTIC_ALPHA)
+    delta = ps.send(p, rule="elastic", alpha=float(a)).wait()
+    d = a * (_flat_host(torch, mpi, p) - c0)
+    check(_bits_equal(_flat_host(torch, mpi, delta), d),
+          "(e) the elastic delta differs from alpha * (p - c)")
+    check(_bits_equal(_flat_host(torch, mpi, ps.receive().wait()), c0 + d),
+          "(e) the center after the elastic exchange differs from c + delta")
+    out.update(c_back_to_back=True, d_two_threads=True,
+               e_elastic_alpha=float(a))
+    ps.send(params0, rule="copy").wait()
+    return out
+
+
+def downpour_ps_phase(torch, mpi, dev):
+    """This slice's main path: BASELINE config 4, AlexNet async downpour
+    at full width (PS_* above), through mpi.parameterserver.init, send,
+    receive, wait and examples.common.run_workers.  First checks (a)-(e)
+    (ps_transport_checks while the host data is made on a thread,
+    ps_fold_check), then the segments: a warm-up step a worker,
+    PS_TIMED_STEPS timed with nothing watching (img/s over both workers
+    from the first timed step's start to the last push applied; each
+    worker's step ms; the push split into its device-to-host wait and the
+    native enqueue and the fetch into its native wait and the copy to the
+    card; the server's cycle costs; peak memory; the table's kernel
+    launches, which must be 0: AlexNet is convolutions and dense layers),
+    PS_PROBE_STEPS watched (the card's busy share, torch.profiler over the
+    window; host syncs a step: the event waits, counted where
+    torch.cuda.Event.synchronize is called, which must be one a push, and
+    the synchronizations PyTorch's sync debug mode sees, which must be
+    none), then PS_CKPT_STEPS while worker 0's checkpoint.save_async of a
+    fresh center and its Adam state is written (f: restored bitwise
+    after)."""
+    import shutil
+    import tempfile
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchmpi_tpu_torch.examples import common
+    from torchmpi_tpu_torch.ops import flash, ring, xent
+    from torchmpi_tpu_torch.utils import checkpoint
+    from torchmpi_tpu_torch.utils import data as dutil
+
+    t_phase = time.perf_counter()
+    timings = {}
+    # The host data, made on a thread of its own (numpy releases the GIL
+    # in its fills) while the models are built and checks (c)-(e) run.
+    host_data = {}
+
+    def make_data():
+        t = time.perf_counter()
+        try:
+            host_data["xy"] = dutil.synthetic_image_classification(
+                PS_IMAGES, image_shape=(PS_IMAGE, PS_IMAGE, 3),
+                num_classes=PS_CLASSES, seed=SEED + 52)
+        except Exception as e:  # noqa: BLE001 — raised by the phase
+            host_data["error"] = e
+        host_data["s"] = time.perf_counter() - t
+
+    maker = threading.Thread(target=make_data)
+    maker.start()
+
+    def make(seed=SEED + 51):
+        return mpi.models.AlexNet(
+            PS_CLASSES, dropout=0.0, image_size=PS_IMAGE, device=dev,
+            generator=torch.Generator(dev).manual_seed(seed))
+
+    model0 = make()
+    params0 = common.params_tree(model0)
+    n_params = sum(p.numel() for p in params0.values())
+    check(n_params == PS_PARAMS, f"AlexNet has {n_params} parameters")
+    ps = mpi.parameterserver.init(params0, num_shards=PS_SHARDS)
+    ckpt_dir = tempfile.mkdtemp(prefix="ps_ckpt_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    try:
+        t0 = time.perf_counter()
+        checks = ps_transport_checks(torch, mpi, ps, params0, dev)
+        timings["checks_c_to_e_s"] = time.perf_counter() - t0
+        replicas = [make() for _ in range(PS_WORKERS)]
+        t0 = time.perf_counter()
+        maker.join()
+        if "error" in host_data:
+            raise host_data["error"]
+        Xh, Yh = host_data.pop("xy")
+        X = torch.from_numpy(Xh).to(dev)
+        Y = torch.from_numpy(Yh).to(dev).long()
+        host_data_bytes = Xh.nbytes
+        del Xh, Yh
+        timings.update(data_s=host_data["s"],
+                       data_wait_and_copy_s=time.perf_counter() - t0)
+        workers = [PSWorker(torch, mpi, m, ps, X, Y, SEED + 53 + w,
+                            1.0 / PS_WORKERS)
+                   for w, m in enumerate(replicas)]
+        t0 = time.perf_counter()
+        checks["a_fold_pushes"] = ps_fold_check(torch, mpi, ps, workers[0],
+                                                params0)
+        timings["checks_a_b_s"] = time.perf_counter() - t0
+        for m, wk in zip(replicas, workers):
+            common.load_params(m, params0)
+            wk.reset()
+        torch.cuda.synchronize(dev)
+
+        segments = (("warmup", 1), ("timed", PS_TIMED_STEPS),
+                    ("probe", PS_PROBE_STEPS), ("ckpt", PS_CKPT_STEPS))
+        # The harness's own event waits go around the probe's count.
+        event_sync = torch.cuda.Event.synchronize
+        barrier = threading.Barrier(PS_WORKERS + 1)
+        saved = {}
+
+        def body(w):
+            wk = workers[w]
+            try:
+                for name, steps in segments:
+                    barrier.wait()
+                    if name == "ckpt" and w == 0:
+                        # A fresh center and this worker's Adam state,
+                        # written while the other worker's step runs.
+                        center = ps.receive().wait()
+                        tree = {"center": center, "adam": list(wk.states)}
+                        t = time.perf_counter()
+                        h = checkpoint.save_async(ckpt_dir, tree, step=1)
+                        saved.update(tree=tree, handle=h, t_start=t,
+                                     t_call=time.perf_counter())
+                    for _ in range(steps):
+                        wk.run_step()
+                    # The segment's end: the last push applied and this
+                    # worker's stream drained (an event wait, which the
+                    # sync debug mode does not flag, past the probe's
+                    # count: the harness's wait, not a step's).
+                    wk.last_push.wait()
+                    done = torch.cuda.Event()
+                    done.record()
+                    event_sync(done)
+                    barrier.wait()
+            except BaseException:
+                barrier.abort()
+                raise
+
+        errors = []
+
+        def run():
+            try:
+                common.run_workers(body, PS_WORKERS, dev)
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+
+        t_segments = time.perf_counter()
+        runner = threading.Thread(target=run)
+        runner.start()
+        result = {}
+        try:
+            for name, steps in segments:
+                t_seg = time.perf_counter()
+                if name == "timed":
+                    ps.client.reset_staging()
+                    stats0 = ps.stats()
+                    torch.cuda.reset_peak_memory_stats(dev)
+                    for mod in (flash, xent, ring):
+                        mod.reset_launches()
+                    for wk in workers:
+                        wk.step_s = []
+                    barrier.wait()
+                    t = time.perf_counter()
+                    barrier.wait()
+                    window_s = time.perf_counter() - t
+                    stats1 = ps.stats()
+                    result.update(
+                        window_s=window_s,
+                        peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+                        table_launches=sum(
+                            sum(mod.LAUNCHES.values())
+                            for mod in (flash, xent, ring)),
+                        staging=ps.client.staging(),
+                        server={k: stats1[k] - stats0[k] for k in stats1},
+                        step_s=[list(wk.step_s) for wk in workers])
+                elif name == "probe":
+                    waits = []
+
+                    def counted(event):
+                        waits.append(1)
+                        return event_sync(event)
+
+                    prof = profile(activities=[ProfilerActivity.CUDA])
+                    prof.start()
+                    with warnings.catch_warnings(record=True) as caught:
+                        warnings.simplefilter("always")
+                        torch.cuda.Event.synchronize = counted
+                        torch.cuda.set_sync_debug_mode("warn")
+                        try:
+                            barrier.wait()
+                            t = time.perf_counter()
+                            barrier.wait()
+                            probe_s = time.perf_counter() - t
+                        finally:
+                            torch.cuda.set_sync_debug_mode("default")
+                            torch.cuda.Event.synchronize = event_sync
+                            prof.stop()
+                    result.update(
+                        probe_s=probe_s, probe_event_waits=len(waits),
+                        sync_debug_warnings=sum(
+                            "synchronizing CUDA operation" in str(c.message)
+                            for c in caught),
+                        sync_debug_sites=sorted({
+                            f"{os.path.basename(c.filename)}:{c.lineno}"
+                            for c in caught if "synchronizing CUDA "
+                            "operation" in str(c.message)}),
+                        busy=device_busy(torch, prof, probe_s))
+                elif name == "ckpt":
+                    barrier.wait()
+                    while "handle" not in saved and not errors:
+                        time.sleep(0.005)
+                    h = saved.get("handle")
+                    while h is not None and not h.done():
+                        time.sleep(0.005)
+                    saved["t_done"] = time.perf_counter()
+                    barrier.wait()
+                else:
+                    barrier.wait()
+                    barrier.wait()
+                timings[f"{name}_segment_s"] = time.perf_counter() - t_seg
+        except threading.BrokenBarrierError:
+            pass  # a worker failed: its error is raised below
+        except BaseException:
+            barrier.abort()
+            runner.join()
+            raise
+        runner.join()
+        if errors:
+            raise errors[0]
+        timings["segments_s"] = time.perf_counter() - t_segments
+
+        # (f) the checkpoint, restored bitwise.
+        saved["handle"].wait(60.0)
+        tree = saved["tree"]
+        t = time.perf_counter()
+        template = {"center": {n: torch.zeros_like(v)
+                               for n, v in tree["center"].items()},
+                    "adam": [mpi.optim.adam(PS_LR).init(torch.zeros_like(
+                        s.mu)) for s in tree["adam"]]}
+        back = checkpoint.restore(ckpt_dir, template, step=1)
+        restore_s = time.perf_counter() - t
+        ok = all(torch.equal(back["center"][n], tree["center"][n])
+                 for n in tree["center"])
+        ok = ok and all(
+            int(b.count) == s.count and torch.equal(b.mu, s.mu)
+            and torch.equal(b.nu, s.nu)
+            for b, s in zip(back["adam"], tree["adam"]))
+        check(ok, "(f) the restored checkpoint differs from what was saved")
+        ckpt_bytes = os.path.getsize(saved["handle"].path)
+        write_s = saved["t_done"] - saved["t_call"]
+        ckpt = {"bytes": ckpt_bytes, "save_async_call_s":
+                saved["t_call"] - saved["t_start"], "write_s": write_s,
+                "mb_per_s": ckpt_bytes / 1e6 / write_s if write_s > 0
+                else None, "restore_s": restore_s,
+                "overlapped_steps": PS_CKPT_STEPS, "restored_bitwise": True}
+        losses = [[float(v) for v in wk.losses] for wk in workers]
+        center = ps.receive().wait()
+        finite = all(bool(torch.isfinite(v).all()) for v in center.values())
+    finally:
+        ps.shutdown()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    st, sv = result["staging"], result["server"]
+    step_ms = [[1e3 * v for v in w] for w in result["step_s"]]
+    timed_images = PS_WORKERS * PS_TIMED_STEPS * PS_BATCH
+    pushes = st["pushes"]
+    probe_pushes = PS_WORKERS * PS_PROBE_STEPS
+    host_syncs = result["probe_event_waits"] + result["sync_debug_warnings"]
+    emit({"phase": "downpour_ps", "workers": PS_WORKERS, "shards": PS_SHARDS,
+          "batch_a_worker": PS_BATCH, "image": PS_IMAGE,
+          "classes": PS_CLASSES, "params": n_params,
+          "flat_bytes": 4 * n_params, "host_data_bytes": host_data_bytes,
+          "transport": PS_TRANSPORT,
+          "timed_steps_a_worker": PS_TIMED_STEPS,
+          "img_per_s": timed_images / result["window_s"],
+          "window_s": result["window_s"],
+          "step_ms": [{"median": statistics.median(w), "min": min(w),
+                       "max": max(w)} for w in step_ms],
+          "push": {"count": pushes,
+                   "d2h_and_wait_ms": 1e3 * st["push_d2h_wait_s"] / pushes,
+                   "native_enqueue_ms": 1e3 * st["push_enqueue_s"] / pushes},
+          "fetch": {"count": st["fetches"],
+                    "native_wait_ms": (1e3 * st["fetch_wait_s"]
+                                       / max(1, st["fetches"])),
+                    "h2d_device_ms": (st["fetch_h2d_ms"]
+                                      / max(1, st["fetches"]))},
+          "server": sv,
+          "probe_steps_a_worker": PS_PROBE_STEPS,
+          "probe_s": result["probe_s"],
+          "host_syncs_per_step": host_syncs / probe_pushes,
+          "event_waits": result["probe_event_waits"],
+          "sync_debug_warnings": result["sync_debug_warnings"],
+          "sync_debug_sites": result["sync_debug_sites"],
+          "peak_mem_bytes": result["peak_mem_bytes"],
+          "card_busy": result["busy"], "table_launches":
+          result["table_launches"], "checks": checks, "checkpoint": ckpt,
+          "losses": losses, "timings": timings,
+          "seconds": time.perf_counter() - t_phase})
+    check(all(math.isfinite(v) for w in losses for v in w),
+          f"non-finite losses {losses}")
+    check(finite, "the center is not finite")
+    check(pushes == PS_WORKERS * PS_TIMED_STEPS,
+          f"{pushes} pushes in the timed steps")
+    check(result["probe_event_waits"] == probe_pushes
+          and result["sync_debug_warnings"] == 0,
+          f"host syncs: {result['probe_event_waits']} event waits for "
+          f"{probe_pushes} pushes, {result['sync_debug_warnings']} other")
+    check(result["table_launches"] == 0,
+          "a kernel of the table launched on the parameter-server path")
+    check(sv["bytes_in"] == pushes * 4 * n_params,
+          f"server bytes_in {sv['bytes_in']} for {pushes} pushes")
+
+
 def main() -> int:
     import torch
 
@@ -3520,11 +4047,33 @@ def main() -> int:
     card = nvidia_smi("name,power.limit")
     print(card, flush=True)
 
+    # The kernels (one nvcc a source, all together) and, beside them, the
+    # parameter server's and the async writer's host libraries (g++).
+    import threading
+
+    from torchmpi_tpu_torch.utils import native
+
     t0 = time.perf_counter()
+    host = {}
+
+    def build_host():
+        try:
+            for name in native.LIBS:
+                t = time.perf_counter()
+                host[name] = {"lib": str(native.build(name)),
+                              "seconds": time.perf_counter() - t}
+        except Exception as e:  # noqa: BLE001 — raised below
+            host["error"] = e
+
+    host_build = threading.Thread(target=build_host)
+    host_build.start()
     _build.build()
+    host_build.join()
+    if "error" in host:
+        raise host["error"]
     ptxas = {n: ptxas_summary(log) for n, log in _build.build_logs.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "dir": str(_build.BUILD_DIR), "ptxas": ptxas,
+          "dir": str(_build.BUILD_DIR), "ptxas": ptxas, "host_libs": host,
           "card_uuid": nvidia_smi("uuid")})
 
     ops = {"flash": flash, "xent": xent}
@@ -3589,6 +4138,11 @@ def main() -> int:
         # 2 x 2 (dcn x ici) grid of the 4 ranks, hierarchical, int8 error
         # feedback, and the ring kernels per node (rows 8-11).
         hier_launches = hier_dp_phase(torch, mpi, dict(ops, ring=ring), dev)
+        torch.cuda.empty_cache()
+        # The main path of slice 18: BASELINE config 4, AlexNet async
+        # downpour at full width through the parameter server (host
+        # threads and loopback TCP; no kernel of the table), checkpoints.
+        downpour_ps_phase(torch, mpi, dev)
         torch.cuda.empty_cache()
         cnn_examples_phase(torch, mpi)
     finally:

@@ -3,7 +3,9 @@
 ``--devices 2`` (``mnist_fsdp`` with 4), and its loss falls; ``mnist_async_allreduce``'s
 overlapped run equals its bucketed one, and ``--eager-loss`` reduces the
 loss through the staged path; the flags whose machinery is not ported
-raise naming their ROADMAP item.  The full-length runs to the JAX
+raise naming their ROADMAP item; the parameter-server examples
+(``mnist_downpour``, ``mnist_easgd``, ``alexnet_downpour``) and
+``checkpoint_resume`` run a few steps.  The full-length runs to the JAX
 examples' accuracy bars (MNIST > 0.9, CIFAR > 0.85) are ``slow`` here, as
 JAX's ``test_resnet20_dp_convergence`` is, and run on the card in
 chip_smoke.py's ``cnn_examples`` phase."""
@@ -101,10 +103,37 @@ def test_eager_loss_reduces_through_the_staged_path():
     assert eager["losses"] == pytest.approx(plain["losses"], rel=1e-6)
 
 
+@pytest.mark.parametrize("name,argv", [
+    ("mnist_downpour", ["--steps", "21", "--batch-size", "32", "--workers",
+                        "2"]),
+    ("mnist_easgd", ["--steps", "21", "--batch-size", "32", "--workers",
+                     "2"]),
+    ("alexnet_downpour", ["--steps", "4", "--batch-size", "4"]),
+    ("checkpoint_resume", ["--steps", "20", "--batch-size", "32"]),
+], ids=["downpour", "easgd", "alexnet-downpour", "checkpoint-resume"])
+def test_ps_example_runs(name, argv):
+    """The parameter-server examples (worker threads sharing one server)
+    and the checkpoint example a few steps: finite losses, worker 0's
+    falling in the MNIST ones (AlexNet's 4 steps at lr 3e-4 are too few to
+    say), the server's op count, and the resumed run below its loss at
+    the crash (``checkpoint_resume`` raises otherwise)."""
+    out = _main(name, argv)
+    losses = out["losses"]
+    assert losses and all(v == v for v in losses)
+    if name.startswith("mnist"):
+        assert losses[-1] < losses[0], losses
+    if name == "checkpoint_resume":
+        assert out["resume_step"] == 10 and out["final"] < out["pre_crash"]
+    else:
+        assert out["ops_served"] > 0 and 0.0 <= out["accuracy"] <= 1.0
+    assert not tmpi.is_initialized()
+
+
 @pytest.mark.parametrize("name,argv,item", [
     ("mnist_allreduce", ["--dcn", "2"], "item 4"),
     ("mnist_allreduce", ["--backend", "hierarchical"], "item 4"),
     ("mnist_allreduce", ["--restart-loop"], "item 10"),
+    ("checkpoint_resume", ["--restart-loop"], "item 10"),
 ])
 def test_unported_flags_raise_by_name(name, argv, item):
     """The flags whose machinery is not ported raise by their ROADMAP item
@@ -138,3 +167,13 @@ def test_example_converges(name, argv):
     AssertionError below it)."""
     out = _main(name, argv)
     assert out["accuracy"] > (0.85 if name.startswith("cifar") else 0.9)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name,bar", [("mnist_downpour", 0.9),
+                                      ("mnist_easgd", 0.9),
+                                      ("alexnet_downpour", 0.2)])
+def test_ps_example_converges(name, bar):
+    """The parameter-server examples' default runs to the JAX examples'
+    bars (MNIST > 0.9; AlexNet's center above twice chance, 2 / 10)."""
+    assert _main(name, [])["accuracy"] > bar

@@ -19,6 +19,9 @@ as CUDA kernels (``ops/csrc``):
     new_params, state = mpi.parallel.zero.update(params, grads, state, tx)
     step = mpi.recipes.make_bn_dp_train_step(resnet, tx, zero=1)  # BN models
     mpi.allreduce_rank_major(xs, backend="hierarchical")  # dcn x ici grid
+    ps = mpi.parameterserver.init(params)   # async PS (downpour, EASGD)
+    ps.send(updates, rule="add"); h = ps.receive(); params = h.wait()
+    mpi.utils.checkpoint.save_async(dir, tree, step=s).wait()
     mpi.stop()
 
 It imports nothing of JAX and nothing of ``torchmpi_tpu``.  Entry points run
@@ -41,7 +44,7 @@ from .runtime import (
 )
 from . import collectives, fusion, selector
 from . import models, nn, ops, optim, parallel, weights
-from . import recipes, utils
+from . import parameterserver, recipes, utils
 from .collectives import (  # noqa: F401
     AsyncHandle, PeerTimeoutError, allgather, allgather_in_axis,
     allgather_rank_major, allreduce, allreduce_in_axis, allreduce_rank_major,
@@ -59,7 +62,8 @@ __all__ = [
     "Config", "init", "stop", "is_initialized", "rank", "size", "local_rank",
     "barrier", "config", "config_epoch", "effective_config", "set_config",
     "collectives", "fusion", "selector", "models", "nn", "ops", "parallel",
-    "weights", "optim", "recipes", "utils", "__version__",
+    "weights", "optim", "parameterserver", "recipes", "utils",
+    "__version__",
     "AsyncHandle", "PeerTimeoutError", "async_", "async_in_axis",
     "sync_handle", "wait_all",
 ] + [f"{verb}{form}" for verb in collectives.VERBS

@@ -29,6 +29,30 @@ def _env_str(name: str, default: str) -> str:
     return os.environ.get(name, default)
 
 
+PS_TIMEOUT_S = 30.0
+
+
+def ps_timeout_s(value: Optional[float] = None) -> float:
+    """The parameter server's socket timeout in seconds (0 disables): the
+    one policy behind ``Config.ps_timeout_s``.  A ``value`` away from the
+    default wins; at the default, or None, the environment decides:
+    ``TORCHMPI_TPU_PS_TIMEOUT`` in seconds, else the legacy
+    ``TORCHMPI_TPU_PS_TIMEOUT_MS`` in milliseconds, else the default.
+    Negative raises, as in the JAX package's ``init``."""
+    if value is None or value == PS_TIMEOUT_S:
+        if os.environ.get("TORCHMPI_TPU_PS_TIMEOUT"):
+            value = float(os.environ["TORCHMPI_TPU_PS_TIMEOUT"])
+        elif os.environ.get("TORCHMPI_TPU_PS_TIMEOUT_MS"):
+            value = float(os.environ["TORCHMPI_TPU_PS_TIMEOUT_MS"]) / 1000.0
+        else:
+            value = PS_TIMEOUT_S
+    value = float(value)
+    if value < 0:
+        raise ValueError(f"config.ps_timeout_s must be >= 0 (0 disables), "
+                         f"got {value}")
+    return value
+
+
 @dataclasses.dataclass
 class Config:
     """All runtime knobs of the port.
@@ -87,6 +111,10 @@ class Config:
       the dcn leg (``compress.py``); "off" never imports the codec module.
     - ``dcn_compress_min_bytes``: a dcn leg (the ici-scattered shard)
       below this crosses uncompressed.
+    - ``ps_timeout_s``: the socket timeout armed on every parameter-server
+      client connection, in seconds: a wedged shard server surfaces as a
+      failed future within this bound instead of hanging ``wait()``; 0
+      disables.  Resolved by :func:`ps_timeout_s`.
     - ``analysis`` and ``obs`` ("off" | ...): the JAX package's static
       collective analysis and telemetry.  Their modules are not ported
       (ROADMAP queue A, items 11 and 10); the recipes refuse any value
@@ -112,6 +140,7 @@ class Config:
     dcn_chunk_bytes: int = 4 * 1024 * 1024
     dcn_compress: str = "off"
     dcn_compress_min_bytes: int = 64 * 1024
+    ps_timeout_s: float = PS_TIMEOUT_S
     analysis: str = "off"
     obs: str = "off"
 
@@ -126,9 +155,9 @@ class Config:
         TORCHMPI_TPU_GRADSYNC_BARRIER, TORCHMPI_TPU_DCN_SIZE,
         TORCHMPI_TPU_ICI_SIZE, TORCHMPI_TPU_HIERARCHICAL,
         TORCHMPI_TPU_DCN_CHUNK_BYTES, TORCHMPI_TPU_DCN_COMPRESS,
-        TORCHMPI_TPU_DCN_COMPRESS_MIN_BYTES, TORCHMPI_TPU_ANALYSIS,
-        TORCHMPI_TPU_OBS; ``pallas_bidirectional`` has none), then apply
-        ``overrides``."""
+        TORCHMPI_TPU_DCN_COMPRESS_MIN_BYTES, TORCHMPI_TPU_PS_TIMEOUT (see
+        :func:`ps_timeout_s`), TORCHMPI_TPU_ANALYSIS, TORCHMPI_TPU_OBS;
+        ``pallas_bidirectional`` has none), then apply ``overrides``."""
         cfg = Config(
             backend=_env_str("TORCHMPI_TPU_BACKEND", "xla"),
             flash_prescale=_env_bool("TORCHMPI_TPU_FLASH_PRESCALE", False),
@@ -154,6 +183,7 @@ class Config:
             dcn_compress=_env_str("TORCHMPI_TPU_DCN_COMPRESS", "off"),
             dcn_compress_min_bytes=_env_int(
                 "TORCHMPI_TPU_DCN_COMPRESS_MIN_BYTES", 64 * 1024),
+            ps_timeout_s=ps_timeout_s(),
             analysis=_env_str("TORCHMPI_TPU_ANALYSIS", "off"),
             obs=_env_str("TORCHMPI_TPU_OBS", "off"),
         )

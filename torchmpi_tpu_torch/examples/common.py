@@ -131,6 +131,67 @@ def check_accuracy(acc: float, bar: float, steps: int, what: str) -> None:
                              f"<= {bar}")
 
 
+def run_workers(worker_fn, n_workers: int,
+                dev: Optional[torch.device] = None) -> int:
+    """Run ``worker_fn(i)`` for i < ``n_workers`` on host threads (the
+    parameter-server examples' workers), and raise the first worker's
+    exception in the caller (a silently dead worker makes a convergence
+    failure undiagnosable).  Returns the number of workers.
+
+    The JAX package pins each worker to its own device and clamps the
+    count to the device count.  Here every worker shares the one card
+    (no clamp): on the card each runs on its own ``torch.cuda.Stream``,
+    after the work queued so far (the initial parameters) has finished,
+    and its stream is drained before the call returns.  The examples draw
+    each worker's batches from a generator seeded by its index."""
+    import threading
+    import traceback
+
+    cuda = dev is not None and dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+    streams = [torch.cuda.Stream(dev) if cuda else None
+               for _ in range(n_workers)]
+    errors = []
+
+    def wrap(i):
+        try:
+            if cuda:
+                with torch.cuda.stream(streams[i]):
+                    worker_fn(i)
+                streams[i].synchronize()
+            else:
+                worker_fn(i)
+        except Exception as e:  # noqa: BLE001 — reported to the caller
+            traceback.print_exc()
+            errors.append((i, e))
+
+    threads = [threading.Thread(target=wrap, args=(i,))
+               for i in range(n_workers)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise RuntimeError(
+            f"{len(errors)} worker(s) failed; first: {errors[0][1]!r}"
+        ) from errors[0][1]
+    return n_workers
+
+
+def params_tree(model: torch.nn.Module) -> dict:
+    """The model's parameters as the parameter server's tree: {name:
+    tensor}, in ``named_parameters`` names (sorted when flattened)."""
+    return {k: p.detach() for k, p in model.named_parameters()}
+
+
+@torch.no_grad()
+def load_params(model: torch.nn.Module, tree: dict) -> None:
+    """Copy a parameter tree (``params_tree``'s names) into ``model``."""
+    for k, p in model.named_parameters():
+        p.copy_(tree[k])
+
+
 def sync(dev: torch.device) -> None:
     """Wait for the card's queued work (nothing to wait for on the CPU)."""
     if dev.type == "cuda":

@@ -44,7 +44,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from .config import Config
+from .config import Config, ps_timeout_s
 
 
 class _State:
@@ -134,6 +134,7 @@ def init(config: Optional[Config] = None, *, device: str = "cuda",
             if not hasattr(cfg, k):
                 raise ValueError(f"unknown config field {k!r}")
             setattr(cfg, k, v)
+        cfg.ps_timeout_s = ps_timeout_s(cfg.ps_timeout_s)
         dev = torch.device(device)
         if dev.type == "cuda":
             if not torch.cuda.is_available():
@@ -199,6 +200,8 @@ def set_config(**overrides) -> None:
         for k in overrides:
             if not hasattr(_state.config, k):
                 raise ValueError(f"unknown config field {k!r}")
+        if "ps_timeout_s" in overrides:
+            overrides["ps_timeout_s"] = ps_timeout_s(overrides["ps_timeout_s"])
         _state.config = dataclasses.replace(_state.config, **overrides)
         _state.config_epoch += 1
 
