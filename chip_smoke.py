@@ -113,7 +113,16 @@ JAX package.  In order it:
    one (rows 9 and 10 bitwise equal to the plain ring, ZeRO-1's update
    within 1e-4 of the replicated one), every launch of rows 8 and 11 on
    the 16-byte path (ZeRO's 6,389,258-element shard is not a multiple of
-   16 bytes: rows 9 and 10 take their element path there);
+   16 bytes: rows 9 and 10 take their element path there); then the
+   planner slice's main path (auto_dp): the same step with no backend
+   named under Config(backend="auto") and a plan file of its own, the
+   first step measuring each plan key its syncs reach (the stock route
+   against rows 8 and 11; the table of medians, jitters and winners
+   printed, the ring measured without error), 8 replayed steps with no
+   new measurement, the same step in turns with backend "pallas", a
+   re-init on the same file bitwise to the per-bucket explicit routes,
+   one key on a dcn 2 x ici 2 grid (three candidates), the planner's
+   host cost a call, and compat.py on the card;
 10. async verbs phase: the nine collective verbs of 4 ranks rank-major
    on the card (float32 at 8,249,691 elements a rank, int32 and bfloat16
    at 300,001; the tiling verbs rounded up to a multiple of 4) against
@@ -444,6 +453,24 @@ HIER_LEGS = ("hier/ici_reduce_scatter", "hier/dcn_allreduce",
              "hier/ici_all_gather")
 HIER_ROWS = R50_ROWS
 HIER_HOPS = "device copies on one card, not NVLink or a network"
+# The planner / tuning slice: resnet50_dp's ResNet-50 step under
+# Config(backend="auto") and a plan file of the phase's own: the first
+# step measures every (op, size bucket) its syncs reach (the 4 gradient
+# buckets' key and the BatchNorm statistics' key: "xla" against the ring,
+# "pallas"), the next AUTO_TIMED_STEPS replay the plans; then a re-init
+# from the same file, one allreduce key of AUTO_GRID_ELEMS float32 a rank
+# on a dcn 2 x ici 2 grid ("hierarchical" a candidate too), the planner's
+# host cost per call of a rank-major "pallas" allreduce at RING_SMALL a
+# rank (AUTO_HOST_CALLS calls a turn, planned and unplanned in turns), and
+# the compat surface.
+AUTO_TIMED_STEPS = 8
+# Steps of the replayed plans and of the same step on backend "pallas"
+# (resnet50_dp's routes), in turns.
+AUTO_TURNS = ("auto", "pallas", "pallas", "auto") * 4
+AUTO_GRID_ELEMS = 1_048_576
+AUTO_HOST_CALLS = 200
+AUTO_HOST_TURNS = (True, False, False, True, True, False, False, True)
+AUTO_ROWS = ("ring_allreduce_chunked", "ring_allreduce")
 # The parameter-server slice: BASELINE config 4 (AlexNet async downpour,
 # examples/alexnet_downpour.py's full configuration): AlexNet at 224 x 224,
 # 1000 classes, dropout 0, float32, 62,378,344 parameters (a 249.5 MB flat
@@ -2271,6 +2298,321 @@ def resnet50_dp_phase(torch, mpi, ops, dev):
               f"{name}: {vector[name]} launches on the 16-byte path")
     return launches
 
+def auto_dp_phase(torch, mpi, ops, dev):
+    """This slice's main path: resnet50_dp's ResNet-50 step (R50_N ranks
+    rank-major, R50_BATCH images a rank, SGD) with no backend named, under
+    Config(backend="auto", tuning_plan_path=<a file of its own>).
+
+    (a) Step 1 measures every plan key the step's syncs reach: each key's
+    candidate medians and jitters, and the winner, are printed; "pallas"
+    must have been measured without an error on every key (the decision
+    log holds no ``errors``).  (b) Steps 2 to 1 + AUTO_TIMED_STEPS replay
+    the plans: no new measurement, the planner's hits grow; the step ms by
+    CUDA events (median, min, max).  Every kernel counter is set to 0 just
+    before step 1 and read after the last.  Then AUTO_TURNS: the replayed
+    step in turns with the same step on backend "pallas" (resnet50_dp's
+    routes), each step's time by CUDA events and the host time until the
+    step returns, and one replayed step's device time by part (no claim
+    on either).  (c) stop / init on the same
+    plan file, then one step (cuDNN deterministic): no measurement, and
+    its parameters, momentum, statistics and loss bitwise equal to the
+    same step with each sync bucket run under the explicit backend its
+    plan chose.  (d) One allreduce key on a dcn 2 x ici 2 grid: three
+    candidates, "hierarchical" among them, none failing; the call bitwise
+    equal to its winner's.  (e) The planner's host cost: host us per call
+    of a planned and an unplanned rank-major "pallas" allreduce at
+    RING_SMALL a rank, in turns (no claim).  (f) compat.py on the card.
+    The runtime is restarted with the default Config at the end."""
+    import shutil
+    import tempfile
+
+    import torchmpi_tpu_torch.compat as compat
+    from torchmpi_tpu_torch.utils import data as dutil
+    from torchmpi_tpu_torch.utils.input_pipeline import prefetch_to_device
+
+    ring = ops["ring"]
+    recipes, fusion, gs = mpi.recipes, mpi.fusion, mpi.parallel.gradsync
+    tuning, planner, sel = mpi.tuning, mpi.planner, mpi.selector
+    n, b = R50_N, R50_BATCH
+    plan_dir = tempfile.mkdtemp(prefix="tm_plans_")
+    cfg = mpi.Config(backend="auto",
+                     tuning_plan_path=os.path.join(plan_dir, "plans.json"))
+    mpi.stop()
+    dev = mpi.init(cfg)
+    try:
+        g = torch.Generator(device=dev).manual_seed(SEED + 8)
+        model = mpi.models.ResNet50(num_classes=R50_CLASSES,
+                                    dtype=torch.bfloat16, device=dev,
+                                    generator=g)
+        params, stats = recipes.bn_state(model)
+        tx = mpi.optim.sgd(R50_LR, momentum=R50_MOMENTUM)
+        opt = [tx.init(p) for p in params]
+        step = recipes.make_bn_dp_train_step_rank_major(model, tx, n)
+        X, Y = dutil.synthetic_image_classification(
+            2 * n * b, image_shape=(R50_IMAGE, R50_IMAGE, 3),
+            num_classes=R50_CLASSES, seed=SEED)
+        it = prefetch_to_device(dutil.batches(
+            X, Y, n * b, steps=AUTO_TIMED_STEPS + len(AUTO_TURNS) + 3,
+            seed=SEED), depth=2, device=dev)
+
+        def batch():
+            xb, yb = next(it)
+            return xb.permute(0, 3, 1, 2), yb
+
+        grid = sel.grid_of(n, dev)
+        spec = fusion.FusedSpec(params)
+        want_keys = {tuning.make_fingerprint("allreduce", (hi - lo) * 4,
+                                             torch.float32, grid)
+                     for gr in spec.groups for lo, hi in gr.bounds}
+        want_keys.add(tuning.make_fingerprint("allreduce", R50_STATS * 4,
+                                              torch.float32, grid))
+        tuning.reset_measurement_count()
+        n_dec = len(tuning.decisions())
+        losses = []
+        torch.cuda.synchronize()
+        for mod in ops.values():
+            mod.reset_launches()
+        # (a) step 1: the measurements.
+        xb, yb = batch()
+        t0 = time.perf_counter()
+        params, opt, stats, loss = step(params, opt, stats, xb, yb)
+        losses.append(loss)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        measured = tuning.measurement_count()
+        decisions = tuning.decisions()[n_dec:]
+        table = []
+        for d in decisions:
+            if d.get("source") != "measured":
+                continue
+            e = tuning.plan().get(d["key"])
+            table.append({"key": d["key"], "median_ms": e.median_ms,
+                          "jitter_ms": e.jitter_ms, "winner": e.backend,
+                          "gated_to_default": d["evidence"].get(
+                              "gated_to_default")})
+        errors = [d for d in decisions if d.get("errors")]
+        # (b) the replayed steps.
+        hits0 = planner.stats()["hits"]
+        step_ms = []
+        for _ in range(AUTO_TIMED_STEPS):
+            xb, yb = batch()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            params, opt, stats, loss = step(params, opt, stats, xb, yb)
+            end.record()
+            end.synchronize()
+            losses.append(loss)
+            step_ms.append(start.elapsed_time(end))
+        launches = {k: ring.LAUNCHES[k] for k in AUTO_ROWS}
+        vector = {k: {"all": ring.LAUNCHES[k],
+                      "vector": ring.VECTOR_LAUNCHES[k]} for k in AUTO_ROWS}
+        replay_hits = planner.stats()["hits"] - hits0
+        replay_measured = tuning.measurement_count() - measured
+        rows = [r for r in planner.describe() if r["kind"] == "gradsync"]
+        plan_rows = [{k: r[k] for k in ("op", "backends", "nbytes", "hits",
+                                        "build_ms", "topology")}
+                     for r in rows]
+        step_ring = recipes.make_bn_dp_train_step_rank_major(
+            model, tx, n, backend="pallas")
+        turns = {"auto": [], "pallas": []}
+        turns_host = {"auto": [], "pallas": []}
+        for name in AUTO_TURNS:
+            xb, yb = batch()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            params, opt, stats, loss = (step if name == "auto" else
+                                        step_ring)(params, opt, stats, xb,
+                                                   yb)
+            turns_host[name].append((time.perf_counter() - t0) * 1e3)
+            end.record()
+            end.synchronize()
+            losses.append(loss)
+            turns[name].append(start.elapsed_time(end))
+        xb, yb = batch()
+        profile = step_profile(torch, lambda: step(params, opt, stats, xb,
+                                                   yb))
+
+        # (c) a new runtime on the same plan file.
+        xb, yb = batch()
+        mpi.stop()
+        dev = mpi.init(cfg)
+        tuning.reset_measurement_count()
+        torch.backends.cudnn.deterministic = True
+        fused = fusion.fused_allreduce_rank_major_
+        synced = gs.synchronize_gradients_rank_major
+        try:
+            got = step(params, opt, stats, xb, yb)
+            reinit_measured = tuning.measurement_count()
+            chosen = {r["nbytes"]: r["backends"] for r in planner.describe()
+                      if r["kind"] == "gradsync"}
+
+            def explicit(stacks, op):
+                backends = chosen[sum(t[0].numel() * t.element_size()
+                                      for t in stacks)]
+                fused(stacks, spec=fusion.FusedSpec([t[0] for t in stacks]),
+                      impls=[sel.select("allreduce_rank_major", bk, ranks=n)
+                             for bk in backends], op=op)
+
+            gs.synchronize_gradients_rank_major = \
+                lambda stacks, **kw: explicit(stacks, "mean")
+            fusion.fused_allreduce_rank_major_ = \
+                lambda stacks, op="sum", **kw: explicit(stacks, op)
+            ref = step(params, opt, stats, xb, yb)
+        finally:
+            gs.synchronize_gradients_rank_major = synced
+            fusion.fused_allreduce_rank_major_ = fused
+            torch.backends.cudnn.deterministic = False
+        reinit_bitwise = (
+            all(torch.equal(a, c) for a, c in zip(got[0], ref[0]))
+            and all(torch.equal(a.trace, c.trace)
+                    for a, c in zip(got[1], ref[1]))
+            and all(torch.equal(a, c) for a, c in zip(got[2], ref[2]))
+            and torch.equal(got[3], ref[3]))
+
+        # (d) one allreduce key on the dcn 2 x ici 2 grid.
+        mpi.set_config(dcn_size=HIER_DCN)
+        xs = torch.randn(n, AUTO_GRID_ELEMS, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             SEED + 20))
+        n_dec = len(tuning.decisions())
+        y = mpi.allreduce_rank_major(xs)
+        (grid_dec,) = [d for d in tuning.decisions()[n_dec:]
+                       if d.get("source") == "measured"]
+        grid_entry = tuning.plan().get(grid_dec["key"])
+        grid_bitwise = torch.equal(y, mpi.allreduce_rank_major(
+            xs, backend=grid_entry.backend))
+        stock = mpi.collectives._stock_allreduce_rank_major(xs)
+        grid_rel = float((y - stock).norm() / stock.norm())
+        mpi.set_config(dcn_size=None)
+
+        # (e) the planner's host cost per call.
+        xs = torch.randn(n, RING_SMALL, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             SEED + 21))
+        host_us = {True: [], False: []}
+        for planned in (True, False) + AUTO_HOST_TURNS:
+            prev = planner.set_enabled(planned)
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(AUTO_HOST_CALLS):
+                    mpi.allreduce_rank_major(xs, backend="pallas")
+                us = (time.perf_counter() - t0) / AUTO_HOST_CALLS * 1e6
+                torch.cuda.synchronize()
+            finally:
+                planner.set_enabled(prev)
+            host_us[planned].append(us)
+        host_us = {k: v[1:] for k, v in host_us.items()}  # warm-up turns
+
+        # (f) the TorchMPI-naming surface.
+        xs = torch.randn(n, RING_SMALL, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             SEED + 22))
+        compat_checks = {"start": compat.start() == dev,
+                         "rank_size": (compat.rank(), compat.size()) == (0, 1)}
+        compat.collectiveSelector("xla")
+        y = compat.allreduceTensor(xs)
+        compat_checks["allreduceTensor"] = torch.equal(
+            y, closed_form(torch, "allreduce", xs))
+        compat_checks["broadcastTensor"] = torch.equal(
+            compat.broadcastTensor(xs, root=2),
+            closed_form(torch, "broadcast", xs, root=2))
+        compat_checks["async_.allreduceTensor"] = torch.equal(
+            compat.syncHandle(compat.async_.allreduceTensor(xs)), y)
+        compat.set_staged_collectives()
+        try:
+            compat_checks["staged_equals_direct"] = torch.equal(
+                compat.allreduceTensor(xs), y)
+        finally:
+            compat.set_direct_collectives()
+        compat.collectiveSelector("pallas")
+        before = dict(ring.LAUNCHES)
+        yp = compat.allreduceTensor(xs)
+        compat_rows = [k for k, v in ring.LAUNCHES.items() if v != before[k]]
+        compat_checks["pallas_bitwise_plain_ring"] = torch.equal(
+            yp, ring.ring_allreduce_plain(xs))
+        compat.set_hierarchical_collectives()
+        hier_on = (mpi.config().hierarchical,
+                   mpi.config().backend) == (True, "hierarchical")
+        compat.set_flat_collectives()
+        compat_checks["hierarchical_then_flat"] = hier_on and (
+            mpi.config().hierarchical, mpi.config().backend) == (False,
+                                                                 "pallas")
+        losses = [float(v) for v in losses]
+    finally:
+        mpi.stop()
+        mpi.init()
+        shutil.rmtree(plan_dir, ignore_errors=True)
+
+    med = statistics.median(step_ms)
+    emit({"phase": "auto_dp", "ranks": n, "batch_per_rank": b,
+          "config": {"model": "ResNet50", "image": R50_IMAGE,
+                     "classes": R50_CLASSES, "dtype": "bfloat16",
+                     "backend": "auto",
+                     "tuning_rounds": tuning.measure.ROUNDS},
+          "plan": table, "measured_keys": measured,
+          "decision_errors": errors, "first_step_ms": first_ms,
+          "plan_rows": plan_rows, "replay_measured": replay_measured,
+          "replay_plan_hits": replay_hits, "losses": losses,
+          "step_ms": step_ms, "median_step_ms": med,
+          "min_step_ms": min(step_ms), "max_step_ms": max(step_ms),
+          "img_per_s": n * b * 1e3 / med,
+          "turns_step_ms": turns,
+          "turns_median_step_ms": {k: statistics.median(v)
+                                   for k, v in turns.items()},
+          "turns_host_ms": turns_host,
+          "turns_median_host_ms": {k: statistics.median(v)
+                                   for k, v in turns_host.items()},
+          "step_device_profile": profile,
+          "reinit_measured": reinit_measured,
+          "reinit_bitwise_vs_explicit_backends": reinit_bitwise,
+          "grid_key": {"key": grid_dec["key"],
+                       "median_ms": grid_entry.median_ms,
+                       "jitter_ms": grid_entry.jitter_ms,
+                       "winner": grid_entry.backend,
+                       "errors": grid_dec.get("errors"),
+                       "bitwise_vs_winner": grid_bitwise,
+                       "rel_l2_vs_stock": grid_rel,
+                       "hops": HIER_HOPS},
+          "host_us_per_call": {"planned": host_us[True],
+                               "unplanned": host_us[False],
+                               "planned_median": statistics.median(
+                                   host_us[True]),
+                               "unplanned_median": statistics.median(
+                                   host_us[False]),
+                               "elems": RING_SMALL, "backend": "pallas",
+                               "calls_a_turn": AUTO_HOST_CALLS},
+          "compat": compat_checks, "compat_pallas_rows": compat_rows,
+          "launches": launches, "launches_on_16_byte_path": vector})
+    check({t["key"] for t in table} == want_keys and measured ==
+          len(want_keys), f"measured {measured} keys {table}, want "
+          f"{sorted(want_keys)}")
+    check(all("pallas" in t["median_ms"] for t in table) and not errors,
+          f"the ring was not measured on every key: {table} {errors}")
+    check(replay_measured == 0 and replay_hits > 0,
+          f"the replayed steps measured {replay_measured} keys, "
+          f"{replay_hits} plan hits")
+    check(reinit_measured == 0 and reinit_bitwise,
+          f"after re-init: {reinit_measured} measurements, bitwise "
+          f"{reinit_bitwise}")
+    check(set(grid_entry.median_ms) == {"xla", "pallas", "hierarchical"}
+          and not grid_dec.get("errors") and grid_bitwise
+          and grid_rel <= BUSBW_STOCK_RTOL,
+          f"the dcn 2 x ici 2 key: {grid_dec}, bitwise {grid_bitwise}, "
+          f"rel. L2 {grid_rel}")
+    check(all(compat_checks.values()) and compat_rows == ["ring_allreduce"],
+          f"compat on the card: {compat_checks}, rows {compat_rows}")
+    check(all(math.isfinite(v) for v in losses), f"non-finite {losses}")
+    for name in AUTO_ROWS:
+        check(launches[name] > 0, f"kernel {name} never launched on the "
+              f"auto_dp path")
+        check(vector[name]["all"] == vector[name]["vector"],
+              f"{name}: {vector[name]} launches on the 16-byte path")
+    return launches, dev
+
 
 def leg_profile(torch, fn, legs=HIER_LEGS) -> dict:
     """Device time of one call of ``fn`` by two-level leg: the kernels
@@ -3499,7 +3841,8 @@ def tree_verbs_phase(torch, mpi, ring, dev):
 
 def allreduce_busbw_phase(torch, mpi, ring, dev):
     """The allreduce bus-bandwidth table (collectives_bench.py :808-947,
-    metrics.allreduce_bus_bandwidth): RING_N ranks rank-major on the card
+    the port's utils.metrics.allreduce_bus_bandwidth): RING_N ranks
+    rank-major on the card
     at BUSBW_SIZES bytes a rank; the allreduce on "pallas" with
     pallas_bidirectional off and on and on the stock route, the allgather
     on "pallas" and the stock route.  Each: ms (median of 10 by CUDA
@@ -3509,6 +3852,8 @@ def allreduce_busbw_phase(torch, mpi, ring, dev):
     result against the plain ring (bitwise; the stock allreduce's left
     fold within BUSBW_STOCK_RTOL).  A failing call fails the run.  Every
     kernel counter is set to 0 just before and read just after."""
+    from torchmpi_tpu_torch.utils import metrics
+
     n = RING_N
     g = torch.Generator(device=dev).manual_seed(SEED + 10)
     lines = []
@@ -3541,8 +3886,8 @@ def allreduce_busbw_phase(torch, mpi, ring, dev):
                 "op": op, "backend": backend, "bidirectional": bidir,
                 "bytes": nbytes, "ranks": n, "rows": launched, "ms": ms,
                 "algbw_GBs": algbw,
-                "busbw_GBs": (algbw * 2 * (n - 1) / n if op == "allreduce"
-                              else algbw),
+                "busbw_GBs": (metrics.allreduce_bus_bandwidth(
+                    nbytes, n, ms / 1e3) if op == "allreduce" else algbw),
                 "bitwise_vs_plain_ring": exact, "max_rel_err": err,
                 "hops": BUSBW_HOPS})
         mpi.set_config(pallas_bidirectional=False)
@@ -4116,6 +4461,12 @@ def main() -> int:
         r50_launches = resnet50_dp_phase(torch, mpi, dict(ops, ring=ring),
                                          dev)
         torch.cuda.empty_cache()
+        # The main path of slice 19: the same ResNet-50 step with its routes
+        # measured and planned (backend "auto": rows 8 and 11 against the
+        # stock route), the planner's host cost, compat.py.
+        auto_launches, dev = auto_dp_phase(torch, mpi, dict(ops, ring=ring),
+                                           dev)
+        torch.cuda.empty_cache()
         # The main paths of slice 13: the nine verbs, staged and async, of
         # RING_N ranks on the card and across the NCCL world of one; then
         # ResNet-50 with its sync fired from the backward hooks on a side
@@ -4166,7 +4517,9 @@ def main() -> int:
                 **({"allreduce_busbw": busbw_launches[name]}
                    if busbw_launches.get(name) else {}),
                 **({"hier_dp": hier_launches[name]}
-                   if hier_launches.get(name) else {})}
+                   if hier_launches.get(name) else {}),
+                **({"auto_dp": auto_launches[name]}
+                   if auto_launches.get(name) else {})}
 
     kernels = [{**{k: dict(row, launches=sum(by_path(
                     row["name"]).values()))[k] for k in keys},

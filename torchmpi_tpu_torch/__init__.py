@@ -19,6 +19,7 @@ as CUDA kernels (``ops/csrc``):
     new_params, state = mpi.parallel.zero.update(params, grads, state, tx)
     step = mpi.recipes.make_bn_dp_train_step(resnet, tx, zero=1)  # BN models
     mpi.allreduce_rank_major(xs, backend="hierarchical")  # dcn x ici grid
+    mpi.init(mpi.Config(backend="auto"))    # routes measured, then planned
     ps = mpi.parameterserver.init(params)   # async PS (downpour, EASGD)
     ps.send(updates, rule="add"); h = ps.receive(); params = h.wait()
     mpi.utils.checkpoint.save_async(dir, tree, step=s).wait()
@@ -42,7 +43,7 @@ from .runtime import (
     size,
     stop,
 )
-from . import collectives, fusion, selector
+from . import collectives, fusion, planner, selector, tuning
 from . import models, nn, ops, optim, parallel, weights
 from . import parameterserver, recipes, utils
 from .collectives import (  # noqa: F401
@@ -61,7 +62,7 @@ __version__ = "0.1.0"
 __all__ = [
     "Config", "init", "stop", "is_initialized", "rank", "size", "local_rank",
     "barrier", "config", "config_epoch", "effective_config", "set_config",
-    "collectives", "fusion", "selector", "models", "nn", "ops", "parallel",
+    "collectives", "fusion", "planner", "selector", "tuning", "models", "nn", "ops", "parallel",
     "weights", "optim", "parameterserver", "recipes", "utils",
     "__version__",
     "AsyncHandle", "PeerTimeoutError", "async_", "async_in_axis",

@@ -12,15 +12,15 @@ from __future__ import annotations
 
 from typing import Any, Callable, List, Tuple
 
-# A flattened tree's structure: ("leaf",), or (container type, keys or
-# length, child structures).
+# A flattened tree's structure, hashable (a plan key): ("leaf",), or
+# (container type, dict keys or None, child structures).
 TreeDef = Tuple
 
 
 def _children(node) -> Tuple[Any, list]:
     """(keys or None, children) of a container node."""
     if isinstance(node, dict):
-        keys = sorted(node)
+        keys = tuple(sorted(node))  # a tuple: a structure is hashable
         return keys, [node[k] for k in keys]
     return None, list(node)
 

@@ -36,6 +36,13 @@ reference's staged collectives): the rank-major stack goes device ->
 pinned host, the closed form runs on the host CPU, and the result goes
 back to the device: the same answer op for op, dtype included.
 
+Every dispatch goes through its plan (``planner.py``): the route (the
+Config's backend, the selector's rules, and under ``"auto"`` the tuning
+plans' measured choice) and a tree's fused layout are decided on the
+first call of a structure and replayed after;
+:func:`clear_cache` drops the plans.  With ``planner.set_enabled(False)``
+each call derives them again (the unplanned path, the same bits).
+
 The asynchronous facade (``async_.<verb>`` rank-major, ``async_in_axis.
 <verb>`` across processes) returns an :class:`AsyncHandle`.  A direct
 rank-major collective is enqueued on a side CUDA stream after the caller's
@@ -56,7 +63,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 import torch
 import torch.distributed as dist
 
-from . import _tree, fusion, runtime, selector
+from . import _tree, fusion, planner, runtime, selector
 from .ops import ring
 
 AxisNames = Union[str, Sequence[str], None]
@@ -330,6 +337,11 @@ def _fold_ranks(xs) -> torch.Tensor:
 
 
 def _reduced(xs: torch.Tensor, op: str) -> torch.Tensor:
+    """The reduction over the rank axis: the left fold for sum and mean,
+    the elementwise extreme for max and min (the JAX package's
+    ``_host_staged`` :492-493)."""
+    if op in ("max", "min"):
+        return xs.amax(0) if op == "max" else xs.amin(0)
     _check_op(op)
     total = _fold_ranks(xs)
     return _mean_of(total, xs.shape[0]) if op == "mean" else total
@@ -337,7 +349,7 @@ def _reduced(xs: torch.Tensor, op: str) -> torch.Tensor:
 
 def _stock_allreduce_rank_major(xs: torch.Tensor, *,
                                 op: str = "sum") -> torch.Tensor:
-    """Every rank's slice is the sum (or mean) over ranks."""
+    """Every rank's slice is the sum (or mean, max, min) over ranks."""
     return _reduced(xs, op).expand(xs.shape[0], *xs.shape[1:]).clone()
 
 
@@ -348,8 +360,8 @@ def _stock_broadcast_rank_major(xs: torch.Tensor, *,
 
 def _stock_reduce_rank_major(xs: torch.Tensor, *, root: int = 0,
                              op: str = "sum") -> torch.Tensor:
-    """Slice ``root`` is the sum (or mean) over ranks, the others are
-    unchanged (in the result's dtype: float32 for an integer mean)."""
+    """Slice ``root`` is the sum (or mean, max, min) over ranks, the others
+    are unchanged (in the result's dtype: float32 for an integer mean)."""
     red = _reduced(xs, op)
     out = xs.to(red.dtype, copy=True)
     out[root] = red
@@ -453,6 +465,12 @@ for _verb in ("broadcast", "allgather", "gather", "scatter"):
                       CLOSED_FORMS[_verb])
 
 
+def clear_cache() -> None:
+    """Drop every collective plan: the one invalidation point
+    (``planner.invalidate``, JAX :470-476)."""
+    planner.invalidate()
+
+
 # ---------------------------------------------------------------------------
 # Process-world verbs
 # ---------------------------------------------------------------------------
@@ -475,17 +493,31 @@ def _nbytes(x: torch.Tensor) -> int:
 def _world(verb: str, x, backend: Optional[str], params: dict, *,
            async_op: bool = False, axis: Optional[str] = None,
            owned: bool = False):
-    """Process-world ``verb`` on this rank's ``x``: the selector's
-    implementation for its bytes (the in-place ones on a copy, unless the
-    caller ``owned`` ``x``).  ``axis`` ("dcn" or "ici") runs it on that
-    axis's subgroup (an axis of one member computes the closed form here;
-    the hierarchical backend spans both axes, so it falls back there).
-    With ``async_op`` the process group's work in flight (a
-    :class:`_Pending`), or the result of an implementation that has no
-    asynchronous form."""
+    """Process-world ``verb`` on this rank's ``x``: its plan's
+    implementation (``planner.plan_world``; with the planner off, the
+    selector's for its bytes), run by :func:`_world_run`."""
     x = _check_tensor(x)
+    if planner.enabled():
+        return planner.plan_world(verb, x, backend, params, axis).replay(
+            x, async_op=async_op, owned=owned)
     impl = selector.select(verb, backend, nbytes=_nbytes(x),
-                           n_dcn=None if axis is None else 1)
+                           n_dcn=None if axis is None else 1, dtype=x.dtype,
+                           device=x.device,
+                           axes=None if axis is None else (axis,))
+    return _world_run(verb, impl, x, params, async_op=async_op, axis=axis,
+                      owned=owned)
+
+
+def _world_run(verb: str, impl: Callable, x: torch.Tensor, params: dict,
+               *, async_op: bool = False, axis: Optional[str] = None,
+               owned: bool = False):
+    """``impl`` of process-world ``verb`` on ``x`` (the in-place ones on a
+    copy, unless the caller ``owned`` ``x``).  ``axis`` ("dcn" or "ici")
+    runs it on that axis's subgroup (an axis of one member computes the
+    closed form here; the hierarchical backend spans both axes, so it
+    falls back there).  With ``async_op`` the process group's work in
+    flight (a :class:`_Pending`), or the result of an implementation that
+    has no asynchronous form."""
     if axis is not None:
         if runtime.grid()[0 if axis == "dcn" else 1] == 1:
             return CLOSED_FORMS[verb](x[None], **params)[0]
@@ -598,6 +630,10 @@ def _tree_in_axis(verb: str, tree, kw: dict, axis: Optional[str]):
             _check_tensor(x)
     backend = kw.get("backend")
     params = {k: v for k, v in kw.items() if k != "backend"}
+    if planner.enabled():
+        plan = planner.plan_in_axis(verb, tree, backend, params, axis)
+        if plan is not None:
+            return plan.replay(tree)
     fused = None
     if verb in fusion.ELEMENTWISE_OPS:
         fused = fusion.maybe_fuse(verb, tree, backend=backend, axis=axis,
@@ -663,11 +699,11 @@ def _rank_major(verb: str, xs, backend: Optional[str],
                 n_dcn: Optional[int] = None):
     """The implementation of rank-major ``verb`` for ``xs`` [n, ...] (the
     selector's rules on one rank's bytes), on ``n_dcn`` nodes (None: the
-    world's grid of n)."""
+    world's grid of n); the unplanned path's."""
     _check_stack(verb, xs)
     return selector.select(f"{verb}_rank_major", backend,
                            nbytes=_nbytes(xs[0]), ranks=xs.shape[0],
-                           n_dcn=n_dcn)
+                           n_dcn=n_dcn, dtype=xs.dtype, device=xs.device)
 
 
 def _staged_requested(backend: Optional[str],
@@ -727,11 +763,23 @@ def _eager(verb: str, xs, backend: Optional[str], staged: Optional[bool],
            n_dcn: Optional[int] = None) -> torch.Tensor:
     _check_stack(verb, xs)
     axis = _world_axes(f"{verb}_rank_major", axis_names)
+    if planner.enabled():
+        return planner.plan_for(verb, xs, backend, staged, params, axis,
+                                n_dcn).replay(xs)
+    return _eager_unplanned(verb, xs, backend, staged, params, axis, n_dcn)
+
+
+def _eager_unplanned(verb: str, xs: torch.Tensor, backend: Optional[str],
+                     staged: Optional[bool], params: dict,
+                     axis: Optional[str], n_dcn: Optional[int]
+                     ) -> torch.Tensor:
+    """A rank-major call derived in full: staged or direct, the axis's
+    groups, the selector's implementation."""
     if axis is not None:
         # Each group of one axis is a one-level stack.
         v = _axis_view(xs, axis)
-        outs = [_eager(verb, v[g], backend, staged, params, n_dcn=1)
-                for g in range(v.shape[0])]
+        outs = [_eager_unplanned(verb, v[g], backend, staged, params, None,
+                                 1) for g in range(v.shape[0])]
         return _from_axis_view(torch.stack(outs), axis)
     if _staged_requested(backend, staged):
         return _place(_host_compute(verb, _to_host(xs), params, xs.device),
@@ -1071,13 +1119,22 @@ def _async_rank_major(verb: str, xs, *, backend: Optional[str] = None,
                                         dict(params), donate, ready)
         return AsyncHandle(future=fut, device=xs.device, op=verb)
     try:
-        impl = _rank_major(verb, xs, backend)
+        # The route ("auto" measured on a plan miss) is resolved here, on
+        # the caller's stream, never on the side stream.
+        if planner.enabled():
+            run = planner.plan_for(verb, xs, backend, False, params, None,
+                                   None).replay
+        else:
+            impl = _rank_major(verb, xs, backend)
+
+            def run(x):
+                return impl(x, **params)
         if not xs.is_cuda:
-            return AsyncHandle(impl(xs, **params), op=verb)
+            return AsyncHandle(run(xs), op=verb)
         side = side_stream(xs.device)
         side.wait_stream(torch.cuda.current_stream(xs.device))
         with torch.cuda.stream(side):
-            out = impl(xs, **params)
+            out = run(xs)
             event = torch.cuda.Event()
             event.record(side)
         xs.record_stream(side)
@@ -1087,13 +1144,19 @@ def _async_rank_major(verb: str, xs, *, backend: Optional[str] = None,
 
 
 def _async_world(verb: str, x, axis_names: AxisNames = None, *,
-                 backend: Optional[str] = None, **params) -> AsyncHandle:
+                 backend: Optional[str] = None,
+                 impl: Optional[Callable] = None, **params) -> AsyncHandle:
     """Dispatch process-world ``verb`` and return its handle: the process
     group's ``async_op=True`` work (an implementation with no asynchronous
-    form, the ring in a world of one, runs at once)."""
+    form, the ring in a world of one, runs at once).  ``impl``: a plan's
+    implementation, run as it is."""
     axis = _world_axes(f"async_in_axis.{verb}", axis_names)
     try:
-        got = _world(verb, x, backend, params, async_op=True, axis=axis)
+        if impl is not None:
+            got = _world_run(verb, impl, _check_tensor(x), params,
+                             async_op=True, axis=axis)
+        else:
+            got = _world(verb, x, backend, params, async_op=True, axis=axis)
     except Exception as e:  # noqa: BLE001 - a failed handle is done
         return AsyncHandle(op=verb, error=e)
     if isinstance(got, _Pending):

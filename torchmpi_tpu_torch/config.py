@@ -60,7 +60,15 @@ class Config:
     - ``backend``: default collective route.  ``"xla"`` is the stock route,
       which here is the process group's own backend (NCCL on the card, gloo
       on the CPU); ``"pallas"`` names the hand-written ring kernels
-      (``ops/ring.py``, see selector.py for where they run).
+      (``ops/ring.py``, see selector.py for where they run);
+      ``"hierarchical"`` the two-level verbs; ``"auto"`` the measured
+      choice of the tuning plans (``tuning/``): per (op, size bucket,
+      grid, platform), measured on the first eager call of a key and
+      persisted.
+    - ``tuning_plan_path``: the plan file ``"auto"`` reads and extends;
+      None resolves to ``TORCHMPI_TPU_TUNING_PLAN``, then
+      ``<checkout>/.tuning_plans_torch/plans.json``.  A corrupt or
+      mismatched file degrades silently to static selection.
     - ``flash_prescale``: fold the attention scale into q once at the kernel
       boundary; the backward puts it back on dq by the chain rule.
     - ``fuse_max_bytes``: upper bound on one fused gradient bucket; leaves
@@ -122,6 +130,7 @@ class Config:
     """
 
     backend: str = "xla"
+    tuning_plan_path: Optional[str] = None
     flash_prescale: bool = False
     fuse_max_bytes: int = 32 * 1024 * 1024
     gradsync_average: bool = True
@@ -147,6 +156,7 @@ class Config:
     @staticmethod
     def from_env(**overrides) -> "Config":
         """Build a Config from the environment (TORCHMPI_TPU_BACKEND,
+        TORCHMPI_TPU_TUNING_PLAN,
         TORCHMPI_TPU_FLASH_PRESCALE, TORCHMPI_TPU_FUSE_MAX_BYTES,
         TORCHMPI_TPU_GRADSYNC_AVERAGE, TORCHMPI_TPU_GRADSYNC_COMPRESS,
         TORCHMPI_TPU_CHUNK_BYTES, TORCHMPI_TPU_CUSTOM_MIN_BYTES,
@@ -160,6 +170,8 @@ class Config:
         ``pallas_bidirectional`` has none), then apply ``overrides``."""
         cfg = Config(
             backend=_env_str("TORCHMPI_TPU_BACKEND", "xla"),
+            tuning_plan_path=(
+                os.environ.get("TORCHMPI_TPU_TUNING_PLAN") or None),
             flash_prescale=_env_bool("TORCHMPI_TPU_FLASH_PRESCALE", False),
             fuse_max_bytes=_env_int("TORCHMPI_TPU_FUSE_MAX_BYTES",
                                     32 * 1024 * 1024),

@@ -44,7 +44,7 @@ forms.
 from __future__ import annotations
 
 import functools
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -227,40 +227,100 @@ def scatter_bucket(flat: torch.Tensor, tensors: Sequence[torch.Tensor],
         off += b - a
 
 
+def run_bucket(op: str, buf: torch.Tensor, params: dict, *,
+               impl: Optional[Callable] = None,
+               backend: Optional[str] = None, axis: Optional[str] = None,
+               owned: bool = False):
+    """Selector op ``op`` on one bucket, the one runner of every fused
+    path and of the planner's measurements: ``buf`` is a rank-major
+    [n, ...] stack for a ``*_rank_major`` op, else this rank's buffer over
+    the process world (or ``axis``'s subgroup; ``owned``: the in-place
+    verbs may write it).  ``impl`` is a plan's; None takes the selector's
+    for ``backend`` on one rank's bytes."""
+    from . import collectives
+
+    rank_major = op.endswith("_rank_major")
+    if impl is None:
+        one = buf[0] if rank_major else buf
+        impl = selector.select(
+            op, backend, nbytes=one.numel() * one.element_size(),
+            ranks=buf.shape[0] if rank_major else None,
+            n_dcn=None if axis is None else 1, dtype=buf.dtype,
+            device=buf.device, axes=None if axis is None else (axis,))
+    if rank_major:
+        return impl(buf, **params)
+    return collectives._world_run(op, impl, buf, params, axis=axis,
+                                  owned=owned)
+
+
+def run_buckets(op: str, tensors: Sequence[torch.Tensor], spec: FusedSpec,
+                params: dict, *, impls: Optional[Sequence] = None,
+                backend: Optional[str] = None) -> int:
+    """``op`` over ``tensors`` (rank-major stacks for a ``*_rank_major``
+    op) in place, one :func:`run_bucket` per bucket of ``spec``
+    (``impls[k]``, a plan's in bucket order, else the selector's for
+    ``backend``): gathered, run and scattered back.  Returns the number of
+    launches."""
+    rank_major = op.endswith("_rank_major")
+    k = -1
+    for g in spec.groups:
+        for lo, hi in g.bounds:
+            k += 1
+            if lo == hi:  # a group of empty tensors
+                continue
+            buf = gather_bucket(tensors, g, lo, hi, rank_major=rank_major)
+            out = run_bucket(op, buf, params, backend=backend, owned=True,
+                             impl=None if impls is None else impls[k])
+            scatter_bucket(out, tensors, g, lo, rank_major=rank_major)
+    return spec.n_launches
+
+
+def _planned(tensors, *, rank_major: bool, backend: Optional[str],
+             verb: str, **params) -> Optional[int]:
+    """The fused call through its plan (``planner.plan_gradsync``: the
+    layout and each bucket's implementation bound once), or None with
+    the planner off."""
+    from . import planner
+
+    if not planner.enabled():
+        return None
+    return planner.plan_gradsync(tensors, n_buckets=1, backend=backend,
+                                 rank_major=rank_major, verb=verb,
+                                 **params).replay(tensors)
+
+
 def fused_(op_name: str, tensors: Sequence[torch.Tensor], *,
            spec: Optional[FusedSpec] = None, backend: Optional[str] = None,
-           **params) -> int:
+           impls: Optional[Sequence] = None, **params) -> int:
     """Run collective ``op_name`` ("allreduce" or "broadcast") over ``tensors``
-    in place, one launch per bucket; each bucket's implementation is the
-    selector's for its bytes.  Tensors must be contiguous.  Returns the
-    number of launches."""
+    in place, one launch per bucket (:func:`run_buckets`; ``impls`` a
+    plan's).  Without ``spec`` and ``impls`` the call goes through its
+    plan.  Tensors must be contiguous.  Returns the number of launches."""
     for t in tensors:
         if not t.is_contiguous():
             raise ValueError("fused collectives need contiguous tensors")
-    if spec is None:
-        spec = FusedSpec(tensors)
-    for g in spec.groups:
-        for lo, hi in g.bounds:
-            if lo == hi:  # a group of empty tensors
-                continue
-            buf = gather_bucket(tensors, g, lo, hi)
-            impl = selector.select(op_name, backend,
-                                   nbytes=buf.numel() * buf.element_size())
-            scatter_bucket(impl(buf, **params), tensors, g, lo)
-    return spec.n_launches
+    if spec is None and impls is None and tensors:
+        got = _planned(tensors, rank_major=False, backend=backend,
+                       verb=op_name, **params)
+        if got is not None:
+            return got
+    return run_buckets(op_name, tensors, spec or FusedSpec(tensors), params,
+                       impls=impls, backend=backend)
 
 
 def fused_allreduce_rank_major_(stacks: Sequence[torch.Tensor], *,
                                 spec: Optional[FusedSpec] = None,
                                 backend: Optional[str] = None,
-                                op: str = "sum") -> int:
+                                op: str = "sum",
+                                impls: Optional[Sequence] = None) -> int:
     """Allreduce rank-major stacks ([n, ...] each, ``stacks[i][r]`` = rank
     r's tensor i, all on one device) over the rank axis, in place, one
     rank-major allreduce per bucket (``collectives.allreduce_rank_major``'s
-    routes; ``backend="pallas"`` is one ring launch per bucket).  The
-    buckets are ``FusedSpec``'s over one rank's tensors.  Stacks must be
-    contiguous; a mean needs floating stacks (its result is written back in
-    their dtype).  Returns the number of launches."""
+    routes; ``backend="pallas"`` is one ring launch per bucket; ``impls``
+    a plan's per bucket).  The buckets are ``FusedSpec``'s over one rank's
+    tensors; without ``spec`` and ``impls`` the call goes through its plan.
+    Stacks must be contiguous; a mean needs floating stacks (its result is
+    written back in their dtype).  Returns the number of launches."""
     if not stacks:
         return 0
     n = stacks[0].shape[0]
@@ -271,18 +331,14 @@ def fused_allreduce_rank_major_(stacks: Sequence[torch.Tensor], *,
         if op == "mean" and not t.dtype.is_floating_point:
             raise TypeError(f"a mean of {t.dtype} stacks is not written back "
                             f"in place")
-    if spec is None:
-        spec = FusedSpec([t[0] for t in stacks])
-    for g in spec.groups:
-        for lo, hi in g.bounds:
-            if lo == hi:
-                continue
-            buf = gather_bucket(stacks, g, lo, hi, rank_major=True)
-            impl = selector.select(
-                "allreduce_rank_major", backend,
-                nbytes=(hi - lo) * buf.element_size(), ranks=n)
-            scatter_bucket(impl(buf, op=op), stacks, g, lo, rank_major=True)
-    return spec.n_launches
+    if spec is None and impls is None:
+        got = _planned(stacks, rank_major=True, backend=backend,
+                       verb="allreduce", op=op)
+        if got is not None:
+            return got
+    return run_buckets("allreduce_rank_major", stacks,
+                       spec or FusedSpec([t[0] for t in stacks]),
+                       {"op": op}, impls=impls, backend=backend)
 
 
 # ---------------------------------------------------------------------------
@@ -317,25 +373,27 @@ def elementwise_spec(op_name: str, leaves: Sequence) -> Optional[FusedSpec]:
 
 def fuse_tree(op_name: str, tree, *, spec: Optional[FusedSpec] = None,
               backend: Optional[str] = None, axis: Optional[str] = None,
-              **params):
+              impls: Optional[Sequence] = None, **params):
     """Process-world ``op_name`` over every tensor of ``tree`` (over the
     world, or over ``axis``'s subgroup), one selector-routed launch per
-    (dtype group x bucket), out of place (JAX :244).  Each group is copied
-    into one buffer, on which the verbs' in-place implementations work;
-    the result tensors are views of the reduced buffers, in the dtype the
-    verb gives (float32 for an integer mean, as per tensor)."""
-    from . import collectives
-
+    (dtype group x bucket; ``impls`` a plan's, bucket order), out of place
+    (JAX :244).  Each group is copied into one buffer, on which the verbs'
+    in-place implementations work; the result tensors are views of the
+    reduced buffers, in the dtype the verb gives (float32 for an integer
+    mean, as per tensor)."""
     leaves, treedef = _tree.flatten(tree)
     if spec is None:
         spec = FusedSpec(leaves)
     out: List = [None] * spec.n_tensors
+    k = 0
     for g in spec.groups:
         flat = group_flat(leaves, g)
         parts = []
         for lo, hi in g.bounds:
-            parts.append(collectives._world(op_name, flat[lo:hi], backend,
-                                            params, axis=axis, owned=True))
+            parts.append(run_bucket(
+                op_name, flat[lo:hi], params, backend=backend, axis=axis,
+                owned=True, impl=None if impls is None else impls[k]))
+            k += 1
         gout = parts[0] if len(parts) == 1 else torch.cat(parts)
         off = 0
         for i, shape, size in zip(g.indices, g.shapes, g.sizes):
@@ -380,27 +438,36 @@ def _tile_shapes(g: DtypeGroup, bucket: Sequence[int], n: int):
                (shape[0] // n,) + tuple(shape[1:]))
 
 
+def tile_bucket(leaves: Sequence[torch.Tensor], g: DtypeGroup,
+                bucket: Sequence[int], n: int) -> torch.Tensor:
+    """One reduce-scatter bucket in the tile-interleaved layout: each
+    tensor viewed as its n tiles (``reshape(n, -1)``), concatenated along
+    the tile axis, flat."""
+    tiles = [leaves[g.indices[pos]].reshape(n, -1) for pos in bucket]
+    return (tiles[0] if len(tiles) == 1 else torch.cat(tiles, 1)).reshape(-1)
+
+
 def fused_reduce_scatter(tree, *, spec: FusedSpec, n: int,
                          backend: Optional[str] = None, op: str = "sum",
-                         axis: Optional[str] = None):
+                         axis: Optional[str] = None,
+                         impls: Optional[Sequence] = None):
     """The process-world reduce-scatter of every tensor of ``tree`` over
-    ``n`` ranks, one launch per whole-tensor bucket, in the tile-interleaved
-    layout (JAX :379): each tensor viewed as its n tiles
-    (``reshape(n, -1)``) and a bucket concatenated along the tile axis, so
-    that rank i's extent is ``[tensor0 tile i | tensor1 tile i | ...]``,
-    bit for bit the per-tensor results.  ``axis`` runs it over that axis's
-    subgroup, of ``n`` ranks."""
-    from . import collectives
-
+    ``n`` ranks, one launch per whole-tensor bucket (``impls`` a plan's,
+    bucket order), in the tile-interleaved layout (JAX :379): each tensor
+    viewed as its n tiles and a bucket concatenated along the tile axis
+    (:func:`tile_bucket`), so that rank i's extent is ``[tensor0 tile i |
+    tensor1 tile i | ...]``, bit for bit the per-tensor results.  ``axis``
+    runs it over that axis's subgroup, of ``n`` ranks."""
     leaves, treedef = _tree.flatten(tree)
     out: List = [None] * spec.n_tensors
+    k = 0
     for g in spec.groups:
         for bucket in g.leaf_buckets:
-            tiles = [leaves[g.indices[pos]].reshape(n, -1) for pos in bucket]
-            flat = (tiles[0] if len(tiles) == 1
-                    else torch.cat(tiles, 1)).reshape(-1)
-            shard = collectives._world("reduce_scatter", flat, backend,
-                                       {"op": op}, axis=axis)
+            shard = run_bucket("reduce_scatter",
+                               tile_bucket(leaves, g, bucket, n), {"op": op},
+                               backend=backend, axis=axis,
+                               impl=None if impls is None else impls[k])
+            k += 1
             off = 0
             for i, ts, shape in _tile_shapes(g, bucket, n):
                 out[i] = shard[off:off + ts].reshape(shape)
@@ -437,12 +504,14 @@ def fused_reduce_scatter_rank_major(stacks: Sequence[torch.Tensor], *,
     if not stacks:
         return []
     n = stacks[0].shape[0]
+
+    def run(t: torch.Tensor):
+        return run_bucket("reduce_scatter_rank_major", t, {"op": op},
+                          backend=backend)
+
     spec = reduce_scatter_spec([t[0] for t in stacks], n)
     if spec is None:
-        return [selector.select(
-            "reduce_scatter_rank_major", backend,
-            nbytes=t[0].numel() * t.element_size(), ranks=n)(t, op=op)
-            for t in stacks]
+        return [run(t) for t in stacks]
     out: List = [None] * spec.n_tensors
     for g in spec.groups:
         for bucket in g.leaf_buckets:
@@ -450,10 +519,7 @@ def fused_reduce_scatter_rank_major(stacks: Sequence[torch.Tensor], *,
                      for pos in bucket]
             buf = (tiles[0] if len(tiles) == 1
                    else torch.cat(tiles, 2)).reshape(n, -1)
-            impl = selector.select("reduce_scatter_rank_major", backend,
-                                   nbytes=buf[0].numel() * buf.element_size(),
-                                   ranks=n)
-            shard = impl(buf, op=op).reshape(n, -1)
+            shard = run(buf).reshape(n, -1)
             off = 0
             for i, ts, shape in _tile_shapes(g, bucket, n):
                 out[i] = shard[:, off:off + ts].reshape(n, *shape)

@@ -36,7 +36,7 @@ from typing import Callable, Iterable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from .. import collectives, fusion, runtime, selector
+from .. import collectives, fusion, planner, runtime, selector
 from ..config import wire_compress
 
 Params = Union[torch.nn.Module, Iterable[torch.Tensor]]
@@ -186,6 +186,16 @@ def _sync_(grads: List[torch.Tensor], *, backend: Optional[str],
         n_buckets = runtime.effective_config().gradsync_buckets
     wire = ([g.to(torch.bfloat16) for g in grads] if compress == "bf16"
             else grads)
+    if planner.enabled() and wire:
+        # The bucket layout and each bucket's route, bound once per
+        # gradient structure (JAX :230-234).
+        planner.plan_gradsync(wire, n_buckets=n_buckets, backend=backend,
+                              barrier=bool(barrier), rank_major=rank_major,
+                              op=op).replay(wire)
+        if compress == "bf16":
+            for g, w in zip(grads, wire):
+                g.copy_(w)
+        return None
     spec = None
     if n_buckets > 1 and wire:
         spec = fusion.FusedSpec([t[0] for t in wire] if rank_major else wire,
@@ -289,23 +299,21 @@ def synchronize_gradients_rank_major(stacks: Sequence[torch.Tensor], *,
 # ---------------------------------------------------------------------------
 
 
-def _plan_bucket_edge(nbytes: int) -> int:
-    """``nbytes`` rounded down to a power of two: the tuning plan's log2
-    size bucket edge (the JAX package's ``tuning/fingerprint.py`` :23-30,
-    ``size_bucket`` then ``bucket_bytes``)."""
-    return 1 << max(0, max(1, int(nbytes)).bit_length() - 1)
-
-
-def overlap_bucket_bytes() -> int:
-    """Byte bound of one overlap bucket: ``Config.gradsync_overlap_bytes``
-    when positive, else ``fuse_max_bytes`` rounded down to a power of two
-    (JAX :410 with no tuning plan active, ``tuning/autoselect.py``
-    :310-328; the plan-sized bound waits for the tuning plans, ROADMAP
-    queue A, item 5)."""
+def overlap_bucket_bytes(n: Optional[int] = None, device=None) -> int:
+    """Byte bound of one overlap bucket (JAX :410):
+    ``Config.gradsync_overlap_bytes`` when positive, else the tuning
+    plan's bound (``tuning.plan_bucket_bytes``): the largest measured
+    allreduce size bucket of the grid (a rank-major stack of ``n`` on
+    ``device``, else the process world) not above ``fuse_max_bytes`` when
+    a plan is active, else ``fuse_max_bytes`` rounded down to a plan
+    bucket edge, so every fired bucket keys to a plan entry."""
     cfg = runtime.effective_config()
     if cfg.gradsync_overlap_bytes > 0:
         return int(cfg.gradsync_overlap_bytes)
-    return _plan_bucket_edge(cfg.fuse_max_bytes or 32 * 1024 * 1024)
+    from .. import tuning
+
+    return tuning.plan_bucket_bytes("allreduce", selector.grid_of(n, device),
+                                    cfg.fuse_max_bytes or 32 * 1024 * 1024)
 
 
 def assign_overlap_buckets(leaves: Sequence[torch.Tensor],
@@ -386,16 +394,37 @@ def _backward_with_hooks(loss_fn: Callable, leaves: List[torch.Tensor],
     return loss.detach()
 
 
-def _overlap_setup(params_template, op, compress, max_bytes, site):
+def _overlap_setup(params_template, op, compress, max_bytes, site, *,
+                   n: Optional[int], backend: Optional[str],
+                   codec: Optional[str]):
+    """``op``, ``compress``, the template, and the schedule: the firing
+    buckets, their ``bucket_group``s, and a function that gives each
+    bucket's implementation for this call (the plan's,
+    ``planner.plan_overlap``, JAX :716-719, looked up per call so that a
+    re-registered route is seen; None per bucket with the planner off or
+    under error feedback)."""
     op, compress = _resolve(op, compress, site)
     template = list(params_template)
     if not template:
         raise ValueError(f"{site}: empty parameter list")
     if max_bytes is None:
-        max_bytes = overlap_bucket_bytes()
-    firing = assign_overlap_buckets(template, max_bytes)
-    groups = [fusion.bucket_group(template, b) for b in firing]
-    return op, compress, template, firing, groups
+        max_bytes = overlap_bucket_bytes(n, template[0].device)
+
+    def plan():
+        return planner.plan_overlap(template, n=n, op=op, backend=backend,
+                                    compress=compress, max_bytes=max_bytes,
+                                    dcn_codec=codec)
+
+    if not planner.enabled():
+        firing = assign_overlap_buckets(template, max_bytes)
+        groups = [fusion.bucket_group(template, b) for b in firing]
+        return (op, compress, template, firing, groups,
+                lambda: [None] * len(firing))
+    first = plan()
+    return (op, compress, template, first.extra["firing"],
+            first.extra["groups"],
+            lambda: plan().impls if planner.enabled()
+            else [None] * len(first.impls))
 
 
 def init_overlap_dcn_residuals(params_template: Sequence[torch.Tensor],
@@ -413,7 +442,7 @@ def init_overlap_dcn_residuals(params_template: Sequence[torch.Tensor],
     _codec.ef_axes(axis_names)
     template = list(params_template)
     if max_bytes is None:
-        max_bytes = overlap_bucket_bytes()
+        max_bytes = overlap_bucket_bytes(n, template[0].device)
     firing = assign_overlap_buckets(template, max_bytes)
     return _codec.init_residuals(
         _codec.expected_shards([sum(template[i].numel() for i in b)
@@ -501,12 +530,13 @@ def make_overlapped_grad_fn(loss_fn: Callable,
     codec = (_ef_route(True, dcn_compress, site=site, backend=backend,
                        compress=compress, barrier=None, n=None)
              if residuals else None)
-    op, compress, template, firing, groups = _overlap_setup(
+    op, compress, template, firing, groups, impls_now = _overlap_setup(
         params_template, op, None if residuals else compress, max_bytes,
-        site)
+        site, n=None, backend=backend, codec=codec)
 
     def vag(params, res_list, *batch):
         params = _check_params(params, template, site)
+        impls = impls_now()
         leaves = [p.detach().requires_grad_() for p in params]
         grads: List[Optional[torch.Tensor]] = [None] * len(leaves)
         pending = []
@@ -531,8 +561,8 @@ def make_overlapped_grad_fn(loss_fn: Callable,
                 pending.append((g, flat.dtype, red))
                 return
             wire = flat.to(torch.bfloat16) if compress == "bf16" else flat
-            pending.append((g, flat.dtype, collectives.async_in_axis
-                            .allreduce(wire, op=op, backend=backend)))
+            pending.append((g, flat.dtype, collectives._async_world(
+                "allreduce", wire, backend=backend, impl=impls[k], op=op)))
 
         out = _backward_with_hooks(loss_fn, leaves, batch, has_aux, firing,
                                    on_grad, fire)
@@ -597,13 +627,14 @@ def make_overlapped_grad_fn_rank_major(loss_fn: Callable,
     codec = (_ef_route(True, dcn_compress, site=site, backend=backend,
                        compress=compress, barrier=None, n=n)
              if residuals else None)
-    op, compress, template, firing, groups = _overlap_setup(
+    op, compress, template, firing, groups, impls_now = _overlap_setup(
         params_template, op, None if residuals else compress, max_bytes,
-        site)
+        site, n=n, backend=backend, codec=codec)
 
     def vag(params, res_list, *batch,
             stacks: Optional[List[torch.Tensor]] = None):
         params = _check_params(params, template, site)
+        impls = impls_now()
         if stacks is None:
             stacks = [p.new_zeros((n, *p.shape)) for p in params]
         parts = [b.reshape(n, -1, *b.shape[1:]) for b in batch]
@@ -640,10 +671,9 @@ def make_overlapped_grad_fn_rank_major(loss_fn: Callable,
                     res_list[k].record_stream(side)
             else:
                 wire = buf.to(torch.bfloat16) if compress == "bf16" else buf
-                impl = selector.select("allreduce_rank_major", backend,
-                                       nbytes=g.total * wire.element_size(),
-                                       ranks=n)
-                red = impl(wire, op=op)
+                red = fusion.run_bucket("allreduce_rank_major", wire,
+                                        {"op": op}, impl=impls[k],
+                                        backend=backend)
             fusion.scatter_bucket(red.to(buf.dtype), stacks, g, 0,
                                   rank_major=True)
 

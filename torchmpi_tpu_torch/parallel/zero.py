@@ -48,9 +48,10 @@ value.  ``backend=`` still routes the parameter all-gather; ``compress=``
 raises.  On a flat world the leg is the plain reduce-scatter (warned
 once) and the residuals come back unchanged; with ``presynced`` they pass
 through.  ``flat_spec`` / ``shard_params`` and the process-world entries
-take ``axis_names`` ("dcn", "ici" or both).  The JAX package's guard,
-telemetry and static-analysis hooks and its planner cache belong to
-modules the port does not have yet (queue A 5, 10, 11).
+take ``axis_names`` ("dcn", "ici" or both); ``flat_spec`` is planned
+(``planner.flat_spec_for``).  The JAX package's guard, telemetry and
+static-analysis hooks belong to modules the port does not have yet (queue
+A 10, 11).
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
-from .. import collectives, fusion, optim, runtime
+from .. import collectives, fusion, optim, planner, runtime
 from ..config import wire_compress
 
 Tensors = Sequence[torch.Tensor]
@@ -105,10 +106,11 @@ def flat_spec(params: Tensors, axis_names=None, *,
               n_shards: Optional[int] = None) -> fusion.FusedSpec:
     """The flatten / shard layout of ``params`` over ``n_shards`` ranks
     (default: the ranks of ``axis_names``, the world's by default), the one
-    object the shard functions need."""
+    object the shard functions need; planned once per (shapes, dtypes,
+    n_shards) (``planner.flat_spec_for``, JAX :89-94)."""
     if n_shards is None:
         n_shards = _axis(axis_names)[0]
-    return fusion.FusedSpec(list(params), n_shards, max_bytes=0)
+    return planner.flat_spec_for(params, n_shards)
 
 
 def init_dcn_residuals(params: Tensors, axis_names=None, *,

@@ -173,12 +173,15 @@ def init(config: Optional[Config] = None, *, device: str = "cuda",
         _state.owns_group = owns
         _state.initialized = True
         _state.config_epoch += 1
-        return dev
+    # Outside the lock: the tuning layer reads the runtime's accessors.
+    _configure_tuning(cfg)
+    return dev
 
 
 def stop() -> None:
     """Tear down (reference: ``mpi.stop``).  Destroys the process group if
-    :func:`init` created it."""
+    :func:`init` created it, and drops every collective plan and the
+    loaded tuning plan."""
     with _state.lock:
         if _state.initialized and _state.owns_group and dist.is_initialized():
             dist.destroy_process_group()
@@ -187,14 +190,31 @@ def stop() -> None:
         _state.grid = (1, 1)
         _state.groups = {}
         _state.config_epoch += 1
+    from . import planner, tuning
+
+    planner.invalidate()
+    tuning.reset()
+
+
+def _configure_tuning(cfg: Config) -> None:
+    """Load the tuning plans where the config asks for them (JAX
+    :864-876): under backend "auto", or with a plan path, which loads
+    without "auto" too (the decision log then says it is inactive)."""
+    auto = cfg.backend == "auto"
+    if auto or cfg.tuning_plan_path is not None:
+        from . import tuning
+
+        tuning.configure(cfg.tuning_plan_path, auto_active=auto)
 
 
 def set_config(**overrides) -> None:
     """Switch knobs of the running runtime (reference: the torchmpi_set_*
-    setters; the JAX package's ``set_config``).  Bumps the config epoch.
-    The process world's grid stays the one :func:`init` built; a new
-    ``dcn_size`` / ``ici_size`` factors the rank-major stacks from here
-    on."""
+    setters; the JAX package's ``set_config``).  Bumps the config epoch
+    and drops every collective plan (``collectives.clear_cache``); a
+    config that opts into the tuning plans (re)loads them (an unchanged
+    path keeps the in-memory entries, JAX :1067-1080).  The process
+    world's grid stays the one :func:`init` built; a new ``dcn_size`` /
+    ``ici_size`` factors the rank-major stacks from here on."""
     with _state.lock:
         _require_init()
         for k in overrides:
@@ -204,6 +224,10 @@ def set_config(**overrides) -> None:
             overrides["ps_timeout_s"] = ps_timeout_s(overrides["ps_timeout_s"])
         _state.config = dataclasses.replace(_state.config, **overrides)
         _state.config_epoch += 1
+    from . import collectives
+
+    collectives.clear_cache()
+    _configure_tuning(_state.config)
 
 
 def is_initialized() -> bool:
