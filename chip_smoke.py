@@ -8,8 +8,9 @@ JAX package.  In order it:
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the kernels from ops/csrc with nvcc (sm_90a, one compiler per
-   source, in parallel) into build/torch_kernels/: fourteen kernels in
-   seven libraries; beside them, with g++, the parameter server's and the
+   source, in parallel) into build/torch_kernels/: fourteen kernels and
+   row 1's residual form (a second launcher of flash_fwd.cu) in seven
+   libraries; beside them, with g++, the parameter server's and the
    async writer's host libraries (torchmpi_tpu_torch/csrc) into
    build/torch_host/;
 3. kernel phases: at the flagship LM's attention shapes (B 4, T 2048, 16 q /
@@ -160,20 +161,38 @@ JAX package.  In order it:
    the layout copies timed alone; persistent bytes a rank <= 0.26 of
    replicated; then the process-world form at world one (NCCL) equal to
    the rank-major form at n = 1;
-13. tree verbs phase: collectives_bench.py's 64-leaf float32 / bfloat16
+13. sequence-parallel phase (longcontext_sp, the main path of the
+   sequence-parallel slice): the flagship's widths with 16 kv heads (no
+   GQA, as JAX's sequence-parallel impls require), RoPE, bf16 compute, no
+   window, over one sequence of 8192 tokens as 4 ranks x 2048 rank-major
+   on the card, stage B''s fused loss over the global sequence, SGD lr
+   0.02: the residual flash kernel against its plain version at the
+   ring's three shard pairs ([1, 2048, 16, 128] f32; the fully masked
+   pair exactly NEG_INF / 0 / 0; two calls bitwise; timed beside its
+   plain version and, as context, SDPA's forward); ring_flash and
+   ulysses_flash attention alone (f32, [1, 8192, 16, 128] over 4 ranks)
+   within 1e-4 of flash_attention_grad over the whole sequence; each
+   sequence-parallel model's loss and gradients within 2e-2 (rel. L2) of
+   the single-device flash model on the same seed weights; one warm-up
+   and 8 ring_flash steps, one and 3 ulysses_flash steps (median, min,
+   max, tokens/s, peak memory, 0 host syncs, every kernel of each path
+   launched, one step profiled by part); the example longcontext_lm
+   --devices 4 with ring_flash and with ulysses to the JAX bar; the ring
+   through the NCCL world of one equal to flash_attention;
+14. tree verbs phase: collectives_bench.py's 64-leaf float32 / bfloat16
    tree at 1 and 16 MiB, allreduce_in_axis and reduce_scatter_in_axis
    across the NCCL world of one and the rank-major fused reduce-scatter of
    4 ranks on "pallas", per leaf (64 launches) and fused (2), bitwise
    equal, timed;
-14. bus-bandwidth phase: the allreduce (rows 11 / 12 at 64 KiB-16 MiB,
+15. bus-bandwidth phase: the allreduce (rows 11 / 12 at 64 KiB-16 MiB,
    8 / 7 at 64 MiB a rank, and the stock route) and the allgather (rows
    14 / 10, stock) of 4 ranks rank-major, ms, algbw and busbw
    (collectives_bench.py's formulas), each against the plain ring; the
    hops are device copies on one card;
-15. two-level phase (hier_dp, the main path of the two-level slice):
+16. two-level phase (hier_dp, the main path of the two-level slice):
    ResNet-50 of phase 9 with its 4 ranks as a dcn 2 x ici 2 grid,
    backend "hierarchical", int8 error feedback, the ring per node;
-16. parameter-server phase (downpour_ps, the main path of the
+17. parameter-server phase (downpour_ps, the main path of the
    parameter-server slice): BASELINE config 4, AlexNet async downpour at
    full width (224 x 224, 1000 classes, 62,378,344 float32 parameters, a
    249.5 MB flat vector), 2 worker threads on their own streams sharing
@@ -190,14 +209,14 @@ JAX package.  In order it:
    checkpoint.save_async writes a fresh
    center and worker 0's Adam state (f: restored bitwise after; write
    seconds and MB/s);
-17. examples phase: the port's mnist_sequential, mnist_allreduce,
+18. examples phase: the port's mnist_sequential, mnist_allreduce,
    cifar_resnet20 (ZeRO 0 and 3) and mnist_async_allreduce (4 buckets in
    the world of one; overlapped, 4 ranks rank-major on the ring), then
    mnist_downpour, mnist_easgd, alexnet_downpour (their defaults) and
    checkpoint_resume in-process on the card, each to its bar (MNIST >
    0.9, CIFAR > 0.85, AlexNet > 2 / 10, the resumed run's final loss
    below its loss at the crash);
-18. prints the kernels' summary line (each kernel's launches summed over
+19. prints the kernels' summary line (each kernel's launches summed over
    the main paths, and by path), then {"ok": true, "device": ...}.
 
 Each phase prints one JSON line.  Any failed check raises and the script
@@ -502,6 +521,31 @@ PS_EXAMPLES = (("mnist_downpour", (), 0.9), ("mnist_easgd", (), 0.9),
                ("alexnet_downpour", (), 2.0 / 10),
                ("checkpoint_resume", (), None))
 
+# The sequence-parallel slice (longcontext_sp): the flagship's widths with
+# 16 kv heads (JAX's sequence-parallel impls refuse GQA), RoPE, bf16
+# compute, no window (long context is the point), one sequence of 8192
+# tokens as SP_N ranks x 2048 rank-major on the one card: 8192 tokens a
+# step, as in stage B'.
+SP_N, SP_T, SP_BATCH = 4, 8192, 1
+SP_LM = dict(LM, num_kv_heads=LM["num_heads"], window=None, max_len=SP_T)
+# The residual kernel's shard pairs (q_offset, kv_offset) at [1, 2048, 16,
+# 128]: a kv shard behind the q shard (every key valid; the kernel row's
+# timing), the diagonal, and one ahead (every key masked).
+SP_PAIRS = ((2048, 0), (2048, 2048), (0, 2048))
+SP_TIMED = {"ring_flash": TIMED_STEPS, "ulysses_flash": 3}
+SP_PATH_KERNELS = {
+    "ring_flash": ("flash_fwd_residual", "flash_bwd_dq", "flash_bwd_dkv",
+                   "xent_fwd", "xent_bwd_dx", "xent_bwd_dw"),
+    "ulysses_flash": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                      "xent_fwd", "xent_bwd_dx", "xent_bwd_dw"),
+}
+# The example on the card, rank-major on 4 ranks, to the JAX bar (main
+# raises below it).
+SP_EXAMPLES = (("--devices", "4", "--attn", "ring_flash"),
+               ("--devices", "4", "--attn", "ulysses"))
+SP_STEP_PARTS = (("flash residual (ring forward)",
+                  r"flash_fwd_kernel<\d+, true>"),) + LM_STEP_PARTS
+
 SOURCES = {
     "flash_fwd": ("torchmpi_tpu_torch/ops/csrc/flash_fwd.cu",
                   "torchmpi_tpu/ops/flash.py:265"),
@@ -532,6 +576,10 @@ SOURCES = {
                             "torchmpi_tpu/ops/ring.py:310"),
     "ring_all_gather": ("torchmpi_tpu_torch/ops/csrc/ring_direct.cu",
                         "torchmpi_tpu/ops/ring.py:342"),
+    # Row 1's residual epilogue (the same pallas_call with
+    # return_residuals=True): a second launcher of flash_fwd.cu.
+    "flash_fwd_residual": ("torchmpi_tpu_torch/ops/csrc/flash_fwd.cu",
+                           "torchmpi_tpu/ops/flash.py:337"),
 }
 
 
@@ -626,7 +674,8 @@ def ptxas_summary(log: str) -> dict:
                             m.group(1))
             tf32 = re.search(r"gemm_tf32_kernelI\w*?\d([A-Z][A-Za-z0-9]*Epi)E",
                              m.group(1))
-            key = (f"D{d.group(1)}" if d else
+            res = " residual" if "ELb1EE" in m.group(1) else ""
+            key = (f"D{d.group(1)}{res}" if d else
                    f"wgmma_tf32<{tf32.group(1)}>" if tf32 else
                    f"wgmma<{epi.group(1)}>" if epi else
                    "tf32_split_kernel" if "tf32_split_kernel" in m.group(1)
@@ -1279,7 +1328,8 @@ def train_phase(torch, mpi, ops, dev, loss: str, dtype=None):
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     check(syncs == 0, f"{syncs} host-device synchronizations in a step")
-    path = [n for n in launches if loss == "fused" or n.startswith("flash")]
+    path = [n for n in launches if n != "flash_fwd_residual"
+            and (loss == "fused" or n.startswith("flash"))]
     for name in path:
         check(launches[name] > 0, f"kernel {name} never launched on the "
               f"{loss} train path")
@@ -3770,6 +3820,313 @@ def fsdp_dp_phase(torch, mpi, ops, dev):
     return launches
 
 
+def sp_fused_loss(torch, mpi, model, tok):
+    """Stage B''s fused loss over the global sequence of the rank-major
+    sequence-parallel model: tok [B, T] split into SP_N shards of T / SP_N
+    (rank r holding positions r T / SP_N on), the ranks' pre-head outputs
+    joined in rank order, so a shard's last token is labelled by the next
+    rank's first: the single-device model's loss."""
+    B, T = tok.shape
+    h, head = model.forward_rank_major(
+        tok.view(B, SP_N, T // SP_N).transpose(0, 1), return_prehead=True)
+    h = h.transpose(0, 1).reshape(B, T, h.shape[-1])
+    E = h.shape[-1]
+    return mpi.ops.fused_linear_cross_entropy(
+        h[:, :-1].reshape(-1, E).to(torch.bfloat16),
+        head.to(torch.bfloat16), tok[:, 1:].reshape(-1)).mean()
+
+
+def _sp_residual_pairs(torch, flash, seq, dev):
+    """The residual kernel against its plain version at the ring's shard
+    pairs (SP_PAIRS): num, m (rows with a valid key) and l within 1e-4 of
+    each one's largest, two calls bitwise, the fully masked rows exactly
+    (NEG_INF, 0, 0); each pair timed beside its plain version and, as
+    context only, SDPA's forward on the same pair and mask."""
+    Tl, H, D = SP_T // SP_N, SP_LM["num_heads"], SP_LM["head_dim"]
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    q, k, v = (torch.randn(SP_BATCH, Tl, H, D, generator=g, device=dev)
+               for _ in range(3))
+    out = []
+    for qo, ko in SP_PAIRS:
+        kw = dict(scale=1.0 / math.sqrt(D), causal=True, q_offset=qo,
+                  kv_offset=ko)
+        got = flash.flash_fwd_residual(q, k, v, **kw)
+        again = flash.flash_fwd_residual(q, k, v, **kw)
+        want = flash.flash_fwd_residual_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        live = want[2] > 0
+        m_got = torch.where(live, got[1], 0.0)
+        m_want = torch.where(live, want[1], 0.0)
+        errs = {"num": (max_err(got[0], want[0]),
+                        KERNEL_RTOL * float(want[0].abs().max())),
+                "m": (max_err(m_got, m_want),
+                      KERNEL_RTOL * float(m_want.abs().max())),
+                "l": (max_err(got[2], want[2]),
+                      KERNEL_RTOL * float(want[2].abs().max()))}
+        masked = ~live
+        masked_exact = bool(
+            torch.equal(got[1][masked],
+                        torch.full_like(got[1][masked], flash.NEG_INF))
+            and (got[2][masked] == 0).all()
+            and (got[0].transpose(1, 2)[masked] == 0).all())
+        keep = seq.causal_window_mask(qo + torch.arange(Tl, device=dev),
+                                      ko + torch.arange(Tl, device=dev))
+        pairs = SP_BATCH * H * int(keep.sum())
+        nbytes = 4 * (3 * q.numel() + got[0].numel() + 2 * got[1].numel())
+        t_op = 4 * D * pairs / PEAK_TF32_FLOPS * 1e3
+        t_b = nbytes / PEAK_HBM_BYTES * 1e3
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa_ms = (time_ms(torch, lambda: torch.nn.functional.
+                           scaled_dot_product_attention(
+                               qt, kt, vt, attn_mask=keep,
+                               scale=kw["scale"]))
+                   if pairs else None)
+        out.append({
+            "q_offset": qo, "kv_offset": ko, "live_pairs": pairs,
+            "errors": {n: e for n, (e, _) in errs.items()},
+            "tolerances": {n: t for n, (_, t) in errs.items()},
+            "bitwise_repeat": all(torch.equal(a, b)
+                                  for a, b in zip(got, again)),
+            "masked_rows": int(masked.sum()), "masked_exact": masked_exact,
+            "ms": time_ms(torch, lambda: flash.flash_fwd_residual(
+                q, k, v, **kw)),
+            "plain_ms": time_ms(torch, lambda: flash.flash_fwd_residual_plain(
+                q, k, v, **kw)),
+            "bound_ms": max(t_op, t_b),
+            "bound_by": "operations" if t_op >= t_b else "bytes",
+            "sdpa_context_ms": sdpa_ms})
+        del got, again, want
+    return out
+
+
+def _sp_attention_alone(torch, flash, seq, dev):
+    """ring_flash and ulysses_flash attention alone, float32, rank-major,
+    SP_N ranks at [SP_BATCH, SP_T, 16, 128] (causal), against
+    flash_attention_grad over the whole sequence: o, dq, dk, dv within 1e-4
+    of each reference's largest; each fwd + bwd timed beside the
+    single-device one."""
+    n, B, T = SP_N, SP_BATCH, SP_T
+    H, D = SP_LM["num_heads"], SP_LM["head_dim"]
+    g = torch.Generator(device=dev).manual_seed(SEED + 22)
+    q, k, v, do = (torch.randn(B, T, H, D, generator=g, device=dev)
+                   for _ in range(4))
+    def stack(t):
+        return t.view(B, n, T // n, H, D).transpose(0, 1).contiguous()
+
+    def whole(t):
+        return t.transpose(0, 1).reshape(B, T, H, D)
+
+    def run(fn, xs, dout, **kw):
+        xs = [x.detach().requires_grad_() for x in xs]
+        o = fn(*xs, causal=True, **kw)
+        o.backward(dout)
+        return [o.detach()] + [x.grad for x in xs]
+
+    single = flash.flash_attention_grad
+    ref = run(single, (q, k, v), do)
+    out = {}
+    fns = {"ring_flash": seq.ring_attention_rank_major,
+           "ulysses_flash": seq.ulysses_attention_rank_major}
+    for name, sp in fns.items():
+        got = run(sp, [stack(t) for t in (q, k, v)], stack(do),
+                  block_impl="flash")
+        errs = {}
+        for what, a, b in zip(("o", "dq", "dk", "dv"), got, ref):
+            errs[what] = (max_err(whole(a), b),
+                          KERNEL_RTOL * float(b.abs().max()))
+        out[name] = {
+            "errors": {w: e for w, (e, _) in errs.items()},
+            "tolerances": {w: t for w, (_, t) in errs.items()},
+            "fwd_bwd_ms": time_ms(torch, lambda sp=sp: run(
+                sp, [stack(t) for t in (q, k, v)], stack(do),
+                block_impl="flash"), iters=3, warmup=1)}
+        del got
+    out["single_device_fwd_bwd_ms"] = time_ms(
+        torch, lambda: run(single, (q, k, v), do), iters=3, warmup=1)
+    return out
+
+
+def longcontext_sp_phase(torch, mpi, ops, dev):
+    """The sequence-parallel slice's main path: the flagship's widths
+    (SP_LM: 16 kv heads, RoPE, bf16, no window) over one sequence of SP_T
+    tokens as SP_N ranks rank-major on the card, stage B''s fused loss
+    over the global sequence (sp_fused_loss), SGD lr 0.02.  Checks, each
+    raising: the residual kernel at the ring's shard pairs; ring_flash
+    and ulysses_flash attention alone against the whole sequence's
+    flash_attention_grad; each sequence-parallel model's loss and
+    gradients on the seed weights against the single-device flash model
+    (rel. L2 2e-2); 0 host syncs a step; every kernel of each path
+    launched in its steps; the example longcontext_lm to the JAX bar with
+    ring_flash and with ulysses; the ring through the NCCL world of one
+    against flash_attention.  Timed: ring_flash one warm-up and
+    TIMED_STEPS steps, ulysses_flash one and 3, each with its peak memory
+    and one more step profiled by part.  Every kernel counter is set to 0
+    just before each path's steps and read just after; returns the
+    residual kernel's row and each kernel's launches summed over both
+    paths."""
+    flash = ops["flash"]
+    seq = mpi.parallel.sequence
+    t_phase = time.perf_counter()
+    pairs = _sp_residual_pairs(torch, flash, seq, dev)
+    alone = _sp_attention_alone(torch, flash, seq, dev)
+    torch.cuda.empty_cache()
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 23)
+    models = {"ring_flash": mpi.models.TransformerLM(
+        **SP_LM, attn_impl="ring_flash", seq_axis="ici",
+        dtype=torch.bfloat16, device=dev, generator=g)}
+    tok = torch.randint(0, SP_LM["vocab"], (SP_BATCH, SP_T), generator=g,
+                        device=dev)
+    single = mpi.models.TransformerLM(**SP_LM, attn_impl="flash",
+                                      dtype=torch.bfloat16, device=dev)
+    single.load_state_dict(models["ring_flash"].state_dict())
+    models["ulysses_flash"] = mpi.models.TransformerLM(
+        **SP_LM, attn_impl="ulysses_flash", seq_axis="ici",
+        dtype=torch.bfloat16, device=dev)
+    models["ulysses_flash"].load_state_dict(single.state_dict())
+    n_params = sum(p.numel() for p in single.parameters())
+    ref = _loss_and_grads(single,
+                          lambda: fused_lm_loss(torch, mpi, single, tok))
+    del single
+    for name, model in models.items():
+        _compare(f"{name} rank-major ({SP_N} ranks) vs single-device flash, "
+                 f"T {SP_T}", _loss_and_grads(
+                     model, lambda m=model: sp_fused_loss(torch, mpi, m, tok)),
+                 ref)
+        model.zero_grad(set_to_none=True)
+    del ref
+    torch.cuda.empty_cache()
+
+    paths = {}
+    for name, model in models.items():
+        opt = torch.optim.SGD(model.parameters(), lr=LR)
+
+        def step(model=model, opt=opt):
+            opt.zero_grad(set_to_none=True)
+            loss = sp_fused_loss(torch, mpi, model, tok)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for mod in ops.values():
+            mod.reset_launches()
+        losses, step_ms = [], []
+        for i in range(1 + SP_TIMED[name]):
+            t0 = time.perf_counter()
+            losses.append(float(step()))  # waits for the step
+            if i:
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = {k: c for mod in ops.values()
+                    for k, c in mod.LAUNCHES.items()
+                    if k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                             "flash_fwd_residual", "xent_fwd",
+                             "xent_bwd_dx", "xent_bwd_dw")}
+        peak = torch.cuda.max_memory_allocated()
+        syncs = count_host_syncs(torch, step)
+        profile = step_profile(torch, step, step_parts=SP_STEP_PARTS)
+        med = statistics.median(step_ms)
+        paths[name] = {
+            "losses": losses, "warmup_steps": 1, "step_ms": step_ms,
+            "median_step_ms": med, "min_step_ms": min(step_ms),
+            "max_step_ms": max(step_ms),
+            "tokens_per_s": SP_BATCH * SP_T / (med / 1e3),
+            "peak_mem_bytes": peak, "host_syncs_per_step": syncs,
+            "launches": launches,
+            "launches_per_step": {k: c // (1 + SP_TIMED[name])
+                                  for k, c in launches.items()},
+            "step_device_profile": profile}
+        del opt
+        torch.cuda.empty_cache()
+    del models
+    torch.cuda.empty_cache()
+
+    # The example on the card, in-process (a world of one; --devices 4
+    # runs its ranks rank-major), to the JAX bar.
+    from torchmpi_tpu_torch.examples import longcontext_lm
+
+    examples = []
+    for argv in SP_EXAMPLES:
+        t0 = time.perf_counter()
+        res = longcontext_lm.main(list(argv))
+        examples.append({"argv": list(argv), "first": res["first"],
+                         "last": res["last"], "learned": res["learned"],
+                         "seconds": time.perf_counter() - t0})
+
+    # The ring through the process world of one (NCCL): one call equal to
+    # flash_attention on the same tensors.
+    Tl, H, D = SP_T // SP_N, SP_LM["num_heads"], SP_LM["head_dim"]
+    g = torch.Generator(device=dev).manual_seed(SEED + 24)
+    q, k, v = (torch.randn(1, Tl, H, D, generator=g, device=dev)
+               for _ in range(3))
+    o_ring = seq.ring_attention(q, k, v, "ici", causal=True,
+                                block_impl="flash")
+    o_flash = flash.flash_attention(q, k, v, causal=True)
+    world = {"world_size": mpi.size(), "ring_size": mpi.runtime.ici_size(),
+             "max_abs_err": max_err(o_ring, o_flash),
+             "tolerance": KERNEL_RTOL * float(o_flash.abs().max()),
+             "bitwise": bool(torch.equal(o_ring, o_flash))}
+
+    full = pairs[0]
+    row = {"name": "flash_fwd_residual", "route": "cuda",
+           "source": SOURCES["flash_fwd_residual"][0],
+           "replaces": SOURCES["flash_fwd_residual"][1],
+           "max_abs_err": full["errors"]["num"],
+           "tolerance": full["tolerances"]["num"],
+           "errors": full["errors"], "tolerances": full["tolerances"],
+           "ms": full["ms"], "plain_ms": full["plain_ms"],
+           "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
+           "library_ms": None,
+           "library_call": ("none returns (num, m, l); SDPA's forward on "
+                            "the same pair and mask, context only: "
+                            f"{full['sdpa_context_ms']} ms"),
+           "bitwise_repeat": full["bitwise_repeat"]}
+    by_path = {name: p["launches"] for name, p in paths.items()}
+    emit({"phase": "longcontext_sp", "ranks": SP_N,
+          "config": dict(SP_LM, batch=SP_BATCH, seq=SP_T, lr=LR,
+                         dtype="bfloat16"),
+          "params": n_params, "residual_pairs": pairs,
+          "attention_alone": alone, "paths": paths,
+          "launches_by_path": by_path, "examples": examples,
+          "world_of_one_ring": world,
+          "seconds": time.perf_counter() - t_phase})
+    for pr in pairs:
+        for w, e in pr["errors"].items():
+            check(e <= pr["tolerances"][w],
+                  f"flash_fwd_residual at {pr['q_offset']}, "
+                  f"{pr['kv_offset']}: {w} err {e} > {pr['tolerances'][w]}")
+        check(pr["bitwise_repeat"], "flash_fwd_residual: two calls differ")
+        check(pr["masked_exact"], f"flash_fwd_residual's masked rows at "
+              f"{pr['q_offset']}, {pr['kv_offset']} are not (NEG_INF, 0, 0)")
+    check(pairs[2]["masked_rows"] == SP_BATCH * SP_LM["num_heads"]
+          * (SP_T // SP_N), "the pair ahead is not fully masked")
+    for name in ("ring_flash", "ulysses_flash"):
+        for w, e in alone[name]["errors"].items():
+            check(e <= alone[name]["tolerances"][w],
+                  f"{name} attention: {w} err {e} > "
+                  f"{alone[name]['tolerances'][w]}")
+    for name, p in paths.items():
+        check(all(math.isfinite(x) for x in p["losses"]),
+              f"{name}: non-finite loss {p['losses']}")
+        check(p["losses"][-1] < p["losses"][0],
+              f"{name}: loss did not fall: {p['losses']}")
+        check(p["host_syncs_per_step"] == 0,
+              f"{name}: {p['host_syncs_per_step']} host syncs in a step")
+        for k in SP_PATH_KERNELS[name]:
+            check(p["launches"][k] > 0,
+                  f"kernel {k} never launched on the {name} path")
+    check(paths["ring_flash"]["launches"]["flash_fwd"] == 0,
+          "the ring_flash path launched the plain forward kernel")
+    for ex in examples:
+        check(ex["learned"], f"longcontext_lm {ex['argv']} missed the bar")
+    check(world["max_abs_err"] <= world["tolerance"],
+          f"the ring in the world of one vs flash_attention: {world}")
+    sp_launches = {k: sum(p["launches"].get(k, 0) for p in paths.values())
+                   for k in SOURCES}
+    return row, sp_launches
+
+
 def tree_verbs_phase(torch, mpi, ring, dev):
     """The in-axis verbs over a tree (collectives_bench.py's _pytree_mode
     tree) per leaf (fuse_max_bytes 0) and fused (the default): the
@@ -4481,6 +4838,13 @@ def main() -> int:
         # allreduce bus-bandwidth table (rows 7, 8, 11, 12; 10 and 14).
         fsdp_launches = fsdp_dp_phase(torch, mpi, dict(ops, ring=ring), dev)
         torch.cuda.empty_cache()
+        # The main path of slice 20: the flagship's widths over one
+        # sequence of 8192 tokens as 4 rank-major ranks, ring_flash (the
+        # residual kernel a ring step) and ulysses_flash, the fused loss;
+        # the example longcontext_lm to its bar.
+        sp_row, sp_launches = longcontext_sp_phase(torch, mpi, ops, dev)
+        rows.append(sp_row)
+        torch.cuda.empty_cache()
         tree_verbs_phase(torch, mpi, ring, dev)
         torch.cuda.empty_cache()
         busbw_launches = allreduce_busbw_phase(torch, mpi, ring, dev)
@@ -4507,7 +4871,7 @@ def main() -> int:
     def by_path(name):
         earlier = ("ring_dp" if name in RING_CONFIGS else
                    "zero_dp" if name.startswith("ring") else "train")
-        return {earlier: launches[name],
+        return {**({earlier: launches[name]} if launches.get(name) else {}),
                 **({"resnet50_dp": r50_launches[name]}
                    if name in r50_launches else {}),
                 **({"overlap_dp": ov_launches[name]}
@@ -4519,7 +4883,9 @@ def main() -> int:
                 **({"hier_dp": hier_launches[name]}
                    if hier_launches.get(name) else {}),
                 **({"auto_dp": auto_launches[name]}
-                   if auto_launches.get(name) else {})}
+                   if auto_launches.get(name) else {}),
+                **({"longcontext_sp": sp_launches[name]}
+                   if sp_launches.get(name) else {})}
 
     kernels = [{**{k: dict(row, launches=sum(by_path(
                     row["name"]).values()))[k] for k in keys},

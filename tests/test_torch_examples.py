@@ -5,7 +5,9 @@ overlapped run equals its bucketed one, and ``--eager-loss`` reduces the
 loss through the staged path; the flags whose machinery is not ported
 raise naming their ROADMAP item; the parameter-server examples
 (``mnist_downpour``, ``mnist_easgd``, ``alexnet_downpour``) and
-``checkpoint_resume`` run a few steps.  The full-length runs to the JAX
+``checkpoint_resume`` run a few steps; ``longcontext_lm`` runs 3 steps
+rank-major (the flash ring on 4 ranks) and in the world of one (dense
+Ulysses), and, ``slow``, its full run to the JAX bar on dcn 2 x ici 4.  The full-length runs to the JAX
 examples' accuracy bars (MNIST > 0.9, CIFAR > 0.85) are ``slow`` here, as
 JAX's ``test_resnet20_dp_convergence`` is, and run on the card in
 chip_smoke.py's ``cnn_examples`` phase."""
@@ -64,12 +66,16 @@ def _main(name, argv):
                         "--devices", "4", "--dcn", "2"]),
     ("mnist_allreduce", ["--steps", "10", "--batch-size", "64",
                          "--dcn", "2", "--backend", "pallas"]),
+    ("longcontext_lm", ["--steps", "3", "--devices", "4", "--attn",
+                        "ring_flash"]),
+    ("longcontext_lm", ["--steps", "3", "--attn", "ulysses"]),
 ], ids=["sequential", "allreduce", "allreduce-rank-major", "cifar",
         "cifar-zero3", "cifar-zero1-rank-major", "resnet50",
         "cifar-buckets-rank-major", "async-buckets",
         "async-buckets-rank-major", "fsdp-rank-major",
         "allreduce-hierarchical-dcn2", "allreduce-pallas-dcn2",
-        "cifar-dcn2", "allreduce-pallas-dcn2-process-world"])
+        "cifar-dcn2", "allreduce-pallas-dcn2-process-world",
+        "longcontext-ring-flash-rank-major", "longcontext-ulysses-world"])
 def test_example_runs_and_loss_falls(name, argv):
     out = _main(name, argv)
     losses = out["losses"]
@@ -167,6 +173,16 @@ def test_example_converges(name, argv):
     AssertionError below it)."""
     out = _main(name, argv)
     assert out["accuracy"] > (0.85 if name.startswith("cifar") else 0.9)
+
+
+@pytest.mark.slow
+def test_longcontext_example_converges():
+    """``longcontext_lm --devices 8 --dcn 2 --attn ring`` (the sequence over
+    4 ici ranks, the batch over 2 dcn ranks, 80 steps) to the JAX bar:
+    the last loss below 0.35 of the first (``main`` raises otherwise)."""
+    out = _main("longcontext_lm", ["--devices", "8", "--dcn", "2", "--attn",
+                                   "ring"])
+    assert out["learned"] and out["last"] < 0.35 * out["first"]
 
 
 @pytest.mark.slow

@@ -114,7 +114,8 @@ def test_kernels_match_plain(cuda, case):
     _close(dv, dv_ref, "dv")
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2), "two calls differ"
     torch.cuda.synchronize()
-    twice = {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+    twice = {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
+             "flash_fwd_residual": 0}
     assert all(flash.LAUNCHES[n] == before[n] + twice[n] for n in before)
     assert torch.isfinite(o).all() and torch.isfinite(dq).all()
 
@@ -134,6 +135,51 @@ def _shifted(t):
     """A contiguous copy of t that starts 4 bytes into its storage."""
     out = torch.empty(t.numel() + 1, device=t.device)[1:].view(t.shape)
     return out.copy_(t)
+
+
+# The residual launcher at every case above, and at the ring's three kinds
+# of step at the sequence-parallel path's shard shapes: a kv shard behind
+# the q shard (every key valid), the diagonal, and one ahead (every key
+# masked).
+RESIDUAL_CASES = CASES + [
+    (1, 2048, 2048, 16, 16, 128, True, None, 2048, 0),
+    (1, 2048, 2048, 16, 16, 128, True, None, 2048, 2048),
+    (1, 2048, 2048, 16, 16, 128, True, None, 0, 2048),
+]
+
+
+@pytest.mark.parametrize("case", RESIDUAL_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_residual_kernel_matches_plain(cuda, case):
+    """``flash_fwd_residual`` (num, m, l) against its plain version within
+    1e-4 of each one's largest, two calls bitwise, the fully masked rows
+    exactly (NEG_INF, 0, 0), and num / l equal to the plain kernel's o."""
+    B, Tq, Tkv, H, Hkv, D, causal, window, qo, ko = case
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn(B, Tq, H, D, generator=g, device=cuda)
+    k = torch.randn(B, Tkv, Hkv, D, generator=g, device=cuda)
+    v = torch.randn(B, Tkv, Hkv, D, generator=g, device=cuda)
+    kw = dict(scale=1.0 / math.sqrt(D), causal=causal, window=window,
+              q_offset=qo, kv_offset=ko)
+    before = dict(flash.LAUNCHES)
+    got = flash.flash_fwd_residual(q, k, v, **kw)
+    again = flash.flash_fwd_residual(q, k, v, **kw)
+    want = flash.flash_fwd_residual_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash.LAUNCHES["flash_fwd_residual"] == \
+        before["flash_fwd_residual"] + 2
+    num, m, l = got
+    live = want[2] > 0
+    _close(num, want[0], "num")
+    _close(torch.where(live, m, 0.0), torch.where(live, want[1], 0.0), "m")
+    _close(l, want[2], "l")
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), "two differ"
+    assert torch.equal(m[~live], torch.full_like(m[~live], flash.NEG_INF))
+    assert (l[~live] == 0).all()
+    assert (num.transpose(1, 2)[~live] == 0).all()
+    o, _ = flash.flash_fwd(q, k, v, **kw)
+    denom = torch.where(live, l, torch.ones_like(l)).transpose(1, 2)
+    _close(num / denom[..., None], o, "num / l")
 
 
 def test_bwd_dkv_rejects_unaligned_rows(cuda):

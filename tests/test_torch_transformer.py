@@ -149,10 +149,14 @@ def test_apply_rope_matches_jax(per_row):
 
 
 def test_later_slices_raise():
-    with pytest.raises(NotImplementedError):
-        TransformerLM(**CFG, attn_impl="ring", device="cpu")
+    with pytest.raises(NotImplementedError, match="queue A, item 8 \\(b\\)"):
+        TransformerLM(**CFG, moe_axis="ici", device="cpu")
     with pytest.raises(NotImplementedError):
         TransformerLM(**CFG, decode=True, device="cpu")
+    # The sequence-parallel impls run (tests/test_torch_sequence.py); with
+    # CFG's grouped-query heads they refuse as JAX's do.
+    with pytest.raises(ValueError, match="num_kv_heads"):
+        TransformerLM(**CFG, attn_impl="ring", device="cpu")
     with pytest.raises(ValueError):
         TransformerLM(**CFG, attn_impl="nope", device="cpu")
 

@@ -1,4 +1,5 @@
-"""Decoder-only Transformer LM with local or flash attention.
+"""Decoder-only Transformer LM with local, flash or sequence-parallel
+attention.
 
 The PyTorch counterpart of ``torchmpi_tpu/models/transformer.py``:
 ``apply_rope`` (:39), ``SPAttention`` (:65), ``Block`` (:369) with the dense
@@ -15,12 +16,23 @@ numerics follow the flax modules the JAX package builds on:
 - GELU is the tanh approximation (flax ``nn.gelu``'s default).
 - RoPE rotates the two halves of the head dim, angles in float32.
 
+Sequence parallelism (``attn_impl`` "ring", "ring_flash", "ulysses",
+"ulysses_flash" with ``seq_axis``; JAX :278-301): the sequence is sharded
+over the ranks of ``seq_axis``.  In the process world each rank runs
+``model(tokens_shard, pos_offset=axis_index * T_local)``.  Rank-major,
+:meth:`TransformerLM.forward_rank_major` takes all ranks' shards at once
+(``[n, B, T_local]``, or ``[n_dcn, n_ici, B, T_local]`` with the sequence
+over ici and the batch over dcn): every position-wise layer runs once on
+the ranks folded into the batch, rank r's positions starting at ``r *
+T_local``, and only attention unfolds them into the ``[n, B, T_local, H,
+D]`` stacks of ``parallel/sequence.py``'s rank-major forms.  The
+sequence-parallel impls refuse grouped-query attention, as JAX's do.
+
 Parameter names follow the flax tree through ``weights.from_flax_params``.
 Every module builds its parameters on ``device``: the card by default,
 the CPU only when the caller passes ``device="cpu"``; without a visible
-card the default raises.  Autoregressive decode, the sequence-parallel
-attentions (ring, ulysses) and the MoE MLP are later slices of the port
-and raise ``NotImplementedError``.
+card the default raises.  Autoregressive decode and the MoE MLP are later
+slices of the port and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,10 +45,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash import _gqa_group, flash_attention_grad
-from ..parallel.sequence import reference_attention
+from ..parallel import sequence as seqlib
 from .layers import Dense, check_device
 
-_LATER_IMPLS = ("ring", "ring_flash", "ulysses", "ulysses_flash")
+SP_IMPLS = ("ring", "ring_flash", "ulysses", "ulysses_flash")
 
 
 def apply_rope(x: torch.Tensor, pos: torch.Tensor, *,
@@ -81,39 +93,47 @@ class LayerNorm(nn.Module):
 
 
 class SPAttention(nn.Module):
-    """Causal self-attention, ``attn_impl`` "local" (the dense oracle) or
-    "flash" (the hand-written kernels), with optional sliding ``window``,
-    grouped-query ``num_kv_heads`` and ``rope``."""
+    """Causal self-attention, ``attn_impl`` "local" (the dense oracle),
+    "flash" (the hand-written kernels), or sequence-parallel over
+    ``seq_axis`` ("ring", "ring_flash", "ulysses", "ulysses_flash"), with
+    optional sliding ``window``, grouped-query ``num_kv_heads`` (local and
+    flash only) and ``rope``."""
 
     def __init__(self, embed: int, num_heads: int, head_dim: int, *,
-                 attn_impl: str = "local",
+                 attn_impl: str = "local", seq_axis=None,
                  dtype: torch.dtype = torch.float32,
                  window: Optional[int] = None,
                  num_kv_heads: Optional[int] = None, rope: bool = False,
                  device="cuda"):
         super().__init__()
-        if attn_impl in _LATER_IMPLS:
-            raise NotImplementedError(
-                f"attn_impl={attn_impl!r}: sequence-parallel attention is a "
-                "later slice of the port (ROADMAP queue A, item 8)")
-        if attn_impl not in ("local", "flash"):
+        if attn_impl not in ("local", "flash") + SP_IMPLS:
             raise ValueError(f"unknown attn_impl {attn_impl!r}")
         self.num_heads, self.head_dim = num_heads, head_dim
         self.num_kv_heads = (num_kv_heads if num_kv_heads is not None
                              else num_heads)
-        self.attn_impl, self.dtype = attn_impl, dtype
+        self.attn_impl, self.seq_axis, self.dtype = attn_impl, seq_axis, dtype
         self.window, self.rope = window, rope
         H, Hkv, D = num_heads, self.num_kv_heads, head_dim
         kw = dict(dtype=dtype, device=device)
         if Hkv != H:
             _gqa_group(H, Hkv)  # validates divisibility
+            if attn_impl not in ("local", "flash"):
+                raise ValueError(
+                    f"num_kv_heads= supports attn_impl='local'/'flash' "
+                    f"(got {attn_impl!r})")
             self.q = Dense(embed, H * D, **kw)
             self.kv = Dense(embed, 2 * Hkv * D, **kw)
         else:
             self.qkv = Dense(embed, 3 * H * D, **kw)
         self.out = Dense(H * D, embed, **kw)
 
-    def forward(self, x: torch.Tensor, pos_offset: int = 0) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pos_offset=0,
+                seq_grid=None) -> torch.Tensor:
+        """``x`` [B, T, E]; ``pos_offset`` the global position of x[:, 0]
+        (an int, or a [B, 1] tensor of each row's).  ``seq_grid`` (n_dcn,
+        n_ici): ``x`` holds the rank-major ranks folded into the batch in
+        (dcn, ici, batch) order, and the sequence-parallel impls attend
+        over the ici ranks (:meth:`TransformerLM.forward_rank_major`)."""
         B, T, _ = x.shape
         H, Hkv, D = self.num_heads, self.num_kv_heads, self.head_dim
         if Hkv != H:
@@ -127,19 +147,42 @@ class SPAttention(nn.Module):
             rpos = pos_offset + torch.arange(T, device=x.device)
             q = apply_rope(q, rpos)
             k = apply_rope(k, rpos)
-        if self.attn_impl == "local":
-            o = reference_attention(q, k, v, causal=True, window=self.window)
-        else:
-            o = flash_attention_grad(q, k, v, causal=True,
-                                     window=self.window)
+        o = self._attend(q, k, v, seq_grid)
         return self.out(o.to(self.dtype).reshape(B, T, H * D))
+
+    def _attend(self, q, k, v, seq_grid):
+        impl, kw = self.attn_impl, dict(causal=True, window=self.window)
+        if impl == "local":
+            return seqlib.reference_attention(q, k, v, **kw)
+        if impl == "flash":
+            return flash_attention_grad(q, k, v, **kw)
+        kw["block_impl"] = "flash" if impl.endswith("_flash") else "dense"
+        ring = impl.startswith("ring")
+        if seq_grid is None:
+            fn = seqlib.ring_attention if ring else seqlib.ulysses_attention
+            return fn(q, k, v, self.seq_axis, **kw)
+        # Rank-major: [(dcn, ici, b), T, H, D] -> the ici stacks [n_ici,
+        # (dcn, b), T, H, D], and back.
+        n_dcn, n_ici = seq_grid
+        rows, T = q.shape[:2]
+        b = rows // (n_dcn * n_ici)
+
+        def stack(t):
+            t = t.reshape(n_dcn, n_ici, b, T, *t.shape[2:]).transpose(0, 1)
+            return t.reshape(n_ici, n_dcn * b, T, *t.shape[4:])
+
+        fn = (seqlib.ring_attention_rank_major if ring
+              else seqlib.ulysses_attention_rank_major)
+        o = fn(stack(q), stack(k), stack(v), **kw)
+        o = o.reshape(n_ici, n_dcn, b, *o.shape[2:]).transpose(0, 1)
+        return o.reshape(rows, *o.shape[3:])
 
 
 class Block(nn.Module):
     """Pre-LN transformer block: attention, then the dense GELU MLP."""
 
     def __init__(self, embed: int, num_heads: int, head_dim: int, *,
-                 mlp_ratio: int = 4, attn_impl: str = "local",
+                 mlp_ratio: int = 4, attn_impl: str = "local", seq_axis=None,
                  dtype: torch.dtype = torch.float32,
                  window: Optional[int] = None,
                  num_kv_heads: Optional[int] = None, rope: bool = False,
@@ -147,7 +190,8 @@ class Block(nn.Module):
         super().__init__()
         self.ln1 = LayerNorm(embed, device=device)
         self.attn = SPAttention(embed, num_heads, head_dim,
-                                attn_impl=attn_impl, dtype=dtype,
+                                attn_impl=attn_impl, seq_axis=seq_axis,
+                                dtype=dtype,
                                 window=window, num_kv_heads=num_kv_heads,
                                 rope=rope, device=device)
         self.ln2 = LayerNorm(embed, device=device)
@@ -156,8 +200,9 @@ class Block(nn.Module):
         self.mlp_out = Dense(embed * mlp_ratio, embed, dtype=dtype,
                              device=device)
 
-    def forward(self, x: torch.Tensor, pos_offset: int = 0) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x), pos_offset)
+    def forward(self, x: torch.Tensor, pos_offset=0,
+                seq_grid=None) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x), pos_offset, seq_grid)
         h = F.gelu(self.mlp_in(self.ln2(x)), approximate="tanh")
         return x + self.mlp_out(h)
 
@@ -185,21 +230,23 @@ class TransformerLM(nn.Module):
             raise NotImplementedError(
                 "decode=True: KV-cache decoding is a later slice of the "
                 "port (ROADMAP queue A, item 9)")
-        if seq_axis is not None or moe_axis is not None:
+        if moe_axis is not None:
             raise NotImplementedError(
-                "seq_axis / moe_axis: sequence- and expert-parallel layers "
-                "are later slices of the port (ROADMAP queue A, item 8)")
+                "moe_axis: the expert-parallel MLP is a later slice of the "
+                "port (ROADMAP queue A, item 8 (b))")
         if pos_emb not in ("learned", "rope"):
             raise ValueError(f"unknown pos_emb {pos_emb!r}")
         device = check_device(device)
         self.vocab, self.embed_dim, self.dtype = vocab, embed, dtype
-        self.pos_emb = pos_emb
+        self.pos_emb, self.attn_impl = pos_emb, attn_impl
+        self.seq_axis = seq_axis
         self.embed = nn.Embedding(vocab, embed, device=device)
         if pos_emb == "learned":
             self.pos_embed = nn.Embedding(max_len, embed, device=device)
         self.blocks = nn.ModuleList(
             Block(embed, num_heads, head_dim, attn_impl=attn_impl,
-                  dtype=dtype, window=window, num_kv_heads=num_kv_heads,
+                  seq_axis=seq_axis, dtype=dtype, window=window,
+                  num_kv_heads=num_kv_heads,
                   rope=pos_emb == "rope", device=device)
             for _ in range(depth))
         self.ln_f = LayerNorm(embed, device=device)
@@ -226,14 +273,54 @@ class TransformerLM(nn.Module):
 
     def forward(self, tokens: torch.Tensor, pos_offset: int = 0,
                 return_prehead: bool = False):
-        B, T = tokens.shape
-        x = self.embed(tokens).to(self.dtype)
-        if self.pos_emb == "learned":
-            pos = pos_offset + torch.arange(T, device=tokens.device)
-            x = x + self.pos_embed(pos).to(self.dtype)[None]
-        for blk in self.blocks:
-            x = blk(x, pos_offset)
-        x = self.ln_f(x)
+        """Logits [B, T, vocab] of ``tokens`` [B, T] (or, with
+        ``return_prehead``, the final LayerNorm's output and the head).
+        With ``seq_axis``, ``tokens`` is this rank's shard and
+        ``pos_offset`` its global start."""
+        x = self._trunk(tokens, pos_offset, None)
         if return_prehead:
             return x, self.head
         return x @ self.head
+
+    def forward_rank_major(self, tokens: torch.Tensor,
+                           return_prehead: bool = False):
+        """The forward of every rank at once: ``tokens`` ``[n, B, T]`` (n
+        sequence ranks) or ``[n_dcn, n_ici, B, T]`` (the sequence over ici,
+        the batch over dcn); rank r of the sequence holds global positions
+        ``r * T`` on.  Returns the logits ``[..., B, T, vocab]`` (or the
+        pre-head outputs and the head), each rank's as
+        ``forward(tokens[r], pos_offset=r * T)`` computes it in the process
+        world.  The ranks are folded into the batch for every
+        position-wise layer: one launch a layer for all of them."""
+        if tokens.dim() == 3:
+            n_dcn, n_ici = 1, tokens.shape[0]
+        elif tokens.dim() == 4:
+            n_dcn, n_ici = tokens.shape[:2]
+            if self.attn_impl in SP_IMPLS and self.seq_axis != "ici":
+                raise ValueError(
+                    f"a [n_dcn, n_ici, B, T] stack shards the sequence over "
+                    f"ici; the model's seq_axis is {self.seq_axis!r}")
+        else:
+            raise ValueError(f"expected tokens [n, B, T] or [n_dcn, n_ici, "
+                             f"B, T], got {tuple(tokens.shape)}")
+        lead, (B, T) = tokens.shape[:-2], tokens.shape[-2:]
+        start = torch.arange(n_ici, device=tokens.device) * T
+        offsets = start.view(1, n_ici, 1).expand(n_dcn, n_ici, B)
+        x = self._trunk(tokens.reshape(-1, T), offsets.reshape(-1, 1),
+                        (n_dcn, n_ici))
+        x = x.view(*lead, B, T, x.shape[-1])
+        if return_prehead:
+            return x, self.head
+        return x @ self.head
+
+    def _trunk(self, tokens: torch.Tensor, pos_offset, seq_grid):
+        """Embeddings, blocks and the final LayerNorm of ``tokens`` [rows,
+        T]; ``pos_offset`` an int or a [rows, 1] tensor."""
+        T = tokens.shape[1]
+        x = self.embed(tokens).to(self.dtype)
+        if self.pos_emb == "learned":
+            pos = pos_offset + torch.arange(T, device=tokens.device)
+            x = x + self.pos_embed(pos).to(self.dtype)
+        for blk in self.blocks:
+            x = blk(x, pos_offset, seq_grid)
+        return self.ln_f(x)

@@ -26,6 +26,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
            "xent_fwd", "xent_bwd_dx", "xent_bwd_dw", "ring_direct")
+# Kernels whose launcher lives in another kernel's library (a second C
+# launcher of the same source): kernel name -> library name.
+SHARED_LIBRARY = {"flash_fwd_residual": "flash_fwd"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -106,7 +109,9 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library of kernel ``name`` (of its library, for a kernel
+    of ``SHARED_LIBRARY``), built first if needed."""
+    name = SHARED_LIBRARY.get(name, name)
     with _lock:
         lib = _libs.get(name)
         if lib is None:

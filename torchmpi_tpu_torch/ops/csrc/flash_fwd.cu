@@ -48,9 +48,14 @@
 // of operations: two calls give the same bits.  Fully masked rows give
 // o = 0 and lse = +1e30, as on the TPU.
 //
-// The epilogue divides o by l and writes lse = m + log(l); the residual
-// form ring attention needs (the un-normalized o, m and l) would store the
-// same three register sets before that division.
+// The epilogue is a compile-time choice.  The plain form divides o by l and
+// writes lse = m + log(l).  The residual form (RES; the launcher
+// tm_flash_fwd_residual, JAX's return_residuals=True, which each step of
+// ring attention runs) stores the same three register sets before that
+// division: the un-normalized o as num [B, Tq, H, D] and m and l as
+// [B, H, Tq], all f32.  A row with no valid key keeps its initial m =
+// NEG_INF, l = 0 and num = 0, as the TPU kernel's do.  One main loop
+// serves both forms.
 //
 // Resources at D 128: 192 KB of shared memory (Q 64 KB, two stages of K
 // and V 128 KB), so one block of 8 warps an SM; 255 registers a thread, no
@@ -77,12 +82,14 @@ struct Smem {
   static constexpr size_t bytes = sizeof(float) * (qTile + 4 * kTile);
 };
 
-template <int D>
+// o: the output (RES: num).  st0: lse (RES: m).  st1: unused (RES: l).
+template <int D, bool RES>
 __global__ void __launch_bounds__(tmf::NT)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int Tq, int Tkv, int H, int Hkv,
-                 int hb, float scale, tmf::Band band) {
+                 float* __restrict__ st0, float* __restrict__ st1, int Tq,
+                 int Tkv, int H, int Hkv, int hb, float scale,
+                 tmf::Band band) {
   using S = Smem<D>;
   constexpr int NT8 = D / 8;   // 8-column n-tiles of o
   constexpr int NK8 = BK / 8;  // 8-key n-tiles of S, k-steps of P V
@@ -218,39 +225,67 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   tmf::cp_async_wait<0>();
 
-  // Epilogue: o = acc / l, lse = m + log(l); a row with no valid key has
-  // l == 0 and gets o = 0 and lse = +1e30.
+  // Epilogue.  Plain: o = acc / l, lse = m + log(l); a row with no valid
+  // key has l == 0 and gets o = 0 and lse = +1e30.  Residual: acc, m and l
+  // as they are.
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = q0 + wr + g + 8 * i;
     if (row >= Tq) continue;
-    const float denom = l[i] > 0.f ? l[i] : 1.f;
+    const float denom = RES ? 1.f : (l[i] > 0.f ? l[i] : 1.f);
     float* orow = o + ((long)b * Tq + row) * qstride + (long)h * D;
 #pragma unroll
-    for (int n = 0; n < NT8; ++n)
-      *reinterpret_cast<float2*>(orow + 8 * n + 2 * t) =
-          make_float2(acc[n][2 * i] / denom, acc[n][2 * i + 1] / denom);
-    if (t == 0)
-      lse[((long)b * H + h) * Tq + row] =
-          l[i] > 0.f ? m[i] + logf(fmaxf(l[i], 1e-37f)) : -tmf::NEG_INF;
+    for (int n = 0; n < NT8; ++n) {
+      const float2 x = RES ? make_float2(acc[n][2 * i], acc[n][2 * i + 1])
+                           : make_float2(acc[n][2 * i] / denom,
+                                         acc[n][2 * i + 1] / denom);
+      *reinterpret_cast<float2*>(orow + 8 * n + 2 * t) = x;
+    }
+    if (t == 0) {
+      const long srow = ((long)b * H + h) * Tq + row;
+      if (RES) {
+        st0[srow] = m[i];
+        st1[srow] = l[i];
+      } else {
+        st0[srow] =
+            l[i] > 0.f ? m[i] + logf(fmaxf(l[i], 1e-37f)) : -tmf::NEG_INF;
+      }
+    }
   }
 }
 
-template <int D>
+template <int D, bool RES>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o,
-                   float* lse, int B, int Tq, int Tkv, int H, int Hkv,
-                   float scale, tmf::Band band, cudaStream_t stream) {
+                   float* st0, float* st1, int B, int Tq, int Tkv, int H,
+                   int Hkv, float scale, tmf::Band band, cudaStream_t stream) {
   constexpr size_t smem = Smem<D>::bytes;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_kernel<D, RES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (e != cudaSuccess) return e;
   const int group = H / Hkv;
   const int hb = group % 4 == 0 ? 4 : group % 2 == 0 ? 2 : 1;
   const int bq = ROWS / hb;
   dim3 grid((Tq + bq - 1) / bq, H / hb, B);
-  flash_fwd_kernel<D><<<grid, tmf::NT, smem, stream>>>(
-      q, k, v, o, lse, Tq, Tkv, H, Hkv, hb, scale, band);
+  flash_fwd_kernel<D, RES><<<grid, tmf::NT, smem, stream>>>(
+      q, k, v, o, st0, st1, Tq, Tkv, H, Hkv, hb, scale, band);
   return cudaGetLastError();
+}
+
+template <bool RES>
+int dispatch(const float* q, const float* k, const float* v, float* o,
+             float* st0, float* st1, int B, int Tq, int Tkv, int H, int Hkv,
+             int D, float scale, int causal, int window, int q_offset,
+             int kv_offset, void* stream) {
+  const tmf::Band band{q_offset, kv_offset, Tkv, causal, window};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return launch<16, RES>(q, k, v, o, st0, st1, B, Tq, Tkv, H, Hkv, scale, band, s);
+    case 32: return launch<32, RES>(q, k, v, o, st0, st1, B, Tq, Tkv, H, Hkv, scale, band, s);
+    case 64: return launch<64, RES>(q, k, v, o, st0, st1, B, Tq, Tkv, H, Hkv, scale, band, s);
+    case 128: return launch<128, RES>(q, k, v, o, st0, st1, B, Tq, Tkv, H, Hkv, scale, band, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -263,13 +298,18 @@ extern "C" int tm_flash_fwd(const float* q, const float* k, const float* v,
                             float* o, float* lse, int B, int Tq, int Tkv, int H,
                             int Hkv, int D, float scale, int causal, int window,
                             int q_offset, int kv_offset, void* stream) {
-  const tmf::Band band{q_offset, kv_offset, Tkv, causal, window};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch<16>(q, k, v, o, lse, B, Tq, Tkv, H, Hkv, scale, band, s);
-    case 32: return launch<32>(q, k, v, o, lse, B, Tq, Tkv, H, Hkv, scale, band, s);
-    case 64: return launch<64>(q, k, v, o, lse, B, Tq, Tkv, H, Hkv, scale, band, s);
-    case 128: return launch<128>(q, k, v, o, lse, B, Tq, Tkv, H, Hkv, scale, band, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch<false>(q, k, v, o, lse, nullptr, B, Tq, Tkv, H, Hkv, D,
+                         scale, causal, window, q_offset, kv_offset, stream);
+}
+
+// The residual form: num [B, Tq, H, D] (o before the division by l), m and
+// l [B, H, Tq]; the other arguments as tm_flash_fwd's.
+extern "C" int tm_flash_fwd_residual(const float* q, const float* k,
+                                     const float* v, float* num, float* m,
+                                     float* l, int B, int Tq, int Tkv, int H,
+                                     int Hkv, int D, float scale, int causal,
+                                     int window, int q_offset, int kv_offset,
+                                     void* stream) {
+  return dispatch<true>(q, k, v, num, m, l, B, Tq, Tkv, H, Hkv, D, scale,
+                        causal, window, q_offset, kv_offset, stream);
 }

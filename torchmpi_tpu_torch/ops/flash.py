@@ -4,8 +4,12 @@ The PyTorch counterpart of ``torchmpi_tpu/ops/flash.py``.  Three CUDA
 kernels (``ops/csrc/flash_fwd.cu``, ``flash_bwd_dq.cu``,
 ``flash_bwd_dkv.cu``) replace the three Pallas TPU kernels
 (``_flash_kernel`` :265, ``_flash_bwd_dq_kernel`` :358,
-``_flash_bwd_dkv_kernel`` :424).  Each has a plain PyTorch version here,
-written out in dense torch ops with the kernel's masking conventions.
+``_flash_bwd_dkv_kernel`` :424).  The forward has a second launcher,
+``flash_fwd_residual``: ``_flash_kernel``'s ``residuals`` epilogue
+(:337-356), the un-normalized numerator and the row statistics m and l
+that each step of ring attention combines (``parallel/sequence.py``).
+Each has a plain PyTorch version here, written out in dense torch ops with
+the kernel's masking conventions.
 
 Every kernel wrapper takes its plain version when, and only when, the
 tensors it was given lie on the CPU; on a CUDA tensor it launches the
@@ -43,7 +47,8 @@ NEG_INF = -1e30
 
 # Kernel launches per wrapper since the last reset_launches(): a run can
 # show that its path went through the kernels.
-LAUNCHES = {name: 0 for name in _build.KERNELS if name.startswith("flash_")}
+LAUNCHES = {name: 0 for name in (*_build.KERNELS, *_build.SHARED_LIBRARY)
+            if name.startswith("flash_")}
 
 # Head dims the kernels are instantiated for (flash_*.cu, the D switch);
 # any other D up to the largest runs zero-padded to the next of them.
@@ -138,10 +143,13 @@ def _masked_scores(q, kr, scale, causal, window, q_offset, kv_offset):
 # ---------------------------------------------------------------------------
 
 
-def flash_fwd_plain(q, k, v, *, scale: float, causal: bool,
-                    window: Optional[int] = None, q_offset: int = 0,
-                    kv_offset: int = 0):
-    """(o, lse) of the forward kernel, in dense float32 ops."""
+def flash_fwd_residual_plain(q, k, v, *, scale: float, causal: bool,
+                             window: Optional[int] = None, q_offset: int = 0,
+                             kv_offset: int = 0):
+    """(num [B, Tq, H, D], m [B, H, Tq], l [B, H, Tq]) of the residual
+    kernel, in dense float32 ops: the un-normalized numerator, the row max
+    of the masked scores and the row denominator.  A row with no valid key
+    has m = NEG_INF, l = 0 and num = 0."""
     H = q.shape[2]
     s = _masked_scores(q.float(), _repeat_kv(k, H), scale, causal, window,
                        q_offset, kv_offset)
@@ -150,6 +158,17 @@ def flash_fwd_plain(q, k, v, *, scale: float, causal: bool,
     p = torch.exp(s - m_safe[..., None])
     l = p.sum(dim=-1)
     num = torch.einsum("bhqk,bkhd->bqhd", p, _repeat_kv(v, H))
+    return num, m, l
+
+
+def flash_fwd_plain(q, k, v, *, scale: float, causal: bool,
+                    window: Optional[int] = None, q_offset: int = 0,
+                    kv_offset: int = 0):
+    """(o, lse) of the forward kernel, in dense float32 ops: the residual
+    form's numerator divided by l (rows with l = 0 read 0)."""
+    num, m, l = flash_fwd_residual_plain(
+        q, k, v, scale=scale, causal=causal, window=window,
+        q_offset=q_offset, kv_offset=kv_offset)
     denom = torch.where(l > 0, l, torch.ones_like(l))
     return num / denom.transpose(1, 2)[..., None], lse_from_residuals(m, l)
 
@@ -203,9 +222,9 @@ _SIGNATURES = {
     "flash_fwd": ("tm_flash_fwd", 5),
     "flash_bwd_dq": ("tm_flash_bwd_dq", 7),
     "flash_bwd_dkv": ("tm_flash_bwd_dkv", 8),
+    "flash_fwd_residual": ("tm_flash_fwd_residual", 6),
 }
 _SCALARS = [_I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P]
-
 
 def _launch(name: str, tensors, q, k, scale, causal, window, q_offset,
             kv_offset) -> None:
@@ -294,6 +313,28 @@ def flash_fwd(q, k, v, *, scale: float, causal: bool,
     return _unpad(o, D), lse
 
 
+def flash_fwd_residual(q, k, v, *, scale: float, causal: bool,
+                       window: Optional[int] = None, q_offset: int = 0,
+                       kv_offset: int = 0):
+    """(num [B, Tq, H, D], m [B, H, Tq], l [B, H, Tq]), all float32 — the
+    ``flash_fwd_residual`` kernel on CUDA tensors, its plain version on CPU
+    tensors."""
+    _check_shapes(q, k, v, causal, window, q_offset, kv_offset)
+    kw = dict(scale=scale, causal=causal, window=window, q_offset=q_offset,
+              kv_offset=kv_offset)
+    if _device_kind(q) == "cpu":
+        return flash_fwd_residual_plain(q, k, v, **kw)
+    B, Tq, H, D = q.shape
+    q, k, v = pad_head_dim("flash_fwd_residual", q, k, v)
+    _check_aligned("flash_fwd_residual", (q, k, v))
+    num = torch.empty_like(q)
+    m = torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    if q.numel():
+        _launch("flash_fwd_residual", (q, k, v, num, m, l), q, k, **kw)
+    return _unpad(num, D), m, l
+
+
 def flash_bwd_dq(q, k, v, do, lse, dvec, *, scale: float, causal: bool,
                  window: Optional[int] = None, q_offset: int = 0,
                  kv_offset: int = 0):
@@ -349,7 +390,8 @@ def flash_attention(q, k, v, *, causal: bool = False,
                     scale: Optional[float] = None, q_offset: int = 0,
                     kv_offset: int = 0, block_q: Optional[int] = None,
                     block_k: Optional[int] = None,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    window: Optional[int] = None,
+                    return_residuals: bool = False):
     """Flash attention forward on one device: [B, Tq, H, D] in q's dtype.
 
     ``window`` (causal only) keeps each query's own key and the
@@ -357,9 +399,21 @@ def flash_attention(q, k, v, *, causal: bool = False,
     cost is O(T * window).  With ``Config.flash_prescale`` the scale is
     folded into q once.  ``block_q`` / ``block_k`` (the TPU tiling) are
     accepted for the JAX signature and ignored: the Hopper kernels' tiles
-    are fixed in their sources."""
+    are fixed in their sources.
+
+    ``return_residuals=True`` returns ``(num, m, l)`` instead (JAX
+    :496-627): the un-normalized numerator [B, Tq, H, D] and the row max
+    and denominator [B, H, Tq], all float32, ``NEG_INF`` / 0 / 0 on rows
+    with no valid key: the contract of ring attention's combiner.  That
+    path never prescales (JAX :542-550): its callers run the backward at
+    the original scale.  ``q_offset`` / ``kv_offset`` are Python ints, so
+    a ring step reads no offset from the device."""
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
+    if return_residuals:
+        return flash_fwd_residual(q, k, v, scale=scale, causal=causal,
+                                  window=window, q_offset=q_offset,
+                                  kv_offset=kv_offset)
     if scale != 1.0 and _prescale_enabled():
         q, scale = _prescale_q(q, scale), 1.0
     o, _ = flash_fwd(q, k, v, scale=scale, causal=causal, window=window,
