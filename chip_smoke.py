@@ -179,20 +179,35 @@ JAX package.  In order it:
    launched, one step profiled by part); the example longcontext_lm
    --devices 4 with ring_flash and with ulysses to the JAX bar; the ring
    through the NCCL world of one equal to flash_attention;
-14. tree verbs phase: collectives_bench.py's 64-leaf float32 / bfloat16
+14. expert-parallel phase (moe_ep, the main path of the expert-parallel
+   slice): the flagship with its MLP an expert layer over ici (2 experts
+   a rank, top-2, capacity factor 2.0; the experts in float32), rank-major
+   on a dcn 2 x ici 2 grid, one row of 2048 tokens a rank, the fused loss
+   plus 1e-2 of the load-balance losses, SGD lr 0.02: one layer alone at
+   the flagship's shapes (f32, k 1 and 2, capacity factor 2.0 and 0.5)
+   against a per-token oracle (routing identical, output and gate / w1 /
+   w2 gradients within 1e-4 of each reference's largest, two calls
+   bitwise); the process world of one (NCCL) bitwise to the rank-major
+   form at n = 1; the step's loss and gradients within 2e-2 (rel. L2) of
+   each rank's row run alone with all 4 experts local; one warm-up and 8
+   steps (median, min, max, tokens/s, peak memory, 0 host syncs, rows 1-6
+   launched, every head launch on wgmma, one step profiled by part, the
+   share of routes dropped and of slots filled); the example moe_lm
+   --devices 4 --dcn 2 --top-k 2 to the JAX bar;
+15. tree verbs phase: collectives_bench.py's 64-leaf float32 / bfloat16
    tree at 1 and 16 MiB, allreduce_in_axis and reduce_scatter_in_axis
    across the NCCL world of one and the rank-major fused reduce-scatter of
    4 ranks on "pallas", per leaf (64 launches) and fused (2), bitwise
    equal, timed;
-15. bus-bandwidth phase: the allreduce (rows 11 / 12 at 64 KiB-16 MiB,
+16. bus-bandwidth phase: the allreduce (rows 11 / 12 at 64 KiB-16 MiB,
    8 / 7 at 64 MiB a rank, and the stock route) and the allgather (rows
    14 / 10, stock) of 4 ranks rank-major, ms, algbw and busbw
    (collectives_bench.py's formulas), each against the plain ring; the
    hops are device copies on one card;
-16. two-level phase (hier_dp, the main path of the two-level slice):
+17. two-level phase (hier_dp, the main path of the two-level slice):
    ResNet-50 of phase 9 with its 4 ranks as a dcn 2 x ici 2 grid,
    backend "hierarchical", int8 error feedback, the ring per node;
-17. parameter-server phase (downpour_ps, the main path of the
+18. parameter-server phase (downpour_ps, the main path of the
    parameter-server slice): BASELINE config 4, AlexNet async downpour at
    full width (224 x 224, 1000 classes, 62,378,344 float32 parameters, a
    249.5 MB flat vector), 2 worker threads on their own streams sharing
@@ -209,14 +224,14 @@ JAX package.  In order it:
    checkpoint.save_async writes a fresh
    center and worker 0's Adam state (f: restored bitwise after; write
    seconds and MB/s);
-18. examples phase: the port's mnist_sequential, mnist_allreduce,
+19. examples phase: the port's mnist_sequential, mnist_allreduce,
    cifar_resnet20 (ZeRO 0 and 3) and mnist_async_allreduce (4 buckets in
    the world of one; overlapped, 4 ranks rank-major on the ring), then
    mnist_downpour, mnist_easgd, alexnet_downpour (their defaults) and
    checkpoint_resume in-process on the card, each to its bar (MNIST >
    0.9, CIFAR > 0.85, AlexNet > 2 / 10, the resumed run's final loss
    below its loss at the crash);
-19. prints the kernels' summary line (each kernel's launches summed over
+20. prints the kernels' summary line (each kernel's launches summed over
    the main paths, and by path), then {"ok": true, "device": ...}.
 
 Each phase prints one JSON line.  Any failed check raises and the script
@@ -545,6 +560,32 @@ SP_EXAMPLES = (("--devices", "4", "--attn", "ring_flash"),
                ("--devices", "4", "--attn", "ulysses"))
 SP_STEP_PARTS = (("flash residual (ring forward)",
                   r"flash_fwd_kernel<\d+, true>"),) + LM_STEP_PARTS
+
+# The expert-parallel slice (moe_ep): the flagship with its MLP an expert
+# layer over ici (2 experts a rank, GShard top-2, capacity factor 2.0),
+# rank-major on a dcn 2 x ici 2 grid, one row of 2048 tokens a rank (8192
+# tokens a step, as stage B'): 4 global experts, replicated over dcn.  The
+# loss is stage B''s fused loss plus 1e-2 times the layers' load-balance
+# losses (their sum, the mean over the ranks).
+EP_GRID = (2, 2)
+EP_LM = dict(LM, moe_axis="ici", moe_experts_per_device=2, moe_k=2,
+             moe_capacity_factor=2.0)
+EP_AUX = 1e-2
+# The layer alone at the flagship's shapes, float32: (k, capacity factor).
+EP_LAYER_CASES = ((1, 2.0), (1, 0.5), (2, 2.0), (2, 0.5))
+EP_PATH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "xent_fwd",
+                   "xent_bwd_dx", "xent_bwd_dw")
+EP_EXAMPLE = ("--devices", "4", "--dcn", "2", "--top-k", "2")
+# The step by part: the port's kernels, then the experts' float32 products
+# (cuBLAS SIMT / f32 kernels; the bf16 projections are the "matmuls"
+# part), the dispatch and the combine (index_add / index_select, the
+# top-k sort, the cumulative count), the concatenations (the all-to-alls'
+# stacks, RoPE's halves) and the rest.
+EP_STEP_PARTS = LM_STEP_PARTS[:2] + (
+    ("expert products (f32)", r"sgemm|f32f32|simt|gemmSN|gemv"),
+    ("dispatch and combine", r"index|scatter|gather|[Ss]ort|scan|cumsum"),
+    ("concatenations (all-to-all, RoPE)", r"CatArray|cat_"),
+) + LM_STEP_PARTS[2:]
 
 SOURCES = {
     "flash_fwd": ("torchmpi_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -4127,6 +4168,355 @@ def longcontext_sp_phase(torch, mpi, ops, dev):
     return row, sp_launches
 
 
+def _ep_experts(params, tokens):
+    a, b = params
+    return (tokens @ a).tanh() @ b
+
+
+def _ep_oracle(torch, x, gate, w1, w2, k, cf):
+    """The per-token plain oracle of one expert layer (tests/test_expert.py
+    ``_oracle_topk``): x [n, T, D] of n ranks, each rank's routes counted
+    in GShard's order on the host (top-k by a stable sort, ties to the
+    lower expert), each routed token through its expert directly.  Returns
+    the output and the routing (experts, slots, valid) as numpy."""
+    import numpy as np
+
+    n, T, D = x.shape
+    E = w1.shape[0]
+    C = max(1, int(cf * T * k / E))
+    probs = torch.softmax(x @ gate, dim=-1)
+    top = np.argsort(-probs.detach().cpu().numpy(), axis=-1,
+                     kind="stable")[..., :k]
+    slot = np.empty((n, T, k), np.int64)
+    for r in range(n):
+        counts = [0] * E
+        for j in range(k):
+            for t in range(T):
+                e = top[r, t, j]
+                slot[r, t, j] = counts[e]
+                counts[e] += 1
+    valid = slot < C
+    e_idx = torch.from_numpy(top).to(x.device)
+    sel = probs.gather(-1, e_idx)
+    w = sel / sel.sum(-1, keepdim=True).clamp_min(1e-9) if k > 1 else sel
+    w = w * torch.from_numpy(valid).to(x.device)
+    Y = torch.stack([(x @ w1[e]).tanh() @ w2[e] for e in range(E)], dim=2)
+    rows = Y.gather(2, e_idx[..., None].expand(n, T, k, D))
+    return (rows * w[..., None]).sum(2), (top, slot, valid)
+
+
+def _ep_layer_alone(torch, ep, dev):
+    """One expert layer at the flagship's shapes, float32, 4 ranks as dcn
+    2 x ici 2 (the group over ici): for each (k, capacity factor) of
+    EP_LAYER_CASES the routing of topk_dispatch against the oracle's count
+    (identical), the output and the gate / w1 / w2 gradients of sum(out *
+    w) within 1e-4 of each reference's largest, two calls bitwise; fwd +
+    bwd timed beside the oracle's."""
+    import numpy as np
+
+    (n_dcn, n_ici), n = EP_GRID, EP_GRID[0] * EP_GRID[1]
+    T, D = SEQ, LM["embed"]
+    E = EP_LM["moe_experts_per_device"] * n_ici
+    H = 4 * D
+    g = torch.Generator(device=dev).manual_seed(SEED + 31)
+    x = torch.randn(n_dcn, n_ici, T, D, generator=g, device=dev)
+    wo = torch.randn(n_dcn, n_ici, T, D, generator=g, device=dev)
+    gate = torch.randn(D, E, generator=g, device=dev) / math.sqrt(D)
+    w1 = torch.randn(E, D, H, generator=g, device=dev) / math.sqrt(D * E)
+    w2 = torch.randn(E, H, D, generator=g, device=dev) / math.sqrt(H * E)
+
+    def run(fn):
+        ps = [t.detach().requires_grad_() for t in (gate, w1, w2)]
+        out = fn(*ps)
+        (out * wo).sum().backward()
+        return [out.detach()] + [p.grad for p in ps]
+
+    cases = []
+    for k, cf in EP_LAYER_CASES:
+        layer = lambda gt, a, b, k=k, cf=cf: ep.moe_layer_rank_major(  # noqa
+            x, gt, _ep_experts, (a, b), "ici", capacity_factor=cf, k=k)
+        got, again = run(layer), run(layer)
+        routing = {}
+
+        def oracle(gt, a, b, k=k, cf=cf):
+            out, routing["r"] = _ep_oracle(torch, x.view(n, T, D), gt, a, b,
+                                           k, cf)
+            return out.view(x.shape)
+
+        ref = run(oracle)
+        top, slot, valid = routing["r"]
+        C = max(1, int(cf * T * k / E))
+        probs = torch.softmax(x.view(n, T, D) @ gate, dim=-1)
+        _, _, eo, so, va = ep.topk_dispatch(x.view(n, T, D), None, E, C, k,
+                                            renormalize=k > 1, probs=probs)
+        errs = {w: max_err(a, b) for w, a, b in
+                zip(("out", "gate", "w1", "w2"), got, ref)}
+        tols = {w: KERNEL_RTOL * float(b.abs().max())
+                for w, b in zip(("out", "gate", "w1", "w2"), ref)}
+        cases.append({
+            "k": k, "capacity_factor": cf, "capacity": C,
+            "routing_equal": bool(
+                np.array_equal(eo.cpu().numpy(), top)
+                and np.array_equal(so.cpu().numpy(), slot)
+                and np.array_equal(va.cpu().numpy(), valid)),
+            "dropped_share": float(1.0 - valid.mean()),
+            "errors": errs, "tolerances": tols,
+            "bitwise_repeat": all(torch.equal(a, b)
+                                  for a, b in zip(got, again)),
+            "fwd_bwd_ms": time_ms(torch, lambda f=layer: run(f), iters=3,
+                                  warmup=1),
+            "oracle_fwd_bwd_ms": time_ms(torch, lambda f=oracle: run(f),
+                                         iters=3, warmup=1)})
+        del got, again, ref
+    torch.cuda.empty_cache()
+    return cases
+
+
+def _ep_loss(torch, mpi, model, tok):
+    """Stage B''s fused loss over every rank's rows of the rank-major MoE
+    model (tok [n_dcn, n_ici, B, T]), plus EP_AUX times the layers'
+    load-balance losses (their sum, the mean over the ranks)."""
+    h, head = model.forward_rank_major(tok, return_prehead=True)
+    E = h.shape[-1]
+    task = mpi.ops.fused_linear_cross_entropy(
+        h[..., :-1, :].reshape(-1, E).to(torch.bfloat16),
+        head.to(torch.bfloat16), tok[..., 1:].reshape(-1)).mean()
+    return task + EP_AUX * sum(model.moe_aux_losses()).mean()
+
+
+def _ep_routes(torch, ep, model, tok):
+    """Each MoE layer's routing on one more forward of ``model`` (tok
+    [n_dcn, n_ici, B, T]; its inputs caught by forward hooks and routed
+    again by topk_dispatch): per layer (experts [n, B * T, k], valid)."""
+    n_dcn, n_ici, B, T = tok.shape
+    routes, hooks = [], []
+
+    def catch(moe, args, _out):
+        x = args[0].reshape(n_dcn * n_ici, B * T, -1)
+        E, k = moe.n_experts, moe.k
+        C = max(1, int(moe.capacity_factor * B * T * k / E))
+        probs = torch.softmax(x @ moe.gate, dim=-1)
+        _, _, expert_of, _, valid = ep.topk_dispatch(x, None, E, C, k,
+                                                     probs=probs)
+        routes.append((expert_of, valid, E * C))
+
+    for blk in model.blocks:
+        hooks.append(blk.moe.register_forward_hook(catch))
+    try:
+        with torch.no_grad():
+            model.forward_rank_major(tok, return_prehead=True)
+    finally:
+        for h in hooks:
+            h.remove()
+    return routes
+
+
+def _ep_model(torch, mpi, dev, dtype, **over):
+    """The moe_ep model (EP_LM, flash attention, compute ``dtype``, with
+    ``over`` replacing its fields) and the grid's tokens [n_dcn, n_ici, 1,
+    SEQ], both from the phase's seed: equal weights for every dtype."""
+    n_dcn, n_ici = EP_GRID
+    g = torch.Generator(device=dev).manual_seed(SEED + 33)
+    kw = {**EP_LM, "moe_axis_size": n_ici, **over}
+    model = mpi.models.TransformerLM(**kw, attn_impl="flash", dtype=dtype,
+                                     device=dev, generator=g)
+    tok = torch.randint(0, LM["vocab"], (n_dcn, n_ici, 1, SEQ), generator=g,
+                        device=dev)
+    return model, tok
+
+
+def _ep_oracles(torch, mpi, ep, dev):
+    """The MoE step on the grid against its local oracles, on the phase's
+    seed weights: (a) each rank's row alone through the same weights with
+    all 4 experts local (grid 1 x 1, moe_experts_per_device 4; JAX's
+    oracle), in float32 compute, checked by _compare (rel. L2 2e-2); (b)
+    the 4 ranks folded as the grid folds them but each its own group of
+    one with all experts local (moe_axis "dcn" of a 1 x 4 grid: the same
+    products, no exchange), bf16, checked bitwise; (c) (a) in bf16,
+    reported: the differently shaped bf16 products of a lone row round
+    otherwise, and tokens near a top-2 tie change experts (the flips a
+    layer are counted).  Returns the bf16 grid model and its tokens."""
+    n = EP_GRID[0] * EP_GRID[1]
+    local = dict(moe_experts_per_device=EP_GRID[1] * EP_LM[
+        "moe_experts_per_device"], moe_axis_size=1)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model, tok = _ep_model(torch, mpi, dev, dtype)
+        grid = _loss_and_grads(model, lambda: _ep_loss(torch, mpi, model,
+                                                        tok))
+        grid = (grid[0], {k: g.clone() for k, g in grid[1].items()})
+        model.zero_grad(set_to_none=True)
+        grid_routes = _ep_routes(torch, ep, model, tok)
+        alone = _ep_model(torch, mpi, dev, dtype, **local)[0]
+        alone.load_state_dict(model.state_dict())
+        loss, routes = 0.0, []
+        for r in range(n):
+            row = tok.view(n, 1, 1, 1, SEQ)[r]
+            loss_r = _ep_loss(torch, mpi, alone, row) / n
+            loss_r.backward()
+            loss += float(loss_r.detach())
+            routes.append(_ep_routes(torch, ep, alone, row))
+        ref = (loss, {k: p.grad for k, p in alone.named_parameters()})
+        del alone
+        flips = [int((g[0] != torch.cat([r[i][0] for r in routes])
+                      ).any(-1).sum()) for i, g in enumerate(grid_routes)]
+        name = (f"moe_ep {str(dtype).split('.')[-1]} grid vs each rank "
+                f"alone, all experts local")
+        if dtype == torch.float32:
+            _compare(name, grid, ref)
+        else:
+            loss_rel = abs(grid[0] - ref[0]) / abs(ref[0])
+            rel = {k: float((grid[1][k].float() - g.float()).norm()
+                            / g.float().norm().clamp_min(1e-30))
+                   for k, g in ref[1].items()}
+            worst = max(rel, key=rel.get)
+            emit({"phase": "consistency", "compare": name,
+                  "reported_only": True, "loss_rel_diff": loss_rel,
+                  "grad_max_rel_norm_diff": rel[worst],
+                  "worst_grad": worst, "route_flips_per_layer": flips})
+            ones = _ep_model(torch, mpi, dev, dtype, moe_axis="dcn",
+                             **local)[0]
+            ones.load_state_dict(model.state_dict())
+            one = _loss_and_grads(ones, lambda: _ep_loss(
+                torch, mpi, ones, tok.view(1, n, 1, SEQ)))
+            _compare("moe_ep bf16 grid vs the ranks as groups of one, all "
+                     "experts local", grid, one)
+            out["groups_of_one_bitwise"] = grid[0] == one[0] and all(
+                torch.equal(grid[1][k], g) for k, g in one[1].items())
+            del ones, one
+        out[str(dtype).split(".")[-1]] = {"route_flips_per_layer": flips}
+        del ref, grid
+        torch.cuda.empty_cache()
+    emit({"phase": "moe_ep_oracles", **out})
+    check(out["groups_of_one_bitwise"], "moe_ep bf16 grid vs groups of one: "
+          "not bitwise")
+    check(not any(out["float32"]["route_flips_per_layer"]),
+          f"moe_ep float32: routing differs from each rank alone: {out}")
+    model.zero_grad(set_to_none=True)
+    return model, tok
+
+
+def moe_ep_phase(torch, mpi, ops, dev):
+    """The expert-parallel slice's main path: the flagship with its MLP an
+    expert layer (EP_LM: moe_axis "ici", 2 experts a rank, top-2, capacity
+    factor 2.0), rank-major on the dcn 2 x ici 2 grid, one row of 2048
+    tokens a rank, the fused loss plus 1e-2 of the aux losses, SGD lr
+    0.02.  Checks, each raising: the layer alone against its per-token
+    oracle (_ep_layer_alone); the process world of one (NCCL) bitwise to
+    the rank-major form at n = 1; the step's loss and gradients on the
+    seed weights against its local oracles (_ep_oracles); one warm-up
+    and TIMED_STEPS steps, the loss finite and falling, 0 host syncs,
+    rows 1-6 launched and every head launch on wgmma; the example moe_lm
+    --devices 4 --dcn 2 --top-k 2 to the JAX bar.  Every kernel counter is
+    set to 0 just before the timed steps and read just after; returns each
+    kernel's launches."""
+    ep = mpi.parallel.expert
+    t_phase = time.perf_counter()
+    alone = _ep_layer_alone(torch, ep, dev)
+
+    # The process world of one: all experts local, no exchange.
+    g = torch.Generator(device=dev).manual_seed(SEED + 32)
+    D, E = LM["embed"], 4
+    x = torch.randn(SEQ, D, generator=g, device=dev)
+    gate = torch.randn(D, E, generator=g, device=dev) / math.sqrt(D)
+    w1 = torch.randn(E, D, 4 * D, generator=g, device=dev) / math.sqrt(D * E)
+    w2 = torch.randn(E, 4 * D, D, generator=g, device=dev) / math.sqrt(
+        4 * D * E)
+    kw = dict(capacity_factor=EP_LM["moe_capacity_factor"], k=EP_LM["moe_k"])
+    o_world = ep.moe_layer(x, gate, _ep_experts, (w1, w2), "ici", **kw)
+    o_rm = ep.moe_layer_rank_major(x[None], gate, _ep_experts, (w1, w2),
+                                   "ici", **kw)
+    world = {"world_size": mpi.size(), "axis_size": mpi.runtime.ici_size(),
+             "bitwise": bool(torch.equal(o_world, o_rm[0])),
+             "max_abs_err": max_err(o_world, o_rm[0])}
+    del x, gate, w1, w2, o_world, o_rm
+
+    n = EP_GRID[0] * EP_GRID[1]
+    model, tok = _ep_oracles(torch, mpi, ep, dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.empty_cache()
+
+    opt = torch.optim.SGD(model.parameters(), lr=LR)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = _ep_loss(torch, mpi, model, tok)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in ops.values():
+        mod.reset_launches()
+    losses, step_ms = [], []
+    for i in range(1 + TIMED_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step()))  # waits for the step
+        if i:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: c for mod in ops.values() for k, c in mod.LAUNCHES.items()
+                if k in EP_PATH_KERNELS}
+    routes = {k: dict(c) for k, c in ops["xent"].ROUTE_LAUNCHES.items()}
+    peak = torch.cuda.max_memory_allocated()
+    syncs = count_host_syncs(torch, step)
+    profile = step_profile(torch, step, step_parts=EP_STEP_PARTS)
+    routing = [{"dropped_share": float(1.0 - valid.float().mean()),
+                "slot_fill": float(valid.sum()) / (n * slots)}
+               for _, valid, slots in _ep_routes(torch, ep, model, tok)]
+    med = statistics.median(step_ms)
+    del opt, model
+    torch.cuda.empty_cache()
+
+    # The example on the card, in-process (a world of one; --devices 4 runs
+    # its ranks rank-major as dcn 2 x ici 2), to the JAX bar.
+    from torchmpi_tpu_torch.examples import moe_lm
+
+    t0 = time.perf_counter()
+    res = moe_lm.main(list(EP_EXAMPLE))
+    example = {"argv": list(EP_EXAMPLE), "first": res["first"],
+               "last": res["last"], "learned": res["learned"],
+               "seconds": time.perf_counter() - t0}
+
+    emit({"phase": "moe_ep", "grid": list(EP_GRID),
+          "config": dict(EP_LM, batch_per_rank=1, seq=SEQ, lr=LR,
+                         aux_scale=EP_AUX, dtype="bfloat16",
+                         experts_dtype="float32"),
+          "params": n_params, "layer_alone": alone,
+          "world_of_one": world, "losses": losses, "warmup_steps": 1,
+          "step_ms": step_ms, "median_step_ms": med,
+          "min_step_ms": min(step_ms), "max_step_ms": max(step_ms),
+          "tokens_per_s": n * SEQ / (med / 1e3), "peak_mem_bytes": peak,
+          "host_syncs_per_step": syncs, "launches": launches,
+          "launches_per_step": {k: c // (1 + TIMED_STEPS)
+                                for k, c in launches.items()},
+          "xent_route_launches": routes, "routing": routing,
+          "step_device_profile": profile, "example": example,
+          "seconds": time.perf_counter() - t_phase})
+    for c in alone:
+        what = f"expert layer alone k {c['k']} cf {c['capacity_factor']}"
+        check(c["routing_equal"], f"{what}: routing differs from the oracle")
+        check(c["bitwise_repeat"], f"{what}: two calls differ")
+        for w, e in c["errors"].items():
+            check(e <= c["tolerances"][w],
+                  f"{what}: {w} err {e} > {c['tolerances'][w]}")
+    check(world["bitwise"], f"the MoE layer in the world of one vs the "
+          f"rank-major form at n = 1: {world}")
+    check(all(math.isfinite(v) for v in losses), f"moe_ep: non-finite loss "
+          f"{losses}")
+    check(losses[-1] < losses[0], f"moe_ep: loss did not fall: {losses}")
+    check(syncs == 0, f"moe_ep: {syncs} host syncs in a step")
+    for k in EP_PATH_KERNELS:
+        check(launches[k] > 0, f"kernel {k} never launched on the moe_ep path")
+    for k, counts in routes.items():
+        check(counts == {r: launches[k] * (r == "wgmma")
+                         for r in ops["xent"].ROUTES},
+              f"{k}: moe_ep head launches off the wgmma route: {counts}")
+    check(example["learned"], f"moe_lm {example['argv']} missed the bar: "
+          f"{example['first']} -> {example['last']}")
+    return launches
+
+
 def tree_verbs_phase(torch, mpi, ring, dev):
     """The in-axis verbs over a tree (collectives_bench.py's _pytree_mode
     tree) per leaf (fuse_max_bytes 0) and fused (the default): the
@@ -4845,6 +5235,12 @@ def main() -> int:
         sp_row, sp_launches = longcontext_sp_phase(torch, mpi, ops, dev)
         rows.append(sp_row)
         torch.cuda.empty_cache()
+        # The main path of slice 21: the flagship with its MLP an expert
+        # layer over ici, rank-major on a dcn 2 x ici 2 grid (rows 1-6 at
+        # full width); the layer alone against its per-token oracle; the
+        # example moe_lm to its bar.
+        ep_launches = moe_ep_phase(torch, mpi, ops, dev)
+        torch.cuda.empty_cache()
         tree_verbs_phase(torch, mpi, ring, dev)
         torch.cuda.empty_cache()
         busbw_launches = allreduce_busbw_phase(torch, mpi, ring, dev)
@@ -4885,7 +5281,9 @@ def main() -> int:
                 **({"auto_dp": auto_launches[name]}
                    if auto_launches.get(name) else {}),
                 **({"longcontext_sp": sp_launches[name]}
-                   if sp_launches.get(name) else {})}
+                   if sp_launches.get(name) else {}),
+                **({"moe_ep": ep_launches[name]}
+                   if ep_launches.get(name) else {})}
 
     kernels = [{**{k: dict(row, launches=sum(by_path(
                     row["name"]).values()))[k] for k in keys},

@@ -7,7 +7,9 @@ raise naming their ROADMAP item; the parameter-server examples
 (``mnist_downpour``, ``mnist_easgd``, ``alexnet_downpour``) and
 ``checkpoint_resume`` run a few steps; ``longcontext_lm`` runs 3 steps
 rank-major (the flash ring on 4 ranks) and in the world of one (dense
-Ulysses), and, ``slow``, its full run to the JAX bar on dcn 2 x ici 4.  The full-length runs to the JAX
+Ulysses), and, ``slow``, its full run to the JAX bar on dcn 2 x ici 4;
+``moe_lm`` runs 3 steps rank-major (8 experts, top-2) and in the world of
+one, and, ``slow``, its full run to the JAX bar.  The full-length runs to the JAX
 examples' accuracy bars (MNIST > 0.9, CIFAR > 0.85) are ``slow`` here, as
 JAX's ``test_resnet20_dp_convergence`` is, and run on the card in
 chip_smoke.py's ``cnn_examples`` phase."""
@@ -69,13 +71,16 @@ def _main(name, argv):
     ("longcontext_lm", ["--steps", "3", "--devices", "4", "--attn",
                         "ring_flash"]),
     ("longcontext_lm", ["--steps", "3", "--attn", "ulysses"]),
+    ("moe_lm", ["--steps", "3", "--devices", "8", "--top-k", "2"]),
+    ("moe_lm", ["--steps", "3"]),
 ], ids=["sequential", "allreduce", "allreduce-rank-major", "cifar",
         "cifar-zero3", "cifar-zero1-rank-major", "resnet50",
         "cifar-buckets-rank-major", "async-buckets",
         "async-buckets-rank-major", "fsdp-rank-major",
         "allreduce-hierarchical-dcn2", "allreduce-pallas-dcn2",
         "cifar-dcn2", "allreduce-pallas-dcn2-process-world",
-        "longcontext-ring-flash-rank-major", "longcontext-ulysses-world"])
+        "longcontext-ring-flash-rank-major", "longcontext-ulysses-world",
+        "moe-top2-rank-major", "moe-world"])
 def test_example_runs_and_loss_falls(name, argv):
     out = _main(name, argv)
     losses = out["losses"]
@@ -183,6 +188,15 @@ def test_longcontext_example_converges():
     out = _main("longcontext_lm", ["--devices", "8", "--dcn", "2", "--attn",
                                    "ring"])
     assert out["learned"] and out["last"] < 0.35 * out["first"]
+
+
+@pytest.mark.slow
+def test_moe_example_converges():
+    """``moe_lm --devices 8 --top-k 2`` (8 experts over ici, GShard
+    combine, 60 steps) to the JAX bar: the last loss below 0.7 of the
+    first (``main`` raises otherwise)."""
+    out = _main("moe_lm", ["--devices", "8", "--top-k", "2"])
+    assert out["learned"] and out["last"] < 0.7 * out["first"]
 
 
 @pytest.mark.slow

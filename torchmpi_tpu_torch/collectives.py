@@ -681,6 +681,54 @@ sendreceive_in_axis = _in_axis("sendreceive")
 alltoall_in_axis = _in_axis("alltoall")
 
 
+def axis_size(axis_names: AxisNames = None, grid=None) -> int:
+    """The number of ranks ``axis_names`` spans (every rank for None or
+    both axes, else those of "dcn" or "ici"), on the process world's grid
+    or on ``grid`` (n_dcn, n_ici) of a rank-major stack."""
+    axis = _world_axes("axis_size", axis_names)
+    n_dcn, n_ici = runtime.grid() if grid is None else grid
+    return n_dcn * n_ici if axis is None else n_dcn if axis == "dcn" \
+        else n_ici
+
+
+def axis_index(axis_names: AxisNames = None) -> int:
+    """This process's index along ``axis_names`` (JAX's ``axis_index``):
+    its rank for the world, else ``runtime.axis_index``."""
+    axis = _world_axes("axis_index", axis_names)
+    return runtime.rank() if axis is None else runtime.axis_index(axis)
+
+
+class _AllToAllInAxis(torch.autograd.Function):
+    """:func:`alltoall_in_axis` as autograd sees it: its backward is the
+    inverse all-to-all (split and concat axes swapped), the transpose of
+    JAX's tiled ``all_to_all``."""
+
+    @staticmethod
+    def forward(ctx, x, axis_names, split_axis, concat_axis):
+        ctx.args = (axis_names, split_axis, concat_axis)
+        return alltoall_in_axis(x.contiguous(), axis_names,
+                                split_axis=split_axis,
+                                concat_axis=concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis_names, split_axis, concat_axis = ctx.args
+        return (alltoall_in_axis(g.contiguous(), axis_names,
+                                 split_axis=concat_axis,
+                                 concat_axis=split_axis), None, None, None)
+
+
+def alltoall_in_axis_grad(x: torch.Tensor, axis_names: AxisNames = None, *,
+                          split_axis: int = 0, concat_axis: int = 0
+                          ) -> torch.Tensor:
+    """The differentiable tiled all-to-all over ``axis_names`` of the
+    process world (sequence-parallel Ulysses, the expert layer's dispatch
+    and combine); over an axis of one rank, ``x`` itself."""
+    if axis_size(axis_names) == 1:
+        return x
+    return _AllToAllInAxis.apply(x, axis_names, split_axis, concat_axis)
+
+
 # ---------------------------------------------------------------------------
 # Rank-major verbs (the JAX package's eager mode) and the staged path
 # ---------------------------------------------------------------------------

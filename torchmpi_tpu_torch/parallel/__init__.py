@@ -1,5 +1,6 @@
 """Parallel strategies of the port: data-parallel gradient sync, ZeRO-1/3
 sharded data parallelism, the two-level (dcn x ici) collectives, the
-asynchronous parameter server and the single-device attention oracle."""
+asynchronous parameter server, sequence-parallel attention with its
+single-device oracle, and the expert-parallel MoE layer."""
 
-from . import gradsync, hierarchical, ps, sequence, zero  # noqa: F401
+from . import expert, gradsync, hierarchical, ps, sequence, zero  # noqa: F401

@@ -23,11 +23,12 @@ Each comes in two forms.  Over an axis of the process world
 for the whole world), on this rank's ``[B, T_local, H, D]`` tensors: the
 rotation is a ``batch_isend_irecv`` over ``runtime.group(axis)`` inside an
 autograd Function whose backward rotates the other way (the transpose of
-``ppermute``), and the all-to-all one whose backward is the inverse
-all-to-all.  And rank-major (``*_rank_major``), on stacks ``[n, B,
-T_local, H, D]`` of n ranks' shards on one device, the port's stand-in
-for ``shard_map``: the rotation is a rotation of the list of the ranks'
-shards (``torch.roll`` on the rank dim without the copy), the all-to-all
+``ppermute``), and the all-to-all ``collectives.alltoall_in_axis_grad``,
+whose backward is the inverse all-to-all.  And rank-major
+(``*_rank_major``), on stacks ``[n, B, T_local, H, D]`` of n ranks'
+shards on one device, the port's stand-in for ``shard_map``: the
+rotation is a rotation of the list of the ranks' shards (``torch.roll``
+on the rank dim without the copy), the all-to-all
 ``collectives.alltoall_rank_major``.  Rank r's shard starts at global
 position ``r * T_local``; offsets are Python ints in both forms, so no
 step reads one from the device.
@@ -133,12 +134,10 @@ class _WorldRing:
         from .. import collectives
 
         self.axis = collectives._world_axes(verb, axis_name)
-        if self.axis is None:
-            self.n, self.my, self.group = runtime.size(), runtime.rank(), None
-        else:
-            self.n = runtime.grid()[0 if self.axis == "dcn" else 1]
-            self.my = runtime.axis_index(self.axis)
-            self.group = runtime.group(self.axis) if self.n > 1 else None
+        self.n = collectives.axis_size(axis_name)
+        self.my = collectives.axis_index(axis_name)
+        self.group = (runtime.group(self.axis)
+                      if self.axis is not None and self.n > 1 else None)
         self.axis_names = axis_name
         self.ranks = [self.my]
 
@@ -185,33 +184,6 @@ class _Rotate(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.ring.shift(g, -1), None
-
-
-class _AllToAll(torch.autograd.Function):
-    """The tiled all-to-all of the process world over the ring's axis
-    (``collectives.alltoall_in_axis``); its backward is the inverse
-    all-to-all (split and concat axes swapped)."""
-
-    @staticmethod
-    def forward(ctx, x, ring, split_axis, concat_axis):
-        ctx.ring, ctx.axes = ring, (split_axis, concat_axis)
-        return _alltoall_world(x, ring, split_axis, concat_axis)
-
-    @staticmethod
-    def backward(ctx, g):
-        split_axis, concat_axis = ctx.axes
-        return (_alltoall_world(g, ctx.ring, concat_axis, split_axis),
-                None, None, None)
-
-
-def _alltoall_world(x, ring, split_axis, concat_axis):
-    from .. import collectives
-
-    if ring.n == 1:
-        return x
-    return collectives.alltoall_in_axis(x.contiguous(), ring.axis_names,
-                                        split_axis=split_axis,
-                                        concat_axis=concat_axis)
 
 
 def _check_block_impl(block_impl: str) -> None:
@@ -434,9 +406,13 @@ def ulysses_attention(q, k, v, axis_name=None, *, causal: bool = False,
     the inverse all-to-all brings the sequence shard back."""
     ring = _WorldRing(axis_name, "ulysses_attention")
     scale = _ulysses_check(q, ring.n, causal, scale, block_impl, window)
-    qg, kg, vg = (_AllToAll.apply(t, ring, 2, 1) for t in (q, k, v))
+    from ..collectives import alltoall_in_axis_grad
+
+    qg, kg, vg = (alltoall_in_axis_grad(t, ring.axis_names, split_axis=2,
+                                        concat_axis=1) for t in (q, k, v))
     o = _full_attention(qg, kg, vg, causal, scale, block_impl, window)
-    return _AllToAll.apply(o, ring, 1, 2)
+    return alltoall_in_axis_grad(o, ring.axis_names, split_axis=1,
+                                 concat_axis=2)
 
 
 def ulysses_attention_rank_major(q, k, v, *, causal: bool = False,

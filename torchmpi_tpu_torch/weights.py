@@ -5,7 +5,9 @@ optimizer state, into the port's module; and a JAX CNN's variables
 The flax tree of ``torchmpi_tpu.models.TransformerLM`` holds
 ``Embed_0/embedding`` [V, E], ``pos_embed/embedding`` (learned positions),
 per block ``Block_i/{LayerNorm_0, LayerNorm_1, SPAttention_0/{q, kv | qkv,
-out}, Dense_0, Dense_1}``, the final ``LayerNorm_0`` and ``head`` [E, V].
+out}, Dense_0, Dense_1}`` (with ``moe_axis``, ``MoEMLP_0/{gate, w1, w2}``
+in place of the two Dense layers, taken as they are), the final
+``LayerNorm_0`` and ``head`` [E, V].
 Dense kernels are [in, out]; the attention projections are DenseGeneral
 kernels [E, H, D] (q), [E, 2, Hkv, D] (kv, with k at index 0 of axis 1) and
 [E, 3, H, D] (qkv).  PyTorch's ``nn.Linear`` keeps [out, in], so every kernel
@@ -68,8 +70,14 @@ def from_flax_params(params: Mapping,
         for name in ("q", "kv", "qkv", "out"):
             if name in attn:
                 _linear(attn[name], f"{pre}.attn.{name}", flat)
-        _linear(blk["Dense_0"], f"{pre}.mlp_in", flat)
-        _linear(blk["Dense_1"], f"{pre}.mlp_out", flat)
+        if "MoEMLP_0" in blk:
+            # The expert kernels keep flax's layout: gate [E, n_experts],
+            # w1 [n_experts, E, H], w2 [n_experts, H, E].
+            for name, arr in blk["MoEMLP_0"].items():
+                flat[f"{pre}.moe.{name}"] = np.asarray(arr)
+        else:
+            _linear(blk["Dense_0"], f"{pre}.mlp_in", flat)
+            _linear(blk["Dense_1"], f"{pre}.mlp_out", flat)
         i += 1
 
     want = model.state_dict()
