@@ -194,20 +194,39 @@ JAX package.  In order it:
    launched, every head launch on wgmma, one step profiled by part, the
    share of routes dropped and of slots filled); the example moe_lm
    --devices 4 --dcn 2 --top-k 2 to the JAX bar;
-15. tree verbs phase: collectives_bench.py's 64-leaf float32 / bfloat16
+15. tensor- and pipeline-parallel phase (megatron_3d, the main path of
+   the N-D world's slice): a stack of 8 Megatron blocks at the flagship's
+   widths (D 2048, 16 heads of 128, F 8192, causal, window 1024, flash
+   attention, float32; 403 M parameters) rank-major on mesh_shape pp 2 x
+   dp 2 x tp 2 (8 ranks on the card), GPipe over pp (4 blocks a stage), 4
+   microbatches of 1 x 2048 tokens a dp group, the f / g and dp
+   allreduces on backend "pallas", the JAX example's regression loss, SGD
+   lr 2e-3: the process world of one (NCCL, pp 1 x dp 1 x tp 1) bitwise
+   to the rank-major form at n = 1; one GPipe and one interleaved step (V
+   2) against the same blocks applied in order on the card (outputs
+   within 3e-4 / 4.8e-4, the loss within 9.9e-7 relative, every gradient
+   within rel. L2 1e-4; a control step with TF32 products reported
+   beside them), every ring launch bitwise to the plain ring; one warm-up
+   and 8 timed steps (median, min, max, tokens/s, peak memory, 0 host
+   syncs, rows 1-3 20 launches a step, one step profiled by part and by
+   range: the f / g allreduces, the dp mean, the stage shifts); a pushed
+   communicator (shape ici 4) planned on its own key; the example
+   megatron_pipeline --devices 8 --dp 2, GPipe and interleaved, to the
+   JAX bar;
+16. tree verbs phase: collectives_bench.py's 64-leaf float32 / bfloat16
    tree at 1 and 16 MiB, allreduce_in_axis and reduce_scatter_in_axis
    across the NCCL world of one and the rank-major fused reduce-scatter of
    4 ranks on "pallas", per leaf (64 launches) and fused (2), bitwise
    equal, timed;
-16. bus-bandwidth phase: the allreduce (rows 11 / 12 at 64 KiB-16 MiB,
+17. bus-bandwidth phase: the allreduce (rows 11 / 12 at 64 KiB-16 MiB,
    8 / 7 at 64 MiB a rank, and the stock route) and the allgather (rows
    14 / 10, stock) of 4 ranks rank-major, ms, algbw and busbw
    (collectives_bench.py's formulas), each against the plain ring; the
    hops are device copies on one card;
-17. two-level phase (hier_dp, the main path of the two-level slice):
+18. two-level phase (hier_dp, the main path of the two-level slice):
    ResNet-50 of phase 9 with its 4 ranks as a dcn 2 x ici 2 grid,
    backend "hierarchical", int8 error feedback, the ring per node;
-18. parameter-server phase (downpour_ps, the main path of the
+19. parameter-server phase (downpour_ps, the main path of the
    parameter-server slice): BASELINE config 4, AlexNet async downpour at
    full width (224 x 224, 1000 classes, 62,378,344 float32 parameters, a
    249.5 MB flat vector), 2 worker threads on their own streams sharing
@@ -224,14 +243,14 @@ JAX package.  In order it:
    checkpoint.save_async writes a fresh
    center and worker 0's Adam state (f: restored bitwise after; write
    seconds and MB/s);
-19. examples phase: the port's mnist_sequential, mnist_allreduce,
+20. examples phase: the port's mnist_sequential, mnist_allreduce,
    cifar_resnet20 (ZeRO 0 and 3) and mnist_async_allreduce (4 buckets in
    the world of one; overlapped, 4 ranks rank-major on the ring), then
    mnist_downpour, mnist_easgd, alexnet_downpour (their defaults) and
    checkpoint_resume in-process on the card, each to its bar (MNIST >
    0.9, CIFAR > 0.85, AlexNet > 2 / 10, the resumed run's final loss
    below its loss at the crash);
-20. prints the kernels' summary line (each kernel's launches summed over
+21. prints the kernels' summary line (each kernel's launches summed over
    the main paths, and by path), then {"ok": true, "device": ...}.
 
 Each phase prints one JSON line.  Any failed check raises and the script
@@ -586,6 +605,50 @@ EP_STEP_PARTS = LM_STEP_PARTS[:2] + (
     ("dispatch and combine", r"index|scatter|gather|[Ss]ort|scan|cumsum"),
     ("concatenations (all-to-all, RoPE)", r"CatArray|cat_"),
 ) + LM_STEP_PARTS[2:]
+
+# The tensor- and pipeline-parallel slice (megatron_3d): a stack of
+# Megatron blocks (parallel.tensor.tp_transformer_block) at the flagship's
+# widths (D 2048, 16 heads of 128, F 8192; causal, window 1024, flash
+# attention, float32), rank-major on pp 2 x dp 2 x tp 2 (8 ranks on the
+# card): GPipe over pp with 4 blocks a stage, M 4 microbatches of 1 x 2048
+# tokens a dp group (16,384 tokens a step), the f / g and dp allreduces on
+# backend "pallas", the JAX example's regression loss, SGD lr 2e-3.
+MG_SHAPE = {"pp": 2, "dp": 2, "tp": 2}
+MG = dict(blocks=8, embed=LM["embed"], heads=LM["num_heads"],
+          ffn=4 * LM["embed"], window=LM["window"], microbatches=4,
+          batch=1, seq=SEQ)
+MG_LR = 2e-3  # stage B''s 0.02 overshoots this loss at D 2048 (it rose)
+# The checked steps against the oracle.  JAX's outputs tolerance (3e-4 /
+# 3e-5, tests/test_pipeline.py:446-447) was set at D 8-32; at D 2048 after
+# 8 residual blocks the absolute error of outputs near 0 nears its atol.
+# So the atol and the loss limit here sit between the float32 steps'
+# largest reading and the smallest reading of a control, the same step
+# with TF32 products (the phase's ``control``), at the geometric mean of
+# the two (PERF.md: float32 2.68e-5 and 4.64e-8, the control 8.71e-3
+# and 2.12e-5, on an H100 80GB HBM3 at 700 W).  JAX's atol is reported
+# beside them.  The gradients' limit lies between the float32 steps'
+# 2.29e-6 and the control's 1.06e-3 as it is.
+MG_JAX_ATOL = 3e-5
+MG_OUT_TOL = dict(rtol=3e-4, atol=4.8e-4)
+MG_LOSS_RTOL = 9.9e-7  # the loss's relative difference from the oracle's
+MG_GRAD_RTOL = 1e-4  # every weight's gradient, rel. L2, against the oracle
+MG_WORLD_BLOCKS = 2  # the world of one's stack (all 16 heads on one rank)
+MG_PATH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+MG_EXAMPLES = (("--devices", "8", "--dp", "2"),
+               ("--devices", "8", "--dp", "2", "--schedule", "interleaved"))
+# The step by part: the port's kernels, cuBLAS's products, the copies and
+# concatenations (the stage shifts, the layouts of the dp groups), the
+# rest; the ranges of the f / g allreduces, the dp mean and the shifts
+# (record_function) beside them.
+MG_STEP_PARTS = (
+    ("flash kernels", r"flash_\w*kernel"),
+    ("ring rows", r"ring_direct|ring_\w*kernel"),
+    ("products (cuBLAS)", r"nvjet|gemm|xmma|cutlass|cublas"),
+    ("copies and concatenations", r"copy|Copy|Memcpy|CatArray|cat_"),
+    ("reductions", r"reduce"),
+    ("elementwise", r"elementwise|vectorized"),
+)
+MG_RANGES = ("tp/allreduce", "dp/mean", "pp/shift")
 
 SOURCES = {
     "flash_fwd": ("torchmpi_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -4517,6 +4580,383 @@ def moe_ep_phase(torch, mpi, ops, dev):
     return launches
 
 
+def _mg_full_weights(torch, dev, L, seed):
+    """The L full (unsharded) blocks' weights [L, d_in, d_out] in the
+    ``x @ w`` layout, scaled as the example's (1 / sqrt(d_in))."""
+    D, F = MG["embed"], MG["ffn"]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shapes = {"wq": (D, D), "wk": (D, D), "wv": (D, D), "wo": (D, D),
+              "w1": (D, F), "w2": (F, D)}
+    return {k: torch.randn(L, a, b, generator=g, device=dev) / math.sqrt(a)
+            for k, (a, b) in shapes.items()}
+
+
+def _mg_rank_major(torch, full, S, n_dp, n_tp, V, K):
+    """The full blocks as the rank-major stacks [n, V, K, ...]: rank (p, d,
+    t) of the (pp, dp, tp) grid row-major holds tp shard t (a column block,
+    a row block of wo / w2) of logical chunk v S + p's K blocks, for each
+    v (replicated over dp)."""
+    out = {}
+    for k, w in full.items():
+        L, a, b = w.shape
+        sh = (w.reshape(L, n_tp, a // n_tp, b) if k in ("wo", "w2") else
+              w.reshape(L, a, n_tp, b // n_tp).transpose(1, 2))
+        c = sh.reshape(V, S, K, n_tp, *sh.shape[2:]).permute(1, 3, 0, 2, 4, 5)
+        c = c.unsqueeze(1).expand(S, n_dp, *c.shape[1:])
+        out[k] = c.reshape(S * n_dp * n_tp, V, K, *sh.shape[2:]).contiguous()
+    return out
+
+
+def _mg_full_grads(torch, grads, d, S, n_dp, n_tp, V, K):
+    """Rank-major gradients [n, V, K, ...] back in the full blocks' layout
+    [L, d_in, d_out], from the ranks of dp group ``d``."""
+    out = {}
+    for k, gk in grads.items():
+        sh = gk.reshape(S, n_dp, n_tp, V, K, *gk.shape[3:])[:, d]
+        sh = sh.permute(2, 0, 3, 1, 4, 5).reshape(S * V * K, n_tp,
+                                                  *gk.shape[3:])
+        L = sh.shape[0]
+        out[k] = (sh.reshape(L, -1, sh.shape[-1]) if k in ("wo", "w2") else
+                  sh.transpose(1, 2).reshape(L, sh.shape[2], -1))
+    return out
+
+
+def _mg_oracle(torch, flash, full, xs, ys):
+    """The sequential oracle on the card: the same blocks unsharded, applied
+    in order to every microbatch of every dp group (all 16 heads in one
+    flash call a block), the JAX example's loss (each group's squared error
+    over its target's size, the mean over the groups); each microbatch's
+    backward accumulated into the full weights' gradients.  Returns (loss,
+    outputs [n_dp, M, B, T, D], gradients [L, d_in, d_out])."""
+    H, W = MG["heads"], MG["window"]
+    w = {k: v.detach().clone().requires_grad_() for k, v in full.items()}
+    n_dp, M = xs.shape[:2]
+    size = xs[0].numel()
+
+    def ln(h):
+        mu = h.mean(-1, keepdim=True)
+        var = ((h - mu) ** 2).mean(-1, keepdim=True)
+        return (h - mu) * torch.rsqrt(var + 1e-6)
+
+    outs, loss = torch.empty_like(xs), 0.0
+    for d in range(n_dp):
+        for m in range(M):
+            h = xs[d, m]
+            B, T, D = h.shape
+            for l in range(w["wq"].shape[0]):
+                q, k, v = ((ln(h) @ w[n][l]).reshape(B, T, H, D // H)
+                           for n in ("wq", "wk", "wv"))
+                ctx = flash.flash_attention_grad(q, k, v, causal=True,
+                                                 window=W)
+                h = h + ctx.reshape(B, T, D) @ w["wo"][l]
+                h = h + torch.nn.functional.gelu(ln(h) @ w["w1"][l]) \
+                    @ w["w2"][l]
+            part = ((h - ys[d, m]) ** 2).sum() / size / n_dp
+            part.backward()
+            outs[d, m] = h.detach()
+            loss += float(part.detach())
+    return loss, outs, {k: v.grad for k, v in w.items()}
+
+
+def _mg_check_step(torch, mp, flash, params, xs_rm, ys_rm, oracle, grid,
+                   schedule, V, K):
+    """One step of ``schedule`` (SGD lr 0: the weights stay) against the
+    oracle: the last stage's outputs within MG_OUT_TOL, every weight's
+    gradient (each block, each dp group's ranks) within MG_GRAD_RTOL
+    (rel. L2), the loss.  Returns the errors."""
+    S, n_dp, n_tp = grid
+    ref_loss, ref_out, ref_grads = oracle
+    stage_fn = mp.make_stage_fn(MG["heads"], MG["embed"], xs_rm.device,
+                                rank_major=True, attn_impl="flash",
+                                window=MG["window"], backend="pallas")
+    step = mp.make_train_step(stage_fn, S, schedule=schedule, lr=0.0,
+                              rank_major=True, backend="pallas")
+    loss, grads = step(params, xs_rm, ys_rm)
+    with torch.no_grad():
+        out = step.apply(params, xs_rm)
+    R = n_dp * n_tp
+    out_err = 0.0
+    for r in range((S - 1) * R, S * R):
+        d = (r // n_tp) % n_dp
+        diff = (out[r] - ref_out[d]).abs() - MG_OUT_TOL["rtol"] * \
+            ref_out[d].abs()
+        out_err = max(out_err, float(diff.max()))
+    del out
+    rel = {}
+    for d in range(n_dp):
+        full = _mg_full_grads(torch, grads, d, S, n_dp, n_tp, V, K)
+        for k, g in full.items():
+            for l in range(g.shape[0]):
+                name = f"{k}[{l}] dp{d}"
+                rel[name] = float((g[l] - ref_grads[k][l]).norm()
+                                  / ref_grads[k][l].norm())
+    worst = max(rel, key=rel.get)
+    return {"schedule": schedule, "loss": float(loss[0]),
+            "oracle_loss": ref_loss,
+            "loss_rel_diff": abs(float(loss[0]) - ref_loss) / ref_loss,
+            "out_excess_over_rtol": out_err, "out_tol": MG_OUT_TOL,
+            "within_jax_atol": out_err <= MG_JAX_ATOL,
+            "grad_max_rel_l2": rel[worst], "worst_grad": worst}
+
+
+def _mg_profile(torch, fn) -> dict:
+    """Device time of one call of ``fn`` by part (MG_STEP_PARTS, on the
+    kernels' names) and by range (MG_RANGES: the kernels launched inside
+    each record_function range), and the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    parts = {name: {"ms": 0.0, "calls": 0} for name, _ in MG_STEP_PARTS}
+    parts["other"] = {"ms": 0.0, "calls": 0}
+    ranges = {r: {"ms": 0.0, "calls": 0} for r in MG_RANGES}
+    rows = []
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        t = (getattr(e, "cuda_time_total", 0.0) if t is None else t) / 1e3
+        if e.key in ranges:
+            ranges[e.key] = {"ms": t, "calls": e.count}
+        elif e.device_type == DeviceType.CUDA and t > 0:
+            rows.append((e.key, e.count, t))
+            part = next((n for n, pat in MG_STEP_PARTS
+                         if re.search(pat, e.key)), "other")
+            parts[part]["ms"] += t
+            parts[part]["calls"] += e.count
+    rows.sort(key=lambda r: -r[2])
+    return {"total_ms": sum(r[2] for r in rows), "parts": parts,
+            "ranges": ranges,
+            "top": [{"kernel": k[:120], "calls": c, "ms": ms}
+                    for k, c, ms in rows[:12]]}
+
+
+def _mg_world_of_one(torch, mpi, mp, dev):
+    """The process world of one (NCCL, mesh_shape pp 1 x dp 1 x tp 1): one
+    GPipe step of MG_WORLD_BLOCKS full-width blocks (all 16 heads on the
+    one rank, 2 microbatches) in the process-world form against the
+    rank-major form at n = 1 on the same weights and data: the loss, every
+    gradient and every updated weight bitwise."""
+    full = _mg_full_weights(torch, dev, MG_WORLD_BLOCKS, SEED + 42)
+    rm = _mg_rank_major(torch, full, 1, 1, 1, 1, MG_WORLD_BLOCKS)
+    world = {k: v[0].clone() for k, v in rm.items()}
+    g = torch.Generator(device=dev).manual_seed(SEED + 43)
+    shape = (1, 2, MG["batch"], MG["seq"], MG["embed"])
+    xs = torch.randn(*shape, generator=g, device=dev)
+    ys = torch.randn(*shape, generator=g, device=dev) * 0.3
+    res = {}
+    for rank_major, params, x, y in ((True, rm, xs, ys),
+                                     (False, world, xs[0], ys[0])):
+        stage_fn = mp.make_stage_fn(MG["heads"], MG["embed"], dev,
+                                    rank_major=rank_major,
+                                    attn_impl="flash", window=MG["window"],
+                                    backend="pallas")
+        step = mp.make_train_step(stage_fn, 1, schedule="gpipe", lr=MG_LR,
+                                  rank_major=rank_major, backend="pallas")
+        loss, grads = step(params, x, y)
+        res[rank_major] = (loss, grads, params)
+    (l_rm, g_rm, p_rm), (l_w, g_w, p_w) = res[True], res[False]
+    return {"world_size": mpi.size(), "shape": mpi.world_shape(),
+            "backend": mpi.runtime.backend_name(),
+            "bitwise": bool(torch.equal(l_w, l_rm) and all(
+                torch.equal(g_w[k], g_rm[k][0]) and
+                torch.equal(p_w[k], p_rm[k][0]) for k in g_w)),
+            "max_abs_err": max(max_err(g_w[k], g_rm[k][0]) for k in g_w)}
+
+
+def megatron_3d_phase(torch, mpi, ops, dev):
+    """The tensor- and pipeline-parallel slice's main path: MG's stack of 8
+    Megatron blocks at the flagship's widths, rank-major on mesh_shape pp
+    2 x dp 2 x tp 2 (8 ranks on the card), GPipe over pp (4 blocks a
+    stage), 4 microbatches of 1 x 2048 tokens a dp group, flash attention
+    (window 1024), the f / g and dp allreduces on backend "pallas", the
+    JAX example's regression loss, SGD lr 2e-3.  Checks, each raising: the
+    process world of one (NCCL) bitwise to the rank-major form at n = 1;
+    one GPipe step and one interleaved step (V 2, 2 blocks a chunk)
+    against the sequential oracle on the card (outputs within MG_OUT_TOL,
+    the loss within MG_LOSS_RTOL, every weight's gradient within rel. L2
+    1e-4; the GPipe step with TF32 products as the control, reported),
+    every ring launch of those steps bitwise to the plain ring (the
+    selector's "pallas" route tapped); one warm-up and TIMED_STEPS steps, the loss finite and
+    falling, 0 host syncs, rows 1-3 launched a known number of times; a
+    pushed communicator ("half", shape ici 4) planned on its own key; the
+    example megatron_pipeline --devices 8 --dp 2, both schedules, to the
+    JAX bar.  Every kernel counter is set to 0 just before the warm-up and
+    read after the timed steps.  Restores the two-level world of one;
+    returns each kernel's launches and the device."""
+    from torchmpi_tpu_torch.examples import megatron_pipeline as mp
+
+    flash, ring = ops["flash"], ops["ring"]
+    t_phase = time.perf_counter()
+    mpi.stop()
+    mpi.init(mpi.Config(mesh_shape={"pp": 1, "dp": 1, "tp": 1}))
+    world = _mg_world_of_one(torch, mpi, mp, dev)
+    mpi.stop()
+    dev = mpi.init(mpi.Config(mesh_shape=MG_SHAPE))
+    torch.cuda.empty_cache()
+
+    S, n_dp, n_tp = (MG_SHAPE[a] for a in ("pp", "dp", "tp"))
+    n, L, M = S * n_dp * n_tp, MG["blocks"], MG["microbatches"]
+    full = _mg_full_weights(torch, dev, L, SEED + 40)
+    g = torch.Generator(device=dev).manual_seed(SEED + 41)
+    shape = (n_dp, M, MG["batch"], MG["seq"], MG["embed"])
+    xs = torch.randn(*shape, generator=g, device=dev)
+    ys = torch.randn(*shape, generator=g, device=dev) * 0.3
+    rows = [d for _ in range(S) for d in range(n_dp) for _ in range(n_tp)]
+    xs_rm, ys_rm = xs[rows].contiguous(), ys[rows].contiguous()
+    oracle = _mg_oracle(torch, flash, full, xs, ys)
+    torch.cuda.empty_cache()
+
+    # The checked steps, every ring launch held to the plain ring.
+    log = TapLog()
+    restore = tap_rank_major_routes(torch, mpi, ring, log,
+                                    ops=("allreduce_rank_major",))
+    checks = []
+    try:
+        for schedule, V, K in (("gpipe", 1, L // S),
+                               ("interleaved", 2, L // (2 * S))):
+            params = _mg_rank_major(torch, full, S, n_dp, n_tp, V, K)
+            checks.append(_mg_check_step(torch, mp, flash, params, xs_rm,
+                                         ys_rm, oracle, (S, n_dp, n_tp),
+                                         schedule, V, K))
+            del params
+            torch.cuda.empty_cache()
+        # The control: the GPipe step with TF32 products, whose readings
+        # the limits must stay under.
+        params = _mg_rank_major(torch, full, S, n_dp, n_tp, 1, L // S)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            control = _mg_check_step(torch, mp, flash, params, xs_rm, ys_rm,
+                                     oracle, (S, n_dp, n_tp), "gpipe", 1,
+                                     L // S)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        control["tf32_products"] = True
+        control["limits_below_control"] = (
+            control["out_excess_over_rtol"] > MG_OUT_TOL["atol"]
+            and control["loss_rel_diff"] > MG_LOSS_RTOL
+            and control["grad_max_rel_l2"] > MG_GRAD_RTOL)
+        del params
+        torch.cuda.empty_cache()
+    finally:
+        restore()
+    tapped_rows = sorted({r for e in log for r in e["rows"]})
+    tap = {"calls": len(log), "bitwise": all(e["bitwise"] for e in log),
+           "rows": tapped_rows}
+    del log, oracle
+    torch.cuda.empty_cache()
+
+    # The main path: one warm-up and TIMED_STEPS GPipe steps.
+    params = _mg_rank_major(torch, full, S, n_dp, n_tp, 1, L // S)
+    n_params = sum(v[0].numel() for v in params.values()) * S * n_tp
+    del full
+    stage_fn = mp.make_stage_fn(MG["heads"], MG["embed"], dev,
+                                rank_major=True, attn_impl="flash",
+                                window=MG["window"], backend="pallas")
+    train = mp.make_train_step(stage_fn, S, schedule="gpipe", lr=MG_LR,
+                               rank_major=True, backend="pallas")
+
+    def step():
+        return train(params, xs_rm, ys_rm)[0]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (flash, ring):
+        mod.reset_launches()
+    losses, step_ms = [], []
+    for i in range(1 + TIMED_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step()[0]))  # waits for the step
+        if i:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: c for k, c in flash.LAUNCHES.items()
+                if k in MG_PATH_KERNELS}
+    launches.update({k: c for k, c in ring.LAUNCHES.items() if c})
+    vector = {k: c for k, c in ring.VECTOR_LAUNCHES.items() if c}
+    peak = torch.cuda.max_memory_allocated()
+    syncs = count_host_syncs(torch, step)
+    profile = _mg_profile(torch, step)
+    med = statistics.median(step_ms)
+    del params, train
+    torch.cuda.empty_cache()
+
+    # Back to the two-level world of one for the later phases; a pushed
+    # communicator there, planned on its own key.
+    mpi.stop()
+    dev = mpi.init()
+    x = torch.randn(8, 1 << 20, generator=g, device=dev)
+    mpi.allreduce_rank_major(x)
+    mpi.planner.reset_stats()
+    with mpi.communicator("half", shape={"ici": 4}):
+        half = mpi.allreduce_rank_major(x[:4])
+        misses = mpi.planner.stats()["misses"]
+    mpi.allreduce_rank_major(x)
+    pushed = {"equal_to_plain_sum": bool(torch.equal(
+        half, mpi.collectives._fold_ranks(x[:4]).expand(4, -1))),
+        "misses_under_push": misses,
+        "world_hits_after_pop": mpi.planner.stats()["hits"]}
+    del x, half
+
+    examples = []
+    for argv in MG_EXAMPLES:
+        t0 = time.perf_counter()
+        res = mp.main(list(argv))
+        examples.append({"argv": list(argv), "first": res["first"],
+                         "last": res["last"], "drop": res["drop"],
+                         "learned": res["learned"],
+                         "seconds": time.perf_counter() - t0})
+
+    ticks = M + S - 1
+    per_step = ticks * (L // S)
+    emit({"phase": "megatron_3d", "mesh_shape": MG_SHAPE,
+          "config": dict(MG, blocks_per_stage=L // S, lr=MG_LR,
+                         dtype="float32", attn_impl="flash",
+                         backend="pallas", schedule="gpipe"),
+          "params": n_params, "world_of_one": world, "checks": checks,
+          "control": control,
+          "ring_tap": tap, "losses": losses, "warmup_steps": 1,
+          "step_ms": step_ms, "median_step_ms": med,
+          "min_step_ms": min(step_ms), "max_step_ms": max(step_ms),
+          "tokens_per_s": n_dp * M * MG["batch"] * MG["seq"] / (med / 1e3),
+          "peak_mem_bytes": peak, "host_syncs_per_step": syncs,
+          "launches": launches, "vector_launches": vector,
+          "launches_per_step": {k: c // (1 + TIMED_STEPS)
+                                for k, c in launches.items()},
+          "flash_launches_per_step_expected": per_step,
+          "step_device_profile": profile, "pushed_communicator": pushed,
+          "examples": examples, "seconds": time.perf_counter() - t_phase})
+    check(world["bitwise"], f"megatron_3d: the world of one vs the "
+          f"rank-major form at n = 1: {world}")
+    for c in checks:
+        check(c["out_excess_over_rtol"] <= MG_OUT_TOL["atol"],
+              f"megatron_3d {c['schedule']}: outputs off the oracle: {c}")
+        check(c["grad_max_rel_l2"] <= MG_GRAD_RTOL,
+              f"megatron_3d {c['schedule']}: gradients off the oracle: {c}")
+        check(c["loss_rel_diff"] <= MG_LOSS_RTOL,
+              f"megatron_3d {c['schedule']}: loss off the oracle: {c}")
+    check(tap["calls"] > 0 and tap["bitwise"] and tap["rows"],
+          f"megatron_3d: ring launches vs the plain ring: {tap}")
+    check(all(math.isfinite(v) for v in losses),
+          f"megatron_3d: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"megatron_3d: loss did not fall: {losses}")
+    check(syncs == 0, f"megatron_3d: {syncs} host syncs in a step")
+    for k in MG_PATH_KERNELS:
+        check(launches[k] == per_step * (1 + TIMED_STEPS),
+              f"megatron_3d: {k} launched {launches[k]} times, expected "
+              f"{per_step} a step")
+    check(any(k.startswith("ring") for k in launches),
+          f"megatron_3d: no ring row launched: {launches}")
+    check(pushed["equal_to_plain_sum"] and pushed["misses_under_push"] == 1
+          and pushed["world_hits_after_pop"] >= 1,
+          f"megatron_3d: the pushed communicator: {pushed}")
+    for ex in examples:
+        check(ex["learned"], f"megatron_pipeline {ex['argv']} missed the "
+              f"bar: {ex['first']} -> {ex['last']}")
+    return launches, dev
+
+
 def tree_verbs_phase(torch, mpi, ring, dev):
     """The in-axis verbs over a tree (collectives_bench.py's _pytree_mode
     tree) per leaf (fuse_max_bytes 0) and fused (the default): the
@@ -5241,6 +5681,13 @@ def main() -> int:
         # example moe_lm to its bar.
         ep_launches = moe_ep_phase(torch, mpi, ops, dev)
         torch.cuda.empty_cache()
+        # The main path of slice 22: a stack of Megatron blocks at the
+        # flagship's widths, rank-major on the N-D world pp 2 x dp 2 x tp 2
+        # (rows 1-3, the f / g and dp allreduces on the ring rows); the
+        # example megatron_pipeline to its bar.
+        mg_launches, dev = megatron_3d_phase(torch, mpi,
+                                             dict(ops, ring=ring), dev)
+        torch.cuda.empty_cache()
         tree_verbs_phase(torch, mpi, ring, dev)
         torch.cuda.empty_cache()
         busbw_launches = allreduce_busbw_phase(torch, mpi, ring, dev)
@@ -5283,7 +5730,9 @@ def main() -> int:
                 **({"longcontext_sp": sp_launches[name]}
                    if sp_launches.get(name) else {}),
                 **({"moe_ep": ep_launches[name]}
-                   if ep_launches.get(name) else {})}
+                   if ep_launches.get(name) else {}),
+                **({"megatron_3d": mg_launches[name]}
+                   if mg_launches.get(name) else {})}
 
     kernels = [{**{k: dict(row, launches=sum(by_path(
                     row["name"]).values()))[k] for k in keys},

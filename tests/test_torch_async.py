@@ -167,8 +167,23 @@ def test_async_in_axis_deferred_wait():
           for v in tcoll.VERBS]
     assert len(tmpi.wait_all(hs)) == len(tcoll.VERBS)
     assert torch.equal(tmpi.async_in_axis.allreduce(x, "ici").wait(), x)
-    with pytest.raises(NotImplementedError, match="queue A, item 1"):
+    with pytest.raises(ValueError, match="unknown axis 'tp'"):
         tmpi.async_in_axis.allreduce(x, "tp").wait()
+
+
+def test_async_in_axis_over_a_mesh_shape_axis():
+    """The handle-returning verbs over "tp" of ``mesh_shape={"tp": 1}``:
+    a world of one process, the value itself."""
+    tmpi.stop()
+    tmpi.init(tmpi.Config(mesh_shape={"tp": 1}), device="cpu")
+    try:
+        x = torch.arange(8.0)
+        assert torch.equal(tmpi.async_in_axis.allreduce(x, "tp").wait(), x)
+        assert torch.equal(
+            tmpi.async_in_axis.allgather(x, ("tp",)).wait(), x[None])
+    finally:
+        tmpi.stop()
+        tmpi.init(device="cpu")
 
 
 def test_timeout_raises_peer_timeout_error():

@@ -9,13 +9,18 @@ raise naming their ROADMAP item; the parameter-server examples
 rank-major (the flash ring on 4 ranks) and in the world of one (dense
 Ulysses), and, ``slow``, its full run to the JAX bar on dcn 2 x ici 4;
 ``moe_lm`` runs 3 steps rank-major (8 experts, top-2) and in the world of
-one, and, ``slow``, its full run to the JAX bar.  The full-length runs to the JAX
+one, and, ``slow``, its full run to the JAX bar; ``megatron_pipeline`` runs
+3 steps rank-major (pp 2 x tp 4, and pp 2 x dp 2 x tp 2 interleaved), its
+step's synced gradient equals the gradient of the dp-mean loss through
+the unsharded blocks (no factor), and, ``slow``, its full run to the JAX
+bar.  The full-length runs to the JAX
 examples' accuracy bars (MNIST > 0.9, CIFAR > 0.85) are ``slow`` here, as
 JAX's ``test_resnet20_dp_convergence`` is, and run on the card in
 chip_smoke.py's ``cnn_examples`` phase."""
 
 import importlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -73,6 +78,9 @@ def _main(name, argv):
     ("longcontext_lm", ["--steps", "3", "--attn", "ulysses"]),
     ("moe_lm", ["--steps", "3", "--devices", "8", "--top-k", "2"]),
     ("moe_lm", ["--steps", "3"]),
+    ("megatron_pipeline", ["--steps", "3", "--devices", "8"]),
+    ("megatron_pipeline", ["--steps", "3", "--devices", "8", "--dp", "2",
+                           "--schedule", "interleaved"]),
 ], ids=["sequential", "allreduce", "allreduce-rank-major", "cifar",
         "cifar-zero3", "cifar-zero1-rank-major", "resnet50",
         "cifar-buckets-rank-major", "async-buckets",
@@ -80,7 +88,8 @@ def _main(name, argv):
         "allreduce-hierarchical-dcn2", "allreduce-pallas-dcn2",
         "cifar-dcn2", "allreduce-pallas-dcn2-process-world",
         "longcontext-ring-flash-rank-major", "longcontext-ulysses-world",
-        "moe-top2-rank-major", "moe-world"])
+        "moe-top2-rank-major", "moe-world", "megatron-rank-major",
+        "megatron-3d-interleaved-rank-major"])
 def test_example_runs_and_loss_falls(name, argv):
     out = _main(name, argv)
     losses = out["losses"]
@@ -197,6 +206,87 @@ def test_moe_example_converges():
     first (``main`` raises otherwise)."""
     out = _main("moe_lm", ["--devices", "8", "--top-k", "2"])
     assert out["learned"] and out["last"] < 0.7 * out["first"]
+
+
+@pytest.mark.slow
+def test_megatron_example_converges():
+    """``megatron_pipeline --devices 8 --dp 2`` (pp 2 x dp 2 x tp 2, 120
+    steps) to the JAX bar: the last loss below 0.2 of the first (``main``
+    raises otherwise)."""
+    out = _main("megatron_pipeline", ["--devices", "8", "--dp", "2"])
+    assert out["learned"] and out["drop"] < 0.2
+
+
+def _dense_block(x, w, H):
+    """One full (unsharded) Megatron block with unit layer norms: the
+    sequential oracle."""
+    def ln(h):
+        mu = h.mean(-1, keepdim=True)
+        var = ((h - mu) ** 2).mean(-1, keepdim=True)
+        return (h - mu) * torch.rsqrt(var + 1e-6)
+
+    B, T, D = x.shape
+    q, k, v = ((ln(x) @ w[n]).reshape(B, T, H, D // H)
+               for n in ("wq", "wk", "wv"))
+    s = torch.einsum("bthd,bshd->bhts", q, k) / (D // H) ** 0.5
+    s = s.masked_fill(~torch.ones(T, T, dtype=torch.bool).tril(),
+                      float("-inf"))
+    ctx = torch.einsum("bhts,bshd->bthd", torch.softmax(s, -1), v)
+    x = x + ctx.reshape(B, T, D) @ w["wo"]
+    return x + torch.nn.functional.gelu(ln(x) @ w["w1"]) @ w["w2"]
+
+
+@pytest.mark.parametrize("schedule", ["gpipe", "interleaved"])
+def test_megatron_step_gradient_is_the_mean_loss_gradient(schedule):
+    """The example's synced gradient carries no factor: on pp 2 x dp 2 x
+    tp 2 rank-major, every rank's gradient is its shard of the gradient
+    of the mean over the dp groups of the JAX loss (the last stage's
+    squared error over the target's size), through the blocks applied in
+    order, unsharded (the example's widths, T 8, M 4)."""
+    from torchmpi_tpu_torch.examples import megatron_pipeline as mp
+
+    S, n_dp, n_tp, B, T, M = 2, 2, 2, 2, 8, 4
+    V = 2 if schedule == "interleaved" else 1
+    H, D, F = n_tp, 8 * n_tp, 16 * n_tp
+    blocks = [mp.dense_block(1 + l, D, F) for l in range(S * V)]
+    rng = np.random.RandomState(0)
+    xs = rng.randn(n_dp, M, B, T, D).astype(np.float32)
+    ys = (rng.randn(n_dp, M, B, T, D) * 0.3).astype(np.float32)
+    tmpi.init(tmpi.Config(mesh_shape={"pp": S, "dp": n_dp, "tp": n_tp}),
+              device="cpu")
+    dev = torch.device("cpu")
+    params = mp.rank_major_params(mp.staged_weights(blocks, S, n_tp),
+                                  n_dp, dev)
+    rows = [d for _ in range(S) for d in range(n_dp) for _ in range(n_tp)]
+    step = mp.make_train_step(mp.make_stage_fn(H, D, dev, rank_major=True),
+                              S, schedule=schedule, lr=0.0, rank_major=True)
+    loss, grads = step(params, torch.from_numpy(xs[rows]),
+                       torch.from_numpy(ys[rows]))
+
+    full = [{k: torch.from_numpy(v).requires_grad_() for k, v in b.items()}
+            for b in blocks]
+    total = 0.0
+    for g in range(n_dp):
+        for m in range(M):
+            h = torch.from_numpy(xs[g, m])
+            for w in full:
+                h = _dense_block(h, w, H)
+            total = total + ((h - torch.from_numpy(ys[g, m])) ** 2).sum()
+    ref_loss = total / (M * B * T * D) / n_dp
+    ref_loss.backward()
+    np.testing.assert_allclose(loss.numpy(), float(ref_loss.detach()),
+                               rtol=1e-5)
+    for k in mp.KEYS:
+        got = grads[k].reshape(S, n_dp, n_tp, V, *grads[k].shape[2:])
+        for p in range(S):
+            for v in range(V):
+                want = full[v * S + p][k].grad
+                for d in range(n_dp):
+                    shards = [got[p, d, t, v, 0] for t in range(n_tp)]
+                    cat = torch.cat(shards, 0 if k in ("wo", "w2") else 1)
+                    np.testing.assert_allclose(
+                        cat.numpy(), want.numpy(), rtol=1e-4,
+                        atol=1e-5 * float(want.abs().max()))
 
 
 @pytest.mark.slow

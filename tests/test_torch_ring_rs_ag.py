@@ -185,7 +185,7 @@ def test_selector_routes():
                            xs[0][None])
         assert torch.equal(tmpi.allgather_in_axis(xs[0], "ici"),
                            xs[0][None])
-        with pytest.raises(NotImplementedError, match="queue A"):
+        with pytest.raises(ValueError, match="unknown axis 'tp'"):
             tmpi.allgather_in_axis(xs[0], "tp")
     finally:
         configure(backend="xla", custom_min_bytes=64 * 1024)

@@ -101,6 +101,23 @@ def test_selector_routes_and_refuses(cpu_runtime):
     assert selector.select("allreduce", nbytes=4) is impls["xla"]
 
 
+def test_collectives_over_a_mesh_shape_axis():
+    """The verbs over an axis of ``Config.mesh_shape``: "tp" of a world of
+    one process is the closed form with n = 1."""
+    tmpi.stop()
+    tmpi.init(tmpi.Config(mesh_shape={"tp": 1}), device="cpu")
+    try:
+        x = torch.arange(6.0).reshape(2, 3)
+        assert torch.equal(tmpi.allreduce_in_axis(x, "tp"), x)
+        assert torch.equal(tmpi.allreduce_in_axis(x, ("tp",), op="mean"), x)
+        assert torch.equal(tmpi.allreduce_rank_major(x[None], axis_names="tp"),
+                           x[None])
+        with pytest.raises(ValueError, match="unknown axis 'ici'"):
+            tmpi.allreduce_in_axis(x, "ici")
+    finally:
+        tmpi.stop()
+
+
 def test_collectives_on_one_rank(cpu_runtime):
     x = torch.arange(6.0).reshape(2, 3)
     for op in ("sum", "mean"):
@@ -111,7 +128,7 @@ def test_collectives_on_one_rank(cpu_runtime):
                        x)
     assert torch.equal(tmpi.allreduce_in_axis(x, None), x)
     assert torch.equal(tmpi.allreduce_in_axis(x, "ici"), x)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unknown axis 'tp'"):
         tmpi.allreduce_in_axis(x, "tp")
     with pytest.raises(ValueError):
         tmpi.allreduce(x, op="max")

@@ -152,6 +152,23 @@ def test_staged_equals_direct(verb, dtype):
         assert direct.dtype == torch.float32
 
 
+def test_world_of_one_verbs_over_a_mesh_shape_axis():
+    """Every in-axis verb over "tp" of ``mesh_shape={"tp": 1}`` in this
+    world of one process: the closed forms with n = 1."""
+    tmpi.stop()
+    tmpi.init(tmpi.Config(mesh_shape={"tp": 1}), device="cpu")
+    try:
+        x = torch.arange(12.0).reshape(4, 3)
+        for verb in tmpi.collectives.VERBS:
+            kw = {"src": 0, "dst": 0} if verb == "sendreceive" else {}
+            got = getattr(tmpi, f"{verb}_in_axis")(x, "tp", **kw)
+            want = tmpi.collectives.CLOSED_FORMS[verb](x[None], **kw)[0]
+            assert torch.equal(got, want), verb
+    finally:
+        tmpi.stop()
+        tmpi.init(device="cpu")
+
+
 def test_world_of_one_verbs():
     """The process-world verbs and their in-axis forms in this process's
     world of one: the closed forms with n = 1."""
@@ -166,7 +183,7 @@ def test_world_of_one_verbs():
     # One axis of the (1, 1) grid: that axis's group of one.
     assert torch.equal(tmpi.reduce_in_axis(x, "ici"), x)
     assert torch.equal(tmpi.allgather_in_axis(x, "dcn"), x[None])
-    with pytest.raises(NotImplementedError, match="queue A, item 1"):
+    with pytest.raises(ValueError, match="unknown axis 'tp'"):
         tmpi.reduce_in_axis(x, "tp")
     i = torch.arange(6, dtype=torch.int32)
     assert tmpi.reduce(i, op="mean").dtype == torch.float32

@@ -561,8 +561,8 @@ def test_unported_options_are_refused():
     """The options once refused run now: ``dcn_residuals`` in this world of
     one process (a flat grid) is the plain leg, warned once, the residuals
     handed back; ``flat_spec`` over one axis shards over that axis (one
-    rank here).  A name that is no world axis still raises by queue A
-    item 1, and residuals without a codec by the JAX message."""
+    rank here).  A name that is no axis of the world raises ValueError
+    naming its axes, and residuals without a codec by the JAX message."""
     params = [torch.from_numpy(p) for p in _params()]
     tx = toptim.sgd(0.1)
     spec = tzero.flat_spec(params)
@@ -579,8 +579,23 @@ def test_unported_options_are_refused():
         tzero.update3(shard, params, None, tx, spec=spec, dcn_residuals=res)
     assert tzero.flat_spec(params, "ici").n_shards == 1
     assert torch.equal(tzero.shard_params(params, "dcn"), shard)
-    with pytest.raises(NotImplementedError, match="queue A, item 1"):
+    with pytest.raises(ValueError, match="unknown axis 'tp'"):
         tzero.flat_spec(params, "tp")
+
+
+def test_flat_spec_over_a_mesh_shape_axis():
+    """ZeRO over "tp" of ``mesh_shape={"tp": 1}``: one shard, the plain
+    layout, in this world of one process."""
+    params = [torch.from_numpy(p) for p in _params()]
+    tmpi.stop()
+    tmpi.init(tmpi.Config(mesh_shape={"tp": 1}), device="cpu")
+    try:
+        assert tzero.flat_spec(params, "tp").n_shards == 1
+        assert torch.equal(tzero.shard_params(params, "tp"),
+                           tzero.shard_params(params))
+    finally:
+        tmpi.stop()
+        tmpi.init(device="cpu")
 
 
 def test_rank_major_buffers_default_to_the_card():

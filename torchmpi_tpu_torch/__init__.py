@@ -19,6 +19,10 @@ as CUDA kernels (``ops/csrc``):
     new_params, state = mpi.parallel.zero.update(params, grads, state, tx)
     step = mpi.recipes.make_bn_dp_train_step(resnet, tx, zero=1)  # BN models
     mpi.allreduce_rank_major(xs, backend="hierarchical")  # dcn x ici grid
+    mpi.init(mpi.Config(mesh_shape={"pp": 2, "dp": 2, "tp": 2}))  # N-D world
+    with mpi.communicator("half", shape={"ici": 4}): ...  # pushed split
+    y = mpi.parallel.tensor.tp_mlp(x, w1, w2, "tp")  # Megatron f / g pair
+    out = mpi.parallel.pipeline.gpipe_apply(stage, p, mbs, "pp")
     mpi.init(mpi.Config(backend="auto"))    # routes measured, then planned
     ps = mpi.parameterserver.init(params)   # async PS (downpour, EASGD)
     ps.send(updates, rule="add"); h = ps.receive(); params = h.wait()
@@ -32,16 +36,22 @@ on the card unless the caller passes ``device="cpu"``.
 from .config import Config
 from .runtime import (
     barrier,
+    communicator,
     config,
     config_epoch,
+    current_communicator,
+    current_communicator_name,
     effective_config,
     init,
     is_initialized,
     local_rank,
+    pop_communicator,
+    push_communicator,
     rank,
     set_config,
     size,
     stop,
+    world_shape,
 )
 from . import collectives, fusion, planner, selector, tuning
 from . import models, nn, ops, optim, parallel, weights
@@ -62,6 +72,8 @@ __version__ = "0.1.0"
 __all__ = [
     "Config", "init", "stop", "is_initialized", "rank", "size", "local_rank",
     "barrier", "config", "config_epoch", "effective_config", "set_config",
+    "communicator", "push_communicator", "pop_communicator",
+    "current_communicator", "current_communicator_name", "world_shape",
     "collectives", "fusion", "planner", "selector", "tuning", "models", "nn", "ops", "parallel",
     "weights", "optim", "parameterserver", "recipes", "utils",
     "__version__",

@@ -18,11 +18,13 @@ Every verb is registered under ``"xla"`` (the process group's own backend
 across processes, the closed form over a rank-major stack); allreduce,
 reduce_scatter and allgather also under ``"pallas"``, the ring kernels, as
 in the JAX package (:297; ``ops/ring.py`` :966, :1118-1119); six under
-``"hierarchical"`` (``parallel/hierarchical.py``).  The world is the
-(dcn, ici) grid of ``runtime.py``: the in-axis verbs span both axes, or
-one of them (``"dcn"`` or ``"ici"``: this process's subgroup), and the
-rank-major verbs take ``axis_names`` the same way, over the sub-stacks of
-the grid of n.  The
+``"hierarchical"`` (``parallel/hierarchical.py``).  The verbs span the
+current communicator of ``runtime.py`` (the world, the (dcn, ici) grid or
+``Config.mesh_shape``'s axes, or a pushed one): the in-axis verbs span all
+of its axes, or any axis or tuple of axes of it (this process's group of
+them), and the rank-major verbs take ``axis_names`` the same way, over the
+sub-stacks of the communicator's stack of n, whose size a communicator of
+fixed size sets.  The
 rank-major closed forms are the JAX package's ``_host_staged`` (:497-560):
 non-root slices unchanged by ``reduce``, zeros for ``gather``, ``scatter``
 raising on an indivisible leading dim, ``alltoall`` tiled over
@@ -56,6 +58,7 @@ flight-recorder hooks of ``wait()`` are not ported (ROADMAP queue A, item
 
 from __future__ import annotations
 
+import math
 import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Union
@@ -67,9 +70,6 @@ from . import _tree, fusion, planner, runtime, selector
 from .ops import ring
 
 AxisNames = Union[str, Sequence[str], None]
-
-# The JAX package's world mesh axes, the port's grid (runtime.py).
-WORLD_AXES = ("dcn", "ici")
 
 
 class PeerTimeoutError(RuntimeError):
@@ -491,7 +491,7 @@ def _nbytes(x: torch.Tensor) -> int:
 
 
 def _world(verb: str, x, backend: Optional[str], params: dict, *,
-           async_op: bool = False, axis: Optional[str] = None,
+           async_op: bool = False, axis: AxisNames = None,
            owned: bool = False):
     """Process-world ``verb`` on this rank's ``x``: its plan's
     implementation (``planner.plan_world``; with the planner off, the
@@ -502,24 +502,25 @@ def _world(verb: str, x, backend: Optional[str], params: dict, *,
             x, async_op=async_op, owned=owned)
     impl = selector.select(verb, backend, nbytes=_nbytes(x),
                            n_dcn=None if axis is None else 1, dtype=x.dtype,
-                           device=x.device,
-                           axes=None if axis is None else (axis,))
+                           device=x.device, axes=_axes_tuple(axis))
     return _world_run(verb, impl, x, params, async_op=async_op, axis=axis,
                       owned=owned)
 
 
 def _world_run(verb: str, impl: Callable, x: torch.Tensor, params: dict,
-               *, async_op: bool = False, axis: Optional[str] = None,
+               *, async_op: bool = False, axis: AxisNames = None,
                owned: bool = False):
     """``impl`` of process-world ``verb`` on ``x`` (the in-place ones on a
-    copy, unless the caller ``owned`` ``x``).  ``axis`` ("dcn" or "ici")
-    runs it on that axis's subgroup (an axis of one member computes the
-    closed form here; the hierarchical backend spans both axes, so it
-    falls back there).  With ``async_op`` the process group's work in
-    flight (a :class:`_Pending`), or the result of an implementation that
-    has no asynchronous form."""
-    if axis is not None:
-        if runtime.grid()[0 if axis == "dcn" else 1] == 1:
+    copy, unless the caller ``owned`` ``x``).  ``axis`` (an axis or a
+    tuple of axes of the current communicator) runs it on that group, as
+    does a pushed communicator for the whole of it (a group of one member
+    computes the closed form here; the hierarchical backend spans both
+    world axes, so it falls back there).  With ``async_op`` the process
+    group's work in flight (a :class:`_Pending`), or the result of an
+    implementation that has no asynchronous form."""
+    if axis is not None or (runtime.current_communicator()
+                            is not runtime.world_communicator()):
+        if runtime.axis_size(axis) == 1:
             return CLOSED_FORMS[verb](x[None], **params)[0]
         params = dict(params, group=runtime.group(axis))
     arg = x.clone() if verb in _IN_PLACE and not owned else x
@@ -593,22 +594,29 @@ def alltoall(x: torch.Tensor, *, split_axis: int = 0, concat_axis: int = 0,
                   {"split_axis": split_axis, "concat_axis": concat_axis})
 
 
-def _world_axes(verb: str, axis_names: AxisNames) -> Optional[str]:
-    """The axis an in-axis verb spans: None for the world (``axis_names``
-    None or both world axes), else "dcn" or "ici".  Other communicators
-    (``push_communicator``) are not ported yet (ROADMAP queue A, item
-    1)."""
+def _world_axes(verb: str, axis_names: AxisNames) -> AxisNames:
+    """The axes an in-axis verb spans, in the current communicator's order:
+    None for all of them (``axis_names`` None or every axis), a name for
+    one, a tuple of names for more.  An axis the communicator lacks raises
+    ValueError naming its axes."""
     if axis_names is None:
         return None
-    axes = (axis_names,) if isinstance(axis_names, str) else tuple(
-        axis_names)
-    if sorted(axes) == sorted(WORLD_AXES):
+    try:
+        axes = runtime.axes_of(axis_names)
+    except ValueError as e:
+        raise ValueError(f"{verb}: {e}") from None
+    if len(axes) == len(runtime._current_or_default().axes):
         return None
-    if len(axes) == 1 and axes[0] in WORLD_AXES:
-        return axes[0]
-    raise NotImplementedError(
-        f"{verb} over {axes}: the world axes are {WORLD_AXES}; other "
-        f"communicators are not ported yet (ROADMAP queue A, item 1)")
+    return axes[0] if len(axes) == 1 else axes
+
+
+def _axes_tuple(axis: AxisNames) -> Optional[tuple]:
+    """A resolved axis (:func:`_world_axes`) as the tuple of its names, the
+    selector's and the fingerprint's form; None for the whole
+    communicator."""
+    if axis is None:
+        return None
+    return (axis,) if isinstance(axis, str) else tuple(axis)
 
 
 def _leaf_tensor(x):
@@ -620,7 +628,7 @@ def _leaf_tensor(x):
     return x
 
 
-def _tree_in_axis(verb: str, tree, kw: dict, axis: Optional[str]):
+def _tree_in_axis(verb: str, tree, kw: dict, axis: AxisNames):
     """In-axis ``verb`` over every leaf of ``tree`` (JAX :376-386): fused
     by dtype group and bucket for allreduce, reduce and broadcast, in the
     tile-interleaved layout for reduce_scatter, else per leaf."""
@@ -649,9 +657,9 @@ def _tree_in_axis(verb: str, tree, kw: dict, axis: Optional[str]):
 
 
 def _in_axis(verb: str):
-    """The in-step form of process-world ``verb`` over the world axes or
-    one of them (JAX :365-447): one tensor as :func:`verb` takes it, or a
-    tree (dict, list, tuple) of them."""
+    """The in-step form of process-world ``verb`` over the current
+    communicator's axes or some of them (JAX :365-447): one tensor as
+    :func:`verb` takes it, or a tree (dict, list, tuple) of them."""
 
     def in_axis(x, axis_names: AxisNames = None, *,
                 backend: Optional[str] = None, **params):
@@ -661,9 +669,9 @@ def _in_axis(verb: str):
         return _tree_in_axis(verb, x, dict(params, backend=backend), axis)
 
     in_axis.__name__ = in_axis.__qualname__ = f"{verb}_in_axis"
-    in_axis.__doc__ = (f"The in-step ``{verb}`` over the world axes, or over "
-                       f"one of them (``axis_names`` \"dcn\" or \"ici\": "
-                       f"this process's subgroup): :func:`{verb}` on one "
+    in_axis.__doc__ = (f"The in-step ``{verb}`` over the current "
+                       f"communicator, or over an axis or a tuple of axes of "
+                       f"it (this process's group): :func:`{verb}` on one "
                        f"tensor, or on every tensor of a tree (dict, list, "
                        f"tuple), fused as the JAX package fuses it "
                        f"(``fusion``).")
@@ -681,21 +689,18 @@ sendreceive_in_axis = _in_axis("sendreceive")
 alltoall_in_axis = _in_axis("alltoall")
 
 
-def axis_size(axis_names: AxisNames = None, grid=None) -> int:
-    """The number of ranks ``axis_names`` spans (every rank for None or
-    both axes, else those of "dcn" or "ici"), on the process world's grid
-    or on ``grid`` (n_dcn, n_ici) of a rank-major stack."""
-    axis = _world_axes("axis_size", axis_names)
-    n_dcn, n_ici = runtime.grid() if grid is None else grid
-    return n_dcn * n_ici if axis is None else n_dcn if axis == "dcn" \
-        else n_ici
+def axis_size(axis_names: AxisNames = None, n: Optional[int] = None) -> int:
+    """The number of ranks ``axis_names`` spans (the whole current
+    communicator for None): over the process world, or over a rank-major
+    stack of ``n`` ranks."""
+    return runtime.axis_size(_world_axes("axis_size", axis_names), n)
 
 
 def axis_index(axis_names: AxisNames = None) -> int:
     """This process's index along ``axis_names`` (JAX's ``axis_index``):
-    its rank for the world, else ``runtime.axis_index``."""
-    axis = _world_axes("axis_index", axis_names)
-    return runtime.rank() if axis is None else runtime.axis_index(axis)
+    its index in the current communicator for None (its rank in the
+    world), else ``runtime.axis_index``."""
+    return runtime.axis_index(_world_axes("axis_index", axis_names))
 
 
 class _AllToAllInAxis(torch.autograd.Function):
@@ -727,6 +732,76 @@ def alltoall_in_axis_grad(x: torch.Tensor, axis_names: AxisNames = None, *,
     if axis_size(axis_names) == 1:
         return x
     return _AllToAllInAxis.apply(x, axis_names, split_axis, concat_axis)
+
+
+def _peer_group(axis: AxisNames):
+    """(group, this process's index, size) of a resolved ``axis`` of the
+    current communicator (:func:`_world_axes`)."""
+    n = runtime.axis_size(axis)
+    return (runtime.group(axis) if n > 1 else None), \
+        runtime.axis_index(axis), n
+
+
+def _shift(x: torch.Tensor, group, my: int, n: int, shift: int,
+           wrap: bool) -> torch.Tensor:
+    """``x`` sent to member my + shift (``shift`` 1 or -1) of ``group``,
+    member my - shift's tensor received, in one ``batch_isend_irecv``
+    (JAX's ``ppermute``).  ``wrap``: around the ring; else a linear shift,
+    where a member with no source receives zeros and one with no
+    destination sends nothing.  A group of one (None there: this process
+    alone) sends nothing: ``x`` itself around the ring, else zeros."""
+    if n == 1:
+        return x if wrap else torch.zeros_like(x)
+    x = x.contiguous()
+    dst, src = my + shift, my - shift
+    if wrap:
+        dst, src = dst % n, src % n
+    ops = []
+    if 0 <= dst < n:
+        ops.append(dist.P2POp(dist.isend, x, _global(group, dst), group))
+    if 0 <= src < n:
+        out = torch.empty_like(x)
+        ops.append(dist.P2POp(dist.irecv, out, _global(group, src), group))
+    else:
+        out = torch.zeros_like(x)
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return out
+
+
+class _ShiftInAxis(torch.autograd.Function):
+    """:func:`shift_in_axis` as autograd sees it: its backward is the
+    reverse shift (JAX's transpose of ``ppermute``)."""
+
+    @staticmethod
+    def forward(ctx, x, peers, shift, wrap):
+        ctx.args = (peers, shift, wrap)
+        return _shift(x, *peers, shift, wrap)
+
+    @staticmethod
+    def backward(ctx, g):
+        peers, shift, wrap = ctx.args
+        return _shift(g, *peers, -shift, wrap), None, None, None
+
+
+def shift_in_axis(x: torch.Tensor, axis_names: AxisNames = None, *,
+                  wrap: bool = True) -> torch.Tensor:
+    """This process's ``x`` sent one rank on along ``axis_names`` (JAX's
+    ``ppermute`` i -> i + 1), the tensor of the rank before it returned:
+    around the ring with ``wrap``, else linear (the first rank receives
+    zeros).  Over an axis of one rank, ``x`` itself (or zeros, linear)."""
+    peers = _peer_group(_world_axes("shift_in_axis", axis_names))
+    return _shift(x, *peers, 1, wrap)
+
+
+def shift_in_axis_grad(x: torch.Tensor, axis_names: AxisNames = None, *,
+                       wrap: bool = True) -> torch.Tensor:
+    """The differentiable :func:`shift_in_axis`: its backward shifts the
+    gradient back (the ring attention's rotation, the pipeline's stage
+    handoffs)."""
+    peers = _peer_group(_world_axes("shift_in_axis_grad", axis_names))
+    return _ShiftInAxis.apply(x, peers, 1, wrap)
 
 
 # ---------------------------------------------------------------------------
@@ -789,27 +864,54 @@ def _place(out: torch.Tensor, device: torch.device) -> torch.Tensor:
         else out
 
 
-def _axis_view(xs: torch.Tensor, axis: str) -> torch.Tensor:
-    """``xs`` [n, ...] as [groups, members, ...] of ``axis`` on the grid of
-    n (dcn-major ranks): the nodes' ici ranks for "ici", the ranks sharing
-    an ici index for "dcn"."""
-    n_dcn, n_ici = runtime.grid(xs.shape[0])
-    v = xs.reshape(n_dcn, n_ici, *xs.shape[1:])
-    return v.transpose(0, 1) if axis == "dcn" else v
+def _axis_perm(n: int, axis) -> tuple:
+    """(sizes, other axis ids, ``axis``'s ids) of the current
+    communicator's stack of ``n``."""
+    comm = runtime._current_or_default()
+    ids = comm.axis_ids(axis)
+    sizes = comm.sizes(n)
+    return sizes, [i for i in range(len(sizes)) if i not in ids], list(ids)
 
 
-def _from_axis_view(out: torch.Tensor, axis: str) -> torch.Tensor:
+def _axis_view(xs: torch.Tensor, axis) -> torch.Tensor:
+    """``xs`` [n, ...] as [groups, members, ...] of ``axis`` (a name or a
+    tuple of names) on the current communicator's stack of n: each group
+    the ranks that share their coordinates on the other axes (on the
+    two-level grid: the nodes' ici ranks for "ici", the ranks sharing an
+    ici index for "dcn")."""
+    sizes, other, ids = _axis_perm(xs.shape[0], axis)
+    k, rest = len(sizes), xs.shape[1:]
+    v = xs.reshape(*sizes, *rest).permute(*other, *ids,
+                                          *range(k, k + len(rest)))
+    return v.reshape(-1, math.prod(sizes[i] for i in ids), *rest)
+
+
+def _from_axis_view(out: torch.Tensor, axis) -> torch.Tensor:
     """The inverse of :func:`_axis_view` on a result [groups, members,
     ...]: [n, ...] in global rank order."""
-    if axis == "dcn":
-        out = out.transpose(0, 1)
-    return out.reshape(-1, *out.shape[2:])
+    sizes, other, ids = _axis_perm(out.shape[0] * out.shape[1], axis)
+    k, rest = len(sizes), out.shape[2:]
+    v = out.reshape(*(sizes[i] for i in other + ids), *rest)
+    inv = [(other + ids).index(i) for i in range(k)]
+    v = v.permute(*inv, *range(k, k + len(rest)))
+    return v.reshape(-1, *rest)
+
+
+def _check_communicator_size(verb: str, xs: torch.Tensor) -> None:
+    """A communicator of fixed size takes stacks of that many ranks
+    (JAX ``_check_rank_axis``)."""
+    n = runtime._current_or_default().fixed_size()
+    if n is not None and xs.shape[0] != n:
+        raise ValueError(
+            f"{verb}: leading (rank) axis must have length {n} (the "
+            f"current communicator size); got shape {tuple(xs.shape)}")
 
 
 def _eager(verb: str, xs, backend: Optional[str], staged: Optional[bool],
            params: dict, axis_names: AxisNames = None,
            n_dcn: Optional[int] = None) -> torch.Tensor:
     _check_stack(verb, xs)
+    _check_communicator_size(f"{verb}_rank_major", xs)
     axis = _world_axes(f"{verb}_rank_major", axis_names)
     if planner.enabled():
         return planner.plan_for(verb, xs, backend, staged, params, axis,
@@ -819,7 +921,7 @@ def _eager(verb: str, xs, backend: Optional[str], staged: Optional[bool],
 
 def _eager_unplanned(verb: str, xs: torch.Tensor, backend: Optional[str],
                      staged: Optional[bool], params: dict,
-                     axis: Optional[str], n_dcn: Optional[int]
+                     axis: AxisNames, n_dcn: Optional[int]
                      ) -> torch.Tensor:
     """A rank-major call derived in full: staged or direct, the axis's
     groups, the selector's implementation."""
@@ -849,9 +951,9 @@ def allreduce_rank_major(xs: torch.Tensor, *, op: str = "sum",
     ``Config.staged``) stages through host memory.
 
     Every rank-major verb takes ``axis_names`` as the in-axis verbs do:
-    "ici" or "dcn" runs it over each group of that axis of the grid of n
-    (``runtime.grid``), one level each, the result in global rank
-    order."""
+    an axis or a tuple of axes of the current communicator runs it over
+    each group of them in its stack of n, one level each, the result in
+    global rank order."""
     return _eager("allreduce", xs, backend, staged, {"op": op}, axis_names)
 
 
@@ -1154,6 +1256,7 @@ def _async_rank_major(verb: str, xs, *, backend: Optional[str] = None,
     releases the input's storage once it is on the host (every view of
     it becomes empty).  A collective that fails gives a failed handle."""
     _check_stack(verb, xs)
+    _check_communicator_size(f"async_.{verb}", xs)
     if _staged_requested(backend, staged):
         if donate and not xs.untyped_storage().resizable():
             raise ValueError("donate=True releases the input's storage, "

@@ -103,6 +103,10 @@ class Config:
       arrive.
     - ``gradsync_overlap_bytes``: the byte bound of one overlap bucket; 0
       takes ``fuse_max_bytes`` rounded down to a power of two.
+    - ``mesh_shape``: the N-D world, axis name -> size, major -> minor in
+      dict order (one size may be -1, inferred), e.g. ``{"pp": 2, "dp": 2,
+      "tp": 2}``; exclusive with ``dcn_size`` / ``ici_size``.  None (the
+      default) is the two-level world (runtime.py).
     - ``dcn_size`` / ``ici_size``: the two-level world's outer (inter-node,
       "dcn") and inner (intra-node, "ici") sizes (runtime.py says how they
       factor the process world and a rank-major stack); None = auto.
@@ -143,6 +147,7 @@ class Config:
     gradsync_barrier: bool = False
     gradsync_overlap: str = "off"
     gradsync_overlap_bytes: int = 0
+    mesh_shape: Optional[dict] = None
     dcn_size: Optional[int] = None
     ici_size: Optional[int] = None
     hierarchical: bool = False
@@ -162,7 +167,8 @@ class Config:
         TORCHMPI_TPU_CHUNK_BYTES, TORCHMPI_TPU_CUSTOM_MIN_BYTES,
         TORCHMPI_TPU_STAGED, TORCHMPI_TPU_GRADSYNC_BUCKETS,
         TORCHMPI_TPU_GRADSYNC_OVERLAP, TORCHMPI_TPU_GRADSYNC_OVERLAP_BYTES,
-        TORCHMPI_TPU_GRADSYNC_BARRIER, TORCHMPI_TPU_DCN_SIZE,
+        TORCHMPI_TPU_GRADSYNC_BARRIER, TORCHMPI_TPU_MESH_SHAPE
+        (``name=size,name=size``), TORCHMPI_TPU_DCN_SIZE,
         TORCHMPI_TPU_ICI_SIZE, TORCHMPI_TPU_HIERARCHICAL,
         TORCHMPI_TPU_DCN_CHUNK_BYTES, TORCHMPI_TPU_DCN_COMPRESS,
         TORCHMPI_TPU_DCN_COMPRESS_MIN_BYTES, TORCHMPI_TPU_PS_TIMEOUT (see
@@ -204,6 +210,16 @@ class Config:
             v = os.environ.get(name)
             if v is not None:
                 setattr(cfg, field, int(v))
+        mesh = os.environ.get("TORCHMPI_TPU_MESH_SHAPE")
+        if mesh:
+            cfg.mesh_shape = {}
+            for part in mesh.split(","):
+                name, _, size = part.partition("=")
+                if not name.strip() or not size.strip():
+                    raise ValueError(
+                        f"TORCHMPI_TPU_MESH_SHAPE: malformed entry {part!r} "
+                        "(want name=size,name=size,...)")
+                cfg.mesh_shape[name.strip()] = int(size)
         for k, v in overrides.items():
             if not hasattr(cfg, k):
                 raise ValueError(f"unknown config field {k!r}")

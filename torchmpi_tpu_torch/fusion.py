@@ -246,7 +246,7 @@ def run_bucket(op: str, buf: torch.Tensor, params: dict, *,
             op, backend, nbytes=one.numel() * one.element_size(),
             ranks=buf.shape[0] if rank_major else None,
             n_dcn=None if axis is None else 1, dtype=buf.dtype,
-            device=buf.device, axes=None if axis is None else (axis,))
+            device=buf.device, axes=collectives._axes_tuple(axis))
     if rank_major:
         return impl(buf, **params)
     return collectives._world_run(op, impl, buf, params, axis=axis,
@@ -481,8 +481,7 @@ def maybe_fuse_reduce_scatter(tree, *, backend: Optional[str] = None,
     (:func:`fused_reduce_scatter`), or None for the per-tensor path
     (:func:`reduce_scatter_spec` over the ranks of the world or of
     ``axis``)."""
-    n = (runtime.size() if axis is None
-         else runtime.grid()[0 if axis == "dcn" else 1])
+    n = runtime.axis_size(axis)
     spec = reduce_scatter_spec(_tree.leaves(tree), n)
     if spec is None:
         return None

@@ -247,7 +247,8 @@ class MoEMLP(nn.Module):
         ``seq_grid`` (n_dcn, n_ici) the rank-major ranks folded into the
         batch in (dcn, ici, batch) order."""
         B, T, E = x.shape
-        n = collectives.axis_size(self.expert_axis, seq_grid)
+        n = (collectives.axis_size(self.expert_axis) if seq_grid is None
+             else eplib.grid_axis_size(self.expert_axis, *seq_grid))
         if n != self.axis_size:
             raise ValueError(
                 f"the MoE weights are made for {self.axis_size} ranks of "

@@ -203,6 +203,14 @@ def moe_layer(x: torch.Tensor, gate_w: torch.Tensor, expert_fn: Callable,
     return out
 
 
+def grid_axis_size(axis_name, n_dcn: int, n_ici: int) -> int:
+    """The ranks ``axis_name`` ("dcn", "ici", both or None) spans on the
+    grid (n_dcn, n_ici) of a two-level rank-major stack."""
+    axis = collectives._world_axes("moe_layer_rank_major", axis_name)
+    return n_dcn * n_ici if axis is None else n_dcn if axis == "dcn" \
+        else n_ici
+
+
 def _experts_rank_major(buffers: torch.Tensor, expert_fn: Callable,
                         expert_params, axis: Optional[str], e_local: int
                         ) -> torch.Tensor:
@@ -259,7 +267,7 @@ def moe_layer_rank_major(x: torch.Tensor, gate_w: torch.Tensor,
     x4 = x if x.dim() == 4 else x[None]
     n_dcn, n_ici, T, D = x4.shape
     axis = collectives._world_axes("moe_layer_rank_major", axis_name)
-    G = collectives.axis_size(axis_name, (n_dcn, n_ici))
+    G = grid_axis_size(axis_name, n_dcn, n_ici)
     E = _n_experts(expert_params)
     if E % G:
         raise ValueError(f"{E} experts do not split over the {G} ranks of "

@@ -36,7 +36,7 @@ from typing import Callable, Iterable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from .. import collectives, fusion, planner, runtime, selector
+from .. import _tree, collectives, fusion, planner, runtime, selector
 from ..config import wire_compress
 
 Params = Union[torch.nn.Module, Iterable[torch.Tensor]]
@@ -56,6 +56,26 @@ def synchronize_parameters(params: Params, *, root: int = 0,
         fusion.fused_("broadcast", [p.data for p in _param_list(params)],
                       backend=backend, root=root)
     return params
+
+
+def resynchronize_parameters_in_axis(params, axis_names, *, root: int = 0,
+                                     backend: Optional[str] = None):
+    """The in-axis broadcast of a tree of parameters from ``root`` of
+    ``axis_names`` (JAX :82): for state that may have diverged across the
+    ranks of an axis (asynchronous PS training, debugging).  Returns the
+    broadcast tree; the inputs are not modified."""
+    return collectives.broadcast_in_axis(params, axis_names, root=root,
+                                         backend=backend)
+
+
+def resynchronize_parameters_in_axis_rank_major(stacks, axis_names, *,
+                                                root: int = 0,
+                                                backend: Optional[str] = None):
+    """:func:`resynchronize_parameters_in_axis` on a tree of rank-major
+    stacks [n, ...]: every rank's slice that of member ``root`` of its
+    group of ``axis_names``."""
+    return _tree.map(lambda x: collectives.broadcast_rank_major(
+        x, root=root, backend=backend, axis_names=axis_names), stacks)
 
 
 def _resolve(op: Optional[str], compress: Optional[str], site: str):

@@ -21,9 +21,9 @@ sequence dimension is sharded over the ranks of an axis, and
 Each comes in two forms.  Over an axis of the process world
 (``axis_name`` as the in-axis verbs take it: "ici", "dcn", or both / None
 for the whole world), on this rank's ``[B, T_local, H, D]`` tensors: the
-rotation is a ``batch_isend_irecv`` over ``runtime.group(axis)`` inside an
-autograd Function whose backward rotates the other way (the transpose of
-``ppermute``), and the all-to-all ``collectives.alltoall_in_axis_grad``,
+rotation is ``collectives.shift_in_axis_grad`` (one ``batch_isend_irecv``
+over the axis's group inside an autograd Function whose backward rotates
+the other way, the transpose of ``ppermute``), and the all-to-all ``collectives.alltoall_in_axis_grad``,
 whose backward is the inverse all-to-all.  And rank-major
 (``*_rank_major``), on stacks ``[n, B, T_local, H, D]`` of n ranks'
 shards on one device, the port's stand-in for ``shard_map``: the
@@ -45,9 +45,6 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.distributed as dist
-
-from .. import runtime
 
 
 def causal_window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
@@ -128,16 +125,14 @@ class _StackRing:
 
 class _WorldRing:
     """The ring of :class:`_StackRing`'s interface in the process world:
-    this process's rank of ``axis_name``."""
+    this process's rank of ``axis_name``; the rotation is
+    ``collectives.shift_in_axis(_grad)``."""
 
     def __init__(self, axis_name, verb: str):
         from .. import collectives
 
         self.axis = collectives._world_axes(verb, axis_name)
-        self.n = collectives.axis_size(axis_name)
-        self.my = collectives.axis_index(axis_name)
-        self.group = (runtime.group(self.axis)
-                      if self.axis is not None and self.n > 1 else None)
+        _, self.my, self.n = collectives._peer_group(self.axis)
         self.axis_names = axis_name
         self.ranks = [self.my]
 
@@ -147,43 +142,12 @@ class _WorldRing:
     def join(self, xs):
         return xs[0]
 
-    def shift(self, x: torch.Tensor, shift: int) -> torch.Tensor:
-        """``x`` sent to rank my + shift of the axis, the tensor of rank
-        my - shift received (one ``batch_isend_irecv``)."""
-        from ..collectives import _global
-
-        x = x.contiguous()
-        out = torch.empty_like(x)
-        ops = [dist.P2POp(dist.isend, x,
-                          _global(self.group, (self.my + shift) % self.n),
-                          self.group),
-               dist.P2POp(dist.irecv, out,
-                          _global(self.group, (self.my - shift) % self.n),
-                          self.group)]
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
-        return out
-
     def rotate(self, xs, grad: bool = False):
-        if self.n == 1:
-            return list(xs)
-        if grad:
-            return [_Rotate.apply(xs[0], self)]
-        return [self.shift(xs[0], 1)]
+        from .. import collectives
 
-
-class _Rotate(torch.autograd.Function):
-    """The process world's ``ppermute`` i -> i + 1; its backward sends the
-    gradient the other way (i + 1 -> i), JAX's transpose."""
-
-    @staticmethod
-    def forward(ctx, x, ring):
-        ctx.ring = ring
-        return ring.shift(x, 1)
-
-    @staticmethod
-    def backward(ctx, g):
-        return ctx.ring.shift(g, -1), None
+        shift = (collectives.shift_in_axis_grad if grad
+                 else collectives.shift_in_axis)
+        return [shift(xs[0], self.axis)]
 
 
 def _check_block_impl(block_impl: str) -> None:

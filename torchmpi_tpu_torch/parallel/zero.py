@@ -68,12 +68,9 @@ Tensors = Sequence[torch.Tensor]
 
 def _axis(axis_names) -> Tuple[int, int]:
     """(ranks, this process's index) of the axes ZeRO shards over: the
-    world, or one of its axes."""
+    current communicator, or some of its axes."""
     axis = collectives._world_axes("zero", axis_names)
-    if axis is None:
-        return runtime.size(), runtime.rank()
-    return (runtime.grid()[0 if axis == "dcn" else 1],
-            runtime.axis_index(axis))
+    return runtime.axis_size(axis), runtime.axis_index(axis)
 
 
 def _resolve(op: Optional[str], compress: Optional[str], dcn_residuals=None,

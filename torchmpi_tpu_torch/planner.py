@@ -205,9 +205,14 @@ def _get_or_build(key: tuple, builder: Callable[[], CollectivePlan]
 
 def _epoch() -> tuple:
     """The staleness part of every key: the config epoch (init, set_config
-    and stop bump it; the grid follows the Config) and the selector's
-    registry generation."""
-    return (runtime.config_epoch(), selector.generation())
+    and stop bump it; the grid follows the Config), the selector's
+    registry generation and the current communicator (JAX keys on the
+    mesh: a push plans its calls anew, and the world's plans hit again
+    after the pop), by its value (``Communicator.ident``): an identical
+    re-push hits, and no plan holds a communicator."""
+    comm = (runtime.current_communicator().ident
+            if runtime.is_initialized() else None)
+    return (runtime.config_epoch(), selector.generation(), comm)
 
 
 def _params_key(params: dict) -> tuple:
@@ -293,8 +298,7 @@ def _build_eager(key, verb, xs, backend, staged, params, axis,
     n = xs.shape[0]
     nbytes = _nbytes(xs[0])
     full = selector.grid_of(n, xs.device, n_dcn if axis is None else None)
-    topo = fingerprint.topology(full, axes=None if axis is None
-                                else (axis,))
+    topo = fingerprint.topology(full, axes=C._axes_tuple(axis))
     if C._staged_requested(backend, staged):
         def _replay(x):
             return C._eager_unplanned(verb, x, backend, staged, params,
@@ -316,10 +320,10 @@ def _build_eager(key, verb, xs, backend, staged, params, axis,
             return impl(x, **params)
     else:
         # Each group of one axis is a one-level stack.
-        m = full.shape[axis]
+        m = runtime.axis_size(axis, n)
         impl = resolve(op, backend, nbytes=nbytes, dtype=xs.dtype,
-                       grid=full, axes=(axis,), ranks=m, n_dcn=1,
-                       runner=runner)
+                       grid=full, axes=C._axes_tuple(axis), ranks=m,
+                       n_dcn=1, runner=runner)
 
         def _replay(x):
             v = C._axis_view(x, axis)
@@ -335,8 +339,10 @@ def _build_eager(key, verb, xs, backend, staged, params, axis,
 # ---------------------------------------------------------------------------
 
 
-def _world_fp(x: torch.Tensor, axis: Optional[str]):
-    return selector.grid_of(None, x.device), (None if axis is None else (axis,))
+def _world_fp(x: torch.Tensor, axis):
+    from . import collectives as C
+
+    return selector.grid_of(None, x.device), C._axes_tuple(axis)
 
 
 def plan_world(verb: str, x: torch.Tensor, backend: Optional[str],
@@ -415,8 +421,7 @@ def _build_in_axis(key, verb, leaves, treedef, backend, params,
                                         backend=backend, axis=axis,
                                         **params)
     elif verb == "reduce_scatter":
-        n = (runtime.size() if axis is None
-             else runtime.grid()[0 if axis == "dcn" else 1])
+        n = runtime.axis_size(axis)
         spec = fusion.reduce_scatter_spec(leaves, n)
         if spec is not None:
             impls = [pick(sum(g.sizes[pos] for pos in bucket)

@@ -120,20 +120,24 @@ def grid_of(n: Optional[int] = None, device=None,
     from . import runtime
     from .tuning.fingerprint import Grid
 
+    comm = runtime._current_or_default()
+    own = comm.axes != runtime.WORLD_AXES
     if n is None:
         if not runtime.is_initialized():
             return None
         d, i = runtime.grid()
         plat = (runtime.device() if device is None
                 else torch.device(device)).type
-        return Grid(d, i, plat)
+        return Grid(d, i, plat, shape=comm.shape() if own else None)
+    shape = None
     if n_dcn is None:
         try:
             n_dcn = runtime.grid(n)[0]
+            shape = comm.shape(n) if own else None
         except ValueError:  # dcn_size does not divide n: the selector
             n_dcn = 1       # raises where a route needs the grid
     plat = torch.device(device).type if device is not None else "cpu"
-    return Grid(n_dcn, n // n_dcn, plat)
+    return Grid(n_dcn, n // n_dcn, plat, shape=shape)
 
 
 # (op, backend) pairs already warned about in this process: one warning per

@@ -194,7 +194,7 @@ def _spanned_dcn(grid, axes) -> int:
     """The dcn size a call spans: the grid's when it spans both axes."""
     if axes is not None and not {"dcn", "ici"} <= set(axes):
         return 1
-    return grid.shape["dcn"]
+    return grid.shape.get("dcn", 1)
 
 
 def resolve_eager(op: str, nbytes: int, dtype, grid,

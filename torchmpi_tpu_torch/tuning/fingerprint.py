@@ -24,13 +24,16 @@ import numpy as np
 
 class Grid:
     """The world a collective spans, as the fingerprint reads it: the axis
-    sizes in grid order (``shape``, ``{"dcn": a, "ici": b}``) and the
-    platform (the torch device type)."""
+    sizes in grid order (``shape``, ``{"dcn": a, "ici": b}``, or the
+    communicator's own axes, ``shape`` given, under ``Config.mesh_shape``
+    or a pushed communicator) and the platform (the torch device type)."""
 
     __slots__ = ("shape", "platform")
 
-    def __init__(self, dcn: int, ici: int, platform: str) -> None:
-        self.shape = {"dcn": int(dcn), "ici": int(ici)}
+    def __init__(self, dcn: int, ici: int, platform: str,
+                 shape: Optional[dict] = None) -> None:
+        self.shape = ({"dcn": int(dcn), "ici": int(ici)} if shape is None
+                      else {a: int(s) for a, s in shape.items()})
         self.platform = platform
 
     def __repr__(self) -> str:

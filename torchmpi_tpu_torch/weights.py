@@ -1,6 +1,8 @@
 """Load a JAX ``TransformerLM`` parameter tree, or its ZeRO shards and
 optimizer state, into the port's module; and a JAX CNN's variables
-(LeNet, AlexNet, ResNet) into the port's CNN (:func:`from_flax_cnn`).
+(LeNet, AlexNet, ResNet) into the port's CNN (:func:`from_flax_cnn`); a
+nested tree of numpy weights in JAX's ``x @ w`` layout as tensors
+(:func:`from_numpy_tree`, the tensor-parallel layers' layout).
 
 The flax tree of ``torchmpi_tpu.models.TransformerLM`` holds
 ``Embed_0/embedding`` [V, E], ``pos_embed/embedding`` (learned positions),
@@ -192,6 +194,17 @@ _CNN_MODULES = ((re.compile(r"Conv_(\d+)$"), "conv{}"),
                  "blocks.{}"))
 _CNN_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
                "mean": "running_mean", "var": "running_var"}
+
+
+def from_numpy_tree(tree, device):
+    """A nested tree (dicts, lists, tuples) of numpy arrays, as the JAX
+    examples hold their weights in ``x @ w`` layout, as the same tree of
+    tensors on ``device``: one ``torch.tensor`` a leaf (a copy, so that an
+    update in place leaves the arrays as they were), no transpose."""
+    from . import _tree
+
+    return _tree.map(lambda a: torch.tensor(np.asarray(a), device=device),
+                     tree)
 
 
 def _cnn_module(name: str) -> str:
