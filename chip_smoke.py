@@ -213,20 +213,39 @@ JAX package.  In order it:
    communicator (shape ici 4) planned on its own key; the example
    megatron_pipeline --devices 8 --dp 2, GPipe and interleaved, to the
    JAX bar;
-16. tree verbs phase: collectives_bench.py's 64-leaf float32 / bfloat16
+16. serving phase (lm_serving, the main path of the decoding and serving
+   slice): the flagship LM at full width (seed weights, float32, TF32 off)
+   served by serving.Server over one ReplicaEngine of 16 slots x 2048
+   tokens: a burst of 16 live slots times the decode step (median, min,
+   max of 24; its bound from the weights and the pool cache it reads; its
+   device ms by part: products, attention, cache writes, sampling) and
+   counts host syncs (exactly 1 a prefill and 1 a decode step); then 48
+   requests from SEED (prompts 128-1024, 32-256 new tokens, 16 sampled at
+   temperature 0.8, top-k 40, top-p 0.9) arrive as a Poisson stream at
+   load 1.0 on the measured step (benchmarks/serving_bench.py :235) and
+   are served under the wall clock: output tokens/s, TTFT and ITL p50 /
+   p99, prefill ms by prompt length, peak memory; no kernel of the table
+   launches (rows 1-14 counted, 0 each).  Checks: cached against
+   recomputed logits within 1e-4 of the largest; greedy streams equal to
+   offline generate (a token may differ only under a top-2 margin below
+   the logits' error); a reused slot bitwise to a fresh one; sampled
+   streams bitwise on 16 and 4 slots; n-gram speculation equal with fewer
+   target forwards; a prefix-cache hit bitwise to the miss.  The trace
+   again at bf16 compute, timed, its checks reported;
+17. tree verbs phase: collectives_bench.py's 64-leaf float32 / bfloat16
    tree at 1 and 16 MiB, allreduce_in_axis and reduce_scatter_in_axis
    across the NCCL world of one and the rank-major fused reduce-scatter of
    4 ranks on "pallas", per leaf (64 launches) and fused (2), bitwise
    equal, timed;
-17. bus-bandwidth phase: the allreduce (rows 11 / 12 at 64 KiB-16 MiB,
+18. bus-bandwidth phase: the allreduce (rows 11 / 12 at 64 KiB-16 MiB,
    8 / 7 at 64 MiB a rank, and the stock route) and the allgather (rows
    14 / 10, stock) of 4 ranks rank-major, ms, algbw and busbw
    (collectives_bench.py's formulas), each against the plain ring; the
    hops are device copies on one card;
-18. two-level phase (hier_dp, the main path of the two-level slice):
+19. two-level phase (hier_dp, the main path of the two-level slice):
    ResNet-50 of phase 9 with its 4 ranks as a dcn 2 x ici 2 grid,
    backend "hierarchical", int8 error feedback, the ring per node;
-19. parameter-server phase (downpour_ps, the main path of the
+20. parameter-server phase (downpour_ps, the main path of the
    parameter-server slice): BASELINE config 4, AlexNet async downpour at
    full width (224 x 224, 1000 classes, 62,378,344 float32 parameters, a
    249.5 MB flat vector), 2 worker threads on their own streams sharing
@@ -243,14 +262,14 @@ JAX package.  In order it:
    checkpoint.save_async writes a fresh
    center and worker 0's Adam state (f: restored bitwise after; write
    seconds and MB/s);
-20. examples phase: the port's mnist_sequential, mnist_allreduce,
+21. examples phase: the port's mnist_sequential, mnist_allreduce,
    cifar_resnet20 (ZeRO 0 and 3) and mnist_async_allreduce (4 buckets in
    the world of one; overlapped, 4 ranks rank-major on the ring), then
    mnist_downpour, mnist_easgd, alexnet_downpour (their defaults) and
    checkpoint_resume in-process on the card, each to its bar (MNIST >
    0.9, CIFAR > 0.85, AlexNet > 2 / 10, the resumed run's final loss
    below its loss at the crash);
-21. prints the kernels' summary line (each kernel's launches summed over
+22. prints the kernels' summary line (each kernel's launches summed over
    the main paths, and by path), then {"ok": true, "device": ...}.
 
 Each phase prints one JSON line.  Any failed check raises and the script
@@ -649,6 +668,31 @@ MG_STEP_PARTS = (
     ("elementwise", r"elementwise|vectorized"),
 )
 MG_RANGES = ("tp/allreduce", "dp/mean", "pp/shift")
+
+# The serving slice (lm_serving): the flagship at full width (LM, seed
+# weights, float32, TF32 off) served by one ReplicaEngine of SERVE_SLOTS
+# slots of LM["max_len"] tokens (float32 pool cache 8 x 2 x 16 x 2048 x 4 x
+# 128 x 4 B = 1.07 GB), a trace of SERVE_REQUESTS requests from SEED:
+# prompts SERVE_PROMPT tokens, SERVE_MAX_NEW new tokens, SERVE_SAMPLED of
+# them sampled at SERVE_SAMPLING with their own seeds, Poisson arrivals at
+# load SERVE_LOAD (benchmarks/serving_bench.py :235: mean gap = mean
+# max_new / (load x slots) decode steps, a step's seconds measured first).
+SERVE_SLOTS = 16
+SERVE_REQUESTS = 48
+SERVE_SAMPLED = 16
+SERVE_PROMPT = (128, 1024)
+SERVE_MAX_NEW = (32, 256)
+SERVE_SAMPLING = dict(temperature=0.8, top_k=40, top_p=0.9)
+SERVE_LOAD = 1.0
+SERVE_LOGIT_RTOL = 1e-4  # (a): max |err| <= this x max |ref|, float32
+SERVE_CHECKED = 8  # greedy requests of check (a)
+SERVE_BURST_STEPS = 24  # timed decode steps at 16 live slots
+SERVE_SPEC_K = 4
+# (f): requests sharing a prefix of PREFIX tokens, TAIL tokens each after
+# it, PREFIX_BLOCK tokens a prefix-cache block.
+SERVE_PREFIX, SERVE_TAIL, SERVE_PREFIX_REQS, SERVE_PREFIX_BLOCK = \
+    512, 64, 4, 128
+SERVE_REUSE_STEPS = 32  # (c): decode steps on the reused and the fresh row
 
 SOURCES = {
     "flash_fwd": ("torchmpi_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -5558,6 +5602,466 @@ def downpour_ps_phase(torch, mpi, dev):
           f"server bytes_in {sv['bytes_in']} for {pushes} pushes")
 
 
+def _serve_trace(np, serving, unit_s: float):
+    """The lm_serving trace from SEED: SERVE_REQUESTS requests, their
+    prompts, budgets, sampling and Poisson arrivals (mean gap mean(max_new)
+    / (SERVE_LOAD x SERVE_SLOTS) decode steps of ``unit_s`` seconds)."""
+    rng = np.random.RandomState(SEED)
+    n, V = SERVE_REQUESTS, LM["vocab"]
+    lens = rng.randint(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, size=n)
+    news = rng.randint(SERVE_MAX_NEW[0], SERVE_MAX_NEW[1] + 1, size=n)
+    prompts = [rng.randint(0, V, size=int(L)) for L in lens]
+    sampled = set(rng.choice(n, SERVE_SAMPLED, replace=False).tolist())
+    gap = float(np.mean(news)) / (SERVE_LOAD * SERVE_SLOTS) * unit_s
+    arrivals = np.cumsum(rng.exponential(gap, size=n))
+
+    def make(order=None):
+        out = []
+        for i in range(n):
+            kw = (dict(SERVE_SAMPLING, seed=SEED * 1000 + i)
+                  if i in sampled else {})
+            out.append(serving.Request(f"s{i}", prompts[i],
+                                       max_new=int(news[i]),
+                                       arrival_s=float(arrivals[i]), **kw))
+        return out
+
+    return make, sampled, gap
+
+
+def _pcts(xs) -> dict:
+    xs = sorted(xs)
+    if not xs:
+        return {"p50": None, "p99": None, "n": 0}
+    return {"p50": xs[len(xs) // 2],
+            "p99": xs[min(len(xs) - 1, int(0.99 * len(xs)))], "n": len(xs)}
+
+
+def _top2_margin(torch, logits):
+    top = torch.topk(logits.float(), 2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+class _LocalAttention:
+    """Within the block, ``model``'s attention runs the plain reference
+    (``attn_impl="local"``): the full forwards the checks recompute never
+    launch a flash kernel."""
+
+    def __init__(self, model):
+        self.mods = [m for m in model.modules() if hasattr(m, "attn_impl")]
+
+    def __enter__(self):
+        self.saved = [m.attn_impl for m in self.mods]
+        for m in self.mods:
+            m.attn_impl = "local"
+
+    def __exit__(self, *exc):
+        for m, impl in zip(self.mods, self.saved):
+            m.attn_impl = impl
+
+
+def _cached_greedy(torch, gen_mod, model, prompt, n: int):
+    """``generate``'s greedy path, the same calls (the steps one CUDA
+    graph each), keeping each step's logits: (tokens [n], logits [n,
+    V])."""
+    with torch.no_grad():
+        cache = model.init_cache(1)
+
+        def step(tok, pos):
+            return model(tok[:, None], pos, cache=cache)[:, 0].float()
+
+        pos = torch.full((1,), prompt.numel(), dtype=torch.long,
+                         device=prompt.device)
+        step = gen_mod.graphed(step, prompt[:1], pos)
+        xs, head = model(prompt[None], 0, return_prehead=True, cache=cache)
+        logits = [(xs[:, -1] @ head).float()]
+        for i in range(1, n):
+            logits.append(step(logits[-1].argmax(-1), pos + (i - 1)).clone())
+    logits = torch.cat(logits)
+    return logits.argmax(-1), logits
+
+
+def serve_step_profile(torch, gen_mod, tmod, fn) -> dict:
+    """Device ms of one call of ``fn`` (an eager decode step) by part: the
+    products (every ``linear`` / ``matmul`` outside attention), attention
+    (``SPAttention._decode`` less its cache writes: RoPE, the mask, the
+    einsums and softmax), the cache writes (its ``index_put_``), sampling
+    (``generate._sample_rows``) and the rest (layer norms, GELU, residuals,
+    the embedding).  The two functions run inside profiler ranges for the
+    call; each kernel counts where the first of its launching op's
+    ancestors that names a part puts it."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    decode, sample = tmod.SPAttention._decode, gen_mod._sample_rows
+
+    def ranged(name, f):
+        def g(*a, **k):
+            with record_function(name):
+                return f(*a, **k)
+        return g
+
+    tmod.SPAttention._decode = ranged("serve/attention", decode)
+    gen_mod._sample_rows = ranged("serve/sampling", sample)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        tmod.SPAttention._decode, gen_mod._sample_rows = decode, sample
+    parts = {k: 0.0 for k in ("products", "attention", "cache writes",
+                              "sampling", "other")}
+    for e in prof.events():
+        ms = sum(k.duration for k in getattr(e, "kernels", [])) / 1e3
+        if ms <= 0:
+            continue
+        names, p = [], e
+        while p is not None:
+            names.append(p.name)
+            p = p.cpu_parent
+        if "serve/sampling" in names:
+            part = "sampling"
+        elif "serve/attention" in names:
+            part = ("cache writes" if any("index_put" in n for n in names)
+                    else "attention")
+        elif any(n in ("aten::linear", "aten::addmm", "aten::matmul",
+                       "aten::mm") for n in names):
+            part = "products"
+        else:
+            part = "other"
+        parts[part] += ms
+    return {"total_ms": sum(parts.values()), "parts_ms": parts}
+
+
+def lm_serving_phase(torch, mpi, ops, dev):
+    """The serving slice's main path: the flagship LM at full width
+    (LM, seed weights, attn_impl "flash" as trained; decode attends
+    through einsums against the cache, as JAX's) served by
+    ``serving.Server`` over one ``ReplicaEngine`` of SERVE_SLOTS slots of
+    2048 tokens, float32 with TF32 off, on _serve_trace's Poisson trace
+    under the wall clock.  First a burst at 16 live slots measures the
+    decode step (the trace's unit_seconds; the step's device ms by part;
+    (h): exactly 1 host sync a decode step and 1 a prefill), then the
+    trace (rows 1-14 counters set to 0 just before it and read just after:
+    (g), 0 each), then the checks, each raising: (a) the cached decode's
+    logits of SERVE_CHECKED greedy requests against a full forward of the
+    same tokens within SERVE_LOGIT_RTOL x max |ref|, no token differing
+    at a top-2 margin above the error; (b) every greedy stream equal to
+    offline ``generate`` of its prompt alone, a mismatch allowed only at
+    a top-2 margin under (a)'s error (reported); (c) a reused slot of the
+    trace's pool decodes bitwise as a fresh pool's; (d) the sampled
+    requests' streams bitwise on SERVE_SLOTS and on 4 slots in reversed
+    arrival order; (e) n-gram speculation (K SERVE_SPEC_K) equal to the
+    plain streams with fewer target forwards; (f) a prefix-cache hit
+    bitwise to the miss.  Then the same trace at bf16 compute, timed,
+    (b) on half of (a)'s requests, (c) and (d) reported only.  Reports output
+    tokens/s, TTFT and ITL p50 / p99, the step ms at 16 live slots
+    (median, min, max) and its bound, prefill ms by prompt length, peak
+    memory."""
+    import importlib
+
+    import numpy as np
+
+    from torchmpi_tpu_torch import serving
+
+    gen_mod = importlib.import_module("torchmpi_tpu_torch.models.generate")
+    tmod = importlib.import_module("torchmpi_tpu_torch.models.transformer")
+    t_phase = time.perf_counter()
+    secs, t_mark = {}, [t_phase]
+
+    def mark(name):
+        now = time.perf_counter()
+        secs[name] = now - t_mark[0]
+        t_mark[0] = now
+
+    V, S, L = LM["vocab"], SERVE_SLOTS, LM["max_len"]
+    model = mpi.models.TransformerLM(
+        **LM, attn_impl="flash", device=dev,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 2))
+    model.eval()
+    on_dev = lambda a: torch.as_tensor(np.asarray(a)).to(dev)  # noqa: E731
+    # Warm-up (cuBLAS handles, the allocator): a short offline decode.
+    mpi.models.generate(model, np.zeros((1, 128), np.int64), 4)
+    torch.cuda.synchronize()
+
+    # The burst: 16 requests admitted, then decode steps at 16 live slots.
+    make, sampled, _ = _serve_trace(np, serving, 1.0)
+    eng = serving.ReplicaEngine(model, slots=S, slot_tokens=L)
+    burst = [serving.Request(f"b{i}", r.prompt, max_new=SERVE_BURST_STEPS
+                             + 8) for i, r in enumerate(make()[:S])]
+    prefill_ms, syncs = [], {}
+    for i, r in enumerate(burst):
+        t = time.perf_counter()
+        if i == 1:
+            syncs["prefill"] = count_host_syncs(torch, lambda: eng.admit(r))
+        else:
+            eng.admit(r)
+        prefill_ms.append([int(r.prompt.size),
+                           (time.perf_counter() - t) * 1e3])
+    check(eng.active == S, f"burst: {eng.active} live slots, want {S}")
+    eng.step()
+    syncs["decode_step"] = count_host_syncs(torch, eng.step)
+    step_ms = []
+    for _ in range(SERVE_BURST_STEPS):
+        check(eng.active == S, "burst: a slot retired early")
+        t = time.perf_counter()
+        eng.step()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    # By part on the eager step: the graph replays the same kernels, and
+    # the profiler attributes a graph's kernels to no op.
+    eng._step = eng._decode
+    step_parts = serve_step_profile(torch, gen_mod, tmod, eng.step)
+    check(syncs == {"prefill": 1, "decode_step": 1},
+          f"(h) host syncs {syncs}, want 1 a prefill and 1 a decode step")
+    unit_s = statistics.median(step_ms) / 1e3
+    mark("burst")
+    del eng
+    torch.cuda.empty_cache()
+    w_bytes = 4 * sum(p.numel() for n, p in model.named_parameters()
+                      if n != "embed.weight")
+    cache_bytes = 2 * LM["depth"] * S * L * LM["num_kv_heads"] * \
+        LM["head_dim"] * 4
+    flops = 2 * w_bytes / 4 * S
+    bound_ms = max((w_bytes + cache_bytes) / PEAK_HBM_BYTES,
+                   flops / 67e12) * 1e3
+
+    # The trace, float32: the main path.
+    make, sampled, gap_s = _serve_trace(np, serving, unit_s)
+    for mod in ops.values():
+        mod.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    srv = serving.Server(model, replicas=1, slots=S, slot_tokens=L)
+    reqs = make()
+    t = time.perf_counter()
+    done = srv.run_trace(reqs)
+    trace_s = time.perf_counter() - t
+    launches = {n: c for mod in ops.values() for n, c in mod.LAUNCHES.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(len(done) == SERVE_REQUESTS and all(r.error is None for r in reqs),
+          "trace: a request failed")
+    check(not any(launches.values()),
+          f"(g) the serving path launched table kernels: {launches}")
+    main_eng = srv.router.replicas[0]
+    plain = {r.rid: list(r.tokens) for r in reqs}
+    mark("trace")
+
+    def trace_numbers(server, rs):
+        s_ = server.last_stats
+        return {"tokens": s_["tokens"], "busy_s": s_["busy_s"],
+                "tokens_per_s": s_["tokens"] / s_["busy_s"],
+                "ttft_ms": {k: (v * 1e3 if isinstance(v, float) else v)
+                            for k, v in _pcts([r.ttft_s for r in rs]).items()},
+                "itl_ms": {k: (v * 1e3 if isinstance(v, float) else v)
+                           for k, v in _pcts(s_["itl_s"]).items()},
+                "ticks": s_["ticks"]}
+
+    # (a) cached vs recomputed logits.
+    greedy = [r for r in reqs if r.temperature is None]
+    a_rows, a_err, offline = [], 0.0, {}
+    for r in greedy[:SERVE_CHECKED]:
+        prompt = on_dev(r.prompt)
+        toks, logits = _cached_greedy(torch, gen_mod, model, prompt,
+                                      r.max_new)
+        offline[r.rid] = toks.tolist()
+        with torch.no_grad(), _LocalAttention(model):
+            full = model(torch.cat([prompt, toks[:-1]])[None])[0].float()
+        ref = full[prompt.numel() - 1:]
+        err = float((logits - ref).abs().max())
+        top = float(ref.abs().max())
+        margin = _top2_margin(torch, ref)
+        flips = (logits.argmax(-1) != ref.argmax(-1))
+        under = margin[margin <= err]
+        a_rows.append({"rid": r.rid, "max_abs_err": err, "max_abs_ref": top,
+                       "min_top2_margin": float(margin.min()),
+                       "positions_under_err": int(under.numel()),
+                       "largest_margin_under_err":
+                           float(under.max()) if under.numel() else None,
+                       "flips": int(flips.sum())})
+        check(err <= SERVE_LOGIT_RTOL * top,
+              f"(a) {r.rid}: cached logits {err} off, > "
+              f"{SERVE_LOGIT_RTOL} x {top}")
+        check(not bool((flips & (margin > err)).any()),
+              f"(a) {r.rid}: a token differs at a margin above {err}")
+        a_err = max(a_err, err)
+
+    def judge(model_, rs, offline, err):
+        """(b): each stream against its offline stream; a mismatch at a
+        top-2 margin above ``err`` is a failure, one under it a
+        report."""
+        out = []
+        for r in rs:
+            off = offline[r.rid]
+            if r.tokens == off:
+                continue
+            j = next(i for i, (x, y) in enumerate(zip(r.tokens, off))
+                     if x != y)
+            with torch.no_grad(), _LocalAttention(model_):
+                seq = on_dev(np.concatenate([r.prompt, off[:j]]))
+                m = float(_top2_margin(torch, model_(seq[None])[0, -1]))
+            out.append({"rid": r.rid, "at": j, "margin": m,
+                        "above_err": m > err})
+        return out
+
+    mark("a")
+
+    # (b) every greedy stream against offline generate of its prompt alone
+    # (for (a)'s requests, (a)'s decode: generate's greedy path, the same
+    # calls, checked on the first).
+    r0 = greedy[0]
+    check(mpi.models.generate(model, r0.prompt[None], r0.max_new)[
+        0, r0.prompt.size:].tolist() == offline[r0.rid],
+          "(a)'s decode is not generate's")
+    offline.update({r.rid: mpi.models.generate(
+        model, r.prompt[None], r.max_new)[0, r.prompt.size:].tolist()
+        for r in greedy[SERVE_CHECKED:]})
+    b_mism = judge(model, greedy, offline, a_err)
+    check(not any(m["above_err"] for m in b_mism),
+          f"(b) greedy streams differ from offline generate: {b_mism}")
+
+    # (c) a reused slot (the trace's pool, every row written) against a
+    # fresh pool, row S // 3, bitwise.
+    def reuse(model_, dirty):
+        r = greedy[0]
+        one, first = gen_mod.slot_prefill(model_, on_dev(r.prompt[None]),
+                                          max_len=L)
+        fresh, row = model_.init_cache(S, L), S // 3
+        for pool in (dirty, fresh):
+            gen_mod.slot_write(pool, one, row)
+        tok, same = first, True
+        toks = torch.zeros(S, dtype=torch.long, device=dev)
+        pos = torch.zeros(S, dtype=torch.long, device=dev)
+        for i in range(SERVE_REUSE_STEPS):
+            toks[row], pos[row] = tok[0], r.prompt.size + i
+            with torch.no_grad():
+                ld = model_(toks[:, None], pos, cache=dirty)[row, 0]
+                lf = model_(toks[:, None], pos, cache=fresh)[row, 0]
+            same = same and bool(torch.equal(ld, lf))
+            tok = ld.argmax(-1, keepdim=True)
+        return same
+
+    mark("b")
+    c_same = reuse(model, main_eng._cache)
+    check(c_same, "(c) the reused slot's logits differ from a fresh pool's")
+    mark("c")
+
+    # (d) the sampled requests on 4 slots, in reversed arrival order.
+    def layouts(model_, ref_streams):
+        rs = [r for r in make() if r.temperature is not None]
+        arr = [r.arrival_s for r in rs]
+        for r, a in zip(rs, arr[::-1]):
+            r.arrival_s = a
+        srv4 = serving.Server(model_, replicas=1, slots=4, slot_tokens=L)
+        srv4.run_trace(rs)
+        return [r.rid for r in rs if r.tokens != ref_streams[r.rid]]
+
+    d_diff = layouts(model, plain)
+    check(not d_diff, f"(d) sampled streams differ across layouts: {d_diff}")
+    mark("d")
+
+    # (e) n-gram speculation: the same streams, fewer target forwards.
+    srv_e = serving.Server(model, replicas=1, slots=S, slot_tokens=L,
+                           spec_k=SERVE_SPEC_K)
+    e_reqs = make()
+    srv_e.run_trace(e_reqs)
+    eng_e = srv_e.router.replicas[0]
+    e_diff = [r.rid for r in e_reqs if r.tokens != plain[r.rid]]
+    e_stats = dict(eng_e.stats)
+    fwd_plain = main_eng.stats["prefills"] + main_eng.stats["steps"]
+    fwd_spec = eng_e.stats["prefills"] + eng_e.stats["steps"]
+    check(not e_diff, f"(e) speculative streams differ: {e_diff}")
+    check(fwd_spec < fwd_plain,
+          f"(e) {fwd_spec} target forwards with speculation, {fwd_plain} "
+          f"without")
+    mark("e")
+
+    # (f) a prefix-cache hit against the miss, bitwise.
+    rng = np.random.RandomState(SEED + 5)
+    shared = rng.randint(0, V, size=SERVE_PREFIX)
+
+    def prefix_reqs():
+        r2 = np.random.RandomState(SEED + 6)
+        return [serving.Request(
+            f"f{i}", np.concatenate([shared, r2.randint(0, V,
+                                                        size=SERVE_TAIL)]),
+            max_new=32, arrival_s=0.0,
+            **(dict(SERVE_SAMPLING, seed=7 + i) if i % 2 else {}))
+            for i in range(SERVE_PREFIX_REQS)]
+
+    streams = []
+    for cap in (0, 64):
+        srv_f = serving.Server(model, replicas=1, slots=4, slot_tokens=L,
+                               prefix_cache=cap,
+                               prefix_block=SERVE_PREFIX_BLOCK)
+        f_reqs = prefix_reqs()
+        srv_f.run_trace(f_reqs)
+        streams.append({r.rid: r.tokens for r in f_reqs})
+    f_hits = srv_f.router.replicas[0].stats["prefix_hits"]
+    check(streams[0] == streams[1] and f_hits > 0,
+          f"(f) prefix hits {f_hits}; streams equal "
+          f"{streams[0] == streams[1]}")
+    for mod in ops.values():
+        check(not any(mod.LAUNCHES.values()),
+              "(g) the phase launched a table kernel")
+    f32 = trace_numbers(srv, reqs)
+    mark("f")
+
+    # The same trace at bf16 compute, timed; (b) on half of (a)'s
+    # requests, (c) and (d) reported only.
+    del srv, srv_e, srv_f, main_eng, eng_e
+    torch.cuda.empty_cache()
+    model_bf = mpi.models.TransformerLM(**LM, attn_impl="flash",
+                                        dtype=torch.bfloat16, device=dev)
+    model_bf.load_state_dict(model.state_dict())
+    model_bf.eval()
+    srv_bf = serving.Server(model_bf, replicas=1, slots=S, slot_tokens=L)
+    bf_reqs = make()
+    srv_bf.run_trace(bf_reqs)
+    bf_greedy = [r for r in bf_reqs if r.temperature is None]
+    mark("bf16 trace")
+    bf_off = {r.rid: mpi.models.generate(model_bf, r.prompt[None],
+                                         r.max_new)[0, r.prompt.size:]
+              .tolist() for r in bf_greedy[:SERVE_CHECKED // 2]}
+    bf = dict(trace_numbers(srv_bf, bf_reqs),
+              b_mismatches=judge(model_bf, bf_greedy[:SERVE_CHECKED // 2],
+                                 bf_off, a_err),
+              c_reused_slot_bitwise=reuse(model_bf,
+                                          srv_bf.router.replicas[0]._cache),
+              d_layout_diffs=layouts(model_bf, {r.rid: r.tokens
+                                                for r in bf_reqs}),
+              f32_streams_equal=sum(r.tokens == plain[r.rid]
+                                    for r in bf_reqs))
+    mark("bf16 checks")
+    emit({"phase": "lm_serving", "config": dict(LM, attn_impl="flash"),
+          "slots": S, "slot_tokens": L, "requests": SERVE_REQUESTS,
+          "sampled": len(sampled), "load": SERVE_LOAD,
+          "unit_seconds": unit_s, "mean_gap_s": gap_s,
+          "float32": dict(f32, trace_wall_s=trace_s, peak_mem_gb=peak_gb,
+                          step_ms_16_live={
+                              "median": statistics.median(step_ms),
+                              "min": min(step_ms), "max": max(step_ms)},
+                          step_bound_ms=bound_ms,
+                          step_bound_bytes=w_bytes + cache_bytes,
+                          step_device_profile=step_parts,
+                          prefill_ms_by_len=sorted(prefill_ms),
+                          host_syncs=syncs),
+          "seconds_by_part": secs,
+          "a_cached_vs_recomputed": {"max_abs_err": a_err,
+                                     "requests": a_rows},
+          "b_greedy_vs_generate": {"requests": len(greedy),
+                                   "mismatches": b_mism},
+          "c_reused_slot_bitwise": c_same,
+          "d_layouts_bitwise": not d_diff,
+          "e_spec": {"equal": not e_diff, "target_forwards": fwd_spec,
+                     "plain_forwards": fwd_plain,
+                     "drafted": e_stats["spec_drafted"],
+                     "accepted": e_stats["spec_accepted"]},
+          "f_prefix_hits": f_hits,
+          "g_table_launches": sum(launches.values()),
+          "bfloat16": bf, "seconds": time.perf_counter() - t_phase})
+    del model, model_bf, srv_bf
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -5687,6 +6191,11 @@ def main() -> int:
         # example megatron_pipeline to its bar.
         mg_launches, dev = megatron_3d_phase(torch, mpi,
                                              dict(ops, ring=ring), dev)
+        torch.cuda.empty_cache()
+        # The main path of slice 23: the flagship served by the
+        # continuous-batching server over one dense replica (no kernel of
+        # the table: rows 1-14 counted, 0 each).
+        lm_serving_phase(torch, mpi, dict(ops, ring=ring), dev)
         torch.cuda.empty_cache()
         tree_verbs_phase(torch, mpi, ring, dev)
         torch.cuda.empty_cache()

@@ -149,8 +149,16 @@ def test_apply_rope_matches_jax(per_row):
 
 
 def test_later_slices_raise():
-    with pytest.raises(NotImplementedError, match="queue A, item 9"):
-        TransformerLM(**CFG, decode=True, device="cpu")
+    # Decode runs (tests/test_torch_generate.py); the decoders it still
+    # refuses are JAX's ring refusal and the mesh-parallel ones of queue A,
+    # item 9 (b).
+    mha = {k: v for k, v in CFG.items() if k != "num_kv_heads"}
+    with pytest.raises(ValueError, match=r"queue A, item 9 \(b\)"):
+        TransformerLM(**mha, decode=True, attn_impl="ulysses",
+                      seq_axis="ici", device="cpu")
+    with pytest.raises(ValueError, match="local'/'flash"):
+        TransformerLM(**mha, decode=True, attn_impl="ring", seq_axis="ici",
+                      device="cpu")
     # The sequence-parallel impls run (tests/test_torch_sequence.py); with
     # CFG's grouped-query heads they refuse as JAX's do.
     with pytest.raises(ValueError, match="num_kv_heads"):

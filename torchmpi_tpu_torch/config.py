@@ -29,6 +29,11 @@ def _env_str(name: str, default: str) -> str:
     return os.environ.get(name, default)
 
 
+def _env_float(name: str, default: float) -> float:
+    v = os.environ.get(name)
+    return default if v is None or v == "" else float(v)
+
+
 PS_TIMEOUT_S = 30.0
 
 
@@ -131,6 +136,17 @@ class Config:
       collective analysis and telemetry.  Their modules are not ported
       (ROADMAP queue A, items 11 and 10); the recipes refuse any value
       but "off" by the item's name.
+    - The serving layer's defaults (``serving/``, never imported unless
+      used; JAX ``config.py:477-518``): ``serving_slots`` (KV slot blocks
+      a replica), ``serving_slot_tokens`` (tokens a block, 0 = the model's
+      max_len; smaller only for RoPE models), ``serving_replicas``,
+      ``serving_sample`` (default temperature, <= 0 greedy),
+      ``serving_spec_k`` (speculative draft length, 0 off),
+      ``serving_prefill_buckets`` (pow-2 prefill buckets of at least this
+      many tokens, 0 off), ``serving_prefix_cache`` (prefix-cache blocks
+      a replica, 0 off), ``serving_slo_ttft_us`` (shed arrivals while the
+      p95 TTFT exceeds it, 0 off) and ``serving_autoscale`` (most replicas
+      the autoscaler may reach, 0 off).
     """
 
     backend: str = "xla"
@@ -157,6 +173,15 @@ class Config:
     ps_timeout_s: float = PS_TIMEOUT_S
     analysis: str = "off"
     obs: str = "off"
+    serving_slots: int = 8
+    serving_slot_tokens: int = 0
+    serving_replicas: int = 1
+    serving_sample: float = 0.0
+    serving_spec_k: int = 0
+    serving_prefill_buckets: int = 0
+    serving_prefix_cache: int = 0
+    serving_slo_ttft_us: float = 0.0
+    serving_autoscale: int = 0
 
     @staticmethod
     def from_env(**overrides) -> "Config":
@@ -172,8 +197,11 @@ class Config:
         TORCHMPI_TPU_ICI_SIZE, TORCHMPI_TPU_HIERARCHICAL,
         TORCHMPI_TPU_DCN_CHUNK_BYTES, TORCHMPI_TPU_DCN_COMPRESS,
         TORCHMPI_TPU_DCN_COMPRESS_MIN_BYTES, TORCHMPI_TPU_PS_TIMEOUT (see
-        :func:`ps_timeout_s`), TORCHMPI_TPU_ANALYSIS, TORCHMPI_TPU_OBS;
-        ``pallas_bidirectional`` has none), then apply ``overrides``."""
+        :func:`ps_timeout_s`), TORCHMPI_TPU_ANALYSIS, TORCHMPI_TPU_OBS,
+        TORCHMPI_TPU_SERVING_SLOTS, _SLOT_TOKENS, _REPLICAS, _SAMPLE,
+        _SPEC_K, _PREFILL_BUCKETS, _PREFIX_CACHE, _SLO_TTFT_US and
+        _AUTOSCALE (each after TORCHMPI_TPU_SERVING); ``pallas_bidirectional``
+        has none), then apply ``overrides``."""
         cfg = Config(
             backend=_env_str("TORCHMPI_TPU_BACKEND", "xla"),
             tuning_plan_path=(
@@ -204,6 +232,19 @@ class Config:
             ps_timeout_s=ps_timeout_s(),
             analysis=_env_str("TORCHMPI_TPU_ANALYSIS", "off"),
             obs=_env_str("TORCHMPI_TPU_OBS", "off"),
+            serving_slots=_env_int("TORCHMPI_TPU_SERVING_SLOTS", 8),
+            serving_slot_tokens=_env_int(
+                "TORCHMPI_TPU_SERVING_SLOT_TOKENS", 0),
+            serving_replicas=_env_int("TORCHMPI_TPU_SERVING_REPLICAS", 1),
+            serving_sample=_env_float("TORCHMPI_TPU_SERVING_SAMPLE", 0.0),
+            serving_spec_k=_env_int("TORCHMPI_TPU_SERVING_SPEC_K", 0),
+            serving_prefill_buckets=_env_int(
+                "TORCHMPI_TPU_SERVING_PREFILL_BUCKETS", 0),
+            serving_prefix_cache=_env_int(
+                "TORCHMPI_TPU_SERVING_PREFIX_CACHE", 0),
+            serving_slo_ttft_us=_env_float(
+                "TORCHMPI_TPU_SERVING_SLO_TTFT_US", 0.0),
+            serving_autoscale=_env_int("TORCHMPI_TPU_SERVING_AUTOSCALE", 0),
         )
         for name, field in (("TORCHMPI_TPU_ICI_SIZE", "ici_size"),
                             ("TORCHMPI_TPU_DCN_SIZE", "dcn_size")):
@@ -224,7 +265,32 @@ class Config:
             if not hasattr(cfg, k):
                 raise ValueError(f"unknown config field {k!r}")
             setattr(cfg, k, v)
+        check_serving(cfg)
         return cfg
+
+
+def check_serving(cfg: Config) -> None:
+    """The serving fields' ranges, with the JAX runtime's messages
+    (JAX ``runtime.py:615-633``)."""
+    if cfg.serving_prefix_cache < 0 or cfg.serving_autoscale < 0 \
+            or cfg.serving_slo_ttft_us < 0:
+        raise ValueError(
+            f"config.serving_prefix_cache / serving_autoscale / "
+            f"serving_slo_ttft_us must be >= 0 (0 = off), got "
+            f"{cfg.serving_prefix_cache}/{cfg.serving_autoscale}/"
+            f"{cfg.serving_slo_ttft_us}")
+    if cfg.serving_spec_k < 0 or cfg.serving_prefill_buckets < 0:
+        raise ValueError(
+            f"config.serving_spec_k and serving_prefill_buckets "
+            f"must be >= 0 (0 = off), got {cfg.serving_spec_k}/"
+            f"{cfg.serving_prefill_buckets}")
+    if cfg.serving_slots < 1 or cfg.serving_replicas < 1 \
+            or cfg.serving_slot_tokens < 0:
+        raise ValueError(
+            f"config.serving_slots/serving_replicas must be >= 1 and "
+            f"serving_slot_tokens >= 0 (0 = model max_len), got "
+            f"{cfg.serving_slots}/{cfg.serving_replicas}/"
+            f"{cfg.serving_slot_tokens}")
 
 
 def wire_compress(value, *, site: str) -> Optional[str]:

@@ -15,7 +15,9 @@ from .resnet import (  # noqa: F401
 )
 from .transformer import (  # noqa: F401
     Block,
+    KVCache,
     SPAttention,
     TransformerLM,
     apply_rope,
 )
+from .generate import beam_search, generate  # noqa: F401

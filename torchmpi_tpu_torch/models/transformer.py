@@ -47,11 +47,35 @@ process world, ``[n]`` rank-major), and :meth:`TransformerLM.moe_aux_losses`
 returns them in block order; training code scales their sum (typically
 1e-2) into the loss.
 
+Decode (JAX :122-279): :meth:`TransformerLM.init_cache` builds the KV
+cache, a :class:`KVCache` held by the caller (flax's ``"cache"``
+collection): per layer k and v, float32 ``[rows, max_len, Hkv, D]`` (the
+GQA cache keeps only the kv heads), and ``idx``, the next write position
+of the scalar-offset path.  ``model(tokens, pos_offset, cache=cache)``
+reads the cache and writes into it in place:
+
+- an int ``pos_offset`` (the prefills, ``beam_search``'s steps) writes
+  at ``cache.idx`` and advances it; a block of T > 1 tokens there is the
+  fresh-cache prefill, causal attention within the block (JAX :212-227);
+- a 1-D ``pos_offset`` [rows] gives every row its own position
+  (``generate``'s steps, the continuous-batching slot step; with T > 1
+  the speculative verify rows, JAX :220-224): each row writes at its own
+  depth and attends through the per-row causal mask, so a reused row is
+  bitwise a fresh one.
+
+RoPE rotates q and k at their absolute cache positions before the write
+(JAX :193-200), the sliding window bands the cache mask (:246-252), and
+every write goes through ``generate.clamp_slot_positions``, the clamped
+start of JAX's ``dynamic_update_slice`` (ROADMAP queue C note 1).  Decode
+attends through einsums against the cache, never the flash kernels
+(``"flash"`` is an alias of ``"local"`` there, as in JAX).  A model built
+with ``decode=True`` requires the cache.  Ring impls have no decode path;
+Ulysses and MoE decode are ROADMAP queue A, item 9 (b).
+
 Parameter names follow the flax tree through ``weights.from_flax_params``.
 Every module builds its parameters on ``device``: the card by default,
 the CPU only when the caller passes ``device="cpu"``; without a visible
-card the default raises.  Autoregressive decode is a later slice of the
-port and raises ``NotImplementedError``.
+card the default raises.
 """
 
 from __future__ import annotations
@@ -67,17 +91,100 @@ from .. import collectives, runtime
 from ..ops.flash import _gqa_group, flash_attention_grad
 from ..parallel import expert as eplib
 from ..parallel import sequence as seqlib
+from .generate import clamp_slot_positions
 from .layers import Dense, check_device
 
 SP_IMPLS = ("ring", "ring_flash", "ulysses", "ulysses_flash")
 
 
-def apply_rope(x: torch.Tensor, pos: torch.Tensor, *,
-               base: float = 10000.0) -> torch.Tensor:
-    """Rotary position embedding: rotate the halves of ``x``'s head dim
-    ([B, T, H, D], D even) by angles ``pos[t] * base**(-2i/D)``.  ``pos`` is
-    [T] (shared across the batch) or [B, T] (one position per row)."""
-    D = x.shape[-1]
+def check_decode(attn_impl: str, seq_axis=None, moe_axis=None) -> None:
+    """JAX's refusals of a decode the port cannot run: ring impls (their
+    sequence-sharded cache cannot serve one new token a step), Ulysses
+    decode under ``seq_axis`` and MoE decode (the mesh-parallel decoders
+    of ROADMAP queue A, item 9 (b))."""
+    if moe_axis is not None:
+        raise ValueError(
+            "generate() supports dense MLPs only: moe_axis routing needs "
+            "a mesh axis; expert-parallel decode (generate_parallel) is "
+            "ROADMAP queue A, item 9 (b)")
+    if attn_impl.startswith("ulysses") and seq_axis is not None:
+        raise ValueError(
+            "ulysses decode needs the mesh axis in scope; the "
+            "head-sharded-cache decode (generate_parallel) is ROADMAP "
+            "queue A, item 9 (b)")
+    if attn_impl not in ("local", "flash"):
+        raise ValueError(
+            f"decode=True supports attn_impl='local'/'flash' (or "
+            f"'ulysses' under generate_parallel), got {attn_impl!r}")
+
+
+class KVCache:
+    """The decode cache of a :class:`TransformerLM` (JAX's ``"cache"``
+    collection): ``k[i]`` and ``v[i]`` float32 ``[rows, max_len, Hkv, D]``
+    for layer i, and ``idx``, the next write position of the
+    scalar-offset path (a host int; JAX's per-layer ``idx``, equal in
+    every layer).  The forward writes into the tensors in place."""
+
+    def __init__(self, k: List[torch.Tensor], v: List[torch.Tensor],
+                 idx: int = 0):
+        self.k, self.v, self.idx = list(k), list(v), int(idx)
+
+    @property
+    def rows(self) -> int:
+        return self.k[0].shape[0]
+
+    @property
+    def max_len(self) -> int:
+        return self.k[0].shape[1]
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.nbytes for t in self.k + self.v)
+
+    def index_rows(self, rows: torch.Tensor) -> "KVCache":
+        """A new cache of the rows ``rows`` (a [n] index tensor): the
+        beam search's tiling and parent gather."""
+        return KVCache([t[rows] for t in self.k], [t[rows] for t in self.v],
+                       self.idx)
+
+
+class _DecodeStep:
+    """What every layer of one decode forward shares, each made once: the
+    clamped write start (``start``: an int, or ``None`` per row), each
+    query's absolute position ``q_pos`` ([T], or [rows, T] per row),
+    whether the block is the fresh-cache prefill, the RoPE tables of
+    ``q_pos`` and the cache mask."""
+
+    def __init__(self, q_pos: torch.Tensor, start: Optional[int],
+                 window: Optional[int]):
+        self.q_pos, self.start, self.window = q_pos, start, window
+        self.prefill = start is not None and q_pos.shape[-1] > 1
+        self._rope, self._mask = None, None
+        if start is None:
+            self.rows = torch.arange(q_pos.shape[0],
+                                     device=q_pos.device)[:, None]
+
+    def rope(self, D: int):
+        if self._rope is None:
+            self._rope = rope_tables(self.q_pos, D)
+        return self._rope
+
+    def mask(self, max_len: int) -> torch.Tensor:
+        """Causal (and banded) mask over the cache: [1, T, max_len], or
+        [rows, T, max_len] per row."""
+        if self._mask is None:
+            kv_pos = torch.arange(max_len, device=self.q_pos.device)
+            q = self.q_pos[..., None]
+            mask = kv_pos <= q
+            if self.window is not None:
+                mask &= kv_pos > q - self.window
+            self._mask = mask if self.start is None else mask[None]
+        return self._mask
+
+
+def rope_tables(pos: torch.Tensor, D: int, *, base: float = 10000.0):
+    """cos and sin of :func:`apply_rope`'s angles for positions ``pos``
+    ([T] or [B, T]) and head dim ``D``: each [..., T, 1, D / 2]."""
     if D % 2:
         raise ValueError(f"rope requires an even head_dim, got {D}")
     half = D // 2
@@ -86,11 +193,23 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, *,
     inv = torch.pow(base, -torch.arange(half, dtype=torch.float32,
                                         device=pos.device) / half)
     ang = pos.to(torch.float32)[..., None] * inv
-    cos = torch.cos(ang)[..., None, :]
-    sin = torch.sin(ang)[..., None, :]
+    return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+
+
+def _rotate(x: torch.Tensor, cos: torch.Tensor,
+            sin: torch.Tensor) -> torch.Tensor:
+    half = x.shape[-1] // 2
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, pos: torch.Tensor, *,
+               base: float = 10000.0) -> torch.Tensor:
+    """Rotary position embedding: rotate the halves of ``x``'s head dim
+    ([B, T, H, D], D even) by angles ``pos[t] * base**(-2i/D)``.  ``pos`` is
+    [T] (shared across the batch) or [B, T] (one position per row)."""
+    return _rotate(x, *rope_tables(pos, x.shape[-1], base=base))
 
 
 class LayerNorm(nn.Module):
@@ -149,27 +268,66 @@ class SPAttention(nn.Module):
         self.out = Dense(H * D, embed, **kw)
 
     def forward(self, x: torch.Tensor, pos_offset=0,
-                seq_grid=None) -> torch.Tensor:
+                seq_grid=None, kv=None) -> torch.Tensor:
         """``x`` [B, T, E]; ``pos_offset`` the global position of x[:, 0]
         (an int, or a [B, 1] tensor of each row's).  ``seq_grid`` (n_dcn,
         n_ici): ``x`` holds the rank-major ranks folded into the batch in
         (dcn, ici, batch) order, and the sequence-parallel impls attend
-        over the ici ranks (:meth:`TransformerLM.forward_rank_major`)."""
+        over the ici ranks (:meth:`TransformerLM.forward_rank_major`).
+        ``kv`` (this layer's cache k, v and the forward's
+        :class:`_DecodeStep`): the decode step of JAX :150-275."""
         B, T, _ = x.shape
         H, Hkv, D = self.num_heads, self.num_kv_heads, self.head_dim
         if Hkv != H:
             q = self.q(x).view(B, T, H, D).float()
-            kv = self.kv(x).view(B, T, 2, Hkv, D)
-            k, v = kv[:, :, 0].float(), kv[:, :, 1].float()
+            kvp = self.kv(x).view(B, T, 2, Hkv, D)
+            k, v = kvp[:, :, 0].float(), kvp[:, :, 1].float()
         else:
             qkv = self.qkv(x).view(B, T, 3, H, D)
             q, k, v = (qkv[:, :, i].float() for i in range(3))
-        if self.rope:
-            rpos = pos_offset + torch.arange(T, device=x.device)
-            q = apply_rope(q, rpos)
-            k = apply_rope(k, rpos)
-        o = self._attend(q, k, v, seq_grid)
+        if kv is not None:
+            o = self._decode(q, k, v, *kv)
+        else:
+            if self.rope:
+                rpos = pos_offset + torch.arange(T, device=x.device)
+                q = apply_rope(q, rpos)
+                k = apply_rope(k, rpos)
+            o = self._attend(q, k, v, seq_grid)
         return self.out(o.to(self.dtype).reshape(B, T, H * D))
+
+    def _decode(self, q, k, v, ck, cv, step: _DecodeStep):
+        """Write k and v into the cache at their positions, then attend:
+        the fresh-cache prefill within its block, else q against the
+        whole cache through the causal mask (JAX :185-275)."""
+        B, T, H, D = q.shape
+        if self.rope:
+            # Rotate at absolute cache positions, then cache: old entries
+            # never need re-rotation.
+            q = _rotate(q, *step.rope(D))
+            k = _rotate(k, *step.rope(D))
+        if step.start is None:
+            ck[step.rows, step.q_pos] = k
+            cv[step.rows, step.q_pos] = v
+        else:
+            ck[:, step.start:step.start + T] = k
+            cv[:, step.start:step.start + T] = v
+        if step.prefill:
+            return seqlib.reference_attention(q, k, v, causal=True,
+                                              window=self.window)
+        mask = step.mask(ck.shape[1])
+        hc = ck.shape[2]
+        if hc != H:
+            # GQA: group the einsum rather than repeat the cache.
+            qg = q.reshape(B, T, hc, H // hc, D)
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qg, ck) / (D ** 0.5)
+            s.masked_fill_(~mask[:, None, None], float("-inf"))
+            p = torch.softmax(s, dim=-1)
+            return torch.einsum("bhgqk,bkhd->bqhgd", p, cv).reshape(
+                B, T, H, D)
+        s = torch.einsum("bqhd,bkhd->bhqk", q, ck) / (D ** 0.5)
+        s.masked_fill_(~mask[:, None], float("-inf"))
+        p = torch.softmax(s, dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", p, cv)
 
     def _attend(self, q, k, v, seq_grid):
         impl, kw = self.attn_impl, dict(causal=True, window=self.window)
@@ -306,8 +464,8 @@ class Block(nn.Module):
                                  device=device)
 
     def forward(self, x: torch.Tensor, pos_offset=0,
-                seq_grid=None) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x), pos_offset, seq_grid)
+                seq_grid=None, kv=None) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x), pos_offset, seq_grid, kv)
         if hasattr(self, "moe"):
             return x + self.moe(self.ln2(x), seq_grid)
         h = F.gelu(self.mlp_in(self.ln2(x)), approximate="tanh")
@@ -324,7 +482,11 @@ class TransformerLM(nn.Module):
     weights, zeros for biases, ones for LayerNorm scales.  The expert
     kernels take flax's fan-in of a 3-D kernel, which counts the expert
     dim: E * n_experts for ``w1``, H * n_experts for ``w2`` (E for
-    ``gate``)."""
+    ``gate``).
+
+    ``decode=True`` makes the forward's ``cache`` required (see the
+    module's note on decode); any local or flash model decodes when given
+    a cache."""
 
     def __init__(self, vocab: int = 256, embed: int = 128, depth: int = 2,
                  num_heads: int = 8, head_dim: int = 16, max_len: int = 4096,
@@ -339,16 +501,18 @@ class TransformerLM(nn.Module):
                  moe_axis_size: Optional[int] = None, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if decode:
-            raise NotImplementedError(
-                "decode=True: KV-cache decoding is a later slice of the "
-                "port (ROADMAP queue A, item 9)")
         if pos_emb not in ("learned", "rope"):
             raise ValueError(f"unknown pos_emb {pos_emb!r}")
+        if decode:
+            check_decode(attn_impl, seq_axis, moe_axis)
         device = check_device(device)
         self.vocab, self.embed_dim, self.dtype = vocab, embed, dtype
         self.pos_emb, self.attn_impl = pos_emb, attn_impl
-        self.seq_axis = seq_axis
+        self.seq_axis, self.moe_axis = seq_axis, moe_axis
+        self.decode, self.max_len, self.window = decode, max_len, window
+        self.num_kv_heads = (num_kv_heads if num_kv_heads is not None
+                             else num_heads)
+        self.head_dim = head_dim
         self.embed = nn.Embedding(vocab, embed, device=device)
         if pos_emb == "learned":
             self.pos_embed = nn.Embedding(max_len, embed, device=device)
@@ -388,13 +552,36 @@ class TransformerLM(nn.Module):
                 m.w2.normal_(0.0, 1.0 / math.sqrt(H * n), generator=g)
         self.head.normal_(0.0, 1.0 / math.sqrt(self.embed_dim), generator=g)
 
-    def forward(self, tokens: torch.Tensor, pos_offset: int = 0,
-                return_prehead: bool = False):
+    def init_cache(self, rows: int, max_len: Optional[int] = None
+                   ) -> KVCache:
+        """A zero decode cache of ``rows`` rows, ``max_len`` positions each
+        (default the model's), on the model's device."""
+        L = int(max_len if max_len is not None else self.max_len)
+        if L <= 0:
+            raise ValueError("decode=True needs max_len > 0")
+        shape = (int(rows), L, self.num_kv_heads, self.head_dim)
+        dev = self.head.device
+        return KVCache(
+            [torch.zeros(shape, device=dev) for _ in self.blocks],
+            [torch.zeros(shape, device=dev) for _ in self.blocks])
+
+    def forward(self, tokens: torch.Tensor, pos_offset=0,
+                return_prehead: bool = False,
+                cache: Optional[KVCache] = None):
         """Logits [B, T, vocab] of ``tokens`` [B, T] (or, with
         ``return_prehead``, the final LayerNorm's output and the head).
         With ``seq_axis``, ``tokens`` is this rank's shard and
-        ``pos_offset`` its global start."""
-        x = self._trunk(tokens, pos_offset, None)
+        ``pos_offset`` its global start.  With ``cache``, a decode step
+        (see the module's note): ``pos_offset`` an int, or a [B] tensor
+        of each row's position."""
+        if cache is not None:
+            x = self._decode_trunk(tokens, pos_offset, cache)
+        elif self.decode:
+            raise ValueError(
+                "decode=True: the forward reads and writes a KV cache; "
+                "pass cache=model.init_cache(rows)")
+        else:
+            x = self._trunk(tokens, pos_offset, None)
         if return_prehead:
             return x, self.head
         return x @ self.head
@@ -440,6 +627,36 @@ class TransformerLM(nn.Module):
         if return_prehead:
             return x, self.head
         return x @ self.head
+
+    def _decode_trunk(self, tokens: torch.Tensor, pos_offset,
+                      cache: KVCache) -> torch.Tensor:
+        """The decode forward's embeddings, blocks (each reading and
+        writing its layer of ``cache``) and final LayerNorm."""
+        check_decode(self.attn_impl, self.seq_axis, self.moe_axis)
+        B, T = tokens.shape
+        if B != cache.rows or len(cache.k) != len(self.blocks):
+            raise ValueError(
+                f"cache of {cache.rows} rows x {len(cache.k)} layers for "
+                f"tokens of {B} rows through {len(self.blocks)} blocks")
+        L, dev = cache.max_len, tokens.device
+        t = torch.arange(T, device=dev)
+        per_row = torch.is_tensor(pos_offset) and pos_offset.dim() == 1
+        if per_row:
+            starts = clamp_slot_positions(pos_offset, L, T)
+            step = _DecodeStep(starts[:, None] + t, None, self.window)
+        else:
+            start = clamp_slot_positions(cache.idx, L, T)
+            step = _DecodeStep(start + t, start, self.window)
+        x = self.embed(tokens).to(self.dtype)
+        if self.pos_emb == "learned":
+            pos = (pos_offset[:, None] + t if per_row
+                   else pos_offset + t)
+            x = x + self.pos_embed(pos).to(self.dtype)
+        for blk, ck, cv in zip(self.blocks, cache.k, cache.v):
+            x = blk(x, kv=(ck, cv, step))
+        if not per_row:
+            cache.idx = start + T
+        return self.ln_f(x)
 
     def _trunk(self, tokens: torch.Tensor, pos_offset, seq_grid):
         """Embeddings, blocks and the final LayerNorm of ``tokens`` [rows,

@@ -34,8 +34,8 @@ layout (``zero.flat_spec``).  Invalidation has ONE point,
 :func:`invalidate` (``collectives.clear_cache``; ``runtime.set_config``
 and ``runtime.stop`` route there).  :func:`set_enabled` ``(False)`` runs
 the unplanned path, the baseline the tests compare bit for bit.  The JAX
-package's ``plan_serving_replica`` waits for serving (ROADMAP queue A,
-item 9).
+package's ``plan_serving_replica`` (a plan per TP serving replica's mesh)
+waits for the TP serving replicas of ROADMAP queue A, item 9 (b).
 """
 
 from __future__ import annotations

@@ -81,7 +81,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 
-from .config import Config, ps_timeout_s
+from .config import Config, check_serving, ps_timeout_s
 
 Axes = Union[str, Sequence[str], None]
 WORLD_AXES = ("dcn", "ici")
@@ -336,6 +336,7 @@ def init(config: Optional[Config] = None, *, device: str = "cuda",
                 raise ValueError(f"unknown config field {k!r}")
             setattr(cfg, k, v)
         cfg.ps_timeout_s = ps_timeout_s(cfg.ps_timeout_s)
+        check_serving(cfg)
         dev = torch.device(device)
         if dev.type == "cuda":
             if not torch.cuda.is_available():
@@ -431,7 +432,9 @@ def set_config(**overrides) -> None:
                              "init: stop() and init() again to change them")
         if "ps_timeout_s" in overrides:
             overrides["ps_timeout_s"] = ps_timeout_s(overrides["ps_timeout_s"])
-        _state.config = dataclasses.replace(_state.config, **overrides)
+        new = dataclasses.replace(_state.config, **overrides)
+        check_serving(new)
+        _state.config = new
         _state.config_epoch += 1
     from . import collectives
 

@@ -2,7 +2,9 @@
 optimizer state, into the port's module; and a JAX CNN's variables
 (LeNet, AlexNet, ResNet) into the port's CNN (:func:`from_flax_cnn`); a
 nested tree of numpy weights in JAX's ``x @ w`` layout as tensors
-(:func:`from_numpy_tree`, the tensor-parallel layers' layout).
+(:func:`from_numpy_tree`, the tensor-parallel layers' layout); and a JAX
+decode cache tree as the port's ``KVCache`` and back
+(:func:`from_flax_cache`, :func:`to_flax_cache`).
 
 The flax tree of ``torchmpi_tpu.models.TransformerLM`` holds
 ``Embed_0/embedding`` [V, E], ``pos_embed/embedding`` (learned positions),
@@ -97,6 +99,42 @@ def from_flax_params(params: Mapping,
         out[name] = torch.tensor(arr, dtype=torch.float32,
                                  device=ref.device)
     return out
+
+
+def from_flax_cache(cache: Mapping, device):
+    """The port's decode cache (``models.transformer.KVCache``) holding a
+    JAX ``decode=True`` model's ``"cache"`` collection (numpy or JAX
+    arrays; a top-level ``{"cache": ...}`` wrapper is accepted):
+    ``Block_i/SPAttention_0/{k, v}`` [rows, max_len, Hkv, D] as layer i's
+    tensors, float32 on ``device``, and the layers' ``idx`` (equal in
+    every layer) as ``KVCache.idx``."""
+    from .models.transformer import KVCache
+
+    if set(cache) == {"cache"}:
+        cache = cache["cache"]
+    k, v, idx = [], [], set()
+    i = 0
+    while f"Block_{i}" in cache:
+        layer = cache[f"Block_{i}"]["SPAttention_0"]
+        k.append(torch.tensor(np.asarray(layer["k"]), dtype=torch.float32,
+                              device=device))
+        v.append(torch.tensor(np.asarray(layer["v"]), dtype=torch.float32,
+                              device=device))
+        idx.add(int(np.asarray(layer["idx"])))
+        i += 1
+    if not k or len(idx) != 1:
+        raise ValueError(f"not a decode cache of equal layers: {i} layers, "
+                         f"idx {sorted(idx)}")
+    return KVCache(k, v, idx.pop())
+
+
+def to_flax_cache(cache) -> Dict:
+    """:func:`from_flax_cache` back: the JAX cache tree of numpy arrays
+    (``idx`` int32 in every layer)."""
+    return {f"Block_{i}": {"SPAttention_0": {
+        "k": k.detach().cpu().numpy(), "v": v.detach().cpu().numpy(),
+        "idx": np.asarray(cache.idx, np.int32)}}
+        for i, (k, v) in enumerate(zip(cache.k, cache.v))}
 
 
 def _flax_leaves(tree: Mapping, path: Tuple[str, ...] = ()
