@@ -232,20 +232,45 @@ JAX package.  In order it:
    streams bitwise on 16 and 4 slots; n-gram speculation equal with fewer
    target forwards; a prefix-cache hit bitwise to the miss.  The trace
    again at bf16 compute, timed, its checks reported;
-17. tree verbs phase: collectives_bench.py's 64-leaf float32 / bfloat16
+17. mesh-parallel serving phase (parallel_serving, the main path of the
+   mesh-parallel decoding slice): the init_tp_lm tree at the flagship's
+   widths (V 32768, D 2048, depth 8, 16 heads of 128, MLP 4x; seed
+   weights, float32, TF32 off) served by Server.sharded as 2
+   tensor-parallel replicas of 4 rank-major ranks, 8 slots x 2048 tokens
+   each, the sublayers' allreduces on backend "pallas" under chunk_bytes
+   512 KiB: a burst at 8 live slots times the decode step (one CUDA graph;
+   median, min, max of 24; its bound; the ring rows' launches and device
+   ms a step; 1 host sync a step and 1 a prefill), then lm_serving's trace
+   under the wall clock (rows 11 and 8) and its first 8 requests with
+   pallas_bidirectional (rows 12 and 7): tokens/s, TTFT and ITL p50 / p99,
+   peak memory.  Checks: the TP logits against the dense oracle
+   (models.oracle) within 1e-4 of the largest; every greedy stream against
+   the oracle and against offline tp_generate (a token may differ only
+   under a top-2 margin below that error); sampled streams bitwise on 4
+   slots; speculation and a prefix-cache hit bitwise to the plain
+   streams; both replicas served, one plan row each; every ring row
+   launched bitwise to the plain ring; pp_generate over 4 stages (8 rows,
+   prompt 128, 64 steps) against the oracle; generate_parallel of the
+   moe_ep model at float32 (dcn 2 x ici 2) against each row alone with all
+   experts local, and of the flagship with Ulysses attention over 4 ranks
+   against its single-device generate; beam_search_parallel with one beam
+   equal to greedy; then the examples parallel_serving (8 ranks on the
+   ring) and moe_generate (dcn 2 x ici 2, 150 steps) to their JAX
+   assertions;
+18. tree verbs phase: collectives_bench.py's 64-leaf float32 / bfloat16
    tree at 1 and 16 MiB, allreduce_in_axis and reduce_scatter_in_axis
    across the NCCL world of one and the rank-major fused reduce-scatter of
    4 ranks on "pallas", per leaf (64 launches) and fused (2), bitwise
    equal, timed;
-18. bus-bandwidth phase: the allreduce (rows 11 / 12 at 64 KiB-16 MiB,
+19. bus-bandwidth phase: the allreduce (rows 11 / 12 at 64 KiB-16 MiB,
    8 / 7 at 64 MiB a rank, and the stock route) and the allgather (rows
    14 / 10, stock) of 4 ranks rank-major, ms, algbw and busbw
    (collectives_bench.py's formulas), each against the plain ring; the
    hops are device copies on one card;
-19. two-level phase (hier_dp, the main path of the two-level slice):
+20. two-level phase (hier_dp, the main path of the two-level slice):
    ResNet-50 of phase 9 with its 4 ranks as a dcn 2 x ici 2 grid,
    backend "hierarchical", int8 error feedback, the ring per node;
-20. parameter-server phase (downpour_ps, the main path of the
+21. parameter-server phase (downpour_ps, the main path of the
    parameter-server slice): BASELINE config 4, AlexNet async downpour at
    full width (224 x 224, 1000 classes, 62,378,344 float32 parameters, a
    249.5 MB flat vector), 2 worker threads on their own streams sharing
@@ -262,14 +287,14 @@ JAX package.  In order it:
    checkpoint.save_async writes a fresh
    center and worker 0's Adam state (f: restored bitwise after; write
    seconds and MB/s);
-21. examples phase: the port's mnist_sequential, mnist_allreduce,
+22. examples phase: the port's mnist_sequential, mnist_allreduce,
    cifar_resnet20 (ZeRO 0 and 3) and mnist_async_allreduce (4 buckets in
    the world of one; overlapped, 4 ranks rank-major on the ring), then
    mnist_downpour, mnist_easgd, alexnet_downpour (their defaults) and
    checkpoint_resume in-process on the card, each to its bar (MNIST >
    0.9, CIFAR > 0.85, AlexNet > 2 / 10, the resumed run's final loss
    below its loss at the crash);
-22. prints the kernels' summary line (each kernel's launches summed over
+23. prints the kernels' summary line (each kernel's launches summed over
    the main paths, and by path), then {"ok": true, "device": ...}.
 
 Each phase prints one JSON line.  Any failed check raises and the script
@@ -693,6 +718,29 @@ SERVE_SPEC_K = 4
 SERVE_PREFIX, SERVE_TAIL, SERVE_PREFIX_REQS, SERVE_PREFIX_BLOCK = \
     512, 64, 4, 128
 SERVE_REUSE_STEPS = 32  # (c): decode steps on the reused and the fresh row
+
+# The mesh-parallel serving slice (parallel_serving): the init_tp_lm layout
+# at the flagship's widths (V 32768, D 2048, depth 8, 16 heads of 128, MLP
+# 4x; seed weights, float32, TF32 off) served by Server.sharded: PSV_REPLICAS
+# tensor-parallel replicas of PSV_TP rank-major ranks, PSV_SLOTS slots of
+# LM["max_len"] tokens each (16 slots in all, lm_serving's count), the
+# sublayers' allreduces on backend "pallas", on lm_serving's trace.
+# chunk_bytes PSV_CHUNK_BYTES maps a decode step's sums (8 x 2048 float32 a
+# rank) onto the resident rows 11 / 12 and a prefill above 256 tokens onto
+# the chunked rows 8 / 7 (7 above 512 tokens, pallas_bidirectional).
+PSV_TP, PSV_REPLICAS, PSV_SLOTS = 4, 2, 8
+PSV_CHUNK_BYTES = 512 << 10
+PSV_BIDIR_REQUESTS = 8  # the trace's first requests, bidirectional ring
+PSV_SPEC_REQUESTS = 8   # the trace's first requests, with speculation
+PSV_PP = dict(stages=4, batch=8, prompt=128, steps=64)  # (b)
+PSV_GP = dict(batch=4, prompt=128, steps=32)  # (c): MoE and Ulysses
+PSV_PATH_KERNELS = ("ring_allreduce", "ring_allreduce_chunked",
+                   "ring_allreduce_bidir", "ring_allreduce_bidir_chunked")
+PSV_SAMPLED_CHECKED = 8  # sampled requests decoded again on 4 slots
+# The slice's examples in-process on the card, to JAX's assertions.
+PSV_EXAMPLES = (("parallel_serving", ("--devices", "8", "--backend",
+                                     "pallas")),
+               ("moe_generate", ("--devices", "4", "--dcn", "2")))
 
 SOURCES = {
     "flash_fwd": ("torchmpi_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -6062,6 +6110,525 @@ def lm_serving_phase(torch, mpi, ops, dev):
     torch.cuda.empty_cache()
 
 
+def _ps_judge(torch, logits_fn, rs, streams, err):
+    """Each request's stream against ``streams`` (its reference tokens):
+    at the first difference, the reference's top-2 margin there (from
+    ``logits_fn(tokens) -> [T, V]`` on the prompt and the reference's
+    prefix); a margin above ``err`` is a failure, one under it a report."""
+    out = []
+    for r in rs:
+        got, ref = list(r.tokens), list(streams[r.rid])
+        if got == ref:
+            continue
+        j = next((i for i, (a, b) in enumerate(zip(got, ref)) if a != b),
+                 min(len(got), len(ref)))
+        seq = np.concatenate([np.asarray(r.prompt), ref[:j]]).astype(
+            np.int64)
+        m = float(_top2_margin(torch, logits_fn(seq)[-1]))
+        out.append({"rid": r.rid, "at": j, "margin": m,
+                    "above_err": m > err})
+    return out
+
+
+def _ps_oracle_check(torch, oracle, params, rs, err):
+    """(a): every greedy stream against the dense oracle, teacher-forced on
+    the stream itself (one full forward a request): each position's token
+    must be the oracle's argmax unless the oracle's top-2 margin there is
+    under ``err``.  Returns the positions that differ (with margins)."""
+    import numpy as np
+
+    out = []
+    for r in rs:
+        seq = np.concatenate([np.asarray(r.prompt), r.tokens[:-1]])
+        lg = oracle.dense_logits(params, seq[None].astype(np.int64),
+                                 LM["num_heads"])[0, len(r.prompt) - 1:]
+        arg = lg.argmax(-1).cpu().numpy()
+        diff = np.nonzero(arg != np.asarray(r.tokens))[0]
+        if diff.size:
+            margin = _top2_margin(torch, lg[diff])
+            out += [{"rid": r.rid, "at": int(j), "margin": float(m),
+                     "above_err": float(m) > err}
+                    for j, m in zip(diff, margin.tolist())]
+        del lg
+    return out
+
+
+def parallel_serving_phase(torch, mpi, ops, dev):
+    """The mesh-parallel serving slice's main path: the init_tp_lm tree at the
+    flagship's widths (PSV_*: seed weights, float32, TF32 off) served by
+    ``Server.sharded(tp=PSV_TP, replicas=PSV_REPLICAS, slots=PSV_SLOTS,
+    slot_tokens=2048, backend="pallas")`` rank-major on the card, on
+    _serve_trace's Poisson trace under the wall clock (the sublayers' sums
+    on rows 11 and 8 under chunk_bytes PSV_CHUNK_BYTES; then the trace's
+    first PSV_BIDIR_REQUESTS requests with pallas_bidirectional, rows 12
+    and 7).  First a burst at PSV_SLOTS live slots on one replica measures
+    the decode step (median, min, max; the ring rows' launches and device
+    ms a step; 1 host sync a step and 1 a prefill).  Every kernel counter
+    is set to 0 just before the two traces and read just after.  Checks,
+    each raising: (a) the TP logits of SERVE_CHECKED greedy requests (the
+    decode path, teacher-forced) against ``oracle.dense_logits`` within
+    SERVE_LOGIT_RTOL x max |ref|; every greedy stream of both traces
+    against the oracle and against the offline ``tp_generate`` of its
+    prompt alone, a difference allowed only at a top-2 margin under that
+    error; PSV_SAMPLED_CHECKED sampled streams bitwise on 4 slots in
+    reversed arrival order; speculation (K SERVE_SPEC_K) and a prefix-cache
+    hit bitwise to the plain streams; both replicas served and each has its
+    plan row; (b) ``pp_generate`` over PSV_PP's 4 stages against the oracle
+    (the margin rule), ms a token; (c) ``generate_parallel`` of the moe_ep
+    model at float32 (EP_LM on dcn 2 x ici 2) against each row decoded
+    alone with all experts local, and of the flagship with Ulysses
+    attention (MHA) over 4 ranks against the same weights' single-device
+    ``generate``, ``beam_search_parallel`` with one beam equal to greedy
+    for both, then PSV_EXAMPLES to their JAX assertions; (d) every ring row
+    the traces launched, tapped on a prefill and a decode step of the same
+    stacks, bitwise to the plain ring.  Returns each kernel's launches."""
+    import gc
+    import importlib
+
+    import numpy as np
+
+    from torchmpi_tpu_torch import serving
+
+    tpg = importlib.import_module("torchmpi_tpu_torch.models.tp_generate")
+    ppg = importlib.import_module("torchmpi_tpu_torch.models.pp_generate")
+    oracle = importlib.import_module("torchmpi_tpu_torch.models.oracle")
+    gen = importlib.import_module("torchmpi_tpu_torch.models.generate")
+    ring = ops["ring"]
+    t_phase = time.perf_counter()
+    secs, t_mark = {}, [t_phase]
+
+    def mark(name):
+        now = time.perf_counter()
+        secs[name] = now - t_mark[0]
+        t_mark[0] = now
+
+    H, L = LM["num_heads"], LM["max_len"]
+    sharded = dict(tp=PSV_TP, num_heads=H, slot_tokens=L, backend="pallas")
+    before = mpi.config()
+    mpi.set_config(chunk_bytes=PSV_CHUNK_BYTES, pallas_bidirectional=False)
+    params = tpg.init_tp_lm(torch.Generator(dev).manual_seed(SEED + 50),
+                            vocab=LM["vocab"], embed=LM["embed"],
+                            depth=LM["depth"], num_heads=H, device=dev)
+    n_params = sum(t.numel() for t in mpi._tree.leaves(params))
+    out = {"phase": "parallel_serving", "tp": PSV_TP,
+           "replicas": PSV_REPLICAS, "slots": PSV_SLOTS, "slot_tokens": L,
+           "params": n_params, "chunk_bytes": PSV_CHUNK_BYTES}
+
+    # The burst: one replica, PSV_SLOTS requests admitted, then decode
+    # steps at PSV_SLOTS live slots.
+    make, sampled, _ = _serve_trace(np, serving, 1.0)
+    srv = serving.Server.sharded(params, replicas=1, slots=PSV_SLOTS,
+                                 **sharded)
+    eng = srv.router.replicas[0]
+    syncs = {}
+    for i, r in enumerate(make()[:PSV_SLOTS]):
+        r = serving.Request(f"b{i}", r.prompt, max_new=SERVE_BURST_STEPS + 8)
+        if i == 1:
+            syncs["prefill"] = count_host_syncs(torch, lambda: eng.admit(r))
+        else:
+            eng.admit(r)
+    eng.step()
+    syncs["decode_step"] = count_host_syncs(torch, eng.step)
+    before_step = dict(ring.LAUNCHES)
+    eng.step()
+    step_launches = {k: v - before_step[k] for k, v in ring.LAUNCHES.items()
+                     if v != before_step[k]}
+    step_ms = []
+    for _ in range(SERVE_BURST_STEPS):
+        check(eng.active == PSV_SLOTS, "burst: a slot retired early")
+        t = time.perf_counter()
+        eng.step()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    # By kernel on the eager step (a graph's kernels are the same).
+    eng._step = eng._decode
+    rows = profile_rows(torch, eng.step)
+    ring_ms = sum(ms for k, _, ms in rows if "ring" in k)
+    check(syncs == {"prefill": 1, "decode_step": 1},
+          f"parallel_serving: host syncs {syncs}, want 1 a prefill and 1 a "
+          f"decode step")
+    unit_s = statistics.median(step_ms) / 1e3
+    # An engine and its step's bound method form a cycle: only the
+    # collector frees its stacks and pool.
+    del srv, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    D = LM["embed"]
+    w_bytes = 4 * (LM["depth"] * 12 * D * D + D * LM["vocab"])
+    cache_bytes = 2 * LM["depth"] * PSV_SLOTS * L * D * 4
+    out["burst"] = {
+        "step_ms": {"median": statistics.median(step_ms),
+                    "min": min(step_ms), "max": max(step_ms)},
+        "step_bound_ms": (w_bytes + cache_bytes) / PEAK_HBM_BYTES * 1e3,
+        "step_bound_bytes": w_bytes + cache_bytes,
+        "ring_launches_per_step": step_launches,
+        "ring_device_ms_per_step": ring_ms,
+        "step_device_ms": sum(ms for _, _, ms in rows),
+        "top_kernels": [{"kernel": k[:90], "calls": c, "ms": ms}
+                        for k, c, ms in rows[:8]],
+        "host_syncs": syncs}
+    mark("burst")
+
+    # The main path: the trace over both replicas (a tick steps both), then
+    # its first requests again with the bidirectional ring.
+    make, sampled, gap_s = _serve_trace(np, serving, unit_s * PSV_REPLICAS)
+    for mod in ops.values():
+        mod.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9  # the tree, and earlier
+    srv = serving.Server.sharded(params, replicas=PSV_REPLICAS,
+                                 slots=PSV_SLOTS, **sharded)
+    built_gb = torch.cuda.memory_allocated() / 1e9
+    reqs = make()
+    t = time.perf_counter()
+    done = srv.run_trace(reqs)
+    trace_s = time.perf_counter() - t
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches_a = {n: c for n, c in ring.LAUNCHES.items() if c}
+    st = srv.router.replicas[0]._stack  # replica tp0's stacks, for (a), (d)
+    # (set_config re-plans everything: the rows are read first.)
+    plan_rows = [d for d in mpi.planner.describe()
+                 if d["kind"] == "serving"]
+    mpi.set_config(pallas_bidirectional=True)
+    srv_b = serving.Server.sharded(params, replicas=PSV_REPLICAS,
+                                   slots=PSV_SLOTS, **sharded)
+    reqs_b = make()[:PSV_BIDIR_REQUESTS]
+    srv_b.run_trace(reqs_b)
+    mpi.set_config(pallas_bidirectional=False)
+    launches = {n: c for mod in ops.values()
+                for n, c in mod.LAUNCHES.items() if c}
+    vector = {n: c for n, c in ring.VECTOR_LAUNCHES.items() if c}
+    check(len(done) == SERVE_REQUESTS and all(r.error is None for r in reqs),
+          "parallel_serving: a request failed")
+    served = {r.replica for r in reqs}
+    check(served == {f"tp{i}" for i in range(PSV_REPLICAS)},
+          f"parallel_serving: replicas that served: {served}")
+    check(len(plan_rows) >= PSV_REPLICAS and all(
+        d["topology"] == f"model={PSV_TP}" for d in plan_rows),
+        f"parallel_serving: plan rows {plan_rows}")
+    check(not any(k.startswith(("flash", "xent")) for k in launches),
+          f"parallel_serving: a flash or xent kernel launched: {launches}")
+    for k in PSV_PATH_KERNELS:
+        check(launches.get(k, 0) > 0,
+              f"parallel_serving: {k} launched no time: {launches}")
+    plain = {r.rid: list(r.tokens) for r in reqs}
+    s_ = srv.last_stats
+    trace = {"tokens": s_["tokens"], "busy_s": s_["busy_s"],
+             "tokens_per_s": s_["tokens"] / s_["busy_s"],
+             "ttft_ms": {k: (v * 1e3 if isinstance(v, float) else v)
+                         for k, v in _pcts([r.ttft_s for r in reqs]).items()},
+             "itl_ms": {k: (v * 1e3 if isinstance(v, float) else v)
+                        for k, v in _pcts(s_["itl_s"]).items()},
+             "ticks": s_["ticks"], "wall_s": trace_s,
+             "by_replica": {n: sum(r.replica == n for r in reqs)
+                            for n in sorted(served)}}
+    # The reckoning: each replica's stacks (the blocks and the head once,
+    # the embedding table on every rank) and pool cache, against what the
+    # build allocated (the rest is the captured graph's pool); the peak
+    # also holds the caller's tree and what earlier phases keep.
+    stack_b = 4 * (n_params + (PSV_TP - 1) * LM["vocab"] * D)
+    mem = {"peak_gb": peak_gb, "before_build_gb": base_gb,
+           "after_build_gb": built_gb,
+           "replicas_gb": built_gb - base_gb,
+           "replicas_reckoned_gb": PSV_REPLICAS * (stack_b + cache_bytes)
+           / 1e9,
+           "peak_over_build_gb": peak_gb - built_gb,
+           "tree_gb": 4 * n_params / 1e9, "replica_stacks_gb": stack_b / 1e9,
+           "replica_pool_gb": cache_bytes / 1e9}
+    out.update(trace=trace, memory=mem, launches=launches,
+               launches_default_config=launches_a, vector_launches=vector,
+               unit_seconds=unit_s, mean_gap_s=gap_s)
+    mark("trace")
+
+    # (a) The TP logits (the decode path over a whole stream at once)
+    # against the oracle's, then every greedy stream against the oracle
+    # and against offline tp_generate, by the margin rule.
+    greedy = [r for r in reqs if r.temperature is None]
+    a_rows, a_err, a_ref = [], 0.0, 0.0
+    with mpi.communicator("tp0"):
+        for r in greedy[:SERVE_CHECKED]:
+            seq = torch.as_tensor(np.concatenate(
+                [r.prompt, r.tokens[:-1]]), device=dev)
+            cache = st.zero_cache(1, seq.numel())
+            x = st.decode(cache, seq[None],
+                          torch.zeros(1, dtype=torch.long, device=dev))
+            got = st.logits(x[:, 0])[r.prompt.size - 1:]
+            ref = oracle.dense_logits(params, seq[None], H)[
+                0, r.prompt.size - 1:]
+            err, top = float((got - ref).abs().max()), float(
+                ref.abs().max())
+            a_rows.append({"rid": r.rid, "max_abs_err": err,
+                           "max_abs_ref": top})
+            a_err, a_ref = max(a_err, err), max(a_ref, top)
+            del cache, x, got, ref
+    check(a_err <= SERVE_LOGIT_RTOL * a_ref,
+          f"(a) TP logits {a_err} off the oracle's, > {SERVE_LOGIT_RTOL} x "
+          f"{a_ref}")
+    greedy_b = [r for r in reqs_b if r.temperature is None]
+    a_oracle = _ps_oracle_check(torch, oracle, params, greedy + greedy_b,
+                                a_err)
+    check(not any(m["above_err"] for m in a_oracle),
+          f"(a) greedy streams differ from the oracle: {a_oracle}")
+    mark("a oracle")
+    offline = {}
+    with mpi.communicator("tp0"):
+        stacks = tpg.shard_tp_lm_rank_major(params, PSV_TP, "model")
+        for r in greedy:
+            offline[r.rid] = tpg.tp_generate_rank_major(
+                params, r.prompt[None], r.max_new, axis="model",
+                num_heads=H, backend="pallas", sharded=stacks)[
+                0, r.prompt.size:].tolist()
+        del stacks
+    a_offline = _ps_judge(
+        torch, lambda q: oracle.dense_logits(params, q[None], H)[0],
+        greedy, offline, a_err)
+    check(not any(m["above_err"] for m in a_offline),
+          f"(a) greedy streams differ from offline tp_generate: "
+          f"{a_offline}")
+    out["a"] = {"logits_max_abs_err": a_err, "logits_max_abs_ref": a_ref,
+                "logits_rel_err": a_err / a_ref, "requests": a_rows,
+                "greedy_streams": len(greedy) + len(greedy_b),
+                "oracle_differences": a_oracle,
+                "offline_differences": a_offline}
+    del srv, srv_b
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("a offline")
+
+    # The sampled streams on 4 slots of one replica in reversed arrival
+    # order; speculation; a prefix-cache hit: bitwise.
+    rs = [r for r in make() if r.temperature is not None][
+        :PSV_SAMPLED_CHECKED]
+    arr = [r.arrival_s for r in rs]
+    for r, a in zip(rs, arr[::-1]):
+        r.arrival_s = a
+    serving.Server.sharded(params, replicas=1, slots=4, **sharded
+                           ).run_trace(rs)
+    layout_diff = [r.rid for r in rs if r.tokens != plain[r.rid]]
+    check(not layout_diff,
+          f"sampled streams differ on 4 slots: {layout_diff}")
+    srv_e = serving.Server.sharded(params, replicas=PSV_REPLICAS,
+                                   slots=PSV_SLOTS, spec_k=SERVE_SPEC_K,
+                                   **sharded)
+    e_reqs = make()[:PSV_SPEC_REQUESTS]
+    srv_e.run_trace(e_reqs)
+    e_diff = [r.rid for r in e_reqs if r.tokens != plain[r.rid]]
+    e_stats = [dict(e.stats) for e in srv_e.router.replicas]
+    check(not e_diff, f"speculative streams differ: {e_diff}")
+    del srv_e
+    rng = np.random.RandomState(SEED + 5)
+    shared = rng.randint(0, LM["vocab"], size=SERVE_PREFIX)
+    r2 = np.random.RandomState(SEED + 6)
+    tails = [r2.randint(0, LM["vocab"], size=SERVE_TAIL)
+             for _ in range(SERVE_PREFIX_REQS)]
+    streams, hits = [], 0
+    for cap in (0, 64):
+        srv_f = serving.Server.sharded(
+            params, replicas=1, slots=4, prefix_cache=cap,
+            prefix_block=SERVE_PREFIX_BLOCK, **sharded)
+        f_reqs = [serving.Request(
+            f"f{i}", np.concatenate([shared, tails[i]]), max_new=32,
+            arrival_s=0.0,
+            **(dict(SERVE_SAMPLING, seed=7 + i) if i % 2 else {}))
+            for i in range(SERVE_PREFIX_REQS)]
+        srv_f.run_trace(f_reqs)
+        streams.append({r.rid: r.tokens for r in f_reqs})
+        hits = srv_f.router.replicas[0].stats["prefix_hits"]
+        del srv_f
+    check(streams[0] == streams[1] and hits > 0,
+          f"prefix hits {hits}; streams equal {streams[0] == streams[1]}")
+    gc.collect()
+    out.update(sampled_layouts_bitwise=not layout_diff,
+               spec={"equal": not e_diff, "requests": PSV_SPEC_REQUESTS,
+                     "stats": e_stats},
+               prefix_hits=hits)
+    torch.cuda.empty_cache()
+    mark("layouts spec prefix")
+
+    # (d) Every ring row the traces launched, against the plain ring on the
+    # same stacks: a long and a short prefill and a decode step, under
+    # each config.
+    log = TapLog()
+    restore = tap_rank_major_routes(torch, mpi, ring, log,
+                                    ops=("allreduce_rank_major",))
+    try:
+        with mpi.communicator("tp0"):
+            for bidir in (False, True):
+                mpi.set_config(pallas_bidirectional=bidir)
+                for T in (1000, 400, 200):
+                    tok = torch.randint(0, LM["vocab"], (1, T), device=dev)
+                    st.prefill(tok, T)
+                cache = st.zero_cache(PSV_SLOTS, 64)
+                st.decode(cache, torch.randint(0, LM["vocab"],
+                                               (PSV_SLOTS, 1), device=dev),
+                          torch.arange(PSV_SLOTS, device=dev))
+                del cache
+    finally:
+        restore()
+        mpi.set_config(pallas_bidirectional=False)
+    tapped = sorted({r_ for e in log for r_ in e["rows"]})
+    tap = {"calls": len(log), "bitwise": all(e["bitwise"] for e in log),
+           "rows": tapped}
+    check(tap["bitwise"] and set(launches_a) | set(launches) <= set(tapped),
+          f"(d) ring launches vs the plain ring: {tap}")
+    out["ring_tap"] = tap
+    del log, st
+    torch.cuda.empty_cache()
+    mark("d")
+
+    # (b) PP over 4 stages against the oracle.
+    pp = PSV_PP
+    prompt = np.random.RandomState(SEED + 51).randint(
+        0, LM["vocab"], size=(pp["batch"], pp["prompt"]))
+    with mpi.communicator("pp", shape={"pp": pp["stages"]}):
+        stacks = ppg.shard_pp_lm_rank_major(params, pp["stages"], "pp")
+        kw = dict(axis="pp", num_heads=H, sharded=stacks)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        toks = ppg.pp_generate_rank_major(params, prompt, pp["steps"], **kw)
+        torch.cuda.synchronize()
+        pp_s = time.perf_counter() - t
+        del stacks
+    pp_reqs = [serving.Request(f"pp{b}", prompt[b], max_new=pp["steps"])
+               for b in range(pp["batch"])]
+    for b, r in enumerate(pp_reqs):
+        r.tokens = toks[b, pp["prompt"]:].tolist()
+    b_diff = _ps_oracle_check(torch, oracle, params, pp_reqs, a_err)
+    check(not any(m["above_err"] for m in b_diff),
+          f"(b) PP greedy streams differ from the oracle: {b_diff}")
+    out["b_pp"] = dict(pp, seconds=pp_s,
+                       ms_per_step=pp_s * 1e3 / pp["steps"],
+                       ms_per_token=pp_s * 1e3 / (pp["steps"] * pp["batch"]),
+                       ticks=pp["stages"] * (pp["prompt"] + pp["steps"]),
+                       oracle_differences=b_diff)
+    del params
+    torch.cuda.empty_cache()
+    mark("b")
+
+    # (c) generate_parallel: the moe_ep model at float32 on dcn 2 x ici 2
+    # (the batch over dcn), against each row decoded alone with all experts
+    # local; the flagship with Ulysses attention over 4 ranks against its
+    # single-device decode.  beam_search_parallel with one beam is greedy.
+    gp = PSV_GP
+    prompt = np.random.RandomState(SEED + 52).randint(
+        0, LM["vocab"], size=(gp["batch"], gp["prompt"]))
+    c = {}
+    mpi.set_config(dcn_size=EP_GRID[0])
+    try:
+        n = EP_GRID[0] * EP_GRID[1]
+        moe, _ = _ep_model(torch, mpi, dev, torch.float32)
+        moe.eval()
+        t = time.perf_counter()
+        grid = gen.generate_parallel_rank_major(moe, prompt, gp["steps"],
+                                                n=n, batch_axis="dcn")
+        torch.cuda.synchronize()
+        c["moe_seconds"] = time.perf_counter() - t
+        beam1 = gen.beam_search_parallel_rank_major(
+            moe, prompt, gp["steps"], n=n, beams=1, batch_axis="dcn")
+        alone = _ep_model(torch, mpi, dev, torch.float32,
+                          moe_experts_per_device=n * EP_LM[
+                              "moe_experts_per_device"] // EP_GRID[0],
+                          moe_axis_size=1)[0]
+        alone.load_state_dict(moe.state_dict())
+        alone.eval()
+        del moe
+        one = torch.cat([gen.generate_parallel(alone, prompt[b:b + 1],
+                                               gp["steps"])
+                         for b in range(gp["batch"])])
+        rs = [serving.Request(f"m{b}", prompt[b], max_new=gp["steps"])
+              for b in range(gp["batch"])]
+        for b, r in enumerate(rs):
+            r.tokens = grid[b, gp["prompt"]:].tolist()
+
+        def alone_logits(q):
+            with torch.no_grad(), _LocalAttention(alone):
+                return alone(torch.as_tensor(q, device=dev)[None])[0]
+
+        refs = {r.rid: one[b, gp["prompt"]:].tolist()
+                for b, r in enumerate(rs)}
+        c["moe_vs_alone"] = _ps_judge(torch, alone_logits, rs, refs, a_err)
+        for b, r in enumerate(rs):
+            r.tokens = beam1[b, gp["prompt"]:].tolist()
+        c["moe_beam1_vs_greedy"] = _ps_judge(
+            torch, alone_logits, rs,
+            {r.rid: grid[b, gp["prompt"]:].tolist()
+             for b, r in enumerate(rs)}, a_err)
+        del alone, grid, one, beam1
+        torch.cuda.empty_cache()
+    finally:
+        mpi.set_config(dcn_size=before.dcn_size)
+    uly_cfg = dict(LM, num_kv_heads=H)
+    g = torch.Generator(device=dev).manual_seed(SEED + 53)
+    uly = mpi.models.TransformerLM(**uly_cfg, attn_impl="ulysses",
+                                   seq_axis="ici", device=dev, generator=g)
+    dense = mpi.models.TransformerLM(**uly_cfg, attn_impl="local",
+                                     device=dev)
+    dense.load_state_dict(uly.state_dict())
+    uly.eval()
+    dense.eval()
+    mpi.set_config(dcn_size=1)
+    try:
+        t = time.perf_counter()
+        grid = gen.generate_parallel_rank_major(uly, prompt, gp["steps"],
+                                                n=PSV_TP)
+        torch.cuda.synchronize()
+        c["ulysses_seconds"] = time.perf_counter() - t
+        beam1 = gen.beam_search_parallel_rank_major(uly, prompt, gp["steps"],
+                                                    n=PSV_TP, beams=1)
+        cache_heads = gen._Decoder(uly, 1, (1, PSV_TP)).cache.k[0].shape[2]
+    finally:
+        mpi.set_config(dcn_size=before.dcn_size)
+    single = mpi.models.generate(dense, prompt, gp["steps"])
+
+    def dense_logits(q):
+        with torch.no_grad():
+            return dense(torch.as_tensor(q, device=dev)[None])[0]
+
+    rs = [serving.Request(f"u{b}", prompt[b], max_new=gp["steps"])
+          for b in range(gp["batch"])]
+    for b, r in enumerate(rs):
+        r.tokens = grid[b, gp["prompt"]:].tolist()
+    c["ulysses_vs_single"] = _ps_judge(
+        torch, dense_logits, rs,
+        {r.rid: single[b, gp["prompt"]:].tolist()
+         for b, r in enumerate(rs)}, a_err)
+    for b, r in enumerate(rs):
+        r.tokens = beam1[b, gp["prompt"]:].tolist()
+    c["ulysses_beam1_vs_greedy"] = _ps_judge(
+        torch, dense_logits, rs,
+        {r.rid: grid[b, gp["prompt"]:].tolist() for b, r in enumerate(rs)},
+        a_err)
+    c["ulysses_cache_heads_a_rank"] = int(cache_heads)
+    del uly, dense, grid, beam1, single
+    torch.cuda.empty_cache()
+    out["c_generate_parallel"] = dict(gp, **c)
+    for k in ("moe_vs_alone", "moe_beam1_vs_greedy", "ulysses_vs_single",
+              "ulysses_beam1_vs_greedy"):
+        check(not any(m["above_err"] for m in c[k]),
+              f"(c) {k}: {c[k]}")
+    check(c["ulysses_cache_heads_a_rank"] == H // PSV_TP,
+          f"(c) the Ulysses cache holds {cache_heads} heads a rank")
+    mark("c")
+
+    # The examples, each raising on a miss of its JAX assertions.
+    examples = []
+    for name, argv in PSV_EXAMPLES:
+        mod = importlib.import_module(f"torchmpi_tpu_torch.examples.{name}")
+        t = time.perf_counter()
+        res = mod.main(list(argv) + ["--device", dev.type])
+        examples.append({"example": name, "argv": list(argv),
+                         "seconds": time.perf_counter() - t,
+                         **{k: res[k] for k in ("greedy", "beam", "loss",
+                                                "ranks") if k in res}})
+    out["examples"] = examples
+    mark("examples")
+    mpi.set_config(chunk_bytes=before.chunk_bytes,
+                   pallas_bidirectional=before.pallas_bidirectional)
+    out.update(seconds_by_part=secs, seconds=time.perf_counter() - t_phase)
+    emit(out)
+    return {k: v for k, v in launches.items() if k in PSV_PATH_KERNELS}
+
+
 def main() -> int:
     import torch
 
@@ -6197,6 +6764,12 @@ def main() -> int:
         # the table: rows 1-14 counted, 0 each).
         lm_serving_phase(torch, mpi, dict(ops, ring=ring), dev)
         torch.cuda.empty_cache()
+        # The main path of slice 24: the flagship's widths served by two
+        # tensor-parallel replicas of 4 rank-major ranks (rows 11, 8, 12
+        # and 7 on the sublayers' sums), PP decode, generate_parallel.
+        ps_launches = parallel_serving_phase(torch, mpi,
+                                             dict(ops, ring=ring), dev)
+        torch.cuda.empty_cache()
         tree_verbs_phase(torch, mpi, ring, dev)
         torch.cuda.empty_cache()
         busbw_launches = allreduce_busbw_phase(torch, mpi, ring, dev)
@@ -6241,7 +6814,9 @@ def main() -> int:
                 **({"moe_ep": ep_launches[name]}
                    if ep_launches.get(name) else {}),
                 **({"megatron_3d": mg_launches[name]}
-                   if mg_launches.get(name) else {})}
+                   if mg_launches.get(name) else {}),
+                **({"parallel_serving": ps_launches[name]}
+                   if ps_launches.get(name) else {})}
 
     kernels = [{**{k: dict(row, launches=sum(by_path(
                     row["name"]).values()))[k] for k in keys},

@@ -185,7 +185,7 @@ def test_generate_refusals():
     uly = TransformerLM(vocab=8, embed=16, depth=1, num_heads=2,
                         head_dim=8, max_len=16, attn_impl="ulysses",
                         seq_axis="ici", device="cpu")
-    with pytest.raises(ValueError, match=r"queue A, item 9 \(b\)"):
+    with pytest.raises(ValueError, match="generate_parallel"):
         pgen.generate(uly, np.zeros((1, 2), np.int32), 2)
     with pytest.raises(ValueError, match="init_cache"):
         TransformerLM(**LEARNED, decode=True, device="cpu")(

@@ -6,7 +6,13 @@ flatlines), ``swa_gqa_lm`` (RoPE, window 8, 2 kv heads: decoded
 continuations over 80%) and ``continuous_serving`` (24 requests over 2
 replicas x 4 slots, every stream token-exact against offline
 ``generate``).  The two training examples run 100 Adam steps here, where
-their loss is already below 0.01, instead of their default 250."""
+their loss is already below 0.01, instead of their default 250.  The
+mesh-parallel ones: ``parallel_serving`` (dense == TP == PP greedy, EOS
+freeze, TP beam(1) == greedy, beam 3; rank-major on 4 and 8 ranks and a
+world of one) and ``moe_generate`` (the EP MoE LM trained rank-major on
+dcn 2 x ici 2, decoded by ``generate_parallel`` and 3-beam
+``beam_search_parallel``: a short run here, JAX's full 150 steps to its
+0.8 rule bar under ``-m slow``)."""
 
 import importlib
 
@@ -45,3 +51,25 @@ def test_continuous_serving_example_token_exact():
     out = _main("continuous_serving", [])
     assert out["tokens"] > 0 and set(out["replicas"]) == {"replica0",
                                                           "replica1"}
+
+
+@pytest.mark.parametrize("argv", [["--devices", "4"], ["--devices", "8"],
+                                  []], ids=["rank-major-4", "rank-major-8",
+                                            "world-of-one"])
+def test_parallel_serving_example_agrees(argv):
+    out = _main("parallel_serving", argv)
+    assert out["ranks"] == (int(argv[1]) if argv else 1)
+    assert out["tokens"].shape == (8, 12) and out["beam3"].shape == (8, 12)
+
+
+def test_moe_generate_example_runs():
+    out = _main("moe_generate", ["--devices", "4", "--dcn", "2",
+                                 "--steps", "3"])
+    assert out["tokens"].shape == (4, 12)
+    assert 0.0 <= out["greedy"] <= 1.0 and 0.0 <= out["beam"] <= 1.0
+
+
+@pytest.mark.slow
+def test_moe_generate_example_follows_the_rule():
+    out = _main("moe_generate", ["--devices", "4", "--dcn", "2"])
+    assert out["greedy"] > 0.8 and out["beam"] > 0.8

@@ -149,13 +149,15 @@ def test_apply_rope_matches_jax(per_row):
 
 
 def test_later_slices_raise():
-    # Decode runs (tests/test_torch_generate.py); the decoders it still
-    # refuses are JAX's ring refusal and the mesh-parallel ones of queue A,
-    # item 9 (b).
+    # Decode runs (tests/test_torch_generate.py); a Ulysses model decodes
+    # under the mesh-parallel decoders (tests/test_torch_generate_parallel
+    # .py), and plain generate keeps JAX's refusal, pointing there.  Ring
+    # impls have no decode.
     mha = {k: v for k, v in CFG.items() if k != "num_kv_heads"}
-    with pytest.raises(ValueError, match=r"queue A, item 9 \(b\)"):
-        TransformerLM(**mha, decode=True, attn_impl="ulysses",
-                      seq_axis="ici", device="cpu")
+    uly = TransformerLM(**mha, decode=True, attn_impl="ulysses",
+                        seq_axis="ici", device="cpu")
+    with pytest.raises(ValueError, match="generate_parallel"):
+        tmpi.models.generate(uly, torch.zeros(1, 2, dtype=torch.long), 2)
     with pytest.raises(ValueError, match="local'/'flash"):
         TransformerLM(**mha, decode=True, attn_impl="ring", seq_axis="ici",
                       device="cpu")

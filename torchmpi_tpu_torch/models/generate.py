@@ -29,9 +29,19 @@ Greedy decoding matches JAX token for token; sampled decoding matches its
 distribution, and bitwise only serving against serving.
 
 Ties: ``lax.top_k`` gives the lower index first; the beams take the top k
-of a stable descending sort, which does the same.  The mesh-parallel
-decoders (``generate_parallel``, ``beam_search_parallel``, MoE and
-Ulysses decode) are ROADMAP queue A, item 9 (b).
+of a stable descending sort, which does the same.
+
+The mesh-parallel decoders (JAX :384, :472): :func:`generate_parallel` and
+:func:`beam_search_parallel` decode a model with ``moe_axis`` (each
+step's tokens through the expert layer) or Ulysses attention under
+``seq_axis`` (the head-sharded cache), the prompt's rows optionally
+sharded over ``batch_axis``, in the process world (this rank's shard,
+the result gathered) and rank-major (``*_rank_major``: every rank's rows
+on one device, the ranks folded into the cache's rows).  A shard's rows
+draw from seeds folded with the shard's index (JAX's ``fold_in(rng,
+axis_index)``), so the shards do not sample in lockstep.  The
+tensor- and pipeline-parallel decoders are :mod:`.tp_generate` and
+:mod:`.pp_generate`.
 """
 
 from __future__ import annotations
@@ -180,10 +190,11 @@ def _check_prompt(model, prompt: torch.Tensor, steps: int) -> None:
             f"{model.max_len}")
 
 
-def _check_model(model) -> None:
+def _check_model(model, entry: Optional[str] = "generate") -> None:
     from .transformer import check_decode
 
-    check_decode(model.attn_impl, model.seq_axis, model.moe_axis)
+    check_decode(model.attn_impl, model.seq_axis, model.moe_axis,
+                 entry=entry)
 
 
 def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -202,9 +213,12 @@ class _Graphed:
     captured outputs (overwritten by the next call).  Capturing runs
     ``fn`` twice on ``example`` first (cuBLAS's and the allocator's
     warm-up): a decode step writes into its cache there, so capture before
-    the cache holds anything live."""
+    the cache holds anything live.  ``counters``: dicts of launch counts
+    (a kernel module's ``LAUNCHES``) that the capture's pass through the
+    wrappers raised; every replay launches those kernels again and adds
+    the same amounts."""
 
-    def __init__(self, fn, *example):
+    def __init__(self, fn, *example, counters=()):
         self.inputs = [t.clone() for t in example]
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -212,24 +226,35 @@ class _Graphed:
             for _ in range(2):
                 fn(*self.inputs)
         torch.cuda.current_stream().wait_stream(side)
+        before = [dict(c) for c in counters]
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
             self.outputs = fn(*self.inputs)
+        # The capture pass recorded the kernels without running them.
+        self.counts = []
+        for c, b in zip(counters, before):
+            delta = {k: c[k] - b.get(k, 0) for k in c if c[k] != b.get(k, 0)}
+            for k, v in delta.items():
+                c[k] -= v
+            self.counts.append((c, delta))
 
     def __call__(self, *args):
         for dst, src in zip(self.inputs, args):
             dst.copy_(src)
         self.graph.replay()
+        for c, delta in self.counts:
+            for k, v in delta.items():
+                c[k] += v
         return self.outputs
 
 
-def graphed(fn, *example):
+def graphed(fn, *example, counters=()):
     """``fn`` replayed from a CUDA graph when its inputs are on the card
     (:class:`_Graphed`: a fixed-shape decode step launches as one graph
     instead of ~900 kernels from the host); ``fn`` itself on the CPU."""
     if example[0].device.type != "cuda":
         return fn
-    return _Graphed(fn, *example)
+    return _Graphed(fn, *example, counters=counters)
 
 
 def _as_tokens(model, prompt) -> torch.Tensor:
@@ -252,6 +277,83 @@ def _row_seeds(seed: Union[int, Sequence[int]], B: int,
     return to_device(np.asarray(seeds, np.int64), device)
 
 
+def _fold_seeds(seeds: torch.Tensor, shard: torch.Tensor) -> torch.Tensor:
+    """Row seeds folded with their batch shard's index (JAX's
+    ``fold_in(rng, axis_index(batch_axis))``): [R] int64 each."""
+    return _mix32((seeds & _M32) ^ _mul32((shard.long() + 1) & _M32,
+                                          0x2545F491))
+
+
+class _Decoder:
+    """The decode forwards of one generation over a fresh cache of
+    ``rows`` rows: one model's rows (one device, or this rank's in the
+    process world), or with ``grid`` (n_dcn, n_ici) every rank's rows in
+    rank order, through :meth:`TransformerLM.decode_rank_major` (a
+    Ulysses model's cache holds ``num_heads / n`` heads)."""
+
+    def __init__(self, model, rows: int, grid=None):
+        self.model, self.grid = model, grid
+        attn = model.blocks[0].attn
+        heads = (attn.num_heads // attn._seq_ranks(grid)[0]
+                 if attn._ulysses else None)
+        self.cache = model.init_cache(rows, None, heads)
+
+    def __call__(self, tok, pos, prehead: bool = False):
+        if self.grid is None:
+            return self.model(tok, pos, return_prehead=prehead,
+                              cache=self.cache)
+        out = self.model.decode_rank_major(
+            tok.view(*self.grid, -1, tok.shape[-1]), pos, self.cache,
+            prehead)
+        if prehead:
+            return out[0].reshape(-1, *out[0].shape[-2:]), out[1]
+        return out.reshape(-1, *out.shape[-2:])
+
+    def prefill(self, prompt: torch.Tensor) -> torch.Tensor:
+        """The last position's logits [R, V] of the prompt's prefill."""
+        xs, head = self(prompt, 0, prehead=True)
+        return xs[:, -1] @ head
+
+    def step(self, tok: torch.Tensor, pos) -> torch.Tensor:
+        """Logits [R, V] of one token a row at ``pos`` (an int: the
+        cache's next position; or [R] positions)."""
+        return self(tok[:, None], pos)[:, 0]
+
+    def reorder(self, rows: torch.Tensor) -> None:
+        self.cache = self.cache.index_rows(rows)
+
+
+def _generate_rows(dec: _Decoder, prompt: torch.Tensor, steps: int,
+                   seeds: torch.Tensor, *, temperature: float, top_k,
+                   top_p, eos_id, graph: bool) -> torch.Tensor:
+    """The prefill, then ``steps - 1`` one-token steps (one CUDA graph
+    replay each with ``graph`` on the card); row r draws token i from
+    (seeds[r], i)."""
+    B, Tp = prompt.shape
+
+    def sample(logits, idx):
+        return _sample(logits, _sample_keys(seeds, idx), temperature, top_k,
+                       top_p).to(prompt.dtype)
+
+    def step(tok, pos):
+        """Token ``pos - Tp + 1`` of every row from its input ``tok``."""
+        return sample(dec.step(tok, pos), pos - (Tp - 1))
+
+    pos = torch.full_like(seeds, Tp)
+    if graph and steps > 1:  # captured before the prefill writes the cache
+        step = graphed(step, prompt[:, 0], pos)
+    tok = sample(dec.prefill(prompt), pos - Tp)
+    out = [prompt, tok[:, None]]
+    done = tok == eos_id if eos_id is not None else None
+    for i in range(1, steps):
+        tok = step(tok, pos + (i - 1)).clone()
+        if eos_id is not None:
+            tok = torch.where(done, eos_id, tok)
+            done = done | (tok == eos_id)
+        out.append(tok[:, None])
+    return torch.cat(out, dim=1)
+
+
 @torch.no_grad()
 def generate(model, prompt, steps: int, *, temperature: float = 0.0,
              top_k: Optional[int] = None, top_p: Optional[float] = None,
@@ -269,7 +371,9 @@ def generate(model, prompt, steps: int, *, temperature: float = 0.0,
     row, or an int s, which gives row b the seed s + b (the stream a
     serving request of that seed and prompt gets).  With ``eos_id``, rows
     that emit it stop: every later position is ``eos_id``.  Returns the
-    full [B, T_prompt + steps] sequence on the model's device."""
+    full [B, T_prompt + steps] sequence on the model's device.  A model
+    with ``moe_axis``, or Ulysses attention under ``seq_axis``, decodes
+    with :func:`generate_parallel`."""
     prompt = _as_tokens(model, prompt)
     _check_prompt(model, prompt, steps)
     _check_sampling(top_k, top_p)
@@ -277,32 +381,10 @@ def generate(model, prompt, steps: int, *, temperature: float = 0.0,
     B, Tp = prompt.shape
     if steps <= 0:
         return prompt
-    seeds = _row_seeds(seed, B, prompt.device)
-    cache = model.init_cache(B)
-
-    def sample(logits, idx):
-        return _sample(logits, _sample_keys(seeds, idx), temperature, top_k,
-                       top_p).to(prompt.dtype)
-
-    def step(tok, pos):
-        """Token ``pos - Tp + 1`` of every row from its input ``tok``."""
-        logits = model(tok[:, None], pos, cache=cache)[:, 0]
-        return sample(logits, pos - (Tp - 1))
-
-    pos = torch.full_like(seeds, Tp)
-    if steps > 1:  # captured before the prefill writes the cache
-        step = graphed(step, prompt[:, 0], pos)
-    xs, head = model(prompt, 0, return_prehead=True, cache=cache)
-    tok = sample(xs[:, -1] @ head, pos - Tp)
-    out = [prompt, tok[:, None]]
-    done = tok == eos_id if eos_id is not None else None
-    for i in range(1, steps):
-        tok = step(tok, pos + (i - 1)).clone()
-        if eos_id is not None:
-            tok = torch.where(done, eos_id, tok)
-            done = done | (tok == eos_id)
-        out.append(tok[:, None])
-    return torch.cat(out, dim=1)
+    return _generate_rows(_Decoder(model, B), prompt, steps,
+                          _row_seeds(seed, B, prompt.device),
+                          temperature=temperature, top_k=top_k, top_p=top_p,
+                          eos_id=eos_id, graph=True)
 
 
 def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -359,6 +441,37 @@ def _check_beams(model, beams: int) -> None:
         raise ValueError(f"beams {beams} exceeds vocab {model.vocab}")
 
 
+def _beam_rows(dec, prompt: torch.Tensor, steps: int, K: int,
+               eos_id: Optional[int], length_penalty: float
+               ) -> torch.Tensor:
+    """Beam search over ``dec``'s cache (JAX ``_beam_scan``): prefill on
+    B rows, tile the cache to B * K, gather it by parent each step."""
+    B, Tp = prompt.shape
+    lp0 = torch.log_softmax(dec.prefill(prompt).float(), dim=-1)
+    V = lp0.shape[-1]
+    lp, top_tok = _top_k(lp0, K)
+    top_tok = top_tok.to(prompt.dtype)
+    if steps == 1:
+        return torch.cat([prompt, top_tok[:, :1]], dim=1)
+    dec.reorder(torch.arange(B, device=prompt.device).repeat_interleave(K))
+    fin = (top_tok == eos_id if eos_id is not None
+           else torch.zeros_like(top_tok, dtype=torch.bool))
+    ln = torch.ones_like(top_tok, dtype=torch.long)
+    tok, toks, parents = top_tok, [], []
+    base = torch.arange(B, device=prompt.device)[:, None] * K
+    for i in range(steps - 1):
+        step_lp = torch.log_softmax(dec.step(tok.reshape(B * K), Tp + i)
+                                    .float(), dim=-1).reshape(B, K, V)
+        lp, tok, fin, ln, parent = _beam_expand(lp, fin, ln, step_lp,
+                                                eos_id)
+        tok = tok.to(prompt.dtype)
+        dec.reorder((base + parent).reshape(-1))
+        toks.append(tok)
+        parents.append(parent)
+    return _beam_backtrack(prompt, top_tok, toks, parents, lp, ln,
+                           length_penalty)
+
+
 @torch.no_grad()
 def beam_search(model, prompt, steps: int, *, beams: int,
                 eos_id: Optional[int] = None,
@@ -369,42 +482,190 @@ def beam_search(model, prompt, steps: int, *, beams: int,
     gather the rows by parent after each step.  With ``eos_id`` a beam
     that emits it finishes (frozen score, eos-padded suffix);
     ``length_penalty`` alpha ranks the final hypotheses by ``logprob /
-    len**alpha``.  ``beams=1`` is greedy :func:`generate`."""
+    len**alpha``.  ``beams=1`` is greedy :func:`generate`.  MoE and
+    Ulysses models search with :func:`beam_search_parallel`."""
     prompt = _as_tokens(model, prompt)
     _check_prompt(model, prompt, steps)
     _check_beams(model, beams)
-    _check_model(model)
-    B, Tp = prompt.shape
-    K = int(beams)
+    _check_model(model, "beam_search")
     if steps <= 0:
         return prompt
-    cache = model.init_cache(B)
-    xs, head = model(prompt, 0, return_prehead=True, cache=cache)
-    lp0 = torch.log_softmax((xs[:, -1] @ head).float(), dim=-1)
-    V = lp0.shape[-1]
-    lp, top_tok = _top_k(lp0, K)
-    top_tok = top_tok.to(prompt.dtype)
-    if steps == 1:
-        return torch.cat([prompt, top_tok[:, :1]], dim=1)
-    cache = cache.index_rows(torch.arange(B, device=prompt.device)
-                             .repeat_interleave(K))
-    fin = (top_tok == eos_id if eos_id is not None
-           else torch.zeros_like(top_tok, dtype=torch.bool))
-    ln = torch.ones_like(top_tok, dtype=torch.long)
-    tok, toks, parents = top_tok, [], []
-    base = torch.arange(B, device=prompt.device)[:, None] * K
-    for i in range(steps - 1):
-        logits = model(tok.reshape(B * K, 1), Tp + i, cache=cache)
-        step_lp = torch.log_softmax(logits[:, 0].float(),
-                                    dim=-1).reshape(B, K, V)
-        lp, tok, fin, ln, parent = _beam_expand(lp, fin, ln, step_lp,
-                                                eos_id)
-        tok = tok.to(prompt.dtype)
-        cache = cache.index_rows((base + parent).reshape(-1))
-        toks.append(tok)
-        parents.append(parent)
-    return _beam_backtrack(prompt, top_tok, toks, parents, lp, ln,
-                           length_penalty)
+    return _beam_rows(_Decoder(model, prompt.shape[0]), prompt, steps,
+                      int(beams), eos_id, length_penalty)
+
+
+# ---------------------------------------------------------------------------
+# The mesh-parallel decoders: expert-parallel and Ulysses models, the
+# batch optionally sharded (JAX generate_parallel :472, beam_search_parallel
+# :384).
+# ---------------------------------------------------------------------------
+
+
+def _shard_rows(prompt: torch.Tensor, nb: int, what: str) -> int:
+    B = prompt.shape[0]
+    if B % nb:
+        raise ValueError(f"{what}: batch {B} must divide by the batch_axis "
+                         f"size {nb}")
+    return B // nb
+
+
+def _parallel_setup(model, prompt, steps):
+    prompt = _as_tokens(model, prompt)
+    _check_prompt(model, prompt, steps)
+    _check_model(model, None)
+    return prompt
+
+
+def _process_world_rows(prompt, batch_axis, seed, what):
+    """This rank's rows of ``prompt`` over ``batch_axis`` and their seeds
+    (the shard's folded); (rows, seeds, shard count)."""
+    from .. import collectives
+
+    if batch_axis is None:
+        return prompt, _row_seeds(seed, prompt.shape[0], prompt.device), 1
+    nb = collectives.axis_size(batch_axis)
+    i = collectives.axis_index(batch_axis)
+    bl = _shard_rows(prompt, nb, what)
+    rows = prompt[i * bl:(i + 1) * bl]
+    seeds = _row_seeds(seed, bl, prompt.device)
+    return rows, _fold_seeds(seeds, torch.full_like(seeds, i)), nb
+
+
+def _gather_rows(out: torch.Tensor, batch_axis, nb: int) -> torch.Tensor:
+    if nb == 1 and batch_axis is None:
+        return out
+    from .. import collectives
+
+    st = collectives.allgather_in_axis(out.contiguous(), batch_axis,
+                                       backend="xla")
+    return st.reshape(-1, out.shape[-1])
+
+
+def _rank_major_rows(prompt, n: int, batch_axis, seed, what):
+    """Every rank's rows of ``prompt`` on the world's grid of ``n`` ranks
+    (``runtime.grid``), batch-sharded over ``batch_axis``: (the [n * b, T]
+    rows in rank order, their seeds, the grid, each rank's shard index as
+    a list, the shard count)."""
+    from .. import runtime
+    from .transformer import grid_ranks
+
+    grid = runtime.grid(int(n))
+    if batch_axis is None:
+        nb, shard = 1, torch.zeros(int(n), dtype=torch.long)
+    else:
+        nb, shard = grid_ranks(batch_axis, grid)
+    bl = _shard_rows(prompt, nb, what)
+    dev_shard = shard.to(prompt.device)
+    rows = prompt.view(nb, bl, -1)[dev_shard].reshape(-1, prompt.shape[1])
+    seeds = _row_seeds(seed, bl, prompt.device).repeat(int(n))
+    if batch_axis is not None:
+        seeds = _fold_seeds(seeds, dev_shard.repeat_interleave(bl))
+    return rows, seeds, grid, shard.tolist(), nb
+
+
+def _first_of_shards(out: torch.Tensor, shard: List[int],
+                     nb: int) -> torch.Tensor:
+    """The [B, ...] result from rank-major rows [n * b, ...]: each shard's
+    rows from the first rank that holds it."""
+    per = out.view(len(shard), -1, out.shape[-1])
+    return per[[shard.index(s) for s in range(nb)]].reshape(
+        -1, out.shape[-1])
+
+
+@torch.no_grad()
+def generate_parallel(model, prompt, steps: int, *,
+                      batch_axis=None, temperature: float = 0.0,
+                      top_k: Optional[int] = None,
+                      top_p: Optional[float] = None,
+                      eos_id: Optional[int] = None,
+                      seed: Union[int, Sequence[int]] = 0) -> torch.Tensor:
+    """Sharded generation over the current communicator, in the process
+    world (JAX :472): every rank calls it with the whole ``prompt`` and
+    the same arguments.  The decode inherits the model's training-time
+    parallelism: an expert-parallel model (``moe_axis``) routes each
+    step's tokens through the all-to-all expert layer, its capacity from
+    the step's token count, and a Ulysses model (``seq_axis``) serves from
+    the head-sharded cache.  With ``batch_axis`` the prompt's rows shard
+    over that axis (B must divide by its size) and each shard's seeds are
+    folded with its index.  Sampling, ``eos_id`` and ``seed`` as in
+    :func:`generate`.  Returns the whole [B, T_prompt + steps] on every
+    rank (the shards gathered by the stock all-gather)."""
+    prompt = _parallel_setup(model, prompt, steps)
+    _check_sampling(top_k, top_p)
+    if steps <= 0:
+        return prompt
+    rows, seeds, nb = _process_world_rows(prompt, batch_axis, seed,
+                                          "generate_parallel")
+    out = _generate_rows(_Decoder(model, rows.shape[0]), rows, steps, seeds,
+                         temperature=temperature, top_k=top_k, top_p=top_p,
+                         eos_id=eos_id, graph=False)
+    return _gather_rows(out, batch_axis, nb)
+
+
+@torch.no_grad()
+def generate_parallel_rank_major(model, prompt, steps: int, *, n: int,
+                                 batch_axis=None, temperature: float = 0.0,
+                                 top_k: Optional[int] = None,
+                                 top_p: Optional[float] = None,
+                                 eos_id: Optional[int] = None,
+                                 seed: Union[int, Sequence[int]] = 0
+                                 ) -> torch.Tensor:
+    """:func:`generate_parallel` for ``n`` ranks on one device: the world's
+    grid of n (``runtime.grid``), each rank's rows (its batch shard, or
+    all of them) decoded at once through
+    :meth:`TransformerLM.decode_rank_major`.  Returns [B, T_prompt +
+    steps], each shard's rows from the first rank holding it."""
+    prompt = _parallel_setup(model, prompt, steps)
+    _check_sampling(top_k, top_p)
+    if steps <= 0:
+        return prompt
+    rows, seeds, grid, shard, nb = _rank_major_rows(
+        prompt, n, batch_axis, seed, "generate_parallel")
+    out = _generate_rows(_Decoder(model, rows.shape[0], grid), rows, steps,
+                         seeds, temperature=temperature, top_k=top_k,
+                         top_p=top_p, eos_id=eos_id, graph=False)
+    return _first_of_shards(out, shard, nb)
+
+
+@torch.no_grad()
+def beam_search_parallel(model, prompt, steps: int, *, beams: int,
+                         batch_axis=None, eos_id: Optional[int] = None,
+                         length_penalty: float = 0.0) -> torch.Tensor:
+    """Beam search over the current communicator in the process world
+    (JAX :384), the beam analog of :func:`generate_parallel`: an MoE
+    model routes each step's B * beams rows through its expert layer, a
+    Ulysses model searches from the head-sharded cache; the per-step
+    parent gather is over this rank's own cache rows.  ``batch_axis``,
+    ``eos_id`` and ``length_penalty`` as in :func:`generate_parallel` and
+    :func:`beam_search`."""
+    prompt = _parallel_setup(model, prompt, steps)
+    _check_beams(model, beams)
+    if steps <= 0:
+        return prompt
+    rows, _, nb = _process_world_rows(prompt, batch_axis, 0,
+                                      "beam_search_parallel")
+    out = _beam_rows(_Decoder(model, rows.shape[0]), rows, steps,
+                     int(beams), eos_id, length_penalty)
+    return _gather_rows(out, batch_axis, nb)
+
+
+@torch.no_grad()
+def beam_search_parallel_rank_major(model, prompt, steps: int, *, n: int,
+                                    beams: int, batch_axis=None,
+                                    eos_id: Optional[int] = None,
+                                    length_penalty: float = 0.0
+                                    ) -> torch.Tensor:
+    """:func:`beam_search_parallel` for ``n`` ranks on one device (as
+    :func:`generate_parallel_rank_major`)."""
+    prompt = _parallel_setup(model, prompt, steps)
+    _check_beams(model, beams)
+    if steps <= 0:
+        return prompt
+    rows, _, grid, shard, nb = _rank_major_rows(
+        prompt, n, batch_axis, 0, "beam_search_parallel")
+    out = _beam_rows(_Decoder(model, rows.shape[0], grid), rows, steps,
+                     int(beams), eos_id, length_penalty)
+    return _first_of_shards(out, shard, nb)
 
 
 # ---------------------------------------------------------------------------
@@ -498,9 +759,9 @@ def slot_verify_step(model, cache, tokens: torch.Tensor,
 @torch.no_grad()
 def slot_write(pool_cache, one_cache, slot: int):
     """Copy a one-row cache into row ``slot`` of the pool cache."""
-    slot = clamp_slot_positions(slot, pool_cache.rows)
+    slot, d = clamp_slot_positions(slot, pool_cache.rows), pool_cache.lead
     for p, o in zip(pool_cache.k + pool_cache.v, one_cache.k + one_cache.v):
-        p[slot].copy_(o[0])
+        p.select(d, slot).copy_(o.select(d, 0))
     return pool_cache
 
 
@@ -511,8 +772,10 @@ def slot_cache_slice(row_cache, start: int, width: int):
     start = clamp_slot_positions(start, row_cache.max_len, width)
     from .transformer import KVCache
 
-    return KVCache([t[:, start:start + width].clone() for t in row_cache.k],
-                   [t[:, start:start + width].clone() for t in row_cache.v])
+    d = row_cache.lead + 1
+    return KVCache([t.narrow(d, start, width).clone() for t in row_cache.k],
+                   [t.narrow(d, start, width).clone() for t in row_cache.v],
+                   lead=row_cache.lead)
 
 
 @torch.no_grad()
@@ -522,7 +785,7 @@ def slot_cache_write(row_cache, frag, start: int):
     width = frag.max_len
     start = clamp_slot_positions(start, row_cache.max_len, width)
     for r, f in zip(row_cache.k + row_cache.v, frag.k + frag.v):
-        r[:, start:start + width].copy_(f)
+        r.narrow(row_cache.lead + 1, start, width).copy_(f)
     return row_cache
 
 

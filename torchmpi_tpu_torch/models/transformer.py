@@ -69,8 +69,19 @@ every write goes through ``generate.clamp_slot_positions``, the clamped
 start of JAX's ``dynamic_update_slice`` (ROADMAP queue C note 1).  Decode
 attends through einsums against the cache, never the flash kernels
 (``"flash"`` is an alias of ``"local"`` there, as in JAX).  A model built
-with ``decode=True`` requires the cache.  Ring impls have no decode path;
-Ulysses and MoE decode are ROADMAP queue A, item 9 (b).
+with ``decode=True`` requires the cache.  Ring impls have no decode path.
+
+Decode under a mesh (JAX :155-167, :275-277, :306; the decoders of
+``generate.generate_parallel`` / ``beam_search_parallel``): with
+``attn_impl="ulysses"`` and ``seq_axis`` the cache is head-sharded, each
+rank caching and attending its ``num_heads / n`` heads over the whole
+sequence (MHA only) and the heads all-gathered back in rank order; with
+``moe_axis`` the MLP routes each forward's tokens through the expert
+layer, its capacity from the forward's token count.  In the process world
+each rank runs ``model(tokens, pos, cache=cache)`` on its rows;
+rank-major, :meth:`TransformerLM.decode_rank_major` runs every rank's rows
+at once (the ranks folded into the cache's rows).  Plain ``generate`` and
+``beam_search`` keep JAX's refusals of both (:func:`check_decode`).
 
 Parameter names follow the flax tree through ``weights.from_flax_params``.
 Every module builds its parameters on ``device``: the card by default,
@@ -97,22 +108,29 @@ from .layers import Dense, check_device
 SP_IMPLS = ("ring", "ring_flash", "ulysses", "ulysses_flash")
 
 
-def check_decode(attn_impl: str, seq_axis=None, moe_axis=None) -> None:
-    """JAX's refusals of a decode the port cannot run: ring impls (their
-    sequence-sharded cache cannot serve one new token a step), Ulysses
-    decode under ``seq_axis`` and MoE decode (the mesh-parallel decoders
-    of ROADMAP queue A, item 9 (b))."""
-    if moe_axis is not None:
+def check_decode(attn_impl: str, seq_axis=None, moe_axis=None, *,
+                 entry: Optional[str] = "generate") -> None:
+    """JAX's refusals of a decode: ring impls everywhere (their
+    sequence-sharded cache cannot serve one new token a step); under the
+    single-device ``entry`` ("generate" or "beam_search", JAX
+    ``generate.py:366-376, :453-463``) also MoE decode and Ulysses decode
+    under ``seq_axis``, which run under the mesh-parallel decoders (``entry``
+    None)."""
+    par = ("generate_parallel" if entry == "generate"
+           else "beam_search_parallel")
+    if entry is not None and moe_axis is not None:
         raise ValueError(
-            "generate() supports dense MLPs only: moe_axis routing needs "
-            "a mesh axis; expert-parallel decode (generate_parallel) is "
-            "ROADMAP queue A, item 9 (b)")
-    if attn_impl.startswith("ulysses") and seq_axis is not None:
+            f"{entry}() supports dense MLPs only: moe_axis routing needs a "
+            f"mesh axis - use {par}(model, ...) (or {par}_rank_major) to "
+            f"decode an expert-parallel model")
+    ulysses = attn_impl in ("ulysses", "ulysses_flash") and \
+        seq_axis is not None
+    if entry is not None and ulysses:
         raise ValueError(
-            "ulysses decode needs the mesh axis in scope; the "
-            "head-sharded-cache decode (generate_parallel) is ROADMAP "
-            "queue A, item 9 (b)")
-    if attn_impl not in ("local", "flash"):
+            f"ulysses decode needs the mesh axis in scope - use "
+            f"{par}(model, ...) (or {par}_rank_major) for the "
+            f"head-sharded-cache serving path")
+    if attn_impl not in ("local", "flash") and not ulysses:
         raise ValueError(
             f"decode=True supports attn_impl='local'/'flash' (or "
             f"'ulysses' under generate_parallel), got {attn_impl!r}")
@@ -123,19 +141,22 @@ class KVCache:
     collection): ``k[i]`` and ``v[i]`` float32 ``[rows, max_len, Hkv, D]``
     for layer i, and ``idx``, the next write position of the
     scalar-offset path (a host int; JAX's per-layer ``idx``, equal in
-    every layer).  The forward writes into the tensors in place."""
+    every layer).  The forward writes into the tensors in place.  ``lead``
+    leading dims come before the rows: the tensor-parallel decoders'
+    caches are ``[ranks, rows, max_len, heads, D]`` (``lead`` 1)."""
 
     def __init__(self, k: List[torch.Tensor], v: List[torch.Tensor],
-                 idx: int = 0):
+                 idx: int = 0, lead: int = 0):
         self.k, self.v, self.idx = list(k), list(v), int(idx)
+        self.lead = int(lead)
 
     @property
     def rows(self) -> int:
-        return self.k[0].shape[0]
+        return self.k[0].shape[self.lead]
 
     @property
     def max_len(self) -> int:
-        return self.k[0].shape[1]
+        return self.k[0].shape[self.lead + 1]
 
     @property
     def nbytes(self) -> int:
@@ -144,8 +165,9 @@ class KVCache:
     def index_rows(self, rows: torch.Tensor) -> "KVCache":
         """A new cache of the rows ``rows`` (a [n] index tensor): the
         beam search's tiling and parent gather."""
-        return KVCache([t[rows] for t in self.k], [t[rows] for t in self.v],
-                       self.idx)
+        return KVCache([t.index_select(self.lead, rows) for t in self.k],
+                       [t.index_select(self.lead, rows) for t in self.v],
+                       self.idx, self.lead)
 
 
 class _DecodeStep:
@@ -153,11 +175,13 @@ class _DecodeStep:
     clamped write start (``start``: an int, or ``None`` per row), each
     query's absolute position ``q_pos`` ([T], or [rows, T] per row),
     whether the block is the fresh-cache prefill, the RoPE tables of
-    ``q_pos`` and the cache mask."""
+    ``q_pos``, the cache mask, and ``seq_grid`` (n_dcn, n_ici) when the
+    rows are rank-major ranks folded in (None: one rank's rows)."""
 
     def __init__(self, q_pos: torch.Tensor, start: Optional[int],
-                 window: Optional[int]):
+                 window: Optional[int], seq_grid=None):
         self.q_pos, self.start, self.window = q_pos, start, window
+        self.seq_grid = seq_grid
         self.prefill = start is not None and q_pos.shape[-1] > 1
         self._rope, self._mask = None, None
         if start is None:
@@ -180,6 +204,20 @@ class _DecodeStep:
                 mask &= kv_pos > q - self.window
             self._mask = mask if self.start is None else mask[None]
         return self._mask
+
+
+def grid_ranks(axis, grid):
+    """(size, index) of ``axis`` ("dcn", "ici", both or None) on the grid
+    (n_dcn, n_ici) of a two-level rank-major stack: the axis's size and a
+    [n_dcn * n_ici] tensor of each rank's index along it."""
+    n_dcn, n_ici = grid
+    name = collectives._world_axes("rank-major decode", axis)
+    r = torch.arange(n_dcn * n_ici)
+    if name == "ici":
+        return n_ici, r % n_ici
+    if name == "dcn":
+        return n_dcn, r // n_ici
+    return n_dcn * n_ici, r
 
 
 def rope_tables(pos: torch.Tensor, D: int, *, base: float = 10000.0):
@@ -295,10 +333,72 @@ class SPAttention(nn.Module):
             o = self._attend(q, k, v, seq_grid)
         return self.out(o.to(self.dtype).reshape(B, T, H * D))
 
+    @property
+    def _ulysses(self) -> bool:
+        return self.attn_impl in ("ulysses", "ulysses_flash") and \
+            self.seq_axis is not None
+
+    def _seq_ranks(self, grid):
+        """(n_sp, this rank's index along ``seq_axis``): over the process
+        world an int, rank-major on the grid (n_dcn, n_ici) a [ranks]
+        tensor of each rank's."""
+        if grid is None:
+            return (collectives.axis_size(self.seq_axis),
+                    collectives.axis_index(self.seq_axis))
+        return grid_ranks(self.seq_axis, grid)
+
+    def _head_shard(self, t: torch.Tensor, grid=None) -> torch.Tensor:
+        """The Ulysses decode's head slice (JAX :155-167): of ``t`` [rows,
+        T, H, D], each rank's ``H / n`` heads from ``index * H / n``, its
+        index along ``seq_axis``; rank-major on ``grid`` the rows are the
+        ranks' rows in (dcn, ici, row) order."""
+        rows, T, H, D = t.shape
+        n_sp, idx = self._seq_ranks(grid)
+        if H % n_sp:
+            raise ValueError(f"ulysses decode needs num_heads {H} "
+                             f"divisible by axis size {n_sp}")
+        hc = H // n_sp
+        if grid is None:
+            return t[:, :, idx * hc:(idx + 1) * hc]
+        idx = idx.to(t.device).repeat_interleave(rows // idx.numel())
+        return t.view(rows, T, n_sp, hc, D)[
+            torch.arange(rows, device=t.device), :, idx]
+
+    def _head_gather(self, o: torch.Tensor, grid) -> torch.Tensor:
+        """The heads of every rank of ``seq_axis`` back together in rank
+        order (JAX's tiled ``lax.all_gather``, :275-277): across processes
+        the stock all-gather, rank-major its closed form (each rank's group
+        concatenated)."""
+        rows, T, hc, D = o.shape
+        if grid is None:
+            st = collectives.allgather_in_axis(o.contiguous(), self.seq_axis,
+                                               backend="xla")
+            return st.permute(1, 2, 0, 3, 4).reshape(rows, T, -1, D)
+        n_dcn, n_ici = grid
+        b = rows // (n_dcn * n_ici)
+        v = o.view(n_dcn, n_ici, b, T, hc, D)
+        axis = collectives._world_axes("ulysses decode", self.seq_axis)
+        if axis == "ici":
+            g = v.permute(0, 2, 3, 1, 4, 5).reshape(n_dcn, 1, b, T, -1, D)
+        elif axis == "dcn":
+            g = v.permute(1, 2, 3, 0, 4, 5).reshape(1, n_ici, b, T, -1, D)
+        else:
+            g = v.permute(2, 3, 0, 1, 4, 5).reshape(1, 1, b, T, -1, D)
+        return g.expand(n_dcn, n_ici, *g.shape[2:]).reshape(rows, T, -1, D)
+
     def _decode(self, q, k, v, ck, cv, step: _DecodeStep):
         """Write k and v into the cache at their positions, then attend:
         the fresh-cache prefill within its block, else q against the
-        whole cache through the causal mask (JAX :185-275)."""
+        whole cache through the causal mask (JAX :185-275).  Ulysses
+        decode attends this rank's heads only, then gathers them."""
+        if self._ulysses:
+            q, k, v = (self._head_shard(t, step.seq_grid) for t in (q, k, v))
+        o = self._decode_heads(q, k, v, ck, cv, step)
+        if self._ulysses:
+            o = self._head_gather(o, step.seq_grid)
+        return o
+
+    def _decode_heads(self, q, k, v, ck, cv, step: _DecodeStep):
         B, T, H, D = q.shape
         if self.rope:
             # Rotate at absolute cache positions, then cache: old entries
@@ -504,7 +604,7 @@ class TransformerLM(nn.Module):
         if pos_emb not in ("learned", "rope"):
             raise ValueError(f"unknown pos_emb {pos_emb!r}")
         if decode:
-            check_decode(attn_impl, seq_axis, moe_axis)
+            check_decode(attn_impl, seq_axis, moe_axis, entry=None)
         device = check_device(device)
         self.vocab, self.embed_dim, self.dtype = vocab, embed, dtype
         self.pos_emb, self.attn_impl = pos_emb, attn_impl
@@ -552,14 +652,16 @@ class TransformerLM(nn.Module):
                 m.w2.normal_(0.0, 1.0 / math.sqrt(H * n), generator=g)
         self.head.normal_(0.0, 1.0 / math.sqrt(self.embed_dim), generator=g)
 
-    def init_cache(self, rows: int, max_len: Optional[int] = None
-                   ) -> KVCache:
+    def init_cache(self, rows: int, max_len: Optional[int] = None,
+                   heads: Optional[int] = None) -> KVCache:
         """A zero decode cache of ``rows`` rows, ``max_len`` positions each
-        (default the model's), on the model's device."""
+        (default the model's), ``heads`` heads (default the kv heads; the
+        Ulysses decode's ``num_heads / n``), on the model's device."""
         L = int(max_len if max_len is not None else self.max_len)
         if L <= 0:
             raise ValueError("decode=True needs max_len > 0")
-        shape = (int(rows), L, self.num_kv_heads, self.head_dim)
+        shape = (int(rows), L, int(heads or self.num_kv_heads),
+                 self.head_dim)
         dev = self.head.device
         return KVCache(
             [torch.zeros(shape, device=dev) for _ in self.blocks],
@@ -628,11 +730,40 @@ class TransformerLM(nn.Module):
             return x, self.head
         return x @ self.head
 
+    def decode_rank_major(self, tokens: torch.Tensor, pos_offset,
+                          cache: KVCache, return_prehead: bool = False):
+        """The decode forward of every rank at once (the mesh-parallel
+        decoders' rank-major form): ``tokens`` ``[n, B, T]`` (the grid 1 x
+        n) or ``[n_dcn, n_ici, B, T]``, each rank's own rows, all from the
+        same positions (a sequence is never sharded in decode);
+        ``cache`` of ``n * B`` rows, the ranks' rows in order (a Ulysses
+        model's ``num_heads / n`` heads each).  ``pos_offset`` an int, or a
+        ``[n * B]`` tensor of each row's position.  Only the Ulysses head
+        slice and gather and the MoE layer see the ranks; every other
+        layer runs once on the folded rows.  Returns the logits ``[...,
+        B, T, vocab]`` (or the pre-head outputs and the head)."""
+        if tokens.dim() == 3:
+            grid = (1, tokens.shape[0])
+        elif tokens.dim() == 4:
+            grid = tuple(tokens.shape[:2])
+        else:
+            raise ValueError(f"expected tokens [n, B, T] or [n_dcn, n_ici, "
+                             f"B, T], got {tuple(tokens.shape)}")
+        lead, T = tokens.shape[:-1], tokens.shape[-1]
+        x = self._decode_trunk(tokens.reshape(-1, T), pos_offset, cache,
+                               grid)
+        x = x.view(*lead, T, x.shape[-1])
+        if return_prehead:
+            return x, self.head
+        return x @ self.head
+
     def _decode_trunk(self, tokens: torch.Tensor, pos_offset,
-                      cache: KVCache) -> torch.Tensor:
+                      cache: KVCache, seq_grid=None) -> torch.Tensor:
         """The decode forward's embeddings, blocks (each reading and
-        writing its layer of ``cache``) and final LayerNorm."""
-        check_decode(self.attn_impl, self.seq_axis, self.moe_axis)
+        writing its layer of ``cache``) and final LayerNorm; ``seq_grid``
+        (n_dcn, n_ici) for rank-major rows."""
+        check_decode(self.attn_impl, self.seq_axis, self.moe_axis,
+                     entry=None)
         B, T = tokens.shape
         if B != cache.rows or len(cache.k) != len(self.blocks):
             raise ValueError(
@@ -643,17 +774,18 @@ class TransformerLM(nn.Module):
         per_row = torch.is_tensor(pos_offset) and pos_offset.dim() == 1
         if per_row:
             starts = clamp_slot_positions(pos_offset, L, T)
-            step = _DecodeStep(starts[:, None] + t, None, self.window)
+            step = _DecodeStep(starts[:, None] + t, None, self.window,
+                               seq_grid)
         else:
             start = clamp_slot_positions(cache.idx, L, T)
-            step = _DecodeStep(start + t, start, self.window)
+            step = _DecodeStep(start + t, start, self.window, seq_grid)
         x = self.embed(tokens).to(self.dtype)
         if self.pos_emb == "learned":
             pos = (pos_offset[:, None] + t if per_row
                    else pos_offset + t)
             x = x + self.pos_embed(pos).to(self.dtype)
         for blk, ck, cv in zip(self.blocks, cache.k, cache.v):
-            x = blk(x, kv=(ck, cv, step))
+            x = blk(x, 0, seq_grid, (ck, cv, step))
         if not per_row:
             cache.idx = start + T
         return self.ln_f(x)

@@ -33,9 +33,9 @@ Consumers: the rank-major verbs (``collectives._eager``, also under
 layout (``zero.flat_spec``).  Invalidation has ONE point,
 :func:`invalidate` (``collectives.clear_cache``; ``runtime.set_config``
 and ``runtime.stop`` route there).  :func:`set_enabled` ``(False)`` runs
-the unplanned path, the baseline the tests compare bit for bit.  The JAX
-package's ``plan_serving_replica`` (a plan per TP serving replica's mesh)
-waits for the TP serving replicas of ROADMAP queue A, item 9 (b).
+the unplanned path, the baseline the tests compare bit for bit.
+:func:`plan_serving_replica` records a decision-only row per
+tensor-parallel serving replica, keyed on its communicator.
 """
 
 from __future__ import annotations
@@ -588,3 +588,35 @@ def flat_spec_for(tensors: Sequence[torch.Tensor],
                               spec=spec, extra={"n_shards": int(n_shards)})
 
     return _get_or_build(key, build).spec
+
+
+# ---------------------------------------------------------------------------
+# Mesh-parallel serving replicas (serving/tp_engine.py)
+# ---------------------------------------------------------------------------
+
+
+def plan_serving_replica(replica: str, comm, axes: Sequence[str], *,
+                         n: Optional[int] = None, op: str = "tp_decode"
+                         ) -> Optional[CollectivePlan]:
+    """Decision-only plan row of one tensor-parallel serving replica (JAX
+    :839), keyed on the replica's communicator by value
+    (``Communicator.ident``): two replicas carved from different ranks
+    read as two rows, and a replica built again on the same ranks hits
+    its row.  ``n``: the replica's rank-major stack (None: its ranks are
+    processes).  None while the planner is off."""
+    if not _enabled:
+        return None
+    key = ("serving", replica, comm.ident, tuple(axes), op, n, _epoch())
+
+    def build():
+        sizes = comm.sizes(n)
+        return CollectivePlan(
+            key, "serving", op,
+            backend="rank_major" if n is not None else "process_world",
+            topology=",".join(f"{a}={s}" for a, s in
+                              zip(comm.axes, sizes)),
+            extra={"replica": replica, "axes": tuple(axes),
+                   "devices": int(comm.size(n)),
+                   "communicator": comm.name})
+
+    return _get_or_build(key, build)

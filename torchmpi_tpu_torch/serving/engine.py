@@ -129,14 +129,28 @@ class ReplicaEngine:
                 f"pos_emb='rope' models")
         if model.moe_axis is not None or model.seq_axis is not None:
             raise ValueError(
-                "ReplicaEngine serves dense single-device models; "
-                "mesh-parallel replicas (TPReplicaEngine, Server.sharded) "
-                "are ROADMAP queue A, item 9 (b)")
+                "ReplicaEngine serves dense single-device models; use "
+                "serving.TPReplicaEngine (or Server.sharded) for a "
+                "mesh-parallel replica")
         check_decode(model.attn_impl)
         self.model = _on(model, device)
         self.device = self.model.head.device
         self.vocab = int(model.vocab)
         self.param_count = sum(p.numel() for p in self.model.parameters())
+        self._init_serving(cfg, name, slots, st, sample=sample,
+                           prefill_bucket=prefill_bucket,
+                           prefix_cache=prefix_cache,
+                           prefix_block=prefix_block)
+        self._cache = self.model.init_cache(slots, st)
+        self._capture_step()
+        self._bind_draft(spec_k, cfg, draft)
+
+    def _init_serving(self, cfg, name: str, slots: int, st: int, *,
+                      sample, prefill_bucket, prefix_cache,
+                      prefix_block: int) -> None:
+        """The backend-independent state: the slot pool, the prefix
+        cache, the sessions, the sampling and bucketing defaults, the
+        counters."""
         self.name = name
         cap = int(prefix_cache if prefix_cache is not None
                   else cfg.serving_prefix_cache)
@@ -150,8 +164,6 @@ class ReplicaEngine:
             sample if sample is not None else cfg.serving_sample)
         self._bucket = int(prefill_bucket if prefill_bucket is not None
                            else cfg.serving_prefill_buckets)
-        self._spec_k = int(spec_k if spec_k is not None
-                           else cfg.serving_spec_k)
         #: Padded prompt lengths this engine has prefilled.
         self._prefill_lens: set = set()
         self.stats = {"prefills": 0, "steps": 0, "prefill_compiles": 0,
@@ -159,13 +171,22 @@ class ReplicaEngine:
                       "spec_accepted": 0, "prefill_tokens": 0,
                       "prefix_hits": 0, "prefix_misses": 0}
         self.units = 0.0
-        self._cache = self.model.init_cache(slots, st)
-        # The pooled decode step at its fixed shapes, captured while the
-        # pool holds nothing (the capture's warm-up writes into it).
-        zeros = np.zeros((slots,), np.int64)
+
+    def _capture_step(self, counters=(), graph: bool = True) -> None:
+        """The pooled decode step at its fixed shapes, captured (``graph``)
+        while the pool holds nothing (the capture's warm-up writes into
+        it); ``counters`` as ``models.generate.graphed`` takes them."""
+        if not graph:
+            self._step = self._decode
+            return
+        zeros = np.zeros((self.pool.n_slots,), np.int64)
         (t, p), samp = self._stage([zeros, zeros],
                                    self._sampling_arrays({}))
-        self._step = graphed(self._decode, t, p, *samp)
+        self._step = graphed(self._decode, t, p, *samp, counters=counters)
+
+    def _bind_draft(self, spec_k, cfg, draft) -> None:
+        self._spec_k = int(spec_k if spec_k is not None
+                           else cfg.serving_spec_k)
         if self._spec_k > 0:
             if draft is None:
                 from .spec import NgramDraft
@@ -290,6 +311,10 @@ class ReplicaEngine:
         return slot_prefill(self.model, tok, max_len=self.pool.slot_tokens,
                             true_len=true_len, sampling=samp)
 
+    def _row_template(self):
+        """A zero one-row cache of the slot block (a prefix hit's row)."""
+        return self.model.init_cache(1, self.pool.slot_tokens)
+
     def _decode(self, toks, pos, *sampling):
         return slot_decode_step(self.model, self._cache, toks, pos,
                                 sampling=sampling)[1]
@@ -353,7 +378,7 @@ class ReplicaEngine:
                 # miss path's.
                 B = self._prefix.block_tokens
                 depth = B * len(chain)
-                row = self.model.init_cache(1, self.pool.slot_tokens)
+                row = self._row_template()
                 for i, node in enumerate(chain):
                     slot_cache_write(row, node.frag, i * B)
                 padded, true_len = self._pad_prompt(

@@ -157,12 +157,67 @@ class Server:
         self.last_stats: dict = {}
 
     @classmethod
-    def sharded(cls, *args, **kwargs) -> "Server":
-        """TP-sharded replicas (a mesh slice each) are ROADMAP queue A,
-        item 9 (b)."""
-        raise NotImplementedError(
-            "Server.sharded: tensor-parallel serving replicas are ROADMAP "
-            "queue A, item 9 (b)")
+    def sharded(cls, params, *, tp: int, num_heads: int, slot_tokens: int,
+                axis: str = "model", replicas: Optional[int] = None,
+                devices: Optional[Sequence[int]] = None,
+                backend: Optional[str] = None, **kw) -> "Server":
+        """A server whose every replica is a tensor-parallel slice (JAX
+        :214): ``replicas`` disjoint slices of ``tp`` ranks carved in order
+        from ``devices`` (default: the current communicator's ranks), a
+        :class:`~.tp_engine.TPReplicaEngine` on each, over a communicator
+        pushed under the replica's name (``tp0``, ``tp1``, ...) with the
+        one axis ``axis``.  ``params`` is a full ``tp_generate.init_tp_lm``
+        tree (sharded per replica); ``backend`` routes the replicas'
+        allreduces; ``kw`` are the engines' knobs (``slots``,
+        ``spec_k``, ...).  The default is as many replicas as the ranks
+        hold.
+
+        In a world of one process the ranks are rank-major (a replica's
+        tp ranks a stack on the device; without ``devices`` or a
+        communicator of fixed size, the ranks are ``replicas * tp``, one
+        replica by default).  Across processes they are processes: every
+        process calls this with the same arguments, and gets a server of
+        the one replica that holds it, whose requests it serves with the
+        other processes of that replica."""
+        from .tp_engine import TPReplicaEngine
+
+        if tp < 1:
+            raise ValueError(f"tp must be >= 1, got {tp}")
+        comm = runtime.current_communicator()
+        world = runtime.size()
+        if devices is not None:
+            pool = [int(d) for d in devices]
+        elif world > 1:
+            pool = list(comm.ranks)
+        else:
+            fixed = comm.fixed_size()
+            pool = list(range(fixed if fixed is not None
+                              else tp * int(replicas or 1)))
+        n = int(replicas) if replicas is not None else len(pool) // tp
+        if n < 1 or n * tp > len(pool):
+            raise ValueError(
+                f"{n} replicas x {tp} devices need {n * tp} devices, "
+                f"have {len(pool)}")
+        slices = [pool[i * tp:(i + 1) * tp] for i in range(n)]
+        for i, ranks in enumerate(slices):
+            runtime.push_communicator(f"tp{i}", devices=ranks,
+                                      shape={axis: tp})
+            runtime.pop_communicator()
+        if world > 1:
+            me = runtime.rank()
+            mine = [i for i, r in enumerate(slices) if me in r]
+            if not mine:
+                raise ValueError(f"rank {me} is in none of the {n} "
+                                 f"replicas' ranks {slices}")
+            slices_i = mine
+        else:
+            slices_i = list(range(n))
+        engines = [TPReplicaEngine(params, axis=axis, num_heads=num_heads,
+                                   name=f"tp{i}", communicator=f"tp{i}",
+                                   slot_tokens=slot_tokens, backend=backend,
+                                   **kw)
+                   for i in slices_i]
+        return cls(None, engines=engines)
 
     def _total_units(self) -> float:
         """Summed work units across all replicas, dead included."""

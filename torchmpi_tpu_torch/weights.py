@@ -238,7 +238,9 @@ def from_numpy_tree(tree, device):
     """A nested tree (dicts, lists, tuples) of numpy arrays, as the JAX
     examples hold their weights in ``x @ w`` layout, as the same tree of
     tensors on ``device``: one ``torch.tensor`` a leaf (a copy, so that an
-    update in place leaves the arrays as they were), no transpose."""
+    update in place leaves the arrays as they were), no transpose.  A JAX
+    ``tp_generate.init_tp_lm`` tree comes across as it is: the port's
+    tensor- and pipeline-parallel decoders take JAX's layout."""
     from . import _tree
 
     return _tree.map(lambda a: torch.tensor(np.asarray(a), device=device),
