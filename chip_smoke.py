@@ -54,6 +54,13 @@ JAX package.  In order it:
    121,682,944-element shards) under chunk_bytes 4 MiB (rows 9 and 10)
    and 512 MiB (the resident rows 13 and 14), all four direct, the same
    way, with the stock rank-major routes timed beside them;
+   Then the bf16 flash phase (flash_bf16, slice 25): the public entry
+   points (flash_attention, with residuals at batch 1, and
+   flash_attention_grad forward and backward) on bf16 q / k / v at the
+   same shape, every launch on the bf16 route and every output bf16 (the
+   residual form's float32); rows 1, 1 res, 2 and 3 against their plain
+   versions within 2^-7 x max |ref| and bitwise on a repeat, timed beside
+   their bound at the bf16 tensor-core rate and bf16 SDPA;
 4. dense train phase (stage B): mpi.init() (NCCL, world of 1), one
    untimed warm-up and eight timed data-parallel SGD steps (lr 0.02;
    median and spread) of the flagship TransformerLM at full
@@ -86,6 +93,14 @@ JAX package.  In order it:
    device
    time by kernel (torch.profiler) and 3 more whole steps on the host's
    clock;
+   Then the telemetry slice's main path (obs_dp): the same DP step
+   through gradsync.data_parallel_step_rank_major (backend "pallas") with
+   Config.obs "metrics": losses and synced gradients bitwise to obs off,
+   0 host syncs, the counters equal to the launches (59 buckets a step on
+   row 8), the dump through the obs tool (dump, prom, attribute), step ms
+   and host us a dispatch with obs on and off in turns, one step under
+   "trace" (call sites), one under utils.tracing.trace (a Chrome trace
+   naming the flash, xent and ring kernels);
 8. ZeRO phase (the main path of the ZeRO slice): the flagship as ZeRO data
    parallelism of 4 ranks on the one card with Adam (lr 1e-3): the 4 ranks'
    gradients in one [4, 486,731,776] stack, 3 ZeRO-1 steps under the
@@ -232,6 +247,10 @@ JAX package.  In order it:
    streams bitwise on 16 and 4 slots; n-gram speculation equal with fewer
    target forwards; a prefix-cache hit bitwise to the miss.  The trace
    again at bf16 compute, timed, its checks reported;
+   Then obs_serving: the trace's first 16 requests with Config.obs
+   "metrics": requests = completed = 16, the tokens counter = the tokens
+   emitted, the obs tool's TTFT / ITL p50 in the log2 bucket of the
+   phase's own;
 17. mesh-parallel serving phase (parallel_serving, the main path of the
    mesh-parallel decoding slice): the init_tp_lm tree at the flagship's
    widths (V 32768, D 2048, depth 8, 16 heads of 128, MLP 4x; seed
@@ -870,7 +889,11 @@ def ptxas_summary(log: str) -> dict:
                             m.group(1))
             tf32 = re.search(r"gemm_tf32_kernelI\w*?\d([A-Z][A-Za-z0-9]*Epi)E",
                              m.group(1))
-            res = " residual" if "ELb1EE" in m.group(1) else ""
+            flags = re.findall(r"ELb([01])", m.group(1))
+            fwd = "flash_fwd_kernel" in m.group(1)
+            res = (" residual" if fwd and flags[:1] == ["1"] else "") + (
+                " bf16" if flags[-1:] == ["1"] and (len(flags) == 2
+                                                   or not fwd) else "")
             key = (f"D{d.group(1)}{res}" if d else
                    f"wgmma_tf32<{tf32.group(1)}>" if tf32 else
                    f"wgmma<{epi.group(1)}>" if epi else
@@ -6629,6 +6652,503 @@ def parallel_serving_phase(torch, mpi, ops, dev):
     return {k: v for k, v in launches.items() if k in PSV_PATH_KERNELS}
 
 
+# The bf16 flash route (slice 25): rows 1, 1 res, 2 and 3 on bf16 q / k / v
+# at the kernel phase's shape, the residual form on batch 1 of it.  Each
+# kernel against its plain version within one bf16 ulp of the largest
+# element (the kernel rounds P against each kv block's running max, the
+# plain version against the row's final max), and bitwise on a repeat.
+FLASH_BF16_RTOL = 2.0 ** -7
+FLASH_BF16_ROWS = ("flash_fwd", "flash_fwd_residual", "flash_bwd_dq",
+                   "flash_bwd_dkv")
+# The telemetry slice (slice 25): obs_dp's steps a side of the bitwise
+# check (a), its timed steps a side in turns (e), and the eager dispatches
+# a side of the host-cost comparison, in turns.
+OBS_STEPS = 2
+OBS_TURNS = 8
+OBS_HOST_CALLS = 200
+OBS_HOST_TURNS = ("off", "metrics", "metrics", "off") * 2
+# obs_serving: lm_serving's trace cut to its first 16 requests, its
+# arrivals spaced by lm_serving's 16-slot decode step (PERF.md §5, 6.78
+# ms, PR 24).
+OBS_SERVE_REQUESTS = 16
+OBS_SERVE_UNIT_S = 6.78e-3
+
+
+def flash_bf16_phase(torch, flash, dev):
+    """The repair of queue C note 30: the flash kernels on bf16 operands.
+    The main path is the user's: ``flash_attention`` (plain and with
+    residuals) and ``flash_attention_grad`` forward and backward on bf16
+    q / k / v at the kernel phase's shape (the residual form at batch 1),
+    every flash counter set to 0 just before and read just after; every
+    launch must be on the bf16 route, and the outputs bf16 (they raised
+    before).  Then each kernel (rows 1, 1 res, 2, 3) against its plain
+    version within FLASH_BF16_RTOL x max |ref| and bitwise on a repeat,
+    timed beside its bound at the bf16 dense tensor-core rate and PyTorch
+    SDPA's bf16 time (the yardstick, never the port's)."""
+    B, T, H, Hkv, D, W = (BATCH, SEQ, LM["num_heads"], LM["num_kv_heads"],
+                          LM["head_dim"], LM["window"])
+    g = torch.Generator(device=dev).manual_seed(SEED + 30)
+
+    def mk(*shape):
+        return torch.randn(*shape, generator=g, device=dev).bfloat16()
+
+    q, k, v, do = mk(B, T, H, D), mk(B, T, Hkv, D), mk(B, T, Hkv, D), \
+        mk(B, T, H, D)
+    q1, k1, v1 = (t[:1].contiguous() for t in (q, k, v))
+    kw = dict(scale=1.0 / math.sqrt(D), causal=True, window=W)
+
+    # The main path, through the public entry points.
+    flash.reset_launches()
+    o_api = flash.flash_attention(q, k, v, causal=True, window=W)
+    res_api = flash.flash_attention(q1, k1, v1, causal=True, window=W,
+                                    return_residuals=True)
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    o_grad = flash.flash_attention_grad(*xs, causal=True, window=W)
+    o_grad.backward(do)
+    torch.cuda.synchronize()
+    routes = {n: dict(flash.ROUTE_LAUNCHES[n]) for n in FLASH_BF16_ROWS}
+    launches = {f"{n}[bf16]": routes[n]["bf16"] for n in FLASH_BF16_ROWS}
+    dtypes = {"o": str(o_api.dtype), "o_grad": str(o_grad.dtype),
+              "num": str(res_api[0].dtype),
+              "grads": [str(x.grad.dtype) for x in xs]}
+    api_finite = all(bool(torch.isfinite(t.float()).all())
+                     for t in (o_api, o_grad, res_api[0], *(x.grad
+                                                           for x in xs)))
+    del xs, o_grad, res_api
+
+    # Each kernel against its plain version (launches not counted).
+    o, lse = flash.flash_fwd(q, k, v, **kw)
+    o2, lse2 = flash.flash_fwd(q, k, v, **kw)
+    o_ref, lse_ref = flash.flash_fwd_plain(q, k, v, **kw)
+    r = flash.flash_fwd_residual(q1, k1, v1, **kw)
+    r2 = flash.flash_fwd_residual(q1, k1, v1, **kw)
+    r_ref = flash.flash_fwd_residual_plain(q1, k1, v1, **kw)
+    dof = do.float()
+    dvec = torch.einsum("bqhd,bqhd->bhq", dof, o.float()).contiguous()
+    dq = flash.flash_bwd_dq(q, k, v, dof, lse, dvec, **kw)
+    dq2 = flash.flash_bwd_dq(q, k, v, dof, lse, dvec, **kw)
+    dq_ref = flash.flash_bwd_dq_plain(q, k, v, dof, lse, dvec, **kw)
+    dk, dv = flash.flash_bwd_dkv(q, k, v, dof, lse, dvec, **kw)
+    dk2, dv2 = flash.flash_bwd_dkv(q, k, v, dof, lse, dvec, **kw)
+    dk_ref, dv_ref = flash.flash_bwd_dkv_plain(q, k, v, dof, lse, dvec,
+                                               **kw)
+    torch.cuda.synchronize()
+
+    def rel(pairs):
+        """max |err| and max |ref| over (got, ref) pairs, each held to
+        FLASH_BF16_RTOL of its own max |ref|."""
+        errs = [(max_err(a, b), float(b.float().abs().max()))
+                for a, b in pairs]
+        return (max(e for e, _ in errs), max(m for _, m in errs),
+                all(e <= FLASH_BF16_RTOL * m for e, m in errs))
+
+    errs = {
+        "flash_fwd": rel([(o, o_ref), (lse, lse_ref)]),
+        "flash_fwd_residual": rel(zip(r, r_ref)),
+        "flash_bwd_dq": rel([(dq, dq_ref)]),
+        "flash_bwd_dkv": rel([(dk, dk_ref), (dv, dv_ref)]),
+    }
+    bitwise = {
+        "flash_fwd": torch.equal(o, o2) and torch.equal(lse, lse2),
+        "flash_fwd_residual": all(torch.equal(a, b) for a, b in zip(r, r2)),
+        "flash_bwd_dq": torch.equal(dq, dq2),
+        "flash_bwd_dkv": torch.equal(dk, dk2) and torch.equal(dv, dv2),
+    }
+    del o2, lse2, r2, dq2, dk2, dv2, o_ref, lse_ref, r_ref, dq_ref, dk_ref
+    del dv_ref
+    pos = torch.arange(T, device=dev)
+    live = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < W)
+    pairs = B * H * int(live.sum())
+    nbytes = lambda *ts: sum(t.numel() * t.element_size()  # noqa: E731
+                             for t in ts)
+    work = {
+        "flash_fwd": (4 * D * pairs, nbytes(q, k, v, o, lse)),
+        "flash_fwd_residual": (4 * D * pairs // B,
+                               nbytes(q1, k1, v1, *r)),
+        "flash_bwd_dq": (6 * D * pairs, nbytes(q, k, v, dof, lse, dvec, dq)),
+        "flash_bwd_dkv": (8 * D * pairs,
+                          nbytes(q, k, v, dof, lse, dvec, dk, dv)),
+    }
+    runs = {
+        "flash_fwd": (lambda: flash.flash_fwd(q, k, v, **kw),
+                      lambda: flash.flash_fwd_plain(q, k, v, **kw)),
+        "flash_fwd_residual": (
+            lambda: flash.flash_fwd_residual(q1, k1, v1, **kw),
+            lambda: flash.flash_fwd_residual_plain(q1, k1, v1, **kw)),
+        "flash_bwd_dq": (
+            lambda: flash.flash_bwd_dq(q, k, v, dof, lse, dvec, **kw),
+            lambda: flash.flash_bwd_dq_plain(q, k, v, dof, lse, dvec, **kw)),
+        "flash_bwd_dkv": (
+            lambda: flash.flash_bwd_dkv(q, k, v, dof, lse, dvec, **kw),
+            lambda: flash.flash_bwd_dkv_plain(q, k, v, dof, lse, dvec,
+                                              **kw)),
+    }
+    # The yardstick: one bf16 SDPA call on the same inputs and mask, and
+    # one autograd backward through it (dq, dk and dv together).
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+
+    def sdpa(a=qt, b=kt, c=vt):
+        return torch.nn.functional.scaled_dot_product_attention(
+            a, b, c, attn_mask=live, scale=kw["scale"], enable_gqa=True)
+
+    sdpa_out, do_t = sdpa(), do.transpose(1, 2)
+    q1t, k1t, v1t = (t.transpose(1, 2) for t in (q1, k1, v1))
+    library_ms = {"flash_fwd": time_ms(torch, torch.no_grad()(sdpa)),
+                  "flash_fwd_residual": time_ms(torch, torch.no_grad()(
+                      lambda: sdpa(q1t, k1t, v1t)))}
+    library_ms["flash_bwd_dq"] = library_ms["flash_bwd_dkv"] = time_ms(
+        torch, lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), do_t,
+                                           retain_graph=True))
+    rows = []
+    for name in FLASH_BF16_ROWS:
+        flops, nb = work[name]
+        t_op, t_b = flops / PEAK_BF16_FLOPS * 1e3, nb / PEAK_HBM_BYTES * 1e3
+        err, ref_max, ok = errs[name]
+        rows.append({
+            "name": f"{name}[bf16]", "route": "cuda",
+            "source": SOURCES[name][0], "replaces": SOURCES[name][1],
+            "max_abs_err": err, "max_abs_ref": ref_max,
+            "tolerance": f"{FLASH_BF16_RTOL} x max |ref| a tensor",
+            "within_tolerance": ok, "bitwise_repeat": bitwise[name],
+            "ms": time_ms(torch, runs[name][0]),
+            "plain_ms": time_ms(torch, runs[name][1], iters=3, warmup=1),
+            "bound_ms": max(t_op, t_b),
+            "bound_by": "operations" if t_op >= t_b else "bytes",
+            "library_ms": library_ms[name],
+            "library_call": ("sdpa forward, bf16" if "fwd" in name else
+                             "sdpa backward, bf16: dq + dk + dv together"),
+            "flops": flops, "bytes": nb, "design": "bf16 mma.sync m16n8k16",
+            "route_launches": routes[name]})
+    del sdpa_out, qt, kt, vt
+    emit({"phase": "flash_bf16", "shape": dict(B=B, T=T, H=H, Hkv=Hkv, D=D,
+                                               window=W, dtype="bfloat16",
+                                               residual_batch=1),
+          "live_pairs": pairs, "launches": launches, "routes": routes,
+          "dtypes": dtypes, "kernels": rows})
+    check(api_finite, "flash_bf16: non-finite output of the bf16 API")
+    check(dtypes == {"o": "torch.bfloat16", "o_grad": "torch.bfloat16",
+                     "num": "torch.float32",
+                     "grads": ["torch.bfloat16"] * 3},
+          f"flash_bf16: output dtypes {dtypes}")
+    for n in FLASH_BF16_ROWS:
+        check(routes[n]["bf16"] > 0 and routes[n]["tf32x3"] == 0,
+              f"flash_bf16: {n} routes {routes[n]}, want bf16 only")
+    for row in rows:
+        check(row["within_tolerance"], f"{row['name']} max_abs_err "
+              f"{row['max_abs_err']} over {FLASH_BF16_RTOL} x max |ref|")
+        check(row["bitwise_repeat"], f"{row['name']}: two calls differ")
+    return rows, launches
+
+
+def _tools(*argvs):
+    """``python -m torchmpi_tpu_torch.obs.tool`` on each argument list,
+    the processes run together: [(return code, stdout), ...]."""
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "torchmpi_tpu_torch.obs.tool", *argv],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__))) for argv in argvs]
+    outs = []
+    try:
+        for argv, p in zip(argvs, procs):
+            out, err = p.communicate(timeout=300)
+            if p.returncode not in (0, 1):
+                raise RuntimeError(f"obs tool {argv[0]}: {err[-2000:]}")
+            outs.append((p.returncode, out))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def obs_dp_phase(torch, mpi, ops, dev):
+    """The telemetry slice's main path: the flagship's data-parallel step
+    of RING_N ranks on the card through
+    ``gradsync.data_parallel_step_rank_major`` under backend "pallas" (as
+    ring_dp configures it: the fused loss, 59 buckets on row 8), with
+    ``Config.obs`` "metrics", then "trace".  (a) OBS_STEPS steps with obs
+    off and the same steps from the same weights and batch with "metrics":
+    losses and synced gradients bitwise equal; (b) 0 host syncs a step
+    with "metrics"; (c) the counters equal what ran (every kernel counter
+    and the registry set to 0 just before the "metrics" steps, read just
+    after): gradsync rounds = steps, buckets = 59 x steps,
+    ``tm_collectives_total`` by op and backend = the ring counters'
+    delta, one step build, the planner's hits and misses; (d) the dump
+    parses with the tool's dump, prom and attribute (the attribution's
+    ms / step printed beside (e)'s median); (e) step ms with "metrics"
+    and "off", OBS_TURNS timed steps a side in turns (each after an
+    untimed one, since a set_config re-plans), and host us an eager
+    dispatch a side, in turns; one step under "trace" with its call
+    sites; (f) one step under ``utils.tracing.trace`` whose Chrome trace
+    names the flash, xent and ring kernels."""
+    import shutil
+    import tempfile
+
+    from torchmpi_tpu_torch import obs, planner
+    from torchmpi_tpu_torch.parallel import gradsync
+    from torchmpi_tpu_torch.utils import tracing
+
+    ring = ops["ring"]
+    n = RING_N
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    model = mpi.models.TransformerLM(**LM, attn_impl="flash",
+                                     dtype=torch.bfloat16, device=dev,
+                                     generator=g)
+    tok = torch.randint(0, LM["vocab"], (BATCH, SEQ), generator=g,
+                        device=dev)
+    params = list(model.parameters())
+    init = [p.detach().clone() for p in params]
+    opt = torch.optim.SGD(params, lr=LR)
+    out_dir = tempfile.mkdtemp(prefix="obs_dp_")
+
+    def loss_fn(m, t):
+        return fused_lm_loss(torch, mpi, m, t)
+
+    def restore():
+        with torch.no_grad():
+            for p, p0 in zip(params, init):
+                p.copy_(p0)
+        model.zero_grad(set_to_none=True)
+
+    def steps(mode, k):
+        mpi.set_config(obs=mode, obs_dir=out_dir)
+        restore()
+        step = gradsync.data_parallel_step_rank_major(
+            model, opt, loss_fn, n, backend="pallas")
+        losses = [step(tok) for _ in range(k)]
+        torch.cuda.synchronize()
+        return step, losses
+
+    try:
+        # (a) obs off, then the main path: the same steps with "metrics".
+        _, loss_off = steps("off", OBS_STEPS)
+        grad_off = [p.grad.clone() for p in params]
+        mpi.set_config(obs="metrics", obs_dir=out_dir)
+        obs.reset()
+        for mod in ops.values():
+            mod.reset_launches()
+        plans0 = planner.stats()
+        step, loss_on = steps("metrics", OBS_STEPS)
+        launches = {nm: c for mod in ops.values()
+                    for nm, c in mod.LAUNCHES.items()}
+        plans = {k_: planner.stats()[k_] - plans0[k_]
+                 for k_ in ("hits", "misses")}
+        snap = obs.registry().snapshot()
+        bitwise_loss = all(torch.equal(a, b) for a, b in zip(loss_off,
+                                                               loss_on))
+        bitwise_grad = all(torch.equal(p.grad, r) for p, r in zip(params,
+                                                                   grad_off))
+        del grad_off
+        reg = obs.registry()
+        ring_calls = {nm: c for nm, c in ring.LAUNCHES.items() if c}
+        counters = {
+            "gradsync_rounds": reg.counter_total("tm_gradsync_rounds_total"),
+            "gradsync_buckets": reg.counter_total(
+                "tm_gradsync_buckets_total"),
+            "collectives_by_op_backend": {
+                f"{r['labels']['op']}/{r['labels']['backend']}": r["value"]
+                for r in snap if r["name"] == "tm_collectives_total"},
+            "step_builds": reg.counter("tm_step_builds_total",
+                                       label="data_parallel_step"),
+            "plan_hits": reg.counter_total("tm_plan_hit_total"),
+            "plan_misses": reg.counter_total("tm_plan_miss_total"),
+        }
+        # (b) host syncs of one more step with "metrics" (not counted).
+        syncs = count_host_syncs(torch, lambda: step(tok))
+        # (d) the dump, through the tool.
+        paths = obs.dump(out_dir)
+        (rc_d, dump_out), (rc_p, prom_out), (rc_a, attr_out) = _tools(
+            ["dump", *paths], ["prom", paths[0]],
+            ["attribute", out_dir, "--json"])
+        tool_rc = {"dump": rc_d, "prom": rc_p, "attribute": rc_a}
+        attr = json.loads(attr_out)
+        attr_host = attr["hosts"][0]
+
+        # (e) overhead: step ms in turns, each timed step after an
+        # untimed one (the set_config's re-plan).
+        step_ms = {"off": [], "metrics": []}
+        for turn in range(OBS_TURNS):
+            for mode in (("off", "metrics") if turn % 2 == 0
+                         else ("metrics", "off")):
+                mpi.set_config(obs=mode)
+                step(tok)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(tok)
+                torch.cuda.synchronize()
+                step_ms[mode].append((time.perf_counter() - t0) * 1e3)
+        x = torch.ones(n, 4096, device=dev)
+        host_us = {"off": [], "metrics": []}
+        for mode in OBS_HOST_TURNS:
+            mpi.set_config(obs=mode)
+            for _ in range(5):
+                mpi.allreduce_rank_major(x, backend="pallas")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(OBS_HOST_CALLS):
+                mpi.allreduce_rank_major(x, backend="pallas")
+            host_us[mode].append((time.perf_counter() - t0) * 1e6
+                                 / OBS_HOST_CALLS)
+            torch.cuda.synchronize()
+        # One step under "trace": each eager event names its call site.
+        mpi.set_config(obs="trace")
+        obs.reset()
+        step(tok)
+        torch.cuda.synchronize()
+        eager = [e for e in obs.recorder().events() if e[2] == "eager"]
+        sites = sorted({e[6].split("@", 1)[-1] for e in eager})
+        traced_sites = bool(eager) and all(
+            "@" in e[6] and "chip_smoke.py:" in e[6] for e in eager)
+        # (f) one step under utils.tracing.trace.
+        mpi.set_config(obs="off")
+        trace_dir = os.path.join(out_dir, "trace")
+        with tracing.trace(trace_dir):
+            with tracing.annotate("obs_dp/step"):
+                step(tok)
+        trace_path = os.path.join(trace_dir, "trace.json")
+        trace_mb = os.path.getsize(trace_path) / 1e6
+        with open(trace_path) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        named = {part: any(re.search(pat, nm) for nm in names)
+                 for part, pat in (("flash", r"flash_\w*kernel"),
+                                   ("xent", r"tmw::|tmx::|xent_"),
+                                   ("ring", r"ring_direct"),
+                                   ("range", r"^obs_dp/step$"))}
+    finally:
+        mpi.set_config(obs="off")
+        obs.deactivate()
+        obs.reset()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    med = {m: statistics.median(v) for m, v in step_ms.items()}
+    emit({"phase": "obs_dp", "ranks": n, "buckets": RING_BUCKETS,
+          "steps": OBS_STEPS, "losses_off": [float(v) for v in loss_off],
+          "losses_metrics": [float(v) for v in loss_on],
+          "bitwise_losses": bitwise_loss, "bitwise_grads": bitwise_grad,
+          "host_syncs_per_step": syncs, "counters": counters,
+          "ring_launches": ring_calls, "planner": plans,
+          "tool_rc": tool_rc, "dump_lines": len(dump_out.splitlines()),
+          "prom_lines": len(prom_out.splitlines()),
+          "attribution": {"steps": attr_host["steps"],
+                          "step_ms": attr_host["step_ms"],
+                          "shares": attr["aggregate"],
+                          "notes": attr_host.get("notes", [])},
+          "step_ms": step_ms, "median_step_ms": med,
+          "overhead_pct": (med["metrics"] / med["off"] - 1) * 100,
+          "host_us_per_dispatch": host_us,
+          "median_host_us_per_dispatch": {
+              m: statistics.median(v) for m, v in host_us.items()},
+          "trace_mode": {"eager_events": len(eager), "call_sites": sites},
+          "chrome_trace": {"mb": trace_mb, "names": named},
+          "launches": launches})
+    check(bitwise_loss and bitwise_grad, "obs_dp (a): obs metrics changed "
+          "the losses or the synced gradients")
+    check(syncs == 0, f"obs_dp (b): {syncs} host syncs a step")
+    k = OBS_STEPS
+    row8 = launches.get("ring_allreduce_chunked", 0)
+    check(counters["gradsync_rounds"] == k, f"obs_dp (c) rounds {counters}")
+    check(counters["gradsync_buckets"] == RING_BUCKETS * k,
+          f"obs_dp (c) buckets {counters}")
+    check(counters["collectives_by_op_backend"] == {"allreduce/pallas":
+                                                    sum(ring_calls.values())}
+          and row8 == RING_BUCKETS * k,
+          f"obs_dp (c) collectives {counters} vs ring {ring_calls}")
+    check(counters["step_builds"] == 1, f"obs_dp (c) builds {counters}")
+    check(counters["plan_misses"] == plans["misses"] == 1
+          and counters["plan_hits"] == plans["hits"] == k - 1,
+          f"obs_dp (c) plans {counters} vs planner {plans}")
+    for nm in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "xent_fwd",
+               "xent_bwd_dx", "xent_bwd_dw", "ring_allreduce_chunked"):
+        check(launches.get(nm, 0) > 0, f"obs_dp: {nm} never launched")
+    check(tool_rc == {"dump": 0, "prom": 0, "attribute": 0},
+          f"obs_dp (d) tool exit codes {tool_rc}")
+    check(attr_host["steps"] >= 1, "obs_dp (d) no attribution window")
+    check(traced_sites, f"obs_dp (e) trace-mode call sites {sites}")
+    check(all(named.values()), f"obs_dp (f) chrome trace names {named}")
+    return launches
+
+
+def obs_serving_phase(torch, mpi, dev):
+    """The serving telemetry on the card: lm_serving's flagship (float32,
+    flash as trained) on one replica of SERVE_SLOTS slots, the first
+    OBS_SERVE_REQUESTS requests of its trace under the wall clock, with
+    ``Config.obs`` "metrics": requests = completed = 16, the tokens
+    counter = the tokens emitted, and ``tool slo``'s TTFT and ITL p50 in
+    the same log2 bucket as the phase's own wall-clock p50s."""
+    import importlib
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from torchmpi_tpu_torch import obs, serving
+
+    tool = importlib.import_module("torchmpi_tpu_torch.obs.tool")
+    out_dir = tempfile.mkdtemp(prefix="obs_serving_")
+    model = mpi.models.TransformerLM(
+        **LM, attn_impl="flash", device=dev,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 2))
+    model.eval()
+    mpi.models.generate(model, np.zeros((1, 16), np.int64), 4)  # warm-up
+    torch.cuda.synchronize()
+    make, _, _ = _serve_trace(np, serving, OBS_SERVE_UNIT_S)
+    reqs = make()[:OBS_SERVE_REQUESTS]
+    try:
+        mpi.set_config(obs="metrics", obs_dir=out_dir)
+        obs.reset()
+        srv = serving.Server(model, replicas=1, slots=SERVE_SLOTS,
+                             slot_tokens=LM["max_len"])
+        t0 = time.perf_counter()
+        done = srv.run_trace(reqs)
+        wall_s = time.perf_counter() - t0
+        reg = obs.registry()
+        counts = {e: reg.counter_total(f"tm_serving_{e}_total")
+                  for e in ("requests", "completed", "tokens")}
+        emitted = sum(len(r.tokens) for r in reqs)
+        hist = {r["name"]: r for r in reg.snapshot()
+                if r["name"] in ("tm_serving_ttft_us", "tm_serving_itl_us")}
+        paths = obs.dump(out_dir)
+        (rc, slo_out), = _tools(["slo", paths[0]])
+    finally:
+        mpi.set_config(obs="off")
+        obs.deactivate()
+        obs.reset()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    def p50(xs):
+        """The order statistic the histogram's p50 reads: the first value
+        at which half the count is reached."""
+        xs = sorted(xs)
+        return xs[max(0, math.ceil(0.5 * len(xs)) - 1)]
+
+    own = {"ttft": p50([r.ttft_s * 1e6 for r in reqs]),
+           "itl": p50([x * 1e6 for x in srv.last_stats["itl_s"]])}
+
+    def bucket(us):
+        return int(us).bit_length() - 1
+
+    slo_p50 = {kind: tool._hist_percentile(
+        hist[f"tm_serving_{kind}_us"]["buckets"],
+        hist[f"tm_serving_{kind}_us"]["count"], 0.5)
+        for kind in ("ttft", "itl")}
+    same = {kind: bucket(slo_p50[kind]) - 1 == bucket(own[kind])
+            for kind in ("ttft", "itl")}
+    emit({"phase": "obs_serving", "requests": len(reqs),
+          "wall_s": wall_s, "counters": counts, "tokens_emitted": emitted,
+          "own_p50_us": own, "slo_p50_upper_edge_us": slo_p50,
+          "same_log2_bucket": same, "slo_rc": rc,
+          "slo": slo_out.splitlines()})
+    check(len(done) == OBS_SERVE_REQUESTS and all(r.error is None
+                                                  for r in reqs),
+          "obs_serving: a request failed")
+    check(counts["requests"] == counts["completed"] == OBS_SERVE_REQUESTS,
+          f"obs_serving: counters {counts}")
+    check(counts["tokens"] == emitted,
+          f"obs_serving: tokens counter {counts['tokens']} vs {emitted}")
+    check(rc == 0 and all(same.values()),
+          f"obs_serving: slo p50 {slo_p50} vs the phase's {own}")
+
+
 def main() -> int:
     import torch
 
@@ -6683,6 +7203,11 @@ def main() -> int:
     dev = mpi.init()
     try:
         rows = kernel_phase(torch, flash, dev)
+        # The repair of slice 25: rows 1, 1 res, 2 and 3 on bf16 operands,
+        # through the public entry points.
+        bf16_rows, bf16_launches = flash_bf16_phase(torch, flash, dev)
+        rows += bf16_rows
+        torch.cuda.empty_cache()
         rows += xent_kernel_phase(torch, xent, dev)
         rows += xent_f32_phase(torch, xent, dev)
         rows += ring_kernel_phase(torch, mpi, ring, dev)
@@ -6707,6 +7232,12 @@ def main() -> int:
             torch, mpi, dict(ops, ring=ring), dev)
         launches.update({k: v for k, v in ring_launches.items()
                          if k in RING_CONFIGS})
+        torch.cuda.empty_cache()
+        # The main path of slice 25: the same DP step through
+        # data_parallel_step_rank_major with the telemetry layer on
+        # (rows 1-6 and 8), bitwise to it off, its counters against the
+        # launches.
+        obs_launches = obs_dp_phase(torch, mpi, dict(ops, ring=ring), dev)
         torch.cuda.empty_cache()
         # The main path of slice 4: ZeRO-1 / ZeRO-3 of RING_N ranks on the
         # card, its reduce-scatters and all-gathers on the ring kernels.
@@ -6764,6 +7295,9 @@ def main() -> int:
         # the table: rows 1-14 counted, 0 each).
         lm_serving_phase(torch, mpi, dict(ops, ring=ring), dev)
         torch.cuda.empty_cache()
+        # Slice 25's serving telemetry on the card.
+        obs_serving_phase(torch, mpi, dev)
+        torch.cuda.empty_cache()
         # The main path of slice 24: the flagship's widths served by two
         # tensor-parallel replicas of 4 rank-major ranks (rows 11, 8, 12
         # and 7 on the sublayers' sums), PP decode, generate_parallel.
@@ -6816,7 +7350,11 @@ def main() -> int:
                 **({"megatron_3d": mg_launches[name]}
                    if mg_launches.get(name) else {}),
                 **({"parallel_serving": ps_launches[name]}
-                   if ps_launches.get(name) else {})}
+                   if ps_launches.get(name) else {}),
+                **({"flash_bf16": bf16_launches[name]}
+                   if bf16_launches.get(name) else {}),
+                **({"obs_dp": obs_launches[name]}
+                   if obs_launches.get(name) else {})}
 
     kernels = [{**{k: dict(row, launches=sum(by_path(
                     row["name"]).values()))[k] for k in keys},

@@ -152,12 +152,13 @@ def test_ps_example_runs(name, argv):
 @pytest.mark.parametrize("name,argv,item", [
     ("mnist_allreduce", ["--dcn", "2"], "item 4"),
     ("mnist_allreduce", ["--backend", "hierarchical"], "item 4"),
-    ("mnist_allreduce", ["--restart-loop"], "item 10"),
-    ("checkpoint_resume", ["--restart-loop"], "item 10"),
+    ("mnist_allreduce", ["--restart-loop"], "item 13"),
+    ("checkpoint_resume", ["--restart-loop"], "item 13"),
 ])
 def test_unported_flags_raise_by_name(name, argv, item):
     """The flags whose machinery is not ported raise by their ROADMAP item
-    (item 10); those of item 4, the two-level world, run now: ``--dcn 2``
+    (item 13, where ``utils/restart.py`` belongs); those of item 4, the
+    two-level world, run now: ``--dcn 2``
     alone in a world of one process (the flag factors rank-major ranks),
     ``--backend hierarchical`` there warned once and run on the stock
     route."""

@@ -277,10 +277,17 @@ def test_indivisible_batch_and_unported_config_are_refused():
         model, toptim.sgd(0.1), full, N)
     with pytest.raises(ValueError, match="does not split over 4 ranks"):
         step(p, s, torch.zeros(6, 1, 28, 28), torch.zeros(6).long())
+    tmpi.set_config(analysis="warn")
+    try:
+        with pytest.raises(NotImplementedError, match="queue A, item 11"):
+            recipes.make_fsdp_train_step(model, toptim.sgd(0.1), full)
+    finally:
+        tmpi.set_config(analysis="off")
+    # Telemetry is ported: the FSDP builder runs with obs on.
     tmpi.set_config(obs="metrics")
     try:
-        with pytest.raises(NotImplementedError, match="queue A, item 10"):
-            recipes.make_fsdp_train_step(model, toptim.sgd(0.1), full)
+        got = recipes.make_fsdp_train_step(model, toptim.sgd(0.1), full)
+        assert callable(got[0])
     finally:
         tmpi.set_config(obs="off")
 

@@ -1,7 +1,7 @@
 """The port's collective planner (torchmpi_tpu_torch/planner.py) on the CPU.
 
-The cases of ``tests/test_planner.py`` but its telemetry ones (ROADMAP
-queue A, item 10) and its pushed-communicator one (held in
+The cases of ``tests/test_planner.py`` but its telemetry ones (held in
+tests/test_torch_obs_hooks.py) and its pushed-communicator one (held in
 tests/test_torch_nd_world.py): a hit on the
 same structure with other values, a new plan for a new shape or dtype,
 re-plans on a ``set_config`` (epoch, backend, ``fuse_max_bytes``), a

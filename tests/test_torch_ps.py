@@ -433,14 +433,28 @@ def test_wrong_size_rejected(shared):
 
 
 def test_stats_refuse_obs(shared):
-    """``Config.obs`` other than "off": the telemetry registry is not
-    ported, and ``stats()`` says so by name."""
+    """``Config.obs`` other than "off" (refused before the telemetry layer
+    was ported): ``stats()`` now feeds the registry, each snapshot's
+    deltas against the previous one as monotone ``tm_ps_*_total``
+    counters (JAX ``tests/test_obs.py::test_ps_stats_retry_and_registry``
+    :433)."""
     tmpi.init(device="cpu", obs="metrics")
     try:
-        with pytest.raises(NotImplementedError, match="queue A, item 10"):
-            shared.stats()
+        from torchmpi_tpu_torch import obs
+
+        obs.reset()
+        shared.send(tree_of(0.0), rule="add").wait()
+        s1 = shared.stats()
+        assert s1["ops"] >= 1
+        s2 = shared.stats()
+        assert all(s2[k] >= s1[k] for k in s1)
+        reg = obs.registry()
+        assert reg.counter_total("tm_ps_ops_total") == s2["ops"]
+        assert reg.counter_total("tm_ps_bytes_in_total") == s2["bytes_in"]
     finally:
         tmpi.stop()
+        obs.deactivate()
+        obs.reset()
 
 
 def test_server_shutdown_fails_client_ops():

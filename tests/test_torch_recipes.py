@@ -219,14 +219,25 @@ def test_unported_options_are_refused():
         build(model, tx, 2, zero=3)
     with pytest.raises(ValueError, match="zero must be"):
         build(model, tx, 2, zero=2)
-    for field, item in (("analysis", "11"), ("obs", "10")):
-        tmpi.set_config(**{field: "warn"})
-        try:
-            with pytest.raises(NotImplementedError,
-                               match=f"queue A, item {item}"):
-                build(model, tx, 2)
-        finally:
-            tmpi.set_config(**{field: "off"})
+    tmpi.set_config(analysis="warn")
+    try:
+        with pytest.raises(NotImplementedError, match="queue A, item 11"):
+            build(model, tx, 2)
+    finally:
+        tmpi.set_config(analysis="off")
+    # The telemetry layer is ported: the builder runs with obs on and
+    # counts one step build under the JAX recipe's label.
+    tmpi.set_config(obs="metrics")
+    try:
+        from torchmpi_tpu_torch import obs
+
+        obs.reset()
+        build(model, tx, 2)
+        assert obs.registry().counter(
+            "tm_step_builds_total", label="bn_dp_train_step(zero=0)") == 1
+    finally:
+        tmpi.set_config(obs="off")
+        obs.reset()
     x, y = _batch(8, seed=7)
     outs = []
     for overlap, cfg in (("auto", "off"), (None, "auto")):

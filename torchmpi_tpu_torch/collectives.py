@@ -51,9 +51,15 @@ rank-major collective is enqueued on a side CUDA stream after the caller's
 stream; a process-world one is ``torch.distributed``'s ``async_op=True``
 work; a staged one runs on one worker thread.  ``wait()`` returns the
 result with the caller's current stream ordered after it (no host block
-for the direct flavours).  The JAX package's watchdog, telemetry and
-flight-recorder hooks of ``wait()`` are not ported (ROADMAP queue A, item
-10).
+for the direct flavours).
+
+With ``Config.obs`` on (``obs/``), every rank-major call and every
+process-world verb records its dispatch and completion edges (the
+plan's pre-bound recorders, ``planner.observed``), every in-axis call
+one ``tm_inaxis_calls_total``, and every handle its creation and its
+wait (``tm_async_*``).  With obs off none of it runs and the layer is
+never imported.  The JAX package's watchdog hooks of ``wait()`` are
+ROADMAP A10 (b).
 """
 
 from __future__ import annotations
@@ -74,22 +80,30 @@ AxisNames = Union[str, Sequence[str], None]
 
 class PeerTimeoutError(RuntimeError):
     """A wait exceeded its deadline (the JAX package's
-    ``faults/policy.py`` :72, without the flight-recorder tail, which
-    belongs to the telemetry layer, ROADMAP queue A, item 10)."""
+    ``faults/policy.py`` :72): the hang, converted into a typed error
+    carrying the flight-recorder tail (``utils.telemetry.flight_tail``,
+    empty with obs off) for post-mortem alignment."""
 
     def __init__(self, site: str, *, peer: str = "", elapsed_s: float = 0.0,
                  deadline_s: float = 0.0,
-                 last_error: Optional[BaseException] = None):
+                 last_error: Optional[BaseException] = None,
+                 flight_tail: Optional[List[dict]] = None):
         self.site = site
         self.peer = peer
         self.elapsed_s = elapsed_s
         self.deadline_s = deadline_s
         self.last_error = last_error
+        self.flight_tail = flight_tail or []
+        tail = ""
+        if self.flight_tail:
+            last = self.flight_tail[-1]
+            tail = (f"; last flight event #{last.get('seq')} "
+                    f"{last.get('ev')}:{last.get('op')}")
         peer_s = f" (peer {peer})" if peer else ""
         super().__init__(
             f"{site}{peer_s}: no progress within {deadline_s:.3g}s "
             f"deadline (elapsed {elapsed_s:.3g}s, "
-            f"last error: {last_error!r})")
+            f"last error: {last_error!r}){tail}")
 
 
 def _check_op(op: str) -> None:
@@ -492,19 +506,29 @@ def _nbytes(x: torch.Tensor) -> int:
 
 def _world(verb: str, x, backend: Optional[str], params: dict, *,
            async_op: bool = False, axis: AxisNames = None,
-           owned: bool = False):
+           owned: bool = False, record: bool = False):
     """Process-world ``verb`` on this rank's ``x``: its plan's
     implementation (``planner.plan_world``; with the planner off, the
-    selector's for its bytes), run by :func:`_world_run`."""
+    selector's for its bytes), run by :func:`_world_run`.  ``record``
+    (the public verbs; the in-axis verbs record ``tm_inaxis_calls_total``
+    instead): with obs on, its dispatch and completion edges."""
     x = _check_tensor(x)
     if planner.enabled():
-        return planner.plan_world(verb, x, backend, params, axis).replay(
-            x, async_op=async_op, owned=owned)
-    impl = selector.select(verb, backend, nbytes=_nbytes(x),
-                           n_dcn=None if axis is None else 1, dtype=x.dtype,
-                           device=x.device, axes=_axes_tuple(axis))
-    return _world_run(verb, impl, x, params, async_op=async_op, axis=axis,
-                      owned=owned)
+        plan = planner.plan_world(verb, x, backend, params, axis)
+        run, name = plan.replay, plan.backend
+    else:
+        impl = selector.select(verb, backend, nbytes=_nbytes(x),
+                               n_dcn=None if axis is None else 1,
+                               dtype=x.dtype, device=x.device,
+                               axes=_axes_tuple(axis))
+        name = selector.name_of(verb, impl)
+
+        def run(x, async_op=False, owned=False):
+            return _world_run(verb, impl, x, params, async_op=async_op,
+                              axis=axis, owned=owned)
+    if record:
+        run = planner.observed(run, verb, _nbytes(x), name, x.dtype, None)
+    return run(x, async_op=async_op, owned=owned)
 
 
 def _world_run(verb: str, impl: Callable, x: torch.Tensor, params: dict,
@@ -533,21 +557,22 @@ def allreduce(x: torch.Tensor, *, op: str = "sum",
               backend: Optional[str] = None) -> torch.Tensor:
     """Reference: ``mpi.allreduceTensor``.  Returns the sum (or mean) of
     every rank's ``x``."""
-    return _world("allreduce", x, backend, {"op": op})
+    return _world("allreduce", x, backend, {"op": op}, record=True)
 
 
 def broadcast(x: torch.Tensor, *, root: int = 0,
               backend: Optional[str] = None) -> torch.Tensor:
     """Reference: ``mpi.broadcastTensor(root, t)``.  Returns rank
     ``root``'s ``x`` on every rank."""
-    return _world("broadcast", x, backend, {"root": root})
+    return _world("broadcast", x, backend, {"root": root}, record=True)
 
 
 def reduce(x: torch.Tensor, *, root: int = 0, op: str = "sum",
            backend: Optional[str] = None) -> torch.Tensor:
     """Reference: ``mpi.reduceTensor(root, t)``.  Rank ``root`` gets the
     sum (or mean) of every rank's ``x``; the others keep their own."""
-    return _world("reduce", x, backend, {"root": root, "op": op})
+    return _world("reduce", x, backend, {"root": root, "op": op},
+                  record=True)
 
 
 def reduce_scatter(x: torch.Tensor, *, op: str = "sum",
@@ -555,35 +580,36 @@ def reduce_scatter(x: torch.Tensor, *, op: str = "sum",
     """This rank's tile of the sum of every rank's ``x`` [k, ...], k
     divisible by the world size: [k / n, ...], rank r holding tile r
     (``lax.psum_scatter(tiled=True)``; sum only)."""
-    return _world("reduce_scatter", x, backend, {"op": op})
+    return _world("reduce_scatter", x, backend, {"op": op}, record=True)
 
 
 def allgather(x: torch.Tensor, *,
               backend: Optional[str] = None) -> torch.Tensor:
     """Reference: ``mpi.allgatherTensor``.  The stack [n, ...] of every
     rank's ``x``, in rank order."""
-    return _world("allgather", x, backend, {})
+    return _world("allgather", x, backend, {}, record=True)
 
 
 def gather(x: torch.Tensor, *, root: int = 0,
            backend: Optional[str] = None) -> torch.Tensor:
     """MPI_Gather: rank ``root`` gets the stack [n, ...] of every rank's
     ``x``, the other ranks zeros of that shape."""
-    return _world("gather", x, backend, {"root": root})
+    return _world("gather", x, backend, {"root": root}, record=True)
 
 
 def scatter(x: torch.Tensor, *, root: int = 0,
             backend: Optional[str] = None) -> torch.Tensor:
     """MPI_Scatter: rank i gets tile i of rank ``root``'s ``x`` [k, ...],
     k divisible by the world size: [k / n, ...]."""
-    return _world("scatter", x, backend, {"root": root})
+    return _world("scatter", x, backend, {"root": root}, record=True)
 
 
 def sendreceive(x: torch.Tensor, *, src: int, dst: int,
                 backend: Optional[str] = None) -> torch.Tensor:
     """Reference: ``mpi.sendreceiveTensor``: rank ``dst`` gets rank
     ``src``'s ``x``, every other rank keeps its own."""
-    return _world("sendreceive", x, backend, {"src": src, "dst": dst})
+    return _world("sendreceive", x, backend, {"src": src, "dst": dst},
+                  record=True)
 
 
 def alltoall(x: torch.Tensor, *, split_axis: int = 0, concat_axis: int = 0,
@@ -591,7 +617,8 @@ def alltoall(x: torch.Tensor, *, split_axis: int = 0, concat_axis: int = 0,
     """All-to-all: rank i gets every rank's i-th piece of ``x`` (split n
     ways along ``split_axis``), concatenated along ``concat_axis``."""
     return _world("alltoall", x, backend,
-                  {"split_axis": split_axis, "concat_axis": concat_axis})
+                  {"split_axis": split_axis, "concat_axis": concat_axis},
+                  record=True)
 
 
 def _world_axes(verb: str, axis_names: AxisNames) -> AxisNames:
@@ -656,6 +683,18 @@ def _tree_in_axis(verb: str, tree, kw: dict, axis: AxisNames):
         for x in leaves])
 
 
+def _obs_in_axis(verb: str, x, axis: AxisNames) -> None:
+    """One in-axis call's ``tm_inaxis_calls_total`` (JAX :353-362): the
+    tree's bytes on this rank, the axes it spans (every axis of the
+    current communicator for None).  Every call counts: JAX counts the
+    traces of a jitted step (ROADMAP queue C note 31)."""
+    from . import obs
+
+    axes = (runtime._current_or_default().axes if axis is None
+            else _axes_tuple(axis))
+    obs.record_in_axis(verb, selector.nbytes_of(x), axes)
+
+
 def _in_axis(verb: str):
     """The in-step form of process-world ``verb`` over the current
     communicator's axes or some of them (JAX :365-447): one tensor as
@@ -664,6 +703,8 @@ def _in_axis(verb: str):
     def in_axis(x, axis_names: AxisNames = None, *,
                 backend: Optional[str] = None, **params):
         axis = _world_axes(f"{verb}_in_axis", axis_names)
+        if runtime.effective_config().obs != "off":
+            _obs_in_axis(verb, x, axis)
         if isinstance(x, torch.Tensor):
             return _world(verb, x, backend, params, axis=axis)
         return _tree_in_axis(verb, x, dict(params, backend=backend), axis)
@@ -916,6 +957,14 @@ def _eager(verb: str, xs, backend: Optional[str], staged: Optional[bool],
     if planner.enabled():
         return planner.plan_for(verb, xs, backend, staged, params, axis,
                                 n_dcn).replay(xs)
+    if runtime.effective_config().obs != "off":
+        name = ("host" if _staged_requested(backend, staged) else
+                selector.name_of(f"{verb}_rank_major", _rank_major(
+                    verb, xs, backend, 1 if axis is not None else n_dcn)))
+        return planner.observed(
+            lambda x: _eager_unplanned(verb, x, backend, staged, params,
+                                       axis, n_dcn),
+            verb, _nbytes(xs[0]), name, xs.dtype, xs.shape[0])(xs)
     return _eager_unplanned(verb, xs, backend, staged, params, axis, n_dcn)
 
 
@@ -1067,7 +1116,7 @@ class AsyncHandle:
     """
 
     __slots__ = ("_value", "_future", "_event", "_work", "_device",
-                 "_error", "_op", "_placed")
+                 "_error", "_op", "_placed", "_waited")
 
     def __init__(self, value=None, *, future=None, event=None, work=None,
                  device: Optional[torch.device] = None, op: str = "",
@@ -1080,6 +1129,7 @@ class AsyncHandle:
         self._error = error
         self._op = op
         self._placed = future is None
+        self._waited = False
 
     @property
     def op(self) -> str:
@@ -1124,17 +1174,33 @@ class AsyncHandle:
         after it.  Re-raises the collective's error, on every call.
         ``timeout_s`` bounds the wait for completion: on expiry a
         :class:`PeerTimeoutError` raises (the collective is not
-        cancelled)."""
+        cancelled), carrying the flight recorder's tail when obs is on.
+        With obs on, the first wait records its time blocked
+        (``tm_async_wait_seconds``) and a flight event."""
+        return self._wait(timeout_s, observe=True)
+
+    def _wait(self, timeout_s: Optional[float], observe: bool):
+        t0 = time.monotonic()
         if timeout_s is not None:
-            t0 = time.monotonic()
             while not self.done:
                 elapsed = time.monotonic() - t0
                 if elapsed >= timeout_s:
+                    from .utils import telemetry
+
                     raise PeerTimeoutError(
                         f"async.wait({self._op})", elapsed_s=elapsed,
-                        deadline_s=float(timeout_s))
+                        deadline_s=float(timeout_s),
+                        flight_tail=telemetry.flight_tail())
                 time.sleep(0.0005 if elapsed < 0.01
                            else (0.002 if elapsed < 0.1 else 0.02))
+        try:
+            return self._complete()
+        finally:
+            if observe and not self._waited:
+                _obs_async("wait", self._op, time.monotonic() - t0)
+            self._waited = True
+
+    def _complete(self):
         if self._future is not None:
             self._resolve_future()
         if self._error is not None:
@@ -1172,25 +1238,52 @@ def wait_all(handles: Sequence[AsyncHandle],
     handle is driven to completion before the first error (in input
     order) re-raises.  ``timeout_s`` is one deadline across the batch: on
     expiry :class:`PeerTimeoutError` raises at once and the remaining
-    handles stay in flight (JAX :1030-1108)."""
+    handles stay in flight (JAX :1030-1108).  With obs on, each handle
+    waited here counts one wait and the batch's time blocked is ONE
+    ``tm_async_wait_seconds`` observation under ``op="wait_all"`` (never
+    one a handle, which would inflate the sum)."""
     hs = list(handles)
     t0 = time.monotonic()
     first_err: Optional[BaseException] = None
     out = []
-    for h in hs:
-        left = (None if timeout_s is None
-                else max(0.0, float(timeout_s) - (time.monotonic() - t0)))
-        try:
-            out.append(h.wait(timeout_s=left))
-        except PeerTimeoutError:
-            raise
-        except Exception as e:  # noqa: BLE001 - re-raised below
-            out.append(None)
-            if first_err is None:
-                first_err = e
+    fresh = [h for h in hs if not h._waited]
+    try:
+        for h in hs:
+            left = (None if timeout_s is None
+                    else max(0.0, float(timeout_s)
+                             - (time.monotonic() - t0)))
+            try:
+                out.append(h._wait(left, observe=False))
+            except PeerTimeoutError:
+                raise
+            except Exception as e:  # noqa: BLE001 - re-raised below
+                out.append(None)
+                if first_err is None:
+                    first_err = e
+    finally:
+        if fresh and runtime.effective_config().obs != "off":
+            dt = time.monotonic() - t0
+            for h in fresh:
+                if h._waited:
+                    _obs_async("wait", h._op)
+            _obs_async("wait", "wait_all", dt)
     if first_err is not None:
         raise first_err
     return out
+
+
+def _obs_async(event: str, op: str, wait_s: Optional[float] = None,
+               x=None) -> None:
+    """Handle-lifecycle telemetry (``tm_async_handles_total``,
+    ``tm_async_wait_seconds`` and a flight event; JAX :1111-1122): one
+    string compare when obs is off, the module never imported; the
+    payload's bytes are summed only after that gate."""
+    if runtime.effective_config().obs == "off":
+        return
+    from . import obs
+
+    obs.record_async(event, op, wait_s=wait_s,
+                     nbytes=selector.nbytes_of(x) if x is not None else 0)
 
 
 # One staged worker on purpose (JAX :1134): the reference's collective
@@ -1213,11 +1306,15 @@ def _staged_executor():
 
 
 def _staged_async_work(verb: str, xs: torch.Tensor, params: dict,
-                       donate: bool, ready) -> torch.Tensor:
+                       donate: bool, ready, edges=None) -> torch.Tensor:
     """The staged worker's part of one handle: wait until the caller's
     stream reached the dispatch, stage ``xs`` to host (releasing its
     storage when donated), and run the closed form on the host.  The copy
-    back to the device is ``wait()``'s."""
+    back to the device is ``wait()``'s.  ``edges``: obs's dispatch and
+    completion recorders, run here around the exchange (JAX
+    :1165-1196)."""
+    if edges is not None:
+        edges[0]()
     if ready is not None:
         ready.synchronize()
         with torch.cuda.device(xs.device):
@@ -1226,7 +1323,10 @@ def _staged_async_work(verb: str, xs: torch.Tensor, params: dict,
         host = _to_host(xs)
     if donate:
         xs.untyped_storage().resize_(0)
-    return _host_compute(verb, host, params, xs.device)
+    out = _host_compute(verb, host, params, xs.device)
+    if edges is not None:
+        edges[1]()
+    return out
 
 
 _side_streams: Dict[int, "torch.cuda.Stream"] = {}
@@ -1266,8 +1366,20 @@ def _async_rank_major(verb: str, xs, *, backend: Optional[str] = None,
         if xs.is_cuda:
             ready = torch.cuda.Event()
             ready.record(torch.cuda.current_stream(xs.device))
+        edges = None
+        if runtime.effective_config().obs != "off":
+            from . import obs
+
+            comm, nb = runtime._current_or_default(), _nbytes(xs[0])
+            edges = (obs.eager_recorder(verb, nb, "host", comm, xs.dtype,
+                                        xs.shape[0]),
+                     obs.eager_done_recorder(verb, nb, "host", comm,
+                                             xs.shape[0]))
+        # Recorded before the worker can run: create precedes the
+        # exchange's own edges in the ring.
+        _obs_async("create", verb, x=xs)
         fut = _staged_executor().submit(_staged_async_work, verb, xs,
-                                        dict(params), donate, ready)
+                                        dict(params), donate, ready, edges)
         return AsyncHandle(future=fut, device=xs.device, op=verb)
     try:
         # The route ("auto" measured on a plan miss) is resolved here, on
@@ -1281,7 +1393,9 @@ def _async_rank_major(verb: str, xs, *, backend: Optional[str] = None,
             def run(x):
                 return impl(x, **params)
         if not xs.is_cuda:
-            return AsyncHandle(run(xs), op=verb)
+            h = AsyncHandle(run(xs), op=verb)
+            _obs_async("create", verb, x=xs)
+            return h
         side = side_stream(xs.device)
         side.wait_stream(torch.cuda.current_stream(xs.device))
         with torch.cuda.stream(side):
@@ -1291,7 +1405,9 @@ def _async_rank_major(verb: str, xs, *, backend: Optional[str] = None,
         xs.record_stream(side)
     except Exception as e:  # noqa: BLE001 - a failed handle is done
         return AsyncHandle(op=verb, error=e)
-    return AsyncHandle(out, event=event, device=xs.device, op=verb)
+    h = AsyncHandle(out, event=event, device=xs.device, op=verb)
+    _obs_async("create", verb, x=xs)
+    return h
 
 
 def _async_world(verb: str, x, axis_names: AxisNames = None, *,
@@ -1310,9 +1426,10 @@ def _async_world(verb: str, x, axis_names: AxisNames = None, *,
             got = _world(verb, x, backend, params, async_op=True, axis=axis)
     except Exception as e:  # noqa: BLE001 - a failed handle is done
         return AsyncHandle(op=verb, error=e)
-    if isinstance(got, _Pending):
-        return AsyncHandle(work=got, op=verb)
-    return AsyncHandle(got, op=verb)
+    h = (AsyncHandle(work=got, op=verb) if isinstance(got, _Pending)
+         else AsyncHandle(got, op=verb))
+    _obs_async("create", verb, x=x)
+    return h
 
 
 class _AsyncNamespace:

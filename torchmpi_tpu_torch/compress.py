@@ -27,10 +27,11 @@ Every collective here has two forms, as the rest of the port: across
 processes, on this rank's shard and the runtime's subgroups
 (``runtime.group``), and rank-major, where a stack holds every rank's
 buffer on one device (``*_rank_major``, rows in global rank order
-``d * n_ici + i``).  The JAX package's trace and telemetry hooks
-(``note_leg``, ``note_skipped``, ``residual_note``, ``obs.record_dcn``)
-wait for the telemetry and analysis layers (ROADMAP queue A, items 10 and
-11).
+``d * n_ici + i``).  With ``Config.obs`` on, every dcn leg counts its
+wire and payload bytes (:func:`note_leg`, ``tm_dcn_*``; JAX :244-256,
+:343-353, :392-401).  The JAX package's analysis records
+(``note_skipped``, ``residual_note`` and ``note_leg``'s C2 record) wait
+for the analysis layer (ROADMAP queue A, item 11).
 """
 
 from __future__ import annotations
@@ -153,6 +154,21 @@ def expected_shards(extents: Sequence[int], n_inner: int) -> List[int]:
 
 def wire_itemsize(codec: str) -> int:
     return torch.empty((), dtype=_WIRE_DTYPES[codec]).element_size()
+
+
+def note_leg(op: str, codec: Optional[str], payload_nbytes: int,
+             wire_nbytes: Optional[int] = None) -> None:
+    """One dcn leg's telemetry, with obs on: ``payload_nbytes`` the
+    uncompressed shard one rank sends, ``wire_nbytes`` what it puts on the
+    wire (the payload itself for an uncompressed leg, ``codec`` None).
+    Every call counts (JAX counts traces; ROADMAP queue C note 31)."""
+    if runtime.effective_config().obs == "off":
+        return
+    from . import obs
+
+    obs.record_dcn(op, codec or "none",
+                   payload_nbytes if wire_nbytes is None else wire_nbytes,
+                   payload_nbytes)
 
 
 def wire_nbytes_of(n_elems: int, codec: str) -> int:
@@ -336,9 +352,12 @@ def ef_bucket_allreduce(flat: torch.Tensor, codec: str, residual, *,
     shard = flat.new_empty(padded.shape[0] // n_ici)
     collectives._reduce_scatter_single(shard, padded, group=gi)
     if min_bytes and shard.numel() * shard.element_size() < int(min_bytes):
+        note_leg("allreduce", None, shard.numel() * shard.element_size())
         dist.all_reduce(shard, group=gd)
         tot, new_res = shard, residual
     else:
+        note_leg("allreduce", codec, shard.numel() * shard.element_size(),
+                 wire_nbytes_of(shard.numel(), codec))
         tot, new_res = dcn_allreduce(shard, codec,
                                      residual=residual.reshape(-1),
                                      group=gd)
@@ -366,8 +385,11 @@ def ef_bucket_allreduce_rank_major(flat: torch.Tensor, codec: str, residual,
     x = _padded(flat, c * n_ici).reshape(n_dcn, n_ici, n_ici, c)
     shards = _fold(x, 1)                      # [n_dcn, tile, c]
     if min_bytes and c * flat.element_size() < int(min_bytes):
+        note_leg("allreduce", None, c * flat.element_size())
         tot, new_res = _fold(shards, 0), residual
     else:
+        note_leg("allreduce", codec, c * flat.element_size(),
+                 wire_nbytes_of(c, codec))
         tot, new_res = dcn_allreduce_rank_major(
             shards, codec, residual=residual.reshape(n_dcn, n_ici, c))
         new_res = new_res.reshape(residual.shape).to(residual.dtype)
@@ -395,9 +417,12 @@ def ef_group_reduce_scatter(g_flat: torch.Tensor, codec: str, residual, *,
     s = g_flat.new_empty(n_dcn * sub)
     collectives._reduce_scatter_single(s, perm, group=runtime.group("ici"))
     if min_bytes and s.numel() * s.element_size() < int(min_bytes):
+        note_leg("reduce_scatter", None, s.numel() * s.element_size())
         dist.all_reduce(s, group=runtime.group("dcn"))
         tot, new_res = s, residual
     else:
+        note_leg("reduce_scatter", codec, s.numel() * s.element_size(),
+                 wire_nbytes_of(s.numel(), codec))
         tot, new_res = dcn_allreduce(s, codec, residual=residual.reshape(-1))
         new_res = new_res.reshape(residual.shape).to(residual.dtype)
     return tot[d * sub:(d + 1) * sub].clone(), new_res
@@ -416,8 +441,12 @@ def ef_group_reduce_scatter_rank_major(g_flat: torch.Tensor, codec: str,
     x = g_flat.reshape(n_dcn, n_ici, n_dcn, n_ici, sub)
     s = _fold(x, 1).transpose(2, 1)          # [d, t, d', sub]
     if min_bytes and n_dcn * sub * g_flat.element_size() < int(min_bytes):
+        note_leg("reduce_scatter", None, n_dcn * sub * g_flat.element_size())
         tot, new_res = _fold(s, 0), residual
     else:
+        note_leg("reduce_scatter", codec,
+                 n_dcn * sub * g_flat.element_size(),
+                 wire_nbytes_of(n_dcn * sub, codec))
         tot, new_res = dcn_allreduce_rank_major(
             s.reshape(n_dcn, n_ici, n_dcn * sub), codec,
             residual=residual.reshape(n_dcn, n_ici, n_dcn * sub))

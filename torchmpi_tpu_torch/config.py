@@ -132,10 +132,18 @@ class Config:
       client connection, in seconds: a wedged shard server surfaces as a
       failed future within this bound instead of hanging ``wait()``; 0
       disables.  Resolved by :func:`ps_timeout_s`.
-    - ``analysis`` and ``obs`` ("off" | ...): the JAX package's static
-      collective analysis and telemetry.  Their modules are not ported
-      (ROADMAP queue A, items 11 and 10); the recipes refuse any value
-      but "off" by the item's name.
+    - ``analysis`` ("off" | ...): the JAX package's static collective
+      analysis.  Its module is not ported (ROADMAP queue A, item 11); the
+      recipes refuse any value but "off" by the item's name.
+    - ``obs`` ("off" | "metrics" | "trace"; "1" / "true" / "yes" / "on"
+      read as "metrics"): runtime telemetry (``obs/``): "off" (the
+      default) never imports the layer; "metrics" keeps the counter /
+      histogram registry and the flight recorder, a ring of the last
+      ``obs_ring_size`` collective events, dumped per host as JSONL to
+      ``obs_dir`` at exit, on SIGTERM or by ``obs.dump()``; "trace" adds
+      each event's user call site.  ``obs_dir`` None resolves to
+      TORCHMPI_TPU_OBS_DIR, then ``torchmpi_tpu_obs`` under the temporary
+      directory (JAX ``config.py:212-230``).
     - The serving layer's defaults (``serving/``, never imported unless
       used; JAX ``config.py:477-518``): ``serving_slots`` (KV slot blocks
       a replica), ``serving_slot_tokens`` (tokens a block, 0 = the model's
@@ -173,6 +181,8 @@ class Config:
     ps_timeout_s: float = PS_TIMEOUT_S
     analysis: str = "off"
     obs: str = "off"
+    obs_dir: Optional[str] = None
+    obs_ring_size: int = 1024
     serving_slots: int = 8
     serving_slot_tokens: int = 0
     serving_replicas: int = 1
@@ -198,6 +208,7 @@ class Config:
         TORCHMPI_TPU_DCN_CHUNK_BYTES, TORCHMPI_TPU_DCN_COMPRESS,
         TORCHMPI_TPU_DCN_COMPRESS_MIN_BYTES, TORCHMPI_TPU_PS_TIMEOUT (see
         :func:`ps_timeout_s`), TORCHMPI_TPU_ANALYSIS, TORCHMPI_TPU_OBS,
+        TORCHMPI_TPU_OBS_DIR, TORCHMPI_TPU_OBS_RING,
         TORCHMPI_TPU_SERVING_SLOTS, _SLOT_TOKENS, _REPLICAS, _SAMPLE,
         _SPEC_K, _PREFILL_BUCKETS, _PREFIX_CACHE, _SLO_TTFT_US and
         _AUTOSCALE (each after TORCHMPI_TPU_SERVING); ``pallas_bidirectional``
@@ -232,6 +243,8 @@ class Config:
             ps_timeout_s=ps_timeout_s(),
             analysis=_env_str("TORCHMPI_TPU_ANALYSIS", "off"),
             obs=_env_str("TORCHMPI_TPU_OBS", "off"),
+            obs_dir=(os.environ.get("TORCHMPI_TPU_OBS_DIR") or None),
+            obs_ring_size=_env_int("TORCHMPI_TPU_OBS_RING", 1024),
             serving_slots=_env_int("TORCHMPI_TPU_SERVING_SLOTS", 8),
             serving_slot_tokens=_env_int(
                 "TORCHMPI_TPU_SERVING_SLOT_TOKENS", 0),
@@ -267,6 +280,39 @@ class Config:
             setattr(cfg, k, v)
         check_serving(cfg)
         return cfg
+
+
+def normalize_obs(value) -> Optional[str]:
+    """Canonical obs mode for a config or environment value (JAX
+    ``runtime.py:147``): "off" | "metrics" | "trace", with boolean-ish
+    spellings ("1" / "true" / "yes" / "on" mean "metrics"; "0" /
+    "false" / "no" / "none" / "" mean "off").  None: unrecognized (the
+    caller raises)."""
+    v = str(value).strip().lower()
+    if v in ("off", "0", "false", "no", "none", ""):
+        return "off"
+    if v in ("metrics", "1", "true", "yes", "on"):
+        return "metrics"
+    if v == "trace":
+        return "trace"
+    return None
+
+
+def resolve_obs(cfg: Config) -> None:
+    """``cfg.obs`` made canonical in place, with the JAX runtime's
+    any-config pickup (:436-444): a field left "off" defers to
+    TORCHMPI_TPU_OBS, so ``TORCHMPI_TPU_OBS=metrics python script.py``
+    turns it on even where the script builds its Config explicitly."""
+    if normalize_obs(cfg.obs) == "off":
+        cfg.obs = os.environ.get("TORCHMPI_TPU_OBS", "off")
+    mode = normalize_obs(cfg.obs)
+    if mode is None:
+        raise ValueError("config.obs (or TORCHMPI_TPU_OBS) must be "
+                         "off|metrics|trace")
+    cfg.obs = mode
+    if int(cfg.obs_ring_size) < 1:
+        raise ValueError(f"config.obs_ring_size must be >= 1, got "
+                         f"{cfg.obs_ring_size}")
 
 
 def check_serving(cfg: Config) -> None:

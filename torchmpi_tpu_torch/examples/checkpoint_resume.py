@@ -70,7 +70,7 @@ def main(argv=None):
     if args.restart_loop:
         raise NotImplementedError(
             "--restart-loop: the restart loop and the durable checkpoints "
-            "are not ported yet (ROADMAP queue A, item 10)")
+            "are not ported yet (ROADMAP queue A, item 13)")
     ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="tm_ckpt_")
     try:
         with common.runtime(args) as dev:

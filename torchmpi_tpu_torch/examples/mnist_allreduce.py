@@ -48,8 +48,8 @@ def main(argv=None):
                     "help": "checkpoint cadence (--restart-loop only)"})
     if args.restart_loop:
         raise NotImplementedError(
-            "--restart-loop: the restart and watchdog layers are not ported "
-            "yet (ROADMAP queue A, item 10)")
+            "--restart-loop: the restart loop (utils/restart.py) is not "
+            "ported yet (ROADMAP queue A, item 13)")
     with common.runtime(args) as dev:
         n = args.devices
         print(f"rank {mpi.rank()}/{mpi.size()}"

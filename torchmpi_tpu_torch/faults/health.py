@@ -6,8 +6,8 @@ Peers are free-form strings the call sites choose; in the port today the
 serving router's replica names (``serving/router.py``).  The ledger is
 deliberately dumb: it counts, it classifies, and it reports transitions;
 *what to do* about a dead peer stays with the caller.  The rest of the
-JAX package's fault layer (injection, chaos plans, the restart driver)
-is ROADMAP queue A, item 10.
+JAX package's fault layer (injection, chaos plans; the restart driver
+is A13) is ROADMAP A10 (b).
 """
 
 from __future__ import annotations

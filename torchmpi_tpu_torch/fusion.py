@@ -239,18 +239,42 @@ def run_bucket(op: str, buf: torch.Tensor, params: dict, *,
     for ``backend`` on one rank's bytes."""
     from . import collectives
 
-    rank_major = op.endswith("_rank_major")
     if impl is None:
-        one = buf[0] if rank_major else buf
-        impl = selector.select(
-            op, backend, nbytes=one.numel() * one.element_size(),
-            ranks=buf.shape[0] if rank_major else None,
-            n_dcn=None if axis is None else 1, dtype=buf.dtype,
-            device=buf.device, axes=collectives._axes_tuple(axis))
-    if rank_major:
+        impl = _bucket_impl(op, buf, backend, axis)
+    if op.endswith("_rank_major"):
         return impl(buf, **params)
     return collectives._world_run(op, impl, buf, params, axis=axis,
                                   owned=owned)
+
+
+def _bucket_impl(op: str, buf: torch.Tensor, backend: Optional[str],
+                 axis: Optional[str] = None) -> Callable:
+    """The selector's implementation of ``op`` for one bucket (one rank's
+    bytes)."""
+    from . import collectives
+
+    rank_major = op.endswith("_rank_major")
+    one = buf[0] if rank_major else buf
+    return selector.select(
+        op, backend, nbytes=one.numel() * one.element_size(),
+        ranks=buf.shape[0] if rank_major else None,
+        n_dcn=None if axis is None else 1, dtype=buf.dtype,
+        device=buf.device, axes=collectives._axes_tuple(axis))
+
+
+def _observed_bucket(op: str, buf: torch.Tensor, impl: Callable,
+                     run: Callable):
+    """``run()`` of one fused-sync bucket between its eager telemetry
+    edges (``planner.observed``): one rank's bytes, the bucket's backend,
+    the stack's ranks (None across processes)."""
+    from . import planner
+
+    rank_major = op.endswith("_rank_major")
+    one = buf[0] if rank_major else buf
+    return planner.observed(
+        run, op.removesuffix("_rank_major"),
+        one.numel() * one.element_size(), selector.name_of(op, impl),
+        buf.dtype, buf.shape[0] if rank_major else None)()
 
 
 def run_buckets(op: str, tensors: Sequence[torch.Tensor], spec: FusedSpec,
@@ -260,8 +284,12 @@ def run_buckets(op: str, tensors: Sequence[torch.Tensor], spec: FusedSpec,
     op) in place, one :func:`run_bucket` per bucket of ``spec``
     (``impls[k]``, a plan's in bucket order, else the selector's for
     ``backend``): gathered, run and scattered back.  Returns the number of
-    launches."""
+    launches.  With obs on, each launch records its eager edges, as a
+    rank-major or process-world verb does (the fused syncs' buckets are
+    their eager collectives; the in-axis tree verbs record in-axis
+    calls instead, ``fuse_tree``)."""
     rank_major = op.endswith("_rank_major")
+    observe = runtime.effective_config().obs != "off"
     k = -1
     for g in spec.groups:
         for lo, hi in g.bounds:
@@ -269,10 +297,33 @@ def run_buckets(op: str, tensors: Sequence[torch.Tensor], spec: FusedSpec,
             if lo == hi:  # a group of empty tensors
                 continue
             buf = gather_bucket(tensors, g, lo, hi, rank_major=rank_major)
-            out = run_bucket(op, buf, params, backend=backend, owned=True,
-                             impl=None if impls is None else impls[k])
+            impl = None if impls is None else impls[k]
+            if observe:
+                impl = impl or _bucket_impl(op, buf, backend)
+                out = _observed_bucket(
+                    op, buf, impl, lambda: run_bucket(
+                        op, buf, params, owned=True, impl=impl))
+            else:
+                out = run_bucket(op, buf, params, backend=backend,
+                                 owned=True, impl=impl)
             scatter_bucket(out, tensors, g, lo, rank_major=rank_major)
     return spec.n_launches
+
+
+def _obs_fusion(op_name: str, spec: FusedSpec) -> None:
+    """With obs on, one coalescing's counters (JAX :288-296): tensors
+    coalesced, launches issued, and wire bytes against the promoted
+    concatenation the dtype groups replaced.  Every call counts (JAX
+    counts traces; ROADMAP queue C note 31)."""
+    if runtime.effective_config().obs == "off":
+        return
+    from . import obs
+
+    wire = sum(g.nbytes for g in spec.groups)
+    promoted = (sum(g.total for g in spec.groups)
+                * torch.empty((), dtype=spec.dtype).element_size())
+    obs.record_fusion(op_name, spec.n_tensors, spec.n_launches, wire,
+                      max(0, promoted - wire))
 
 
 def _planned(tensors, *, rank_major: bool, backend: Optional[str],
@@ -304,8 +355,11 @@ def fused_(op_name: str, tensors: Sequence[torch.Tensor], *,
                        verb=op_name, **params)
         if got is not None:
             return got
-    return run_buckets(op_name, tensors, spec or FusedSpec(tensors), params,
-                       impls=impls, backend=backend)
+    spec = spec or FusedSpec(tensors)
+    launches = run_buckets(op_name, tensors, spec, params, impls=impls,
+                           backend=backend)
+    _obs_fusion(op_name, spec)
+    return launches
 
 
 def fused_allreduce_rank_major_(stacks: Sequence[torch.Tensor], *,
@@ -336,9 +390,11 @@ def fused_allreduce_rank_major_(stacks: Sequence[torch.Tensor], *,
                        verb="allreduce", op=op)
         if got is not None:
             return got
-    return run_buckets("allreduce_rank_major", stacks,
-                       spec or FusedSpec([t[0] for t in stacks]),
-                       {"op": op}, impls=impls, backend=backend)
+    spec = spec or FusedSpec([t[0] for t in stacks])
+    launches = run_buckets("allreduce_rank_major", stacks, spec, {"op": op},
+                           impls=impls, backend=backend)
+    _obs_fusion("allreduce", spec)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -399,6 +455,7 @@ def fuse_tree(op_name: str, tree, *, spec: Optional[FusedSpec] = None,
         for i, shape, size in zip(g.indices, g.shapes, g.sizes):
             out[i] = gout[off:off + size].reshape(shape)
             off += size
+    _obs_fusion(op_name, spec)
     return _tree.unflatten(treedef, out)
 
 

@@ -1,5 +1,6 @@
-// flash_bwd_dkv: the dK / dV half of the flash-attention backward, f32 in
-// and out, its four products on the tensor cores.
+// flash_bwd_dkv: the dK / dV half of the flash-attention backward, its four
+// products on the tensor cores; q / k / v in f32 or bf16 (two routes, one
+// kernel), dO, lse, D, dk and dv in f32.
 //
 // Replaces the TPU kernel _flash_bwd_dkv_kernel (torchmpi_tpu/ops/flash.py:424,
 // launched by pallas_call in flash_attention_bwd, :737).
@@ -58,6 +59,17 @@
 // Above its bound (PERF.md): it issues three mma.sync passes and the
 // splits, loads and exp between them from one block of 8 warps per SM
 // (150 KB of shared memory at D 128).
+//
+// The bf16 route (BF; tm_flash_bwd_dkv_bf16): K and Q in bf16 tiles, dO in
+// f32 (the JAX wrapper upcasts it, :667), V converted to an f32 tile as it
+// is loaded.  S^T = K Q^T is one m16n8k16 bf16 product; dP^T = V dO^T and
+// dV += P^T dO stay on mma3, f32 products as in JAX (P is not rounded
+// there: p.astype(do.dtype) at :471 is f32); dK += dS^T Q takes dS rounded
+// to bf16 (JAX :478) as its A fragments, straight from the P^T / dP^T
+// tiles, against Q's B fragments by transposed ldmatrix, one bf16 product.
+// 115 KB of shared memory at D 128.
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 
@@ -79,38 +91,45 @@ constexpr int BQ = 32;                  // q rows per inner step
 constexpr int NWARP = tmf::NT / 32;     // 8
 constexpr int TP = BQ + 4;              // pitch of the P^T / dP^T tiles
 
-template <int D>
+template <bool BF>
+using In = std::conditional_t<BF, tmf::bf16, float>;
+
+template <int D, bool BF>
 struct Smem {
-  static constexpr int P = pitch<D>();
+  static constexpr int P = pitch<D>();  // f32 tiles
+  static constexpr int PI = BF ? tmf::pitch_bf<D>() : P;  // K and Q tiles
   static constexpr int kTile = BKV * P, qTile = BQ * P, pTile = BKV * TP;
-  // ks, vs [BKV][P]; qs, dos [2 stages][BQ][P]; pt, dpt [BKV][TP];
-  // lse, dvec [2 stages][BQ].
-  static constexpr int floats = 2 * kTile + 4 * qTile + 2 * pTile + 4 * BQ;
-  static constexpr size_t bytes = sizeof(float) * floats;
+  static constexpr int kTileI = BKV * PI, qTileI = BQ * PI;
+  // f32: vs [BKV][P]; dos [2 stages][BQ][P]; pt, dpt [BKV][TP]; lse, dvec
+  // [2 stages][BQ]; then in the operand type: ks [BKV][PI], qs [2][BQ][PI].
+  static constexpr int floats = kTile + 2 * qTile + 2 * pTile + 4 * BQ;
+  static constexpr size_t bytes =
+      sizeof(float) * floats + sizeof(In<BF>) * (kTileI + 2 * qTileI);
 };
 
-template <int D>
+template <int D, bool BF>
 __global__ void __launch_bounds__(tmf::NT)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ dout,
+flash_bwd_dkv_kernel(const In<BF>* __restrict__ q, const In<BF>* __restrict__ k,
+                     const In<BF>* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ dvec,
                      float* __restrict__ dk, float* __restrict__ dv, int Tq,
                      int Tkv, int H, int Hkv, float scale, tmf::Band band) {
-  using S = Smem<D>;
+  using S = Smem<D, BF>;
+  using T = In<BF>;
   // Phase 2's warp grid: WR x WC warps over [64 keys] x [D columns].
   constexpr int WC = D / 8 < 4 ? D / 8 : 4;
   constexpr int WR = NWARP / WC;
   constexpr int MT = BKV / 16 / WR;  // 16-key m-tiles a warp
   constexpr int NTL = D / 8 / WC;    // 8-column n-tiles a warp
   extern __shared__ __align__(16) float smem[];
-  float* ks = smem;
-  float* vs = ks + S::kTile;
-  float* qs = vs + S::kTile;         // [2][qTile]
-  float* dos = qs + 2 * S::qTile;    // [2][qTile]
+  float* vs = smem;
+  float* dos = vs + S::kTile;        // [2][qTile]
   float* pt = dos + 2 * S::qTile;    // P^T [BKV][TP]
   float* dpt = pt + S::pTile;        // dP^T [BKV][TP]
   float* lse_s = dpt + S::pTile;     // [2][BQ]
   float* dv_s = lse_s + 2 * BQ;      // [2][BQ]
+  T* ks = reinterpret_cast<T*>(dv_s + 2 * BQ);
+  T* qs = ks + S::kTileI;            // [2][qTileI]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;  // mma fragment coordinates
@@ -138,7 +157,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int h = hk * group + it / nlive;
     const int q0 = (ilo + it % nlive) * BQ;
     const long qoff = (long)b * Tq * qstride + (long)h * D;
-    load_tile<D>(qs + st * S::qTile, q + qoff, qstride, q0, BQ, Tq);
+    tmf::load_in<D, tmf::kRowsT>(qs + st * S::qTileI, q + qoff, qstride, q0,
+                                 BQ, Tq);
     load_tile<D>(dos + st * S::qTile, dout + qoff, qstride, q0, BQ, Tq);
     const long srow = ((long)b * H + h) * Tq + q0;
     if (tid < 2 * BQ) {
@@ -152,8 +172,11 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   };
 
-  load_tile<D>(ks, k + kvoff, kvstride, k0, BKV, Tkv);
-  load_tile<D>(vs, v + kvoff, kvstride, k0, BKV, Tkv);
+  tmf::load_in<D, tmf::kRowsT>(ks, k + kvoff, kvstride, k0, BKV, Tkv);
+  if constexpr (BF)
+    tmf::load_tile_cvt<D>(vs, v + kvoff, kvstride, k0, BKV, Tkv);
+  else
+    load_tile<D>(vs, v + kvoff, kvstride, k0, BKV, Tkv);
   if (items > 0) issue(0, 0);
   cp_async_commit();
 
@@ -168,7 +191,13 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // Phase 1's roles: S^T (warps 0-3) or dP^T (4-7), keys 16 m1 .. + 16.
   const bool is_s = warp < 4;
   const int m1 = warp & 3;
-  const float* a1 = is_s ? ks : vs;
+  // The f32 products of phase 1: S^T and dP^T on the f32 route, dP^T
+  // alone on the bf16 route (its S^T is one bf16 product).
+  const float* a1;
+  if constexpr (BF)
+    a1 = vs;
+  else
+    a1 = is_s ? ks : vs;
   // Phase 2's tile: keys 16 (wr MT + m) + ..., columns 8 (wc NTL + n) + ....
   const int wr = warp / WC, wc = warp % WC;
 
@@ -179,9 +208,13 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_wait<1>();  // this thread's copies of item it have landed
     __syncthreads();     // and everyone's
 
-    const float* qst = qs + st * S::qTile;
+    const T* qst = qs + st * S::qTileI;
     const float* dost = dos + st * S::qTile;
-    const float* b1 = is_s ? qst : dost;
+    const float* b1;
+    if constexpr (BF)
+      b1 = dost;
+    else
+      b1 = is_s ? qst : dost;
     const int q0 = (ilo + it % nlive) * BQ;
     const int qg0 = band.q_offset + q0;
 
@@ -193,30 +226,35 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int n = 0; n < BQ / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) c1[n][e] = 0.f;
+    if (BF && is_s) {
+      if constexpr (BF)
+        tmf::product_abt_bf<D, BQ / 8>(c1, ks, 16 * m1, qst, lane);
+    } else {
 #pragma unroll 2
-    for (int kk = 0; kk < D / 8; kk += 2) {
-      float part[BQ / 8][4] = {};
+      for (int kk = 0; kk < D / 8; kk += 2) {
+        float part[BQ / 8][4] = {};
 #pragma unroll
-      for (int k8 = 8 * kk; k8 < 8 * kk + 16; k8 += 8) {
-        float x[4];
-        ldsm4(x, a1 + swz<D>(16 * m1 + li + 8 * (lj & 1), k8 + 4 * (lj >> 1)));
-        FragA a;
-        a.set(x);
+        for (int k8 = 8 * kk; k8 < 8 * kk + 16; k8 += 8) {
+          float x[4];
+          ldsm4(x, a1 + swz<D>(16 * m1 + li + 8 * (lj & 1), k8 + 4 * (lj >> 1)));
+          FragA a;
+          a.set(x);
 #pragma unroll
-        for (int n = 0; n < BQ / 8; n += 2) {
-          float y[4];
-          ldsm4(y, b1 + swz<D>(8 * (n + (lj >> 1)) + li, k8 + 4 * (lj & 1)));
-          FragB bn, bn1;
-          bn.set(y[0], y[1]);
-          bn1.set(y[2], y[3]);
-          mma3(part[n], a, bn);
-          mma3(part[n + 1], a, bn1);
+          for (int n = 0; n < BQ / 8; n += 2) {
+            float y[4];
+            ldsm4(y, b1 + swz<D>(8 * (n + (lj >> 1)) + li, k8 + 4 * (lj & 1)));
+            FragB bn, bn1;
+            bn.set(y[0], y[1]);
+            bn1.set(y[2], y[3]);
+            mma3(part[n], a, bn);
+            mma3(part[n + 1], a, bn1);
+          }
         }
+#pragma unroll
+        for (int n = 0; n < BQ / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) c1[n][e] += part[n][e];
       }
-#pragma unroll
-      for (int n = 0; n < BQ / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) c1[n][e] += part[n][e];
     }
     // Element e of n-tile n sits at key 16 m1 + g (+ 8 for e >= 2), row
     // 8 n + 2 t (+ 1 for odd e).
@@ -282,25 +320,59 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int m = 0; m < MT; ++m) {
         const int at = (16 * (wr * MT + m) + li + 8 * (lj & 1)) * TP +
                        8 * ks8 + 4 * (lj >> 1);
-        float p[4], ds[4];
+        float p[4];
         ldsm4(p, pt + at);
-        ldsm4(ds, dpt + at);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          ds[i] = p[i] * (ds[i] - (i < 2 ? d_lo : d_hi));
         ap[m].set(p);
-        ad[m].set(ds);
+        if constexpr (!BF) {
+          float ds[4];
+          ldsm4(ds, dpt + at);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            ds[i] = p[i] * (ds[i] - (i < 2 ? d_lo : d_hi));
+          ad[m].set(ds);
+        }
       }
 #pragma unroll
       for (int n = 0; n < NTL; ++n) {
         const int col = 8 * (wc * NTL + n) + g;
         FragB bdo, bq;
         bdo.set(dost[swz<D>(c, col)], dost[swz<D>(c + 4, col)]);
-        bq.set(qst[swz<D>(c, col)], qst[swz<D>(c + 4, col)]);
+        if constexpr (!BF) bq.set(qst[swz<D>(c, col)], qst[swz<D>(c + 4, col)]);
 #pragma unroll
         for (int m = 0; m < MT; ++m) {
           mma3(t_dv[m][n], ap[m], bdo);
-          mma3(t_dk[m][n], ad[m], bq);
+          if constexpr (!BF) mma3(t_dk[m][n], ad[m], bq);
+        }
+      }
+    }
+    if constexpr (BF) {
+      // dK += dS^T Q with dS = P (dP - D) rounded to bf16 (JAX :478): A
+      // fragments (keys x q rows) read in pairs from the P^T / dP^T tiles,
+      // Q's B fragments (q rows x columns) by transposed ldmatrix.
+#pragma unroll
+      for (int k16 = 0; k16 < BQ / 16; ++k16) {
+        const int r0 = 16 * k16 + 2 * t;
+        const float dd[2][2] = {{dvst[r0], dvst[r0 + 1]},
+                                {dvst[r0 + 8], dvst[r0 + 9]}};
+        unsigned a[MT][4];
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int key = 16 * (wr * MT + m) + g + 8 * (i & 1);
+            const int row = r0 + 8 * (i >> 1);
+            const float2 pp = *reinterpret_cast<const float2*>(pt + key * TP + row);
+            const float2 dp = *reinterpret_cast<const float2*>(dpt + key * TP + row);
+            a[m][i] = tmf::pack_bf16(pp.x * (dp.x - dd[i >> 1][0]),
+                                     pp.y * (dp.y - dd[i >> 1][1]));
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < NTL; ++n) {
+          unsigned fb[2];
+          tmf::ldbt1_bf<D>(fb, qst, 16 * k16, 8 * (wc * NTL + n), lane);
+#pragma unroll
+          for (int m = 0; m < MT; ++m) tmf::mma_bf16(t_dk[m][n], a[m], fb[0], fb[1]);
         }
       }
     }
@@ -336,19 +408,39 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
 }
 
-template <int D>
-cudaError_t launch(const float* q, const float* k, const float* v,
+template <int D, bool BF>
+cudaError_t launch(const In<BF>* q, const In<BF>* k, const In<BF>* v,
                    const float* dout, const float* lse, const float* dvec,
                    float* dk, float* dv, int B, int Tq, int Tkv, int H, int Hkv,
                    float scale, tmf::Band band, cudaStream_t stream) {
-  constexpr size_t smem = Smem<D>::bytes;
+  constexpr size_t smem = Smem<D, BF>::bytes;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_bwd_dkv_kernel<D, BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (e != cudaSuccess) return e;
   dim3 grid((Tkv + BKV - 1) / BKV, Hkv, B);
-  flash_bwd_dkv_kernel<D><<<grid, tmf::NT, smem, stream>>>(
+  flash_bwd_dkv_kernel<D, BF><<<grid, tmf::NT, smem, stream>>>(
       q, k, v, dout, lse, dvec, dk, dv, Tq, Tkv, H, Hkv, scale, band);
   return cudaGetLastError();
+}
+
+template <bool BF>
+int dispatch(const void* qp, const void* kp, const void* vp, const float* dout,
+             const float* lse, const float* dvec, float* dk, float* dv, int B,
+             int Tq, int Tkv, int H, int Hkv, int D, float scale, int causal,
+             int window, int q_offset, int kv_offset, void* stream) {
+  const tmf::Band band{q_offset, kv_offset, Tkv, causal, window};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* q = static_cast<const In<BF>*>(qp);
+  const auto* k = static_cast<const In<BF>*>(kp);
+  const auto* v = static_cast<const In<BF>*>(vp);
+  switch (D) {
+    case 16: return launch<16, BF>(q, k, v, dout, lse, dvec, dk, dv, B, Tq, Tkv, H, Hkv, scale, band, s);
+    case 32: return launch<32, BF>(q, k, v, dout, lse, dvec, dk, dv, B, Tq, Tkv, H, Hkv, scale, band, s);
+    case 64: return launch<64, BF>(q, k, v, dout, lse, dvec, dk, dv, B, Tq, Tkv, H, Hkv, scale, band, s);
+    case 128: return launch<128, BF>(q, k, v, dout, lse, dvec, dk, dv, B, Tq, Tkv, H, Hkv, scale, band, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -362,13 +454,19 @@ extern "C" int tm_flash_bwd_dkv(const float* q, const float* k, const float* v,
                                 int Tq, int Tkv, int H, int Hkv, int D,
                                 float scale, int causal, int window,
                                 int q_offset, int kv_offset, void* stream) {
-  const tmf::Band band{q_offset, kv_offset, Tkv, causal, window};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch<16>(q, k, v, dout, lse, dvec, dk, dv, B, Tq, Tkv, H, Hkv, scale, band, s);
-    case 32: return launch<32>(q, k, v, dout, lse, dvec, dk, dv, B, Tq, Tkv, H, Hkv, scale, band, s);
-    case 64: return launch<64>(q, k, v, dout, lse, dvec, dk, dv, B, Tq, Tkv, H, Hkv, scale, band, s);
-    case 128: return launch<128>(q, k, v, dout, lse, dvec, dk, dv, B, Tq, Tkv, H, Hkv, scale, band, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch<false>(q, k, v, dout, lse, dvec, dk, dv, B, Tq, Tkv, H, Hkv,
+                         D, scale, causal, window, q_offset, kv_offset, stream);
+}
+
+// The bf16 route: q / k / v bf16; dout, lse, dvec, dk and dv f32.
+extern "C" int tm_flash_bwd_dkv_bf16(const void* q, const void* k,
+                                     const void* v, const float* dout,
+                                     const float* lse, const float* dvec,
+                                     float* dk, float* dv, int B, int Tq,
+                                     int Tkv, int H, int Hkv, int D,
+                                     float scale, int causal, int window,
+                                     int q_offset, int kv_offset,
+                                     void* stream) {
+  return dispatch<true>(q, k, v, dout, lse, dvec, dk, dv, B, Tq, Tkv, H, Hkv,
+                        D, scale, causal, window, q_offset, kv_offset, stream);
 }

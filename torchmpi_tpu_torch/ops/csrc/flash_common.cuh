@@ -16,11 +16,25 @@
 // drifts, so the kernels sum only short runs there (two k-steps of a
 // D-contraction, one block of a key or row contraction) and the long sums
 // in f32 on the CUDA cores.
+//
+// bf16 operands (the launchers with a _bf16 suffix) take another route
+// through the same tiles, masks and block skips: the products whose two
+// operands are bf16 in the JAX kernels (Q K^T, P V, dS K, dS^T Q) run
+// mma.sync m16n8k16 with bf16 operands and an f32 accumulator, one product
+// each, fed by ldmatrix from bf16 tiles (half the bytes of an f32 tile);
+// P and dS are rounded to bf16 where the JAX kernels round them
+// (torchmpi_tpu/ops/flash.py:321, :407, :478).  The products with an f32
+// operand (dO V^T and P^T dO: the backward's dO is f32) stay on mma3, with
+// V converted to an f32 tile as it is loaded: V is bf16-exact, so its
+// TF32 lo part is zero.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace tmf {
+
+using bf16 = __nv_bfloat16;
 
 // Finite stand-in for -inf in masked scores: exp() of it is exactly 0 and
 // the running-max rescale never sees (-inf) - (-inf).
@@ -130,7 +144,7 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
 }
 
 // 16 bytes global -> shared, asynchronously; zero-filled when !full.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool full) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
                    smem_addr(dst)),
@@ -285,6 +299,192 @@ __device__ __forceinline__ void product_abt(float (&c)[NK][4], const float* a,
         for (int e = 0; e < 4; ++e) c[n][e] += part[n][e];
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 route
+// ---------------------------------------------------------------------------
+
+// Row pitch (bf16 elements) of the swizzled bf16 tiles: the swizzle XORs
+// the 16-byte group index (8 elements) with row bits 0-2, so a row spans
+// at least 8 groups.  Eight consecutive rows at one logical group land in
+// eight distinct groups: ldmatrix, plain or transposed, is conflict-free.
+template <int D>
+__host__ __device__ constexpr int pitch_bf() {
+  return D < 64 ? 64 : D;
+}
+
+template <int D>
+__device__ __forceinline__ int swzb(int r, int c) {
+  return r * pitch_bf<D>() + ((((c >> 3) ^ (r & 7)) << 3) | (c & 7));
+}
+
+// Rows [t0, t0 + rows) of a bf16 [T, stride] source into a swizzled bf16
+// tile, asynchronously; rows past T read as zero.  All NT threads.
+template <int D>
+__device__ __forceinline__ void load_tile_bf(bf16* dst, const bf16* src,
+                                             long stride, int t0, int rows,
+                                             int T) {
+  constexpr int G = D / 8;  // 16-byte groups a row
+  for (int idx = threadIdx.x; idx < rows * G; idx += NT) {
+    const int r = idx / G, c = (idx % G) * 8, t = t0 + r;
+    cp_async16(dst + swzb<D>(r, c),
+               src + (t < T ? (long)t * stride + c : 0), t < T);
+  }
+}
+
+// A tile of the kernel's operand type: f32 (load_tile) or bf16.
+template <int D, Swizzle SW>
+__device__ __forceinline__ void load_in(float* dst, const float* src,
+                                        long stride, int t0, int rows, int T) {
+  load_tile<D, SW>(dst, src, stride, t0, rows, T);
+}
+template <int D, Swizzle SW>
+__device__ __forceinline__ void load_in(bf16* dst, const bf16* src,
+                                        long stride, int t0, int rows, int T) {
+  load_tile_bf<D>(dst, src, stride, t0, rows, T);
+}
+
+// The same rows of a bf16 source converted into a swizzled f32 tile (the
+// f32 route's layout), with plain loads: the operand of an mma3 product
+// whose other operand is f32.  All NT threads.
+template <int D, Swizzle SW = kRowsT>
+__device__ __forceinline__ void load_tile_cvt(float* dst, const bf16* src,
+                                              long stride, int t0, int rows,
+                                              int T) {
+  constexpr int G = D / 8;
+  for (int idx = threadIdx.x; idx < rows * G; idx += NT) {
+    const int r = idx / G, c = (idx % G) * 8, t = t0 + r;
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (t < T) raw = *reinterpret_cast<const uint4*>(src + (long)t * stride + c);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+    const float2 f0 = __bfloat1622float2(h[0]), f1 = __bfloat1622float2(h[1]);
+    const float2 f2 = __bfloat1622float2(h[2]), f3 = __bfloat1622float2(h[3]);
+    *reinterpret_cast<float4*>(dst + swz<D, SW>(r, c)) =
+        make_float4(f0.x, f0.y, f1.x, f1.y);
+    *reinterpret_cast<float4*>(dst + swz<D, SW>(r, c + 4)) =
+        make_float4(f2.x, f2.y, f3.x, f3.y);
+  }
+}
+
+// ldmatrix of 8 x 8 bf16 matrices: x4 plain, x4 transposed, x2 transposed
+// (lanes 0-15 give the addresses).
+__device__ __forceinline__ void ldsm4u(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm4t(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm2t(unsigned (&r)[2], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// Two f32 values rounded to nearest bf16 in one register, lo in the low
+// half (the order of an m16n8k16 fragment's pair).
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&h);
+}
+
+// d += a b, m16n8k16, bf16 operands, f32 accumulator.  Lane (g, t) holds A
+// at (g, 2t..2t+1), (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..), B at
+// (k 2t..2t+1, n g), (k 2t + 8.., n g), and C as m16n8k8's.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The A fragment of rows r0.. r0 + 15 and columns c0 .. c0 + 15 of a bf16
+// tile: ldmatrix blocks rows 0-7 / 8-15 by columns 0-7 / 8-15.
+template <int D>
+__device__ __forceinline__ void lda_bf(unsigned (&a)[4], const bf16* tile,
+                                       int r0, int c0, int lane) {
+  const int li = lane & 7, mi = lane >> 3;
+  ldsm4u(a, tile + swzb<D>(r0 + li + 8 * (mi & 1), c0 + 8 * (mi >> 1)));
+}
+
+// The B fragments of n-tiles n0 and n0 + 8 whose n runs down the tile's
+// rows and k along them (columns c0 .. c0 + 15): B = tile^T, as K in Q K^T.
+// b[0], b[1] for n0; b[2], b[3] for n0 + 8.
+template <int D>
+__device__ __forceinline__ void ldb_bf(unsigned (&b)[4], const bf16* tile,
+                                       int n0, int c0, int lane) {
+  const int li = lane & 7, mi = lane >> 3;
+  ldsm4u(b, tile + swzb<D>(n0 + li + 8 * (mi >> 1), c0 + 8 * (mi & 1)));
+}
+
+// The B fragments of n-tiles n0 and n0 + 8 whose k runs down the tile's
+// rows (k0 .. k0 + 15) and n along them: B = tile, as V in P V (ldmatrix
+// transposed).  b[0], b[1] for n0; b[2], b[3] for n0 + 8.
+template <int D>
+__device__ __forceinline__ void ldbt_bf(unsigned (&b)[4], const bf16* tile,
+                                        int k0, int n0, int lane) {
+  const int li = lane & 7, mi = lane >> 3;
+  ldsm4t(b, tile + swzb<D>(k0 + li + 8 * (mi & 1), n0 + 8 * (mi >> 1)));
+}
+
+// The same for one n-tile (x2).
+template <int D>
+__device__ __forceinline__ void ldbt1_bf(unsigned (&b)[2], const bf16* tile,
+                                         int k0, int n0, int lane) {
+  const int li = lane & 7, mi = (lane >> 3) & 1;
+  ldsm2t(b, tile + swzb<D>(k0 + li + 8 * mi, n0));
+}
+
+// c = [16 rows x 8 NK columns] of A B^T for rows ar0 .. ar0 + 15 of bf16
+// tile a and rows 0 .. 8 NK - 1 of bf16 tile b, contracted over D on the
+// tensor cores, one bf16 product (the f32 accumulator of a bf16 product
+// holds its D terms far inside bf16's rounding).  Element e of n-tile n
+// lands at row g (+ 8 for e >= 2), column 8n + 2t (+ 1 for odd e).
+template <int D, int NK>
+__device__ __forceinline__ void product_abt_bf(float (&c)[NK][4],
+                                               const bf16* a, int ar0,
+                                               const bf16* b, int lane) {
+#pragma unroll
+  for (int n = 0; n < NK; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
+#pragma unroll
+  for (int c0 = 0; c0 < D; c0 += 16) {
+    unsigned fa[4];
+    lda_bf<D>(fa, a, ar0, c0, lane);
+#pragma unroll
+    for (int p = 0; p < NK / 2; ++p) {
+      unsigned fb[4];
+      ldb_bf<D>(fb, b, 16 * p, c0, lane);
+      mma_bf16(c[2 * p], fa, fb[0], fb[1]);
+      mma_bf16(c[2 * p + 1], fa, fb[2], fb[3]);
+    }
+  }
+}
+
+// The A fragments of a product whose A operand is a C fragment used in
+// place (P V, dS K): k-step kk takes n-tiles 2kk and 2kk + 1 of c, rounded
+// to bf16.
+template <int NK>
+__device__ __forceinline__ void c_as_a_bf(unsigned (&a)[4],
+                                          const float (&c)[NK][4], int kk) {
+  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
 }
 
 }  // namespace tmf

@@ -1,5 +1,5 @@
-// flash_fwd: blocked online-softmax attention forward, f32 in and out, its
-// two products on the tensor cores.
+// flash_fwd: blocked online-softmax attention forward, its two products on
+// the tensor cores; f32 or bf16 operands (two routes, one kernel).
 //
 // Replaces the TPU kernel _flash_kernel (torchmpi_tpu/ops/flash.py:265,
 // launched by pallas_call in flash_attention, :599).
@@ -60,6 +60,19 @@
 // Resources at D 128: 192 KB of shared memory (Q 64 KB, two stages of K
 // and V 128 KB), so one block of 8 warps an SM; 255 registers a thread, no
 // spills (ptxas, the `build` line of chip_smoke.py; PERF.md).
+//
+// The bf16 route (BF; tm_flash_fwd_bf16, tm_flash_fwd_residual_bf16): the
+// same blocks, warps, band and epilogues on bf16 tiles (96 KB at D 128).
+// S = Q K^T is one m16n8k16 bf16 product a k-step (Q's A and K's B
+// fragments by ldmatrix), P = exp(S - m) in f32 with l summed from the
+// f32 P, and P V takes P rounded to bf16 (JAX :321) from S's C fragments
+// as they are (m16n8k16's A pairs are the C fragment's pairs) against V's
+// B fragments by transposed ldmatrix, accumulated into o in f32.  o is
+// stored in bf16 (JAX :346, :355); the residual form's num, m and l stay
+// f32 (JAX :590).  What bounds it: operations, at the bf16 tensor-core
+// rate.
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 
@@ -74,29 +87,36 @@ constexpr int NWARP = tmf::NT / 32;  // 8
 constexpr int ROWS = 16 * NWARP;     // q rows a block: HB heads x BQ rows
 constexpr int BK = 64;               // keys a kv block
 
-template <int D>
+// The operand type of a route, and the output type of its plain epilogue.
+template <bool BF>
+using In = std::conditional_t<BF, tmf::bf16, float>;
+template <bool BF, bool RES>
+using Out = std::conditional_t<BF && !RES, tmf::bf16, float>;
+
+template <int D, bool BF>
 struct Smem {
-  static constexpr int P = tmf::pitch<D>();
+  static constexpr int P = BF ? tmf::pitch_bf<D>() : tmf::pitch<D>();
   static constexpr int qTile = ROWS * P, kTile = BK * P;
   // qs [ROWS][P] (head-major: HB heads of BQ rows); ks, vs [2 stages][BK][P].
-  static constexpr size_t bytes = sizeof(float) * (qTile + 4 * kTile);
+  static constexpr size_t bytes = sizeof(In<BF>) * (qTile + 4 * kTile);
 };
 
 // o: the output (RES: num).  st0: lse (RES: m).  st1: unused (RES: l).
-template <int D, bool RES>
+template <int D, bool RES, bool BF>
 __global__ void __launch_bounds__(tmf::NT)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
+flash_fwd_kernel(const In<BF>* __restrict__ q, const In<BF>* __restrict__ k,
+                 const In<BF>* __restrict__ v, Out<BF, RES>* __restrict__ o,
                  float* __restrict__ st0, float* __restrict__ st1, int Tq,
                  int Tkv, int H, int Hkv, int hb, float scale,
                  tmf::Band band) {
-  using S = Smem<D>;
+  using S = Smem<D, BF>;
+  using T = In<BF>;
   constexpr int NT8 = D / 8;   // 8-column n-tiles of o
   constexpr int NK8 = BK / 8;  // 8-key n-tiles of S, k-steps of P V
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;
-  float* ks = qs + S::qTile;      // [2][kTile]
-  float* vs = ks + 2 * S::kTile;  // [2][kTile]
+  T* qs = reinterpret_cast<T*>(smem);
+  T* ks = qs + S::qTile;      // [2][kTile]
+  T* vs = ks + 2 * S::kTile;  // [2][kTile]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;    // mma fragment coordinates
@@ -120,15 +140,15 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   auto issue_kv = [&](int j, int st) {
-    tmf::load_tile<D, kRows2T>(ks + st * S::kTile, k + kvoff, kvstride,
-                               j * BK, BK, Tkv);
-    tmf::load_tile<D, kRows2T>(vs + st * S::kTile, v + kvoff, kvstride,
-                               j * BK, BK, Tkv);
+    tmf::load_in<D, kRows2T>(ks + st * S::kTile, k + kvoff, kvstride, j * BK,
+                             BK, Tkv);
+    tmf::load_in<D, kRows2T>(vs + st * S::kTile, v + kvoff, kvstride, j * BK,
+                             BK, Tkv);
   };
   for (int i = 0; i < hb; ++i)
-    tmf::load_tile<D, kRows2T>(qs + i * bq * S::P,
-                               q + (long)b * Tq * qstride + (long)(h0 + i) * D,
-                               qstride, q0, bq, Tq);
+    tmf::load_in<D, kRows2T>(qs + i * bq * S::P,
+                             q + (long)b * Tq * qstride + (long)(h0 + i) * D,
+                             qstride, q0, bq, Tq);
   if (jlo < jhi) issue_kv(jlo, 0);
   tmf::cp_async_commit();
 
@@ -140,7 +160,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  const float* qw = qs + 16 * warp * S::P;  // the warp's 16 rows of Q
+  const T* qw = qs + 16 * warp * S::P;  // the warp's 16 rows of Q
   const tmf::Offs2T<D> off(lane);
   for (int j = jlo; j < jhi; ++j) {
     const int st = (j - jlo) & 1;
@@ -149,13 +169,16 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     tmf::cp_async_wait<1>();  // this thread's copies of block j have landed
     __syncthreads();          // and everyone's
 
-    const float* kst = ks + st * S::kTile;
-    const float* vst = vs + st * S::kTile;
+    const T* kst = ks + st * S::kTile;
+    const T* vst = vs + st * S::kTile;
     const int kg0 = band.kv_offset + j * BK;
     if (tmf::block_live(band, qg0 + wr, 16, kg0, BK)) {
       // 1. S = Q K^T.
       float s[NK8][4];
-      tmf::product_abt<D, NK8>(s, qw, kst, off);
+      if constexpr (BF)
+        tmf::product_abt_bf<D, NK8>(s, qs, 16 * warp, kst, lane);
+      else
+        tmf::product_abt<D, NK8>(s, qw, kst, off);
 
       // 2. Element e of n-tile n sits at row wr + g (+ 8 for e >= 2), key
       // 8 n + 2 t (+ 1 for odd e).  Scale, mask, online softmax.
@@ -200,26 +223,46 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
 
       // 3. O = alpha O + P V, this block's part summed on the tensor cores.
-      float part[NT8][4] = {};
+      if constexpr (BF) {
+        // P rounded to bf16 (JAX :321), accumulated into o in f32.
 #pragma unroll
-      for (int kk = 0; kk < NK8; ++kk) {
-        const float x[4] = {s[kk][0], s[kk][2], s[kk][1], s[kk][3]};
-        FragA a;
-        a.set<kTruncate>(x);
-        const float* vk = vst + 8 * kk * S::P;
+        for (int n = 0; n < NT8; ++n)
 #pragma unroll
-        for (int n = 0; n < NT8; ++n) {
-          FragB bv;
-          bv.set<kTruncate>(vk[off.v0[n % 4] + 32 * (n / 4)],
-                            vk[off.v1[n % 4] + 32 * (n / 4)]);
-          tmf::mma3(part[n], a, bv);
+          for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+#pragma unroll
+        for (int kk = 0; kk < NK8 / 2; ++kk) {
+          unsigned a[4];
+          tmf::c_as_a_bf<NK8>(a, s, kk);
+#pragma unroll
+          for (int np = 0; np < NT8 / 2; ++np) {
+            unsigned fb[4];
+            tmf::ldbt_bf<D>(fb, vst, 16 * kk, 16 * np, lane);
+            tmf::mma_bf16(acc[2 * np], a, fb[0], fb[1]);
+            tmf::mma_bf16(acc[2 * np + 1], a, fb[2], fb[3]);
+          }
         }
+      } else {
+        float part[NT8][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < NK8; ++kk) {
+          const float x[4] = {s[kk][0], s[kk][2], s[kk][1], s[kk][3]};
+          FragA a;
+          a.set<kTruncate>(x);
+          const float* vk = vst + 8 * kk * S::P;
+#pragma unroll
+          for (int n = 0; n < NT8; ++n) {
+            FragB bv;
+            bv.set<kTruncate>(vk[off.v0[n % 4] + 32 * (n / 4)],
+                              vk[off.v1[n % 4] + 32 * (n / 4)]);
+            tmf::mma3(part[n], a, bv);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < NT8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[n][e] = alpha[e >> 1] * acc[n][e] + part[n][e];
       }
-#pragma unroll
-      for (int n = 0; n < NT8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc[n][e] = alpha[e >> 1] * acc[n][e] + part[n][e];
     }
     __syncthreads();  // stage st is free again
   }
@@ -233,13 +276,17 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = q0 + wr + g + 8 * i;
     if (row >= Tq) continue;
     const float denom = RES ? 1.f : (l[i] > 0.f ? l[i] : 1.f);
-    float* orow = o + ((long)b * Tq + row) * qstride + (long)h * D;
+    Out<BF, RES>* orow = o + ((long)b * Tq + row) * qstride + (long)h * D;
 #pragma unroll
     for (int n = 0; n < NT8; ++n) {
       const float2 x = RES ? make_float2(acc[n][2 * i], acc[n][2 * i + 1])
                            : make_float2(acc[n][2 * i] / denom,
                                          acc[n][2 * i + 1] / denom);
-      *reinterpret_cast<float2*>(orow + 8 * n + 2 * t) = x;
+      if constexpr (BF && !RES)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n + 2 * t) =
+            __floats2bfloat162_rn(x.x, x.y);
+      else
+        *reinterpret_cast<float2*>(orow + 8 * n + 2 * t) = x;
     }
     if (t == 0) {
       const long srow = ((long)b * H + h) * Tq + row;
@@ -254,36 +301,41 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D, bool RES>
-cudaError_t launch(const float* q, const float* k, const float* v, float* o,
-                   float* st0, float* st1, int B, int Tq, int Tkv, int H,
-                   int Hkv, float scale, tmf::Band band, cudaStream_t stream) {
-  constexpr size_t smem = Smem<D>::bytes;
+template <int D, bool RES, bool BF>
+cudaError_t launch(const In<BF>* q, const In<BF>* k, const In<BF>* v,
+                   Out<BF, RES>* o, float* st0, float* st1, int B, int Tq,
+                   int Tkv, int H, int Hkv, float scale, tmf::Band band,
+                   cudaStream_t stream) {
+  constexpr size_t smem = Smem<D, BF>::bytes;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, RES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_kernel<D, RES, BF>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const int group = H / Hkv;
   const int hb = group % 4 == 0 ? 4 : group % 2 == 0 ? 2 : 1;
   const int bq = ROWS / hb;
   dim3 grid((Tq + bq - 1) / bq, H / hb, B);
-  flash_fwd_kernel<D, RES><<<grid, tmf::NT, smem, stream>>>(
+  flash_fwd_kernel<D, RES, BF><<<grid, tmf::NT, smem, stream>>>(
       q, k, v, o, st0, st1, Tq, Tkv, H, Hkv, hb, scale, band);
   return cudaGetLastError();
 }
 
-template <bool RES>
-int dispatch(const float* q, const float* k, const float* v, float* o,
+template <bool RES, bool BF>
+int dispatch(const void* qp, const void* kp, const void* vp, void* op,
              float* st0, float* st1, int B, int Tq, int Tkv, int H, int Hkv,
              int D, float scale, int causal, int window, int q_offset,
              int kv_offset, void* stream) {
   const tmf::Band band{q_offset, kv_offset, Tkv, causal, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* q = static_cast<const In<BF>*>(qp);
+  const auto* k = static_cast<const In<BF>*>(kp);
+  const auto* v = static_cast<const In<BF>*>(vp);
+  auto* o = static_cast<Out<BF, RES>*>(op);
   switch (D) {
-    case 16: return launch<16, RES>(q, k, v, o, st0, st1, B, Tq, Tkv, H, Hkv, scale, band, s);
-    case 32: return launch<32, RES>(q, k, v, o, st0, st1, B, Tq, Tkv, H, Hkv, scale, band, s);
-    case 64: return launch<64, RES>(q, k, v, o, st0, st1, B, Tq, Tkv, H, Hkv, scale, band, s);
-    case 128: return launch<128, RES>(q, k, v, o, st0, st1, B, Tq, Tkv, H, Hkv, scale, band, s);
+    case 16: return launch<16, RES, BF>(q, k, v, o, st0, st1, B, Tq, Tkv, H, Hkv, scale, band, s);
+    case 32: return launch<32, RES, BF>(q, k, v, o, st0, st1, B, Tq, Tkv, H, Hkv, scale, band, s);
+    case 64: return launch<64, RES, BF>(q, k, v, o, st0, st1, B, Tq, Tkv, H, Hkv, scale, band, s);
+    case 128: return launch<128, RES, BF>(q, k, v, o, st0, st1, B, Tq, Tkv, H, Hkv, scale, band, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -298,8 +350,9 @@ extern "C" int tm_flash_fwd(const float* q, const float* k, const float* v,
                             float* o, float* lse, int B, int Tq, int Tkv, int H,
                             int Hkv, int D, float scale, int causal, int window,
                             int q_offset, int kv_offset, void* stream) {
-  return dispatch<false>(q, k, v, o, lse, nullptr, B, Tq, Tkv, H, Hkv, D,
-                         scale, causal, window, q_offset, kv_offset, stream);
+  return dispatch<false, false>(q, k, v, o, lse, nullptr, B, Tq, Tkv, H,
+                                Hkv, D, scale, causal, window, q_offset,
+                                kv_offset, stream);
 }
 
 // The residual form: num [B, Tq, H, D] (o before the division by l), m and
@@ -310,6 +363,31 @@ extern "C" int tm_flash_fwd_residual(const float* q, const float* k,
                                      int Hkv, int D, float scale, int causal,
                                      int window, int q_offset, int kv_offset,
                                      void* stream) {
-  return dispatch<true>(q, k, v, num, m, l, B, Tq, Tkv, H, Hkv, D, scale,
-                        causal, window, q_offset, kv_offset, stream);
+  return dispatch<true, false>(q, k, v, num, m, l, B, Tq, Tkv, H, Hkv, D,
+                               scale, causal, window, q_offset, kv_offset,
+                               stream);
+}
+
+// The bf16 route: q / k / v and o bf16, lse f32; the other arguments as
+// tm_flash_fwd's.
+extern "C" int tm_flash_fwd_bf16(const void* q, const void* k, const void* v,
+                                 void* o, float* lse, int B, int Tq, int Tkv,
+                                 int H, int Hkv, int D, float scale, int causal,
+                                 int window, int q_offset, int kv_offset,
+                                 void* stream) {
+  return dispatch<false, true>(q, k, v, o, lse, nullptr, B, Tq, Tkv, H, Hkv,
+                               D, scale, causal, window, q_offset, kv_offset,
+                               stream);
+}
+
+// The bf16 route of the residual form: q / k / v bf16; num, m and l f32.
+extern "C" int tm_flash_fwd_residual_bf16(const void* q, const void* k,
+                                          const void* v, float* num, float* m,
+                                          float* l, int B, int Tq, int Tkv,
+                                          int H, int Hkv, int D, float scale,
+                                          int causal, int window, int q_offset,
+                                          int kv_offset, void* stream) {
+  return dispatch<true, true>(q, k, v, num, m, l, B, Tq, Tkv, H, Hkv, D,
+                              scale, causal, window, q_offset, kv_offset,
+                              stream);
 }

@@ -13,15 +13,25 @@ the kernel's masking conventions.
 
 Every kernel wrapper takes its plain version when, and only when, the
 tensors it was given lie on the CPU; on a CUDA tensor it launches the
-kernel or raises.  Each launch adds one to ``LAUNCHES[name]``.
+kernel or raises.  Each launch adds one to ``LAUNCHES[name]`` and to
+``ROUTE_LAUNCHES[name][route]``.
 
 Layouts are the JAX package's: q ``[B, Tq, H, D]``, k / v
 ``[B, Tkv, Hkv, D]`` with ``Hkv`` dividing ``H`` (GQA: q head ``h`` reads kv
 head ``h // (H // Hkv)``, the ``jnp.repeat`` layout), lse ``[B, H, Tq]``.
-The kernels take float32, contiguous tensors whose q / k / v (and dO)
-start 16-byte aligned (they copy rows in 16-byte pieces): the model casts
-q / k / v to float32 before attention (``models/transformer.py``), as the
-JAX model does.  They are built for head dims 16, 32, 64 and 128; the
+The kernels take contiguous tensors whose q / k / v (and dO) start 16-byte
+aligned (they copy rows in 16-byte pieces), on one of two routes chosen by
+q / k / v's dtype (all three the same): ``"tf32x3"`` for float32 (every
+product TF32 in the three-product form; the model casts q / k / v to
+float32 before attention, ``models/transformer.py``, as the JAX model
+does) and ``"bf16"`` for bfloat16 (the products with two bf16 operands in
+bf16 on the tensor cores, P and dS rounded to bf16 before them where the
+JAX kernels round them: ``torchmpi_tpu/ops/flash.py:321``, :407, :478).
+dO, lse and D are float32 on both routes; o is in q's dtype, the
+residual form's num, m and l and the gradients float32, as in JAX.  Any
+other dtype, or mixed q / k / v, raises on the card.  The plain versions
+take any floating dtype and round P and dS to v's, k's and q's dtype
+where the kernels do.  They are built for head dims 16, 32, 64 and 128; the
 wrappers take any D up to 128 by zero-padding q / k / v / dO to the next
 of those (the scale is an argument, taken from the true D, so the zero
 columns add nothing to q . k, and v's give output columns that are sliced
@@ -49,6 +59,10 @@ NEG_INF = -1e30
 # show that its path went through the kernels.
 LAUNCHES = {name: 0 for name in (*_build.KERNELS, *_build.SHARED_LIBRARY)
             if name.startswith("flash_")}
+# The route of each launch, by q / k / v's dtype.
+ROUTES = ("tf32x3", "bf16")
+ROUTE_DTYPES = {torch.float32: "tf32x3", torch.bfloat16: "bf16"}
+ROUTE_LAUNCHES = {name: {r: 0 for r in ROUTES} for name in LAUNCHES}
 
 # Head dims the kernels are instantiated for (flash_*.cu, the D switch);
 # any other D up to the largest runs zero-padded to the next of them.
@@ -58,6 +72,9 @@ KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for counts in ROUTE_LAUNCHES.values():
+        for r in counts:
+            counts[r] = 0
 
 
 def _gqa_group(h: int, h_kv: int) -> int:
@@ -126,6 +143,13 @@ def _repeat_kv(t: torch.Tensor, num_heads: int) -> torch.Tensor:
     return t.repeat_interleave(group, dim=2) if group > 1 else t
 
 
+def _round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """float32 ``x`` rounded to ``dtype`` and back (the identity for
+    float32): P before P V, dS before dS K and dS^T Q, as the JAX kernels
+    round them to the operand's dtype."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
+
+
 def _masked_scores(q, kr, scale, causal, window, q_offset, kv_offset):
     """Dense [B, H, Tq, Tkv] scaled scores, NEG_INF where masked (the
     kernels' ``tmf::valid``)."""
@@ -148,8 +172,9 @@ def flash_fwd_residual_plain(q, k, v, *, scale: float, causal: bool,
                              kv_offset: int = 0):
     """(num [B, Tq, H, D], m [B, H, Tq], l [B, H, Tq]) of the residual
     kernel, in dense float32 ops: the un-normalized numerator, the row max
-    of the masked scores and the row denominator.  A row with no valid key
-    has m = NEG_INF, l = 0 and num = 0."""
+    of the masked scores and the row denominator, l summed from the float32
+    P and num from P rounded to v's dtype (JAX :321).  A row with no valid
+    key has m = NEG_INF, l = 0 and num = 0."""
     H = q.shape[2]
     s = _masked_scores(q.float(), _repeat_kv(k, H), scale, causal, window,
                        q_offset, kv_offset)
@@ -157,7 +182,8 @@ def flash_fwd_residual_plain(q, k, v, *, scale: float, causal: bool,
     m_safe = torch.where(m > 0.5 * NEG_INF, m, torch.zeros_like(m))
     p = torch.exp(s - m_safe[..., None])
     l = p.sum(dim=-1)
-    num = torch.einsum("bhqk,bkhd->bqhd", p, _repeat_kv(v, H))
+    num = torch.einsum("bhqk,bkhd->bqhd", _round_to(p, v.dtype),
+                       _repeat_kv(v, H))
     return num, m, l
 
 
@@ -165,12 +191,14 @@ def flash_fwd_plain(q, k, v, *, scale: float, causal: bool,
                     window: Optional[int] = None, q_offset: int = 0,
                     kv_offset: int = 0):
     """(o, lse) of the forward kernel, in dense float32 ops: the residual
-    form's numerator divided by l (rows with l = 0 read 0)."""
+    form's numerator divided by l (rows with l = 0 read 0), o in q's
+    dtype."""
     num, m, l = flash_fwd_residual_plain(
         q, k, v, scale=scale, causal=causal, window=window,
         q_offset=q_offset, kv_offset=kv_offset)
     denom = torch.where(l > 0, l, torch.ones_like(l))
-    return num / denom.transpose(1, 2)[..., None], lse_from_residuals(m, l)
+    o = num / denom.transpose(1, 2)[..., None]
+    return o.to(q.dtype), lse_from_residuals(m, l)
 
 
 def _bwd_plain_terms(q, k, v, do, lse, dvec, scale, causal, window,
@@ -189,23 +217,26 @@ def _bwd_plain_terms(q, k, v, do, lse, dvec, scale, causal, window,
 def flash_bwd_dq_plain(q, k, v, do, lse, dvec, *, scale: float, causal: bool,
                        window: Optional[int] = None, q_offset: int = 0,
                        kv_offset: int = 0):
-    """dq of the dQ kernel, in dense float32 ops."""
+    """dq of the dQ kernel, in dense float32 ops, dS rounded to k's dtype
+    (JAX :407)."""
     _, ds, kr = _bwd_plain_terms(q, k, v, do, lse, dvec, scale, causal,
                                  window, q_offset, kv_offset)
-    return scale * torch.einsum("bhqk,bkhd->bqhd", ds, kr)
+    return scale * torch.einsum("bhqk,bkhd->bqhd", _round_to(ds, k.dtype), kr)
 
 
 def flash_bwd_dkv_plain(q, k, v, do, lse, dvec, *, scale: float,
                         causal: bool, window: Optional[int] = None,
                         q_offset: int = 0, kv_offset: int = 0):
     """(dk, dv) of the dK/dV kernel, in dense float32 ops: per-q-head
-    terms summed over each kv head's group."""
+    terms summed over each kv head's group; dS rounded to q's dtype (JAX
+    :478), P not rounded (dO is float32: JAX :471)."""
     p, ds, _ = _bwd_plain_terms(q, k, v, do, lse, dvec, scale, causal,
                                 window, q_offset, kv_offset)
     B, Tkv, Hkv, D = k.shape
     group = q.shape[2] // Hkv
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
-    dk = scale * torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", _round_to(p, do.dtype), do.float())
+    dk = scale * torch.einsum("bhqk,bqhd->bkhd", _round_to(ds, q.dtype),
+                              q.float())
     return (dk.reshape(B, Tkv, Hkv, group, D).sum(dim=3),
             dv.reshape(B, Tkv, Hkv, group, D).sum(dim=3))
 
@@ -217,7 +248,8 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, dvec, *, scale: float,
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C launcher and pointer count of each kernel; after the pointers every
 # launcher takes B, Tq, Tkv, H, Hkv, D, scale, causal, window, q_offset,
-# kv_offset and the stream.
+# kv_offset and the stream.  The bf16 route's launcher is the same name
+# with a _bf16 suffix, in the same library.
 _SIGNATURES = {
     "flash_fwd": ("tm_flash_fwd", 5),
     "flash_bwd_dq": ("tm_flash_bwd_dq", 7),
@@ -226,28 +258,51 @@ _SIGNATURES = {
 }
 _SCALARS = [_I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P]
 
+
+def route_of(name: str, q, k, v) -> str:
+    """The kernel route of q / k / v's dtype: ``"tf32x3"`` (float32) or
+    ``"bf16"``; any other dtype, or q / k / v of different dtypes, raises
+    by name."""
+    dtypes = {q.dtype, k.dtype, v.dtype}
+    route = ROUTE_DTYPES.get(q.dtype) if len(dtypes) == 1 else None
+    if route is None:
+        raise TypeError(f"{name}: the kernels take float32 or bfloat16 q / "
+                        f"k / v of one dtype, got {q.dtype} / {k.dtype} / "
+                        f"{v.dtype}")
+    return route
+
+
 def _launch(name: str, tensors, q, k, scale, causal, window, q_offset,
             kv_offset) -> None:
-    """Launch kernel ``name`` on ``tensors`` (inputs then outputs), on the
-    current stream of q's device; raise on a refused launch."""
+    """Launch kernel ``name`` on ``tensors`` (q, k, v, the other inputs,
+    then the outputs) on its route, on the current stream of q's device;
+    raise on a refused launch.  Every tensor after q / k / v is float32
+    but the bf16 forward's o."""
     dev = q.device
-    for t in tensors:
+    route = route_of(name, *tensors[:3])
+    for i, t in enumerate(tensors):
         if t.device != dev:
             raise ValueError(f"{name}: all tensors must be on {dev}, got "
                              f"{t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
+        want = q.dtype if i < 3 or (name == "flash_fwd" and i == 3) \
+            else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"{name}: the {route} route takes {want} "
+                            f"operand {i}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: the kernel takes contiguous tensors")
     B, Tq, H, D = q.shape
     Tkv, Hkv = k.shape[1], k.shape[2]
     sym, n_ptrs = _SIGNATURES[name]
+    if route == "bf16":
+        sym += "_bf16"
     with torch.cuda.device(dev):
         _build.launch(name, sym, [_P] * n_ptrs + _SCALARS,
                       *[t.data_ptr() for t in tensors], B, Tq, Tkv, H, Hkv,
                       D, float(scale), int(causal), window or 0, q_offset,
                       kv_offset, torch.cuda.current_stream(dev).cuda_stream)
     LAUNCHES[name] += 1
+    ROUTE_LAUNCHES[name][route] += 1
 
 
 def _check_aligned(name: str, tensors) -> None:
@@ -296,8 +351,8 @@ def _device_kind(t: torch.Tensor) -> str:
 def flash_fwd(q, k, v, *, scale: float, causal: bool,
               window: Optional[int] = None, q_offset: int = 0,
               kv_offset: int = 0):
-    """(o [B, Tq, H, D], lse [B, H, Tq]) — the ``flash_fwd`` kernel on CUDA
-    tensors, its plain version on CPU tensors."""
+    """(o [B, Tq, H, D] in q's dtype, lse [B, H, Tq]) — the ``flash_fwd``
+    kernel on CUDA tensors, its plain version on CPU tensors."""
     _check_shapes(q, k, v, causal, window, q_offset, kv_offset)
     kw = dict(scale=scale, causal=causal, window=window, q_offset=q_offset,
               kv_offset=kv_offset)
@@ -327,7 +382,7 @@ def flash_fwd_residual(q, k, v, *, scale: float, causal: bool,
     B, Tq, H, D = q.shape
     q, k, v = pad_head_dim("flash_fwd_residual", q, k, v)
     _check_aligned("flash_fwd_residual", (q, k, v))
-    num = torch.empty_like(q)
+    num = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     m = torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     if q.numel():
@@ -338,8 +393,8 @@ def flash_fwd_residual(q, k, v, *, scale: float, causal: bool,
 def flash_bwd_dq(q, k, v, do, lse, dvec, *, scale: float, causal: bool,
                  window: Optional[int] = None, q_offset: int = 0,
                  kv_offset: int = 0):
-    """dq [B, Tq, H, D] — the ``flash_bwd_dq`` kernel on CUDA tensors, its
-    plain version on CPU tensors."""
+    """dq [B, Tq, H, D], float32 — the ``flash_bwd_dq`` kernel on CUDA
+    tensors, its plain version on CPU tensors."""
     _check_shapes(q, k, v, causal, window, q_offset, kv_offset)
     _check_bwd_shapes(q, do, lse, dvec)
     kw = dict(scale=scale, causal=causal, window=window, q_offset=q_offset,
@@ -349,7 +404,7 @@ def flash_bwd_dq(q, k, v, do, lse, dvec, *, scale: float, causal: bool,
     D = q.shape[-1]
     q, k, v, do = pad_head_dim("flash_bwd_dq", q, k, v, do)
     _check_aligned("flash_bwd_dq", (q, k, v, do))
-    dq = torch.empty_like(q)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     if q.numel():
         _launch("flash_bwd_dq", (q, k, v, do, lse, dvec, dq), q, k, **kw)
     return _unpad(dq, D)
@@ -358,8 +413,8 @@ def flash_bwd_dq(q, k, v, do, lse, dvec, *, scale: float, causal: bool,
 def flash_bwd_dkv(q, k, v, do, lse, dvec, *, scale: float, causal: bool,
                   window: Optional[int] = None, q_offset: int = 0,
                   kv_offset: int = 0):
-    """(dk, dv) [B, Tkv, Hkv, D], summed over each GQA group — the
-    ``flash_bwd_dkv`` kernel on CUDA tensors, its plain version on CPU
+    """(dk, dv) [B, Tkv, Hkv, D], float32, summed over each GQA group —
+    the ``flash_bwd_dkv`` kernel on CUDA tensors, its plain version on CPU
     tensors."""
     _check_shapes(q, k, v, causal, window, q_offset, kv_offset)
     _check_bwd_shapes(q, do, lse, dvec)
@@ -370,8 +425,8 @@ def flash_bwd_dkv(q, k, v, do, lse, dvec, *, scale: float, causal: bool,
     D = q.shape[-1]
     q, k, v, do = pad_head_dim("flash_bwd_dkv", q, k, v, do)
     _check_aligned("flash_bwd_dkv", (q, k, v, do))
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.empty_like(dk)
     if k.numel():
         _launch("flash_bwd_dkv", (q, k, v, do, lse, dvec, dk, dv), q, k, **kw)
     return _unpad(dk, D), _unpad(dv, D)

@@ -175,6 +175,18 @@ def _ef_route(residuals, dcn_compress, *, site: str, backend, compress,
     return codec
 
 
+def _obs_gradsync(n_buckets: int, op: str, compress) -> None:
+    """With obs on, one sync round (JAX :347-370, :733-737):
+    ``tm_gradsync_rounds_total{op, compressed}`` and
+    ``tm_gradsync_buckets_total``, here the round's buckets as launched.
+    Every call counts (JAX counts traces; ROADMAP queue C note 31)."""
+    if runtime.effective_config().obs == "off":
+        return
+    from .. import obs
+
+    obs.record_gradsync(n_buckets, op, compress)
+
+
 def _sync_(grads: List[torch.Tensor], *, backend: Optional[str],
            op: Optional[str], compress: Optional[str],
            n_buckets: Optional[int], barrier: Optional[bool], residuals,
@@ -199,6 +211,7 @@ def _sync_(grads: List[torch.Tensor], *, backend: Optional[str],
         op, _ = _resolve(op, None, "synchronize_gradients")
         if n_buckets is None:
             n_buckets = runtime.effective_config().gradsync_buckets
+        _obs_gradsync(max(1, n_buckets), op, f"dcn-{codec}")
         return _dcn_ef_allreduce_(grads, op=op, n_buckets=n_buckets,
                                   codec=codec, residuals=residuals, n=n)
     op, compress = _resolve(op, compress, "synchronize_gradients")
@@ -209,9 +222,11 @@ def _sync_(grads: List[torch.Tensor], *, backend: Optional[str],
     if planner.enabled() and wire:
         # The bucket layout and each bucket's route, bound once per
         # gradient structure (JAX :230-234).
-        planner.plan_gradsync(wire, n_buckets=n_buckets, backend=backend,
-                              barrier=bool(barrier), rank_major=rank_major,
-                              op=op).replay(wire)
+        launches = planner.plan_gradsync(
+            wire, n_buckets=n_buckets, backend=backend,
+            barrier=bool(barrier), rank_major=rank_major,
+            op=op).replay(wire)
+        _obs_gradsync(launches, op, compress)
         if compress == "bf16":
             for g, w in zip(grads, wire):
                 g.copy_(w)
@@ -221,10 +236,12 @@ def _sync_(grads: List[torch.Tensor], *, backend: Optional[str],
         spec = fusion.FusedSpec([t[0] for t in wire] if rank_major else wire,
                                 n_buckets=n_buckets)
     if rank_major:
-        fusion.fused_allreduce_rank_major_(wire, spec=spec, backend=backend,
-                                           op=op)
+        launches = fusion.fused_allreduce_rank_major_(
+            wire, spec=spec, backend=backend, op=op)
     else:
-        fusion.fused_("allreduce", wire, spec=spec, backend=backend, op=op)
+        launches = fusion.fused_("allreduce", wire, spec=spec,
+                                 backend=backend, op=op)
+    _obs_gradsync(launches, op, compress)
     if compress == "bf16":
         for g, w in zip(grads, wire):
             g.copy_(w)
@@ -497,6 +514,38 @@ def _ef_vag(vag: Callable, codec: Optional[str], template, firing, n,
     return wrapped
 
 
+def _obs_overlap(stage: str, bucket: int, total: int) -> None:
+    """With obs on, one overlap schedule event (JAX :481-497): ``grads``
+    as bucket ``bucket``'s last gradient arrived, ``launch`` as its
+    allreduce is issued.  Their interleaving in the flight ring is the
+    overlap invariant: bucket k's launch before bucket k + 1's grads."""
+    if runtime.effective_config().obs == "off":
+        return
+    from .. import obs
+
+    obs.record_overlap(stage, bucket, total)
+
+
+def _observed_step(step: Callable) -> Callable:
+    """With obs on at build, one ``tm_step_builds_total`` and ``step``
+    wrapped to append a ``step`` flight event before each call, the
+    window edge ``tool attribute`` budgets against (JAX :915-927).  With
+    obs off, ``step`` itself."""
+    if runtime.effective_config().obs == "off":
+        return step
+    from .. import obs
+
+    obs.record_step_build("data_parallel_step")
+    counter = [0]
+
+    def observed_step(*batch):
+        obs.record_step("data_parallel_step", counter[0])
+        counter[0] += 1
+        return step(*batch)
+
+    return observed_step
+
+
 def _check_params(params, template, site) -> List[torch.Tensor]:
     params = list(params)
     if len(params) != len(template):
@@ -569,8 +618,10 @@ def make_overlapped_grad_fn(loss_fn: Callable,
                 if grads[i] is None:
                     grads[i] = torch.zeros_like(
                         leaves[i], memory_format=torch.contiguous_format)
+            _obs_overlap("grads", k, len(firing))
             g = groups[k]
             flat = fusion.gather_bucket(grads, g, 0, g.total)
+            _obs_overlap("launch", k, len(firing))
             if codec is not None:
                 from .. import compress as _codec
 
@@ -584,6 +635,8 @@ def make_overlapped_grad_fn(loss_fn: Callable,
             pending.append((g, flat.dtype, collectives._async_world(
                 "allreduce", wire, backend=backend, impl=impls[k], op=op)))
 
+        _obs_gradsync(len(firing), op,
+                      f"dcn-{codec}" if codec else compress)
         out = _backward_with_hooks(loss_fn, leaves, batch, has_aux, firing,
                                    on_grad, fire)
         synced: List[Optional[torch.Tensor]] = [None] * len(leaves)
@@ -702,6 +755,8 @@ def make_overlapped_grad_fn_rank_major(loss_fn: Callable,
             for i in g.indices:
                 if not got[i]:
                     stacks[i][n - 1].zero_()
+            _obs_overlap("grads", k, len(firing))
+            _obs_overlap("launch", k, len(firing))
             if side is None:
                 reduce_bucket(k, g)
                 return
@@ -712,6 +767,8 @@ def make_overlapped_grad_fn_rank_major(loss_fn: Callable,
                 stacks[i].record_stream(side)
 
         leaves = [p.detach().requires_grad_() for p in params]
+        _obs_gradsync(len(firing), op,
+                      f"dcn-{codec}" if codec else compress)
         outs.append(_backward_with_hooks(
             loss_fn, leaves, tuple(b[n - 1] for b in parts), has_aux,
             firing, on_grad, fire))
@@ -791,7 +848,7 @@ def data_parallel_step(model: torch.nn.Module,
         optimizer.step()
         return collectives.allreduce_in_axis(loss.detach(), op="mean")
 
-    return step
+    return _observed_step(step)
 
 
 def data_parallel_step_rank_major(model: torch.nn.Module,
@@ -825,4 +882,4 @@ def data_parallel_step_rank_major(model: torch.nn.Module,
         optimizer.step()
         return torch.stack(losses).mean()
 
-    return step
+    return _observed_step(step)

@@ -95,6 +95,23 @@ def chunk_count(nelems: int, itemsize: int, n_ici: int,
     return k
 
 
+def _note_dcn(codec: Optional[str], c: int, itemsize: int) -> None:
+    """With obs on, one chunk's dcn leg of ``c`` elements a rank: its
+    wire and payload bytes (JAX :191-201).  An uncompressed leg does not
+    import the codec module."""
+    if runtime.effective_config().obs == "off":
+        return
+    if codec is None:
+        from .. import obs
+
+        obs.record_dcn("allreduce", "none", c * itemsize, c * itemsize)
+        return
+    from .. import compress
+
+    compress.note_leg("allreduce", codec, c * itemsize,
+                      compress.wire_nbytes_of(c, codec))
+
+
 def _check_op(op: str) -> None:
     if op not in _OPS:
         raise KeyError(f"hierarchical allreduce does not support op {op!r}")
@@ -150,6 +167,7 @@ def hier_allreduce_rank_major(xs: torch.Tensor, *, op: str = "sum",
         with record_function("hier/ici_reduce_scatter"):
             shards = _fold(x[:, :, j], 1)          # [n_dcn, tile, c]
         with record_function("hier/dcn_allreduce"):
+            _note_dcn(codec, c, xs.element_size())
             if codec is not None:
                 from .. import compress
 
@@ -237,6 +255,7 @@ def hier_allreduce(x: torch.Tensor, *, op: str = "sum") -> torch.Tensor:
         if pending is not None:
             finish(*pending)
         with record_function("hier/dcn_allreduce"):
+            _note_dcn(codec, c, x.element_size())
             if codec is not None:
                 from .. import compress
 

@@ -34,9 +34,12 @@ pinned host memory:
 
 Dtype contract: the wire and shard format is float32; float32, bfloat16
 and float16 leaves round-trip bit-exactly, anything lossy raises (see
-``utils/tree.py``).  The JAX package's resilient handles, fault injection,
-wire guard, watchdog and telemetry hooks belong to the resilience and
-observability layers, which are not ported (ROADMAP queue A, item 10).
+``utils/tree.py``).  With ``Config.obs`` on, a handle's first completed
+``wait()`` appends a ``ps_wait_done`` flight event (through the
+``sys.modules``-gated ``utils.telemetry``) and every ``stats()`` snapshot
+folds its deltas into the ``tm_ps_*_total`` counters.  The JAX package's
+resilient handles, fault injection, wire guard and watchdog hooks belong
+to the resilience layers, which are not ported (ROADMAP A10 (b)).
 """
 
 from __future__ import annotations
@@ -168,6 +171,11 @@ class PSHandle:
             self._result = (self._result_fn() if self._result_fn is not None
                             else None)
             self._buffers = []
+            from ..utils import telemetry
+
+            # The completion edge of a PS wait, once a handle (JAX
+            # :188-193): blame can see the exchange completed.
+            telemetry.emit("record_ps_wait", self._n_futures)
         return self._result
 
     def _wait_native(self, timeout_ms: int = 0) -> None:
@@ -246,6 +254,7 @@ class ShardedParameterServer:
             (int(bounds[i]), int(bounds[i + 1])) for i in range(num_shards)]
         self.server_ids: List[int] = []
         self.ports: List[int] = []
+        self._last_stats: Optional[dict] = None
         for i, (lo, hi) in enumerate(self.shard_bounds):
             port = 0 if base_port == 0 else base_port + i
             sid = self._lib.tm_ps_server_create(hi - lo, port)
@@ -276,15 +285,11 @@ class ShardedParameterServer:
         ``ops`` / ``bytes_in`` / ``recv_s`` / ``lock_wait_s`` /
         ``apply_s``; ``send_s`` / ``bytes_out`` / ``elastic_bytes_out``
         land after the response write and may lag by the ops in flight.
-        ``Config.obs`` other than "off" raises: the telemetry registry is
-        not ported."""
-        obs = runtime.effective_config().obs
-        if obs != "off":
-            raise NotImplementedError(
-                f"Config.obs={obs!r}: the telemetry layer is not ported yet "
-                "(ROADMAP queue A, item 10)")
+        With ``Config.obs`` on, each snapshot's deltas against the previous
+        one are folded into the registry as ``tm_ps_<key>_total`` counters
+        (JAX :333-349)."""
         tot = self._read_counters()
-        return {
+        out = {
             "ops": int(tot[0]),
             "bytes_in": int(tot[1]),
             "bytes_out": int(tot[2]),
@@ -294,6 +299,12 @@ class ShardedParameterServer:
             "send_s": float(tot[6]) / 1e9,
             "elastic_bytes_out": int(tot[7]),
         }
+        if runtime.effective_config().obs != "off":
+            from .. import obs
+
+            obs.record_ps_stats(out, self._last_stats)
+            self._last_stats = dict(out)
+        return out
 
     def shutdown(self) -> None:
         for sid in self.server_ids:

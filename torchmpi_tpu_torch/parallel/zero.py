@@ -49,9 +49,10 @@ raises.  On a flat world the leg is the plain reduce-scatter (warned
 once) and the residuals come back unchanged; with ``presynced`` they pass
 through.  ``flat_spec`` / ``shard_params`` and the process-world entries
 take ``axis_names`` ("dcn", "ici" or both); ``flat_spec`` is planned
-(``planner.flat_spec_for``).  The JAX package's guard, telemetry and
-static-analysis hooks belong to modules the port does not have yet (queue
-A 10, 11).
+(``planner.flat_spec_for``).  With ``Config.obs`` on, every gradient leg
+counts ``tm_zero_sync_rounds_total`` and ``tm_zero_groups_total`` (JAX
+:301-305).  The JAX package's guard and static-analysis hooks belong to
+modules the port does not have yet (ROADMAP A10 (c), A11).
 """
 
 from __future__ import annotations
@@ -193,6 +194,11 @@ def _grad_leg(flats, spec, *, op, compress, codec, dcn_residuals, presynced,
     """The gradient leg of every entry: ``local()`` (presynced), the EF leg
     on a two-level grid, or the reduce-scatter (warned once where residuals
     meet a flat grid).  Returns ``(g_shard, new_residuals)``."""
+    if runtime.effective_config().obs != "off":
+        from .. import obs
+
+        obs.record_zero("reduce_scatter", len(spec.groups),
+                        int(spec.n_shards))
     if presynced:
         return local(), dcn_residuals
     if codec is not None:

@@ -19,9 +19,12 @@ This module keeps the decision record of a call site in an immutable
 - **record**: the fused layout (``spec``), the resolved implementation
   per bucket (``impls``; ``"auto"`` measured on a plan miss of the tuning
   DB, ``tuning.resolve_eager``), ``staged``, ``topology``, ``nbytes`` and
-  ``build_seconds``.  ``obs``, ``faults``, ``guard``, ``watchdog`` (False)
-  and ``analysis`` ("off") are the JAX record's fields; those layers are
-  not ported (ROADMAP queue A, items 10 and 11).
+  ``build_seconds``; ``obs``: whether the plan was built with telemetry
+  on (its replay then carries the eager recorders, and a hit counts
+  ``tm_plan_hit_total`` through a pre-bound handle).  ``faults``,
+  ``guard``, ``watchdog`` (False) and ``analysis`` ("off") are the JAX
+  record's fields; those layers are not ported (ROADMAP A10 (b), (c) and
+  A11).
 - **replay**: one dict lookup, then the bound closure.
 
 Consumers: the rank-major verbs (``collectives._eager``, also under
@@ -67,7 +70,7 @@ class CollectivePlan:
     __slots__ = ("key", "kind", "op", "backend", "nbytes", "spec", "impls",
                  "backends", "extra", "staged", "obs", "faults", "guard",
                  "watchdog", "analysis", "epoch", "topology",
-                 "build_seconds", "hits", "_replay")
+                 "build_seconds", "hits", "_replay", "_obs_hit")
 
     def __init__(self, key: tuple, kind: str, op: str, *,
                  backend: str = "", nbytes: int = 0,
@@ -91,13 +94,22 @@ class CollectivePlan:
         self.backend = backend or _label(self.backends)
         self.extra = extra or {}
         self.staged = bool(staged)
-        self.obs = self.faults = self.guard = self.watchdog = False
+        self.faults = self.guard = self.watchdog = False
         self.analysis = "off"
         self.epoch = runtime.config_epoch()
         self.topology = topology
         self.build_seconds = 0.0
         self.hits = 0
         self._replay = replay
+        # Telemetry, resolved at build (a set_config re-plans): one
+        # pre-keyed counter a hit when on, nothing when off (JAX :126-135).
+        self.obs = runtime.effective_config().obs != "off"
+        self._obs_hit: Optional[Callable] = None
+        if self.obs:
+            from . import obs
+
+            self._obs_hit = obs.registry().counter_handle(
+                "tm_plan_hit_total", op=op, kind=kind)
 
     def replay(self, *args, **kw):
         """Execute the planned dispatch for one same-structure input."""
@@ -179,6 +191,8 @@ def _lookup(key: tuple) -> Optional[CollectivePlan]:
     if plan is not None:
         _stats["hits"] += 1
         plan.hits += 1
+        if plan._obs_hit is not None:
+            plan._obs_hit()
     return plan
 
 
@@ -200,6 +214,13 @@ def _get_or_build(key: tuple, builder: Callable[[], CollectivePlan]
         plan.build_seconds = time.monotonic() - t0
         _table[key] = plan
         _stats["misses"] += 1
+    if plan.obs:
+        from . import obs
+
+        # A plan build: the miss counter, its latency and a "plan" flight
+        # event (JAX :260-266).
+        obs.record_plan("miss", plan.op, kind=plan.kind,
+                        build_s=plan.build_seconds)
     return plan
 
 
@@ -279,6 +300,32 @@ def resolve(op: str, backend: Optional[str], *, nbytes: int, dtype,
 # ---------------------------------------------------------------------------
 
 
+def observed(replay: Callable, verb: str, nbytes: int, backend: str,
+             dtype, n: Optional[int]) -> Callable:
+    """``replay`` with the eager telemetry edges where obs is on (JAX
+    :429-433, :522-536): the dispatch record (counter, byte histogram,
+    flight event) before it and the completion edge after, their labels
+    bound once here (``nbytes`` one rank's payload, ``n`` the stack's
+    ranks, None across processes).  The completion edge of a device
+    backend is the return of the enqueue.  With obs off, ``replay``
+    itself."""
+    if runtime.effective_config().obs == "off":
+        return replay
+    from . import obs
+
+    comm = runtime._current_or_default()
+    rec = obs.eager_recorder(verb, nbytes, backend, comm, dtype, n)
+    done = obs.eager_done_recorder(verb, nbytes, backend, comm, n)
+
+    def replay_observed(*args, **kw):
+        rec()
+        out = replay(*args, **kw)
+        done()
+        return out
+
+    return replay_observed
+
+
 def plan_for(verb: str, xs: torch.Tensor, backend: Optional[str],
              staged: Optional[bool], params: dict, axis: Optional[str],
              n_dcn: Optional[int]) -> CollectivePlan:
@@ -306,7 +353,8 @@ def _build_eager(key, verb, xs, backend, staged, params, axis,
 
         return CollectivePlan(key, "eager-staged", verb, backend="host",
                               nbytes=nbytes, staged=True, topology=topo,
-                              replay=_replay)
+                              replay=observed(_replay, verb, nbytes, "host",
+                                              xs.dtype, n))
 
     def runner(b):
         return C._eager_unplanned(verb, xs, b, False, params, axis, n_dcn)
@@ -331,7 +379,10 @@ def _build_eager(key, verb, xs, backend, staged, params, axis,
                 [impl(v[g], **params) for g in range(v.shape[0])]), axis)
 
     return CollectivePlan(key, "eager", verb, nbytes=nbytes, impls=[impl],
-                          impl_op=op, topology=topo, replay=_replay)
+                          impl_op=op, topology=topo,
+                          replay=observed(_replay, verb, nbytes,
+                                          selector.name_of(op, impl),
+                                          xs.dtype, n))
 
 
 # ---------------------------------------------------------------------------

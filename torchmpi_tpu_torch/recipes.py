@@ -44,8 +44,10 @@ sync (JAX :35, :78-83, :117-140); with overlap or ZeRO it does not apply.
 allreduce on the grid of ``Config.dcn_size`` and ``"pallas"`` there the
 ring over each node's ici ranks (JAX ``examples/imagenet_resnet50.py``
 :37-56 under ``--dcn``).
-Not ported yet, and refused by name: a ``Config.analysis`` or
-``Config.obs`` other than "off" (ROADMAP queue A, items 11 and 10).
+Not ported yet, and refused by name: a ``Config.analysis`` other than
+"off" (ROADMAP queue A, item 11).  With ``Config.obs`` on, each step
+builder counts one ``tm_step_builds_total{label}`` (JAX :181-184) and the
+step's collectives record as everywhere else.
 
 FSDP (JAX :188-281): :func:`fsdp_specs` names each parameter's shard dim,
 and :func:`make_fsdp_train_step` / :func:`make_fsdp_train_step_rank_major`
@@ -90,10 +92,14 @@ def _refuse_unported(cfg) -> None:
         raise NotImplementedError(
             f"Config.analysis={cfg.analysis!r}: the static collective "
             "analysis is not ported yet (ROADMAP queue A, item 11)")
-    if cfg.obs != "off":
-        raise NotImplementedError(
-            f"Config.obs={cfg.obs!r}: the telemetry layer is not ported yet "
-            "(ROADMAP queue A, item 10)")
+
+
+def _note_build(label: str) -> None:
+    """With obs on, one step builder's ``tm_step_builds_total``."""
+    if runtime.effective_config().obs != "off":
+        from . import obs
+
+        obs.record_step_build(label)
 
 
 def _check_zero(zero, params_template):
@@ -208,6 +214,7 @@ def make_bn_dp_train_step(model: torch.nn.Module,
         loss = collectives.allreduce_in_axis(loss, op="mean")
         return params, opt_state, new_stats, loss
 
+    _note_build(f"bn_dp_train_step(zero={zero})")
     return step
 
 
@@ -296,6 +303,7 @@ def make_bn_dp_train_step_rank_major(model: torch.nn.Module,
         return (params, opt_state, [st[0] for st in stat_stacks],
                 torch.stack(losses).mean())
 
+    _note_build(f"bn_dp_train_step(zero={zero})")
     return step
 
 

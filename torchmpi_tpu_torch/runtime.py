@@ -75,13 +75,15 @@ import itertools
 import math
 import os
 import socket
+import sys
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
-from .config import Config, check_serving, ps_timeout_s
+from .config import (Config, check_serving, normalize_obs, ps_timeout_s,
+                     resolve_obs)
 
 Axes = Union[str, Sequence[str], None]
 WORLD_AXES = ("dcn", "ici")
@@ -337,6 +339,7 @@ def init(config: Optional[Config] = None, *, device: str = "cuda",
             setattr(cfg, k, v)
         cfg.ps_timeout_s = ps_timeout_s(cfg.ps_timeout_s)
         check_serving(cfg)
+        resolve_obs(cfg)
         dev = torch.device(device)
         if dev.type == "cuda":
             if not torch.cuda.is_available():
@@ -378,6 +381,7 @@ def init(config: Optional[Config] = None, *, device: str = "cuda",
         _state.config_epoch += 1
     # Outside the lock: the tuning layer reads the runtime's accessors.
     _configure_tuning(cfg)
+    _configure_obs(cfg)
     return dev
 
 
@@ -397,6 +401,34 @@ def stop() -> None:
 
     planner.invalidate()
     tuning.reset()
+
+
+def _configure_obs(cfg: Config) -> None:
+    """Arm the telemetry layer where ``cfg.obs`` asks for it (JAX
+    :369-395, :751-757): import and activate it, its dumps in
+    ``obs_dir`` (else TORCHMPI_TPU_OBS_DIR, else its default) with a
+    ring of ``obs_ring_size`` (a ring left at the default defers to
+    TORCHMPI_TPU_OBS_RING), named by this process's rank.  With obs off
+    a previous session's telemetry is turned off (its mode, SIGTERM
+    handler and exit dump), through ``sys.modules`` only: turning obs off
+    never imports it."""
+    if cfg.obs == "off":
+        mod = sys.modules.get(__package__ + ".obs")
+        if mod is not None and mod.active():
+            mod.deactivate()
+        return
+    from . import obs
+
+    out_dir = (cfg.obs_dir or os.environ.get("TORCHMPI_TPU_OBS_DIR")
+               or obs.DEFAULT_OUT_DIR)
+    ring = int(cfg.obs_ring_size)
+    env_ring = os.environ.get("TORCHMPI_TPU_OBS_RING")
+    default_ring = next(f.default for f in dataclasses.fields(Config)
+                        if f.name == "obs_ring_size")
+    if env_ring and ring == default_ring:
+        ring = int(env_ring)
+    obs.activate(cfg.obs, out_dir=out_dir, ring_size=ring,
+                 host=dist.get_rank() if dist.is_initialized() else 0)
 
 
 def _configure_tuning(cfg: Config) -> None:
@@ -432,6 +464,11 @@ def set_config(**overrides) -> None:
                              "init: stop() and init() again to change them")
         if "ps_timeout_s" in overrides:
             overrides["ps_timeout_s"] = ps_timeout_s(overrides["ps_timeout_s"])
+        if "obs" in overrides:
+            mode = normalize_obs(overrides["obs"])
+            if mode is None:
+                raise ValueError("config.obs must be off|metrics|trace")
+            overrides["obs"] = mode
         new = dataclasses.replace(_state.config, **overrides)
         check_serving(new)
         _state.config = new
@@ -440,6 +477,8 @@ def set_config(**overrides) -> None:
 
     collectives.clear_cache()
     _configure_tuning(_state.config)
+    if {"obs", "obs_dir", "obs_ring_size"} & set(overrides):
+        _configure_obs(_state.config)
 
 
 def is_initialized() -> bool:
@@ -736,10 +775,19 @@ def local_rank() -> int:
     return int(v) if v is not None else 0
 
 
-def barrier() -> None:
-    """Global barrier (reference: ``mpi.barrier()``)."""
+def barrier(name: str = "torchmpi_tpu_barrier") -> None:
+    """Global barrier (reference: ``mpi.barrier()``).  With obs on, its
+    start is recorded before the wait (a host stuck in it shows it as its
+    last flight event) and its completion after (JAX :1131-1178)."""
     _require_init()
+    obs_on = _state.config.obs != "off"
+    if obs_on:
+        from . import obs
+
+        obs.record_barrier(name)
     if _state.device.type == "cuda":
         dist.barrier(device_ids=[_state.device.index])
     else:
         dist.barrier()
+    if obs_on:
+        obs.record_barrier_done(name)

@@ -148,16 +148,21 @@ _warned_fallbacks: Set[Tuple[str, str]] = set()
 def _note_fallback(op: str, backend: str, reason: str, *,
                    target: str = "'xla'") -> None:
     """One ``RuntimeWarning`` per (op, backend) that a requested backend
-    degraded to ``target`` (JAX :159, without the telemetry counter, which
-    waits for the obs layer, ROADMAP queue A, item 10)."""
+    degraded to ``target`` (JAX :159), and with obs on one
+    ``tm_selector_fallback_total`` a degradation (JAX :181)."""
     key = (op, backend)
-    if key in _warned_fallbacks:
-        return
-    _warned_fallbacks.add(key)
-    warnings.warn(
-        f"collective {op!r}: {backend!r} requested but degraded to {target} "
-        f"({reason}); check dcn_size if a two-level topology was intended",
-        RuntimeWarning, stacklevel=4)
+    if key not in _warned_fallbacks:
+        _warned_fallbacks.add(key)
+        warnings.warn(
+            f"collective {op!r}: {backend!r} requested but degraded to "
+            f"{target} ({reason}); check dcn_size if a two-level topology "
+            f"was intended", RuntimeWarning, stacklevel=4)
+    from . import runtime
+
+    if runtime.effective_config().obs != "off":
+        from . import obs
+
+        obs.record_selector_fallback(op, backend)
 
 
 def _n_dcn(op: str, ranks: Optional[int]) -> int:

@@ -26,8 +26,9 @@ Never imported unless used: nothing in the library imports this package.
         serving.Request("r0", prompt, max_new=32, arrival_s=0.0,
                         temperature=0.8, top_k=40, seed=7), ...])
 
-The chaos sites and ``tm_serving_*`` telemetry are ROADMAP queue A, item
-10.
+With ``Config.obs`` on, the scheduler and the engines record the
+``tm_serving_*`` telemetry (``python -m torchmpi_tpu_torch.obs.tool slo``
+renders it).  The chaos sites are ROADMAP A10 (b).
 """
 
 from __future__ import annotations

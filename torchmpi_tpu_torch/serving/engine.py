@@ -35,13 +35,18 @@ each admission and each step reads its new tokens back exactly once
 (JAX's ``np.asarray``).  ``stats`` counts forwards and ``units`` work
 units (prefill and pooled forward 1 each, draft forwards at the
 proposer's ``unit_weight``): the scheduler's ``unit_seconds`` clock.
-The engine keeps no time and no telemetry.
+The engine keeps no time.  With ``Config.obs`` on it counts its
+``tm_serving_*`` events (JAX :74-82, :289, :441, :585): a new prefill
+length, prefix-cache hits, misses, saved tokens and bytes, insertions and
+evictions, speculative drafts and acceptances; it reaches the obs layer
+through ``sys.modules`` only (:func:`_obs`).
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import sys
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -61,6 +66,22 @@ class RequestRejected(ValueError):
     never be served (its ``prompt + max_new`` exceeds the slot block, or
     its sampling knobs are invalid).  A type of its own so the scheduler
     rejects exactly this case and keeps serving."""
+
+
+_OBS = __name__.rsplit(".", 2)[0] + ".obs"
+
+
+def _obs():
+    """The obs module when telemetry is active, else None: a
+    ``sys.modules`` lookup, so serving never imports the telemetry it
+    reports to (JAX :74-82)."""
+    mod = sys.modules.get(_OBS)
+    try:
+        if mod is not None and mod.active():
+            return mod
+    except Exception:  # noqa: BLE001 — telemetry never fails a tick
+        pass
+    return None
 
 
 @dataclasses.dataclass
@@ -252,6 +273,24 @@ class ReplicaEngine:
         padded[:, :true_len] = prompt
         return padded, true_len
 
+    def _record_prefix(self, mod, chain, n_new: int, n_evicted: int) -> None:
+        """One admission's prefix-cache telemetry (JAX :441-461)."""
+        if chain:
+            depth = self._prefix.block_tokens * len(chain)
+            mod.record_serving("prefix_hits", replica=self.name)
+            mod.record_serving("prefix_tokens_saved", depth,
+                               replica=self.name)
+            mod.record_serving("prefix_bytes_saved",
+                               sum(n.nbytes for n in chain),
+                               replica=self.name)
+        else:
+            mod.record_serving("prefix_misses", replica=self.name)
+        if n_new:
+            mod.record_serving("prefix_inserted", n_new, replica=self.name)
+        if n_evicted:
+            mod.record_serving("prefix_evicted", n_evicted,
+                               replica=self.name)
+
     def _count_prefill_compile(self, key) -> None:
         """A padded length this engine has not prefilled before: one new
         specialization in JAX's terms (``key`` the padded length, or
@@ -259,6 +298,9 @@ class ReplicaEngine:
         if key not in self._prefill_lens:
             self._prefill_lens.add(key)
             self.stats["prefill_compiles"] += 1
+            mod = _obs()
+            if mod is not None:
+                mod.record_serving("prefill_compiles", replica=self.name)
 
     def _sampling_arrays(self, sessions: Dict[int, Session]):
         """[S] host arrays (seeds, idxs, temps, top_ks, top_ps) for the
@@ -403,10 +445,13 @@ class ReplicaEngine:
                 # just computed, then pin the whole chain for this
                 # session's lifetime.
                 B = self._prefix.block_tokens
-                full_chain, _, _ = self._prefix.insert(
+                full_chain, n_new, n_evicted = self._prefix.insert(
                     prompt[0], prompt.shape[1],
                     lambda i: slot_cache_slice(one_cache, i * B, B))
                 self._prefix.pin(full_chain)
+                mod = _obs()
+                if mod is not None:
+                    self._record_prefix(mod, chain, n_new, n_evicted)
         except BaseException:
             # A failed prefill must not leak the block.  (Prefix pins are
             # taken last, so there is never a pinned chain to unwind.)
@@ -520,6 +565,14 @@ class ReplicaEngine:
                 self._draft.observe(slot, sess)
         self.stats["spec_drafted"] += tick_drafted
         self.stats["spec_accepted"] += tick_accepted
+        mod = _obs()
+        if mod is not None:
+            if tick_drafted:
+                mod.record_serving("spec_drafted", tick_drafted,
+                                   replica=self.name)
+            if tick_accepted:
+                mod.record_serving("spec_accepted", tick_accepted,
+                                   replica=self.name)
         return advanced, finished
 
     def drain(self) -> List[Session]:

@@ -4,8 +4,10 @@
 The router spreads sessions across replicas and folds every step outcome
 into a per-replica health ledger (``faults.health.HealthLedger``: ok |
 degrade | raise).  The JAX router shares the armed fault layer's ledger;
-the port's fault layer is ROADMAP queue A, item 10, so the router keeps
-a private ledger with the same semantics unless the caller passes one.
+the port's fault layer is ROADMAP A10 (b), so the router keeps a private
+ledger with the same semantics unless the caller passes one.  With
+``Config.obs`` on, a readmission counts ``tm_serving_readmitted_total``
+(JAX :88).
 
 Routing policy (:meth:`Router.pick`): least-loaded among the replicas
 whose verdict is ``ok``; ``degrade`` replicas admit only when no healthy
@@ -57,6 +59,11 @@ class Router:
         comes back this way."""
         if replica.dead and not getattr(replica, "retired", False):
             replica.dead = False
+            from .engine import _obs
+
+            mod = _obs()
+            if mod is not None:
+                mod.record_serving("readmitted", replica=replica.name)
 
     def decide(self, replica: ReplicaEngine) -> str:
         if replica.dead:

@@ -14,11 +14,18 @@ the clock passes its ``arrival_s``.  A drained replica's sessions (the
 autoscaler's scale-down) re-enter the queue front and re-prefill from
 their emitted prefix elsewhere, token-exact.
 
-Not ported: the chaos sites ``serving.replica`` and ``serving.admit``
-(``_fire`` / ``_gate``'s fault half), the fault-error resilience path and
-the ``tm_serving_*`` telemetry, all ROADMAP queue A, item 10.  Without
-them a failing replica step raises.  ``last_stats`` carries the
-inter-token gaps (``itl_s``) that JAX records into its histogram.
+With ``Config.obs`` on, each tick records the ``tm_serving_*`` telemetry
+(JAX :352-489): requests, completions, tokens, rejections, the admission
+gate's ``admitted`` / ``shed``, re-routes and the autoscaler's events;
+TTFT and inter-token latency on their histograms (in microseconds), the
+queue depth and each replica's slot occupancy, and a ``serving_tick``
+step marker, the attribution window.  The scheduler reaches the obs layer
+through ``sys.modules`` only: serving never imports the telemetry it
+reports to.  Not ported: the chaos sites ``serving.replica`` and
+``serving.admit`` (``_fire`` / ``_gate``'s fault half) and the
+fault-error resilience path, ROADMAP A10 (b).  Without them a failing
+replica step raises.  ``last_stats`` carries the inter-token gaps
+(``itl_s``) the histogram holds.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from .. import runtime
-from .engine import ReplicaEngine, RequestRejected, Session
+from .engine import ReplicaEngine, RequestRejected, Session, _obs
 from .fleet import AdmissionController, AdmissionRejected, \
     FleetController
 from .router import Router
@@ -296,10 +303,13 @@ class Server:
             n_ticks += 1
             n_tokens += len(newly_admitted) + \
                 sum(s.last_emit for s in stepped)
-            self._record_tick(newly_admitted, stepped, finished,
+            self._record_tick(pending, newly_admitted, stepped, finished,
                               completed, clock, elapsed)
             if self._fleet is not None:
-                self._fleet.tick(len(pending), pending)
+                event = self._fleet.tick(len(pending), pending)
+                mod = _obs()
+                if event is not None and mod is not None:
+                    mod.record_serving(event)
         raise RuntimeError(f"trace did not drain in {max_ticks} ticks")
 
     # -- one tick ----------------------------------------------------------
@@ -322,6 +332,9 @@ class Server:
                 # Unservable: reject it and keep serving everyone else.
                 req.error = str(e)
                 rejected.append(req)
+                mod = _obs()
+                if mod is not None:
+                    mod.record_serving("rejected", replica=eng.name)
                 continue
             if res is None:  # raced a full pool; retry next tick
                 pending.appendleft(req)
@@ -348,7 +361,13 @@ class Server:
             try:
                 self._admission.check(req.rid, depth)
             except AdmissionRejected as e:
+                mod = _obs()
+                if mod is not None:
+                    mod.record_serving("shed")
                 return str(e)
+            mod = _obs()
+            if mod is not None:
+                mod.record_serving("admitted")
         return None
 
     def _drain(self, eng: ReplicaEngine, pending: deque) -> None:
@@ -356,29 +375,49 @@ class Server:
         (they already waited once) for re-prefill elsewhere."""
         sessions = eng.drain()
         eng.dead = True
+        mod = _obs()
+        if mod is not None and sessions:
+            mod.record_serving("rerouted", len(sessions), replica=eng.name)
         for sess in reversed(sessions):
             req = sess.request
             req.tokens.extend(sess.emitted)
             req.reroutes += 1
             pending.appendleft(req)
 
-    # -- result bookkeeping ------------------------------------------------
+    # -- telemetry + result bookkeeping ------------------------------------
 
-    def _record_tick(self, admitted, stepped, finished, completed,
+    def _record_tick(self, pending, admitted, stepped, finished, completed,
                      clock: float, elapsed: float) -> None:
+        mod = _obs()
         for sess in admitted:
             req = sess.request
             if req.ttft_s is None:
                 req.ttft_s = clock - req.arrival_s
                 if self._admission is not None:
+                    # The SLO gate's window is fed with obs off too.
                     self._admission.observe(req.ttft_s)
+                if mod is not None:
+                    mod.record_serving("requests", replica=req.replica)
+                    mod.record_serving_latency("ttft", req.ttft_s,
+                                               replica=req.replica)
             else:
                 # Re-admission after a re-route: the whole stall since the
                 # last token is one inter-token gap.
                 since = (req.last_token_s if req.last_token_s is not None
                          else clock - elapsed)
                 self._itl.append(clock - since)
+                if mod is not None:
+                    mod.record_serving_latency("itl", clock - since,
+                                               replica=req.replica)
             req.last_token_s = clock
+        for sess in finished:
+            req = sess.request
+            req.tokens.extend(sess.emitted)
+            sess.emitted = []
+            req.finish_s = clock
+            completed.append(req)
+            if mod is not None:
+                mod.record_serving("completed", replica=req.replica)
         for sess in stepped:
             req = sess.request
             since = (req.last_token_s if req.last_token_s is not None
@@ -387,10 +426,26 @@ class Server:
             # gap / m.
             m = max(1, sess.last_emit)
             self._itl.extend([(clock - since) / m] * m)
+            if mod is not None:
+                for _ in range(m):
+                    mod.record_serving_latency("itl", (clock - since) / m,
+                                               replica=req.replica)
             req.last_token_s = clock
-        for sess in finished:
-            req = sess.request
-            req.tokens.extend(sess.emitted)
-            sess.emitted = []
-            req.finish_s = clock
-            completed.append(req)
+        if mod is None:
+            return
+        by_rep: dict = {}
+        for sess in admitted:
+            by_rep[sess.request.replica] = \
+                by_rep.get(sess.request.replica, 0) + 1
+        for sess in stepped:
+            by_rep[sess.request.replica] = \
+                by_rep.get(sess.request.replica, 0) + sess.last_emit
+        for rep, n in by_rep.items():
+            if n:
+                mod.record_serving("tokens", n, replica=rep)
+        mod.record_serving_depth(len(pending))
+        for eng in self.router.live():
+            mod.record_serving_occupancy(eng.pool.occupancy_pct(),
+                                         replica=eng.name)
+        # Tick boundary: the serving side's attribution window edge.
+        mod.record_step("serving_tick")

@@ -22,9 +22,11 @@ Lifecycle of one (op, size bucket, grid, platform) key:
 Every decision is recorded: an in-memory log (:func:`decisions`) and an
 optional JSONL ``MetricsLogger`` (:func:`set_decision_logger` /
 ``TORCHMPI_TPU_TUNING_LOG``).  A candidate that raises while measured is
-skipped and named under the record's ``errors``.  The JAX package's
-telemetry counters of a hit, a miss and a measurement wait for the obs
-layer (ROADMAP queue A, item 10).
+skipped and named under the record's ``errors``.  With ``Config.obs``
+on, every consult counts ``tm_tuning_plan_lookups_total{event}`` (a
+read-only hit or miss, an eager hit, a measurement) and every measured
+candidate lands its median on ``tm_tuning_measured_us`` (JAX :54-62,
+:182, :247, :283).
 """
 
 from __future__ import annotations
@@ -52,6 +54,18 @@ class _State:
 
 
 _state = _State()
+
+
+def _obs():
+    """The telemetry module when ``Config.obs`` is on, else None: one
+    branch per call site and never an import on the off path."""
+    from .. import runtime
+
+    if runtime.effective_config().obs == "off":
+        return None
+    from .. import obs
+
+    return obs
 
 
 def _log(record: dict) -> None:
@@ -164,6 +178,9 @@ def plan_lookup(op: str, nbytes: int, dtype, grid,
     except (TypeError, ValueError):  # an unkeyable dtype: no plan
         return None
     entry = cache.get(key)
+    o = _obs()
+    if o is not None:
+        o.record_tuning_plan("hit" if entry is not None else "miss", op)
     if entry is None:
         return None
     _note_plan_hit(op, key, entry)
@@ -224,6 +241,9 @@ def resolve_eager(op: str, nbytes: int, dtype, grid,
                   "reason": "multiprocess: online measurement disabled"})
         return None
     if entry is not None:
+        o = _obs()
+        if o is not None:
+            o.record_tuning_plan("hit", op)
         _note_plan_hit(op, key, entry)
         return entry.backend
     with st.lock:
@@ -249,6 +269,11 @@ def resolve_eager(op: str, nbytes: int, dtype, grid,
             return None
         winner, evidence = measure.noise_gate(cands, DEFAULT_BACKEND)
         st.measure_count += 1
+        o = _obs()
+        if o is not None:
+            o.record_tuning_plan("measured", op)
+            for b, r in cands.items():
+                o.record_tuning_measure(op, b, r.median)
         new = plancache.PlanEntry(
             backend=str(winner), source="measured",
             median_ms={b: round(r.median * 1e3, 4)

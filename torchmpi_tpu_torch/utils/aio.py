@@ -12,8 +12,8 @@ Buffer-lifetime contract: the native layer does not copy submitted data
 handle that is garbage-collected never blocks: if its write is still in
 flight, the buffer is parked in a module-level keep-alive list instead (a
 leak beats a native write into freed memory).  The JAX package's fault
-site on ``submit`` belongs to the resilience layer, which is not ported
-(ROADMAP queue A, item 10).
+site on ``submit`` belongs to the fault layer, which is not ported (ROADMAP
+A10 (b)).
 """
 
 from __future__ import annotations

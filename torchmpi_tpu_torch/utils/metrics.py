@@ -7,8 +7,6 @@ package fences with a one-element readback; here CUDA work is enqueued on
 streams, so :func:`fence` synchronizes the card that holds the result, and
 a timed round ends once every kernel it launched has finished, not when
 they were enqueued.  CPU tensors compute synchronously and need no fence.
-The JAX package's telemetry counter in ``MetricsLogger.log`` waits for the
-obs layer (ROADMAP queue A, item 10).
 """
 
 from __future__ import annotations
@@ -20,6 +18,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from .. import _tree
+from . import telemetry
 
 
 def fence(x) -> None:
@@ -107,7 +106,12 @@ class Timer:
 
 class MetricsLogger:
     """Records as JSONL: kept in ``records`` and, with a ``path``,
-    appended to that file, one JSON object a line."""
+    appended to that file, one JSON object a line.
+
+    A thin wrapper over the telemetry registry: with ``Config.obs`` on,
+    every record also counts ``tm_log_records_total{logger=name}`` (JAX
+    :137-160), through the ``sys.modules``-gated ``utils.telemetry``: a
+    process that never turned obs on never imports it."""
 
     def __init__(self, path: Optional[str] = None, name: str = "metrics"):
         self.path = path
@@ -120,6 +124,7 @@ class MetricsLogger:
         if self.path:
             with open(self.path, "a") as f:
                 f.write(json.dumps(rec) + "\n")
+        telemetry.emit("record_log", self.name)
 
 
 def allreduce_bus_bandwidth(nbytes: int, n_devices: int,
