@@ -7149,6 +7149,682 @@ def obs_serving_phase(torch, mpi, dev):
           f"obs_serving: slo p50 {slo_p50} vs the phase's {own}")
 
 
+# The chaos slice (slice 26): the fault layer and the watchdog on the card.
+# chaos_dp: obs_dp's DP step armed (faults "policy", watchdog "warn") for
+# CHAOS_STEPS steps a side of the bitwise check and CHAOS_TURNS timed steps
+# in turns; then the flagship's buckets synced staged, clean and under
+# CHAOS_RULES (the port's chaos tool's --rule specs, site:kind:prob:
+# max_hits; the first matching rule of a site wins on each arrival's one
+# draw, so a corrupt fires where the draw lies in [drop prob, corrupt
+# prob)), retries CHAOS_RETRIES, backoff CHAOS_BACKOFF_S, the first k
+# buckets where all of them would take more than about CHAOS_STAGED_BUDGET_S
+# s; then one staged call stalled under watchdog "break" at a deadline of
+# CHAOS_WD_DEADLINE_S.  chaos_serving: obs_serving's flagship and trace on
+# 2 replicas of 8 slots, replica1 killed at one of its steps and the
+# arrivals s10 and s11 dropped at the door.  chaos_ps: downpour_ps's
+# AlexNet, PS_WORKERS workers taking CHAOS_PS_STEPS steps in turns, drops
+# at both PS legs, ps.response's arrival 1 (worker 1's first push wait)
+# among them, so at least one push is retransmitted.
+CHAOS_STEPS = 2
+CHAOS_TURNS = 4
+CHAOS_SEED = 26
+CHAOS_RULES = ("host_staged.gather:drop:0.08:3",
+               "host_staged.gather:corrupt:0.2:3",
+               "host_staged.scatter:drop:0.08:3",
+               "host_staged.scatter:corrupt:0.2:3")
+CHAOS_RETRIES = 8
+CHAOS_BACKOFF_S = 0.001
+CHAOS_STAGED_BUDGET_S = 60.0
+CHAOS_STAGED_RTOL = 1e-6  # staged (rank-order fold) vs row 8 (ring order)
+CHAOS_WD_DEADLINE_S = 1.0
+CHAOS_WD_ESCALATE = 2.5  # the JAX watchdog's escalation, x the deadline
+CHAOS_SERVE_REPLICAS, CHAOS_SERVE_SLOTS = 2, 8
+CHAOS_SHED_AFTER = 10  # serving.admit arrivals 10 and 11 (s10, s11) shed
+CHAOS_PS_STEPS = 3
+CHAOS_PS_RULES = ("ps.request:drop:0.3:3", "ps.response:drop:1:1:0:1",
+                  "ps.response:drop:0.3:3")
+
+
+def _chaos_plan(path, rules, seed=CHAOS_SEED):
+    """A plan written by the port's chaos tool (in process): ``--rule``
+    specs ``site:kind:prob:max_hits[:delay_s[:after]]``."""
+    from torchmpi_tpu_torch.faults import tool as ftool
+
+    argv = ["gen", "--out", path, "--seed", str(seed)]
+    for r in rules:
+        argv += ["--rule", r]
+    check(ftool.main(argv) == 0, f"chaos tool gen {rules}")
+    return path
+
+
+def _predict_staged(plan, calls: int, retries: int) -> dict:
+    """What FaultPlan.decide gives for ``calls`` staged exchanges on the
+    host: a gather arrival an attempt, then a scatter arrival when the
+    gather did not fire; a fired arrival is one failed attempt (a retry,
+    or exhausted past ``retries``); a call with a failure that ends well
+    is one survived."""
+    injected, retry, exhausted, survived = {}, 0, 0, 0
+    for _ in range(calls):
+        failures = 0
+        while True:
+            fired = None
+            for site in ("host_staged.gather", "host_staged.scatter"):
+                d = plan.decide(site)
+                if d is not None:
+                    key = f"{site}/{d[0].kind}"
+                    injected[key] = injected.get(key, 0) + 1
+                    fired = d
+                    break
+            if fired is None:
+                break
+            failures += 1
+            if failures <= retries:
+                retry += 1
+            else:
+                exhausted += 1
+                break
+        survived += failures > 0
+    return {"injected": injected, "retry": retry, "exhausted": exhausted,
+            "survived": survived}
+
+
+def chaos_dp_phase(torch, mpi, ops, dev):
+    """The chaos slice's main path on the data-parallel step: obs_dp's
+    flagship DP step of RING_N ranks (``data_parallel_step_rank_major``
+    under backend "pallas", 59 buckets on row 8).  (a) CHAOS_STEPS steps
+    with faults and the watchdog off and the same steps with faults
+    "policy" and the watchdog "warn" (leases in a temporary directory):
+    losses and synced gradients bitwise, 0 host syncs a step, step ms a
+    side in turns (no claim), the lease on disk and ``obs.tool blame
+    --live`` naming rank 0 with exit 0; the kernel counters set to 0 just
+    before the armed steps and read just after.  (b) The same flagship's
+    rank gradients, each bucket's rank-major stack synced staged
+    (``allreduce_rank_major(staged=True)``, mean) clean and under a plan of
+    the port's chaos tool (CHAOS_RULES): bitwise equal, the tm_fault_*
+    counters equal to FaultPlan.decide's prediction on the host, both
+    against row 8's sync of the same stacks (bitwise, else rel. L2 <=
+    CHAOS_STAGED_RTOL: the host adds in rank order, the ring in ring
+    order).  (c) A stall at one staged call under watchdog "break"
+    (deadline CHAOS_WD_DEADLINE_S): CollectiveHangError between 1x and
+    CHAOS_WD_ESCALATE x the deadline, ``blame --live`` naming the stalled
+    site while it holds, and the next call, the plan disarmed, bitwise to
+    (b)'s."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    import threading
+
+    from torchmpi_tpu_torch import obs
+    from torchmpi_tpu_torch.faults import inject
+    from torchmpi_tpu_torch.obs import tool as otool
+    from torchmpi_tpu_torch.parallel import gradsync
+
+    ring = ops["ring"]
+    n = RING_N
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    model = mpi.models.TransformerLM(**LM, attn_impl="flash",
+                                     dtype=torch.bfloat16, device=dev,
+                                     generator=g)
+    tok = torch.randint(0, LM["vocab"], (BATCH, SEQ), generator=g,
+                        device=dev)
+    params = list(model.parameters())
+    init = [p.detach().clone() for p in params]
+    opt = torch.optim.SGD(params, lr=LR)
+    work = tempfile.mkdtemp(prefix="chaos_dp_")
+    lease_dir = os.path.join(work, "leases")
+    armed = dict(faults="policy", watchdog="warn", watchdog_dir=lease_dir)
+    off = dict(faults="off", watchdog="off")
+
+    def loss_fn(m, t):
+        return fused_lm_loss(torch, mpi, m, t)
+
+    def restore():
+        with torch.no_grad():
+            for p, p0 in zip(params, init):
+                p.copy_(p0)
+        model.zero_grad(set_to_none=True)
+
+    def steps(cfg, k):
+        mpi.set_config(**cfg)
+        restore()
+        step = gradsync.data_parallel_step_rank_major(
+            model, opt, loss_fn, n, backend="pallas")
+        losses = [step(tok) for _ in range(k)]
+        torch.cuda.synchronize()
+        return step, losses
+
+    out = {"phase": "chaos_dp", "ranks": n, "buckets": RING_BUCKETS,
+           "steps": CHAOS_STEPS}
+    try:
+        # (a) both off, then the main path armed: the same steps.
+        _, loss_off = steps(off, CHAOS_STEPS)
+        grad_off = [p.grad.clone() for p in params]
+        for mod in ops.values():
+            mod.reset_launches()
+        step, loss_on = steps(armed, CHAOS_STEPS)
+        launches = {nm: c for mod in ops.values()
+                    for nm, c in mod.LAUNCHES.items()}
+        bitwise_loss = all(torch.equal(a, b) for a, b in zip(loss_off,
+                                                               loss_on))
+        bitwise_grad = all(torch.equal(p.grad, r)
+                           for p, r in zip(params, grad_off))
+        del grad_off
+        syncs = count_host_syncs(torch, lambda: step(tok))
+        lease = os.path.join(lease_dir, "wd_lease_0.json")
+        lease_exists = os.path.exists(lease)
+        (rc_live, live_out), = _tools(["blame", "--live", lease_dir])
+        step_ms = {"off": [], "armed": []}
+        for turn in range(CHAOS_TURNS):
+            for mode in (("off", "armed") if turn % 2 == 0
+                         else ("armed", "off")):
+                mpi.set_config(**(armed if mode == "armed" else off))
+                step(tok)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(tok)
+                torch.cuda.synchronize()
+                step_ms[mode].append((time.perf_counter() - t0) * 1e3)
+        mpi.set_config(**off)
+        del step
+        torch.cuda.empty_cache()
+        out.update(losses_off=[float(v) for v in loss_off],
+                   losses_armed=[float(v) for v in loss_on],
+                   bitwise_losses=bitwise_loss, bitwise_grads=bitwise_grad,
+                   host_syncs_per_step=syncs, lease_exists=lease_exists,
+                   blame_live_rc=rc_live,
+                   blame_live=live_out.splitlines(), step_ms=step_ms,
+                   median_step_ms={m: statistics.median(v)
+                                   for m, v in step_ms.items()},
+                   launches=launches)
+
+        # (b) the flagship's rank gradients, bucket by bucket, staged.
+        restore()
+        stacks = [torch.empty((n, *p.shape), device=dev) for p in params]
+        for r in range(n):
+            model.zero_grad(set_to_none=True)
+            fused_lm_loss(torch, mpi, model, tok[r:r + 1]).backward()
+            for st, p in zip(stacks, params):
+                st[r].copy_(p.grad)
+        model.zero_grad(set_to_none=True)
+        spec = mpi.fusion.FusedSpec(params)
+        bounds = [(grp, lo, hi) for grp in spec.groups
+                  for lo, hi in grp.bounds]
+        check(len(bounds) == RING_BUCKETS, f"buckets {len(bounds)}")
+
+        def bucket(i):
+            grp, lo, hi = bounds[i]
+            return mpi.fusion.gather_bucket(stacks, grp, lo, hi,
+                                            rank_major=True)
+
+        def staged(i):
+            return mpi.allreduce_rank_major(bucket(i), op="mean",
+                                            staged=True)[0].clone()
+
+        clean, t0 = [], time.perf_counter()
+        for i in range(len(bounds)):
+            clean.append(staged(i))
+            # Leave room for the chaos pass of the same buckets.
+            if time.perf_counter() - t0 > CHAOS_STAGED_BUDGET_S / 2.5:
+                break
+        clean_s = time.perf_counter() - t0
+        k = len(clean)
+        plan_path = _chaos_plan(os.path.join(work, "staged.json"),
+                                CHAOS_RULES)
+        mpi.set_config(faults=plan_path, fault_retries=CHAOS_RETRIES,
+                       fault_backoff_s=CHAOS_BACKOFF_S, obs="metrics",
+                       obs_dir=os.path.join(work, "obs"))
+        obs.reset()
+        t0 = time.perf_counter()
+        chaos = [staged(i) for i in range(k)]
+        chaos_s = time.perf_counter() - t0
+        reg = obs.registry()
+        counted = {"injected": {}, "retry": reg.counter_total(
+            "tm_fault_retry_total"), "exhausted": reg.counter_total(
+            "tm_fault_exhausted_total"), "survived": reg.counter_total(
+            "tm_fault_survived_total")}
+        for row in reg.snapshot():
+            if row["name"] == "tm_fault_injected_total":
+                key = f"{row['labels']['site']}/{row['labels']['kind']}"
+                counted["injected"][key] = \
+                    counted["injected"].get(key, 0) + row["value"]
+        mpi.set_config(faults="off", obs="off")
+        obs.deactivate()
+        predicted = _predict_staged(inject.FaultPlan.load(plan_path), k,
+                                    CHAOS_RETRIES)
+        staged_bitwise = all(torch.equal(a, b) for a, b in zip(clean,
+                                                                 chaos))
+        del chaos
+        for mod in ops.values():
+            mod.reset_launches()
+        ring_bitwise, ring_rel = True, 0.0
+        for i in range(k):
+            r8 = mpi.allreduce_rank_major(bucket(i), op="mean",
+                                          backend="pallas")[0]
+            ring_bitwise = ring_bitwise and torch.equal(r8, clean[i])
+            ring_rel = max(ring_rel, float(
+                (r8 - clean[i]).norm() / clean[i].norm().clamp_min(1e-30)))
+        torch.cuda.synchronize()
+        row8_compare = ring.LAUNCHES["ring_allreduce_chunked"]
+        out.update(staged={
+            "rules": list(CHAOS_RULES), "seed": CHAOS_SEED,
+            "retries": CHAOS_RETRIES, "backoff_s": CHAOS_BACKOFF_S,
+            "buckets_k": k, "bucket_elems_a_rank": [
+                hi - lo for _, lo, hi in bounds[:k]][:3],
+            "clean_s": clean_s, "chaos_s": chaos_s,
+            "bitwise_chaos_vs_clean": staged_bitwise,
+            "counters": counted, "predicted": predicted,
+            "vs_row8": "bitwise" if ring_bitwise else "rel_l2",
+            "vs_row8_max_rel_l2": ring_rel,
+            "row8_compare_launches": row8_compare})
+
+        # (c) a stall under watchdog "break".
+        stall_path = _chaos_plan(os.path.join(work, "stall.json"),
+                                 ("host_staged.gather:stall:1:1",))
+        mpi.set_config(faults=stall_path, watchdog="break",
+                       watchdog_deadline_s=CHAOS_WD_DEADLINE_S,
+                       watchdog_poll_s=0.02, watchdog_dir=lease_dir)
+        from torchmpi_tpu_torch import watchdog
+
+        seen, done = {}, threading.Event()
+
+        def poll():
+            while not done.is_set():
+                me = watchdog.read_leases(lease_dir).get(0)
+                if me and any(e["stalled"] for e in me["inflight"]):
+                    buf = io.StringIO()
+                    with contextlib.redirect_stdout(buf):
+                        seen["rc"] = otool.main(["blame", "--live",
+                                                 lease_dir])
+                    seen["out"] = buf.getvalue()
+                    return
+                time.sleep(0.01)
+
+        th = threading.Thread(target=poll, daemon=True)
+        th.start()
+        hang = None
+        t0 = time.perf_counter()
+        try:
+            staged(0)
+        except watchdog.CollectiveHangError as e:
+            hang = e
+        hang_s = time.perf_counter() - t0
+        done.set()
+        th.join(10)
+        wd_stats = watchdog.stats()
+        mpi.set_config(faults="off", watchdog="off")
+        after = staged(0)
+        out.update(stall={
+            "deadline_s": CHAOS_WD_DEADLINE_S, "raised": repr(hang),
+            "site": getattr(hang, "site", None), "seconds": hang_s,
+            "bound_s": [CHAOS_WD_DEADLINE_S,
+                        CHAOS_WD_ESCALATE * CHAOS_WD_DEADLINE_S],
+            "blame_live_rc": seen.get("rc"),
+            "blame_live": seen.get("out", "").splitlines(),
+            "watchdog_stats": wd_stats,
+            "next_call_bitwise": torch.equal(after, clean[0])})
+        del clean, stacks
+    finally:
+        mpi.set_config(faults="off", watchdog="off", obs="off")
+        if "torchmpi_tpu_torch.obs" in sys.modules:
+            obs.deactivate()
+            obs.reset()
+        shutil.rmtree(work, ignore_errors=True)
+    emit(out)
+    check(bitwise_loss and bitwise_grad, "chaos_dp (a): arming the fault "
+          "layer and the watchdog changed the losses or the gradients")
+    check(syncs == 0, f"chaos_dp (a): {syncs} host syncs a step")
+    check(lease_exists and rc_live == 0 and "rank 0" in live_out,
+          f"chaos_dp (a): lease {lease_exists}, blame --live {rc_live}: "
+          f"{live_out}")
+    for nm in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "xent_fwd",
+               "xent_bwd_dx", "xent_bwd_dw", "ring_allreduce_chunked"):
+        check(launches.get(nm, 0) > 0, f"chaos_dp: {nm} never launched")
+    check(launches["ring_allreduce_chunked"] == RING_BUCKETS * CHAOS_STEPS,
+          f"chaos_dp: row 8 launches {launches['ring_allreduce_chunked']}")
+    st = out["staged"]
+    check(st["bitwise_chaos_vs_clean"], "chaos_dp (b): the staged sync "
+          "under the plan differs from the clean one")
+    check(st["counters"] == st["predicted"], f"chaos_dp (b): counters "
+          f"{st['counters']} vs FaultPlan.decide {st['predicted']}")
+    check(sum(st["predicted"]["injected"].values()) > 0,
+          "chaos_dp (b): the plan injected nothing")
+    check(st["vs_row8"] == "bitwise"
+          or st["vs_row8_max_rel_l2"] <= CHAOS_STAGED_RTOL,
+          f"chaos_dp (b): staged vs row 8 rel. L2 {st['vs_row8_max_rel_l2']}")
+    sl = out["stall"]
+    check(sl["site"] == "host_staged.gather"
+          and sl["bound_s"][0] <= sl["seconds"] <= sl["bound_s"][1],
+          f"chaos_dp (c): {sl['raised']} after {sl['seconds']} s")
+    check(sl["blame_live_rc"] == 1 and any(
+        "STALLED" in ln and "host_staged.gather" in ln
+        for ln in sl["blame_live"]), f"chaos_dp (c): blame --live "
+        f"{sl['blame_live']}")
+    check(sl["next_call_bitwise"], "chaos_dp (c): the call after the "
+          "stall differs from (b)'s")
+    return launches
+
+
+def chaos_serving_phase(torch, mpi, dev):
+    """The serving layer's fault half on the card: obs_serving's flagship
+    (float32, flash as trained) as one Server of CHAOS_SERVE_REPLICAS
+    replicas of CHAOS_SERVE_SLOTS slots, obs_serving's 16 requests of
+    lm_serving's trace on the virtual clock (work units x
+    OBS_SERVE_UNIT_S, so both runs schedule alike).  A fault-free run
+    records the order of the replica steps; the plan (the port's chaos
+    tool) then kills replica1 at one of its steps before s10 arrives
+    (``serving.replica`` fail) and drops s10 and s11 at the door
+    (``serving.admit`` drop).  Checks: the dead replica is replica1 and
+    its sessions complete on replica0; exactly s10 and s11 are shed with
+    the typed reason; the shed and fault counters equal the plan's; every
+    completed greedy stream equals offline ``generate`` by lm_serving's
+    (b) rule (a difference only at a top-2 margin under SERVE_LOGIT_RTOL
+    x max |logit|), every sampled stream not re-routed the fault-free
+    run's (re-routed ones reported); TTFT and ITL p50 beside the
+    fault-free run's, no claim."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from torchmpi_tpu_torch import obs, serving
+
+    work = tempfile.mkdtemp(prefix="chaos_serving_")
+    model = mpi.models.TransformerLM(
+        **LM, attn_impl="flash", device=dev,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 2))
+    model.eval()
+    mpi.models.generate(model, np.zeros((1, 16), np.int64), 4)  # warm-up
+    torch.cuda.synchronize()
+    make, sampled, _ = _serve_trace(np, serving, OBS_SERVE_UNIT_S)
+
+    def run(record=None):
+        reqs = make()[:OBS_SERVE_REQUESTS]
+        srv = serving.Server(model, replicas=CHAOS_SERVE_REPLICAS,
+                             slots=CHAOS_SERVE_SLOTS,
+                             slot_tokens=LM["max_len"])
+        if record is not None:
+            for eng in srv.router.replicas:
+                def stepped(_e=eng, _step=eng.step):
+                    record["steps"].append(_e.name)
+                    return _step()
+                eng.step = stepped
+            gate = srv._gate
+
+            def gated(req, depth):
+                record["gates"][req.rid] = len(record["steps"])
+                return gate(req, depth)
+            srv._gate = gated
+        t0 = time.perf_counter()
+        done = srv.run_trace(reqs, unit_seconds=OBS_SERVE_UNIT_S)
+        return reqs, srv, done, time.perf_counter() - t0
+
+    def lat(reqs, srv):
+        return {"ttft_p50_s": _pcts([r.ttft_s for r in reqs
+                                     if r.ttft_s is not None])["p50"],
+                "itl_p50_s": _pcts(srv.last_stats["itl_s"])["p50"]}
+
+    shed_rids = [f"s{CHAOS_SHED_AFTER}", f"s{CHAOS_SHED_AFTER + 1}"]
+    try:
+        record = {"steps": [], "gates": {}}
+        ref_reqs, ref_srv, _, ref_wall = run(record)
+        cut = record["gates"][shed_rids[0]]
+        cands = [i for i, nm in enumerate(record["steps"][:cut])
+                 if nm == "replica1"]
+        check(len(cands) >= 2, f"chaos_serving: replica1 stepped "
+              f"{len(cands)} times before {shed_rids[0]}")
+        kill_at = cands[len(cands) // 2]
+        plan = _chaos_plan(os.path.join(work, "serving.json"), (
+            f"serving.replica:fail:1:1:0:{kill_at}",
+            f"serving.admit:drop:1:2:0:{CHAOS_SHED_AFTER}"))
+        mpi.set_config(faults=plan, obs="metrics",
+                       obs_dir=os.path.join(work, "obs"))
+        obs.reset()
+        reqs, srv, done, wall = run()
+        reg = obs.registry()
+        counters = {
+            "shed": reg.counter_total("tm_serving_shed_total"),
+            "rerouted": reg.counter_total("tm_serving_rerouted_total"),
+            "completed": reg.counter_total("tm_serving_completed_total"),
+            "injected": {}}
+        for row in reg.snapshot():
+            if row["name"] == "tm_fault_injected_total":
+                key = f"{row['labels']['site']}/{row['labels']['kind']}"
+                counters["injected"][key] = \
+                    counters["injected"].get(key, 0) + row["value"]
+    finally:
+        mpi.set_config(faults="off", obs="off")
+        if "torchmpi_tpu_torch.obs" in sys.modules:
+            obs.deactivate()
+            obs.reset()
+        shutil.rmtree(work, ignore_errors=True)
+    dead = [e.name for e in srv.router.replicas if e.dead]
+    shed = [r for r in done if r.shed]
+    rerouted = [r for r in reqs if r.reroutes]
+    completed = [r for r in reqs if not r.shed]
+    by_rid = {r.rid: r for r in ref_reqs}
+    idx = {r.rid: i for i, r in enumerate(reqs)}
+    greedy = [r for r in completed if idx[r.rid] not in sampled]
+    mism = []
+    for r in greedy:
+        off = mpi.models.generate(model, r.prompt[None], r.max_new)[
+            0, r.prompt.size:].tolist()
+        if r.tokens == off:
+            continue
+        j = next(i for i, (x, y) in enumerate(zip(r.tokens, off)) if x != y)
+        with torch.no_grad(), _LocalAttention(model):
+            seq = torch.as_tensor(np.concatenate([r.prompt, off[:j]]),
+                                  device=dev)
+            logits = model(seq[None])[0, -1].float()
+        m = float(_top2_margin(torch, logits))
+        err = SERVE_LOGIT_RTOL * float(logits.abs().max())
+        mism.append({"rid": r.rid, "at": j, "margin": m, "err": err,
+                     "rerouted": bool(r.reroutes), "above_err": m > err})
+    samp = [r for r in completed if idx[r.rid] in sampled]
+    samp_same = {r.rid: r.tokens == by_rid[r.rid].tokens for r in samp}
+    emit({"phase": "chaos_serving", "requests": len(reqs),
+          "replicas": CHAOS_SERVE_REPLICAS, "slots": CHAOS_SERVE_SLOTS,
+          "clock": f"work units x {OBS_SERVE_UNIT_S} s",
+          "kill_at_replica_step": kill_at, "replica1_steps_before_shed":
+          len(cands), "dead": dead, "shed": [r.rid for r in shed],
+          "shed_reasons": [r.error for r in shed],
+          "rerouted": {r.rid: [r.reroutes, r.replica] for r in rerouted},
+          "counters": counters, "greedy_checked": len(greedy),
+          "greedy_mismatches": mism, "sampled_same_as_fault_free":
+          samp_same, "fault_free": dict(lat(ref_reqs, ref_srv),
+                                        wall_s=ref_wall),
+          "chaos": dict(lat(reqs, srv), wall_s=wall)})
+    check(dead == ["replica1"], f"chaos_serving: dead replicas {dead}")
+    check(rerouted and all(r.replica == "replica0" and r.error is None
+                           for r in rerouted),
+          "chaos_serving: a session of the dead replica did not complete "
+          "on replica0")
+    check([r.rid for r in shed] == shed_rids and all(
+        "serving.admit" in r.error and "injected drop" in r.error
+        for r in shed), f"chaos_serving: shed {[r.rid for r in shed]}")
+    check(len(done) == OBS_SERVE_REQUESTS and all(
+        r.error is None for r in completed), "chaos_serving: a request "
+        "did not complete")
+    check(counters["shed"] == 2 and counters["injected"] == {
+        "serving.admit/drop": 2, "serving.replica/fail": 1}
+        and counters["rerouted"] == sum(r.reroutes for r in reqs)
+        and counters["completed"] == len(completed),
+        f"chaos_serving: counters {counters}")
+    check(not any(m["above_err"] for m in mism),
+          f"chaos_serving: greedy streams differ from generate: {mism}")
+    check(all(samp_same[r.rid] for r in samp if not r.reroutes),
+          f"chaos_serving: sampled streams differ: {samp_same}")
+
+
+def chaos_ps_phase(torch, mpi, dev):
+    """The parameter server under faults on the card: downpour_ps's AlexNet
+    (PS_PARAMS floats, PS_SHARDS shards) and PS_WORKERS workers, each
+    ``examples/alexnet_downpour.downpour_step`` (Adam, an axpy push at
+    alpha 1 / PS_WORKERS, a fetch every PS_FETCH_EVERY steps adopted one
+    later) on a seeded random batch on the card, CHAOS_PS_STEPS steps a
+    worker in turns, each push waited, under drops at ``ps.request`` and
+    ``ps.response`` (CHAOS_PS_RULES, the port's chaos tool).  Checks: every
+    push is a ``_ResilientPSHandle`` and completes; each push's native
+    enqueues (counted at ``PSClient._enqueue``) equal what FaultPlan.decide
+    gives on the host for the same exchanges (a drop at ps.response
+    re-applies the push: the JAX package's retransmit semantics, held to
+    the JAX server on the CPU in tests/test_torch_faults.py); the center is
+    bitwise the numpy float32 fold c += alpha * u of each push as many
+    times as it was applied; one event wait a push and no other host
+    sync."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from torchmpi_tpu_torch import faults
+    from torchmpi_tpu_torch.examples import common
+    from torchmpi_tpu_torch.examples.alexnet_downpour import downpour_step
+    from torchmpi_tpu_torch.faults import inject
+    from torchmpi_tpu_torch.parallel import ps as psmod
+
+    work = tempfile.mkdtemp(prefix="chaos_ps_")
+
+    def make():
+        return mpi.models.AlexNet(
+            PS_CLASSES, dropout=0.0, image_size=PS_IMAGE, device=dev,
+            generator=torch.Generator(dev).manual_seed(SEED + 51))
+
+    params0 = common.params_tree(make())
+    alpha = 1.0 / PS_WORKERS
+    ps = mpi.parameterserver.init(params0, num_shards=PS_SHARDS)
+    workers = []
+    for w in range(PS_WORKERS):
+        m = make()
+        names, prm = zip(*m.named_parameters())
+        tx = mpi.optim.adam(PS_LR)
+        workers.append({"model": m, "names": names, "params": prm,
+                        "tx": tx, "states": [tx.init(p.detach())
+                                             for p in prm],
+                        "fetch": None, "step": 0,
+                        "gen": torch.Generator(dev).manual_seed(
+                            SEED + 60 + w)})
+    plan = _chaos_plan(os.path.join(work, "ps.json"), CHAOS_PS_RULES)
+    enqueued = []
+    waits = [0]
+    orig_enqueue = psmod.PSClient._enqueue
+    orig_sync = torch.cuda.Event.synchronize
+
+    def counting_enqueue(self, flat, inout, rid, a):
+        enqueued.append(rid)
+        return orig_enqueue(self, flat, inout, rid, a)
+
+    def counting_sync(self):
+        waits[0] += 1
+        return orig_sync(self)
+
+    exchanges, pushes, per_push = [], [], []
+    try:
+        mpi.set_config(faults=plan, fault_retries=CHAOS_RETRIES,
+                       fault_backoff_s=CHAOS_BACKOFF_S)
+        psmod.PSClient._enqueue = counting_enqueue
+        torch.cuda.Event.synchronize = counting_sync
+        t0 = time.perf_counter()
+        for _ in range(CHAOS_PS_STEPS):
+            for wk in workers:
+                x = torch.randn(PS_BATCH, 3, PS_IMAGE, PS_IMAGE, device=dev,
+                                generator=wk["gen"])
+                y = torch.randint(0, PS_CLASSES, (PS_BATCH,), device=dev,
+                                  generator=wk["gen"])
+                had = wk["fetch"] is not None
+                starts = (not had) and wk["step"] % PS_FETCH_EVERY == 0
+                n0, w0 = len(enqueued), waits[0]
+                box = {}
+
+                def one(_wk=wk, _x=x, _y=y):
+                    _, push, ups, _wk["fetch"] = downpour_step(
+                        _wk["model"], _wk["names"], _wk["params"], _wk["tx"],
+                        _wk["states"], ps, _x, _y, alpha, _wk["fetch"],
+                        _wk["step"], PS_FETCH_EVERY)
+                    push.wait()
+                    box.update(push=push, ups=ups)
+
+                syncs = count_host_syncs(torch, one)
+                wk["step"] += 1
+                # The exchanges in their order: the push's enqueue, the
+                # fetch adopted (its wait) or one started (its enqueue),
+                # the push's wait.
+                exchanges += [("enqueue", True)] + (
+                    [("wait", False)] if had else
+                    [("enqueue", False)] if starts else []) + [
+                    ("wait", True)]
+                pushes.append(_flat_host(torch, mpi, box["ups"]))
+                per_push.append({
+                    "resilient": isinstance(box["push"],
+                                            psmod._ResilientPSHandle),
+                    "done": box["push"].done,
+                    "applied": sum(1 for rid in enqueued[n0:]
+                                   if rid == psmod.RULES["axpy"]),
+                    "event_waits": waits[0] - w0, "other_syncs": syncs})
+        for wk in workers:
+            if wk["fetch"] is not None:
+                wk["fetch"].wait()
+                exchanges.append(("wait", False))
+        seconds = time.perf_counter() - t0
+        arrivals = {s: faults.plan().arrivals(s) for s in
+                    ("ps.request", "ps.response")}
+    finally:
+        psmod.PSClient._enqueue = orig_enqueue
+        torch.cuda.Event.synchronize = orig_sync
+        mpi.set_config(faults="off")
+    # What the plan gives on the host for the same exchanges.
+    # An enqueue: ps.request arrivals until one does not fire, which
+    # enqueues.  A wait: a ps.response arrival; on a fire, a retransmit
+    # (ps.request until one enqueues) and the next ps.response.
+    fp = inject.FaultPlan.load(plan)
+    predicted, fired = [], 0
+    for kind, is_push in exchanges:
+        apps, first = 0, kind == "wait"
+        while True:
+            if not first:
+                if fp.decide("ps.request") is not None:
+                    fired += 1
+                    continue
+                apps += 1
+            if kind == "enqueue":
+                break
+            first = False
+            if fp.decide("ps.response") is None:
+                break
+            fired += 1
+        if is_push and kind == "enqueue":
+            predicted.append(apps)
+        elif is_push:
+            predicted[-1] += apps
+    applied = [p["applied"] for p in per_push]
+    a = np.float32(alpha)
+    want = _flat_host(torch, mpi, params0)
+    for u, k in zip(pushes, applied):
+        for _ in range(k):
+            want = want + a * u
+    got = _flat_host(torch, mpi, ps.receive().wait())
+    ps.shutdown()
+    shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "chaos_ps", "workers": PS_WORKERS, "shards": PS_SHARDS,
+          "steps_a_worker": CHAOS_PS_STEPS, "rules": list(CHAOS_PS_RULES),
+          "seed": CHAOS_SEED, "retries": CHAOS_RETRIES,
+          "pushes": per_push, "predicted_applications": predicted,
+          "predicted_drops": fired,
+          "arrivals": arrivals, "seconds": seconds,
+          "center_bitwise": _bits_equal(got, want)})
+    check(all(p["resilient"] and p["done"] for p in per_push),
+          "chaos_ps: a push did not complete through _ResilientPSHandle")
+    check(applied == predicted, f"chaos_ps: applications {applied} vs "
+          f"FaultPlan.decide {predicted}")
+    check(fired > 0 and sum(applied) > len(applied),
+          f"chaos_ps: no push retransmitted {applied} {arrivals}")
+    check(_bits_equal(got, want), "chaos_ps: the center is not the float32 "
+          "fold of the applied pushes")
+    check(all(p["event_waits"] == 1 and p["other_syncs"] == 0
+              for p in per_push), f"chaos_ps: host syncs {per_push}")
+
+
+
 def main() -> int:
     import torch
 
@@ -7239,6 +7915,12 @@ def main() -> int:
         # launches.
         obs_launches = obs_dp_phase(torch, mpi, dict(ops, ring=ring), dev)
         torch.cuda.empty_cache()
+        # The main path of slice 26: the same DP step with the fault layer
+        # and the watchdog armed, bitwise to them off; the buckets staged
+        # under a chaos plan; a stalled staged call broken by the watchdog.
+        chaos_launches = chaos_dp_phase(torch, mpi, dict(ops, ring=ring),
+                                        dev)
+        torch.cuda.empty_cache()
         # The main path of slice 4: ZeRO-1 / ZeRO-3 of RING_N ranks on the
         # card, its reduce-scatters and all-gathers on the ring kernels.
         launches.update(zero_dp_phase(torch, mpi, dict(ops, ring=ring), dev,
@@ -7298,6 +7980,9 @@ def main() -> int:
         # Slice 25's serving telemetry on the card.
         obs_serving_phase(torch, mpi, dev)
         torch.cuda.empty_cache()
+        # Slice 26's serving chaos: a replica killed, two arrivals shed.
+        chaos_serving_phase(torch, mpi, dev)
+        torch.cuda.empty_cache()
         # The main path of slice 24: the flagship's widths served by two
         # tensor-parallel replicas of 4 rank-major ranks (rows 11, 8, 12
         # and 7 on the sublayers' sums), PP decode, generate_parallel.
@@ -7317,6 +8002,9 @@ def main() -> int:
         # downpour at full width through the parameter server (host
         # threads and loopback TCP; no kernel of the table), checkpoints.
         downpour_ps_phase(torch, mpi, dev)
+        torch.cuda.empty_cache()
+        # Slice 26's PS chaos: drops at both legs, the pushes retransmitted.
+        chaos_ps_phase(torch, mpi, dev)
         torch.cuda.empty_cache()
         cnn_examples_phase(torch, mpi)
     finally:
@@ -7354,7 +8042,9 @@ def main() -> int:
                 **({"flash_bf16": bf16_launches[name]}
                    if bf16_launches.get(name) else {}),
                 **({"obs_dp": obs_launches[name]}
-                   if obs_launches.get(name) else {})}
+                   if obs_launches.get(name) else {}),
+                **({"chaos_dp": chaos_launches[name]}
+                   if chaos_launches.get(name) else {})}
 
     kernels = [{**{k: dict(row, launches=sum(by_path(
                     row["name"]).values()))[k] for k in keys},

@@ -418,7 +418,23 @@ def test_tool_runs_as_module_and_blame_live_waits(tmp_path):
         cwd=_REPO, timeout=120)
     assert out.returncode == 0 and 'tm_c_total{op="allreduce"} 3' in \
         out.stdout
+    # blame --live: no lease yet is unusable input (2); a live watchdog's
+    # lease, written by the port's watchdog, reads healthy (0).
     assert tool.main(["blame", "--live", str(tmp_path)]) == 2
+    from torchmpi_tpu_torch import watchdog
+
+    lease_dir = str(tmp_path / "leases")
+    watchdog.activate("warn", deadline_s=5.0, lease_dir=lease_dir, rank=3)
+    try:
+        out = subprocess.run(
+            [sys.executable, "-m", "torchmpi_tpu_torch.obs.tool", "blame",
+             "--live", lease_dir], capture_output=True, text=True,
+            cwd=_REPO, timeout=120)
+    finally:
+        watchdog.reset()
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "rank 3: LIVE idle" in out.stdout
+    assert "all ranks healthy" in out.stdout
 
 
 # ---------------------------------------------------------------------------

@@ -58,8 +58,11 @@ process-world verb records its dispatch and completion edges (the
 plan's pre-bound recorders, ``planner.observed``), every in-axis call
 one ``tm_inaxis_calls_total``, and every handle its creation and its
 wait (``tm_async_*``).  With obs off none of it runs and the layer is
-never imported.  The JAX package's watchdog hooks of ``wait()`` are
-ROADMAP A10 (b).
+never imported.  With ``Config.faults`` armed the staged exchange is
+the ``host_staged.gather`` / ``host_staged.scatter`` sites
+(``faults.staged_exchange``); with ``Config.watchdog`` armed a staged
+exchange is an in-flight window, ``wait()`` a cooperative break point and
+a direct dispatch a deferred-raise boundary (docs/FAULTS_TORCH.md).
 """
 
 from __future__ import annotations
@@ -893,10 +896,70 @@ def _to_host(xs: torch.Tensor) -> torch.Tensor:
 
 
 def _host_compute(verb: str, host: torch.Tensor, params: dict,
-                  device: torch.device) -> torch.Tensor:
-    """The closed form on the host copy; pinned when bound for the card."""
-    out = CLOSED_FORMS[verb](host, **params)
+                  device: torch.device, axis: AxisNames = None
+                  ) -> torch.Tensor:
+    """The closed form on the host copy, over each group of ``axis``
+    (one level each) when given; pinned when bound for the card."""
+    if axis is None:
+        out = CLOSED_FORMS[verb](host, **params)
+    else:
+        v = _axis_view(host, axis)
+        out = _from_axis_view(torch.stack(
+            [CLOSED_FORMS[verb](v[g], **params) for g in range(v.shape[0])]),
+            axis)
     return out.pin_memory() if device.type == "cuda" else out
+
+
+class _RestageView:
+    """A staged host master presented to the fault layer with the device
+    buffer's re-stage contract (JAX :1149-1165): each :meth:`stage` (one
+    an attempt in ``faults.staged_exchange``) is a FRESH writable copy,
+    so an injected corrupt flips bits in that attempt's copy while a
+    retry stages the untouched master again, as a retry on the
+    synchronous path stages the device tensor again."""
+
+    __slots__ = ("_master",)
+
+    def __init__(self, master: torch.Tensor) -> None:
+        self._master = master
+
+    def stage(self) -> torch.Tensor:
+        return self._master.clone()
+
+
+def _restage(x) -> torch.Tensor:
+    """One attempt's fresh writable host copy of ``x`` (a tensor, or a
+    :class:`_RestageView`)."""
+    return x.stage() if isinstance(x, _RestageView) else _to_host(x)
+
+
+def _staged_host(verb: str, x, params: dict, axis: AxisNames,
+                 faults_on: bool, device: torch.device) -> torch.Tensor:
+    """The host result of one staged exchange of ``x`` [n, ...]: staged
+    once to the host and computed there, or with ``faults_on`` through
+    ``faults.staged_exchange`` (sites ``host_staged.gather`` /
+    ``host_staged.scatter``, an arrival each a leg and an attempt: one
+    exchange a call whatever ``axis`` says, as in the JAX package)."""
+    if not faults_on:
+        return _host_compute(verb, _restage(x), params, device, axis)
+    from . import faults
+
+    n = x._master.shape[0] if isinstance(x, _RestageView) else x.shape[0]
+    return faults.staged_exchange(
+        verb, x, n, params,
+        lambda v, host, _n, **p: _host_compute(v, host, p, device, axis))
+
+
+def _staged_replay(verb: str, params: dict, axis: AxisNames,
+                   faults_on: bool) -> Callable:
+    """A staged rank-major call as a replay: the exchange on the host,
+    the result enqueued to ``xs``'s device on the current stream."""
+
+    def run(xs):
+        return _place(_staged_host(verb, xs, params, axis, faults_on,
+                                   xs.device), xs.device)
+
+    return run
 
 
 def _place(out: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -973,16 +1036,26 @@ def _eager_unplanned(verb: str, xs: torch.Tensor, backend: Optional[str],
                      axis: AxisNames, n_dcn: Optional[int]
                      ) -> torch.Tensor:
     """A rank-major call derived in full: staged or direct, the axis's
-    groups, the selector's implementation."""
+    groups, the selector's implementation.  With the watchdog armed a
+    staged call is an in-flight window and a direct one a deferred-raise
+    boundary (as the plans bind them, ``planner._wd_wrap``)."""
+    cfg = runtime.effective_config()
+    if _staged_requested(backend, staged):
+        run = _staged_replay(verb, params, axis, cfg.faults != "off")
+        if cfg.watchdog != "off":
+            run = planner._wd_wrap(run, "host_staged", verb,
+                                   _nbytes(xs[0]))
+        return run(xs)
+    if cfg.watchdog != "off":
+        from . import watchdog
+
+        watchdog.raise_pending()
     if axis is not None:
         # Each group of one axis is a one-level stack.
         v = _axis_view(xs, axis)
-        outs = [_eager_unplanned(verb, v[g], backend, staged, params, None,
+        outs = [_eager_unplanned(verb, v[g], backend, False, params, None,
                                  1) for g in range(v.shape[0])]
         return _from_axis_view(torch.stack(outs), axis)
-    if _staged_requested(backend, staged):
-        return _place(_host_compute(verb, _to_host(xs), params, xs.device),
-                      xs.device)
     return _rank_major(verb, xs, backend, n_dcn)(xs, **params)
 
 
@@ -1176,23 +1249,38 @@ class AsyncHandle:
         :class:`PeerTimeoutError` raises (the collective is not
         cancelled), carrying the flight recorder's tail when obs is on.
         With obs on, the first wait records its time blocked
-        (``tm_async_wait_seconds``) and a flight event."""
+        (``tm_async_wait_seconds``) and a flight event.  With
+        ``Config.watchdog`` armed the wait is a cooperative break point
+        (JAX :940-990): it polls completion (the side stream's event, the
+        work, the staged future: never a host block) inside an
+        ``async.wait`` window, and a stall the watchdog breaks raises
+        ``watchdog.CollectiveHangError`` in place."""
         return self._wait(timeout_s, observe=True)
 
     def _wait(self, timeout_s: Optional[float], observe: bool):
         t0 = time.monotonic()
-        if timeout_s is not None:
-            while not self.done:
-                elapsed = time.monotonic() - t0
-                if elapsed >= timeout_s:
-                    from .utils import telemetry
+        wd = None
+        if runtime.effective_config().watchdog != "off":
+            from . import watchdog as wd
+        if timeout_s is not None or wd is not None:
+            tok = wd.begin("async.wait", op=self._op) if wd else -1
+            try:
+                while not self.done:
+                    if wd is not None:
+                        wd.check_break(tok)
+                    elapsed = time.monotonic() - t0
+                    if timeout_s is not None and elapsed >= timeout_s:
+                        from .utils import telemetry
 
-                    raise PeerTimeoutError(
-                        f"async.wait({self._op})", elapsed_s=elapsed,
-                        deadline_s=float(timeout_s),
-                        flight_tail=telemetry.flight_tail())
-                time.sleep(0.0005 if elapsed < 0.01
-                           else (0.002 if elapsed < 0.1 else 0.02))
+                        raise PeerTimeoutError(
+                            f"async.wait({self._op})", elapsed_s=elapsed,
+                            deadline_s=float(timeout_s),
+                            flight_tail=telemetry.flight_tail())
+                    time.sleep(0.0005 if elapsed < 0.01
+                               else (0.002 if elapsed < 0.1 else 0.02))
+            finally:
+                if wd is not None:
+                    wd.end(tok)
         try:
             return self._complete()
         finally:
@@ -1306,24 +1394,41 @@ def _staged_executor():
 
 
 def _staged_async_work(verb: str, xs: torch.Tensor, params: dict,
-                       donate: bool, ready, edges=None) -> torch.Tensor:
+                       donate: bool, ready, edges=None, faults_on=False,
+                       wd_on=False) -> torch.Tensor:
     """The staged worker's part of one handle: wait until the caller's
     stream reached the dispatch, stage ``xs`` to host (releasing its
     storage when donated), and run the closed form on the host.  The copy
     back to the device is ``wait()``'s.  ``edges``: obs's dispatch and
     completion recorders, run here around the exchange (JAX
-    :1165-1196)."""
+    :1165-1196).  ``faults_on``: the host master goes to the fault layer
+    as a :class:`_RestageView`, so each attempt stages a fresh writable
+    copy of it, as the synchronous path stages the device tensor again;
+    ``wd_on``: the exchange is a ``host_staged`` watchdog window on this
+    thread (its break is delivered at the caller's next boundary)."""
     if edges is not None:
         edges[0]()
-    if ready is not None:
-        ready.synchronize()
-        with torch.cuda.device(xs.device):
+    wd = tok = None
+    if wd_on:
+        from . import watchdog as wd
+
+        tok = wd.begin("host_staged", op=verb, peer="gang",
+                       nbytes=_nbytes(xs[0]))
+    try:
+        if ready is not None:
+            ready.synchronize()
+            with torch.cuda.device(xs.device):
+                host = _to_host(xs)
+        else:
             host = _to_host(xs)
-    else:
-        host = _to_host(xs)
-    if donate:
-        xs.untyped_storage().resize_(0)
-    out = _host_compute(verb, host, params, xs.device)
+        if donate:
+            xs.untyped_storage().resize_(0)
+        if faults_on:
+            host = _RestageView(host)
+        out = _staged_host(verb, host, params, None, faults_on, xs.device)
+    finally:
+        if wd is not None:
+            wd.end(tok)
     if edges is not None:
         edges[1]()
     return out
@@ -1378,8 +1483,10 @@ def _async_rank_major(verb: str, xs, *, backend: Optional[str] = None,
         # Recorded before the worker can run: create precedes the
         # exchange's own edges in the ring.
         _obs_async("create", verb, x=xs)
-        fut = _staged_executor().submit(_staged_async_work, verb, xs,
-                                        dict(params), donate, ready, edges)
+        cfg = runtime.effective_config()
+        fut = _staged_executor().submit(
+            _staged_async_work, verb, xs, dict(params), donate, ready, edges,
+            cfg.faults != "off", cfg.watchdog != "off")
         return AsyncHandle(future=fut, device=xs.device, op=verb)
     try:
         # The route ("auto" measured on a plan miss) is resolved here, on

@@ -155,6 +155,23 @@ class Config:
       a replica, 0 off), ``serving_slo_ttft_us`` (shed arrivals while the
       p95 TTFT exceeds it, 0 off) and ``serving_autoscale`` (most replicas
       the autoscaler may reach, 0 off).
+    - The fault layer (``faults/``, never imported while "off"; JAX
+      ``config.py:405-426``): ``faults`` ("off" | "policy" | a fault-plan
+      path; "1" / "true" / "yes" / "on" read as "policy": retries,
+      deadlines and peer health armed on the host-staged, barrier, PS,
+      aio and serving sites, a plan path injects too, and a corrupt or
+      version-mismatched plan raises at init), ``fault_retries``
+      (re-attempts after the first try, 0 off), ``fault_backoff_s``
+      (first backoff, doubled a retry, deterministic jitter on top) and
+      ``fault_deadline_s`` (a site's wall budget before a typed
+      ``PeerTimeoutError``, 0 unbounded).
+    - The collective watchdog (``watchdog.py``, never imported while
+      "off"; JAX ``config.py:367-403``): ``watchdog`` ("off" | "warn" |
+      "break"; "1" / "true" / "yes" / "on" read as "break"),
+      ``watchdog_deadline_s`` (the age at which an in-flight wait is
+      stalled; break at 1.5x, escalation at 2.5x), ``watchdog_poll_s``
+      (the monitor's tick) and ``watchdog_dir`` (the lease directory;
+      None: TORCHMPI_TPU_WATCHDOG_DIR, else no leases).
     """
 
     backend: str = "xla"
@@ -192,6 +209,14 @@ class Config:
     serving_prefix_cache: int = 0
     serving_slo_ttft_us: float = 0.0
     serving_autoscale: int = 0
+    faults: str = "off"
+    fault_retries: int = 2
+    fault_backoff_s: float = 0.05
+    fault_deadline_s: float = 30.0
+    watchdog: str = "off"
+    watchdog_deadline_s: float = 30.0
+    watchdog_poll_s: float = 0.05
+    watchdog_dir: Optional[str] = None
 
     @staticmethod
     def from_env(**overrides) -> "Config":
@@ -211,8 +236,11 @@ class Config:
         TORCHMPI_TPU_OBS_DIR, TORCHMPI_TPU_OBS_RING,
         TORCHMPI_TPU_SERVING_SLOTS, _SLOT_TOKENS, _REPLICAS, _SAMPLE,
         _SPEC_K, _PREFILL_BUCKETS, _PREFIX_CACHE, _SLO_TTFT_US and
-        _AUTOSCALE (each after TORCHMPI_TPU_SERVING); ``pallas_bidirectional``
-        has none), then apply ``overrides``."""
+        _AUTOSCALE (each after TORCHMPI_TPU_SERVING),
+        TORCHMPI_TPU_FAULTS, TORCHMPI_TPU_FAULT_RETRIES, _FAULT_BACKOFF,
+        _FAULT_DEADLINE, TORCHMPI_TPU_WATCHDOG, _WATCHDOG_DEADLINE,
+        _WATCHDOG_POLL and _WATCHDOG_DIR; ``pallas_bidirectional`` has
+        none), then apply ``overrides``."""
         cfg = Config(
             backend=_env_str("TORCHMPI_TPU_BACKEND", "xla"),
             tuning_plan_path=(
@@ -258,6 +286,17 @@ class Config:
             serving_slo_ttft_us=_env_float(
                 "TORCHMPI_TPU_SERVING_SLO_TTFT_US", 0.0),
             serving_autoscale=_env_int("TORCHMPI_TPU_SERVING_AUTOSCALE", 0),
+            faults=_env_str("TORCHMPI_TPU_FAULTS", "off"),
+            fault_retries=_env_int("TORCHMPI_TPU_FAULT_RETRIES", 2),
+            fault_backoff_s=_env_float("TORCHMPI_TPU_FAULT_BACKOFF", 0.05),
+            fault_deadline_s=_env_float("TORCHMPI_TPU_FAULT_DEADLINE",
+                                        30.0),
+            watchdog=_env_str("TORCHMPI_TPU_WATCHDOG", "off"),
+            watchdog_deadline_s=_env_float(
+                "TORCHMPI_TPU_WATCHDOG_DEADLINE", 30.0),
+            watchdog_poll_s=_env_float("TORCHMPI_TPU_WATCHDOG_POLL", 0.05),
+            watchdog_dir=(os.environ.get("TORCHMPI_TPU_WATCHDOG_DIR")
+                          or None),
         )
         for name, field in (("TORCHMPI_TPU_ICI_SIZE", "ici_size"),
                             ("TORCHMPI_TPU_DCN_SIZE", "dcn_size")):
@@ -313,6 +352,100 @@ def resolve_obs(cfg: Config) -> None:
     if int(cfg.obs_ring_size) < 1:
         raise ValueError(f"config.obs_ring_size must be >= 1, got "
                          f"{cfg.obs_ring_size}")
+
+
+def normalize_faults(value) -> str:
+    """Canonical faults mode (JAX ``runtime.py:283``): "off", "policy",
+    or a fault-plan path kept verbatim ("0" / "false" / "no" / "none" /
+    "" mean "off", "1" / "true" / "yes" / "on" mean "policy"); a typo'd
+    path fails loudly when the plan loads."""
+    v = str(value).strip()
+    low = v.lower()
+    if low in ("off", "0", "false", "no", "none", ""):
+        return "off"
+    if low in ("policy", "on", "1", "true", "yes"):
+        return "policy"
+    return v
+
+
+def normalize_watchdog(value) -> Optional[str]:
+    """Canonical watchdog mode (JAX ``runtime.py:240``): "off" | "warn" |
+    "break" ("1" / "true" / "yes" / "on" mean "break"); None:
+    unrecognized (the caller raises)."""
+    v = str(value).strip().lower()
+    if v in ("off", "0", "false", "no", "none", ""):
+        return "off"
+    if v in ("break", "on", "1", "true", "yes"):
+        return "break"
+    if v == "warn":
+        return v
+    return None
+
+
+def _env_default_pickup(cfg: Config, field: str, env: str, cast) -> None:
+    """A knob left at its default defers to the environment; an explicit
+    value wins (JAX ``runtime.py:299``)."""
+    raw = os.environ.get(env)
+    if not raw:
+        return
+    default = next(f.default for f in dataclasses.fields(Config)
+                   if f.name == field)
+    if getattr(cfg, field) == default:
+        setattr(cfg, field, cast(raw))
+
+
+def resolve_faults(cfg: Config) -> None:
+    """The fault and watchdog fields made canonical in place, with the
+    JAX runtime's any-config pickup (:448-518): a mode left "off" and a
+    knob left at its default defer to the environment; the watchdog's
+    mode and times are checked with JAX's messages."""
+    if normalize_faults(cfg.faults) == "off":
+        cfg.faults = os.environ.get("TORCHMPI_TPU_FAULTS", "off")
+    cfg.faults = normalize_faults(cfg.faults)
+    _env_default_pickup(cfg, "fault_retries", "TORCHMPI_TPU_FAULT_RETRIES",
+                        int)
+    _env_default_pickup(cfg, "fault_backoff_s", "TORCHMPI_TPU_FAULT_BACKOFF",
+                        float)
+    _env_default_pickup(cfg, "fault_deadline_s",
+                        "TORCHMPI_TPU_FAULT_DEADLINE", float)
+    if normalize_watchdog(cfg.watchdog) == "off":
+        cfg.watchdog = os.environ.get("TORCHMPI_TPU_WATCHDOG", "off")
+    mode = normalize_watchdog(cfg.watchdog)
+    if mode is None:
+        raise ValueError("config.watchdog (or TORCHMPI_TPU_WATCHDOG) must be "
+                         "off|warn|break")
+    cfg.watchdog = mode
+    _env_default_pickup(cfg, "watchdog_deadline_s",
+                        "TORCHMPI_TPU_WATCHDOG_DEADLINE", float)
+    _env_default_pickup(cfg, "watchdog_poll_s", "TORCHMPI_TPU_WATCHDOG_POLL",
+                        float)
+    if cfg.watchdog_dir is None:
+        cfg.watchdog_dir = os.environ.get("TORCHMPI_TPU_WATCHDOG_DIR") or None
+    if cfg.watchdog_deadline_s <= 0 or cfg.watchdog_poll_s <= 0:
+        raise ValueError(
+            f"config.watchdog_deadline_s and watchdog_poll_s must be > 0, "
+            f"got {cfg.watchdog_deadline_s}/{cfg.watchdog_poll_s}")
+
+
+def check_fault_override(k: str, v):
+    """One ``set_config`` value of a fault or watchdog field, made
+    canonical and checked as the JAX ``set_config`` does (:906-941)."""
+    if k == "faults":
+        return normalize_faults(v)
+    if k == "fault_retries":
+        return int(v)
+    if k in ("fault_backoff_s", "fault_deadline_s"):
+        return float(v)
+    if k == "watchdog":
+        mode = normalize_watchdog(v)
+        if mode is None:
+            raise ValueError("config.watchdog must be off|warn|break")
+        return mode
+    if k in ("watchdog_deadline_s", "watchdog_poll_s"):
+        v = float(v)
+        if v <= 0:
+            raise ValueError(f"config.{k} must be > 0")
+    return v
 
 
 def check_serving(cfg: Config) -> None:

@@ -2,12 +2,13 @@
 degrade-or-raise decision (the JAX package's ``faults/health.py``:
 ``PeerHealth`` :25 and ``HealthLedger`` :35, stdlib only).
 
-Peers are free-form strings the call sites choose; in the port today the
-serving router's replica names (``serving/router.py``).  The ledger is
-deliberately dumb: it counts, it classifies, and it reports transitions;
-*what to do* about a dead peer stays with the caller.  The rest of the
-JAX package's fault layer (injection, chaos plans; the restart driver
-is A13) is ROADMAP A10 (b).
+Peers are free-form strings the call sites choose: PS shard endpoints
+(``host:port``), the gang pseudo-peer of the host-staged path, ``aio``,
+the serving router's replica names.  The ledger is deliberately dumb: it
+counts, it classifies, and it reports transitions; *what to do* about a
+dead peer stays with the caller.  The fault layer (``faults/__init__``)
+holds the one shared ledger while armed; the JAX package's restart
+driver, which snapshots it, is ROADMAP A13.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ class HealthLedger:
     One success fully resets a peer (a live peer is a live peer —
     half-credit schemes just delay both detection and recovery).
     ``on_transition(peer, old, new)`` fires on every state change, which
-    is how the JAX package's fault layer turns transitions into
+    is how the fault layer (``faults/__init__``) turns transitions into
     ``tm_fault_`` counters without this module knowing telemetry exists.
     """
 

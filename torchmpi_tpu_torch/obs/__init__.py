@@ -359,8 +359,8 @@ def eager_done_recorder(op: str, nbytes: int, backend: str, mesh,
 def record_watchdog(action: str, site: str, *, op: str = "",
                     seq: int = -1, elapsed_s: float = 0.0,
                     peer: str = "") -> None:
-    """One watchdog event (the JAX package's docs/WATCHDOG.md; the
-    port's watchdog is ROADMAP A10 (b), which calls this):
+    """One watchdog event (``torchmpi_tpu_torch/watchdog.py``, through
+    ``utils/telemetry.py``):
     ``action`` is ``armed`` (an instrumented wait opened its in-flight
     window) | ``stalled`` (a window outlived ``watchdog_deadline_s``) |
     ``broken`` (break mode converted it into a typed
@@ -535,8 +535,8 @@ def record_barrier_done(name: str) -> None:
 
 def record_fault(action: str, site: str, *, kind: str = "",
                  peer: str = "") -> None:
-    """One fault-layer event (the JAX package's ``faults``; the port's
-    fault policy is ROADMAP A10 (b)): ``action`` is ``injected`` |
+    """One fault-layer event (``torchmpi_tpu_torch/faults``, through
+    ``utils/telemetry.py``): ``action`` is ``injected`` |
     ``retry`` | ``survived`` | ``exhausted`` | ``deadline`` | ``health``
     (counter ``tm_fault_<action>_total``).  Injected and
     deadline/health events also land in the flight ring, so

@@ -39,10 +39,12 @@ to the step wall time (the phase model lives in ``obs/attribution.py``)
 between two dumps.  Since the ring records BOTH edges of a collective
 (dispatch + the ``*_done`` completion events), the laggard's last
 event distinguishes "launched and stuck inside it" from "completed,
-never launched the next".  ``blame --live`` reads the watchdog's
-liveness leases, which the port's watchdog (ROADMAP A10 (b)) does not
-write yet: it exits 2.  Exits nonzero on divergence (blame) or
-unparseable input.
+never launched the next".  ``blame --live <dir>`` skips the dumps: it
+reads the watchdog's ``wd_lease_*.json`` liveness leases
+(``Config.watchdog_dir``, ``torchmpi_tpu_torch/watchdog.py``) while the
+job runs and names each rank live, stalled (and where), expired or
+escalated.  Exits nonzero on divergence (blame), on a stalled or dead
+rank (blame --live) or unparseable input.
 
 It reads the files with the standard library alone, beside the
 dependency-free ``obs/registry.py`` and ``obs/attribution.py``.
@@ -301,7 +303,7 @@ def _event_sig(e: dict) -> Tuple:
 
 
 # Dispatch events that now have a matching completion edge in the ring
-# (docs/WATCHDOG.md): a laggard whose LAST event is one of these died
+# (docs/FAULTS_TORCH.md): a laggard whose LAST event is one of these died
 # INSIDE that collective; a laggard whose last event is a *_done edge
 # completed its last collective and hung before launching the next.
 _DISPATCH_EVENTS = ("eager", "barrier")
@@ -392,14 +394,146 @@ def cmd_blame(args) -> int:
     return 0
 
 
+def _load_leases(directory: str) -> Dict[int, dict]:
+    """Parse every ``wd_lease_*.json`` under ``directory`` (the
+    collective watchdog's liveness leases, docs/FAULTS_TORCH.md) keyed by
+    rank.  Parsing is inlined on purpose — this tool must not import
+    the job's software stack; the lease schema is self-describing
+    (each lease carries its own ``ttl_s``)."""
+    out: Dict[int, dict] = {}
+    try:
+        names = sorted(n for n in os.listdir(directory)
+                       if n.startswith("wd_lease_") and n.endswith(".json"))
+    except OSError as e:
+        raise ValueError(f"{directory}: {e}") from None
+    for name in names:
+        try:
+            with open(os.path.join(directory, name)) as f:
+                d = json.load(f)
+            out[int(d["rank"])] = d
+        except (OSError, ValueError, KeyError):
+            continue  # torn mid-renewal — same as unrenewed
+    return out
+
+
 def cmd_blame_live(args) -> int:
-    """``blame --live <dir>`` reads the watchdog's liveness leases while
-    the job runs; the port's watchdog, which writes them, is ROADMAP A10
-    (b).  Exits 2 (unusable input) until then."""
-    print("blame --live reads the watchdog's wd_lease_*.json leases; the "
-          "port's watchdog does not write them yet (ROADMAP A10 (b))",
-          file=sys.stderr)
-    return 2
+    """``blame --live <dir>``: read the watchdog leases while the job
+    RUNS — no dumps, no SIGTERM — and name the implicated rank(s).
+    The triage matrix (docs/FAULTS_TORCH.md): a rank whose lease is FRESH
+    but whose collective is STALLED is wedged on a *peer*; an EXPIRED
+    or ``escalated`` lease is that rank's own death evidence; a fresh
+    lease with ``state=parked`` is a quorum-lost minority waiting out
+    a partition (ROADMAP A10 (c)) — alive, deliberately idle, and NOT
+    to be restarted; a fresh lease with ``state=migrating`` is a live
+    hot-state drain in flight (ROADMAP A10 (c) — the detail carries
+    ``source -> spare``): in transition BY DESIGN, neither parked nor
+    dead, and killing either end mid-drain forfeits the zero-rollback
+    hand-off.  Exits 1 when anything is stalled/expired/parked/
+    migrating, 0 when all ranks look healthy, 2 on unusable input."""
+    import time
+
+    if len(args.files) != 1:
+        print("blame --live takes exactly one lease DIRECTORY "
+              "(Config.watchdog_dir / the membership board)",
+              file=sys.stderr)
+        return 2
+    directory = args.files[0]
+    leases = _load_leases(directory)
+    if not leases:
+        print(f"no wd_lease_*.json under {directory} — is the watchdog "
+              f"armed (Config.watchdog != 'off') with watchdog_dir "
+              f"pointing here?", file=sys.stderr)
+        return 2
+    now = time.time()
+    implicated = []
+    parked = []
+    migrating = []
+    stalled_peers = set()
+    print(f"live watchdog leases in {directory} ({len(leases)} rank(s)):")
+    for rank in sorted(leases):
+        d = leases[rank]
+        age = now - float(d.get("ts", 0))
+        expired = age > float(d.get("ttl_s", 0))
+        stalls = [e for e in d.get("inflight", []) if e.get("stalled")]
+        if d.get("escalated"):
+            state = (f"ESCALATED (watchdog exited the process on an "
+                     f"unbreakable stall; lease renewed {age:.1f}s ago)")
+            implicated.append(rank)
+        elif expired:
+            state = (f"EXPIRED (last renewed {age:.1f}s ago, ttl "
+                     f"{d.get('ttl_s')}s) — dead, or wedged beyond its "
+                     f"own watchdog")
+            implicated.append(rank)
+        elif d.get("state") == "parked":
+            # A quorum-parked minority (ROADMAP A10 (c); "Partitions
+            # and split-brain"): deliberately idle, lease FRESH — not
+            # a corpse, not a stall.  It rejoins the majority's
+            # committed epoch on its own once the partition heals.
+            detail = d.get("state_detail") or "a newer committed epoch"
+            state = (f"PARKED (quorum lost — {detail}; lease renewed "
+                     f"{age:.1f}s ago; will rejoin at heal, no "
+                     f"restart needed)")
+            parked.append(rank)
+        elif d.get("state") == "migrating":
+            # A live hot-state drain (ROADMAP A10 (c)): the rank is
+            # mid-hand-off onto a spare — in transition BY DESIGN,
+            # lease fresh.  Distinct from parked (it is not waiting on
+            # anything external) and from dead (killing it mid-drain
+            # forfeits the zero-rollback migration).
+            detail = d.get("state_detail") or "onto a spare"
+            state = (f"MIGRATING ({detail}; lease renewed {age:.1f}s "
+                     f"ago — live drain in flight, do not kill either "
+                     f"end)")
+            migrating.append(rank)
+        elif stalls:
+            parts = ", ".join(
+                f"{e.get('site')}"
+                + (f" op={e.get('op')}" if e.get("op") else "")
+                + (f" peer={e.get('peer')}" if e.get("peer") else "")
+                + f" for {e.get('elapsed_s', 0):.3g}s"
+                + (" [break requested]" if e.get("break_requested")
+                   else "")
+                for e in stalls)
+            state = f"LIVE but STALLED in {parts}"
+            stalled_peers.update(e.get("peer") for e in stalls
+                                 if e.get("peer"))
+        elif d.get("inflight"):
+            state = (f"LIVE (renewed {age:.1f}s ago), "
+                     f"{len(d['inflight'])} collective(s) in flight")
+        else:
+            state = f"LIVE idle (renewed {age:.1f}s ago)"
+        print(f"  rank {rank}: {state}")
+    verdicts = []
+    if implicated:
+        verdicts.append(
+            f"rank(s) {implicated} implicated (expired/escalated lease "
+            f"— the elastic layer treats this as death evidence)")
+    if parked:
+        verdicts.append(
+            f"rank(s) {parked} PARKED (quorum-lost minority waiting "
+            f"out a partition — alive and heartbeating, NOT a corpse; "
+            f"they readmit themselves once the board heals)")
+    if migrating:
+        verdicts.append(
+            f"rank(s) {migrating} MIGRATING (hot-state drain onto a "
+            f"spare in flight — transitional, not parked, not dead; "
+            f"leave both ends alone until the lease returns to "
+            f"running)")
+    stalled_ranks = [r for r in sorted(leases)
+                     if any(e.get("stalled")
+                            for e in leases[r].get("inflight", []))]
+    if stalled_ranks and not implicated:
+        peers = sorted(p for p in stalled_peers if p and p != "gang")
+        blame_s = f"; stalls implicate {peers}" if peers else ""
+        verdicts.append(
+            f"rank(s) {stalled_ranks} stalled with fresh leases — the "
+            f"hang is on a peer (or the fabric), not their own "
+            f"liveness{blame_s}")
+    if verdicts:
+        print("verdict: " + "; ".join(verdicts))
+        return 1
+    print("verdict: all ranks healthy (fresh leases, no stalls)")
+    return 0
 
 
 def _load_attribution_module():

@@ -37,9 +37,20 @@ and float16 leaves round-trip bit-exactly, anything lossy raises (see
 ``utils/tree.py``).  With ``Config.obs`` on, a handle's first completed
 ``wait()`` appends a ``ps_wait_done`` flight event (through the
 ``sys.modules``-gated ``utils.telemetry``) and every ``stats()`` snapshot
-folds its deltas into the ``tm_ps_*_total`` counters.  The JAX package's
-resilient handles, fault injection, wire guard and watchdog hooks belong
-to the resilience layers, which are not ported (ROADMAP A10 (b)).
+folds its deltas into the ``tm_ps_*_total`` counters.
+
+With ``Config.faults`` armed (JAX :365-450), ``send`` / ``receive``
+return a :class:`_ResilientPSHandle`: the exchange is enqueued under the
+``ps.request`` site (an arrival an attempt, before the sockets are
+touched) and its ``wait()`` runs the ``ps.response`` leg under the retry
+policy, retransmitting the WHOLE exchange on a transient failure
+(``faults.ps_wait``).  A push under the fault layer is staged once to a
+host master (on the card: the push's one host sync) and each attempt's
+payload is a fresh writable copy of it, so a corrupt flips that copy's
+bits and a retry sends the clean master.  With ``Config.watchdog`` armed
+a handle's native wait is a ``ps.response`` window.  Off, none of it
+runs and neither module is imported.  The JAX package's wire guard is
+ROADMAP A10 (c).
 """
 
 from __future__ import annotations
@@ -162,11 +173,24 @@ class PSHandle:
         if self._failed:
             raise RuntimeError("parameter-server op already failed")
         if not self._done:
+            wd = None
+            wd_tok = -1
+            if runtime.effective_config().watchdog != "off":
+                # The native shard waits as an in-flight window (JAX
+                # :168-182): under timeout_ms=0 the watchdog is the only
+                # bound on a wedged shard.
+                from .. import watchdog as wd
+
+                wd.raise_pending()
+                wd_tok = wd.begin("ps.response", op="ps_wait",
+                                  nbytes=self._n_futures)
             t0 = time.perf_counter()
             try:
                 self._wait_native(timeout_ms)
             finally:
                 self.native_wait_s += time.perf_counter() - t0
+                if wd is not None:
+                    wd.end(wd_tok)
             self._done = True
             self._result = (self._result_fn() if self._result_fn is not None
                             else None)
@@ -341,6 +365,39 @@ class _PinnedPool:
             self._free.append([buf, event])
 
 
+def _faults_armed() -> bool:
+    return runtime.effective_config().faults != "off"
+
+
+class _ResilientPSHandle:
+    """The handle ``send`` / ``receive`` return with ``Config.faults``
+    armed (JAX :365-395): the exchange is already enqueued (the async
+    overlap is kept); ``wait()`` runs under the retry policy,
+    retransmitting the whole exchange on a transient failure and
+    recording per-shard peer health (``faults.ps_wait``).  ``done``
+    reflects the attempt enqueued now."""
+
+    def __init__(self, inner: PSHandle, make_handle, peers: List[str]):
+        self._inner = inner
+        self._make = make_handle
+        self._peers = peers
+        self._result = None
+        self._waited = False
+
+    def wait(self):
+        if not self._waited:
+            from .. import faults
+
+            self._result = faults.ps_wait(self._peers, self._make,
+                                          self._inner)
+            self._waited = True
+        return self._result
+
+    @property
+    def done(self) -> bool:
+        return self._waited or self._inner.done
+
+
 class PSClient:
     """Client side: async send / receive against the shard servers.
 
@@ -365,6 +422,8 @@ class PSClient:
                         "push_enqueue_s": 0.0, "fetches": 0,
                         "fetch_wait_s": 0.0, "fetch_h2d_ms": 0.0}
         self._h2d_events: List[tuple] = []
+        # The fault layer's peer names: one a shard endpoint.
+        self.peers: List[str] = [f"{host}:{int(p)}" for p in ports]
         for port in ports:
             cid = self._lib.tm_ps_client_connect(host.encode(), int(port),
                                                  _timeout_ms())
@@ -421,11 +480,55 @@ class PSClient:
         if flat.shape[0] != self.total:
             raise ValueError(f"tree has {flat.shape[0]} floats, PS holds "
                              f"{self.total}")
+        if _faults_armed():
+            return self._send_resilient(flat, spec, rid, float(alpha))
         if isinstance(flat, torch.Tensor) and flat.is_cuda:
             return self._send_cuda(flat, spec, rid, float(alpha))
         if isinstance(flat, torch.Tensor):
             flat = flat.numpy()
         return self._send_host(flat, spec, rid, float(alpha))
+
+    def _send_resilient(self, flat, spec, rid: int,
+                        alpha: float) -> "_ResilientPSHandle":
+        """A push under the fault layer (sites ``ps.request`` /
+        ``ps.response``): the flat vector staged once to a host master,
+        each attempt's payload a fresh copy of it."""
+        from .. import faults
+
+        cuda = isinstance(flat, torch.Tensor) and flat.is_cuda
+        if cuda:
+            t0 = time.perf_counter()
+            master = torch.empty(self.total, dtype=torch.float32,
+                                 pin_memory=True)
+            master.copy_(flat, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            event.synchronize()  # the push's one host sync
+            self._add(pushes=1, push_d2h_wait_s=time.perf_counter() - t0)
+        else:
+            master = flat.numpy() if isinstance(flat, torch.Tensor) else flat
+
+        def stage():
+            return master.clone() if cuda else master.copy()
+
+        def enqueue(payload) -> PSHandle:
+            elastic = rid == RULES["elastic"]
+            inout = None
+            if elastic:
+                inout = (self._pool.acquire(self.total) if cuda
+                         else np.zeros_like(payload))
+            fids = self._enqueue(payload, inout, rid, alpha)
+            if not elastic:
+                return PSHandle(self._lib, fids, [payload])
+            fin = ((lambda: self._to_device(inout, spec, flat.device))
+                   if cuda else
+                   (lambda: tree_util.unflatten_f32(spec, inout)))
+            return PSHandle(self._lib, fids, [payload, inout], fin)
+
+        return _ResilientPSHandle(
+            faults.ps_enqueue(self.peers, enqueue, stage=stage),
+            lambda: faults.ps_exchange_once(self.peers, stage, enqueue),
+            self.peers)
 
     def _enqueue(self, flat, inout, rid: int, alpha: float) -> List[int]:
         """One ``tm_ps_send`` a shard from ``flat`` (host memory), the
@@ -502,6 +605,17 @@ class PSClient:
         """Async pull of the full parameter vector (prefetch pattern);
         ``wait()`` returns the tree, on the template's device."""
         self._check_live()
+        if _faults_armed():
+            from .. import faults
+
+            return _ResilientPSHandle(
+                faults.ps_enqueue(self.peers, self._receive_once),
+                lambda: faults.ps_exchange_once(self.peers, None,
+                                                self._receive_once),
+                self.peers)
+        return self._receive_once()
+
+    def _receive_once(self) -> PSHandle:
         if self.spec.device is not None and self.spec.device.type == "cuda":
             out = self._pool.acquire(self.total)
         else:
@@ -537,6 +651,13 @@ class PSClient:
                 alive.append(True)
             except RuntimeError:
                 alive.append(False)
+        if _faults_armed():
+            from .. import faults
+
+            # Liveness probes feed the ledger the resilient exchanges
+            # read: a healed shard is re-admitted by one good ping.
+            for peer, ok in zip(self.peers, alive):
+                faults.ledger().record(peer, ok)
         return alive
 
     def shutdown(self) -> None:

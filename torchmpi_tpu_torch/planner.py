@@ -21,10 +21,13 @@ This module keeps the decision record of a call site in an immutable
   DB, ``tuning.resolve_eager``), ``staged``, ``topology``, ``nbytes`` and
   ``build_seconds``; ``obs``: whether the plan was built with telemetry
   on (its replay then carries the eager recorders, and a hit counts
-  ``tm_plan_hit_total`` through a pre-bound handle).  ``faults``,
-  ``guard``, ``watchdog`` (False) and ``analysis`` ("off") are the JAX
-  record's fields; those layers are not ported (ROADMAP A10 (b), (c) and
-  A11).
+  ``tm_plan_hit_total`` through a pre-bound handle); ``faults`` and
+  ``watchdog``: whether a rank-major plan was built with the fault layer
+  or the watchdog armed (a staged replay then runs through
+  ``faults.staged_exchange`` and inside the watchdog's window, a direct
+  one past its deferred-raise boundary: :func:`_wd_wrap`,
+  :func:`_wd_boundary`).  ``guard`` (False) and ``analysis`` ("off") are
+  the JAX record's fields; those layers are ROADMAP A10 (c) and A11.
 - **replay**: one dict lookup, then the bound closure.
 
 Consumers: the rank-major verbs (``collectives._eager``, also under
@@ -78,6 +81,7 @@ class CollectivePlan:
                  impls: Optional[List[Callable]] = None,
                  impl_op: Optional[str] = None,
                  extra: Optional[dict] = None, staged: bool = False,
+                 faults: bool = False, watchdog: bool = False,
                  topology: str = "",
                  replay: Optional[Callable] = None) -> None:
         self.key = key
@@ -94,7 +98,9 @@ class CollectivePlan:
         self.backend = backend or _label(self.backends)
         self.extra = extra or {}
         self.staged = bool(staged)
-        self.faults = self.guard = self.watchdog = False
+        self.faults = bool(faults)
+        self.watchdog = bool(watchdog)
+        self.guard = False
         self.analysis = "off"
         self.epoch = runtime.config_epoch()
         self.topology = topology
@@ -326,6 +332,38 @@ def observed(replay: Callable, verb: str, nbytes: int, backend: str,
     return replay_observed
 
 
+def _wd_wrap(replay: Callable, site: str, op: str, nbytes: int) -> Callable:
+    """The watchdog's in-flight window bound around a BLOCKING replay
+    (the staged exchange; JAX :359-377): resolved once at plan build, so
+    the armed replay pays one begin / end pair and the deferred-raise
+    check, and the off replay nothing."""
+    from . import watchdog
+
+    def wrapped(x):
+        watchdog.raise_pending()
+        tok = watchdog.begin(site, op=op, peer="gang", nbytes=nbytes)
+        try:
+            return replay(x)
+        finally:
+            watchdog.end(tok)
+
+    return wrapped
+
+
+def _wd_boundary(replay: Callable) -> Callable:
+    """Only the deferred-raise boundary, bound into a NON-blocking replay
+    (the direct rank-major dispatch, enqueued on the card's stream; JAX
+    :380-395): a stall a background thread is wedged in surfaces at the
+    main thread's next dispatch, and no window syncs the stream."""
+    from . import watchdog
+
+    def wrapped(x):
+        watchdog.raise_pending()
+        return replay(x)
+
+    return wrapped
+
+
 def plan_for(verb: str, xs: torch.Tensor, backend: Optional[str],
              staged: Optional[bool], params: dict, axis: Optional[str],
              n_dcn: Optional[int]) -> CollectivePlan:
@@ -346,15 +384,20 @@ def _build_eager(key, verb, xs, backend, staged, params, axis,
     nbytes = _nbytes(xs[0])
     full = selector.grid_of(n, xs.device, n_dcn if axis is None else None)
     topo = fingerprint.topology(full, axes=C._axes_tuple(axis))
+    cfg = runtime.effective_config()
+    wd_on = cfg.watchdog != "off"
     if C._staged_requested(backend, staged):
-        def _replay(x):
-            return C._eager_unplanned(verb, x, backend, staged, params,
-                                      axis, n_dcn)
-
+        # The fault layer's enablement is resolved here, once: the replay
+        # carries no Config.faults compare (JAX :430-445).
+        faults_on = cfg.faults != "off"
+        _replay = observed(C._staged_replay(verb, params, axis, faults_on),
+                           verb, nbytes, "host", xs.dtype, n)
+        if wd_on:
+            _replay = _wd_wrap(_replay, "host_staged", verb, nbytes)
         return CollectivePlan(key, "eager-staged", verb, backend="host",
-                              nbytes=nbytes, staged=True, topology=topo,
-                              replay=observed(_replay, verb, nbytes, "host",
-                                              xs.dtype, n))
+                              nbytes=nbytes, staged=True, faults=faults_on,
+                              watchdog=wd_on, topology=topo,
+                              replay=_replay)
 
     def runner(b):
         return C._eager_unplanned(verb, xs, b, False, params, axis, n_dcn)
@@ -378,11 +421,13 @@ def _build_eager(key, verb, xs, backend, staged, params, axis,
             return C._from_axis_view(torch.stack(
                 [impl(v[g], **params) for g in range(v.shape[0])]), axis)
 
+    _replay = observed(_replay, verb, nbytes, selector.name_of(op, impl),
+                       xs.dtype, n)
+    if wd_on:
+        _replay = _wd_boundary(_replay)
     return CollectivePlan(key, "eager", verb, nbytes=nbytes, impls=[impl],
-                          impl_op=op, topology=topo,
-                          replay=observed(_replay, verb, nbytes,
-                                          selector.name_of(op, impl),
-                                          xs.dtype, n))
+                          impl_op=op, topology=topo, watchdog=wd_on,
+                          replay=_replay)
 
 
 # ---------------------------------------------------------------------------

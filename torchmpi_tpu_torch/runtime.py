@@ -82,7 +82,8 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 
-from .config import (Config, check_serving, normalize_obs, ps_timeout_s,
+from .config import (Config, check_fault_override, check_serving,
+                     normalize_obs, ps_timeout_s, resolve_faults,
                      resolve_obs)
 
 Axes = Union[str, Sequence[str], None]
@@ -340,6 +341,11 @@ def init(config: Optional[Config] = None, *, device: str = "cuda",
         cfg.ps_timeout_s = ps_timeout_s(cfg.ps_timeout_s)
         check_serving(cfg)
         resolve_obs(cfg)
+        resolve_faults(cfg)
+        # Arm (or disarm a stale) fault layer before the runtime marks
+        # itself initialized: a corrupt or missing plan fails init
+        # outright (JAX :716-724).  Off never imports faults.
+        _configure_faults(cfg)
         dev = torch.device(device)
         if dev.type == "cuda":
             if not torch.cuda.is_available():
@@ -382,6 +388,9 @@ def init(config: Optional[Config] = None, *, device: str = "cuda",
     # Outside the lock: the tuning layer reads the runtime's accessors.
     _configure_tuning(cfg)
     _configure_obs(cfg)
+    # Armed after obs, so the monitor's first events land in an armed
+    # registry (JAX :762-769).  Off never imports the watchdog.
+    _configure_watchdog(cfg)
     return dev
 
 
@@ -401,6 +410,44 @@ def stop() -> None:
 
     planner.invalidate()
     tuning.reset()
+
+
+def _configure_faults(cfg: Config) -> None:
+    """Arm the fault layer where ``cfg.faults`` asks for it (JAX
+    :314-334): a plan that cannot be read raises.  With faults off a
+    previous session's layer is disarmed through ``sys.modules`` only:
+    turning faults off never imports them."""
+    if cfg.faults == "off":
+        mod = sys.modules.get(__package__ + ".faults")
+        if mod is not None and mod.active():
+            mod.deactivate()
+        return
+    from . import faults
+
+    faults.activate(cfg.faults, retries=cfg.fault_retries,
+                    backoff_s=cfg.fault_backoff_s,
+                    deadline_s=cfg.fault_deadline_s)
+
+
+def _configure_watchdog(cfg: Config) -> None:
+    """Arm the collective watchdog where ``cfg.watchdog`` asks for it
+    (JAX :336-365), its leases in ``watchdog_dir`` (on a re-activation
+    with none, the directory the armed watchdog already leases into),
+    named by this process's rank.  With the watchdog off a previous
+    session's is disarmed through ``sys.modules`` only."""
+    if cfg.watchdog == "off":
+        mod = sys.modules.get(__package__ + ".watchdog")
+        if mod is not None and mod.active():
+            mod.deactivate()
+        return
+    from . import watchdog
+
+    lease_dir = cfg.watchdog_dir
+    if lease_dir is None and watchdog.active():
+        lease_dir = watchdog.lease_dir()
+    watchdog.activate(cfg.watchdog, deadline_s=cfg.watchdog_deadline_s,
+                      poll_s=cfg.watchdog_poll_s, lease_dir=lease_dir,
+                      rank=dist.get_rank() if dist.is_initialized() else 0)
 
 
 def _configure_obs(cfg: Config) -> None:
@@ -442,6 +489,12 @@ def _configure_tuning(cfg: Config) -> None:
         tuning.configure(cfg.tuning_plan_path, auto_active=auto)
 
 
+_FAULT_FIELDS = frozenset({"faults", "fault_retries", "fault_backoff_s",
+                           "fault_deadline_s"})
+_WATCHDOG_FIELDS = frozenset({"watchdog", "watchdog_deadline_s",
+                              "watchdog_poll_s", "watchdog_dir"})
+
+
 def set_config(**overrides) -> None:
     """Switch knobs of the running runtime (reference: the torchmpi_set_*
     setters; the JAX package's ``set_config``).  Bumps the config epoch
@@ -469,6 +522,9 @@ def set_config(**overrides) -> None:
             if mode is None:
                 raise ValueError("config.obs must be off|metrics|trace")
             overrides["obs"] = mode
+        for k in _FAULT_FIELDS | _WATCHDOG_FIELDS:
+            if k in overrides:
+                overrides[k] = check_fault_override(k, overrides[k])
         new = dataclasses.replace(_state.config, **overrides)
         check_serving(new)
         _state.config = new
@@ -477,8 +533,12 @@ def set_config(**overrides) -> None:
 
     collectives.clear_cache()
     _configure_tuning(_state.config)
+    if _FAULT_FIELDS & set(overrides):
+        _configure_faults(_state.config)
     if {"obs", "obs_dir", "obs_ring_size"} & set(overrides):
         _configure_obs(_state.config)
+    if _WATCHDOG_FIELDS & set(overrides):
+        _configure_watchdog(_state.config)
 
 
 def is_initialized() -> bool:
@@ -778,16 +838,45 @@ def local_rank() -> int:
 def barrier(name: str = "torchmpi_tpu_barrier") -> None:
     """Global barrier (reference: ``mpi.barrier()``).  With obs on, its
     start is recorded before the wait (a host stuck in it shows it as its
-    last flight event) and its completion after (JAX :1131-1178)."""
+    last flight event) and its completion after (JAX :1131-1178).  With
+    faults armed it is the ``runtime.barrier`` site (an arrival an
+    attempt, the sync under ``fault_deadline_s``); with the watchdog
+    armed its wait is an in-flight window."""
     _require_init()
-    obs_on = _state.config.obs != "off"
+    cfg = _state.config
+    obs_on = cfg.obs != "off"
     if obs_on:
         from . import obs
 
         obs.record_barrier(name)
-    if _state.device.type == "cuda":
-        dist.barrier(device_ids=[_state.device.index])
-    else:
-        dist.barrier()
+    wd = None
+    wd_tok = -1
+    if cfg.watchdog != "off":
+        # A barrier the gang never completes is flagged within the
+        # deadline, and a deferred break of a stalled background wait is
+        # delivered here, before this process commits to another wait.
+        from . import watchdog as wd
+
+        wd.raise_pending()
+        wd_tok = wd.begin("runtime.barrier", op=name, peer="gang")
+
+    def _sync():
+        if _state.device.type == "cuda":
+            dist.barrier(device_ids=[_state.device.index])
+        else:
+            dist.barrier()
+
+    try:
+        if cfg.faults != "off":
+            from . import faults
+
+            # Injection fires once an attempt and the sync runs under
+            # the site deadline: a wedged peer is a PeerTimeoutError.
+            faults.guarded_barrier(name, _sync)
+        else:
+            _sync()
+    finally:
+        if wd is not None:
+            wd.end(wd_tok)
     if obs_on:
         obs.record_barrier_done(name)

@@ -28,7 +28,10 @@ Never imported unless used: nothing in the library imports this package.
 
 With ``Config.obs`` on, the scheduler and the engines record the
 ``tm_serving_*`` telemetry (``python -m torchmpi_tpu_torch.obs.tool slo``
-renders it).  The chaos sites are ROADMAP A10 (b).
+renders it).  With ``Config.faults`` armed the scheduler is the
+``serving.replica`` and ``serving.admit`` chaos sites (a fault at the
+door a typed shed, a dead replica drained and its sessions re-routed;
+docs/FAULTS_TORCH.md).
 """
 
 from __future__ import annotations

@@ -3,9 +3,11 @@
 
 The router spreads sessions across replicas and folds every step outcome
 into a per-replica health ledger (``faults.health.HealthLedger``: ok |
-degrade | raise).  The JAX router shares the armed fault layer's ledger;
-the port's fault layer is ROADMAP A10 (b), so the router keeps a private
-ledger with the same semantics unless the caller passes one.  With
+degrade | raise).  While the fault layer is armed the router takes ITS
+ledger (through ``sys.modules``: an armed layer is already imported; JAX
+:6-30), so replica transitions count ``tm_fault_health_total`` and chaos
+plans drive the same thresholds; otherwise a private ledger with the same
+semantics, imported only then.  With
 ``Config.obs`` on, a readmission counts ``tm_serving_readmitted_total``
 (JAX :88).
 
@@ -20,17 +22,27 @@ empty.
 
 from __future__ import annotations
 
+import sys
 from typing import List, Optional
 
-from ..faults.health import HealthLedger
 from .engine import ReplicaEngine
+
+_FAULTS = __name__.rsplit(".", 2)[0] + ".faults"
+
+
+def _shared_ledger():
+    """The armed fault layer's ledger, else None."""
+    mod = sys.modules.get(_FAULTS)
+    if mod is not None and mod.active():
+        return mod.ledger()
+    return None
 
 
 class Router:
     """Health-aware replica selection over a replica set."""
 
     def __init__(self, replicas: List[ReplicaEngine], *,
-                 ledger: Optional[HealthLedger] = None,
+                 ledger=None,
                  suspect_after: int = 2, dead_after: int = 3):
         if not replicas:
             raise ValueError("router needs at least one replica")
@@ -38,8 +50,12 @@ class Router:
         if len(set(names)) != len(names):
             raise ValueError(f"replica names must be unique: {names}")
         self.replicas = list(replicas)
-        self._ledger = ledger or HealthLedger(suspect_after=suspect_after,
-                                              dead_after=dead_after)
+        self._ledger = ledger or _shared_ledger()
+        if self._ledger is None:
+            from ..faults.health import HealthLedger
+
+            self._ledger = HealthLedger(suspect_after=suspect_after,
+                                        dead_after=dead_after)
 
     # -- health ------------------------------------------------------------
 

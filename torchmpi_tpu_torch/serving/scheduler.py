@@ -21,16 +21,23 @@ TTFT and inter-token latency on their histograms (in microseconds), the
 queue depth and each replica's slot occupancy, and a ``serving_tick``
 step marker, the attribution window.  The scheduler reaches the obs layer
 through ``sys.modules`` only: serving never imports the telemetry it
-reports to.  Not ported: the chaos sites ``serving.replica`` and
-``serving.admit`` (``_fire`` / ``_gate``'s fault half) and the
-fault-error resilience path, ROADMAP A10 (b).  Without them a failing
-replica step raises.  ``last_stats`` carries the inter-token gaps
-(``itl_s``) the histogram holds.
+reports to.  ``last_stats`` carries the inter-token gaps (``itl_s``) the
+histogram holds.
+
+With ``Config.faults`` armed (JAX :412-470) each replica step is an
+arrival at ``serving.replica`` (peer: the replica's name) and each
+arrival at the admission gate one at ``serving.admit`` (peer: the
+request id).  A fault at the door is a typed shed (``Request.shed``, a
+``tm_serving_shed_total``); a transient fault of a step stalls that
+replica for the tick through the router's ledger; a hard one marks the
+replica dead and drains its sessions to the queue front, re-routed.  An
+error that is not the fault layer's still raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 import time
 from collections import deque
 from typing import List, Optional, Sequence
@@ -42,6 +49,15 @@ from .engine import ReplicaEngine, RequestRejected, Session, _obs
 from .fleet import AdmissionController, AdmissionRejected, \
     FleetController
 from .router import Router
+
+_INJECT = __name__.rsplit(".", 2)[0] + ".faults.inject"
+
+
+def _is_fault(e: BaseException) -> bool:
+    """Is ``e`` the fault layer's?  Through ``sys.modules``: while the
+    layer was never loaded no exception can be one (JAX :113)."""
+    mod = sys.modules.get(_INJECT)
+    return mod is not None and isinstance(e, mod.FaultError)
 
 
 @dataclasses.dataclass
@@ -348,15 +364,64 @@ class Server:
         for eng in list(self.router.live()):
             if not eng.active:
                 continue
-            advanced, fin = eng.step()
+            try:
+                self._fire(eng.name)
+                advanced, fin = eng.step()
+            except BaseException as e:  # noqa: BLE001 - resilience path
+                if not self._handle_failure(eng, e, pending):
+                    raise
+                continue
             self.router.record(eng, True)
             stepped.extend(advanced)
             finished.extend(fin)
         return admitted, stepped, finished, rejected
 
+    @staticmethod
+    def _fire(name: str) -> None:
+        """The ``serving.replica`` site: one arrival a replica step while
+        the fault layer is armed (one string compare when off)."""
+        if runtime.effective_config().faults == "off":
+            return
+        from .. import faults
+
+        faults.fire("serving.replica", peer=name)
+
+    def _handle_failure(self, eng: ReplicaEngine, e: BaseException,
+                        pending: deque) -> bool:
+        """Route a failed replica step; False re-raises it (not the fault
+        layer's: a model bug stays loud).  A transient fault is one
+        failure on the router's ledger (the replica sits out this tick);
+        a hard one marks it dead; a dead verdict drains it."""
+        if not _is_fault(e):
+            return False
+        if getattr(e, "transient", False):
+            verdict = self.router.record(eng, False)
+        else:
+            self.router.mark_dead(eng)
+            verdict = "raise"
+        if verdict == "raise":
+            self._drain(eng, pending)
+        return True
+
     def _gate(self, req: Request, depth: int) -> Optional[str]:
-        """The admission gate, once per arrival before it queues: the SLO
-        admission controller.  Returns the shed reason, or None."""
+        """The admission gate, once per arrival before it queues: the
+        ``serving.admit`` site (any fault verdict at the door is a shed:
+        a dropped admission RPC and an SLO rejection look alike to the
+        client), then the SLO admission controller.  Returns the shed
+        reason, or None."""
+        if runtime.effective_config().faults != "off":
+            from .. import faults
+
+            try:
+                faults.fire("serving.admit", peer=req.rid)
+            except BaseException as e:  # noqa: BLE001 - shed, not crash
+                if not _is_fault(e):
+                    raise
+                mod = _obs()
+                if mod is not None:
+                    mod.record_serving("shed")
+                return (f"request {req.rid!r} shed (fault at "
+                        f"serving.admit): {e}")
         if self._admission is not None:
             try:
                 self._admission.check(req.rid, depth)
@@ -371,8 +436,9 @@ class Server:
         return None
 
     def _drain(self, eng: ReplicaEngine, pending: deque) -> None:
-        """Move a drained replica's in-flight sessions to the queue front
-        (they already waited once) for re-prefill elsewhere."""
+        """Move a drained replica's in-flight sessions (a dead one's, or
+        the autoscaler's scale-down) to the queue front (they already
+        waited once) for re-prefill elsewhere."""
         sessions = eng.drain()
         eng.dead = True
         mod = _obs()

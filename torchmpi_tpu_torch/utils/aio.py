@@ -11,9 +11,10 @@ Buffer-lifetime contract: the native layer does not copy submitted data
 ``WriteHandle`` keeps its buffer until the future completes; an unwaited
 handle that is garbage-collected never blocks: if its write is still in
 flight, the buffer is parked in a module-level keep-alive list instead (a
-leak beats a native write into freed memory).  The JAX package's fault
-site on ``submit`` belongs to the fault layer, which is not ported (ROADMAP
-A10 (b)).
+leak beats a native write into freed memory).  With ``Config.faults``
+armed, ``submit`` is the fault layer's ``aio.submit`` site (JAX :146):
+injected delays and drops, the enqueue retried; off, one string compare
+and the layer never imported.
 """
 
 from __future__ import annotations
@@ -129,7 +130,18 @@ class AsyncWriter:
         """Queue an atomic write of ``data`` (bytes-like) to ``path``,
         fsync'd when ``durable``.  Zero-copy: the buffer is kept on the
         returned handle, not copied (embedded NULs are fine: the native
-        side writes ``len`` bytes)."""
+        side writes ``len`` bytes).  With ``Config.faults`` armed the
+        submission runs under the fault layer (site ``aio.submit``)."""
+        from .. import runtime
+
+        if runtime.effective_config().faults != "off":
+            from .. import faults
+
+            return faults.aio_submit(
+                lambda: self._submit_once(path, data, durable))
+        return self._submit_once(path, data, durable)
+
+    def _submit_once(self, path: str, data, durable: bool) -> WriteHandle:
         if isinstance(data, bytes):
             n, ptr, pin = len(data), data, (data,)
         else:

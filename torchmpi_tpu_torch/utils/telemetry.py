@@ -2,7 +2,7 @@
 
 The PyTorch counterpart of ``torchmpi_tpu/utils/telemetry.py``.  The
 off-by-default layers (the fault policy, the watchdog, the serving
-fault half; ROADMAP A10 (b)) report telemetry through
+fault half: ``faults/``, ``watchdog.py``) report telemetry through
 :mod:`torchmpi_tpu_torch.obs` *without importing it*: a session that arms
 one of them but not obs must never pull the telemetry layer into the
 process.  This is the ONE implementation of that contract: look the
