@@ -114,6 +114,22 @@ JAX package.  In order it:
    every launch of the four on its 16-byte path; the peak device memory
    of each leg, and one more update's device time by kernel
    (torch.profiler);
+   then the restart phase (restart_zero, the main path of the checkpoint
+   slice): the same ZeRO-1 flagship (rows 1-6, 9 and 10), each step's 4
+   losses read to the host and reduced by the staged rank-major
+   allreduce, (a) 6 steps through restart.run_with_restarts, a buddy
+   checkpoint every 2 steps (keep 2), under a plan of the port's chaos
+   tool (a stall at step 5's staged gather, a silent rot at the first
+   checkpoint read) and watchdog "break" at 1 s: the hang raised as
+   CollectiveHangError on the on_peer_timeout path, step 4 read, its
+   digest wrong, repaired from the buddy bit-identically, steps 4 and 5
+   replayed, the final parameters and Adam moments (and every step's
+   loss) bitwise to 6 plain steps, only steps 4 and 6 left, 0 host syncs
+   in a step outside the loss read; each save's seconds and GB/s, the
+   recovery's read, verify and repair seconds; (b) save_sharded of the
+   final state, the moments as 4 rank-major shards each, restored bitwise
+   into a data-less template, a 2-shard template raising by name, the
+   files read with plain numpy / json; seconds and GB/s each way;
 9. ResNet-50 phase (the main path of the CNN slice): ResNet-50 at full
    width and depth (224 x 224, 1000 classes, bf16 compute, float32
    parameters) as the BatchNorm DP recipe
@@ -803,7 +819,14 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the script's seconds so far
+    (``elapsed_s``), so the lines' differences time the phases."""
+    if "phase" in obj:
+        obj = dict(obj, elapsed_s=time.perf_counter() - _T0)
     print(json.dumps(obj), flush=True)
 
 
@@ -2351,6 +2374,379 @@ def zero_dp_phase(torch, mpi, ops, dev, ring_sync_ms):
     for name, c in vector.items():
         check(c["all"] == c["vector"], f"{name}: {c['vector']} of "
               f"{c['all']} launches on the 16-byte path")
+    return launches
+
+
+# restart_zero: zero_dp's ZeRO-1 flagship (RING_N ranks rank-major, Adam
+# ZERO_LR, backend "pallas", the default chunk_bytes) as RZ_STEPS steps of
+# restart.run_with_restarts, a checkpoint every RZ_SAVE_EVERY steps under
+# ckpt_redundancy "buddy" and ckpt_keep RZ_KEEP, under watchdog "break" at
+# RZ_WD_DEADLINE_S and a plan of the port's chaos tool (RZ_RULES: a stall
+# at the staged gather of step RZ_STALL_STEP's loss reduction, then a silent
+# rot at the first checkpoint read, the recovery's).  The disk must hold
+# RZ_KEEP + 1 steps with their mirrors (the newest is written before the
+# oldest is pruned); (a)'s files are gone before (b)'s sharded save.
+RZ_STEPS, RZ_SAVE_EVERY, RZ_KEEP = 6, 2, 2
+RZ_STALL_STEP = 5
+RZ_RECOVERED_STEP = 4
+RZ_WD_DEADLINE_S = 1.0
+RZ_RULES = (f"host_staged.gather:stall:1:1:0:{RZ_STALL_STEP}",
+            "ckpt.read:corrupt_silent:1:1")
+
+
+class _Clock:
+    """Seconds spent in wrapped module functions, by the current label."""
+
+    def __init__(self):
+        self.label = ""
+        self.seconds = {}
+        self._undo = []
+
+    def patch(self, mod, name, fn):
+        """Replace ``mod.name`` by ``fn`` until :meth:`restore`; returns
+        the original."""
+        orig = getattr(mod, name)
+        setattr(mod, name, fn)
+        self._undo.append((mod, name, orig))
+        return orig
+
+    def wrap(self, mod, name, key):
+        """Time every call of ``mod.name`` under ``key``."""
+        orig = getattr(mod, name)
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return orig(*a, **k)
+            finally:
+                d = self.seconds.setdefault(self.label, {})
+                d[key] = d.get(key, 0.0) + time.perf_counter() - t0
+
+        return self.patch(mod, name, timed)
+
+    def restore(self):
+        for mod, name, orig in reversed(self._undo):
+            setattr(mod, name, orig)
+        self._undo = []
+
+
+def restart_zero_phase(torch, mpi, ops, dev):
+    """The checkpoint slice's main path on zero_dp's ZeRO-1 flagship.  A
+    step: rank r's gradients of sequence r into the [4, 486,731,776] stack,
+    zero.update_rank_major under backend "pallas" (rows 9 and 10, the
+    fused loss rows 4-6 and flash rows 1-3 in the ranks' steps), then the
+    4 losses read to the host and reduced by the staged rank-major
+    allreduce (backend "host").  (a) RZ_STEPS steps through
+    restart.run_with_restarts (RZ_RULES, watchdog "break", buddy
+    checkpoints), the kernel counters set to 0 just before and read just
+    after, then the same steps plainly (no saves, faults or watchdog) from
+    the same start, to which the recovered run is held bitwise; (b) the
+    final state through save_sharded / restore_sharded, the moments as
+    RING_N rank-major shards.  Every check raises."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from torchmpi_tpu_torch import obs, optim
+    from torchmpi_tpu_torch.faults import integrity
+    from torchmpi_tpu_torch.utils import checkpoint, durable, restart
+
+    ring = ops["ring"]
+    zero, fusion = mpi.parallel.zero, mpi.fusion
+    n = RING_N
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    model = mpi.models.TransformerLM(**LM, attn_impl="flash",
+                                     dtype=torch.bfloat16, device=dev,
+                                     generator=g)
+    tok = torch.randint(0, LM["vocab"], (BATCH, SEQ), generator=g,
+                        device=dev)
+    params = list(model.parameters())
+    spec = zero.flat_spec(params, n_shards=n)
+    flats, views = fusion.rank_major_buffers(spec, n, device=dev)
+    tx = mpi.optim.adam(ZERO_LR)
+    state0 = zero.init_rank_major(params, tx, n)
+    p_init = [p.detach().clone() for p in params]
+    param_bytes = sum(p.numel() * p.element_size() for p in params)
+    moment_bytes = 2 * state0.mu.numel() * state0.mu.element_size()
+
+    @torch.no_grad()
+    def load(new):
+        for p, v in zip(params, new):
+            p.copy_(v)
+
+    def core(opt):
+        """Gradients, the ZeRO-1 update and the parameters loaded: the
+        step with no host sync; returns (new Adam state, the 4 losses)."""
+        losses = []
+        for r in range(n):
+            model.zero_grad(set_to_none=True)
+            loss = fused_lm_loss(torch, mpi, model, tok[r:r + 1])
+            loss.backward()
+            losses.append(loss.detach())
+            for v, p in zip(views, params):
+                v[r].copy_(p.grad)
+        model.zero_grad(set_to_none=True)
+        new, opt = zero.update_rank_major(params, flats, opt, tx,
+                                          backend="pallas")
+        load(new)
+        return opt, torch.stack(losses).float()
+
+    def loss_read(losses):
+        """The losses to the host, then the staged rank-major mean."""
+        red = mpi.allreduce_rank_major(losses.cpu().reshape(n, 1),
+                                       op="mean", backend="host")
+        return float(red[0, 0])
+
+    def make_step(loss_by_step):
+        def step_fn(state, i):
+            if state["params"] is not params:  # a restored state
+                load(state["params"])
+            o = state["opt"]
+            opt, losses = core(optim.AdamState(int(o.count), o.mu, o.nu))
+            loss_by_step[i] = loss_read(losses)
+            return {"params": params, "opt": opt}
+        return step_fn
+
+    def init_fn():
+        load(p_init)
+        return {"params": params, "opt": state0}
+
+    work = tempfile.mkdtemp(prefix="restart_zero_")
+    ckpt_dir = os.path.join(work, "ckpt")
+    save_est = param_bytes + moment_bytes
+    disk = shutil.disk_usage(work)
+    need = (RZ_KEEP + 1) * 2 * save_est
+    out = {"phase": "restart_zero", "ranks": n,
+           "optimizer": f"adam({ZERO_LR})", "steps": RZ_STEPS,
+           "save_every": RZ_SAVE_EVERY, "keep": RZ_KEEP, "rules": RZ_RULES,
+           "watchdog_deadline_s": RZ_WD_DEADLINE_S,
+           "param_bytes": param_bytes, "moment_bytes": moment_bytes,
+           "disk_usage": {"dir": work, "total": disk.total,
+                          "used": disk.used, "free": disk.free},
+           "disk_needed_bytes": need}
+    print(json.dumps({"restart_zero_disk": out["disk_usage"],
+                      "needed_bytes": need}), flush=True)
+    check(disk.free >= need, f"restart_zero: the disk under {work} holds "
+          f"{disk.free} free bytes, {need} needed for {RZ_KEEP + 1} steps "
+          f"of {save_est} bytes with their mirrors")
+    clock = _Clock()
+    saves, hangs = [], []
+    try:
+        # (a) the restart loop under the plan.
+        plan = _chaos_plan(os.path.join(work, "plan.json"), RZ_RULES)
+        mpi.set_config(ckpt_redundancy="buddy", ckpt_keep=RZ_KEEP,
+                       faults=plan, watchdog="break",
+                       watchdog_deadline_s=RZ_WD_DEADLINE_S,
+                       watchdog_poll_s=0.02, obs="metrics",
+                       obs_dir=os.path.join(work, "obs"))
+        obs.reset()
+        save = checkpoint.save
+
+        def timed_save(d, tree, *, step):
+            clock.label = f"save {step}"
+            t0 = time.perf_counter()
+            path = save(d, tree, step=step)
+            saves.append({"step": step, "seconds": time.perf_counter() - t0,
+                          "npz_bytes": os.path.getsize(path)})
+            clock.label = ""
+            return path
+
+        clock.patch(checkpoint, "save", timed_save)
+        clock.wrap(restart, "recover", "total_s")
+        recover = restart.recover
+
+        def timed_recover(*a, **k):
+            clock.label = "recover"
+            try:
+                return recover(*a, **k)
+            finally:
+                clock.label = ""
+
+        clock.patch(restart, "recover", timed_recover)
+        clock.wrap(checkpoint, "_read_npz_bytes", "read_s")
+        clock.wrap(integrity, "digest_bytes", "digest_s")
+        clock.wrap(checkpoint, "_write_atomic", "write_s")
+        clock.wrap(checkpoint, "_snapshot", "snapshot_s")
+        clock.wrap(checkpoint, "_npz_buffer", "serialize_s")
+        losses_rz = {}
+        torch.cuda.synchronize()
+        for mod in ops.values():
+            mod.reset_launches()
+        t0 = time.perf_counter()
+        final, info = restart.run_with_restarts(
+            init_fn, make_step(losses_rz), steps=RZ_STEPS,
+            directory=ckpt_dir, save_every=RZ_SAVE_EVERY,
+            on_peer_timeout=lambda r, e: hangs.append(e))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {nm: c for mod in ops.values()
+                    for nm, c in mod.LAUNCHES.items()}
+        clock.restore()
+        reg = obs.registry()
+        counters = {k: reg.counter_total(f"tm_ckpt_{k}_total") for k in
+                    ("saved", "verified", "verify_failed", "repaired",
+                     "pruned", "walkback")}
+        from torchmpi_tpu_torch import watchdog
+
+        hang_types = [type(e).__name__ for e in hangs]
+        hang_s = [getattr(e, "elapsed_s", None) for e in hangs]
+        broken = all(isinstance(e, watchdog.CollectiveHangError)
+                     for e in hangs)
+        del hangs
+        mpi.set_config(faults="off", watchdog="off", obs="off",
+                       ckpt_redundancy="off", ckpt_keep=0)
+        obs.deactivate()
+        obs.reset()
+        left = sorted(f for f in os.listdir(ckpt_dir)
+                      if f.startswith("ckpt_"))
+        left_buddy = sorted(os.listdir(durable.buddy_dir(ckpt_dir, 0)))
+        want_left = sorted(f"ckpt_{s}_p0.{e}" for s in (4, 6)
+                           for e in ("npz", "json"))
+        rz_params = [p.detach().clone() for p in params]
+        rz_mu, rz_nu = final["opt"].mu, final["opt"].nu
+        del final
+        # The same steps plainly, from the same start.
+        losses_plain = {}
+        plain_step = make_step(losses_plain)
+        st = init_fn()
+        for i in range(RZ_STEPS):
+            st = plain_step(st, i)
+        torch.cuda.synchronize()
+        bitwise = {"params": all(torch.equal(a, b)
+                                 for a, b in zip(rz_params, params)),
+                   "mu": torch.equal(rz_mu, st["opt"].mu),
+                   "nu": torch.equal(rz_nu, st["opt"].nu),
+                   "count": int(st["opt"].count) == RZ_STEPS,
+                   "losses": [losses_rz[i] for i in range(RZ_STEPS)]
+                   == [losses_plain[i] for i in range(RZ_STEPS)]}
+        del rz_params, rz_mu, rz_nu
+        rec = clock.seconds.get("recover", {})
+        out.update(
+            info=info, run_seconds=run_s, hang_types=hang_types,
+            hang_elapsed_s=hang_s, losses=[losses_rz[i]
+                                           for i in range(RZ_STEPS)],
+            saves=[dict(sv, seconds_by_part=clock.seconds.get(
+                f"save {sv['step']}", {}), written_bytes=2 * sv[
+                    "npz_bytes"], gb_per_s=2 * sv["npz_bytes"]
+                / sv["seconds"] / 1e9) for sv in saves],
+            recovery=dict(rec, read_gb_per_s=(
+                2 * saves[-1]["npz_bytes"] / rec["read_s"] / 1e9
+                if rec.get("read_s") else None)),
+            ckpt_counters=counters, files_left=left,
+            buddy_files_left=left_buddy, bitwise_vs_plain=bitwise,
+            launches=launches)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+        # (b) the final state sharded (ckpt_redundancy "off"): the moments
+        # as RING_N rank-major shards, the parameters as one full shard
+        # each.
+        Sharded = checkpoint.Sharded
+        opt = st["opt"]
+        tree = {"params": params, "opt": optim.AdamState(
+            int(opt.count), Sharded.rank_major(opt.mu),
+            Sharded.rank_major(opt.nu))}
+        sh_dir = os.path.join(work, "sharded")
+        t0 = time.perf_counter()
+        checkpoint.save_sharded(sh_dir, tree, step=RZ_STEPS)
+        sh_save_s = time.perf_counter() - t0
+        npz = os.path.join(sh_dir, f"shckpt_{RZ_STEPS}_p0.npz")
+        sh_bytes = os.path.getsize(npz)
+        tmpl = {"params": [torch.empty_like(p) for p in params],
+                "opt": optim.AdamState(0, tree["opt"].mu.template(),
+                                       tree["opt"].nu.template())}
+        t0 = time.perf_counter()
+        got = checkpoint.restore_sharded(sh_dir, tmpl)
+        torch.cuda.synchronize()
+        sh_restore_s = time.perf_counter() - t0
+        sh_bitwise = (torch.equal(got["opt"].mu.stack(), opt.mu)
+                      and torch.equal(got["opt"].nu.stack(), opt.nu)
+                      and all(torch.equal(a, b)
+                              for a, b in zip(got["params"], params))
+                      and int(got["opt"].count) == RZ_STEPS)
+        del got, tmpl
+        half = Sharded.rank_major(torch.empty(
+            2, 2 * spec.shard, device="meta")).template(device=dev)
+        raised = None
+        try:
+            checkpoint.restore_sharded(sh_dir, {
+                "params": [torch.empty_like(p) for p in params],
+                "opt": optim.AdamState(0, half, half)})
+        except ValueError as e:
+            raised = str(e)
+        with open(npz[:-4] + ".json") as f:
+            meta = json.load(f)["leaves"]
+        mu_meta = meta["opt/.mu"]
+        small = min(range(len(params)), key=lambda k: params[k].numel())
+        with np.load(npz) as data:
+            names = sorted(data.files)
+            small_arr = data[f"params/{small}//0"]
+            mu1 = data["opt/.mu//1"]
+            mu1_equal = mu1.tobytes() == opt.mu[1].cpu().numpy().tobytes()
+            del mu1
+        shard = spec.shard
+        layout = {
+            "mu_record": mu_meta["shape"] == [n * shard]
+            and mu_meta["dtype"] == "float32" and mu_meta["shards"] == [
+                {"extents": [[r * shard, (r + 1) * shard]],
+                 "name": f"opt/.mu//{r}"} for r in range(n)],
+            "mu_arrays": sum(nm.startswith("opt/.mu//") for nm in names) == n
+            and mu1_equal,
+            "param_record": meta[f"params/{small}"] == {
+                "shape": list(params[small].shape),
+                "dtype": str(params[small].dtype).split(".")[-1],
+                "shards": [{"extents": [[0, s] for s in params[small].shape],
+                            "name": f"params/{small}//0"}]},
+            "param_bits": small_arr.tobytes() == params[small].detach()
+            .contiguous().view(torch.uint8).cpu().numpy().tobytes()}
+        out.update(sharded={
+            "npz_bytes": sh_bytes, "save_s": sh_save_s,
+            "save_gb_per_s": sh_bytes / sh_save_s / 1e9,
+            "restore_s": sh_restore_s,
+            "restore_gb_per_s": sh_bytes / sh_restore_s / 1e9,
+            "bitwise": sh_bitwise, "two_shard_template_raised": raised,
+            "layout_as_jax": layout, "n_arrays": len(names)})
+        del st, opt, tree
+        # Host syncs: the step without the loss read (every kernel of the
+        # path), then the loss read alone.
+        syncs_core = count_host_syncs(torch, lambda: core(state0))
+        _, losses = core(state0)
+        syncs_read = count_host_syncs(torch, lambda: loss_read(losses))
+        out.update(host_syncs_per_step={"outside_loss_read": syncs_core,
+                                        "loss_read": syncs_read})
+        del losses
+    finally:
+        clock.restore()
+        mpi.set_config(faults="off", watchdog="off", obs="off",
+                       ckpt_redundancy="off", ckpt_keep=0)
+        shutil.rmtree(work, ignore_errors=True)
+    emit(out)
+    check(info == {"restarts": 1, "restarts_used": 1,
+                   "steps_run": RZ_STEPS + RZ_STALL_STEP - RZ_RECOVERED_STEP,
+                   "recovered_step": RZ_RECOVERED_STEP},
+          f"restart_zero (a): info {info}")
+    check(hang_types == ["CollectiveHangError"] and broken,
+          f"restart_zero (a): on_peer_timeout saw {hang_types}")
+    check(counters["verify_failed"] == 1 and counters["repaired"] == 1,
+          f"restart_zero (a): ckpt counters {counters}")
+    check(all(bitwise.values()), f"restart_zero (a): the recovered run "
+          f"against 6 plain steps: {bitwise}")
+    check(left == want_left and left_buddy == want_left,
+          f"restart_zero (a): retention left {left} / {left_buddy}")
+    check(out["host_syncs_per_step"]["outside_loss_read"] == 0,
+          f"restart_zero (a): host syncs {out['host_syncs_per_step']}")
+    sh = out["sharded"]
+    check(sh["bitwise"], "restart_zero (b): the sharded restore differs")
+    check(sh["two_shard_template_raised"] is not None
+          and "opt/.mu" in sh["two_shard_template_raised"],
+          f"restart_zero (b): 2-shard template: {raised}")
+    check(all(sh["layout_as_jax"].values()), f"restart_zero (b): the files' "
+          f"names or extents are not the JAX package's: {sh['layout_as_jax']}")
+    for nm in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "xent_fwd",
+               "xent_bwd_dx", "xent_bwd_dw", "ring_reduce_scatter_chunked",
+               "ring_all_gather_chunked"):
+        check(launches.get(nm, 0) > 0,
+              f"restart_zero: kernel {nm} never launched")
     return launches
 
 
@@ -7429,9 +7825,14 @@ def chaos_dp_phase(torch, mpi, ops, dev):
         seen, done = {}, threading.Event()
 
         def poll():
+            # Until the stall's own window (site host_staged.gather) is
+            # flagged: the staged call's window begins first and may be
+            # flagged a monitor tick earlier.
             while not done.is_set():
                 me = watchdog.read_leases(lease_dir).get(0)
-                if me and any(e["stalled"] for e in me["inflight"]):
+                if me and any(e["stalled"]
+                              and e["site"] == "host_staged.gather"
+                              for e in me["inflight"]):
                     buf = io.StringIO()
                     with contextlib.redirect_stdout(buf):
                         seen["rc"] = otool.main(["blame", "--live",
@@ -7926,6 +8327,12 @@ def main() -> int:
         launches.update(zero_dp_phase(torch, mpi, dict(ops, ring=ring), dev,
                                       ring_sync_ms))
         torch.cuda.empty_cache()
+        # The main path of slice 27: the same ZeRO-1 flagship through the
+        # restart loop under a stall and a rotted checkpoint, recovered
+        # bitwise; then its state through the sharded checkpoint.
+        rz_launches = restart_zero_phase(torch, mpi, dict(ops, ring=ring),
+                                         dev)
+        torch.cuda.empty_cache()
         # The main path of slice 12: ResNet-50 as the BatchNorm DP recipe of
         # RING_N ranks on the card, its syncs on rows 8 and 11 and its ZeRO
         # legs on rows 9 and 10; then the CNN examples to their bars.
@@ -8044,7 +8451,9 @@ def main() -> int:
                 **({"obs_dp": obs_launches[name]}
                    if obs_launches.get(name) else {}),
                 **({"chaos_dp": chaos_launches[name]}
-                   if chaos_launches.get(name) else {})}
+                   if chaos_launches.get(name) else {}),
+                **({"restart_zero": rz_launches[name]}
+                   if rz_launches.get(name) else {})}
 
     kernels = [{**{k: dict(row, launches=sum(by_path(
                     row["name"]).values()))[k] for k in keys},

@@ -2,8 +2,9 @@
 ``main`` runs a few steps as a world of one (gloo), or rank-major with
 ``--devices 2`` (``mnist_fsdp`` with 4), and its loss falls; ``mnist_async_allreduce``'s
 overlapped run equals its bucketed one, and ``--eager-loss`` reduces the
-loss through the staged path; the flags whose machinery is not ported
-raise naming their ROADMAP item; the parameter-server examples
+loss through the staged path; the flags of once-unported ROADMAP items
+run (``--restart-loop`` recovering from a stall and from a crash with the
+clean run's LOSS-DIGEST); the parameter-server examples
 (``mnist_downpour``, ``mnist_easgd``, ``alexnet_downpour``) and
 ``checkpoint_resume`` run a few steps; ``longcontext_lm`` runs 3 steps
 rank-major (the flash ring on 4 ranks) and in the world of one (dense
@@ -19,6 +20,7 @@ JAX's ``test_resnet20_dp_convergence`` is, and run on the card in
 chip_smoke.py's ``cnn_examples`` phase."""
 
 import importlib
+import json
 
 import numpy as np
 import pytest
@@ -152,16 +154,54 @@ def test_ps_example_runs(name, argv):
 @pytest.mark.parametrize("name,argv,item", [
     ("mnist_allreduce", ["--dcn", "2"], "item 4"),
     ("mnist_allreduce", ["--backend", "hierarchical"], "item 4"),
-    ("mnist_allreduce", ["--restart-loop"], "item 13"),
-    ("checkpoint_resume", ["--restart-loop"], "item 13"),
+    ("mnist_allreduce", ["--restart-loop", "--eager-loss", "--steps", "6",
+                         "--save-every", "2", "--batch-size", "32"],
+     "item 13"),
+    ("checkpoint_resume", ["--restart-loop", "--steps", "8", "--save-every",
+                           "2", "--crash-at", "5", "--batch-size", "32"],
+     "item 13"),
 ])
-def test_unported_flags_raise_by_name(name, argv, item):
-    """The flags whose machinery is not ported raise by their ROADMAP item
-    (item 13, where ``utils/restart.py`` belongs); those of item 4, the
-    two-level world, run now: ``--dcn 2``
-    alone in a world of one process (the flag factors rank-major ranks),
-    ``--backend hierarchical`` there warned once and run on the stock
-    route."""
+def test_unported_flags_raise_by_name(name, argv, item, tmp_path,
+                                      monkeypatch, capsys):
+    """The flags of once-unported machinery run now.  Item 4, the
+    two-level world: ``--dcn 2`` alone in a world of one process (the flag
+    factors rank-major ranks), ``--backend hierarchical`` there warned
+    once and run on the stock route.  Item 13, the restart loop
+    (``utils/restart.py``): ``--restart-loop`` recovers from one failure
+    and prints JAX's RESTARTS / RECOVERED-STEP / LOSS-DIGEST lines, the
+    digest equal to a run without the failure: for ``mnist_allreduce``
+    the JAX watchdog recipe (a ``stall`` at the eager loss's staged
+    gather of step 3 under ``watchdog="break"``, broken into a
+    ``CollectiveHangError``), for ``checkpoint_resume`` ``--crash-at``."""
+    if item == "item 13":
+        clean_argv = list(argv)
+        if name == "mnist_allreduce":
+            plan = tmp_path / "stall.json"
+            plan.write_text(json.dumps({"version": 1, "seed": 7, "rules": [
+                {"site": "host_staged.gather", "kind": "stall",
+                 "after": 3, "max_hits": 1}]}))
+            monkeypatch.setenv("TORCHMPI_TPU_FAULTS", str(plan))
+            monkeypatch.setenv("TORCHMPI_TPU_WATCHDOG", "break")
+            monkeypatch.setenv("TORCHMPI_TPU_WATCHDOG_DEADLINE", "0.3")
+        else:
+            clean_argv = argv[:-4] + argv[-2:]  # without --crash-at 5
+        try:
+            out = _main(name, argv)
+        finally:
+            for k in ("TORCHMPI_TPU_FAULTS", "TORCHMPI_TPU_WATCHDOG",
+                      "TORCHMPI_TPU_WATCHDOG_DEADLINE"):
+                monkeypatch.delenv(k, raising=False)
+        text = capsys.readouterr().out
+        assert "RESTARTS 1" in text
+        assert "RECOVERED-STEP 2" in text if name == "mnist_allreduce" \
+            else "RECOVERED-STEP 4" in text
+        assert f"LOSS-DIGEST {out['loss_digest']}" in text
+        assert out["restart_info"]["restarts_used"] == 1
+        clean = _main(name, clean_argv)
+        assert "RESTARTS 0" in capsys.readouterr().out
+        assert clean["restart_info"]["restarts_used"] == 0
+        assert out["loss_digest"] == clean["loss_digest"]
+        return
     if item == "item 4":
         tsel._warned_fallbacks.clear()
         short = ["--steps", "3", "--batch-size", "32"]
@@ -171,9 +211,6 @@ def test_unported_flags_raise_by_name(name, argv, item):
         else:
             out = _main(name, argv + short)
         assert all(v == v for v in out["losses"])
-        return
-    with pytest.raises(NotImplementedError, match=f"queue A, {item}"):
-        _main(name, argv)
 
 
 @pytest.mark.slow

@@ -1,7 +1,7 @@
 """The port's fault injection and resilient dispatch
 (torchmpi_tpu_torch/faults/) held to the JAX package's (tests/test_faults.py,
 one case here for each case there but the restart driver's, which is
-ROADMAP A13).
+in tests/test_torch_restart.py).
 
 The plan schema, the schedule and the policy are pure Python: the port's
 copies are held to the JAX package's on the same inputs (the draw of

@@ -1,7 +1,7 @@
 """The port's collective watchdog (torchmpi_tpu_torch/watchdog.py) as the
 JAX package's tests/test_watchdog.py holds its own: one case here for each
-case there but the restart driver's (ROADMAP A13) and the three elastic
-ones (A10 (c)).
+case there but the restart loop's (tests/test_torch_restart.py) and
+the three elastic ones (A10 (c)).
 
 Config plumbing, the stall -> break -> escalate ladder, the deferred raise,
 the ``stall`` fault kind through the port's real staged call site,

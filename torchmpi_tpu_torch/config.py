@@ -172,6 +172,15 @@ class Config:
       stalled; break at 1.5x, escalation at 2.5x), ``watchdog_poll_s``
       (the monitor's tick) and ``watchdog_dir`` (the lease directory;
       None: TORCHMPI_TPU_WATCHDOG_DIR, else no leases).
+    - The durable checkpoints (``utils/durable.py``, never imported while
+      "off"; JAX ``config.py:314-339``): ``ckpt_redundancy`` ("off" |
+      "verify" | "buddy"; "1" / "true" / "yes" / "on" read as "buddy"):
+      "verify" records a blake2b digest of each checkpoint file and checks
+      it on every restore, "buddy" also mirrors each file to
+      ``ckpt_buddies`` buddy locations and repairs a rotted or missing
+      primary from them; ``ckpt_keep`` keeps the newest K steps a process
+      (0 keeps all; enforced only while ``ckpt_redundancy`` is on), never
+      the step a recovery settled on.
     """
 
     backend: str = "xla"
@@ -217,6 +226,9 @@ class Config:
     watchdog_deadline_s: float = 30.0
     watchdog_poll_s: float = 0.05
     watchdog_dir: Optional[str] = None
+    ckpt_redundancy: str = "off"
+    ckpt_buddies: int = 1
+    ckpt_keep: int = 0
 
     @staticmethod
     def from_env(**overrides) -> "Config":
@@ -239,8 +251,9 @@ class Config:
         _AUTOSCALE (each after TORCHMPI_TPU_SERVING),
         TORCHMPI_TPU_FAULTS, TORCHMPI_TPU_FAULT_RETRIES, _FAULT_BACKOFF,
         _FAULT_DEADLINE, TORCHMPI_TPU_WATCHDOG, _WATCHDOG_DEADLINE,
-        _WATCHDOG_POLL and _WATCHDOG_DIR; ``pallas_bidirectional`` has
-        none), then apply ``overrides``."""
+        _WATCHDOG_POLL and _WATCHDOG_DIR, TORCHMPI_TPU_CKPT_REDUNDANCY,
+        _CKPT_BUDDIES and _CKPT_KEEP; ``pallas_bidirectional`` has none),
+        then apply ``overrides``."""
         cfg = Config(
             backend=_env_str("TORCHMPI_TPU_BACKEND", "xla"),
             tuning_plan_path=(
@@ -297,6 +310,9 @@ class Config:
             watchdog_poll_s=_env_float("TORCHMPI_TPU_WATCHDOG_POLL", 0.05),
             watchdog_dir=(os.environ.get("TORCHMPI_TPU_WATCHDOG_DIR")
                           or None),
+            ckpt_redundancy=_env_str("TORCHMPI_TPU_CKPT_REDUNDANCY", "off"),
+            ckpt_buddies=_env_int("TORCHMPI_TPU_CKPT_BUDDIES", 1),
+            ckpt_keep=_env_int("TORCHMPI_TPU_CKPT_KEEP", 0),
         )
         for name, field in (("TORCHMPI_TPU_ICI_SIZE", "ici_size"),
                             ("TORCHMPI_TPU_DCN_SIZE", "dcn_size")):
@@ -382,6 +398,20 @@ def normalize_watchdog(value) -> Optional[str]:
     return None
 
 
+def normalize_ckpt_redundancy(value) -> Optional[str]:
+    """Canonical ckpt_redundancy mode (JAX ``runtime.py:256``): "off" |
+    "verify" | "buddy" ("1" / "true" / "yes" / "on" mean "buddy"); None:
+    unrecognized (the caller raises)."""
+    v = str(value).strip().lower()
+    if v in ("off", "0", "false", "no", "none", ""):
+        return "off"
+    if v in ("buddy", "on", "1", "true", "yes"):
+        return "buddy"
+    if v == "verify":
+        return v
+    return None
+
+
 def _env_default_pickup(cfg: Config, field: str, env: str, cast) -> None:
     """A knob left at its default defers to the environment; an explicit
     value wins (JAX ``runtime.py:299``)."""
@@ -427,9 +457,31 @@ def resolve_faults(cfg: Config) -> None:
             f"got {cfg.watchdog_deadline_s}/{cfg.watchdog_poll_s}")
 
 
+def resolve_ckpt(cfg: Config) -> None:
+    """The durable-checkpoint fields made canonical in place, with the
+    JAX runtime's any-config pickup and messages (:519-540)."""
+    if normalize_ckpt_redundancy(cfg.ckpt_redundancy) == "off":
+        cfg.ckpt_redundancy = os.environ.get("TORCHMPI_TPU_CKPT_REDUNDANCY",
+                                             "off")
+    mode = normalize_ckpt_redundancy(cfg.ckpt_redundancy)
+    if mode is None:
+        raise ValueError("config.ckpt_redundancy (or "
+                         "TORCHMPI_TPU_CKPT_REDUNDANCY) must be "
+                         "off|verify|buddy")
+    cfg.ckpt_redundancy = mode
+    _env_default_pickup(cfg, "ckpt_buddies", "TORCHMPI_TPU_CKPT_BUDDIES",
+                        int)
+    _env_default_pickup(cfg, "ckpt_keep", "TORCHMPI_TPU_CKPT_KEEP", int)
+    if cfg.ckpt_buddies < 1 or cfg.ckpt_keep < 0:
+        raise ValueError(
+            f"config.ckpt_buddies must be >= 1 and ckpt_keep >= 0 (0 = keep "
+            f"everything), got {cfg.ckpt_buddies}/{cfg.ckpt_keep}")
+
+
 def check_fault_override(k: str, v):
-    """One ``set_config`` value of a fault or watchdog field, made
-    canonical and checked as the JAX ``set_config`` does (:906-941)."""
+    """One ``set_config`` value of a fault, watchdog or durable-checkpoint
+    field, made canonical and checked as the JAX ``set_config`` does
+    (:906-955)."""
     if k == "faults":
         return normalize_faults(v)
     if k == "fault_retries":
@@ -445,6 +497,19 @@ def check_fault_override(k: str, v):
         v = float(v)
         if v <= 0:
             raise ValueError(f"config.{k} must be > 0")
+    if k == "ckpt_redundancy":
+        v = normalize_ckpt_redundancy(v)
+        if v is None:
+            raise ValueError("config.ckpt_redundancy must be off|verify|buddy")
+    if k == "ckpt_buddies":
+        v = int(v)
+        if v < 1:
+            raise ValueError("config.ckpt_buddies must be >= 1")
+    if k == "ckpt_keep":
+        v = int(v)
+        if v < 0:
+            raise ValueError(
+                "config.ckpt_keep must be >= 0 (0 = keep everything)")
     return v
 
 

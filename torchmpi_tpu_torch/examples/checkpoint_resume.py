@@ -12,13 +12,23 @@ and training continued to ``--steps``; the final loss must be below the
 loss at the crash.  Each process writes its own files
 (``ckpt_<step>_p<rank>``), so it runs as well under ``torchrun``.
 
-``--restart-loop`` (the JAX package's ``restart.run_with_restarts`` loop
-with durable checkpoints) is not ported and raises by name.
+``--restart-loop`` switches to the ``restart.run_with_restarts`` loop,
+the durable-checkpoint recipe (docs/CHECKPOINT_TORCH.md): train with a
+checkpoint every ``--save-every`` steps, crash once at ``--crash-at``, and
+let recovery restore the newest verifiable step; it prints RESTARTS,
+RECOVERED-STEP and a LOSS-DIGEST of the final state.  Under a
+``ckpt.read`` bit-rot plan (``TORCHMPI_TPU_FAULTS=plan.json``) the
+contrast is the point: with ``TORCHMPI_TPU_CKPT_REDUNDANCY=off`` the
+rotted newest checkpoint fails its parse and recovery walks back
+(RECOVERED-STEP drops); with ``buddy`` the digest check names the rot,
+the primary is repaired bit-identically from its buddy mirror, and the
+LOSS-DIGEST equals a clean run's.
 
 Run: ``python -m torchmpi_tpu_torch.examples.checkpoint_resume``
 (``--device cpu`` on the CPU).
 """
 
+import hashlib
 import shutil
 import tempfile
 
@@ -57,20 +67,88 @@ def _loss(model, x, y):
     return F.cross_entropy(model(x), y)
 
 
+def _copy(state: dict) -> dict:
+    """A checkpointed tree with its tensors cloned."""
+    return {"params": {k: v.clone() for k, v in state["params"].items()},
+            "opt": {k: v.clone() for k, v in state["opt"].items()},
+            "step": state["step"]}
+
+
+def restart_loop(args) -> dict:
+    """The ``run_with_restarts`` durable-checkpoint recipe (JAX
+    :36-112): RESTARTS, RECOVERED-STEP and LOSS-DIGEST, the blake2b of the
+    final state's leaves in path order (a recovery that restored its
+    checkpoint bit-exactly lands on the clean run's bytes)."""
+    from torchmpi_tpu_torch.utils import restart
+
+    ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="tm_ckpt_")
+    try:
+        with common.runtime(args) as dev:
+            X, Y = dutil.synthetic_mnist(2048, seed=args.seed)
+            batches = list(dutil.batches(X, Y, args.batch_size,
+                                         steps=args.steps, seed=args.seed))
+            model, opt = _tools(args, dev)
+            step = mpi.nn.data_parallel_step(model, opt, _loss)
+            init = _copy(_state(model, opt, 0))
+            losses, crashed, live = {}, [], {}
+
+            def init_fn():
+                return _copy(init)
+
+            def step_fn(state, i):
+                if args.crash_at is not None and i == args.crash_at \
+                        and not crashed:
+                    crashed.append(i)
+                    raise RuntimeError("injected crash (checkpoint_resume "
+                                       "--crash-at)")
+                if state is not live.get("state"):
+                    common.load_params(model, state["params"])
+                    for n, p in model.named_parameters():
+                        opt.state[p]["momentum_buffer"] = \
+                            state["opt"][n].clone()
+                xb, yb = common.local_slice(*batches[i], rank_major=False)
+                losses[i] = float(step(*common.to_device(xb, yb, dev)))
+                live["state"] = _state(model, opt, i + 1)
+                return live["state"]
+
+            state, info = restart.run_with_restarts(
+                init_fn, step_fn, steps=args.steps, directory=ckpt_dir,
+                save_every=args.save_every)
+            h = hashlib.blake2b(digest_size=16)
+            for _, leaf in sorted(checkpoint._keyed_leaves(state)):
+                if isinstance(leaf, torch.Tensor):
+                    leaf = leaf.detach().cpu()
+                    leaf = leaf.view(torch.int16) \
+                        if leaf.dtype == torch.bfloat16 else leaf
+                h.update(np.ascontiguousarray(np.asarray(leaf)).tobytes())
+            digest = h.hexdigest()
+            print(f"final loss {losses[max(losses)]:.4f}")
+            print(f"RESTARTS {info['restarts_used']}")
+            print(f"RECOVERED-STEP {info['recovered_step']}")
+            print(f"LOSS-DIGEST {digest}")
+    finally:
+        if not args.ckpt_dir:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return {"losses": [losses[i] for i in sorted(losses)],
+            "restart_info": info, "loss_digest": digest}
+
+
 def main(argv=None):
     args = common.parse_args(
         __doc__, argv, defaults={"steps": 40, "batch_size": 128},
         restart_loop={"action": "store_true",
-                      "help": "the run_with_restarts durable-checkpoint "
-                              "recipe: not ported"},
+                      "help": "run the run_with_restarts durable-"
+                              "checkpoint recipe instead of the two-phase "
+                              "demo"},
+        crash_at={"type": int, "default": None,
+                  "help": "inject one crash at this step (--restart-loop "
+                          "only)"},
         save_every={"type": int, "default": 10},
         ckpt_dir={"type": str, "default": None,
                   "help": "checkpoint directory (default: a temp dir, "
                           "removed on exit)"})
     if args.restart_loop:
-        raise NotImplementedError(
-            "--restart-loop: the restart loop and the durable checkpoints "
-            "are not ported yet (ROADMAP queue A, item 13)")
+        return restart_loop(args)
     ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="tm_ckpt_")
     try:
         with common.runtime(args) as dev:

@@ -26,9 +26,10 @@ mismatched plan raises at ``init``.
 Every injected and survived event reaches ``tm_fault_*`` counters and the
 flight ring through :mod:`torchmpi_tpu_torch.obs` when that is active
 (``utils/telemetry.py``), so ``obs.tool blame`` can name the injected
-site.  The JAX package's wire guard (``wire_guard=``) is ROADMAP A10 (c):
-the port has no ``Config.guard``, so its sites take the unguarded path;
-the checkpoint sites (``ckpt_write`` / ``ckpt_read``) wait for A13.
+site.  The checkpoint sites (:func:`ckpt_write` / :func:`ckpt_read`) fire
+under ``utils/checkpoint.py`` while a plan is loaded.  The JAX package's
+wire guard (``wire_guard=``) is ROADMAP A10 (c): the port has no
+``Config.guard``, so its sites take the unguarded path.
 """
 
 from __future__ import annotations
@@ -401,6 +402,49 @@ def ps_wait(peers: List[str], make_handle: Callable[[], Any],
 
     return policy_mod.run("ps.response", attempt, policy=_policy,
                           peer=peer_all, on_event=on_event)
+
+
+def ckpt_write(path: str, data, commit: Callable[[], Any]) -> Any:
+    """One checkpoint-file commit under injection (site ``ckpt.write``,
+    ``utils/checkpoint.py``; JAX :518-548).  ``data`` is the writable
+    staged byte buffer (a uint8 numpy view) about to land on disk:
+    ``corrupt_silent`` flips real bits that are then written and fsync'd
+    (the digest recorded before no longer matches), ``torn`` writes half
+    the payload to ``path + ".tmp"`` and raises an EIO ``OSError`` (the
+    crash mid-save), ``fail`` raises an ENOSPC ``OSError``.  Not retried:
+    a disk that ate one write eats the next; the recovery protocol (walk
+    back, buddy repair) is the answer."""
+    import errno
+
+    try:
+        fire("ckpt.write", payload=data, peer="storage")
+    except TornWrite as e:
+        try:
+            n = max(1, len(data) // 2)
+            with open(path + ".tmp", "wb") as f:
+                f.write(memoryview(data).cast("B")[:n])
+        except OSError:
+            pass  # even the torn prefix failed: the artifact is optional
+        raise OSError(
+            errno.EIO, f"injected torn write (crash mid-save): {path}"
+        ) from e
+    except InjectedFailure as e:
+        raise OSError(errno.ENOSPC, f"injected ENOSPC writing {path}") from e
+    return commit()
+
+
+def ckpt_read(path: str, data) -> None:
+    """One checkpoint npz read under injection (site ``ckpt.read``; JAX
+    :551-566).  ``data`` is the writable buffer just read back:
+    ``corrupt_silent`` is the on-disk rot a verified restore must catch
+    (and in buddy mode repair); ``fail`` raises an EIO ``OSError``.  Not
+    retried: re-reading a rotten file gives the same rot."""
+    import errno
+
+    try:
+        fire("ckpt.read", payload=data, peer="storage")
+    except InjectedFailure as e:
+        raise OSError(errno.EIO, f"injected read failure for {path}") from e
 
 
 def _wait_budget_ms() -> int:

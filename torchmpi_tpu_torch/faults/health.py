@@ -7,8 +7,9 @@ Peers are free-form strings the call sites choose: PS shard endpoints
 the serving router's replica names.  The ledger is deliberately dumb: it
 counts, it classifies, and it reports transitions; *what to do* about a
 dead peer stays with the caller.  The fault layer (``faults/__init__``)
-holds the one shared ledger while armed; the JAX package's restart
-driver, which snapshots it, is ROADMAP A13.
+holds the one shared ledger while armed; the restart loop
+(``utils/restart.py``) snapshots it next to the checkpoints and
+rehydrates it on recovery.
 """
 
 from __future__ import annotations
@@ -121,7 +122,7 @@ class HealthLedger:
     # -- snapshot / restore -----------------------------------------------
     #
     # Peer health is evidence, and evidence must survive recovery: the
-    # JAX package's restart driver snapshots the armed ledger next to
+    # restart loop (utils/restart.py) snapshots the armed ledger next to
     # every checkpoint and rehydrates it on recovery, so a process-level
     # restart does not reset every peer to ``healthy`` and re-burn the
     # full suspect->dead escalation on a peer that was already dead.

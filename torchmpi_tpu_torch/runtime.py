@@ -83,8 +83,8 @@ import torch
 import torch.distributed as dist
 
 from .config import (Config, check_fault_override, check_serving,
-                     normalize_obs, ps_timeout_s, resolve_faults,
-                     resolve_obs)
+                     normalize_obs, ps_timeout_s, resolve_ckpt,
+                     resolve_faults, resolve_obs)
 
 Axes = Union[str, Sequence[str], None]
 WORLD_AXES = ("dcn", "ici")
@@ -342,6 +342,7 @@ def init(config: Optional[Config] = None, *, device: str = "cuda",
         check_serving(cfg)
         resolve_obs(cfg)
         resolve_faults(cfg)
+        resolve_ckpt(cfg)
         # Arm (or disarm a stale) fault layer before the runtime marks
         # itself initialized: a corrupt or missing plan fails init
         # outright (JAX :716-724).  Off never imports faults.
@@ -493,6 +494,7 @@ _FAULT_FIELDS = frozenset({"faults", "fault_retries", "fault_backoff_s",
                            "fault_deadline_s"})
 _WATCHDOG_FIELDS = frozenset({"watchdog", "watchdog_deadline_s",
                               "watchdog_poll_s", "watchdog_dir"})
+_CKPT_FIELDS = frozenset({"ckpt_redundancy", "ckpt_buddies", "ckpt_keep"})
 
 
 def set_config(**overrides) -> None:
@@ -522,7 +524,7 @@ def set_config(**overrides) -> None:
             if mode is None:
                 raise ValueError("config.obs must be off|metrics|trace")
             overrides["obs"] = mode
-        for k in _FAULT_FIELDS | _WATCHDOG_FIELDS:
+        for k in _FAULT_FIELDS | _WATCHDOG_FIELDS | _CKPT_FIELDS:
             if k in overrides:
                 overrides[k] = check_fault_override(k, overrides[k])
         new = dataclasses.replace(_state.config, **overrides)

@@ -63,8 +63,8 @@ class CollectiveHangError(RuntimeError):
     within ``watchdog_deadline_s``.  Timeout-flavored for the fault
     policy (``is_timeout``) but NOT transient — retrying the very wait
     that wedged would re-wedge; the correct response is the recovery
-    path (the restart loop's ``on_peer_timeout`` and the elastic gang's
-    shrink, ROADMAP A13 and A10 (c)).  Carries the site/op/seq/elapsed
+    path (the restart loop's ``on_peer_timeout``, ``utils/restart.py``;
+    the elastic gang's shrink is ROADMAP A10 (c)).  Carries the site/op/seq/elapsed
     attribution and the obs flight-ring tail when telemetry is active.
     """
 
