@@ -100,7 +100,18 @@ JAX package.  In order it:
    row 8), the dump through the obs tool (dump, prom, attribute), step ms
    and host us a dispatch with obs on and off in turns, one step under
    "trace" (call sites), one under utils.tracing.trace (a Chrome trace
-   naming the flash, xent and ring kernels);
+   naming the flash, xent and ring kernels); and, after the chaos phase,
+   the guard phase (guard_dp, the main path of the guard slice): the same
+   DP step at depth 2 with guard="numeric" bitwise to the guard off and 0
+   host syncs (the tripwire's device ms and the step ms a side in turns),
+   a NaN in one rank's gradient skipped (parameters unchanged, one skipped
+   step counted) or raised (NumericAnomalyError at the step's boundary)
+   and a norm bound tripped; the staged buckets under silent flips at both
+   legs, wrong without the guard and bitwise with guard="wire", the
+   tm_guard_* counters against FaultPlan.decide; a one-shot poison of the
+   parameters rewound by guard.run_guarded (10 steps, a checkpoint every
+   3: info rewinds 1 at step 7, recovered step 6, a rewind record on the
+   board, no config-epoch bump or re-plan, bitwise to a clean run);
 8. ZeRO phase (the main path of the ZeRO slice): the flagship as ZeRO data
    parallelism of 4 ranks on the one card with Adam (lr 1e-3): the 4 ranks'
    gradients in one [4, 486,731,776] stack, 3 ZeRO-1 steps under the
@@ -115,7 +126,8 @@ JAX package.  In order it:
    of each leg, and one more update's device time by kernel
    (torch.profiler);
    then the restart phase (restart_zero, the main path of the checkpoint
-   slice): the same ZeRO-1 flagship (rows 1-6, 9 and 10), each step's 4
+   slice): the same ZeRO-1 flagship at depth 2 (rows 1-6, 9 and 10), each
+   step's 4
    losses read to the host and reduced by the staged rank-major
    allreduce, (a) 6 steps through restart.run_with_restarts, a buddy
    checkpoint every 2 steps (keep 2), under a plan of the port's chaos
@@ -130,6 +142,19 @@ JAX package.  In order it:
    final state, the moments as 4 rank-major shards each, restored bitwise
    into a data-less template, a 2-shard template raising by name, the
    files read with plain numpy / json; seconds and GB/s each way;
+   then the elastic phase (elastic_zero, the main path of the elastic
+   slice): the same ZeRO-1 flagship at depth 2 as an elastic gang of 4
+   members (elastic.run_elastic), member 2 killed at step 5 by the chaos
+   tool's --shrink 2:5:4: info shrinks 1, view (0, 1, 3), the Adam
+   moments re-partitioned over 3 rows, the n = 3 losses and the state at
+   the rejoin bitwise to a clean 3-member run from a copy of the
+   recovered checkpoint; member 2 admitted back through elastic.admit (a
+   thread) and the steps after the boundary bitwise to a clean 4-member
+   run from its checkpoint; every reduce-scatter / all-gather at n = 3
+   bitwise to the plain ring on the row it reports, one ZeRO-1 update at
+   n = 3 within 1e-4 of replicated Adam; the save, recovery, reconcile
+   and re-partition seconds and the step ms at n 4 and n 3; the runtime
+   is started again after it;
 9. ResNet-50 phase (the main path of the CNN slice): ResNet-50 at full
    width and depth (224 x 224, 1000 classes, bf16 compute, float32
    parameters) as the BatchNorm DP recipe
@@ -2387,6 +2412,10 @@ def zero_dp_phase(torch, mpi, ops, dev, ring_sync_ms):
 # RZ_KEEP + 1 steps with their mirrors (the newest is written before the
 # oldest is pruned); (a)'s files are gone before (b)'s sharded save.
 RZ_STEPS, RZ_SAVE_EVERY, RZ_KEEP = 6, 2, 2
+# The flagship's widths at depth 2: restart_zero, elastic_zero and
+# guard_dp (the saves' disk writes and digests were most of restart_zero
+# at depth 8).
+LM_D2 = dict(LM, depth=2)
 RZ_STALL_STEP = 5
 RZ_RECOVERED_STEP = 4
 RZ_WD_DEADLINE_S = 1.0
@@ -2430,6 +2459,30 @@ class _Clock:
         self._undo = []
 
 
+def zero1_step(torch, mpi, model, tok, members, views, flats, opt, tx):
+    """restart_zero's and elastic_zero's ZeRO-1 Adam step, with no host
+    sync: member ``m`` (row ``k`` of the stack) the gradients of sequence
+    ``m`` into row ``k`` of ``views``, zero.update_rank_major under
+    backend "pallas" (rows 9 and 10), the new parameters loaded.  Returns
+    (the new Adam state, the members' losses in float32)."""
+    params = list(model.parameters())
+    losses = []
+    for k, m in enumerate(members):
+        model.zero_grad(set_to_none=True)
+        loss = fused_lm_loss(torch, mpi, model, tok[m:m + 1])
+        loss.backward()
+        losses.append(loss.detach())
+        for v, p in zip(views, params):
+            v[k].copy_(p.grad)
+    model.zero_grad(set_to_none=True)
+    new, opt = mpi.parallel.zero.update_rank_major(params, flats, opt, tx,
+                                                   backend="pallas")
+    with torch.no_grad():
+        for p, v in zip(params, new):
+            p.copy_(v)
+    return opt, torch.stack(losses).float()
+
+
 def restart_zero_phase(torch, mpi, ops, dev):
     """The checkpoint slice's main path on zero_dp's ZeRO-1 flagship.  A
     step: rank r's gradients of sequence r into the [4, 486,731,776] stack,
@@ -2456,7 +2509,7 @@ def restart_zero_phase(torch, mpi, ops, dev):
     zero, fusion = mpi.parallel.zero, mpi.fusion
     n = RING_N
     g = torch.Generator(device=dev).manual_seed(SEED + 6)
-    model = mpi.models.TransformerLM(**LM, attn_impl="flash",
+    model = mpi.models.TransformerLM(**LM_D2, attn_impl="flash",
                                      dtype=torch.bfloat16, device=dev,
                                      generator=g)
     tok = torch.randint(0, LM["vocab"], (BATCH, SEQ), generator=g,
@@ -2476,21 +2529,8 @@ def restart_zero_phase(torch, mpi, ops, dev):
             p.copy_(v)
 
     def core(opt):
-        """Gradients, the ZeRO-1 update and the parameters loaded: the
-        step with no host sync; returns (new Adam state, the 4 losses)."""
-        losses = []
-        for r in range(n):
-            model.zero_grad(set_to_none=True)
-            loss = fused_lm_loss(torch, mpi, model, tok[r:r + 1])
-            loss.backward()
-            losses.append(loss.detach())
-            for v, p in zip(views, params):
-                v[r].copy_(p.grad)
-        model.zero_grad(set_to_none=True)
-        new, opt = zero.update_rank_major(params, flats, opt, tx,
-                                          backend="pallas")
-        load(new)
-        return opt, torch.stack(losses).float()
+        return zero1_step(torch, mpi, model, tok, range(n), views, flats,
+                          opt, tx)
 
     def loss_read(losses):
         """The losses to the host, then the staged rank-major mean."""
@@ -2747,6 +2787,390 @@ def restart_zero_phase(torch, mpi, ops, dev):
                "ring_all_gather_chunked"):
         check(launches.get(nm, 0) > 0,
               f"restart_zero: kernel {nm} never launched")
+    return launches
+
+
+# elastic_zero: restart_zero's ZeRO-1 Adam flagship at depth 2 as an
+# elastic gang of RING_N members (one rank-major row each) under
+# ``faults/tool.py --shrink EZ_KILL`` (member 2 dies at step 5): the gang
+# shrinks to 3, the moments re-partitioned over 3 rows, and member 2 admits
+# itself back once step EZ_REJOIN_AFTER - 1 ran at n = 3.
+EZ_STEPS, EZ_SAVE_EVERY = 8, 2
+EZ_KILL = (2, 5, RING_N)  # member, step, members
+EZ_RECOVERED_STEP = 4
+EZ_REJOIN_AFTER = 6
+# The ring rows a tapped call may launch, by verb (the chunked row under
+# the default chunk_bytes, the resident one above it).
+EZ_ROWS_BY_VERB = {
+    "reduce_scatter": ("ring_reduce_scatter_chunked", "ring_reduce_scatter"),
+    "all_gather": ("ring_all_gather_chunked", "ring_all_gather")}
+
+
+def elastic_zero_phase(torch, mpi, ops, dev):
+    """The elastic slice's main path: restart_zero's ZeRO-1 Adam step
+    (zero.update_rank_major, backend "pallas": rows 9 and 10; the fused
+    loss rows 4-6 and flash rows 1-3 in the members' steps) at depth 2,
+    member m the row of sequence m, through ``elastic.run_elastic`` with
+    ``Config.elastic`` "on" (ckpt_redundancy off), the kernel counters set
+    to 0 just before and read just after.  The state the checkpoints hold
+    is topology portable: the parameters and the full Adam moments; a
+    view's build re-derives the [n, shard] moments (the re-partition).
+    (a) ``--shrink 2:5:4``: member 2 dies at step 5; info shrinks 1,
+    view (0, 1, 3), the moments over 3 rows; the n = 3 losses and the
+    state at the rejoin boundary bitwise to a clean 3-member run restored
+    from a copy of the recovered step's checkpoint.  (b) Member 2's
+    ``elastic.admit`` (a thread) once step EZ_REJOIN_AFTER - 1 ran at n = 3:
+    the gang grows back to (0, 1, 2, 3) at the next boundary, the joiner's
+    checkpoint file seeded through ``checkpoint.replicate_for`` (byte for
+    byte the survivor's), and the steps after it bitwise to a clean
+    4-member run from that boundary's checkpoint.  (c) Every row 9 / 10
+    call at n = 3 bitwise to the plain ring (the selector's routes tapped)
+    and launching the row it reports; one ZeRO-1 update at n = 3 against a
+    replicated Adam update from the same state: rel. L2 <= ZERO_RTOL.
+    The last run ends with the whole gang, which hands back init's world.
+    Reports the save, recovery, reconcile and re-partition seconds and
+    the step ms at n 4 and n 3.  Every check raises."""
+    import shutil
+    import tempfile
+    import threading
+
+    from torchmpi_tpu_torch import elastic, optim
+    from torchmpi_tpu_torch.faults import membership
+    from torchmpi_tpu_torch.faults import tool as ftool
+    from torchmpi_tpu_torch.utils import checkpoint, restart
+
+    ring = ops["ring"]
+    zero, fusion = mpi.parallel.zero, mpi.fusion
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    model = mpi.models.TransformerLM(**LM_D2, attn_impl="flash",
+                                     dtype=torch.bfloat16, device=dev,
+                                     generator=g)
+    tok = torch.randint(0, LM["vocab"], (BATCH, SEQ), generator=g,
+                        device=dev)
+    params = list(model.parameters())
+    p_init = [p.detach().clone() for p in params]
+    total = sum(p.numel() for p in params)
+    tx = mpi.optim.adam(ZERO_LR)
+    param_bytes = sum(p.numel() * p.element_size() for p in params)
+
+    @torch.no_grad()
+    def load(new):
+        for p, v in zip(params, new):
+            p.copy_(v)
+
+    rows = ZERO_ROWS["chunked"]
+    log = TapLog()
+    rec = {"losses": {}, "step_ms": {}, "repartition_s": [], "rep": None,
+           "rep_launches": {}}
+    rejoin_go = threading.Event()
+    world0 = mpi.runtime.world_communicator()
+
+    def build_for(record):
+        def build(comm, view):
+            members = view.members
+            n = len(members)
+            check(comm.fixed_size() == n
+                  and mpi.runtime.world_rows() == tuple(members),
+                  f"elastic_zero: world {comm} for view {view}")
+            t0 = time.perf_counter()
+            spec = zero.flat_spec(params, n_shards=n)
+            check(len(spec.groups) == 1, "elastic_zero: one dtype group")
+            flats, views = fusion.rank_major_buffers(spec, n, device=dev)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+
+            def shards(full):
+                return torch.nn.functional.pad(
+                    full, (0, n * spec.shard - full.numel())).reshape(
+                        n, spec.shard)
+
+            def init_fn():
+                load(p_init)
+                z = torch.zeros(total, dtype=spec.dtype, device=dev)
+                return {"params": params,
+                        "opt": optim.AdamState(0, z, z.clone())}
+
+            first = [True]
+            # The last step's [n, shard] moments beside the full-length
+            # views the state carries: the next step of the segment takes
+            # them as they are; a restored state is re-partitioned.
+            held = {"mu": None, "opt": None}
+
+            def step_fn(state, i):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if state["params"] is not params:
+                    load(state["params"])
+                o = state["opt"]
+                opt = (held["opt"] if o.mu is held["mu"] else
+                       optim.AdamState(int(o.count), shards(o.mu),
+                                       shards(o.nu)))
+                if first[0]:
+                    torch.cuda.synchronize()
+                    record["repartition_s"].append(
+                        {"n": n, "seconds": build_s + time.perf_counter()
+                         - t0})
+                log.label = f"n{n}"
+                log.check = record is rec and n == EZ_KILL[2] - 1
+                p0 = (fusion.flatten_tree(params, spec).detach()
+                      if first[0] and log.check else None)
+                nopt, losses = zero1_step(torch, mpi, model, tok, members,
+                                          views, flats, opt, tx)
+                if p0 is not None:
+                    # One ZeRO-1 update at n = 3 against a replicated Adam
+                    # update from the same parameters, state and stack
+                    # (zero_dp's check), its launches and its seconds set
+                    # aside.
+                    torch.cuda.synchronize()
+                    t_check = time.perf_counter()
+                    log.check = False
+                    before = {nm: ring.LAUNCHES[nm] for nm in ring.LAUNCHES}
+                    with torch.no_grad():
+                        buf = flats[0].clone()
+                        fusion.fused_allreduce_rank_major_(
+                            [buf], backend="pallas", op="mean")
+                        upd, _ = tx.update(buf[0], optim.AdamState(
+                            opt.count, opt.mu.reshape(-1),
+                            opt.nu.reshape(-1)))
+                        d_zero = fusion.unflatten_tree(
+                            fusion.flatten_tree(params, spec) - p0, spec)
+                        d_rep = fusion.unflatten_tree(upd, spec)
+                        rel = [float((a - b).norm()
+                                     / b.norm().clamp_min(1e-30))
+                               for a, b in zip(d_zero, d_rep)]
+                    del buf, upd, d_zero, d_rep
+                    record["rep"] = {"n": n, "step": i,
+                                     "max_rel_l2": max(rel)}
+                    record["rep_launches"] = {
+                        nm: ring.LAUNCHES[nm] - before[nm]
+                        for nm in ring.LAUNCHES
+                        if ring.LAUNCHES[nm] != before[nm]}
+                    torch.cuda.synchronize()
+                    t0 += time.perf_counter() - t_check
+                first[0] = False
+                red = mpi.allreduce_rank_major(
+                    losses.cpu().reshape(n, 1), op="mean", backend="host")
+                record["losses"][i] = float(red[0, 0])
+                torch.cuda.synchronize()
+                record["step_ms"].setdefault(f"n{n}", []).append(
+                    (time.perf_counter() - t0) * 1e3)
+                if record is rec and n == EZ_KILL[2] - 1 \
+                        and i + 1 == EZ_REJOIN_AFTER:
+                    rejoin_go.set()
+                    board = membership.Board(os.path.join(ckpt_dir,
+                                                          "membership"))
+                    t1 = time.monotonic()
+                    while EZ_KILL[0] not in board.join_requests():
+                        check(time.monotonic() - t1 < 60,
+                              "elastic_zero (b): the join never landed")
+                        time.sleep(0.01)
+                held["opt"] = nopt
+                held["mu"] = nopt.mu.reshape(-1)[:total]
+                return {"params": params, "opt": optim.AdamState(
+                    nopt.count, held["mu"], nopt.nu.reshape(-1)[:total])}
+
+            return init_fn, step_fn
+
+        return build
+
+    work = tempfile.mkdtemp(prefix="elastic_zero_")
+    ckpt_dir = os.path.join(work, "ckpt")
+    save_est = param_bytes + 2 * total * 4
+    disk = shutil.disk_usage(work)
+    need = 9 * save_est
+    out = {"phase": "elastic_zero", "members": RING_N,
+           "depth": LM_D2["depth"], "optimizer": f"adam({ZERO_LR})",
+           "steps": EZ_STEPS, "save_every": EZ_SAVE_EVERY,
+           "shrink": "%d:%d:%d" % EZ_KILL,
+           "rejoin_after_step": EZ_REJOIN_AFTER, "params": total,
+           "save_bytes_est": save_est,
+           "disk_usage": {"free": disk.free, "needed": need}}
+    check(disk.free >= need, f"elastic_zero: {disk.free} bytes free under "
+          f"{work}, {need} needed")
+    clock = _Clock()
+    joined = {}
+    try:
+        plan = os.path.join(work, "shrink.json")
+        check(ftool.main(["gen", "--out", plan, "--seed", str(CHAOS_SEED),
+                          "--shrink", "%d:%d:%d" % EZ_KILL]) == 0,
+              "elastic_zero: chaos tool --shrink")
+        mpi.set_config(elastic="on", faults=plan)
+        for mod, name, key in ((checkpoint, "save", "save_s"),
+                               (restart, "recover", "recover_s"),
+                               (membership, "reconcile", "reconcile_s")):
+            orig = getattr(mod, name)
+
+            def timed(*a, _orig=orig, _key=key, **k):
+                t0 = time.perf_counter()
+                try:
+                    return _orig(*a, **k)
+                finally:
+                    clock.seconds.setdefault(_key, []).append(
+                        time.perf_counter() - t0)
+
+            clock.patch(mod, name, timed)
+
+        def joiner():
+            if not rejoin_go.wait(600):
+                return
+            try:
+                view = elastic.admit(ckpt_dir, EZ_KILL[0], deadline_s=120)
+                joined["view"] = view.to_json()
+                checkpoint.replicate_for(ckpt_dir, view.step, [EZ_KILL[0]],
+                                         src_proc=0)
+                stem = os.path.join(ckpt_dir, f"ckpt_{view.step}_p")
+                with open(stem + "0.npz", "rb") as a, \
+                        open(stem + f"{EZ_KILL[0]}.npz", "rb") as b:
+                    joined["seeded_equal"] = a.read() == b.read()
+            except Exception as e:  # noqa: BLE001 — reported and checked
+                joined["error"] = repr(e)
+
+        th = threading.Thread(target=joiner, daemon=True)
+        th.start()
+        restore_taps = tap_rank_major_routes(torch, mpi, ring, log)
+        torch.cuda.synchronize()
+        for mod in ops.values():
+            mod.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            final, info = elastic.run_elastic(
+                build_for(rec), steps=EZ_STEPS, directory=ckpt_dir,
+                save_every=EZ_SAVE_EVERY, members=range(RING_N),
+                world_size=RING_N)
+        finally:
+            restore_taps()
+            rejoin_go.set()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        th.join(180)
+        launches = {nm: c for mod in ops.values()
+                    for nm, c in mod.LAUNCHES.items()}
+        for nm, c in rec["rep_launches"].items():
+            launches[nm] -= c
+        clock.restore()
+        mpi.set_config(faults="off")
+        seconds = {k: {"calls": len(v), "total": sum(v), "each": v}
+                   for k, v in clock.seconds.items()}
+        el_params = [p.detach().clone() for p in params]
+        el_mu, el_nu = final["opt"].mu.clone(), final["opt"].nu.clone()
+        del final
+        r, b = EZ_RECOVERED_STEP, info["recovered_step"]
+        n3 = [e for e in log if e["label"] == f"n{EZ_KILL[2] - 1}"]
+        taps = {"calls": len(n3),
+                "bitwise": all(e["bitwise"] for e in n3),
+                "rows": sorted({tuple(e["rows"]) for e in n3}),
+                "rows_as_reported": all(
+                    len(e["rows"]) == 1 and e["rows"][0] in
+                    EZ_ROWS_BY_VERB[e["verb"]] for e in n3),
+                "all_gather_rows_equal": all(e.get("rows_equal", True)
+                                             for e in n3),
+                "elems_a_rank": sorted({e["elems"] for e in n3})}
+
+        # (a) a clean 3-member run from a copy of the recovered step's
+        # checkpoint, to the rejoin boundary; its state against the
+        # boundary's checkpoint.
+        def copy_ckpt(step, dst):
+            os.makedirs(dst, exist_ok=True)
+            for f in os.listdir(ckpt_dir):
+                if f.startswith(f"ckpt_{step}_p0."):
+                    shutil.copy(os.path.join(ckpt_dir, f),
+                                os.path.join(dst, f))
+            return dst
+
+        survivors = [m for m in range(RING_N) if m != EZ_KILL[0]]
+        clean3 = {"losses": {}, "step_ms": {}, "repartition_s": [],
+                  "rep": None, "rep_launches": {}}
+        st3, info3 = elastic.run_elastic(
+            build_for(clean3), steps=b,
+            directory=copy_ckpt(r, os.path.join(work, "clean3")),
+            save_every=10 ** 6, members=survivors, world_size=RING_N)
+        tmpl = {"params": [torch.empty_like(p) for p in params],
+                "opt": optim.AdamState(0, torch.empty_like(st3["opt"].mu),
+                                       torch.empty_like(st3["opt"].nu))}
+        at_b = checkpoint.restore(ckpt_dir, tmpl, step=b)
+        bit_a = {"losses": [rec["losses"][i] for i in range(r, b)]
+                 == [clean3["losses"][i] for i in range(r, b)],
+                 "params": all(torch.equal(x, y) for x, y in
+                               zip(at_b["params"], params)),
+                 "mu": torch.equal(at_b["opt"].mu, st3["opt"].mu),
+                 "nu": torch.equal(at_b["opt"].nu, st3["opt"].nu),
+                 "count": int(at_b["opt"].count) == int(st3["opt"].count)}
+        del st3, at_b, tmpl
+        shutil.rmtree(os.path.join(work, "clean3"), ignore_errors=True)
+        torch.cuda.empty_cache()
+
+        # (b) a clean 4-member run from a copy of the boundary's
+        # checkpoint to the end.
+        clean4 = {"losses": {}, "step_ms": {}, "repartition_s": [],
+                  "rep": None, "rep_launches": {}}
+        st4, info4 = elastic.run_elastic(
+            build_for(clean4), steps=EZ_STEPS,
+            directory=copy_ckpt(b, os.path.join(work, "clean4")),
+            save_every=10 ** 6, members=range(RING_N), world_size=RING_N)
+        bit_b = {"losses": [rec["losses"][i] for i in range(b, EZ_STEPS)]
+                 == [clean4["losses"][i] for i in range(b, EZ_STEPS)],
+                 "params": all(torch.equal(x, y) for x, y in
+                               zip(el_params, params)),
+                 "mu": torch.equal(el_mu, st4["opt"].mu),
+                 "nu": torch.equal(el_nu, st4["opt"].nu)}
+        del st4, el_params, el_mu, el_nu
+        info_js = dict(info, view=info["view"].to_json())
+        out.update(
+            world_after={"rows": mpi.runtime.world_rows(),
+                         "init_world": mpi.runtime.world_communicator()
+                         is world0},
+            info=info_js, run_seconds=run_s, joined=joined,
+            losses=[rec["losses"][i] for i in sorted(rec["losses"])],
+            moments_rows={"n3": [EZ_KILL[2] - 1],
+                          "repartitions": rec["repartition_s"]},
+            seconds=seconds, step_ms=rec["step_ms"],
+            median_step_ms={k: statistics.median(v)
+                            for k, v in rec["step_ms"].items()},
+            clean3_info=dict(info3, view=info3["view"].to_json()),
+            clean4_info=dict(info4, view=info4["view"].to_json()),
+            bitwise_shrink_vs_clean3=bit_a, bitwise_rejoin_vs_clean4=bit_b,
+            n3_ring_calls=taps, replicated_at_n3=rec["rep"],
+            replicated_tolerance=ZERO_RTOL, launches=launches,
+            launches_on_16_byte_path={
+                nm: {"all": ring.LAUNCHES[nm],
+                     "vector": ring.VECTOR_LAUNCHES[nm]} for nm in rows})
+    finally:
+        clock.restore()
+        rejoin_go.set()
+        mpi.set_config(elastic="off", faults="off")
+        shutil.rmtree(work, ignore_errors=True)
+    emit(out)
+    check(info["shrinks"] == 1 and info["rejoins"] == 1
+          and info["reconciles"] == 2
+          and info["recoveries"] == [0, EZ_RECOVERED_STEP, b]
+          and info_js["view"]["members"] == list(range(RING_N)),
+          f"elastic_zero: info {info_js}")
+    check(b >= EZ_REJOIN_AFTER and rec["step_ms"].get(
+        f"n{EZ_KILL[2] - 1}"), f"elastic_zero: no step ran at n = 3 "
+          f"before the rejoin at {b}")
+    check([x["n"] for x in rec["repartition_s"]]
+          == [RING_N, RING_N - 1, RING_N],
+          f"elastic_zero (a): re-partitions {rec['repartition_s']}")
+    check(all(bit_a.values()), f"elastic_zero (a): the shrunk run against "
+          f"a clean 3-member run: {bit_a}")
+    check(joined.get("view", {}).get("members") == list(range(RING_N))
+          and joined.get("seeded_equal"),
+          f"elastic_zero (b): the joiner {joined}")
+    check(all(bit_b.values()), f"elastic_zero (b): the grown run against "
+          f"a clean 4-member run: {bit_b}")
+    check(taps["calls"] > 0 and taps["bitwise"]
+          and taps["rows_as_reported"] and taps["all_gather_rows_equal"],
+          f"elastic_zero (c): the n = 3 ring calls {taps}")
+    check(rec["rep"] is not None
+          and rec["rep"]["max_rel_l2"] <= ZERO_RTOL,
+          f"elastic_zero (c): ZeRO-1 vs replicated at n = 3 {rec['rep']}")
+    for nm in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "xent_fwd",
+               "xent_bwd_dx", "xent_bwd_dw") + rows:
+        check(launches.get(nm, 0) > 0,
+              f"elastic_zero: kernel {nm} never launched")
+    check(out["world_after"] == {"rows": None, "init_world": True},
+          f"elastic_zero: the whole gang left the world {out['world_after']}"
+          f", not init's")
     return launches
 
 
@@ -7906,6 +8330,450 @@ def chaos_dp_phase(torch, mpi, ops, dev):
     return launches
 
 
+# guard_dp: obs_dp's replicated DP step of the flagship at depth 2 (the
+# fused loss, the buckets on row 8) with Config.guard armed.  (a) numeric
+# skip_step against off; (b) a NaN written into one leaf of rank
+# GD_POISON_RANK's gradient; (c) the wire guard on the staged buckets
+# under GD_WIRE_RULES (a silent flip at the second call's gather and the
+# third call's scatter); (d) run_guarded over GD_REWIND["steps"] steps with
+# a one-shot poison, once of each kind: the output head scaled by
+# GD_REWIND["head_scale"] (the logits scale with it: a finite loss spike,
+# which only the detector's median / MAD rule catches), then NaN added to
+# every parameter (its non-finite rule).  + 1e3 on every parameter (JAX's
+# test adds 1e6 to its toy state) drives this model's loss to exactly 0.0
+# (logits near 2e9, where float32 absorbs log V), which a spike detector
+# cannot tell from progress.
+GD_STEPS = 2
+GD_TURNS = 4
+GD_POISON_RANK = 2
+GD_STAGED_BUDGET_S = 10.0
+GD_STAGED_MIN, GD_STAGED_MAX = 3, 8
+GD_WIRE_RULES = ("host_staged.gather:corrupt_silent:1:1:0:1",
+                 "host_staged.scatter:corrupt_silent:1:1:0:2")
+GD_REWIND = dict(steps=10, save_every=3, poison_step=7,
+                 poisons=("head_scale", "nan"), head_scale=8.0, window=8,
+                 threshold=6.0, min_history=3)
+
+
+def _predict_wire(plan, calls: int, retries: int) -> dict:
+    """What FaultPlan.decide schedules for ``calls`` staged exchanges under
+    the wire guard: a fired gather arrival fails its digest before the
+    scatter leg (the attempt ends), a fired scatter arrival fails its own;
+    each failed attempt is one ``verify_failed`` and a retry, and an
+    exchange with failures that ends clean is one ``healed``."""
+    failed, healed = 0, 0
+    for _ in range(calls):
+        fails = 0
+        while True:
+            hit = (plan.decide("host_staged.gather") is not None
+                   or plan.decide("host_staged.scatter") is not None)
+            if not hit:
+                break
+            fails += 1
+            check(fails <= retries, "guard_dp (c): the plan outlasts the "
+                  "retries")
+        failed += fails
+        healed += fails > 0
+    return {"verify_failed": failed, "healed": healed}
+
+
+def guard_dp_phase(torch, mpi, ops, dev):
+    """The guard slice's main path on the data-parallel step: obs_dp's
+    flagship DP step of RING_N ranks at depth 2
+    (``data_parallel_step_rank_major`` under backend "pallas", the fused
+    loss, its buckets on row 8) with ``Config.guard`` armed.
+    (a) GD_STEPS steps with the guard off and the same steps from the same
+    weights with ``guard="numeric"`` (skip_step): losses and synced
+    gradients bitwise, 0 host syncs in the armed step, the kernel counters
+    set to 0 just before the armed steps and read just after; the
+    tripwire's device ms on the step's synced stacks, and step ms a side in
+    turns.  (b) A NaN written into one leaf of rank GD_POISON_RANK's
+    gradient (a tensor hook): under skip_step the parameters bitwise
+    unchanged, ``stats()["skipped_steps"] == 1`` and
+    ``tm_guard_skipped_step_total == 1``; under "raise" the step raises
+    ``NumericAnomalyError`` naming "gradsync" at its ``raise_pending``
+    boundary; under a ``guard_norm_bound`` of half the clean step's norm a
+    trip as well.  (c) The flagship's rank gradients bucket by bucket,
+    staged (chaos_dp (b)'s calls, the first k within GD_STAGED_BUDGET_S)
+    under GD_WIRE_RULES (at most GD_STAGED_MAX: the digests make the
+    guarded pass ~18x the clean one): without the guard some bucket
+    differs from the clean pass; with ``guard="wire"`` every bucket is
+    bitwise the clean one and ``tm_guard_verify_failed`` / ``healed``
+    equal what FaultPlan.decide schedules.  (d) ``guard.run_guarded`` for
+    GD_REWIND["steps"] steps, a checkpoint every GD_REWIND["save_every"],
+    a one-shot poison before step GD_REWIND["poison_step"], once the
+    output head times GD_REWIND["head_scale"] (a finite spike: the
+    detector's median / MAD rule, its deviation in MADs recorded) and
+    once NaN added to every parameter (the non-finite rule): each run's
+    info {rewinds 1, trip_steps [7], recovered_step 6}, one trip of its
+    rule, a rewind record on the board, the config epoch and the
+    planner's misses unchanged, the parameters and every step's loss
+    bitwise to a clean run.  Every check raises."""
+    import shutil
+    import tempfile
+
+    from torchmpi_tpu_torch import guard, obs, planner, runtime
+    from torchmpi_tpu_torch.faults import inject, membership
+    from torchmpi_tpu_torch.parallel import gradsync
+
+    ring = ops["ring"]
+    n = RING_N
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    model = mpi.models.TransformerLM(**LM_D2, attn_impl="flash",
+                                     dtype=torch.bfloat16, device=dev,
+                                     generator=g)
+    tok = torch.randint(0, LM["vocab"], (BATCH, SEQ), generator=g,
+                        device=dev)
+    params = list(model.parameters())
+    init = [p.detach().clone() for p in params]
+    opt = torch.optim.SGD(params, lr=LR)
+    work = tempfile.mkdtemp(prefix="guard_dp_")
+    poison = {"on": False, "calls": 0, "handles": []}
+    leaf = min(range(len(params)), key=lambda k: params[k].numel())
+
+    def loss_fn(m, t):
+        for h in poison["handles"]:
+            h.remove()
+        poison["handles"].clear()
+        r = poison["calls"] % n
+        poison["calls"] += 1
+        if poison["on"] and r == GD_POISON_RANK:
+            poison["handles"].append(params[leaf].register_hook(
+                lambda gr: torch.full_like(gr, float("nan"))))
+        return fused_lm_loss(torch, mpi, m, t)
+
+    def restore():
+        with torch.no_grad():
+            for p, p0 in zip(params, init):
+                p.copy_(p0)
+        model.zero_grad(set_to_none=True)
+        poison["calls"] = 0
+
+    def make_step():
+        return gradsync.data_parallel_step_rank_major(
+            model, opt, loss_fn, n, backend="pallas")
+
+    def steps(cfg, k):
+        mpi.set_config(**cfg)
+        restore()
+        step = make_step()
+        losses = [step(tok) for _ in range(k)]
+        torch.cuda.synchronize()
+        return step, losses
+
+    off = dict(guard="off", guard_numeric_policy="skip_step",
+               guard_norm_bound=0.0)
+    numeric = dict(off, guard="numeric")
+    out = {"phase": "guard_dp", "ranks": n, "depth": LM_D2["depth"],
+           "steps": GD_STEPS}
+    try:
+        # (a) off, then the main path armed: the same steps.
+        _, loss_off = steps(off, GD_STEPS)
+        grad_off = [p.grad.clone() for p in params]
+        for mod in ops.values():
+            mod.reset_launches()
+        step, loss_on = steps(numeric, GD_STEPS)
+        launches = {nm: c for mod in ops.values()
+                    for nm, c in mod.LAUNCHES.items()}
+        bitwise_loss = all(torch.equal(a, b)
+                           for a, b in zip(loss_off, loss_on))
+        bitwise_grad = all(torch.equal(p.grad, r)
+                           for p, r in zip(params, grad_off))
+        clean_ss = float(sum(torch.square(r.float()).sum()
+                             for r in grad_off))
+        del grad_off
+        syncs = count_host_syncs(torch, lambda: step(tok))
+        trips_a = guard.stats()
+        stacks = [p.grad.unsqueeze(0).repeat(n, *([1] * p.grad.dim()))
+                  for p in params]
+        trip_ms = time_ms(torch, lambda: guard.check_tree(
+            stacks, site="gradsync", rows=True))
+        # The whole armed sync of the same stacks (the tripwire included),
+        # for the tripwire's share.
+        sync_ms = time_ms(torch, lambda: mpi.parallel.gradsync
+                          .synchronize_gradients_rank_major(
+                              stacks, backend="pallas"), iters=5)
+        del stacks
+        guard.reset_stats()
+        step_ms = {"off": [], "numeric": []}
+        for turn in range(GD_TURNS):
+            for mode in (("off", "numeric") if turn % 2 == 0
+                         else ("numeric", "off")):
+                mpi.set_config(**(numeric if mode == "numeric" else off))
+                step = make_step()
+                step(tok)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(tok)
+                torch.cuda.synchronize()
+                step_ms[mode].append((time.perf_counter() - t0) * 1e3)
+        out.update(losses_off=[float(v) for v in loss_off],
+                   losses_numeric=[float(v) for v in loss_on],
+                   bitwise_losses=bitwise_loss,
+                   bitwise_grads=bitwise_grad,
+                   host_syncs_per_step=syncs, stats_after_a=trips_a,
+                   tripwire_device_ms=trip_ms,
+                   armed_sync_device_ms=sync_ms, step_ms=step_ms,
+                   median_step_ms={m: statistics.median(v)
+                                   for m, v in step_ms.items()},
+                   clean_grad_norm=math.sqrt(clean_ss), launches=launches)
+
+        # (b) a NaN in one rank's gradient.
+        def poisoned(cfg):
+            mpi.set_config(**cfg, obs="metrics",
+                           obs_dir=os.path.join(work, "obs"))
+            obs.reset()
+            guard.reset_stats()
+            restore()
+            before = [p.detach().clone() for p in params]
+            step = make_step()
+            poison["on"] = cfg.get("guard_norm_bound", 0.0) == 0.0
+            raised = None
+            try:
+                step(tok)
+            except guard.NumericAnomalyError as e:
+                raised = e
+            finally:
+                poison["on"] = False
+                for h in poison["handles"]:
+                    h.remove()
+                poison["handles"].clear()
+            torch.cuda.synchronize()
+            st = guard.stats()
+            reg = obs.registry()
+            res = {"stats": st, "raised": None if raised is None else {
+                       "site": raised.site, "stat": raised.stat},
+                   "tm_guard_skipped_step_total": reg.counter_total(
+                       "tm_guard_skipped_step_total"),
+                   "tm_guard_numeric_tripped_total": reg.counter_total(
+                       "tm_guard_numeric_tripped_total"),
+                   "params_unchanged": all(torch.equal(p, b) for p, b
+                                           in zip(params, before))}
+            del before
+            mpi.set_config(obs="off")
+            obs.deactivate()
+            return res
+
+        bound = 0.5 * math.sqrt(clean_ss)
+        out.update(nan_skip_step=poisoned(numeric),
+                   nan_raise=poisoned(dict(numeric,
+                                           guard_numeric_policy="raise")),
+                   norm_bound=dict(poisoned(dict(numeric,
+                                                 guard_norm_bound=bound)),
+                                   bound=bound))
+        mpi.set_config(**off)
+
+        # (c) the wire guard on the staged buckets.
+        restore()
+        stacks = [torch.empty((n, *p.shape), device=dev) for p in params]
+        for r in range(n):
+            model.zero_grad(set_to_none=True)
+            fused_lm_loss(torch, mpi, model, tok[r:r + 1]).backward()
+            for st, p in zip(stacks, params):
+                st[r].copy_(p.grad)
+        model.zero_grad(set_to_none=True)
+        spec = mpi.fusion.FusedSpec(params)
+        bounds = [(grp, lo, hi) for grp in spec.groups
+                  for lo, hi in grp.bounds]
+
+        def staged(i):
+            grp, lo, hi = bounds[i]
+            return mpi.allreduce_rank_major(
+                mpi.fusion.gather_bucket(stacks, grp, lo, hi,
+                                         rank_major=True),
+                op="mean", staged=True)[0].clone()
+
+        clean, t0 = [], time.perf_counter()
+        for i in range(min(len(bounds), GD_STAGED_MAX)):
+            clean.append(staged(i))
+            if len(clean) >= GD_STAGED_MIN and \
+                    time.perf_counter() - t0 > GD_STAGED_BUDGET_S:
+                break
+        clean_s = time.perf_counter() - t0
+        k = len(clean)
+        plan_path = _chaos_plan(os.path.join(work, "wire.json"),
+                                GD_WIRE_RULES)
+        runs = {}
+        for mode in ("off", "wire"):
+            mpi.set_config(guard=mode, faults=plan_path,
+                           fault_retries=CHAOS_RETRIES,
+                           fault_backoff_s=CHAOS_BACKOFF_S, obs="metrics",
+                           obs_dir=os.path.join(work, "obs"))
+            obs.reset()
+            t0 = time.perf_counter()
+            got = [staged(i) for i in range(k)]
+            secs = time.perf_counter() - t0
+            reg = obs.registry()
+            runs[mode] = {
+                "seconds": secs,
+                "bitwise_per_bucket": [torch.equal(a, b)
+                                       for a, b in zip(got, clean)],
+                "verify_failed": reg.counter_total(
+                    "tm_guard_verify_failed_total"),
+                "healed": reg.counter_total("tm_guard_healed_total"),
+                "verified": reg.counter_total("tm_guard_verified_total")}
+            del got
+            mpi.set_config(faults="off", guard="off", obs="off")
+            obs.deactivate()
+        predicted = _predict_wire(inject.FaultPlan.load(plan_path), k,
+                                  CHAOS_RETRIES)
+        out.update(wire={"rules": list(GD_WIRE_RULES), "buckets_k": k,
+                         "buckets": len(bounds), "clean_s": clean_s,
+                         "runs": runs, "predicted": predicted})
+        del clean, stacks
+
+        # (d) the agreed rewind.
+        rw = GD_REWIND
+        mpi.set_config(guard="full")
+        guard.reset_stats()
+        restore()
+        make_step()(tok)  # the plans of this config, built before the run
+        torch.cuda.synchronize()
+        epoch0 = runtime.config_epoch()
+        misses0 = planner.stats()["misses"]
+
+        def guarded(directory, poison):
+            losses = {}
+            armed = [poison is not None]
+            step = make_step()
+
+            def init_fn():
+                restore()
+                return {"params": params}
+
+            def step_fn(state, i):
+                if state["params"] is not params:
+                    with torch.no_grad():
+                        for p, v in zip(params, state["params"]):
+                            p.copy_(v)
+                if armed[0] and i == rw["poison_step"]:
+                    armed[0] = False  # one-shot: the replay is clean
+                    with torch.no_grad():
+                        if poison == "nan":
+                            for p in params:
+                                p.add_(float("nan"))
+                        else:
+                            model.head.mul_(rw["head_scale"])
+                loss = float(step(tok))
+                losses[i] = loss
+                return {"params": params}, loss
+
+            det = guard.LossSpikeDetector(
+                window=rw["window"], threshold=rw["threshold"],
+                min_history=rw["min_history"])
+            trips, update = [], det.update
+
+            def traced(loss):
+                hit = update(loss)
+                if hit:
+                    trips.append({"loss": float(loss),
+                                  "mads": det.last_stat})
+                return hit
+
+            det.update = traced
+            t0 = time.perf_counter()
+            _, info = guard.run_guarded(
+                init_fn, step_fn, steps=rw["steps"], directory=directory,
+                save_every=rw["save_every"], detector=det)
+            torch.cuda.synchronize()
+            return info, losses, trips, time.perf_counter() - t0
+
+        cinfo, losses_clean, ctrips, clean_rw_s = guarded(
+            os.path.join(work, "clean"), None)
+        clean_params = [p.detach().clone() for p in params]
+        runs_rw = {}
+        for kind in rw["poisons"]:
+            rdir = os.path.join(work, f"rewind_{kind}")
+            info, losses_rw, trips, rw_s = guarded(rdir, kind)
+            records = membership.Board(os.path.join(rdir, "membership")
+                                       ).rewind_records()
+            runs_rw[kind] = {
+                "info": info, "trips": trips,
+                "records": [{k_: v for k_, v in r.items() if k_ != "ts"}
+                            for r in records],
+                "losses": [losses_rw[i] for i in sorted(losses_rw)],
+                "bitwise_losses": losses_rw == losses_clean,
+                "bitwise_params": all(torch.equal(a, b) for a, b
+                                      in zip(clean_params, params)),
+                "seconds": rw_s}
+            shutil.rmtree(rdir, ignore_errors=True)
+        epoch1, misses1 = runtime.config_epoch(), planner.stats()["misses"]
+        out.update(rewind={
+            **rw, "runs": runs_rw, "clean_info": cinfo,
+            "clean_trips": ctrips,
+            "epoch_unchanged": epoch1 == epoch0,
+            "plan_misses_unchanged": misses1 == misses0,
+            "losses_clean": [losses_clean[i] for i in sorted(losses_clean)],
+            "clean_seconds": clean_rw_s, "stats": guard.stats()})
+        del clean_params
+    finally:
+        for h in poison["handles"]:
+            h.remove()
+        mpi.set_config(guard="off", guard_numeric_policy="skip_step",
+                       guard_norm_bound=0.0, faults="off", obs="off")
+        if "torchmpi_tpu_torch.obs" in sys.modules:
+            obs.deactivate()
+            obs.reset()
+        guard.reset_stats()
+        shutil.rmtree(work, ignore_errors=True)
+    emit(out)
+    check(bitwise_loss and bitwise_grad, "guard_dp (a): the numeric guard "
+          "changed the losses or the synced gradients")
+    check(syncs == 0, f"guard_dp (a): {syncs} host syncs in a step")
+    check(trips_a["numeric_trips"] == 0, f"guard_dp (a): {trips_a}")
+    for nm in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "xent_fwd",
+               "xent_bwd_dx", "xent_bwd_dw", "ring_allreduce_chunked"):
+        check(launches.get(nm, 0) > 0, f"guard_dp: {nm} never launched")
+    sk = out["nan_skip_step"]
+    check(sk["params_unchanged"] and sk["stats"]["skipped_steps"] == 1
+          and sk["tm_guard_skipped_step_total"] == 1
+          and sk["raised"] is None, f"guard_dp (b) skip_step: {sk}")
+    rs = out["nan_raise"]
+    check(rs["raised"] is not None and rs["raised"]["site"] == "gradsync",
+          f"guard_dp (b) raise: {rs}")
+    nb = out["norm_bound"]
+    check(nb["stats"]["numeric_trips"] == 1 and nb["params_unchanged"],
+          f"guard_dp (b) norm bound: {nb}")
+    wire = out["wire"]
+    check(wire["buckets_k"] >= GD_STAGED_MIN, f"guard_dp (c): {wire}")
+    check(not all(wire["runs"]["off"]["bitwise_per_bucket"]),
+          "guard_dp (c): the silent corruption did not show without the "
+          "guard")
+    check(all(wire["runs"]["wire"]["bitwise_per_bucket"]),
+          "guard_dp (c): the wire guard did not heal every bucket")
+    check({"verify_failed": wire["runs"]["wire"]["verify_failed"],
+           "healed": wire["runs"]["wire"]["healed"]} == wire["predicted"]
+          and wire["predicted"]["verify_failed"] > 0,
+          f"guard_dp (c): counters {wire['runs']['wire']} vs "
+          f"FaultPlan.decide {wire['predicted']}")
+    r = out["rewind"]
+    check(r["clean_info"]["rewinds"] == 0 and not r["clean_trips"],
+          f"guard_dp (d): the clean run tripped {r['clean_trips']}")
+    for kind, run in r["runs"].items():
+        check({k_: run["info"][k_] for k_ in ("rewinds", "trip_steps",
+                                              "recovered_step")}
+              == {"rewinds": 1, "trip_steps": [rw["poison_step"]],
+                  "recovered_step": 6},
+              f"guard_dp (d) {kind}: info {run['info']}")
+        tr = run["trips"]
+        # The finite spike must be the median / MAD rule's (a finite loss
+        # past the threshold), the NaN the non-finite rule's.
+        check(len(tr) == 1 and (
+            math.isfinite(tr[0]["loss"]) and math.isfinite(tr[0]["mads"])
+            and tr[0]["mads"] > rw["threshold"] if kind == "head_scale"
+            else not math.isfinite(tr[0]["loss"])),
+            f"guard_dp (d) {kind}: trips {tr}")
+        check(len(run["records"]) == 1
+              and run["records"][0]["step"] == rw["poison_step"],
+              f"guard_dp (d) {kind}: rewind records {run['records']}")
+        check(run["bitwise_losses"] and run["bitwise_params"],
+              f"guard_dp (d) {kind}: the rewound run differs from the "
+              f"clean run")
+    check(r["epoch_unchanged"] and r["plan_misses_unchanged"],
+          "guard_dp (d): the rewind moved the config epoch or re-planned")
+    return launches
+
+
 def chaos_serving_phase(torch, mpi, dev):
     """The serving layer's fault half on the card: obs_serving's flagship
     (float32, flash as trained) as one Server of CHAOS_SERVE_REPLICAS
@@ -8277,7 +9145,7 @@ def main() -> int:
           "card_uuid": nvidia_smi("uuid")})
 
     ops = {"flash": flash, "xent": xent}
-    dev = mpi.init()
+    dev = mpi.init(device="cuda")
     try:
         rows = kernel_phase(torch, flash, dev)
         # The repair of slice 25: rows 1, 1 res, 2 and 3 on bf16 operands,
@@ -8322,6 +9190,12 @@ def main() -> int:
         chaos_launches = chaos_dp_phase(torch, mpi, dict(ops, ring=ring),
                                         dev)
         torch.cuda.empty_cache()
+        # The main path of slice 28's guard: the same DP step at depth 2
+        # with the numeric tripwire armed, bitwise to it off; a NaN skipped
+        # or raised; the staged buckets healed by the wire guard; a loss
+        # spike rewound in place.
+        gd_launches = guard_dp_phase(torch, mpi, dict(ops, ring=ring), dev)
+        torch.cuda.empty_cache()
         # The main path of slice 4: ZeRO-1 / ZeRO-3 of RING_N ranks on the
         # card, its reduce-scatters and all-gathers on the ring kernels.
         launches.update(zero_dp_phase(torch, mpi, dict(ops, ring=ring), dev,
@@ -8331,6 +9205,12 @@ def main() -> int:
         # restart loop under a stall and a rotted checkpoint, recovered
         # bitwise; then its state through the sharded checkpoint.
         rz_launches = restart_zero_phase(torch, mpi, dict(ops, ring=ring),
+                                         dev)
+        torch.cuda.empty_cache()
+        # The main path of slice 28: the same ZeRO-1 flagship at depth 2 as
+        # an elastic gang of 4 members, shrunk to 3 by a dead member and
+        # grown back, rows 9 and 10 at n = 3.
+        ez_launches = elastic_zero_phase(torch, mpi, dict(ops, ring=ring),
                                          dev)
         torch.cuda.empty_cache()
         # The main path of slice 12: ResNet-50 as the BatchNorm DP recipe of
@@ -8453,7 +9333,11 @@ def main() -> int:
                 **({"chaos_dp": chaos_launches[name]}
                    if chaos_launches.get(name) else {}),
                 **({"restart_zero": rz_launches[name]}
-                   if rz_launches.get(name) else {})}
+                   if rz_launches.get(name) else {}),
+                **({"guard_dp": gd_launches[name]}
+                   if gd_launches.get(name) else {}),
+                **({"elastic_zero": ez_launches[name]}
+                   if ez_launches.get(name) else {})}
 
     kernels = [{**{k: dict(row, launches=sum(by_path(
                     row["name"]).values()))[k] for k in keys},

@@ -6,7 +6,8 @@ loss through the staged path; the flags of once-unported ROADMAP items
 run (``--restart-loop`` recovering from a stall and from a crash with the
 clean run's LOSS-DIGEST); the parameter-server examples
 (``mnist_downpour``, ``mnist_easgd``, ``alexnet_downpour``) and
-``checkpoint_resume`` run a few steps; ``longcontext_lm`` runs 3 steps
+``checkpoint_resume`` run a few steps; ``downpour_elastic`` loses worker 0
+mid-run, its monitor names it and the survivors finish; ``longcontext_lm`` runs 3 steps
 rank-major (the flash ring on 4 ranks) and in the world of one (dense
 Ulysses), and, ``slow``, its full run to the JAX bar on dcn 2 x ici 4;
 ``moe_lm`` runs 3 steps rank-major (8 experts, top-2) and in the world of
@@ -148,6 +149,20 @@ def test_ps_example_runs(name, argv):
         assert out["resume_step"] == 10 and out["final"] < out["pre_crash"]
     else:
         assert out["ops_served"] > 0 and 0.0 <= out["accuracy"] <= 1.0
+    assert not tmpi.is_initialized()
+
+
+def test_downpour_elastic_survives_a_dead_worker():
+    """The elastic AlexNet downpour a few steps: worker 0 crashes at step 3,
+    the monitor declares it lost, both survivors run every step and push
+    to the server, and the losses stay finite."""
+    out = _main("downpour_elastic", ["--steps", "8", "--die-at", "3",
+                                     "--batch-size", "4", "--stale-s",
+                                     "0.5"])
+    assert out["crashed"] == ["worker 0 dies at step 3"]
+    assert out["dead"] == [0] and out["survivor_steps"] == [8, 8]
+    assert out["ops_served"] > 0
+    assert all(v == v for v in out["losses"])
     assert not tmpi.is_initialized()
 
 

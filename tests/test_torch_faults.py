@@ -1048,7 +1048,8 @@ def test_restage_view_gives_fresh_writable_copies():
 
 # ---------------------------------------------------------------------------
 # Partition grammar, rule validation and lint pairings (JAX
-# tests/test_partition.py :76, :89, :110; the board itself is A10 (c))
+# tests/test_partition.py :76, :89, :110; the board's cases are in
+# tests/test_torch_membership.py)
 # ---------------------------------------------------------------------------
 
 

@@ -1,7 +1,9 @@
 """The port's collective watchdog (torchmpi_tpu_torch/watchdog.py) as the
 JAX package's tests/test_watchdog.py holds its own: one case here for each
-case there but the restart loop's (tests/test_torch_restart.py) and
-the three elastic ones (A10 (c)).
+case there but the restart loop's (tests/test_torch_restart.py), the three
+elastic ones included (the gang adopts its board as the lease home, a
+``set_config`` tune keeps it, a stall broken at a member's liveness check
+shrinks the gang bit-identically).
 
 Config plumbing, the stall -> break -> escalate ladder, the deferred raise,
 the ``stall`` fault kind through the port's real staged call site,
@@ -651,3 +653,120 @@ def test_two_process_hang_acceptance(tmp_path):
             for ln in o.splitlines() if ln.startswith("WATCHDOG-SUMMARY ")]
     assert [s["total"] for s in sums] == [[3.0, 3.0, 3.0]] * 2
     assert sums[1]["broken"] >= 1
+
+
+# ---------------------------------------------------------------------------
+# The elastic gang's seams (JAX test_watchdog.py :455, :476, :699)
+# ---------------------------------------------------------------------------
+
+
+def test_elastic_gang_adopts_board_for_leases(tmp_path, wd_runtime):
+    """With no watchdog_dir / elastic_dir the gang's board is known only
+    when the gang is built: ElasticGang adopts it as the lease home."""
+    wd = wd_runtime(watchdog="warn", deadline_s=5.0, elastic="on")
+    from torchmpi_tpu_torch import elastic
+
+    d = str(tmp_path / "gang")
+    os.makedirs(d)
+    assert wd.lease_dir() is None
+    gang = elastic.ElasticGang(d, members=[0, 1, 2, 3], world_size=8)
+    assert wd.lease_dir() == gang.board.directory
+    assert os.path.exists(wd.lease_path(gang.board.directory, 0))
+
+
+def test_set_config_preserves_adopted_lease_dir(tmp_path, wd_runtime):
+    """A mid-run deadline tune must not orphan the adopted lease home."""
+    wd = wd_runtime(watchdog="warn", deadline_s=5.0, elastic="on")
+    from torchmpi_tpu_torch import elastic
+
+    d = str(tmp_path / "gang")
+    os.makedirs(d)
+    gang = elastic.ElasticGang(d, members=[0, 1], world_size=8)
+    board = gang.board.directory
+    assert wd.lease_dir() == board
+    tmpi.set_config(watchdog_deadline_s=60.0)
+    assert wd.lease_dir() == board
+    assert os.path.exists(wd.lease_path(board, 0))
+
+
+def _mlp_build(steps):
+    """A data-parallel MLP, one rank-major row a member, its batch a
+    function of (member, step): the trajectory depends on the view
+    schedule only."""
+    dim, hid, lr = 4, 8, 0.05
+
+    def build(comm, view):
+        members = view.members
+
+        def init_fn():
+            rng = np.random.RandomState(0)
+            return {"w1": torch.from_numpy(
+                        (rng.randn(dim, hid) * 0.3).astype(np.float32)),
+                    "w2": torch.from_numpy(
+                        (rng.randn(hid, 1) * 0.3).astype(np.float32)),
+                    "losses": np.full((steps,), np.nan, np.float32)}
+
+        def step_fn(state, i):
+            grads, losses = [], []
+            for m in members:
+                rng = np.random.RandomState(10_000 + m * 97 + i)
+                x = torch.from_numpy(rng.randn(8, dim).astype(np.float32))
+                y = torch.from_numpy(rng.randn(8, 1).astype(np.float32))
+                w1 = state["w1"].detach().requires_grad_()
+                w2 = state["w2"].detach().requires_grad_()
+                loss = torch.mean((torch.tanh(x @ w1) @ w2 - y) ** 2)
+                grads.append(torch.autograd.grad(loss, [w1, w2]))
+                losses.append(loss.detach())
+            stacks = [torch.stack([g[k] for g in grads]) for k in (0, 1)]
+            tmpi.parallel.gradsync.synchronize_gradients_rank_major(stacks)
+            out = np.array(state["losses"])
+            out[i] = float(torch.stack(losses).mean())
+            return {"w1": state["w1"] - lr * stacks[0][0],
+                    "w2": state["w2"] - lr * stacks[1][0], "losses": out}
+
+        return init_fn, step_fn
+
+    return build
+
+
+def test_elastic_hang_shrinks_bit_identical(tmp_path, wd_runtime):
+    """A stall on member 2's liveness check at step 3 (the ``--stall``
+    recipe's shape, 4 members): the watchdog breaks the hold into a hang
+    naming member:2, the poll reads it as death evidence, the gang shrinks
+    to N-1 and finishes bit-identical to a clean N-1 run restored from the
+    recovered step."""
+    steps = 8
+    d1 = str(tmp_path / "gang")
+    os.makedirs(d1)
+    wd_runtime([_stall_rule("elastic.member", after=3 * 4 + 2)],
+               watchdog="break", deadline_s=0.3, elastic="on",
+               obs="metrics", obs_dir=str(tmp_path / "obs"))
+    from torchmpi_tpu_torch import elastic, obs
+
+    obs.reset()
+    state1, info1 = elastic.run_elastic(
+        _mlp_build(steps), steps=steps, directory=d1, save_every=2,
+        members=[0, 1, 2, 3], world_size=8)
+    assert info1["shrinks"] == 1
+    assert info1["view"].members == (0, 1, 3)
+    assert obs.registry().counter_total("tm_watchdog_broken_total") >= 1
+    r = info1["recovered_step"]
+    assert 0 < r <= 3
+    obs.deactivate()
+    d2 = str(tmp_path / "clean")
+    os.makedirs(d2)
+    for f in os.listdir(d1):
+        if f.startswith(f"ckpt_{r}_"):
+            import shutil
+
+            shutil.copy(os.path.join(d1, f), os.path.join(d2, f))
+    tmpi.stop()
+    sys.modules["torchmpi_tpu_torch.faults"].reset()
+    tmpi.init(device="cpu", elastic="on")
+    state2, info2 = elastic.run_elastic(
+        _mlp_build(steps), steps=steps, directory=d2, save_every=2,
+        members=[0, 1, 3], world_size=8)
+    assert info2["recovered_step"] == r and info2["shrinks"] == 0
+    assert np.array_equal(state1["losses"][r:], state2["losses"][r:])
+    for k in ("w1", "w2"):
+        assert torch.equal(state1[k], state2[k])

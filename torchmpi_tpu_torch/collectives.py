@@ -934,30 +934,34 @@ def _restage(x) -> torch.Tensor:
 
 
 def _staged_host(verb: str, x, params: dict, axis: AxisNames,
-                 faults_on: bool, device: torch.device) -> torch.Tensor:
+                 faults_on: bool, device: torch.device,
+                 wire_on: bool = False) -> torch.Tensor:
     """The host result of one staged exchange of ``x`` [n, ...]: staged
-    once to the host and computed there, or with ``faults_on`` through
-    ``faults.staged_exchange`` (sites ``host_staged.gather`` /
-    ``host_staged.scatter``, an arrival each a leg and an attempt: one
-    exchange a call whatever ``axis`` says, as in the JAX package)."""
-    if not faults_on:
+    once to the host and computed there, or with ``faults_on`` /
+    ``wire_on`` through ``faults.staged_exchange`` (sites
+    ``host_staged.gather`` / ``host_staged.scatter``, an arrival each a
+    leg and an attempt: one exchange a call whatever ``axis`` says, as in
+    the JAX package; ``wire_on``, ``Config.guard`` "wire" | "full": each
+    leg digest-checked, JAX :622-646)."""
+    if not (faults_on or wire_on):
         return _host_compute(verb, _restage(x), params, device, axis)
     from . import faults
 
     n = x._master.shape[0] if isinstance(x, _RestageView) else x.shape[0]
     return faults.staged_exchange(
         verb, x, n, params,
-        lambda v, host, _n, **p: _host_compute(v, host, p, device, axis))
+        lambda v, host, _n, **p: _host_compute(v, host, p, device, axis),
+        wire_guard=wire_on)
 
 
 def _staged_replay(verb: str, params: dict, axis: AxisNames,
-                   faults_on: bool) -> Callable:
+                   faults_on: bool, wire_on: bool = False) -> Callable:
     """A staged rank-major call as a replay: the exchange on the host,
     the result enqueued to ``xs``'s device on the current stream."""
 
     def run(xs):
         return _place(_staged_host(verb, xs, params, axis, faults_on,
-                                   xs.device), xs.device)
+                                   xs.device, wire_on), xs.device)
 
     return run
 
@@ -1041,7 +1045,8 @@ def _eager_unplanned(verb: str, xs: torch.Tensor, backend: Optional[str],
     boundary (as the plans bind them, ``planner._wd_wrap``)."""
     cfg = runtime.effective_config()
     if _staged_requested(backend, staged):
-        run = _staged_replay(verb, params, axis, cfg.faults != "off")
+        run = _staged_replay(verb, params, axis, cfg.faults != "off",
+                             cfg.guard in ("wire", "full"))
         if cfg.watchdog != "off":
             run = planner._wd_wrap(run, "host_staged", verb,
                                    _nbytes(xs[0]))
@@ -1395,7 +1400,7 @@ def _staged_executor():
 
 def _staged_async_work(verb: str, xs: torch.Tensor, params: dict,
                        donate: bool, ready, edges=None, faults_on=False,
-                       wd_on=False) -> torch.Tensor:
+                       wd_on=False, wire_on=False) -> torch.Tensor:
     """The staged worker's part of one handle: wait until the caller's
     stream reached the dispatch, stage ``xs`` to host (releasing its
     storage when donated), and run the closed form on the host.  The copy
@@ -1403,7 +1408,8 @@ def _staged_async_work(verb: str, xs: torch.Tensor, params: dict,
     completion recorders, run here around the exchange (JAX
     :1165-1196).  ``faults_on``: the host master goes to the fault layer
     as a :class:`_RestageView`, so each attempt stages a fresh writable
-    copy of it, as the synchronous path stages the device tensor again;
+    copy of it, as the synchronous path stages the device tensor again
+    (``wire_on``, the wire guard, likewise);
     ``wd_on``: the exchange is a ``host_staged`` watchdog window on this
     thread (its break is delivered at the caller's next boundary)."""
     if edges is not None:
@@ -1423,9 +1429,10 @@ def _staged_async_work(verb: str, xs: torch.Tensor, params: dict,
             host = _to_host(xs)
         if donate:
             xs.untyped_storage().resize_(0)
-        if faults_on:
+        if faults_on or wire_on:
             host = _RestageView(host)
-        out = _staged_host(verb, host, params, None, faults_on, xs.device)
+        out = _staged_host(verb, host, params, None, faults_on, xs.device,
+                           wire_on)
     finally:
         if wd is not None:
             wd.end(tok)
@@ -1486,7 +1493,8 @@ def _async_rank_major(verb: str, xs, *, backend: Optional[str] = None,
         cfg = runtime.effective_config()
         fut = _staged_executor().submit(
             _staged_async_work, verb, xs, dict(params), donate, ready, edges,
-            cfg.faults != "off", cfg.watchdog != "off")
+            cfg.faults != "off", cfg.watchdog != "off",
+            cfg.guard in ("wire", "full"))
         return AsyncHandle(future=fut, device=xs.device, op=verb)
     try:
         # The route ("auto" measured on a plan miss) is resolved here, on

@@ -181,6 +181,33 @@ class Config:
       primary from them; ``ckpt_keep`` keeps the newest K steps a process
       (0 keeps all; enforced only while ``ckpt_redundancy`` is on), never
       the step a recovery settled on.
+    - The guard (``guard.py``, never imported while "off"; JAX
+      ``config.py:281-312``, docs/GUARD_TORCH.md): ``guard`` ("off" |
+      "wire" | "numeric" | "full"; "1" / "true" / "yes" / "on" read as
+      "full"): "wire" digests every host-staged payload and PS exchange at
+      the sender and verifies it at the receiver, "numeric" arms the
+      finite / norm-bound tripwire on the synced gradients, "full" both;
+      ``guard_numeric_policy`` ("skip_step" | "raise"),
+      ``guard_norm_bound`` (an L2 ceiling on a checked round, 0 checks
+      finiteness only), ``guard_spike_window`` and ``guard_spike_threshold``
+      (the rewind driver's loss-spike detector: its window in steps and
+      its threshold in median absolute deviations).
+    - The elastic gang (``elastic.py`` and ``faults/membership.py``, never
+      imported while "off"; JAX ``config.py:232-279``,
+      docs/ELASTIC_TORCH.md): ``elastic`` ("off" | "on"), the consent gate
+      of ``elastic.run_elastic``; ``elastic_dir`` (the membership board;
+      None: ``<checkpoint directory>/membership``); ``elastic_poll_s`` and
+      ``elastic_deadline_s`` (the board's poll and a reconcile round's
+      deadline); ``elastic_quorum`` ("off" | "majority"; "on" reads as
+      "majority"): a view commits only with a majority of the last
+      committed view, and the epoch fence is armed.
+    - ``coordinator_address`` / ``num_processes`` / ``process_id``: the
+      process world's rendezvous (JAX ``config.py:521-523``): with an
+      address (``host:port``, or any ``init_method`` URL), ``init`` joins
+      that world as ``process_id`` of ``num_processes``.  Unset, the
+      launcher's environment decides (``TORCHMPI_TPU_COORDINATOR`` /
+      ``_NUM_PROCESSES`` / ``_PROCESS_ID``, then ``MASTER_ADDR`` /
+      ``RANK`` / ``WORLD_SIZE``).
     """
 
     backend: str = "xla"
@@ -229,6 +256,19 @@ class Config:
     ckpt_redundancy: str = "off"
     ckpt_buddies: int = 1
     ckpt_keep: int = 0
+    guard: str = "off"
+    guard_numeric_policy: str = "skip_step"
+    guard_norm_bound: float = 0.0
+    guard_spike_window: int = 16
+    guard_spike_threshold: float = 8.0
+    elastic: str = "off"
+    elastic_dir: Optional[str] = None
+    elastic_poll_s: float = 0.05
+    elastic_deadline_s: float = 30.0
+    elastic_quorum: str = "off"
+    coordinator_address: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
 
     @staticmethod
     def from_env(**overrides) -> "Config":
@@ -252,8 +292,13 @@ class Config:
         TORCHMPI_TPU_FAULTS, TORCHMPI_TPU_FAULT_RETRIES, _FAULT_BACKOFF,
         _FAULT_DEADLINE, TORCHMPI_TPU_WATCHDOG, _WATCHDOG_DEADLINE,
         _WATCHDOG_POLL and _WATCHDOG_DIR, TORCHMPI_TPU_CKPT_REDUNDANCY,
-        _CKPT_BUDDIES and _CKPT_KEEP; ``pallas_bidirectional`` has none),
-        then apply ``overrides``."""
+        _CKPT_BUDDIES and _CKPT_KEEP, TORCHMPI_TPU_GUARD, _GUARD_POLICY,
+        _GUARD_NORM_BOUND, _GUARD_WINDOW and _GUARD_THRESHOLD,
+        TORCHMPI_TPU_ELASTIC, _ELASTIC_DIR, _ELASTIC_POLL, _ELASTIC_DEADLINE
+        and _ELASTIC_QUORUM (JAX ``config.py:548-562``);
+        ``pallas_bidirectional`` and the three process-world fields have
+        none here: ``init`` reads TORCHMPI_TPU_COORDINATOR and its two
+        companions), then apply ``overrides``."""
         cfg = Config(
             backend=_env_str("TORCHMPI_TPU_BACKEND", "xla"),
             tuning_plan_path=(
@@ -313,6 +358,21 @@ class Config:
             ckpt_redundancy=_env_str("TORCHMPI_TPU_CKPT_REDUNDANCY", "off"),
             ckpt_buddies=_env_int("TORCHMPI_TPU_CKPT_BUDDIES", 1),
             ckpt_keep=_env_int("TORCHMPI_TPU_CKPT_KEEP", 0),
+            guard=_env_str("TORCHMPI_TPU_GUARD", "off"),
+            guard_numeric_policy=_env_str("TORCHMPI_TPU_GUARD_POLICY",
+                                          "skip_step"),
+            guard_norm_bound=_env_float("TORCHMPI_TPU_GUARD_NORM_BOUND",
+                                        0.0),
+            guard_spike_window=_env_int("TORCHMPI_TPU_GUARD_WINDOW", 16),
+            guard_spike_threshold=_env_float("TORCHMPI_TPU_GUARD_THRESHOLD",
+                                             8.0),
+            elastic=_env_str("TORCHMPI_TPU_ELASTIC", "off"),
+            elastic_dir=(os.environ.get("TORCHMPI_TPU_ELASTIC_DIR")
+                         or None),
+            elastic_poll_s=_env_float("TORCHMPI_TPU_ELASTIC_POLL", 0.05),
+            elastic_deadline_s=_env_float("TORCHMPI_TPU_ELASTIC_DEADLINE",
+                                          30.0),
+            elastic_quorum=_env_str("TORCHMPI_TPU_ELASTIC_QUORUM", "off"),
         )
         for name, field in (("TORCHMPI_TPU_ICI_SIZE", "ici_size"),
                             ("TORCHMPI_TPU_DCN_SIZE", "dcn_size")):
@@ -476,6 +536,159 @@ def resolve_ckpt(cfg: Config) -> None:
         raise ValueError(
             f"config.ckpt_buddies must be >= 1 and ckpt_keep >= 0 (0 = keep "
             f"everything), got {cfg.ckpt_buddies}/{cfg.ckpt_keep}")
+
+
+def normalize_guard(value) -> Optional[str]:
+    """Canonical guard mode (JAX ``runtime.py:224``): "off" | "wire" |
+    "numeric" | "full" ("1" / "true" / "yes" / "on" mean "full"); None:
+    unrecognized (the caller raises)."""
+    v = str(value).strip().lower()
+    if v in ("off", "0", "false", "no", "none", ""):
+        return "off"
+    if v in ("full", "on", "1", "true", "yes"):
+        return "full"
+    if v in ("wire", "numeric"):
+        return v
+    return None
+
+
+def normalize_guard_policy(value) -> Optional[str]:
+    """Canonical guard_numeric_policy (JAX ``runtime.py:272``):
+    "skip_step" ("skip" too) | "raise"; None: unrecognized."""
+    v = str(value).strip().lower()
+    if v in ("skip_step", "skip"):
+        return "skip_step"
+    if v == "raise":
+        return "raise"
+    return None
+
+
+def normalize_elastic(value) -> Optional[str]:
+    """Canonical elastic mode (JAX ``runtime.py:187``): "off" | "on",
+    boolean-ish spellings accepted; None: unrecognized."""
+    v = str(value).strip().lower()
+    if v in ("off", "0", "false", "no", "none", ""):
+        return "off"
+    if v in ("on", "1", "true", "yes"):
+        return "on"
+    return None
+
+
+def normalize_elastic_quorum(value) -> Optional[str]:
+    """Canonical elastic_quorum mode (JAX ``runtime.py:211``): "off" |
+    "majority" ("1" / "true" / "yes" / "on" mean "majority"); None:
+    unrecognized."""
+    v = str(value).strip().lower()
+    if v in ("off", "0", "false", "no", "none", ""):
+        return "off"
+    if v in ("majority", "on", "1", "true", "yes"):
+        return "majority"
+    return None
+
+
+def resolve_guard_elastic(cfg: Config) -> None:
+    """The guard and elastic fields made canonical in place, with the JAX
+    runtime's any-config pickup and messages (:462-495, :562-595): a mode
+    left "off" and a knob left at its default defer to the environment."""
+    if normalize_guard(cfg.guard) == "off":
+        cfg.guard = os.environ.get("TORCHMPI_TPU_GUARD", "off")
+    mode = normalize_guard(cfg.guard)
+    if mode is None:
+        raise ValueError("config.guard (or TORCHMPI_TPU_GUARD) must be "
+                         "off|wire|numeric|full")
+    cfg.guard = mode
+    policy = normalize_guard_policy(cfg.guard_numeric_policy)
+    if policy is None:
+        raise ValueError("config.guard_numeric_policy (or "
+                         "TORCHMPI_TPU_GUARD_POLICY) must be skip_step|raise")
+    cfg.guard_numeric_policy = policy
+    _env_default_pickup(cfg, "guard_norm_bound",
+                        "TORCHMPI_TPU_GUARD_NORM_BOUND", float)
+    _env_default_pickup(cfg, "guard_spike_window",
+                        "TORCHMPI_TPU_GUARD_WINDOW", int)
+    _env_default_pickup(cfg, "guard_spike_threshold",
+                        "TORCHMPI_TPU_GUARD_THRESHOLD", float)
+    if cfg.guard_norm_bound < 0:
+        raise ValueError(f"config.guard_norm_bound must be >= 0 (0 = "
+                         f"finite-only), got {cfg.guard_norm_bound}")
+    if cfg.guard_spike_window < 2 or cfg.guard_spike_threshold <= 0:
+        raise ValueError(
+            f"config.guard_spike_window must be >= 2 and "
+            f"guard_spike_threshold > 0, got "
+            f"{cfg.guard_spike_window}/{cfg.guard_spike_threshold}")
+    if normalize_elastic(cfg.elastic) == "off":
+        cfg.elastic = os.environ.get("TORCHMPI_TPU_ELASTIC", "off")
+    mode = normalize_elastic(cfg.elastic)
+    if mode is None:
+        raise ValueError("config.elastic (or TORCHMPI_TPU_ELASTIC) must be "
+                         "off|on")
+    cfg.elastic = mode
+    if cfg.elastic_dir is None:
+        cfg.elastic_dir = os.environ.get("TORCHMPI_TPU_ELASTIC_DIR") or None
+    _env_default_pickup(cfg, "elastic_poll_s", "TORCHMPI_TPU_ELASTIC_POLL",
+                        float)
+    _env_default_pickup(cfg, "elastic_deadline_s",
+                        "TORCHMPI_TPU_ELASTIC_DEADLINE", float)
+    if cfg.elastic_poll_s <= 0 or cfg.elastic_deadline_s <= 0:
+        raise ValueError(
+            f"config.elastic_poll_s and elastic_deadline_s must be > 0, got "
+            f"{cfg.elastic_poll_s}/{cfg.elastic_deadline_s}")
+    if normalize_elastic_quorum(cfg.elastic_quorum) == "off":
+        cfg.elastic_quorum = os.environ.get("TORCHMPI_TPU_ELASTIC_QUORUM",
+                                            "off")
+    mode = normalize_elastic_quorum(cfg.elastic_quorum)
+    if mode is None:
+        raise ValueError("config.elastic_quorum (or "
+                         "TORCHMPI_TPU_ELASTIC_QUORUM) must be off|majority")
+    cfg.elastic_quorum = mode
+
+
+def check_guard_elastic_override(k: str, v):
+    """One ``set_config`` value of a guard or elastic field, made
+    canonical and checked as the JAX ``set_config`` does (:908-980)."""
+    if k == "guard":
+        v = normalize_guard(v)
+        if v is None:
+            raise ValueError("config.guard must be off|wire|numeric|full")
+    if k == "guard_numeric_policy":
+        v = normalize_guard_policy(v)
+        if v is None:
+            raise ValueError(
+                "config.guard_numeric_policy must be skip_step|raise")
+    if k == "guard_norm_bound":
+        v = float(v)
+        if v < 0:
+            raise ValueError(
+                "config.guard_norm_bound must be >= 0 (0 = finite-only)")
+    if k == "guard_spike_window":
+        v = int(v)
+        if v < 2:
+            raise ValueError("config.guard_spike_window must be >= 2")
+    if k == "guard_spike_threshold":
+        v = float(v)
+        if v <= 0:
+            raise ValueError("config.guard_spike_threshold must be > 0")
+    if k == "elastic":
+        v = normalize_elastic(v)
+        if v is None:
+            raise ValueError("config.elastic must be off|on")
+    if k in ("elastic_poll_s", "elastic_deadline_s"):
+        v = float(v)
+        if v <= 0:
+            raise ValueError(f"config.{k} must be > 0")
+    if k == "elastic_quorum":
+        v = normalize_elastic_quorum(v)
+        if v is None:
+            raise ValueError("config.elastic_quorum must be off|majority")
+    if k == "elastic_dir":
+        v = v or None
+    return v
+
+
+GUARD_ELASTIC_FIELDS = frozenset({
+    "guard", "guard_numeric_policy", "guard_norm_bound",
+    "guard_spike_window", "guard_spike_threshold", "elastic", "elastic_dir",
+    "elastic_poll_s", "elastic_deadline_s", "elastic_quorum"})
 
 
 def check_fault_override(k: str, v):

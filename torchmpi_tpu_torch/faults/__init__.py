@@ -27,9 +27,11 @@ Every injected and survived event reaches ``tm_fault_*`` counters and the
 flight ring through :mod:`torchmpi_tpu_torch.obs` when that is active
 (``utils/telemetry.py``), so ``obs.tool blame`` can name the injected
 site.  The checkpoint sites (:func:`ckpt_write` / :func:`ckpt_read`) fire
-under ``utils/checkpoint.py`` while a plan is loaded.  The JAX package's
-wire guard (``wire_guard=``) is ROADMAP A10 (c): the port has no
-``Config.guard``, so its sites take the unguarded path.
+under ``utils/checkpoint.py`` while a plan is loaded.  The wire guard
+(``Config.guard`` "wire" | "full", ``wire_guard=`` of
+:func:`staged_exchange` and :func:`ps_enqueue`) digest-checks each
+staged leg through :mod:`.integrity`: a ``corrupt_silent`` flip is then
+a transient ``IntegrityError`` this layer's retry heals.
 """
 
 from __future__ import annotations
@@ -110,7 +112,8 @@ def board_partition():
     """The armed plan's board-partition visibility mask
     (:mod:`.partition`), or None.  Built lazily once a plan and cached
     on it: the partition module is imported only when a partition rule
-    exists.  Its reader, the membership board, is ROADMAP A10 (c)."""
+    exists.  Its reader is the membership board
+    (``faults/membership.py``), through ``sys.modules``."""
     p = _plan
     if not _armed or p is None:
         return None
@@ -289,7 +292,7 @@ def run_site(site: str, attempt: Callable[[int], Any], *,
 
 
 def staged_exchange(op_name: str, x, n: int, params: dict,
-                    compute: Callable) -> Any:
+                    compute: Callable, *, wire_guard: bool = False) -> Any:
     """The host-staged collective under injection and policy (JAX
     :310-380): each attempt stages a FRESH writable host copy of ``x``
     (a tensor on the card or the CPU, or the async worker's
@@ -300,14 +303,41 @@ def staged_exchange(op_name: str, x, n: int, params: dict,
     A transient fault retries the WHOLE exchange from the untouched
     source, which is what makes corrupt-then-heal give back the clean
     bits.  Two arrivals an attempt, one a leg, as in the JAX package.
-    Returns the host result; placing it is the caller's."""
+
+    ``wire_guard=True`` (``Config.guard`` "wire" | "full") brackets each
+    leg with an end-to-end blake2b check: the digest is taken the moment
+    the payload is staged (sender) and verified just before it is
+    consumed (receiver), so a corruption the site did not announce
+    (``corrupt_silent``, or the real thing) raises a transient
+    ``integrity.IntegrityError`` this retry loop heals.  Returns the host
+    result; placing it is the caller's."""
     from .. import collectives
+
+    if wire_guard:
+        from . import integrity
+
+        watch = integrity.Watch("host_staged", "gang")
 
     def attempt(_i: int):
         xs = collectives._restage(x)
-        fire("host_staged.gather", payload=xs, peer="gang")
-        out = compute(op_name, xs, n, **params).contiguous()
-        fire("host_staged.scatter", payload=out, peer="gang")
+        d_in = integrity.digest(xs) if wire_guard else None
+        try:
+            fire("host_staged.gather", payload=xs, peer="gang")
+            if wire_guard:
+                integrity.verify("host_staged.gather", xs, d_in,
+                                 peer="gang")
+            out = compute(op_name, xs, n, **params).contiguous()
+            d_out = integrity.digest(out) if wire_guard else None
+            fire("host_staged.scatter", payload=out, peer="gang")
+            if wire_guard:
+                integrity.verify("host_staged.scatter", out, d_out,
+                                 peer="gang")
+        except BaseException as e:
+            if wire_guard:
+                watch.note(e)
+            raise
+        if wire_guard:
+            watch.settle()
         return out
 
     return run_site("host_staged", attempt, peer="gang")
@@ -339,25 +369,54 @@ def aio_submit(submit: Callable[[], Any]) -> Any:
 
 
 def ps_exchange_once(peers: List[str], stage: Optional[Callable[[], Any]],
-                     enqueue: Callable[..., Any]) -> Any:
+                     enqueue: Callable[..., Any], *,
+                     wire_guard: bool = False) -> Any:
     """ONE staged PS enqueue: ``stage()`` makes the flat host payload
     (None for payload-free exchanges such as receive), ``ps.request``
     fires on it, then ``enqueue(payload)`` hands it to the native layer.
-    Not retried here: :func:`ps_enqueue` (first enqueue) and
-    :func:`ps_wait` (retransmits) compose it."""
+    With ``wire_guard`` the payload's sender digest is verified at the
+    transport handoff (JAX :409-430).  Not retried here:
+    :func:`ps_enqueue` (first enqueue) and :func:`ps_wait` (retransmits)
+    compose it, so every attempt stages and verifies again."""
+    peer = ",".join(peers)
     payload = stage() if stage is not None else None
-    fire("ps.request", payload=payload, peer=",".join(peers))
+    if wire_guard and payload is not None:
+        from . import integrity
+
+        d = integrity.digest(payload)
+        fire("ps.request", payload=payload, peer=peer)
+        integrity.verify("ps.request", payload, d, peer=peer)
+    else:
+        fire("ps.request", payload=payload, peer=peer)
     return enqueue(payload) if stage is not None else enqueue()
 
 
 def ps_enqueue(peers: List[str], enqueue: Callable[..., Any], *,
-               stage: Optional[Callable[[], Any]] = None) -> Any:
+               stage: Optional[Callable[[], Any]] = None,
+               wire_guard: bool = False) -> Any:
     """A PS client enqueue (send / receive) under injection and policy:
     ``ps.request`` fires once an attempt before the sockets are touched;
-    with ``stage`` the payload is staged again an attempt."""
-    return run_site("ps.request",
-                    lambda _i: ps_exchange_once(peers, stage, enqueue),
-                    peer=",".join(peers))
+    with ``stage`` the payload is staged again an attempt and, under
+    ``wire_guard``, digest-verified at the handoff."""
+    peer = ",".join(peers)
+    if wire_guard:
+        from . import integrity
+
+        watch = integrity.Watch("ps.request", peer)
+
+    def attempt(_i: int):
+        try:
+            out = ps_exchange_once(peers, stage, enqueue,
+                                   wire_guard=wire_guard)
+        except BaseException as e:
+            if wire_guard:
+                watch.note(e)
+            raise
+        if wire_guard:
+            watch.settle()
+        return out
+
+    return run_site("ps.request", attempt, peer=peer)
 
 
 def ps_wait(peers: List[str], make_handle: Callable[[], Any],

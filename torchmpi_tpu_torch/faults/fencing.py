@@ -10,9 +10,10 @@ COMMITTED epoch; a writer whose epoch is behind gets the typed
 :class:`FencedWriterError` and no byte lands.
 
 The board is duck-typed: anything with ``committed_view()`` (None, or an
-object with an ``epoch``) and a writable ``fence`` attribute.  The JAX
-package's membership board and the elastic gang that arms the fence
-are ROADMAP A10 (c).  Armed only by an explicit :func:`arm`: otherwise
+object with an ``epoch``) and a writable ``fence`` attribute, such as
+``faults/membership.py``'s.  The elastic gang arms the fence under
+``Config.elastic_quorum="majority"``.  Armed only by an explicit
+:func:`arm`: otherwise
 this module is never imported, and ``utils/checkpoint.py`` reaches it
 through one ``sys.modules`` lookup a save.  Dependency-free on purpose.
 """

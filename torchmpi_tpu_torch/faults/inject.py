@@ -24,9 +24,10 @@ indefinite hold that raises nothing; the watchdog breaks it) and
 ``partition`` (a standing visibility mask of the membership board, read
 by ``faults.board_partition()``; ``partition.py``).  The port fires the
 ``host_staged.*``, ``runtime.barrier``, ``ps.*``, ``aio.submit``,
-``serving.*`` and ``ckpt.*`` sites; the ``board.*``, ``elastic.member``
-and ``hotstate.*`` sites wait for their modules (ROADMAP A10 (c)) and are
-listed here so that plans and lint agree across the packages.
+``serving.*``, ``ckpt.*``, ``board.*`` (the membership board) and
+``elastic.member`` (the elastic gang) sites; the ``hotstate.*`` sites wait
+for the hot-state tier (ROADMAP A10 (d)) and are listed here so that plans
+and lint agree across the packages.
 
 Dependency-free on purpose (no torch, no numpy at import): the chaos
 tool (``faults/tool.py``) and the dump path of a dying process load it.

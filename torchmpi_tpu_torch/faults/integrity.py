@@ -9,9 +9,10 @@ with its dtype and shape (a CPU tensor hashes as the numpy array of the
 same values does), and :func:`verify` is its receiver-side check, raising
 the transient :class:`IntegrityError`.
 
-Imported only while ``Config.ckpt_redundancy`` is on: with it "off" this
-module never loads.  The JAX package's wire guard (``Config.guard``, the
-``wire_guard=`` readers of the staged and PS paths) is ROADMAP A10 (c).
+Imported only while ``Config.ckpt_redundancy`` is on or the wire guard
+is armed (``Config.guard`` "wire" | "full": the ``wire_guard=`` readers
+of the staged and PS paths, ``faults/__init__.py``): otherwise this module
+never loads.
 Telemetry (``tm_guard_*``) rides :mod:`torchmpi_tpu_torch.obs` through
 ``utils/telemetry.py`` when obs is active.
 """

@@ -11,10 +11,10 @@ stay visible.  The window is step-deterministic: active from gang step
 ``rule.after`` until ``rule.heal_after`` (-1 = never), on the highest
 step any member has posted, so the heal is globally consistent.
 
-The membership board that consults the mask is ROADMAP A10 (c); today
-:func:`~torchmpi_tpu_torch.faults.board_partition` and the chaos tool's
-``--partition`` recipe read this module.  Never imported unless an armed
-plan holds a partition rule.  Dependency-free, like the rest of the
+The membership board (``faults/membership.py``) consults the mask
+through :func:`~torchmpi_tpu_torch.faults.board_partition` on every read;
+the chaos tool's ``--partition`` recipe writes its rules.  Never imported
+unless an armed plan holds a partition rule.  Dependency-free, like the rest of the
 package.
 """
 

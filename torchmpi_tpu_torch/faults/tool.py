@@ -15,10 +15,11 @@ recipes: ``--shrink RANK:STEP:NRANKS`` (``fail`` at ``elastic.member``
 arrival ``STEP*NRANKS + RANK``), ``--stall RANK:STEP:NRANKS`` (``stall``
 there), ``--partition RANKS:STEP[:HEAL_STEP]`` (a ``partition`` rule at
 ``board.read``) and ``--migrate RANK:STEP:NRANKS`` (``fail`` at arrival
-``(STEP+1)*NRANKS + RANK``).  The consumers of ``elastic.member`` and the
-board (the elastic gang, the membership board, the hot-state tier) are
-ROADMAP A10 (c); the recipes still write and lint plans, byte for byte
-the JAX tool's for the same arguments, so one plan drives both packages.
+``(STEP+1)*NRANKS + RANK``).  The elastic gang (``elastic.py``) fires
+``elastic.member`` and the membership board the ``board.*`` sites; the
+``--migrate`` recipe's consumer, the hot-state tier, is ROADMAP A10 (d).
+The recipes write and lint plans byte for byte the JAX tool's for the
+same arguments, so one plan drives both packages.
 ``lint`` validates a plan: schema or version errors exit 2, problems a
 valid plan can still have (a site pattern that matches no instrumented
 site, a dead rule, a payload kind at a payload-free site) print as F1

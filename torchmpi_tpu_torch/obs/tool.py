@@ -423,9 +423,9 @@ def cmd_blame_live(args) -> int:
     but whose collective is STALLED is wedged on a *peer*; an EXPIRED
     or ``escalated`` lease is that rank's own death evidence; a fresh
     lease with ``state=parked`` is a quorum-lost minority waiting out
-    a partition (ROADMAP A10 (c)) — alive, deliberately idle, and NOT
+    a partition (``elastic._park``) — alive, deliberately idle, and NOT
     to be restarted; a fresh lease with ``state=migrating`` is a live
-    hot-state drain in flight (ROADMAP A10 (c) — the detail carries
+    hot-state drain in flight (ROADMAP A10 (d) — the detail carries
     ``source -> spare``): in transition BY DESIGN, neither parked nor
     dead, and killing either end mid-drain forfeits the zero-rollback
     hand-off.  Exits 1 when anything is stalled/expired/parked/
@@ -465,7 +465,7 @@ def cmd_blame_live(args) -> int:
                      f"own watchdog")
             implicated.append(rank)
         elif d.get("state") == "parked":
-            # A quorum-parked minority (ROADMAP A10 (c); "Partitions
+            # A quorum-parked minority (``elastic._park``; "Partitions
             # and split-brain"): deliberately idle, lease FRESH — not
             # a corpse, not a stall.  It rejoins the majority's
             # committed epoch on its own once the partition heals.
@@ -475,7 +475,7 @@ def cmd_blame_live(args) -> int:
                      f"restart needed)")
             parked.append(rank)
         elif d.get("state") == "migrating":
-            # A live hot-state drain (ROADMAP A10 (c)): the rank is
+            # A live hot-state drain (ROADMAP A10 (d)): the rank is
             # mid-hand-off onto a spare — in transition BY DESIGN,
             # lease fresh.  Distinct from parked (it is not waiting on
             # anything external) and from dead (killing it mid-drain

@@ -187,6 +187,29 @@ def _obs_gradsync(n_buckets: int, op: str, compress) -> None:
     obs.record_gradsync(n_buckets, op, compress)
 
 
+def _numeric_guard() -> bool:
+    """``Config.guard`` "numeric" | "full": one string compare a sync
+    (``guard.py`` is never imported while it is off)."""
+    return runtime.effective_config().guard in ("numeric", "full")
+
+
+def _guarded(grads: List[torch.Tensor], rank_major: bool, residuals=None,
+             new_res=None):
+    """The numeric tripwire on a synced round (JAX :355-366, :383-391):
+    one verdict over every gradient (a row's with ``rank_major``), the
+    round zeroed in place when it trips; with ``residuals`` the new
+    error-feedback residuals revert to the pre-step ones under the same
+    verdict, and come back."""
+    from .. import guard
+
+    if residuals is None:
+        guard.check_tree(grads, site="gradsync", rows=rank_major)
+        return None
+    _, reverted = guard.check_tree(grads, site="gradsync", rows=rank_major,
+                                   aux=list(zip(new_res, residuals)))
+    return reverted
+
+
 def _sync_(grads: List[torch.Tensor], *, backend: Optional[str],
            op: Optional[str], compress: Optional[str],
            n_buckets: Optional[int], barrier: Optional[bool], residuals,
@@ -212,8 +235,11 @@ def _sync_(grads: List[torch.Tensor], *, backend: Optional[str],
         if n_buckets is None:
             n_buckets = runtime.effective_config().gradsync_buckets
         _obs_gradsync(max(1, n_buckets), op, f"dcn-{codec}")
-        return _dcn_ef_allreduce_(grads, op=op, n_buckets=n_buckets,
-                                  codec=codec, residuals=residuals, n=n)
+        new_res = _dcn_ef_allreduce_(grads, op=op, n_buckets=n_buckets,
+                                     codec=codec, residuals=residuals, n=n)
+        if _numeric_guard():
+            return _guarded(grads, rank_major, residuals, new_res)
+        return new_res
     op, compress = _resolve(op, compress, "synchronize_gradients")
     if n_buckets is None:
         n_buckets = runtime.effective_config().gradsync_buckets
@@ -230,6 +256,8 @@ def _sync_(grads: List[torch.Tensor], *, backend: Optional[str],
         if compress == "bf16":
             for g, w in zip(grads, wire):
                 g.copy_(w)
+        if _numeric_guard():
+            _guarded(grads, rank_major)
         return None
     spec = None
     if n_buckets > 1 and wire:
@@ -245,6 +273,8 @@ def _sync_(grads: List[torch.Tensor], *, backend: Optional[str],
     if compress == "bf16":
         for g, w in zip(grads, wire):
             g.copy_(w)
+    if _numeric_guard() and grads:
+        _guarded(grads, rank_major)
     return None
 
 
@@ -606,6 +636,7 @@ def make_overlapped_grad_fn(loss_fn: Callable,
     def vag(params, res_list, *batch):
         params = _check_params(params, template, site)
         impls = impls_now()
+        guard_on = _numeric_guard()
         leaves = [p.detach().requires_grad_() for p in params]
         grads: List[Optional[torch.Tensor]] = [None] * len(leaves)
         pending = []
@@ -625,10 +656,19 @@ def make_overlapped_grad_fn(loss_fn: Callable,
             if codec is not None:
                 from .. import compress as _codec
 
+                old = res_list[k]
                 red, res_list[k] = _codec.ef_bucket_allreduce(
-                    flat, codec, res_list[k], op=op,
+                    flat, codec, old, op=op,
                     min_bytes=runtime.effective_config()
                     .dcn_compress_min_bytes)
+                if guard_on:
+                    # The bucket's verdict reverts its residual too
+                    # (JAX :535-545).
+                    from .. import guard
+
+                    red, (res_list[k],) = guard.check_flat(
+                        red.to(flat.dtype), site="overlap", bucket=k,
+                        aux=[(res_list[k], old)])
                 pending.append((g, flat.dtype, red))
                 return
             wire = flat.to(torch.bfloat16) if compress == "bf16" else flat
@@ -640,9 +680,13 @@ def make_overlapped_grad_fn(loss_fn: Callable,
         out = _backward_with_hooks(loss_fn, leaves, batch, has_aux, firing,
                                    on_grad, fire)
         synced: List[Optional[torch.Tensor]] = [None] * len(leaves)
-        for g, dtype, got in pending:
+        for k, (g, dtype, got) in enumerate(pending):
             red = (got if isinstance(got, torch.Tensor)
                    else got.wait()).to(dtype)
+            if guard_on and codec is None:
+                from .. import guard
+
+                red = guard.check_flat(red, site="overlap", bucket=k)
             off = 0
             for i, shape, size in zip(g.indices, g.shapes, g.sizes):
                 synced[i] = red[off:off + size].view(shape)
@@ -708,6 +752,7 @@ def make_overlapped_grad_fn_rank_major(loss_fn: Callable,
             stacks: Optional[List[torch.Tensor]] = None):
         params = _check_params(params, template, site)
         impls = impls_now()
+        guard_on = _numeric_guard()
         if stacks is None:
             stacks = [p.new_zeros((n, *p.shape)) for p in params]
         parts = [b.reshape(n, -1, *b.shape[1:]) for b in batch]
@@ -733,22 +778,36 @@ def make_overlapped_grad_fn_rank_major(loss_fn: Callable,
         def reduce_bucket(k, g):
             buf = fusion.gather_bucket(stacks, g, 0, g.total,
                                        rank_major=True)
+            aux = None
             if codec is not None:
                 from .. import compress as _codec
 
+                old = res_list[k]
                 red, res_list[k] = _codec.ef_bucket_allreduce_rank_major(
-                    buf, codec, res_list[k], op=op,
+                    buf, codec, old, op=op,
                     min_bytes=runtime.effective_config()
                     .dcn_compress_min_bytes)
-                if side is not None:
-                    res_list[k].record_stream(side)
+                aux = [(res_list[k], old)]
             else:
                 wire = buf.to(torch.bfloat16) if compress == "bf16" else buf
                 red = fusion.run_bucket("allreduce_rank_major", wire,
                                         {"op": op}, impl=impls[k],
                                         backend=backend)
-            fusion.scatter_bucket(red.to(buf.dtype), stacks, g, 0,
-                                  rank_major=True)
+            red = red.to(buf.dtype)
+            if guard_on:
+                # Each rank's copy of the bucket checked on its own row
+                # (JAX :535-545), on this stream.
+                from .. import guard
+
+                got_ = guard.check_flat(red, site="overlap", bucket=k,
+                                        rows=True, aux=aux)
+                if aux is not None:
+                    red, (res_list[k],) = got_
+                else:
+                    red = got_
+            if codec is not None and side is not None:
+                res_list[k].record_stream(side)
+            fusion.scatter_bucket(red, stacks, g, 0, rank_major=True)
 
         def fire(k):
             g = groups[k]
@@ -823,6 +882,16 @@ def accumulate_gradients(loss_fn: Callable[..., torch.Tensor],
     return loss_sum * inv, [g * inv for g in g_sum]
 
 
+def _guard_boundary() -> None:
+    """The numeric guard's step boundary: ``guard.raise_pending`` (the
+    ``raise`` policy's deferred error; under ``skip_step`` nothing is
+    read, no host sync).  One string compare while the guard is off."""
+    if _numeric_guard():
+        from .. import guard
+
+        guard.raise_pending()
+
+
 def data_parallel_step(model: torch.nn.Module,
                        optimizer: torch.optim.Optimizer,
                        loss_fn: Callable[..., torch.Tensor], *,
@@ -846,6 +915,7 @@ def data_parallel_step(model: torch.nn.Module,
         loss.backward()
         synchronize_gradients(model)
         optimizer.step()
+        _guard_boundary()
         return collectives.allreduce_in_axis(loss.detach(), op="mean")
 
     return _observed_step(step)
@@ -880,6 +950,7 @@ def data_parallel_step_rank_major(model: torch.nn.Module,
         for st, p in zip(stacks, params):
             p.grad = st[0]
         optimizer.step()
+        _guard_boundary()
         return torch.stack(losses).mean()
 
     return _observed_step(step)

@@ -49,8 +49,12 @@ host master (on the card: the push's one host sync) and each attempt's
 payload is a fresh writable copy of it, so a corrupt flips that copy's
 bits and a retry sends the clean master.  With ``Config.watchdog`` armed
 a handle's native wait is a ``ps.response`` window.  Off, none of it
-runs and neither module is imported.  The JAX package's wire guard is
-ROADMAP A10 (c).
+runs and neither module is imported.  With the wire guard armed
+(``Config.guard`` "wire" | "full", JAX :68-72, :434-449) a push takes
+the same resilient path whatever ``Config.faults`` says, and each
+attempt's staged payload is digested at staging and verified at the
+native handoff: a mismatch is a transient the policy retries by staging
+the clean master again.
 """
 
 from __future__ import annotations
@@ -369,6 +373,12 @@ def _faults_armed() -> bool:
     return runtime.effective_config().faults != "off"
 
 
+def _wire_guard() -> bool:
+    """One string compare a call: the wire guard (``faults/integrity.py``
+    is never imported unless it is armed)."""
+    return runtime.effective_config().guard in ("wire", "full")
+
+
 class _ResilientPSHandle:
     """The handle ``send`` / ``receive`` return with ``Config.faults``
     armed (JAX :365-395): the exchange is already enqueued (the async
@@ -480,19 +490,22 @@ class PSClient:
         if flat.shape[0] != self.total:
             raise ValueError(f"tree has {flat.shape[0]} floats, PS holds "
                              f"{self.total}")
-        if _faults_armed():
-            return self._send_resilient(flat, spec, rid, float(alpha))
+        wire = _wire_guard()
+        if _faults_armed() or wire:
+            return self._send_resilient(flat, spec, rid, float(alpha),
+                                        wire)
         if isinstance(flat, torch.Tensor) and flat.is_cuda:
             return self._send_cuda(flat, spec, rid, float(alpha))
         if isinstance(flat, torch.Tensor):
             flat = flat.numpy()
         return self._send_host(flat, spec, rid, float(alpha))
 
-    def _send_resilient(self, flat, spec, rid: int,
-                        alpha: float) -> "_ResilientPSHandle":
+    def _send_resilient(self, flat, spec, rid: int, alpha: float,
+                        wire: bool = False) -> "_ResilientPSHandle":
         """A push under the fault layer (sites ``ps.request`` /
         ``ps.response``): the flat vector staged once to a host master,
-        each attempt's payload a fresh copy of it."""
+        each attempt's payload a fresh copy of it (digest-checked with
+        ``wire``)."""
         from .. import faults
 
         cuda = isinstance(flat, torch.Tensor) and flat.is_cuda
@@ -526,8 +539,10 @@ class PSClient:
             return PSHandle(self._lib, fids, [payload, inout], fin)
 
         return _ResilientPSHandle(
-            faults.ps_enqueue(self.peers, enqueue, stage=stage),
-            lambda: faults.ps_exchange_once(self.peers, stage, enqueue),
+            faults.ps_enqueue(self.peers, enqueue, stage=stage,
+                              wire_guard=wire),
+            lambda: faults.ps_exchange_once(self.peers, stage, enqueue,
+                                            wire_guard=wire),
             self.peers)
 
     def _enqueue(self, flat, inout, rid: int, alpha: float) -> List[int]:
@@ -605,7 +620,7 @@ class PSClient:
         """Async pull of the full parameter vector (prefetch pattern);
         ``wait()`` returns the tree, on the template's device."""
         self._check_live()
-        if _faults_armed():
+        if _faults_armed() or _wire_guard():
             from .. import faults
 
             return _ResilientPSHandle(

@@ -51,8 +51,12 @@ through.  ``flat_spec`` / ``shard_params`` and the process-world entries
 take ``axis_names`` ("dcn", "ici" or both); ``flat_spec`` is planned
 (``planner.flat_spec_for``).  With ``Config.obs`` on, every gradient leg
 counts ``tm_zero_sync_rounds_total`` and ``tm_zero_groups_total`` (JAX
-:301-305).  The JAX package's guard and static-analysis hooks belong to
-modules the port does not have yet (ROADMAP A10 (c), A11).
+:301-305).  With ``Config.guard`` "numeric" | "full" every gradient leg
+ends in the numeric tripwire (``guard.check_flat``, JAX :389-405): each
+rank's shard checked as the update it will apply (a row of a rank-major
+stack at a time), zeroed when it trips, the error-feedback residuals
+reverted under the same verdict.  The JAX package's static-analysis hooks
+belong to a module the port does not have yet (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -193,26 +197,42 @@ def _grad_leg(flats, spec, *, op, compress, codec, dcn_residuals, presynced,
               local, reduce_scatter, n: Optional[int]):
     """The gradient leg of every entry: ``local()`` (presynced), the EF leg
     on a two-level grid, or the reduce-scatter (warned once where residuals
-    meet a flat grid).  Returns ``(g_shard, new_residuals)``."""
+    meet a flat grid), then the numeric guard where it is armed.  Returns
+    ``(g_shard, new_residuals)``."""
     if runtime.effective_config().obs != "off":
         from .. import obs
 
         obs.record_zero("reduce_scatter", len(spec.groups),
                         int(spec.n_shards))
+    ef = False
     if presynced:
-        return local(), dcn_residuals
-    if codec is not None:
-        if runtime.grid(n)[0] > 1:
-            return _ef_grads(flats, spec, op=op, codec=codec,
-                             dcn_residuals=dcn_residuals, n=n)
-        from .. import selector
+        g_shard, new_res = local(), dcn_residuals
+    elif codec is not None and runtime.grid(n)[0] > 1:
+        g_shard, new_res = _ef_grads(flats, spec, op=op, codec=codec,
+                                     dcn_residuals=dcn_residuals, n=n)
+        ef = True
+    else:
+        if codec is not None:
+            from .. import selector
 
-        selector._note_fallback("reduce_scatter", "dcn-" + codec,
-                                "flat world (n_dcn <= 1)",
-                                target="the plain reduce_scatter leg")
-    return (_reduce_scatter_grads(flats, spec, op=op, compress=compress,
-                                  reduce_scatter=reduce_scatter),
-            dcn_residuals)
+            selector._note_fallback("reduce_scatter", "dcn-" + codec,
+                                    "flat world (n_dcn <= 1)",
+                                    target="the plain reduce_scatter leg")
+        g_shard = _reduce_scatter_grads(flats, spec, op=op,
+                                        compress=compress,
+                                        reduce_scatter=reduce_scatter)
+        new_res = dcn_residuals
+    if runtime.effective_config().guard in ("numeric", "full"):
+        from .. import guard
+
+        if ef:
+            g_shard, new_res = guard.check_flat(
+                g_shard, site="zero", rows=n is not None,
+                aux=list(zip(new_res, dcn_residuals)))
+        else:
+            g_shard = guard.check_flat(g_shard, site="zero",
+                                       rows=n is not None)
+    return g_shard, new_res
 
 
 def _out(result: tuple, dcn_residuals, new_res) -> tuple:

@@ -26,8 +26,10 @@ This module keeps the decision record of a call site in an immutable
   or the watchdog armed (a staged replay then runs through
   ``faults.staged_exchange`` and inside the watchdog's window, a direct
   one past its deferred-raise boundary: :func:`_wd_wrap`,
-  :func:`_wd_boundary`).  ``guard`` (False) and ``analysis`` ("off") are
-  the JAX record's fields; those layers are ROADMAP A10 (c) and A11.
+  :func:`_wd_boundary`); ``guard``: whether a staged plan was built with
+  the wire guard armed (``Config.guard`` "wire" | "full": its replay
+  digest-checks both legs; False on every other plan).  ``analysis``
+  ("off") is the JAX record's field; that layer is ROADMAP A11.
 - **replay**: one dict lookup, then the bound closure.
 
 Consumers: the rank-major verbs (``collectives._eager``, also under
@@ -82,7 +84,7 @@ class CollectivePlan:
                  impl_op: Optional[str] = None,
                  extra: Optional[dict] = None, staged: bool = False,
                  faults: bool = False, watchdog: bool = False,
-                 topology: str = "",
+                 guard: bool = False, topology: str = "",
                  replay: Optional[Callable] = None) -> None:
         self.key = key
         self.kind = kind
@@ -100,7 +102,7 @@ class CollectivePlan:
         self.staged = bool(staged)
         self.faults = bool(faults)
         self.watchdog = bool(watchdog)
-        self.guard = False
+        self.guard = bool(guard)
         self.analysis = "off"
         self.epoch = runtime.config_epoch()
         self.topology = topology
@@ -390,13 +392,15 @@ def _build_eager(key, verb, xs, backend, staged, params, axis,
         # The fault layer's enablement is resolved here, once: the replay
         # carries no Config.faults compare (JAX :430-445).
         faults_on = cfg.faults != "off"
-        _replay = observed(C._staged_replay(verb, params, axis, faults_on),
+        wire_on = cfg.guard in ("wire", "full")
+        _replay = observed(C._staged_replay(verb, params, axis, faults_on,
+                                            wire_on),
                            verb, nbytes, "host", xs.dtype, n)
         if wd_on:
             _replay = _wd_wrap(_replay, "host_staged", verb, nbytes)
         return CollectivePlan(key, "eager-staged", verb, backend="host",
                               nbytes=nbytes, staged=True, faults=faults_on,
-                              watchdog=wd_on, topology=topo,
+                              guard=wire_on, watchdog=wd_on, topology=topo,
                               replay=_replay)
 
     def runner(b):

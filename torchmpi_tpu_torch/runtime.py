@@ -82,9 +82,10 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 
-from .config import (Config, check_fault_override, check_serving,
+from .config import (GUARD_ELASTIC_FIELDS, Config, check_fault_override,
+                     check_guard_elastic_override, check_serving,
                      normalize_obs, ps_timeout_s, resolve_ckpt,
-                     resolve_faults, resolve_obs)
+                     resolve_faults, resolve_guard_elastic, resolve_obs)
 
 Axes = Union[str, Sequence[str], None]
 WORLD_AXES = ("dcn", "ici")
@@ -219,6 +220,19 @@ class _State:
         # communicator made, by key.
         self.stack: List[Communicator] = []
         self.cache: Dict[str, Communicator] = {}
+        # This process's stable id (its rank at init): a resized process
+        # world renumbers the survivors, the checkpoint files and the
+        # membership keep this id.
+        self.process_index = 0
+        # The rank-major rows of the current world (resize_world in a
+        # world of one process); None: every row of the stack.
+        self.rows: Optional[Tuple[int, ...]] = None
+        # The world communicator init built (restore_world puts it back).
+        self.init_world: Optional[Communicator] = None
+        # (epoch, members) the process world was formed for: (None, every
+        # rank) at init, the view's after resize_world, ("stale", ()) once
+        # this process asked to be admitted back (its old group is gone).
+        self.world_tag: tuple = (None, ())
 
 
 _state = _State()
@@ -317,6 +331,20 @@ def _destroy_groups(comm: Communicator) -> None:
     comm.groups = {}
 
 
+def _coordinator(cfg: Config) -> None:
+    """``Config.coordinator_address`` / ``num_processes`` / ``process_id``,
+    unset, from ``TORCHMPI_TPU_COORDINATOR`` / ``_NUM_PROCESSES`` /
+    ``_PROCESS_ID`` (JAX :684-692)."""
+    if cfg.coordinator_address is None:
+        coord = os.environ.get("TORCHMPI_TPU_COORDINATOR")
+        if coord:
+            cfg.coordinator_address = coord
+            cfg.num_processes = int(
+                os.environ.get("TORCHMPI_TPU_NUM_PROCESSES", "1"))
+            cfg.process_id = int(
+                os.environ.get("TORCHMPI_TPU_PROCESS_ID", "0"))
+
+
 def init(config: Optional[Config] = None, *, device: str = "cuda",
          init_method: Optional[str] = None, rank: Optional[int] = None,
          world_size: Optional[int] = None, **overrides) -> torch.device:
@@ -325,10 +353,16 @@ def init(config: Optional[Config] = None, *, device: str = "cuda",
 
     ``device="cuda"`` (the default) binds the process to card
     ``local_rank()`` and uses NCCL; it raises when no card is visible.
-    ``device="cpu"`` uses gloo.  ``init_method`` / ``rank`` / ``world_size``
-    default to the launcher's environment (``MASTER_ADDR``/``MASTER_PORT``,
-    ``RANK``, ``WORLD_SIZE``), else to a world of one process.  A process
-    group that the caller already initialized is adopted as it is."""
+    ``device="cpu"`` uses gloo.  No environment variable changes the
+    device: a script started by ``python -m torchmpi_tpu_torch.launch
+    --device cpu`` passes ``device="cpu"`` itself.
+    ``init_method`` / ``rank`` / ``world_size`` default to
+    ``Config.coordinator_address`` / ``process_id`` / ``num_processes``
+    (the JAX field names, or TORCHMPI_TPU_COORDINATOR and its two
+    companions), then to the launcher's environment
+    (``MASTER_ADDR``/``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``), else to a
+    world of one process.  A process group that the caller already
+    initialized is adopted as it is."""
     with _state.lock:
         if _state.initialized:
             return _state.device
@@ -343,6 +377,8 @@ def init(config: Optional[Config] = None, *, device: str = "cuda",
         resolve_obs(cfg)
         resolve_faults(cfg)
         resolve_ckpt(cfg)
+        resolve_guard_elastic(cfg)
+        _coordinator(cfg)
         # Arm (or disarm a stale) fault layer before the runtime marks
         # itself initialized: a corrupt or missing plan fails init
         # outright (JAX :716-724).  Off never imports faults.
@@ -359,6 +395,14 @@ def init(config: Optional[Config] = None, *, device: str = "cuda",
             raise ValueError(f"unsupported device {device!r}")
         owns = False
         if not dist.is_initialized():
+            if cfg.coordinator_address is not None:
+                addr = cfg.coordinator_address
+                if init_method is None:
+                    init_method = addr if "://" in addr else f"tcp://{addr}"
+                if rank is None and cfg.process_id is not None:
+                    rank = int(cfg.process_id)
+                if world_size is None and cfg.num_processes is not None:
+                    world_size = int(cfg.num_processes)
             if rank is None:
                 rank = int(os.environ.get("RANK", "0"))
             if world_size is None:
@@ -381,9 +425,13 @@ def init(config: Optional[Config] = None, *, device: str = "cuda",
         _make_groups(world)
         _state.stack = [world]
         _state.cache = {"world": world}
+        _state.init_world = world
         _state.config = cfg
         _state.device = dev
         _state.owns_group = owns
+        _state.process_index = dist.get_rank()
+        _state.rows = None
+        _state.world_tag = (None, tuple(range(dist.get_world_size())))
         _state.initialized = True
         _state.config_epoch += 1
     # Outside the lock: the tuning layer reads the runtime's accessors.
@@ -406,11 +454,19 @@ def stop() -> None:
         _state.owns_group = False
         _state.stack = []
         _state.cache = {}
+        _state.init_world = None
+        _state.rows = None
         _state.config_epoch += 1
     from . import planner, tuning
 
     planner.invalidate()
     tuning.reset()
+    # A quorum-armed elastic gang published an epoch fence for the
+    # checkpoint seam: retracted with the runtime (JAX :784-791), through
+    # sys.modules only.
+    fencing = sys.modules.get(__package__ + ".faults.fencing")
+    if fencing is not None:
+        fencing.disarm()
 
 
 def _configure_faults(cfg: Config) -> None:
@@ -432,8 +488,10 @@ def _configure_faults(cfg: Config) -> None:
 
 def _configure_watchdog(cfg: Config) -> None:
     """Arm the collective watchdog where ``cfg.watchdog`` asks for it
-    (JAX :336-365), its leases in ``watchdog_dir`` (on a re-activation
-    with none, the directory the armed watchdog already leases into),
+    (JAX :336-365), its leases in ``watchdog_dir``, else the membership
+    board ``elastic_dir`` (on a re-activation with neither, the directory
+    the armed watchdog already leases into: a lease home the elastic gang
+    adopted survives a deadline tune),
     named by this process's rank.  With the watchdog off a previous
     session's is disarmed through ``sys.modules`` only."""
     if cfg.watchdog == "off":
@@ -443,7 +501,7 @@ def _configure_watchdog(cfg: Config) -> None:
         return
     from . import watchdog
 
-    lease_dir = cfg.watchdog_dir
+    lease_dir = cfg.watchdog_dir or cfg.elastic_dir
     if lease_dir is None and watchdog.active():
         lease_dir = watchdog.lease_dir()
     watchdog.activate(cfg.watchdog, deadline_s=cfg.watchdog_deadline_s,
@@ -527,6 +585,8 @@ def set_config(**overrides) -> None:
         for k in _FAULT_FIELDS | _WATCHDOG_FIELDS | _CKPT_FIELDS:
             if k in overrides:
                 overrides[k] = check_fault_override(k, overrides[k])
+        for k in GUARD_ELASTIC_FIELDS & set(overrides):
+            overrides[k] = check_guard_elastic_override(k, overrides[k])
         new = dataclasses.replace(_state.config, **overrides)
         check_serving(new)
         _state.config = new
@@ -588,6 +648,35 @@ def rank() -> int:
     return dist.get_rank()
 
 
+def process_index() -> int:
+    """This process's stable id: its rank at :func:`init`, kept across
+    :func:`resize_world` (which renumbers the surviving processes).  The
+    checkpoint files and the elastic membership are keyed by it."""
+    return _state.process_index if _state.initialized else 0
+
+
+def world_tag() -> tuple:
+    """``(epoch, members)`` the process world was formed for: ``(None,
+    ranks)`` as :func:`init` made it, the view's after
+    :func:`resize_world`, ``("stale", ())`` after
+    :func:`mark_world_stale`."""
+    return _state.world_tag
+
+
+def mark_world_stale() -> None:
+    """This process left its gang (``elastic.admit``): its process world
+    is stale, and the next elastic resize forms the admitting view's even
+    where the member set looks the same."""
+    _state.world_tag = ("stale", ())
+
+
+def world_rows() -> Optional[Tuple[int, ...]]:
+    """The rank-major rows of the current world after
+    :func:`resize_world` in a world of one process (member rows of the
+    full gang, in stack order), else None."""
+    return _state.rows
+
+
 def size() -> int:
     """Process count (reference: ``mpi.size()``)."""
     _require_init()
@@ -621,6 +710,132 @@ def dcn_size() -> int:
 def ici_size() -> int:
     """The process world's inner (intra-node) size."""
     return grid()[1]
+
+
+# --- the gang-resize primitive ---------------------------------------------
+
+
+def resize_world(devices: Sequence[int], *,
+                 shape: Optional[Dict[str, int]] = None,
+                 store_dir: Optional[str] = None,
+                 epoch: Optional[int] = None,
+                 timeout_s: float = 60.0) -> Communicator:
+    """Re-form the world over a subset of its members (JAX :1201, the
+    primitive ``elastic`` shrinks and grows through; the reference tore
+    its communicator tree down and made it again).  Replaces the whole
+    communicator stack (pushed communicators are views of the old gang),
+    bumps the config epoch and drops every collective plan
+    (``collectives.clear_cache``); the active Config is untouched.
+    ``shape`` (axis name -> size over the new members, in order) as in
+    :func:`push_communicator`; None makes one ``("ici",)`` axis.
+
+    In a world of one process ``devices`` are rows of the full rank-major
+    gang (member ``m``'s row ``m``): the new world is a communicator of
+    fixed size ``len(devices)`` (a stack of another size raises), and
+    :func:`world_rows` names the rows.  Across processes ``devices`` are
+    the stable process ids (:func:`process_index`) of the new world, this
+    process among them: ``dist.new_group`` is collective over the default
+    group and cannot be called once a member is dead, so the survivors
+    leave the old default group and form a new one over a
+    ``torch.distributed.FileStore`` at ``<store_dir>/pg_<epoch>.store``
+    (the membership board: every survivor reaches it without the dead
+    peer), ranked by their order in ``devices``.  Every survivor calls
+    this with the same arguments; a group that cannot form within
+    ``timeout_s`` raises (the old group is already gone: no resize carries
+    on with it)."""
+    _require_init()
+    devs = [int(d) for d in devices]
+    if not devs:
+        raise ValueError("resize_world needs at least one device")
+    if len(set(devs)) != len(devs) or min(devs) < 0:
+        raise ValueError(f"resize_world: devices must be distinct ranks, "
+                         f"got {devs}")
+    if shape is None:
+        axes, sizes = ("ici",), (len(devs),)
+    else:
+        axes = tuple(shape)
+        sizes = tuple(int(s) for s in shape.values())
+        if math.prod(sizes) != len(devs):
+            raise ValueError(
+                f"shape {shape} does not cover {len(devs)} devices")
+    if store_dir is not None or dist.get_world_size() > 1:
+        world = _resize_process_world(devs, store_dir, epoch, timeout_s)
+        comm = Communicator("world", axes, sizes, range(world), sizes)
+        rows = None
+        _state.world_tag = (int(epoch), tuple(devs))
+    else:
+        comm = Communicator("world", axes, sizes, [0], (1,) * len(axes))
+        rows = tuple(devs)
+    with _state.lock:
+        _make_groups(comm)
+        _state.stack = [comm]
+        _state.cache = {"world": comm}
+        _state.rows = rows
+        _state.config_epoch += 1
+    from . import collectives
+
+    collectives.clear_cache()
+    return comm
+
+
+def restore_world() -> Communicator:
+    """Put back the world :func:`init` built after :func:`resize_world` in
+    a world of one process (``elastic.run_elastic`` does when its gang
+    ends whole again): the stack of that one communicator, no fixed rows,
+    the config epoch bumped and every plan dropped.  Across processes the
+    old default group is gone, so this raises there."""
+    _require_init()
+    if len(_state.init_world.ranks) > 1:
+        raise RuntimeError("restore_world: init's world spans processes; "
+                           "a resized process world's old group is gone")
+    with _state.lock:
+        world = _state.init_world
+        _state.stack = [world]
+        _state.cache = {"world": world}
+        _state.rows = None
+        _state.config_epoch += 1
+    from . import collectives
+
+    collectives.clear_cache()
+    return world
+
+
+def _resize_process_world(devs: List[int], store_dir: Optional[str],
+                          epoch: Optional[int], timeout_s: float) -> int:
+    """Leave the default process group and join the new world of ``devs``
+    (stable process ids) over a FileStore keyed by ``epoch``; returns its
+    size."""
+    import datetime
+
+    me = _state.process_index
+    if me not in devs:
+        raise ValueError(f"resize_world: this process ({me}) is not among "
+                         f"the new members {devs}")
+    if store_dir is None or epoch is None:
+        raise ValueError("resize_world across processes needs store_dir= "
+                         "and epoch= (the membership board and the view's "
+                         "epoch): dist.new_group cannot run without the "
+                         "dead peer")
+    backend = "nccl" if _state.device.type == "cuda" else "gloo"
+    with _state.lock:
+        for comm in list(_state.cache.values()):
+            if comm.name != "world":
+                _destroy_groups(comm)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    os.makedirs(store_dir, exist_ok=True)
+    store = dist.FileStore(os.path.join(store_dir, f"pg_{int(epoch)}.store"),
+                           len(devs))
+    try:
+        dist.init_process_group(
+            backend, store=store, rank=devs.index(me), world_size=len(devs),
+            timeout=datetime.timedelta(seconds=float(timeout_s)))
+    except Exception as e:
+        raise RuntimeError(
+            f"resize_world: the new process group of members {devs} at "
+            f"epoch {epoch} did not form ({e}); the old group is gone") from e
+    _state.owns_group = True
+    return len(devs)
 
 
 # --- the communicator stack --------------------------------------------------

@@ -178,7 +178,9 @@ class Sharded:
 
 
 def _proc() -> int:
-    return runtime.rank() if runtime.is_initialized() else 0
+    """This process's stable id (``runtime.process_index``: its rank at
+    init, kept across an elastic resize), which names its files."""
+    return runtime.process_index()
 
 
 def _nproc() -> int:

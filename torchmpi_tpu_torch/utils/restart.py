@@ -15,8 +15,9 @@ watchdog broke) takes the ``on_peer_timeout`` path of the same restore.
 Both are recognized by type through ``sys.modules``: this module imports
 neither the fault layer nor the watchdog, nor the telemetry it reports to
 (``obs.record_restart``), nor the hot-state tier the JAX package consults
-first (``torchmpi_tpu_torch.hotstate``, ROADMAP A10 (c): the lookup finds
-nothing until it exists).
+first (``torchmpi_tpu_torch.hotstate``, ROADMAP A10 (d): the lookup finds
+nothing until it exists).  The elastic gang passes ``recover`` its
+survivors-only ``participants`` and ``agree`` (``elastic.py``).
 """
 
 from __future__ import annotations
@@ -90,7 +91,7 @@ def _ram_rung(template: PyTree, *, min_step: int = 0,
               step: Optional[int] = None
               ) -> Optional[Tuple[PyTree, int]]:
     """The hot-state RAM rung, consulted first when the tier is armed:
-    one ``sys.modules`` lookup (the tier is ROADMAP A10 (c)).  Returns a
+    one ``sys.modules`` lookup (the tier is ROADMAP A10 (d)).  Returns a
     verified ``(state, step)`` or None; a broken tier never blocks a disk
     recovery."""
     mod = sys.modules.get(_PKG + ".hotstate")

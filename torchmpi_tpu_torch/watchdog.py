@@ -31,9 +31,10 @@ module is the NCCL-watchdog equivalent for the port, in three layers:
 Off by default and never imported when off: ``Config.watchdog`` is read
 as one string compare at plan build or site entry.  Dependency-free on
 purpose (no torch): the monitor must run while the runtime is what
-wedged.  The JAX package's elastic seams (``set_state`` for a parked or
-migrating rank, ``set_lease_dir`` for the gang's board as the lease home)
-come with their callers, ROADMAP A10 (c).
+wedged.  The elastic seams: :func:`set_lease_dir` (the gang adopts its
+membership board as the lease home), :func:`set_state` (a quorum-parked
+rank publishes ``"parked"``; ``"migrating"`` is the hot-state tier's,
+ROADMAP A10 (d)) and :func:`dead_ranks`, read by the gang's poll.
 """
 
 from __future__ import annotations
@@ -64,7 +65,7 @@ class CollectiveHangError(RuntimeError):
     policy (``is_timeout``) but NOT transient — retrying the very wait
     that wedged would re-wedge; the correct response is the recovery
     path (the restart loop's ``on_peer_timeout``, ``utils/restart.py``;
-    the elastic gang's shrink is ROADMAP A10 (c)).  Carries the site/op/seq/elapsed
+    the elastic gang's shrink, ``elastic.py``).  Carries the site/op/seq/elapsed
     attribution and the obs flight-ring tail when telemetry is active.
     """
 
@@ -150,6 +151,12 @@ _stop = threading.Event()
 # breaks, and could both reach the escalation exit.
 _gen = 0
 _last_lease = 0.0
+# Coarse driver state published in the lease ("running" | "parked"): the
+# elastic park loop sets "parked" (and the epoch it waits on), so
+# ``obs.tool blame --live`` tells a quorum-parked minority (fresh lease,
+# idle on purpose) from a stalled or dead rank.
+_state = "running"
+_state_detail = ""
 
 
 def mode() -> str:
@@ -167,6 +174,37 @@ def deadline_s() -> float:
 def lease_dir() -> Optional[str]:
     """Where this process's liveness leases land (None = disabled)."""
     return _lease_dir
+
+
+def set_lease_dir(directory: str) -> None:
+    """Point the armed watchdog's leases at ``directory`` (JAX :202): the
+    elastic gang adopts its membership board as the lease home when
+    ``watchdog_dir`` was left unset (the board is known only when the gang
+    is built).  Renews at once, so readers see the lease as soon as the
+    gang exists."""
+    global _lease_dir
+    with _lock:
+        _lease_dir = directory
+    os.makedirs(directory, exist_ok=True)
+    _write_lease(force=True)
+
+
+def set_state(state: str, detail: str = "") -> None:
+    """Publish a coarse driver state in the lease (JAX :216):
+    ``"running"`` by default, ``"parked"`` (with the epoch it waits on)
+    while a quorum-lost minority waits out a partition.  Renews at once; a
+    no-op when the watchdog is off."""
+    global _state, _state_detail
+    if _mode == "off":
+        return
+    with _lock:
+        _state = str(state)
+        _state_detail = str(detail)
+    _write_lease(force=True)
+
+
+def state() -> str:
+    return _state
 
 
 def stats() -> Dict[str, int]:
@@ -196,7 +234,8 @@ def activate(wd_mode: str, *, deadline_s: float, poll_s: float = 0.05,
     ``lease_dir`` is where the liveness leases land
     (``Config.watchdog_dir``); ``None`` disables leases, the in-process
     monitor still runs."""
-    global _mode, _deadline_s, _poll_s, _lease_dir, _rank, _thread
+    global _mode, _deadline_s, _poll_s, _lease_dir, _rank, _thread, \
+        _state, _state_detail
     if wd_mode not in ("warn", "break"):
         raise ValueError(
             f"watchdog mode must be warn|break, got {wd_mode!r}")
@@ -209,6 +248,7 @@ def activate(wd_mode: str, *, deadline_s: float, poll_s: float = 0.05,
         _deadline_s = float(deadline_s)
         _poll_s = float(poll_s)
         _rank = int(rank)
+        _state, _state_detail = "running", ""
         # Unconditional on purpose: re-activation with lease_dir=None
         # must DISABLE leases (not silently keep writing liveness into
         # a previous activation's — possibly another run's — board).
@@ -243,9 +283,10 @@ def deactivate() -> None:
     peers reading expiry as death evidence (``dead_ranks`` /
     ``ElasticGang.poll``) would shrink a live, healthy rank out of the
     gang just for turning its watchdog off."""
-    global _mode, _thread, _lease_dir, _gen
+    global _mode, _thread, _lease_dir, _gen, _state, _state_detail
     with _lock:
         _mode = "off"
+        _state, _state_detail = "running", ""
         _gen += 1  # any straggling monitor thread exits at its next tick
         th, _thread = _thread, None
         _inflight.clear()
@@ -461,8 +502,8 @@ def _scan() -> None:
 
 def _escalate(e: _InFlight, now: float) -> None:
     """The documented last resort: dump the evidence, tombstone the
-    lease, and exit cleanly, so the death is evidence a peer (and, with
-    ROADMAP A10 (c), the elastic gang) can act on."""
+    lease, and exit cleanly, so the death is evidence a peer (and the
+    elastic gang's poll, through :func:`dead_ranks`) can act on."""
     telemetry.emit("record_watchdog", "escalated", e.site, op=e.op,
                    seq=e.seq, elapsed_s=now - e.t0, peer=e.peer)
     _write_lease(force=True, escalated=True)
@@ -522,10 +563,7 @@ def _write_lease(force: bool = False, escalated: bool = False) -> None:
     payload = {"rank": _rank, "pid": os.getpid(), "mode": _mode,
                "deadline_s": _deadline_s, "ttl_s": ttl,
                "ts": time.time(), "inflight": snap,
-               # The JAX lease's driver state; the port's is always
-               # "running" (its "parked" / "migrating" writers are the
-               # elastic gang and the hot-state tier, ROADMAP A10 (c)).
-               "state": "running", "state_detail": "",
+               "state": _state, "state_detail": _state_detail,
                "stalled_total": stats["stalled"],
                "broken_total": stats["broken"],
                "escalated": bool(escalated or stats["escalated"])}
@@ -574,7 +612,7 @@ def lease_expired(lease: dict, now: Optional[float] = None) -> bool:
 def dead_ranks(directory: str, now: Optional[float] = None,
                newer_than: Optional[float] = None) -> List[int]:
     """Ranks whose lease is EXPIRED or tombstoned ``escalated`` — the
-    death evidence the JAX package's elastic gang folds into its
+    death evidence ``elastic.ElasticGang.poll`` folds into its
     membership verdict.  A rank that never leased is not evidence
     (absence proves nothing), and with ``newer_than`` (a wall-clock
     floor — a driver passes its own construction time)
