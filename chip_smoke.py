@@ -126,7 +126,7 @@ JAX package.  In order it:
    of each leg, and one more update's device time by kernel
    (torch.profiler);
    then the restart phase (restart_zero, the main path of the checkpoint
-   slice): the same ZeRO-1 flagship at depth 2 (rows 1-6, 9 and 10), each
+   slice): the same ZeRO-1 flagship at depth 1 (rows 1-6, 9 and 10), each
    step's 4
    losses read to the host and reduced by the staged rank-major
    allreduce, (a) 6 steps through restart.run_with_restarts, a buddy
@@ -143,7 +143,7 @@ JAX package.  In order it:
    into a data-less template, a 2-shard template raising by name, the
    files read with plain numpy / json; seconds and GB/s each way;
    then the elastic phase (elastic_zero, the main path of the elastic
-   slice): the same ZeRO-1 flagship at depth 2 as an elastic gang of 4
+   slice): the same ZeRO-1 flagship at depth 1 as an elastic gang of 4
    members (elastic.run_elastic), member 2 killed at step 5 by the chaos
    tool's --shrink 2:5:4: info shrinks 1, view (0, 1, 3), the Adam
    moments re-partitioned over 3 rows, the n = 3 losses and the state at
@@ -155,6 +155,21 @@ JAX package.  In order it:
    n = 3 within 1e-4 of replicated Adam; the save, recovery, reconcile
    and re-partition seconds and the step ms at n 4 and n 3; the runtime
    is started again after it;
+   then the hot-state phase (hotstate_zero, the main path of the hot-state
+   slice): the same gang at depth 2 with Config.hotstate "on" and
+   hotstate.enable at the end of step 3, the state streamed to the
+   buddy's RAM after every step from there (a snapshot every 3rd, deltas
+   packed on the card between): (a) --shrink 2:5:4 recovers step 5 from
+   RAM, bitwise the true state and a clean 3-member run from it, the
+   n = 3 ring calls bitwise; (b) a gang of members 1-4 of slots 0-4 under
+   the same kill with step 3's snapshot rotted at hotstate.recv falls to
+   disk step 4, counted; (c) then member 1 drained onto spare slot 0 at
+   step 6 (hotstate.migrate) with the lease "migrating" and blame --live
+   showing it, the spare resumed at step 6 from its RAM, (b) and (c)
+   bitwise a clean run from step 4; (d) the card's pack of the real state
+   byte-equal to the numpy pack; the blob and state bytes, corrections,
+   publish seconds by part, restore seconds and step ms with the tier off
+   and armed;
 9. ResNet-50 phase (the main path of the CNN slice): ResNet-50 at full
    width and depth (224 x 224, 1000 classes, bf16 compute, float32
    parameters) as the BatchNorm DP recipe
@@ -2412,10 +2427,12 @@ def zero_dp_phase(torch, mpi, ops, dev, ring_sync_ms):
 # RZ_KEEP + 1 steps with their mirrors (the newest is written before the
 # oldest is pruned); (a)'s files are gone before (b)'s sharded save.
 RZ_STEPS, RZ_SAVE_EVERY, RZ_KEEP = 6, 2, 2
-# The flagship's widths at depth 2: restart_zero, elastic_zero and
-# guard_dp (the saves' disk writes and digests were most of restart_zero
-# at depth 8).
+# The flagship's widths at depth 2: guard_dp and hotstate_zero; at depth 1:
+# restart_zero and elastic_zero (the saves' disk writes and digests are
+# most of their seconds; depth 8, then 2, then 1 kept the script inside
+# its limit as phases were added).
 LM_D2 = dict(LM, depth=2)
+LM_D1 = dict(LM, depth=1)
 RZ_STALL_STEP = 5
 RZ_RECOVERED_STEP = 4
 RZ_WD_DEADLINE_S = 1.0
@@ -2485,7 +2502,7 @@ def zero1_step(torch, mpi, model, tok, members, views, flats, opt, tx):
 
 def restart_zero_phase(torch, mpi, ops, dev):
     """The checkpoint slice's main path on zero_dp's ZeRO-1 flagship.  A
-    step: rank r's gradients of sequence r into the [4, 486,731,776] stack,
+    step: rank r's gradients of sequence r into the [4, shard] stack,
     zero.update_rank_major under backend "pallas" (rows 9 and 10, the
     fused loss rows 4-6 and flash rows 1-3 in the ranks' steps), then the
     4 losses read to the host and reduced by the staged rank-major
@@ -2509,7 +2526,7 @@ def restart_zero_phase(torch, mpi, ops, dev):
     zero, fusion = mpi.parallel.zero, mpi.fusion
     n = RING_N
     g = torch.Generator(device=dev).manual_seed(SEED + 6)
-    model = mpi.models.TransformerLM(**LM_D2, attn_impl="flash",
+    model = mpi.models.TransformerLM(**LM_D1, attn_impl="flash",
                                      dtype=torch.bfloat16, device=dev,
                                      generator=g)
     tok = torch.randint(0, LM["vocab"], (BATCH, SEQ), generator=g,
@@ -2790,91 +2807,91 @@ def restart_zero_phase(torch, mpi, ops, dev):
     return launches
 
 
-# elastic_zero: restart_zero's ZeRO-1 Adam flagship at depth 2 as an
-# elastic gang of RING_N members (one rank-major row each) under
-# ``faults/tool.py --shrink EZ_KILL`` (member 2 dies at step 5): the gang
-# shrinks to 3, the moments re-partitioned over 3 rows, and member 2 admits
-# itself back once step EZ_REJOIN_AFTER - 1 ran at n = 3.
-EZ_STEPS, EZ_SAVE_EVERY = 8, 2
-EZ_KILL = (2, 5, RING_N)  # member, step, members
-EZ_RECOVERED_STEP = 4
-EZ_REJOIN_AFTER = 6
-# The ring rows a tapped call may launch, by verb (the chunked row under
-# the default chunk_bytes, the resident one above it).
-EZ_ROWS_BY_VERB = {
-    "reduce_scatter": ("ring_reduce_scatter_chunked", "ring_reduce_scatter"),
-    "all_gather": ("ring_all_gather_chunked", "ring_all_gather")}
+class ZeroGang:
+    """restart_zero's ZeRO-1 Adam flagship (at ``lm``'s depth: 1 in
+    elastic_zero, 2 in hotstate_zero) as an elastic gang of rank-major rows:
+    the model, the batch and the initial parameters, made once from
+    SEED + 6; :meth:`build_for` is
+    ``elastic.run_elastic``'s ``build`` for one run, recording into
+    ``record`` (losses by step, step ms by n, re-partition seconds).  The
+    state the checkpoints and the hot tier hold is topology portable: the
+    parameters and the full Adam moments; a view's build re-derives the
+    [n, shard] moments (the re-partition)."""
 
+    def __init__(self, torch, mpi, ring, dev, log, what, lm):
+        self.torch, self.mpi, self.ring, self.dev = torch, mpi, ring, dev
+        self.log, self.what, self.lm = log, what, lm
+        g = torch.Generator(device=dev).manual_seed(SEED + 6)
+        self.model = mpi.models.TransformerLM(
+            **lm, attn_impl="flash", dtype=torch.bfloat16, device=dev,
+            generator=g)
+        self.tok = torch.randint(0, LM["vocab"], (BATCH, SEQ), generator=g,
+                                 device=dev)
+        self.params = list(self.model.parameters())
+        self.p_init = [p.detach().clone() for p in self.params]
+        self.total = sum(p.numel() for p in self.params)
+        self.tx = mpi.optim.adam(ZERO_LR)
+        self.param_bytes = sum(p.numel() * p.element_size()
+                               for p in self.params)
 
-def elastic_zero_phase(torch, mpi, ops, dev):
-    """The elastic slice's main path: restart_zero's ZeRO-1 Adam step
-    (zero.update_rank_major, backend "pallas": rows 9 and 10; the fused
-    loss rows 4-6 and flash rows 1-3 in the members' steps) at depth 2,
-    member m the row of sequence m, through ``elastic.run_elastic`` with
-    ``Config.elastic`` "on" (ckpt_redundancy off), the kernel counters set
-    to 0 just before and read just after.  The state the checkpoints hold
-    is topology portable: the parameters and the full Adam moments; a
-    view's build re-derives the [n, shard] moments (the re-partition).
-    (a) ``--shrink 2:5:4``: member 2 dies at step 5; info shrinks 1,
-    view (0, 1, 3), the moments over 3 rows; the n = 3 losses and the
-    state at the rejoin boundary bitwise to a clean 3-member run restored
-    from a copy of the recovered step's checkpoint.  (b) Member 2's
-    ``elastic.admit`` (a thread) once step EZ_REJOIN_AFTER - 1 ran at n = 3:
-    the gang grows back to (0, 1, 2, 3) at the next boundary, the joiner's
-    checkpoint file seeded through ``checkpoint.replicate_for`` (byte for
-    byte the survivor's), and the steps after it bitwise to a clean
-    4-member run from that boundary's checkpoint.  (c) Every row 9 / 10
-    call at n = 3 bitwise to the plain ring (the selector's routes tapped)
-    and launching the row it reports; one ZeRO-1 update at n = 3 against a
-    replicated Adam update from the same state: rel. L2 <= ZERO_RTOL.
-    The last run ends with the whole gang, which hands back init's world.
-    Reports the save, recovery, reconcile and re-partition seconds and
-    the step ms at n 4 and n 3.  Every check raises."""
-    import shutil
-    import tempfile
-    import threading
+    def load(self, new):
+        with self.torch.no_grad():
+            for p, v in zip(self.params, new):
+                p.copy_(v)
 
-    from torchmpi_tpu_torch import elastic, optim
-    from torchmpi_tpu_torch.faults import membership
-    from torchmpi_tpu_torch.faults import tool as ftool
-    from torchmpi_tpu_torch.utils import checkpoint, restart
+    def snapshot(self, state):
+        """A copy of ``state`` on the card: parameters, count, moments."""
+        o = state["opt"]
+        return {"params": [p.detach().clone() for p in state["params"]],
+                "count": int(o.count), "mu": o.mu.clone(),
+                "nu": o.nu.clone()}
 
-    ring = ops["ring"]
-    zero, fusion = mpi.parallel.zero, mpi.fusion
-    g = torch.Generator(device=dev).manual_seed(SEED + 6)
-    model = mpi.models.TransformerLM(**LM_D2, attn_impl="flash",
-                                     dtype=torch.bfloat16, device=dev,
-                                     generator=g)
-    tok = torch.randint(0, LM["vocab"], (BATCH, SEQ), generator=g,
-                        device=dev)
-    params = list(model.parameters())
-    p_init = [p.detach().clone() for p in params]
-    total = sum(p.numel() for p in params)
-    tx = mpi.optim.adam(ZERO_LR)
-    param_bytes = sum(p.numel() * p.element_size() for p in params)
+    def clean_run(self, state, step, members, steps, record,
+                  rows_by="member"):
+        """A clean run from ``state`` (the true or a restored state) at
+        ``step`` to ``steps``: the view's program (:meth:`build_for`)
+        stepped as ``run_elastic`` would after restoring it, with no
+        checkpoint, fault or hot tier.  Returns the final state's
+        :meth:`snapshot`."""
+        from torchmpi_tpu_torch import optim
+        from torchmpi_tpu_torch.faults.membership import MembershipView
 
-    @torch.no_grad()
-    def load(new):
-        for p, v in zip(params, new):
-            p.copy_(v)
+        comm = self.mpi.runtime.resize_world(list(members))
+        _, step_fn = self.build_for(record, rows_by=rows_by)(
+            comm, MembershipView(epoch=0, members=tuple(members), step=step))
+        o = state["opt"]
+        st = {"params": state["params"],
+              "opt": optim.AdamState(int(o.count), o.mu, o.nu)}
+        for i in range(step, steps):
+            st = step_fn(st, i)
+        return self.snapshot(st)
 
-    rows = ZERO_ROWS["chunked"]
-    log = TapLog()
-    rec = {"losses": {}, "step_ms": {}, "repartition_s": [], "rep": None,
-           "rep_launches": {}}
-    rejoin_go = threading.Event()
-    world0 = mpi.runtime.world_communicator()
+    def build_for(self, record, *, check_n=None, after_step=None,
+                  rows_by="member"):
+        """``check_n``: at that member count the ring calls are compared
+        with the plain ring (``log.check``) and the first step's update is
+        held to a replicated Adam update (``record["rep"]``, its launches
+        in ``record["rep_launches"]``, its seconds left out of the step's).
+        ``after_step(n, i, state)`` runs after step ``i``'s losses are read.
+        ``rows_by`` "member": member m computes sequence m; "position": the
+        k-th member of the view computes sequence k (a spare seated in a
+        drained member's place)."""
+        torch, mpi, dev, log = self.torch, self.mpi, self.dev, self.log
+        from torchmpi_tpu_torch import optim
 
-    def build_for(record):
+        ring, zero, fusion = self.ring, mpi.parallel.zero, mpi.fusion
+        params, total, tx = self.params, self.total, self.tx
+
         def build(comm, view):
             members = view.members
             n = len(members)
             check(comm.fixed_size() == n
                   and mpi.runtime.world_rows() == tuple(members),
-                  f"elastic_zero: world {comm} for view {view}")
+                  f"{self.what}: world {comm} for view {view}")
+            seqs = members if rows_by == "member" else range(n)
             t0 = time.perf_counter()
             spec = zero.flat_spec(params, n_shards=n)
-            check(len(spec.groups) == 1, "elastic_zero: one dtype group")
+            check(len(spec.groups) == 1, f"{self.what}: one dtype group")
             flats, views = fusion.rank_major_buffers(spec, n, device=dev)
             torch.cuda.synchronize()
             build_s = time.perf_counter() - t0
@@ -2885,7 +2902,7 @@ def elastic_zero_phase(torch, mpi, ops, dev):
                         n, spec.shard)
 
             def init_fn():
-                load(p_init)
+                self.load(self.p_init)
                 z = torch.zeros(total, dtype=spec.dtype, device=dev)
                 return {"params": params,
                         "opt": optim.AdamState(0, z, z.clone())}
@@ -2900,7 +2917,7 @@ def elastic_zero_phase(torch, mpi, ops, dev):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 if state["params"] is not params:
-                    load(state["params"])
+                    self.load(state["params"])
                 o = state["opt"]
                 opt = (held["opt"] if o.mu is held["mu"] else
                        optim.AdamState(int(o.count), shards(o.mu),
@@ -2911,16 +2928,15 @@ def elastic_zero_phase(torch, mpi, ops, dev):
                         {"n": n, "seconds": build_s + time.perf_counter()
                          - t0})
                 log.label = f"n{n}"
-                log.check = record is rec and n == EZ_KILL[2] - 1
+                log.check = check_n == n
                 p0 = (fusion.flatten_tree(params, spec).detach()
                       if first[0] and log.check else None)
-                nopt, losses = zero1_step(torch, mpi, model, tok, members,
-                                          views, flats, opt, tx)
+                nopt, losses = zero1_step(torch, mpi, self.model, self.tok,
+                                          seqs, views, flats, opt, tx)
                 if p0 is not None:
-                    # One ZeRO-1 update at n = 3 against a replicated Adam
-                    # update from the same parameters, state and stack
-                    # (zero_dp's check), its launches and its seconds set
-                    # aside.
+                    # One ZeRO-1 update against a replicated Adam update
+                    # from the same parameters, state and stack (zero_dp's
+                    # check), its launches and its seconds set aside.
                     torch.cuda.synchronize()
                     t_check = time.perf_counter()
                     log.check = False
@@ -2954,24 +2970,95 @@ def elastic_zero_phase(torch, mpi, ops, dev):
                 torch.cuda.synchronize()
                 record["step_ms"].setdefault(f"n{n}", []).append(
                     (time.perf_counter() - t0) * 1e3)
-                if record is rec and n == EZ_KILL[2] - 1 \
-                        and i + 1 == EZ_REJOIN_AFTER:
-                    rejoin_go.set()
-                    board = membership.Board(os.path.join(ckpt_dir,
-                                                          "membership"))
-                    t1 = time.monotonic()
-                    while EZ_KILL[0] not in board.join_requests():
-                        check(time.monotonic() - t1 < 60,
-                              "elastic_zero (b): the join never landed")
-                        time.sleep(0.01)
                 held["opt"] = nopt
                 held["mu"] = nopt.mu.reshape(-1)[:total]
-                return {"params": params, "opt": optim.AdamState(
+                out = {"params": params, "opt": optim.AdamState(
                     nopt.count, held["mu"], nopt.nu.reshape(-1)[:total])}
+                if after_step is not None:
+                    after_step(n, i, out)
+                return out
 
             return init_fn, step_fn
 
         return build
+
+
+# elastic_zero: restart_zero's ZeRO-1 Adam flagship at depth 1 as an
+# elastic gang of RING_N members (one rank-major row each) under
+# ``faults/tool.py --shrink EZ_KILL`` (member 2 dies at step 5): the gang
+# shrinks to 3, the moments re-partitioned over 3 rows, and member 2 admits
+# itself back once step EZ_REJOIN_AFTER - 1 ran at n = 3.
+EZ_STEPS, EZ_SAVE_EVERY = 8, 2
+EZ_KILL = (2, 5, RING_N)  # member, step, members
+EZ_RECOVERED_STEP = 4
+EZ_REJOIN_AFTER = 6
+# The ring rows a tapped call may launch, by verb (the chunked row under
+# the default chunk_bytes, the resident one above it).
+EZ_ROWS_BY_VERB = {
+    "reduce_scatter": ("ring_reduce_scatter_chunked", "ring_reduce_scatter"),
+    "all_gather": ("ring_all_gather_chunked", "ring_all_gather")}
+
+
+def elastic_zero_phase(torch, mpi, ops, dev):
+    """The elastic slice's main path: restart_zero's ZeRO-1 Adam step
+    (zero.update_rank_major, backend "pallas": rows 9 and 10; the fused
+    loss rows 4-6 and flash rows 1-3 in the members' steps) at depth 1,
+    member m the row of sequence m, through ``elastic.run_elastic`` with
+    ``Config.elastic`` "on" (ckpt_redundancy off), the kernel counters set
+    to 0 just before and read just after.  The state the checkpoints hold
+    is topology portable: the parameters and the full Adam moments; a
+    view's build re-derives the [n, shard] moments (the re-partition).
+    (a) ``--shrink 2:5:4``: member 2 dies at step 5; info shrinks 1,
+    view (0, 1, 3), the moments over 3 rows; the n = 3 losses and the
+    state at the rejoin boundary bitwise to a clean 3-member run stepped
+    from the recovered step's checkpoint (``ZeroGang.clean_run``).  (b)
+    Member 2's
+    ``elastic.admit`` (a thread) once step EZ_REJOIN_AFTER - 1 ran at n = 3:
+    the gang grows back to (0, 1, 2, 3) at the next boundary, the joiner's
+    checkpoint file seeded through ``checkpoint.replicate_for`` (byte for
+    byte the survivor's), and the steps after it bitwise to a clean
+    4-member run from that boundary's checkpoint.  (c) Every row 9 / 10
+    call at n = 3 bitwise to the plain ring (the selector's routes tapped)
+    and launching the row it reports; one ZeRO-1 update at n = 3 against a
+    replicated Adam update from the same state: rel. L2 <= ZERO_RTOL.
+    The main run ends with the whole gang, which hands back init's world.
+    Reports the save, recovery, reconcile and re-partition seconds and
+    the step ms at n 4 and n 3.  Every check raises."""
+    import shutil
+    import tempfile
+    import threading
+
+    from torchmpi_tpu_torch import elastic, optim
+    from torchmpi_tpu_torch.faults import membership
+    from torchmpi_tpu_torch.faults import tool as ftool
+    from torchmpi_tpu_torch.utils import checkpoint, restart
+
+    ring = ops["ring"]
+    log = TapLog()
+    gang = ZeroGang(torch, mpi, ring, dev, log, "elastic_zero", LM_D1)
+    params, total = gang.params, gang.total
+    param_bytes = gang.param_bytes
+    rows = ZERO_ROWS["chunked"]
+    rec = {"losses": {}, "step_ms": {}, "repartition_s": [], "rep": None,
+           "rep_launches": {}}
+    rejoin_go = threading.Event()
+    world0 = mpi.runtime.world_communicator()
+
+    def rejoin_signal(n, i, _state):
+        if n == EZ_KILL[2] - 1 and i + 1 == EZ_REJOIN_AFTER:
+            rejoin_go.set()
+            board = membership.Board(os.path.join(ckpt_dir, "membership"))
+            t1 = time.monotonic()
+            while EZ_KILL[0] not in board.join_requests():
+                check(time.monotonic() - t1 < 60,
+                      "elastic_zero (b): the join never landed")
+                time.sleep(0.01)
+
+    def build_for(record):
+        if record is rec:
+            return gang.build_for(record, check_n=EZ_KILL[2] - 1,
+                                  after_step=rejoin_signal)
+        return gang.build_for(record)
 
     work = tempfile.mkdtemp(prefix="elastic_zero_")
     ckpt_dir = os.path.join(work, "ckpt")
@@ -2979,7 +3066,7 @@ def elastic_zero_phase(torch, mpi, ops, dev):
     disk = shutil.disk_usage(work)
     need = 9 * save_est
     out = {"phase": "elastic_zero", "members": RING_N,
-           "depth": LM_D2["depth"], "optimizer": f"adam({ZERO_LR})",
+           "depth": LM_D1["depth"], "optimizer": f"adam({ZERO_LR})",
            "steps": EZ_STEPS, "save_every": EZ_SAVE_EVERY,
            "shrink": "%d:%d:%d" % EZ_KILL,
            "rejoin_after_step": EZ_REJOIN_AFTER, "params": total,
@@ -3066,59 +3153,50 @@ def elastic_zero_phase(torch, mpi, ops, dev):
                                              for e in n3),
                 "elems_a_rank": sorted({e["elems"] for e in n3})}
 
-        # (a) a clean 3-member run from a copy of the recovered step's
-        # checkpoint, to the rejoin boundary; its state against the
-        # boundary's checkpoint.
-        def copy_ckpt(step, dst):
-            os.makedirs(dst, exist_ok=True)
-            for f in os.listdir(ckpt_dir):
-                if f.startswith(f"ckpt_{step}_p0."):
-                    shutil.copy(os.path.join(ckpt_dir, f),
-                                os.path.join(dst, f))
-            return dst
+        world_after = {"rows": mpi.runtime.world_rows(),
+                       "init_world": mpi.runtime.world_communicator()
+                       is world0}
+        tmpl = {"params": [torch.empty_like(p) for p in params],
+                "opt": optim.AdamState(0, torch.empty_like(el_mu),
+                                       torch.empty_like(el_nu))}
 
+        # (a) a clean 3-member run from the recovered step's checkpoint to
+        # the rejoin boundary; its state against the boundary's checkpoint.
         survivors = [m for m in range(RING_N) if m != EZ_KILL[0]]
         clean3 = {"losses": {}, "step_ms": {}, "repartition_s": [],
                   "rep": None, "rep_launches": {}}
-        st3, info3 = elastic.run_elastic(
-            build_for(clean3), steps=b,
-            directory=copy_ckpt(r, os.path.join(work, "clean3")),
-            save_every=10 ** 6, members=survivors, world_size=RING_N)
-        tmpl = {"params": [torch.empty_like(p) for p in params],
-                "opt": optim.AdamState(0, torch.empty_like(st3["opt"].mu),
-                                       torch.empty_like(st3["opt"].nu))}
-        at_b = checkpoint.restore(ckpt_dir, tmpl, step=b)
+        st3 = gang.clean_run(checkpoint.restore(ckpt_dir, tmpl, step=r), r,
+                             survivors, b, clean3)
+        at_b = gang.snapshot(checkpoint.restore(ckpt_dir, tmpl, step=b))
         bit_a = {"losses": [rec["losses"][i] for i in range(r, b)]
                  == [clean3["losses"][i] for i in range(r, b)],
                  "params": all(torch.equal(x, y) for x, y in
-                               zip(at_b["params"], params)),
-                 "mu": torch.equal(at_b["opt"].mu, st3["opt"].mu),
-                 "nu": torch.equal(at_b["opt"].nu, st3["opt"].nu),
-                 "count": int(at_b["opt"].count) == int(st3["opt"].count)}
-        del st3, at_b, tmpl
-        shutil.rmtree(os.path.join(work, "clean3"), ignore_errors=True)
+                               zip(at_b["params"], st3["params"])),
+                 "mu": torch.equal(at_b["mu"], st3["mu"]),
+                 "nu": torch.equal(at_b["nu"], st3["nu"]),
+                 "count": at_b["count"] == st3["count"]}
+        del st3
         torch.cuda.empty_cache()
 
-        # (b) a clean 4-member run from a copy of the boundary's
-        # checkpoint to the end.
+        # (b) a clean 4-member run from the boundary's checkpoint to the
+        # end.
         clean4 = {"losses": {}, "step_ms": {}, "repartition_s": [],
                   "rep": None, "rep_launches": {}}
-        st4, info4 = elastic.run_elastic(
-            build_for(clean4), steps=EZ_STEPS,
-            directory=copy_ckpt(b, os.path.join(work, "clean4")),
-            save_every=10 ** 6, members=range(RING_N), world_size=RING_N)
+        st4 = gang.clean_run(
+            {"params": at_b["params"], "opt": optim.AdamState(
+                at_b["count"], at_b["mu"], at_b["nu"])},
+            b, range(RING_N), EZ_STEPS, clean4)
         bit_b = {"losses": [rec["losses"][i] for i in range(b, EZ_STEPS)]
                  == [clean4["losses"][i] for i in range(b, EZ_STEPS)],
                  "params": all(torch.equal(x, y) for x, y in
-                               zip(el_params, params)),
-                 "mu": torch.equal(el_mu, st4["opt"].mu),
-                 "nu": torch.equal(el_nu, st4["opt"].nu)}
-        del st4, el_params, el_mu, el_nu
+                               zip(el_params, st4["params"])),
+                 "mu": torch.equal(el_mu, st4["mu"]),
+                 "nu": torch.equal(el_nu, st4["nu"])}
+        del st4, at_b, tmpl, el_params, el_mu, el_nu
+        mpi.runtime.restore_world()
         info_js = dict(info, view=info["view"].to_json())
         out.update(
-            world_after={"rows": mpi.runtime.world_rows(),
-                         "init_world": mpi.runtime.world_communicator()
-                         is world0},
+            world_after=world_after,
             info=info_js, run_seconds=run_s, joined=joined,
             losses=[rec["losses"][i] for i in sorted(rec["losses"])],
             moments_rows={"n3": [EZ_KILL[2] - 1],
@@ -3126,8 +3204,6 @@ def elastic_zero_phase(torch, mpi, ops, dev):
             seconds=seconds, step_ms=rec["step_ms"],
             median_step_ms={k: statistics.median(v)
                             for k, v in rec["step_ms"].items()},
-            clean3_info=dict(info3, view=info3["view"].to_json()),
-            clean4_info=dict(info4, view=info4["view"].to_json()),
             bitwise_shrink_vs_clean3=bit_a, bitwise_rejoin_vs_clean4=bit_b,
             n3_ring_calls=taps, replicated_at_n3=rec["rep"],
             replicated_tolerance=ZERO_RTOL, launches=launches,
@@ -3171,6 +3247,474 @@ def elastic_zero_phase(torch, mpi, ops, dev):
     check(out["world_after"] == {"rows": None, "init_world": True},
           f"elastic_zero: the whole gang left the world {out['world_after']}"
           f", not init's")
+    return launches
+
+
+# hotstate_zero: elastic_zero's gang (ZeroGang: restart_zero's ZeRO-1 Adam
+# flagship at depth 2, RING_N members, one rank-major row each) through
+# elastic.run_elastic with the hot-state tier armed (Config.hotstate "on",
+# hotstate.enable at the end of step HZ_ARM_STEP: from there the process
+# streams the gang's full state as its first member to the next member's
+# RAM after every step, a full snapshot every HZ_INTERVAL-th, deltas packed
+# on the card between).  Run A: `--shrink 2:5:4` recovers from RAM at step
+# HZ_RAM_STEP (the disk holds EZ_RECOVERED_STEP), (d) on its first delta.
+# Run B: members 1-4 of slots 0-4 (row k computes sequence k, so a spare
+# seated in a member's place computes what it did), the same kill (the
+# member at arrival position 2, member 3) with step 3's snapshot rotted at
+# hotstate.recv: recovery falls to the disk; then member 1 (the streaming
+# member) is drained onto spare slot 0 at step HZ_STEPS.
+HZ_INTERVAL = 3       # from step 3: a snapshot, deltas at 4 and 5
+HZ_ARM_STEP = 3
+HZ_STEPS = 6          # one step at n = 3 after the kill in A, two in B
+HZ_SAVE_EVERY = 4     # the disk holds step 4 (EZ_RECOVERED_STEP) at the kill
+HZ_RAM_STEP = 5
+HZ_CORRUPT = "hotstate.recv:corrupt_silent:1:1"  # B's first receipt
+HZ_MEMBERS_B, HZ_SLOTS_B, HZ_SPARE = (1, 2, 3, 4), 5, 0
+HZ_WD_DEADLINE_S = 120.0
+HZ_CHECK_THREADS = 3  # (d): the numpy pack, leaves in parallel, beside A
+# Per float32 element of a delta, at most: the int8 payload, and an index
+# (int64) and a value (float32) of its correction.
+HZ_DELTA_BYTES_PER_F32 = 1 + 8 + 4
+
+
+def hotstate_zero_phase(torch, mpi, ops, dev):
+    """The hot-state slice's main path: elastic_zero's ZeRO-1 gang
+    (ZeroGang at depth 2; rows 9 and 10 in the update, the fused loss rows
+    4-6 and flash rows 1-3 in the members' steps) through
+    ``elastic.run_elastic`` under ``Config(hotstate="on", elastic="on")``
+    and ``hotstate.enable`` (at the end of step 3), the kernel counters set
+    to 0 just before each main run and read just after.  (a) Run A,
+    ``--shrink 2:5:4``: recovery settles on step 5 from RAM
+    (``tm_hotstate_restored_total`` 1, ``fallback_disk`` 0 at that
+    recovery), the restored state bitwise the true step-5 state, the n = 3
+    loss and final state bitwise a clean 3-member run from it, every row 9
+    / 10 call at n = 3 bitwise to the plain ring.  (b) Run B, the same kill
+    with step 3's snapshot rotted at ``hotstate.recv``: the three
+    candidates fail their digest, recovery settles on disk step 4
+    (``verify_failed`` >= 1, ``fallback_disk`` 1).  (c) Then
+    ``hotstate.migrate`` drains member 1 onto spare slot 0 at step 6 under
+    watchdog "warn" (the disk's step 6 removed first): the migrated state
+    bitwise the source's, the lease ``migrating`` with ``rank 1 -> rank
+    0`` during the drain (``obs/tool.py blame --live`` renders it) and
+    ``running`` after, the spare's run resumed at step 6 from its primed
+    RAM; run B and the spare's step bitwise a clean run from the disk's
+    step 4.  (d) On A's first delta the card's pack of the real state is
+    byte-equal to the numpy pack (taken beside A on host copies).  The
+    clean runs step the view's program from the true state (no disk, the
+    tier off).  Reports the settings, the state's and blobs' bytes, the
+    corrections per leaf kind, the publish seconds by part, the restore
+    seconds and the step ms with the tier off and armed.  Every check
+    raises."""
+    import contextlib
+    import io
+    import math
+    import shutil
+    import tempfile
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from torchmpi_tpu_torch import elastic, hotstate, obs, optim, watchdog
+    from torchmpi_tpu_torch.faults import tool as ftool
+    from torchmpi_tpu_torch.obs import tool as otool
+    from torchmpi_tpu_torch.utils import restart
+
+    ring = ops["ring"]
+    log = TapLog()
+    gang = ZeroGang(torch, mpi, ring, dev, log, "hotstate_zero", LM_D2)
+    total, param_bytes = gang.total, gang.param_bytes
+    rows = ZERO_ROWS["chunked"]
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "xent_fwd",
+             "xent_bwd_dx", "xent_bwd_dw") + rows
+    state_bytes = param_bytes + 2 * total * 4 + 8
+    delta_est = param_bytes * HZ_DELTA_BYTES_PER_F32 // 4 + 2 * (
+        total * HZ_DELTA_BYTES_PER_F32 + 12) + 8
+    gen_est = state_bytes + (HZ_INTERVAL - 1) * delta_est
+    budget_mb = math.ceil(2 * gen_est / (1 << 20))
+    with open("/proc/meminfo") as f:
+        avail = next(int(ln.split()[1]) * 1024 for ln in f
+                     if ln.startswith("MemAvailable:"))
+    check(avail >= 2 * gen_est + 6 * state_bytes,
+          f"hotstate_zero: {avail} bytes of host RAM free, "
+          f"{2 * gen_est + 6 * state_bytes} needed")
+    work = tempfile.mkdtemp(prefix="hotstate_zero_")
+    disk = shutil.disk_usage(work)
+    need = 6 * state_bytes
+    check(disk.free >= need, f"hotstate_zero: {disk.free} bytes free under "
+          f"{work}, {need} needed")
+    src, spare = HZ_MEMBERS_B[0], HZ_SPARE
+    out = {"phase": "hotstate_zero", "members": RING_N,
+           "depth": LM_D2["depth"], "optimizer": f"adam({ZERO_LR})",
+           "params": total, "state_bytes": state_bytes,
+           "hotstate_interval": HZ_INTERVAL, "hotstate_budget_mb": budget_mb,
+           "armed_after_step": HZ_ARM_STEP, "generation_bytes_est": gen_est,
+           "steps": HZ_STEPS, "save_every": HZ_SAVE_EVERY,
+           "shrink": "%d:%d:%d" % EZ_KILL, "corrupt_rule": HZ_CORRUPT,
+           "migrate": {"source": src, "spare": spare, "step": HZ_STEPS},
+           "host_ram_free": avail}
+    launches = {nm: 0 for nm in names}
+    clock = _Clock()
+    publishes, restores, recovers = [], [], []
+    pack_check, truth = {}, {}
+    cur = {"run": ""}
+    world0 = mpi.runtime.world_communicator()
+
+    def counters():
+        reg = obs.registry()
+        return {e: reg.counter_total(f"tm_hotstate_{e}_total")
+                for e in ("streamed", "received", "dropped", "restored",
+                          "verify_failed", "fallback_disk", "peer_lost",
+                          "migrated")}
+
+    def arm(label, world, rank):
+        """A fresh replicator, its publish timed by part."""
+        rep = hotstate.enable(world, rank=rank, interval=HZ_INTERVAL,
+                              budget_mb=budget_mb)
+        orig = rep.publish
+
+        def timed(state, step, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            orig(state, step, **kw)
+            publishes.append(dict(rep.timings, run=label, step=step,
+                                  total_s=time.perf_counter() - t0))
+        rep.publish = timed
+        return rep
+
+    def main_run(label, build, **kw):
+        cur["run"] = label
+        torch.cuda.synchronize()
+        for mod in ops.values():
+            mod.reset_launches()
+        got = elastic.run_elastic(build, **kw)
+        torch.cuda.synchronize()
+        for nm in names:
+            launches[nm] += sum(mod.LAUNCHES.get(nm, 0)
+                                for mod in ops.values())
+        return got
+
+    snapshot = gang.snapshot
+
+    def same(a, b):
+        return {"params": all(torch.equal(x, y) for x, y in
+                              zip(a["params"], b["params"])),
+                "mu": torch.equal(a["mu"], b["mu"]),
+                "nu": torch.equal(a["nu"], b["nu"]),
+                "count": a["count"] == b["count"]}
+
+    def clean_run(snap, step, members, steps, rows_by, name):
+        """A clean run (the tier off, no faults, no disk) from the true
+        state ``snap`` at ``step``."""
+        hotstate.disable()
+        cur["run"] = name
+        record = {"losses": {}, "step_ms": {}, "repartition_s": []}
+        return gang.clean_run(
+            {"params": snap["params"],
+             "opt": optim.AdamState(snap["count"], snap["mu"], snap["nu"])},
+            step, members, steps, record, rows_by), record
+
+    def after(label, world, rank, keep=()):
+        """``after_step`` of a main run: arm the tier at the end of step
+        HZ_ARM_STEP, and keep the true state after each step in ``keep``
+        (by step)."""
+        def fn(n, i, state):
+            if i + 1 in keep:
+                truth[(label, i + 1)] = snapshot(state)
+            if i + 1 == HZ_ARM_STEP and not hotstate.active():
+                arm(label, world, rank)
+        return fn
+
+    def leaf_np(pair):
+        x, b = pair
+        with np.errstate(invalid="ignore", over="ignore"):
+            return hotstate._pack_delta_np([x], [b])
+
+    def numpy_check(blob, host_new, host_base):
+        # The numpy pack of the same leaves, one leaf a task: the blob is
+        # the leaves' chunks in order.
+        t0 = time.perf_counter()
+        off, equal = 0, True
+        with ThreadPoolExecutor(HZ_CHECK_THREADS) as ex:
+            for want in ex.map(leaf_np, zip(host_new, host_base)):
+                equal &= bool(np.array_equal(blob[off:off + want.size],
+                                             want))
+                off += want.size
+        pack_check.update(byte_equal=equal and off == blob.size,
+                          blob_bytes=int(blob.nbytes), numpy_blob_bytes=off,
+                          check_seconds=time.perf_counter() - t0)
+
+    try:
+        mpi.set_config(elastic="on", hotstate="on", obs="metrics",
+                       obs_dir=os.path.join(work, "obs"))
+        obs.reset()
+        orig_recover = restart.recover
+
+        def timed_recover(*a, **k):
+            c0 = counters()
+            t0 = time.perf_counter()
+            try:
+                return orig_recover(*a, **k)
+            finally:
+                c1 = counters()
+                recovers.append({"run": cur["run"],
+                                 "seconds": time.perf_counter() - t0,
+                                 **{e: c1[e] - c0[e] for e in c0}})
+
+        clock.patch(restart, "recover", timed_recover)
+        orig_offer = hotstate.offer_restore
+
+        def offer(template, **kw):
+            got = orig_offer(template, **kw)
+            restores.append({"run": cur["run"],
+                             "step": None if got is None else got[1],
+                             "seconds": hotstate.replicator().timings.get(
+                                 "restore_s")})
+            want = truth.get((cur["run"], None if got is None else got[1]))
+            if want is not None:
+                truth["restored", cur["run"]] = same(snapshot(got[0]), want)
+            return got
+
+        clock.patch(hotstate, "offer_restore", offer)
+        orig_pack = hotstate._pack_delta
+        checker = []
+
+        def checked_pack(new, base, staging=None):
+            blob = orig_pack(new, base, staging)
+            if not checker:
+                # Host copies of the leaves and the blob, checked beside the
+                # run (the blob lies in the reused pinned buffer).
+                t0 = time.perf_counter()
+                args = (blob.copy(), [hotstate._host(x) for x in new],
+                        [hotstate._host(b) for b in base])
+                pack_check["copy_seconds"] = time.perf_counter() - t0
+                checker.append(threading.Thread(target=numpy_check,
+                                                args=args, daemon=True))
+                checker[0].start()
+            return blob
+
+        clock.patch(hotstate, "_pack_delta", checked_pack)
+
+        # A: the RAM rung; member 2 dies at step 5, the gang resumes at 5.
+        plan_a = os.path.join(work, "shrink.json")
+        check(ftool.main(["gen", "--out", plan_a, "--seed", str(CHAOS_SEED),
+                          "--shrink", "%d:%d:%d" % EZ_KILL]) == 0,
+              "hotstate_zero: chaos tool --shrink")
+        mpi.set_config(faults=plan_a)
+        rec_a = {"losses": {}, "step_ms": {}, "repartition_s": [],
+                 "rep": None, "rep_launches": {}}
+        restore_taps = tap_rank_major_routes(torch, mpi, ring, log)
+        ckpt_a = os.path.join(work, "ckpt_a")
+        try:
+            st_a, info_a = main_run(
+                "a", gang.build_for(rec_a, check_n=EZ_KILL[2] - 1,
+                                    after_step=after("a", RING_N, 0,
+                                                     (HZ_RAM_STEP,))),
+                steps=HZ_STEPS, directory=ckpt_a, save_every=HZ_SAVE_EVERY,
+                members=range(RING_N), world_size=RING_N)
+        finally:
+            restore_taps()
+        for nm, c in rec_a["rep_launches"].items():
+            if nm in launches:
+                launches[nm] -= c
+        inbox_a = hotstate.replicator().inbox_bytes()
+        fin_a = snapshot(st_a)
+        del st_a
+        mpi.set_config(faults="off")
+        survivors = [m for m in range(RING_N) if m != EZ_KILL[0]]
+        clean_a, crec_a = clean_run(truth.pop(("a", HZ_RAM_STEP)),
+                                    HZ_RAM_STEP, survivors, HZ_STEPS,
+                                    "member", "clean_a")
+        bit_a = dict(same(fin_a, clean_a), losses=[
+            rec_a["losses"][i] for i in range(HZ_RAM_STEP, HZ_STEPS)] == [
+            crec_a["losses"][i] for i in range(HZ_RAM_STEP, HZ_STEPS)])
+        del fin_a, clean_a
+        n3 = [e for e in log if e["label"] == f"n{EZ_KILL[2] - 1}"]
+        taps = {"calls": len(n3),
+                "bitwise": all(e["bitwise"] for e in n3),
+                "rows": sorted({tuple(e["rows"]) for e in n3})}
+        shutil.rmtree(ckpt_a, ignore_errors=True)
+        if checker:
+            checker[0].join()
+        torch.cuda.empty_cache()
+
+        # B: the ladder's fall (step 3's snapshot rotted in the buddy's
+        # RAM), then the drain of the streaming member onto the spare.
+        plan_b = os.path.join(work, "shrink_corrupt.json")
+        check(ftool.main(["gen", "--out", plan_b, "--seed", str(CHAOS_SEED),
+                          "--shrink", "%d:%d:%d" % EZ_KILL,
+                          "--rule", HZ_CORRUPT]) == 0,
+              "hotstate_zero: chaos tool --shrink --rule")
+        mpi.set_config(faults=plan_b, watchdog="warn",
+                       watchdog_deadline_s=HZ_WD_DEADLINE_S)
+        rec_b = {"losses": {}, "step_ms": {}, "repartition_s": []}
+        ckpt_b = os.path.join(work, "ckpt_b")
+        st_b, info_b = main_run(
+            "b", gang.build_for(rec_b, rows_by="position",
+                                after_step=after("b", HZ_SLOTS_B, src,
+                                                 (EZ_RECOVERED_STEP,
+                                                  HZ_STEPS))),
+            steps=HZ_STEPS, directory=ckpt_b, save_every=HZ_SAVE_EVERY,
+            members=HZ_MEMBERS_B, world_size=HZ_SLOTS_B)
+        del st_b
+        mpi.set_config(faults="off")
+        survivors_b = tuple(info_b["view"].members)
+        # The drain lands between saves: the run's closing save of step
+        # HZ_STEPS goes, so the disk holds step 4 and only the stream can
+        # give the spare step HZ_STEPS.
+        for f in os.listdir(ckpt_b):
+            if f.startswith(f"ckpt_{HZ_STEPS}_"):
+                os.remove(os.path.join(ckpt_b, f))
+        lease_dir = watchdog.lease_dir()
+        drain = {}
+        rep_b = hotstate.replicator()
+
+        def admit(state, step):
+            leases = watchdog.read_leases(lease_dir)
+            drain["lease_during"] = sorted(
+                (d.get("state"), d.get("state_detail"))
+                for d in leases.values())
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                rc = otool.main(["blame", "--live", lease_dir])
+            drain["blame_rc"] = rc
+            drain["blame_line"] = next(
+                (ln.strip() for ln in text.getvalue().splitlines()
+                 if "MIGRATING" in ln), None)
+            drain["state_equal"] = same(snapshot(state),
+                                        truth.pop(("b", HZ_STEPS)))
+            rep_b.rank = spare  # this process now speaks for the spare
+
+        cur["run"] = "drain"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tmpl = {"params": [torch.empty_like(p) for p in gang.params],
+                "opt": optim.AdamState(0, torch.empty(total, device=dev),
+                                       torch.empty(total, device=dev))}
+        moved, moved_step = hotstate.migrate(
+            src, spare, tmpl, admit=admit,
+            retire=lambda r: drain.update(retired=r))
+        drain["seconds"] = time.perf_counter() - t0
+        drain["restore_s"] = rep_b.timings.get("restore_s")
+        del moved, tmpl
+        drain["lease_after"] = sorted(
+            (d.get("state"), d.get("state_detail"))
+            for d in watchdog.read_leases(lease_dir).values())
+        drain["step"] = moved_step
+        members_c = tuple(sorted((set(survivors_b) - {src}) | {spare}))
+        st_c, info_c = main_run(
+            "c", gang.build_for(rec_b, rows_by="position"),
+            steps=HZ_STEPS + 1, directory=ckpt_b, save_every=10 ** 6,
+            members=members_c, world_size=HZ_SLOTS_B)
+        fin_b = snapshot(st_c)
+        del st_c
+        mpi.set_config(watchdog="off")
+        clean_b, crec_b = clean_run(truth.pop(("b", EZ_RECOVERED_STEP)),
+                                    EZ_RECOVERED_STEP, survivors_b,
+                                    HZ_STEPS + 1, "position", "clean_b")
+        span = range(EZ_RECOVERED_STEP, HZ_STEPS + 1)
+        bit_b = dict(same(fin_b, clean_b), losses=[
+            rec_b["losses"][i] for i in span] == [
+            crec_b["losses"][i] for i in span])
+        del fin_b, clean_b
+        hz_counters = counters()
+    finally:
+        clock.restore()
+        hotstate.disable()
+        mpi.set_config(elastic="off", hotstate="off", faults="off",
+                       watchdog="off", obs="off")
+        if mpi.runtime.world_rows() is not None:
+            mpi.runtime.restore_world()
+        shutil.rmtree(work, ignore_errors=True)
+
+    def med(xs):
+        return statistics.median(xs) if xs else None
+
+    deltas = [p for p in publishes if p["kind"] == "delta"]
+    snaps = [p for p in publishes if p["kind"] == "snap"]
+    parts = {k: {"delta": med([p[k] for p in deltas[1:] if k in p]),
+                 "snap": med([p[k] for p in snaps if k in p])}
+             for k in ("total_s", "pack_s", "device_s", "d2h_s", "copy_s",
+                       "digest_s", "digest_wait_s", "deliver_s")}
+    step_off = {"n3": med(crec_a["step_ms"].get(f"n{RING_N - 1}", [])
+                          + crec_b["step_ms"].get(f"n{RING_N - 1}", [])),
+                "n4": med(rec_a["step_ms"].get(f"n{RING_N}", [])[
+                    :HZ_ARM_STEP])}
+    # A's steps at n 4 with their publish (step k's after step index
+    # k - 1), the one whose pack (d) checked left out.
+    n4_ms = rec_a["step_ms"].get(f"n{RING_N}", [])
+    checked = min((p["step"] for p in publishes
+                   if p["run"] == "a" and p["kind"] == "delta"), default=None)
+    armed = [n4_ms[p["step"] - 1] + p["total_s"] * 1e3 for p in publishes
+             if p["run"] == "a" and p["step"] <= len(n4_ms)
+             and p["step"] != checked]
+    rec_a_counts = [r for r in recovers if r["run"] == "a"]
+    rec_b_counts = [r for r in recovers if r["run"] == "b"]
+    out.update(
+        info_a=dict(info_a, view=info_a["view"].to_json()),
+        info_b=dict(info_b, view=info_b["view"].to_json()),
+        info_c=dict(info_c, view=info_c["view"].to_json()),
+        recovers=recovers, restores=restores,
+        restored_a=truth.get(("restored", "a")),
+        bitwise_a_vs_clean3=bit_a, bitwise_b_and_drain_vs_clean3=bit_b,
+        n3_ring_calls=taps, drain=drain, pack_check=pack_check,
+        counters=hz_counters, inbox_bytes_after_a=inbox_a,
+        blob_bytes={"snap": med([p["blob_bytes"] for p in snaps]),
+                    "delta": med([p["blob_bytes"] for p in deltas])},
+        corrections=[{"step": p["step"], **p.get("corrections", {})}
+                     for p in deltas],
+        publish_seconds=parts, publishes=publishes,
+        step_ms_tier_off=step_off, step_ms_armed_n4=med(armed),
+        losses_a=[rec_a["losses"][i] for i in sorted(rec_a["losses"])],
+        launches=launches,
+        world_after={"rows": mpi.runtime.world_rows(),
+                     "init_world": mpi.runtime.world_communicator()
+                     is world0})
+    emit(out)
+    check(info_a["shrinks"] == 1 and info_a["recoveries"] == [0, HZ_RAM_STEP]
+          and info_a["recovered_step"] == HZ_RAM_STEP,
+          f"hotstate_zero (a): info {out['info_a']}")
+    check(len(rec_a_counts) == 2 and rec_a_counts[1]["restored"] == 1
+          and rec_a_counts[1]["fallback_disk"] == 0,
+          f"hotstate_zero (a): the shrink's recovery {rec_a_counts}")
+    check(out["restored_a"] is not None and all(out["restored_a"].values()),
+          f"hotstate_zero (a): the RAM-restored state vs the true step "
+          f"{HZ_RAM_STEP}: {out['restored_a']}")
+    check(all(bit_a.values()), f"hotstate_zero (a): the run against a clean "
+          f"3-member run from step {HZ_RAM_STEP}: {bit_a}")
+    check(taps["calls"] > 0 and taps["bitwise"],
+          f"hotstate_zero (a): the n = 3 ring calls {taps}")
+    check(info_b["recoveries"] == [0, EZ_RECOVERED_STEP]
+          and info_b["shrinks"] == 1,
+          f"hotstate_zero (b): info {out['info_b']}")
+    check(len(rec_b_counts) == 2 and rec_b_counts[1]["verify_failed"] >= 1
+          and rec_b_counts[1]["fallback_disk"] == 1
+          and rec_b_counts[1]["restored"] == 0,
+          f"hotstate_zero (b): the shrink's recovery {rec_b_counts}")
+    check(drain.get("step") == HZ_STEPS and drain.get("retired") == src
+          and all(drain.get("state_equal", {False: False}).values()),
+          f"hotstate_zero (c): the drain {drain}")
+    want = ("migrating", f"rank {src} -> rank {spare}")
+    check(want in drain.get("lease_during", [])
+          and drain.get("blame_rc") == 1 and drain.get("blame_line")
+          and f"rank {src} -> rank {spare}" in drain["blame_line"],
+          f"hotstate_zero (c): the lease during the drain {drain}")
+    check(drain.get("lease_after") and all(
+        s == "running" for s, _ in drain["lease_after"]),
+        f"hotstate_zero (c): the lease after the drain {drain}")
+    check(info_c["recoveries"] == [HZ_STEPS]
+          and [r["restored"] for r in recovers if r["run"] == "c"] == [1],
+          f"hotstate_zero (c): the spare's run {out['info_c']}")
+    check(all(bit_b.values()), f"hotstate_zero (b), (c): run B and the "
+          f"spare's step against a clean 3-member run from disk step "
+          f"{EZ_RECOVERED_STEP}: {bit_b}")
+    check(pack_check.get("byte_equal"),
+          f"hotstate_zero (d): the card's pack vs numpy {pack_check}")
+    for nm in names:
+        check(launches.get(nm, 0) > 0,
+              f"hotstate_zero: kernel {nm} never launched")
+    check(out["world_after"] == {"rows": None, "init_world": True},
+          f"hotstate_zero: the world after {out['world_after']}")
     return launches
 
 
@@ -9207,11 +9751,18 @@ def main() -> int:
         rz_launches = restart_zero_phase(torch, mpi, dict(ops, ring=ring),
                                          dev)
         torch.cuda.empty_cache()
-        # The main path of slice 28: the same ZeRO-1 flagship at depth 2 as
+        # The main path of slice 28: the same ZeRO-1 flagship at depth 1 as
         # an elastic gang of 4 members, shrunk to 3 by a dead member and
         # grown back, rows 9 and 10 at n = 3.
         ez_launches = elastic_zero_phase(torch, mpi, dict(ops, ring=ring),
                                          dev)
+        torch.cuda.empty_cache()
+        # The main path of slice 29: the same gang at depth 2 with the
+        # hot-state tier armed: recovered from buddy RAM at the kill's step,
+        # fallen to the disk on a rotted replica, a member drained onto a
+        # spare.
+        hz_launches = hotstate_zero_phase(torch, mpi, dict(ops, ring=ring),
+                                          dev)
         torch.cuda.empty_cache()
         # The main path of slice 12: ResNet-50 as the BatchNorm DP recipe of
         # RING_N ranks on the card, its syncs on rows 8 and 11 and its ZeRO
@@ -9337,7 +9888,9 @@ def main() -> int:
                 **({"guard_dp": gd_launches[name]}
                    if gd_launches.get(name) else {}),
                 **({"elastic_zero": ez_launches[name]}
-                   if ez_launches.get(name) else {})}
+                   if ez_launches.get(name) else {}),
+                **({"hotstate_zero": hz_launches[name]}
+                   if hz_launches.get(name) else {})}
 
     kernels = [{**{k: dict(row, launches=sum(by_path(
                     row["name"]).values()))[k] for k in keys},

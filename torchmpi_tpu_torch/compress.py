@@ -224,10 +224,17 @@ def host_encode(x, codec: str):
         return ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint16), \
             None
     qmax = _QMAX[codec]
-    amax = float(np.max(np.abs(xf))) if xf.size else 0.0
-    scale = np.float32(max(amax / qmax, _SCALE_FLOOR))
+    scale = host_scale(float(np.max(np.abs(xf))) if xf.size else 0.0, codec)
     q = np.clip(np.round(xf / scale), -qmax, qmax).astype(np.int8)
     return q, scale
+
+
+def host_scale(amax: float, codec: str) -> np.float32:
+    """:func:`host_encode`'s scale from a payload's absolute maximum:
+    ``amax / qmax`` in float64, floored at 1e-30, rounded to float32 (the
+    JAX package's).  The hot-state tier's pack on the card takes its
+    scales here from maxima it reduced there."""
+    return np.float32(max(float(amax) / _QMAX[codec], _SCALE_FLOOR))
 
 
 def host_decode(payload, scale, dtype=np.float32):

@@ -132,9 +132,12 @@ class Config:
       client connection, in seconds: a wedged shard server surfaces as a
       failed future within this bound instead of hanging ``wait()``; 0
       disables.  Resolved by :func:`ps_timeout_s`.
-    - ``analysis`` ("off" | ...): the JAX package's static collective
-      analysis.  Its module is not ported (ROADMAP queue A, item 11); the
-      recipes refuse any value but "off" by the item's name.
+    - ``analysis`` ("off" | "warn" | "error"; "1" / "true" / "yes" / "on"
+      read as "warn"): the JAX package's runtime hook of the static
+      collective analysis.  The value is checked here; the host-side lint
+      pack is ported (``analysis/``, run by ``analysis/tool.py --host``),
+      the trace-time rules and this hook are not (ROADMAP queue A, item
+      11); the recipes refuse any value but "off" by the item's name.
     - ``obs`` ("off" | "metrics" | "trace"; "1" / "true" / "yes" / "on"
       read as "metrics"): runtime telemetry (``obs/``): "off" (the
       default) never imports the layer; "metrics" keeps the counter /
@@ -192,6 +195,15 @@ class Config:
       finiteness only), ``guard_spike_window`` and ``guard_spike_threshold``
       (the rewind driver's loss-spike detector: its window in steps and
       its threshold in median absolute deviations).
+    - The hot-state tier (``hotstate/``, never imported while "off"; JAX
+      ``config.py:341-365``, docs/HOTSTATE_TORCH.md): ``hotstate`` ("off" |
+      "on"), the consent gate of ``hotstate.enable``: after each completed
+      step a rank ships its state delta to its buddy's RAM and
+      ``restart.recover`` consults that RAM first; ``hotstate_interval``
+      (every N-th stream is a full snapshot, 1 = every one) and
+      ``hotstate_budget_mb`` (the RAM, in MiB, a process keeps for
+      received replicas; the oldest generation goes first, never a peer's
+      newest).
     - The elastic gang (``elastic.py`` and ``faults/membership.py``, never
       imported while "off"; JAX ``config.py:232-279``,
       docs/ELASTIC_TORCH.md): ``elastic`` ("off" | "on"), the consent gate
@@ -256,6 +268,9 @@ class Config:
     ckpt_redundancy: str = "off"
     ckpt_buddies: int = 1
     ckpt_keep: int = 0
+    hotstate: str = "off"
+    hotstate_interval: int = 8
+    hotstate_budget_mb: int = 64
     guard: str = "off"
     guard_numeric_policy: str = "skip_step"
     guard_norm_bound: float = 0.0
@@ -294,6 +309,7 @@ class Config:
         _WATCHDOG_POLL and _WATCHDOG_DIR, TORCHMPI_TPU_CKPT_REDUNDANCY,
         _CKPT_BUDDIES and _CKPT_KEEP, TORCHMPI_TPU_GUARD, _GUARD_POLICY,
         _GUARD_NORM_BOUND, _GUARD_WINDOW and _GUARD_THRESHOLD,
+        TORCHMPI_TPU_HOTSTATE, _HOTSTATE_INTERVAL and _HOTSTATE_BUDGET_MB,
         TORCHMPI_TPU_ELASTIC, _ELASTIC_DIR, _ELASTIC_POLL, _ELASTIC_DEADLINE
         and _ELASTIC_QUORUM (JAX ``config.py:548-562``);
         ``pallas_bidirectional`` and the three process-world fields have
@@ -358,6 +374,10 @@ class Config:
             ckpt_redundancy=_env_str("TORCHMPI_TPU_CKPT_REDUNDANCY", "off"),
             ckpt_buddies=_env_int("TORCHMPI_TPU_CKPT_BUDDIES", 1),
             ckpt_keep=_env_int("TORCHMPI_TPU_CKPT_KEEP", 0),
+            hotstate=_env_str("TORCHMPI_TPU_HOTSTATE", "off"),
+            hotstate_interval=_env_int("TORCHMPI_TPU_HOTSTATE_INTERVAL", 8),
+            hotstate_budget_mb=_env_int("TORCHMPI_TPU_HOTSTATE_BUDGET_MB",
+                                        64),
             guard=_env_str("TORCHMPI_TPU_GUARD", "off"),
             guard_numeric_policy=_env_str("TORCHMPI_TPU_GUARD_POLICY",
                                           "skip_step"),
@@ -724,6 +744,127 @@ def check_fault_override(k: str, v):
             raise ValueError(
                 "config.ckpt_keep must be >= 0 (0 = keep everything)")
     return v
+
+
+def normalize_analysis(value) -> Optional[str]:
+    """Canonical analysis mode (JAX ``runtime.py:132``): "off" | "warn" |
+    "error" ("1" / "true" / "yes" / "on" mean "warn"); None:
+    unrecognized (the caller raises)."""
+    v = str(value).strip().lower()
+    if v in ("off", "0", "false", "no", "none", ""):
+        return "off"
+    if v in ("warn", "1", "true", "yes", "on"):
+        return "warn"
+    if v == "error":
+        return v
+    return None
+
+
+def normalize_hotstate(value) -> Optional[str]:
+    """Canonical hotstate mode (JAX ``runtime.py:199``): "off" | "on",
+    boolean-ish spellings accepted; None: unrecognized."""
+    return normalize_elastic(value)
+
+
+def resolve_analysis_hotstate(cfg: Config) -> None:
+    """The analysis and hot-state fields made canonical in place, with the
+    JAX runtime's any-config pickup and messages (:427-433, :543-562): a
+    mode left "off" and a knob left at its default defer to the
+    environment."""
+    if normalize_analysis(cfg.analysis) == "off":
+        cfg.analysis = os.environ.get("TORCHMPI_TPU_ANALYSIS", "off")
+    mode = normalize_analysis(cfg.analysis)
+    if mode is None:
+        raise ValueError("config.analysis (or TORCHMPI_TPU_ANALYSIS) must be "
+                         "off|warn|error")
+    cfg.analysis = mode
+    if normalize_hotstate(cfg.hotstate) == "off":
+        cfg.hotstate = os.environ.get("TORCHMPI_TPU_HOTSTATE", "off")
+    mode = normalize_hotstate(cfg.hotstate)
+    if mode is None:
+        raise ValueError("config.hotstate (or TORCHMPI_TPU_HOTSTATE) must be "
+                         "off|on")
+    cfg.hotstate = mode
+    _env_default_pickup(cfg, "hotstate_interval",
+                        "TORCHMPI_TPU_HOTSTATE_INTERVAL", int)
+    _env_default_pickup(cfg, "hotstate_budget_mb",
+                        "TORCHMPI_TPU_HOTSTATE_BUDGET_MB", int)
+    if cfg.hotstate_interval < 1 or cfg.hotstate_budget_mb < 1:
+        raise ValueError(
+            f"config.hotstate_interval and hotstate_budget_mb must be >= 1, "
+            f"got {cfg.hotstate_interval}/{cfg.hotstate_budget_mb}")
+
+
+def resolve_serving(cfg: Config) -> None:
+    """The serving knobs with the JAX runtime's any-config pickup
+    (:594-614): a knob left at its default defers to the environment;
+    then :func:`check_serving`."""
+    _env_default_pickup(cfg, "serving_slots", "TORCHMPI_TPU_SERVING_SLOTS",
+                        int)
+    _env_default_pickup(cfg, "serving_slot_tokens",
+                        "TORCHMPI_TPU_SERVING_SLOT_TOKENS", int)
+    _env_default_pickup(cfg, "serving_replicas",
+                        "TORCHMPI_TPU_SERVING_REPLICAS", int)
+    _env_default_pickup(cfg, "serving_sample", "TORCHMPI_TPU_SERVING_SAMPLE",
+                        float)
+    _env_default_pickup(cfg, "serving_spec_k", "TORCHMPI_TPU_SERVING_SPEC_K",
+                        int)
+    _env_default_pickup(cfg, "serving_prefill_buckets",
+                        "TORCHMPI_TPU_SERVING_PREFILL_BUCKETS", int)
+    _env_default_pickup(cfg, "serving_prefix_cache",
+                        "TORCHMPI_TPU_SERVING_PREFIX_CACHE", int)
+    _env_default_pickup(cfg, "serving_slo_ttft_us",
+                        "TORCHMPI_TPU_SERVING_SLO_TTFT_US", float)
+    _env_default_pickup(cfg, "serving_autoscale",
+                        "TORCHMPI_TPU_SERVING_AUTOSCALE", int)
+    check_serving(cfg)
+
+
+def check_override(k: str, v):
+    """One ``set_config`` value of an analysis, hot-state or serving field,
+    made canonical and checked as the JAX ``set_config`` does (:897-901,
+    :960-967, :1002-1028)."""
+    if k == "analysis":
+        v = normalize_analysis(v)
+        if v is None:
+            raise ValueError("config.analysis must be off|warn|error")
+    if k == "hotstate":
+        v = normalize_hotstate(v)
+        if v is None:
+            raise ValueError("config.hotstate must be off|on")
+    if k in ("hotstate_interval", "hotstate_budget_mb"):
+        v = int(v)
+        if v < 1:
+            raise ValueError(f"config.{k} must be >= 1")
+    if k in ("serving_slots", "serving_replicas"):
+        v = int(v)
+        if v < 1:
+            raise ValueError(f"config.{k} must be >= 1")
+    if k == "serving_slot_tokens":
+        v = int(v)
+        if v < 0:
+            raise ValueError("config.serving_slot_tokens must be >= 0 "
+                             "(0 = model max_len)")
+    if k == "serving_sample":
+        v = float(v)  # <= 0 means greedy: only the type is pinned
+    if k in ("serving_spec_k", "serving_prefill_buckets",
+             "serving_prefix_cache", "serving_autoscale"):
+        v = int(v)
+        if v < 0:
+            raise ValueError(f"config.{k} must be >= 0 (0 = off)")
+    if k == "serving_slo_ttft_us":
+        v = float(v)
+        if v < 0:
+            raise ValueError("config.serving_slo_ttft_us must be >= 0 "
+                             "(0 = admit everything)")
+    return v
+
+
+OVERRIDE_FIELDS = frozenset({
+    "analysis", "hotstate", "hotstate_interval", "hotstate_budget_mb",
+    "serving_slots", "serving_slot_tokens", "serving_replicas",
+    "serving_sample", "serving_spec_k", "serving_prefill_buckets",
+    "serving_prefix_cache", "serving_slo_ttft_us", "serving_autoscale"})
 
 
 def check_serving(cfg: Config) -> None:

@@ -28,6 +28,10 @@ watchdog leases.
 Off by default and never imported when off: ``Config.elastic`` is the
 consent gate of this driver layer, and no dispatch path branches on it.
 Telemetry (``tm_elastic_*``) rides obs through ``utils/telemetry.py``.
+With the hot-state tier armed (``hotstate.enable``; reached through
+``sys.modules``) the loop streams the state to the buddy's RAM after
+every completed step and tells the tier which members died at a shrink,
+so a recovery resumes from RAM at the step the death landed on.
 Under ``Config.elastic_quorum="majority"`` a reconcile or recovery
 agreement commits only with a majority of the last committed view; a
 partitioned minority raises ``QuorumLost`` and :func:`run_elastic` parks
@@ -105,6 +109,41 @@ def _faults_mod():
     if mod is not None and mod.active():
         return mod
     return None
+
+
+def _hotstate_mod():
+    """The armed hot-state tier, or None (JAX :129; docs/HOTSTATE_TORCH.md):
+    the same ``sys.modules`` seam, so a session that never enabled
+    ``hotstate`` never imports it here."""
+    mod = sys.modules.get(_PKG + ".hotstate")
+    if mod is not None and mod.active():
+        return mod
+    return None
+
+
+def _hotstate_publish(gang: "ElasticGang", state: PyTree,
+                      step: int) -> None:
+    """Stream this rank's post-step state to its buddy's RAM when the tier
+    is armed (JAX :139).  A ``FencedWriterError`` propagates on purpose: a
+    fenced stream is the zombie-minority signal and takes the park path
+    of a fenced board write; the rest of the tier is best-effort."""
+    mod = _hotstate_mod()
+    if mod is not None:
+        mod.replicator().publish(
+            state, step, rank=gang._rank,
+            epoch=getattr(gang.view, "epoch", 0))
+
+
+def _hotstate_note_shrink(ranks: Sequence[int], step: int) -> None:
+    """Membership evidence for the tier (JAX :153): the dead ranks stop
+    streaming, but their replicas stay, they are what the RAM rung
+    restores from on the shrink's recovery."""
+    mod = _hotstate_mod()
+    if mod is not None:
+        try:
+            mod.replicator().note_shrink(ranks, step)
+        except Exception:  # noqa: BLE001 — bookkeeping, not correctness
+            pass
 
 
 def _member_peer(m: int) -> str:
@@ -620,6 +659,7 @@ def run_elastic(build: BuildFn, *, steps: int, directory: str,
                         raise MemberDeath(gang._rank, i)
                     try:
                         comm = gang.shrink(ranks, step=i)
+                        _hotstate_note_shrink(ranks, i)
                     except membership.QuorumLost as e:
                         if quorum_park(e, i, ranks) != "retry":
                             comm = None
@@ -640,6 +680,10 @@ def run_elastic(build: BuildFn, *, steps: int, directory: str,
                 state = step_fn(state, i)
                 steps_run += 1
                 i += 1
+                # The hot tier streams every completed step (the disk tier
+                # saves every ``save_every``): that gap is the replay the
+                # RAM rung erases on recovery.
+                _hotstate_publish(gang, state, i)
                 if i % save_every == 0 or i == steps:
                     checkpoint.save(directory, state, step=i)
             except KeyboardInterrupt:
@@ -657,6 +701,7 @@ def run_elastic(build: BuildFn, *, steps: int, directory: str,
                         raise MemberDeath(member, i) from e
                     try:
                         comm = gang.shrink([member], step=i)
+                        _hotstate_note_shrink([member], i)
                     except membership.QuorumLost as qe:
                         if quorum_park(qe, i, [member]) != "retry":
                             comm = None

@@ -25,9 +25,9 @@ indefinite hold that raises nothing; the watchdog breaks it) and
 by ``faults.board_partition()``; ``partition.py``).  The port fires the
 ``host_staged.*``, ``runtime.barrier``, ``ps.*``, ``aio.submit``,
 ``serving.*``, ``ckpt.*``, ``board.*`` (the membership board) and
-``elastic.member`` (the elastic gang) sites; the ``hotstate.*`` sites wait
-for the hot-state tier (ROADMAP A10 (d)) and are listed here so that plans
-and lint agree across the packages.
+``elastic.member`` (the elastic gang) and ``hotstate.*`` (the hot-state
+tier, ``hotstate/``: the stream's send and the buddy's receipt) sites, the
+JAX package's list, so that plans and lint agree across the packages.
 
 Dependency-free on purpose (no torch, no numpy at import): the chaos
 tool (``faults/tool.py``) and the dump path of a dying process load it.

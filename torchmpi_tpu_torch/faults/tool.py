@@ -17,7 +17,8 @@ there), ``--partition RANKS:STEP[:HEAL_STEP]`` (a ``partition`` rule at
 ``board.read``) and ``--migrate RANK:STEP:NRANKS`` (``fail`` at arrival
 ``(STEP+1)*NRANKS + RANK``).  The elastic gang (``elastic.py``) fires
 ``elastic.member`` and the membership board the ``board.*`` sites; the
-``--migrate`` recipe's consumer, the hot-state tier, is ROADMAP A10 (d).
+``--migrate`` recipe's consumer is the hot-state tier's ``hotstate.migrate``
+(docs/HOTSTATE_TORCH.md).
 The recipes write and lint plans byte for byte the JAX tool's for the
 same arguments, so one plan drives both packages.
 ``lint`` validates a plan: schema or version errors exit 2, problems a
@@ -34,57 +35,18 @@ It needs no runtime and no card: the plan schema is ``inject.py``'s.
 """
 
 import argparse
-import dataclasses
 import json
 import sys
 from typing import Dict, List, Tuple
+
+from ..analysis.findings import ERROR, Finding, sort_findings
+
 
 def _load_inject():
     """The plan schema (``inject.py``, dependency-free)."""
     from . import inject
 
     return inject
-
-
-ERROR = "error"
-
-
-@dataclasses.dataclass
-class Finding:
-    """One lint problem: the fields, text and JSON form of the JAX
-    package's ``analysis/findings.Finding`` (the port's static analysis
-    is ROADMAP A11), so ``lint`` prints and emits what the JAX tool
-    does."""
-
-    rule: str
-    severity: str
-    message: str
-    path: str = ""
-    source: str = ""
-    op: str = ""
-    axes: Tuple[str, ...] = ()
-    nbytes: int = 0
-
-    def to_json(self) -> dict:
-        d = dataclasses.asdict(self)
-        d["axes"] = list(self.axes)
-        return d
-
-    def __str__(self) -> str:
-        loc = self.source or self.path or "<unknown>"
-        extra = ""
-        if self.op:
-            extra = f" [{self.op}"
-            if self.axes:
-                extra += f" over {'x'.join(self.axes)}"
-            extra += "]"
-        return f"{self.rule} {self.severity}: {self.message}{extra} at {loc}"
-
-
-def _sort_findings(findings: List[Finding]) -> List[Finding]:
-    """Severity-major, then rule id (every finding here is an error)."""
-    return sorted(findings, key=lambda f: (f.severity != ERROR, f.rule,
-                                           f.path))
 
 
 def parse_rule(inject, spec: str):
@@ -277,8 +239,8 @@ def cmd_lint(args) -> int:
         except (OSError, ValueError) as e:
             print(f"error: {e}", file=sys.stderr)
             return 2
-        found = [Finding(rule="F1", severity=ERROR,
-                              message=p, source=path)
+        found = [Finding(rule="F1", severity=ERROR, message=p,
+                         source=path)
                  for p in inject.lint_plan(plan)]
         findings.extend(found)
         if found:
@@ -291,7 +253,7 @@ def cmd_lint(args) -> int:
                 print(f"  {f}")
     if as_json:
         print(json.dumps(
-            [f.to_json() for f in _sort_findings(findings)],
+            [f.to_json() for f in sort_findings(findings)],
             indent=1))
     return rc
 

@@ -425,8 +425,8 @@ def cmd_blame_live(args) -> int:
     lease with ``state=parked`` is a quorum-lost minority waiting out
     a partition (``elastic._park``) — alive, deliberately idle, and NOT
     to be restarted; a fresh lease with ``state=migrating`` is a live
-    hot-state drain in flight (ROADMAP A10 (d) — the detail carries
-    ``source -> spare``): in transition BY DESIGN, neither parked nor
+    hot-state drain in flight (``hotstate.migrate``,
+    docs/HOTSTATE_TORCH.md — the detail carries ``source -> spare``): in transition BY DESIGN, neither parked nor
     dead, and killing either end mid-drain forfeits the zero-rollback
     hand-off.  Exits 1 when anything is stalled/expired/parked/
     migrating, 0 when all ranks look healthy, 2 on unusable input."""
@@ -475,7 +475,7 @@ def cmd_blame_live(args) -> int:
                      f"restart needed)")
             parked.append(rank)
         elif d.get("state") == "migrating":
-            # A live hot-state drain (ROADMAP A10 (d)): the rank is
+            # A live hot-state drain (``hotstate.migrate``): the rank is
             # mid-hand-off onto a spare — in transition BY DESIGN,
             # lease fresh.  Distinct from parked (it is not waiting on
             # anything external) and from dead (killing it mid-drain

@@ -82,10 +82,12 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 
-from .config import (GUARD_ELASTIC_FIELDS, Config, check_fault_override,
-                     check_guard_elastic_override, check_serving,
-                     normalize_obs, ps_timeout_s, resolve_ckpt,
-                     resolve_faults, resolve_guard_elastic, resolve_obs)
+from .config import (GUARD_ELASTIC_FIELDS, OVERRIDE_FIELDS, Config,
+                     check_fault_override, check_guard_elastic_override,
+                     check_override, check_serving, normalize_obs,
+                     ps_timeout_s, resolve_analysis_hotstate, resolve_ckpt,
+                     resolve_faults, resolve_guard_elastic, resolve_obs,
+                     resolve_serving)
 
 Axes = Union[str, Sequence[str], None]
 WORLD_AXES = ("dcn", "ici")
@@ -373,7 +375,8 @@ def init(config: Optional[Config] = None, *, device: str = "cuda",
                 raise ValueError(f"unknown config field {k!r}")
             setattr(cfg, k, v)
         cfg.ps_timeout_s = ps_timeout_s(cfg.ps_timeout_s)
-        check_serving(cfg)
+        resolve_serving(cfg)
+        resolve_analysis_hotstate(cfg)
         resolve_obs(cfg)
         resolve_faults(cfg)
         resolve_ckpt(cfg)
@@ -587,6 +590,8 @@ def set_config(**overrides) -> None:
                 overrides[k] = check_fault_override(k, overrides[k])
         for k in GUARD_ELASTIC_FIELDS & set(overrides):
             overrides[k] = check_guard_elastic_override(k, overrides[k])
+        for k in OVERRIDE_FIELDS & set(overrides):
+            overrides[k] = check_override(k, overrides[k])
         new = dataclasses.replace(_state.config, **overrides)
         check_serving(new)
         _state.config = new

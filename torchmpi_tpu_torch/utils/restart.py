@@ -14,9 +14,9 @@ of the port) or the watchdog's ``CollectiveHangError`` (a stalled wait the
 watchdog broke) takes the ``on_peer_timeout`` path of the same restore.
 Both are recognized by type through ``sys.modules``: this module imports
 neither the fault layer nor the watchdog, nor the telemetry it reports to
-(``obs.record_restart``), nor the hot-state tier the JAX package consults
-first (``torchmpi_tpu_torch.hotstate``, ROADMAP A10 (d): the lookup finds
-nothing until it exists).  The elastic gang passes ``recover`` its
+(``obs.record_restart``), nor the hot-state tier it consults first
+(``torchmpi_tpu_torch.hotstate``, docs/HOTSTATE_TORCH.md: the RAM rung,
+one lookup that finds nothing unless the user enabled the tier).  The elastic gang passes ``recover`` its
 survivors-only ``participants`` and ``agree`` (``elastic.py``).
 """
 
@@ -90,10 +90,13 @@ def _obs_record(event: str, step: int) -> None:
 def _ram_rung(template: PyTree, *, min_step: int = 0,
               step: Optional[int] = None
               ) -> Optional[Tuple[PyTree, int]]:
-    """The hot-state RAM rung, consulted first when the tier is armed:
-    one ``sys.modules`` lookup (the tier is ROADMAP A10 (d)).  Returns a
-    verified ``(state, step)`` or None; a broken tier never blocks a disk
-    recovery."""
+    """The hot-state RAM rung (docs/HOTSTATE_TORCH.md), consulted first
+    when the user armed it: one ``sys.modules`` lookup, so a session that
+    never enabled ``hotstate`` never imports it.  Returns a
+    digest-verified ``(state, step)`` or None (stale, missing or corrupt:
+    the tier counts its own ``tm_hotstate_fallback_disk_total`` and the
+    ladder steps down to the disk buddies); a broken tier never blocks a
+    disk recovery."""
     mod = sys.modules.get(_PKG + ".hotstate")
     if mod is None or not mod.active():
         return None

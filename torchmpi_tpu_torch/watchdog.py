@@ -33,8 +33,9 @@ as one string compare at plan build or site entry.  Dependency-free on
 purpose (no torch): the monitor must run while the runtime is what
 wedged.  The elastic seams: :func:`set_lease_dir` (the gang adopts its
 membership board as the lease home), :func:`set_state` (a quorum-parked
-rank publishes ``"parked"``; ``"migrating"`` is the hot-state tier's,
-ROADMAP A10 (d)) and :func:`dead_ranks`, read by the gang's poll.
+rank publishes ``"parked"``; ``hotstate.migrate`` publishes
+``"migrating"`` for the length of a drain) and :func:`dead_ranks`, read by
+the gang's poll.
 """
 
 from __future__ import annotations
@@ -192,8 +193,9 @@ def set_lease_dir(directory: str) -> None:
 def set_state(state: str, detail: str = "") -> None:
     """Publish a coarse driver state in the lease (JAX :216):
     ``"running"`` by default, ``"parked"`` (with the epoch it waits on)
-    while a quorum-lost minority waits out a partition.  Renews at once; a
-    no-op when the watchdog is off."""
+    while a quorum-lost minority waits out a partition, ``"migrating"``
+    (``rank S -> rank P``) while ``hotstate.migrate`` drains a rank onto a
+    spare.  Renews at once; a no-op when the watchdog is off."""
     global _state, _state_detail
     if _mode == "off":
         return
