@@ -3955,6 +3955,11 @@ def auto_dp_phase(torch, mpi, ops, dev):
     equal to its winner's.  (e) The planner's host cost: host us per call
     of a planned and an unplanned rank-major "pallas" allreduce at
     RING_SMALL a rank, in turns (no claim).  (f) compat.py on the card.
+    (g), after (c): the per-op table, ``Config(backend="xla",
+    backend_per_op={"allreduce": "auto"})`` on (a)'s plan file: (c)'s step
+    with no measurement, bitwise to (c)'s explicit per-bucket step; then
+    ``{"allreduce": "pallas"}`` with ``custom_min_bytes`` just above the
+    statistics bucket: every bucket, that one too, on rows 8 / 11.
     The runtime is restarted with the default Config at the end."""
     import shutil
     import tempfile
@@ -4098,12 +4103,46 @@ def auto_dp_phase(torch, mpi, ops, dev):
             gs.synchronize_gradients_rank_major = synced
             fusion.fused_allreduce_rank_major_ = fused
             torch.backends.cudnn.deterministic = False
-        reinit_bitwise = (
-            all(torch.equal(a, c) for a, c in zip(got[0], ref[0]))
-            and all(torch.equal(a.trace, c.trace)
-                    for a, c in zip(got[1], ref[1]))
-            and all(torch.equal(a, c) for a, c in zip(got[2], ref[2]))
-            and torch.equal(got[3], ref[3]))
+        def same(a, c):
+            return (all(torch.equal(x, y) for x, y in zip(a[0], c[0]))
+                    and all(torch.equal(x.trace, y.trace)
+                            for x, y in zip(a[1], c[1]))
+                    and all(torch.equal(x, y) for x, y in zip(a[2], c[2]))
+                    and torch.equal(a[3], c[3]))
+
+        reinit_bitwise = same(got, ref)
+
+        # (g) the per-op table: backend "xla" and {"allreduce": "auto"} on
+        # (a)'s plan file replays (a)'s plans with no measurement, bitwise
+        # to (c)'s explicit per-bucket step; then {"allreduce": "pallas"}
+        # puts every bucket on rows 8 / 11, the statistics bucket too (a
+        # per-op entry bypasses the cutover).
+        mpi.stop()
+        dev = mpi.init(mpi.Config(
+            backend="xla", backend_per_op={"allreduce": "auto"},
+            tuning_plan_path=cfg.tuning_plan_path))
+        tuning.reset_measurement_count()
+        torch.backends.cudnn.deterministic = True
+        try:
+            got_g = recipes.make_bn_dp_train_step_rank_major(model, tx, n)(
+                params, opt, stats, xb, yb)
+            per_op_measured = tuning.measurement_count()
+            mpi.set_config(backend_per_op={"allreduce": "pallas"},
+                           custom_min_bytes=R50_STATS * 4 + 1)
+            torch.cuda.synchronize()
+            before = {k: ring.LAUNCHES[k] for k in AUTO_ROWS}
+            recipes.make_bn_dp_train_step_rank_major(model, tx, n)(
+                params, opt, stats, xb, yb)
+            torch.cuda.synchronize()
+            per_op_rows = {k: ring.LAUNCHES[k] - before[k]
+                           for k in AUTO_ROWS}
+        finally:
+            torch.backends.cudnn.deterministic = False
+        per_op_bitwise = same(got_g, ref)
+        per_op_want = (spec.n_launches
+                       + fusion.FusedSpec(list(stats)).n_launches)
+        mpi.stop()
+        dev = mpi.init(cfg)
 
         # (d) one allreduce key on the dcn 2 x ici 2 grid.
         mpi.set_config(dcn_size=HIER_DCN)
@@ -4185,7 +4224,7 @@ def auto_dp_phase(torch, mpi, ops, dev):
           "config": {"model": "ResNet50", "image": R50_IMAGE,
                      "classes": R50_CLASSES, "dtype": "bfloat16",
                      "backend": "auto",
-                     "tuning_rounds": tuning.measure.ROUNDS},
+                     "tuning_rounds": cfg.tuning_rounds},
           "plan": table, "measured_keys": measured,
           "decision_errors": errors, "first_step_ms": first_ms,
           "plan_rows": plan_rows, "replay_measured": replay_measured,
@@ -4202,6 +4241,11 @@ def auto_dp_phase(torch, mpi, ops, dev):
           "step_device_profile": profile,
           "reinit_measured": reinit_measured,
           "reinit_bitwise_vs_explicit_backends": reinit_bitwise,
+          "per_op": {"auto_measured": per_op_measured,
+                     "auto_bitwise_vs_explicit_backends": per_op_bitwise,
+                     "pallas_rows": per_op_rows,
+                     "pallas_launches_want": per_op_want,
+                     "custom_min_bytes": R50_STATS * 4 + 1},
           "grid_key": {"key": grid_dec["key"],
                        "median_ms": grid_entry.median_ms,
                        "jitter_ms": grid_entry.jitter_ms,
@@ -4231,6 +4275,13 @@ def auto_dp_phase(torch, mpi, ops, dev):
     check(reinit_measured == 0 and reinit_bitwise,
           f"after re-init: {reinit_measured} measurements, bitwise "
           f"{reinit_bitwise}")
+    check(per_op_measured == 0 and per_op_bitwise,
+          f"(g) per-op auto: {per_op_measured} measurements, bitwise "
+          f"{per_op_bitwise}")
+    check(sum(per_op_rows.values()) == per_op_want,
+          f"(g) per-op pallas: rows {per_op_rows}, want {per_op_want} "
+          f"launches (every bucket, the statistics bucket under the "
+          f"cutover too)")
     check(set(grid_entry.median_ms) == {"xla", "pallas", "hierarchical"}
           and not grid_dec.get("errors") and grid_bitwise
           and grid_rel <= BUSBW_STOCK_RTOL,
@@ -7250,6 +7301,38 @@ def lm_serving_phase(torch, mpi, ops, dev):
           f"(h) host syncs {syncs}, want 1 a prefill and 1 a decode step")
     unit_s = statistics.median(step_ms) / 1e3
     mark("burst")
+    # S1 / S2 on the flagship's slot decode and verify ticks at the pool's
+    # shapes: the aten graphs of make_fx under fake tensors (nothing
+    # runs), every cache write proven in range and through the clamp.
+    from torchmpi_tpu_torch import analysis
+
+    pool = model.init_cache(S, L)
+
+    def decode_tick(ks, vs, toks, pos):
+        return gen_mod.slot_decode_step(model, tmod.KVCache(ks, vs), toks,
+                                        pos)[1]
+
+    def verify_tick(ks, vs, toks, pos):
+        return gen_mod.slot_verify_step(model, tmod.KVCache(ks, vs), toks,
+                                        pos)[1]
+
+    zl = lambda *shape: torch.zeros(shape, dtype=torch.long,  # noqa: E731
+                                    device=dev)
+    t_s = time.perf_counter()
+    s_rules = {
+        "slot_decode": analysis.check(decode_tick, pool.k, pool.v, zl(S),
+                                      zl(S), rules=["S1", "S2"]),
+        "slot_verify": analysis.check(verify_tick, pool.k, pool.v,
+                                      zl(S, SERVE_SPEC_K + 1), zl(S),
+                                      rules=["S1", "S2"])}
+    s_secs = time.perf_counter() - t_s
+    del pool
+    emit({"phase": "lm_serving_s_rules", "slots": S, "slot_tokens": L,
+          "findings": {k: [str(f) for f in v] for k, v in s_rules.items()},
+          "seconds": s_secs})
+    check(all(v == [] for v in s_rules.values()),
+          f"lm_serving S1 / S2: {s_rules}")
+    mark("s_rules")
     del eng
     torch.cuda.empty_cache()
     w_bytes = 4 * sum(p.numel() for n, p in model.named_parameters()
@@ -8036,6 +8119,11 @@ OBS_HOST_TURNS = ("off", "metrics", "metrics", "off") * 2
 # ms, PR 24).
 OBS_SERVE_REQUESTS = 16
 OBS_SERVE_UNIT_S = 6.78e-3
+# analysis_dp: obs_dp's flagship DP step checked under Config.analysis.
+ANALYSIS_STEPS = 2
+ANALYSIS_TURNS = 4
+ANALYSIS_CHECKS = 5  # (a)'s freshly built steps a side, first calls in turns
+ANALYSIS_STALE_SHARDS = 2  # the seeded C1 step's spec, for 2 of 4 ranks
 
 
 def flash_bf16_phase(torch, flash, dev):
@@ -8430,6 +8518,189 @@ def obs_dp_phase(torch, mpi, ops, dev):
     check(attr_host["steps"] >= 1, "obs_dp (d) no attribution window")
     check(traced_sites, f"obs_dp (e) trace-mode call sites {sites}")
     check(all(named.values()), f"obs_dp (f) chrome trace names {named}")
+    return launches
+
+
+def analysis_dp_phase(torch, mpi, ops, dev):
+    """The trace-time analysis slice's main path: obs_dp's flagship DP step
+    (RING_N ranks on the card through
+    ``gradsync.data_parallel_step_rank_major``, backend "pallas", the fused
+    loss, 59 buckets on row 8) built under ``Config(analysis="error")``.
+    (a) The step's first call is its check (the static pass over the step
+    and the loss, then the call under the recorder): no error and no
+    warning; the info findings are printed.  The check's one-time cost is
+    the median first call of ANALYSIS_CHECKS freshly built armed steps
+    less that of as many built off (the off first call carries every
+    other first-call cost: the plans after ``set_config``), built from
+    the same weights in turns, with both sides' spread.  (b) ANALYSIS_STEPS steps armed and off
+    from the same weights and batch: losses and synced gradients bitwise
+    equal (every kernel counter set to 0 just before the armed steps and
+    read just after).  (c) 0 host syncs in an armed replayed step.
+    (d) Two seeded bad steps, each refused by ``AnalysisError`` before
+    the offending collective launches: a loss with an allreduce under
+    ``if runtime.rank() == 0:`` (D1), refused before the step's first
+    call with every kernel counter unchanged; a ZeRO-1 update over a
+    spec built for ANALYSIS_STALE_SHARDS ranks (C1), refused at its
+    reduce-scatter leg's dispatch with the reduce-scatter rows unchanged.
+    (e) Step ms armed and off, ANALYSIS_TURNS timed steps a side in turns
+    (no claim)."""
+    from torchmpi_tpu_torch import analysis
+    from torchmpi_tpu_torch.parallel import gradsync
+    from torchmpi_tpu_torch.parallel import zero as pzero
+
+    ring = ops["ring"]
+    n = RING_N
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    model = mpi.models.TransformerLM(**LM, attn_impl="flash",
+                                     dtype=torch.bfloat16, device=dev,
+                                     generator=g)
+    tok = torch.randint(0, LM["vocab"], (BATCH, SEQ), generator=g,
+                        device=dev)
+    params = list(model.parameters())
+    init = [p.detach().clone() for p in params]
+    opt = torch.optim.SGD(params, lr=LR)
+
+    def loss_fn(m, t):
+        return fused_lm_loss(torch, mpi, m, t)
+
+    def restore():
+        with torch.no_grad():
+            for p, p0 in zip(params, init):
+                p.copy_(p0)
+        model.zero_grad(set_to_none=True)
+
+    def build(mode, fn=loss_fn):
+        mpi.set_config(analysis=mode)
+        restore()
+        return gradsync.data_parallel_step_rank_major(
+            model, opt, fn, n, backend="pallas")
+
+    def counters():
+        return {nm: c for mod in ops.values() for nm, c in
+                mod.LAUNCHES.items()}
+
+    try:
+        # (b) off first, then (a) + (b): the armed steps, the first one
+        # the check.
+        step_off = build("off")
+        loss_off = [step_off(tok) for _ in range(ANALYSIS_STEPS)]
+        torch.cuda.synchronize()
+        grad_off = [p.grad.clone() for p in params]
+        analysis.reset_captured()
+        step_on = build("error")
+        for mod in ops.values():
+            mod.reset_launches()
+        loss_on = [step_on(tok)]
+        findings = analysis.captured_findings()
+        loss_on += [step_on(tok) for _ in range(ANALYSIS_STEPS - 1)]
+        torch.cuda.synchronize()
+        launches = {nm: c for nm, c in counters().items() if c}
+        bitwise_loss = all(torch.equal(a, b) for a, b in zip(loss_off,
+                                                               loss_on))
+        bitwise_grad = all(torch.equal(p.grad, r)
+                           for p, r in zip(params, grad_off))
+        del grad_off
+        loud = [f for f in findings if f.severity != "info"]
+        infos = [str(f) for f in findings if f.severity == "info"]
+        # (c) host syncs of an armed replayed step.
+        syncs = count_host_syncs(torch, lambda: step_on(tok))
+
+        # (d) the seeded bad steps.
+        def d1_loss(m, t):
+            if mpi.runtime.rank() == 0:
+                mpi.allreduce_rank_major(t[None].float(), backend="pallas")
+            return fused_lm_loss(torch, mpi, m, t)
+
+        bad = build("error", d1_loss)
+        before = counters()
+        refused = {}
+        try:
+            bad(tok)
+            refused["D1"] = None
+        except analysis.AnalysisError as e:
+            refused["D1"] = sorted({f.rule for f in e.findings})
+        torch.cuda.synchronize()
+        d1_unchanged = counters() == before
+        good = pzero.flat_spec(params, n_shards=n)
+        stale = pzero.flat_spec(params, n_shards=ANALYSIS_STALE_SHARDS)
+        flats, _ = mpi.fusion.rank_major_buffers(good, n, device=dev)
+        p_shards = torch.zeros(n, stale.shard, dtype=stale.dtype,
+                               device=dev)
+        tx = mpi.optim.sgd(LR)
+        zero_step = analysis.wrap_step(
+            lambda ps, fl: pzero.update3_rank_major(
+                ps, fl, tx.init(ps), tx, spec=stale, backend="pallas"),
+            label="zero1_stale_spec", mode="error")
+        rs_rows = ("ring_reduce_scatter_chunked", "ring_reduce_scatter")
+        before = {k: ring.LAUNCHES[k] for k in rs_rows}
+        try:
+            zero_step(p_shards, flats)
+            refused["C1"] = None
+        except analysis.AnalysisError as e:
+            refused["C1"] = sorted({f.rule for f in e.findings})
+        torch.cuda.synchronize()
+        c1_unchanged = {k: ring.LAUNCHES[k] for k in rs_rows} == before
+        del flats, p_shards
+
+        # (e) step ms armed and off in turns (no set_config between: the
+        # armed step's signature is seen, the off step has no wrapper).
+        restore()
+        step_ms = {"off": [], "error": []}
+        for turn in range(ANALYSIS_TURNS):
+            for mode in (("off", "error") if turn % 2 == 0
+                         else ("error", "off")):
+                fn = step_off if mode == "off" else step_on
+                fn(tok)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(tok)
+                torch.cuda.synchronize()
+                step_ms[mode].append((time.perf_counter() - t0) * 1e3)
+
+        # (a) the check's one-time cost: first calls of freshly built
+        # steps, armed and off in turns.
+        first_ms = {"off": [], "error": []}
+        for turn in range(ANALYSIS_CHECKS):
+            for mode in (("off", "error") if turn % 2 == 0
+                         else ("error", "off")):
+                fn = build(mode)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(tok)
+                torch.cuda.synchronize()
+                first_ms[mode].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        mpi.set_config(analysis="off")
+        analysis.reset_captured()
+    med = {m: statistics.median(v) for m, v in step_ms.items()}
+    first_med = {m: statistics.median(v) for m, v in first_ms.items()}
+    emit({"phase": "analysis_dp", "ranks": n, "buckets": RING_BUCKETS,
+          "steps": ANALYSIS_STEPS, "losses_off": [float(v) for v in loss_off],
+          "losses_error": [float(v) for v in loss_on],
+          "bitwise_losses": bitwise_loss, "bitwise_grads": bitwise_grad,
+          "findings_loud": [str(f) for f in loud], "findings_info": infos,
+          "first_call_ms": first_ms, "median_first_call_ms": first_med,
+          "check_one_time_ms": first_med["error"] - first_med["off"],
+          "first_call_spread_ms": {m: max(v) - min(v)
+                                   for m, v in first_ms.items()},
+          "host_syncs_armed_replay": syncs, "refused": refused,
+          "d1_counters_unchanged": d1_unchanged,
+          "c1_reduce_scatter_rows_unchanged": c1_unchanged,
+          "step_ms": step_ms, "median_step_ms": med,
+          "armed_over_off_pct": (med["error"] / med["off"] - 1) * 100,
+          "launches": launches})
+    check(not loud, f"analysis_dp (a): findings {loud}")
+    check(bitwise_loss and bitwise_grad, "analysis_dp (b): the armed step "
+          "changed the losses or the synced gradients")
+    check(syncs == 0, f"analysis_dp (c): {syncs} host syncs a replayed step")
+    check(refused == {"D1": ["D1"], "C1": ["C1"]} and d1_unchanged
+          and c1_unchanged, f"analysis_dp (d): refused {refused}, counters "
+          f"unchanged D1 {d1_unchanged} C1 {c1_unchanged}")
+    for nm in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "xent_fwd",
+               "xent_bwd_dx", "xent_bwd_dw", "ring_allreduce_chunked"):
+        check(launches.get(nm, 0) > 0, f"analysis_dp: {nm} never launched")
+    check(launches.get("ring_allreduce_chunked") == RING_BUCKETS
+          * ANALYSIS_STEPS, f"analysis_dp: row 8 launches {launches}")
     return launches
 
 
@@ -9728,6 +9999,12 @@ def main() -> int:
         # launches.
         obs_launches = obs_dp_phase(torch, mpi, dict(ops, ring=ring), dev)
         torch.cuda.empty_cache()
+        # The main path of slice 30: the same DP step under
+        # Config(analysis="error"), checked once and bitwise to it off; two
+        # seeded bad steps refused before their collectives launch.
+        an_launches = analysis_dp_phase(torch, mpi, dict(ops, ring=ring),
+                                        dev)
+        torch.cuda.empty_cache()
         # The main path of slice 26: the same DP step with the fault layer
         # and the watchdog armed, bitwise to them off; the buckets staged
         # under a chaos plan; a stalled staged call broken by the watchdog.
@@ -9881,6 +10158,8 @@ def main() -> int:
                    if bf16_launches.get(name) else {}),
                 **({"obs_dp": obs_launches[name]}
                    if obs_launches.get(name) else {}),
+                **({"analysis_dp": an_launches[name]}
+                   if an_launches.get(name) else {}),
                 **({"chaos_dp": chaos_launches[name]}
                    if chaos_launches.get(name) else {}),
                 **({"restart_zero": rz_launches[name]}

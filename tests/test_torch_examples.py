@@ -178,10 +178,12 @@ def test_downpour_elastic_survives_a_dead_worker():
 ])
 def test_unported_flags_raise_by_name(name, argv, item, tmp_path,
                                       monkeypatch, capsys):
-    """The flags of once-unported machinery run now.  Item 4, the
-    two-level world: ``--dcn 2`` alone in a world of one process (the flag
-    factors rank-major ranks), ``--backend hierarchical`` there warned
-    once and run on the stock route.  Item 13, the restart loop
+    """The flags of once-unported machinery run now; ``item`` names the
+    ROADMAP queue A item that ported it (both done).  Item 4 (A4), the
+    two-level world: ``--dcn 2`` alone in a world of one process (the
+    flag factors rank-major ranks), ``--backend hierarchical`` there
+    warned once and run on the stock route.  Item 13 (A13), the restart
+    loop
     (``utils/restart.py``): ``--restart-loop`` recovers from one failure
     and prints JAX's RESTARTS / RECOVERED-STEP / LOSS-DIGEST lines, the
     digest equal to a run without the failure: for ``mnist_allreduce``

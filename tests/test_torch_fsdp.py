@@ -277,12 +277,23 @@ def test_indivisible_batch_and_unported_config_are_refused():
         model, toptim.sgd(0.1), full, N)
     with pytest.raises(ValueError, match="does not split over 4 ranks"):
         step(p, s, torch.zeros(6, 1, 28, 28), torch.zeros(6).long())
+    # The analysis is ported: under Config.analysis the FSDP builder's
+    # step is checked on its first call, and lints clean.
     tmpi.set_config(analysis="warn")
     try:
-        with pytest.raises(NotImplementedError, match="queue A, item 11"):
-            recipes.make_fsdp_train_step(model, toptim.sgd(0.1), full)
+        from torchmpi_tpu_torch import analysis
+
+        analysis.reset_captured()
+        wstep, wp, ws = recipes.make_fsdp_train_step(model, toptim.sgd(0.1),
+                                                     full)
+        assert wstep.__wrapped_step__ is not None and wstep.dims
+        X, Y = tdata.synthetic_mnist(4, seed=7)
+        wstep(wp, ws, _nchw(X), torch.from_numpy(Y).long())
+        found = analysis.captured_findings()
+        assert not analysis.has_errors(found), found
     finally:
         tmpi.set_config(analysis="off")
+        analysis.reset_captured()
     # Telemetry is ported: the FSDP builder runs with obs on.
     tmpi.set_config(obs="metrics")
     try:

@@ -203,7 +203,8 @@ def test_remat_equals_no_remat_and_updates_stats_once():
 
 
 def test_unported_options_are_refused():
-    """What stays unported raises by its item (analysis, telemetry); the
+    """The ported analysis checks the built step (its first call of a
+    signature lints clean) and telemetry counts its build; the
     ported overlap and bucket options build (their numbers are held to
     JAX above), and ``Config.gradsync_overlap="auto"`` turns the overlap
     on: the same step as ``overlap="auto"``, bitwise."""
@@ -219,12 +220,26 @@ def test_unported_options_are_refused():
         build(model, tx, 2, zero=3)
     with pytest.raises(ValueError, match="zero must be"):
         build(model, tx, 2, zero=2)
+    # The analysis is ported: under Config.analysis the builder's step is
+    # checked on its first call of a batch signature, and the rank-major
+    # BN step lints clean.
     tmpi.set_config(analysis="warn")
     try:
-        with pytest.raises(NotImplementedError, match="queue A, item 11"):
-            build(model, tx, 2)
+        from torchmpi_tpu_torch import analysis
+
+        analysis.reset_captured()
+        step = build(model, tx, 2, backend="xla")
+        assert step.__wrapped_step__ is not None
+        params, stats = recipes.bn_state(model)
+        x, y = _batch(4, seed=6)
+        step(params, [tx.init(p) for p in params], stats, _nchw(x),
+             torch.from_numpy(y))
+        found = analysis.captured_findings()
+        assert not analysis.has_errors(found), found
+        assert {f.rule for f in found} <= {"P2"}
     finally:
         tmpi.set_config(analysis="off")
+        analysis.reset_captured()
     # The telemetry layer is ported: the builder runs with obs on and
     # counts one step build under the JAX recipe's label.
     tmpi.set_config(obs="metrics")

@@ -1,7 +1,8 @@
 """The port's continuous-batching serving layer (torchmpi_tpu_torch/
 serving/) on the CPU, the cases of the JAX package's tests/test_serving.py
 and tests/test_serving_fleet.py that need neither the fault layer, the
-telemetry nor TP replicas (ROADMAP queue A, items 10 and 9 (b)).
+telemetry nor TP replicas (those are in tests/test_torch_serving_faults.py,
+tests/test_torch_serving_obs.py and tests/test_torch_tp_serving.py).
 
 The model is JAX's fixture (vocab 41, embed 32, depth 2, 4 heads of 8,
 RoPE, max_len 64), its flax weights loaded into the port's model with

@@ -1,5 +1,6 @@
-"""Static analysis of the port: the host-side lint pack (the JAX package's
-``analysis/``, its host half; docs/API_TORCH.md, docs/HOTSTATE_TORCH.md).
+"""Static analysis of the port (the JAX package's ``analysis/``;
+docs/ANALYSIS_TORCH.md, docs/API_TORCH.md): the host-side lint pack and
+the trace-time collective rules.
 
 The host pass (:mod:`hostcheck`, rules H1-H5) reads the port's tree and
 docs as AST and text and reports the drift of its host protocol layers:
@@ -17,11 +18,20 @@ Surfaces:
 - ``python torchmpi_tpu_torch/analysis/tool.py --host [--json]`` — the
   CLI (exit 1 on errors), which imports neither torch nor the package.
 
+The trace-time rules (D1-D3, P1-P2, C1-C2, S1-S2; docs/ANALYSIS_TORCH.md)
+check one call of a step: :func:`check` reads the step's source for D1
+and D3 (:mod:`static`), runs the call once under a recorder of its
+collectives and layout records (:mod:`events`; the port's stand-in for
+JAX's jaxpr walk), and, for the cache-write rules, walks its aten graph
+(:mod:`slices`).  :func:`assert_clean` is the pytest helper, and
+``Config.analysis`` ("warn" | "error") arms the runtime hook
+(:mod:`hook`): the step builders check each new batch signature once,
+the eager verbs each plan build.  ``python
+torchmpi_tpu_torch/analysis/tool.py`` lints declared ``LINT_TARGETS``,
+example entry points and, with no argument, the default sweep.
+
 Off by default and never imported by ``import torchmpi_tpu_torch`` (H1
-holds the package to it).  The trace-time rules (the JAX package's
-``checker``, ``events``, ``rules``, ``slices`` and ``hook`` modules) and
-``Config.analysis``'s runtime hook are not ported yet (ROADMAP queue A,
-item 11).
+holds the package to it).
 """
 
 from .findings import (  # noqa: F401
@@ -41,6 +51,41 @@ from .hostcheck import (  # noqa: F401
     HOST_RULES,
     JAX_DOCS,
     run_hostcheck,
+)
+from .events import (  # noqa: F401
+    OP_MAP,
+    CollectiveEvent,
+    CondFrame,
+    Recorder,
+)
+from .rules import (  # noqa: F401
+    P1_MIN_COUNT,
+    P2_MIN_NBYTES,
+    RULES,
+    Rule,
+    RuleContext,
+    register_rule,
+    rule_catalog,
+    run_rules,
+)
+from .checker import (  # noqa: F401
+    assert_clean,
+    check,
+    check_events,
+    record,
+)
+from .slices import SliceEvent, trace_graph, trace_slice_events  # noqa: F401
+from .hook import (  # noqa: F401
+    ANALYSIS_OUT_ENV,
+    MODES,
+    AnalysisError,
+    arm_runtime_capture,
+    captured_findings,
+    check_dispatch,
+    check_once,
+    report,
+    reset_captured,
+    wrap_step,
 )
 
 
@@ -62,4 +107,12 @@ __all__ = [
     "has_errors", "max_severity", "sort_findings",
     "DOCS", "JAX_DOCS", "GATED_MODULES", "GATED_FIELD_FAMILIES",
     "HOST_RULES", "run_hostcheck", "lint_full",
+    "OP_MAP", "CollectiveEvent", "CondFrame", "Recorder",
+    "RULES", "Rule", "RuleContext", "register_rule", "rule_catalog",
+    "run_rules", "P1_MIN_COUNT", "P2_MIN_NBYTES",
+    "assert_clean", "check", "check_events", "record",
+    "SliceEvent", "trace_graph", "trace_slice_events",
+    "AnalysisError", "ANALYSIS_OUT_ENV", "MODES", "arm_runtime_capture",
+    "captured_findings", "check_dispatch", "check_once", "report",
+    "reset_captured", "wrap_step",
 ]

@@ -109,6 +109,12 @@ class PeerTimeoutError(RuntimeError):
             f"last error: {last_error!r}){tail}")
 
 
+class UnboundAxisError(ValueError):
+    """A collective names an axis the current communicator does not bind
+    (a ValueError for callers; the analysis turns it into its D2 finding,
+    as JAX's checker turns ``make_jaxpr``'s unbound-axis failure)."""
+
+
 def _check_op(op: str) -> None:
     if op not in ("sum", "mean"):
         raise ValueError(f"op must be 'sum' or 'mean', got {op!r}")
@@ -516,6 +522,8 @@ def _world(verb: str, x, backend: Optional[str], params: dict, *,
     (the public verbs; the in-axis verbs record ``tm_inaxis_calls_total``
     instead): with obs on, its dispatch and completion edges."""
     x = _check_tensor(x)
+    if fusion._trace_listener is not None:
+        fusion._trace_listener.collective(verb, x, axis, path="world")
     if planner.enabled():
         plan = planner.plan_world(verb, x, backend, params, axis)
         run, name = plan.replay, plan.backend
@@ -634,7 +642,7 @@ def _world_axes(verb: str, axis_names: AxisNames) -> AxisNames:
     try:
         axes = runtime.axes_of(axis_names)
     except ValueError as e:
-        raise ValueError(f"{verb}: {e}") from None
+        raise UnboundAxisError(f"{verb}: {e}") from None
     if len(axes) == len(runtime._current_or_default().axes):
         return None
     return axes[0] if len(axes) == 1 else axes
@@ -1021,6 +1029,8 @@ def _eager(verb: str, xs, backend: Optional[str], staged: Optional[bool],
     _check_stack(verb, xs)
     _check_communicator_size(f"{verb}_rank_major", xs)
     axis = _world_axes(f"{verb}_rank_major", axis_names)
+    if fusion._trace_listener is not None:
+        fusion._trace_listener.collective(verb, xs[0], axis)
     if planner.enabled():
         return planner.plan_for(verb, xs, backend, staged, params, axis,
                                 n_dcn).replay(xs)
@@ -1469,6 +1479,8 @@ def _async_rank_major(verb: str, xs, *, backend: Optional[str] = None,
     it becomes empty).  A collective that fails gives a failed handle."""
     _check_stack(verb, xs)
     _check_communicator_size(f"async_.{verb}", xs)
+    if fusion._trace_listener is not None:
+        fusion._trace_listener.collective(verb, xs[0], None, path="async")
     if _staged_requested(backend, staged):
         if donate and not xs.untyped_storage().resizable():
             raise ValueError("donate=True releases the input's storage, "
@@ -1533,6 +1545,8 @@ def _async_world(verb: str, x, axis_names: AxisNames = None, *,
     form, the ring in a world of one, runs at once).  ``impl``: a plan's
     implementation, run as it is."""
     axis = _world_axes(f"async_in_axis.{verb}", axis_names)
+    if impl is not None and fusion._trace_listener is not None:
+        fusion._trace_listener.collective(verb, x, axis, path="async")
     try:
         if impl is not None:
             got = _world_run(verb, impl, _check_tensor(x), params,

@@ -45,9 +45,9 @@ from .parallel import gradsync as _gradsync
 
 def start(use_accelerator: bool = True, **kw):
     """Reference: ``mpi.start(withCuda)``: the runtime on the card, or on
-    the CPU (gloo) with ``use_accelerator=False``; ``kw`` are ``init``'s
-    (Config fields included)."""
-    return _runtime.init(device="cuda" if use_accelerator else "cpu", **kw)
+    the CPU (gloo) with ``use_accelerator=False``
+    (``Config.use_accelerator``); ``kw`` are ``init``'s."""
+    return _runtime.init(use_accelerator=use_accelerator, **kw)
 
 
 stop = _runtime.stop

@@ -29,9 +29,12 @@ processes, on this rank's shard and the runtime's subgroups
 buffer on one device (``*_rank_major``, rows in global rank order
 ``d * n_ici + i``).  With ``Config.obs`` on, every dcn leg counts its
 wire and payload bytes (:func:`note_leg`, ``tm_dcn_*``; JAX :244-256,
-:343-353, :392-401).  The JAX package's analysis records
-(``note_skipped``, ``residual_note`` and ``note_leg``'s C2 record) wait
-for the analysis layer (ROADMAP queue A, item 11).
+:343-353, :392-401).  Under an analysis check (a listener installed,
+``fusion.set_trace_listener``) the legs also leave the JAX package's C2
+records: :func:`note_leg` for each dcn leg, :func:`note_skipped` for a
+leg that crossed uncompressed although a codec is on, and
+:func:`residual_note` for every error-feedback residual binding, before
+a mismatch raises.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from . import runtime
+from . import fusion, runtime
 from .parallel.hierarchical import _fold, _padded
 
 CODECS = ("bf16", "int8", "fp8")
@@ -156,19 +159,60 @@ def wire_itemsize(codec: str) -> int:
     return torch.empty((), dtype=_WIRE_DTYPES[codec]).element_size()
 
 
+# The axes every dcn leg spans: the two-level grid's.
+_LEG_AXES = ("dcn", "ici")
+
+
+def _leg_record(op: str, codec: str, nbytes: int, wire_nbytes: int,
+                **extra) -> dict:
+    """The C2 record of one dcn leg (JAX :229-241)."""
+    return dict(kind="dcn_compress", op=op, codec=codec, nbytes=int(nbytes),
+                wire_nbytes=int(wire_nbytes),
+                min_bytes=int(runtime.effective_config()
+                              .dcn_compress_min_bytes),
+                axes=_LEG_AXES, **extra)
+
+
 def note_leg(op: str, codec: Optional[str], payload_nbytes: int,
              wire_nbytes: Optional[int] = None) -> None:
     """One dcn leg's telemetry, with obs on: ``payload_nbytes`` the
     uncompressed shard one rank sends, ``wire_nbytes`` what it puts on the
     wire (the payload itself for an uncompressed leg, ``codec`` None).
-    Every call counts (JAX counts traces; ROADMAP queue C note 31)."""
+    Every call counts (JAX counts traces; ROADMAP queue C note 31).  Under
+    an analysis check a compressed leg leaves its C2 record (JAX
+    :244-256)."""
+    wire = payload_nbytes if wire_nbytes is None else wire_nbytes
+    if codec is not None and fusion._trace_listener is not None:
+        fusion._emit_trace_record(_leg_record(op, codec, payload_nbytes,
+                                              wire))
     if runtime.effective_config().obs == "off":
         return
     from . import obs
 
-    obs.record_dcn(op, codec or "none",
-                   payload_nbytes if wire_nbytes is None else wire_nbytes,
-                   payload_nbytes)
+    obs.record_dcn(op, codec or "none", wire, payload_nbytes)
+
+
+def note_skipped(op: str, codec: str, nbytes: int, *,
+                 incompatible: bool = False) -> None:
+    """The C2 record of a dcn leg that crossed UNCOMPRESSED although
+    ``codec`` is on (JAX :260-270): an op or payload the codec cannot
+    quantize (``incompatible``), or a shard below
+    ``dcn_compress_min_bytes``.  Wire = payload; no telemetry (the
+    uncompressed leg accounts for itself)."""
+    if fusion._trace_listener is not None:
+        extra = {"incompatible": True} if incompatible else {}
+        fusion._emit_trace_record(_leg_record(op, codec, nbytes, nbytes,
+                                              **extra))
+
+
+def residual_note(expected: int, got: int, ok: bool) -> None:
+    """The C2 record of one error-feedback residual binding (JAX
+    :418-428): the buffers the bucket layout expects against those
+    threaded, and whether their extents line up."""
+    if fusion._trace_listener is not None:
+        fusion._emit_trace_record(dict(
+            kind="dcn_residual", expected=int(expected), got=int(got),
+            ok=bool(ok), axes=_LEG_AXES))
 
 
 def wire_nbytes_of(n_elems: int, codec: str) -> int:
@@ -360,6 +404,8 @@ def ef_bucket_allreduce(flat: torch.Tensor, codec: str, residual, *,
     collectives._reduce_scatter_single(shard, padded, group=gi)
     if min_bytes and shard.numel() * shard.element_size() < int(min_bytes):
         note_leg("allreduce", None, shard.numel() * shard.element_size())
+        note_skipped("allreduce", codec,
+                     shard.numel() * shard.element_size())
         dist.all_reduce(shard, group=gd)
         tot, new_res = shard, residual
     else:
@@ -393,6 +439,7 @@ def ef_bucket_allreduce_rank_major(flat: torch.Tensor, codec: str, residual,
     shards = _fold(x, 1)                      # [n_dcn, tile, c]
     if min_bytes and c * flat.element_size() < int(min_bytes):
         note_leg("allreduce", None, c * flat.element_size())
+        note_skipped("allreduce", codec, c * flat.element_size())
         tot, new_res = _fold(shards, 0), residual
     else:
         note_leg("allreduce", codec, c * flat.element_size(),
@@ -425,6 +472,7 @@ def ef_group_reduce_scatter(g_flat: torch.Tensor, codec: str, residual, *,
     collectives._reduce_scatter_single(s, perm, group=runtime.group("ici"))
     if min_bytes and s.numel() * s.element_size() < int(min_bytes):
         note_leg("reduce_scatter", None, s.numel() * s.element_size())
+        note_skipped("reduce_scatter", codec, s.numel() * s.element_size())
         dist.all_reduce(s, group=runtime.group("dcn"))
         tot, new_res = s, residual
     else:
@@ -449,6 +497,8 @@ def ef_group_reduce_scatter_rank_major(g_flat: torch.Tensor, codec: str,
     s = _fold(x, 1).transpose(2, 1)          # [d, t, d', sub]
     if min_bytes and n_dcn * sub * g_flat.element_size() < int(min_bytes):
         note_leg("reduce_scatter", None, n_dcn * sub * g_flat.element_size())
+        note_skipped("reduce_scatter", codec,
+                     n_dcn * sub * g_flat.element_size())
         tot, new_res = _fold(s, 0), residual
     else:
         note_leg("reduce_scatter", codec,
@@ -478,8 +528,10 @@ def check_residuals(residuals, want: Sequence[int], *, site: str,
         return (isinstance(r, torch.Tensor) and r.numel() == lead * int(w)
                 and (n is None or (r.dim() >= 1 and r.shape[0] == lead)))
 
-    if not (len(res_list) == len(want)
-            and all(fits(r, w) for r, w in zip(res_list, want))):
+    ok = (len(res_list) == len(want)
+          and all(fits(r, w) for r, w in zip(res_list, want)))
+    residual_note(len(want), len(res_list), ok)
+    if not ok:
         got = [tuple(getattr(r, "shape", ())) for r in res_list]
         raise ResidualMismatchError(
             f"{site}: DCN residual state does not match {layout} "

@@ -36,6 +36,15 @@ def _env_float(name: str, default: float) -> float:
 
 PS_TIMEOUT_S = 30.0
 
+# Fenced rounds a candidate of an online tuning measurement
+# (``tuning/measure.py``).  The JAX package's 3 leave the jitter at half
+# the range of three single-call rounds: 0.020-0.044 ms for the ring at
+# the ResNet-50 BatchNorm statistics' size (b17) in chip_smoke.py's
+# auto_dp on an H100 80GB HBM3 at 700 W, above the gap between the
+# candidates.  From four rounds on the jitter is half the inter-quartile
+# range, which one slow round does not move.
+TUNING_ROUNDS = 9
+
 
 def ps_timeout_s(value: Optional[float] = None) -> float:
     """The parameter server's socket timeout in seconds (0 disables): the
@@ -74,6 +83,22 @@ class Config:
       None resolves to ``TORCHMPI_TPU_TUNING_PLAN``, then
       ``<checkout>/.tuning_plans_torch/plans.json``.  A corrupt or
       mismatched file degrades silently to static selection.
+    - ``tuning_rounds``: fenced timing rounds a candidate in the online
+      measurement (``tuning/measure.py``).  The default is
+      :data:`TUNING_ROUNDS` (9), not the JAX package's 3 (ROADMAP queue C
+      note 41).
+    - ``backend_per_op``: per-verb overrides of ``backend`` (the
+      reference's collectiveSelector table), e.g. ``{"allreduce":
+      "pallas", "broadcast": "xla"}``; a verb's entry covers its process
+      world and its rank-major form and has a per-call backend's
+      authority (no size cutover).  ``init`` and ``set_config`` refuse an
+      unknown verb or a backend with no implementation of it, and keep a
+      private copy of the table.  A per-op ``"auto"`` arms the tuning
+      plans as ``backend="auto"`` does.
+    - ``use_accelerator``: the reference's ``mpi.start(withCuda)`` flag:
+      ``init`` with no ``device`` argument runs on the card when True (the
+      default) and on the CPU when False; an explicit ``device`` decides
+      and is recorded here.  Fixed at init.
     - ``flash_prescale``: fold the attention scale into q once at the kernel
       boundary; the backward puts it back on dq by the chain rule.
     - ``fuse_max_bytes``: upper bound on one fused gradient bucket; leaves
@@ -134,10 +159,11 @@ class Config:
       disables.  Resolved by :func:`ps_timeout_s`.
     - ``analysis`` ("off" | "warn" | "error"; "1" / "true" / "yes" / "on"
       read as "warn"): the JAX package's runtime hook of the static
-      collective analysis.  The value is checked here; the host-side lint
-      pack is ported (``analysis/``, run by ``analysis/tool.py --host``),
-      the trace-time rules and this hook are not (ROADMAP queue A, item
-      11); the recipes refuse any value but "off" by the item's name.
+      collective analysis (``analysis/hook.py``): the step builders check
+      each new batch signature once and the eager verbs each plan build,
+      before the call's collectives launch; "warn" reports, "error" raises
+      ``analysis.AnalysisError`` on an error finding; "off" never imports
+      ``analysis``.
     - ``obs`` ("off" | "metrics" | "trace"; "1" / "true" / "yes" / "on"
       read as "metrics"): runtime telemetry (``obs/``): "off" (the
       default) never imports the layer; "metrics" keeps the counter /
@@ -222,8 +248,11 @@ class Config:
       ``RANK`` / ``WORLD_SIZE``).
     """
 
+    use_accelerator: bool = True
     backend: str = "xla"
     tuning_plan_path: Optional[str] = None
+    tuning_rounds: int = TUNING_ROUNDS
+    backend_per_op: Optional[dict] = None
     flash_prescale: bool = False
     fuse_max_bytes: int = 32 * 1024 * 1024
     gradsync_average: bool = True
@@ -287,8 +316,9 @@ class Config:
 
     @staticmethod
     def from_env(**overrides) -> "Config":
-        """Build a Config from the environment (TORCHMPI_TPU_BACKEND,
-        TORCHMPI_TPU_TUNING_PLAN,
+        """Build a Config from the environment
+        (TORCHMPI_TPU_BACKEND,
+        TORCHMPI_TPU_TUNING_PLAN, TORCHMPI_TPU_TUNING_ROUNDS,
         TORCHMPI_TPU_FLASH_PRESCALE, TORCHMPI_TPU_FUSE_MAX_BYTES,
         TORCHMPI_TPU_GRADSYNC_AVERAGE, TORCHMPI_TPU_GRADSYNC_COMPRESS,
         TORCHMPI_TPU_CHUNK_BYTES, TORCHMPI_TPU_CUSTOM_MIN_BYTES,
@@ -312,13 +342,17 @@ class Config:
         TORCHMPI_TPU_HOTSTATE, _HOTSTATE_INTERVAL and _HOTSTATE_BUDGET_MB,
         TORCHMPI_TPU_ELASTIC, _ELASTIC_DIR, _ELASTIC_POLL, _ELASTIC_DEADLINE
         and _ELASTIC_QUORUM (JAX ``config.py:548-562``);
-        ``pallas_bidirectional`` and the three process-world fields have
-        none here: ``init`` reads TORCHMPI_TPU_COORDINATOR and its two
-        companions), then apply ``overrides``."""
+        ``use_accelerator`` (no variable changes the device),
+        ``pallas_bidirectional``, ``backend_per_op`` and the three
+        process-world fields have none here: ``init`` reads
+        TORCHMPI_TPU_COORDINATOR and its two companions), then apply
+        ``overrides``."""
         cfg = Config(
             backend=_env_str("TORCHMPI_TPU_BACKEND", "xla"),
             tuning_plan_path=(
                 os.environ.get("TORCHMPI_TPU_TUNING_PLAN") or None),
+            tuning_rounds=_env_int("TORCHMPI_TPU_TUNING_ROUNDS",
+                                   TUNING_ROUNDS),
             flash_prescale=_env_bool("TORCHMPI_TPU_FLASH_PRESCALE", False),
             fuse_max_bytes=_env_int("TORCHMPI_TPU_FUSE_MAX_BYTES",
                                     32 * 1024 * 1024),

@@ -51,6 +51,54 @@ import torch
 
 from . import _tree, runtime, selector
 
+# ---------------------------------------------------------------------------
+# The analysis hook (analysis/events.py; JAX :55-80).  A check installs a
+# listener around the call it checks: every dispatch home offers it its
+# collective (``listener.collective``) and the fused launches, ZeRO's
+# reduce-scatter legs and the codecs their layout records
+# (``listener.record``).  One None-check a dispatch when no check runs.
+# ---------------------------------------------------------------------------
+
+_trace_listener = None
+
+
+def set_trace_listener(fn):
+    """Install (``fn``) or clear (``None``) the analysis listener; returns
+    the previous one so nested checks restore it."""
+    global _trace_listener
+    prev, _trace_listener = _trace_listener, fn
+    return prev
+
+
+def _emit_trace_record(record: dict) -> None:
+    if _trace_listener is not None:
+        _trace_listener.record(record)
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def _fuse_record(op_name: str, spec: "FusedSpec", tensors, axis) -> None:
+    """The C1 record of one fused launch (JAX :297-309), before its first
+    bucket launches: the spec against the tensors it is applied to, and
+    the bucket chain (the port issues the buckets in order, one launch
+    each: the chain ``Config.gradsync_barrier`` asks for)."""
+    sizes = [0] * spec.n_tensors
+    for g in spec.groups:
+        for i, size in zip(g.indices, g.sizes):
+            sizes[i] = size
+    _emit_trace_record(dict(
+        kind="fuse_tree", op=op_name,
+        axes=tuple(runtime.axes_of(axis)) if runtime.is_initialized()
+        else (), spec_leaves=spec.n_tensors, tree_leaves=len(tensors),
+        spec_dtypes=[_dtype_name(d) for d in spec.dtypes],
+        tree_dtypes=[_dtype_name(t.dtype) for t in tensors],
+        spec_sizes=sizes, tree_sizes=[int(t.numel()) for t in tensors],
+        n_launches=spec.n_launches,
+        barrier=bool(runtime.effective_config().gradsync_barrier),
+        barrier_links=max(0, spec.n_launches - 1)))
+
 
 class DtypeGroup:
     """One dtype's slice of a :class:`FusedSpec`: which tensors (positions
@@ -230,15 +278,20 @@ def scatter_bucket(flat: torch.Tensor, tensors: Sequence[torch.Tensor],
 def run_bucket(op: str, buf: torch.Tensor, params: dict, *,
                impl: Optional[Callable] = None,
                backend: Optional[str] = None, axis: Optional[str] = None,
-               owned: bool = False):
+               owned: bool = False, fused: bool = True):
     """Selector op ``op`` on one bucket, the one runner of every fused
     path and of the planner's measurements: ``buf`` is a rank-major
     [n, ...] stack for a ``*_rank_major`` op, else this rank's buffer over
     the process world (or ``axis``'s subgroup; ``owned``: the in-place
     verbs may write it).  ``impl`` is a plan's; None takes the selector's
-    for ``backend`` on one rank's bytes."""
+    for ``backend`` on one rank's bytes.  ``fused``: the launch is one
+    bucket of a fused call (the analysis' P1 exempts it)."""
     from . import collectives
 
+    if _trace_listener is not None:
+        _trace_listener.collective(
+            op, buf[0] if op.endswith("_rank_major") else buf, axis,
+            fused=fused, path="bucket")
     if impl is None:
         impl = _bucket_impl(op, buf, backend, axis)
     if op.endswith("_rank_major"):
@@ -290,6 +343,10 @@ def run_buckets(op: str, tensors: Sequence[torch.Tensor], spec: FusedSpec,
     calls instead, ``fuse_tree``)."""
     rank_major = op.endswith("_rank_major")
     observe = runtime.effective_config().obs != "off"
+    if _trace_listener is not None:
+        _fuse_record(op.removesuffix("_rank_major"), spec,
+                     [t[0] for t in tensors] if rank_major else tensors,
+                     None)
     k = -1
     for g in spec.groups:
         for lo, hi in g.bounds:
@@ -440,6 +497,8 @@ def fuse_tree(op_name: str, tree, *, spec: Optional[FusedSpec] = None,
     leaves, treedef = _tree.flatten(tree)
     if spec is None:
         spec = FusedSpec(leaves)
+    if _trace_listener is not None:
+        _fuse_record(op_name, spec, leaves, axis)
     out: List = [None] * spec.n_tensors
     k = 0
     for g in spec.groups:
@@ -561,13 +620,13 @@ def fused_reduce_scatter_rank_major(stacks: Sequence[torch.Tensor], *,
         return []
     n = stacks[0].shape[0]
 
-    def run(t: torch.Tensor):
+    def run(t: torch.Tensor, fused: bool = True):
         return run_bucket("reduce_scatter_rank_major", t, {"op": op},
-                          backend=backend)
+                          backend=backend, fused=fused)
 
     spec = reduce_scatter_spec([t[0] for t in stacks], n)
     if spec is None:
-        return [run(t) for t in stacks]
+        return [run(t, False) for t in stacks]
     out: List = [None] * spec.n_tensors
     for g in spec.groups:
         for bucket in g.leaf_buckets:

@@ -51,6 +51,8 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .. import fusion
+
 _M32 = 0xFFFFFFFF
 
 
@@ -684,8 +686,14 @@ def clamp_slot_positions(positions, limit: int, width: int = 1):
     width-``width`` write at each stays inside a ``limit``-deep cache.
     JAX's ``dynamic_update_slice`` clamps its start so; torch indexing
     would raise or write past the end (ROADMAP queue C note 1).  For the
-    valid positions correct callers pass it is the identity."""
+    valid positions correct callers pass it is the identity.  Under an
+    analysis check it leaves the ``slot_clamp`` record rule S2 looks for
+    (JAX :563-564): the chokepoint is what keeps the next width change
+    honest."""
     hi = max(0, int(limit) - int(width))
+    if fusion._trace_listener is not None:
+        fusion._trace_listener.record(
+            {"kind": "slot_clamp", "limit": int(limit), "width": int(width)})
     if torch.is_tensor(positions):
         return torch.clamp(positions, 0, hi)
     return min(max(int(positions), 0), hi)

@@ -892,6 +892,22 @@ def _guard_boundary() -> None:
         guard.raise_pending()
 
 
+def analysis_checked(step: Callable, label: str,
+                     sources: Sequence[Callable]) -> Callable:
+    """``step`` under ``Config.analysis`` (JAX :903-912): with "warn" or
+    "error" at build time, each new batch signature's first call is
+    checked (``analysis.wrap_step``: the static pass over ``sources``,
+    then the call under the recorder); "off" (the default) returns
+    ``step`` itself and never imports the analysis."""
+    mode = runtime.effective_config().analysis
+    if mode == "off":
+        return step
+    from .. import analysis
+
+    return analysis.wrap_step(step, label=label, mode=mode,
+                              sources=[step, *sources])
+
+
 def data_parallel_step(model: torch.nn.Module,
                        optimizer: torch.optim.Optimizer,
                        loss_fn: Callable[..., torch.Tensor], *,
@@ -905,7 +921,8 @@ def data_parallel_step(model: torch.nn.Module,
     loss averaged over ranks (``allreduce_in_axis(loss, op="mean")``, as
     the JAX recipe does), detached.  With ``sync_parameters`` the
     parameters are broadcast from rank 0 once, here, so every rank starts
-    from the same weights."""
+    from the same weights.  Under ``Config.analysis`` each new batch
+    signature is checked once (:func:`analysis_checked`)."""
     if sync_parameters:
         synchronize_parameters(model)
 
@@ -918,7 +935,8 @@ def data_parallel_step(model: torch.nn.Module,
         _guard_boundary()
         return collectives.allreduce_in_axis(loss.detach(), op="mean")
 
-    return _observed_step(step)
+    return _observed_step(analysis_checked(step, "data_parallel_step",
+                                           [loss_fn]))
 
 
 def data_parallel_step_rank_major(model: torch.nn.Module,
@@ -932,7 +950,9 @@ def data_parallel_step_rank_major(model: torch.nn.Module,
     the same weights, stacks the ranks' gradients [n, ...], syncs them
     with :func:`synchronize_gradients_rank_major` (``backend="pallas"``:
     the ring kernels), applies ``optimizer`` to the synced gradients and
-    returns the mean of the ranks' losses, detached."""
+    returns the mean of the ranks' losses, detached.  Under
+    ``Config.analysis`` each new batch signature is checked once
+    (:func:`analysis_checked`)."""
     params = list(model.parameters())
 
     def step(*batch):
@@ -953,4 +973,5 @@ def data_parallel_step_rank_major(model: torch.nn.Module,
         _guard_boundary()
         return torch.stack(losses).mean()
 
-    return _observed_step(step)
+    return _observed_step(analysis_checked(
+        step, "data_parallel_step_rank_major", [loss_fn]))

@@ -51,7 +51,7 @@ import torch
 import torch.distributed as dist
 from torch.profiler import record_function
 
-from .. import collectives, runtime, selector
+from .. import collectives, fusion, runtime, selector
 
 # Chunk-count ceiling of the pipelined allreduce (JAX :58): past a handful
 # of chunks in flight the overlap is saturated.
@@ -68,10 +68,26 @@ def _dcn_codec(x: torch.Tensor, op: str, n_ici: int) -> Optional[str]:
     cfg = runtime.effective_config()
     if cfg.dcn_compress == "off":
         return None
+    nbytes = x.numel() * x.element_size()
+    shard_nbytes = -(-nbytes // max(1, n_ici))
     if op not in ("sum", "mean") or not x.is_floating_point():
+        # Quantizing a max / min (or an integer sum) would change what it
+        # computes: the leg runs uncompressed, with the C2 evidence under
+        # an analysis check (JAX :96-114): the bytes of the leg that
+        # crosses dcn (the whole tensor for max / min).
+        if fusion._trace_listener is not None:
+            from .. import compress
+
+            compress.note_skipped(
+                op, cfg.dcn_compress,
+                shard_nbytes if op in ("sum", "mean") else nbytes,
+                incompatible=True)
         return None
-    shard_nbytes = -(-x.numel() * x.element_size() // max(1, n_ici))
     if shard_nbytes < cfg.dcn_compress_min_bytes:
+        if fusion._trace_listener is not None:
+            from .. import compress
+
+            compress.note_skipped(op, cfg.dcn_compress, shard_nbytes)
         return None
     from .. import compress
 
@@ -97,19 +113,19 @@ def chunk_count(nelems: int, itemsize: int, n_ici: int,
 
 def _note_dcn(codec: Optional[str], c: int, itemsize: int) -> None:
     """With obs on, one chunk's dcn leg of ``c`` elements a rank: its
-    wire and payload bytes (JAX :191-201).  An uncompressed leg does not
-    import the codec module."""
-    if runtime.effective_config().obs == "off":
-        return
-    if codec is None:
+    wire and payload bytes (JAX :191-201); under an analysis check a
+    compressed leg's C2 record too (``compress.note_leg``).  An
+    uncompressed leg does not import the codec module."""
+    obs_on = runtime.effective_config().obs != "off"
+    if codec is not None and (obs_on or fusion._trace_listener is not None):
+        from .. import compress
+
+        compress.note_leg("allreduce", codec, c * itemsize,
+                          compress.wire_nbytes_of(c, codec))
+    elif codec is None and obs_on:
         from .. import obs
 
         obs.record_dcn("allreduce", "none", c * itemsize, c * itemsize)
-        return
-    from .. import compress
-
-    compress.note_leg("allreduce", codec, c * itemsize,
-                      compress.wire_nbytes_of(c, codec))
 
 
 def _check_op(op: str) -> None:
@@ -151,11 +167,13 @@ def hier_allreduce_rank_major(xs: torch.Tensor, *, op: str = "sum",
     _check_op(op)
     n = xs.shape[0]
     n_ici = n // n_dcn
+    # Before the max / min branch: its codec choice (none) leaves the C2
+    # evidence under an analysis check (JAX :96-114).
+    codec = _dcn_codec(xs[0], op, n_ici)
     if op in ("max", "min"):
         v = xs.reshape(n_dcn, n_ici, *xs.shape[1:])
         red = _extreme(_extreme(v, 1, op), 0, op)
         return red.expand(xs.shape).clone()
-    codec = _dcn_codec(xs[0], op, n_ici)
     flat = xs.reshape(n, -1)
     L = flat.shape[1]
     k = chunk_count(L, xs.element_size(), n_ici, codec)
@@ -225,12 +243,12 @@ def hier_allreduce(x: torch.Tensor, *, op: str = "sum") -> torch.Tensor:
     _check_op(op)
     gi, gd = runtime.group("ici"), runtime.group("dcn")
     n_dcn, n_ici = runtime.grid()
+    codec = _dcn_codec(x, op, n_ici)
     if op in ("max", "min"):
         buf = x.clone()
         dist.all_reduce(buf, op=_REDUCE_OPS[op], group=gi)
         dist.all_reduce(buf, op=_REDUCE_OPS[op], group=gd)
         return buf
-    codec = _dcn_codec(x, op, n_ici)
     flat = x.reshape(-1)
     L = flat.shape[0]
     k = chunk_count(L, x.element_size(), n_ici, codec)

@@ -55,8 +55,9 @@ counts ``tm_zero_sync_rounds_total`` and ``tm_zero_groups_total`` (JAX
 ends in the numeric tripwire (``guard.check_flat``, JAX :389-405): each
 rank's shard checked as the update it will apply (a row of a rank-major
 stack at a time), zeroed when it trips, the error-feedback residuals
-reverted under the same verdict.  The JAX package's static-analysis hooks
-belong to a module the port does not have yet (ROADMAP A11).
+reverted under the same verdict.  Under an analysis check every gradient
+leg records its shard layout against the ranks it spans (the C1 record,
+JAX :305-316) before its reduce-scatter launches.
 """
 
 from __future__ import annotations
@@ -194,11 +195,23 @@ def _ef_grads(flats: Sequence[torch.Tensor], spec: fusion.FusedSpec, *,
 
 
 def _grad_leg(flats, spec, *, op, compress, codec, dcn_residuals, presynced,
-              local, reduce_scatter, n: Optional[int]):
+              local, reduce_scatter, n: Optional[int], axis_names=None):
     """The gradient leg of every entry: ``local()`` (presynced), the EF leg
     on a two-level grid, or the reduce-scatter (warned once where residuals
     meet a flat grid), then the numeric guard where it is armed.  Returns
-    ``(g_shard, new_residuals)``."""
+    ``(g_shard, new_residuals)``.  Under an analysis check the leg first
+    records its shard layout against the ranks it spans (JAX :305-316, the
+    C1 record): a stale spec is refused before the reduce-scatter
+    launches."""
+    if fusion._trace_listener is not None:
+        spans = (int(flats[0].shape[0]) if n is not None
+                 else _axis(axis_names)[0])
+        fusion._emit_trace_record(dict(
+            kind="zero_reduce_scatter",
+            axes=tuple(runtime.axes_of(axis_names)),
+            n_shards=int(spec.n_shards), axis_size=spans,
+            groups=[(fusion._dtype_name(g.dtype), int(g.padded),
+                     int(g.shard)) for g in spec.groups]))
     if runtime.effective_config().obs != "off":
         from .. import obs
 
@@ -274,6 +287,7 @@ def _process_grad_leg(grads: Tensors, spec, axis_names, *, op, compress,
     return _grad_leg(
         flats, spec, op=op, compress=compress, codec=codec,
         dcn_residuals=dcn_residuals, presynced=presynced, n=None,
+        axis_names=axis_names,
         local=lambda: fusion.local_shard(grads, spec, index),
         reduce_scatter=lambda f: collectives.reduce_scatter_in_axis(
             f, axis_names, backend=backend))

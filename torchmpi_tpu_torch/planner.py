@@ -28,8 +28,10 @@ This module keeps the decision record of a call site in an immutable
   one past its deferred-raise boundary: :func:`_wd_wrap`,
   :func:`_wd_boundary`); ``guard``: whether a staged plan was built with
   the wire guard armed (``Config.guard`` "wire" | "full": its replay
-  digest-checks both legs; False on every other plan).  ``analysis``
-  ("off") is the JAX record's field; that layer is ROADMAP A11.
+  digest-checks both legs; False on every other plan).  ``analysis``:
+  the ``Config.analysis`` mode a rank-major or process-world plan was
+  built under; its build ran the dispatch's rules once
+  (:func:`_check_dispatch`), so a hit pays nothing (JAX :470-476).
 - **replay**: one dict lookup, then the bound closure.
 
 Consumers: the rank-major verbs (``collectives._eager``, also under
@@ -289,14 +291,21 @@ def resolve(op: str, backend: Optional[str], *, nbytes: int, dtype,
     more than one process the plans are read-only, and the selector
     reads them."""
     eff = (backend if backend is not None
-           else selector.config_backend(runtime.effective_config()))
+           else selector.config_backend(op, runtime.effective_config())[0])
     if (eff == "auto" and runner is not None
             and (op.endswith("_rank_major") or not runtime.is_initialized()
                  or runtime.size() == 1)):
         from . import tuning
 
-        measured = tuning.resolve_eager(selector.verb_of(op), nbytes, dtype,
-                                        grid, runner, impl_op=op, axes=axes)
+        # A measurement's candidate runs are not the checked call's
+        # collectives: an analysis listener pauses around them.
+        listener = fusion.set_trace_listener(None)
+        try:
+            measured = tuning.resolve_eager(selector.verb_of(op), nbytes,
+                                            dtype, grid, runner, impl_op=op,
+                                            axes=axes)
+        finally:
+            fusion.set_trace_listener(listener)
         if measured is not None:
             backend = measured
     return selector.select(op, backend, nbytes=nbytes, ranks=ranks,
@@ -366,6 +375,23 @@ def _wd_boundary(replay: Callable) -> Callable:
     return wrapped
 
 
+def _check_dispatch(plan: CollectivePlan, verb: str, one: torch.Tensor,
+                    axis) -> CollectivePlan:
+    """``Config.analysis``'s eager hook, once a plan build (JAX
+    ``collectives._eager_collective``'s check per cache entry): the
+    dispatch rules on this call (``analysis.check_dispatch``), reported
+    per the mode.  Inside a step's check (a listener is installed) the
+    step's check covers it.  Off never imports analysis."""
+    mode = runtime.effective_config().analysis
+    if mode != "off":
+        plan.analysis = mode
+        if fusion._trace_listener is None:
+            from . import analysis
+
+            analysis.check_dispatch(verb, verb, one, axis, mode=mode)
+    return plan
+
+
 def plan_for(verb: str, xs: torch.Tensor, backend: Optional[str],
              staged: Optional[bool], params: dict, axis: Optional[str],
              n_dcn: Optional[int]) -> CollectivePlan:
@@ -398,10 +424,10 @@ def _build_eager(key, verb, xs, backend, staged, params, axis,
                            verb, nbytes, "host", xs.dtype, n)
         if wd_on:
             _replay = _wd_wrap(_replay, "host_staged", verb, nbytes)
-        return CollectivePlan(key, "eager-staged", verb, backend="host",
-                              nbytes=nbytes, staged=True, faults=faults_on,
-                              guard=wire_on, watchdog=wd_on, topology=topo,
-                              replay=_replay)
+        return _check_dispatch(CollectivePlan(
+            key, "eager-staged", verb, backend="host", nbytes=nbytes,
+            staged=True, faults=faults_on, guard=wire_on, watchdog=wd_on,
+            topology=topo, replay=_replay), verb, xs[0], axis)
 
     def runner(b):
         return C._eager_unplanned(verb, xs, b, False, params, axis, n_dcn)
@@ -429,9 +455,9 @@ def _build_eager(key, verb, xs, backend, staged, params, axis,
                        xs.dtype, n)
     if wd_on:
         _replay = _wd_boundary(_replay)
-    return CollectivePlan(key, "eager", verb, nbytes=nbytes, impls=[impl],
-                          impl_op=op, topology=topo, watchdog=wd_on,
-                          replay=_replay)
+    return _check_dispatch(CollectivePlan(
+        key, "eager", verb, nbytes=nbytes, impls=[impl], impl_op=op,
+        topology=topo, watchdog=wd_on, replay=_replay), verb, xs[0], axis)
 
 
 # ---------------------------------------------------------------------------
@@ -468,10 +494,10 @@ def plan_world(verb: str, x: torch.Tensor, backend: Optional[str],
             return C._world_run(verb, impl, x, params, async_op=async_op,
                                 axis=axis, owned=owned)
 
-        return CollectivePlan(key, "world", verb, nbytes=_nbytes(x),
-                              impls=[impl],
-                              topology=fingerprint.topology(grid, axes=axes),
-                              replay=_replay)
+        return _check_dispatch(CollectivePlan(
+            key, "world", verb, nbytes=_nbytes(x), impls=[impl],
+            topology=fingerprint.topology(grid, axes=axes), replay=_replay),
+            verb, x, axis)
 
     return _get_or_build(key, build)
 
@@ -539,7 +565,8 @@ def _build_in_axis(key, verb, leaves, treedef, backend, params,
 
         def _replay(tree):
             return _tree.unflatten(treedef, [
-                fusion.run_bucket(verb, t, params, impl=f, axis=axis)
+                fusion.run_bucket(verb, t, params, impl=f, axis=axis,
+                                  fused=False)
                 for f, t in zip(impls, _tree.leaves(tree))])
 
     return CollectivePlan(key, "in_axis-fused" if spec is not None

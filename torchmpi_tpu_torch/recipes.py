@@ -44,8 +44,9 @@ sync (JAX :35, :78-83, :117-140); with overlap or ZeRO it does not apply.
 allreduce on the grid of ``Config.dcn_size`` and ``"pallas"`` there the
 ring over each node's ici ranks (JAX ``examples/imagenet_resnet50.py``
 :37-56 under ``--dcn``).
-Not ported yet, and refused by name: a ``Config.analysis`` other than
-"off" (ROADMAP queue A, item 11).  With ``Config.obs`` on, each step
+Under ``Config.analysis`` ("warn" | "error") every builder's step checks
+each new batch signature once (``gradsync.analysis_checked``; JAX's
+recipes wrap their jitted steps so).  With ``Config.obs`` on, each step
 builder counts one ``tm_step_builds_total{label}`` (JAX :181-184) and the
 step's collectives record as everywhere else.
 
@@ -77,21 +78,13 @@ Tensors = Sequence[torch.Tensor]
 
 def _overlap_on(overlap: Optional[str]) -> bool:
     """Whether the step overlaps its sync (``overlap``, default
-    ``Config.gradsync_overlap``); refuses the layers not ported yet."""
+    ``Config.gradsync_overlap``)."""
     cfg = runtime.effective_config()
     if overlap is None:
         overlap = cfg.gradsync_overlap
     if overlap not in ("off", "auto"):
         raise ValueError(f"overlap must be off|auto, got {overlap!r}")
-    _refuse_unported(cfg)
     return overlap == "auto"
-
-
-def _refuse_unported(cfg) -> None:
-    if cfg.analysis != "off":
-        raise NotImplementedError(
-            f"Config.analysis={cfg.analysis!r}: the static collective "
-            "analysis is not ported yet (ROADMAP queue A, item 11)")
 
 
 def _note_build(label: str) -> None:
@@ -215,7 +208,8 @@ def make_bn_dp_train_step(model: torch.nn.Module,
         return params, opt_state, new_stats, loss
 
     _note_build(f"bn_dp_train_step(zero={zero})")
-    return step
+    return gradsync.analysis_checked(step, f"bn_dp_train_step(zero={zero})",
+                                     [])
 
 
 def make_bn_dp_train_step_rank_major(model: torch.nn.Module,
@@ -304,7 +298,8 @@ def make_bn_dp_train_step_rank_major(model: torch.nn.Module,
                 torch.stack(losses).mean())
 
     _note_build(f"bn_dp_train_step(zero={zero})")
-    return step
+    return gradsync.analysis_checked(step, f"bn_dp_train_step(zero={zero})",
+                                     [])
 
 
 # ---------------------------------------------------------------------------
@@ -444,7 +439,6 @@ def make_fsdp_train_step_rank_major(model: torch.nn.Module,
     global mean only then.  ``step.dims`` holds the shard dims (for
     :func:`fsdp_unshard_rank_major`) and ``step.layout_copy_bytes`` the
     bytes a step copies only to move a dim other than 0 to the front."""
-    _refuse_unported(runtime.effective_config())
     params = [p.detach() for p in params]
     dims = fsdp_specs(params, n)
     shards = [p.clone() if d is None else torch.stack(p.chunk(n, d))
@@ -493,6 +487,8 @@ def make_fsdp_train_step_rank_major(model: torch.nn.Module,
             ts, backend=backend, op="sum"),
         allreduce_mean=allreduce_mean, loss_fn=loss_fn, remat=remat,
         donate=donate)
+    step = gradsync.analysis_checked(step, "fsdp_train_step_rank_major",
+                                     [loss_fn] if loss_fn else [])
     step.dims = dims
     step.layout_copy_bytes = _copy_bytes(params, dims, 1)
     return step, shards, opt_state
@@ -511,7 +507,6 @@ def make_fsdp_train_step(model: torch.nn.Module,
     one ``reduce_scatter_in_axis`` of a tree (fused in the
     tile-interleaved layout), those of the replicated leaves through one
     ``allreduce_in_axis`` (mean), and the loss is averaged."""
-    _refuse_unported(runtime.effective_config())
     n, rank = runtime.size(), runtime.rank()
     params = [p.detach() for p in params]
     dims = fsdp_specs(params, n)
@@ -535,6 +530,8 @@ def make_fsdp_train_step(model: torch.nn.Module,
         allreduce_mean=lambda gs: collectives.allreduce_in_axis(
             gs, op="mean", backend=backend),
         loss_fn=loss_fn, remat=remat, donate=donate)
+    step = gradsync.analysis_checked(step, "fsdp_train_step",
+                                     [loss_fn] if loss_fn else [])
     step.dims = dims
     step.layout_copy_bytes = _copy_bytes(params, dims, n)
     return step, shards, opt_state

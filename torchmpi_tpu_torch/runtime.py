@@ -347,17 +347,20 @@ def _coordinator(cfg: Config) -> None:
                 os.environ.get("TORCHMPI_TPU_PROCESS_ID", "0"))
 
 
-def init(config: Optional[Config] = None, *, device: str = "cuda",
+def init(config: Optional[Config] = None, *, device: Optional[str] = None,
          init_method: Optional[str] = None, rank: Optional[int] = None,
          world_size: Optional[int] = None, **overrides) -> torch.device:
     """Start the runtime (reference: ``mpi.start``).  Idempotent; returns the
     device this process computes on.
 
-    ``device="cuda"`` (the default) binds the process to card
-    ``local_rank()`` and uses NCCL; it raises when no card is visible.
-    ``device="cpu"`` uses gloo.  No environment variable changes the
-    device: a script started by ``python -m torchmpi_tpu_torch.launch
-    --device cpu`` passes ``device="cpu"`` itself.
+    ``device="cuda"`` binds the process to card ``local_rank()`` and uses
+    NCCL; it raises when no card is visible.  ``device="cpu"`` uses gloo.
+    With no ``device``, ``Config.use_accelerator`` decides (the
+    reference's ``mpi.start(withCuda)``): the card unless it is False.
+    An explicit ``device`` wins and is recorded in ``use_accelerator``.
+    No environment variable changes the device: a script started by
+    ``python -m torchmpi_tpu_torch.launch --device cpu`` passes
+    ``device="cpu"`` itself.
     ``init_method`` / ``rank`` / ``world_size`` default to
     ``Config.coordinator_address`` / ``process_id`` / ``num_processes``
     (the JAX field names, or TORCHMPI_TPU_COORDINATOR and its two
@@ -374,6 +377,8 @@ def init(config: Optional[Config] = None, *, device: str = "cuda",
             if not hasattr(cfg, k):
                 raise ValueError(f"unknown config field {k!r}")
             setattr(cfg, k, v)
+        if cfg.backend_per_op is not None:
+            cfg.backend_per_op = _validate_backend_per_op(cfg.backend_per_op)
         cfg.ps_timeout_s = ps_timeout_s(cfg.ps_timeout_s)
         resolve_serving(cfg)
         resolve_analysis_hotstate(cfg)
@@ -386,7 +391,10 @@ def init(config: Optional[Config] = None, *, device: str = "cuda",
         # itself initialized: a corrupt or missing plan fails init
         # outright (JAX :716-724).  Off never imports faults.
         _configure_faults(cfg)
+        if device is None:
+            device = "cuda" if cfg.use_accelerator else "cpu"
         dev = torch.device(device)
+        cfg.use_accelerator = dev.type == "cuda"
         if dev.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -439,6 +447,7 @@ def init(config: Optional[Config] = None, *, device: str = "cuda",
         _state.config_epoch += 1
     # Outside the lock: the tuning layer reads the runtime's accessors.
     _configure_tuning(cfg)
+    _configure_analysis(cfg)
     _configure_obs(cfg)
     # Armed after obs, so the monitor's first events land in an armed
     # registry (JAX :762-769).  Off never imports the watchdog.
@@ -540,15 +549,63 @@ def _configure_obs(cfg: Config) -> None:
                  host=dist.get_rank() if dist.is_initialized() else 0)
 
 
+def _validate_backend_per_op(table: Dict[str, str]) -> Dict[str, str]:
+    """Per-op override tables fail loudly on typos (JAX :845-862): a
+    silently ignored key would let a user benchmark the wrong
+    implementation.  A key is a verb ("allreduce"); its entry covers the
+    verb's process-world and rank-major forms.  Returns a private copy:
+    the runtime never aliases the caller's dict."""
+    from . import collectives, selector  # noqa: F401 — its routes
+
+
+    avail = selector.available()
+    verbs = {op: sorted(set(b) | set(avail.get(f"{op}_rank_major", ())))
+             for op, b in avail.items() if not op.endswith("_rank_major")}
+    for op, backend in table.items():
+        if op not in verbs:
+            raise ValueError(
+                f"backend_per_op: unknown collective {op!r} "
+                f"(known: {sorted(verbs)})")
+        if backend not in ("xla", "auto") and backend not in verbs[op]:
+            raise ValueError(
+                f"backend_per_op[{op!r}]: backend {backend!r} has no "
+                f"implementation for this op (available: "
+                f"{verbs[op]})")
+    return dict(table)
+
+
+def _tuning_auto_active(cfg: Config) -> bool:
+    """Does some backend resolve to "auto" (plan-driven)?  The Config's,
+    or a per-op entry's (JAX :865-869)."""
+    if cfg.backend == "auto":
+        return True
+    return bool(cfg.backend_per_op
+                and "auto" in cfg.backend_per_op.values())
+
+
 def _configure_tuning(cfg: Config) -> None:
     """Load the tuning plans where the config asks for them (JAX
-    :864-876): under backend "auto", or with a plan path, which loads
-    without "auto" too (the decision log then says it is inactive)."""
-    auto = cfg.backend == "auto"
+    :864-876, :741): where a backend resolves to "auto" (the Config's or
+    a per-op entry's), or with a plan path, which loads without "auto"
+    too (the decision log then says it is inactive); the measurement
+    takes ``tuning_rounds`` rounds a candidate."""
+    auto = _tuning_auto_active(cfg)
     if auto or cfg.tuning_plan_path is not None:
         from . import tuning
 
-        tuning.configure(cfg.tuning_plan_path, auto_active=auto)
+        tuning.configure(cfg.tuning_plan_path, rounds=cfg.tuning_rounds,
+                         auto_active=auto)
+
+
+def _configure_analysis(cfg: Config) -> None:
+    """Arm the analysis hook's findings capture and its
+    ``TORCHMPI_TPU_ANALYSIS_OUT`` report where ``cfg.analysis`` is on
+    (JAX :743-749, :1055-1059), so even a process that dies before its
+    first check leaves an (empty) report.  Off never imports analysis."""
+    if cfg.analysis != "off":
+        from . import analysis
+
+        analysis.arm_runtime_capture()
 
 
 _FAULT_FIELDS = frozenset({"faults", "fault_retries", "fault_backoff_s",
@@ -567,7 +624,8 @@ def set_config(**overrides) -> None:
     world's grid stays the one :func:`init` built; a new ``dcn_size`` /
     ``ici_size`` factors the rank-major stacks from here on.  The world's
     axes are fixed at init: ``mesh_shape`` raises here, and so do
-    ``dcn_size`` / ``ici_size`` under it."""
+    ``dcn_size`` / ``ici_size`` under it, as does a ``use_accelerator``
+    that would move the device."""
     with _state.lock:
         _require_init()
         for k in overrides:
@@ -578,6 +636,11 @@ def set_config(**overrides) -> None:
                 and {"dcn_size", "ici_size"} & set(overrides)):
             raise ValueError("the world's axes (mesh_shape) are fixed at "
                              "init: stop() and init() again to change them")
+        if overrides.get("use_accelerator",
+                         _state.config.use_accelerator) != \
+                _state.config.use_accelerator:
+            raise ValueError("the device (use_accelerator) is fixed at "
+                             "init: stop() and init() again to change it")
         if "ps_timeout_s" in overrides:
             overrides["ps_timeout_s"] = ps_timeout_s(overrides["ps_timeout_s"])
         if "obs" in overrides:
@@ -592,6 +655,9 @@ def set_config(**overrides) -> None:
             overrides[k] = check_guard_elastic_override(k, overrides[k])
         for k in OVERRIDE_FIELDS & set(overrides):
             overrides[k] = check_override(k, overrides[k])
+        if overrides.get("backend_per_op") is not None:
+            overrides["backend_per_op"] = _validate_backend_per_op(
+                overrides["backend_per_op"])
         new = dataclasses.replace(_state.config, **overrides)
         check_serving(new)
         _state.config = new
@@ -600,6 +666,8 @@ def set_config(**overrides) -> None:
 
     collectives.clear_cache()
     _configure_tuning(_state.config)
+    if "analysis" in overrides:
+        _configure_analysis(_state.config)
     if _FAULT_FIELDS & set(overrides):
         _configure_faults(_state.config)
     if {"obs", "obs_dir", "obs_ring_size"} & set(overrides):

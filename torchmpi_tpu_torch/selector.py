@@ -18,9 +18,10 @@ picking one (``select`` :64-150, the "auto" route included).  Backends:
 - ``"hierarchical"``: the two-level verbs (``parallel/hierarchical.py``):
   reduce-scatter over ici, allreduce over dcn, all-gather over ici for the
   allreduce, and node leaders first for the others.  ``Config.hierarchical``
-  picks it over ``Config.backend`` (JAX ``collectives._config_backend``
-  :305-315).  On a flat world (one dcn member) it falls back to ``"xla"``
-  with one ``RuntimeWarning`` per (op, backend) (JAX :136-142, :159).
+  picks it over ``Config.backend``, and a ``Config.backend_per_op`` entry
+  over both (JAX ``collectives._config_backend`` :305-315).  On a flat
+  world (one dcn member) it falls back to ``"xla"`` with one
+  ``RuntimeWarning`` per (op, backend) (JAX :136-142, :159).
 - ``"auto"``: the tuning plans' measured choice (``tuning/``): the
   registered plan provider names the backend that won at this (op, size
   bucket, grid, platform); a hit has a per-call backend's authority (no
@@ -105,11 +106,18 @@ def verb_of(op: str) -> str:
     return op[:-len("_rank_major")] if op.endswith("_rank_major") else op
 
 
-def config_backend(cfg) -> str:
-    """The Config's backend: ``"hierarchical"`` when
-    ``Config.hierarchical``, else ``Config.backend`` (JAX
-    ``collectives._config_backend`` :305-315)."""
-    return "hierarchical" if cfg.hierarchical else cfg.backend
+def config_backend(op: str, cfg) -> Tuple[str, bool]:
+    """The Config's backend for selector op ``op`` and whether it is
+    explicit (JAX ``collectives._config_backend`` :305-315, the one home
+    of the precedence): the per-op table's entry for ``op``'s verb first,
+    with a per-call backend's authority (it bypasses the size cutover);
+    then ``"hierarchical"`` when ``Config.hierarchical``; then
+    ``Config.backend``."""
+    if cfg.backend_per_op:
+        b = cfg.backend_per_op.get(verb_of(op))
+        if b is not None:
+            return b, True
+    return ("hierarchical" if cfg.hierarchical else cfg.backend), False
 
 
 def grid_of(n: Optional[int] = None, device=None,
@@ -184,10 +192,11 @@ def select(op: str, backend: Optional[str] = None, *,
            grid=None, axes=None) -> Callable:
     """The implementation of ``op``.
 
-    ``backend`` None takes the active Config's (:func:`config_backend`); a
-    per-call backend is explicit.  ``"auto"`` asks the plan provider for
-    the plan of (``op``'s verb, ``nbytes``, ``dtype``, grid, ``axes``),
-    the grid ``grid`` or else the one the call spans (:func:`grid_of` of
+    ``backend`` None takes the active Config's (:func:`config_backend`: a
+    per-op entry is explicit); a per-call backend is explicit.
+    ``"auto"`` asks the plan provider for the plan of (``op``'s verb,
+    ``nbytes``, ``dtype``, grid, ``axes``), the grid ``grid`` or else the
+    one the call spans (:func:`grid_of` of
     ``ranks`` on ``device`` for a rank-major op, of the process world
     otherwise): a hit is explicit, a miss the stock route.  A custom backend falls back to ``"xla"`` when the payload
     (``nbytes``, one rank's bytes) is below ``Config.custom_min_bytes``
@@ -201,7 +210,9 @@ def select(op: str, backend: Optional[str] = None, *,
 
     cfg = runtime.effective_config()
     explicit = backend is not None
-    name = backend if explicit else config_backend(cfg)
+    name = backend
+    if not explicit:
+        name, explicit = config_backend(op, cfg)
     if name == "auto":
         planned = None
         if _plan_provider is not None:

@@ -48,6 +48,7 @@ class _State:
         self.cache: Optional[plancache.PlanCache] = None
         self.measure_count = 0
         self.measuring = False
+        self.rounds = measure.ROUNDS
         self.decisions: List[dict] = []
         self.logger: Optional[metrics.MetricsLogger] = None
         self.logged_keys: set = set()
@@ -103,16 +104,20 @@ def plan() -> Optional[plancache.PlanCache]:
 
 def configure(plan_path: Optional[str] = None,
               log_path: Optional[str] = None,
-              auto_active: bool = True) -> plancache.PlanCache:
+              auto_active: bool = True,
+              rounds: int = measure.ROUNDS) -> plancache.PlanCache:
     """Activate online tuning: load the plan file (silently degrading to
     an empty plan) and register the selector's plan provider.  Called by
     ``runtime.init`` / ``set_config`` when the config opts in.
+    ``rounds`` (``Config.tuning_rounds``) fenced rounds time each
+    candidate of a later measurement (JAX :101, :128).
     ``auto_active=False`` records that a plan was loaded while no backend
     resolves to ``"auto"``, so the decision log says why a seeded plan
     never applies."""
     from .. import selector
 
     with _state.lock:
+        _state.rounds = max(1, int(rounds))
         path = plancache.resolve_plan_path(plan_path)
         if (_state.cache is not None and _state.cache.path == path
                 and _state.cache.degraded_reason is None):
@@ -259,7 +264,8 @@ def resolve_eager(op: str, nbytes: int, dtype, grid,
         for b in _eligible_candidates(impl_op or op,
                                       _spanned_dcn(grid, axes)):
             try:
-                cands[b] = measure.measure(lambda b=b: runner(b))
+                cands[b] = measure.measure(lambda b=b: runner(b),
+                                           rounds=st.rounds)
             except Exception as e:  # noqa: BLE001 - a broken candidate
                 errors[b] = f"{type(e).__name__}: {e}"[:160]
         if not cands:
@@ -280,7 +286,7 @@ def resolve_eager(op: str, nbytes: int, dtype, grid,
                        for b, r in cands.items()},
             jitter_ms={b: round(r.jitter * 1e3, 4)
                        for b, r in cands.items()},
-            rounds=measure.ROUNDS)
+            rounds=st.rounds)
         cache.put(key, new)
         cache.save()  # best-effort: an unwritable path stays in memory
         st.logged_keys.add(key)

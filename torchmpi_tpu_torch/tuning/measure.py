@@ -16,15 +16,9 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+# Config.tuning_rounds's default (config.py says why 9).
+from ..config import TUNING_ROUNDS as ROUNDS
 from ..utils import metrics
-
-# Fenced rounds a candidate.  The JAX package's 3 leave the jitter at half
-# the range of three single-call rounds: 0.020-0.044 ms for the ring at
-# the ResNet-50 BatchNorm statistics' size (b17) in chip_smoke.py's
-# auto_dp on an H100 80GB HBM3 at 700 W, above the gap between the
-# candidates.  From four rounds on the jitter is half the inter-quartile
-# range, which one slow round does not move.
-ROUNDS = 9
 
 
 def measure(step, iters: int = 1, rounds: int = ROUNDS,
