@@ -8,9 +8,9 @@ JAX package.  In order it:
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the kernels from ops/csrc with nvcc (sm_90a, one compiler per
-   source, in parallel) into build/torch_kernels/: fourteen kernels and
-   row 1's residual form (a second launcher of flash_fwd.cu) in seven
-   libraries; beside them, with g++, the parameter server's and the
+   source, in parallel) into build/torch_kernels/: fourteen kernels, row
+   1's residual form (a second launcher of flash_fwd.cu), rows 2 and 3's
+   bf16 wgmma kernels and their dO split in nine libraries; beside them, with g++, the parameter server's and the
    async writer's host libraries (torchmpi_tpu_torch/csrc) into
    build/torch_host/;
 3. kernel phases: at the flagship LM's attention shapes (B 4, T 2048, 16 q /
@@ -54,13 +54,20 @@ JAX package.  In order it:
    121,682,944-element shards) under chunk_bytes 4 MiB (rows 9 and 10)
    and 512 MiB (the resident rows 13 and 14), all four direct, the same
    way, with the stock rank-major routes timed beside them;
-   Then the bf16 flash phase (flash_bf16, slice 25): the public entry
-   points (flash_attention, with residuals at batch 1, and
-   flash_attention_grad forward and backward) on bf16 q / k / v at the
-   same shape, every launch on the bf16 route and every output bf16 (the
-   residual form's float32); rows 1, 1 res, 2 and 3 against their plain
-   versions within 2^-7 x max |ref| and bitwise on a repeat, timed beside
-   their bound at the bf16 tensor-core rate and bf16 SDPA;
+   Then the bf16 flash phase (flash_bf16, slice 25; rows 2 and 3 later
+   redesigned on wgmma): the public entry points (flash_attention,
+   with residuals at batch 1, flash_attention_grad forward and backward
+   on a bf16 dO, flash_attention_bwd on a float32 dO) on bf16 q / k / v
+   at the same shape, every forward launch on the bf16 route, every
+   backward launch on wgmma_bf16 (wgmma on TMA tiles, the float32-operand
+   products as bf16 splits; the float32 dO split once by the
+   flash_bwd_split kernel), every output bf16 (the residual form's and
+   flash_attention_bwd's float32); rows 1, 1 res, 2, 3 (on both dO kinds)
+   and the split against their plain versions within 2^-7 x max |ref|
+   (the split bitwise) and bitwise on a repeat, timed beside their bound
+   at the bf16 tensor-core rate (rows 2 and 3 also beside the split
+   form's floor) and bf16 SDPA; the new kernels' ptxas report without
+   spills;
 4. dense train phase (stage B): mpi.init() (NCCL, world of 1), one
    untimed warm-up and eight timed data-parallel SGD steps (lr 0.02;
    median and spread) of the flagship TransformerLM at full
@@ -851,6 +858,15 @@ SOURCES = {
     # return_residuals=True): a second launcher of flash_fwd.cu.
     "flash_fwd_residual": ("torchmpi_tpu_torch/ops/csrc/flash_fwd.cu",
                            "torchmpi_tpu/ops/flash.py:337"),
+    # Rows 2 and 3 on bf16 (the wgmma_bf16 route), and the dO split they
+    # read (no TPU kernel: it splits the dO that JAX upcasts at :667).
+    "flash_bwd_dq_bf16": ("torchmpi_tpu_torch/ops/csrc/flash_bwd_dq_wgmma.cu",
+                          "torchmpi_tpu/ops/flash.py:358"),
+    "flash_bwd_dkv_bf16": (
+        "torchmpi_tpu_torch/ops/csrc/flash_bwd_dkv_wgmma.cu",
+        "torchmpi_tpu/ops/flash.py:424"),
+    "flash_bwd_split": ("torchmpi_tpu_torch/ops/csrc/flash_bwd_dq_wgmma.cu",
+                        "torchmpi_tpu/ops/flash.py:667"),
 }
 
 
@@ -957,10 +973,14 @@ def ptxas_summary(log: str) -> dict:
             res = (" residual" if fwd and flags[:1] == ["1"] else "") + (
                 " bf16" if flags[-1:] == ["1"] and (len(flags) == 2
                                                    or not fwd) else "")
+            if "wgmma_kernel" in m.group(1):
+                res = " wgmma" + (" lo" if flags[-1:] == ["1"] else "")
             key = (f"D{d.group(1)}{res}" if d else
                    f"wgmma_tf32<{tf32.group(1)}>" if tf32 else
                    f"wgmma<{epi.group(1)}>" if epi else
                    "tf32_split_kernel" if "tf32_split_kernel" in m.group(1)
+                   else "flash_bwd_split_kernel"
+                   if "flash_bwd_split_kernel" in m.group(1)
                    else name.group(0) if name else m.group(1))
             cur = out.setdefault(key, [])
         elif cur is not None and ("registers" in ln or "spill" in ln):
@@ -1610,7 +1630,10 @@ def train_phase(torch, mpi, ops, dev, loss: str, dtype=None):
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     check(syncs == 0, f"{syncs} host-device synchronizations in a step")
-    path = [n for n in launches if n != "flash_fwd_residual"
+    # Not on this path: row 1's residual form (ring attention's) and the
+    # dO split (the bf16 backward's; the model runs attention in float32).
+    path = [n for n in launches
+            if n not in ("flash_fwd_residual", "flash_bwd_split")
             and (loss == "fused" or n.startswith("flash"))]
     for name in path:
         check(launches[name] > 0, f"kernel {name} never launched on the "
@@ -8105,8 +8128,15 @@ def parallel_serving_phase(torch, mpi, ops, dev):
 # element (the kernel rounds P against each kv block's running max, the
 # plain version against the row's final max), and bitwise on a repeat.
 FLASH_BF16_RTOL = 2.0 ** -7
+# dv rounds no dS: the split keeps P^T dO to float32's order (a few 1e-6
+# of max |ref|), and a dropped split term (dO or P rounded to bf16) costs
+# 2^-9 or more, so dv is held to this besides, on both dO kinds.
+FLASH_BF16_DV_F32_RTOL = 2.0 ** -12
 FLASH_BF16_ROWS = ("flash_fwd", "flash_fwd_residual", "flash_bwd_dq",
-                   "flash_bwd_dkv")
+                   "flash_bwd_dkv", "flash_bwd_split")
+# Rows 2 and 3 on bf16 (wgmma on TMA tiles, the float32-operand products
+# as bf16 splits): their libraries.
+FLASH_BF16_WGMMA_LIBS = ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")
 # The telemetry slice (slice 25): obs_dp's steps a side of the bitwise
 # check (a), its timed steps a side in turns (e), and the eager dispatches
 # a side of the host-cost comparison, in turns.
@@ -8127,16 +8157,24 @@ ANALYSIS_STALE_SHARDS = 2  # the seeded C1 step's spec, for 2 of 4 ranks
 
 
 def flash_bf16_phase(torch, flash, dev):
-    """The repair of queue C note 30: the flash kernels on bf16 operands.
-    The main path is the user's: ``flash_attention`` (plain and with
-    residuals) and ``flash_attention_grad`` forward and backward on bf16
-    q / k / v at the kernel phase's shape (the residual form at batch 1),
-    every flash counter set to 0 just before and read just after; every
-    launch must be on the bf16 route, and the outputs bf16 (they raised
-    before).  Then each kernel (rows 1, 1 res, 2, 3) against its plain
-    version within FLASH_BF16_RTOL x max |ref| and bitwise on a repeat,
-    timed beside its bound at the bf16 dense tensor-core rate and PyTorch
-    SDPA's bf16 time (the yardstick, never the port's)."""
+    """The repair of queue C note 30 and the redesign of rows 2 and 3 on
+    bf16 on wgmma: the flash kernels on bf16 operands.  The main path is
+    the user's: ``flash_attention`` (plain and with residuals),
+    ``flash_attention_grad`` forward and backward (a bf16 dO: the
+    backward's wgmma_bf16 route with dO's lo products skipped) and
+    ``flash_attention_bwd`` on a float32 dO that is not bf16-exact (the dO
+    split, then the wgmma_bf16 kernels with all their split products) on
+    bf16 q / k / v at the kernel phase's shape (the residual form at batch
+    1), every flash counter set to 0 just before and read just after;
+    every forward launch must be on the bf16 route, every backward launch
+    on wgmma_bf16, and the outputs bf16.  Then each kernel (rows 1, 1 res,
+    2, 3 and the dO split) against its plain version within
+    FLASH_BF16_RTOL x max |ref| (the split bitwise; dv also within
+    FLASH_BF16_DV_F32_RTOL) and bitwise on a repeat, rows 2 and 3 on both
+    dO kinds; timed beside its bound at the
+    bf16 dense tensor-core rate (rows 2 and 3 also beside the split form's
+    floor) and PyTorch SDPA's bf16 time (the yardstick, never the
+    port's); the new kernels' ptxas report must show no spills."""
     B, T, H, Hkv, D, W = (BATCH, SEQ, LM["num_heads"], LM["num_kv_heads"],
                           LM["head_dim"], LM["window"])
     g = torch.Generator(device=dev).manual_seed(SEED + 30)
@@ -8146,6 +8184,8 @@ def flash_bf16_phase(torch, flash, dev):
 
     q, k, v, do = mk(B, T, H, D), mk(B, T, Hkv, D), mk(B, T, Hkv, D), \
         mk(B, T, H, D)
+    # A float32 dO whose lo part is not zero.
+    dof = torch.randn(B, T, H, D, generator=g, device=dev)
     q1, k1, v1 = (t[:1].contiguous() for t in (q, k, v))
     kw = dict(scale=1.0 / math.sqrt(D), causal=True, window=W)
 
@@ -8157,16 +8197,25 @@ def flash_bf16_phase(torch, flash, dev):
     xs = [t.clone().requires_grad_() for t in (q, k, v)]
     o_grad = flash.flash_attention_grad(*xs, causal=True, window=W)
     o_grad.backward(do)
+    o_f, lse_f = flash.flash_fwd(q, k, v, **kw)
+    dvec_f = torch.einsum("bqhd,bqhd->bhq", dof, o_f.float()).contiguous()
+    grads_f32 = flash.flash_attention_bwd(q, k, v, dof, lse_f, dvec_f,
+                                          causal=True, scale=kw["scale"],
+                                          window=W)
     torch.cuda.synchronize()
     routes = {n: dict(flash.ROUTE_LAUNCHES[n]) for n in FLASH_BF16_ROWS}
-    launches = {f"{n}[bf16]": routes[n]["bf16"] for n in FLASH_BF16_ROWS}
+    launches = {f"{n}[bf16]": sum(c for r, c in routes[n].items()
+                                  if r != "tf32x3")
+                for n in FLASH_BF16_ROWS}
     dtypes = {"o": str(o_api.dtype), "o_grad": str(o_grad.dtype),
               "num": str(res_api[0].dtype),
-              "grads": [str(x.grad.dtype) for x in xs]}
+              "grads": [str(x.grad.dtype) for x in xs],
+              "grads_f32_do": [str(t.dtype) for t in grads_f32]}
     api_finite = all(bool(torch.isfinite(t.float()).all())
                      for t in (o_api, o_grad, res_api[0], *(x.grad
-                                                           for x in xs)))
-    del xs, o_grad, res_api
+                                                           for x in xs),
+                               *grads_f32))
+    del xs, o_grad, res_api, o_f, lse_f, dvec_f, grads_f32
 
     # Each kernel against its plain version (launches not counted).
     o, lse = flash.flash_fwd(q, k, v, **kw)
@@ -8175,39 +8224,62 @@ def flash_bf16_phase(torch, flash, dev):
     r = flash.flash_fwd_residual(q1, k1, v1, **kw)
     r2 = flash.flash_fwd_residual(q1, k1, v1, **kw)
     r_ref = flash.flash_fwd_residual_plain(q1, k1, v1, **kw)
-    dof = do.float()
     dvec = torch.einsum("bqhd,bqhd->bhq", dof, o.float()).contiguous()
-    dq = flash.flash_bwd_dq(q, k, v, dof, lse, dvec, **kw)
-    dq2 = flash.flash_bwd_dq(q, k, v, dof, lse, dvec, **kw)
-    dq_ref = flash.flash_bwd_dq_plain(q, k, v, dof, lse, dvec, **kw)
-    dk, dv = flash.flash_bwd_dkv(q, k, v, dof, lse, dvec, **kw)
-    dk2, dv2 = flash.flash_bwd_dkv(q, k, v, dof, lse, dvec, **kw)
-    dk_ref, dv_ref = flash.flash_bwd_dkv_plain(q, k, v, dof, lse, dvec,
-                                               **kw)
+    dvec_b = torch.einsum("bqhd,bqhd->bhq", do.float(),
+                          o.float()).contiguous()
+    split = flash.flash_bwd_split(dof)
+    split2 = flash.flash_bwd_split(dof)
+    split_ref = flash.flash_bwd_split_plain(dof)
+    got, again, want = {}, {}, {}
+    # The plain versions take dO as JAX does, in float32 (:667): a bf16 dO
+    # would round P in P^T dO there.
+    for tag, d_o, dv_ in (("", dof, dvec), ("bf16_do", do, dvec_b)):
+        got[("flash_bwd_dq", tag)] = (flash.flash_bwd_dq(
+            q, k, v, d_o, lse, dv_, **kw),)
+        again[("flash_bwd_dq", tag)] = (flash.flash_bwd_dq(
+            q, k, v, d_o, lse, dv_, **kw),)
+        want[("flash_bwd_dq", tag)] = (flash.flash_bwd_dq_plain(
+            q, k, v, d_o.float(), lse, dv_, **kw),)
+        got[("flash_bwd_dkv", tag)] = flash.flash_bwd_dkv(
+            q, k, v, d_o, lse, dv_, **kw)
+        again[("flash_bwd_dkv", tag)] = flash.flash_bwd_dkv(
+            q, k, v, d_o, lse, dv_, **kw)
+        want[("flash_bwd_dkv", tag)] = flash.flash_bwd_dkv_plain(
+            q, k, v, d_o.float(), lse, dv_, **kw)
     torch.cuda.synchronize()
 
-    def rel(pairs):
+    def rel(pairs, rtol=FLASH_BF16_RTOL):
         """max |err| and max |ref| over (got, ref) pairs, each held to
-        FLASH_BF16_RTOL of its own max |ref|."""
+        rtol of its own max |ref|."""
         errs = [(max_err(a, b), float(b.float().abs().max()))
                 for a, b in pairs]
         return (max(e for e, _ in errs), max(m for _, m in errs),
-                all(e <= FLASH_BF16_RTOL * m for e, m in errs))
+                all(e <= rtol * m for e, m in errs))
 
     errs = {
         "flash_fwd": rel([(o, o_ref), (lse, lse_ref)]),
         "flash_fwd_residual": rel(zip(r, r_ref)),
-        "flash_bwd_dq": rel([(dq, dq_ref)]),
-        "flash_bwd_dkv": rel([(dk, dk_ref), (dv, dv_ref)]),
+        "flash_bwd_split": (max_err(split[0], split_ref[0]) +
+                            max_err(split[1], split_ref[1]),
+                            float(dof.abs().max()),
+                            all(torch.equal(a, b)
+                                for a, b in zip(split, split_ref))),
     }
     bitwise = {
         "flash_fwd": torch.equal(o, o2) and torch.equal(lse, lse2),
         "flash_fwd_residual": all(torch.equal(a, b) for a, b in zip(r, r2)),
-        "flash_bwd_dq": torch.equal(dq, dq2),
-        "flash_bwd_dkv": torch.equal(dk, dk2) and torch.equal(dv, dv2),
+        "flash_bwd_split": all(torch.equal(a, b)
+                               for a, b in zip(split, split2)),
     }
-    del o2, lse2, r2, dq2, dk2, dv2, o_ref, lse_ref, r_ref, dq_ref, dk_ref
-    del dv_ref
+    for key in got:
+        errs[key] = rel(zip(got[key], want[key]))
+        bitwise[key] = all(torch.equal(a, b)
+                           for a, b in zip(got[key], again[key]))
+    dv_errs = {tag: rel([(got[("flash_bwd_dkv", tag)][1],
+                          want[("flash_bwd_dkv", tag)][1])],
+                        FLASH_BF16_DV_F32_RTOL) for tag in ("", "bf16_do")}
+    del o2, lse2, r2, o_ref, lse_ref, r_ref, got, again, want, split2
+    del split_ref
     pos = torch.arange(T, device=dev)
     live = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < W)
     pairs = B * H * int(live.sum())
@@ -8217,10 +8289,18 @@ def flash_bf16_phase(torch, flash, dev):
         "flash_fwd": (4 * D * pairs, nbytes(q, k, v, o, lse)),
         "flash_fwd_residual": (4 * D * pairs // B,
                                nbytes(q1, k1, v1, *r)),
-        "flash_bwd_dq": (6 * D * pairs, nbytes(q, k, v, dof, lse, dvec, dq)),
+        # Outputs in float32: dq as dO, dk and dv as k's shape.
+        "flash_bwd_dq": (6 * D * pairs,
+                         nbytes(q, k, v, dof, lse, dvec) + 4 * dof.numel()),
         "flash_bwd_dkv": (8 * D * pairs,
-                          nbytes(q, k, v, dof, lse, dvec, dk, dv)),
+                          nbytes(q, k, v, dof, lse, dvec) + 8 * k.numel()),
+        "flash_bwd_split": (0, nbytes(dof, *split)),
     }
+    # The split form's floor at the bf16 rate: dQ 4 bf16 products (8 D a
+    # live pair), dK/dV 7 (14 D); with a bf16 dO's lo products skipped,
+    # 3 and 5.
+    split_flops = {"flash_bwd_dq": (8 * D * pairs, 6 * D * pairs),
+                   "flash_bwd_dkv": (14 * D * pairs, 10 * D * pairs)}
     runs = {
         "flash_fwd": (lambda: flash.flash_fwd(q, k, v, **kw),
                       lambda: flash.flash_fwd_plain(q, k, v, **kw)),
@@ -8234,6 +8314,14 @@ def flash_bf16_phase(torch, flash, dev):
             lambda: flash.flash_bwd_dkv(q, k, v, dof, lse, dvec, **kw),
             lambda: flash.flash_bwd_dkv_plain(q, k, v, dof, lse, dvec,
                                               **kw)),
+        "flash_bwd_split": (lambda: flash.flash_bwd_split(dof),
+                            lambda: flash.flash_bwd_split_plain(dof)),
+    }
+    runs_bf16_do = {
+        "flash_bwd_dq": lambda: flash.flash_bwd_dq(q, k, v, do, lse, dvec_b,
+                                                   **kw),
+        "flash_bwd_dkv": lambda: flash.flash_bwd_dkv(q, k, v, do, lse,
+                                                     dvec_b, **kw),
     }
     # The yardstick: one bf16 SDPA call on the same inputs and mask, and
     # one autograd backward through it (dq, dk and dv together).
@@ -8248,48 +8336,110 @@ def flash_bf16_phase(torch, flash, dev):
     q1t, k1t, v1t = (t.transpose(1, 2) for t in (q1, k1, v1))
     library_ms = {"flash_fwd": time_ms(torch, torch.no_grad()(sdpa)),
                   "flash_fwd_residual": time_ms(torch, torch.no_grad()(
-                      lambda: sdpa(q1t, k1t, v1t)))}
+                      lambda: sdpa(q1t, k1t, v1t))),
+                  "flash_bwd_split": None}
     library_ms["flash_bwd_dq"] = library_ms["flash_bwd_dkv"] = time_ms(
         torch, lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), do_t,
                                            retain_graph=True))
+    bwd_design = ("warp-specialised wgmma m64nNk16 on TMA tiles (producer "
+                  "warpgroup + 2 consumers), A from registers for the "
+                  "second products; dO V^T and P^T dO as bf16 splits")
+    designs = {"flash_fwd": "bf16 mma.sync m16n8k16",
+               "flash_fwd_residual": "bf16 mma.sync m16n8k16",
+               "flash_bwd_dq": bwd_design, "flash_bwd_dkv": bwd_design,
+               "flash_bwd_split": "elementwise, 16-byte loads and stores"}
+    library_calls = {
+        "flash_fwd": "sdpa forward, bf16",
+        "flash_fwd_residual": "sdpa forward, bf16",
+        "flash_bwd_dq": "sdpa backward, bf16: dq + dk + dv together",
+        "flash_bwd_dkv": "sdpa backward, bf16: dq + dk + dv together",
+        "flash_bwd_split": None}
     rows = []
     for name in FLASH_BF16_ROWS:
         flops, nb = work[name]
         t_op, t_b = flops / PEAK_BF16_FLOPS * 1e3, nb / PEAK_HBM_BYTES * 1e3
-        err, ref_max, ok = errs[name]
-        rows.append({
+        err, ref_max, ok = errs[name] if name in errs else errs[(name, "")]
+        row = {
             "name": f"{name}[bf16]", "route": "cuda",
             "source": SOURCES[name][0], "replaces": SOURCES[name][1],
             "max_abs_err": err, "max_abs_ref": ref_max,
-            "tolerance": f"{FLASH_BF16_RTOL} x max |ref| a tensor",
-            "within_tolerance": ok, "bitwise_repeat": bitwise[name],
+            "tolerance": ("bitwise" if name == "flash_bwd_split" else
+                          f"{FLASH_BF16_RTOL} x max |ref| a tensor"),
+            "within_tolerance": ok,
+            "bitwise_repeat": bitwise.get(name, bitwise.get((name, ""))),
             "ms": time_ms(torch, runs[name][0]),
             "plain_ms": time_ms(torch, runs[name][1], iters=3, warmup=1),
             "bound_ms": max(t_op, t_b),
             "bound_by": "operations" if t_op >= t_b else "bytes",
             "library_ms": library_ms[name],
-            "library_call": ("sdpa forward, bf16" if "fwd" in name else
-                             "sdpa backward, bf16: dq + dk + dv together"),
-            "flops": flops, "bytes": nb, "design": "bf16 mma.sync m16n8k16",
-            "route_launches": routes[name]})
+            "library_call": library_calls[name],
+            "flops": flops, "bytes": nb, "design": designs[name],
+            "route_launches": routes[name]}
+        if name in split_flops:
+            err_b, ref_b, ok_b = errs[(name, "bf16_do")]
+            row.update(
+                source=SOURCES[name + "_bf16"][0],
+                split_floor_ms=split_flops[name][0] / PEAK_BF16_FLOPS * 1e3,
+                split_floor_ms_bf16_do=(split_flops[name][1]
+                                        / PEAK_BF16_FLOPS * 1e3),
+                ms_bf16_do=time_ms(torch, runs_bf16_do[name]),
+                max_abs_err_bf16_do=err_b, max_abs_ref_bf16_do=ref_b,
+                within_tolerance_bf16_do=ok_b,
+                bitwise_repeat_bf16_do=bitwise[(name, "bf16_do")])
+        if name == "flash_bwd_dkv":
+            row.update(
+                dv_tolerance=f"{FLASH_BF16_DV_F32_RTOL} x max |ref|",
+                **{f"dv_{k}{sfx}": v for tag, sfx in (("", ""),
+                                                      ("bf16_do", "_bf16_do"))
+                   for k, v in zip(("max_abs_err", "max_abs_ref",
+                                    "within_tolerance"), dv_errs[tag])})
+        rows.append(row)
     del sdpa_out, qt, kt, vt
+    ptxas = {lib: ptxas_summary(flash._build.build_logs.get(lib, ""))
+             for lib in FLASH_BF16_WGMMA_LIBS}
+    spills = {lib: [int(n) for n in re.findall(
+        r"(\d+) bytes spill (?:stores|loads)",
+        flash._build.build_logs.get(lib, ""))]
+        for lib in FLASH_BF16_WGMMA_LIBS}
+    # ptxas's performance notes on the wgmma (C75xx: serialized), if any.
+    wgmma_notes = {lib: sorted(set(re.findall(
+        r"C75\d\d", flash._build.build_logs.get(lib, ""))))
+        for lib in FLASH_BF16_WGMMA_LIBS}
     emit({"phase": "flash_bf16", "shape": dict(B=B, T=T, H=H, Hkv=Hkv, D=D,
                                                window=W, dtype="bfloat16",
                                                residual_batch=1),
           "live_pairs": pairs, "launches": launches, "routes": routes,
-          "dtypes": dtypes, "kernels": rows})
+          "dtypes": dtypes, "ptxas": ptxas, "wgmma_notes": wgmma_notes,
+          "kernels": rows})
     check(api_finite, "flash_bf16: non-finite output of the bf16 API")
     check(dtypes == {"o": "torch.bfloat16", "o_grad": "torch.bfloat16",
                      "num": "torch.float32",
-                     "grads": ["torch.bfloat16"] * 3},
+                     "grads": ["torch.bfloat16"] * 3,
+                     "grads_f32_do": ["torch.float32"] * 3},
           f"flash_bf16: output dtypes {dtypes}")
     for n in FLASH_BF16_ROWS:
-        check(routes[n]["bf16"] > 0 and routes[n]["tf32x3"] == 0,
-              f"flash_bf16: {n} routes {routes[n]}, want bf16 only")
+        want_route = "bf16" if n.startswith("flash_fwd") else "wgmma_bf16"
+        check(routes[n][want_route] > 0 and
+              sum(routes[n].values()) == routes[n][want_route],
+              f"flash_bf16: {n} routes {routes[n]}, want {want_route} only")
+    for lib, found in spills.items():
+        check(found and not any(found),
+              f"flash_bf16: {lib} ptxas spills {found} ({ptxas[lib]})")
+        check(not wgmma_notes[lib], f"flash_bf16: ptxas serialized {lib}'s "
+              f"wgmma ({wgmma_notes[lib]})")
     for row in rows:
-        check(row["within_tolerance"], f"{row['name']} max_abs_err "
-              f"{row['max_abs_err']} over {FLASH_BF16_RTOL} x max |ref|")
-        check(row["bitwise_repeat"], f"{row['name']}: two calls differ")
+        for sfx in ("", "_bf16_do"):
+            if f"within_tolerance{sfx}" not in row:
+                continue
+            check(row[f"within_tolerance{sfx}"], f"{row['name']}{sfx} "
+                  f"max_abs_err {row[f'max_abs_err{sfx}']} over "
+                  f"{row['tolerance']}")
+            if f"dv_within_tolerance{sfx}" in row:
+                check(row[f"dv_within_tolerance{sfx}"], f"{row['name']}{sfx}"
+                      f" dv max_abs_err {row[f'dv_max_abs_err{sfx}']} over "
+                      f"{row['dv_tolerance']}")
+            check(row[f"bitwise_repeat{sfx}"],
+                  f"{row['name']}{sfx}: two calls differ")
     return rows, launches
 
 

@@ -115,7 +115,7 @@ def test_kernels_match_plain(cuda, case):
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2), "two calls differ"
     torch.cuda.synchronize()
     twice = {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
-             "flash_fwd_residual": 0}
+             "flash_fwd_residual": 0, "flash_bwd_split": 0}
     assert all(flash.LAUNCHES[n] == before[n] + twice[n] for n in before)
     assert torch.isfinite(o).all() and torch.isfinite(dq).all()
 

@@ -4,7 +4,9 @@ Each ``ops/csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into its own shared library with a plain C interface under
 ``build/torch_kernels/`` at the repository root, and loaded with ``ctypes``.
 The library's file name carries a digest of its sources and flags, so an
-edited source builds anew and a built one is reused.  Several kernels build
+edited source builds anew and a built one is reused; nvcc's output (the
+ptxas report) is kept beside it, ``lib<name>-<digest>.log``, and a library
+without its log is built again.  Several kernels build
 in parallel: one ``nvcc`` process per source, all started together.
 
 Nothing is compiled at import: the first call that launches a kernel builds
@@ -25,17 +27,20 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+           "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma",
            "xent_fwd", "xent_bwd_dx", "xent_bwd_dw", "ring_direct")
 # Kernels whose launcher lives in another kernel's library (a second C
 # launcher of the same source): kernel name -> library name.
-SHARED_LIBRARY = {"flash_fwd_residual": "flash_fwd"}
+SHARED_LIBRARY = {"flash_fwd_residual": "flash_fwd",
+                  "flash_bwd_split": "flash_bwd_dq_wgmma"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 # name -> nvcc's output (ptxas register / shared-memory / spill report) of
-# the build this process ran, for callers that print it.
+# each library build() returned, built now or read from its log, for
+# callers that print or check it.
 build_logs: Dict[str, str] = {}
 
 
@@ -65,16 +70,26 @@ def lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def log_path(lib: Path) -> Path:
+    """Where nvcc's output of library ``lib`` is kept."""
+    return lib.with_suffix(".log")
+
+
 def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
-    """Compile every kernel in ``names`` whose library is missing, all in
-    parallel, and return each kernel's library path.  Raises with nvcc's
-    output if a build fails."""
+    """Compile every kernel in ``names`` whose library or its log is
+    missing, all in parallel, and return each kernel's library path; every
+    name's nvcc output lands in ``build_logs``.  Raises with nvcc's output
+    if a build fails."""
     names = list(names)
     for n in names:
         if n not in KERNELS:
             raise ValueError(f"unknown kernel {n!r} (known: {KERNELS})")
     paths = {n: lib_path(n) for n in names}
-    todo = {n: p for n, p in paths.items() if not p.exists()}
+    todo = {n: p for n, p in paths.items()
+            if not (p.exists() and log_path(p).exists())}
+    for n, p in paths.items():
+        if n not in todo:
+            build_logs[n] = log_path(p).read_text()
     if not todo:
         return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -95,6 +110,9 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
                 failed.append(f"--- {n} (nvcc exit {proc.returncode}) ---\n"
                               f"{out}")
             else:
+                tmp_log = tmp.with_suffix(".log")
+                tmp_log.write_text(out)
+                os.replace(tmp_log, log_path(p))
                 os.replace(tmp, p)
         if failed:
             raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))

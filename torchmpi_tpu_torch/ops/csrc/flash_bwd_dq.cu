@@ -1,6 +1,6 @@
-// flash_bwd_dq: the dQ half of the flash-attention backward, its three
-// products on the tensor cores; q / k / v in f32 or bf16 (two routes, one
-// kernel), dO, lse, D and dq in f32.
+// flash_bwd_dq: the dQ half of the flash-attention backward, f32 in and
+// out, its three products on the tensor cores.  bf16 q / k / v take
+// flash_bwd_dq_wgmma.cu.
 //
 // Replaces the TPU kernel _flash_bwd_dq_kernel (torchmpi_tpu/ops/flash.py:358,
 // launched by pallas_call in flash_attention_bwd, :707).
@@ -50,15 +50,6 @@
 // Resources at D 128: 192 KB of shared memory (Q and dO 128 KB, two stages
 // of K and V 64 KB), so one block of 8 warps an SM; 239 registers a
 // thread, no spills (ptxas, the `build` line of chip_smoke.py; PERF.md).
-//
-// The bf16 route (BF; tm_flash_bwd_dq_bf16): Q and K in bf16 tiles, dO in
-// f32 (the JAX wrapper upcasts it, :667), V converted to an f32 tile as it
-// is loaded.  S = Q K^T is one m16n8k16 bf16 product; dP = dO V^T stays on
-// mma3, an f32 product as in JAX (V's TF32 lo part is zero); dS is rounded
-// to bf16 (JAX :407) and dS K is one bf16 product against K's B fragments
-// by transposed ldmatrix.  144 KB of shared memory at D 128.
-
-#include <type_traits>
 
 #include "flash_common.cuh"
 
@@ -73,19 +64,13 @@ constexpr int NWARP = tmf::NT / 32;  // 8
 constexpr int ROWS = 16 * NWARP;     // q rows a block: HB heads x BQ rows
 constexpr int BK = 32;               // keys a kv block
 
-template <bool BF>
-using In = std::conditional_t<BF, tmf::bf16, float>;
-
-template <int D, bool BF>
+template <int D>
 struct Smem {
-  static constexpr int P = tmf::pitch<D>();  // f32 tiles
-  static constexpr int PI = BF ? tmf::pitch_bf<D>() : P;  // Q and K tiles
+  static constexpr int P = tmf::pitch<D>();
   static constexpr int qTile = ROWS * P, kTile = BK * P;
-  static constexpr int qTileI = ROWS * PI, kTileI = BK * PI;
-  // f32: dos [ROWS][P] (head-major: HB heads of BQ rows), vs [2 stages]
-  // [BK][P]; then in the operand type: qs [ROWS][PI], ks [2][BK][PI].
-  static constexpr size_t bytes = sizeof(float) * (qTile + 2 * kTile) +
-                                  sizeof(In<BF>) * (qTileI + 2 * kTileI);
+  // dos [ROWS][P] (head-major: HB heads of BQ rows), vs [2 stages] [BK][P],
+  // qs [ROWS][P], ks [2][BK][P].
+  static constexpr size_t bytes = sizeof(float) * (2 * qTile + 4 * kTile);
 };
 
 template <int D>
@@ -93,22 +78,21 @@ __device__ __forceinline__ int swz(int r, int c) {
   return tmf::swz<D, kRows2T>(r, c);
 }
 
-template <int D, bool BF>
+template <int D>
 __global__ void __launch_bounds__(tmf::NT)
-flash_bwd_dq_kernel(const In<BF>* __restrict__ q, const In<BF>* __restrict__ k,
-                    const In<BF>* __restrict__ v, const float* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ dvec,
                     float* __restrict__ dq, int Tq, int Tkv, int H, int Hkv,
                     int hb, float scale, tmf::Band band) {
-  using S = Smem<D, BF>;
-  using T = In<BF>;
+  using S = Smem<D>;
   constexpr int NT8 = D / 8;   // 8-column n-tiles of dq
   constexpr int NK8 = BK / 8;  // 8-key n-tiles of S / dP, k-steps of dS K
   extern __shared__ __align__(16) float smem[];
   float* dos = smem;
-  float* vs = dos + S::qTile;                      // [2][kTile]
-  T* qs = reinterpret_cast<T*>(vs + 2 * S::kTile);
-  T* ks = qs + S::qTileI;                          // [2][kTileI]
+  float* vs = dos + S::qTile;   // [2][kTile]
+  float* qs = vs + 2 * S::kTile;
+  float* ks = qs + S::qTile;    // [2][kTile]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;    // mma fragment coordinates
@@ -132,19 +116,15 @@ flash_bwd_dq_kernel(const In<BF>* __restrict__ q, const In<BF>* __restrict__ k,
   }
 
   auto issue_kv = [&](int j, int st) {
-    tmf::load_in<D, kRows2T>(ks + st * S::kTileI, k + kvoff, kvstride,
-                             j * BK, BK, Tkv);
-    if constexpr (BF)
-      tmf::load_tile_cvt<D, kRows2T>(vs + st * S::kTile, v + kvoff, kvstride,
-                                     j * BK, BK, Tkv);
-    else
-      tmf::load_tile<D, kRows2T>(vs + st * S::kTile, v + kvoff, kvstride,
-                                 j * BK, BK, Tkv);
+    tmf::load_tile<D, kRows2T>(ks + st * S::kTile, k + kvoff, kvstride,
+                               j * BK, BK, Tkv);
+    tmf::load_tile<D, kRows2T>(vs + st * S::kTile, v + kvoff, kvstride,
+                               j * BK, BK, Tkv);
   };
   for (int i = 0; i < hb; ++i) {
     const long off = (long)b * Tq * qstride + (long)(h0 + i) * D;
-    tmf::load_in<D, kRows2T>(qs + i * bq * S::PI, q + off, qstride, q0, bq,
-                             Tq);
+    tmf::load_tile<D, kRows2T>(qs + i * bq * S::P, q + off, qstride, q0, bq,
+                               Tq);
     tmf::load_tile<D, kRows2T>(dos + i * bq * S::P, dout + off, qstride, q0,
                                bq, Tq);
   }
@@ -166,7 +146,7 @@ flash_bwd_dq_kernel(const In<BF>* __restrict__ q, const In<BF>* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  const T* qw = qs + 16 * warp * S::PI;  // the warp's 16 rows of Q, dO
+  const float* qw = qs + 16 * warp * S::P;  // the warp's 16 rows of Q, dO
   const float* dow = dos + 16 * warp * S::P;
   const tmf::Offs2T<D> off(lane);
   for (int j = jlo; j < jhi; ++j) {
@@ -176,17 +156,14 @@ flash_bwd_dq_kernel(const In<BF>* __restrict__ q, const In<BF>* __restrict__ k,
     tmf::cp_async_wait<1>();  // this thread's copies of block j have landed
     __syncthreads();          // and everyone's
 
-    const T* kst = ks + st * S::kTileI;
+    const float* kst = ks + st * S::kTile;
     const float* vst = vs + st * S::kTile;
     const int kg0 = band.kv_offset + j * BK;
     if (tmf::block_live(band, qg0 + wr, 16, kg0, BK)) {
       // 1. Element e of n-tile n sits at row wr + g (+ 8 for e >= 2), key
       // 8 n + 2 t (+ 1 for odd e).
       float p[NK8][4];
-      if constexpr (BF)
-        tmf::product_abt_bf<D, NK8>(p, qs, 16 * warp, kst, lane);
-      else
-        tmf::product_abt<D, NK8>(p, qw, kst, off);
+      tmf::product_abt<D, NK8>(p, qw, kst, off);
       const bool full = tmf::block_full(band, qg0 + wr, 16, kg0, BK);
       float pmax = 0.f;
 #pragma unroll
@@ -226,41 +203,25 @@ flash_bwd_dq_kernel(const In<BF>* __restrict__ q, const In<BF>* __restrict__ k,
           ds[n][e] = p[n][e] * (ds[n][e] - dv_r[e >> 1]);
 
       // 3. dq += dS K, this block's part summed on the tensor cores.
-      if constexpr (BF) {
-        // dS rounded to bf16 (JAX :407), accumulated into dq in f32.
+      float part[NT8][4] = {};
 #pragma unroll
-        for (int kk = 0; kk < NK8 / 2; ++kk) {
-          unsigned a[4];
-          tmf::c_as_a_bf<NK8>(a, ds, kk);
+      for (int kk = 0; kk < NK8; ++kk) {
+        const float x[4] = {ds[kk][0], ds[kk][2], ds[kk][1], ds[kk][3]};
+        FragA a;
+        a.set<kTruncate>(x);
+        const float* kk8 = kst + 8 * kk * S::P;
 #pragma unroll
-          for (int np = 0; np < NT8 / 2; ++np) {
-            unsigned fb[4];
-            tmf::ldbt_bf<D>(fb, kst, 16 * kk, 16 * np, lane);
-            tmf::mma_bf16(acc[2 * np], a, fb[0], fb[1]);
-            tmf::mma_bf16(acc[2 * np + 1], a, fb[2], fb[3]);
-          }
+        for (int n = 0; n < NT8; ++n) {
+          FragB bk;
+          bk.set<kTruncate>(kk8[off.v0[n % 4] + 32 * (n / 4)],
+                            kk8[off.v1[n % 4] + 32 * (n / 4)]);
+          tmf::mma3(part[n], a, bk);
         }
-      } else {
-        float part[NT8][4] = {};
-#pragma unroll
-        for (int kk = 0; kk < NK8; ++kk) {
-          const float x[4] = {ds[kk][0], ds[kk][2], ds[kk][1], ds[kk][3]};
-          FragA a;
-          a.set<kTruncate>(x);
-          const float* kk8 = kst + 8 * kk * S::P;
-#pragma unroll
-          for (int n = 0; n < NT8; ++n) {
-            FragB bk;
-            bk.set<kTruncate>(kk8[off.v0[n % 4] + 32 * (n / 4)],
-                              kk8[off.v1[n % 4] + 32 * (n / 4)]);
-            tmf::mma3(part[n], a, bk);
-          }
-        }
-#pragma unroll
-        for (int n = 0; n < NT8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
       }
+#pragma unroll
+      for (int n = 0; n < NT8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
     }
     __syncthreads();  // stage st is free again
   }
@@ -278,42 +239,23 @@ flash_bwd_dq_kernel(const In<BF>* __restrict__ q, const In<BF>* __restrict__ k,
   }
 }
 
-template <int D, bool BF>
-cudaError_t launch(const In<BF>* q, const In<BF>* k, const In<BF>* v,
+template <int D>
+cudaError_t launch(const float* q, const float* k, const float* v,
                    const float* dout, const float* lse, const float* dvec,
                    float* dq, int B, int Tq, int Tkv, int H, int Hkv,
                    float scale, tmf::Band band, cudaStream_t stream) {
-  constexpr size_t smem = Smem<D, BF>::bytes;
+  constexpr size_t smem = Smem<D>::bytes;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D, BF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
   const int group = H / Hkv;
   const int hb = group % 4 == 0 ? 4 : group % 2 == 0 ? 2 : 1;
   const int bq = ROWS / hb;
   dim3 grid((Tq + bq - 1) / bq, H / hb, B);
-  flash_bwd_dq_kernel<D, BF><<<grid, tmf::NT, smem, stream>>>(
+  flash_bwd_dq_kernel<D><<<grid, tmf::NT, smem, stream>>>(
       q, k, v, dout, lse, dvec, dq, Tq, Tkv, H, Hkv, hb, scale, band);
   return cudaGetLastError();
-}
-
-template <bool BF>
-int dispatch(const void* qp, const void* kp, const void* vp, const float* dout,
-             const float* lse, const float* dvec, float* dq, int B, int Tq,
-             int Tkv, int H, int Hkv, int D, float scale, int causal,
-             int window, int q_offset, int kv_offset, void* stream) {
-  const tmf::Band band{q_offset, kv_offset, Tkv, causal, window};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* q = static_cast<const In<BF>*>(qp);
-  const auto* k = static_cast<const In<BF>*>(kp);
-  const auto* v = static_cast<const In<BF>*>(vp);
-  switch (D) {
-    case 16: return launch<16, BF>(q, k, v, dout, lse, dvec, dq, B, Tq, Tkv, H, Hkv, scale, band, s);
-    case 32: return launch<32, BF>(q, k, v, dout, lse, dvec, dq, B, Tq, Tkv, H, Hkv, scale, band, s);
-    case 64: return launch<64, BF>(q, k, v, dout, lse, dvec, dq, B, Tq, Tkv, H, Hkv, scale, band, s);
-    case 128: return launch<128, BF>(q, k, v, dout, lse, dvec, dq, B, Tq, Tkv, H, Hkv, scale, band, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
@@ -327,18 +269,13 @@ extern "C" int tm_flash_bwd_dq(const float* q, const float* k, const float* v,
                                int Tkv, int H, int Hkv, int D, float scale,
                                int causal, int window, int q_offset,
                                int kv_offset, void* stream) {
-  return dispatch<false>(q, k, v, dout, lse, dvec, dq, B, Tq, Tkv, H, Hkv, D,
-                         scale, causal, window, q_offset, kv_offset, stream);
-}
-
-// The bf16 route: q / k / v bf16; dout, lse, dvec and dq f32.
-extern "C" int tm_flash_bwd_dq_bf16(const void* q, const void* k,
-                                    const void* v, const float* dout,
-                                    const float* lse, const float* dvec,
-                                    float* dq, int B, int Tq, int Tkv, int H,
-                                    int Hkv, int D, float scale, int causal,
-                                    int window, int q_offset, int kv_offset,
-                                    void* stream) {
-  return dispatch<true>(q, k, v, dout, lse, dvec, dq, B, Tq, Tkv, H, Hkv, D,
-                        scale, causal, window, q_offset, kv_offset, stream);
+  const tmf::Band band{q_offset, kv_offset, Tkv, causal, window};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return launch<16>(q, k, v, dout, lse, dvec, dq, B, Tq, Tkv, H, Hkv, scale, band, s);
+    case 32: return launch<32>(q, k, v, dout, lse, dvec, dq, B, Tq, Tkv, H, Hkv, scale, band, s);
+    case 64: return launch<64>(q, k, v, dout, lse, dvec, dq, B, Tq, Tkv, H, Hkv, scale, band, s);
+    case 128: return launch<128>(q, k, v, dout, lse, dvec, dq, B, Tq, Tkv, H, Hkv, scale, band, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

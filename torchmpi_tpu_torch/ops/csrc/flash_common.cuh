@@ -17,16 +17,15 @@
 // D-contraction, one block of a key or row contraction) and the long sums
 // in f32 on the CUDA cores.
 //
-// bf16 operands (the launchers with a _bf16 suffix) take another route
-// through the same tiles, masks and block skips: the products whose two
-// operands are bf16 in the JAX kernels (Q K^T, P V, dS K, dS^T Q) run
-// mma.sync m16n8k16 with bf16 operands and an f32 accumulator, one product
-// each, fed by ldmatrix from bf16 tiles (half the bytes of an f32 tile);
-// P and dS are rounded to bf16 where the JAX kernels round them
-// (torchmpi_tpu/ops/flash.py:321, :407, :478).  The products with an f32
-// operand (dO V^T and P^T dO: the backward's dO is f32) stay on mma3, with
-// V converted to an f32 tile as it is loaded: V is bf16-exact, so its
-// TF32 lo part is zero.
+// bf16 operands take other routes through the same masks and block skips.
+// The forward's (flash_fwd.cu, the launchers with a _bf16 suffix) keeps
+// its tiles: the products whose two operands are bf16 in the JAX kernel
+// (Q K^T, P V) run mma.sync m16n8k16 with bf16 operands and an f32
+// accumulator, one product each, fed by ldmatrix from bf16 tiles (half the
+// bytes of an f32 tile); P is rounded to bf16 where the JAX kernel rounds
+// it (torchmpi_tpu/ops/flash.py:321).  The backward's are
+// flash_bwd_dq_wgmma.cu and flash_bwd_dkv_wgmma.cu (wgmma on TMA tiles,
+// the products with an f32 operand as bf16 splits).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -345,30 +344,7 @@ __device__ __forceinline__ void load_in(bf16* dst, const bf16* src,
   load_tile_bf<D>(dst, src, stride, t0, rows, T);
 }
 
-// The same rows of a bf16 source converted into a swizzled f32 tile (the
-// f32 route's layout), with plain loads: the operand of an mma3 product
-// whose other operand is f32.  All NT threads.
-template <int D, Swizzle SW = kRowsT>
-__device__ __forceinline__ void load_tile_cvt(float* dst, const bf16* src,
-                                              long stride, int t0, int rows,
-                                              int T) {
-  constexpr int G = D / 8;
-  for (int idx = threadIdx.x; idx < rows * G; idx += NT) {
-    const int r = idx / G, c = (idx % G) * 8, t = t0 + r;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (t < T) raw = *reinterpret_cast<const uint4*>(src + (long)t * stride + c);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-    const float2 f0 = __bfloat1622float2(h[0]), f1 = __bfloat1622float2(h[1]);
-    const float2 f2 = __bfloat1622float2(h[2]), f3 = __bfloat1622float2(h[3]);
-    *reinterpret_cast<float4*>(dst + swz<D, SW>(r, c)) =
-        make_float4(f0.x, f0.y, f1.x, f1.y);
-    *reinterpret_cast<float4*>(dst + swz<D, SW>(r, c + 4)) =
-        make_float4(f2.x, f2.y, f3.x, f3.y);
-  }
-}
-
-// ldmatrix of 8 x 8 bf16 matrices: x4 plain, x4 transposed, x2 transposed
-// (lanes 0-15 give the addresses).
+// ldmatrix of 8 x 8 bf16 matrices: x4 plain, x4 transposed.
 __device__ __forceinline__ void ldsm4u(unsigned (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
@@ -381,14 +357,6 @@ __device__ __forceinline__ void ldsm4t(unsigned (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm2t(unsigned (&r)[2], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];"
-      : "=r"(r[0]), "=r"(r[1])
       : "r"(smem_addr(p))
       : "memory");
 }
@@ -440,14 +408,6 @@ __device__ __forceinline__ void ldbt_bf(unsigned (&b)[4], const bf16* tile,
   ldsm4t(b, tile + swzb<D>(k0 + li + 8 * (mi & 1), n0 + 8 * (mi >> 1)));
 }
 
-// The same for one n-tile (x2).
-template <int D>
-__device__ __forceinline__ void ldbt1_bf(unsigned (&b)[2], const bf16* tile,
-                                         int k0, int n0, int lane) {
-  const int li = lane & 7, mi = (lane >> 3) & 1;
-  ldsm2t(b, tile + swzb<D>(k0 + li + 8 * mi, n0));
-}
-
 // c = [16 rows x 8 NK columns] of A B^T for rows ar0 .. ar0 + 15 of bf16
 // tile a and rows 0 .. 8 NK - 1 of bf16 tile b, contracted over D on the
 // tensor cores, one bf16 product (the f32 accumulator of a bf16 product
@@ -485,6 +445,22 @@ __device__ __forceinline__ void c_as_a_bf(unsigned (&a)[4],
   a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
   a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
   a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+}
+
+// The bf16 wgmma backward's dP of one (q row, key) as the f32 plain
+// version's matmul sums it: an f32 FMA chain over d in order, from dO (f32
+// when LO, else bf16) and V in device memory, at the rows' offsets.
+template <int D, bool LO>
+__device__ __forceinline__ float dp_in_order(const float* dof,
+                                             const bf16* dohi, long orow,
+                                             const bf16* v, long vrow) {
+  float a = 0.f;
+#pragma unroll 1
+  for (int d = 0; d < D; ++d) {
+    const float x = LO ? dof[orow + d] : __bfloat162float(dohi[orow + d]);
+    a = fmaf(x, __bfloat162float(v[vrow + d]), a);
+  }
+  return a;
 }
 
 }  // namespace tmf

@@ -49,6 +49,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wgmma_common.cuh"
 #include "xent_common.cuh"
 
 namespace tmw {
@@ -65,61 +66,10 @@ constexpr int ACC = BN / 2;                   // f32 accumulators a consumer thr
 // The ring, plus room to align it to the 1024 bytes of a swizzle atom.
 constexpr size_t SMEM_BYTES = STAGES * STAGE_BYTES + 1024;
 
-// ---------------------------------------------------------------------------
-// PTX wrappers: mbarriers, TMA, wgmma
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-// Wait until the barrier's phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_addr(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(a), "r"(parity) : "memory");
-  }
-}
-
-// The 64 x 64 box of map `m` at element coordinates (c0 inner, c1 outer)
-// into shared memory at `dst`, completing on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* m,
-                                         uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(m)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// A wgmma shared-memory descriptor in the 128-byte swizzle: start address,
-// leading and stride byte offsets (all >> 4), layout type 1.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
+// The mbarrier, TMA and wgmma wrappers (smem_addr, mbar_*, tma_load,
+// sw128_desc, wgmma_fence / commit / wait, fence_acc, wgmma_256,
+// wgmma_tf32_128) and the host's encode_tiled live in wgmma_common.cuh,
+// shared with the bf16 flash backward.
 
 // The descriptor of k-step `kk` (16 deep) of an operand tile whose box j
 // (64 rows of M or N) starts at base + j * BOX_BYTES.  K-major: the box is
@@ -129,65 +79,8 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
 // the next 64 of M or N is the next box.
 template <bool MN>
 __device__ __forceinline__ uint64_t operand_desc(uint32_t base, int kk) {
-  return MN ? sw128_desc(base + kk * 2048, BOX_BYTES, 1024)
-            : sw128_desc(base + kk * 32, 16, 1024);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving accumulator reads or writes across the
-// asynchronous products.
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define TMW_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define TMW_D16(i) TMW_D4(i), TMW_D4(i + 4), TMW_D4(i + 8), TMW_D4(i + 12)
-
-// d[64 x 256] += A[64 x 16] . B[16 x 256], bf16 in, f32 accumulate; TA / TB
-// set: the operand is MN-major.  d is the wgmma m64nNk16 accumulator
-// fragment: d[4 j + 2 h + c] holds row 16 w + lane / 4 + 8 h, column
-// 8 j + 2 (lane % 4) + c of the thread's warp w in the warpgroup.
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_256(float (&d)[ACC], uint64_t da,
-                                          uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %132, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, %130, %131;\n"
-      "}\n"
-      : TMW_D16(0), TMW_D16(16), TMW_D16(32), TMW_D16(48), TMW_D16(64),
-        TMW_D16(80), TMW_D16(96), TMW_D16(112)
-      : "l"(da), "l"(db), "n"(TA), "n"(TB), "n"(1));
+  return MN ? mnmajor_desc(base, BOX_BYTES, kk)
+            : kmajor_desc(base, BOX_BYTES, kk);
 }
 
 // ---------------------------------------------------------------------------
@@ -277,31 +170,6 @@ gemm_kernel(const __grid_constant__ CUtensorMap ta,
 // May the TMA path read an operand with row pitch ld (elements) at p?
 inline bool tma_ok(const void* p, long ld) {
   return ld % 8 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &q);
-#endif
-    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
 }
 
 // The map of a row-major [rows, cols] matrix of `type` at p, row pitch
@@ -435,33 +303,6 @@ static_assert(TBK * sizeof(float) == 128, "a stage is one 128-byte swizzle row")
 // Stage layout, in BOX_BYTES boxes: A hi, A lo, B hi, B lo.
 constexpr int T_A_LO = A_BOXES, T_B_HI = 2 * A_BOXES,
               T_B_LO = 2 * A_BOXES + TB_BOXES;
-
-// d[64 x 128] += A[64 x 8] . B[8 x 128], tf32 in (read from float32 bits,
-// the low 13 ignored), f32 accumulate; both operands K-major.  d is laid
-// out as wgmma_256's fragment, 16 column groups of 8.
-__device__ __forceinline__ void wgmma_tf32_128(float (&d)[TACC], uint64_t da,
-                                               uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1;\n"
-      "}\n"
-      : TMW_D16(0), TMW_D16(16), TMW_D16(32), TMW_D16(48)
-      : "l"(da), "l"(db), "n"(1));
-}
-
-#undef TMW_D16
-#undef TMW_D4
 
 // One consumer warpgroup's loop (c: its 64 rows of the tile): the stages'
 // products into `part`, in groups of TFLUSH stages, each group's `part`

@@ -4,8 +4,12 @@ The PyTorch counterpart of ``torchmpi_tpu/ops/flash.py``.  Three CUDA
 kernels (``ops/csrc/flash_fwd.cu``, ``flash_bwd_dq.cu``,
 ``flash_bwd_dkv.cu``) replace the three Pallas TPU kernels
 (``_flash_kernel`` :265, ``_flash_bwd_dq_kernel`` :358,
-``_flash_bwd_dkv_kernel`` :424).  The forward has a second launcher,
-``flash_fwd_residual``: ``_flash_kernel``'s ``residuals`` epilogue
+``_flash_bwd_dkv_kernel`` :424); on bf16 operands the two backward
+kernels are ``flash_bwd_dq_wgmma.cu`` and ``flash_bwd_dkv_wgmma.cu`` (the
+``"wgmma_bf16"`` route below), which read dO split into bf16 parts by a
+pre-pass kernel, ``flash_bwd_split``.  The
+forward has a second launcher, ``flash_fwd_residual``: ``_flash_kernel``'s
+``residuals`` epilogue
 (:337-356), the un-normalized numerator and the row statistics m and l
 that each step of ring attention combines (``parallel/sequence.py``).
 Each has a plain PyTorch version here, written out in dense torch ops with
@@ -24,18 +28,26 @@ aligned (they copy rows in 16-byte pieces), on one of two routes chosen by
 q / k / v's dtype (all three the same): ``"tf32x3"`` for float32 (every
 product TF32 in the three-product form; the model casts q / k / v to
 float32 before attention, ``models/transformer.py``, as the JAX model
-does) and ``"bf16"`` for bfloat16 (the products with two bf16 operands in
-bf16 on the tensor cores, P and dS rounded to bf16 before them where the
-JAX kernels round them: ``torchmpi_tpu/ops/flash.py:321``, :407, :478).
-dO, lse and D are float32 on both routes; o is in q's dtype, the
-residual form's num, m and l and the gradients float32, as in JAX.  Any
-other dtype, or mixed q / k / v, raises on the card.  The plain versions
-take any floating dtype and round P and dS to v's, k's and q's dtype
-where the kernels do.  They are built for head dims 16, 32, 64 and 128; the
-wrappers take any D up to 128 by zero-padding q / k / v / dO to the next
-of those (the scale is an argument, taken from the true D, so the zero
-columns add nothing to q . k, and v's give output columns that are sliced
-off).  A larger D raises: it needs tiles of its own.
+does) and, for bfloat16, ``"bf16"`` in the forward and ``"wgmma_bf16"``
+in the backward (``bwd_route``).  On both the products with two bf16
+operands run in bf16 on the tensor cores, P and dS rounded to bf16
+before them where the JAX kernels round them
+(``torchmpi_tpu/ops/flash.py:321``, :407, :478); ``"wgmma_bf16"`` runs
+wgmma on TMA tiles, its products with a float32 operand (dO V^T, P^T dO)
+as sums of bf16 products of split operands.  lse and D are float32 on
+every route; dO is float32 or bf16 (JAX upcasts dO to float32, :667, and
+a bf16 dO is exact there: ``"tf32x3"`` upcasts it, ``"wgmma_bf16"`` reads
+it as it is and skips its zero lo part).  o is in q's dtype, the residual
+form's num, m and l
+and the gradients float32, as in JAX.  Any other dtype, or mixed q / k /
+v, raises on the card.  The plain versions take any floating dtype and
+round P and dS to v's, k's and q's dtype where the kernels do.  They are
+built for head dims 16, 32, 64 and 128 (``"wgmma_bf16"`` for 64 and 128);
+the wrappers take any D up to 128 by zero-padding q / k / v / dO to the
+next of their route's (the scale is an
+argument, taken from the true D, so the zero columns add nothing to
+q . k, and v's give output columns that are sliced off).  A larger D
+raises: it needs tiles of its own.
 Masked scores are the finite ``NEG_INF``; a row with no valid key yields
 output 0 and lse ``+1e30``, never NaN.
 """
@@ -55,18 +67,31 @@ from . import _build
 # the running-max rescale never computes (-inf) - (-inf).
 NEG_INF = -1e30
 
-# Kernel launches per wrapper since the last reset_launches(): a run can
-# show that its path went through the kernels.
-LAUNCHES = {name: 0 for name in (*_build.KERNELS, *_build.SHARED_LIBRARY)
-            if name.startswith("flash_")}
-# The route of each launch, by q / k / v's dtype.
+# The route of each launch, by q / k / v's dtype; the backward's bf16
+# route is WGMMA_ROUTE (bwd_route).
 ROUTES = ("tf32x3", "bf16")
 ROUTE_DTYPES = {torch.float32: "tf32x3", torch.bfloat16: "bf16"}
-ROUTE_LAUNCHES = {name: {r: 0 for r in ROUTES} for name in LAUNCHES}
+WGMMA_ROUTE = "wgmma_bf16"
+# Each wrapper's routes; flash_bwd_split (the dO split that the backward's
+# wgmma_bf16 route reads) runs only on that route.
+KERNEL_ROUTES = {
+    "flash_fwd": ROUTES,
+    "flash_bwd_dq": ("tf32x3", WGMMA_ROUTE),
+    "flash_bwd_dkv": ("tf32x3", WGMMA_ROUTE),
+    "flash_fwd_residual": ROUTES,
+    "flash_bwd_split": (WGMMA_ROUTE,),
+}
+# Kernel launches per wrapper since the last reset_launches(): a run can
+# show that its path went through the kernels.
+LAUNCHES = {name: 0 for name in KERNEL_ROUTES}
+ROUTE_LAUNCHES = {name: {r: 0 for r in routes}
+                  for name, routes in KERNEL_ROUTES.items()}
 
-# Head dims the kernels are instantiated for (flash_*.cu, the D switch);
-# any other D up to the largest runs zero-padded to the next of them.
+# Head dims the kernels are instantiated for (flash_*.cu, the D switch;
+# flash_bwd_*_wgmma.cu, those of the wgmma_bf16 route); any other D up to
+# the largest runs zero-padded to the next of its route's.
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+WGMMA_HEAD_DIMS = (64, 128)
 
 
 def reset_launches() -> None:
@@ -224,6 +249,13 @@ def flash_bwd_dq_plain(q, k, v, do, lse, dvec, *, scale: float, causal: bool,
     return scale * torch.einsum("bhqk,bkhd->bqhd", _round_to(ds, k.dtype), kr)
 
 
+def flash_bwd_split_plain(do):
+    """(hi, lo) of the split kernel: hi = bf16(dO), lo = bf16(dO - hi),
+    both rounded to nearest even (hi + lo is dO to 2^-16 of |dO|)."""
+    hi = do.to(torch.bfloat16)
+    return hi, (do - hi.float()).to(torch.bfloat16)
+
+
 def flash_bwd_dkv_plain(q, k, v, do, lse, dvec, *, scale: float,
                         causal: bool, window: Optional[int] = None,
                         q_offset: int = 0, kv_offset: int = 0):
@@ -248,8 +280,7 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, dvec, *, scale: float,
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C launcher and pointer count of each kernel; after the pointers every
 # launcher takes B, Tq, Tkv, H, Hkv, D, scale, causal, window, q_offset,
-# kv_offset and the stream.  The bf16 route's launcher is the same name
-# with a _bf16 suffix, in the same library.
+# kv_offset and the stream.
 _SIGNATURES = {
     "flash_fwd": ("tm_flash_fwd", 5),
     "flash_bwd_dq": ("tm_flash_bwd_dq", 7),
@@ -257,6 +288,21 @@ _SIGNATURES = {
     "flash_fwd_residual": ("tm_flash_fwd_residual", 6),
 }
 _SCALARS = [_I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P]
+
+
+def _symbol(name: str, route: str):
+    """(library, C launcher, pointer count) of kernel ``name`` on
+    ``route``.  The bf16 route's launcher carries a _bf16 suffix in the
+    same library; the wgmma_bf16 route's is ``<name>_wgmma``'s _bf16
+    launcher, which takes dO as three pointers (its bf16 hi part, its lo
+    part and the float32 dO, both null for a bf16 dO) where the others
+    take one."""
+    sym, n = _SIGNATURES[name]
+    if route == "tf32x3":
+        return name, sym, n
+    if route == "bf16":
+        return name, sym + "_bf16", n
+    return f"{name}_wgmma", sym + "_bf16", n + 2
 
 
 def route_of(name: str, q, k, v) -> str:
@@ -272,20 +318,32 @@ def route_of(name: str, q, k, v) -> str:
     return route
 
 
+def bwd_route(name: str, q, k, v) -> str:
+    """The backward kernels' route: :func:`route_of`'s, with bf16 q / k / v
+    on ``"wgmma_bf16"``."""
+    route = route_of(name, q, k, v)
+    return WGMMA_ROUTE if route == "bf16" else route
+
+
 def _launch(name: str, tensors, q, k, scale, causal, window, q_offset,
-            kv_offset) -> None:
+            kv_offset, route: Optional[str] = None) -> None:
     """Launch kernel ``name`` on ``tensors`` (q, k, v, the other inputs,
-    then the outputs) on its route, on the current stream of q's device;
-    raise on a refused launch.  Every tensor after q / k / v is float32
-    but the bf16 forward's o."""
+    then the outputs) on ``route`` (by default q / k / v's), on the current
+    stream of q's device; raise on a refused launch.  Every tensor after
+    q / k / v is float32 but the bf16 forward's o and, on the wgmma_bf16
+    route, dO's bf16 parts (operands 3 and 4; None stands for a null
+    pointer)."""
     dev = q.device
-    route = route_of(name, *tensors[:3])
+    route = route or route_of(name, *tensors[:3])
     for i, t in enumerate(tensors):
+        if t is None:
+            continue
         if t.device != dev:
             raise ValueError(f"{name}: all tensors must be on {dev}, got "
                              f"{t.device}")
-        want = q.dtype if i < 3 or (name == "flash_fwd" and i == 3) \
-            else torch.float32
+        want = q.dtype if i < 3 or (name == "flash_fwd" and i == 3) else \
+            torch.bfloat16 if route == WGMMA_ROUTE and i in (3, 4) else \
+            torch.float32
         if t.dtype != want:
             raise TypeError(f"{name}: the {route} route takes {want} "
                             f"operand {i}, got {t.dtype}")
@@ -293,12 +351,11 @@ def _launch(name: str, tensors, q, k, scale, causal, window, q_offset,
             raise ValueError(f"{name}: the kernel takes contiguous tensors")
     B, Tq, H, D = q.shape
     Tkv, Hkv = k.shape[1], k.shape[2]
-    sym, n_ptrs = _SIGNATURES[name]
-    if route == "bf16":
-        sym += "_bf16"
+    lib, sym, n_ptrs = _symbol(name, route)
     with torch.cuda.device(dev):
-        _build.launch(name, sym, [_P] * n_ptrs + _SCALARS,
-                      *[t.data_ptr() for t in tensors], B, Tq, Tkv, H, Hkv,
+        _build.launch(lib, sym, [_P] * n_ptrs + _SCALARS,
+                      *[None if t is None else t.data_ptr()
+                        for t in tensors], B, Tq, Tkv, H, Hkv,
                       D, float(scale), int(causal), window or 0, q_offset,
                       kv_offset, torch.cuda.current_stream(dev).cuda_stream)
     LAUNCHES[name] += 1
@@ -313,25 +370,26 @@ def _check_aligned(name: str, tensors) -> None:
         raise ValueError(f"{name}: the kernel takes {names} 16-byte aligned")
 
 
-def kernel_head_dim(D: int, name: str = "flash") -> int:
-    """The head dim the kernels run ``D`` at: the least of
-    KERNEL_HEAD_DIMS that holds it.  Raises for a larger D, which needs
-    tiles of its own (ROADMAP queue B, variant 4)."""
-    for d in KERNEL_HEAD_DIMS:
+def kernel_head_dim(D: int, name: str = "flash",
+                    dims=KERNEL_HEAD_DIMS) -> int:
+    """The head dim the kernels run ``D`` at: the least of ``dims`` (the
+    route's: KERNEL_HEAD_DIMS, or WGMMA_HEAD_DIMS) that holds it.  Raises
+    for a larger D, which needs tiles of its own (ROADMAP queue B,
+    variant 4)."""
+    for d in dims:
         if D <= d:
             return d
-    raise ValueError(f"{name}: head_dim {D} > {KERNEL_HEAD_DIMS[-1]}, the "
-                     f"largest the kernels are built for "
-                     f"({KERNEL_HEAD_DIMS}); a larger head dim needs its own "
-                     f"tiling")
+    raise ValueError(f"{name}: head_dim {D} > {dims[-1]}, the largest the "
+                     f"kernels are built for ({dims}); a larger head dim "
+                     f"needs its own tiling")
 
 
-def pad_head_dim(name: str, *ts: torch.Tensor):
+def pad_head_dim(name: str, *ts: torch.Tensor, dims=KERNEL_HEAD_DIMS):
     """``ts`` (q, k, v, dO) with the last dim zero-padded to
-    :func:`kernel_head_dim` of it, each a new contiguous tensor, or the
-    tensors themselves when D is a kernel head dim."""
+    :func:`kernel_head_dim` of it in ``dims``, each a new contiguous
+    tensor, or the tensors themselves when D is one of ``dims``."""
     D = ts[0].shape[-1]
-    Dk = kernel_head_dim(D, name)
+    Dk = kernel_head_dim(D, name, dims)
     if Dk == D:
         return ts
     return tuple(torch.nn.functional.pad(t, (0, Dk - D)) for t in ts)
@@ -390,46 +448,113 @@ def flash_fwd_residual(q, k, v, *, scale: float, causal: bool,
     return _unpad(num, D), m, l
 
 
+def flash_bwd_split(do):
+    """(hi, lo) [dO's shape], bfloat16: hi = bf16(dO), lo = bf16(dO - hi)
+    — the ``flash_bwd_split`` kernel on a CUDA tensor (float32,
+    contiguous, 16-byte aligned), its plain version on a CPU tensor."""
+    if _device_kind(do) == "cpu":
+        return flash_bwd_split_plain(do)
+    if do.dtype != torch.float32 or not do.is_contiguous() or \
+            do.data_ptr() % 16:
+        raise ValueError("flash_bwd_split: the kernel takes a contiguous, "
+                         "16-byte aligned float32 dO")
+    hi = torch.empty(do.shape, dtype=torch.bfloat16, device=do.device)
+    lo = torch.empty_like(hi)
+    if do.numel():
+        with torch.cuda.device(do.device):
+            _build.launch("flash_bwd_split", "tm_flash_bwd_split",
+                          [_P, _P, _P, ctypes.c_long, _P], do.data_ptr(),
+                          hi.data_ptr(), lo.data_ptr(), do.numel(),
+                          torch.cuda.current_stream(do.device).cuda_stream)
+        LAUNCHES["flash_bwd_split"] += 1
+        ROUTE_LAUNCHES["flash_bwd_split"][WGMMA_ROUTE] += 1
+    return hi, lo
+
+
+def _bwd_operands(name: str, q, k, v, do):
+    """The backward kernels' operands on the card, made once for both:
+    (route, D, q, k, v, dO) with q / k / v / dO zero-padded to the route's
+    kernel head dim and dO as the route's launcher takes it, a tuple:
+    (float32 dO,) on "tf32x3" (a bf16 dO upcast there, as JAX upcasts
+    it); on "wgmma_bf16" (hi, lo, float32 dO) from flash_bwd_split, or a
+    bf16 dO as it came with no lo part, (dO, None, None)."""
+    D = q.shape[-1]
+    route = bwd_route(name, q, k, v)
+    if route != WGMMA_ROUTE or do.dtype != torch.bfloat16:
+        do = do.float()
+    q, k, v, do = pad_head_dim(
+        name, q, k, v, do,
+        dims=WGMMA_HEAD_DIMS if route == WGMMA_ROUTE else KERNEL_HEAD_DIMS)
+    _check_aligned(name, (q, k, v, do))
+    if route != WGMMA_ROUTE:
+        return route, D, q, k, v, (do,)
+    if do.dtype == torch.bfloat16:
+        return route, D, q, k, v, (do, None, None)
+    return route, D, q, k, v, (*flash_bwd_split(do), do)
+
+
+def _no_keys_or_rows(route, q, k) -> bool:
+    """No q row or no key on the wgmma_bf16 route: every gradient is 0,
+    and no launch (its TMA maps take no empty dimension)."""
+    return route == WGMMA_ROUTE and not (q.numel() and k.numel())
+
+
+def _bwd_dq(ops, lse, dvec, kw):
+    route, D, q, k, v, do = ops
+    if _no_keys_or_rows(route, q, k):
+        return torch.zeros(q.shape[:-1] + (D,), dtype=torch.float32,
+                           device=q.device)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    if q.numel():
+        _launch("flash_bwd_dq", (q, k, v, *do, lse, dvec, dq), q, k,
+                route=route, **kw)
+    return _unpad(dq, D)
+
+
+def _bwd_dkv(ops, lse, dvec, kw):
+    route, D, q, k, v, do = ops
+    if _no_keys_or_rows(route, q, k):
+        dk = torch.zeros(k.shape[:-1] + (D,), dtype=torch.float32,
+                         device=k.device)
+        return dk, dk.clone()
+    dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.empty_like(dk)
+    if k.numel():
+        _launch("flash_bwd_dkv", (q, k, v, *do, lse, dvec, dk, dv), q, k,
+                route=route, **kw)
+    return _unpad(dk, D), _unpad(dv, D)
+
+
 def flash_bwd_dq(q, k, v, do, lse, dvec, *, scale: float, causal: bool,
                  window: Optional[int] = None, q_offset: int = 0,
                  kv_offset: int = 0):
     """dq [B, Tq, H, D], float32 — the ``flash_bwd_dq`` kernel on CUDA
-    tensors, its plain version on CPU tensors."""
+    tensors (on its wgmma_bf16 route after splitting a float32 dO), its
+    plain version on CPU tensors."""
     _check_shapes(q, k, v, causal, window, q_offset, kv_offset)
     _check_bwd_shapes(q, do, lse, dvec)
     kw = dict(scale=scale, causal=causal, window=window, q_offset=q_offset,
               kv_offset=kv_offset)
     if _device_kind(q) == "cpu":
         return flash_bwd_dq_plain(q, k, v, do, lse, dvec, **kw)
-    D = q.shape[-1]
-    q, k, v, do = pad_head_dim("flash_bwd_dq", q, k, v, do)
-    _check_aligned("flash_bwd_dq", (q, k, v, do))
-    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    if q.numel():
-        _launch("flash_bwd_dq", (q, k, v, do, lse, dvec, dq), q, k, **kw)
-    return _unpad(dq, D)
+    return _bwd_dq(_bwd_operands("flash_bwd_dq", q, k, v, do), lse, dvec,
+                   kw)
 
 
 def flash_bwd_dkv(q, k, v, do, lse, dvec, *, scale: float, causal: bool,
                   window: Optional[int] = None, q_offset: int = 0,
                   kv_offset: int = 0):
     """(dk, dv) [B, Tkv, Hkv, D], float32, summed over each GQA group —
-    the ``flash_bwd_dkv`` kernel on CUDA tensors, its plain version on CPU
-    tensors."""
+    the ``flash_bwd_dkv`` kernel on CUDA tensors (on its wgmma_bf16 route
+    after splitting a float32 dO), its plain version on CPU tensors."""
     _check_shapes(q, k, v, causal, window, q_offset, kv_offset)
     _check_bwd_shapes(q, do, lse, dvec)
     kw = dict(scale=scale, causal=causal, window=window, q_offset=q_offset,
               kv_offset=kv_offset)
     if _device_kind(q) == "cpu":
         return flash_bwd_dkv_plain(q, k, v, do, lse, dvec, **kw)
-    D = q.shape[-1]
-    q, k, v, do = pad_head_dim("flash_bwd_dkv", q, k, v, do)
-    _check_aligned("flash_bwd_dkv", (q, k, v, do))
-    dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
-    dv = torch.empty_like(dk)
-    if k.numel():
-        _launch("flash_bwd_dkv", (q, k, v, do, lse, dvec, dk, dv), q, k, **kw)
-    return _unpad(dk, D), _unpad(dv, D)
+    return _bwd_dkv(_bwd_operands("flash_bwd_dkv", q, k, v, do), lse, dvec,
+                    kw)
 
 
 # ---------------------------------------------------------------------------
@@ -482,14 +607,20 @@ def flash_attention_bwd(q, k, v, do, lse, dvec, *, causal: bool,
                         window: Optional[int] = None):
     """Gradients (dq, dk, dv) in float32, probabilities recomputed from
     ``lse``; ``dvec[b, h, i] = dO_i . O_i`` comes from the caller.  Runs
-    the dQ kernel, then the dK/dV kernel.  ``block_q`` / ``block_k`` are
-    ignored, as in :func:`flash_attention`."""
-    do = do.float().contiguous()
+    the dQ kernel, then the dK/dV kernel, on operands made once for both
+    (on the wgmma_bf16 route a float32 dO is split once; a bf16 dO is
+    read as it came).  ``block_q`` / ``block_k`` are ignored, as in
+    :func:`flash_attention`."""
     kw = dict(scale=scale, causal=causal, window=window, q_offset=q_offset,
               kv_offset=kv_offset)
-    dq = flash_bwd_dq(q, k, v, do, lse, dvec, **kw)
-    dk, dv = flash_bwd_dkv(q, k, v, do, lse, dvec, **kw)
-    return dq, dk, dv
+    if _device_kind(q) == "cpu":
+        do = do.float()
+        return (flash_bwd_dq(q, k, v, do, lse, dvec, **kw),
+                *flash_bwd_dkv(q, k, v, do, lse, dvec, **kw))
+    _check_shapes(q, k, v, causal, window, q_offset, kv_offset)
+    _check_bwd_shapes(q, do, lse, dvec)
+    ops = _bwd_operands("flash_attention_bwd", q, k, v, do.contiguous())
+    return (_bwd_dq(ops, lse, dvec, kw), *_bwd_dkv(ops, lse, dvec, kw))
 
 
 class _FlashAttentionFn(torch.autograd.Function):
